@@ -19,6 +19,8 @@ setup(
             "images/*.jpg",
             "data/native/*.cc",
         ],
+        # the PyTorch/CUDA port: kernel sources, built with nvcc at first use
+        "blind_image_denoising_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     install_requires=[
         "jax",
