@@ -12,6 +12,11 @@ packaged artifacts by path.
     den = bidt.load_model("unet_laplacian_v6_tpu_scratch")   # on the card
     out = den(uint8_image)     # [H, W, 3] or [B, H, W, 3] uint8 in and out
 
+Training (``blind_image_denoising_torch.training``): the JAX package's
+builders — ``loss_function_builder``, ``optimizer_builder``,
+``create_train_state``, ``build_train_step`` — over the same configs
+(``configs``: the JAX package's packaged configs by name, read in place).
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -22,9 +27,12 @@ from .config import input_shape_fixer, load_config
 
 __version__ = "0.1.0"
 
-# the JAX package's packaged artifacts, read in place
-_pretrained_dir = (_pathlib.Path(__file__).resolve().parent.parent
-                   / "blind_image_denoising_tpu" / "pretrained")
+# the JAX package's packaged artifacts and configs, read in place
+_jax_pkg_dir = (_pathlib.Path(__file__).resolve().parent.parent
+                / "blind_image_denoising_tpu")
+_pretrained_dir = _jax_pkg_dir / "pretrained"
+configs = {p.stem: str(p) for p in sorted((_jax_pkg_dir / "configs").glob(
+    "*.json"))}
 
 # `models` is also the name of the subpackage: import it first, then
 # rebind the attribute, so `bidt.models` is the registry dict while
@@ -67,4 +75,5 @@ def load_model(name_or_path, quant: bool = False, tta=False, dtype=None,
                                blend=blend, device=device)
 
 
-__all__ = ["load_config", "input_shape_fixer", "models", "load_model"]
+__all__ = ["load_config", "input_shape_fixer", "models", "configs",
+           "load_model"]

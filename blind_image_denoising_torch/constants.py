@@ -1,5 +1,12 @@
-"""Framework-wide default constants (the serving path's subset of
-``blind_image_denoising_tpu/constants.py``)."""
+"""Framework-wide default constants (the serving and training paths'
+subset of ``blind_image_denoising_tpu/constants.py``)."""
 
 DEFAULT_EPSILON = 1e-3
 DEFAULT_LN_EPSILON = 1e-3
+
+# metric names of the train step
+MAE_LOSS_STR = "mae_loss"
+MSE_LOSS_STR = "mse_loss"
+SSIM_LOSS_STR = "ssim_loss"
+TOTAL_LOSS_STR = "total_loss"
+REGULARIZATION_LOSS_STR = "regularization_loss"

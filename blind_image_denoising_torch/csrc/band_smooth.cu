@@ -9,6 +9,15 @@
 // in row-major tap order, then multiplied by 1/count computed from the
 // index (the plain PyTorch version, band_smooth_plain, does the same
 // arithmetic in the same order).
+//
+// The backward, dx = g_band + A^T (g_smooth - g_band), replaces the JAX
+// custom VJP _band_smooth_bwd / _pool_transpose (XLA there; a kernel here
+// because autograd cannot see through the forward kernel). A^T z sums
+// z * inv_count over the k^2 windows that cover a pixel: the transposed
+// padding (k-1-lo, lo). Also memory-bound: one read each of g_band and
+// g_smooth, one write of dx; the neighbours' loads hit L1/L2. float32
+// sums in the tap order of band_smooth_bwd_plain, written in the grad
+// dtype.
 #include "common.cuh"
 
 namespace {
@@ -82,7 +91,85 @@ int launch(const void* x, void* band, void* smooth, int B, int H, int W,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(256) band_smooth_bwd_kernel(
+    const T* __restrict__ g_band, const T* __restrict__ g_smooth,
+    T* __restrict__ dx, int B, int H, int W, int C, int k) {
+  constexpr int V = Vec16<T>::N;
+  const int cv_n = C / V;
+  const long long n = (long long)B * H * W * cv_n;
+  const int lo = (k - 1) / 2;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int cv = (int)(i % cv_n);
+    const long long pix = i / cv_n;
+    const int w = (int)(pix % W);
+    const long long bh = pix / W;
+    const int h = (int)(bh % H);
+    const long long b = bh / H;
+    // the windows covering (h, w) are those of outputs y0 .. y0 + k - 1
+    // (output y's window spans rows y - lo .. y - lo + k - 1), same for w
+    const int y0 = h - (k - 1 - lo), x0 = w - (k - 1 - lo);
+    float acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = 0.f;
+    for (int dy = 0; dy < k; ++dy) {
+      const int y = y0 + dy;
+      if (y < 0 || y >= H) continue;
+      const int rows = min(y - lo + k, H) - max(y - lo, 0);
+      for (int dxx = 0; dxx < k; ++dxx) {
+        const int xx = x0 + dxx;
+        if (xx < 0 || xx >= W) continue;
+        const int cols = min(xx - lo + k, W) - max(xx - lo, 0);
+        const float inv = __fdiv_rn(1.f, (float)(rows * cols));
+        const long long off = ((b * H + y) * W + xx) * C + cv * V;
+        Vec16<T> tb, ts;
+        tb.raw = *reinterpret_cast<const uint4*>(g_band + off);
+        ts.raw = *reinterpret_cast<const uint4*>(g_smooth + off);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          acc[j] = __fadd_rn(acc[j], __fmul_rn(__fsub_rn(bid::to_float(ts[j]),
+                                                         bid::to_float(tb[j])),
+                                               inv));
+      }
+    }
+    const long long off = ((b * H + h) * W + w) * C + cv * V;
+    Vec16<T> gc, out;
+    gc.raw = *reinterpret_cast<const uint4*>(g_band + off);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      out[j] = bid::from_float<T>(__fadd_rn(bid::to_float(gc[j]), acc[j]));
+    *reinterpret_cast<uint4*>(dx + off) = out.raw;
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* g_band, const void* g_smooth, void* dx, int B,
+               int H, int W, int C, int k, cudaStream_t stream) {
+  constexpr int V = Vec16<T>::N;
+  if (C % V != 0 || k < 1 || B < 0 || H < 0 || W < 0) return BID_ERR_BAD_ARGUMENT;
+  const long long n = (long long)B * H * W * (C / V);
+  if (n == 0) return 0;
+  const int threads = 256;
+  long long blocks = (n + threads - 1) / threads;
+  const long long cap = (long long)bid::sm_count() * 16;
+  if (blocks > cap) blocks = cap;
+  band_smooth_bwd_kernel<T><<<(int)blocks, threads, 0, stream>>>(
+      static_cast<const T*>(g_band), static_cast<const T*>(g_smooth),
+      static_cast<T*>(dx), B, H, W, C, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int bid_band_smooth_bwd(const void* g_band, const void* g_smooth,
+                                   void* dx, int B, int H, int W, int C,
+                                   int k, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd<float>(g_band, g_smooth, dx, B, H, W, C, k, s);
+  if (dtype == 1) return launch_bwd<bid::bf16>(g_band, g_smooth, dx, B, H, W, C, k, s);
+  return BID_ERR_UNSUPPORTED;
+}
 
 extern "C" int bid_band_smooth(const void* x, void* band, void* smooth,
                                int B, int H, int W, int C, int k, int dtype,

@@ -8,7 +8,9 @@ layer-normalized, projected to q/k/v by 1×1 convs with ``leaky_relu``
 keys, resized back, and mixed by a 1×1 output conv and a per-channel
 gain. It returns the branch; the stage adds the skip. JAX runs it in
 XLA, so the products here are ``torch.matmul``; the softmax is taken in
-float32. Dropout is the identity at inference.
+float32. In training, dropout of ``dropout_rate`` hits the softmax
+weights element by element, drawn from the caller's generator; the four
+convs carry ``kernel_regularizer`` (soft-orthonormal in the flagship).
 """
 
 from typing import Tuple
@@ -21,6 +23,7 @@ from ..ops.resize import nchw, nhwc, resize_bilinear
 from .conv import ConvBlock
 from .multipliers import ChannelLearnableMultiplier
 from .norm import FastLayerNorm
+from .stochastic import drop_mask
 
 
 class ConvolutionalSelfAttention(nn.Module):
@@ -30,28 +33,34 @@ class ConvolutionalSelfAttention(nn.Module):
                  attention_activation: str = "leaky_relu",
                  output_activation: str = "linear",
                  attention_resolution: Tuple[int, int] = (16, 16),
+                 dropout_rate: float = 0.0, kernel_regularizer=None,
                  dtype=None):
         super().__init__()
         if use_bn:
             raise NotImplementedError(
                 "BatchNorm in attention is not ported yet (ROADMAP Queue 1 "
                 "item 9)")
+        if not 0.0 <= dropout_rate <= 1.0:
+            raise ValueError("attention dropout_rate must be within [0, 1]")
+        self.dropout_rate = float(dropout_rate)
         self.resolution = tuple(int(v) for v in attention_resolution)
         self.channels = int(attention_channels)
         self.ln = (FastLayerNorm(features, epsilon=DEFAULT_LN_EPSILON,
                                  dtype=dtype) if use_ln else None)
         qkv = dict(kernel_size=1, activation=attention_activation,
-                   dtype=dtype)
+                   kernel_regularizer=kernel_regularizer, dtype=dtype)
         self.query_conv = ConvBlock(features, self.channels, **qkv)
         self.key_conv = ConvBlock(features, self.channels, **qkv)
         self.value_conv = ConvBlock(features, self.channels, **qkv)
         self.output_conv = ConvBlock(self.channels, features, kernel_size=1,
                                      activation=output_activation,
+                                     kernel_regularizer=kernel_regularizer,
                                      dtype=dtype)
         self.gamma = ChannelLearnableMultiplier(features) if use_gamma \
             else None
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, train: bool = False,
+                generator: torch.Generator = None) -> torch.Tensor:
         """inputs: NCHW → the attention branch, NCHW."""
         b, _, h, w = inputs.shape
         rh, rw = self.resolution
@@ -66,6 +75,11 @@ class ConvolutionalSelfAttention(nn.Module):
                    tokens(self.value_conv))
         scores = q @ k.transpose(1, 2)
         weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        if train and self.dropout_rate > 0.0:
+            keep = drop_mask(weights.shape, self.dropout_rate, generator,
+                             weights.device)
+            weights = torch.where(keep, weights / (1.0 - self.dropout_rate),
+                                  torch.zeros_like(weights))
         attended = (weights @ v).transpose(1, 2).reshape(
             b, self.channels, rh, rw)
         y = nchw(resize_bilinear(nhwc(attended), (h, w)))

@@ -11,8 +11,11 @@ sit outside any TPU kernel, so they go to ``F.conv2d``. SAME padding
 follows XLA: an odd total pads one more on the high side.
 
 Not ported yet, and raising: BatchNorm, bias, transposed, separable and
-grouped convs (ROADMAP Queue 1 item 9). Dropout is the identity at
-inference.
+grouped convs (ROADMAP Queue 1 item 9), and dropout inside the block.
+
+``kernel_regularizer`` (a config spec for ``ops/regularizers.builder``)
+gives the block a ``penalty()`` of its float32 kernel: the term the JAX
+block sows into its ``losses`` collection during training.
 """
 
 from typing import Optional
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..constants import DEFAULT_LN_EPSILON
+from ..ops.regularizers import builder as regularizer_builder
 from ..ops.resize import same_pads
 from .activations import activation_fn
 from .norm import FastLayerNorm
@@ -61,7 +65,8 @@ class ConvBlock(nn.Module):
                  activation: str = "linear", use_ln: bool = False,
                  use_bn: bool = False, use_bias: bool = False,
                  groups: int = 1, transpose: bool = False,
-                 separable: bool = False, dtype=None):
+                 separable: bool = False, kernel_regularizer=None,
+                 dtype=None):
         super().__init__()
         if use_bn or use_bias or transpose or separable or groups != 1:
             raise NotImplementedError(
@@ -82,6 +87,14 @@ class ConvBlock(nn.Module):
         self.ln = (FastLayerNorm(out, epsilon=DEFAULT_LN_EPSILON, dtype=dtype)
                    if use_ln else None)
         self.act = activation_fn(activation)
+        self.regularizer = (None if kernel_regularizer is None
+                            else regularizer_builder(kernel_regularizer))
+
+    def penalty(self):
+        """The kernel's regularization term (float32), or None."""
+        if self.regularizer is None:
+            return None
+        return self.regularizer(self.kernel.float())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv2d_same(x, self.kernel, self.strides, self.groups, self.dtype)
@@ -99,6 +112,11 @@ def conv_block_from_params(in_features: int, params: dict, dtype=None,
     if str(p.get("padding", "same")).lower() != "same":
         raise NotImplementedError(
             "VALID padding is not ported yet (ROADMAP Queue 1 item 9)")
+    if (p.get("dropout_rate", 0.0) or 0.0) > 0.0 or \
+            (p.get("spatial_dropout_rate", 0.0) or 0.0) > 0.0:
+        raise NotImplementedError(
+            "dropout inside a conv block is not ported yet (ROADMAP Queue 1 "
+            "item 9)")
     return ConvBlock(
         in_features, features=p.get("filters", 0),
         kernel_size=p.get("kernel_size", 3),
@@ -107,4 +125,7 @@ def conv_block_from_params(in_features: int, params: dict, dtype=None,
         activation=p.get("activation", "linear"),
         use_ln=use_ln, use_bias=p.get("use_bias", False),
         groups=p.get("groups", 1), transpose=p.get("transpose", False),
-        separable=p.get("separable", False), dtype=dtype)
+        separable=p.get("separable", False),
+        kernel_regularizer=p.get("kernel_regularizer",
+                                 p.get("depthwise_regularizer", None)),
+        dtype=dtype)

@@ -2,42 +2,65 @@
 ``blind_image_denoising_tpu/layers/convnext.py`` ``ConvNextBlock`` plus
 the skip add of ``models/unet_laplacian.py`` ``residual_stage``).
 
-At inference the whole unit — depthwise K×K → LayerNorm → 1×1 expand
-×4 + leaky ReLU 0.1 → 1×1 project → gain → + skip — is one call of the
-fused kernel ``ops/pallas_convnext.convnext_block``. Unlike the JAX
-module, :meth:`ConvNextBlock.forward` therefore returns ``x + block(x)``;
-stochastic depth and dropout are the identity at inference.
+Two paths compute the same unit — depthwise K×K → LayerNorm → 1×1
+expand ×4 + leaky ReLU 0.1 → 1×1 project → gain:
+
+* :meth:`ConvNextBlock.branch`, from PyTorch ops with autograd
+  (``F.conv2d`` with groups = C, :class:`FastLayerNorm`, two 1×1
+  products): the training path, as the JAX train step runs the flax unit
+  in XLA. It returns the branch alone, so the stage can drop it per
+  sample before the skip add.
+* the fused inference kernel ``ops/pallas_convnext.convnext_block``
+  (K1), which has no backward, fed from a detached weight cache.
+  :meth:`ConvNextBlock.forward` takes it only when no gradient is
+  wanted (serving); otherwise it returns ``x + branch(x)``, so a
+  gradient is never silently dropped.
 
 Parameter names mirror the flax tree (``conv_1.kernel`` [C, 1, K, K],
 ``conv_1.ln.scale`` [C], ``conv_2.kernel`` [E, C], ``conv_3.kernel``
 [C, E], ``gamma.w_multiplier`` [C]), so ``weights.params_from_flax``
-output loads directly.
+output loads directly. ``depthwise_regularizer`` and
+``pointwise_regularizer`` give the kernels their ``penalty()``.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..constants import DEFAULT_LN_EPSILON
 from ..ops.pallas_convnext import convnext_block
+from ..ops.regularizers import builder as regularizer_builder
 from ..ops.resize import nchw, nhwc
+from .conv import conv2d_same
 from .multipliers import ChannelLearnableMultiplier
 from .norm import FastLayerNorm
 
 _LEAKY_SLOPES = {"leaky_relu_01": 0.1, "leakyrelu_01": 0.1}
 
 
-class _Depthwise(nn.Module):
-    def __init__(self, features: int, kernel_size: int):
+class _Regularized(nn.Module):
+    def __init__(self, shape, regularizer):
         super().__init__()
-        self.kernel = nn.Parameter(
-            torch.zeros(features, 1, kernel_size, kernel_size))
+        self.kernel = nn.Parameter(torch.zeros(shape))
+        self.regularizer = (None if regularizer is None
+                            else regularizer_builder(regularizer))
+
+    def penalty(self):
+        if self.regularizer is None:
+            return None
+        return self.regularizer(self.kernel.float())
+
+
+class _Depthwise(_Regularized):
+    def __init__(self, features: int, kernel_size: int, regularizer=None):
+        super().__init__((features, 1, kernel_size, kernel_size), regularizer)
         self.ln = FastLayerNorm(features, epsilon=DEFAULT_LN_EPSILON)
 
 
-class _Pointwise(nn.Module):
-    def __init__(self, out_features: int, in_features: int):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(out_features, in_features))
+class _Pointwise(_Regularized):
+    def __init__(self, out_features: int, in_features: int,
+                 regularizer=None):
+        super().__init__((out_features, in_features), regularizer)
 
 
 class ConvNextBlock(nn.Module):
@@ -45,7 +68,8 @@ class ConvNextBlock(nn.Module):
     no bias, linear depthwise, ``leaky_relu_01`` expansion)."""
 
     def __init__(self, features: int, kernel_size: int, expansion: int,
-                 activation: str = "leaky_relu_01"):
+                 activation: str = "leaky_relu_01",
+                 depthwise_regularizer=None, pointwise_regularizer=None):
         super().__init__()
         key = activation.strip().lower()
         if key not in _LEAKY_SLOPES:
@@ -57,9 +81,9 @@ class ConvNextBlock(nn.Module):
                 "even depthwise kernels are not ported yet (ROADMAP Queue "
                 "1 item 9)")
         self.slope = _LEAKY_SLOPES[key]
-        self.conv_1 = _Depthwise(features, kernel_size)
-        self.conv_2 = _Pointwise(expansion, features)
-        self.conv_3 = _Pointwise(features, expansion)
+        self.conv_1 = _Depthwise(features, kernel_size, depthwise_regularizer)
+        self.conv_2 = _Pointwise(expansion, features, pointwise_regularizer)
+        self.conv_3 = _Pointwise(features, expansion, pointwise_regularizer)
         self.gamma = ChannelLearnableMultiplier(features)
         self._cache = None
 
@@ -82,7 +106,22 @@ class ConvNextBlock(nn.Module):
             self._cache = (key, w)
         return self._cache[1]
 
+    def branch(self, x: torch.Tensor) -> torch.Tensor:
+        """The unit without its skip, in x's dtype, differentiable. x: NCHW
+        (channels_last)."""
+        c = x.shape[1]
+        t = self.conv_1.ln(conv2d_same(x, self.conv_1.kernel, groups=c))
+        e = self.conv_2.kernel.shape[0]
+        h = F.leaky_relu(F.conv2d(t, self.conv_2.kernel.to(x.dtype).view(
+            e, c, 1, 1)), self.slope)
+        p = F.conv2d(h, self.conv_3.kernel.to(x.dtype).view(c, e, 1, 1))
+        return self.gamma(p)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NCHW (channels_last) → x + block(x), same dtype."""
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad
+                                       for p in self.parameters())):
+            return x + self.branch(x)
         w = self.kernel_weights(x.dtype)
         return nchw(convnext_block(nhwc(x), slope=self.slope, **w))

@@ -1,5 +1,5 @@
 """U-Net Laplacian backbone, the flagship family (counterpart of
-``blind_image_denoising_tpu/models/unet_laplacian.py``), inference only.
+``blind_image_denoising_tpu/models/unet_laplacian.py``).
 
 Per level d: a stage of ConvNext residual units (self-attention units at
 the deepest level when ``use_self_attention``), the output LayerNorm,
@@ -15,12 +15,23 @@ the flax tree (``stem_conv``, ``encoder_{d}_{w}``, ``encoder_{d}_{w}_attn``,
 ``encoder_{d}_out_ln``, ``down_{d}``, ``up_{d}``, ``decoder_{d}_{w}``,
 ``decoder_{d}_out_ln``), so ``weights.params_from_flax`` loads directly.
 
+``forward(x, train=True, generator=g)`` is the training forward: each
+ConvNext unit runs its autograd path (``ConvNextBlock.branch``), each
+residual branch passes stochastic depth at ``linspace(0,
+depth_drop_rate, width)`` per level before the skip add, and the
+attention units apply their dropout; every random mask comes from the
+generator. The band split is then differentiable through its backward
+kernel. The kernels carry their regularizers (``kernel_regularizer``,
+soft-orthonormal 1×1s when the config asks, L1 on the gains); the sum is
+``ops/regularizers.regularization_loss(model)``.
+
 Options outside the flagship's subset raise ``NotImplementedError``
 naming the ROADMAP item that ports them.
 """
 
 from typing import Any, Dict, List
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,7 +42,9 @@ from ..layers.conv import conv_block_from_params
 from ..layers.convnext import ConvNextBlock
 from ..layers.norm import FastLayerNorm
 from ..layers.sampling import Downsample, Upsample
+from ..layers.stochastic import StochasticDepth
 from ..ops.pallas_pyramid import band_smooth
+from ..ops.regularizers import soft_ortho_spec
 from ..ops.resize import nchw, nhwc
 
 # options whose non-default value is not ported: key -> the value the
@@ -98,13 +111,34 @@ class UnetLaplacianBackbone(nn.Module):
         self.use_out_norm = bool(cfg.get("use_output_normalization", False))
         self.multiple_scale_outputs = cfg.get("multiple_scale_outputs", True)
         self.act = activation_fn(activation)
+        if max(0.0, cfg.get("dropout_rate", -1.0)) > 0.0 or \
+                max(0.0, cfg.get("spatial_dropout_rate", -1.0)) > 0.0:
+            raise NotImplementedError(
+                "dropout inside the ConvNext units is not ported yet "
+                "(ROADMAP Queue 1 item 9)")
+        soft_orthogonal = cfg.get("use_soft_orthogonal_regularization", False)
+        soft_orthonormal = cfg.get("use_soft_orthonormal_regularization",
+                                   False)
+        if soft_orthogonal and soft_orthonormal:
+            raise ValueError("soft orthogonal and orthonormal regularization "
+                             "are mutually exclusive")
+        kernel_regularizer = cfg.get("kernel_regularizer", "l2")
+        reg_1x1 = (soft_ortho_spec(bool(soft_orthonormal))
+                   if soft_orthogonal or soft_orthonormal
+                   else kernel_regularizer)
+        self.kernel_initializer = cfg.get("kernel_initializer",
+                                          "glorot_normal")
+        csa_dropout = float(cfg.get(
+            "convolutional_self_attention_dropout_rate", 0.0))
+        depth_drop_rate = max(0.0, float(cfg.get("depth_drop_rate", 0.0)))
 
         def level_filters(d: int) -> int:
             f = int(round(filters * max(1.0, mult ** d)))
             return min(max_filters, f) if max_filters > 0 else f
 
         self.filters = [level_filters(d) for d in range(depth + 1)]
-        same = dict(strides=(1, 1), padding="same", use_bias=False)
+        same = dict(strides=(1, 1), padding="same", use_bias=False,
+                    kernel_regularizer=kernel_regularizer)
 
         self.stem_conv = conv_block_from_params(
             in_channels, dict(same, kernel_size=(5, 5), filters=filters,
@@ -118,11 +152,27 @@ class UnetLaplacianBackbone(nn.Module):
                                     ConvolutionalSelfAttention(
                                         f, filters, use_ln=True,
                                         attention_activation="leaky_relu",
+                                        dropout_rate=csa_dropout,
+                                        kernel_regularizer=soft_ortho_spec(
+                                            True),
                                         dtype=dtype))
                 else:
                     self.add_module(f"{prefix}_{d}_{w}",
-                                    ConvNextBlock(f, kernel, 4 * f,
-                                                  activation))
+                                    ConvNextBlock(
+                                        f, kernel, 4 * f, activation,
+                                        depthwise_regularizer=(
+                                            kernel_regularizer),
+                                        pointwise_regularizer=reg_1x1))
+                rate = self.drop_rates[d][w]
+                if rate > 0.0:
+                    self.add_module(f"{prefix}_{d}_{w}_droppath",
+                                    StochasticDepth(rate))
+
+        # per-level drop-path rates, as plain floats like the JAX module
+        self.drop_rates = [
+            [float(r) for r in np.linspace(0.0, depth_drop_rate,
+                                           self.widths[d])]
+            for d in range(depth)]
 
         def out_ln(name: str, d: int):
             if self.use_out_norm:
@@ -146,22 +196,32 @@ class UnetLaplacianBackbone(nn.Module):
             stage("decoder", d, dec_k[d], allow_attention=False)
             out_ln(f"decoder_{d}_out_ln", d)
 
-    def _stage(self, v: torch.Tensor, prefix: str, d: int) -> torch.Tensor:
+    def _stage(self, v: torch.Tensor, prefix: str, d: int, train: bool,
+               generator) -> torch.Tensor:
         for w in range(self.widths[d]):
             attn = getattr(self, f"{prefix}_{d}_{w}_attn", None)
-            if attn is not None:
-                v = v + attn(v)
-            else:
-                v = getattr(self, f"{prefix}_{d}_{w}")(v)  # unit adds skip
+            unit = getattr(self, f"{prefix}_{d}_{w}", None)
+            if not train and unit is not None:
+                v = unit(v)                       # the unit adds the skip
+                continue
+            branch = (attn(v, train=train, generator=generator)
+                      if attn is not None else unit.branch(v))
+            drop = getattr(self, f"{prefix}_{d}_{w}_droppath", None)
+            if drop is not None:
+                branch = drop(branch, train=train, generator=generator)
+            v = v + branch
         return v
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator = None) -> List[torch.Tensor]:
         """x: [B, C_in, H, W] normalized input → per-level features, finest
-        first (NCHW, channels_last, the compute dtype)."""
+        first (NCHW, channels_last, the compute dtype). ``train`` selects
+        the training forward, whose random masks come from
+        ``generator``."""
         x = self.stem_conv(x.contiguous(memory_format=torch.channels_last))
         skips = {}
         for d in range(self.depth):
-            x = self._stage(x, "encoder", d)
+            x = self._stage(x, "encoder", d, train, generator)
             if self.use_out_norm:
                 x = getattr(self, f"encoder_{d}_out_ln")(x)
             x = self.act(x)
@@ -174,7 +234,7 @@ class UnetLaplacianBackbone(nn.Module):
         decoded = {self.depth - 1: skips[self.depth - 1]}
         for d in range(self.depth - 2, -1, -1):
             v = skips[d] + getattr(self, f"up_{d}")(decoded[d + 1])
-            v = self._stage(v, "decoder", d)
+            v = self._stage(v, "decoder", d, train, generator)
             if self.use_out_norm:
                 v = getattr(self, f"decoder_{d}_out_ln")(v)
             decoded[d] = v

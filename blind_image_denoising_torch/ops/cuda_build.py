@@ -126,6 +126,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bid_convnext_block.restype = i
     lib.bid_band_smooth.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.bid_band_smooth.restype = i
+    lib.bid_band_smooth_bwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.bid_band_smooth_bwd.restype = i
+    lib.bid_corrupt_noise.argtypes = [p, p, p, i, ctypes.c_longlong,
+                                      ctypes.c_uint32, f, f, f, f, i, i, i, p]
+    lib.bid_corrupt_noise.restype = i
     lib.bid_error_string.argtypes = [i]
     lib.bid_error_string.restype = ctypes.c_char_p
 

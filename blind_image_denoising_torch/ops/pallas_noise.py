@@ -1,0 +1,208 @@
+"""Fused training-noise corruption, K3 (counterpart of
+``blind_image_denoising_tpu/ops/pallas_noise.py`` ``corrupt_batch_pallas``,
+Pallas body ``_corrupt_kernel``), on when ``tpu.pallas_noise`` is set.
+
+Per sample: with probability 0.5 multiplicative noise ``x·(1 + σz)``,
+σ ~ U[mlo, mhi]; then with probability 0.5 additive noise ``+ σz``,
+σ ~ U[alo, ahi]; then rounding half to even. ``z`` is a Box–Muller
+normal redrawn once where it lies beyond ±2, then clipped to ±2 — the
+TPU kernel's approximation of the ±2σ truncated normal
+(``ops/noise.py`` draws the exact one).
+
+CUDA kernel (``csrc/corrupt_noise.cu``): one pass over the batch, one
+read and one write per element. Its random numbers come from a
+Philox4x32-10 written into the kernel, keyed by the seed: every draw is a
+function of (seed, sample, element index, stream) alone, so
+:func:`corrupt_batch_plain` repeats the kernel's draws in PyTorch — the
+kernel and its plain version agree on every sample's flags and stds and,
+up to the last bits of ``logf``/``sincosf``, on every element. The
+streams are not the TPU's, so the port is held to K3's distribution, not
+its bits. Philox and the transcendentals make it bound by instruction
+issue, not by memory: about 240 instructions per element of a sample
+with both noises on, 155 with one and 27 with none, against 8 bytes
+(``chip_smoke.py`` counts them from the kernel's SASS). It is CUDA C++
+rather than Triton because Triton's ``tl.randn`` stream cannot be
+repeated by a plain version, and the port's other kernels already build
+that way (``ops/cuda_build.py``).
+
+``corrupt_noise`` takes an NHWC float32 batch like the JAX function. A
+tensor on the CPU goes through :func:`corrupt_batch_plain`; a CUDA
+tensor launches the kernel or raises.
+"""
+
+import ctypes
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import cuda_build
+
+# kernel launches made by corrupt_noise (the plain path does not count)
+launches = 0
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_TWO_PI_F32 = torch.tensor(2.0 * math.pi, dtype=torch.float32).item()
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32 bits of the 64-bit product of the uint32 constant
+    ``a`` and uint32 values ``b`` (int64 tensor), in int64 arithmetic:
+    ``b`` is split into 16-bit halves so no product exceeds 2^48."""
+    t = a * (b & 0xFFFF)
+    s = a * (b >> 16) + (t >> 16)
+    return s >> 16, ((s & 0xFFFF) << 16) | (t & 0xFFFF)
+
+
+def philox4x32_10(counter: Sequence[torch.Tensor],
+                  key: Tuple[int, int]) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 on int64 tensors holding uint32 values (Random123's
+    round function and key schedule); returns four int64 tensors."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """23 mantissa bits → float32 in [0, 1) (the TPU kernel's rule)."""
+    one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return one - 1.0
+
+
+def _box_muller(a: torch.Tensor,
+                b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z0, z): the first Box–Muller normal of the words (a, b), and the
+    truncated normal — z0 where |z0| <= 2, else the pair's second
+    normal, clipped to ±2."""
+    u1, u2 = _bits_to_uniform(a), _bits_to_uniform(b)
+    r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+    angle = u2 * _TWO_PI_F32
+    z0, z1 = r * torch.cos(angle), r * torch.sin(angle)
+    return z0, torch.clamp(torch.where(z0.abs() <= 2.0, z0, z1), -2.0, 2.0)
+
+
+def _f32(v: float) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _ranges(additive_noise, multiplicative_noise):
+    use_mul = multiplicative_noise is not None and len(multiplicative_noise) > 0
+    use_add = additive_noise is not None and len(additive_noise) > 0
+    mlo, mhi = ((float(min(multiplicative_noise)),
+                 float(max(multiplicative_noise))) if use_mul else (0.0, 0.0))
+    alo, ahi = ((float(min(additive_noise)), float(max(additive_noise)))
+                if use_add else (0.0, 0.0))
+    return use_mul, use_add, mlo, mhi, alo, ahi
+
+
+def sample_params_plain(seed: int, batch_size: int, mlo: float, mhi: float,
+                        alo: float, ahi: float, device=None) -> torch.Tensor:
+    """Per-sample [mul_on, mul_std, add_on, add_std], [B, 4] float32, from
+    Philox stream 1 — the kernel's per-sample header."""
+    b = torch.arange(batch_size, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(b)
+    w = philox4x32_10((zero, b, zero + 1, zero), (int(seed) & _MASK32, 0))
+    u = [_bits_to_uniform(v) for v in w]
+    lo_m, lo_a = _f32(mlo).to(device), _f32(alo).to(device)
+    mul_std = lo_m + u[1] * (_f32(mhi).to(device) - lo_m)
+    add_std = lo_a + u[3] * (_f32(ahi).to(device) - lo_a)
+    return torch.stack([(u[0] > 0.5).float(), mul_std,
+                        (u[2] > 0.5).float(), add_std], dim=1)
+
+
+def normal_draws_plain(seed: int, batch_size: int, n: int,
+                       device=None) -> Tuple[torch.Tensor, ...]:
+    """Philox stream 0 for ``n`` elements of each sample: the first
+    Box–Muller draw and the truncated normal, for the multiplicative and
+    the additive noise — (z0_mul, z_mul, z0_add, z_add), each [B, n]."""
+    e = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    b = torch.arange(batch_size, dtype=torch.int64, device=device)[:, None]
+    zero = torch.zeros((batch_size, n), dtype=torch.int64, device=device)
+    w = philox4x32_10((zero + e, zero + b, zero, zero),
+                      (int(seed) & _MASK32, 0))
+    return _box_muller(w[0], w[1]) + _box_muller(w[2], w[3])
+
+
+def corrupt_batch_plain(seed: int, batch: torch.Tensor,
+                        additive_noise: Optional[Sequence[float]] = None,
+                        multiplicative_noise: Optional[Sequence[float]] = None,
+                        round_values: bool = True,
+                        return_params: bool = False):
+    """Plain PyTorch version of the kernel: the same Philox draws and the
+    same float32 steps in the same order. Returns the corrupted batch, or
+    (batch, [B, 4] per-sample params) with ``return_params``."""
+    b = batch.shape[0]
+    use_mul, use_add, mlo, mhi, alo, ahi = _ranges(additive_noise,
+                                                   multiplicative_noise)
+    params = sample_params_plain(seed, b, mlo, mhi, alo, ahi, batch.device)
+    y = batch.float()
+    if use_mul or use_add:
+        flat = y.reshape(b, -1)
+        _, z_mul, _, z_add = normal_draws_plain(seed, b, flat.shape[1],
+                                                batch.device)
+        if use_mul:
+            on = params[:, 0:1] > 0
+            flat = torch.where(on, flat * (1.0 + params[:, 1:2] * z_mul),
+                               flat)
+        if use_add:
+            on = params[:, 2:3] > 0
+            flat = torch.where(on, flat + params[:, 3:4] * z_add, flat)
+        y = flat.reshape(batch.shape)
+    if round_values:
+        y = torch.round(y)
+    return (y, params) if return_params else y
+
+
+def corrupt_noise(seed: int, batch: torch.Tensor,
+                  additive_noise: Optional[Sequence[float]] = None,
+                  multiplicative_noise: Optional[Sequence[float]] = None,
+                  round_values: bool = True, return_params: bool = False):
+    """Fused corruption of a float32 [B, H, W, C] batch in [0, 255].
+    ``seed``: an int in [0, 2^32) (the train step draws one per micro-batch
+    on the host). With ``return_params`` also returns the per-sample
+    [mul_on, mul_std, add_on, add_std], [B, 4] float32."""
+    global launches
+    if batch.ndim != 4:
+        raise ValueError(f"corrupt_noise takes [B, H, W, C], got "
+                         f"{tuple(batch.shape)}")
+    if batch.device.type == "cpu":
+        return corrupt_batch_plain(seed, batch, additive_noise,
+                                   multiplicative_noise, round_values,
+                                   return_params)
+    if batch.device.type != "cuda":
+        raise ValueError(f"corrupt_noise: unsupported device {batch.device}")
+    if batch.dtype != torch.float32:
+        raise TypeError(f"corrupt_noise kernel takes float32, got "
+                        f"{batch.dtype}")
+    use_mul, use_add, mlo, mhi, alo, ahi = _ranges(additive_noise,
+                                                   multiplicative_noise)
+    b = batch.shape[0]
+    n = batch[0].numel() if b else 0
+    if n > _MASK32 or b > 65535:
+        raise ValueError(f"corrupt_noise kernel takes B <= 65535 and "
+                         f"H·W·C < 2^32, got {tuple(batch.shape)}")
+    x = batch.contiguous()
+    out = torch.empty_like(x)
+    params = (torch.empty((b, 4), dtype=torch.float32, device=x.device)
+              if return_params else None)
+    if x.numel():
+        lib = cuda_build.library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.bid_corrupt_noise(
+                x.data_ptr(), out.data_ptr(),
+                params.data_ptr() if params is not None else None,
+                b, n, ctypes.c_uint32(int(seed) & _MASK32), mlo, mhi, alo,
+                ahi, int(use_mul), int(use_add), int(bool(round_values)),
+                stream)
+        cuda_build.check(lib, rc, "corrupt_noise kernel")
+        launches += 1
+    return (out, params) if return_params else out

@@ -24,6 +24,17 @@ over.
 ``band_smooth`` takes NHWC tensors like the JAX function. A tensor on
 the CPU goes through :func:`band_smooth_plain`, the same arithmetic in
 plain PyTorch; a CUDA tensor launches the kernel or raises.
+
+Training differentiates through it: ``band_smooth`` is a
+``torch.autograd.Function`` (the JAX custom VJP
+``laplacian_band_smooth``) whose backward is
+``dx = g_band + Aᵀ(g_smooth − g_band)`` — :func:`band_smooth_bwd`, a
+second kernel of the same file (one thread per 16-byte channel vector,
+summing ``(g_smooth − g_band)·inv_count`` over the k² windows that cover
+the pixel, in float32), with :func:`band_smooth_bwd_plain` beside it
+(JAX ``_band_smooth_bwd`` / ``_pool_transpose``, in the same tap order).
+When no gradient is wanted (serving under ``inference_mode``) autograd
+records nothing and only the forward kernel runs.
 """
 
 from typing import Tuple
@@ -32,8 +43,12 @@ import torch
 
 from . import cuda_build
 
-# kernel launches made by band_smooth (the plain path does not count)
+# kernel launches made by band_smooth and band_smooth_bwd (the plain
+# paths do not count), and the grads band_smooth_bwd had to copy into
+# NHWC-contiguous memory before its launch
 launches = 0
+bwd_launches = 0
+bwd_grad_copies = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,11 +59,12 @@ def band_smooth_plain(x: torch.Tensor,
     """Plain PyTorch version of the kernel, in its order of operations:
     float32 tap sum (rows outer, columns inner, out-of-image taps add
     zero), times the float32 reciprocal of the in-image tap count, then
-    ``band = x − smooth``; both outputs cast to the input dtype."""
+    ``band = x − smooth``; both outputs cast to the input dtype (float64
+    inputs are summed in float64)."""
     b, h, w, c = x.shape
     k = int(kernel_size)
     lo = (k - 1) // 2
-    xf = x.float()
+    xf = x.to(_acc_dtype(x))
     xp = torch.nn.functional.pad(xf, (0, 0, lo, k - 1 - lo, lo, k - 1 - lo))
     acc = torch.zeros_like(xf)
     for dy in range(k):
@@ -62,6 +78,10 @@ def band_smooth_plain(x: torch.Tensor,
     return band.to(x.dtype), smooth.to(x.dtype)
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _valid_taps(n: int, k: int, lo: int, device) -> torch.Tensor:
     """In-image taps of a window starting at i − lo, for each i < n."""
     i = torch.arange(n, device=device)
@@ -70,24 +90,25 @@ def _valid_taps(n: int, k: int, lo: int, device) -> torch.Tensor:
     return (last - first).float()
 
 
-def band_smooth(x: torch.Tensor,
-                kernel_size: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, H, W, C] → (band, smooth), both [B, H, W, C] in x's dtype."""
+def _check(t: torch.Tensor, what: str) -> None:
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
+                        f"{t.dtype}")
+    vec = 16 // t.element_size()
+    if t.shape[-1] % vec:
+        raise ValueError(f"{what} kernel needs C divisible by {vec} for "
+                         f"{t.dtype}, got C={t.shape[-1]}")
+
+
+def _band_smooth_fwd(x: torch.Tensor,
+                     kernel_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
-    if x.ndim != 4:
-        raise ValueError(f"band_smooth takes [B, H, W, C], got {x.shape}")
     if x.device.type == "cpu":
         return band_smooth_plain(x, kernel_size)
     if x.device.type != "cuda":
         raise ValueError(f"band_smooth: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"band_smooth kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
+    _check(x, "band_smooth")
     b, h, w, c = x.shape
-    vec = 16 // x.element_size()
-    if c % vec:
-        raise ValueError(f"band_smooth kernel needs C divisible by {vec} "
-                         f"for {x.dtype}, got C={c}")
     x = x.contiguous()
     band, smooth = torch.empty_like(x), torch.empty_like(x)
     if x.numel() == 0:
@@ -101,3 +122,83 @@ def band_smooth(x: torch.Tensor,
     cuda_build.check(lib, rc, "band_smooth kernel")
     launches += 1
     return band, smooth
+
+
+def band_smooth_bwd_plain(g_band: torch.Tensor, g_smooth: torch.Tensor,
+                          kernel_size: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel:
+    ``dx = g_band + Aᵀ(g_smooth − g_band)`` with ``Aᵀz`` the sum of
+    ``z·inv_count`` over the k² shifts with the transposed padding
+    (k−1−lo, lo), in float32 and in the kernel's tap order (rows outer,
+    columns inner); cast to the grads' dtype (float64 grads are summed in
+    float64)."""
+    b, h, w, c = g_band.shape
+    k = int(kernel_size)
+    lo = (k - 1) // 2
+    gb = g_band.to(_acc_dtype(g_band))
+    rows = _valid_taps(h, k, lo, g_band.device)
+    cols = _valid_taps(w, k, lo, g_band.device)
+    inv = 1.0 / (rows[:, None] * cols[None, :])
+    z = (g_smooth.to(gb.dtype) - gb) * inv[None, :, :, None]
+    zp = torch.nn.functional.pad(z, (0, 0, k - 1 - lo, lo, k - 1 - lo, lo))
+    acc = torch.zeros_like(gb)
+    for dy in range(k):
+        for dx in range(k):
+            acc = acc + zp[:, dy:dy + h, dx:dx + w, :]
+    return (gb + acc).to(g_band.dtype)
+
+
+def band_smooth_bwd(g_band: torch.Tensor, g_smooth: torch.Tensor,
+                    kernel_size: int = 2) -> torch.Tensor:
+    """Gradient of :func:`band_smooth` with respect to x, [B, H, W, C] in
+    the grads' dtype. The grads are made contiguous in NHWC first: the
+    model's permuted views can hand them over in another layout, and each
+    such copy is counted in ``bwd_grad_copies``."""
+    global bwd_launches, bwd_grad_copies
+    if g_band.shape != g_smooth.shape or g_band.ndim != 4:
+        raise ValueError(f"band_smooth_bwd takes two [B, H, W, C] grads, "
+                         f"got {tuple(g_band.shape)} and "
+                         f"{tuple(g_smooth.shape)}")
+    if g_band.device.type == "cpu":
+        return band_smooth_bwd_plain(g_band, g_smooth, kernel_size)
+    if g_band.device.type != "cuda":
+        raise ValueError(f"band_smooth_bwd: unsupported device "
+                         f"{g_band.device}")
+    if g_smooth.dtype != g_band.dtype or g_smooth.device != g_band.device:
+        raise TypeError("band_smooth_bwd: grads differ in dtype or device")
+    _check(g_band, "band_smooth_bwd")
+    b, h, w, c = g_band.shape
+    gb, gs = g_band.contiguous(), g_smooth.contiguous()
+    dx = torch.empty_like(gb)
+    if gb.numel() == 0:
+        return dx
+    bwd_grad_copies += (gb is not g_band) + (gs is not g_smooth)
+    lib = cuda_build.library()
+    with torch.cuda.device(gb.device):
+        stream = torch.cuda.current_stream(gb.device).cuda_stream
+        rc = lib.bid_band_smooth_bwd(
+            gb.data_ptr(), gs.data_ptr(), dx.data_ptr(), b, h, w, c,
+            int(kernel_size), _DTYPE_CODES[gb.dtype], stream)
+    cuda_build.check(lib, rc, "band_smooth_bwd kernel")
+    bwd_launches += 1
+    return dx
+
+
+class _BandSmooth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel_size):
+        ctx.kernel_size = kernel_size
+        return _band_smooth_fwd(x, kernel_size)
+
+    @staticmethod
+    def backward(ctx, g_band, g_smooth):
+        return band_smooth_bwd(g_band, g_smooth, ctx.kernel_size), None
+
+
+def band_smooth(x: torch.Tensor,
+                kernel_size: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, H, W, C] → (band, smooth), both [B, H, W, C] in x's dtype;
+    differentiable when a gradient is wanted."""
+    if x.ndim != 4:
+        raise ValueError(f"band_smooth takes [B, H, W, C], got {x.shape}")
+    return _BandSmooth.apply(x, int(kernel_size))

@@ -59,6 +59,22 @@ def avg_pool_same(x: torch.Tensor, window, strides) -> torch.Tensor:
     return summed / _window_sum(ones, window, strides)
 
 
+def avg_pool_valid(x: torch.Tensor, window, strides) -> torch.Tensor:
+    """TF AveragePooling2D(padding='valid') on NHWC: the window sum over
+    whole windows only, divided by the window size."""
+    (kh, kw), (sh, sw) = (tuple(int(v) for v in window),
+                          tuple(int(v) for v in strides))
+    _, h, w, _ = x.shape
+    oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+    acc = None
+    for dy in range(kh):
+        for dx in range(kw):
+            tap = x[:, dy:dy + (oh - 1) * sh + 1:sh,
+                    dx:dx + (ow - 1) * sw + 1:sw, :]
+            acc = tap if acc is None else acc + tap
+    return acc / float(kh * kw)
+
+
 def upsample_2x_nearest(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2× upsample (Keras UpSampling2D 'nearest')."""
     b, h, w, c = x.shape

@@ -1,0 +1,95 @@
+"""Training state (counterpart of
+``blind_image_denoising_tpu/training/train_state.py``).
+
+The state holds the model (whose parameters are the params), the
+optimizer state, the number of applied steps, and two generators: one on
+the device for the train step's masks and flips, and one on the host
+that draws the noise kernel's int32 seed per micro-batch (the JAX step
+folds its noise key into an int32 the same way).
+
+:func:`create_train_state` loads params — a flat state dict such as
+``weights.params_from_flax`` of a packaged artifact — or, without them,
+initializes the model from the seed with the port's own initializers:
+glorot-normal (flax's ``variance_scaling(1, "fan_avg",
+"truncated_normal")``) for every conv and 1×1 kernel, ones for the
+LayerNorm scales, ``0.01 · truncated normal`` for the gains. The draws
+are the port's own, so a seeded init matches the JAX one in its
+statistics, not its values.
+"""
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..inference.export import resolve_device
+from ..layers.multipliers import ChannelLearnableMultiplier
+from ..layers.norm import FastLayerNorm
+from ..ops.noise import truncated_normal
+from .optimizer import Adam, AdamState
+
+# std of the standard normal truncated to ±2
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    opt_state: AdamState
+    generator: torch.Generator           # on the model's device
+    host_generator: torch.Generator      # on the CPU: noise-kernel seeds
+    step: int = 0
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+def _fans(kernel: torch.Tensor):
+    """(fan_in, fan_out) of an OIHW kernel or an [out, in] matrix."""
+    receptive = math.prod(kernel.shape[2:]) if kernel.ndim == 4 else 1
+    return kernel.shape[1] * receptive, kernel.shape[0] * receptive
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded initialization of every parameter of the hydra, in place."""
+    initializer = getattr(getattr(model, "backbone", model),
+                          "kernel_initializer", "glorot_normal")
+    if str(initializer).strip().lower() != "glorot_normal":
+        raise NotImplementedError(
+            f"kernel_initializer [{initializer}] is not ported yet (ROADMAP "
+            f"Queue 1 item 8); only glorot_normal is")
+    for module in model.modules():
+        if isinstance(module, FastLayerNorm):
+            module.scale.fill_(1.0)
+        elif isinstance(module, ChannelLearnableMultiplier):
+            w = module.w_multiplier
+            w.copy_(0.01 * truncated_normal(w.shape, generator))
+        elif isinstance(getattr(module, "kernel", None), nn.Parameter):
+            k = module.kernel
+            fan_in, fan_out = _fans(k)
+            std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
+            k.copy_(std * truncated_normal(k.shape, generator))
+
+
+def create_train_state(model: nn.Module, tx: Adam, seed: int = 0,
+                       params: Optional[Dict[str, torch.Tensor]] = None,
+                       device=None) -> TrainState:
+    """Move ``model`` to ``device`` (default: the card; ``"cpu"`` must be
+    asked for), load ``params`` or initialize from ``seed``, and create
+    the optimizer state and the generators."""
+    dev = resolve_device(device)
+    if params is not None:
+        model.load_state_dict(params, strict=True)
+    else:
+        init_params(model, torch.Generator().manual_seed(int(seed)))
+    model.to(dev)
+    model.requires_grad_(True)
+    return TrainState(
+        model=model,
+        opt_state=tx.init(list(model.parameters())),
+        generator=torch.Generator(device=dev).manual_seed(int(seed)),
+        host_generator=torch.Generator().manual_seed(int(seed) + 1))

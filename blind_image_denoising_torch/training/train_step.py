@@ -1,0 +1,181 @@
+"""The train step (counterpart of
+``blind_image_denoising_tpu/training/train_step.py`` ``build_train_step``).
+
+In the JAX order: the uint8 or float32 NHWC batch is widened to float32
+on the device → random flips → rounding → noise corruption (the K3
+kernel, ``ops/pallas_noise.corrupt_noise``, when ``use_pallas_noise``;
+else the exact ``ops/noise.corrupt_batch``) → the multiscale targets →
+the training forward → per-scale losses on the float32 outputs × the
+deep-supervision weights → regularization × its multiplier → backward.
+Gradients are accumulated over ``grad_accum`` micro-batches and divided
+by their number, then clipped and applied by the optimizer. Metrics keep
+the JAX names (``total_loss``, ``regularization_loss``,
+``scale_{i}/{mae,mse,ssim,total}_loss``, ``grad_norm``) and stay on the
+device: nothing in a step waits for it. The noise kernel's seed is drawn
+on the host from the state's CPU generator, one int32 per micro-batch.
+
+Options of the JAX step that this port does not carry yet raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from ..constants import (MAE_LOSS_STR, MSE_LOSS_STR, REGULARIZATION_LOSS_STR,
+                         SSIM_LOSS_STR, TOTAL_LOSS_STR)
+from ..ops.multiscale import multiscale_targets
+from ..ops.noise import corrupt_batch, random_flips
+from ..ops.pallas_noise import corrupt_noise
+from ..ops.regularizers import regularization_loss
+from ..ops.resize import nchw, nhwc
+from .optimizer import global_norm
+from .train_state import TrainState
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def forward_loss(model, loss_fns: Dict[str, Callable], no_outputs: int,
+                 noisy: torch.Tensor, gt_scales, depth_weights: torch.Tensor,
+                 generator: Optional[torch.Generator] = None):
+    """The training forward and its losses (JAX ``forward_loss``):
+    ``noisy`` [B, H, W, C] float32 → (total loss, metrics dict)."""
+    outputs = model(nchw(noisy), train=True, generator=generator)
+    total = torch.zeros((), device=noisy.device)
+    metrics = {}
+    for i in range(no_outputs):
+        li = loss_fns["denoiser"](gt_scales[i], nhwc(outputs[i]).float())
+        total = total + li[TOTAL_LOSS_STR] * depth_weights[i]
+        for k in (MAE_LOSS_STR, MSE_LOSS_STR, SSIM_LOSS_STR, TOTAL_LOSS_STR):
+            metrics[f"scale_{i}/{k}"] = li[k]
+    mloss = loss_fns["model"](regularization_loss(model))
+    total = total + mloss[TOTAL_LOSS_STR]
+    metrics[TOTAL_LOSS_STR] = total
+    metrics[REGULARIZATION_LOSS_STR] = mloss[REGULARIZATION_LOSS_STR]
+    return total, metrics
+
+
+def build_train_step(
+        model,
+        tx,
+        loss_fns: Dict[str, Callable],
+        no_outputs: int,
+        additive_noise: Optional[Sequence[float]] = None,
+        multiplicative_noise: Optional[Sequence[float]] = None,
+        noise_sampling: str = "uniform",
+        random_left_right: bool = True,
+        random_up_down: bool = True,
+        random_rotate: float = 0.0,
+        use_random_blur: bool = False,
+        use_jpeg_noise: bool = False,
+        quantization: int = -1,
+        inpaint_drop_rate: float = 0.0,
+        degradation_prob: float = 0.5,
+        degradation_chain_prob: float = 1.0,
+        round_values: bool = True,
+        grad_accum: int = 1,
+        remat: bool = False,
+        use_pallas_noise: bool = False,
+        grad_stats: bool = False,
+        teacher_fn=None,
+        distill_weight: float = 1.0,
+        distill_gt_weight: float = 1.0,
+        ema_decay: float = 0.0):
+    """Returns ``train_step(state, batch, generator=None,
+    depth_weights=None) -> (state, metrics)``; the JAX step's arguments.
+
+    ``batch``: clean uint8 or float32 [grad_accum·B, H, W, C] in
+    [0, 255], on any device (it is moved to the model's). ``generator``:
+    the device generator for flips, drop-path and dropout masks and the
+    non-kernel noise (default: the state's). ``depth_weights``:
+    [no_outputs] deep-supervision weights (default: equal)."""
+    extended = bool(use_random_blur or use_jpeg_noise
+                    or (quantization and quantization > 1)
+                    or (inpaint_drop_rate and inpaint_drop_rate > 0.0))
+    if use_pallas_noise and noise_sampling != "uniform":
+        raise ValueError(
+            "tpu.pallas_noise only implements the reference's uniform std "
+            f"draw; unset it to use dataset.noise_sampling="
+            f"{noise_sampling!r}")
+    if use_pallas_noise and extended:
+        raise ValueError(
+            "tpu.pallas_noise fuses only the noise corruption; unset it to "
+            "use random_blur / use_jpeg_noise / quantization / "
+            "inpaint_drop_rate")
+    if extended or (random_rotate and random_rotate > 0.0):
+        raise _not_ported("random rotation and the degradation chain "
+                          "(ops/degradations.py)", 11)
+    if noise_sampling != "uniform":
+        raise _not_ported(f"noise_sampling [{noise_sampling}]", 8)
+    if ema_decay > 0.0:
+        raise _not_ported("the EMA of the params", 8)
+    if grad_stats:
+        raise _not_ported("per-kernel gradient statistics (grad_stats)", 8)
+    if remat:
+        raise _not_ported("rematerialization (train.remat)", 8)
+    if teacher_fn is not None:
+        raise _not_ported("distillation from a teacher (training/distill.py)",
+                          12)
+    n = max(1, int(grad_accum))
+
+    def prepare(state: TrainState, clean: torch.Tensor, generator):
+        clean = random_flips(generator, clean, left_right=random_left_right,
+                             up_down=random_up_down)
+        if round_values:
+            clean = torch.round(clean)
+        if use_pallas_noise:
+            seed = int(torch.randint(0, 2 ** 31 - 1, (),
+                                     generator=state.host_generator))
+            noisy = corrupt_noise(seed, clean, additive_noise=additive_noise,
+                                  multiplicative_noise=multiplicative_noise,
+                                  round_values=round_values)
+        else:
+            noisy = corrupt_batch(generator, clean,
+                                  additive_noise=additive_noise,
+                                  multiplicative_noise=multiplicative_noise,
+                                  round_values=round_values)
+        gt_scales = multiscale_targets(clean, no_outputs - 1,
+                                       clip_values=True, round_values=True)
+        return noisy, gt_scales
+
+    def train_step(state: TrainState, batch: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   depth_weights=None):
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step "
+                             "was built for")
+        generator = state.generator if generator is None else generator
+        params = list(model.parameters())
+        dev = params[0].device
+        if depth_weights is None:
+            depth_weights = torch.full((no_outputs,), 1.0 / no_outputs,
+                                       device=dev)
+        depth_weights = torch.as_tensor(depth_weights, dtype=torch.float32,
+                                        device=dev)
+        batch = batch.to(dev).float()
+        if batch.shape[0] % n:
+            raise ValueError(f"batch of {batch.shape[0]} does not split into "
+                             f"grad_accum={n} micro-batches")
+        model.zero_grad(set_to_none=True)
+        metrics = {}
+        for clean in batch.chunk(n):
+            noisy, gt_scales = prepare(state, clean, generator)
+            total, m = forward_loss(model, loss_fns, no_outputs, noisy,
+                                    gt_scales, depth_weights, generator)
+            total.backward()
+            for k, v in m.items():
+                metrics[k] = metrics.get(k, 0.0) + v.detach()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        if n > 1:
+            torch._foreach_div_(grads, float(n))
+            metrics = {k: v / n for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads)
+        tx.apply(params, grads, state.opt_state)
+        state.step += 1
+        return state, metrics
+
+    return train_step

@@ -1,10 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``blind_image_denoising_torch``) on one
 NVIDIA GPU: build the hand-written CUDA kernels from the checkout, hold
-each against its plain PyTorch version at the serving path's shapes,
-serve the packaged flagship ``unet_laplacian_v6_tpu_scratch`` through
-``load_model`` (bf16, adaptive blend on) and check what comes out, then
-time the kernels and the serving path.
+each against its plain PyTorch version at the main paths' shapes, then
+drive the two paths of the port through the entry points a user calls:
+
+* serve: the packaged flagship ``unet_laplacian_v6_tpu_scratch`` through
+  ``load_model`` (bf16, adaptive blend on), three requests;
+* train: the flagship's train step (``unet_laplacian_v6_tpu`` config,
+  the packaged weights, bf16 compute) through ``build_train_step`` on
+  b16 @ 128² with the noise kernel on — first one injected batch
+  against the port's float32 CPU loss and gradients, then 3 warm-up and
+  20 timed steps and 3 profiled ones;
+
+check what comes out, and time the kernels and both paths.
 
     python3 chip_smoke.py [--profile-out FILE]
 
@@ -14,8 +22,8 @@ final line is not printed. Without a CUDA device it exits 1 at once.
 Output: one line per phase; then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. ``--profile-out FILE`` also writes
-the full per-kernel device-time table of the profiled serving batches
-(torch.profiler) to FILE.
+the full per-kernel device-time tables of the profiled serving requests
+and train steps (torch.profiler) to FILE.
 """
 
 import argparse
@@ -26,15 +34,27 @@ import sys
 import time
 from pathlib import Path
 
+import copy
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 FLAGSHIP = "unet_laplacian_v6_tpu_scratch"
+TRAIN_CONFIG = "unet_laplacian_v6_tpu"
+TRAIN_BATCH, TRAIN_SIZE = 16, 128          # the JAX bench's train protocol
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 TENSOR_BF16_OPS_PER_S = 989e12   # dense bf16 tensor cores
 FP32_OPS_PER_S = 67e12           # float32 on the CUDA cores
+# thread-instructions per second of one H100 SXM (132 SMs at the 1.98 GHz
+# boost clock) per SM and clock (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0): four schedulers issue
+# one warp-instruction each (128), float32 add/multiply/FMA 128, 32-bit
+# integer add/multiply/logic/shift/compare 64, special functions (MUFU)
+# and type conversions 16
+SM_CLOCKS_PER_S = 132 * 1.98e9
+SASS_RATES = dict(issue=128, float=128, integer=64, mufu_or_convert=16)
 
 
 def log(phase: str, **fields) -> None:
@@ -42,12 +62,22 @@ def log(phase: str, **fields) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+    """Mean device milliseconds per call of ``fn`` (CUDA events). The
+    calls are queued behind a spin kernel that outlasts their launches,
+    so they run back to back and the events time the device, not the
+    host's launch rate (a small kernel launched from Python finishes
+    before the next launch arrives)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)   # ~2x the launches
     start.record()
     for _ in range(iters):
         fn()
@@ -137,13 +167,330 @@ def convnext_bound_ms(b, h, w, c, k, dtype):
         ("bytes" if nbytes / HBM_BYTES_PER_S >= ops_s else "operations")
 
 
-def band_bound_ms(b, h, w, c, k, dtype):
+def band_bound_ms(b, h, w, c, k, dtype, backward=False):
+    """Forward (read x, write band and smooth; k² adds, a multiply and a
+    subtract per element) and backward (read g_band and g_smooth, write
+    dx; a subtract, a multiply and an add per tap, and the final add)
+    move the same 3n elements."""
     n = b * h * w * c
     elt = torch.tensor([], dtype=dtype).element_size()
     byte_s = 3 * n * elt / HBM_BYTES_PER_S
-    ops_s = n * (k * k + 2) / FP32_OPS_PER_S
+    ops_s = n * ((3 * k * k + 1) if backward else (k * k + 2)) \
+        / FP32_OPS_PER_S
     return max(byte_s, ops_s) * 1e3, ("bytes" if byte_s >= ops_s
                                       else "operations")
+
+
+def sass_class(op):
+    """The unit a SASS opcode issues to: "uniform" (once per warp, on the
+    uniform datapath), "mufu_or_convert", "float", "integer", or "other"
+    (memory, control, barriers), which take an issue slot only."""
+    base = op.split(".")[0]
+    if base.startswith("U"):
+        return "uniform"
+    if base == "MUFU" or base in ("F2I", "I2F", "F2F", "FRND", "F2FP"):
+        return "mufu_or_convert"
+    if base[0] == "F" or base.startswith("H"):
+        return "float"
+    if base in ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "BAR", "NOP",
+                "WARPSYNC", "DEPBAR") or base[:2] in ("LD", "ST") \
+            or base in ("S2R", "S2UR", "CS2R"):
+        return "other"
+    return "integer"
+
+
+def sass_element_paths(sass):
+    """Instructions per element of a grid-stride kernel from its SASS
+    (``cuobjdump -sass``): the loop is the longest backward branch; its
+    body is a DAG once inner back edges are dropped. A fast path avoids
+    calls, local memory and float64 (the out-of-range branches of
+    ``sqrtf`` and ``sincosf``, which the kernel's arguments never take).
+    Returns, for each k, the class counts of the shortest fast path
+    through the body that executes exactly k MUFU instructions (one per
+    Box-Muller normal: k = 2 for a sample with both noises on, 1 with
+    one, 0 with none)."""
+    import re
+    ins = []
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if m:
+            ins.append((int(m.group(1), 16), bool(m.group(2)), m.group(3),
+                        m.group(4)))
+    at = {a: i for i, (a, *_) in enumerate(ins)}
+
+    def target(i):
+        m = re.match(r"0x([0-9a-f]+)", ins[i][3].strip())
+        return int(m.group(1), 16) if m else None
+
+    back = [(ins[i][0] - target(i), i) for i in range(len(ins))
+            if ins[i][2] == "BRA" and target(i) is not None
+            and target(i) < ins[i][0]]
+    _, tail = max(back)
+    head = at[target(tail)]
+    inf = float("inf")
+    # best[i][k]: (instructions, path) from i to the end of the body
+    best = [None] * (tail + 2)
+    best[tail + 1] = {0: (0, ())}
+    for i in range(tail, head - 1, -1):
+        _, pred, op, _ = ins[i]
+        base = op.split(".")[0]
+        if base in ("CALL", "LDL", "STL") or base[0] == "D":
+            best[i] = {}
+            continue
+        succ = []
+        t = target(i) if base == "BRA" else None
+        if i == tail:
+            succ = [tail + 1]
+        elif t is not None and t > ins[i][0]:
+            succ = [at[t] if t in at and at[t] <= tail else tail + 1]
+            if pred:
+                succ.append(i + 1)
+        else:                       # an inner back edge is not taken
+            succ = [i + 1]
+        mufu = int(base == "MUFU")
+        best[i] = {}
+        for j in succ:
+            for k, (cost, path) in best[j].items():
+                kk = k + mufu
+                if cost + 1 < best[i].get(kk, (inf,))[0]:
+                    best[i][kk] = (cost + 1, (i,) + path)
+    out = {}
+    for k, (cost, path) in best[head].items():
+        counts = {"issue": cost}
+        for i in path:
+            c = sass_class(ins[i][2])
+            counts[c] = counts.get(c, 0) + 1
+        out[k] = counts
+    return out
+
+
+def kernel_sass(obj, function):
+    """SASS of one kernel of an object file, by ``cuobjdump``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    parts = text.split("Function : ")
+    found = [p for p in parts[1:] if function in p.splitlines()[0]]
+    if len(found) != 1:
+        raise AssertionError(f"{function}: {len(found)} functions in {obj}")
+    return found[0]
+
+
+def noise_bound_ms(n_per_sample, flags, paths):
+    """K3 over B samples of n float32 elements: one read and one write of
+    each element against the instructions its sample's path issues
+    (``paths`` from :func:`sass_element_paths`, k = the sample's noises
+    on), each class over its rate; the per-block header is left out."""
+    byte_s = 2 * len(flags) * n_per_sample * 4 / HBM_BYTES_PER_S
+    per_class = {}
+    for k in flags:
+        for c, count in paths[int(k)].items():
+            per_class[c] = per_class.get(c, 0) + count * n_per_sample
+    times = {c: per_class.get(c, 0) / (rate * SM_CLOCKS_PER_S)
+             for c, rate in SASS_RATES.items()}
+    ops_s = max(times.values())
+    return max(byte_s, ops_s) * 1e3, ("bytes" if byte_s >= ops_s
+                                      else "operations"), \
+        {c: t * 1e3 for c, t in times.items()}
+
+
+def band_smooth_bwd_library(x, k, g_band, g_smooth):
+    """The band-split backward through F.avg_pool2d's autograd: returns a
+    function that runs only the backward of a recorded forward."""
+    xg = x.detach().requires_grad_(True)
+    outs = band_smooth_library(xg, k)
+    return lambda: torch.autograd.grad(outs, xg, (g_band, g_smooth),
+                                       retain_graph=True)
+
+
+def device_us(evt, kind):
+    """Device time of a profiler event; kind "self_" or "" (torch < 2.4:
+    cuda_time)."""
+    us = getattr(evt, f"{kind}device_time_total", None)
+    return us if us is not None else getattr(evt, f"{kind}cuda_time_total")
+
+
+def profile_rows(prof):
+    """(device µs, count, name) of every CUDA kernel, largest first."""
+    rows = [(device_us(evt, "self_"), evt.count, evt.key)
+            for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(rows, reverse=True)
+
+
+def group_rows(rows, groups, per):
+    out = {}
+    for us, _, key in rows:
+        group = next((g for g, pats in groups.items()
+                      if any(p in key.lower() for p in pats)),
+                     "other elementwise")
+        out[group] = out.get(group, 0.0) + us / per
+    return out
+
+
+# --------------------------------------------------------------- training
+
+def check_band_smooth_bwd(pallas_pyramid, rng, shapes):
+    """K2's backward against its plain version; returns the largest bf16
+    error."""
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in shapes:
+            g_band, g_smooth = (torch.from_numpy(rng.normal(
+                0, 1, shape).astype(np.float32)).cuda().to(dtype)
+                for _ in range(2))
+            got = pallas_pyramid.band_smooth_bwd(g_band, g_smooth, 2)
+            ref = pallas_pyramid.band_smooth_bwd_plain(g_band, g_smooth, 2)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            err = float(diff.max())
+            if dtype == torch.float32:
+                ok, tol = err <= 1e-5, "1e-5"
+            else:
+                ok, tol = bool((diff <= bf16_ulp(ref)).all()), "1 bf16 ulp"
+                worst = max(worst, err)
+            log("check", kernel="band_smooth_bwd", shape=list(shape),
+                dtype=str(dtype), max_abs_err=err, tolerance=tol)
+            if not ok:
+                raise AssertionError(f"band_smooth_bwd {shape} {dtype}: "
+                                     f"{err}")
+    return worst
+
+
+def check_corrupt_noise(pallas_noise, x, noise_kw):
+    """K3 against its plain version on the same seed, and its statistics
+    on a constant batch; returns the largest unrounded error off the
+    redraw threshold."""
+    seed = 20260801
+    got, params = pallas_noise.corrupt_noise(seed, x, round_values=False,
+                                             return_params=True, **noise_kw)
+    ref, ref_params = pallas_noise.corrupt_batch_plain(
+        seed, x, round_values=False, return_params=True, **noise_kw)
+    torch.cuda.synchronize()
+    if not torch.equal(params, ref_params):
+        raise AssertionError("corrupt_noise: per-sample flags or stds "
+                             "differ from the plain version")
+    # where a first normal lies within 1e-5 of ±2, the last bit of
+    # logf/sincosf decides between the draw and its redraw
+    z0_mul, _, z0_add, _ = pallas_noise.normal_draws_plain(
+        seed, x.shape[0], x[0].numel(), x.device)
+    edge = (((z0_mul.abs() - 2).abs() < 1e-5) & (params[:, :1] > 0)) | \
+        (((z0_add.abs() - 2).abs() < 1e-5) & (params[:, 2:3] > 0))
+    err = (got - ref).abs().reshape(x.shape[0], -1)
+    worst = float(err[~edge].max())
+    rounded = pallas_noise.corrupt_noise(seed, x, **noise_kw)
+    diff = (rounded - pallas_noise.corrupt_batch_plain(
+        seed, x, **noise_kw)).abs()
+    share = float((diff > 0).float().mean())
+    log("check", kernel="corrupt_noise", shape=list(x.shape),
+        flags_and_stds_identical=True, max_abs_err_unrounded=worst,
+        n_near_threshold=int(edge.sum()), max_abs_err_unrounded_all=float(
+            err.max()), rounded_max_abs_err=float(diff.max()),
+        rounded_share_differing=share,
+        tolerance="unrounded 1e-3 off the threshold; rounded <= 1 on at "
+                  "most 1e-4 of the elements")
+    if worst > 1e-3 or float(diff.max()) > 1.0 or share > 1e-4:
+        raise AssertionError(f"corrupt_noise disagrees with its plain "
+                             f"version: {worst}, {float(diff.max())}, "
+                             f"{share}")
+    const = torch.full((64,) + tuple(x.shape[1:]), 128.0, device=x.device)
+    y, p = pallas_noise.corrupt_noise(seed + 1, const, return_params=True,
+                                      **noise_kw)
+    res = (y - const).reshape(64, -1)
+    mlo, mhi = noise_kw["multiplicative_noise"]
+    alo, ahi = noise_kw["additive_noise"]
+    bound = 2 * (128 * p[:, 1] * p[:, 0] + p[:, 3] * p[:, 2]) + 0.5
+    stats = dict(mean=float(y.mean()), mul_share=float(p[:, 0].mean()),
+                 add_share=float(p[:, 2].mean()),
+                 mul_std_range=[float(p[:, 1].min()), float(p[:, 1].max())],
+                 add_std_range=[float(p[:, 3].min()), float(p[:, 3].max())],
+                 integer=bool(torch.equal(y, y.round())),
+                 within_2_sigma=bool((res.abs().max(dim=1).values
+                                      <= bound + 1e-3).all()))
+    log("check", kernel="corrupt_noise", statistics_of=list(const.shape),
+        **stats)
+    if not (abs(stats["mean"] - 128.0) < 1.0 and stats["integer"]
+            and stats["within_2_sigma"]
+            and abs(stats["mul_share"] - 0.5) <= 0.15
+            and abs(stats["add_share"] - 0.5) <= 0.15
+            and mlo <= stats["mul_std_range"][0]
+            and stats["mul_std_range"][1] <= mhi
+            and alo <= stats["add_std_range"][0]
+            and stats["add_std_range"][1] <= ahi):
+        raise AssertionError(f"corrupt_noise statistics: {stats}")
+    return worst
+
+
+def build_trainer(cfg, params, dtype, device, drop=True):
+    """The bench protocol's train step on ``device``: the flagship config,
+    the given params, the noise kernel on (``tpu.pallas_noise``)."""
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.training import (
+        build_train_step, create_train_state, loss_function_builder,
+        optimizer_builder)
+    mc = copy.deepcopy(cfg["model"])
+    if not drop:
+        mc["backbone"].update(depth_drop_rate=0.0,
+                              convolutional_self_attention_dropout_rate=0.0)
+    hydra = model_builder(mc, dtype=dtype).hydra
+    tx, _ = optimizer_builder(cfg["train"]["optimizer"])
+    state = create_train_state(hydra, tx, seed=SEED, params=params,
+                               device=device)
+    ds = cfg["dataset"]
+    step = build_train_step(
+        hydra, tx, loss_function_builder(cfg["loss"]), hydra.no_outputs,
+        additive_noise=ds["additional_noise"],
+        multiplicative_noise=ds["multiplicative_noise"],
+        random_left_right=ds.get("random_left_right", True),
+        random_up_down=ds.get("random_up_down", True),
+        round_values=ds.get("round_values", True), grad_accum=1,
+        use_pallas_noise=cfg["tpu"]["pallas_noise"])
+    return state, step
+
+
+def train_card_vs_cpu(cfg, params, clean, noise_kw):
+    """One injected noisy batch, drop rates 0: the bf16 card loss and
+    gradients against the port's float32 CPU ones."""
+    from blind_image_denoising_torch.ops.multiscale import multiscale_targets
+    from blind_image_denoising_torch.ops.pallas_noise import (
+        corrupt_batch_plain)
+    from blind_image_denoising_torch.training import (forward_loss,
+                                                      loss_function_builder)
+    clean = torch.from_numpy(clean).round()
+    noisy = corrupt_batch_plain(SEED + 2, clean, **noise_kw)
+    gt = multiscale_targets(clean, 2, clip_values=True, round_values=True)
+    fns = loss_function_builder(cfg["loss"])
+    out = {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", None)):
+        state, _ = build_trainer(cfg, params, dtype, dev, drop=False)
+        hydra = state.model
+        total, _ = forward_loss(hydra, fns, hydra.no_outputs, noisy.to(dev),
+                                [g.to(dev) for g in gt],
+                                torch.full((3,), 1.0 / 3, device=dev),
+                                torch.Generator(device=dev))
+        total.backward()
+        out[dev] = (float(total.detach()),
+                    {n: p.grad.float().flatten().cpu()
+                     for n, p in hydra.named_parameters()})
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    card, cpu = out["cuda"][1], out["cpu"][1]
+    cos = float(F.cosine_similarity(torch.cat(list(card.values())),
+                                    torch.cat(list(cpu.values())), dim=0))
+    per_tensor = sorted((float(F.cosine_similarity(card[n], cpu[n], dim=0)),
+                         n) for n in cpu)
+    result = dict(batch=list(noisy.shape), loss_bf16_card=out["cuda"][0],
+                  loss_f32_cpu=out["cpu"][0], loss_rel_diff=rel,
+                  grad_cosine=cos,
+                  n_grad=int(sum(v.numel() for v in cpu.values())),
+                  lowest_tensor_cosines=[dict(name=n, cosine=c)
+                                         for c, n in per_tensor[:5]],
+                  tolerance="loss rel <= 2e-2, grad cosine >= 0.99")
+    log("train_check", **result)
+    if not (rel <= 2e-2 and cos >= 0.99):
+        raise AssertionError(f"bf16 card train step drifts from the f32 CPU "
+                             f"reference: {result}")
 
 
 def main() -> int:
@@ -156,7 +503,20 @@ def main() -> int:
         return 1
     import blind_image_denoising_torch as bidt
     from blind_image_denoising_torch.ops import (cuda_build, pallas_convnext,
-                                                 pallas_pyramid)
+                                                 pallas_noise, pallas_pyramid)
+    from blind_image_denoising_torch.weights import (load_msgpack,
+                                                     params_from_flax)
+
+    def reset_counts():
+        pallas_convnext.launches = pallas_noise.launches = 0
+        pallas_pyramid.launches = pallas_pyramid.bwd_launches = 0
+        pallas_pyramid.bwd_grad_copies = 0
+
+    def read_counts():
+        return dict(convnext_block=pallas_convnext.launches,
+                    band_smooth=pallas_pyramid.launches,
+                    band_smooth_bwd=pallas_pyramid.bwd_launches,
+                    corrupt_noise=pallas_noise.launches)
 
     # ---- phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -234,6 +594,22 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"band_smooth {shape} {dtype}: {err}")
 
+    # the train step's kernels at its shapes (b16 @ 128²: level 0 is 128²,
+    # level 1 is 64²; the noise kernel sees the RGB batch)
+    cfg = bidt.load_config(bidt.configs[TRAIN_CONFIG])
+    cfg.setdefault("tpu", {})["pallas_noise"] = True
+    ds = cfg["dataset"]
+    noise_kw = dict(additive_noise=ds["additional_noise"],
+                    multiplicative_noise=ds["multiplicative_noise"])
+    train_band_shapes = [(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 32),
+                         (TRAIN_BATCH, TRAIN_SIZE // 2, TRAIN_SIZE // 2, 64)]
+    errors["band_smooth_bwd"] = check_band_smooth_bwd(
+        pallas_pyramid, rng, train_band_shapes)
+    clean_train = synthetic_images(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, rng)
+    x_train = torch.from_numpy(clean_train).round().cuda()
+    errors["corrupt_noise"] = check_corrupt_noise(pallas_noise, x_train,
+                                                  noise_kw)
+
     # ---- phase 4: serve three requests through the main path
     clean_b8 = synthetic_images(8, 256, 256, rng)
     noisy_b8 = add_noise(clean_b8, 25.0, rng)
@@ -243,16 +619,20 @@ def main() -> int:
     noisy_bsd = add_noise(clean_bsd, 25.0, rng)
     requests = [noisy_b8, noisy_512, noisy_bsd]
 
-    pallas_convnext.launches = 0
-    pallas_pyramid.launches = 0
+    reset_counts()
     outs = [den(r) for r in requests]
     torch.cuda.synchronize()
-    k1, k2 = pallas_convnext.launches, pallas_pyramid.launches
+    serve_counts = read_counts()
+    k1, k2 = serve_counts["convnext_block"], serve_counts["band_smooth"]
     log("serve", requests=[list(r.shape) for r in requests],
-        convnext_block_launches=k1, band_smooth_launches=k2)
-    if (k1, k2) != (10 * len(requests), 2 * len(requests)):
-        raise AssertionError(f"expected 10 K1 + 2 K2 launches per forward, "
-                             f"got {k1} and {k2} for {len(requests)}")
+        convnext_block_launches=k1, band_smooth_launches=k2,
+        launches=serve_counts)
+    n_req = len(requests)
+    if serve_counts != dict(convnext_block=10 * n_req, band_smooth=2 * n_req,
+                            band_smooth_bwd=0, corrupt_noise=0):
+        raise AssertionError(f"expected 10 K1 + 2 K2 launches per forward "
+                             f"and no training kernel, got {serve_counts} "
+                             f"for {n_req} requests")
     for r, o in zip(requests, outs):
         if o.shape != r.shape or o.dtype != np.uint8:
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
@@ -340,25 +720,16 @@ def main() -> int:
             den(noisy_b8)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    def device_us(evt, kind):   # kind: "self_" or "" (torch < 2.4: cuda)
-        us = getattr(evt, f"{kind}device_time_total", None)
-        return us if us is not None else getattr(evt, f"{kind}cuda_time_total")
-
-    rows = []
     stages = {}
     for evt in prof.key_averages():
-        if evt.key.startswith("denoiser."):
-            # the CPU range carries its host time and its kernels' device
-            # time; its device-side twin is a span, not kernel time
-            if evt.device_type == torch.autograd.DeviceType.CPU:
-                stages[evt.key] = dict(
-                    host_ms=evt.cpu_time_total / evt.count / 1e3,
-                    device_ms=device_us(evt, "") / evt.count / 1e3)
-            continue
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        rows.append((device_us(evt, "self_"), evt.count, evt.key))
-    rows.sort(reverse=True)
+        # the CPU range carries its host time and its kernels' device
+        # time; its device-side twin is a span, not kernel time
+        if (evt.key.startswith("denoiser.")
+                and evt.device_type == torch.autograd.DeviceType.CPU):
+            stages[evt.key] = dict(
+                host_ms=evt.cpu_time_total / evt.count / 1e3,
+                device_ms=device_us(evt, "") / evt.count / 1e3)
+    rows = [r for r in profile_rows(prof) if not r[2].startswith("denoiser.")]
     busy = sum(r[0] for r in rows)
     groups = {"convnext_block (K1)": ("convnext_block_kernel",),
               "band_smooth (K2)": ("band_smooth_kernel",),
@@ -367,22 +738,17 @@ def main() -> int:
               "reductions": ("reduce_kernel",),
               "sort (blend median)": ("sort", "radix", "scan"),
               "matmul (attention)": ("gemm", "gemv")}
-    by_group = {}
-    for us, _, key in rows:
-        group = next((g for g, pats in groups.items()
-                      if any(p in key.lower() for p in pats)),
-                     "other elementwise")
-        by_group[group] = by_group.get(group, 0.0) + us / 3
+    by_group = group_rows(rows, groups, 3)
+    profile_text = []
     if args.profile_out is not None:
-        args.profile_out.parent.mkdir(parents=True, exist_ok=True)
-        with open(args.profile_out, "w") as f:
-            f.write(f"{smi}\n3 requests of b8 @ 256^2 bf16 blend; wall "
-                    f"{wall_us:.1f} us, device busy {busy:.1f} us\n")
-            for key, st in stages.items():
-                f.write(f"stage {key}: per request host {st['host_ms']:.3f} "
-                        f"ms, device {st['device_ms']:.3f} ms\n")
-            for us, count, key in rows:
-                f.write(f"{us:12.1f} us {count:6d}x  {key}\n")
+        profile_text.append(f"{smi}\n3 requests of b8 @ 256^2 bf16 blend; wall "
+                            f"{wall_us:.1f} us, device busy {busy:.1f} us\n")
+        profile_text += [f"stage {key}: per request host "
+                         f"{st['host_ms']:.3f} ms, device "
+                         f"{st['device_ms']:.3f} ms\n"
+                         for key, st in stages.items()]
+        profile_text += [f"{us:12.1f} us {count:6d}x  {key}\n"
+                         for us, count, key in rows]
     log("profile", requests=3, wall_us=wall_us, device_busy_us=busy,
         idle_share_profiled=(1 - busy / wall_us) if busy else None,
         idle_share_unprofiled=(1 - busy / 3 / statistics.median(b8_times)
@@ -390,6 +756,153 @@ def main() -> int:
         device_us_per_request=by_group, stages_per_request=stages,
         top=[dict(us=round(us, 1), count=c, name=k[:80])
              for us, c, k in rows[:12]])
+
+    # ---- phase 6: the train step, the second path
+    tree = load_msgpack(Path(bidt.models[FLAGSHIP]["directory"])
+                        / "params.msgpack")
+    params = params_from_flax(tree)
+    train_card_vs_cpu(cfg, params, clean_train, noise_kw)
+
+    state, step = build_trainer(cfg, params, torch.bfloat16, "cuda")
+    batch = torch.from_numpy(clean_train.round().astype(np.uint8)).cuda()
+    dw = torch.full((state.model.no_outputs,), 1.0 / state.model.no_outputs,
+                    device="cuda")
+    warmup, timed = 3, 20
+    losses, host_ms, event_ms = [], [], []
+    reset_counts()
+    for _ in range(warmup):
+        state, metrics = step(state, batch, depth_weights=dw)
+        losses.append(metrics["total_loss"])
+    torch.cuda.synchronize()
+    for _ in range(timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, metrics = step(state, batch, depth_weights=dw)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+        losses.append(metrics["total_loss"])
+    train_counts = read_counts()
+    n_steps = warmup + timed
+    # grads the K2 backward wrapper had to copy to NHWC before its launch
+    grad_copies_per_step = pallas_pyramid.bwd_grad_copies / n_steps
+    losses = torch.stack(losses).cpu()
+    per_step = {k: v / n_steps for k, v in train_counts.items()}
+    log("train", batch=list(batch.shape), dtype="bf16", steps=n_steps,
+        launches=train_counts, launches_per_step=per_step,
+        band_smooth_bwd_grad_copies_per_step=grad_copies_per_step,
+        loss_first=float(losses[0]), loss_last=float(losses[-1]),
+        grad_norm_last=float(metrics["grad_norm"]),
+        step_ms_host_median=statistics.median(host_ms),
+        step_ms_host_min=min(host_ms), step_ms_host_max=max(host_ms),
+        step_ms_event_median=statistics.median(event_ms),
+        step_ms_event_min=min(event_ms), step_ms_event_max=max(event_ms),
+        images_per_s=TRAIN_BATCH / statistics.median(host_ms) * 1e3,
+        step_ms_host=[round(t, 3) for t in host_ms], smi=smi)
+    if per_step != dict(convnext_block=0, band_smooth=2, band_smooth_bwd=2,
+                        corrupt_noise=1):
+        raise AssertionError(f"expected 1 K3, 2 K2 forward, 2 K2 backward "
+                             f"and no K1 launch per step, got {per_step}")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite train loss: {losses.tolist()}")
+
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, metrics = step(state, batch, depth_weights=dw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = profile_rows(prof)
+    busy = sum(r[0] for r in rows)
+    train_groups = {
+        "corrupt_noise (K3)": ("corrupt_noise_kernel",),
+        "band_smooth_bwd (K2 bwd)": ("band_smooth_bwd_kernel",),
+        "band_smooth (K2)": ("band_smooth_kernel",),
+        "convolutions (cuDNN)": ("fprop", "dgrad", "wgrad", "conv",
+                                 "implicit_gemm", "cudnn", "xmma"),
+        "matmul": ("gemm", "gemv", "cutlass"),
+        "optimizer (foreach)": ("multi_tensor", "foreach"),
+        "reductions": ("reduce_kernel",),
+        "resize (attention)": ("upsample", "interp", "aa_"),
+    }
+    if args.profile_out is not None:
+        profile_text.append(f"\n3 train steps of b16 @ 128^2 bf16; wall "
+                            f"{wall_us:.1f} us, device busy {busy:.1f} us\n")
+        profile_text += [f"{us:12.1f} us {count:6d}x  {key}\n"
+                         for us, count, key in rows]
+    # reads of a device value on the host inside the steps (the closing
+    # torch.cuda.synchronize is the one cudaDeviceSynchronize expected)
+    syncs = {evt.key: evt.count for evt in prof.key_averages()
+             if evt.key in ("aten::_local_scalar_dense", "aten::item",
+                            "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                            "cudaMemcpy")}
+    log("train_profile", steps=3, wall_us=wall_us, device_busy_us=busy,
+        host_sync_events=syncs,
+        idle_share_profiled=(1 - busy / wall_us) if busy else None,
+        idle_share_unprofiled=(1 - busy / 3 / statistics.median(host_ms)
+                               / 1e3) if busy else None,
+        kernels_per_step=sum(r[1] for r in rows) / 3,
+        device_us_per_step=group_rows(rows, train_groups, 3),
+        top=[dict(us=round(us, 1), count=c, name=k[:80])
+             for us, c, k in rows[:15]])
+    if args.profile_out is not None:
+        args.profile_out.parent.mkdir(parents=True, exist_ok=True)
+        args.profile_out.write_text("".join(profile_text))
+
+    # the train step's kernels, timed at its shapes
+    seed = 20260802
+    t = dict(ms=cuda_ms(lambda: pallas_noise.corrupt_noise(
+                 seed, x_train, **noise_kw)),
+             plain_ms=cuda_ms(lambda: pallas_noise.corrupt_batch_plain(
+                 seed, x_train, **noise_kw), iters=5),
+             library_ms=None)
+    # the instructions the kernel issues per element, from its SASS, and
+    # the noises on in each sample of this seed
+    paths = sass_element_paths(kernel_sass(
+        cuda_build.build().parent / "corrupt_noise.o", "corrupt_noise_kernel"))
+    mul, add = (sorted(noise_kw[key]) for key in ("multiplicative_noise",
+                                                   "additive_noise"))
+    p = pallas_noise.sample_params_plain(seed, x_train.shape[0], *mul, *add)
+    flags = (p[:, 0] + p[:, 2]).int().tolist()
+    bound, by, class_ms = noise_bound_ms(x_train[0].numel(), flags, paths)
+    log("time", kernel="corrupt_noise", shape=list(x_train.shape),
+        dtype="f32", calls_per_step=1, bound_ms=bound, bound_by=by,
+        bytes_bound_ms=2 * x_train.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        bound_ms_by_class=class_ms, samples_by_noises_on=[
+            flags.count(k) for k in range(3)],
+        sass_per_element_by_noises_on=paths, **t)
+    entries["corrupt_noise"] = [(1, t, bound, by)]
+    for shape in train_band_shapes:
+        x, g_band, g_smooth = (torch.from_numpy(rng.normal(
+            0, 1, shape).astype(np.float32)).cuda().to(torch.bfloat16)
+            for _ in range(3))
+        # NCHW-contiguous grads, as a permuted consumer can hand them over:
+        # the wrapper copies both to NHWC first
+        g_band_nchw, g_smooth_nchw = (
+            g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+            for g in (g_band, g_smooth))
+        t = dict(ms=cuda_ms(lambda: pallas_pyramid.band_smooth_bwd(
+                     g_band, g_smooth, 2)),
+                 plain_ms=cuda_ms(lambda: pallas_pyramid.band_smooth_bwd_plain(
+                     g_band, g_smooth, 2), iters=5),
+                 library_ms=cuda_ms(band_smooth_bwd_library(
+                     x, 2, g_band, g_smooth)))
+        ms_copies = cuda_ms(lambda: pallas_pyramid.band_smooth_bwd(
+            g_band_nchw, g_smooth_nchw, 2))
+        fwd_ms = cuda_ms(lambda: pallas_pyramid.band_smooth(x, 2))
+        bound, by = band_bound_ms(*shape, 2, torch.bfloat16, backward=True)
+        log("time", kernel="band_smooth_bwd", shape=list(shape), dtype="bf16",
+            calls_per_step=1, bound_ms=bound, bound_by=by,
+            ms_with_both_grads_copied=ms_copies, forward_ms=fwd_ms,
+            grad_copies_per_step=grad_copies_per_step, **t)
+        if grad_copies_per_step:
+            # the step copies grads: its time counts the copies (both grads
+            # of every call, the most the wrapper can copy)
+            t = dict(t, ms=ms_copies, kernel_only_ms=t["ms"])
+        entries.setdefault("band_smooth_bwd", []).append((1, t, bound, by))
 
     # ---- result lines
     replaces = {
@@ -400,20 +913,33 @@ def main() -> int:
         "band_smooth": ("blind_image_denoising_torch/csrc/band_smooth.cu",
                         "blind_image_denoising_tpu/ops/pallas_pyramid.py"
                         ":165"),
+        "band_smooth_bwd": ("blind_image_denoising_torch/csrc/band_smooth.cu",
+                            "blind_image_denoising_tpu/ops/pallas_pyramid.py"
+                            ":256"),
+        "corrupt_noise": ("blind_image_denoising_torch/csrc/corrupt_noise.cu",
+                          "blind_image_denoising_tpu/ops/pallas_noise.py"
+                          ":101"),
     }
-    launches = {"convnext_block": k1, "band_smooth": k2}
+    # ms, bound and library are per serving forward (K1, K2) or per train
+    # step (K2 backward, K3), summed over the shapes of that unit of work
     kernels = []
     for name, rows_k in entries.items():
-        # one b8 @ 256² forward's worth of calls, summed over its shapes
-        total = lambda key: sum(n * t[key] for n, t, _, _ in rows_k)  # noqa
+        total = lambda key: (None if rows_k[0][1][key] is None  # noqa
+                             else sum(n * t[key] for n, t, _, _ in rows_k))
         bound = sum(n * bd for n, _, bd, _ in rows_k)
         bound_by = max(rows_k, key=lambda r: r[0] * r[2])[3]
+        by_path = dict(serve=serve_counts[name], train=train_counts[name])
         kernels.append(dict(
             name=name, route="cuda", source=replaces[name][0],
-            replaces=replaces[name][1], launches=launches[name],
-            max_abs_err=errors[name], ms=total("ms"),
-            plain_ms=total("plain_ms"), bound_ms=bound, bound_by=bound_by,
-            library_ms=total("library_ms")))
+            replaces=replaces[name][1], launches=sum(by_path.values()),
+            launches_by_path=by_path, max_abs_err=errors[name],
+            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=bound,
+            bound_by=bound_by, library_ms=total("library_ms"),
+            **({"grad_copies_per_step": grad_copies_per_step}
+               if name == "band_smooth_bwd" else {}),
+            per=("serving forward, b8 @ 256^2" if name in
+                 ("convnext_block", "band_smooth")
+                 else "train step, b16 @ 128^2")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

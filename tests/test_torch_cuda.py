@@ -5,13 +5,19 @@ JAX-only ``conftest.py`` is bypassed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: float32 outputs agree to 1e-5 for the band split (same
-arithmetic, same order) and 1e-3 for the ConvNext unit (the kernel sums
-in another order than the plain matmuls); bfloat16 band-split outputs to
-one bf16 ulp of the output and ConvNext-unit outputs to 0.05, or one bf16
-ulp where the output is large enough (|out| >= 8) for one ulp to exceed
-0.05: the kernel sums the products in another order than the plain
-matmuls, which can flip the final bf16 rounding.
+Tolerances: float32 outputs agree to 1e-5 for the band split and its
+backward (same arithmetic, same order) and 1e-3 for the ConvNext unit
+(the kernel sums in another order than the plain matmuls); bfloat16
+band-split outputs and gradients to one bf16 ulp of the output and
+ConvNext-unit outputs to 0.05, or one bf16 ulp where the output is large
+enough (|out| >= 8) for one ulp to exceed 0.05: the kernel sums the
+products in another order than the plain matmuls, which can flip the
+final bf16 rounding. The noise kernel K3 draws the same Philox words as
+its plain version: per-sample flags and stds identical; unrounded
+outputs within 1e-3, except where a first normal draw lies within 1e-5
+of the ±2 redraw threshold (``logf``/``sincosf`` on the card and on the
+host may differ in the last bit and pick the other draw there); rounded
+outputs within 1, on at most 1e-4 of the elements.
 """
 
 import numpy as np
@@ -19,7 +25,7 @@ import pytest
 import torch
 
 from blind_image_denoising_torch.ops import (cuda_build, pallas_convnext,
-                                             pallas_pyramid)
+                                             pallas_noise, pallas_pyramid)
 
 pytestmark = pytest.mark.cuda
 
@@ -126,3 +132,126 @@ def test_flagship_f32_serving_on_card_matches_cpu(dev):
         == (10, 2)
     diff = np.abs(got.astype(int) - cpu(img).astype(int))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 128, 32), (16, 64, 64, 64),
+                                   (1, 37, 53, 64)])
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_smooth_bwd_kernel_matches_plain(dev, shape, k, dtype):
+    g = torch.Generator(device="cpu").manual_seed(2)
+    g_band = torch.randn(shape, generator=g).to(dev, dtype)
+    # the smooth grad arrives permuted, as the model hands it over
+    g_smooth = torch.randn(shape, generator=g).to(dev, dtype).permute(
+        0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    before = pallas_pyramid.bwd_launches
+    copies = pallas_pyramid.bwd_grad_copies
+    dx = pallas_pyramid.band_smooth_bwd(g_band, g_smooth, k)
+    torch.cuda.synchronize()
+    assert pallas_pyramid.bwd_launches == before + 1
+    assert pallas_pyramid.bwd_grad_copies == copies + 1      # g_smooth only
+    ref = pallas_pyramid.band_smooth_bwd_plain(g_band, g_smooth, k)
+    assert dx.dtype == dtype and dx.shape == g_band.shape
+    err = (dx.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5
+    else:
+        assert bool((err <= _bf16_ulp(ref)).all())
+
+
+def test_band_smooth_autograd_launches_both_kernels(dev):
+    x = torch.randn((2, 16, 16, 32), device=dev, requires_grad=True)
+    f, b = pallas_pyramid.launches, pallas_pyramid.bwd_launches
+    band, smooth = pallas_pyramid.band_smooth(x, 2)
+    (band.square().sum() + smooth.sum()).backward()
+    torch.cuda.synchronize()
+    assert (pallas_pyramid.launches - f, pallas_pyramid.bwd_launches - b) \
+        == (1, 1)
+    ref = pallas_pyramid.band_smooth_bwd_plain(2 * band.detach(),
+                                               torch.ones_like(smooth), 2)
+    assert float((x.grad - ref).abs().max()) <= 1e-5
+
+
+def _noise_case(dev, b=16, h=128, w=128):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = (torch.rand((b, h, w, 3), generator=g) * 255).round().to(dev)
+    return x, dict(additive_noise=[5, 40], multiplicative_noise=[0.05, 0.1])
+
+
+def test_corrupt_noise_kernel_matches_plain(dev):
+    x, kw = _noise_case(dev)
+    before = pallas_noise.launches
+    got, params = pallas_noise.corrupt_noise(1234, x, round_values=False,
+                                             return_params=True, **kw)
+    torch.cuda.synchronize()
+    assert pallas_noise.launches == before + 1
+    ref, ref_params = pallas_noise.corrupt_batch_plain(
+        1234, x, round_values=False, return_params=True, **kw)
+    assert torch.equal(params, ref_params)
+    z0_mul, _, z0_add, _ = pallas_noise.normal_draws_plain(
+        1234, x.shape[0], x[0].numel(), dev)
+    edge = (((z0_mul.abs() - 2).abs() < 1e-5) & (params[:, :1] > 0)) | \
+        (((z0_add.abs() - 2).abs() < 1e-5) & (params[:, 2:3] > 0))
+    err = (got - ref).abs().reshape(x.shape[0], -1)
+    assert float(err[~edge].max()) <= 1e-3
+    rounded = pallas_noise.corrupt_noise(1234, x, **kw)
+    rounded_ref = pallas_noise.corrupt_batch_plain(1234, x, **kw)
+    diff = (rounded - rounded_ref).abs()
+    assert torch.equal(rounded, rounded.round())
+    assert float(diff.max()) <= 1.0
+    assert float((diff > 0).float().mean()) <= 1e-4
+
+
+def test_corrupt_noise_kernel_statistics(dev):
+    x = torch.full((64, 128, 128, 3), 128.0, device=dev)
+    y, p = pallas_noise.corrupt_noise(
+        7, x, additive_noise=[5, 40], multiplicative_noise=[0.05, 0.1],
+        return_params=True)
+    assert torch.equal(y, pallas_noise.corrupt_noise(
+        7, x, additive_noise=[5, 40], multiplicative_noise=[0.05, 0.1]))
+    assert abs(float(y.mean()) - 128.0) < 1.0
+    for col in (0, 2):
+        assert abs(float(p[:, col].mean()) - 0.5) <= 0.15
+    res = (y - x).reshape(64, -1)
+    clean = (p[:, 0] == 0) & (p[:, 2] == 0)
+    assert float(res[clean].abs().max()) == 0.0
+    bound = 2 * (128 * p[:, 1] * p[:, 0] * 1.1 + p[:, 3] * p[:, 2]) + 0.5
+    assert bool((res.abs().max(dim=1).values <= bound).all())
+
+
+def test_flagship_trains_two_steps_on_card(dev):
+    """Two bf16 train steps of the packaged flagship at b4 @ 64² with the
+    noise kernel: finite losses, 1 K3 + 2 K2 forward + 2 K2 backward
+    launches per step, and no K1 launch."""
+    import copy
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.config import load_config
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.training import (
+        build_train_step, create_train_state, loss_function_builder,
+        optimizer_builder)
+    from blind_image_denoising_torch.weights import (load_msgpack,
+                                                     params_from_flax)
+    cfg = load_config(bidt.configs["unet_laplacian_v6_tpu"])
+    hydra = model_builder(copy.deepcopy(cfg["model"]),
+                          dtype=torch.bfloat16).hydra
+    tree = load_msgpack(bidt.models["unet_laplacian_v6_tpu_scratch"]
+                        ["directory"] + "/params.msgpack")
+    tx, _ = optimizer_builder(cfg["train"]["optimizer"])
+    state = create_train_state(hydra, tx, params=params_from_flax(tree))
+    ds = cfg["dataset"]
+    step = build_train_step(
+        hydra, tx, loss_function_builder(cfg["loss"]), hydra.no_outputs,
+        additive_noise=ds["additional_noise"],
+        multiplicative_noise=ds["multiplicative_noise"],
+        use_pallas_noise=True)
+    batch = (torch.rand((4, 64, 64, 3), device=dev) * 255).to(torch.uint8)
+    counts = (pallas_convnext.launches, pallas_noise.launches,
+              pallas_pyramid.launches, pallas_pyramid.bwd_launches)
+    for _ in range(2):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    now = (pallas_convnext.launches, pallas_noise.launches,
+           pallas_pyramid.launches, pallas_pyramid.bwd_launches)
+    assert tuple(a - b for a, b in zip(now, counts)) == (0, 2, 4, 4)
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())

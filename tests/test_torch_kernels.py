@@ -1,9 +1,15 @@
-"""The plain PyTorch versions of the port's two kernels against the JAX
-functions they replace, on the CPU, and the wrappers' CPU dispatch.
+"""The plain PyTorch versions of the port's ConvNext-unit and band-split
+kernels against the JAX functions they replace, on the CPU, and the
+wrappers' CPU dispatch (the noise kernel K3 has its own file,
+``test_torch_noise.py``).
 
 * K2 (band split): ``band_smooth_plain`` vs ``laplacian_band_smooth_pallas``
   in Pallas interpret mode and vs ``laplacian_band_smooth_reference``,
   atol 1e-4 (the JAX kernel tests' bar).
+* K2 backward: ``band_smooth_bwd_plain`` and the gradient of the
+  ``band_smooth`` autograd function vs JAX ``_band_smooth_bwd`` and
+  ``jax.vjp`` of ``laplacian_band_smooth_reference``, rtol = atol = 1e-5
+  (the JAX VJP test's bar), and ``torch.autograd.gradcheck`` in float64.
 * K1 (ConvNext unit): ``convnext_block_plain`` vs
   ``convnext_block_reference`` at atol 1e-4 in float32; vs
   ``fused_convnext_block(..., interpret=True)`` float mode at atol 0.05
@@ -27,7 +33,8 @@ from blind_image_denoising_tpu.ops.pallas_convnext import (
     convnext_block_reference, from_cf_padded, fused_convnext_block,
     to_cf_padded)
 from blind_image_denoising_tpu.ops.pallas_pyramid import (
-    laplacian_band_smooth_pallas, laplacian_band_smooth_reference)
+    _band_smooth_bwd, laplacian_band_smooth_pallas,
+    laplacian_band_smooth_reference)
 from blind_image_denoising_torch.layers.convnext import ConvNextBlock
 from blind_image_denoising_torch.ops import pallas_convnext, pallas_pyramid
 from blind_image_denoising_torch.weights import params_from_flax
@@ -47,6 +54,69 @@ def test_band_smooth_plain_matches_jax(k):
                                    atol=1e-4)
         np.testing.assert_allclose(smooth.numpy(), np.asarray(smooth_j),
                                    atol=1e-4)
+
+
+def _vjp_case(k, seed=2):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (2, 16, 8, 3)).astype(np.float32)
+    g_band = rng.normal(size=x.shape).astype(np.float32)
+    g_smooth = rng.normal(size=x.shape).astype(np.float32)
+    _, vjp_fn = jax.vjp(lambda v: laplacian_band_smooth_reference(v, k),
+                        jnp.asarray(x))
+    (dx_vjp,) = vjp_fn((jnp.asarray(g_band), jnp.asarray(g_smooth)))
+    (dx_custom,) = _band_smooth_bwd(k, None, (jnp.asarray(g_band),
+                                              jnp.asarray(g_smooth)))
+    return x, g_band, g_smooth, (np.asarray(dx_vjp), np.asarray(dx_custom))
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_band_smooth_bwd_plain_matches_jax(k):
+    _, g_band, g_smooth, refs = _vjp_case(k)
+    got = pallas_pyramid.band_smooth_bwd_plain(
+        torch.from_numpy(g_band), torch.from_numpy(g_smooth), k).numpy()
+    for ref in refs:
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_band_smooth_autograd_matches_jax_vjp(k):
+    x, g_band, g_smooth, refs = _vjp_case(k, seed=3)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    band, smooth = pallas_pyramid.band_smooth(xt, k)
+    (dx,) = torch.autograd.grad((band, smooth), xt,
+                                (torch.from_numpy(g_band),
+                                 torch.from_numpy(g_smooth)))
+    for ref in refs:
+        np.testing.assert_allclose(dx.numpy(), ref, rtol=1e-5, atol=1e-5)
+    # the grads as the model hands them over: permuted, not NHWC-contiguous
+    gb = torch.from_numpy(g_band).permute(0, 3, 1, 2).contiguous()
+    gs = torch.from_numpy(g_smooth).permute(0, 3, 1, 2).contiguous()
+    got = pallas_pyramid.band_smooth_bwd(gb.permute(0, 2, 3, 1),
+                                         gs.permute(0, 2, 3, 1), k)
+    np.testing.assert_allclose(got.numpy(), refs[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_band_smooth_gradcheck_float64(k):
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (1, 5, 6, 2))).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda v: pallas_pyramid.band_smooth(v, k), (x,), eps=1e-6,
+        atol=1e-7)
+
+
+def test_band_smooth_without_grad_is_the_forward_only():
+    x = torch.ones((1, 4, 4, 8), requires_grad=True)
+    with torch.no_grad():
+        band, smooth = pallas_pyramid.band_smooth(x, 2)
+    assert band.grad_fn is None and smooth.grad_fn is None
+    with torch.inference_mode():
+        band, smooth = pallas_pyramid.band_smooth(x, 2)
+    assert band.grad_fn is None and smooth.grad_fn is None
+    band, smooth = pallas_pyramid.band_smooth(x.detach(), 2)
+    assert band.grad_fn is None and smooth.grad_fn is None
+    band, smooth = pallas_pyramid.band_smooth(x, 2)
+    assert band.grad_fn is not None
 
 
 def _jax_weights(C, K, seed=0):
@@ -156,9 +226,11 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "sys.meta_path.insert(0, _Block())\n"
         "import torch\n"
         "from blind_image_denoising_torch.ops import (cuda_build,\n"
-        "    pallas_convnext, pallas_pyramid)\n"
+        "    pallas_convnext, pallas_noise, pallas_pyramid)\n"
         "x = torch.ones((1, 4, 4, 8))\n"
         "pallas_pyramid.band_smooth(x, 2)\n"
+        "pallas_pyramid.band_smooth_bwd(x, x, 2)\n"
+        "pallas_noise.corrupt_noise(1, x[..., :3], [5, 10], [0.05, 0.1])\n"
         "w = dict(dw=torch.ones(8, 1, 3, 3), ln_scale=torch.ones(8),\n"
         "         w2=torch.ones(32, 8), w3=torch.ones(8, 32),\n"
         "         gain=torch.ones(8))\n"
