@@ -10,6 +10,12 @@
 // index (the plain PyTorch version, band_smooth_plain, does the same
 // arithmetic in the same order).
 //
+// The split with decimation, band = x - A x and down = (A x)[::2, ::2],
+// replaces laplacian_band_split_pallas (body _band_split_kernel): the
+// same kernel with the smooth written only at even (y, x), into
+// [B, H/2, W/2, C]. Bound by bytes too: x read once, band written once,
+// down a quarter of that.
+//
 // The backward, dx = g_band + A^T (g_smooth - g_band), replaces the JAX
 // custom VJP _band_smooth_bwd / _pool_transpose (XLA there; a kernel here
 // because autograd cannot see through the forward kernel). A^T z sums
@@ -24,7 +30,9 @@ namespace {
 
 using bid::Vec16;
 
-template <typename T>
+// kSplit: write the smooth only at even (y, x), decimated into
+// [B, H/2, W/2, C] (H and W even)
+template <typename T, bool kSplit>
 __global__ void __launch_bounds__(256) band_smooth_kernel(
     const T* __restrict__ x, T* __restrict__ band, T* __restrict__ smooth,
     int B, int H, int W, int C, int k) {
@@ -70,11 +78,17 @@ __global__ void __launch_bounds__(256) band_smooth_kernel(
       sb[j] = bid::from_float<T>(__fsub_rn(bid::to_float(xc[j]), s));
     }
     *reinterpret_cast<uint4*>(band + off) = sb.raw;
-    *reinterpret_cast<uint4*>(smooth + off) = ss.raw;
+    if constexpr (!kSplit) {
+      *reinterpret_cast<uint4*>(smooth + off) = ss.raw;
+    } else if (((h | w) & 1) == 0) {
+      const long long doff =
+          ((b * (H / 2) + h / 2) * (W / 2) + w / 2) * C + cv * V;
+      *reinterpret_cast<uint4*>(smooth + doff) = ss.raw;
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool kSplit>
 int launch(const void* x, void* band, void* smooth, int B, int H, int W,
            int C, int k, cudaStream_t stream) {
   constexpr int V = Vec16<T>::N;
@@ -85,7 +99,7 @@ int launch(const void* x, void* band, void* smooth, int B, int H, int W,
   long long blocks = (n + threads - 1) / threads;
   const long long cap = (long long)bid::sm_count() * 16;
   if (blocks > cap) blocks = cap;
-  band_smooth_kernel<T><<<(int)blocks, threads, 0, stream>>>(
+  band_smooth_kernel<T, kSplit><<<(int)blocks, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(band), static_cast<T*>(smooth),
       B, H, W, C, k);
   return (int)cudaGetLastError();
@@ -175,8 +189,18 @@ extern "C" int bid_band_smooth(const void* x, void* band, void* smooth,
                                int B, int H, int W, int C, int k, int dtype,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, band, smooth, B, H, W, C, k, s);
-  if (dtype == 1) return launch<bid::bf16>(x, band, smooth, B, H, W, C, k, s);
+  if (dtype == 0) return launch<float, false>(x, band, smooth, B, H, W, C, k, s);
+  if (dtype == 1) return launch<bid::bf16, false>(x, band, smooth, B, H, W, C, k, s);
+  return BID_ERR_UNSUPPORTED;
+}
+
+extern "C" int bid_band_split(const void* x, void* band, void* down, int B,
+                              int H, int W, int C, int k, int dtype,
+                              void* stream) {
+  if ((H | W) & 1) return BID_ERR_BAD_ARGUMENT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float, true>(x, band, down, B, H, W, C, k, s);
+  if (dtype == 1) return launch<bid::bf16, true>(x, band, down, B, H, W, C, k, s);
   return BID_ERR_UNSUPPORTED;
 }
 

@@ -5,9 +5,9 @@
 //   out = x + gain * p
 //
 // Replaces blind_image_denoising_tpu/ops/pallas_convnext.py
-// fused_convnext_block (body _block_kernel), float I/O mode. NHWC in and
-// out. Design and bound: see blind_image_denoising_torch/ops/
-// pallas_convnext.py. In short:
+// fused_convnext_block (body _block_kernel), float and int8 I/O modes.
+// NHWC in and out. Design and bound: see blind_image_denoising_torch/
+// ops/pallas_convnext.py. In short:
 // * persistent blocks walk over tiles of TH x TW output pixels of one
 //   image; the weights are staged into shared memory once per block;
 // * the input tile plus its K/2 halo is copied into shared memory with
@@ -19,7 +19,13 @@
 //   projection's A fragments in registers (chunks of 64 of the E
 //   channels), so h never leaves the registers;
 // * f32 I/O: every operation is f32 on the CUDA cores, one thread per
-//   pixel, t and p held in registers.
+//   pixel, t and p held in registers;
+// * int8 I/O: the tile is loaded as int8 codes and dequantized into the
+//   bf16 shared tile as bf16(q * bf16(scale_in)) (the product is exact in
+//   f32, so this is the JAX kernel's one bf16 rounding); the unit then
+//   runs the bf16 path, and the epilogue requantizes
+//   x + gain * p with __float2int_rn(out * f32(1/scale_out)) (round half
+//   to even, like jnp.round), clamped to +-127, into 16-byte stores.
 #include <type_traits>
 
 #include "common.cuh"
@@ -32,18 +38,34 @@ constexpr float kLnEps = 1e-3f;
 
 constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-template <typename T> struct Tile;
-template <> struct Tile<bf16> { static constexpr int TH = 8, TW = 32; };
-template <> struct Tile<float> { static constexpr int TH = 8, TW = 16; };
+// I/O type T -> S, the type of the shared input tile and of the 1x1
+// weights (int8 codes are dequantized into a bf16 tile), and the tile
+template <typename T> struct Io;
+template <> struct Io<bf16> {
+  using S = bf16;
+  static constexpr int TH = 8, TW = 32;
+};
+template <> struct Io<float> {
+  using S = float;
+  static constexpr int TH = 8, TW = 16;
+};
+template <> struct Io<int8_t> {
+  using S = bf16;
+  static constexpr int TH = 8, TW = 32;
+};
 
 template <typename T, int C_, int K_>
 struct Cfg {
+  using S = typename Io<T>::S;
   static constexpr int C = C_, K = K_, E = 4 * C_, PAD = K_ / 2;
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int TH = Tile<T>::TH, TW = Tile<T>::TW;
+  // the two products on the tensor cores (bf16 and int8 I/O)
+  static constexpr bool kMma = std::is_same<S, bf16>::value;
+  static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  static constexpr int TH = Io<T>::TH, TW = Io<T>::TW;
   static constexpr int P = TH * TW;          // pixels per tile = threads
   static constexpr int IH = TH + 2 * PAD, IW = TW + 2 * PAD;
-  static constexpr int V = 16 / sizeof(T);   // elements per 16-byte vector
+  static constexpr int V = 16 / sizeof(S);   // tile elements per 16 bytes
+  static constexpr int VIO = 16 / sizeof(T); // I/O elements per 16 bytes
   // row strides (elements) padded so that the warp's accesses below are
   // free of shared-memory bank conflicts
   static constexpr int LDX = C + V;          // input tile, per pixel
@@ -55,14 +77,15 @@ struct Cfg {
   static constexpr size_t OFF_LN = align16(OFF_DW + 4 * K * K * C);
   static constexpr size_t OFF_GN = align16(OFF_LN + 4 * C);
   static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
-  static constexpr size_t OFF_W2 = align16(OFF_X + sizeof(T) * IH * IW * LDX);
-  // bf16: W2 bf16 [E][LDW2], W3 bf16 [C][LDW3], t/out tile bf16 [P][LDT]
-  // f32:  W2 f32 [E][C], W3 transposed f32 [E][C]
+  static constexpr size_t OFF_W2 = align16(OFF_X + sizeof(S) * IH * IW * LDX);
+  // bf16/int8: W2 bf16 [E][LDW2], W3 bf16 [C][LDW3], t/out tile bf16
+  //            [P][LDT] (int8 output rows are staged in the same rows)
+  // f32:       W2 f32 [E][C], W3 transposed f32 [E][C]
   static constexpr size_t OFF_W3 =
-      align16(OFF_W2 + (kBf16 ? 2 * E * LDW2 : 4 * E * C));
+      align16(OFF_W2 + (kMma ? 2 * E * LDW2 : 4 * E * C));
   static constexpr size_t OFF_T =
-      align16(OFF_W3 + (kBf16 ? 2 * C * LDW3 : 4 * E * C));
-  static constexpr size_t SMEM = OFF_T + (kBf16 ? 2 * P * LDT : 0);
+      align16(OFF_W3 + (kMma ? 2 * C * LDW3 : 4 * E * C));
+  static constexpr size_t SMEM = OFF_T + (kMma ? 2 * P * LDT : 0);
 };
 
 __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
@@ -76,6 +99,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float leaky(float v, float slope) {
   return v >= 0.f ? v : v * slope;
+}
+
+// round(v * inv) half to even, clamped to the symmetric int8 range
+__device__ __forceinline__ signed char quant_int8(float v, float inv) {
+  const int q = __float2int_rn(__fmul_rn(v, inv));
+  return (signed char)max(-127, min(127, q));
 }
 
 // D += A B for one m16n8k16 tile: A row-major bf16 (4 regs), B col-major
@@ -94,16 +123,18 @@ __global__ void __launch_bounds__(Cfg<T, C, K>::P)
 convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
                       const float* __restrict__ dw,
                       const float* __restrict__ ln,
-                      const T* __restrict__ w2, const T* __restrict__ w3,
+                      const typename Cfg<T, C, K>::S* __restrict__ w2,
+                      const typename Cfg<T, C, K>::S* __restrict__ w3,
                       const float* __restrict__ gain, int B, int H, int W,
-                      float slope) {
+                      float slope, float s_in, float inv_out) {
   using G = Cfg<T, C, K>;
+  using S = typename G::S;
   constexpr int E = G::E, P = G::P, V = G::V;
   extern __shared__ __align__(16) unsigned char smem[];
   float* dws = reinterpret_cast<float*>(smem + G::OFF_DW);
   float* lns = reinterpret_cast<float*>(smem + G::OFF_LN);
   float* gns = reinterpret_cast<float*>(smem + G::OFF_GN);
-  T* xs = reinterpret_cast<T*>(smem + G::OFF_X);
+  S* xs = reinterpret_cast<S*>(smem + G::OFF_X);
   const int tid = threadIdx.x;
 
   // ---- weights, once per block
@@ -115,7 +146,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
     lns[c] = ln[c];
     gns[c] = gain[c];
   }
-  if constexpr (G::kBf16) {
+  if constexpr (G::kMma) {
     bf16* w2s = reinterpret_cast<bf16*>(smem + G::OFF_W2);
     bf16* w3s = reinterpret_cast<bf16*>(smem + G::OFF_W3);
     for (int i = tid; i < E * C / 8; i += P) {
@@ -152,8 +183,9 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
 
     __syncthreads();  // weights staged / previous tile done with smem
 
-    // ---- input tile + halo, zeros outside the image
-    constexpr int CV = C / V;
+    // ---- input tile + halo, zeros outside the image; int8 codes are
+    // dequantized on the way into the bf16 tile
+    constexpr int CV = C / G::VIO;
     for (int i = tid; i < G::IH * G::IW * CV; i += P) {
       const int cv = i % CV, pix = i / CV;
       const int iy = pix / G::IW, ix = pix % G::IW;
@@ -161,8 +193,21 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (gy >= 0 && gy < H && gx >= 0 && gx < W)
         v = __ldg(reinterpret_cast<const uint4*>(
-            x + ((b * H + gy) * W + gx) * C + cv * V));
-      *reinterpret_cast<uint4*>(xs + pix * G::LDX + cv * V) = v;
+            x + ((b * H + gy) * W + gx) * C + cv * G::VIO));
+      S* dst = xs + pix * G::LDX + cv * G::VIO;
+      if constexpr (G::kInt8) {
+        const signed char* q = reinterpret_cast<const signed char*>(&v);
+        uint4 d[2];
+        uint32_t* dp = reinterpret_cast<uint32_t*>(d);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dp[j] = pack_bf16(__fmul_rn((float)q[2 * j], s_in),
+                            __fmul_rn((float)q[2 * j + 1], s_in));
+        reinterpret_cast<uint4*>(dst)[0] = d[0];
+        reinterpret_cast<uint4*>(dst)[1] = d[1];
+      } else {
+        *reinterpret_cast<uint4*>(dst) = v;
+      }
     }
     __syncthreads();
 
@@ -174,11 +219,11 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
     for (int dy = 0; dy < K; ++dy) {
 #pragma unroll
       for (int dx = 0; dx < K; ++dx) {
-        const T* xp = xs + ((py + dy) * G::IW + px + dx) * G::LDX;
+        const S* xp = xs + ((py + dy) * G::IW + px + dx) * G::LDX;
         const float* wp = dws + (dy * K + dx) * C;
 #pragma unroll
         for (int c0 = 0; c0 < C; c0 += V) {
-          bid::Vec16<T> v;
+          bid::Vec16<S> v;
           v.raw = *reinterpret_cast<const uint4*>(xp + c0);
 #pragma unroll
           for (int j4 = 0; j4 < V; j4 += 4) {
@@ -206,7 +251,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] = (acc[c] - mean) * rs * lns[c];
 
-    if constexpr (G::kBf16) {
+    if constexpr (G::kMma) {
       // ---- t -> shared memory as bf16, one row per pixel
       bf16* ts = reinterpret_cast<bf16*>(smem + G::OFF_T);
       const bf16* w2s = reinterpret_cast<const bf16*>(smem + G::OFF_W2);
@@ -274,7 +319,8 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
           }
         }
         __syncwarp();
-        // ---- out = x + gain * p, into this warp's rows of the tile
+        // ---- out = x + gain * p, into this warp's rows of the tile (int8:
+        // requantized, C bytes at the start of each row)
 #pragma unroll
         for (int nt = 0; nt < C / 8; ++nt) {
           const int c = nt * 8 + 2 * q;
@@ -288,19 +334,30 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
                                        __fmul_rn(gns[c], pacc[nt][2 * hf]));
             const float o1 = __fadd_rn(bid::to_float(xr[1]),
                                        __fmul_rn(gns[c + 1], pacc[nt][2 * hf + 1]));
-            *reinterpret_cast<uint32_t*>(ts + m * G::LDT + c) = pack_bf16(o0, o1);
+            if constexpr (G::kInt8) {
+              char2 qv;
+              qv.x = quant_int8(o0, inv_out);
+              qv.y = quant_int8(o1, inv_out);
+              *reinterpret_cast<char2*>(
+                  reinterpret_cast<signed char*>(ts + m * G::LDT) + c) = qv;
+            } else {
+              *reinterpret_cast<uint32_t*>(ts + m * G::LDT + c) = pack_bf16(o0, o1);
+            }
           }
         }
       }
       __syncthreads();
 
       // ---- tile -> global, 16-byte stores
-      for (int i = tid; i < P * (C / 8); i += P) {
-        const int m = i / (C / 8), cv = i % (C / 8);
+      constexpr int OV = G::VIO;
+      for (int i = tid; i < P * (C / OV); i += P) {
+        const int m = i / (C / OV), cv = i % (C / OV);
         const int gy = y0 + m / G::TW, gx = x0 + m % G::TW;
         if (gy < H && gx < W)
-          *reinterpret_cast<uint4*>(out + ((b * H + gy) * W + gx) * C + cv * 8) =
-              *reinterpret_cast<const uint4*>(ts + m * G::LDT + cv * 8);
+          *reinterpret_cast<uint4*>(out + ((b * H + gy) * W + gx) * C + cv * OV) =
+              *reinterpret_cast<const uint4*>(
+                  reinterpret_cast<const unsigned char*>(ts + m * G::LDT) +
+                  cv * 16);
       }
     } else {
       // ---- f32: both products on the CUDA cores, t and p in registers
@@ -360,8 +417,10 @@ constexpr int kMaxDevices = 64;
 template <typename T, int C, int K>
 int launch(const void* x, void* out, const void* dw, const void* ln,
            const void* w2, const void* w3, const void* gain, int B, int H,
-           int W, float slope, cudaStream_t stream) {
+           int W, float slope, float s_in, float inv_out,
+           cudaStream_t stream) {
   using G = Cfg<T, C, K>;
+  using S = typename G::S;
   auto kern = convnext_block_kernel<T, C, K>;
   static int blocks_per_device[kMaxDevices] = {0};
   int dev = 0;
@@ -387,36 +446,77 @@ int launch(const void* x, void* out, const void* dw, const void* ln,
   kern<<<grid, G::P, G::SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out),
       static_cast<const float*>(dw), static_cast<const float*>(ln),
-      static_cast<const T*>(w2), static_cast<const T*>(w3),
-      static_cast<const float*>(gain), B, H, W, slope);
+      static_cast<const S*>(w2), static_cast<const S*>(w3),
+      static_cast<const float*>(gain), B, H, W, slope, s_in, inv_out);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* x, void* out, const void* dw, const void* ln,
              const void* w2, const void* w3, const void* gain, int B, int H,
-             int W, int C, int K, float slope, cudaStream_t s) {
+             int W, int C, int K, float slope, float s_in, float inv_out,
+             cudaStream_t s) {
 #define BID_CASE(CC, KK)                                                     \
   if (C == CC && K == KK)                                                    \
-    return launch<T, CC, KK>(x, out, dw, ln, w2, w3, gain, B, H, W, slope, s);
-  BID_CASE(32, 3)  // the flagship's level 0
-  BID_CASE(64, 5)  // the flagship's level 1
+    return launch<T, CC, KK>(x, out, dw, ln, w2, w3, gain, B, H, W, slope,   \
+                             s_in, inv_out, s);
+  BID_CASE(32, 3)  // the packaged flagship's level 0
+  BID_CASE(32, 5)  // unet_laplacian_v6's level 0
+  BID_CASE(64, 5)  // level 1 of both
 #undef BID_CASE
+  return BID_ERR_UNSUPPORTED;
+}
+
+// shared memory, registers and local (spill) bytes of one instantiation
+template <typename T, int C, int K>
+int info(int* smem, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, convnext_block_kernel<T, C, K>);
+  if (e != cudaSuccess) return (int)e;
+  *smem = (int)Cfg<T, C, K>::SMEM;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
+}
+
+template <typename T>
+int dispatch_info(int C, int K, int* smem, int* regs, int* local_bytes) {
+#define BID_INFO(CC, KK) \
+  if (C == CC && K == KK) return info<T, CC, KK>(smem, regs, local_bytes);
+  BID_INFO(32, 3)
+  BID_INFO(32, 5)
+  BID_INFO(64, 5)
+#undef BID_INFO
   return BID_ERR_UNSUPPORTED;
 }
 
 }  // namespace
 
+extern "C" int bid_convnext_block_info(int C, int K, int dtype, int* smem,
+                                       int* regs, int* local_bytes) {
+  if (dtype == 0) return dispatch_info<float>(C, K, smem, regs, local_bytes);
+  if (dtype == 1) return dispatch_info<bf16>(C, K, smem, regs, local_bytes);
+  if (dtype == 2) return dispatch_info<int8_t>(C, K, smem, regs, local_bytes);
+  return BID_ERR_UNSUPPORTED;
+}
+
 extern "C" int bid_convnext_block(const void* x, void* out, const void* dw,
                                   const void* ln, const void* w2,
                                   const void* w3, const void* gain, int B,
                                   int H, int W, int C, int K, int dtype,
-                                  float slope, void* stream) {
+                                  float slope, float s_in, float inv_out,
+                                  void* stream) {
   if (B < 0 || H < 0 || W < 0) return BID_ERR_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(x, out, dw, ln, w2, w3, gain, B, H, W, C, K, slope, s);
+    return dispatch<float>(x, out, dw, ln, w2, w3, gain, B, H, W, C, K, slope,
+                           s_in, inv_out, s);
   if (dtype == 1)
-    return dispatch<bf16>(x, out, dw, ln, w2, w3, gain, B, H, W, C, K, slope, s);
+    return dispatch<bf16>(x, out, dw, ln, w2, w3, gain, B, H, W, C, K, slope,
+                          s_in, inv_out, s);
+  if (dtype == 2)
+    return dispatch<int8_t>(x, out, dw, ln, w2, w3, gain, B, H, W, C, K,
+                            slope, s_in, inv_out, s);
   return BID_ERR_UNSUPPORTED;
 }

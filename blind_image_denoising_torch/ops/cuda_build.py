@@ -122,10 +122,15 @@ def build(verbose: bool = False) -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bid_convnext_block.argtypes = [p, p, p, p, p, p, p,
-                                       i, i, i, i, i, i, f, p]
+                                       i, i, i, i, i, i, f, f, f, p]
     lib.bid_convnext_block.restype = i
+    ip = ctypes.POINTER(i)
+    lib.bid_convnext_block_info.argtypes = [i, i, i, ip, ip, ip]
+    lib.bid_convnext_block_info.restype = i
     lib.bid_band_smooth.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.bid_band_smooth.restype = i
+    lib.bid_band_split.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.bid_band_split.restype = i
     lib.bid_band_smooth_bwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.bid_band_smooth_bwd.restype = i
     lib.bid_corrupt_noise.argtypes = [p, p, p, i, ctypes.c_longlong,

@@ -6,10 +6,12 @@
     out = x + gain · p                     # gain = tanh(relu(1 + w)), + skip
 
 Counterpart of ``blind_image_denoising_tpu/ops/pallas_convnext.py``
-``fused_convnext_block`` (Pallas body ``_block_kernel``, float I/O mode)
-and of its oracle ``convnext_block_reference``. The flagship runs it 10
-times per forward: at (C, K) = (32, 3) four times at full resolution and
-(64, 5) six times at half resolution.
+``fused_convnext_block`` (Pallas body ``_block_kernel``) in both of its
+I/O modes, and of its oracle ``convnext_block_reference``. The packaged
+flagship runs it 10 times per forward: at (C, K) = (32, 3) four times at
+full resolution and (64, 5) six times at half resolution;
+``unet_laplacian_v6`` runs it at (32, 5) and (64, 5), 12 times, and its
+fused int8 serving path (``inference/fused.py``) runs the int8 mode.
 
 CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
 2K²C + 16C² operations against 2·C·bytes of I/O: ≈ 17 k operations per
@@ -32,10 +34,16 @@ below or near the H100's 295 operations-per-byte ridge only if the two
 * the epilogue adds ``x + gain·p`` in float32 and writes the tile with
   16-byte stores.
 In float32 mode (``dtype="float32"`` serving) every operation is float32
-on the CUDA cores, one thread per pixel. The JAX kernel's padded-row
-channels-first layout and column masks served the TPU's lane tiling and
-are not carried over; the int8 I/O mode is not ported yet (ROADMAP
-Queue 2, K1).
+on the CUDA cores, one thread per pixel. In int8 mode (``x`` int8 with
+``scale_in`` and ``scale_out``) only int8 codes touch device memory: the
+tile is loaded as int8 (16 channels per 16-byte load) and dequantized
+into the bf16 shared tile as ``bf16(q · bf16(scale_in))``, the unit runs
+the bf16 path above, and the epilogue writes
+``clip(round_half_even((x + gain·p) · f32(1/scale_out)), ±127)``. The
+int8 bytes halve the bf16 mode's; at ``unet_laplacian_v6``'s shapes the
+CUDA-core work (depthwise, LayerNorm, epilogue) then bounds it, not the
+bytes. The JAX kernel's padded-row channels-first layout and column
+masks served the TPU's lane tiling and are not carried over.
 
 ``convnext_block`` takes NHWC tensors like the JAX oracle. A tensor on
 the CPU goes through :func:`convnext_block_plain`, the same arithmetic
@@ -49,28 +57,66 @@ import torch.nn.functional as F
 from ..constants import DEFAULT_LN_EPSILON
 from . import cuda_build
 
-# kernel launches made by convnext_block (the plain path does not count)
+# kernel launches made by convnext_block in float mode and in int8 mode
+# (the plain path does not count)
 launches = 0
+int8_launches = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# (C, K) instantiated in csrc/convnext_block.cu; E = 4C
-KERNEL_SHAPES = frozenset({(32, 3), (64, 5)})
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# (C, K) instantiated in csrc/convnext_block.cu for every mode; E = 4C
+KERNEL_SHAPES = frozenset({(32, 3), (32, 5), (64, 5)})
+INT8_MAX = 127
 
 
 def _round_bf16(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.bfloat16).float()
 
 
-def convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1):
-    """Plain PyTorch version of the kernel. x: [B, H, W, C] float32 or
-    bfloat16. In bfloat16 the products see bf16 operands (``t``, ``h``
-    and the weights rounded to bf16) with float32 sums, as the tensor
-    cores do; everything else is float32. Returns x's dtype."""
+def _f32(v: float) -> float:
+    """v rounded to float32, as a Python float."""
+    return torch.tensor(float(v), dtype=torch.float32).item()
+
+
+def int8_constants(scale_in: float, scale_out: float):
+    """The int8 mode's two constants, as the JAX kernel rounds them:
+    ``bf16(scale_in)`` (the dequantize multiplier) and ``f32(1/scale_out)``
+    (the requantize multiplier: a multiply by the reciprocal, not a
+    divide). The kernel and the plain version take the same values."""
+    s_in = torch.tensor(float(scale_in), dtype=torch.bfloat16).item()
+    return s_in, _f32(1.0 / float(scale_out))
+
+
+def _quantize_f32(xf: torch.Tensor, inv_scale: float) -> torch.Tensor:
+    q = torch.round(xf * inv_scale)               # half to even
+    return torch.clamp(q, -INT8_MAX, INT8_MAX).to(torch.int8)
+
+
+def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``round(f32(x) · f32(1/scale))`` clipped to ±127 (not −128), as
+    int8: the counterpart of the JAX module's ``quantize_cf``, on a tensor
+    of any layout (the port's are NHWC)."""
+    return _quantize_f32(x.float(), _f32(1.0 / float(scale)))
+
+
+def convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
+                         scale_in=None, scale_out=None):
+    """Plain PyTorch version of the kernel. x: [B, H, W, C] float32,
+    bfloat16, or int8 codes with ``scale_in``/``scale_out``. In bfloat16
+    and int8 the products see bf16 operands (``t``, ``h`` and the weights
+    rounded to bf16) with float32 sums, as the tensor cores do; int8 codes
+    are dequantized to ``bf16(q · bf16(scale_in))`` first and the output
+    is requantized with ``f32(1/scale_out)`` (the JAX kernel's rounding
+    points); everything else is float32. Returns x's dtype."""
     b, h, w, c = x.shape
     k = dw.shape[-1]
     pad = k // 2
-    bf16 = x.dtype == torch.bfloat16
-    xf = x.float()
+    int8 = x.dtype == torch.int8
+    bf16 = int8 or x.dtype == torch.bfloat16
+    if int8:
+        s_in, inv_out = int8_constants(scale_in, scale_out)
+        xf = _round_bf16(x.float() * s_in)
+    else:
+        xf = x.float()
     xp = F.pad(xf, (0, 0, pad, pad, pad, pad))
     dwf = dw.float().reshape(c, k, k)
     acc = torch.zeros_like(xf)
@@ -88,24 +134,35 @@ def convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1):
     if bf16:
         hid = _round_bf16(hid)
     p = hid @ w3f.t()
-    return (xf + gain.float() * p).to(x.dtype)
+    out = xf + gain.float() * p
+    if int8:
+        return _quantize_f32(out, inv_out)
+    return out.to(x.dtype)
 
 
-def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1):
-    """One fused ConvNext residual unit. x: [B, H, W, C] float32/bfloat16;
-    dw: [C, 1, K, K] or [C, K, K] depthwise kernel; ln_scale: [C];
-    w2: [E, C]; w3: [C, E]; gain: [C], the activated
-    tanh(relu(1 + w)). Returns [B, H, W, C] in x's dtype."""
-    global launches
+def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
+                   scale_in=None, scale_out=None):
+    """One fused ConvNext residual unit. x: [B, H, W, C] float32/bfloat16,
+    or int8 codes with their ``scale_in`` and the ``scale_out`` to
+    requantize with (int8 mode: int8 in, int8 out); dw: [C, 1, K, K] or
+    [C, K, K] depthwise kernel; ln_scale: [C]; w2: [E, C]; w3: [C, E];
+    gain: [C], the activated tanh(relu(1 + w)). Returns [B, H, W, C] in
+    x's dtype."""
+    global launches, int8_launches
     if x.ndim != 4:
         raise ValueError(f"convnext_block takes [B, H, W, C], got {x.shape}")
+    int8 = x.dtype == torch.int8
+    if (scale_in is not None, scale_out is not None) != (int8, int8):
+        raise ValueError("convnext_block: int8 x takes scale_in and "
+                         "scale_out, a float x takes neither")
     if x.device.type == "cpu":
-        return convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope)
+        return convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope,
+                                    scale_in, scale_out)
     if x.device.type != "cuda":
         raise ValueError(f"convnext_block: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"convnext_block kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
+        raise TypeError(f"convnext_block kernel takes float32, bfloat16 or "
+                        f"int8, got {x.dtype}")
     b, h, w, c = x.shape
     k = dw.shape[-1]
     e = w2.shape[0]
@@ -120,12 +177,15 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1):
     tensors = (dw, ln_scale, w2, w3, gain)
     if any(t.device != x.device for t in tensors):
         raise ValueError("convnext_block: weights must be on x's device")
+    s_in, inv_out = int8_constants(scale_in, scale_out) if int8 else (1.0,
+                                                                       1.0)
     x = x.contiguous()
     dw_f = dw.reshape(c, k * k).float().contiguous()
     ln_f = ln_scale.float().contiguous()
     gain_f = gain.float().contiguous()
-    w2_io = w2.to(x.dtype).contiguous()
-    w3_io = w3.to(x.dtype).contiguous()
+    w_dtype = torch.bfloat16 if int8 else x.dtype
+    w2_io = w2.to(w_dtype).contiguous()
+    w3_io = w3.to(w_dtype).contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -135,7 +195,11 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1):
         rc = lib.bid_convnext_block(
             x.data_ptr(), out.data_ptr(), dw_f.data_ptr(), ln_f.data_ptr(),
             w2_io.data_ptr(), w3_io.data_ptr(), gain_f.data_ptr(),
-            b, h, w, c, k, _DTYPE_CODES[x.dtype], float(slope), stream)
+            b, h, w, c, k, _DTYPE_CODES[x.dtype], float(slope), s_in,
+            inv_out, stream)
     cuda_build.check(lib, rc, "convnext_block kernel")
-    launches += 1
+    if int8:
+        int8_launches += 1
+    else:
+        launches += 1
     return out

@@ -35,6 +35,16 @@ the pixel, in float32), with :func:`band_smooth_bwd_plain` beside it
 (JAX ``_band_smooth_bwd`` / ``_pool_transpose``, in the same tap order).
 When no gradient is wanted (serving under ``inference_mode``) autograd
 records nothing and only the forward kernel runs.
+
+:func:`band_split` is the split with decimation, ``band = x − A·x`` and
+``down = (A·x)[::2, ::2]``: the counterpart of
+``laplacian_band_split_pallas`` (Pallas body ``_band_split_kernel``) and
+of its oracle ``laplacian_band_split_reference``, with
+:func:`band_split_plain` beside it. Its kernel is the same pooling loop
+(``bid_band_split``) writing the smooth only at even rows and columns,
+so it moves x once, band once and a quarter of that for ``down``. Like
+the JAX kernel it is forward only, and a tensor that wants a gradient
+raises.
 """
 
 from typing import Tuple
@@ -49,6 +59,8 @@ from . import cuda_build
 launches = 0
 bwd_launches = 0
 bwd_grad_copies = 0
+# kernel launches made by band_split
+split_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -202,3 +214,48 @@ def band_smooth(x: torch.Tensor,
     if x.ndim != 4:
         raise ValueError(f"band_smooth takes [B, H, W, C], got {x.shape}")
     return _BandSmooth.apply(x, int(kernel_size))
+
+
+def band_split_plain(x: torch.Tensor,
+                     kernel_size: int = 2) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Plain PyTorch version of the split kernel: :func:`band_smooth_plain`
+    (the same tap order) and the smooth's even rows and columns."""
+    band, smooth = band_smooth_plain(x, kernel_size)
+    return band, smooth[:, ::2, ::2, :].contiguous()
+
+
+def band_split(x: torch.Tensor,
+               kernel_size: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, H, W, C] with H and W even → (band [B, H, W, C], down
+    [B, H/2, W/2, C]) in x's dtype. Forward only: raises for a tensor
+    that wants a gradient (use :func:`band_smooth` to differentiate)."""
+    global split_launches
+    if x.ndim != 4:
+        raise ValueError(f"band_split takes [B, H, W, C], got {x.shape}")
+    b, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError("H and W must be even for the 2x downsample")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("band_split has no backward (neither has the JAX "
+                           "kernel); use band_smooth where a gradient is "
+                           "wanted")
+    if x.device.type == "cpu":
+        return band_split_plain(x, kernel_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"band_split: unsupported device {x.device}")
+    _check(x, "band_split")
+    x = x.contiguous()
+    band = torch.empty_like(x)
+    down = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return band, down
+    lib = cuda_build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.bid_band_split(
+            x.data_ptr(), band.data_ptr(), down.data_ptr(),
+            b, h, w, c, int(kernel_size), _DTYPE_CODES[x.dtype], stream)
+    cuda_build.check(lib, rc, "band_split kernel")
+    split_launches += 1
+    return band, down

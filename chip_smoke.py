@@ -11,8 +11,17 @@ drive the two paths of the port through the entry points a user calls:
   b16 @ 128² with the noise kernel on — first one injected batch
   against the port's float32 CPU loss and gradients, then 3 warm-up and
   20 timed steps and 3 profiled ones;
+* fused: ``unet_laplacian_v6`` at full width from a seeded init, bf16,
+  through ``inference/fused.py``: ``calibrate_fused`` on 8 images (4
+  clean, 4 at σ = 25), then the float and the int8 fused forwards and
+  the standard bf16 hydra on b32 @ 256², with launch counts, every K1
+  launch of the fused forwards against its plain version on the same
+  input, the fused outputs against the hydra's, the f32 fused forward
+  against the same forward on the CPU, and the three timed;
+* band_split: the decimating band split (K4) through its op, the only
+  entry point it has, at the pyramid shapes 8×256²×32 and 8×128²×64;
 
-check what comes out, and time the kernels and both paths.
+check what comes out, and time the kernels and the paths.
 
     python3 chip_smoke.py [--profile-out FILE]
 
@@ -23,7 +32,7 @@ Output: one line per phase; then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. ``--profile-out FILE`` also writes
 the full per-kernel device-time tables of the profiled serving requests
-and train steps (torch.profiler) to FILE.
+train steps and v6 forwards (torch.profiler) to FILE.
 """
 
 import argparse
@@ -43,6 +52,15 @@ import torch.nn.functional as F
 FLAGSHIP = "unet_laplacian_v6_tpu_scratch"
 TRAIN_CONFIG = "unet_laplacian_v6_tpu"
 TRAIN_BATCH, TRAIN_SIZE = 16, 128          # the JAX bench's train protocol
+FUSED_CONFIG = "unet_laplacian_v6"
+FUSED_BATCH, FUSED_SIZE = 32, 256          # scripts/bench_fused_e2e.py's
+# the fused phase's bars, in mean gray levels, each set from the readings
+# in PERF.md: the card's f32 float fused forward against the same forward
+# on the CPU (on FUSED_CPU_IMAGES images), and the bf16 float fused
+# forward against the bf16 hydra
+FUSED_CPU_IMAGES = 2
+FUSED_F32_CARD_VS_CPU_MEAN = 1e-3
+FUSED_FLOAT_VS_HYDRA_MEAN = 2.0
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 TENSOR_BF16_OPS_PER_S = 989e12   # dense bf16 tensor cores
@@ -131,8 +149,25 @@ def convnext_library(x, dw, ln_scale, w2, w3, gain, slope):
     y = F.conv2d(x.permute(0, 3, 1, 2), dw.to(x.dtype), padding=k // 2,
                  groups=c).permute(0, 2, 3, 1)
     t = F.layer_norm(y, (c,), ln_scale.to(x.dtype), None, 1e-3)
-    h = F.leaky_relu(F.linear(t, w2), slope)
-    return x + gain.to(x.dtype) * F.linear(h, w3)
+    h = F.leaky_relu(F.linear(t, w2.to(x.dtype)), slope)
+    return x + gain.to(x.dtype) * F.linear(h, w3.to(x.dtype))
+
+
+def convnext_int8_library(xq, s_in, s_out, dw, ln_scale, w2, w3, gain,
+                          slope):
+    """The int8 unit from PyTorch library calls: dequantize to bf16, the
+    float chain of :func:`convnext_library`, quantize (the yardstick)."""
+    x = xq.to(torch.bfloat16) * torch.tensor(s_in, dtype=torch.bfloat16)
+    out = convnext_library(x, dw, ln_scale, w2, w3, gain, slope)
+    return torch.round(out.float() * (1.0 / s_out)).clamp(-127, 127).to(
+        torch.int8)
+
+
+def band_split_library(x, k):
+    """Count-aware F.avg_pool2d, subtract and even-pixel slice (the
+    yardstick of K4)."""
+    band, smooth = band_smooth_library(x, k)
+    return band, smooth[:, ::2, ::2].contiguous()
 
 
 def band_smooth_library(x, k):
@@ -149,17 +184,21 @@ def band_smooth_library(x, k):
 
 def convnext_bound_ms(b, h, w, c, k, dtype):
     """The larger of bytes over the memory rate and operations over the
-    peak rate for their type. In bf16 the two products run on the tensor
-    cores and the depthwise, LayerNorm and epilogue on the CUDA cores;
-    the two units run at once, so each is a bound of its own and the
-    least time is the largest of the three, not a sum."""
+    peak rate for their type. In bf16 and int8 the two products run on
+    the tensor cores and the depthwise, LayerNorm and epilogue on the
+    CUDA cores; the two units run at once, so each is a bound of its own
+    and the least time is the largest of the three, not a sum. int8
+    moves 1-byte codes, keeps bf16 weights, and adds a dequantize and a
+    requantize multiply per element."""
     px = b * h * w
     elt = torch.tensor([], dtype=dtype).element_size()
+    w_elt = 2 if dtype == torch.int8 else elt
     e = 4 * c
-    nbytes = 2 * px * c * elt + (k * k * c + 2 * c) * 4 + 2 * e * c * elt
+    nbytes = 2 * px * c * elt + (k * k * c + 2 * c) * 4 + 2 * e * c * w_elt
     products = px * 4 * c * e
-    other = px * (2 * k * k * c + 8 * c + e)
-    if dtype == torch.bfloat16:
+    other = px * (2 * k * k * c + 8 * c + e
+                  + (2 * c if dtype == torch.int8 else 0))
+    if dtype != torch.float32:
         ops_s = max(products / TENSOR_BF16_OPS_PER_S, other / FP32_OPS_PER_S)
     else:
         ops_s = (products + other) / FP32_OPS_PER_S
@@ -167,18 +206,38 @@ def convnext_bound_ms(b, h, w, c, k, dtype):
         ("bytes" if nbytes / HBM_BYTES_PER_S >= ops_s else "operations")
 
 
-def band_bound_ms(b, h, w, c, k, dtype, backward=False):
+def band_bound_ms(b, h, w, c, k, dtype, backward=False, split=False):
     """Forward (read x, write band and smooth; k² adds, a multiply and a
     subtract per element) and backward (read g_band and g_smooth, write
     dx; a subtract, a multiply and an add per tap, and the final add)
-    move the same 3n elements."""
+    move the same 3n elements; the decimating split (``split``) writes
+    a quarter of the smooth, 2.25n."""
     n = b * h * w * c
     elt = torch.tensor([], dtype=dtype).element_size()
-    byte_s = 3 * n * elt / HBM_BYTES_PER_S
+    byte_s = (2.25 if split else 3) * n * elt / HBM_BYTES_PER_S
     ops_s = n * ((3 * k * k + 1) if backward else (k * k + 2)) \
         / FP32_OPS_PER_S
     return max(byte_s, ops_s) * 1e3, ("bytes" if byte_s >= ops_s
                                       else "operations")
+
+
+def k1_instantiations(lib, pallas_convnext):
+    """Shared memory, registers and spill bytes of every K1
+    instantiation, from the library (``bid_convnext_block_info``)."""
+    import ctypes
+    out = []
+    for dtype, code in pallas_convnext._DTYPE_CODES.items():
+        for c, k in sorted(pallas_convnext.KERNEL_SHAPES):
+            vals = [ctypes.c_int() for _ in range(3)]
+            rc = lib.bid_convnext_block_info(c, k, code, *map(ctypes.byref,
+                                                               vals))
+            if rc != 0:
+                raise AssertionError(f"K1 info {dtype} ({c}, {k}): {rc}")
+            out.append(dict(dtype=str(dtype).split(".")[-1], C=c, K=k,
+                            smem_bytes=vals[0].value,
+                            registers=vals[1].value,
+                            local_bytes=vals[2].value))
+    return out
 
 
 def sass_class(op):
@@ -502,21 +561,32 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.inference import fused as fused_module
+    from blind_image_denoising_torch.inference.fused import (
+        build_fused_forward, calibrate_fused)
+    from blind_image_denoising_torch.models.hydra import model_builder
     from blind_image_denoising_torch.ops import (cuda_build, pallas_convnext,
                                                  pallas_noise, pallas_pyramid)
+    from blind_image_denoising_torch.training.train_state import init_params
     from blind_image_denoising_torch.weights import (load_msgpack,
                                                      params_from_flax)
 
     def reset_counts():
         pallas_convnext.launches = pallas_noise.launches = 0
+        pallas_convnext.int8_launches = pallas_pyramid.split_launches = 0
         pallas_pyramid.launches = pallas_pyramid.bwd_launches = 0
         pallas_pyramid.bwd_grad_copies = 0
 
     def read_counts():
         return dict(convnext_block=pallas_convnext.launches,
+                    convnext_block_int8=pallas_convnext.int8_launches,
                     band_smooth=pallas_pyramid.launches,
                     band_smooth_bwd=pallas_pyramid.bwd_launches,
-                    corrupt_noise=pallas_noise.launches)
+                    corrupt_noise=pallas_noise.launches,
+                    band_split=pallas_pyramid.split_launches)
+
+    def counts(**nonzero):
+        return dict(dict.fromkeys(read_counts(), 0), **nonzero)
 
     # ---- phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -534,23 +604,38 @@ def main() -> int:
     cuda_build.library()
     log("build", seconds=round(time.perf_counter() - t0, 3),
         nvcc_seconds=round(cuda_build.build_seconds, 3),
-        sources=[s.name for s in cuda_build.sources()])
+        sources=[s.name for s in cuda_build.sources()],
+        convnext_block=k1_instantiations(cuda_build.library(),
+                                         pallas_convnext))
 
     rng = np.random.default_rng(SEED)
     den = bidt.load_model(FLAGSHIP)                     # card, bf16, blend
     model = den.model
     if model.dtype != torch.bfloat16 or den.blend is None:
         raise AssertionError("flagship did not load as bf16 + blend")
+    # unet_laplacian_v6 at full width, bf16, from a seeded init (the fused
+    # path's model; the JAX bench builds it the same way)
+    v6cfg = bidt.load_config(bidt.configs[FUSED_CONFIG])["model"]
+    v6 = model_builder(copy.deepcopy(v6cfg), dtype=torch.bfloat16).hydra
+    init_params(v6, torch.Generator().manual_seed(SEED))
+    v6 = v6.cuda().eval().requires_grad_(False)
 
     # ---- phase 3: each kernel against its plain version, main-path shapes
     # (b8 @ 256²: level 0 is 256², level 1 is 128²)
     unit_shapes = [("encoder_0_0", 0, 8, 256, 256),
                    ("encoder_1_0", 1, 8, 128, 128)]
+    # unet_laplacian_v6's K1 shapes at the fused path's b32 @ 256²
+    v6_unit_shapes = [("encoder_0_0", 0, FUSED_BATCH, 256, 256),
+                      ("encoder_1_0", 1, FUSED_BATCH, 128, 128)]
     band_shapes = [(8, 256, 256, 32), (8, 128, 128, 64)]
     errors = {"convnext_block": 0.0, "band_smooth": 0.0}
+    checks = [(m, name, b, h, w) for m, shapes in ((model, unit_shapes),
+                                                   (v6, v6_unit_shapes))
+              for name, _, b, h, w in shapes]
     for dtype, atol in ((torch.bfloat16, 0.05), (torch.float32, 1e-3)):
-        for name, _, b, h, w in unit_shapes:
-            x, wts, slope = unit_inputs(model, name, b, h, w, dtype, rng)
+        for unit_model, name, b, h, w in checks:
+            x, wts, slope = unit_inputs(unit_model, name, b, h, w, dtype,
+                                        rng)
             got = pallas_convnext.convnext_block(x, slope=slope, **wts)
             ref = pallas_convnext.convnext_block_plain(x, slope=slope, **wts)
             torch.cuda.synchronize()
@@ -564,6 +649,7 @@ def main() -> int:
                 tol = torch.maximum(tol, bf16_ulp(ref))
             n_over = int((diff > atol).sum())
             log("check", kernel="convnext_block", unit=name,
+                C_K=[x.shape[-1], wts["dw"].shape[-1]],
                 shape=list(x.shape), dtype=str(dtype), max_abs_err=err,
                 tolerance=(f"max({atol}, 1 bf16 ulp of the plain output)"
                            if dtype == torch.bfloat16 else str(atol)),
@@ -593,6 +679,64 @@ def main() -> int:
                 dtype=str(dtype), max_abs_err=err, tolerance=tol)
             if not ok:
                 raise AssertionError(f"band_smooth {shape} {dtype}: {err}")
+    # K1 int8 mode at the fused path's shapes: codes within one of the
+    # plain version's (the tensor cores sum in another order, which moves
+    # a code whose pre-rounding value sits near x.5), and few of them: the
+    # sound kernel moves ~1e-5 of the codes; truncating instead of
+    # rounding, or skipping the bf16 rounding of t, h or the dequantized
+    # tile, moves far more
+    max_share_differing = 1e-4
+    errors["convnext_block_int8"] = 0.0
+    for name, _, b, h, w in v6_unit_shapes:
+        x, wts, slope = unit_inputs(v6, name, b, h, w, torch.bfloat16, rng)
+        s_in = float(x.abs().max()) / 127
+        s_out = float(pallas_convnext.convnext_block(
+            x, slope=slope, **wts).abs().max()) / 127
+        xq = pallas_convnext.quantize(x, s_in)
+        got = pallas_convnext.convnext_block(xq, slope=slope, scale_in=s_in,
+                                             scale_out=s_out, **wts)
+        ref = pallas_convnext.convnext_block_plain(
+            xq, slope=slope, scale_in=s_in, scale_out=s_out, **wts)
+        torch.cuda.synchronize()
+        dcode = (got.int() - ref.int()).abs()
+        err, n_diff = int(dcode.max()), int((dcode > 0).sum())
+        share = n_diff / dcode.numel()
+        log("check", kernel="convnext_block_int8", unit=name,
+            C_K=[x.shape[-1], wts["dw"].shape[-1]], shape=list(x.shape),
+            scale_in=s_in, scale_out=s_out, max_abs_code_diff=err,
+            n_codes_differing=n_diff, n_codes=dcode.numel(),
+            share_differing=share,
+            tolerance=f"|code diff| <= 1 and share of codes differing <= "
+                      f"{max_share_differing}")
+        if got.dtype != torch.int8 or err > 1 or share > max_share_differing:
+            raise AssertionError(f"convnext_block_int8 {name}: max code "
+                                 f"diff {err}, {n_diff} codes differ")
+        errors["convnext_block_int8"] = max(errors["convnext_block_int8"],
+                                            err)
+        del x, xq, got, ref, dcode
+    # K4 (the decimating split): f32 bit-exact, bf16 within 1 ulp
+    errors["band_split"] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in band_shapes:
+            x = torch.from_numpy(rng.normal(0, 1, shape).astype(
+                np.float32)).cuda().to(dtype)
+            outs = pallas_pyramid.band_split(x, 2)
+            refs = pallas_pyramid.band_split_plain(x, 2)
+            torch.cuda.synchronize()
+            diffs = [(o.float() - r.float()).abs() for o, r in zip(outs, refs)]
+            err = max(float(d.max()) for d in diffs)
+            if dtype == torch.float32:
+                ok, tol = err == 0.0, "0 (bit-exact)"
+            else:
+                ok = all(bool((d <= bf16_ulp(r)).all())
+                         for d, r in zip(diffs, refs))
+                tol = "1 bf16 ulp"
+                errors["band_split"] = max(errors["band_split"], err)
+            log("check", kernel="band_split", shape=list(shape),
+                dtype=str(dtype), max_abs_err=err, tolerance=tol,
+                down_shape=list(outs[1].shape))
+            if not ok or outs[1].shape != refs[1].shape:
+                raise AssertionError(f"band_split {shape} {dtype}: {err}")
 
     # the train step's kernels at its shapes (b16 @ 128²: level 0 is 128²,
     # level 1 is 64²; the noise kernel sees the RGB batch)
@@ -628,8 +772,8 @@ def main() -> int:
         convnext_block_launches=k1, band_smooth_launches=k2,
         launches=serve_counts)
     n_req = len(requests)
-    if serve_counts != dict(convnext_block=10 * n_req, band_smooth=2 * n_req,
-                            band_smooth_bwd=0, corrupt_noise=0):
+    if serve_counts != counts(convnext_block=10 * n_req,
+                              band_smooth=2 * n_req):
         raise AssertionError(f"expected 10 K1 + 2 K2 launches per forward "
                              f"and no training kernel, got {serve_counts} "
                              f"for {n_req} requests")
@@ -802,8 +946,7 @@ def main() -> int:
         step_ms_event_min=min(event_ms), step_ms_event_max=max(event_ms),
         images_per_s=TRAIN_BATCH / statistics.median(host_ms) * 1e3,
         step_ms_host=[round(t, 3) for t in host_ms], smi=smi)
-    if per_step != dict(convnext_block=0, band_smooth=2, band_smooth_bwd=2,
-                        corrupt_noise=1):
+    if per_step != counts(band_smooth=2, band_smooth_bwd=2, corrupt_noise=1):
         raise AssertionError(f"expected 1 K3, 2 K2 forward, 2 K2 backward "
                              f"and no K1 launch per step, got {per_step}")
     if not bool(torch.isfinite(losses).all()):
@@ -848,9 +991,6 @@ def main() -> int:
         device_us_per_step=group_rows(rows, train_groups, 3),
         top=[dict(us=round(us, 1), count=c, name=k[:80])
              for us, c, k in rows[:15]])
-    if args.profile_out is not None:
-        args.profile_out.parent.mkdir(parents=True, exist_ok=True)
-        args.profile_out.write_text("".join(profile_text))
 
     # the train step's kernels, timed at its shapes
     seed = 20260802
@@ -892,17 +1032,283 @@ def main() -> int:
                      x, 2, g_band, g_smooth)))
         ms_copies = cuda_ms(lambda: pallas_pyramid.band_smooth_bwd(
             g_band_nchw, g_smooth_nchw, 2))
-        fwd_ms = cuda_ms(lambda: pallas_pyramid.band_smooth(x, 2))
+        fwd = dict(
+            forward_ms=cuda_ms(lambda: pallas_pyramid.band_smooth(x, 2)),
+            forward_plain_ms=cuda_ms(lambda: pallas_pyramid.band_smooth_plain(
+                x, 2), iters=5),
+            forward_library_ms=cuda_ms(lambda: band_smooth_library(x, 2)),
+            forward_bound_ms=band_bound_ms(*shape, 2, torch.bfloat16)[0])
         bound, by = band_bound_ms(*shape, 2, torch.bfloat16, backward=True)
         log("time", kernel="band_smooth_bwd", shape=list(shape), dtype="bf16",
             calls_per_step=1, bound_ms=bound, bound_by=by,
-            ms_with_both_grads_copied=ms_copies, forward_ms=fwd_ms,
-            grad_copies_per_step=grad_copies_per_step, **t)
+            ms_with_both_grads_copied=ms_copies,
+            grad_copies_per_step=grad_copies_per_step, **fwd, **t)
         if grad_copies_per_step:
             # the step copies grads: its time counts the copies (both grads
             # of every call, the most the wrapper can copy)
             t = dict(t, ms=ms_copies, kernel_only_ms=t["ms"])
         entries.setdefault("band_smooth_bwd", []).append((1, t, bound, by))
+
+    # ---- phase 7: the fused int8 serving path of unet_laplacian_v6,
+    # against the standard bf16 hydra on the same weights
+    cal_clean = synthetic_images(4, FUSED_SIZE, FUSED_SIZE, rng)
+    cal = np.concatenate([cal_clean, add_noise(cal_clean, 25.0, rng)])
+    nchw = lambda a: torch.from_numpy(np.asarray(  # noqa: E731
+        a, np.float32)).permute(0, 3, 1, 2)
+    fused_clean = synthetic_images(FUSED_BATCH, FUSED_SIZE, FUSED_SIZE, rng)
+    xf = nchw(add_noise(fused_clean, 25.0, rng)).cuda()
+    reset_counts()
+    scales = calibrate_fused(v6cfg, v6, nchw(cal))
+    fused_runs = {"calibrate": read_counts()}
+    fwd_float, sites = build_fused_forward(v6cfg, v6)
+    fwd_int8, _ = build_fused_forward(v6cfg, v6, scales)
+
+    def hydra_v6(x):
+        with torch.inference_mode():
+            return v6(x)
+
+    forwards = {"fused_float": fwd_float, "fused_int8": fwd_int8,
+                "hydra_bf16": hydra_v6}
+    outs_v6 = {}
+    for name, fn in forwards.items():
+        reset_counts()
+        outs_v6[name] = fn(xf)
+        torch.cuda.synchronize()
+        fused_runs[name] = read_counts()
+    fused_counts = {k: sum(r[k] for r in fused_runs.values())
+                    for k in fused_runs["calibrate"]}
+    want = {"calibrate": counts(convnext_block=12 * len(cal)),
+            "fused_float": counts(convnext_block=12),
+            "fused_int8": counts(convnext_block_int8=12),
+            "hydra_bf16": counts(convnext_block=12, band_smooth=2)}
+    gaps = {}
+    for name in ("fused_float", "fused_int8"):
+        d = (outs_v6[name][0] - outs_v6["hydra_bf16"][0]).abs()
+        gaps[name] = dict(mean=float(d.mean()), p99=float(torch.quantile(
+            d.flatten()[::97], 0.99)), max=float(d.max()))
+    # every K1 launch of the two bf16 fused forwards against its plain
+    # version on the same input: the kernel on the path's own activations
+    on_path = {"fused_float": [], "fused_int8": []}
+    real_k1 = fused_module.convnext_block
+
+    def k1_against_plain(x, **kw):
+        out = real_k1(x, **kw)
+        ref = pallas_convnext.convnext_block_plain(x, **kw)
+        d = (out.float() - ref.float()).abs()
+        if x.dtype == torch.int8:
+            on_path["fused_int8"].append(dict(
+                max_abs_code_diff=int(d.max()),
+                share_differing=float((d > 0).float().mean())))
+        else:
+            on_path["fused_float"].append(dict(
+                max_abs_err=float(d.max()), within=bool(
+                    (d <= torch.clamp(bf16_ulp(ref), min=0.05)).all())))
+        return out
+
+    fused_module.convnext_block = k1_against_plain
+    try:
+        fwd_float(xf)
+        fwd_int8(xf)
+    finally:
+        fused_module.convnext_block = real_k1
+    # the float fused forward in float32 on the card and on the CPU (plain
+    # K1, an f32 copy of the weights): the rest of the path, on the card,
+    # against plain PyTorch on the host. In bf16 and int8 the two devices
+    # part by whole roundings and codes, which this seeded model spreads
+    # through every later unit: those gaps are readings, not bars.
+    x_cpu = xf[:FUSED_CPU_IMAGES].cpu()
+    card_vs_cpu = {}
+    for name, dtype, sc in (("fused_float_f32", torch.float32, None),
+                            ("fused_float", torch.bfloat16, None),
+                            ("fused_int8", torch.bfloat16, scales)):
+        m = model_builder(copy.deepcopy(v6cfg), dtype=None if (
+            dtype == torch.float32) else dtype).hydra
+        m.load_state_dict({k: v.cpu() for k, v in v6.state_dict().items()})
+        m.eval().requires_grad_(False)
+        ref = build_fused_forward(v6cfg, m, sc, dtype=dtype)[0](x_cpu)
+        if name in outs_v6:
+            got = [o[:FUSED_CPU_IMAGES] for o in outs_v6[name]]
+        else:
+            got = build_fused_forward(v6cfg, m.cuda(), sc, dtype=dtype)[0](
+                xf[:FUSED_CPU_IMAGES])
+        card_vs_cpu[name] = [float((g.cpu() - r).abs().mean())
+                             for g, r in zip(got, ref)]
+        del m
+    bars = dict(k1_int8_share_differing=max_share_differing,
+                k1_bf16="max(0.05, 1 bf16 ulp)",
+                f32_card_vs_cpu_mean=FUSED_F32_CARD_VS_CPU_MEAN,
+                float_vs_hydra_mean=FUSED_FLOAT_VS_HYDRA_MEAN,
+                int8_vs_hydra_mean=4.0)       # JAX's, tests/test_fused.py
+    log("fused", config=FUSED_CONFIG, batch=list(xf.shape), dtype="bf16",
+        sites=len(sites), scales_min=min(scales.values()),
+        scales_max=max(scales.values()), launches=fused_runs,
+        k1_on_path=dict(
+            int8_max_abs_code_diff=max(
+                r["max_abs_code_diff"] for r in on_path["fused_int8"]),
+            int8_share_differing=[r["share_differing"]
+                                  for r in on_path["fused_int8"]],
+            bf16_max_abs_err=max(r["max_abs_err"]
+                                 for r in on_path["fused_float"])),
+        finest_vs_hydra_bf16_gray_levels=gaps,
+        card_vs_cpu_mean_gray_levels_per_scale=card_vs_cpu,
+        cpu_images=FUSED_CPU_IMAGES,
+        tolerance=dict(bars, launches="12 K1 per fused forward (int8 mode "
+                                      "in the int8 one), no K2"))
+    if fused_runs != want:
+        raise AssertionError(f"fused path launches {fused_runs}, expected "
+                             f"{want}")
+    for name, o in outs_v6.items():
+        if [tuple(t.shape) for t in o] != [
+                (FUSED_BATCH, 3, FUSED_SIZE >> i, FUSED_SIZE >> i)
+                for i in range(3)] or not all(
+                    bool(torch.isfinite(t).all()) for t in o):
+            raise AssertionError(f"{name}: bad outputs")
+    if [len(v) for v in on_path.values()] != [12, 12] or not all(
+            r["within"] for r in on_path["fused_float"]) or not all(
+            r["max_abs_code_diff"] <= 1
+            and r["share_differing"] <= max_share_differing
+            for r in on_path["fused_int8"]):
+        raise AssertionError(f"K1 on the fused path disagrees with its "
+                             f"plain version: {on_path}")
+    if max(card_vs_cpu["fused_float_f32"]) > bars["f32_card_vs_cpu_mean"]:
+        raise AssertionError(f"f32 fused forward on the card drifts from "
+                             f"the same forward on the CPU: {card_vs_cpu}")
+    if not gaps["fused_float"]["mean"] <= bars["float_vs_hydra_mean"]:
+        raise AssertionError(f"float fused forward drifts from the bf16 "
+                             f"hydra: {gaps}")
+    if not gaps["fused_int8"]["mean"] <= bars["int8_vs_hydra_mean"]:
+        # the seeded model's own int8 error, to tell the model's from the
+        # kernel's: the int8 fused forward and the hydra in float32 on an
+        # f32 copy of the weights, with the same scales
+        v6_f32 = model_builder(copy.deepcopy(v6cfg)).hydra
+        v6_f32.load_state_dict(v6.state_dict())
+        v6_f32 = v6_f32.cuda().eval().requires_grad_(False)
+        int8_f32 = build_fused_forward(v6cfg, v6_f32, scales,
+                                       dtype=torch.float32)[0](xf)[0]
+        with torch.inference_mode():
+            hydra_f32 = v6_f32(xf)[0]
+        raise AssertionError(
+            f"int8 fused forward drifts from the bf16 hydra: {gaps}; in "
+            f"float32 the same int8 forward sits "
+            f"{float((int8_f32 - hydra_f32).abs().mean())} from the hydra")
+
+    def event_ms(fn, n=10, warmup=2):
+        """Median of n CUDA-event times of whole forwards, host included."""
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), times
+
+    v6_groups = {"convnext_block (K1)": ("convnext_block_kernel",),
+                 "band_smooth (K2)": ("band_smooth_kernel",),
+                 "convolutions (cuDNN)": ("fprop", "conv", "implicit_gemm",
+                                          "cudnn", "xmma"),
+                 "reductions": ("reduce_kernel",),
+                 "matmul (attention)": ("gemm", "gemv", "cutlass"),
+                 "resize (attention)": ("upsample", "interp", "aa_")}
+    fused_timing = {}
+    for name, fn in forwards.items():
+        med, times = event_ms(lambda: fn(xf))
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn(xf)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = profile_rows(prof)
+        busy = sum(r[0] for r in rows)
+        fused_timing[name] = dict(
+            forward_ms_median=med, images_per_s=FUSED_BATCH / med * 1e3,
+            forward_ms=[round(t, 3) for t in times],
+            device_busy_ms=busy / 3 / 1e3,
+            idle_share_unprofiled=1 - busy / 3 / 1e3 / med,
+            kernels_per_forward=sum(r[1] for r in rows) / 3,
+            device_ms_by_group={k: v / 1e3 for k, v in group_rows(
+                rows, v6_groups, 3).items()})
+        if args.profile_out is not None:
+            profile_text.append(f"\n3 forwards {name} of b{FUSED_BATCH} @ "
+                                f"{FUSED_SIZE}^2 bf16 ({FUSED_CONFIG}); wall "
+                                f"{wall_us:.1f} us, device busy {busy:.1f} "
+                                f"us\n")
+            profile_text += [f"{us:12.1f} us {count:6d}x  {key}\n"
+                             for us, count, key in rows]
+    log("fused_timing", smi=smi, int8_speedup_vs_hydra_bf16=(
+        fused_timing["hydra_bf16"]["forward_ms_median"]
+        / fused_timing["fused_int8"]["forward_ms_median"]), **fused_timing)
+    if args.profile_out is not None:
+        args.profile_out.parent.mkdir(parents=True, exist_ok=True)
+        args.profile_out.write_text("".join(profile_text))
+
+    # the fused path's kernels, timed at its shapes: K1 int8 (calls per
+    # fused int8 forward) and, for the table, K1 bf16 at (32, 5) and
+    # (64, 5) as the v6 hydra runs them
+    for name, level, b, h, w in v6_unit_shapes:
+        x, wts, slope = unit_inputs(v6, name, b, h, w, torch.bfloat16, rng)
+        c, k = x.shape[-1], wts["dw"].shape[-1]
+        per_fwd = 2 * v6.backbone.widths[level]
+        s_in, s_out = float(x.abs().max()) / 127, 4 * float(
+            x.abs().max()) / 127
+        xq = pallas_convnext.quantize(x, s_in)
+        q = dict(scale_in=s_in, scale_out=s_out, slope=slope)
+        t = dict(
+            ms=cuda_ms(lambda: pallas_convnext.convnext_block(xq, **q, **wts)),
+            plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
+                xq, **q, **wts), iters=3, warmup=1),
+            library_ms=cuda_ms(lambda: convnext_int8_library(
+                xq, s_in, s_out, slope=slope, **wts)))
+        bound, by = convnext_bound_ms(b, h, w, c, k, torch.int8)
+        log("time", kernel="convnext_block_int8", C=c, K=k,
+            shape=[b, h, w, c], calls_per_forward=per_fwd, bound_ms=bound,
+            bound_by=by, smi=smi, **t)
+        entries.setdefault("convnext_block_int8", []).append(
+            (per_fwd, t, bound, by))
+        del xq
+        t = dict(ms=cuda_ms(lambda: pallas_convnext.convnext_block(
+                     x, slope=slope, **wts)),
+                 plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
+                     x, slope=slope, **wts), iters=3, warmup=1),
+                 library_ms=cuda_ms(lambda: convnext_library(
+                     x, slope=slope, **wts)))
+        bound, by = convnext_bound_ms(b, h, w, c, k, torch.bfloat16)
+        log("time", kernel="convnext_block", model=FUSED_CONFIG, C=c, K=k,
+            shape=[b, h, w, c], dtype="bf16", calls_per_forward=per_fwd,
+            bound_ms=bound, bound_by=by, smi=smi, **t)
+        del x
+
+    # ---- phase 8: the decimating band split (K4) through its op
+    xs_split = [torch.from_numpy(rng.normal(0, 1, shape).astype(
+        np.float32)).cuda().to(torch.bfloat16) for shape in band_shapes]
+    reset_counts()
+    for x in xs_split:
+        band, down = pallas_pyramid.band_split(x, 2)
+        if down.shape != (x.shape[0], x.shape[1] // 2, x.shape[2] // 2,
+                          x.shape[3]) or not bool(torch.isfinite(
+                              band).all()):
+            raise AssertionError(f"band_split: bad outputs for {x.shape}")
+    torch.cuda.synchronize()
+    split_counts = read_counts()
+    log("band_split", shapes=[list(x.shape) for x in xs_split],
+        launches=split_counts)
+    if split_counts != counts(band_split=len(xs_split)):
+        raise AssertionError(f"band_split path launches {split_counts}")
+    for x, shape in zip(xs_split, band_shapes):
+        t = dict(ms=cuda_ms(lambda: pallas_pyramid.band_split(x, 2)),
+                 plain_ms=cuda_ms(lambda: pallas_pyramid.band_split_plain(
+                     x, 2), iters=5),
+                 library_ms=cuda_ms(lambda: band_split_library(x, 2)))
+        bound, by = band_bound_ms(*shape, 2, torch.bfloat16, split=True)
+        log("time", kernel="band_split", shape=list(shape), dtype="bf16",
+            calls_per_path=1, bound_ms=bound, bound_by=by, smi=smi, **t)
+        entries.setdefault("band_split", []).append((1, t, bound, by))
 
     # ---- result lines
     replaces = {
@@ -919,16 +1325,33 @@ def main() -> int:
         "corrupt_noise": ("blind_image_denoising_torch/csrc/corrupt_noise.cu",
                           "blind_image_denoising_tpu/ops/pallas_noise.py"
                           ":101"),
+        "convnext_block_int8": ("blind_image_denoising_torch/csrc/"
+                                "convnext_block.cu",
+                                "blind_image_denoising_tpu/ops/"
+                                "pallas_convnext.py:196"),
+        "band_split": ("blind_image_denoising_torch/csrc/band_smooth.cu",
+                       "blind_image_denoising_tpu/ops/pallas_pyramid.py:81"),
     }
-    # ms, bound and library are per serving forward (K1, K2) or per train
-    # step (K2 backward, K3), summed over the shapes of that unit of work
+    per = {"convnext_block": "serving forward, b8 @ 256^2",
+           "band_smooth": "serving forward, b8 @ 256^2",
+           "band_smooth_bwd": "train step, b16 @ 128^2",
+           "corrupt_noise": "train step, b16 @ 128^2",
+           "convnext_block_int8": f"fused int8 forward, b{FUSED_BATCH} @ "
+                                  f"{FUSED_SIZE}^2",
+           "band_split": "band_split op path, 8x256^2x32 + 8x128^2x64 bf16"}
+    # ms, bound and library are per serving forward (K1, K2), per train
+    # step (K2 backward, K3), per fused int8 forward (K1 int8) or per
+    # band_split path run (K4), summed over the shapes of that unit of
+    # work
     kernels = []
     for name, rows_k in entries.items():
         total = lambda key: (None if rows_k[0][1][key] is None  # noqa
                              else sum(n * t[key] for n, t, _, _ in rows_k))
         bound = sum(n * bd for n, _, bd, _ in rows_k)
         bound_by = max(rows_k, key=lambda r: r[0] * r[2])[3]
-        by_path = dict(serve=serve_counts[name], train=train_counts[name])
+        by_path = dict(serve=serve_counts[name], train=train_counts[name],
+                       fused=fused_counts[name],
+                       band_split=split_counts[name])
         kernels.append(dict(
             name=name, route="cuda", source=replaces[name][0],
             replaces=replaces[name][1], launches=sum(by_path.values()),
@@ -937,9 +1360,7 @@ def main() -> int:
             bound_by=bound_by, library_ms=total("library_ms"),
             **({"grad_copies_per_step": grad_copies_per_step}
                if name == "band_smooth_bwd" else {}),
-            per=("serving forward, b8 @ 256^2" if name in
-                 ("convnext_block", "band_smooth")
-                 else "train step, b16 @ 128^2")))
+            per=per[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,14 +5,17 @@ JAX-only ``conftest.py`` is bypassed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: float32 outputs agree to 1e-5 for the band split and its
-backward (same arithmetic, same order) and 1e-3 for the ConvNext unit
+Tolerances: float32 outputs agree to 1e-5 for the band split, its
+decimating variant and its backward (same arithmetic, same order) and
+1e-3 for the ConvNext unit
 (the kernel sums in another order than the plain matmuls); bfloat16
 band-split outputs and gradients to one bf16 ulp of the output and
 ConvNext-unit outputs to 0.05, or one bf16 ulp where the output is large
 enough (|out| >= 8) for one ulp to exceed 0.05: the kernel sums the
 products in another order than the plain matmuls, which can flip the
-final bf16 rounding. The noise kernel K3 draws the same Philox words as
+final bf16 rounding; in int8 mode that reordering moves an output code
+whose pre-rounding value sits near x.5, so codes agree within one, with
+at least 99.9% equal. The noise kernel K3 draws the same Philox words as
 its plain version: per-sample flags and stds identical; unrounded
 outputs within 1e-3, except where a first normal draw lies within 1e-5
 of the ±2 redraw threshold (``logf``/``sincosf`` on the card and on the
@@ -28,6 +31,12 @@ from blind_image_denoising_torch.ops import (cuda_build, pallas_convnext,
                                              pallas_noise, pallas_pyramid)
 
 pytestmark = pytest.mark.cuda
+
+# the f32 fused forward, card vs CPU: mean gray levels (PERF.md, readings)
+FUSED_F32_CARD_VS_CPU_MEAN = 1e-3
+# K1 int8 against its plain version: the most codes that may differ (by
+# one), as a share (the sound kernel: ~1e-5 at the fused path's shapes)
+K1_INT8_SHARE_DIFFERING = 1e-4
 
 
 @pytest.fixture
@@ -106,11 +115,128 @@ def test_convnext_kernel_matches_plain(dev, ck, hw, dtype):
         assert bool((diff <= tol).all()), float(diff.max())
 
 
+@pytest.mark.parametrize("ck", sorted(pallas_convnext.KERNEL_SHAPES))
+@pytest.mark.parametrize("hw", [(16, 64), (13, 45)])
+def test_convnext_int8_kernel_matches_plain(dev, ck, hw):
+    c, k = ck
+    w = _unit_weights(c, k, dev)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn((2, hw[0], hw[1], c), generator=g).to(dev)
+    s_in = float(x.abs().max()) / 127
+    s_out = float(pallas_convnext.convnext_block_plain(
+        x, **w).abs().max()) / 127
+    xq = pallas_convnext.quantize(x, s_in)
+    before = pallas_convnext.int8_launches
+    got = pallas_convnext.convnext_block(xq, scale_in=s_in, scale_out=s_out,
+                                         **w)
+    torch.cuda.synchronize()
+    assert pallas_convnext.int8_launches == before + 1
+    ref = pallas_convnext.convnext_block_plain(xq, scale_in=s_in,
+                                               scale_out=s_out, **w)
+    assert got.dtype == torch.int8 and got.shape == x.shape
+    dcode = (got.int() - ref.int()).abs()
+    assert int(dcode.max()) <= 1
+    assert float((dcode == 0).float().mean()) >= 0.999
+
+
 def test_convnext_kernel_rejects_unbuilt_shape(dev):
     w = _unit_weights(16, 3, dev)
     x = torch.zeros((1, 8, 8, 16), device=dev)
     with pytest.raises(NotImplementedError):
         pallas_convnext.convnext_block(x, **w)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 32), (1, 38, 54, 64),
+                                   (8, 256, 256, 32)])
+@pytest.mark.parametrize("k", [2, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_split_kernel_matches_plain(dev, shape, k, dtype):
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(shape, generator=g).to(dev, dtype)
+    before = pallas_pyramid.split_launches
+    band, down = pallas_pyramid.band_split(x, k)
+    torch.cuda.synchronize()
+    assert pallas_pyramid.split_launches == before + 1
+    band_p, down_p = pallas_pyramid.band_split_plain(x, k)
+    assert down.shape == (shape[0], shape[1] // 2, shape[2] // 2, shape[3])
+    for got, ref in ((band, band_p), (down, down_p)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        err = (got.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 1e-5
+        else:
+            assert bool((err <= _bf16_ulp(ref)).all())
+    with pytest.raises(ValueError, match="even"):
+        pallas_pyramid.band_split(x[:, 1:], k)
+
+
+def test_v6_fused_forward_on_card(dev, monkeypatch):
+    """unet_laplacian_v6 at full width from a seeded init, b2 @ 64²: the
+    float32 fused forward agrees with the same forward on the CPU (plain
+    K1, the same weights) within FUSED_F32_CARD_VS_CPU_MEAN gray levels
+    (mean, every scale). The bf16 float and int8 fused forwards make 12 K1
+    launches each (float and int8 mode) and no K2, and every one of those
+    launches agrees with K1's plain version on the same input (bf16:
+    max(0.05, 1 ulp); int8: codes within one, at most
+    K1_INT8_SHARE_DIFFERING of them). The whole bf16 and int8 forwards
+    are not held against the CPU's: the two devices part there by whole
+    bf16 roundings and int8 codes, which this seeded model spreads
+    through every later unit (``chip_smoke.py``'s ``fused`` phase logs
+    those gaps; PERF.md)."""
+    import copy
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.inference import fused
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.training.train_state import init_params
+    cfg = copy.deepcopy(bidt.load_config(
+        bidt.configs["unet_laplacian_v6"])["model"])
+    hydra = model_builder(cfg, dtype=torch.bfloat16).hydra
+    init_params(hydra, torch.Generator().manual_seed(0))
+    hydra = hydra.to(dev).eval().requires_grad_(False)
+    yy, xx = torch.meshgrid(torch.arange(64.0), torch.arange(64.0),
+                            indexing="ij")
+    clean = torch.stack([yy * 3, xx * 3, (yy + xx) * 1.5])[None].repeat(
+        2, 1, 1, 1)
+    g = torch.Generator().manual_seed(1)
+    x = (clean + 10 * torch.randn(clean.shape, generator=g)).clamp(
+        0, 255).round().to(dev)
+    f32 = model_builder(cfg).hydra
+    f32.load_state_dict({k: v.cpu() for k, v in hydra.state_dict().items()})
+    f32.eval().requires_grad_(False)
+    ref = fused.build_fused_forward(cfg, f32, dtype=torch.float32)[0](x.cpu())
+    got = fused.build_fused_forward(cfg, f32.to(dev),
+                                    dtype=torch.float32)[0](x)
+    gaps = [float((a.cpu() - b).abs().mean()) for a, b in zip(got, ref)]
+    assert max(gaps) <= FUSED_F32_CARD_VS_CPU_MEAN, gaps
+
+    scales = fused.calibrate_fused(cfg, hydra, x)
+    real, launches = fused.convnext_block, []
+
+    def against_plain(v, **kw):
+        out = real(v, **kw)
+        ref = pallas_convnext.convnext_block_plain(v, **kw)
+        d = (out.float() - ref.float()).abs()
+        if v.dtype == torch.int8:
+            launches.append((int(d.max()) <= 1 and float(
+                (d > 0).float().mean()) <= K1_INT8_SHARE_DIFFERING,
+                int((d > 0).sum())))
+        else:
+            launches.append((bool((d <= torch.clamp(
+                _bf16_ulp(ref), min=0.05)).all()), float(d.max())))
+        return out
+
+    monkeypatch.setattr(fused, "convnext_block", against_plain)
+    counts = lambda: (pallas_convnext.launches,  # noqa: E731
+                      pallas_convnext.int8_launches,
+                      pallas_pyramid.launches)
+    for sc, want in ((None, (12, 0, 0)), (scales, (0, 12, 0))):
+        fwd, _ = fused.build_fused_forward(cfg, hydra, sc)
+        before = counts()
+        outs = fwd(x)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == want
+        assert all(bool(torch.isfinite(o).all()) for o in outs)
+    assert len(launches) == 24 and all(ok for ok, _ in launches), launches
 
 
 def test_flagship_f32_serving_on_card_matches_cpu(dev):

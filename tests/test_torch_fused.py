@@ -1,0 +1,291 @@
+"""The port's fused int8 serving path (``inference/fused.py``) against
+the JAX package, on the CPU, at a narrow width
+(``unet_laplacian_v6`` with filters 8 and width 2, K = 5, 64²; the JAX
+params carried across by ``params_from_flax``). JAX runs its Pallas
+kernel in interpret mode. The images are smooth colour fields with
+sharp-edged shapes, clean and at σ = 25, made from a seed: on uniform
+noise, a code that one package's summation order moves by one at an
+early unit moves its neighbours through every later 5×5 depthwise, and
+the two int8 forwards drift apart, though each stays as close to the
+float model as the other.
+
+Tolerances, each with its reason:
+* the float fused forward in f32 vs JAX's ``hydra.apply``: mean ≤ 0.05
+  and max ≤ 1 gray level on every scale (the port's f32 K1 is f32
+  throughout); vs JAX's fused forward in f32: JAX's own bar, mean < 1
+  and max < 25 gray levels (JAX's kernel rounds ``t`` and ``h`` to bf16
+  even in float mode).
+* the two fused forwards in int8 with one scales dict: mean ≤ 1 gray
+  level on every scale; the port's int8 forward vs JAX's ``hydra.apply``:
+  mean < 4 gray levels (JAX's own bar).
+* ``calibrate_fused`` vs JAX's: the same sites; in bf16 (both
+  packages' ``calibrate_fused``) scales within rtol 2e-2, and in f32
+  (each package's recorder through its f32 fused forward) within 1e-2.
+  Each scale is one
+  activation's amax, and in bf16 that activation differs between the
+  packages by a bf16 ulp or two (2⁻⁸–2⁻⁷ relative) where the summation
+  orders round it to neighbouring bf16 values; in f32 JAX's float-mode
+  kernel still rounds ``t`` and ``h`` to bf16 and the port's does not.
+* the bf16 fused forward vs the port's f32 one: per scale within 0.25
+  gray levels (mean) of JAX's own jitted bf16 hydra's gap to its f32
+  one on the same image.
+"""
+
+import copy
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import blind_image_denoising_torch as bidt
+from blind_image_denoising_tpu.inference import fused as jax_fused
+from blind_image_denoising_tpu.models.hydra import (
+    model_builder as jax_model_builder)
+from blind_image_denoising_torch.inference import fused
+from blind_image_denoising_torch.models import unet_laplacian
+from blind_image_denoising_torch.models.hydra import model_builder
+from blind_image_denoising_torch.ops import pallas_pyramid
+from blind_image_denoising_torch.weights import params_from_flax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tiny_v6():
+    """``unet_laplacian_v6`` cut to filters 8 and width 2 (tests/
+    test_fused.py's TINY_FLAGSHIP)."""
+    cfg = copy.deepcopy(bidt.load_config(
+        bidt.configs["unet_laplacian_v6"])["model"])
+    cfg["backbone"].update(filters=8, width=2)
+    cfg["denoiser"]["filters"] = 8
+    return cfg
+
+
+def _synthetic(n, h, w, rng):
+    """Smooth colour fields with sharp-edged shapes, [n, h, w, 3] float32
+    in [0, 255]."""
+    out = np.empty((n, h, w, 3), np.float32)
+    for i in range(n):
+        low = torch.from_numpy(rng.uniform(30, 220, (1, 3, 6, 6)).astype(
+            np.float32))
+        img = F.interpolate(low, size=(h, w), mode="bicubic",
+                            align_corners=False)[0].permute(1, 2, 0).numpy()
+        for _ in range(12):
+            y0, x0 = rng.integers(0, h), rng.integers(0, w)
+            y1 = min(h, y0 + rng.integers(h // 16, h // 3))
+            x1 = min(w, x0 + rng.integers(w // 16, w // 3))
+            img[y0:y1, x0:x1] = rng.uniform(0, 255, 3)
+        out[i] = np.clip(img, 0, 255)
+    return out
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = _tiny_v6()
+    hydra = jax_model_builder(cfg).hydra
+    variables = hydra.init({"params": jax.random.PRNGKey(0)},
+                           jnp.zeros((1, 64, 64, 3)), train=False)
+    variables = {"params": variables["params"]}
+    port = model_builder(cfg).hydra
+    port.load_state_dict(params_from_flax(jax.tree_util.tree_map(
+        np.asarray, variables["params"])), strict=True)
+    port.eval().requires_grad_(False)
+    rng = np.random.default_rng(1)
+    clean = _synthetic(2, 64, 64, rng)
+    noisy = np.clip(np.round(clean + rng.normal(0, 25, clean.shape)), 0,
+                    255).astype(np.float32)
+    return dict(cfg=cfg, hydra=hydra, variables=variables, port=port,
+                images=np.concatenate([noisy, clean]))
+
+
+def _nchw(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(x).permute(0, 3, 1, 2)
+
+
+def _gray_diffs(got, ref):
+    """Per scale (mean, max) |Δ| in gray levels; got NCHW torch, ref NHWC
+    JAX."""
+    assert len(got) == len(ref) == 3
+    out = []
+    for g, r in zip(got, ref):
+        g = g.permute(0, 2, 3, 1).float().numpy()
+        assert g.shape == r.shape
+        d = np.abs(g - np.asarray(r, np.float32))
+        out.append((float(d.mean()), float(d.max())))
+    return out
+
+
+def test_supports_fused_verdicts_match_jax():
+    cfg = _tiny_v6()
+    bb, head = cfg["backbone"], cfg["denoiser"]
+    cases = [bb, dict(bb, use_concat=True), dict(bb, type="resnet"),
+             dict(bb, depth=1), dict(bb, use_bn=True),
+             dict(bb, use_output_normalization=False),
+             dict(bb, encoder_kernel_size=3), dict(bb, activation="relu"),
+             dict(bb, upsample_type="bilinear")]
+    for c in cases:
+        assert fused.supports_fused(c) == jax_fused.supports_fused(c), c
+    for h in (head, dict(head, activation="relu"), dict(head, use_ln=True),
+              dict(head, use_bias=True), dict(head, activation="linear")):
+        assert fused.supports_fused_head(h) == jax_fused.supports_fused_head(
+            h), h
+    # JAX raises TypeError on a per-level kernel list; the port declines
+    tpu = bidt.load_config(bidt.configs["unet_laplacian_v6_tpu"])["model"]
+    with pytest.raises(TypeError):
+        jax_fused.supports_fused(tpu["backbone"])
+    assert not fused.supports_fused(tpu["backbone"])
+    with pytest.raises(ValueError, match="supported"):
+        fused.build_fused_forward(tpu, model_builder(tpu).hydra)
+    with pytest.raises(ValueError, match="denoiser-head"):
+        fused.build_fused_forward(
+            dict(cfg, denoiser=dict(head, use_bias=True)), None)
+
+
+def test_fused_float_f32_matches_jax_hydra_and_jax_fused(tiny):
+    x = tiny["images"][:1]
+    ref = tiny["hydra"].apply(tiny["variables"], jnp.asarray(x), train=False)
+    fwd, sites = fused.build_fused_forward(tiny["cfg"], tiny["port"],
+                                           dtype=torch.float32)
+    got = fwd(_nchw(x))
+    for mean, mx in _gray_diffs(got, ref):
+        assert mean <= 0.05 and mx <= 1.0, (mean, mx)
+    jfwd, jsites = jax_fused.build_fused_forward(
+        tiny["cfg"], tiny["variables"], dtype=jnp.float32, interpret=True)
+    assert sites == jsites
+    for mean, mx in _gray_diffs(got, jfwd(jnp.asarray(x))):
+        assert mean < 1.0 and mx < 25.0, (mean, mx)
+
+
+def test_fused_levels_leave_unfused_units_to_plain_pytorch(tiny):
+    """With only level 0 fused, level 1's ConvNext units run as plain
+    PyTorch (JAX's ``xla_stage``): still the hydra's function."""
+    x = tiny["images"][:1]
+    ref = tiny["hydra"].apply(tiny["variables"], jnp.asarray(x), train=False)
+    fwd, sites = fused.build_fused_forward(tiny["cfg"], tiny["port"],
+                                           dtype=torch.float32,
+                                           fused_levels=(0,))
+    assert sites == jax_fused._stage_sites((0,), 2)
+    for mean, mx in _gray_diffs(fwd(_nchw(x)), ref):
+        assert mean <= 0.05 and mx <= 1.0, (mean, mx)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_calibrate_fused_matches_jax(tiny, dtype):
+    images = tiny["images"]
+    _, jsites = jax_fused.build_fused_forward(tiny["cfg"],
+                                              tiny["variables"])
+    if dtype == "bfloat16":       # both calibrate_fused run in bf16
+        scales = fused.calibrate_fused(tiny["cfg"], tiny["port"],
+                                       _nchw(images))
+        ref = jax_fused.calibrate_fused(tiny["cfg"], tiny["variables"],
+                                        images, interpret=True)
+        rtol = 2e-2
+    else:       # each recorder through its f32 fused forward, image by image
+        rec, jrec = fused._AmaxRecorder(), jax_fused._AmaxRecorder()
+        fwd, _ = fused.build_fused_forward(
+            tiny["cfg"], tiny["port"], dtype=torch.float32, _recorder=rec)
+        jfwd, _ = jax_fused.build_fused_forward(
+            tiny["cfg"], tiny["variables"], dtype=jnp.float32,
+            interpret=True, _recorder=jrec)
+        for i in range(images.shape[0]):
+            fwd(_nchw(images[i:i + 1]))
+            jfwd(jnp.asarray(images[i:i + 1]))
+        scales, ref = ({k: max(a, 1e-6) / 127.0 for k, a in r.amax.items()}
+                       for r in (rec, jrec))
+        rtol = 1e-2
+    assert set(scales) == set(ref) == set(jsites)
+    for k in ref:
+        np.testing.assert_allclose(scales[k], ref[k], rtol=rtol, err_msg=k)
+
+
+def test_fused_int8_matches_jax_fused_int8_and_hydra(tiny):
+    scales = jax_fused.calibrate_fused(tiny["cfg"], tiny["variables"],
+                                       tiny["images"], interpret=True)
+    x = tiny["images"][:1]
+    jfwd, _ = jax_fused.build_fused_forward(
+        tiny["cfg"], tiny["variables"], scales=scales, dtype=jnp.float32,
+        interpret=True)
+    fwd, _ = fused.build_fused_forward(tiny["cfg"], tiny["port"], scales,
+                                       dtype=torch.float32)
+    got = fwd(_nchw(x))
+    for mean, _ in _gray_diffs(got, jfwd(jnp.asarray(x))):
+        assert mean <= 1.0, mean
+    ref = tiny["hydra"].apply(tiny["variables"], jnp.asarray(x), train=False)
+    mean, _ = _gray_diffs(got, ref)[0]
+    assert mean < 4.0, mean
+
+
+def test_fused_bf16_tracks_f32_and_launches_no_band_kernel(tiny,
+                                                           monkeypatch):
+    """bf16 (the serving dtype) against the f32 fused forward: per scale
+    no further (mean gray levels) than JAX's own jitted bf16 hydra from
+    its f32 one, plus 0.25. The fused stages call K1 once per unit (12
+    units at the full config's width 3, 8 here) and the path calls no
+    K2."""
+    calls = []
+    real = fused.convnext_block
+    monkeypatch.setattr(fused, "convnext_block",
+                        lambda *a, **k: calls.append(a[0].dtype) or real(
+                            *a, **k))
+    def no_k2(*args, **kwargs):
+        raise AssertionError("the fused path called the band-split kernel")
+
+    monkeypatch.setattr(pallas_pyramid, "band_smooth", no_k2)
+    monkeypatch.setattr(unet_laplacian, "band_smooth", no_k2)
+    x = _nchw(tiny["images"][2:3])
+    f32, _ = fused.build_fused_forward(tiny["cfg"], tiny["port"],
+                                       dtype=torch.float32)
+    bf16, _ = fused.build_fused_forward(tiny["cfg"], tiny["port"])
+    ref, got = f32(x), bf16(x)
+    assert calls == [torch.float32] * 8 + [torch.bfloat16] * 8
+    xj = jnp.asarray(tiny["images"][2:3])
+    jax_bf16 = jax_model_builder(tiny["cfg"], dtype=jnp.bfloat16).hydra
+    jax_got = jax.jit(lambda v, a: jax_bf16.apply(v, a, train=False))(
+        tiny["variables"], xj)
+    jax_ref = tiny["hydra"].apply(tiny["variables"], xj, train=False)
+    for g, r, jg, jr in zip(got, ref, jax_got, jax_ref):
+        assert g.dtype == torch.float32
+        jax_gap = float(jnp.abs(jg.astype(jnp.float32) - jr).mean())
+        assert float((g - r).abs().mean()) <= jax_gap + 0.25
+
+
+def test_fused_module_imports_no_jax():
+    code = (
+        "import sys\n"
+        "BLOCKED = ('jax', 'jaxlib', 'flax', 'msgpack',\n"
+        "           'blind_image_denoising_tpu')\n"
+        "class _Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, _Block())\n"
+        "import copy, torch\n"
+        "import blind_image_denoising_torch as bidt\n"
+        "from blind_image_denoising_torch.inference.fused import (\n"
+        "    build_fused_forward, calibrate_fused)\n"
+        "from blind_image_denoising_torch.models.hydra import model_builder\n"
+        "from blind_image_denoising_torch.training.train_state import (\n"
+        "    init_params)\n"
+        "cfg = copy.deepcopy(bidt.load_config(\n"
+        "    bidt.configs['unet_laplacian_v6'])['model'])\n"
+        "cfg['backbone'].update(filters=8, width=1)\n"
+        "cfg['denoiser']['filters'] = 8\n"
+        "m = model_builder(cfg).hydra\n"
+        "init_params(m, torch.Generator().manual_seed(0))\n"
+        "x = torch.rand((1, 3, 32, 32)) * 255\n"
+        "s = calibrate_fused(cfg, m, x)\n"
+        "outs = build_fused_forward(cfg, m, s)[0](x)\n"
+        "assert [tuple(o.shape) for o in outs] == [(1, 3, 32, 32),\n"
+        "    (1, 3, 16, 16), (1, 3, 8, 8)]\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

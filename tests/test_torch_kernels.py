@@ -15,6 +15,21 @@ wrappers' CPU dispatch (the noise kernel K3 has its own file,
   ``fused_convnext_block(..., interpret=True)`` float mode at atol 0.05
   (that kernel's bf16 matmuls); and the port's ``ConvNextBlock`` module
   vs the linen ``ConvNextBlock`` + skip with the same parameters.
+* K1's int8 mode: ``quantize`` vs ``quantize_cf`` exactly (the same f32
+  multiply by the reciprocal, round half to even, clip to ±127); the
+  plain int8 unit vs ``fused_convnext_block(xq, …, interpret=True)``
+  with |Δcode| ≤ 1 and ≥ 99.9% of codes equal (the two sum the products
+  in another order, which moves a code whose pre-rounding value sits
+  near x.5), and within JAX's own ``3·max(s_in, s_out)`` of the float
+  oracle.
+* K4 (band split with decimation): ``band_split_plain`` vs
+  ``laplacian_band_split_pallas`` in Pallas interpret mode and vs
+  ``laplacian_band_split_reference``, atol 1e-4 in float32. In
+  bfloat16 the JAX kernel sums the taps in bf16 and the port in float32,
+  so the two differ by the JAX kernel's own error (up to 2.2 on its
+  bf16 test's case, past that test's 2.0 bar against its reference): the
+  port is held to one bf16 ulp of the float32 reference on the same bf16
+  inputs, and to no more error against it than the JAX kernel has.
 """
 
 import os
@@ -31,10 +46,11 @@ from blind_image_denoising_tpu.layers.convnext import (
     ConvNextBlock as JaxConvNextBlock)
 from blind_image_denoising_tpu.ops.pallas_convnext import (
     convnext_block_reference, from_cf_padded, fused_convnext_block,
-    to_cf_padded)
+    quantize_cf, to_cf_padded)
 from blind_image_denoising_tpu.ops.pallas_pyramid import (
     _band_smooth_bwd, laplacian_band_smooth_pallas,
-    laplacian_band_smooth_reference)
+    laplacian_band_smooth_reference, laplacian_band_split_pallas,
+    laplacian_band_split_reference)
 from blind_image_denoising_torch.layers.convnext import ConvNextBlock
 from blind_image_denoising_torch.ops import pallas_convnext, pallas_pyramid
 from blind_image_denoising_torch.weights import params_from_flax
@@ -54,6 +70,60 @@ def test_band_smooth_plain_matches_jax(k):
                                    atol=1e-4)
         np.testing.assert_allclose(smooth.numpy(), np.asarray(smooth_j),
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_band_split_plain_matches_jax(k):
+    x = np.random.default_rng(0).uniform(0, 255, (2, 32, 16, 3)).astype(
+        np.float32)
+    band, down = pallas_pyramid.band_split_plain(torch.from_numpy(x), k)
+    assert down.shape == (2, 16, 8, 3)
+    for fn in (lambda v: laplacian_band_split_pallas(v, k, interpret=True),
+               lambda v: laplacian_band_split_reference(v, k)):
+        band_j, down_j = fn(jnp.asarray(x))
+        np.testing.assert_allclose(band.numpy(), np.asarray(band_j),
+                                   atol=1e-4)
+        np.testing.assert_allclose(down.numpy(), np.asarray(down_j),
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_band_split_plain_bf16(k):
+    x = np.random.default_rng(2).uniform(0, 255, (1, 32, 16, 3))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    xf = xt.float().numpy()
+    outs = pallas_pyramid.band_split_plain(xt, k)
+    refs = laplacian_band_split_reference(jnp.asarray(xf), k)
+    jax_outs = laplacian_band_split_pallas(
+        jnp.asarray(xf).astype(jnp.bfloat16), k, interpret=True)
+    for got, ref, jax_got in zip(outs, refs, jax_outs):
+        assert got.dtype == torch.bfloat16
+        ref = torch.from_numpy(np.array(ref))
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(
+            2.0 ** -126))) - 7)
+        err = (got.float() - ref).abs()
+        assert bool((err <= ulp).all())
+        jax_err = (torch.from_numpy(np.array(jax_got, np.float32))
+                   - ref).abs()
+        assert float(err.max()) <= float(jax_err.max())
+
+
+def test_band_split_wrapper_contract():
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (1, 6, 8, 8)).astype(np.float32))
+    n = pallas_pyramid.split_launches
+    band, down = pallas_pyramid.band_split(x, 2)
+    band_p, down_p = pallas_pyramid.band_split_plain(x, 2)
+    assert torch.equal(band, band_p) and torch.equal(down, down_p)
+    assert pallas_pyramid.split_launches == n
+    smooth = pallas_pyramid.band_smooth_plain(x, 2)[1]
+    assert torch.equal(down, smooth[:, ::2, ::2])
+    with pytest.raises(ValueError, match="even"):
+        pallas_pyramid.band_split(x[:, :5], 2)
+    with pytest.raises(RuntimeError, match="backward"):
+        pallas_pyramid.band_split(x.clone().requires_grad_(True), 2)
+    with torch.no_grad():
+        pallas_pyramid.band_split(x.clone().requires_grad_(True), 2)
 
 
 def _vjp_case(k, seed=2):
@@ -138,7 +208,7 @@ def _torch_args(w, C, K):
                 gain=t(w["gamma_gain"]).reshape(C))
 
 
-@pytest.mark.parametrize("ck", [(32, 3), (64, 5)])
+@pytest.mark.parametrize("ck", [(32, 3), (64, 5), (32, 5)])
 def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     C, K = ck
     H, W = 8, 128        # the Pallas kernel tiles rows of 128 lanes
@@ -188,6 +258,67 @@ def test_convnext_module_matches_linen_block_plus_skip(ck):
                                atol=1e-4)
 
 
+def test_quantize_matches_quantize_cf():
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 2, (2, 8, 8, 32)).astype(np.float32)
+    scale = 0.013
+    # exact ties of x / scale and values far past ±127 codes
+    x[0, 0, 0, :4] = np.float32(np.array([0.5, 1.5, -2.5, 3.5]) * scale)
+    x[0, 0, 1, :2] = [5.0, -5.0]
+    got = pallas_convnext.quantize(torch.from_numpy(x), scale)
+    ref = np.asarray(quantize_cf(jnp.asarray(x), scale))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert got.min() == -127 and got.max() == 127
+
+
+@pytest.mark.parametrize("ck", [(32, 5), (64, 5), (32, 3)])
+def test_int8_unit_plain_matches_pallas_interpret(ck):
+    C, K = ck
+    H, W, pad = 8, 128, K // 2        # the Pallas kernel tiles 128 lanes
+    w = _jax_weights(C, K, seed=3)
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+    x = np.random.default_rng(4).normal(0, 1, (2, H, W, C)).astype(
+        np.float32)
+    ref = np.asarray(convnext_block_reference(jnp.asarray(x), jw))
+    s_in = float(np.abs(x).max() / 127.0)
+    s_out = float(np.abs(ref).max() / 127.0)
+    xq = pallas_convnext.quantize(torch.from_numpy(x), s_in)
+    got = pallas_convnext.convnext_block_plain(
+        xq, **_torch_args(w, C, K), scale_in=s_in, scale_out=s_out)
+    assert got.dtype == torch.int8
+    jq = fused_convnext_block(
+        quantize_cf(to_cf_padded(jnp.asarray(x), pad=pad), s_in), **jw,
+        H=H, W=W, pad=pad, scale_in=s_in, scale_out=s_out, rows=H // 2,
+        interpret=True)
+    jcodes = np.asarray(from_cf_padded(jq, H=H, W=W, pad=pad)).astype(int)
+    dcode = np.abs(got.numpy().astype(int) - jcodes)
+    assert dcode.max() <= 1
+    assert (dcode == 0).mean() >= 0.999, (dcode == 0).mean()
+    deq = got.float().numpy() * s_out
+    assert float(np.abs(deq - ref).max()) < 3.0 * max(s_in, s_out)
+
+
+def test_int8_wrapper_takes_plain_path_on_cpu_and_checks_scales():
+    C, K = 32, 5
+    w = _torch_args(_jax_weights(C, K, seed=5), C, K)
+    xq = pallas_convnext.quantize(torch.from_numpy(
+        np.random.default_rng(6).normal(0, 1, (1, 6, 7, C)).astype(
+            np.float32)), 0.03)
+    n, n8 = pallas_convnext.launches, pallas_convnext.int8_launches
+    got = pallas_convnext.convnext_block(xq, scale_in=0.03, scale_out=0.05,
+                                         **w)
+    assert torch.equal(got, pallas_convnext.convnext_block_plain(
+        xq, scale_in=0.03, scale_out=0.05, **w))
+    assert (pallas_convnext.launches, pallas_convnext.int8_launches) == (
+        n, n8)
+    with pytest.raises(ValueError, match="scale"):
+        pallas_convnext.convnext_block(xq, **w)
+    with pytest.raises(ValueError, match="scale"):
+        pallas_convnext.convnext_block(xq.float(), scale_in=0.03,
+                                       scale_out=0.05, **w)
+
+
 def test_convnext_plain_bf16_tracks_f32():
     C, K = 32, 3
     w = _torch_args(_jax_weights(C, K, seed=4), C, K)
@@ -235,6 +366,9 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "         w2=torch.ones(32, 8), w3=torch.ones(8, 32),\n"
         "         gain=torch.ones(8))\n"
         "pallas_convnext.convnext_block(x, **w)\n"
+        "pallas_convnext.convnext_block(pallas_convnext.quantize(x, 0.1),\n"
+        "                               scale_in=0.1, scale_out=0.1, **w)\n"
+        "pallas_pyramid.band_split(x, 2)\n"
         "assert cuda_build._lib is None\n"
         "assert 'triton' not in sys.modules\n"
         "print('ok')\n")
