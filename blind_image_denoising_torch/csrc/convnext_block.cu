@@ -6,26 +6,57 @@
 //
 // Replaces blind_image_denoising_tpu/ops/pallas_convnext.py
 // fused_convnext_block (body _block_kernel), float and int8 I/O modes.
-// NHWC in and out. Design and bound: see blind_image_denoising_torch/
-// ops/pallas_convnext.py. In short:
-// * persistent blocks walk over tiles of TH x TW output pixels of one
-//   image; the weights are staged into shared memory once per block;
-// * the input tile plus its K/2 halo is copied into shared memory with
-//   zeros outside the image (SAME padding on all four borders);
-// * one thread per pixel does the depthwise sum and the LayerNorm in f32;
-// * bf16 I/O: each warp runs both 1x1 products for 16 pixels at a time
-//   with mma.sync m16n8k16 (bf16 operands, f32 accumulation). The
+// NHWC in and out. Bound: bytes in bf16, the CUDA-core operations in int8
+// (blind_image_denoising_torch/ops/pallas_convnext.py has the counts); in
+// practice the kernel is bound by its instruction count against the warp
+// schedulers' rate, about half of it the depthwise sum's, so the design
+// spends as few instructions as it can there and keeps the schedulers fed:
+// * persistent blocks walk over tiles of 8 x 32 output pixels of one image;
+//   the weights are staged into shared memory once per block;
+// * the input tile plus its K/2 halo arrives by 16-byte cp.async copies whose
+//   source size is 0 outside the image, so the hardware writes the SAME
+//   padding's zeros. bf16 I/O has two tile buffers: the copies of tile n+1
+//   are started before tile n's depthwise and waited for at the top of the
+//   next turn, so no warp waits on device memory. int8 I/O copies the raw
+//   codes of tile n+1 into a staging buffer while tile n is computed, and a
+//   pass after the wait dequantizes them into the one bf16 tile as
+//   bf16(q * bf16(scale_in)) (the product is exact in f32, so this is the JAX
+//   kernel's one bf16 rounding);
+// * depthwise + LayerNorm (bf16 tile): a thread owns one 16-byte channel
+//   group (8 channels) of R = 4 neighbouring output pixels of a row. Per tap
+//   row it loads its K x 8 f32 weights and the R + K - 1 input vectors once
+//   each, converts each once and does the R*K*8 FMAs from registers (1.6
+//   instructions per FMA; one thread per pixel over all channels took 2.9).
+//   The C/8 threads of a pixel are neighbouring lanes: mean and centred
+//   variance (two passes, f32) are butterfly sums over them, and each thread
+//   writes its 8 channels of t as one 16-byte bf16 store;
+// * each warp then runs both 1x1 products for 16 pixels at a time with
+//   mma.sync m16n8k16 (bf16 operands, f32 accumulation), its A and B
+//   fragments loaded by ldmatrix, two mma's operands per instruction. The
 //   expansion's accumulators, leaky-ReLU'd and rounded to bf16, are the
-//   projection's A fragments in registers (chunks of 64 of the E
-//   channels), so h never leaves the registers;
+//   projection's A fragments in registers (chunks of 64 of the E channels,
+//   32 at C = 64), so h never leaves the registers. The warp adds
+//   x + gain * p (int8: requantizes with
+//   __float2int_rn(out * f32(1/scale_out)), round half to even like
+//   jnp.round, clamped to +-127) into its own rows of the t tile and writes
+//   them to device memory with 16-byte stores, so a tile costs two block
+//   barriers (three in int8);
+// * threads and shared memory: C = 32 runs 256 threads and two blocks per SM
+//   (16 warps; (32,5) bf16: weights 22,400 B + 2 x 34,560 B tiles + 20,480 B
+//   t = 112,000 B). At C = 64 the bf16 W2 and W3 alone are 70,656 B, so one
+//   block of 512 threads (16 warps) owns the SM: weights 77,568 B + 2 x
+//   55,296 B tiles + 36,864 B t = 225,024 B of the 232,448 B a block may
+//   have. That fits only with unpadded 128-byte pixel rows in the tile, so
+//   there the 16-byte chunks of a pixel are XOR-swizzled by its column
+//   (chunk ^ (column & 7)): the depthwise reads (8 lanes, one pixel, all
+//   chunks) and the epilogue's (8 lanes, 8 neighbouring pixels, one chunk)
+//   both stay free of bank conflicts. At C = 32 the rows are padded to 80
+//   bytes instead (two runs 4 pixels apart fall into opposite halves of the
+//   128-byte bank line);
 // * f32 I/O: every operation is f32 on the CUDA cores, one thread per
-//   pixel, t and p held in registers;
-// * int8 I/O: the tile is loaded as int8 codes and dequantized into the
-//   bf16 shared tile as bf16(q * bf16(scale_in)) (the product is exact in
-//   f32, so this is the JAX kernel's one bf16 rounding); the unit then
-//   runs the bf16 path, and the epilogue requantizes
-//   x + gain * p with __float2int_rn(out * f32(1/scale_out)) (round half
-//   to even, like jnp.round), clamped to +-127, into 16-byte stores.
+//   pixel over a tile of 8 x 16, t and p held in registers, one tile buffer.
+#include <limits.h>
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -38,46 +69,53 @@ constexpr float kLnEps = 1e-3f;
 
 constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// I/O type T -> S, the type of the shared input tile and of the 1x1
-// weights (int8 codes are dequantized into a bf16 tile), and the tile
-template <typename T> struct Io;
-template <> struct Io<bf16> {
-  using S = bf16;
-  static constexpr int TH = 8, TW = 32;
-};
-template <> struct Io<float> {
-  using S = float;
-  static constexpr int TH = 8, TW = 16;
-};
-template <> struct Io<int8_t> {
-  using S = bf16;
-  static constexpr int TH = 8, TW = 32;
-};
-
+// I/O type T; S is the type of the shared input tile and of the 1x1 weights
+// (int8 codes are dequantized into a bf16 tile)
 template <typename T, int C_, int K_>
 struct Cfg {
-  using S = typename Io<T>::S;
+  using S = std::conditional_t<std::is_same<T, float>::value, float, bf16>;
   static constexpr int C = C_, K = K_, E = 4 * C_, PAD = K_ / 2;
   // the two products on the tensor cores (bf16 and int8 I/O)
   static constexpr bool kMma = std::is_same<S, bf16>::value;
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  static constexpr int TH = Io<T>::TH, TW = Io<T>::TW;
-  static constexpr int P = TH * TW;          // pixels per tile = threads
+  static constexpr int TH = 8, TW = kMma ? 32 : 16;
+  static constexpr int P = TH * TW;          // pixels per tile
+  // threads per block, and the blocks per SM the registers are capped for
+  static constexpr int NT = !kMma ? P : C == 64 ? 512 : 256;
+  static constexpr int MIN_BLOCKS = kMma && C == 32 ? 2 : 1;
+  // bf16 tile: a thread's depthwise work item is one 16-byte channel
+  // group (8 channels) of R neighbouring output pixels of one row
+  static constexpr int R = 4, CG = C / 8;
+  // E channels per step of the products: their expansion accumulators are
+  // EC/2 registers, and at C = 64 (512 threads) a thread has 128 in all
+  static constexpr int EC = C == 64 ? 32 : 64;
+  static constexpr int RUNS_W = TW / R, ITEMS = TH * RUNS_W * CG;
   static constexpr int IH = TH + 2 * PAD, IW = TW + 2 * PAD;
   static constexpr int V = 16 / sizeof(S);   // tile elements per 16 bytes
   static constexpr int VIO = 16 / sizeof(T); // I/O elements per 16 bytes
-  // row strides (elements) padded so that the warp's accesses below are
-  // free of shared-memory bank conflicts
-  static constexpr int LDX = C + V;          // input tile, per pixel
+  // input tile: unpadded and swizzled at C = 64 on the tensor-core path,
+  // else pixel rows padded by 16 bytes; either way the warp's accesses
+  // below are free of shared-memory bank conflicts
+  static constexpr bool kSwizzle = kMma && C == 64;
+  static constexpr int LDX = kSwizzle ? C : C + V;
   static constexpr int LDT = C + 8;          // bf16 t / output tile rows
   static constexpr int LDW2 = C + 8;         // bf16 W2 [E][C] rows
   static constexpr int LDW3 = E + 8;         // bf16 W3 [C][E] rows
+  // tile buffers: bf16 I/O prefetches into a second tile, int8 I/O into a
+  // staging buffer of raw codes [IH*IW][C]
+  static constexpr int NXBUF = kMma && !kInt8 ? 2 : 1;
+  static constexpr size_t XBUF = sizeof(S) * IH * IW * LDX;
   // shared-memory layout (bytes)
-  static constexpr size_t OFF_DW = 0;        // f32 [K*K][C]
+  // depthwise weights: f32 [K*K][C]; for the bf16 tile [K*K][2][CG][4],
+  // channel c at [c % 8 / 4][c / 8][c % 4], so that a warp's 16-byte reads
+  // of one half of every group's 8 weights are contiguous
+  static constexpr size_t OFF_DW = 0;
   static constexpr size_t OFF_LN = align16(OFF_DW + 4 * K * K * C);
   static constexpr size_t OFF_GN = align16(OFF_LN + 4 * C);
   static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
-  static constexpr size_t OFF_W2 = align16(OFF_X + sizeof(S) * IH * IW * LDX);
+  static constexpr size_t OFF_STAGE = align16(OFF_X + NXBUF * XBUF);
+  static constexpr size_t OFF_W2 =
+      align16(OFF_STAGE + (kInt8 ? IH * IW * C : 0));
   // bf16/int8: W2 bf16 [E][LDW2], W3 bf16 [C][LDW3], t/out tile bf16
   //            [P][LDT] (int8 output rows are staged in the same rows)
   // f32:       W2 f32 [E][C], W3 transposed f32 [E][C]
@@ -86,11 +124,15 @@ struct Cfg {
   static constexpr size_t OFF_T =
       align16(OFF_W3 + (kMma ? 2 * C * LDW3 : 4 * E * C));
   static constexpr size_t SMEM = OFF_T + (kMma ? 2 * P * LDT : 0);
-};
+  static_assert(XBUF % 16 == 0, "tile buffers keep 16-byte alignment");
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+  // element offset, within a tile row, of 16-byte chunk `chunk` of the
+  // pixel in column `ix`
+  static __device__ __forceinline__ int xoff(int ix, int chunk) {
+    if constexpr (kSwizzle) chunk ^= ix & 7;
+    return ix * LDX + chunk * V;
+  }
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -118,8 +160,400 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the
+// shared-memory addresses of the 16-byte rows of matrix i, and lane l
+// receives elements 2(l%4), 2(l%4)+1 of row l/4 of matrix i in r[i], which is
+// how mma.sync lays out its A (row-major) and B (column-major) fragments.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(row)
+      : "memory");
+}
+
+// 16 bytes global -> shared (a shared-memory address), asynchronously; 16
+// zero bytes when !valid (src must be a valid address all the same)
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  const size_t s = __cvta_generic_to_global(src);
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(s), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// a tile's image and the image coordinates of its first output pixel
+struct Tile {
+  long long b;
+  int y0, x0;
+};
+
+// Start the copies of one input tile plus halo into `dst`: the tile buffer
+// (float and bf16 I/O) or the staging buffer of raw codes (int8 I/O).
+template <typename G, typename T>
+__device__ __forceinline__ void load_tile_async(const T* __restrict__ x,
+                                                unsigned char* dst, Tile t,
+                                                int H, int W, int tid) {
+  // a row of the tile, halo included, is contiguous in x: ROW 16-byte chunks
+  constexpr int CV = G::C / G::VIO, ROW = G::IW * CV;
+  const uint32_t d0 = shared_address(dst);
+  // element offset of the tile's first halo pixel (it may lie off the image)
+  const long long origin =
+      ((t.b * H + (t.y0 - G::PAD)) * W + (t.x0 - G::PAD)) * G::C;
+  for (int i = tid; i < G::IH * ROW; i += G::NT) {
+    const int iy = i / ROW, j = i - iy * ROW;
+    const int ix = j / CV, cv = j % CV;
+    const bool inside = (unsigned)(t.y0 - G::PAD + iy) < (unsigned)H &&
+                        (unsigned)(t.x0 - G::PAD + ix) < (unsigned)W;
+    // a copy of no bytes still takes a valid address: the tensor's start
+    const T* src =
+        inside ? x + (origin + ((iy * W + ix) * G::C + cv * G::VIO)) : x;
+    const int d = G::kInt8 ? (iy * G::IW + ix) * G::C + cv * 16
+                           : (int)sizeof(typename G::S) *
+                                 (iy * G::IW * G::LDX + G::xoff(ix, cv));
+    cp_async_16(d0 + d, src, inside);
+  }
+  cp_async_commit();
+}
+
+// int8 I/O: staged codes -> bf16 tile, bf16(q * bf16(scale_in))
+template <typename G>
+__device__ __forceinline__ void dequantize_tile(
+    const unsigned char* __restrict__ stage, bf16* __restrict__ xs,
+    float s_in, int tid) {
+  constexpr int CV = G::C / 16;
+  for (int i = tid; i < G::IH * G::IW * CV; i += G::NT) {
+    const int cv = i % CV, pix = i / CV;
+    const int iy = pix / G::IW, ix = pix % G::IW;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(stage + pix * G::C + cv * 16);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    bf16* row = xs + iy * G::IW * G::LDX;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint4 d;
+      uint32_t* dp = reinterpret_cast<uint32_t*>(&d);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        // (float)q without the slow I2F: code + 128 as the low byte of
+        // 2^23's mantissa is exactly 2^23 + 128 + q
+        const uint32_t u = words[2 * h + j] ^ 0x80808080u;
+        float f[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + e)) -
+                 8388736.f;
+        dp[2 * j] = pack_bf16(__fmul_rn(f[0], s_in), __fmul_rn(f[1], s_in));
+        dp[2 * j + 1] =
+            pack_bf16(__fmul_rn(f[2], s_in), __fmul_rn(f[3], s_in));
+      }
+      *reinterpret_cast<uint4*>(row + G::xoff(ix, 2 * cv + h)) = d;
+    }
+  }
+}
+
+// Depthwise KxK + LayerNorm on the bf16 tile, t -> ts as bf16 rows. Per tap
+// row the thread loads its K x 8 weights and the R + K - 1 input vectors
+// once each and does the R*K*8 FMAs from registers, taps in (dy, dx) order
+// per output. The C/8 threads that share a pixel are neighbouring lanes of
+// one warp: the LayerNorm's mean and its centred variance (two passes, f32)
+// are butterfly sums over them. Every lane of a warp has an item or none
+// (ITEMS is a multiple of 32), and pixels outside the image are computed on
+// the tile's zeros, so the shuffles always see a full warp.
+template <typename G>
+__device__ __forceinline__ void depthwise_layernorm(
+    const bf16* __restrict__ xs, const float* __restrict__ dws,
+    const float* __restrict__ lns, bf16* __restrict__ ts, int tid) {
+  constexpr int C = G::C, K = G::K, R = G::R, CG = G::CG;
+  static_assert(G::TW % R == 0 && 32 % CG == 0 && G::ITEMS % 32 == 0,
+                "runs tile the rows and the lanes of a pixel share a warp");
+  for (int item = tid; item < G::ITEMS; item += G::NT) {
+    const int cg = item % CG, run = item / CG;
+    const int ry = run / G::RUNS_W, rx = (run % G::RUNS_W) * R;
+    int xo[R + K - 1];  // this thread's chunk of each input pixel of a row
+#pragma unroll
+    for (int i = 0; i < R + K - 1; ++i) xo[i] = G::xoff(rx + i, cg);
+    const float4* wp = reinterpret_cast<const float4*>(dws) + cg;
+    float acc[R][8];
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy) {
+      const bf16* xrow = xs + (ry + dy) * G::IW * G::LDX;
+      float w[K][8];
+#pragma unroll
+      for (int dx = 0; dx < K; ++dx) {
+        const float4 lo = wp[((dy * K + dx) * 2 + 0) * CG];
+        const float4 hi = wp[((dy * K + dx) * 2 + 1) * CG];
+        w[dx][0] = lo.x, w[dx][1] = lo.y, w[dx][2] = lo.z, w[dx][3] = lo.w;
+        w[dx][4] = hi.x, w[dx][5] = hi.y, w[dx][6] = hi.z, w[dx][7] = hi.w;
+      }
+#pragma unroll
+      for (int i = 0; i < R + K - 1; ++i) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(xrow + xo[i]);
+        const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+        float xv[8];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {  // bf16 -> f32 is exact
+          xv[2 * h] = __uint_as_float(u[h] << 16);
+          xv[2 * h + 1] = __uint_as_float(u[h] & 0xffff0000u);
+        }
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+          const int j = i - dx;  // the output pixel this tap feeds
+          if (j >= 0 && j < R) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[j][c] = fmaf(xv[c], w[dx][c], acc[j][c]);
+          }
+        }
+      }
+    }
+    const float4 l0 = reinterpret_cast<const float4*>(lns)[2 * cg];
+    const float4 l1 = reinterpret_cast<const float4*>(lns)[2 * cg + 1];
+    const float lw[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float* a = acc[j];
+      float sum = ((a[0] + a[1]) + (a[2] + a[3])) +
+                  ((a[4] + a[5]) + (a[6] + a[7]));
+#pragma unroll
+      for (int o = 1; o < CG; o <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float mean = sum * (1.f / C);
+      float sq = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        a[c] -= mean;
+        sq = fmaf(a[c], a[c], sq);
+      }
+#pragma unroll
+      for (int o = 1; o < CG; o <<= 1)
+        sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      const float rs = rsqrtf(sq * (1.f / C) + kLnEps);
+      uint4 v;
+      v.x = pack_bf16(a[0] * rs * lw[0], a[1] * rs * lw[1]);
+      v.y = pack_bf16(a[2] * rs * lw[2], a[3] * rs * lw[3]);
+      v.z = pack_bf16(a[4] * rs * lw[4], a[5] * rs * lw[5]);
+      v.w = pack_bf16(a[6] * rs * lw[6], a[7] * rs * lw[7]);
+      *reinterpret_cast<uint4*>(ts + (ry * G::TW + rx + j) * G::LDT + cg * 8) =
+          v;
+    }
+  }
+}
+
+// Both 1x1 products on the tensor cores, 16 pixels (one m16 tile of t rows)
+// per warp and step; then out = x + gain * p into the warp's own rows of
+// the t tile (int8: requantized, C bytes at the start of each row) and from
+// there to device memory with 16-byte stores.
+template <typename G, typename T>
+__device__ __forceinline__ void products_store(
+    const bf16* __restrict__ xs, bf16* __restrict__ ts,
+    const bf16* __restrict__ w2s, const bf16* __restrict__ w3s,
+    const float* __restrict__ gns, T* __restrict__ out, Tile t, int H, int W,
+    float slope, float inv_out, int tid) {
+  constexpr int C = G::C, E = G::E;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  // this lane's row addresses for ldmatrix (matrix lane / 8, row lane % 8):
+  // A of t rows: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) of a k16 step;
+  // B of W2 [E][C]: one n8 group of rows, k 0-7 | 8-15 | 16-23 | 24-31;
+  // B of W3 [C][E]: n8 groups (nt | nt + 1) x (k 0-7 | 8-15) of a k16 step
+  const int lr = lane & 7, lm = lane >> 3;
+  const uint32_t a_lane = shared_address(
+      ts + (lr + (lm & 1) * 8) * G::LDT + (lm >> 1) * 8);
+  const uint32_t w2_lane = shared_address(w2s + lr * G::LDW2 + lm * 8);
+  const uint32_t w3_lane = shared_address(
+      w3s + ((lm >> 1) * 8 + lr) * G::LDW3 + (lm & 1) * 8);
+  for (int mt = warp; mt < G::P / 16; mt += G::NT / 32) {
+    const int m0 = mt * 16;
+    uint32_t af[C / 16][4];
+#pragma unroll
+    for (int kt = 0; kt < C / 16; ++kt)
+      ldmatrix_x4(af[kt], a_lane + 2 * (m0 * G::LDT + kt * 16));
+    float pacc[C / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < C / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
+#pragma unroll 1
+    for (int ec = 0; ec < E; ec += G::EC) {
+      float hacc[G::EC / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < G::EC / 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hacc[nt][i] = 0.f;
+#pragma unroll
+        for (int kt = 0; kt < C / 16; kt += 2) {
+          uint32_t b[4];  // B fragments of two k16 steps
+          ldmatrix_x4(b, w2_lane + 2 * ((ec + nt * 8) * G::LDW2 + kt * 16));
+          mma_bf16(hacc[nt], af[kt], b[0], b[1]);
+          mma_bf16(hacc[nt], af[kt + 1], b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < G::EC / 16; ++kk) {
+        uint32_t a[4];
+        a[0] = pack_bf16(leaky(hacc[2 * kk][0], slope),
+                         leaky(hacc[2 * kk][1], slope));
+        a[1] = pack_bf16(leaky(hacc[2 * kk][2], slope),
+                         leaky(hacc[2 * kk][3], slope));
+        a[2] = pack_bf16(leaky(hacc[2 * kk + 1][0], slope),
+                         leaky(hacc[2 * kk + 1][1], slope));
+        a[3] = pack_bf16(leaky(hacc[2 * kk + 1][2], slope),
+                         leaky(hacc[2 * kk + 1][3], slope));
+#pragma unroll
+        for (int nt = 0; nt < C / 8; nt += 2) {
+          uint32_t b[4];  // B fragments of two n8 groups
+          ldmatrix_x4(b, w3_lane + 2 * (nt * 8 * G::LDW3 + ec + kk * 16));
+          mma_bf16(pacc[nt], a, b[0], b[1]);
+          mma_bf16(pacc[nt + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncwarp();  // every lane has its A fragments: the rows may change
+#pragma unroll
+    for (int nt = 0; nt < C / 8; ++nt) {
+      const int c = nt * 8 + 2 * q;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = m0 + g + 8 * hf;
+        const int ly = m / G::TW, lx = m % G::TW;
+        const bf16* xr = xs + (ly + G::PAD) * G::IW * G::LDX +
+                         G::xoff(lx + G::PAD, nt) + 2 * q;
+        const float o0 = __fadd_rn(bid::to_float(xr[0]),
+                                   __fmul_rn(gns[c], pacc[nt][2 * hf]));
+        const float o1 = __fadd_rn(bid::to_float(xr[1]),
+                                   __fmul_rn(gns[c + 1], pacc[nt][2 * hf + 1]));
+        if constexpr (G::kInt8) {
+          char2 qv;
+          qv.x = quant_int8(o0, inv_out);
+          qv.y = quant_int8(o1, inv_out);
+          *reinterpret_cast<char2*>(
+              reinterpret_cast<signed char*>(ts + m * G::LDT) + c) = qv;
+        } else {
+          *reinterpret_cast<uint32_t*>(ts + m * G::LDT + c) = pack_bf16(o0, o1);
+        }
+      }
+    }
+    __syncwarp();
+    constexpr int OV = C / G::VIO;  // 16-byte stores per pixel
+    for (int i = lane; i < 16 * OV; i += 32) {
+      const int m = m0 + i / OV, cv = i % OV;
+      const int gy = t.y0 + m / G::TW, gx = t.x0 + m % G::TW;
+      if (gy < H && gx < W)
+        *reinterpret_cast<uint4*>(out + ((t.b * H + gy) * W + gx) * C +
+                                  cv * G::VIO) =
+            *reinterpret_cast<const uint4*>(
+                reinterpret_cast<const unsigned char*>(ts + m * G::LDT) +
+                cv * 16);
+    }
+  }
+}
+
+// f32 I/O: one thread per pixel does the depthwise sum, the LayerNorm and
+// both products on the CUDA cores, t and p in registers
+template <typename G>
+__device__ __forceinline__ void unit_f32(
+    const float* __restrict__ xs, const float* __restrict__ dws,
+    const float* __restrict__ lns, const float* __restrict__ w2s,
+    const float* __restrict__ w3t, const float* __restrict__ gns,
+    float* __restrict__ out, Tile t, int H, int W, float slope, int tid) {
+  constexpr int C = G::C, K = G::K, E = G::E;
+  const int py = tid / G::TW, px = tid % G::TW;
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+#pragma unroll 1
+  for (int dy = 0; dy < K; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < K; ++dx) {
+      const float* xp = xs + ((py + dy) * G::IW + px + dx) * G::LDX;
+      const float* wp = dws + (dy * K + dx) * C;
+#pragma unroll
+      for (int c4 = 0; c4 < C; c4 += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(xp + c4);
+        const float4 w4 = *reinterpret_cast<const float4*>(wp + c4);
+        acc[c4 + 0] = fmaf(v.x, w4.x, acc[c4 + 0]);
+        acc[c4 + 1] = fmaf(v.y, w4.y, acc[c4 + 1]);
+        acc[c4 + 2] = fmaf(v.z, w4.z, acc[c4 + 2]);
+        acc[c4 + 3] = fmaf(v.w, w4.w, acc[c4 + 3]);
+      }
+    }
+  }
+  float mean = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) mean += acc[c];
+  mean *= (1.f / C);
+  float var = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float d = acc[c] - mean;
+    var = fmaf(d, d, var);
+  }
+  var *= (1.f / C);
+  const float rs = rsqrtf(var + kLnEps);
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = (acc[c] - mean) * rs * lns[c];
+  float p[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) p[c] = 0.f;
+#pragma unroll 1
+  for (int e = 0; e < E; ++e) {
+    const float4* wr = reinterpret_cast<const float4*>(w2s + e * C);
+    float h0 = 0.f, h1 = 0.f, h2 = 0.f, h3 = 0.f;
+#pragma unroll
+    for (int c4 = 0; c4 < C / 4; ++c4) {
+      const float4 w = wr[c4];
+      h0 = fmaf(w.x, acc[4 * c4 + 0], h0);
+      h1 = fmaf(w.y, acc[4 * c4 + 1], h1);
+      h2 = fmaf(w.z, acc[4 * c4 + 2], h2);
+      h3 = fmaf(w.w, acc[4 * c4 + 3], h3);
+    }
+    const float hv = leaky((h0 + h1) + (h2 + h3), slope);
+    const float4* wr3 = reinterpret_cast<const float4*>(w3t + e * C);
+#pragma unroll
+    for (int c4 = 0; c4 < C / 4; ++c4) {
+      const float4 w = wr3[c4];
+      p[4 * c4 + 0] = fmaf(w.x, hv, p[4 * c4 + 0]);
+      p[4 * c4 + 1] = fmaf(w.y, hv, p[4 * c4 + 1]);
+      p[4 * c4 + 2] = fmaf(w.z, hv, p[4 * c4 + 2]);
+      p[4 * c4 + 3] = fmaf(w.w, hv, p[4 * c4 + 3]);
+    }
+  }
+  const int gy = t.y0 + py, gx = t.x0 + px;
+  if (gy < H && gx < W) {
+    const float* xr = xs + ((py + G::PAD) * G::IW + px + G::PAD) * G::LDX;
+    float* orow = out + ((t.b * H + gy) * W + gx) * C;
+#pragma unroll
+    for (int c4 = 0; c4 < C / 4; ++c4) {
+      float4 o;
+      o.x = __fadd_rn(xr[4 * c4 + 0], __fmul_rn(gns[4 * c4 + 0], p[4 * c4 + 0]));
+      o.y = __fadd_rn(xr[4 * c4 + 1], __fmul_rn(gns[4 * c4 + 1], p[4 * c4 + 1]));
+      o.z = __fadd_rn(xr[4 * c4 + 2], __fmul_rn(gns[4 * c4 + 2], p[4 * c4 + 2]));
+      o.w = __fadd_rn(xr[4 * c4 + 3], __fmul_rn(gns[4 * c4 + 3], p[4 * c4 + 3]));
+      *reinterpret_cast<float4*>(orow + 4 * c4) = o;
+    }
+  }
+}
+
 template <typename T, int C, int K>
-__global__ void __launch_bounds__(Cfg<T, C, K>::P)
+__global__ void __launch_bounds__(Cfg<T, C, K>::NT, Cfg<T, C, K>::MIN_BLOCKS)
 convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
                       const float* __restrict__ dw,
                       const float* __restrict__ ln,
@@ -129,280 +563,90 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
                       float slope, float s_in, float inv_out) {
   using G = Cfg<T, C, K>;
   using S = typename G::S;
-  constexpr int E = G::E, P = G::P, V = G::V;
+  constexpr int E = G::E, NT = G::NT;
   extern __shared__ __align__(16) unsigned char smem[];
   float* dws = reinterpret_cast<float*>(smem + G::OFF_DW);
   float* lns = reinterpret_cast<float*>(smem + G::OFF_LN);
   float* gns = reinterpret_cast<float*>(smem + G::OFF_GN);
-  S* xs = reinterpret_cast<S*>(smem + G::OFF_X);
+  S* w2s = reinterpret_cast<S*>(smem + G::OFF_W2);
+  S* w3s = reinterpret_cast<S*>(smem + G::OFF_W3);
   const int tid = threadIdx.x;
 
-  // ---- weights, once per block
-  for (int i = tid; i < C * K * K; i += P) {
+  const int tiles_w = (W + G::TW - 1) / G::TW;
+  const int tiles_h = (H + G::TH - 1) / G::TH;
+  const int ntiles = B * tiles_h * tiles_w;  // the launcher checks the range
+  auto tile_at = [&](int i) {
+    const int rest = i / tiles_w;
+    return Tile{rest / tiles_h, rest % tiles_h * G::TH, i % tiles_w * G::TW};
+  };
+  // where the copies of the next tile land: the staging buffer (int8), the
+  // other tile buffer (bf16) or the only one (f32)
+  int buf = 0;
+  auto landing = [&](int b) {
+    return smem + (G::kInt8 ? G::OFF_STAGE : G::OFF_X + b * G::XBUF);
+  };
+  int tile = blockIdx.x;  // the grid is no larger than ntiles
+  load_tile_async<G>(x, landing(buf), tile_at(tile), H, W, tid);
+
+  // ---- weights, once per block, while the first tile is on its way
+  for (int i = tid; i < C * K * K; i += NT) {
     const int c = i / (K * K), tap = i % (K * K);
-    dws[tap * C + c] = dw[i];
+    if constexpr (G::kMma)
+      dws[((tap * 2 + c % 8 / 4) * G::CG + c / 8) * 4 + c % 4] = dw[i];
+    else
+      dws[tap * C + c] = dw[i];
   }
-  for (int c = tid; c < C; c += P) {
+  for (int c = tid; c < C; c += NT) {
     lns[c] = ln[c];
     gns[c] = gain[c];
   }
   if constexpr (G::kMma) {
-    bf16* w2s = reinterpret_cast<bf16*>(smem + G::OFF_W2);
-    bf16* w3s = reinterpret_cast<bf16*>(smem + G::OFF_W3);
-    for (int i = tid; i < E * C / 8; i += P) {
+    for (int i = tid; i < E * C / 8; i += NT) {
       const int e = i / (C / 8), c8 = i % (C / 8);
       *reinterpret_cast<uint4*>(w2s + e * G::LDW2 + c8 * 8) =
           *reinterpret_cast<const uint4*>(w2 + e * C + c8 * 8);
     }
-    for (int i = tid; i < C * E / 8; i += P) {
+    for (int i = tid; i < C * E / 8; i += NT) {
       const int c = i / (E / 8), e8 = i % (E / 8);
       *reinterpret_cast<uint4*>(w3s + c * G::LDW3 + e8 * 8) =
           *reinterpret_cast<const uint4*>(w3 + c * E + e8 * 8);
     }
   } else {
-    float* w2s = reinterpret_cast<float*>(smem + G::OFF_W2);
-    float* w3t = reinterpret_cast<float*>(smem + G::OFF_W3);
-    for (int i = tid; i < E * C; i += P) w2s[i] = w2[i];
-    for (int i = tid; i < E * C; i += P) {
+    for (int i = tid; i < E * C; i += NT) w2s[i] = w2[i];
+    for (int i = tid; i < E * C; i += NT) {
       const int c = i / E, e = i % E;
-      w3t[e * C + c] = w3[i];
+      w3s[e * C + c] = w3[i];  // transposed
     }
   }
 
-  const int tiles_w = (W + G::TW - 1) / G::TW;
-  const int tiles_h = (H + G::TH - 1) / G::TH;
-  const long long ntiles = (long long)B * tiles_h * tiles_w;
-  const int py = tid / G::TW, px = tid % G::TW;
-
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int tx = (int)(tile % tiles_w);
-    const long long rest = tile / tiles_w;
-    const int ty = (int)(rest % tiles_h);
-    const long long b = rest / tiles_h;
-    const int y0 = ty * G::TH, x0 = tx * G::TW;
-
-    __syncthreads();  // weights staged / previous tile done with smem
-
-    // ---- input tile + halo, zeros outside the image; int8 codes are
-    // dequantized on the way into the bf16 tile
-    constexpr int CV = C / G::VIO;
-    for (int i = tid; i < G::IH * G::IW * CV; i += P) {
-      const int cv = i % CV, pix = i / CV;
-      const int iy = pix / G::IW, ix = pix % G::IW;
-      const int gy = y0 + iy - G::PAD, gx = x0 + ix - G::PAD;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = __ldg(reinterpret_cast<const uint4*>(
-            x + ((b * H + gy) * W + gx) * C + cv * G::VIO));
-      S* dst = xs + pix * G::LDX + cv * G::VIO;
-      if constexpr (G::kInt8) {
-        const signed char* q = reinterpret_cast<const signed char*>(&v);
-        uint4 d[2];
-        uint32_t* dp = reinterpret_cast<uint32_t*>(d);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          dp[j] = pack_bf16(__fmul_rn((float)q[2 * j], s_in),
-                            __fmul_rn((float)q[2 * j + 1], s_in));
-        reinterpret_cast<uint4*>(dst)[0] = d[0];
-        reinterpret_cast<uint4*>(dst)[1] = d[1];
-      } else {
-        *reinterpret_cast<uint4*>(dst) = v;
-      }
-    }
+  for (; tile < ntiles; tile += gridDim.x) {
+    const Tile t = tile_at(tile);
+    const int next = tile + gridDim.x;
+    S* xs = reinterpret_cast<S*>(smem + G::OFF_X + buf * G::XBUF);
+    cp_async_wait_all();
+    // this tile (or its codes) has landed and the weights are staged; every
+    // warp is done with the previous tile's buffers
     __syncthreads();
-
-    // ---- depthwise KxK + LayerNorm: one thread per pixel, f32
-    float acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.f;
-#pragma unroll 1
-    for (int dy = 0; dy < K; ++dy) {
-#pragma unroll
-      for (int dx = 0; dx < K; ++dx) {
-        const S* xp = xs + ((py + dy) * G::IW + px + dx) * G::LDX;
-        const float* wp = dws + (dy * K + dx) * C;
-#pragma unroll
-        for (int c0 = 0; c0 < C; c0 += V) {
-          bid::Vec16<S> v;
-          v.raw = *reinterpret_cast<const uint4*>(xp + c0);
-#pragma unroll
-          for (int j4 = 0; j4 < V; j4 += 4) {
-            const float4 w4 = *reinterpret_cast<const float4*>(wp + c0 + j4);
-            acc[c0 + j4 + 0] = fmaf(bid::to_float(v[j4 + 0]), w4.x, acc[c0 + j4 + 0]);
-            acc[c0 + j4 + 1] = fmaf(bid::to_float(v[j4 + 1]), w4.y, acc[c0 + j4 + 1]);
-            acc[c0 + j4 + 2] = fmaf(bid::to_float(v[j4 + 2]), w4.z, acc[c0 + j4 + 2]);
-            acc[c0 + j4 + 3] = fmaf(bid::to_float(v[j4 + 3]), w4.w, acc[c0 + j4 + 3]);
-          }
-        }
-      }
+    if constexpr (G::kInt8) {
+      dequantize_tile<G>(smem + G::OFF_STAGE, xs, s_in, tid);
+      __syncthreads();
     }
-    float mean = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) mean += acc[c];
-    mean *= (1.f / C);
-    float var = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float d = acc[c] - mean;
-      var = fmaf(d, d, var);
-    }
-    var *= (1.f / C);
-    const float rs = rsqrtf(var + kLnEps);
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = (acc[c] - mean) * rs * lns[c];
-
     if constexpr (G::kMma) {
-      // ---- t -> shared memory as bf16, one row per pixel
+      // the next tile goes to the other buffer (bf16 I/O) or, as codes, to
+      // the staging buffer that the pass above has just emptied (int8 I/O)
+      buf ^= G::NXBUF - 1;
+      if (next < ntiles)
+        load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
       bf16* ts = reinterpret_cast<bf16*>(smem + G::OFF_T);
-      const bf16* w2s = reinterpret_cast<const bf16*>(smem + G::OFF_W2);
-      const bf16* w3s = reinterpret_cast<const bf16*>(smem + G::OFF_W3);
-#pragma unroll
-      for (int c0 = 0; c0 < C; c0 += 8) {
-        uint4 v;
-        v.x = pack_bf16(acc[c0 + 0], acc[c0 + 1]);
-        v.y = pack_bf16(acc[c0 + 2], acc[c0 + 3]);
-        v.z = pack_bf16(acc[c0 + 4], acc[c0 + 5]);
-        v.w = pack_bf16(acc[c0 + 6], acc[c0 + 7]);
-        *reinterpret_cast<uint4*>(ts + tid * G::LDT + c0) = v;
-      }
+      depthwise_layernorm<G>(xs, dws, lns, ts, tid);
       __syncthreads();
-
-      // ---- both 1x1 products on the tensor cores, 16 pixels per step
-      const int warp = tid >> 5, lane = tid & 31;
-      const int g = lane >> 2, q = lane & 3;
-      for (int mt = warp; mt < P / 16; mt += P / 32) {
-        const int m0 = mt * 16;
-        uint32_t af[C / 16][4];
-#pragma unroll
-        for (int kt = 0; kt < C / 16; ++kt) {
-          const bf16* r0 = ts + (m0 + g) * G::LDT + kt * 16 + 2 * q;
-          const bf16* r1 = r0 + 8 * G::LDT;
-          af[kt][0] = ld_u32(r0);
-          af[kt][1] = ld_u32(r1);
-          af[kt][2] = ld_u32(r0 + 8);
-          af[kt][3] = ld_u32(r1 + 8);
-        }
-        float pacc[C / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < C / 8; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
-#pragma unroll 1
-        for (int ec = 0; ec < E; ec += 64) {
-          float hacc[8][4];
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) hacc[nt][i] = 0.f;
-            const bf16* wr = w2s + (ec + nt * 8 + g) * G::LDW2 + 2 * q;
-#pragma unroll
-            for (int kt = 0; kt < C / 16; ++kt)
-              mma_bf16(hacc[nt], af[kt], ld_u32(wr + kt * 16),
-                       ld_u32(wr + kt * 16 + 8));
-          }
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            uint32_t a[4];
-            a[0] = pack_bf16(leaky(hacc[2 * kk][0], slope),
-                             leaky(hacc[2 * kk][1], slope));
-            a[1] = pack_bf16(leaky(hacc[2 * kk][2], slope),
-                             leaky(hacc[2 * kk][3], slope));
-            a[2] = pack_bf16(leaky(hacc[2 * kk + 1][0], slope),
-                             leaky(hacc[2 * kk + 1][1], slope));
-            a[3] = pack_bf16(leaky(hacc[2 * kk + 1][2], slope),
-                             leaky(hacc[2 * kk + 1][3], slope));
-#pragma unroll
-            for (int nt = 0; nt < C / 8; ++nt) {
-              const bf16* wr = w3s + (nt * 8 + g) * G::LDW3 + ec + kk * 16 + 2 * q;
-              mma_bf16(pacc[nt], a, ld_u32(wr), ld_u32(wr + 8));
-            }
-          }
-        }
-        __syncwarp();
-        // ---- out = x + gain * p, into this warp's rows of the tile (int8:
-        // requantized, C bytes at the start of each row)
-#pragma unroll
-        for (int nt = 0; nt < C / 8; ++nt) {
-          const int c = nt * 8 + 2 * q;
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int m = m0 + g + 8 * hf;
-            const int ly = m / G::TW, lx = m % G::TW;
-            const bf16* xr =
-                xs + ((ly + G::PAD) * G::IW + lx + G::PAD) * G::LDX + c;
-            const float o0 = __fadd_rn(bid::to_float(xr[0]),
-                                       __fmul_rn(gns[c], pacc[nt][2 * hf]));
-            const float o1 = __fadd_rn(bid::to_float(xr[1]),
-                                       __fmul_rn(gns[c + 1], pacc[nt][2 * hf + 1]));
-            if constexpr (G::kInt8) {
-              char2 qv;
-              qv.x = quant_int8(o0, inv_out);
-              qv.y = quant_int8(o1, inv_out);
-              *reinterpret_cast<char2*>(
-                  reinterpret_cast<signed char*>(ts + m * G::LDT) + c) = qv;
-            } else {
-              *reinterpret_cast<uint32_t*>(ts + m * G::LDT + c) = pack_bf16(o0, o1);
-            }
-          }
-        }
-      }
-      __syncthreads();
-
-      // ---- tile -> global, 16-byte stores
-      constexpr int OV = G::VIO;
-      for (int i = tid; i < P * (C / OV); i += P) {
-        const int m = i / (C / OV), cv = i % (C / OV);
-        const int gy = y0 + m / G::TW, gx = x0 + m % G::TW;
-        if (gy < H && gx < W)
-          *reinterpret_cast<uint4*>(out + ((b * H + gy) * W + gx) * C + cv * OV) =
-              *reinterpret_cast<const uint4*>(
-                  reinterpret_cast<const unsigned char*>(ts + m * G::LDT) +
-                  cv * 16);
-      }
+      products_store<G>(xs, ts, w2s, w3s, gns, out, t, H, W, slope, inv_out,
+                        tid);
     } else {
-      // ---- f32: both products on the CUDA cores, t and p in registers
-      const float* w2s = reinterpret_cast<const float*>(smem + G::OFF_W2);
-      const float* w3t = reinterpret_cast<const float*>(smem + G::OFF_W3);
-      float p[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) p[c] = 0.f;
-#pragma unroll 1
-      for (int e = 0; e < E; ++e) {
-        const float4* wr = reinterpret_cast<const float4*>(w2s + e * C);
-        float h0 = 0.f, h1 = 0.f, h2 = 0.f, h3 = 0.f;
-#pragma unroll
-        for (int c4 = 0; c4 < C / 4; ++c4) {
-          const float4 w = wr[c4];
-          h0 = fmaf(w.x, acc[4 * c4 + 0], h0);
-          h1 = fmaf(w.y, acc[4 * c4 + 1], h1);
-          h2 = fmaf(w.z, acc[4 * c4 + 2], h2);
-          h3 = fmaf(w.w, acc[4 * c4 + 3], h3);
-        }
-        const float hv = leaky((h0 + h1) + (h2 + h3), slope);
-        const float4* wr3 = reinterpret_cast<const float4*>(w3t + e * C);
-#pragma unroll
-        for (int c4 = 0; c4 < C / 4; ++c4) {
-          const float4 w = wr3[c4];
-          p[4 * c4 + 0] = fmaf(w.x, hv, p[4 * c4 + 0]);
-          p[4 * c4 + 1] = fmaf(w.y, hv, p[4 * c4 + 1]);
-          p[4 * c4 + 2] = fmaf(w.z, hv, p[4 * c4 + 2]);
-          p[4 * c4 + 3] = fmaf(w.w, hv, p[4 * c4 + 3]);
-        }
-      }
-      const int gy = y0 + py, gx = x0 + px;
-      if (gy < H && gx < W) {
-        const float* xr = reinterpret_cast<const float*>(xs) +
-                          ((py + G::PAD) * G::IW + px + G::PAD) * G::LDX;
-        float* orow = reinterpret_cast<float*>(out) + ((b * H + gy) * W + gx) * C;
-#pragma unroll
-        for (int c4 = 0; c4 < C / 4; ++c4) {
-          float4 o;
-          o.x = __fadd_rn(xr[4 * c4 + 0], __fmul_rn(gns[4 * c4 + 0], p[4 * c4 + 0]));
-          o.y = __fadd_rn(xr[4 * c4 + 1], __fmul_rn(gns[4 * c4 + 1], p[4 * c4 + 1]));
-          o.z = __fadd_rn(xr[4 * c4 + 2], __fmul_rn(gns[4 * c4 + 2], p[4 * c4 + 2]));
-          o.w = __fadd_rn(xr[4 * c4 + 3], __fmul_rn(gns[4 * c4 + 3], p[4 * c4 + 3]));
-          *reinterpret_cast<float4*>(orow + 4 * c4) = o;
-        }
+      unit_f32<G>(xs, dws, lns, w2s, w3s, gns, out, t, H, W, slope, tid);
+      if (next < ntiles) {
+        __syncthreads();  // the only tile buffer is free again
+        load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
       }
     }
   }
@@ -413,6 +657,20 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
 // number of tiles. The shared-memory attribute and the occupancy are set
 // and queried once per instantiation and device.
 constexpr int kMaxDevices = 64;
+
+// Raise the kernel's dynamic shared-memory limit on the current device and
+// return the blocks of it that one SM holds at once.
+template <typename T, int C, int K>
+int resident_blocks(int* blocks_per_sm) {
+  using G = Cfg<T, C, K>;
+  auto kern = convnext_block_kernel<T, C, K>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern,
+                                                    G::NT, G::SMEM);
+  return (int)e;
+}
 
 template <typename T, int C, int K>
 int launch(const void* x, void* out, const void* dw, const void* ln,
@@ -429,21 +687,19 @@ int launch(const void* x, void* out, const void* dw, const void* ln,
   if (dev < 0 || dev >= kMaxDevices) return BID_ERR_UNSUPPORTED;
   int& max_blocks = blocks_per_device[dev];
   if (max_blocks == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
-    if (e != cudaSuccess) return (int)e;
     int occ = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, G::P,
-                                                      G::SMEM);
-    if (e != cudaSuccess) return (int)e;
+    const int e = resident_blocks<T, C, K>(&occ);
+    if (e != 0) return e;
     if (occ < 1) return BID_ERR_UNSUPPORTED;
     max_blocks = occ * bid::sm_count();
   }
   const long long tiles = (long long)B * ((H + G::TH - 1) / G::TH) *
                           ((W + G::TW - 1) / G::TW);
   if (tiles == 0) return 0;
+  // the kernel counts tiles in 32 bits (its grid stride is added once more)
+  if (tiles > INT_MAX - max_blocks) return BID_ERR_UNSUPPORTED;
   const int grid = (int)(tiles < max_blocks ? tiles : max_blocks);
-  kern<<<grid, G::P, G::SMEM, stream>>>(
+  kern<<<grid, G::NT, G::SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out),
       static_cast<const float*>(dw), static_cast<const float*>(ln),
       static_cast<const S*>(w2), static_cast<const S*>(w3),
@@ -467,23 +723,25 @@ int dispatch(const void* x, void* out, const void* dw, const void* ln,
   return BID_ERR_UNSUPPORTED;
 }
 
-// shared memory, registers and local (spill) bytes of one instantiation
+// shared memory, registers, local (spill) bytes, threads per block and
+// resident blocks per SM of one instantiation, as v[0..4]
 template <typename T, int C, int K>
-int info(int* smem, int* regs, int* local_bytes) {
+int info(int* v) {
   cudaFuncAttributes a;
   const cudaError_t e =
       cudaFuncGetAttributes(&a, convnext_block_kernel<T, C, K>);
   if (e != cudaSuccess) return (int)e;
-  *smem = (int)Cfg<T, C, K>::SMEM;
-  *regs = a.numRegs;
-  *local_bytes = (int)a.localSizeBytes;
-  return 0;
+  v[0] = (int)Cfg<T, C, K>::SMEM;
+  v[1] = a.numRegs;
+  v[2] = (int)a.localSizeBytes;
+  v[3] = Cfg<T, C, K>::NT;
+  return resident_blocks<T, C, K>(&v[4]);
 }
 
 template <typename T>
-int dispatch_info(int C, int K, int* smem, int* regs, int* local_bytes) {
+int dispatch_info(int C, int K, int* v) {
 #define BID_INFO(CC, KK) \
-  if (C == CC && K == KK) return info<T, CC, KK>(smem, regs, local_bytes);
+  if (C == CC && K == KK) return info<T, CC, KK>(v);
   BID_INFO(32, 3)
   BID_INFO(32, 5)
   BID_INFO(64, 5)
@@ -493,11 +751,12 @@ int dispatch_info(int C, int K, int* smem, int* regs, int* local_bytes) {
 
 }  // namespace
 
-extern "C" int bid_convnext_block_info(int C, int K, int dtype, int* smem,
-                                       int* regs, int* local_bytes) {
-  if (dtype == 0) return dispatch_info<float>(C, K, smem, regs, local_bytes);
-  if (dtype == 1) return dispatch_info<bf16>(C, K, smem, regs, local_bytes);
-  if (dtype == 2) return dispatch_info<int8_t>(C, K, smem, regs, local_bytes);
+// info[0..4]: dynamic shared-memory bytes, registers per thread, local
+// (spill) bytes per thread, threads per block, resident blocks per SM
+extern "C" int bid_convnext_block_info(int C, int K, int dtype, int* info) {
+  if (dtype == 0) return dispatch_info<float>(C, K, info);
+  if (dtype == 1) return dispatch_info<bf16>(C, K, info);
+  if (dtype == 2) return dispatch_info<int8_t>(C, K, info);
   return BID_ERR_UNSUPPORTED;
 }
 

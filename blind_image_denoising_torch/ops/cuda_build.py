@@ -125,7 +125,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                                        i, i, i, i, i, i, f, f, f, p]
     lib.bid_convnext_block.restype = i
     ip = ctypes.POINTER(i)
-    lib.bid_convnext_block_info.argtypes = [i, i, i, ip, ip, ip]
+    lib.bid_convnext_block_info.argtypes = [i, i, i, ip]
     lib.bid_convnext_block_info.restype = i
     lib.bid_band_smooth.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.bid_band_smooth.restype = i

@@ -17,33 +17,45 @@ CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
 2K²C + 16C² operations against 2·C·bytes of I/O: ≈ 17 k operations per
 128 B at (32, 3) in bf16 and ≈ 69 k per 256 B at (64, 5), so it sits
 below or near the H100's 295 operations-per-byte ridge only if the two
-1×1 products run on the tensor cores. Design:
-* a block owns a tile of output pixels of one image and walks over tiles
-  (persistent blocks), so W2, W3 and the depthwise weights are staged
-  into shared memory once per block (64 KB of bf16 at C = 64, above the
-  48 KB default, hence the dynamic shared-memory attribute);
-* the input tile plus its (K−1)/2 halo is copied into shared memory with
-  zeros outside the image (SAME padding on all four borders);
-* one thread per pixel computes the depthwise K×K sum and the LayerNorm
-  in float32 and stores ``t`` as bf16;
+1×1 products run on the tensor cores. By that count the bf16 mode is
+bound by its bytes and the int8 mode by its CUDA-core operations; on the
+card the kernel is bound by its instruction count against the warp
+schedulers' rate, about half of it the depthwise sum's (PERF.md has the
+split). Design:
+* a block owns a tile of 8 × 32 output pixels of one image and walks
+  over tiles (persistent blocks), so W2, W3 and the depthwise weights
+  are staged into shared memory once per block (64 KB of bf16 at
+  C = 64, above the 48 KB default, hence the dynamic shared-memory
+  attribute);
+* the input tile plus its (K−1)/2 halo arrives by 16-byte ``cp.async``
+  copies that write zeros outside the image (SAME padding on all four
+  borders); the copies of the next tile are in flight while this one
+  is computed (two tile buffers in bf16, a staging buffer of codes in
+  int8);
+* depthwise and LayerNorm: a thread owns 8 channels of 4 neighbouring
+  pixels of a row, loads each tap row's weights and inputs once and
+  sums from registers in float32; the C/8 lanes of a pixel share the
+  LayerNorm's two-pass statistics by shuffles and store ``t`` as bf16;
 * each warp then runs the two products for 16 pixels at a time with
-  ``mma.sync`` m16n8k16 (bf16 operands, float32 accumulation); the
-  expansion's accumulators become the projection's A operand in
-  registers, in chunks of 64 of the E channels, so ``h`` never leaves
-  the registers;
-* the epilogue adds ``x + gain·p`` in float32 and writes the tile with
-  16-byte stores.
+  ``mma.sync`` m16n8k16 (bf16 operands, float32 accumulation, fragments
+  loaded by ``ldmatrix``); the expansion's accumulators become the
+  projection's A operand in registers, so ``h`` never leaves the
+  registers;
+* the warp adds ``x + gain·p`` in float32 and writes its 16 pixels with
+  16-byte stores: two block barriers per tile (three in int8);
+* 256 threads and two blocks per SM at C = 32, one block of 512 threads
+  at C = 64, where the tile is stored unpadded and XOR-swizzled so that
+  two buffers fit; :func:`kernel_plan` mirrors the threads and
+  shared-memory bytes of every instantiation.
 In float32 mode (``dtype="float32"`` serving) every operation is float32
 on the CUDA cores, one thread per pixel. In int8 mode (``x`` int8 with
 ``scale_in`` and ``scale_out``) only int8 codes touch device memory: the
-tile is loaded as int8 (16 channels per 16-byte load) and dequantized
-into the bf16 shared tile as ``bf16(q · bf16(scale_in))``, the unit runs
-the bf16 path above, and the epilogue writes
+codes are dequantized into the bf16 shared tile as
+``bf16(q · bf16(scale_in))``, the unit runs the bf16 path above, and the
+epilogue writes
 ``clip(round_half_even((x + gain·p) · f32(1/scale_out)), ±127)``. The
-int8 bytes halve the bf16 mode's; at ``unet_laplacian_v6``'s shapes the
-CUDA-core work (depthwise, LayerNorm, epilogue) then bounds it, not the
-bytes. The JAX kernel's padded-row channels-first layout and column
-masks served the TPU's lane tiling and are not carried over.
+JAX kernel's padded-row channels-first layout and column masks served
+the TPU's lane tiling and are not carried over.
 
 ``convnext_block`` takes NHWC tensors like the JAX oracle. A tensor on
 the CPU goes through :func:`convnext_block_plain`, the same arithmetic
@@ -66,6 +78,35 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (C, K) instantiated in csrc/convnext_block.cu for every mode; E = 4C
 KERNEL_SHAPES = frozenset({(32, 3), (32, 5), (64, 5)})
 INT8_MAX = 127
+# dynamic shared memory one block may have on an H100
+SHARED_MEMORY_LIMIT = 232_448
+
+
+def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
+    """Threads per block and dynamic shared-memory bytes of the kernel's
+    (C, K, dtype) instantiation: a mirror of ``Cfg`` in
+    ``csrc/convnext_block.cu``, which ``chip_smoke.py`` holds against what
+    the built library reports."""
+    mma, int8 = dtype != torch.float32, dtype == torch.int8
+    e, pad, elt = 4 * c, k // 2, 2 if mma else 4
+    th, tw = 8, 32 if mma else 16
+    ih, iw = th + 2 * pad, tw + 2 * pad
+    # tile rows unpadded (swizzled) at C = 64 on the tensor-core path
+    ldx = c if mma and c == 64 else c + 16 // elt
+    buffers = 2 if mma and not int8 else 1
+
+    def align16(n):
+        return (n + 15) // 16 * 16
+
+    end = align16(4 * k * k * c)                          # depthwise weights
+    end = align16(align16(end + 4 * c) + 4 * c)           # LN scale, gain
+    end = align16(end + buffers * elt * ih * iw * ldx)    # input tiles
+    end = align16(end + (ih * iw * c if int8 else 0))     # staged codes
+    end = align16(end + (2 * e * (c + 8) if mma else 4 * e * c))    # W2
+    end = align16(end + (2 * c * (e + 8) if mma else 4 * e * c))    # W3
+    end += 2 * th * tw * (c + 8) if mma else 0            # t / output tile
+    threads = th * tw if not mma else 512 if c == 64 else 256
+    return dict(threads_per_block=threads, smem_bytes=end)
 
 
 def _round_bf16(v: torch.Tensor) -> torch.Tensor:

@@ -222,21 +222,27 @@ def band_bound_ms(b, h, w, c, k, dtype, backward=False, split=False):
 
 
 def k1_instantiations(lib, pallas_convnext):
-    """Shared memory, registers and spill bytes of every K1
-    instantiation, from the library (``bid_convnext_block_info``)."""
+    """Shared memory, registers, spill bytes, threads per block and
+    resident blocks per SM of every K1 instantiation, from the library
+    (``bid_convnext_block_info``). An instantiation that spills fails."""
     import ctypes
     out = []
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
         for c, k in sorted(pallas_convnext.KERNEL_SHAPES):
-            vals = [ctypes.c_int() for _ in range(3)]
-            rc = lib.bid_convnext_block_info(c, k, code, *map(ctypes.byref,
-                                                               vals))
+            vals = (ctypes.c_int * 5)()
+            rc = lib.bid_convnext_block_info(c, k, code, vals)
             if rc != 0:
                 raise AssertionError(f"K1 info {dtype} ({c}, {k}): {rc}")
-            out.append(dict(dtype=str(dtype).split(".")[-1], C=c, K=k,
-                            smem_bytes=vals[0].value,
-                            registers=vals[1].value,
-                            local_bytes=vals[2].value))
+            out.append(dict(zip(
+                ("smem_bytes", "registers", "local_bytes",
+                 "threads_per_block", "blocks_per_sm"), vals),
+                dtype=str(dtype).split(".")[-1], C=c, K=k))
+            if out[-1]["local_bytes"] > 0:
+                raise AssertionError(f"K1 instantiation spills: {out[-1]}")
+            plan = pallas_convnext.kernel_plan(c, k, dtype)
+            if any(out[-1][key] != want for key, want in plan.items()):
+                raise AssertionError(f"K1 built as {out[-1]}, planned as "
+                                     f"{plan}")
     return out
 
 

@@ -93,14 +93,21 @@ def _unit_weights(c, k, dev, seed=0):
         gain=t(rng.uniform(0.3, 0.9, (c,))))
 
 
+# [B, H, W] against K1's tiles of 8 x 32 pixels (8 x 16 in float32): whole
+# tiles; ragged in both directions; one pixel over a tile in both; smaller
+# than a tile; and 3 x 13 x 10 = 390 tiles (8 x 32), more than the
+# persistent grid holds at once and no multiple of it
+K1_BHW = [(2, 16, 64), (2, 13, 45), (3, 9, 33), (1, 5, 20), (3, 100, 300)]
+
+
 @pytest.mark.parametrize("ck", sorted(pallas_convnext.KERNEL_SHAPES))
-@pytest.mark.parametrize("hw", [(16, 64), (13, 45)])
+@pytest.mark.parametrize("bhw", K1_BHW)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_convnext_kernel_matches_plain(dev, ck, hw, dtype):
+def test_convnext_kernel_matches_plain(dev, ck, bhw, dtype):
     c, k = ck
     w = _unit_weights(c, k, dev)
     g = torch.Generator(device="cpu").manual_seed(1)
-    x = torch.randn((2, hw[0], hw[1], c), generator=g).to(dev, dtype)
+    x = torch.randn((*bhw, c), generator=g).to(dev, dtype)
     before = pallas_convnext.launches
     got = pallas_convnext.convnext_block(x, **w)
     torch.cuda.synchronize()
@@ -116,12 +123,12 @@ def test_convnext_kernel_matches_plain(dev, ck, hw, dtype):
 
 
 @pytest.mark.parametrize("ck", sorted(pallas_convnext.KERNEL_SHAPES))
-@pytest.mark.parametrize("hw", [(16, 64), (13, 45)])
-def test_convnext_int8_kernel_matches_plain(dev, ck, hw):
+@pytest.mark.parametrize("bhw", K1_BHW)
+def test_convnext_int8_kernel_matches_plain(dev, ck, bhw):
     c, k = ck
     w = _unit_weights(c, k, dev)
     g = torch.Generator(device="cpu").manual_seed(4)
-    x = torch.randn((2, hw[0], hw[1], c), generator=g).to(dev)
+    x = torch.randn((*bhw, c), generator=g).to(dev)
     s_in = float(x.abs().max()) / 127
     s_out = float(pallas_convnext.convnext_block_plain(
         x, **w).abs().max()) / 127

@@ -345,6 +345,28 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     assert (pallas_convnext.launches, pallas_pyramid.launches) == (k1, k2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("ck", sorted(pallas_convnext.KERNEL_SHAPES))
+def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
+    """Every K1 instantiation's planned shared memory fits one block, and
+    the numbers the source's header note states are the plan's."""
+    plan = pallas_convnext.kernel_plan(*ck, dtype)
+    assert 0 < plan["smem_bytes"] <= pallas_convnext.SHARED_MEMORY_LIMIT
+    assert plan["smem_bytes"] % 16 == 0
+    assert plan["threads_per_block"] % 32 == 0
+    assert plan["threads_per_block"] <= 1024
+    stated = {((32, 5), torch.bfloat16): (256, 112_000),
+              ((64, 5), torch.bfloat16): (512, 225_024)}
+    if (ck, dtype) in stated:
+        assert (plan["threads_per_block"],
+                plan["smem_bytes"]) == stated[ck, dtype]
+    if dtype != torch.float32 and ck[0] == 32:
+        # two blocks per SM: twice the block and its 1 KB reserve fit the
+        # SM's 228 KB
+        assert 2 * (plan["smem_bytes"] + 1024) <= 233_472
+
+
 def test_kernel_modules_import_without_nvcc_or_triton():
     """No nvcc on PATH, no CUDA_HOME, triton blocked: the kernel modules
     import and the CPU path runs without ever building the library."""
