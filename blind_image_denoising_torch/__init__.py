@@ -12,18 +12,26 @@ packaged artifacts by path.
     den = bidt.load_model("unet_laplacian_v6_tpu_scratch")   # on the card
     out = den(uint8_image)     # [H, W, 3] or [B, H, W, 3] uint8 in and out
 
+Every packaged artifact serves: the flagship, ``resnet_depthwise_scratch``
+and ``unet_laplacian_v56_highnoise`` (also int8, ``quant=True``).
+
 Training (``blind_image_denoising_torch.training``): the JAX package's
 builders — ``loss_function_builder``, ``optimizer_builder``,
 ``create_train_state``, ``build_train_step`` — over the same configs
-(``configs``: the JAX package's packaged configs by name, read in place).
+(``configs``: the JAX package's packaged configs as ``(filename, config
+dict)`` pairs, read in place; ``CONFIGS_DICT``: name → config dict).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
+import logging as _logging
 import os as _os
 import pathlib as _pathlib
 
-from .config import input_shape_fixer, load_config
+from . import ops
+from .config import input_shape_fixer, load_config, save_config
+
+logger = _logging.getLogger("blind_image_denoising_torch")
 
 __version__ = "0.1.0"
 
@@ -31,8 +39,9 @@ __version__ = "0.1.0"
 _jax_pkg_dir = (_pathlib.Path(__file__).resolve().parent.parent
                 / "blind_image_denoising_tpu")
 _pretrained_dir = _jax_pkg_dir / "pretrained"
-configs = {p.stem: str(p) for p in sorted((_jax_pkg_dir / "configs").glob(
-    "*.json"))}
+configs = [(p.name, load_config(str(p)))
+           for p in sorted((_jax_pkg_dir / "configs").glob("*.json"))]
+CONFIGS_DICT = {_os.path.splitext(name)[0]: cfg for name, cfg in configs}
 
 # `models` is also the name of the subpackage: import it first, then
 # rebind the attribute, so `bidt.models` is the registry dict while
@@ -50,14 +59,19 @@ if _pretrained_dir.is_dir():
 
 def load_model(name_or_path, quant: bool = False, tta=False, dtype=None,
                blend=None, device=None):
-    """Load a packaged denoiser by registry name, or an artifact directory.
+    """Load a packaged denoiser by registry name, or an artifact directory
+    (``params.msgpack`` + ``pipeline.json``).
 
-    ``dtype``: serving compute dtype; ``None`` honours the artifact's
-    ``tpu.compute_dtype`` (bfloat16 for the flagship). ``blend``: ``None``
-    serves the artifact's ``blend.json`` when it ships one, ``False``
-    disables it. ``device``: ``None`` is the card (raises without one);
-    pass ``"cpu"`` to run on the CPU. ``quant`` and ``tta`` are not
-    ported yet and raise."""
+    ``quant=True`` serves the artifact's int8 path with its shipped
+    ``quant.msgpack`` scales, in float32 (``ValueError`` when the
+    artifact has none, as in JAX). ``dtype``: serving compute dtype;
+    ``None`` honours the artifact's ``tpu.compute_dtype`` (bfloat16 for
+    the flagship and the resnet; float32 for
+    ``unet_laplacian_v56_highnoise``, which names none). ``blend``:
+    ``None`` serves the artifact's ``blend.json`` when it ships one,
+    ``False`` disables it. ``device``: ``None`` is the card (raises
+    without one); pass ``"cpu"`` to run on the CPU. ``tta`` is not
+    ported yet and raises."""
     from .inference.export import load_exported_model, resolve_device
 
     resolve_device(device)
@@ -75,5 +89,42 @@ def load_model(name_or_path, quant: bool = False, tta=False, dtype=None,
                                blend=blend, device=device)
 
 
-__all__ = ["load_config", "input_shape_fixer", "models", "configs",
-           "load_model"]
+# alias, as in the JAX package: both load the same uint8 Denoiser
+load_denoiser_model = load_model
+
+
+def load_default_denoiser(device=None):
+    """Load the first packaged pretrained denoiser (by name)."""
+    if not models:
+        raise ValueError("no pretrained models packaged")
+    return load_model(sorted(models)[0], device=device)
+
+
+# resolved on first access, so `import blind_image_denoising_torch` stays
+# light
+_LAZY_EXPORTS = {
+    "model_builder": ("blind_image_denoising_torch.models.hydra",
+                      "model_builder"),
+    "schedule_builder": ("blind_image_denoising_torch.training.optimizer",
+                         "schedule_builder"),
+    "optimizer_builder": ("blind_image_denoising_torch.training.optimizer",
+                          "optimizer_builder"),
+    "Multiplier": ("blind_image_denoising_torch.layers.multipliers",
+                   "Multiplier"),
+    "ChannelwiseMultiplier": ("blind_image_denoising_torch.layers."
+                              "multipliers", "ChannelwiseMultiplier"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY_EXPORTS:
+        import importlib
+        module, attr = _LAZY_EXPORTS[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["logger", "load_config", "save_config", "input_shape_fixer",
+           "ops", "configs", "CONFIGS_DICT", "models", "load_model",
+           "load_denoiser_model", "load_default_denoiser"] + sorted(
+               _LAZY_EXPORTS)

@@ -1,4 +1,5 @@
-"""Configuration IO (counterpart of ``blind_image_denoising_tpu/config.py``).
+"""Configuration IO (counterpart of ``blind_image_denoising_tpu/config.py``):
+``load_config``, ``save_config``, ``input_shape_fixer``.
 
 Pipeline configs are the JSON files the JAX package writes and ships:
 four top-level sections ``model{backbone,denoiser} / train / loss /
@@ -6,6 +7,7 @@ dataset`` and ``"?"`` wildcards for dynamic spatial dims.
 """
 
 import json
+import logging
 import os
 from pathlib import Path
 from typing import Dict, List, Union
@@ -24,6 +26,18 @@ def load_config(config: Union[str, Dict, Path]) -> Dict:
         with open(path, "r") as f:
             return json.load(f)
     raise ValueError(f"don't know how to handle config [{config}]")
+
+
+def save_config(config: Union[str, Dict, Path],
+                filename: Union[str, Path]) -> None:
+    """Persist a configuration (dict or path) to ``filename`` as JSON."""
+    config = load_config(config)
+    if not filename:
+        raise ValueError("filename cannot be null or empty")
+    logging.getLogger("blind_image_denoising_torch").info(
+        f"saving configuration pipeline to [{filename}]")
+    with open(filename, "w") as f:
+        json.dump(obj=config, fp=f, indent=4)
 
 
 def input_shape_fixer(input_shape: List) -> List:

@@ -1,6 +1,8 @@
 """Any-size uint8 denoiser (counterpart of
 ``blind_image_denoising_tpu/inference/denoiser.py`` ``Denoiser``, the
-single-device, untiled, no-TTA path).
+single-device, untiled, no-TTA path; ``quant=True`` runs the forward
+under ``ops/quant.quant_mode("int8")`` and needs the model's int8
+scales).
 
 uint8 (or float) [H, W, C] or [B, H, W, C] → float32 on the device →
 zero-pad H and W on the high side to a multiple of 64 → hydra forward
@@ -10,11 +12,14 @@ The epilogue runs in float32, as in JAX: bf16 spacing is 1.0 gray
 level above 128, so rounding in bf16 would add quantization.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from ..ops.quant import has_scales, quant_mode
 from ..ops.resize import nchw, nhwc
 
 
@@ -35,10 +40,12 @@ class Denoiser:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported yet (ROADMAP Queue 1 item 13)")
-        if quant:
-            raise NotImplementedError(
-                "quant=True (int8 serving) is not ported yet (ROADMAP "
-                "Queue 1 items 9-10)")
+        if quant and not has_scales(model):
+            raise ValueError(
+                "quant=True needs calibrated scales — run "
+                "inference.quantize.calibrate(model, images) and attach "
+                "them with weights.attach_quant_scales")
+        self._quant = bool(quant)
         if blend is not None and blend is not False:
             from .blend import BlendTable
             self._blend = BlendTable.from_any(blend)
@@ -64,7 +71,9 @@ class Denoiser:
         pad_w = _round_up(w, self._pad_multiple) - w
         if pad_h or pad_w:
             x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
-        y = nhwc(self._model(nchw(x.contiguous()))[0]).float()
+        mode = quant_mode("int8") if self._quant else contextlib.nullcontext()
+        with mode:
+            y = nhwc(self._model(nchw(x.contiguous()))[0]).float()
         return y[:, :h, :w, :]
 
     def _float_pipeline(self, x: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,12 @@
 ``blind_image_denoising_tpu/inference/export.py`` ``load_exported_model``).
 
 An artifact is ``pipeline.json`` (the as-run config) + ``params.msgpack``
-(flax-serialized variables) + optionally ``blend.json``. The port reads
-the same files the JAX package writes; only loading is ported.
+(flax-serialized variables: params, and ``batch_stats`` for BatchNorm
+models) + optionally ``blend.json`` and ``quant.msgpack`` (int8 input
+scales). The port reads the same files the JAX package writes; only
+loading is ported. A ``"model": {"type": "unet_laplacian_v56"}`` config
+builds ``models/unet_laplacian_v56.py``; every other config builds the
+hydra of ``models/hydra.py``.
 """
 
 import logging
@@ -14,11 +18,13 @@ import torch
 
 from ..config import load_config
 from ..models.hydra import model_builder
-from ..weights import load_msgpack, params_from_flax
+from ..models.unet_laplacian_v56 import UnetLaplacianV56
+from ..weights import attach_quant_scales, load_msgpack, params_from_flax
 from .denoiser import Denoiser
 
 PARAMS_FILE = "params.msgpack"
 CONFIG_FILE = "pipeline.json"
+QUANT_FILE = "quant.msgpack"
 
 logger = logging.getLogger("blind_image_denoising_torch")
 
@@ -62,6 +68,18 @@ def resolve_compute_dtype(dtype, config: Optional[dict] = None):
     raise ValueError(f"unsupported compute dtype [{dtype}]")
 
 
+def _load_quant_scales(directory: Path, quant) -> Optional[dict]:
+    """The artifact's int8 scales: required when ``quant=True``."""
+    if not quant:
+        return None
+    path = directory / QUANT_FILE
+    if not path.exists():
+        raise ValueError(
+            f"quant=True but [{path}] missing — re-export with "
+            f"quantize=True (or --quantize on the export CLI)")
+    return load_msgpack(path)
+
+
 def _resolve_blend(directory: Path, blend):
     """``None`` = auto (serve the artifact's blend.json when it ships
     one); ``True`` requires it; ``False`` disables; a path/dict/BlendTable
@@ -91,18 +109,22 @@ def load_exported_model(directory: Union[str, Path],
                         blend=None,
                         device=None) -> Denoiser:
     """Load an artifact directory into a ready :class:`Denoiser` on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card). ``quant=True`` serves the int8 path
+    with the artifact's ``quant.msgpack`` scales and forces the float32
+    compute dtype, since the calibration measured float32 activations."""
     dev = resolve_device(device)
     directory = Path(str(directory))
     config = load_config(str(directory / CONFIG_FILE))
-    if config.get("model", {}).get("type") == "unet_laplacian_v56":
-        raise NotImplementedError(
-            "unet_laplacian_v56 artifacts are not ported yet (ROADMAP "
-            "Queue 1 item 9)")
+    quant_scales = _load_quant_scales(directory, quant)
     blend_table = _resolve_blend(directory, blend)
-    compute_dtype = resolve_compute_dtype(dtype, config)
-    hydra = model_builder(config["model"], dtype=compute_dtype).hydra
-    state = params_from_flax(load_msgpack(directory / PARAMS_FILE))
-    hydra.load_state_dict(state, strict=True)
-    return Denoiser(hydra, dev, cast_to_uint8=cast_to_uint8,
+    compute_dtype = None if quant else resolve_compute_dtype(dtype, config)
+    if config.get("model", {}).get("type") == "unet_laplacian_v56":
+        model = UnetLaplacianV56(dtype=compute_dtype)
+    else:
+        model = model_builder(config["model"], dtype=compute_dtype).hydra
+    model.load_state_dict(params_from_flax(load_msgpack(
+        directory / PARAMS_FILE)), strict=True)
+    if quant_scales is not None:
+        attach_quant_scales(model, quant_scales)
+    return Denoiser(model, dev, cast_to_uint8=cast_to_uint8,
                     blend=blend_table, tta=tta, quant=quant)

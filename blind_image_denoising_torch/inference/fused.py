@@ -41,6 +41,7 @@ import torch
 
 from ..ops.normalize import denormalize, normalize
 from ..ops.pallas_convnext import convnext_block, quantize
+from ..ops.precision import exact_float32
 from ..ops.resize import avg_pool_same, nchw, nhwc
 
 logger = logging.getLogger("blind_image_denoising_torch")
@@ -190,6 +191,10 @@ def build_fused_forward(config: Dict, model, scales: Optional[Dict] = None,
     @torch.no_grad()
     def fwd(x):
         x = torch.as_tensor(x).to(device, torch.float32)
+        with exact_float32(dtype == torch.float32 and x.is_cuda):
+            return forward(x)
+
+    def forward(x):
         xn = normalize(x, v_min, v_max).to(dtype).contiguous(
             memory_format=torch.channels_last)
         v = bb.stem_conv(xn)

@@ -1,0 +1,120 @@
+"""Residual block stack (counterpart of
+``blind_image_denoising_tpu/layers/blocks.py`` ``ResnetBlocks``).
+
+``no_layers`` residual blocks of up to three convs each, on NCHW
+tensors. Per block: optional local mean/sigma normalization of the
+branch input, conv 1, optional LayerNorm (convnext mode), conv 2, conv 3
+(BatchNorm after convs 2 and 3 when ``use_bn``; also after conv 1 with
+``bn_first_conv``), optional channelwise and scalar multipliers,
+optional ``RandomOnOff`` drop of the whole branch (a per-sample mask, as
+flax's Dropout broadcast over H, W and C), the skip add and an optional
+activation. Module names follow the flax tree (``block_{i}_conv_1``,
+``block_{i}_ln``, ``block_{i}_channelwise`` …), so
+``weights.params_from_flax`` output loads directly.
+
+Not ported yet, and raising: the dense gate (``use_gate``) and the
+selector-mixed skip (``selector_params``), ROADMAP Queue 1 item 11.
+"""
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..constants import (DEFAULT_CHANNELWISE_MULTIPLIER_L1,
+                         DEFAULT_LN_EPSILON, DEFAULT_MULTIPLIER_L1)
+from ..ops.normalize import local_normalization
+from ..ops.resize import nchw, nhwc
+from .activations import activation_fn
+from .conv import conv_block_from_params
+from .multipliers import ChannelwiseMultiplier, Multiplier
+from .norm import FastLayerNorm
+from .stochastic import StochasticDepth
+
+
+class ResnetBlocks(nn.Module):
+    def __init__(self, in_features: int, no_layers: int,
+                 first_conv_params: Optional[Dict] = None,
+                 second_conv_params: Optional[Dict] = None,
+                 third_conv_params: Optional[Dict] = None,
+                 use_bn: bool = False, bn_center: bool = False,
+                 bn_bias_free: bool = False, bn_first_conv: bool = False,
+                 ln_after_first_conv: bool = False, use_gate: bool = False,
+                 dropout_rate: float = 0.0, use_multiplier: bool = False,
+                 use_channelwise: bool = False,
+                 selector_params: Optional[Dict] = None,
+                 post_addition_activation: Optional[str] = None,
+                 mean_sigma_pool: Optional[int] = None, dtype=None):
+        super().__init__()
+        if no_layers < 0:
+            raise ValueError("no_layers must be >= 0")
+        if use_gate or selector_params is not None:
+            raise NotImplementedError(
+                "the dense gate and the selector block are not ported yet "
+                "(ROADMAP Queue 1 item 11)")
+        self.no_layers = int(no_layers)
+        self.mean_sigma_pool = mean_sigma_pool
+        self.post_act = (activation_fn(post_addition_activation)
+                         if post_addition_activation else None)
+        bn = dict(bn_center=bn_center, bn_bias_free=bn_bias_free,
+                  dtype=dtype)
+        c = in_features
+        for i in range(self.no_layers):
+            c_in = c
+            if first_conv_params is not None:
+                conv = conv_block_from_params(
+                    c, first_conv_params, use_bn=use_bn and bn_first_conv,
+                    **bn)
+                self.add_module(f"block_{i}_conv_1", conv)
+                c = conv.out_features
+            if ln_after_first_conv:
+                self.add_module(f"block_{i}_ln", FastLayerNorm(
+                    c, epsilon=DEFAULT_LN_EPSILON, dtype=dtype))
+            for j, params in ((2, second_conv_params),
+                              (3, third_conv_params)):
+                if params is not None:
+                    conv = conv_block_from_params(c, params, use_bn=use_bn,
+                                                  **bn)
+                    self.add_module(f"block_{i}_conv_{j}", conv)
+                    c = conv.out_features
+            if use_channelwise:
+                self.add_module(f"block_{i}_channelwise", ChannelwiseMultiplier(
+                    c, multiplier=1.0, activation="relu",
+                    l1_coefficient=DEFAULT_CHANNELWISE_MULTIPLIER_L1))
+            if use_multiplier:
+                self.add_module(f"block_{i}_multiplier", Multiplier(
+                    multiplier=1.0, activation="relu",
+                    l1_coefficient=DEFAULT_MULTIPLIER_L1))
+            if dropout_rate > 0.0:
+                self.add_module(f"block_{i}_onoff",
+                                StochasticDepth(dropout_rate))
+            if c != c_in:
+                raise ValueError(
+                    f"residual block {i} maps {c_in} channels to {c}: the "
+                    f"skip add needs the last conv to return {c_in}")
+        self.out_features = c
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator = None) -> torch.Tensor:
+        for i in range(self.no_layers):
+            previous = x
+            if self.mean_sigma_pool is not None:
+                p = self.mean_sigma_pool
+                x = nchw(local_normalization(nhwc(x), (p, p)))
+            for name in (f"block_{i}_conv_1", f"block_{i}_ln",
+                         f"block_{i}_conv_2", f"block_{i}_conv_3"):
+                layer = getattr(self, name, None)
+                if layer is not None:
+                    x = (layer(x) if name.endswith("_ln")
+                         else layer(x, train=train))
+            for name in (f"block_{i}_channelwise", f"block_{i}_multiplier"):
+                layer = getattr(self, name, None)
+                if layer is not None:
+                    x = layer(x)
+            onoff = getattr(self, f"block_{i}_onoff", None)
+            if onoff is not None:
+                x = onoff(x, train=train, generator=generator)
+            x = x + previous
+            if self.post_act is not None:
+                x = self.post_act(x)
+        return x

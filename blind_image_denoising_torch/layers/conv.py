@@ -1,17 +1,18 @@
-"""The convolution block, float path (counterpart of
+"""The convolution block (counterpart of
 ``blind_image_denoising_tpu/layers/conv.py`` ``ConvBlock``):
-conv → optional LayerNorm → activation.
+conv → optional bias → optional BatchNorm (flax's, or bias-free) →
+optional LayerNorm → activation.
 
-Covers the flagship's plain and depthwise convolutions: the 5×5 stem,
-the 2×2 stride-2 down conv, the 3×3 up conv and the 1×1 head and
-attention convs. Tensors are NCHW (``channels_last``), kernels OIHW.
-The conv runs in the compute dtype (``dtype``, or the input's), as
-``ops/quant.py`` ``conv2d`` does with no quantization mode; these convs
-sit outside any TPU kernel, so they go to ``F.conv2d``. SAME padding
-follows XLA: an odd total pads one more on the high side.
+Plain, grouped and depthwise convs (``depth_multiplier`` m: a kernel
+[C·m, 1, kh, kw] with C groups, so output channel o reads input o // m,
+as in lax), SAME or VALID padding. Tensors are NCHW (``channels_last``),
+kernels OIHW. Every conv goes through ``ops/quant.py``'s ``conv2d`` with
+the site name ``"in"``, as in JAX: in the compute dtype (``dtype``, or
+the input's) with no quantization mode, or its calibrate / int8 paths.
+SAME padding follows XLA: an odd total pads one more on the high side.
 
-Not ported yet, and raising: BatchNorm, bias, transposed, separable and
-grouped convs (ROADMAP Queue 1 item 9), and dropout inside the block.
+Not ported yet, and raising: transposed and separable convs (ROADMAP
+Queue 1 item 11), and dropout inside the block.
 
 ``kernel_regularizer`` (a config spec for ``ops/regularizers.builder``)
 gives the block a ``penalty()`` of its float32 kernel: the term the JAX
@@ -21,14 +22,14 @@ block sows into its ``losses`` collection during training.
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..constants import DEFAULT_LN_EPSILON
+from ..ops import quant as quant_ops
 from ..ops.regularizers import builder as regularizer_builder
-from ..ops.resize import same_pads
+from ..ops.resize import nchw, nhwc
 from .activations import activation_fn
-from .norm import FastLayerNorm
+from .norm import BatchNorm, BiasFreeBatchNorm, FastLayerNorm
 
 
 def _pair(v):
@@ -37,28 +38,11 @@ def _pair(v):
     return int(v), int(v)
 
 
-def conv2d_same(x: torch.Tensor, kernel: torch.Tensor, strides=(1, 1),
-                groups: int = 1, dtype=None) -> torch.Tensor:
-    """SAME-padded convolution of NCHW x with an OIHW kernel, in ``dtype``
-    (default: x's)."""
-    cdt = dtype or x.dtype
-    sh, sw = _pair(strides)
-    kh, kw = kernel.shape[-2:]
-    ph = same_pads(x.shape[2], kh, sh)
-    pw = same_pads(x.shape[3], kw, sw)
-    x = x.to(cdt)
-    if ph[0] == ph[1] and pw[0] == pw[1]:
-        padding = (ph[0], pw[0])
-    else:
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        padding = (0, 0)
-    return F.conv2d(x, kernel.to(cdt), stride=(sh, sw), padding=padding,
-                    groups=groups)
-
-
 class ConvBlock(nn.Module):
-    """conv → optional LayerNorm → activation. ``depth_multiplier`` not
-    None selects a depthwise conv over ``in_features``."""
+    """conv → bias → BN → LN → activation. ``depth_multiplier`` not None
+    selects a depthwise conv over ``in_features``. ``bn_center`` gives
+    the BatchNorm (and LayerNorm) a bias; ``bn_bias_free`` selects
+    :class:`BiasFreeBatchNorm`."""
 
     def __init__(self, in_features: int, features: int = 0, kernel_size=3,
                  strides=(1, 1), depth_multiplier: Optional[int] = None,
@@ -66,25 +50,36 @@ class ConvBlock(nn.Module):
                  use_bn: bool = False, use_bias: bool = False,
                  groups: int = 1, transpose: bool = False,
                  separable: bool = False, kernel_regularizer=None,
-                 dtype=None):
+                 dtype=None, padding: str = "SAME", bn_center: bool = False,
+                 bn_bias_free: bool = False):
         super().__init__()
-        if use_bn or use_bias or transpose or separable or groups != 1:
+        if transpose or separable:
             raise NotImplementedError(
-                "ConvBlock options use_bn/use_bias/transpose/separable/"
-                "groups are not ported yet (ROADMAP Queue 1 item 9)")
+                "transposed and separable convs are not ported yet "
+                "(ROADMAP Queue 1 item 11)")
         kh, kw = _pair(kernel_size)
         self.strides = _pair(strides)
+        self.padding = str(padding).upper()
         self.dtype = dtype
+        self.depth_multiplier = (None if depth_multiplier is None
+                                 else int(depth_multiplier))
         if depth_multiplier is not None:
             out = in_features * int(depth_multiplier)
             self.groups = in_features
             self.kernel = nn.Parameter(torch.zeros(out, 1, kh, kw))
         else:
             out = int(features)
-            self.groups = 1
-            self.kernel = nn.Parameter(torch.zeros(out, in_features, kh, kw))
+            self.groups = max(1, int(groups))
+            self.kernel = nn.Parameter(torch.zeros(
+                out, in_features // self.groups, kh, kw))
         self.out_features = out
-        self.ln = (FastLayerNorm(out, epsilon=DEFAULT_LN_EPSILON, dtype=dtype)
+        self.bias = nn.Parameter(torch.zeros(out)) if use_bias else None
+        self.bn = None
+        if use_bn:
+            self.bn = (BiasFreeBatchNorm(out) if bn_bias_free
+                       else BatchNorm(out, use_bias=bn_center))
+        self.ln = (FastLayerNorm(out, epsilon=DEFAULT_LN_EPSILON,
+                                 use_bias=bn_center, dtype=dtype)
                    if use_ln else None)
         self.act = activation_fn(activation)
         self.regularizer = (None if kernel_regularizer is None
@@ -96,22 +91,41 @@ class ConvBlock(nn.Module):
             return None
         return self.regularizer(self.kernel.float())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d_same(x, self.kernel, self.strides, self.groups, self.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        cdt = self.dtype or x.dtype
+        groups = self.groups
+        m = self.depth_multiplier
+        if m is not None and m > 1:
+            # output channel o reads input o // m: with each input channel
+            # repeated m times the conv is a plain depthwise one (C·m
+            # groups of one), which cuDNN runs far faster than C groups of
+            # m outputs; the same products, and the same input amax
+            b, c, h, w = x.shape
+            x = nchw(nhwc(x).unsqueeze(-1).expand(b, h, w, c, m).reshape(
+                b, h, w, c * m))
+            groups = c * m
+        y = quant_ops.conv2d(self, "in", x, self.kernel, self.strides,
+                             self.padding, groups, compute_dtype=cdt)
+        if self.bias is not None:
+            y = y + self.bias.to(cdt).view(1, -1, 1, 1)
+        if self.bn is not None:
+            # the resolved compute dtype, as the JAX block passes it
+            y = self.bn(y, train=train, dtype=cdt)
         if self.ln is not None:
             y = self.ln(y)
         return self.act(y)
 
 
 def conv_block_from_params(in_features: int, params: dict, dtype=None,
-                           use_ln: bool = False, **overrides) -> ConvBlock:
+                           use_ln: bool = False, use_bn: bool = False,
+                           bn_center: bool = False,
+                           bn_bias_free: bool = False,
+                           **overrides) -> ConvBlock:
     """A ConvBlock from a reference-schema conv-params dict (kernel_size /
-    filters / depth_multiplier / strides / use_bias / activation …)."""
+    filters / depth_multiplier / groups / strides / padding / use_bias /
+    activation / kernel_regularizer …)."""
     p = dict(params or {})
     p.update(overrides)
-    if str(p.get("padding", "same")).lower() != "same":
-        raise NotImplementedError(
-            "VALID padding is not ported yet (ROADMAP Queue 1 item 9)")
     if (p.get("dropout_rate", 0.0) or 0.0) > 0.0 or \
             (p.get("spatial_dropout_rate", 0.0) or 0.0) > 0.0:
         raise NotImplementedError(
@@ -123,9 +137,10 @@ def conv_block_from_params(in_features: int, params: dict, dtype=None,
         strides=p.get("strides", (1, 1)),
         depth_multiplier=p.get("depth_multiplier", None),
         activation=p.get("activation", "linear"),
-        use_ln=use_ln, use_bias=p.get("use_bias", False),
+        use_ln=use_ln, use_bn=use_bn, use_bias=p.get("use_bias", False),
         groups=p.get("groups", 1), transpose=p.get("transpose", False),
         separable=p.get("separable", False),
         kernel_regularizer=p.get("kernel_regularizer",
                                  p.get("depthwise_regularizer", None)),
-        dtype=dtype)
+        dtype=dtype, padding=p.get("padding", "SAME"), bn_center=bn_center,
+        bn_bias_free=bn_bias_free)

@@ -29,9 +29,9 @@ from torch import nn
 
 from ..constants import DEFAULT_LN_EPSILON
 from ..ops.pallas_convnext import convnext_block
+from ..ops.quant import conv_nchw, current_quant_mode
 from ..ops.regularizers import builder as regularizer_builder
 from ..ops.resize import nchw, nhwc
-from .conv import conv2d_same
 from .multipliers import ChannelLearnableMultiplier
 from .norm import FastLayerNorm
 
@@ -106,11 +106,20 @@ class ConvNextBlock(nn.Module):
             self._cache = (key, w)
         return self._cache[1]
 
+    def _refuse_quant_mode(self):
+        if current_quant_mode(getattr(self, "_quant_path", "")) is not None:
+            raise NotImplementedError(
+                "int8 calibration and serving through the unet_laplacian "
+                "ConvNext units are not ported yet (ROADMAP Queue 1 item "
+                "9); their int8 path is inference/fused.py")
+
     def branch(self, x: torch.Tensor) -> torch.Tensor:
         """The unit without its skip, in x's dtype, differentiable. x: NCHW
         (channels_last)."""
+        self._refuse_quant_mode()
         c = x.shape[1]
-        t = self.conv_1.ln(conv2d_same(x, self.conv_1.kernel, groups=c))
+        t = self.conv_1.ln(conv_nchw(x, self.conv_1.kernel.to(x.dtype),
+                                     (1, 1), "SAME", c))
         e = self.conv_2.kernel.shape[0]
         h = F.leaky_relu(F.conv2d(t, self.conv_2.kernel.to(x.dtype).view(
             e, c, 1, 1)), self.slope)
@@ -123,5 +132,6 @@ class ConvNextBlock(nn.Module):
                 x.requires_grad or any(p.requires_grad
                                        for p in self.parameters())):
             return x + self.branch(x)
+        self._refuse_quant_mode()
         w = self.kernel_weights(x.dtype)
         return nchw(convnext_block(nhwc(x), slope=self.slope, **w))

@@ -1,11 +1,13 @@
-"""Learnable per-channel gain (counterpart of
+"""Learnable gains (counterpart of
 ``blind_image_denoising_tpu/layers/multipliers.py``
-``ChannelLearnableMultiplier``)."""
+``ChannelLearnableMultiplier``, ``Multiplier`` and
+``ChannelwiseMultiplier``), on NCHW tensors."""
 
 import torch
 from torch import nn
 
 from ..ops.regularizers import l1
+from .activations import activation_fn
 
 
 class ChannelLearnableMultiplier(nn.Module):
@@ -26,3 +28,34 @@ class ChannelLearnableMultiplier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.gain().to(x.dtype).view(1, -1, 1, 1)
+
+
+class Multiplier(nn.Module):
+    """Legacy learnable scalar gain ``act(w0 + multiplier) · x`` (``w0``
+    [1], zero-initialised), L1 on ``w0`` when ``l1_coefficient`` > 0."""
+
+    def __init__(self, multiplier: float = 1.0, activation: str = "linear",
+                 l1_coefficient: float = 0.0, features: int = 1):
+        super().__init__()
+        self.w0 = nn.Parameter(torch.zeros(features))
+        self.multiplier = float(multiplier)
+        self.act = activation_fn(activation)
+        self.l1_coefficient = float(l1_coefficient)
+
+    def penalty(self):
+        if self.l1_coefficient <= 0.0:
+            return None
+        return l1(self.w0.float(), self.l1_coefficient)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gain = self.act(self.w0 + self.multiplier).to(x.dtype)
+        return x * gain.view(1, -1, 1, 1)
+
+
+class ChannelwiseMultiplier(Multiplier):
+    """Legacy per-channel gain ``act(w0 + multiplier) · x`` (``w0``
+    [C])."""
+
+    def __init__(self, features: int, multiplier: float = 1.0,
+                 activation: str = "linear", l1_coefficient: float = 0.0):
+        super().__init__(multiplier, activation, l1_coefficient, features)

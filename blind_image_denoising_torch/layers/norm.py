@@ -1,15 +1,34 @@
-"""LayerNorm over channels with float32 statistics (counterpart of
-``blind_image_denoising_tpu/layers/norm.py`` ``FastLayerNorm``, forward
-only).
+"""Normalization layers (counterpart of
+``blind_image_denoising_tpu/layers/norm.py`` and of flax's
+``nn.BatchNorm``), on NCHW tensors, normalizing over C.
 
-The mean and reciprocal std are computed in float32; the full-resolution
-normalize-and-scale runs in the compute dtype, as the JAX module does so
-that bf16 serving moves bf16 bytes. No bias (the port's configs are
-bias-free).
+* :class:`FastLayerNorm`: mean and reciprocal std in float32, the
+  full-resolution normalize-and-scale (and bias) in the compute dtype, as
+  the JAX module does so that bf16 serving moves bf16 bytes.
+* :class:`BatchNorm`: flax ``nn.BatchNorm`` in inference form with its
+  order of operations: ``mul = rsqrt(var + eps)·scale`` in float32, then
+  ``(x − mean)·mul (+ bias)`` in float32, cast to the compute dtype.
+  Running ``mean`` / ``var`` are buffers (the artifact's
+  ``batch_stats``).
+* :class:`BiasFreeBatchNorm`: ``x · (scale·rsqrt(mean_sq + eps))`` with
+  the multiplier cast to the compute dtype; running ``mean_sq`` buffer.
+
+Both batch norms serve from their running statistics only: train mode
+(batch statistics and the running update) raises, naming its ROADMAP
+item.
 """
 
 import torch
 from torch import nn
+
+from ..constants import DEFAULT_BN_EPSILON, DEFAULT_BN_MOMENTUM
+
+_TRAIN_MODE = ("BatchNorm train mode (batch statistics and the running "
+               "update) is not ported yet (ROADMAP Queue 1 item 8)")
+
+
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
 
 
 class FastLayerNorm(nn.Module):
@@ -19,12 +38,10 @@ class FastLayerNorm(nn.Module):
     def __init__(self, features: int, epsilon: float = 1e-6,
                  use_bias: bool = False, dtype=None):
         super().__init__()
-        if use_bias:
-            raise NotImplementedError(
-                "LayerNorm bias is not ported yet (ROADMAP Queue 1 item 9)")
         self.epsilon = float(epsilon)
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.dtype or x.dtype
@@ -33,4 +50,82 @@ class FastLayerNorm(nn.Module):
         var = (xf - mean).square().mean(dim=1, keepdim=True)
         rsig = torch.rsqrt(var + self.epsilon)
         xhat = (x.to(cdt) - mean.to(cdt)) * rsig.to(cdt)
-        return xhat * self.scale.to(cdt).view(1, -1, 1, 1)
+        y = xhat * _channel(self.scale.to(cdt))
+        if self.bias is not None:
+            y = y + _channel(self.bias.to(cdt))
+        return y
+
+
+def parse_bn_flag(value):
+    """A config ``batchnorm`` / ``use_bn`` value → ``(use_bn,
+    bias_free)``: booleans, or the string ``"bias_free"``."""
+    if isinstance(value, str):
+        key = value.strip().lower().replace("-", "_")
+        if key in ("bias_free", "biasfree"):
+            return True, True
+        raise ValueError(
+            f"unknown batchnorm mode [{value}] — use true/false or "
+            f"'bias_free'")
+    return bool(value), False
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(use_running_average=True)``. ``dtype`` None
+    keeps flax's promotion: the output is float32 when a float32 scale or
+    bias takes part; ``forward(x, dtype=...)`` names it for one call."""
+
+    def __init__(self, features: int, epsilon: float = DEFAULT_BN_EPSILON,
+                 momentum: float = DEFAULT_BN_MOMENTUM,
+                 use_bias: bool = False, use_scale: bool = True, dtype=None):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.momentum = float(momentum)
+        self.dtype = dtype
+        self.scale = (nn.Parameter(torch.ones(features)) if use_scale
+                      else None)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                dtype=None) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(_TRAIN_MODE)
+        cdt = dtype or self.dtype
+        if cdt is None:
+            cdt = (torch.promote_types(x.dtype, torch.float32)
+                   if self.scale is not None or self.bias is not None
+                   else x.dtype)
+        mul = torch.rsqrt(self.var.float() + self.epsilon)
+        if self.scale is not None:
+            mul = mul * self.scale.float()
+        y = (x.float() - _channel(self.mean.float())) * _channel(mul)
+        if self.bias is not None:
+            y = y + _channel(self.bias.float())
+        return y.to(cdt)
+
+
+class BiasFreeBatchNorm(nn.Module):
+    """Strictly bias-free BatchNorm: ``y = x · rsqrt(E[x²] + ε) · γ`` from
+    the running second moment; no mean subtraction, no β."""
+
+    def __init__(self, features: int, epsilon: float = DEFAULT_BN_EPSILON,
+                 momentum: float = DEFAULT_BN_MOMENTUM,
+                 use_scale: bool = True, dtype=None):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.momentum = float(momentum)
+        self.dtype = dtype
+        self.scale = (nn.Parameter(torch.ones(features)) if use_scale
+                      else None)
+        self.register_buffer("mean_sq", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                dtype=None) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(_TRAIN_MODE)
+        cdt = dtype or self.dtype or x.dtype
+        mult = torch.rsqrt(self.mean_sq.float() + self.epsilon)
+        if self.scale is not None:
+            mult = self.scale.float() * mult
+        return x.to(cdt) * _channel(mult.to(cdt))

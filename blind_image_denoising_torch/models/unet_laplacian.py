@@ -137,6 +137,10 @@ class UnetLaplacianBackbone(nn.Module):
             return min(max_filters, f) if max_filters > 0 else f
 
         self.filters = [level_filters(d) for d in range(depth + 1)]
+        # the channels of each returned scale, finest first
+        self.out_features = (self.filters[:depth]
+                             if self.multiple_scale_outputs
+                             else self.filters[:1])
         same = dict(strides=(1, 1), padding="same", use_bias=False,
                     kernel_regularizer=kernel_regularizer)
 

@@ -1,8 +1,12 @@
-"""Value-range normalization (counterpart of
-``blind_image_denoising_tpu/ops/normalize.py``). Elementwise, so the
-functions take any layout and keep the input's dtype."""
+"""Value-range and local normalization (counterpart of
+``blind_image_denoising_tpu/ops/normalize.py``). The value-range
+functions are elementwise, so they take any layout and keep the input's
+dtype; ``local_normalization`` takes NHWC, as in JAX."""
 
 import torch
+
+from ..constants import DEFAULT_EPSILON
+from .resize import avg_pool_same
 
 
 def normalize(x: torch.Tensor, v_min: float = 0.0,
@@ -17,3 +21,11 @@ def denormalize(x: torch.Tensor, v_min: float = 0.0,
     """[-0.5, +0.5] -> [v_min, v_max] with clipping."""
     y = torch.clamp(x, -0.5, 0.5)
     return (y + 0.5) * (v_max - v_min) + v_min
+
+
+def local_normalization(x: torch.Tensor, pool_size=(16, 16)) -> torch.Tensor:
+    """Local mean/sigma normalization of NHWC x by SAME average pooling
+    (count-aware at the borders)."""
+    mean = avg_pool_same(x, pool_size, (1, 1))
+    var = avg_pool_same(torch.square(x - mean), pool_size, (1, 1))
+    return (x - mean) / torch.sqrt(var + DEFAULT_EPSILON)

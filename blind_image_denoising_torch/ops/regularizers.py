@@ -12,6 +12,7 @@ column permutation, which leaves ``W·Wᵀ`` unchanged.
 from collections.abc import Mapping
 from typing import Callable, Dict, List, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,6 +40,11 @@ def l1(w: torch.Tensor, coefficient: float = DEFAULT_KERAS_L1) -> torch.Tensor:
 
 def l2(w: torch.Tensor, coefficient: float = DEFAULT_KERAS_L2) -> torch.Tensor:
     return coefficient * torch.sum(torch.square(w))
+
+
+def l1l2(w: torch.Tensor, l1_coefficient: float = DEFAULT_KERAS_L1,
+         l2_coefficient: float = DEFAULT_KERAS_L2) -> torch.Tensor:
+    return l1(w, l1_coefficient) + l2(w, l2_coefficient)
 
 
 def soft_orthogonal(w: torch.Tensor, lambda_coefficient: float = 1.0,
@@ -75,6 +81,31 @@ def soft_orthonormal(w: torch.Tensor, lambda_coefficient: float = 1.0,
     return result
 
 
+def _center_mask(kh: int, kw: int) -> np.ndarray:
+    """Center-peaked spatial mask in [0, 1]: 1 at the kernel centre,
+    falling towards the edges."""
+    ys = np.linspace(-1.0, 1.0, kh) if kh > 1 else np.zeros((1,))
+    xs = np.linspace(-1.0, 1.0, kw) if kw > 1 else np.zeros((1,))
+    yy, xx = np.meshgrid(ys, xs, indexing="ij")
+    return np.exp(-(yy ** 2 + xx ** 2) / 0.5).astype(np.float32)
+
+
+def erf(w: torch.Tensor, l1_coefficient: float = 0.025,
+        l2_coefficient: float = 0.0) -> torch.Tensor:
+    """ERF regularizer: L1/L2 of the kernel weighted by the centre mask
+    over its spatial dims (OIHW: dims 2 and 3); plain L1/L2 for a matrix."""
+    if w.ndim != 4:
+        return l1l2(w, l1_coefficient, l2_coefficient)
+    mask = torch.as_tensor(_center_mask(w.shape[2], w.shape[3]),
+                           dtype=w.dtype, device=w.device)
+    result = torch.zeros((), dtype=w.dtype, device=w.device)
+    if l1_coefficient > 0.0:
+        result = result + l1_coefficient * torch.sum(torch.abs(w) * mask)
+    if l2_coefficient > 0.0:
+        result = result + l2_coefficient * torch.sum(torch.square(w) * mask)
+    return result
+
+
 def _builder_helper(config: Union[str, Dict, Callable]) -> RegFn:
     if callable(config):
         return config
@@ -93,14 +124,14 @@ def _builder_helper(config: Union[str, Dict, Callable]) -> RegFn:
     if key == "l2":
         c = params.get("l2", DEFAULT_KERAS_L2)
         return lambda w: l2(w, c)
+    if key == "l1l2":
+        c1 = params.get("l1", DEFAULT_KERAS_L1)
+        c2 = params.get("l2", DEFAULT_KERAS_L2)
+        return lambda w: l1l2(w, c1, c2)
     fns = {"soft_orthonormal": soft_orthonormal,
-           "soft_orthogonal": soft_orthogonal}
+           "soft_orthogonal": soft_orthogonal, "erf": erf}
     if key in fns:
         return lambda w: fns[key](w, **params)
-    if key in ("l1l2", "erf"):
-        raise NotImplementedError(
-            f"regularizer [{reg_type}] is not ported yet (ROADMAP Queue 1 "
-            f"item 9)")
     raise ValueError(f"unknown regularization type [{reg_type}]")
 
 

@@ -92,3 +92,25 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     y = F.interpolate(nchw(x).float(), size=(int(size[0]), int(size[1])),
                       mode="bilinear", align_corners=False, antialias=True)
     return nhwc(y).to(x.dtype)
+
+
+def upsample_2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear 2× upsample of NHWC x with half-pixel centres, as
+    ``jax.image.resize(..., "bilinear")``: output 2i takes
+    ``0.25·x[i−1] + 0.75·x[i]`` and 2i+1 ``0.75·x[i] + 0.25·x[i+1]``, and
+    at the borders the weights renormalize over the in-image tap, which
+    repeats the edge row (and column). Rows then columns, in float32,
+    cast back to the input dtype."""
+
+    def along(y: torch.Tensor, dim: int) -> torch.Tensor:
+        n = y.shape[dim]
+        prev = torch.cat([y.narrow(dim, 0, 1), y.narrow(dim, 0, n - 1)], dim)
+        nxt = torch.cat([y.narrow(dim, 1, n - 1), y.narrow(dim, n - 1, 1)],
+                        dim)
+        even, odd = 0.25 * prev + 0.75 * y, 0.75 * y + 0.25 * nxt
+        out = torch.stack([even, odd], dim + 1)
+        shape = list(y.shape)
+        shape[dim] = 2 * n
+        return out.reshape(shape)
+
+    return along(along(x.float(), 1), 2).to(x.dtype)

@@ -27,6 +27,7 @@ from ..constants import (MAE_LOSS_STR, MSE_LOSS_STR, REGULARIZATION_LOSS_STR,
 from ..ops.multiscale import multiscale_targets
 from ..ops.noise import corrupt_batch, random_flips
 from ..ops.pallas_noise import corrupt_noise
+from ..ops.precision import exact_float32
 from ..ops.regularizers import regularization_loss
 from ..ops.resize import nchw, nhwc
 from .optimizer import global_norm
@@ -161,13 +162,16 @@ def build_train_step(
                              f"grad_accum={n} micro-batches")
         model.zero_grad(set_to_none=True)
         metrics = {}
-        for clean in batch.chunk(n):
-            noisy, gt_scales = prepare(state, clean, generator)
-            total, m = forward_loss(model, loss_fns, no_outputs, noisy,
-                                    gt_scales, depth_weights, generator)
-            total.backward()
-            for k, v in m.items():
-                metrics[k] = metrics.get(k, 0.0) + v.detach()
+        # the step's float32 work (the losses, SSIM's convs, the heads'
+        # epilogue and a float32 model) stays float32 on the card
+        with exact_float32(dev.type == "cuda"):
+            for clean in batch.chunk(n):
+                noisy, gt_scales = prepare(state, clean, generator)
+                total, m = forward_loss(model, loss_fns, no_outputs, noisy,
+                                        gt_scales, depth_weights, generator)
+                total.backward()
+                for k, v in m.items():
+                    metrics[k] = metrics.get(k, 0.0) + v.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if n > 1:

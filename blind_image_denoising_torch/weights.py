@@ -18,6 +18,10 @@ Layouts (flax → torch):
   and ``[C, E]``, the operands of the fused unit kernel
   (``ops/pallas_convnext.py``);
 * every other leaf keeps its shape.
+
+Batch statistics (``batch_stats``) merge into the same state dict as the
+params, and :func:`attach_quant_scales` hangs the int8 scales of a
+``quant.msgpack`` on the modules at their flax paths.
 """
 
 import struct
@@ -138,15 +142,26 @@ def _is_convnext_unit(node: Dict) -> bool:
                                        "conv_3"} <= set(node)
 
 
+_COLLECTIONS = ("params", "batch_stats")
+
+
 def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
-    """Flax ``params`` tree (numpy leaves, optionally wrapped in
-    ``{"params": ...}``) → flat float32 torch state dict whose keys are the
-    flax paths joined by ``.``, with the layouts of the module docstring."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    """Flax variables (numpy leaves: a bare ``params`` tree, or a dict of
+    the ``params`` and ``batch_stats`` collections) → flat float32 torch
+    state dict whose keys are the flax paths joined by ``.``, with the
+    layouts of the module docstring. The collections merge into one
+    dict: a BatchNorm's ``scale``/``bias`` (params) and ``mean``/``var``
+    or ``mean_sq`` (batch_stats) sit on the same module."""
+    if set(tree) <= set(_COLLECTIONS) and "params" in tree:
+        trees = [tree[c] for c in _COLLECTIONS if c in tree]
+    else:
+        trees = [tree]
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Dict, prefix: str, in_unit: bool):
+        # a ConvNext unit whose convs are subtrees ({"kernel": ...}) is
+        # K1's: its 1x1 kernels become matrices. A unit holding its
+        # convs as leaves (unet_laplacian_v56) keeps 4-D OIHW kernels.
         unit = _is_convnext_unit(node)
         for key, val in node.items():
             path = f"{prefix}{key}"
@@ -158,7 +173,38 @@ def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
                 t = t.permute(3, 2, 0, 1)          # HWIO -> OIHW
                 if in_unit:
                     t = t[:, :, 0, 0]              # 1x1 -> [out, in]
+            if path in out:
+                raise ValueError(f"[{path}] is in more than one collection")
             out[path] = t.contiguous()
 
-    walk(tree, "", False)
+    for t in trees:
+        walk(t, "", False)
     return out
+
+
+def attach_quant_scales(model: torch.nn.Module, quant: Dict) -> int:
+    """Attach a flax ``quant`` collection (``quant.msgpack``:
+    ``{module path...: {"<site>_scale": s}}``) to ``model`` as
+    non-persistent float32 scalar buffers named ``<site>_scale`` on the
+    module at that path, where ``ops/quant.conv2d`` finds them. Returns
+    the number of scales; a path with no module raises."""
+    n = 0
+
+    def walk(node: Dict, path: str):
+        nonlocal n
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, f"{path}.{key}" if path else key)
+                continue
+            if not key.endswith("_scale"):
+                raise ValueError(f"unexpected quant leaf [{path}/{key}]")
+            module = model.get_submodule(path)
+            t = torch.from_numpy(np.array(val, np.float32))
+            ref = next(model.parameters(), None)
+            if ref is not None:
+                t = t.to(ref.device)
+            module.register_buffer(key, t, persistent=False)
+            n += 1
+
+    walk(quant, "")
+    return n

@@ -20,6 +20,12 @@ drive the two paths of the port through the entry points a user calls:
   against the same forward on the CPU, and the three timed;
 * band_split: the decimating band split (K4) through its op, the only
   entry point it has, at the pyramid shapes 8×256²×32 and 8×128²×64;
+* artifacts: the two other packaged artifacts through ``load_model`` —
+  ``resnet_depthwise_scratch`` in bf16 and ``unet_laplacian_v56_highnoise``
+  in float32 and in int8 (``quant=True``) — on b8 @ 256² and one 512²
+  image, against the port's f32 CPU output, every int8 conv site's
+  accumulator against an int64 computation on the host, timed and
+  profiled (no K1–K4 launch: JAX runs both models in XLA);
 
 check what comes out, and time the kernels and the paths.
 
@@ -31,8 +37,10 @@ final line is not printed. Without a CUDA device it exits 1 at once.
 Output: one line per phase; then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name and power limit, and, last, the
 ``{"ok": true, "device": ...}`` line. ``--profile-out FILE`` also writes
-the full per-kernel device-time tables of the profiled serving requests
-train steps and v6 forwards (torch.profiler) to FILE.
+the full per-kernel device-time tables of the profiled serving requests,
+train steps, v6 forwards and artifact requests (torch.profiler) to FILE.
+The TF32 flags are PyTorch's defaults from the serving phase on, as a
+user runs the library; only the kernel checks hold TF32 off.
 """
 
 import argparse
@@ -61,6 +69,17 @@ FUSED_BATCH, FUSED_SIZE = 32, 256          # scripts/bench_fused_e2e.py's
 FUSED_CPU_IMAGES = 2
 FUSED_F32_CARD_VS_CPU_MEAN = 1e-3
 FUSED_FLOAT_VS_HYDRA_MEAN = 2.0
+ARTIFACT_RESNET = "resnet_depthwise_scratch"
+ARTIFACT_V56 = "unet_laplacian_v56_highnoise"
+# kernel groups of the artifacts' requests (profiler names, lower case)
+ARTIFACT_GROUPS = {
+    "convolutions (cuDNN)": ("fprop", "conv", "implicit_gemm", "cudnn",
+                             "xmma", "depthwise"),
+    "matmul (attention)": ("gemm", "gemv", "cutlass"),
+    "softmax": ("softmax",),
+    "reductions": ("reduce_kernel",),
+    "batch norm and elementwise": ("elementwise", "vectorized"),
+}
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 TENSOR_BF16_OPS_PER_S = 989e12   # dense bf16 tensor cores
@@ -521,6 +540,7 @@ def train_card_vs_cpu(cfg, params, clean, noise_kw):
     from blind_image_denoising_torch.ops.multiscale import multiscale_targets
     from blind_image_denoising_torch.ops.pallas_noise import (
         corrupt_batch_plain)
+    from blind_image_denoising_torch.ops.precision import exact_float32
     from blind_image_denoising_torch.training import (forward_loss,
                                                       loss_function_builder)
     clean = torch.from_numpy(clean).round()
@@ -531,11 +551,13 @@ def train_card_vs_cpu(cfg, params, clean, noise_kw):
     for dev, dtype in (("cuda", torch.bfloat16), ("cpu", None)):
         state, _ = build_trainer(cfg, params, dtype, dev, drop=False)
         hydra = state.model
-        total, _ = forward_loss(hydra, fns, hydra.no_outputs, noisy.to(dev),
-                                [g.to(dev) for g in gt],
-                                torch.full((3,), 1.0 / 3, device=dev),
-                                torch.Generator(device=dev))
-        total.backward()
+        # float32 parts without TF32, as the library's train step runs them
+        with exact_float32(dev == "cuda"):
+            total, _ = forward_loss(hydra, fns, hydra.no_outputs,
+                                    noisy.to(dev), [g.to(dev) for g in gt],
+                                    torch.full((3,), 1.0 / 3, device=dev),
+                                    torch.Generator(device=dev))
+            total.backward()
         out[dev] = (float(total.detach()),
                     {n: p.grad.float().flatten().cpu()
                      for n, p in hydra.named_parameters()})
@@ -556,6 +578,153 @@ def train_card_vs_cpu(cfg, params, clean, noise_kw):
     if not (rel <= 2e-2 and cos >= 0.99):
         raise AssertionError(f"bf16 card train step drifts from the f32 CPU "
                              f"reference: {result}")
+
+
+# --------------------------------------------------------------- artifacts
+
+def artifacts_phase(bidt, rng, smi, acts, read_counts, zero_counts,
+                    profile_text):
+    """The two other packaged artifacts through ``load_model`` on the card:
+    ``resnet_depthwise_scratch`` (bf16, its pipeline's dtype) at σ = 25,
+    ``unet_laplacian_v56_highnoise`` in float32 (its default) and with
+    ``quant=True`` at σ = 60. Each serves b8 @ 256² and one 512² image
+    with no K1–K4 launch; card against the port's f32 CPU output on one
+    256² image; denoised MAE against the noisy input's; every int8 conv
+    site of one 256² request bit-exact against the int64 plain version
+    on the host; images/s, 512² ms, launches, busy and idle share and the
+    int8 conv route's device time per request."""
+    from blind_image_denoising_torch.ops import quant
+    clean_b8 = synthetic_images(8, 256, 256, rng)
+    clean_512 = synthetic_images(1, 512, 512, rng)[0]
+    runs = {"resnet_bf16": (ARTIFACT_RESNET, {}, 25.0),
+            "v56_f32": (ARTIFACT_V56, {}, 60.0),
+            "v56_int8": (ARTIFACT_V56, {"quant": True}, 60.0)}
+    noisy = {sigma: (add_noise(clean_b8, sigma, rng),
+                     add_noise(clean_512, sigma, rng))
+             for sigma in {r[2] for r in runs.values()}}
+    outs, report = {}, {}
+    for name, (artifact, kw, sigma) in runs.items():
+        den = bidt.load_model(artifact, **kw)
+        b8, one = noisy[sigma]
+        outs[name] = den(b8)
+        out_512 = den(one)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        if launches != zero_counts():
+            raise AssertionError(f"{name}: K1-K4 launched on a path that has "
+                                 f"none: {launches}")
+        for o, r in ((outs[name], b8), (out_512, one)):
+            if o.shape != r.shape or o.dtype != np.uint8:
+                raise AssertionError(f"{name}: bad output {o.shape} {o.dtype}")
+        mae_noisy = float(np.abs(b8.astype(np.float32) - clean_b8).mean())
+        mae_out = float(np.abs(outs[name].astype(np.float32)
+                               - clean_b8).mean())
+        q = dict(dtype=str(den.model.dtype or torch.float32), sigma=sigma,
+                 mae_noisy=mae_noisy, mae_out=mae_out, kernel_launches=launches)
+        if not kw.get("quant"):
+            cpu = bidt.load_model(artifact, device="cpu", dtype="float32")
+            diff = np.abs(outs[name][0].astype(np.int32)
+                          - cpu(b8[0]).astype(np.int32))
+            q.update(card_vs_f32_cpu_mean=float(diff.mean()),
+                     card_vs_f32_cpu_p99=float(np.percentile(diff, 99)),
+                     card_vs_f32_cpu_max=int(diff.max()),
+                     card_vs_f32_cpu_equal_share=float((diff == 0).mean()))
+        report[name] = (den, b8, one, q)
+
+    # the bars
+    r, v, i8 = (report[k][3] for k in ("resnet_bf16", "v56_f32", "v56_int8"))
+    int8_vs_f32 = float(np.abs(outs["v56_int8"].astype(np.int32)
+                               - outs["v56_f32"].astype(np.int32)).mean())
+    i8["int8_vs_f32_card_mean"] = int8_vs_f32
+    bars = dict(resnet_bf16="card vs f32 CPU mean <= 1.0, p99 <= 3; MAE "
+                            "below the noisy input's",
+                v56_f32="card vs f32 CPU max <= 1, >= 99% equal; MAE < 0.5x "
+                        "the noisy input's",
+                v56_int8="int32 accumulators bit-exact at every site; mean "
+                         "|int8 - f32| <= 2.5; MAE below the noisy input's")
+    failed = []
+    if not (r["card_vs_f32_cpu_mean"] <= 1.0 and r["card_vs_f32_cpu_p99"] <= 3
+            and r["mae_out"] < r["mae_noisy"]):
+        failed.append("resnet_bf16")
+    if not (v["card_vs_f32_cpu_max"] <= 1
+            and v["card_vs_f32_cpu_equal_share"] >= 0.99
+            and v["mae_out"] < 0.5 * v["mae_noisy"]):
+        failed.append("v56_f32")
+    if not (int8_vs_f32 <= 2.5 and i8["mae_out"] < i8["mae_noisy"]):
+        failed.append("v56_int8")
+
+    # every int8 site of one 256² request, card against the host in int64
+    sites = []
+    real = quant.int8_conv
+
+    def recording(x8, k8, strides, padding, groups):
+        y = real(x8, k8, strides, padding, groups)
+        sites.append((x8.cpu(), k8.cpu(), y.cpu(), strides, padding, groups))
+        return y
+
+    quant.int8_conv = recording
+    try:
+        report["v56_int8"][0](report["v56_int8"][1][:1])
+    finally:
+        quant.int8_conv = real
+    torch.cuda.synchronize()
+    mismatched = [n for n, (x8, k8, y, st, pad, g) in enumerate(sites)
+                  if y.dtype != torch.int32 or not torch.equal(
+                      y.long(), quant.int8_conv_reference(x8, k8, st, pad, g))]
+    i8.update(int8_sites=len(sites), int8_sites_bit_exact=len(sites) - len(
+        mismatched), int8_macs_per_request=sum(
+            int(y.numel()) * int(k8[0].numel()) for _, k8, y, *_ in sites))
+    if mismatched or len(sites) != 55:
+        failed.append("v56_int8 accumulators")
+
+    # timing and a profiled request of each
+    timing = {}
+    for name, (den, b8, one, _) in report.items():
+        times = {}
+        for key, req in (("b8", b8), ("512", one)):
+            den(req)
+            torch.cuda.synchronize()
+            t = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                den(req)
+                t.append(time.perf_counter() - t0)
+            times[key] = t
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            den(b8)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = [row for row in profile_rows(prof)
+                if not row[2].startswith(("denoiser.", "quant."))]
+        busy = sum(row[0] for row in rows)
+        int8_route = [device_us(evt, "") for evt in prof.key_averages()
+                      if evt.key == "quant.int8_conv"
+                      and evt.device_type == torch.autograd.DeviceType.CPU]
+        timing[name] = dict(
+            b8_256_images_per_s=8 / statistics.median(times["b8"]),
+            b8_256_request_ms=[round(x * 1e3, 3) for x in times["b8"]],
+            latency_512_ms_median=statistics.median(times["512"]) * 1e3,
+            latency_512_ms=[round(x * 1e3, 3) for x in times["512"]],
+            kernels_per_request=sum(row[1] for row in rows),
+            device_busy_ms=busy / 1e3,
+            idle_share_profiled=1 - busy / wall_us,
+            idle_share_unprofiled=1 - busy / 1e6 / statistics.median(
+                times["b8"]),
+            int8_conv_route_device_ms=(sum(int8_route) / 1e3
+                                       if int8_route else None),
+            device_ms_by_group={k: us / 1e3 for k, us in group_rows(
+                rows, ARTIFACT_GROUPS, 1).items()},
+            top=[dict(us=round(us, 1), count=c, name=k[:80])
+                 for us, c, k in rows[:8]])
+        profile_text.append(f"\none b8 @ 256^2 request, {name}; wall "
+                            f"{wall_us:.1f} us, device busy {busy:.1f} us\n")
+        profile_text += [f"{us:12.1f} us {count:6d}x  {key}\n"
+                         for us, count, key in rows]
+    log("artifacts", smi=smi, bars=bars,
+        quality={k: rep[3] for k, rep in report.items()}, timing=timing)
+    if failed:
+        raise AssertionError(f"artifacts phase failed: {failed}")
 
 
 def main() -> int:
@@ -594,7 +763,12 @@ def main() -> int:
     def counts(**nonzero):
         return dict(dict.fromkeys(read_counts(), 0), **nonzero)
 
-    # ---- phase 1: device
+    # ---- phase 1: device. The kernel checks against their plain versions
+    # hold TF32 off; every path from phase 4 on runs with PyTorch's default
+    # flags, as a user of the library does (its float32 forwards keep TF32
+    # out themselves)
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -621,7 +795,7 @@ def main() -> int:
         raise AssertionError("flagship did not load as bf16 + blend")
     # unet_laplacian_v6 at full width, bf16, from a seeded init (the fused
     # path's model; the JAX bench builds it the same way)
-    v6cfg = bidt.load_config(bidt.configs[FUSED_CONFIG])["model"]
+    v6cfg = copy.deepcopy(bidt.CONFIGS_DICT[FUSED_CONFIG]["model"])
     v6 = model_builder(copy.deepcopy(v6cfg), dtype=torch.bfloat16).hydra
     init_params(v6, torch.Generator().manual_seed(SEED))
     v6 = v6.cuda().eval().requires_grad_(False)
@@ -746,7 +920,7 @@ def main() -> int:
 
     # the train step's kernels at its shapes (b16 @ 128²: level 0 is 128²,
     # level 1 is 64²; the noise kernel sees the RGB batch)
-    cfg = bidt.load_config(bidt.configs[TRAIN_CONFIG])
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT[TRAIN_CONFIG])
     cfg.setdefault("tpu", {})["pallas_noise"] = True
     ds = cfg["dataset"]
     noise_kw = dict(additive_noise=ds["additional_noise"],
@@ -761,6 +935,8 @@ def main() -> int:
                                                   noise_kw)
 
     # ---- phase 4: serve three requests through the main path
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
     clean_b8 = synthetic_images(8, 256, 256, rng)
     noisy_b8 = add_noise(clean_b8, 25.0, rng)
     clean_512 = synthetic_images(1, 512, 512, rng)[0]
@@ -1250,9 +1426,6 @@ def main() -> int:
     log("fused_timing", smi=smi, int8_speedup_vs_hydra_bf16=(
         fused_timing["hydra_bf16"]["forward_ms_median"]
         / fused_timing["fused_int8"]["forward_ms_median"]), **fused_timing)
-    if args.profile_out is not None:
-        args.profile_out.parent.mkdir(parents=True, exist_ok=True)
-        args.profile_out.write_text("".join(profile_text))
 
     # the fused path's kernels, timed at its shapes: K1 int8 (calls per
     # fused int8 forward) and, for the table, K1 bf16 at (32, 5) and
@@ -1316,6 +1489,16 @@ def main() -> int:
             calls_per_path=1, bound_ms=bound, bound_by=by, smi=smi, **t)
         entries.setdefault("band_split", []).append((1, t, bound, by))
 
+    # ---- phase 9: the two other packaged artifacts (no kernel of K1-K4)
+    reset_counts()
+    artifacts_phase(bidt, rng, smi, acts, read_counts, counts, profile_text)
+    artifact_counts = read_counts()
+    if artifact_counts != counts():
+        raise AssertionError(f"artifacts phase launched {artifact_counts}")
+    if args.profile_out is not None:
+        args.profile_out.parent.mkdir(parents=True, exist_ok=True)
+        args.profile_out.write_text("".join(profile_text))
+
     # ---- result lines
     replaces = {
         "convnext_block": ("blind_image_denoising_torch/csrc/"
@@ -1357,7 +1540,8 @@ def main() -> int:
         bound_by = max(rows_k, key=lambda r: r[0] * r[2])[3]
         by_path = dict(serve=serve_counts[name], train=train_counts[name],
                        fused=fused_counts[name],
-                       band_split=split_counts[name])
+                       band_split=split_counts[name],
+                       artifacts=artifact_counts[name])
         kernels.append(dict(
             name=name, route="cuda", source=replaces[name][0],
             replaces=replaces[name][1], launches=sum(by_path.values()),

@@ -21,6 +21,11 @@ outputs within 1e-3, except where a first normal draw lies within 1e-5
 of the ±2 redraw threshold (``logf``/``sincosf`` on the card and on the
 host may differ in the last bit and pick the other draw there); rounded
 outputs within 1, on at most 1e-4 of the elements.
+
+The packaged artifacts on the card: each serves within the serving bars
+of the port's f32 CPU output, every int8 conv accumulator of a v5.6
+request equals the int64 plain version, and a float32 forward gives the
+same output whatever the global TF32 flags say.
 """
 
 import numpy as np
@@ -196,7 +201,7 @@ def test_v6_fused_forward_on_card(dev, monkeypatch):
     from blind_image_denoising_torch.models.hydra import model_builder
     from blind_image_denoising_torch.training.train_state import init_params
     cfg = copy.deepcopy(bidt.load_config(
-        bidt.configs["unet_laplacian_v6"])["model"])
+        bidt.CONFIGS_DICT["unet_laplacian_v6"])["model"])
     hydra = model_builder(cfg, dtype=torch.bfloat16).hydra
     init_params(hydra, torch.Generator().manual_seed(0))
     hydra = hydra.to(dev).eval().requires_grad_(False)
@@ -365,7 +370,7 @@ def test_flagship_trains_two_steps_on_card(dev):
         optimizer_builder)
     from blind_image_denoising_torch.weights import (load_msgpack,
                                                      params_from_flax)
-    cfg = load_config(bidt.configs["unet_laplacian_v6_tpu"])
+    cfg = load_config(bidt.CONFIGS_DICT["unet_laplacian_v6_tpu"])
     hydra = model_builder(copy.deepcopy(cfg["model"]),
                           dtype=torch.bfloat16).hydra
     tree = load_msgpack(bidt.models["unet_laplacian_v6_tpu_scratch"]
@@ -388,3 +393,92 @@ def test_flagship_trains_two_steps_on_card(dev):
            pallas_pyramid.launches, pallas_pyramid.bwd_launches)
     assert tuple(a - b for a, b in zip(now, counts)) == (0, 2, 4, 4)
     assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
+# ---------------------------------------------------------------- artifacts
+
+def _smooth_noisy(n, h, w, sigma, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    clean = np.stack([127.5 + 90 * np.sin(yy / h * (3 + c) + xx / w * 2)
+                      for c in range(3)], -1)
+    clean = np.broadcast_to(clean, (n, h, w, 3))
+    noisy = np.clip(np.round(clean + rng.normal(0, sigma, clean.shape)),
+                    0, 255).astype(np.uint8)
+    return clean, noisy
+
+
+@pytest.mark.parametrize("name,kw,sigma", [
+    ("resnet_depthwise_scratch", {}, 25.0),
+    ("unet_laplacian_v56_highnoise", {}, 60.0),
+    ("unet_laplacian_v56_highnoise", {"quant": True}, 60.0)])
+def test_packaged_artifacts_serve_on_card(dev, name, kw, sigma):
+    """Each packaged artifact through load_model on the card: the resnet
+    (bf16) and v56 (f32) against the port's f32 CPU output with the
+    serving bars (bf16: mean <= 1, p99 <= 3; f32: max <= 1, >= 99%
+    equal), v56 int8 within 2.5 gray levels (mean) of its f32 output on
+    the card, and every output closer to the clean image than the input."""
+    import blind_image_denoising_torch as bidt
+    clean, noisy = _smooth_noisy(2, 96, 80, sigma)
+    card = bidt.load_model(name, **kw)
+    out = card(noisy)
+    assert out.shape == noisy.shape and out.dtype == np.uint8
+    assert np.abs(out - clean).mean() < np.abs(noisy - clean).mean()
+    if kw.get("quant"):
+        f32 = bidt.load_model(name)(noisy)
+        assert np.abs(out.astype(int) - f32.astype(int)).mean() <= 2.5
+        return
+    ref = bidt.load_model(name, device="cpu", dtype="float32")(noisy)
+    diff = np.abs(out.astype(int) - ref.astype(int))
+    if card.model.dtype == torch.bfloat16:
+        assert diff.mean() <= 1.0 and np.percentile(diff, 99) <= 3
+    else:
+        assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+
+
+def test_int8_accumulators_bit_exact_on_card(dev, monkeypatch):
+    """Every int8 conv site of one v56 request: the int32 accumulator on
+    the card equals the int64 plain version on the host, on the same
+    codes."""
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.ops import quant
+    calls = []
+    real = quant.int8_conv
+
+    def recording(x8, k8, strides, padding, groups):
+        y = real(x8, k8, strides, padding, groups)
+        calls.append((x8.cpu(), k8.cpu(), y.cpu(), strides, padding,
+                      groups))
+        return y
+
+    monkeypatch.setattr(quant, "int8_conv", recording)
+    den = bidt.load_model("unet_laplacian_v56_highnoise", quant=True)
+    den(_smooth_noisy(1, 64, 64, 60.0)[1])
+    assert len(calls) == 55
+    for x8, k8, y, strides, padding, groups in calls:
+        ref = quant.int8_conv_reference(x8, k8, strides, padding, groups)
+        assert y.dtype == torch.int32 and torch.equal(y.long(), ref)
+
+
+@pytest.mark.parametrize("name", ["unet_laplacian_v56_highnoise",
+                                  "resnet_depthwise_scratch",
+                                  "unet_laplacian_v6_tpu_scratch"])
+def test_f32_forward_ignores_global_tf32_flags(dev, name):
+    """A float32 forward gives the same output whether the process allows
+    TF32 or not, and leaves the flags as it found them."""
+    import blind_image_denoising_torch as bidt
+    model = bidt.load_model(name, dtype="float32").model
+    x = torch.from_numpy(_smooth_noisy(2, 64, 64, 25.0)[1]).to(
+        dev).float().permute(0, 3, 1, 2)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    outs = []
+    try:
+        for flag in (True, False):
+            cudnn.allow_tf32 = matmul.allow_tf32 = flag
+            with torch.no_grad():
+                outs.append(model(x)[0])
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == (flag, flag)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    assert torch.equal(outs[0], outs[1])

@@ -60,7 +60,7 @@ def _tiny_v6():
     """``unet_laplacian_v6`` cut to filters 8 and width 2 (tests/
     test_fused.py's TINY_FLAGSHIP)."""
     cfg = copy.deepcopy(bidt.load_config(
-        bidt.configs["unet_laplacian_v6"])["model"])
+        bidt.CONFIGS_DICT["unet_laplacian_v6"])["model"])
     cfg["backbone"].update(filters=8, width=2)
     cfg["denoiser"]["filters"] = 8
     return cfg
@@ -135,7 +135,7 @@ def test_supports_fused_verdicts_match_jax():
         assert fused.supports_fused_head(h) == jax_fused.supports_fused_head(
             h), h
     # JAX raises TypeError on a per-level kernel list; the port declines
-    tpu = bidt.load_config(bidt.configs["unet_laplacian_v6_tpu"])["model"]
+    tpu = bidt.load_config(bidt.CONFIGS_DICT["unet_laplacian_v6_tpu"])["model"]
     with pytest.raises(TypeError):
         jax_fused.supports_fused(tpu["backbone"])
     assert not fused.supports_fused(tpu["backbone"])
@@ -272,7 +272,7 @@ def test_fused_module_imports_no_jax():
         "from blind_image_denoising_torch.training.train_state import (\n"
         "    init_params)\n"
         "cfg = copy.deepcopy(bidt.load_config(\n"
-        "    bidt.configs['unet_laplacian_v6'])['model'])\n"
+        "    bidt.CONFIGS_DICT['unet_laplacian_v6'])['model'])\n"
         "cfg['backbone'].update(filters=8, width=1)\n"
         "cfg['denoiser']['filters'] = 8\n"
         "m = model_builder(cfg).hydra\n"

@@ -1,6 +1,10 @@
 """The port's layers against their flax counterparts with the same
 parameters (carried across by ``params_from_flax``), float32 on the
-CPU, atol 1e-4."""
+CPU, atol 1e-4; the batch norms (flax ``nn.BatchNorm`` and
+``BiasFreeBatchNorm``, from perturbed running statistics), conv blocks
+with BatchNorm, bias, groups, depth multipliers and VALID padding, the
+LayerNorm bias, the normalized heads and the legacy multipliers within
+rtol 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -10,19 +14,24 @@ import torch
 
 from blind_image_denoising_tpu.layers.attention import (
     ConvolutionalSelfAttention as JaxAttention)
+import flax.linen as fnn
+
 from blind_image_denoising_tpu.layers.conv import ConvBlock as JaxConvBlock
+from blind_image_denoising_tpu.layers import multipliers as jmult
 from blind_image_denoising_tpu.layers.multipliers import (
     ChannelLearnableMultiplier as JaxMultiplier)
 from blind_image_denoising_tpu.layers.norm import (
-    FastLayerNorm as JaxLayerNorm)
+    BiasFreeBatchNorm as JaxBiasFreeBatchNorm, FastLayerNorm as JaxLayerNorm)
 from blind_image_denoising_tpu.models.hydra import (
     DenoiserHead as JaxDenoiserHead)
 from blind_image_denoising_torch.layers.attention import (
     ConvolutionalSelfAttention)
+from blind_image_denoising_torch.layers import multipliers as tmult
 from blind_image_denoising_torch.layers.conv import ConvBlock
 from blind_image_denoising_torch.layers.multipliers import (
     ChannelLearnableMultiplier)
-from blind_image_denoising_torch.layers.norm import FastLayerNorm
+from blind_image_denoising_torch.layers.norm import (
+    BatchNorm, BiasFreeBatchNorm, FastLayerNorm, parse_bn_flag)
 from blind_image_denoising_torch.models.hydra import DenoiserHead
 from blind_image_denoising_torch.weights import params_from_flax
 
@@ -112,3 +121,116 @@ def test_denoiser_head_matches_flax():
     ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
     got = _run_torch(DenoiserHead(cfg, 16), params, x)
     np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+# ------------------------------------------------- batch norms and options
+
+def _init_all(module, x, seed=0, perturb=0.3):
+    """params and batch_stats of a flax init, perturbed from numpy; the
+    variances and second moments stay positive."""
+    variables = module.init({"params": jax.random.PRNGKey(seed)},
+                            jnp.asarray(x))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        a = np.asarray(a)
+        if str(path[-1].key) in ("var", "mean_sq"):
+            return rng.uniform(0.3, 3.0, a.shape).astype(np.float32)
+        return (a + rng.normal(0, perturb, a.shape)).astype(np.float32)
+
+    return {k: jax.tree_util.tree_map_with_path(draw, v)
+            for k, v in variables.items() if k in ("params", "batch_stats")}
+
+
+def _check(jm, tm, x, rtol=1e-5, atol=1e-6, seed=0, **kw):
+    variables = _init_all(jm, x, seed=seed)
+    ref = np.asarray(jm.apply(variables, jnp.asarray(x), **kw))
+    tm.load_state_dict(params_from_flax(variables), strict=True)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(
+            0, 2, 3, 1).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("use_bias", [False, True])
+def test_batch_norm_inference_matches_flax(use_bias):
+    x = _x((2, 5, 6, 12), scale=2.0)
+    jm = fnn.BatchNorm(use_running_average=True, momentum=0.995,
+                       epsilon=1e-3, use_bias=use_bias, use_scale=True)
+    _check(jm, BatchNorm(12, use_bias=use_bias), x)
+
+
+def test_bias_free_batch_norm_matches_flax():
+    x = _x((2, 5, 6, 12), scale=2.0)
+    _check(JaxBiasFreeBatchNorm(), BiasFreeBatchNorm(12), x)
+
+
+def test_batch_norms_refuse_train_mode():
+    x = torch.zeros(1, 4, 2, 2)
+    for bn in (BatchNorm(4), BiasFreeBatchNorm(4)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            bn(x, train=True)
+    assert parse_bn_flag("bias_free") == (True, True)
+    assert parse_bn_flag(True) == (True, False)
+    with pytest.raises(ValueError):
+        parse_bn_flag("other")
+
+
+def test_layer_norm_bias_matches_flax():
+    x = _x((2, 5, 7, 16), scale=3.0)
+    jm = JaxLayerNorm(epsilon=1e-3, use_bias=True)
+    _check(jm, FastLayerNorm(16, epsilon=1e-3, use_bias=True), x, rtol=1e-4,
+           atol=1e-5)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(kernel_size=3, use_bn=True),
+    dict(kernel_size=3, use_bn=True, bn_center=True, use_bias=True),
+    dict(kernel_size=3, use_bn=True, bn_bias_free=True),
+    dict(kernel_size=1, groups=2, use_bn=True),
+    dict(kernel_size=3, depth_multiplier=4, use_bn=True),
+    dict(kernel_size=5, depth_multiplier=1, padding="VALID"),
+    dict(kernel_size=3, strides=2, padding="VALID", use_bias=True),
+    dict(kernel_size=1, use_ln=True, bn_center=True),
+])
+def test_conv_block_options_match_flax(opts):
+    x = _x((2, 11, 9, 8))
+    jopts = dict(opts)
+    topts = dict(opts)
+    if "strides" in opts:
+        jopts["strides"] = topts["strides"] = (opts["strides"],) * 2
+    features = 0 if "depth_multiplier" in opts else 12
+    jm = JaxConvBlock(features=features, activation="relu", **jopts)
+    tm = ConvBlock(8, features, activation="relu", **topts)
+    _check(jm, tm, x, rtol=1e-5, atol=1e-5)
+
+
+def test_depth_multiplier_reads_input_o_div_m():
+    """Output channel o of a depthwise conv with multiplier m reads input
+    channel o // m, as in lax."""
+    tm = ConvBlock(2, kernel_size=1, depth_multiplier=3)
+    with torch.no_grad():
+        tm.kernel.copy_(torch.arange(1.0, 7.0).view(6, 1, 1, 1))
+        y = tm(torch.tensor([1.0, 10.0]).view(1, 2, 1, 1)).flatten()
+    assert y.tolist() == [1.0, 2.0, 3.0, 40.0, 50.0, 60.0]
+
+
+@pytest.mark.parametrize("head", [dict(use_bn=True), dict(use_ln=True),
+                                  dict(use_bn="bias_free", use_bias=True)])
+def test_normalized_denoiser_heads_match_flax(head):
+    cfg = dict({"filters": 12, "activation": "relu", "output_channels": 3},
+               **head)
+    x = _x((2, 6, 5, 16))
+    _check(JaxDenoiserHead(cfg), DenoiserHead(cfg, 16), x, rtol=1e-5,
+           atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["Multiplier", "ChannelwiseMultiplier"])
+def test_legacy_multipliers_match_flax(name):
+    x = _x((2, 4, 3, 6))
+    jm = getattr(jmult, name)(multiplier=1.0, activation="relu",
+                              l1_coefficient=0.1)
+    tm = (tmult.Multiplier(1.0, "relu", 0.1) if name == "Multiplier"
+          else tmult.ChannelwiseMultiplier(6, 1.0, "relu", 0.1))
+    _check(jm, tm, x)

@@ -10,8 +10,10 @@
 * bfloat16 serving against JAX bfloat16 (same parameters): mean |Δ| <=
   1.0 and p99 <= 3 gray levels (JAX's own bf16-vs-f32 gap on the
   flagship at 128², σ = 10, is mean 0.65, p99 2);
-* the port imports no JAX, and needs an explicit CPU device without a
-  card.
+* the port imports no JAX while it serves the three packaged artifacts
+  (v56 in int8) and calibrates, and needs an explicit CPU device without
+  a card; ``quant=True`` on the flagship, which ships no
+  ``quant.msgpack``, raises ``ValueError`` as in JAX.
 """
 
 import copy
@@ -155,10 +157,16 @@ def test_port_imports_no_jax():
         "sys.meta_path.insert(0, _Block())\n"
         "import numpy as np\n"
         "import blind_image_denoising_torch as bidt\n"
-        "den = bidt.load_model('unet_laplacian_v6_tpu_scratch',\n"
-        "                      device='cpu')\n"
-        "out = den(np.full((40, 33, 3), 120, np.uint8))\n"
-        "assert out.shape == (40, 33, 3) and out.dtype == np.uint8\n"
+        "for name, kw in (('unet_laplacian_v6_tpu_scratch', {}),\n"
+        "                 ('resnet_depthwise_scratch', {}),\n"
+        "                 ('unet_laplacian_v56_highnoise', {'quant': True})):\n"
+        "    den = bidt.load_model(name, device='cpu', **kw)\n"
+        "    out = den(np.full((40, 33, 3), 120, np.uint8))\n"
+        "    assert out.shape == (40, 33, 3) and out.dtype == np.uint8\n"
+        "from blind_image_denoising_torch.inference import quantize\n"
+        "quantize.calibrate(den.model,\n"
+        "                   quantize.default_calibration_images(\n"
+        "                       noise_stds=(0.0,), size=32))\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -176,10 +184,14 @@ def test_load_model_without_cuda_needs_explicit_cpu(monkeypatch):
         bidt.load_model(FLAGSHIP, device="cuda")
 
 
-@pytest.mark.parametrize("option", [dict(tta=True), dict(quant=True)])
+@pytest.mark.parametrize("option", [
+    (dict(tta=True), NotImplementedError, "ROADMAP"),
+    # the flagship ships no int8 scales: ValueError, as in JAX
+    (dict(quant=True), ValueError, "quant.msgpack")])
 def test_unported_serving_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bidt.load_model(FLAGSHIP, device="cpu", **option)
+    kwargs, error, match = option
+    with pytest.raises(error, match=match):
+        bidt.load_model(FLAGSHIP, device="cpu", **kwargs)
 
 
 def test_registry_lists_packaged_artifacts():

@@ -21,6 +21,8 @@
   largest entry, against ``jax.grad`` of the JAX step's own
   ``forward_loss`` (taken from the ``build_train_step`` closure); every
   parameter receives a nonzero gradient.
+* JAX's own bf16-vs-f32 gradient cosine on the packaged flagship, beside
+  the port's on the same batch (measured; bar 0.99 for both).
 * The packaged flagship at full width through ``build_train_step`` for
   one step at b1 @ 64² with the noise kernel's plain path: the loss is
   finite, every parameter moves, and the fused inference unit K1 is never
@@ -77,7 +79,7 @@ CONFIG = "unet_laplacian_v6_tpu"
 
 
 def _config():
-    return load_config(bidt.configs[CONFIG])
+    return copy.deepcopy(load_config(bidt.CONFIGS_DICT[CONFIG]))
 
 
 def _images(n, h, w, seed):
@@ -378,6 +380,59 @@ def test_train_loss_and_every_gradient_match_jax():
     for name, p in named.items():
         assert p.grad is not None and float(p.grad.abs().max()) > 0, name
         assert _rel(p.grad.numpy(), ref[name].numpy()) <= 1e-4, name
+
+
+def test_jax_bf16_gradient_cosine_of_the_flagship():
+    """JAX's own bf16-vs-f32 gradient cosine, to set beside the port's
+    (0.9936 on the card against the f32 CPU step, ``chip_smoke.py``
+    ``train_check``): ``jax.grad`` of the JAX step's ``forward_loss`` on
+    the packaged flagship at full width, drop-path and dropout off, one
+    injected noisy batch of the whole-slice test's size (2 × 64²), in
+    bfloat16 and in float32, and the port's bf16 and f32 CPU gradients
+    on the same batch. It measures; it asserts no more than the port's
+    bar (cosine >= 0.99) of each package against its own f32."""
+    cfg = _config()
+    mc = copy.deepcopy(cfg["model"])
+    mc["backbone"].update(depth_drop_rate=0.0,
+                          convolutional_self_attention_dropout_rate=0.0)
+    tree = load_msgpack(f"{bidt.models[FLAGSHIP]['directory']}/params.msgpack")
+    rng = np.random.default_rng(2)
+    clean = np.round(_images(2, 64, 64, 2))
+    noisy = np.clip(np.round(clean + rng.normal(0, 20, clean.shape)),
+                    0, 255).astype(np.float32)
+    dw = np.full((3,), 1.0 / 3, np.float32)
+    jgt = jax_multiscale_targets(jnp.asarray(clean), 2, clip_values=True,
+                                 round_values=True)
+    gt = multiscale_targets(torch.from_numpy(clean), 2, clip_values=True,
+                            round_values=True)
+
+    def flat_jax(dtype):
+        grads, _ = _jax_grad_fn(jax_model_builder(mc, dtype=dtype).hydra,
+                                cfg)(tree["params"], {}, jnp.asarray(noisy),
+                                     jgt, jnp.asarray(dw),
+                                     jax.random.PRNGKey(1))
+        return np.concatenate([np.asarray(g, np.float64).ravel() for g in
+                               jax.tree_util.tree_leaves(grads)])
+
+    def flat_port(dtype):
+        hydra = model_builder(mc, dtype=dtype).hydra
+        hydra.load_state_dict(params_from_flax(tree))
+        total, _ = forward_loss(hydra, loss_function_builder(cfg["loss"]),
+                                3, torch.from_numpy(noisy), gt,
+                                torch.from_numpy(dw),
+                                torch.Generator().manual_seed(0))
+        total.backward()
+        return np.concatenate([p.grad.double().numpy().ravel()
+                               for _, p in sorted(hydra.named_parameters())])
+
+    def cosine(a, b):
+        return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+    jax_cos = cosine(flat_jax(jnp.bfloat16), flat_jax(jnp.float32))
+    port_cos = cosine(flat_port(torch.bfloat16), flat_port(None))
+    print(f"bf16-vs-f32 gradient cosine: JAX {jax_cos:.5f}, "
+          f"port (CPU) {port_cos:.5f}")
+    assert jax_cos >= 0.99 and port_cos >= 0.99, (jax_cos, port_cos)
 
 
 def test_bf16_hydra_epilogue_runs_in_float32():

@@ -76,3 +76,35 @@ def test_params_from_flax_layouts():
     q = sd["backbone.encoder_2_0_attn.query_conv.kernel"]
     assert tuple(q.shape) == (32, 128, 1, 1)
     assert len(sd) == len(_leaves(tree))
+
+
+@pytest.mark.parametrize("name", ARTIFACTS)
+def test_params_from_flax_shapes_cover_every_collection(name):
+    """Every leaf of params and batch_stats lands once, 4-D kernels as
+    OIHW (K1's unit matrices only for units whose convs are subtrees:
+    v5.6's leaf convs stay 4-D), and the result loads strictly into the
+    port's model of that artifact."""
+    import blind_image_denoising_torch as bidt
+    path = os.path.join(bid.models[name]["directory"], "params.msgpack")
+    with open(path, "rb") as f:
+        tree = flax.serialization.msgpack_restore(f.read())
+    sd = params_from_flax(tree)
+    leaves = [(c + "/" + p, a) for c in tree for p, a in _leaves(tree[c])]
+    assert len(sd) == len(leaves)
+    for p, a in leaves:
+        key = p.split("/", 1)[1].replace("/", ".")
+        got = tuple(sd[key].shape)
+        if a.ndim == 4 and got != (a.shape[3], a.shape[2], a.shape[0],
+                                   a.shape[1]):
+            assert got == (a.shape[3], a.shape[2]) and a.shape[:2] == (1, 1)
+            assert "unet_laplacian_v6" in name, p
+        elif a.ndim != 4:
+            assert got == a.shape, p
+    if name == "unet_laplacian_v56_highnoise":
+        assert tuple(sd["enc_0_0.conv_2"].shape) == (128, 32, 1, 1)
+    if name == "resnet_depthwise_scratch":
+        assert tuple(sd["backbone.skeleton.blocks.block_0_conv_2.kernel"]
+                     .shape) == (128, 1, 3, 3)
+        assert "backbone.skeleton.blocks.block_0_conv_2.bn.var" in sd
+    model = bidt.load_model(name, device="cpu", dtype="float32").model
+    model.load_state_dict(sd, strict=True)
