@@ -12,6 +12,9 @@ packaged artifacts by path.
     den = bidt.load_model("unet_laplacian_v6_tpu_scratch")   # on the card
     out = den(uint8_image)     # [H, W, 3] or [B, H, W, 3] uint8 in and out
 
+The ``Denoiser`` has the JAX package's signature and options (``pad_mode``,
+``tile_rows``, ``tta``, ``blend``, ``float_forward``, ``dispatch``), and
+``serving.BatchingDenoiser`` / ``evaluate.noise_sweep`` run over it.
 Every packaged artifact serves: the flagship, ``resnet_depthwise_scratch``
 and ``unet_laplacian_v56_highnoise`` (also int8, ``quant=True``).
 
@@ -49,12 +52,33 @@ CONFIGS_DICT = {_os.path.splitext(name)[0]: cfg for name, cfg in configs}
 # sys.modules
 from . import models as _models_subpackage  # noqa: F401,E402
 
-models = {}
-if _pretrained_dir.is_dir():
-    for _d in sorted(_pretrained_dir.iterdir()):
-        if _d.is_dir() and (_d / "params.msgpack").is_file():
-            models[_d.name] = {"directory": str(_d),
-                               "configuration": str(_d / "pipeline.json")}
+# the files that make a directory an artifact: the port's native one, and
+# the reference formats, which register as in JAX but do not load yet
+_ARTIFACT_FILES = ("params.msgpack", "model_hydra.keras",
+                   "denoiser_model.tflite", "saved_model.pb",
+                   "denoiser/saved_model.pb")
+
+
+def _find_models() -> dict:
+    """The registry: every artifact directory under the packaged
+    ``pretrained/`` and under the roots of ``BID_TPU_PRETRAINED_PATH``
+    (colon-separated), first name wins, as in the JAX package."""
+    found = {}
+    roots = [_pretrained_dir] + [
+        _pathlib.Path(p) for p in
+        _os.environ.get("BID_TPU_PRETRAINED_PATH", "").split(":") if p]
+    for root in roots:
+        if not root.is_dir():
+            continue
+        for d in sorted(root.iterdir()):
+            if d.is_dir() and d.name not in found and any(
+                    (d / f).is_file() for f in _ARTIFACT_FILES):
+                found[d.name] = {"directory": str(d),
+                                 "configuration": str(d / "pipeline.json")}
+    return found
+
+
+models = _find_models()
 
 
 def load_model(name_or_path, quant: bool = False, tta=False, dtype=None,
@@ -70,8 +94,10 @@ def load_model(name_or_path, quant: bool = False, tta=False, dtype=None,
     ``unet_laplacian_v56_highnoise``, which names none). ``blend``:
     ``None`` serves the artifact's ``blend.json`` when it ships one,
     ``False`` disables it. ``device``: ``None`` is the card (raises
-    without one); pass ``"cpu"`` to run on the CPU. ``tta`` is not
-    ported yet and raises."""
+    without one); pass ``"cpu"`` to run on the CPU. ``tta``: the
+    dihedral self-ensemble, ``True``/``8`` members, ``4`` (the flips) or
+    ``2`` ({id, 180°}). A directory that holds only reference formats
+    (``.keras``, TFLite, SavedModel) raises ``NotImplementedError``."""
     from .inference.export import load_exported_model, resolve_device
 
     resolve_device(device)

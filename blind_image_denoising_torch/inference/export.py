@@ -19,25 +19,14 @@ import torch
 from ..config import load_config
 from ..models.hydra import model_builder
 from ..models.unet_laplacian_v56 import UnetLaplacianV56
-from ..weights import attach_quant_scales, load_msgpack, params_from_flax
-from .denoiser import Denoiser
+from ..weights import load_msgpack
+from .denoiser import Denoiser, resolve_device
 
 PARAMS_FILE = "params.msgpack"
 CONFIG_FILE = "pipeline.json"
 QUANT_FILE = "quant.msgpack"
 
 logger = logging.getLogger("blind_image_denoising_torch")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Asking for CUDA without one raises; the
-    port never falls back to the CPU unless the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the port "
-            "on the CPU")
-    return dev
 
 
 def resolve_compute_dtype(dtype, config: Optional[dict] = None):
@@ -111,7 +100,8 @@ def load_exported_model(directory: Union[str, Path],
     """Load an artifact directory into a ready :class:`Denoiser` on
     ``device`` (default: the card). ``quant=True`` serves the int8 path
     with the artifact's ``quant.msgpack`` scales and forces the float32
-    compute dtype, since the calibration measured float32 activations."""
+    compute dtype, since the calibration measured float32 activations.
+    ``tta``: the dihedral self-ensemble (``True``/8, 4 or 2 members)."""
     dev = resolve_device(device)
     directory = Path(str(directory))
     config = load_config(str(directory / CONFIG_FILE))
@@ -122,9 +112,10 @@ def load_exported_model(directory: Union[str, Path],
         model = UnetLaplacianV56(dtype=compute_dtype)
     else:
         model = model_builder(config["model"], dtype=compute_dtype).hydra
-    model.load_state_dict(params_from_flax(load_msgpack(
-        directory / PARAMS_FILE)), strict=True)
+    variables = load_msgpack(directory / PARAMS_FILE)
+    if "params" not in variables:
+        variables = {"params": variables}
     if quant_scales is not None:
-        attach_quant_scales(model, quant_scales)
-    return Denoiser(model, dev, cast_to_uint8=cast_to_uint8,
-                    blend=blend_table, tta=tta, quant=quant)
+        variables = dict(variables, quant=quant_scales)
+    return Denoiser(model, variables, cast_to_uint8=cast_to_uint8,
+                    quant=quant, tta=tta, blend=blend_table, device=dev)

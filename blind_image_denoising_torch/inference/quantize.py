@@ -12,7 +12,7 @@ takes it and JAX's ``load_model(quant=True)`` would accept it::
     from blind_image_denoising_torch.inference.quantize import calibrate
     quant = calibrate(model, images)            # model: Hydra / v56
     attach_quant_scales(model, quant)
-    den = Denoiser(model, device, quant=True)   # int8 serving
+    den = Denoiser(model, quant=True, device=device)   # int8 serving
 """
 
 import logging

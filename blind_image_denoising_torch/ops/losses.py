@@ -6,6 +6,8 @@ signed error, so only positive residuals count. Inputs are
 [B, H, W, C] float32; the means run over each sample, then the batch.
 """
 
+import math
+
 import torch
 
 from ..constants import DEFAULT_EPSILON
@@ -31,3 +33,11 @@ def rmse(original: torch.Tensor, prediction: torch.Tensor,
     d = torch.square(_hinged_relu(original - prediction, hinge, cutoff))
     return torch.mean(torch.sqrt(torch.mean(d, dim=(1, 2, 3))
                                  + DEFAULT_EPSILON))
+
+
+def psnr(original: torch.Tensor, prediction: torch.Tensor,
+         max_val: float = 255.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB, the mean over the batch."""
+    mse = torch.mean(torch.square(original - prediction), dim=(1, 2, 3))
+    return torch.mean(20.0 * math.log10(max_val)
+                      - 10.0 * torch.log10(mse + 1e-12))

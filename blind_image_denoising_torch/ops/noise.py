@@ -56,6 +56,19 @@ def corrupt_batch(generator: torch.Generator, batch: torch.Tensor,
     return noisy
 
 
+def corrupt_batch_fixed_std(generator: torch.Generator, batch: torch.Tensor,
+                            std: float,
+                            round_values: bool = True) -> torch.Tensor:
+    """Additive ±2σ truncated-normal noise at a fixed std, then optional
+    rounding: the evaluation sweep's corruption (``evaluate.py``,
+    ``inference/blend.calibrate_blend``)."""
+    noisy = batch + float(std) * truncated_normal(
+        tuple(batch.shape), generator, device=batch.device)
+    if round_values:
+        noisy = torch.round(noisy)
+    return noisy
+
+
 def random_flips(generator: torch.Generator, batch: torch.Tensor,
                  left_right: bool = True,
                  up_down: bool = True) -> torch.Tensor:

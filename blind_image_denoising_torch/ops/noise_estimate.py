@@ -5,7 +5,9 @@ Immerkaer's biharmonic stencil made robust with a median:
 ``sigma_hat = median(|x * N|) / (6 * 0.674490)``. The median is the
 NumPy/JAX one — for an even count it averages the two middle values —
 which ``torch.median`` is not (it returns the lower one), so it is
-computed from a sort here.
+computed from a sort here. The sort is stable, as JAX's is, so where
+values tie the median's gradient lands on the same element as in JAX
+(``Denoiser.float_forward`` differentiates through the blend).
 """
 
 import torch
@@ -31,7 +33,7 @@ def median_last(v: torch.Tensor) -> torch.Tensor:
     """Median over the last axis with NumPy's convention: the mean of the
     two middle values for an even count."""
     n = v.shape[-1]
-    s = torch.sort(v, dim=-1).values
+    s = torch.sort(v, dim=-1, stable=True).values
     return (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
 
 

@@ -9,10 +9,22 @@ from ..constants import DEFAULT_EPSILON
 from .resize import avg_pool_same
 
 
+def _clip_input(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip`` of an input that requires grad (``Denoiser.
+    float_forward``): jnp.clip is a max then a min, so a pixel at exactly
+    a bound (0 or 255, common in images) passes half its gradient, where
+    ``torch.clamp`` passes all of it. Every other caller takes
+    ``torch.clamp``: the values are the same."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    return torch.minimum(torch.maximum(x, torch.tensor(lo, dtype=x.dtype)),
+                         torch.tensor(hi, dtype=x.dtype))
+
+
 def normalize(x: torch.Tensor, v_min: float = 0.0,
               v_max: float = 255.0) -> torch.Tensor:
     """[v_min, v_max] -> [-0.5, +0.5] with clipping."""
-    y = torch.clamp(x, v_min, v_max)
+    y = _clip_input(x, v_min, v_max)
     return (y - v_min) / (v_max - v_min) - 0.5
 
 

@@ -22,10 +22,12 @@ Layouts (flax → torch):
 Batch statistics (``batch_stats``) merge into the same state dict as the
 params, and :func:`attach_quant_scales` hangs the int8 scales of a
 ``quant.msgpack`` on the modules at their flax paths.
+:func:`flax_from_params` goes the other way: a model (or its state
+dict) back to the flax variables tree.
 """
 
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
@@ -143,6 +145,9 @@ def _is_convnext_unit(node: Dict) -> bool:
 
 
 _COLLECTIONS = ("params", "batch_stats")
+# the leaves of a flax BatchNorm / BiasFreeBatchNorm that live in its
+# batch_stats collection
+_BATCH_STATS_LEAVES = ("mean", "var", "mean_sq")
 
 
 def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
@@ -151,8 +156,9 @@ def params_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
     state dict whose keys are the flax paths joined by ``.``, with the
     layouts of the module docstring. The collections merge into one
     dict: a BatchNorm's ``scale``/``bias`` (params) and ``mean``/``var``
-    or ``mean_sq`` (batch_stats) sit on the same module."""
-    if set(tree) <= set(_COLLECTIONS) and "params" in tree:
+    or ``mean_sq`` (batch_stats) sit on the same module. A ``quant``
+    collection is skipped: :func:`attach_quant_scales` takes it."""
+    if set(tree) <= {*_COLLECTIONS, "quant"} and "params" in tree:
         trees = [tree[c] for c in _COLLECTIONS if c in tree]
     else:
         trees = [tree]
@@ -208,3 +214,47 @@ def attach_quant_scales(model: torch.nn.Module, quant: Dict) -> int:
 
     walk(quant, "")
     return n
+
+
+def _set_path(tree: Dict, parts, value) -> None:
+    for part in parts[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[parts[-1]] = value
+
+
+def flax_from_params(model: Union[torch.nn.Module, Dict[str, torch.Tensor]]
+                     ) -> Dict:
+    """The inverse of :func:`params_from_flax`: a model, or its state
+    dict, → the flax variables tree of float32 numpy arrays,
+    ``{"params": ..., "batch_stats": ...}`` (batch_stats where the model
+    has BatchNorm statistics), plus ``quant`` when a module is given that
+    carries int8 scales (:func:`attach_quant_scales`). OIHW kernels go
+    back to HWIO and a ConvNext unit's 1×1 matrices to ``[1, 1, in,
+    out]``."""
+    quant = {}
+    if isinstance(model, torch.nn.Module):
+        state = model.state_dict()
+        for name, buf in model.named_buffers():
+            if name not in state and name.endswith("_scale"):
+                quant[name] = buf
+    else:
+        state = model
+    # module paths of the ConvNext units whose convs are subtrees
+    units = {k.rsplit(".conv_1.", 1)[0] for k in state if ".conv_1." in k}
+    tree: Dict[str, Dict] = {}
+    for key, t in state.items():
+        parts = key.split(".")
+        a = t.detach().float().cpu().numpy()
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)                # OIHW -> HWIO
+        elif (a.ndim == 2 and parts[-2:-1] in (["conv_2"], ["conv_3"])
+              and ".".join(parts[:-2]) in units):
+            a = a.T[None, None]                        # [out, in] -> 1x1
+        collection = ("batch_stats" if parts[-1] in _BATCH_STATS_LEAVES
+                      else "params")
+        _set_path(tree.setdefault(collection, {}), parts,
+                  np.ascontiguousarray(a))
+    for name, buf in quant.items():
+        _set_path(tree.setdefault("quant", {}), name.split("."),
+                  np.asarray(buf.detach().float().cpu().numpy()))
+    return tree

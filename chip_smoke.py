@@ -6,6 +6,16 @@ drive the two paths of the port through the entry points a user calls:
 
 * serve: the packaged flagship ``unet_laplacian_v6_tpu_scratch`` through
   ``load_model`` (bf16, adaptive blend on), three requests;
+* inference: the JAX ``Denoiser``'s whole surface on the flagship —
+  TTA (8 members on 512², 4 on b8 @ 256², equivariance), tiling (the
+  resnet tiled against untiled, a 2160×3840 frame with its peak memory),
+  ``float_forward``'s input gradient against the CPU (with its spread
+  over seeds and sizes), ``dispatch`` under
+  ``torch.cuda.set_sync_debug_mode("error")``, ``BatchingDenoiser`` with
+  64 clients at pipeline depth 1 and 2 (answers against each image
+  alone, then a steady-state window), and ``evaluate.noise_sweep``;
+  then every K1 / K2 / K2-backward shape the phase launched against the
+  plain versions;
 * train: the flagship's train step (``unet_laplacian_v6_tpu`` config,
   the packaged weights, bf16 compute) through ``build_train_step`` on
   b16 @ 128² with the noise kernel on — first one injected batch
@@ -44,10 +54,13 @@ user runs the library; only the kernel checks hold TF32 off.
 """
 
 import argparse
+import contextlib
+import faulthandler
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -727,7 +740,561 @@ def artifacts_phase(bidt, rng, smi, acts, read_counts, zero_counts,
         raise AssertionError(f"artifacts phase failed: {failed}")
 
 
+# ---------------------------------------------------------------- inference
+
+def tile_patches(h, w, t):
+    """Forwards a tiled Denoiser runs on an h×w image with tile_rows t:
+    bands along the longer axis, each split once more along the other
+    axis when that is still over t (``Denoiser._run_tiled``)."""
+    if max(h, w) <= t:
+        return 1
+    n, other = (h, w) if h >= w else (w, h)
+    return -(-n // t) * (-(-other // t) if other > t else 1)
+
+
+class KernelInputs:
+    """Within the block, records every distinct K1 / K2 / K2-backward
+    launch the port makes on the card: (shape, dtype, kernel size) with
+    the first such call's weights. The layers import the wrappers by
+    name, so the block wraps those names (and K2's backward, which its
+    autograd Function looks up in ``ops/pallas_pyramid``); the wrapped
+    call is the wrapper's own, counts included."""
+
+    def __init__(self):
+        from blind_image_denoising_torch.layers import convnext as layer
+        from blind_image_denoising_torch.models import unet_laplacian
+        from blind_image_denoising_torch.ops import pallas_pyramid
+        self._sites = [(layer, "convnext_block"),
+                       (unet_laplacian, "band_smooth"),
+                       (pallas_pyramid, "band_smooth_bwd")]
+        self.seen = {name: {} for _, name in self._sites}
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def _wrap(self, name, fn):
+        def recording(x, *args, **kw):
+            if x.is_cuda:
+                key = (tuple(x.shape), x.dtype,
+                       kw["dw"].shape[-1] if "dw" in kw else args[-1])
+                with self._lock:
+                    self.seen[name].setdefault(key, (args, kw))
+            return fn(x, *args, **kw)
+        return recording
+
+    def __enter__(self):
+        for module, name in self._sites:
+            fn = getattr(module, name)
+            self._saved.append((module, name, fn))
+            setattr(module, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+        self._saved = []
+
+
+def check_kernel_inputs(pallas_convnext, pallas_pyramid, seen, seed):
+    """Each recorded K1 / K2 / K2-backward shape against the plain
+    version, in bf16 and float32, on N(0, 1) inputs with the recorded
+    call's weights. Tolerances: K1 f32 1e-3, K2 and its backward bf16 1
+    ulp and f32 1e-5, as in phase 3. K1 bf16: 0.05 + 1 bf16 ulp of the
+    plain output, phase 3's 0.05 taken before the output's own bf16
+    rounding. Phase 3's max(0.05, 1 ulp) counts a gap of 0.04 before
+    that rounding as 2 ulps where |out| is in [4, 8) (0.0625 > 0.05);
+    the 2176x3840 frame's 267 M outputs meet such a case, so the elements
+    over phase 3's formula are counted and logged beside this bar.
+    Returns the largest bf16 error of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst = dict(convnext_block=0.0, band_smooth=0.0, band_smooth_bwd=0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for (shape, _, k), (_, kw) in sorted(seen["convnext_block"].items(),
+                                             key=str):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            wts = {n: v.to(dtype) for n, v in kw.items() if n != "slope"}
+            got = pallas_convnext.convnext_block(x, slope=kw["slope"], **wts)
+            ref = pallas_convnext.convnext_block_plain(x, slope=kw["slope"],
+                                                       **wts)
+            diff = (got.float() - ref.float()).abs()
+            err = float(diff.max())
+            extra = {}
+            if dtype == torch.bfloat16:
+                ulp = bf16_ulp(ref)
+                ok = bool((diff <= 0.05 + ulp).all())
+                over = (diff > torch.clamp(ulp, min=0.05)).nonzero()
+                extra = dict(n_over_phase3_formula=len(over), over=[
+                    dict(plain=float(ref[tuple(i)]),
+                         kernel=float(got[tuple(i)]))
+                    for i in over[:4].tolist()])
+                worst["convnext_block"] = max(worst["convnext_block"], err)
+                del ulp, over
+            else:
+                ok = err <= 1e-3
+            log("check", path="inference", kernel="convnext_block",
+                shape=list(shape), K=k, dtype=str(dtype), max_abs_err=err,
+                tolerance="0.05 + 1 bf16 ulp" if dtype == torch.bfloat16
+                else "1e-3", n_elements=diff.numel(), **extra)
+            if not ok:
+                raise AssertionError(f"convnext_block {shape} {dtype}: {err}")
+            del x, got, ref, diff
+        for kernel, fwd in (("band_smooth", True), ("band_smooth_bwd", False)):
+            for shape, _, k in sorted(seen[kernel], key=str):
+                ins = [torch.randn(shape, generator=gen, device="cuda").to(
+                    dtype) for _ in range(1 if fwd else 2)]
+                if fwd:
+                    got = pallas_pyramid.band_smooth(*ins, k)
+                    ref = pallas_pyramid.band_smooth_plain(*ins, k)
+                else:
+                    got = [pallas_pyramid.band_smooth_bwd(*ins, k)]
+                    ref = [pallas_pyramid.band_smooth_bwd_plain(*ins, k)]
+                diffs = [(o.float() - r.float()).abs()
+                         for o, r in zip(got, ref)]
+                err = max(float(d.max()) for d in diffs)
+                if dtype == torch.float32:
+                    ok = err <= 1e-5
+                else:
+                    ok = all(bool((d <= bf16_ulp(r)).all())
+                             for d, r in zip(diffs, ref))
+                    worst[kernel] = max(worst[kernel], err)
+                log("check", path="inference", kernel=kernel,
+                    shape=list(shape), dtype=str(dtype), max_abs_err=err,
+                    tolerance="1 bf16 ulp" if dtype == torch.bfloat16
+                    else "1e-5")
+                if not ok:
+                    raise AssertionError(f"{kernel} {shape} {dtype}: {err}")
+                del ins, got, ref, diffs
+    torch.cuda.empty_cache()
+    return worst
+
+
+@contextlib.contextmanager
+def leaky_relu_signs(out):
+    """Within the block, appends (x > 0) of every ``F.leaky_relu`` input
+    to ``out`` (on the host): the kinks of the flagship's gradient."""
+    leaky = F.leaky_relu
+
+    def recording(x, negative_slope=0.01, inplace=False):
+        out.append((x.detach() > 0).cpu())
+        return leaky(x, negative_slope, inplace)
+
+    F.leaky_relu = recording
+    try:
+        yield
+    finally:
+        F.leaky_relu = leaky
+
+
+@contextlib.contextmanager
+def leaky_relu_pinned(signs):
+    """Within the block, the n-th ``F.leaky_relu`` call takes its slope
+    from ``signs[n]`` (another run's x > 0) instead of from x: the same
+    function but at a kink that the two runs round to opposite sides."""
+    leaky, it = F.leaky_relu, iter(signs)
+
+    def pinned(x, negative_slope=0.01, inplace=False):
+        return torch.where(next(it).to(x.device), x, x * negative_slope)
+
+    F.leaky_relu = pinned
+    try:
+        yield
+    finally:
+        F.leaky_relu = leaky
+
+
+def gray_gap(a, b):
+    d = np.abs(np.asarray(a).astype(np.int32) - np.asarray(b).astype(np.int32))
+    return dict(mean=float(d.mean()), p99=float(np.percentile(d, 99)),
+                max=int(d.max()), equal_share=float((d == 0).mean()))
+
+
+def inference_phase(bidt, den, rng, smi, read_counts, counts):
+    """The JAX Denoiser's whole surface on the card through the flagship
+    (bf16, blend on) unless a point names another model: TTA (8 members
+    on a 512² image, 4 on b8 @ 256², equivariance, a 481×321 image),
+    tiling (the resnet tiled against untiled on 1024×768; the flagship on
+    a 2160×3840 frame with tile_rows=512: peak memory and the gray-level
+    gap), float_forward's input gradient in float32 against the CPU,
+    dispatch under torch.cuda.set_sync_debug_mode("error"), the batching
+    server (64 clients × 4 images of 256² against each image alone, then
+    6 s steady-state windows; max_batch 32, max_wait 5 ms, pipeline
+    depth 1 and 2) and evaluate.noise_sweep. Every bar raises once all
+    points are logged."""
+    from blind_image_denoising_torch.evaluate import noise_sweep
+    from blind_image_denoising_torch.images import load_evaluation_images
+    from blind_image_denoising_torch.inference.denoiser import (Denoiser,
+                                                                HostCopy)
+    from blind_image_denoising_torch.ops.precision import exact_float32
+    from blind_image_denoising_torch.serving import BatchingDenoiser
+    failed, report = [], {}
+
+    def delta(before):
+        now = read_counts()
+        return {k: now[k] - before[k] for k in now}
+
+    def timed_ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    # 1. TTA
+    clean_512 = synthetic_images(1, 512, 512, rng)[0]
+    noisy_512 = add_noise(clean_512, 25.0, rng)
+    clean_b8 = synthetic_images(8, 256, 256, rng)
+    noisy_b8 = add_noise(clean_b8, 25.0, rng)
+    tta8 = bidt.load_model(FLAGSHIP, tta=8)
+    tta4 = bidt.load_model(FLAGSHIP, tta=4)
+    c0 = read_counts()
+    out8 = tta8(noisy_512)
+    torch.cuda.synchronize()
+    n8 = delta(c0)
+    c0 = read_counts()
+    out4 = tta4(noisy_b8)
+    torch.cuda.synchronize()
+    n4 = delta(c0)
+    if n8 != counts(convnext_block=80, band_smooth=16) or \
+            n4 != counts(convnext_block=40, band_smooth=8):
+        failed.append(f"tta launches: 8 members {n8}, 4 members {n4}")
+    plain = den(noisy_512)
+    equiv = Denoiser(tta8.model, cast_to_uint8=False, tta=8,
+                     blend=tta8.blend)
+    sq = noisy_b8[0]
+    y = equiv(sq)
+    gaps = {"flip_lr": float(np.abs(equiv(sq[:, ::-1]) - y[:, ::-1]).max()),
+            "transpose": float(np.abs(equiv(sq.transpose(1, 0, 2))
+                                      - y.transpose(1, 0, 2)).max())}
+    bsd = add_noise(synthetic_images(1, 321, 481, rng)[0], 25.0, rng)
+    out_bsd = tta8(bsd)
+    if max(gaps.values()) > 1e-2:
+        failed.append(f"tta equivariance {gaps}")
+    for o, r in ((out8, noisy_512), (out4, noisy_b8), (out_bsd, bsd)):
+        if o.shape != r.shape or o.dtype != np.uint8:
+            failed.append(f"tta output {o.shape} {o.dtype}")
+    report["tta"] = dict(
+        launches_tta8_512=n8, launches_tta4_b8_256=n4,
+        equivariance_max_abs=gaps, bar="K1, K2 = members x (10, 2) per "
+        "forward; equivariance max |d| <= 1e-2",
+        mae_512=dict(noisy=float(np.abs(noisy_512 - clean_512).mean()),
+                     plain=float(np.abs(plain - clean_512).mean()),
+                     tta8=float(np.abs(out8 - clean_512).mean())),
+        tta8_512_ms=timed_ms(lambda: tta8(noisy_512), 5),
+        tta4_b8_256_ms=timed_ms(lambda: tta4(noisy_b8), 5),
+        plain_512_ms=timed_ms(lambda: den(noisy_512), 5))
+
+    # 2. tiling
+    resnet = bidt.load_model(ARTIFACT_RESNET)
+    frame = add_noise(synthetic_images(1, 1024, 768, rng)[0], 25.0, rng)
+    c0 = read_counts()
+    r_tiled = Denoiser(resnet.model, tile_rows=256, tile_halo=64,
+                       blend=resnet.blend)(frame)
+    r_full = resnet(frame)
+    torch.cuda.synchronize()
+    r_counts = delta(c0)
+    r_gap = gray_gap(r_tiled, r_full)
+    if r_gap["max"] > 1 or r_gap["equal_share"] < 0.999 or \
+            r_counts != counts():
+        failed.append(f"resnet tiled vs untiled {r_gap} {r_counts}")
+    clean_4k = synthetic_images(1, 2160, 3840, rng)[0]
+    frame_4k = add_noise(clean_4k, 25.0, rng)
+    tiled = Denoiser(den.model, tile_rows=512, blend=den.blend)
+    patches = tile_patches(2160, 3840, 512)
+    mem, outs_4k, ms_4k, n_4k = {}, {}, {}, {}
+    for name, d in (("untiled", den), ("tiled", tiled)):
+        d(frame_4k)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        c0 = read_counts()
+        outs_4k[name] = d(frame_4k)
+        torch.cuda.synchronize()
+        n_4k[name] = delta(c0)
+        mem[name] = dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         above_resident_gib=(torch.cuda.max_memory_allocated()
+                                             - base) / 2**30)
+        ms_4k[name] = timed_ms(lambda: d(frame_4k), 3)
+    if n_4k["tiled"] != counts(convnext_block=10 * patches,
+                               band_smooth=2 * patches) or \
+            n_4k["untiled"] != counts(convnext_block=10, band_smooth=2):
+        failed.append(f"4K launches {n_4k} for {patches} patches")
+    report["tiling"] = dict(
+        resnet_1024x768_tile256_vs_untiled=r_gap,
+        resnet_bar="max <= 1, >= 99.9% equal; no K1-K4 launch",
+        flagship_2160x3840=dict(
+            tile_rows=512, patches=patches, launches=n_4k, memory=mem,
+            tiled_vs_untiled_gray=gray_gap(outs_4k["tiled"],
+                                           outs_4k["untiled"]),
+            mae=dict(noisy=float(np.abs(frame_4k - clean_4k).mean()),
+                     **{k: float(np.abs(o - clean_4k).mean())
+                        for k, o in outs_4k.items()}),
+            frame_ms=ms_4k))
+
+    # 3. float_forward: the input gradient in float32, card vs CPU
+    x = add_noise(synthetic_images(1, 128, 128, rng), 25.0, rng).astype(
+        np.float32)
+    fdens = {d: bidt.load_model(FLAGSHIP, dtype="float32", device=d)
+             for d in ("cuda", "cpu")}
+
+    def card_vs_cpu(img, blend):
+        """cosine and max |g_card - g_cpu| / max |g_cpu| of the gradient
+        of float_forward's sum, the leaky-ReLU inputs whose sign differs
+        between the card and the CPU, the same ratio with the card held
+        to the CPU's signs, and the card's launches."""
+        grads, signs, launched = {}, {}, None
+        for device, pin in (("cpu", False), ("cuda", False), ("cuda", True)):
+            fden = fdens[device]
+            d = fden if blend else Denoiser(fden.model, device=device)
+            xt = torch.from_numpy(img).to(device).requires_grad_(True)
+            signs[device, pin] = []
+            c0 = read_counts()
+            with exact_float32(device == "cuda"), (
+                    leaky_relu_pinned(signs["cpu", False]) if pin
+                    else leaky_relu_signs(signs[device, pin])):
+                (g,) = torch.autograd.grad(d.float_forward(xt).sum(), xt)
+            if device == "cuda" and not pin:
+                torch.cuda.synchronize()
+                launched = delta(c0)
+            grads[device, pin] = g.double().cpu().ravel()
+        ref = grads["cpu", False]
+
+        def ratio(g):
+            return float((g - ref).abs().max() / ref.abs().max())
+
+        g = grads["cuda", False]
+        cos = float(g @ ref / g.norm() / ref.norm())
+        flips = sum(int((a != b).sum()) for a, b in zip(
+            signs["cpu", False], signs["cuda", False]))
+        return cos, ratio(g), flips, ratio(grads["cuda", True]), launched
+
+    cos, rel, flips, rel_pinned, ff_counts = card_vs_cpu(x, blend=True)
+    if cos < 0.9999 or rel > 1e-3 or ff_counts != counts(
+            band_smooth=2, band_smooth_bwd=2):
+        failed.append(f"float_forward gradient cos {cos} rel {rel} "
+                      f"{ff_counts}")
+    # the ratio's spread over seeds and sizes, with the blend and without
+    # it; a leaky-ReLU input that the card and the CPU round to opposite
+    # sides of 0 takes the other slope, which moves the gradient in its
+    # receptive field by O(1), so each reading carries its count of them
+    srng = np.random.default_rng(SEED + 2)
+    spread = []
+    for h, w in ((128, 128), (256, 256)):
+        for _ in range(3):
+            img = add_noise(synthetic_images(1, h, w, srng), 25.0,
+                            srng).astype(np.float32)
+            for blend in (True, False):
+                c, r, f, rp, _ = card_vs_cpu(img, blend)
+                spread.append(dict(shape=[h, w], blend=blend, cosine=c,
+                                   rel=r, leaky_relu_sign_flips=f,
+                                   rel_cpu_signs=rp))
+                if c < 0.9999 or rp > 1e-3:
+                    failed.append(f"float_forward gradient {h}x{w} blend "
+                                  f"{blend}: cosine {c}, with the CPU's "
+                                  f"signs {rp}")
+    report["float_forward"] = dict(
+        shape=list(x.shape), dtype="float32", cosine_card_vs_cpu=cos,
+        max_abs_diff_over_max_abs_cpu=rel, leaky_relu_sign_flips=flips,
+        rel_cpu_signs=rel_pinned, launches=ff_counts,
+        bar="cosine >= 0.9999, max |g_card - g_cpu| / max |g_cpu| <= 1e-3; "
+            "K2 backward launches, K1 does not; the spread: cosine >= "
+            "0.9999, the ratio with the card held to the CPU's leaky-ReLU "
+            "signs <= 1e-3",
+        spread=spread)
+    del fdens
+
+    # 4. dispatch makes no host sync
+    want = den(noisy_b8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = HostCopy(den.dispatch(noisy_b8))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same = bool(np.array_equal(np.asarray(pending), want))
+    if not same:
+        failed.append("dispatch result differs from the synchronous call")
+    report["dispatch"] = dict(sync_debug_mode="error", raised=False,
+                              equals_call=same)
+
+    # 5. the batching server: 64 clients × 4 images at depth 1 and 2,
+    # each answer against the same image served alone; then the
+    # throughput and latency of a steady-state window per depth
+    clean_pool = synthetic_images(16, 256, 256, rng)
+    requests = [add_noise(clean_pool[i % 16], 25.0, rng) for i in range(256)]
+    alone = [den(r) for r in requests]
+    torch.cuda.synchronize()
+
+    class Recording:
+        """The Denoiser, recording the time and batch size of every
+        dispatch."""
+
+        def __init__(self):
+            self.sizes, self.times = [], []
+
+        def dispatch(self, batch):
+            self.times.append(time.perf_counter())
+            self.sizes.append(batch.shape[0])
+            return den.dispatch(batch)
+
+        def __call__(self, batch):
+            return den(batch)
+
+    def histogram(sizes):
+        return {str(b): sizes.count(b) for b in sorted(set(sizes))}
+
+    serving = {}
+    warm = BatchingDenoiser(den, max_batch=32, max_wait_ms=5)
+    warm.warm((256, 256, 3))
+    warm.close()
+    for depth in (1, 2):
+        rec = Recording()
+        batcher = BatchingDenoiser(rec, max_batch=32, max_wait_ms=5,
+                                   pipeline_depth=depth)
+        answers = [None] * 256
+
+        def client(c):
+            for j in range(4):
+                answers[4 * c + j] = batcher(requests[4 * c + j])
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(64)]
+        c0 = read_counts()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        batcher.close()
+        torch.cuda.synchronize()
+        n_b = delta(c0)
+        if any(t.is_alive() for t in threads) or any(
+                a is None for a in answers):
+            failed.append(f"batcher depth {depth}: unanswered requests")
+            continue
+        gap = gray_gap(np.stack(answers), np.stack(alone))
+        if gap["mean"] > 0.1 or gap["p99"] > 1:
+            failed.append(f"batcher depth {depth} vs alone {gap}")
+        if n_b != counts(convnext_block=10 * len(rec.sizes),
+                         band_smooth=2 * len(rec.sizes)):
+            failed.append(f"batcher depth {depth} launches {n_b} for "
+                          f"{len(rec.sizes)} batches")
+        serving[f"depth_{depth}_check"] = dict(
+            batches=len(rec.sizes), bucket_histogram=histogram(rec.sizes),
+            launches=n_b, vs_alone_gray=gap)
+
+    def clients(batcher, stop, spans):
+        """64 threads sending requests without pause until ``stop``."""
+        def client(c):
+            j = 0
+            while not stop.is_set():
+                req = requests[(4 * c + j) % 256]
+                j += 1
+                t0 = time.perf_counter()
+                batcher(req)
+                spans[c].append((t0, time.perf_counter()))
+
+        return [threading.Thread(target=client, args=(c,))
+                for c in range(64)]
+
+    def steady(depth, warm_s=2.0, window_s=6.0):
+        """After warm_s of 64 clients sending without pause, the requests
+        that end in a window_s window (images/s) and those that both
+        start and end in it (latency)."""
+        rec = Recording()
+        batcher = BatchingDenoiser(rec, max_batch=32, max_wait_ms=5,
+                                   pipeline_depth=depth)
+        stop, spans = threading.Event(), [[] for _ in range(64)]
+        threads = clients(batcher, stop, spans)
+        c0 = read_counts()
+        for t in threads:
+            t.start()
+        time.sleep(warm_s)
+        w0 = time.perf_counter()
+        time.sleep(window_s)
+        w1 = time.perf_counter()
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        batcher.close()
+        torch.cuda.synchronize()
+        n_b = delta(c0)
+        if any(t.is_alive() for t in threads):
+            failed.append(f"steady batcher depth {depth}: clients hang")
+        if n_b != counts(convnext_block=10 * len(rec.sizes),
+                         band_smooth=2 * len(rec.sizes)):
+            failed.append(f"steady batcher depth {depth} launches {n_b} "
+                          f"for {len(rec.sizes)} batches")
+        ended = [t1 for sp in spans for _, t1 in sp if w0 <= t1 < w1]
+        lat = [(t1 - t0) * 1e3 for sp in spans for t0, t1 in sp
+               if t0 >= w0 and t1 < w1]
+        sizes = [b for t, b in zip(rec.times, rec.sizes) if w0 <= t < w1]
+        return dict(window_s=w1 - w0, warm_s=warm_s,
+                    images_per_s=len(ended) / (w1 - w0),
+                    request_ms_p50=float(np.percentile(lat, 50)),
+                    request_ms_p99=float(np.percentile(lat, 99)),
+                    requests_in_window=len(lat), batches=len(sizes),
+                    bucket_histogram=histogram(sizes))
+
+    for depth in (1, 2):
+        serving[f"depth_{depth}"] = steady(depth)
+    # where a depth-2 run's time goes: 3 s of clients under the profiler,
+    # entered before the threads start (thread start included)
+    rec = Recording()
+    batcher = BatchingDenoiser(rec, max_batch=32, max_wait_ms=5,
+                               pipeline_depth=2)
+    stop, spans = threading.Event(), [[] for _ in range(64)]
+    threads = clients(batcher, stop, spans)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(3.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    batcher.close()
+    rows = [r for r in profile_rows(prof)
+            if not r[2].startswith(("denoiser.", "quant."))]
+    busy = sum(r[0] for r in rows)
+    serving["profiled_depth_2"] = dict(
+        wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+        idle_share_profiled=1 - busy / wall_us, batches=len(rec.sizes),
+        images=sum(len(sp) for sp in spans),
+        device_ms_per_batch=busy / 1e3 / max(1, len(rec.sizes)),
+        bucket_histogram=histogram(rec.sizes),
+        kernels=sum(r[1] for r in rows),
+        top=[dict(us=round(us, 1), count=c, name=k[:60])
+             for us, c, k in rows[:6]])
+    report["batching"] = dict(
+        clients=64, shape=[256, 256, 3], max_batch=32, max_wait_ms=5,
+        bar="64 clients x 4 images: vs alone mean <= 0.1, p99 <= 1; K1, "
+        "K2 = (10, 2) per dispatched bucket", **serving)
+
+    # 6. evaluate.noise_sweep over the packaged evaluation images
+    images = load_evaluation_images(256)[:4]
+    c0 = read_counts()
+    records = noise_sweep(den, images, stds=(5, 25, 50))
+    torch.cuda.synchronize()
+    sweep_counts = delta(c0)
+    by_std = {r["noise_std"]: r for r in records}
+    if not all(by_std[s]["mae_denoised"] < by_std[s]["mae_noisy"]
+               for s in (25.0, 50.0)):
+        failed.append("noise_sweep: denoised MAE not below noisy")
+    report["noise_sweep"] = dict(records=records, launches=sweep_counts,
+                                 bar="mae_denoised < mae_noisy at 25, 50")
+    log("inference", smi=smi, **report)
+    if failed:
+        raise AssertionError(f"inference phase failed: {failed}")
+
+
 def main() -> int:
+    faulthandler.enable()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-out", type=Path, default=None,
                         help="write the profiled per-kernel table here")
@@ -1082,6 +1649,28 @@ def main() -> int:
         device_us_per_request=by_group, stages_per_request=stages,
         top=[dict(us=round(us, 1), count=c, name=k[:80])
              for us, c, k in rows[:12]])
+
+    # ---- phase 5b: the Denoiser's whole surface (TTA, tiling,
+    # float_forward, dispatch, the batching server, the noise sweep), on a
+    # generator of its own so the later phases keep their inputs
+    reset_counts()
+    with KernelInputs() as kernel_inputs:
+        inference_phase(bidt, den, np.random.default_rng(SEED + 1), smi,
+                        read_counts, counts)
+    inference_counts = read_counts()
+    if not all(inference_counts[k] for k in ("convnext_block", "band_smooth",
+                                             "band_smooth_bwd")):
+        raise AssertionError(f"inference phase launched {inference_counts}")
+    torch.cuda.empty_cache()
+    # every shape the phase gave K1, K2 and K2's backward (tile bands, the
+    # 2160x3840 frame untiled, TTA members, batch buckets 1-32, the f32
+    # gradient) against the plain versions
+    for kernel, err in check_kernel_inputs(
+            pallas_convnext, pallas_pyramid, kernel_inputs.seen,
+            SEED + 3).items():
+        errors[kernel] = max(errors[kernel], err)
+    log("inference_checks", shapes={k: len(v) for k, v in
+                                    kernel_inputs.seen.items()})
 
     # ---- phase 6: the train step, the second path
     tree = load_msgpack(Path(bidt.models[FLAGSHIP]["directory"])
@@ -1538,7 +2127,9 @@ def main() -> int:
                              else sum(n * t[key] for n, t, _, _ in rows_k))
         bound = sum(n * bd for n, _, bd, _ in rows_k)
         bound_by = max(rows_k, key=lambda r: r[0] * r[2])[3]
-        by_path = dict(serve=serve_counts[name], train=train_counts[name],
+        by_path = dict(serve=serve_counts[name],
+                       inference=inference_counts[name],
+                       train=train_counts[name],
                        fused=fused_counts[name],
                        band_split=split_counts[name],
                        artifacts=artifact_counts[name])

@@ -236,7 +236,7 @@ def test_quant_without_scales_raises():
         bidt.load_model(RESNET, device="cpu", quant=True)
     model = bidt.load_model(V56, device="cpu").model
     with pytest.raises(ValueError, match="calibrat"):
-        Denoiser(model, "cpu", quant=True)
+        Denoiser(model, quant=True, device="cpu")
 
 
 # ---------------------------------------------------------------- calibration
@@ -274,7 +274,7 @@ def test_calibrate_matches_jax(name):
     fresh = bidt.load_model(name, device="cpu", dtype="float32").model
     assert attach_quant_scales(fresh, tquantize.calibrate(
         fresh, images[:1])) == len(ref)
-    out = Denoiser(fresh, "cpu", quant=True)(images[0].astype(np.uint8))
+    out = Denoiser(fresh, quant=True, device="cpu")(images[0].astype(np.uint8))
     assert out.shape == images[0].shape
 
 

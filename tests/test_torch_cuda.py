@@ -26,6 +26,13 @@ The packaged artifacts on the card: each serves within the serving bars
 of the port's f32 CPU output, every int8 conv accumulator of a v5.6
 request equals the int64 plain version, and a float32 forward gives the
 same output whatever the global TF32 flags say.
+
+The Denoiser's surface on the card: TTA launches 10 K1 and 2 K2 per
+member and is equivariant to within 1e-2; the resnet tiled equals it
+untiled within one gray level on >= 99.9% of pixels; ``dispatch`` makes
+no host sync (``torch.cuda.set_sync_debug_mode("error")``); the
+gradient of ``float_forward`` matches the CPU's (cosine >= 0.9999)
+through K2's backward.
 """
 
 import numpy as np
@@ -482,3 +489,99 @@ def test_f32_forward_ignores_global_tf32_flags(dev, name):
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
     assert torch.equal(outs[0], outs[1])
+
+
+# ------------------------------------------------- the Denoiser's surface
+
+@pytest.mark.parametrize("tta,shape", [(8, (1, 128, 96, 3)),
+                                       (4, (2, 64, 64, 3)),
+                                       (2, (1, 64, 64, 3))])
+def test_tta_launches_kernels_per_member(dev, tta, shape):
+    """Each TTA member is one flagship forward: 10 K1 and 2 K2 launches
+    per member (transposed members of a non-square image included), and
+    the ensemble keeps the uint8 contract."""
+    import blind_image_denoising_torch as bidt
+    den = bidt.load_model("unet_laplacian_v6_tpu_scratch", tta=tta)
+    img = _smooth_noisy(*shape[:3], 20.0)[1]
+    k1, k2 = pallas_convnext.launches, pallas_pyramid.launches
+    out = den(img)
+    assert out.shape == img.shape and out.dtype == np.uint8
+    assert (pallas_convnext.launches - k1,
+            pallas_pyramid.launches - k2) == (10 * tta, 2 * tta)
+
+
+def test_tta_equivariant_on_card(dev):
+    """The 8-member ensemble on the card is equivariant to a flip and a
+    transpose of the input (its members are summed in float64)."""
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.inference.denoiser import Denoiser
+    served = bidt.load_model("unet_laplacian_v6_tpu_scratch")
+    den = Denoiser(served.model, cast_to_uint8=False, tta=8,
+                   blend=served.blend)
+    img = _smooth_noisy(1, 96, 96, 20.0)[1][0]
+    y = den(img)
+    assert np.abs(den(img[:, ::-1]) - y[:, ::-1]).max() <= 1e-2
+    assert np.abs(den(img.transpose(1, 0, 2))
+                  - y.transpose(1, 0, 2)).max() <= 1e-2
+
+
+def test_resnet_tiled_equals_untiled_on_card(dev):
+    """The fully convolutional resnet: 256-row tiles with a 64 halo give
+    the untiled frame within one gray level, >= 99.9% equal. In float32,
+    so the check is of the tiling: in bf16 the tiles' shapes let cuDNN
+    pick other algorithms, whose other summation order flips a bf16
+    rounding on ~0.4% of the pixels (chip_smoke.py holds the bf16
+    artifact to the same bar on its 1024×768 frame)."""
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.inference.denoiser import Denoiser
+    den = bidt.load_model("resnet_depthwise_scratch", dtype="float32")
+    tiled = Denoiser(den.model, tile_rows=256, tile_halo=64)
+    img = _smooth_noisy(1, 640, 384, 25.0)[1][0]
+    diff = np.abs(tiled(img).astype(int) - den(img).astype(int))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+
+
+def test_dispatch_makes_no_host_sync(dev):
+    """dispatch (pinned upload, the pipeline, the uint8 epilogue) and the
+    HostCopy that starts the result's way back raise nothing under
+    torch.cuda.set_sync_debug_mode("error"); the copy then equals the
+    synchronous answer."""
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.inference.denoiser import HostCopy
+    den = bidt.load_model("unet_laplacian_v6_tpu_scratch")
+    img = _smooth_noisy(2, 64, 96, 20.0)[1]
+    want = den(img)                         # builds and warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = den.dispatch(img)
+        host = HostCopy(out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.is_cuda and out.dtype == torch.uint8
+    np.testing.assert_array_equal(np.asarray(host), want)
+
+
+def test_float_forward_gradient_on_card(dev):
+    """The gradient of float_forward's sum with respect to the input, in
+    float32 on the card, against the CPU: cosine >= 0.9999 and
+    max |g_card - g_cpu| / max |g_cpu| <= 1e-3; K2's backward kernel
+    launches, K1 does not (autograd takes the units' plain path)."""
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.ops.precision import exact_float32
+    img = _smooth_noisy(1, 64, 64, 20.0)[1].astype(np.float32)
+    grads = []
+    for device in ("cuda", "cpu"):
+        den = bidt.load_model("unet_laplacian_v6_tpu_scratch",
+                              dtype="float32", device=device)
+        x = torch.from_numpy(img).to(device).requires_grad_(True)
+        k1, kb = pallas_convnext.launches, pallas_pyramid.bwd_launches
+        with exact_float32(device == "cuda"):
+            (g,) = torch.autograd.grad(den.float_forward(x).sum(), x)
+        if device == "cuda":
+            assert pallas_convnext.launches == k1
+            assert pallas_pyramid.bwd_launches - kb == 2
+        grads.append(g.double().cpu().ravel())
+    cos = float(grads[0] @ grads[1] / grads[0].norm() / grads[1].norm())
+    rel = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    assert cos >= 0.9999 and rel <= 1e-3, (cos, rel)

@@ -163,7 +163,8 @@ def test_port_imports_no_jax():
         "    den = bidt.load_model(name, device='cpu', **kw)\n"
         "    out = den(np.full((40, 33, 3), 120, np.uint8))\n"
         "    assert out.shape == (40, 33, 3) and out.dtype == np.uint8\n"
-        "from blind_image_denoising_torch.inference import quantize\n"
+        "from blind_image_denoising_torch import evaluate, serving\n"
+        "from blind_image_denoising_torch.inference import blend, quantize\n"
         "quantize.calibrate(den.model,\n"
         "                   quantize.default_calibration_images(\n"
         "                       noise_stds=(0.0,), size=32))\n"
@@ -185,13 +186,20 @@ def test_load_model_without_cuda_needs_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    (dict(tta=True), NotImplementedError, "ROADMAP"),
+    # mesh serving is the last serving option not ported (tta is,
+    # tests/test_torch_inference.py)
+    (dict(mesh=object()), NotImplementedError, "ROADMAP"),
     # the flagship ships no int8 scales: ValueError, as in JAX
     (dict(quant=True), ValueError, "quant.msgpack")])
 def test_unported_serving_options_raise(option):
+    from blind_image_denoising_torch.inference.denoiser import Denoiser
     kwargs, error, match = option
     with pytest.raises(error, match=match):
-        bidt.load_model(FLAGSHIP, device="cpu", **kwargs)
+        if "mesh" in kwargs:
+            Denoiser(bidt.load_model(FLAGSHIP, device="cpu").model,
+                     device="cpu", **kwargs)
+        else:
+            bidt.load_model(FLAGSHIP, device="cpu", **kwargs)
 
 
 def test_registry_lists_packaged_artifacts():
