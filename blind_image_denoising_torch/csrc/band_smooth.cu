@@ -20,10 +20,26 @@
 // custom VJP _band_smooth_bwd / _pool_transpose (XLA there; a kernel here
 // because autograd cannot see through the forward kernel). A^T z sums
 // z * inv_count over the k^2 windows that cover a pixel: the transposed
-// padding (k-1-lo, lo). Also memory-bound: one read each of g_band and
-// g_smooth, one write of dx; the neighbours' loads hit L1/L2. float32
-// sums in the tap order of band_smooth_bwd_plain, written in the grad
-// dtype.
+// padding (k-1-lo, lo). On the H100 it is bound by memory: one read each
+// of g_band and g_smooth and one write of dx, 3 B H W C bytes against
+// 3.35 TB/s, and 3k^2 + 1 float operations per element. The first
+// version (one thread per 16-byte vector over a flat index) ran at half
+// that bound: five 64-bit % and / per vector, an IEEE reciprocal per
+// tap, and k^2 loads of each vector, those of the rows above from L2.
+// This one: the work is 2-D tiles of rows x pixels x all C, walked by
+// persistent blocks (as many as fit on the SMs at once); a block loads
+// both grads of its tile and the tile's halo once (16 bytes a thread,
+// 32-bit offsets within an image, no division in the loop), forms z once
+// per staged pixel in float32 into shared memory, and sums each output's
+// k^2 taps from there in band_smooth_bwd_plain's order (rows outer,
+// columns inner, from 0.0, out-of-image taps adding 0.0 as its padding
+// does), adds g_band kept beside z and stores 16 bytes: bit-exact.
+// While it sums one tile, the loads of its next tile are in flight, so
+// the block does not leave the memory system idle across its barriers.
+// bwd_plan below gives the tile; ops/pallas_pyramid.py bwd_tile_plan
+// mirrors it.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -105,56 +121,282 @@ int launch(const void* x, void* band, void* smooth, int B, int H, int W,
   return (int)cudaGetLastError();
 }
 
+// Tile plan of the backward for one shape: a block owns th rows x tw
+// pixels x all C channels; its threads form bdx x bdy with bdx = tw * C/V
+// (one 16-byte channel vector each across a tile row) and own
+// kRowsPerThread rows each. tw aims at kRowVectors vectors per tile row;
+// th and then tw halve until the staged tile, (th + k - 1) x (tw + k - 1)
+// pixels of float32 z, and the tile's own g_band fit kMaxSmem.
+// ops/pallas_pyramid.py bwd_tile_plan mirrors it.
+constexpr int kBwdThreads = 256;
+constexpr int kRowVectors = 128;
+constexpr int kRowsPerThread = 2;
+// resident blocks per SM the register budget must allow, and halo
+// vectors a thread loads ahead with its own
+constexpr int kBwdMinBlocks = 3;
+constexpr int kHaloSlots = 1;
+constexpr int kMaxSmem = 232448;
+
+struct BwdPlan {
+  int tw, th, bdx, bdy, smem;
+};
+
+inline int bwd_plan(int H, int W, int C, int k, int V, BwdPlan* p) {
+  const int cv = C / V;
+  if (cv > kBwdThreads) return BID_ERR_UNSUPPORTED;
+  int tw = max(1, min(W, kRowVectors / cv));
+  int th = -1;
+  for (;;) {
+    const int bdx = tw * cv;
+    const int bdy = max(1, min(kBwdThreads / bdx, H));
+    if (th < 0) th = max(1, min(H, bdy * kRowsPerThread));
+    const long long smem = 4ll * (th + k - 1) * (tw + k - 1) * C +
+                           16ll / V * th * tw * C;
+    if (smem <= kMaxSmem) {
+      *p = BwdPlan{tw, th, bdx, bdy, (int)smem};
+      return 0;
+    }
+    if (th > 1) {
+      th = (th + 1) / 2;
+    } else if (tw > 1) {
+      tw = (tw + 1) / 2;
+    } else {
+      return BID_ERR_UNSUPPORTED;
+    }
+  }
+}
+
+// dx = g_band + A^T z with z = (g_smooth - g_band) * inv_count, over
+// tiles. A block is persistent: it walks the tiles t, t + gridDim.x, ...
+// and, while it sums tile t from shared memory, the loads of tile t +
+// gridDim.x are already in flight into registers, so they overlap the
+// block's barriers and its sum. Per tile:
+//   commit: z of each thread's own kRowsPerThread output vectors and of
+//     its kHaloSlots halo vectors (the k - 1 wide border, hl rows and
+//     columns above and left, lo below and right) goes from the loaded
+//     registers to shared memory as float32, zero outside the image;
+//     halo vectors beyond the slots (large k only) load there and then;
+//   sum: each thread adds the k^2 staged z of its outputs in the plain
+//     version's tap order (rows outer, columns inner, from 0.0), adds its
+//     g_band (kept in shared memory by the commit, which frees its
+//     registers for the next tile's loads) and stores 16 bytes.
+// Shared memory holds z in V/4 planes of float4, so a thread's vector is
+// one 16-byte access per plane and a warp's accesses are conflict-free.
+//
+// KK: the window size when it is known at compile time (2, the flagship's
+// gaussian_kernel_size, whose taps unroll), 0 for any k.
 template <typename T>
-__global__ void __launch_bounds__(256) band_smooth_bwd_kernel(
-    const T* __restrict__ g_band, const T* __restrict__ g_smooth,
-    T* __restrict__ dx, int B, int H, int W, int C, int k) {
+struct BwdStage {
+  static constexpr int R = kRowsPerThread, S = kHaloSlots;
+  Vec16<T> b[R], s[R];          // own output vectors: g_band, g_smooth
+  Vec16<T> hb[S], hs[S];        // halo vectors
+  int hz[S], hy[S], hx[S];      // their staged index (-1: none), pixel
+  int h0, w0;                   // the tile's first row and column
+  size_t img;                   // its image's first element
+};
+
+template <typename T, int KK>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+    band_smooth_bwd_kernel(const T* __restrict__ g_band,
+                           const T* __restrict__ g_smooth,
+                           T* __restrict__ dx, int B, int H, int W, int C,
+                           int k_arg, int tw, int th) {
   constexpr int V = Vec16<T>::N;
+  constexpr int NP = V / 4;                       // float4 planes
+  constexpr int R = kRowsPerThread, S = kHaloSlots;
+  extern __shared__ float4 zs[];
+  const int k = KK > 0 ? KK : k_arg;
   const int cv_n = C / V;
-  const long long n = (long long)B * H * W * cv_n;
-  const int lo = (k - 1) / 2;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int cv = (int)(i % cv_n);
-    const long long pix = i / cv_n;
-    const int w = (int)(pix % W);
-    const long long bh = pix / W;
-    const int h = (int)(bh % H);
-    const long long b = bh / H;
-    // the windows covering (h, w) are those of outputs y0 .. y0 + k - 1
-    // (output y's window spans rows y - lo .. y - lo + k - 1), same for w
-    const int y0 = h - (k - 1 - lo), x0 = w - (k - 1 - lo);
-    float acc[V];
+  const int lo = (k - 1) / 2, hl = k - 1 - lo;    // reach above / below
+  const int rv = tw * cv_n;                       // vectors per tile row
+  const int erv = (tw + k - 1) * cv_n;            // per staged row
+  const int plane = (th + k - 1) * erv;           // float4 per plane
+  uint4* const gc = reinterpret_cast<uint4*>(zs + NP * plane);  // centres
+  const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + th - 1) / th;
+  const int n_tiles = tiles_x * tiles_y * B;
+  const int n_rows = (k - 1) * erv, side = (k - 1) * cv_n;
+  const int n_halo = n_rows + th * side;
+  const float inv_full = __fdiv_rn(1.f, (float)(k * k));
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nt = blockDim.x * blockDim.y, tl = ty * blockDim.x + tx;
+  // this thread's column: pixel p of the tile, channel vector c
+  const int p = tx / cv_n, c = tx - p * cv_n;
+
+  // staged (er, ev) of halo vector q
+  auto halo_at = [&](int q, int& er, int& ev) {
+    if (q < n_rows) {
+      er = q / erv;
+      ev = q - er * erv;
+      if (er >= hl) er += th;
+    } else {
+      const int r = (q - n_rows) / side, s = q - n_rows - r * side;
+      er = hl + r;
+      ev = s < hl * cv_n ? s : s + rv;
+    }
+  };
+  auto load = [&](const T* base, int y, int x, int cc) {
+    Vec16<T> v;
+    v.raw = *reinterpret_cast<const uint4*>(base + (y * W + x) * C + cc * V);
+    return v;
+  };
+  // issue every load of tile t into st (no use yet)
+  auto issue = [&](int t, BwdStage<T>& st) {
+    const int bx = t % tiles_x, rest = t / tiles_x;
+    st.h0 = (rest % tiles_y) * th;
+    st.w0 = bx * tw;
+    st.img = (size_t)(rest / tiles_y) * H * W * C;
+    const T* gb = g_band + st.img;
+    const T* gs = g_smooth + st.img;
+    const int x = st.w0 + p;
 #pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = 0.f;
-    for (int dy = 0; dy < k; ++dy) {
-      const int y = y0 + dy;
-      if (y < 0 || y >= H) continue;
-      const int rows = min(y - lo + k, H) - max(y - lo, 0);
-      for (int dxx = 0; dxx < k; ++dxx) {
-        const int xx = x0 + dxx;
-        if (xx < 0 || xx >= W) continue;
-        const int cols = min(xx - lo + k, W) - max(xx - lo, 0);
-        const float inv = __fdiv_rn(1.f, (float)(rows * cols));
-        const long long off = ((b * H + y) * W + xx) * C + cv * V;
-        Vec16<T> tb, ts;
-        tb.raw = *reinterpret_cast<const uint4*>(g_band + off);
-        ts.raw = *reinterpret_cast<const uint4*>(g_smooth + off);
-#pragma unroll
-        for (int j = 0; j < V; ++j)
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(__fsub_rn(bid::to_float(ts[j]),
-                                                         bid::to_float(tb[j])),
-                                               inv));
+    for (int i = 0; i < R; ++i) {
+      const int r = ty + i * blockDim.y, y = st.h0 + r;
+      st.b[i].raw = st.s[i].raw = make_uint4(0u, 0u, 0u, 0u);
+      if (r < th && y < H && x < W) {
+        st.b[i] = load(gb, y, x, c);
+        st.s[i] = load(gs, y, x, c);
       }
     }
-    const long long off = ((b * H + h) * W + w) * C + cv * V;
-    Vec16<T> gc, out;
-    gc.raw = *reinterpret_cast<const uint4*>(g_band + off);
 #pragma unroll
-    for (int j = 0; j < V; ++j)
-      out[j] = bid::from_float<T>(__fadd_rn(bid::to_float(gc[j]), acc[j]));
-    *reinterpret_cast<uint4*>(dx + off) = out.raw;
+    for (int m = 0; m < S; ++m) {
+      const int q = tl + m * nt;
+      st.hz[m] = -1;
+      if (q < n_halo) {
+        int er, ev;
+        halo_at(q, er, ev);
+        const int pe = ev / cv_n, ce = ev - pe * cv_n;
+        const int y = st.h0 - hl + er, xx = st.w0 - hl + pe;
+        st.hz[m] = er * erv + ev;
+        st.hy[m] = -1;
+        if (y >= 0 && y < H && xx >= 0 && xx < W) {
+          st.hy[m] = y;
+          st.hx[m] = xx;
+          st.hb[m] = load(gb, y, xx, ce);
+          st.hs[m] = load(gs, y, xx, ce);
+        }
+      }
+    }
+  };
+  // z of one staged vector (pixel (y, xx) in the image) into shared memory
+  auto put_z = [&](int zi, int y, int xx, Vec16<T> tb, Vec16<T> ts) {
+    const int rows = min(y - lo + k, H) - max(y - lo, 0);
+    const int cols = min(xx - lo + k, W) - max(xx - lo, 0);
+    const int cnt = rows * cols;
+    const float inv = cnt == k * k ? inv_full : __fdiv_rn(1.f, (float)cnt);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      float4 z;
+      z.x = __fmul_rn(__fsub_rn(bid::to_float(ts[4 * q]), bid::to_float(tb[4 * q])), inv);
+      z.y = __fmul_rn(__fsub_rn(bid::to_float(ts[4 * q + 1]), bid::to_float(tb[4 * q + 1])), inv);
+      z.z = __fmul_rn(__fsub_rn(bid::to_float(ts[4 * q + 2]), bid::to_float(tb[4 * q + 2])), inv);
+      z.w = __fmul_rn(__fsub_rn(bid::to_float(ts[4 * q + 3]), bid::to_float(tb[4 * q + 3])), inv);
+      zs[q * plane + zi] = z;
+    }
+  };
+  auto put_zero = [&](int zi) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) zs[q * plane + zi] = make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+
+  BwdStage<T> st;
+  int t = blockIdx.x;
+  if (t < n_tiles) issue(t, st);
+  for (; t < n_tiles; t += gridDim.x) {
+    // commit tile t
+    const int h0 = st.h0, w0 = st.w0, x = w0 + p;
+    const size_t img = st.img;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = ty + i * blockDim.y, y = h0 + r;
+      if (r >= th) continue;
+      gc[r * rv + tx] = st.b[i].raw;
+      const int zi = (r + hl) * erv + tx + hl * cv_n;
+      if (y < H && x < W) {
+        put_z(zi, y, x, st.b[i], st.s[i]);
+      } else {
+        put_zero(zi);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+      if (st.hz[m] < 0) continue;
+      if (st.hy[m] >= 0) {
+        put_z(st.hz[m], st.hy[m], st.hx[m], st.hb[m], st.hs[m]);
+      } else {
+        put_zero(st.hz[m]);
+      }
+    }
+    for (int q = tl + S * nt; q < n_halo; q += nt) {
+      int er, ev;
+      halo_at(q, er, ev);
+      const int pe = ev / cv_n, ce = ev - pe * cv_n;
+      const int y = h0 - hl + er, xx = w0 - hl + pe;
+      if (y >= 0 && y < H && xx >= 0 && xx < W) {
+        put_z(er * erv + ev, y, xx, load(g_band + img, y, xx, ce),
+              load(g_smooth + img, y, xx, ce));
+      } else {
+        put_zero(er * erv + ev);
+      }
+    }
+    __syncthreads();
+    // the next tile's loads go out before this tile's sum
+    if (t + (int)gridDim.x < n_tiles) issue(t + gridDim.x, st);
+    T* __restrict__ out = dx + img;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = ty + i * blockDim.y, y = h0 + r;
+      if (r >= th || y >= H || x >= W) continue;
+      float acc[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = 0.f;
+      auto tap = [&](int dy, int dxx) {
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          const float4 z = zs[q * plane + (r + dy) * erv + tx + dxx * cv_n];
+          acc[4 * q] = __fadd_rn(acc[4 * q], z.x);
+          acc[4 * q + 1] = __fadd_rn(acc[4 * q + 1], z.y);
+          acc[4 * q + 2] = __fadd_rn(acc[4 * q + 2], z.z);
+          acc[4 * q + 3] = __fadd_rn(acc[4 * q + 3], z.w);
+        }
+      };
+      if constexpr (KK > 0) {
+#pragma unroll
+        for (int dy = 0; dy < KK; ++dy)
+#pragma unroll
+          for (int dxx = 0; dxx < KK; ++dxx) tap(dy, dxx);
+      } else {
+#pragma unroll 1
+        for (int dy = 0; dy < k; ++dy)
+#pragma unroll 1
+          for (int dxx = 0; dxx < k; ++dxx) tap(dy, dxx);
+      }
+      Vec16<T> cen, o;
+      cen.raw = gc[r * rv + tx];
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        o[j] = bid::from_float<T>(__fadd_rn(bid::to_float(cen[j]), acc[j]));
+      *reinterpret_cast<uint4*>(out + (y * W + x) * C + c * V) = o.raw;
+    }
+    __syncthreads();                  // the sum is done with shared memory
   }
+}
+
+template <typename T>
+auto bwd_kernel(int k) {
+  return k == 2 ? band_smooth_bwd_kernel<T, 2> : band_smooth_bwd_kernel<T, 0>;
+}
+
+// resident blocks per SM of the instantiation for window k at smem bytes
+template <typename T>
+int bwd_resident(int k, const BwdPlan& p, int* blocks) {
+  const auto kern = bwd_kernel<T>(k);
+  if (p.smem > 48 * 1024) {          // above the default, per device
+    const cudaError_t a = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (a != cudaSuccess) return (int)a;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kern, p.bdx * p.bdy, p.smem);
 }
 
 template <typename T>
@@ -162,16 +404,43 @@ int launch_bwd(const void* g_band, const void* g_smooth, void* dx, int B,
                int H, int W, int C, int k, cudaStream_t stream) {
   constexpr int V = Vec16<T>::N;
   if (C % V != 0 || k < 1 || B < 0 || H < 0 || W < 0) return BID_ERR_BAD_ARGUMENT;
-  const long long n = (long long)B * H * W * (C / V);
-  if (n == 0) return 0;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  const long long cap = (long long)bid::sm_count() * 16;
-  if (blocks > cap) blocks = cap;
-  band_smooth_bwd_kernel<T><<<(int)blocks, threads, 0, stream>>>(
+  if ((long long)B * H * W * C == 0) return 0;
+  if ((long long)H * W * C > INT_MAX) return BID_ERR_UNSUPPORTED;
+  BwdPlan p;
+  int e = bwd_plan(H, W, C, k, V, &p);
+  if (e != 0) return e;
+  const long long tiles = (long long)((W + p.tw - 1) / p.tw) *
+                          ((H + p.th - 1) / p.th) * B;
+  if (tiles > INT_MAX) return BID_ERR_UNSUPPORTED;
+  int per_sm = 0;
+  e = bwd_resident<T>(k, p, &per_sm);
+  if (e != 0) return e;
+  if (per_sm < 1) return BID_ERR_UNSUPPORTED;
+  const long long cap = (long long)bid::sm_count() * per_sm;
+  const auto kern = bwd_kernel<T>(k);
+  kern<<<(int)(tiles < cap ? tiles : cap), dim3(p.bdx, p.bdy), p.smem,
+         stream>>>(
       static_cast<const T*>(g_band), static_cast<const T*>(g_smooth),
-      static_cast<T*>(dx), B, H, W, C, k);
+      static_cast<T*>(dx), B, H, W, C, k, p.tw, p.th);
   return (int)cudaGetLastError();
+}
+
+// plan, registers, spill bytes and resident blocks per SM, as v[0..7]:
+// tile width, tile height, threads x, threads y, shared bytes, registers,
+// local (spill) bytes per thread, blocks per SM
+template <typename T>
+int bwd_info(int H, int W, int C, int k, int* v) {
+  constexpr int V = Vec16<T>::N;
+  if (C % V != 0 || k < 1 || H < 1 || W < 1) return BID_ERR_BAD_ARGUMENT;
+  BwdPlan p;
+  int e = bwd_plan(H, W, C, k, V, &p);
+  if (e != 0) return e;
+  cudaFuncAttributes a;
+  e = (int)cudaFuncGetAttributes(&a, bwd_kernel<T>(k));
+  if (e != 0) return e;
+  v[0] = p.tw; v[1] = p.th; v[2] = p.bdx; v[3] = p.bdy; v[4] = p.smem;
+  v[5] = a.numRegs; v[6] = (int)a.localSizeBytes;
+  return bwd_resident<T>(k, p, &v[7]);
 }
 
 }  // namespace
@@ -182,6 +451,13 @@ extern "C" int bid_band_smooth_bwd(const void* g_band, const void* g_smooth,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_bwd<float>(g_band, g_smooth, dx, B, H, W, C, k, s);
   if (dtype == 1) return launch_bwd<bid::bf16>(g_band, g_smooth, dx, B, H, W, C, k, s);
+  return BID_ERR_UNSUPPORTED;
+}
+
+extern "C" int bid_band_smooth_bwd_info(int H, int W, int C, int k,
+                                        int dtype, int* info) {
+  if (dtype == 0) return bwd_info<float>(H, W, C, k, info);
+  if (dtype == 1) return bwd_info<bid::bf16>(H, W, C, k, info);
   return BID_ERR_UNSUPPORTED;
 }
 

@@ -13,17 +13,25 @@
 // (ops/pallas_noise.py corrupt_batch_plain) reproduces every draw:
 //   stream 0, counter (e, b, 0, 0): the four words of element e, two
 //     Box-Muller pairs (multiplicative, additive);
-//   stream 1, counter (0, b, 1, 0): sample b's flags and stds, computed
-//     by one thread of each block and shared, so every block of a sample
-//     agrees (what the TPU kernel's per-sample reseed ensured).
-// Philox's ten rounds (their key schedule, the same for every element,
-// runs once per warp on the uniform datapath) and the two Box-Muller
-// pairs (logf, sqrtf, sincosf) issue about 240 instructions per element
-// of a sample with both noises on, 155 with one and 27 with none
-// (chip_smoke.py counts them from this kernel's SASS), against 8 bytes of
-// traffic: the kernel is bound by instruction issue, not bytes. Built
-// without --use_fast_math, so logf and sincosf are the accurate ones, and
-// the float steps the plain version repeats use explicitly rounded
+//   stream 1, counter (0, b, 1, 0): sample b's flags and stds.
+// What bounds it on the H100: at the train step's 16 x 128^2 x 3 the
+// 6.3 MB cross memory in 1.9 us, above the 40 Philox multiplies per
+// element (integer rate) and the four special functions per Box-Muller
+// pair (MUFU rate); the kernel itself issues ~240 instructions per
+// element of a sample with both noises on, 155 with one and 27 with
+// none, so it is bound by instruction issue and latency in practice.
+// The first version gave each thread one or two elements, each a long
+// dependent chain, behind a block barrier while one thread computed the
+// header, with 4-byte accesses. This one: each thread takes a quad of 4
+// consecutive elements (one 16-byte load and store where n % 4 == 0 and
+// the pointers are aligned; masked scalars else) and runs their four
+// Philox chains unrolled side by side, so they hide each other's
+// latency; every thread derives its sample's header from warp-uniform
+// values (block index, arguments), with no barrier; blocks of one sample
+// are small (512 elements), so the block scheduler spreads samples with
+// both noises and samples with none over the SMs. Built without
+// --use_fast_math, so logf and sincosf are the accurate ones, and the
+// float steps the plain version repeats use explicitly rounded
 // intrinsics (no FMA contraction).
 #include "common.cuh"
 
@@ -74,41 +82,73 @@ __device__ __forceinline__ Header sample_header(uint2 key, uint32_t b,
   return h;
 }
 
-// grid: (blocks over a sample's n elements, B); block: 256 threads
-__global__ void __launch_bounds__(256) corrupt_noise_kernel(
+constexpr int kNoiseThreads = 128;
+
+// grid: (blocks over a sample's quads, B); block: kNoiseThreads threads,
+// each one quad (4 consecutive elements) of sample blockIdx.y. kVec: n is
+// a multiple of 4 and both pointers 16-byte aligned, so a quad is one
+// 16-byte load and store; else four masked scalar ones.
+template <bool kVec>
+__global__ void __launch_bounds__(kNoiseThreads) corrupt_noise_kernel(
     const float* __restrict__ x, float* __restrict__ out,
-    float* __restrict__ params, long long n, uint32_t seed, float mlo,
+    float* __restrict__ params, uint32_t n, uint32_t seed, float mlo,
     float mhi, float alo, float ahi, int use_mul, int use_add, int do_round) {
   const uint32_t b = blockIdx.y;
   const uint2 key = make_uint2(seed, 0u);
-  __shared__ Header hdr;
-  if (threadIdx.x == 0) {
-    hdr = sample_header(key, b, mlo, mhi, alo, ahi);
-    if (params != nullptr && blockIdx.x == 0) {
-      float* p = params + 4 * (long long)b;
-      p[0] = hdr.mul_on; p[1] = hdr.mul_std; p[2] = hdr.add_on; p[3] = hdr.add_std;
-    }
+  // every thread derives the header from the block index and the
+  // arguments alone: warp-uniform values, so no barrier and no shared copy
+  const Header hdr = sample_header(key, b, mlo, mhi, alo, ahi);
+  if (params != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    float* p = params + 4 * (size_t)b;
+    p[0] = hdr.mul_on; p[1] = hdr.mul_std; p[2] = hdr.add_on; p[3] = hdr.add_std;
   }
-  __syncthreads();
   const bool mul = use_mul && hdr.mul_on != 0.f;
   const bool add = use_add && hdr.add_on != 0.f;
-  const float* xs = x + (long long)b * n;
-  float* os = out + (long long)b * n;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    float y = xs[e];
-    if (mul || add) {
-      const uint4 w = philox4x32_10(make_uint4((uint32_t)e, b, 0u, 0u), key);
-      if (mul) {
-        const float z = truncated_normal(w.x, w.y);
-        y = __fmul_rn(y, __fadd_rn(1.f, __fmul_rn(hdr.mul_std, z)));
-      }
-      if (add) {
-        const float z = truncated_normal(w.z, w.w);
-        y = __fadd_rn(y, __fmul_rn(hdr.add_std, z));
+  const unsigned long long first =
+      4ull * ((unsigned long long)blockIdx.x * kNoiseThreads + threadIdx.x);
+  if (first >= n) return;
+  const uint32_t e0 = (uint32_t)first;
+  const float* xs = x + (size_t)b * n + e0;
+  float* os = out + (size_t)b * n + e0;
+  float v[4];
+  if (kVec) {
+    const float4 t = *reinterpret_cast<const float4*>(xs);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = e0 + j < n ? xs[j] : 0.f;
+  }
+  if (mul || add) {
+    // four independent Philox chains, interleaved by the compiler
+    uint4 w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = philox4x32_10(make_uint4(e0 + j, b, 0u, 0u), key);
+    if (mul) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float z = truncated_normal(w[j].x, w[j].y);
+        v[j] = __fmul_rn(v[j], __fadd_rn(1.f, __fmul_rn(hdr.mul_std, z)));
       }
     }
-    os[e] = do_round ? rintf(y) : y;
+    if (add) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float z = truncated_normal(w[j].z, w[j].w);
+        v[j] = __fadd_rn(v[j], __fmul_rn(hdr.add_std, z));
+      }
+    }
+  }
+  if (do_round) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = rintf(v[j]);
+  }
+  if (kVec) {
+    *reinterpret_cast<float4*>(os) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (e0 + j < n) os[j] = v[j];
   }
 }
 
@@ -120,14 +160,22 @@ extern "C" int bid_corrupt_noise(const void* x, void* out, void* params,
                                  int use_add, int do_round, void* stream) {
   if (B < 0 || n < 0 || n > 0xFFFFFFFFll || B > 65535) return BID_ERR_BAD_ARGUMENT;
   if (B == 0 || n == 0) return 0;
-  const int threads = 256;
-  long long per_sample = (n + threads - 1) / threads;
-  const long long cap = ((long long)bid::sm_count() * 16 + B - 1) / B;
-  if (per_sample > cap) per_sample = cap;
-  corrupt_noise_kernel<<<dim3((unsigned)per_sample, (unsigned)B), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<float*>(params), n, seed, mlo, mhi, alo, ahi, use_mul,
-      use_add, do_round);
+  const long long quads = (n + 3) / 4;
+  const dim3 grid((unsigned)((quads + kNoiseThreads - 1) / kNoiseThreads),
+                  (unsigned)B);
+  const bool vec = n % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    corrupt_noise_kernel<true><<<grid, kNoiseThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(out),
+        static_cast<float*>(params), (uint32_t)n, seed, mlo, mhi, alo, ahi,
+        use_mul, use_add, do_round);
+  } else {
+    corrupt_noise_kernel<false><<<grid, kNoiseThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(out),
+        static_cast<float*>(params), (uint32_t)n, seed, mlo, mhi, alo, ahi,
+        use_mul, use_add, do_round);
+  }
   return (int)cudaGetLastError();
 }

@@ -133,6 +133,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bid_band_split.restype = i
     lib.bid_band_smooth_bwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.bid_band_smooth_bwd.restype = i
+    lib.bid_band_smooth_bwd_info.argtypes = [i, i, i, i, i, ip]
+    lib.bid_band_smooth_bwd_info.restype = i
     lib.bid_corrupt_noise.argtypes = [p, p, p, i, ctypes.c_longlong,
                                       ctypes.c_uint32, f, f, f, f, i, i, i, p]
     lib.bid_corrupt_noise.restype = i

@@ -17,13 +17,19 @@ function of (seed, sample, element index, stream) alone, so
 kernel and its plain version agree on every sample's flags and stds and,
 up to the last bits of ``logf``/``sincosf``, on every element. The
 streams are not the TPU's, so the port is held to K3's distribution, not
-its bits. Philox and the transcendentals make it bound by instruction
-issue, not by memory: about 240 instructions per element of a sample
-with both noises on, 155 with one and 27 with none, against 8 bytes
-(``chip_smoke.py`` counts them from the kernel's SASS). It is CUDA C++
-rather than Triton because Triton's ``tl.randn`` stream cannot be
-repeated by a plain version, and the port's other kernels already build
-that way (``ops/cuda_build.py``).
+its bits. On the H100 its least time is the bytes' (8 per element: 1.9
+µs at the train step's 16×128²×3), above Philox's 40 multiplies per
+element and the four special functions per Box–Muller pair
+(``chip_smoke.noise_bound_ms``); in practice the ~240 instructions per
+element of a sample with both noises bound it. The design against that:
+each thread takes 4 consecutive elements (16-byte load and store) and
+runs their four Philox chains side by side so they hide each other's
+latency, derives its sample's header from warp-uniform values without a
+block barrier, and a sample's elements spread over many small blocks so
+the scheduler mixes samples with both noises and with none over the
+SMs. It is CUDA C++ rather than Triton because Triton's ``tl.randn``
+stream cannot be repeated by a plain version, and the port's other
+kernels already build that way (``ops/cuda_build.py``).
 
 ``corrupt_noise`` takes an NHWC float32 batch like the JAX function. A
 tensor on the CPU goes through :func:`corrupt_batch_plain`; a CUDA

@@ -27,13 +27,27 @@ plain PyTorch; a CUDA tensor launches the kernel or raises.
 
 Training differentiates through it: ``band_smooth`` is a
 ``torch.autograd.Function`` (the JAX custom VJP
-``laplacian_band_smooth``) whose backward is
+``laplacian_band_smooth``, whose backward ``_band_smooth_bwd`` /
+``_pool_transpose`` XLA runs) whose backward is
 ``dx = g_band + Aᵀ(g_smooth − g_band)`` — :func:`band_smooth_bwd`, a
-second kernel of the same file (one thread per 16-byte channel vector,
-summing ``(g_smooth − g_band)·inv_count`` over the k² windows that cover
-the pixel, in float32), with :func:`band_smooth_bwd_plain` beside it
-(JAX ``_band_smooth_bwd`` / ``_pool_transpose``, in the same tap order).
-When no gradient is wanted (serving under ``inference_mode``) autograd
+second kernel of the same file, with :func:`band_smooth_bwd_plain`
+beside it (JAX ``_band_smooth_bwd``, in the kernel's tap order). On the
+H100 the backward is bound by memory: it must read both grads once and
+write dx once, 3·B·H·W·C·bytes against 3.35 TB/s. Its design for that:
+the work is 2-D tiles (rows × pixels × all C channels) walked by
+persistent blocks, with 32-bit index arithmetic and no division in the
+loop; a block loads both grads of a tile and its (k−1)-wide halo once
+with 16-byte loads, forms ``z = (g_smooth − g_band)·inv_count`` once per
+staged pixel in float32 into shared memory (zero outside the image, as
+the plain version pads), and then sums the k² taps of each output from
+shared memory in the plain version's order, adds the g_band it kept
+there and stores 16 bytes: bit-exact against
+:func:`band_smooth_bwd_plain`. The next tile's loads are issued before
+the current tile's sum, so memory stays busy across the block's
+barriers. :func:`bwd_tile_plan` mirrors the kernel's tile plan and its
+shared memory. Grads that do not arrive NHWC-contiguous are copied first and
+counted in ``bwd_grad_copies`` (the train step hands over none). When
+no gradient is wanted (serving under ``inference_mode``) autograd
 records nothing and only the forward kernel runs.
 
 :func:`band_split` is the split with decimation, ``band = x − A·x`` and
@@ -63,6 +77,11 @@ bwd_grad_copies = 0
 split_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernel's tile plan (csrc/band_smooth.cu BwdPlan): threads
+# per block, 16-byte vectors per tile row it aims at, output rows per
+# thread, and the shared memory one block may have on an H100
+BWD_THREADS, BWD_ROW_VECTORS, BWD_ROWS_PER_THREAD = 256, 128, 2
+SHARED_MEMORY_LIMIT = 232_448
 
 
 def band_smooth_plain(x: torch.Tensor,
@@ -158,6 +177,46 @@ def band_smooth_bwd_plain(g_band: torch.Tensor, g_smooth: torch.Tensor,
         for dx in range(k):
             acc = acc + zp[:, dy:dy + h, dx:dx + w, :]
     return (gb + acc).to(g_band.dtype)
+
+
+def bwd_tile_plan(b: int, h: int, w: int, c: int, k: int,
+                  dtype: torch.dtype) -> dict:
+    """The backward kernel's tile for a [b, h, w, c] grad in ``dtype``
+    with window ``k``: a mirror of ``bwd_plan`` in ``csrc/band_smooth.cu``,
+    which ``chip_smoke.py`` holds against what the built library reports.
+    A block owns ``tile_h`` rows × ``tile_w`` pixels × all c channels with
+    ``threads_x`` = tile_w·c/V threads across a row (V channels of 16
+    bytes each) and ``threads_y`` down; it stages float32 z of the tile
+    and its k − 1 halo and the tile's own g_band, ``smem_bytes``;
+    ``tiles`` counts them along W, H and B (the kernel's persistent
+    blocks walk them in that order). tile_w aims at 128 vectors per row;
+    tile_h and then tile_w halve until the stage fits
+    ``SHARED_MEMORY_LIMIT``. Raises ValueError where no tile fits or c/V
+    exceeds one block's threads."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    cv = c // vec
+    if c % vec or cv > BWD_THREADS or min(h, w, k) < 1:
+        raise ValueError(f"band_smooth_bwd kernel takes C divisible by "
+                         f"{vec} up to {BWD_THREADS * vec} and a non-empty "
+                         f"image, got {(b, h, w, c)} with k={k}")
+    tw, th = max(1, min(w, BWD_ROW_VECTORS // cv)), None
+    while True:
+        bdx = tw * cv
+        bdy = max(1, min(BWD_THREADS // bdx, h))
+        if th is None:
+            th = max(1, min(h, bdy * BWD_ROWS_PER_THREAD))
+        smem = 4 * (th + k - 1) * (tw + k - 1) * c + 16 // vec * th * tw * c
+        if smem <= SHARED_MEMORY_LIMIT:
+            return dict(tile_w=tw, tile_h=th, threads_x=bdx, threads_y=bdy,
+                        smem_bytes=smem,
+                        tiles=(-(-w // tw), -(-h // th), b))
+        if th > 1:
+            th = (th + 1) // 2
+        elif tw > 1:
+            tw = (tw + 1) // 2
+        else:
+            raise ValueError(f"band_smooth_bwd: no tile fits "
+                             f"{SHARED_MEMORY_LIMIT} B for C={c}, k={k}")
 
 
 def band_smooth_bwd(g_band: torch.Tensor, g_smooth: torch.Tensor,

@@ -37,7 +37,13 @@ drive the two paths of the port through the entry points a user calls:
   accumulator against an int64 computation on the host, timed and
   profiled (no K1–K4 launch: JAX runs both models in XLA);
 
-check what comes out, and time the kernels and the paths.
+check what comes out, and time the kernels and the paths. Each kernel
+row is timed warm (20 calls on one set of inputs, which may stay in the
+50 MB L2) and cold (``cold_ms``: the calls rotate over copies of the
+inputs that move twice the L2 between two uses of one copy), and held
+against its bound: the bytes it must move over the memory rate or the
+operations it must do over their peak rate, whichever is larger
+(``convnext_bound_ms``, ``band_bound_ms``, ``noise_bound_ms``).
 
     python3 chip_smoke.py [--profile-out FILE]
 
@@ -95,6 +101,7 @@ ARTIFACT_GROUPS = {
 }
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+L2_BYTES = 50 * 2**20            # H100 SXM L2 cache
 TENSOR_BF16_OPS_PER_S = 989e12   # dense bf16 tensor cores
 FP32_OPS_PER_S = 67e12           # float32 on the CUDA cores
 # thread-instructions per second of one H100 SXM (132 SMs at the 1.98 GHz
@@ -111,29 +118,43 @@ def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, inputs=None) -> float:
     """Mean device milliseconds per call of ``fn`` (CUDA events). The
     calls are queued behind a spin kernel that outlasts their launches,
     so they run back to back and the events time the device, not the
     host's launch rate (a small kernel launched from Python finishes
-    before the next launch arrives)."""
-    for _ in range(warmup):
-        fn()
+    before the next launch arrives). With ``inputs`` (argument tuples,
+    from :func:`cold_copies`) call ``i`` runs ``fn(*inputs[i % n])``, so
+    each call finds its inputs out of the L2; without, every call reuses
+    the same tensors, which may sit in the L2 from the call before."""
+    args = (lambda i: ()) if inputs is None else (
+        lambda i: inputs[i % len(inputs)])
+    for i in range(warmup):
+        fn(*args(i))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*args(i))
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)   # ~2x the launches
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*args(i))
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_copies(*tensors):
+    """Copies of ``tensors`` to rotate through with ``cuda_ms(inputs=)``:
+    enough sets that the ones between two uses of a set move at least
+    twice the 50 MB L2, so every call reads its inputs from DRAM."""
+    set_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = 2 + -(-2 * L2_BYTES // set_bytes)
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
 
 
 def synthetic_images(n: int, h: int, w: int, rng) -> np.ndarray:
@@ -278,6 +299,41 @@ def k1_instantiations(lib, pallas_convnext):
     return out
 
 
+# K2 backward's inputs on the paths: the train step's two levels (b16 @
+# 128²) and the f32 float_forward gradients at 128² and 256²
+BWD_PATH_SHAPES = [(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 32),
+                   (TRAIN_BATCH, TRAIN_SIZE // 2, TRAIN_SIZE // 2, 64),
+                   (1, 128, 128, 32), (1, 64, 64, 64), (1, 256, 256, 32),
+                   (1, 128, 128, 64)]
+
+
+def bwd_plans(lib, pallas_pyramid):
+    """K2 backward's tile, shared memory, registers, spill bytes and
+    resident blocks per SM at every path shape in bf16 and f32, from the
+    library (``bid_band_smooth_bwd_info``). A plan that spills or differs
+    from ``pallas_pyramid.bwd_tile_plan`` fails."""
+    import ctypes
+    out = []
+    for dtype, code in pallas_pyramid._DTYPE_CODES.items():
+        for b, h, w, c in BWD_PATH_SHAPES:
+            vals = (ctypes.c_int * 8)()
+            rc = lib.bid_band_smooth_bwd_info(h, w, c, 2, code, vals)
+            if rc != 0:
+                raise AssertionError(f"K2 backward info {dtype} "
+                                     f"{(b, h, w, c)}: {rc}")
+            got = dict(zip(("tile_w", "tile_h", "threads_x", "threads_y",
+                            "smem_bytes", "registers", "local_bytes",
+                            "blocks_per_sm"), vals))
+            out.append(dict(got, dtype=str(dtype).split(".")[-1],
+                            shape=[b, h, w, c]))
+            plan = pallas_pyramid.bwd_tile_plan(b, h, w, c, 2, dtype)
+            if got["local_bytes"] > 0 or any(
+                    got[key] != plan[key] for key in got if key in plan):
+                raise AssertionError(f"K2 backward built as {got}, planned "
+                                     f"as {plan}")
+    return out
+
+
 def sass_class(op):
     """The unit a SASS opcode issues to: "uniform" (once per warp, on the
     uniform datapath), "mufu_or_convert", "float", "integer", or "other"
@@ -296,16 +352,18 @@ def sass_class(op):
     return "integer"
 
 
-def sass_element_paths(sass):
-    """Instructions per element of a grid-stride kernel from its SASS
-    (``cuobjdump -sass``): the loop is the longest backward branch; its
-    body is a DAG once inner back edges are dropped. A fast path avoids
-    calls, local memory and float64 (the out-of-range branches of
-    ``sqrtf`` and ``sincosf``, which the kernel's arguments never take).
-    Returns, for each k, the class counts of the shortest fast path
-    through the body that executes exactly k MUFU instructions (one per
-    Box-Muller normal: k = 2 for a sample with both noises on, 1 with
-    one, 0 with none)."""
+def sass_element_paths(sass, per_iteration):
+    """Instructions per element of a kernel whose thread handles
+    ``per_iteration`` elements once, from its SASS (``cuobjdump -sass``).
+    The body is the whole function from its first instruction to its
+    last ``EXIT`` (an earlier unpredicated ``EXIT`` is not a way
+    through); it is a DAG once back edges are dropped. A
+    fast path avoids calls, local memory and float64 (the out-of-range
+    branches of ``sqrtf`` and ``sincosf``, which the kernel's arguments
+    never take). Returns, for each k, the class counts per element of the
+    shortest fast path through the body that executes exactly
+    k · ``per_iteration`` MUFU instructions (one per Box-Muller normal: k
+    = 2 for a sample with both noises on, 1 with one, 0 with none)."""
     import re
     ins = []
     for line in sass.splitlines():
@@ -320,11 +378,8 @@ def sass_element_paths(sass):
         m = re.match(r"0x([0-9a-f]+)", ins[i][3].strip())
         return int(m.group(1), 16) if m else None
 
-    back = [(ins[i][0] - target(i), i) for i in range(len(ins))
-            if ins[i][2] == "BRA" and target(i) is not None
-            and target(i) < ins[i][0]]
-    _, tail = max(back)
-    head = at[target(tail)]
+    head = 0
+    tail = max(i for i, (_, _, op, _) in enumerate(ins) if op == "EXIT")
     inf = float("inf")
     # best[i][k]: (instructions, path) from i to the end of the body
     best = [None] * (tail + 2)
@@ -332,7 +387,8 @@ def sass_element_paths(sass):
     for i in range(tail, head - 1, -1):
         _, pred, op, _ = ins[i]
         base = op.split(".")[0]
-        if base in ("CALL", "LDL", "STL") or base[0] == "D":
+        if base in ("CALL", "LDL", "STL") or base[0] == "D" or (
+                base == "EXIT" and i < tail and not pred):
             best[i] = {}
             continue
         succ = []
@@ -343,7 +399,7 @@ def sass_element_paths(sass):
             succ = [at[t] if t in at and at[t] <= tail else tail + 1]
             if pred:
                 succ.append(i + 1)
-        else:                       # an inner back edge is not taken
+        else:                       # a back edge is not taken
             succ = [i + 1]
         mufu = int(base == "MUFU")
         best[i] = {}
@@ -354,11 +410,14 @@ def sass_element_paths(sass):
                     best[i][kk] = (cost + 1, (i,) + path)
     out = {}
     for k, (cost, path) in best[head].items():
+        if k % per_iteration:
+            continue
         counts = {"issue": cost}
         for i in path:
             c = sass_class(ins[i][2])
             counts[c] = counts.get(c, 0) + 1
-        out[k] = counts
+        out[k // per_iteration] = {c: n / per_iteration
+                                   for c, n in counts.items()}
     return out
 
 
@@ -375,22 +434,42 @@ def kernel_sass(obj, function):
     return found[0]
 
 
-def noise_bound_ms(n_per_sample, flags, paths):
-    """K3 over B samples of n float32 elements: one read and one write of
-    each element against the instructions its sample's path issues
-    (``paths`` from :func:`sass_element_paths`, k = the sample's noises
-    on), each class over its rate; the per-block header is left out."""
-    byte_s = 2 * len(flags) * n_per_sample * 4 / HBM_BYTES_PER_S
+def noise_bound_ms(n_per_sample, flags):
+    """K3's least time over B samples of n float32 elements, from the work
+    and not from any kernel's code: the larger of one read and one write
+    of every element over the memory rate, Philox4x32-10's 40 32-bit
+    multiplies (10 rounds of two 32x32 -> 64-bit products) per element of
+    a sample with a noise on at the integer rate, and the four special
+    functions (log, square root, sine, cosine) of each Box-Muller pair
+    (one per element and noise on) at the MUFU rate. ``flags``: the
+    noises on in each sample (0, 1 or 2). The units run at once, so the
+    bound is the largest of the three, not their sum. Returns (ms, "bytes"
+    or "operations", the three times in ms)."""
+    n_on = sum(1 for f in flags if f)
+    times = dict(
+        bytes=2 * len(flags) * n_per_sample * 4 / HBM_BYTES_PER_S,
+        integer=40 * n_on * n_per_sample
+        / (SASS_RATES["integer"] * SM_CLOCKS_PER_S),
+        mufu=4 * sum(flags) * n_per_sample
+        / (SASS_RATES["mufu_or_convert"] * SM_CLOCKS_PER_S))
+    by = max(times, key=times.get)
+    return times[by] * 1e3, ("bytes" if by == "bytes" else "operations"), \
+        {k: t * 1e3 for k, t in times.items()}
+
+
+def sass_issue_ms(n_per_sample, flags, paths):
+    """Diagnostic: the instructions that a kernel's SASS issues per
+    element (``paths`` from :func:`sass_element_paths`, k = the sample's
+    noises on), each class over its rate, in ms; None where the SASS has
+    no path for some k."""
     per_class = {}
     for k in flags:
+        if int(k) not in paths:
+            return None
         for c, count in paths[int(k)].items():
             per_class[c] = per_class.get(c, 0) + count * n_per_sample
-    times = {c: per_class.get(c, 0) / (rate * SM_CLOCKS_PER_S)
-             for c, rate in SASS_RATES.items()}
-    ops_s = max(times.values())
-    return max(byte_s, ops_s) * 1e3, ("bytes" if byte_s >= ops_s
-                                      else "operations"), \
-        {c: t * 1e3 for c, t in times.items()}
+    return {c: per_class.get(c, 0) / (rate * SM_CLOCKS_PER_S) * 1e3
+            for c, rate in SASS_RATES.items()}
 
 
 def band_smooth_bwd_library(x, k, g_band, g_smooth):
@@ -430,8 +509,9 @@ def group_rows(rows, groups, per):
 # --------------------------------------------------------------- training
 
 def check_band_smooth_bwd(pallas_pyramid, rng, shapes):
-    """K2's backward against its plain version; returns the largest bf16
-    error."""
+    """K2's backward against its plain version, bit-exact in bf16 and
+    f32 (the same float32 products summed in the same order); returns
+    the largest bf16 error."""
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for shape in shapes:
@@ -441,16 +521,12 @@ def check_band_smooth_bwd(pallas_pyramid, rng, shapes):
             got = pallas_pyramid.band_smooth_bwd(g_band, g_smooth, 2)
             ref = pallas_pyramid.band_smooth_bwd_plain(g_band, g_smooth, 2)
             torch.cuda.synchronize()
-            diff = (got.float() - ref.float()).abs()
-            err = float(diff.max())
-            if dtype == torch.float32:
-                ok, tol = err <= 1e-5, "1e-5"
-            else:
-                ok, tol = bool((diff <= bf16_ulp(ref)).all()), "1 bf16 ulp"
+            err = float((got.float() - ref.float()).abs().max())
+            if dtype == torch.bfloat16:
                 worst = max(worst, err)
             log("check", kernel="band_smooth_bwd", shape=list(shape),
-                dtype=str(dtype), max_abs_err=err, tolerance=tol)
-            if not ok:
+                dtype=str(dtype), max_abs_err=err, tolerance="0 (bit-exact)")
+            if err != 0.0:
                 raise AssertionError(f"band_smooth_bwd {shape} {dtype}: "
                                      f"{err}")
     return worst
@@ -797,8 +873,8 @@ class KernelInputs:
 def check_kernel_inputs(pallas_convnext, pallas_pyramid, seen, seed):
     """Each recorded K1 / K2 / K2-backward shape against the plain
     version, in bf16 and float32, on N(0, 1) inputs with the recorded
-    call's weights. Tolerances: K1 f32 1e-3, K2 and its backward bf16 1
-    ulp and f32 1e-5, as in phase 3. K1 bf16: 0.05 + 1 bf16 ulp of the
+    call's weights. Tolerances: K1 f32 1e-3, K2 bf16 1 ulp and f32 1e-5,
+    K2's backward bit-exact, as in phase 3. K1 bf16: 0.05 + 1 bf16 ulp of the
     plain output, phase 3's 0.05 taken before the output's own bf16
     rounding. Phase 3's max(0.05, 1 ulp) counts a gap of 0.04 before
     that rounding as 2 ulps where |out| is in [4, 8) (0.0625 > 0.05);
@@ -850,16 +926,19 @@ def check_kernel_inputs(pallas_convnext, pallas_pyramid, seen, seed):
                 diffs = [(o.float() - r.float()).abs()
                          for o, r in zip(got, ref)]
                 err = max(float(d.max()) for d in diffs)
-                if dtype == torch.float32:
-                    ok = err <= 1e-5
+                if not fwd:
+                    ok, tol = err == 0.0, "0 (bit-exact)"
+                elif dtype == torch.float32:
+                    ok, tol = err <= 1e-5, "1e-5"
                 else:
                     ok = all(bool((d <= bf16_ulp(r)).all())
                              for d, r in zip(diffs, ref))
+                    tol = "1 bf16 ulp"
+                if dtype == torch.bfloat16:
                     worst[kernel] = max(worst[kernel], err)
                 log("check", path="inference", kernel=kernel,
                     shape=list(shape), dtype=str(dtype), max_abs_err=err,
-                    tolerance="1 bf16 ulp" if dtype == torch.bfloat16
-                    else "1e-5")
+                    tolerance=tol)
                 if not ok:
                     raise AssertionError(f"{kernel} {shape} {dtype}: {err}")
                 del ins, got, ref, diffs
@@ -1353,7 +1432,8 @@ def main() -> int:
         nvcc_seconds=round(cuda_build.build_seconds, 3),
         sources=[s.name for s in cuda_build.sources()],
         convnext_block=k1_instantiations(cuda_build.library(),
-                                         pallas_convnext))
+                                         pallas_convnext),
+        band_smooth_bwd=bwd_plans(cuda_build.library(), pallas_pyramid))
 
     rng = np.random.default_rng(SEED)
     den = bidt.load_model(FLAGSHIP)                     # card, bf16, blend
@@ -1558,6 +1638,8 @@ def main() -> int:
         t = dict(
             ms=cuda_ms(lambda: pallas_convnext.convnext_block(
                 x, slope=slope, **wts)),
+            cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
+                xc, slope=slope, **wts), inputs=cold_copies(x)),
             plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
                 x, slope=slope, **wts), iters=5),
             library_ms=cuda_ms(lambda: convnext_library(x, slope=slope,
@@ -1572,6 +1654,8 @@ def main() -> int:
         x = torch.from_numpy(rng.normal(0, 1, shape).astype(
             np.float32)).cuda().to(torch.bfloat16)
         t = dict(ms=cuda_ms(lambda: pallas_pyramid.band_smooth(x, 2)),
+                 cold_ms=cuda_ms(lambda xc: pallas_pyramid.band_smooth(
+                     xc, 2), inputs=cold_copies(x)),
                  plain_ms=cuda_ms(lambda: pallas_pyramid.band_smooth_plain(
                      x, 2), iters=5),
                  library_ms=cuda_ms(lambda: band_smooth_library(x, 2)))
@@ -1767,24 +1851,29 @@ def main() -> int:
     seed = 20260802
     t = dict(ms=cuda_ms(lambda: pallas_noise.corrupt_noise(
                  seed, x_train, **noise_kw)),
+             cold_ms=cuda_ms(lambda xc: pallas_noise.corrupt_noise(
+                 seed, xc, **noise_kw), inputs=cold_copies(x_train)),
              plain_ms=cuda_ms(lambda: pallas_noise.corrupt_batch_plain(
                  seed, x_train, **noise_kw), iters=5),
              library_ms=None)
-    # the instructions the kernel issues per element, from its SASS, and
-    # the noises on in each sample of this seed
-    paths = sass_element_paths(kernel_sass(
-        cuda_build.build().parent / "corrupt_noise.o", "corrupt_noise_kernel"))
+    # the bound from the work and the noises on in each sample of this
+    # seed; beside it, as a diagnostic, the instructions the kernel's
+    # SASS issues per element (its 16-byte path, a quad per thread)
     mul, add = (sorted(noise_kw[key]) for key in ("multiplicative_noise",
                                                    "additive_noise"))
     p = pallas_noise.sample_params_plain(seed, x_train.shape[0], *mul, *add)
     flags = (p[:, 0] + p[:, 2]).int().tolist()
-    bound, by, class_ms = noise_bound_ms(x_train[0].numel(), flags, paths)
+    bound, by, parts = noise_bound_ms(x_train[0].numel(), flags)
+    paths = sass_element_paths(kernel_sass(
+        cuda_build.build().parent / "corrupt_noise.o",
+        "corrupt_noise_kernelILb1E"), per_iteration=4)
     log("time", kernel="corrupt_noise", shape=list(x_train.shape),
         dtype="f32", calls_per_step=1, bound_ms=bound, bound_by=by,
-        bytes_bound_ms=2 * x_train.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-        bound_ms_by_class=class_ms, samples_by_noises_on=[
+        bound_ms_by_part=parts, samples_by_noises_on=[
             flags.count(k) for k in range(3)],
-        sass_per_element_by_noises_on=paths, **t)
+        sass_per_element_by_noises_on=paths,
+        sass_issue_ms_by_class=sass_issue_ms(x_train[0].numel(), flags,
+                                             paths), **t)
     entries["corrupt_noise"] = [(1, t, bound, by)]
     for shape in train_band_shapes:
         x, g_band, g_smooth = (torch.from_numpy(rng.normal(
@@ -1797,6 +1886,8 @@ def main() -> int:
             for g in (g_band, g_smooth))
         t = dict(ms=cuda_ms(lambda: pallas_pyramid.band_smooth_bwd(
                      g_band, g_smooth, 2)),
+                 cold_ms=cuda_ms(lambda a, b: pallas_pyramid.band_smooth_bwd(
+                     a, b, 2), inputs=cold_copies(g_band, g_smooth)),
                  plain_ms=cuda_ms(lambda: pallas_pyramid.band_smooth_bwd_plain(
                      g_band, g_smooth, 2), iters=5),
                  library_ms=cuda_ms(band_smooth_bwd_library(
@@ -1805,6 +1896,8 @@ def main() -> int:
             g_band_nchw, g_smooth_nchw, 2))
         fwd = dict(
             forward_ms=cuda_ms(lambda: pallas_pyramid.band_smooth(x, 2)),
+            forward_cold_ms=cuda_ms(lambda xc: pallas_pyramid.band_smooth(
+                xc, 2), inputs=cold_copies(x)),
             forward_plain_ms=cuda_ms(lambda: pallas_pyramid.band_smooth_plain(
                 x, 2), iters=5),
             forward_library_ms=cuda_ms(lambda: band_smooth_library(x, 2)),
@@ -2029,6 +2122,8 @@ def main() -> int:
         q = dict(scale_in=s_in, scale_out=s_out, slope=slope)
         t = dict(
             ms=cuda_ms(lambda: pallas_convnext.convnext_block(xq, **q, **wts)),
+            cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
+                xc, **q, **wts), inputs=cold_copies(xq)),
             plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
                 xq, **q, **wts), iters=3, warmup=1),
             library_ms=cuda_ms(lambda: convnext_int8_library(
@@ -2042,6 +2137,8 @@ def main() -> int:
         del xq
         t = dict(ms=cuda_ms(lambda: pallas_convnext.convnext_block(
                      x, slope=slope, **wts)),
+                 cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
+                     xc, slope=slope, **wts), inputs=cold_copies(x)),
                  plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
                      x, slope=slope, **wts), iters=3, warmup=1),
                  library_ms=cuda_ms(lambda: convnext_library(
@@ -2070,6 +2167,8 @@ def main() -> int:
         raise AssertionError(f"band_split path launches {split_counts}")
     for x, shape in zip(xs_split, band_shapes):
         t = dict(ms=cuda_ms(lambda: pallas_pyramid.band_split(x, 2)),
+                 cold_ms=cuda_ms(lambda xc: pallas_pyramid.band_split(
+                     xc, 2), inputs=cold_copies(x)),
                  plain_ms=cuda_ms(lambda: pallas_pyramid.band_split_plain(
                      x, 2), iters=5),
                  library_ms=cuda_ms(lambda: band_split_library(x, 2)))
@@ -2137,7 +2236,8 @@ def main() -> int:
             name=name, route="cuda", source=replaces[name][0],
             replaces=replaces[name][1], launches=sum(by_path.values()),
             launches_by_path=by_path, max_abs_err=errors[name],
-            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=bound,
+            ms=total("ms"), cold_ms=total("cold_ms"),
+            plain_ms=total("plain_ms"), bound_ms=bound,
             bound_by=bound_by, library_ms=total("library_ms"),
             **({"grad_copies_per_step": grad_copies_per_step}
                if name == "band_smooth_bwd" else {}),

@@ -401,3 +401,97 @@ def test_kernel_modules_import_without_nvcc_or_triton():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# every shape the port's paths give K2's backward: the train step's two
+# levels at b16 @ 128², and the f32 `float_forward` gradients at 128² and
+# 256² (chip_smoke.py's inference phase), in both dtypes
+BWD_PATH_SHAPES = [(16, 128, 128, 32), (16, 64, 64, 64), (1, 128, 128, 32),
+                   (1, 64, 64, 64), (1, 256, 256, 32), (1, 128, 128, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_PATH_SHAPES)
+def test_bwd_tile_plan_fits_shared_memory(shape, dtype):
+    """The backward's tile at every shape the paths launch: it fits one
+    block's shared memory with room for four blocks per SM, its threads
+    cover a tile row of 16-byte vectors and its rows, and the tiles cover
+    the image."""
+    b, h, w, c = shape
+    plan = pallas_pyramid.bwd_tile_plan(b, h, w, c, 2, dtype)
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    assert plan["smem_bytes"] == 4 * (plan["tile_h"] + 1) * (
+        plan["tile_w"] + 1) * c + 16 // vec * plan["tile_h"] * (
+            plan["tile_w"]) * c
+    assert 4 * (plan["smem_bytes"] + 1024) <= 233_472
+    assert plan["threads_x"] == plan["tile_w"] * c // vec
+    threads = plan["threads_x"] * plan["threads_y"]
+    assert threads <= pallas_pyramid.BWD_THREADS and threads % 32 == 0
+    assert plan["tile_h"] <= (pallas_pyramid.BWD_ROWS_PER_THREAD
+                              * plan["threads_y"])
+    gx, gy, gz = plan["tiles"]
+    assert gx * plan["tile_w"] >= w and gy * plan["tile_h"] >= h
+    assert gz == b
+    if (shape, dtype) == ((16, 128, 128, 32), torch.bfloat16):
+        assert (plan["tile_w"], plan["tile_h"], plan["smem_bytes"]) == (
+            32, 4, 29_312)
+
+
+@pytest.mark.parametrize("hwck", [(1, 1, 8, 5), (1, 37, 64, 3),
+                                  (29, 1, 128, 4), (300, 2, 16, 9)])
+def test_bwd_tile_plan_edges_and_limits(hwck):
+    """Edge shapes stay within the limit; a window too large for any tile
+    and a C beyond one block's threads raise."""
+    h, w, c, k = hwck
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = pallas_pyramid.bwd_tile_plan(1, h, w, c, k, dtype)
+        assert plan["smem_bytes"] <= pallas_pyramid.SHARED_MEMORY_LIMIT
+        assert plan["tile_w"] <= w and plan["tile_h"] <= h
+    with pytest.raises(ValueError):
+        pallas_pyramid.bwd_tile_plan(1, 64, 64, 64, 61, torch.float32)
+    with pytest.raises(ValueError):
+        pallas_pyramid.bwd_tile_plan(1, 8, 8, 2048, 2, torch.float32)
+
+
+def _chip_smoke():
+    import importlib
+    sys.path.insert(0, REPO)
+    try:
+        return importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(REPO)
+
+
+def test_noise_bound_counts_the_work():
+    """K3's bound from its work, on hand-computed values. The train
+    step's 16 × 128² × 3 with 3 samples without noise, 9 with one and 4
+    with both: 6,291,456 bytes over 3.35 TB/s; 40 multiplies × 49,152 ×
+    13 samples over 64 per SM and clock × 132 SMs × 1.98 GHz; 4 special
+    functions × 49,152 × 17 noises over 16 per SM and clock."""
+    cs = _chip_smoke()
+    flags = [0] * 3 + [1] * 9 + [2] * 4
+    ms, by, parts = cs.noise_bound_ms(49_152, flags)
+    assert parts["bytes"] == pytest.approx(6_291_456 / 3.35e12 * 1e3)
+    assert parts["integer"] == pytest.approx(
+        25_559_040 / (64 * 132 * 1.98e9) * 1e3)
+    assert parts["mufu"] == pytest.approx(
+        3_342_336 / (16 * 132 * 1.98e9) * 1e3)
+    assert (ms, by) == (parts["bytes"], "bytes")
+    assert ms == pytest.approx(0.0018780, rel=1e-4)
+    # every sample with a noise on: the multiplies just pass the bytes
+    ms, by, parts = cs.noise_bound_ms(1000, [1, 2])
+    assert by == "operations" and ms == parts["integer"]
+    assert ms == pytest.approx(80_000 / (64 * 132 * 1.98e9) * 1e3)
+    # no noise at all: bytes only
+    ms, by, parts = cs.noise_bound_ms(1000, [0, 0])
+    assert by == "bytes" and parts["integer"] == parts["mufu"] == 0
+
+
+def test_cold_copies_move_twice_the_l2():
+    cs = _chip_smoke()
+    a, b = torch.zeros(1_000_000), torch.zeros(250_000, dtype=torch.bfloat16)
+    sets = cs.cold_copies(a, b)
+    set_bytes = 4_000_000 + 500_000
+    assert (len(sets) - 1) * set_bytes >= 2 * cs.L2_BYTES
+    assert all(s[0].shape == a.shape and s[1].dtype == b.dtype
+               and s[0].data_ptr() != a.data_ptr() for s in sets)
