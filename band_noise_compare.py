@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Time versions of K2's backward (``bid_band_smooth_bwd`` in
-``band_smooth.cu``) and of the noise kernel K3 (``bid_corrupt_noise`` in
+"""Time versions of the band-split kernels of ``band_smooth.cu`` (K2's
+backward ``bid_band_smooth_bwd`` and the decimating split K4
+``bid_band_split``) and of the noise kernel K3 (``bid_corrupt_noise`` in
 ``corrupt_noise.cu``) against each other on one NVIDIA GPU, inside one
-process, at the flagship train step's shapes: the backward at
-16×128²×32 and 16×64²×64 bf16 with k = 2, the noise at 16×128²×3 f32
-with the train config's noise ranges.
+process: the backward at the flagship train step's shapes 16×128²×32
+and 16×64²×64 bf16 with k = 2, K4 at the flagship's level-0/1 band
+shapes of a b8 @ 256² request, 8×256²×32 and 8×128²×64 bf16 with k = 2,
+the noise at 16×128²×3 f32 with the train config's noise ranges.
 
     python3 band_noise_compare.py [--rounds N] [--out DIR] \
-        NAME=SOURCE[@CUT[+CUT...]] ...
+        [--kernels bwd,split,noise] NAME=SOURCE[@CUT[+CUT...]] ...
 
 Each SOURCE is a ``band_smooth.cu`` or a ``corrupt_noise.cu`` (the
 checkout's, or a parent commit's unpacked beside it); ``common.cuh`` is
-taken from the checkout. ``@CUT`` builds a copy of SOURCE with a part of
-a kernel cut out or replaced (``CUTS`` below names each one and the
-exact text it replaces; a cut whose text is not in SOURCE fails), to
-split a kernel's time into its parts: a cut copy computes other values,
-and its difference from the plain version is printed, not checked.
+taken from the checkout. A ``band_smooth.cu`` is timed as K2's backward
+and as K4, unless ``--kernels`` names fewer. ``@CUT`` builds a copy of
+SOURCE with a part of a kernel cut out or replaced (``CUTS`` below names
+each one and the exact text it replaces; a cut whose text is not in
+SOURCE fails), to split a kernel's time into its parts: a cut copy
+computes other values, and its difference from the plain version is
+printed, not checked.
 Every source is compiled by ``nvcc`` for ``sm_90a`` into a library of its
 own, and the libraries are timed in turns (in the given order in even
 rounds, reversed in odd ones: parent, change, change, parent with two
@@ -49,14 +53,54 @@ from chip_smoke import (TRAIN_BATCH, TRAIN_CONFIG, TRAIN_SIZE, band_bound_ms,
 
 BWD_SHAPES = [(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 32),
               (TRAIN_BATCH, TRAIN_SIZE // 2, TRAIN_SIZE // 2, 64)]
+SPLIT_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64)]
 NOISE_SEED = 20260802
 
 _BWD_REGION = ("band_smooth_bwd_kernel(", 'extern "C" int bid_band_smooth_bwd')
+# K4 of band_smooth.cu, first version: the grid-stride pooling loop it
+# shared with K2's forward (band_smooth_kernel<T, true>) and its launch
+_SPLIT_REGION = ("band_smooth_kernel(", "// Tile plan of the backward")
 _NOISE_REGION = ("corrupt_noise_kernel(", "")
 _WHOLE = ("", "")
 # name -> (region of the source the edits apply to, [(text, replacement)]):
 # each text must occur exactly once in the region
 CUTS = {
+    # K4 of band_smooth.cu, first version (grid-stride, flat index)
+    # (a) the five 64-bit % and / of the index, as shifts and masks (the
+    # same values when C / V, W and H are powers of two)
+    "split-index": (_SPLIT_REGION, [(
+        "    const int cv = (int)(i % cv_n);\n"
+        "    const long long pix = i / cv_n;\n"
+        "    const int w = (int)(pix % W);\n"
+        "    const long long bh = pix / W;\n"
+        "    const int h = (int)(bh % H);\n"
+        "    const long long b = bh / H;\n",
+        "    const int cv = (int)(i & (cv_n - 1));\n"
+        "    const long long pix = i >> (__ffs(cv_n) - 1);\n"
+        "    const int w = (int)(pix & (W - 1));\n"
+        "    const long long bh = pix >> (__ffs(W) - 1);\n"
+        "    const int h = (int)(bh & (H - 1));\n"
+        "    const long long b = bh >> (__ffs(H) - 1);\n")]),
+    # (b) the per-pixel tap count and IEEE reciprocal, as a constant
+    "split-divide": (_SPLIT_REGION, [(
+        "const float inv = __fdiv_rn(1.f, (float)(rows * cols));",
+        "const float inv = 0.25f;")]),
+    # (c) every tap reads the thread's own pixel (L1), not its neighbours
+    "split-taps": (_SPLIT_REGION, [(
+        "x + ((b * H + y) * W + xx) * C + cv * V);",
+        "x + ((b * H + h) * W + w) * C + cv * V);")]),
+    # (d) no cap on the grid: one vector per thread, no grid-stride turns
+    "split-cap": (_SPLIT_REGION, [("if (blocks > cap) blocks = cap;",
+                                   "(void)cap;")]),
+    # (e) every thread stores its smooth into down, at its quad's address
+    # (four threads a vector, so no lane idles on the store)
+    "split-down": (_SPLIT_REGION, [("} else if (((h | w) & 1) == 0) {",
+                                    "} else {")]),
+    # the kernel returns at once (launch and the capped grid: the floor)
+    "split-empty": (_SPLIT_REGION, [(
+        "  const int lo = (k - 1) / 2;\n  for (long long i",
+        "  if (n != 0) return;\n  const int lo = (k - 1) / 2;\n"
+        "  for (long long i")]),
     # K2 backward of band_smooth.cu, first version (grid-stride, flat index)
     # (a) the five 64-bit % and / of the index, as shifts and masks (the
     # same values when C / V, W and H are powers of two)
@@ -187,6 +231,57 @@ CUTS = {
          "      center[i] = st.b[i];\n"
          "      if (r >= th) continue;\n"),
         ("      cen.raw = gc[r * rv + tx];", "      cen = center[i];")]),
+    # K4, redesigned version, its levers: two quads a thread down its
+    # strip (tiles of 8 rows instead of 4); 64 or 256 vectors a tile row
+    # instead of 128; the register budget of 8 resident blocks per SM
+    # instead of 6 (64 registers); 256 threads a block (3 blocks per SM,
+    # tiles of 8 rows) or 64 (12 blocks, tiles of 2 rows) instead of 128
+    # (6 blocks, tiles of 4 rows); band and down stored with the
+    # evict-first hint (st.global.cs); the next tile's copies issued
+    # after this tile's sum instead of before it (no overlap); the grid
+    # cut to ceil(tiles / rounds) blocks, rounds = ceil(tiles / resident
+    # blocks), so that no block walks more tiles than another but one
+    "split2-quadrows2": (_WHOLE, [("constexpr int kSplitQuadRows = 1;",
+                                   "constexpr int kSplitQuadRows = 2;")]),
+    "split2-rowvec64": (_WHOLE, [("constexpr int kSplitRowVectors = 128;",
+                                  "constexpr int kSplitRowVectors = 64;")]),
+    "split2-rowvec256": (_WHOLE, [("constexpr int kSplitRowVectors = 128;",
+                                   "constexpr int kSplitRowVectors = 256;")]),
+    "split2-minblocks8": (_WHOLE, [("constexpr int kSplitMinBlocks = 6;",
+                                    "constexpr int kSplitMinBlocks = 8;")]),
+    "split2-threads256": (_WHOLE, [
+        ("constexpr int kSplitThreads = 128;",
+         "constexpr int kSplitThreads = 256;"),
+        ("constexpr int kSplitMinBlocks = 6;",
+         "constexpr int kSplitMinBlocks = 3;")]),
+    "split2-threads64": (_WHOLE, [
+        ("constexpr int kSplitThreads = 128;",
+         "constexpr int kSplitThreads = 64;"),
+        ("constexpr int kSplitMinBlocks = 6;",
+         "constexpr int kSplitMinBlocks = 12;")]),
+    "split2-evict-first": (_WHOLE, [
+        ("    *reinterpret_cast<uint4*>(bo + (y * W + xx) * C + c * V) = "
+         "sb.raw;",
+         "    __stcs(reinterpret_cast<uint4*>(bo + (y * W + xx) * C + c * V), "
+         "sb.raw);"),
+        ("      *reinterpret_cast<uint4*>(dn + ((y >> 1) * (W >> 1) + (xx >> "
+         "1)) * C +\n                                c * V) = ss.raw;",
+         "      __stcs(reinterpret_cast<uint4*>(dn + ((y >> 1) * (W >> 1) + "
+         "(xx >> 1)) * C + c * V), ss.raw);")]),
+    "split2-noprefetch": (_WHOLE, [
+        ("    if (t + (int)gridDim.x < n_tiles) issue(t + gridDim.x, st ^ 1);\n"
+         "    cp_async_commit();\n", "    cp_async_commit();\n"),
+        ("    __syncthreads();                  // the sum is done with this "
+         "stage\n",
+         "    __syncthreads();\n"
+         "    if (t + (int)gridDim.x < n_tiles) issue(t + gridDim.x, st ^ 1);\n"
+         "    cp_async_commit();\n")]),
+    "split2-balanced": (_WHOLE, [(
+        "  split_kernel<T>(k)<<<(int)(tiles < cap ? tiles : cap), "
+        "dim3(p.bdx, p.bdy),",
+        "  const long long rounds = (tiles + cap - 1) / cap;\n"
+        "  split_kernel<T>(k)<<<(int)((tiles + rounds - 1) / rounds), "
+        "dim3(p.bdx, p.bdy),")]),
 }
 
 
@@ -225,13 +320,14 @@ def build(name, text, work, out_dir):
     lib = ctypes.CDLL(str(lib_path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if "bid_band_smooth_bwd" in text:
-        lib.bid_band_smooth_bwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
-        lib.bid_band_smooth_bwd.restype = i
-        return "bwd", lib
+        for fn in (lib.bid_band_smooth_bwd, lib.bid_band_split):
+            fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
+            fn.restype = i
+        return ("bwd", "split"), lib
     lib.bid_corrupt_noise.argtypes = [p, p, p, i, ctypes.c_longlong,
                                       ctypes.c_uint32, f, f, f, f, i, i, i, p]
     lib.bid_corrupt_noise.restype = i
-    return "noise", lib
+    return ("noise",), lib
 
 
 def run_in_turns(libs, rounds, call, inputs):
@@ -284,6 +380,39 @@ def compare_bwd(libs, rounds, rng, stream):
                    dtype="bf16", k=2)
 
 
+def compare_split(libs, rounds, rng, stream):
+    from blind_image_denoising_torch.ops import pallas_pyramid as pp
+    for shape in SPLIT_SHAPES:
+        b, h, w, c = shape
+        x = torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).cuda().to(torch.bfloat16)
+        band = torch.empty_like(x)
+        down = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype,
+                           device=x.device)
+        refs = pp.band_split_plain(x, 2)
+
+        def call(lib, xs, bs, ds):
+            rc = lib.bid_band_split(xs.data_ptr(), bs.data_ptr(),
+                                    ds.data_ptr(), *shape, 2, 1, stream)
+            if rc != 0:
+                raise RuntimeError(f"launch refused: code {rc}")
+
+        errs = {}
+        for name, lib in libs.items():
+            band.zero_()
+            down.zero_()
+            call(lib, x, band, down)
+            torch.cuda.synchronize()
+            errs[name] = max(float((o.float() - r.float()).abs().max())
+                             for o, r in zip((band, down), refs))
+        times = run_in_turns(libs, rounds, call, (x, band, down))
+        bound, by = band_bound_ms(*shape, 2, torch.bfloat16, split=True)
+        for name in libs:
+            report(name, times[name], bound, by, errs[name],
+                   kernel="band_split", shape=list(shape), dtype="bf16",
+                   k=2)
+
+
 def compare_noise(libs, rounds, rng, stream):
     import blind_image_denoising_torch as bidt
     from blind_image_denoising_torch.ops import pallas_noise as pn
@@ -331,27 +460,33 @@ def main() -> int:
                         metavar="NAME=SOURCE[@CUT[+CUT...]]")
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--kernels", default="bwd,split,noise",
+                        help="which kernels to time (comma-separated)")
     args = parser.parse_args()
+    wanted = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("band_noise_compare: no CUDA device available",
               file=sys.stderr)
         return 1
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-    groups = {"bwd": {}, "noise": {}}
+    groups = {"bwd": {}, "split": {}, "noise": {}}
     with tempfile.TemporaryDirectory() as work:
         for spec in args.sources:
             name, rest = spec.split("=", 1)
             src, _, cuts = rest.partition("@")
             text = apply_cuts(Path(src).read_text(),
                               cuts.split("+") if cuts else [])
-            kind, lib = build(name, text, Path(work), args.out)
-            groups[kind][name] = lib
+            kinds, lib = build(name, text, Path(work), args.out)
+            for kind in wanted.intersection(kinds):
+                groups[kind][name] = lib
     rng = np.random.default_rng(0)
     stream = torch.cuda.current_stream().cuda_stream
     torch.backends.cuda.matmul.allow_tf32 = False
     if groups["bwd"]:
         compare_bwd(groups["bwd"], args.rounds, rng, stream)
+    if groups["split"]:
+        compare_split(groups["split"], args.rounds, rng, stream)
     if groups["noise"]:
         compare_noise(groups["noise"], args.rounds, rng, stream)
     print(subprocess.run(

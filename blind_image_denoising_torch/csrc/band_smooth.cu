@@ -10,11 +10,29 @@
 // index (the plain PyTorch version, band_smooth_plain, does the same
 // arithmetic in the same order).
 //
-// The split with decimation, band = x - A x and down = (A x)[::2, ::2],
-// replaces laplacian_band_split_pallas (body _band_split_kernel): the
-// same kernel with the smooth written only at even (y, x), into
-// [B, H/2, W/2, C]. Bound by bytes too: x read once, band written once,
-// down a quarter of that.
+// The split with decimation, band = x - A x and down = (A x)[::2, ::2]
+// into [B, H/2, W/2, C], replaces laplacian_band_split_pallas (body
+// _band_split_kernel). Bound by bytes too: x read once, band written
+// once, down a quarter of that, 2.25 B H W C elements against 3.35 TB/s.
+// Its first version was the pooling loop above with the smooth stored
+// only at even (y, x): half its bound, and a copy of it with the index
+// math, the k^2 loads of every vector, the reciprocal, the grid cap and
+// the idle down-store lanes all cut out still read 0.63-0.70 of it: the
+// rest was the memory pipeline. This one, band_split_kernel: persistent
+// blocks walk 2-D tiles of rows x pixels x all C; the tile and its k - 1
+// halo go into shared memory by 16-byte cp.async copies (zero-filled
+// outside the image, as the plain version pads), and the next tile's
+// copies are in flight while this one sums. The copies and the sums use
+// 32-bit offsets within an image and no division per pixel (a few per
+// tile, for its origin and its halo). A thread owns even
+// 2 x 2 quads of one channel vector down a
+// column strip: it reads each staged row of its strip once (three
+// vectors at k = 2, the vertical taps reused from registers), sums every
+// output's taps in band_smooth_plain's order (rows outer, columns inner,
+// from 0.0), multiplies by the IEEE reciprocal of the in-image tap count,
+// stores four 16-byte band vectors and one down vector a quad:
+// bit-exact. split_plan below gives the tile; ops/pallas_pyramid.py
+// split_tile_plan mirrors it.
 //
 // The backward, dx = g_band + A^T (g_smooth - g_band), replaces the JAX
 // custom VJP _band_smooth_bwd / _pool_transpose (XLA there; a kernel here
@@ -46,9 +64,7 @@ namespace {
 
 using bid::Vec16;
 
-// kSplit: write the smooth only at even (y, x), decimated into
-// [B, H/2, W/2, C] (H and W even)
-template <typename T, bool kSplit>
+template <typename T>
 __global__ void __launch_bounds__(256) band_smooth_kernel(
     const T* __restrict__ x, T* __restrict__ band, T* __restrict__ smooth,
     int B, int H, int W, int C, int k) {
@@ -94,17 +110,11 @@ __global__ void __launch_bounds__(256) band_smooth_kernel(
       sb[j] = bid::from_float<T>(__fsub_rn(bid::to_float(xc[j]), s));
     }
     *reinterpret_cast<uint4*>(band + off) = sb.raw;
-    if constexpr (!kSplit) {
-      *reinterpret_cast<uint4*>(smooth + off) = ss.raw;
-    } else if (((h | w) & 1) == 0) {
-      const long long doff =
-          ((b * (H / 2) + h / 2) * (W / 2) + w / 2) * C + cv * V;
-      *reinterpret_cast<uint4*>(smooth + doff) = ss.raw;
-    }
+    *reinterpret_cast<uint4*>(smooth + off) = ss.raw;
   }
 }
 
-template <typename T, bool kSplit>
+template <typename T>
 int launch(const void* x, void* band, void* smooth, int B, int H, int W,
            int C, int k, cudaStream_t stream) {
   constexpr int V = Vec16<T>::N;
@@ -115,7 +125,7 @@ int launch(const void* x, void* band, void* smooth, int B, int H, int W,
   long long blocks = (n + threads - 1) / threads;
   const long long cap = (long long)bid::sm_count() * 16;
   if (blocks > cap) blocks = cap;
-  band_smooth_kernel<T, kSplit><<<(int)blocks, threads, 0, stream>>>(
+  band_smooth_kernel<T><<<(int)blocks, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(band), static_cast<T*>(smooth),
       B, H, W, C, k);
   return (int)cudaGetLastError();
@@ -386,10 +396,10 @@ auto bwd_kernel(int k) {
   return k == 2 ? band_smooth_bwd_kernel<T, 2> : band_smooth_bwd_kernel<T, 0>;
 }
 
-// resident blocks per SM of the instantiation for window k at smem bytes
-template <typename T>
-int bwd_resident(int k, const BwdPlan& p, int* blocks) {
-  const auto kern = bwd_kernel<T>(k);
+// resident blocks per SM of kernel kern launched with plan p (a BwdPlan
+// or a SplitPlan: bdx x bdy threads, smem bytes)
+template <typename K, typename P>
+int resident(K kern, const P& p, int* blocks) {
   if (p.smem > 48 * 1024) {          // above the default, per device
     const cudaError_t a = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
@@ -413,7 +423,7 @@ int launch_bwd(const void* g_band, const void* g_smooth, void* dx, int B,
                           ((H + p.th - 1) / p.th) * B;
   if (tiles > INT_MAX) return BID_ERR_UNSUPPORTED;
   int per_sm = 0;
-  e = bwd_resident<T>(k, p, &per_sm);
+  e = resident(bwd_kernel<T>(k), p, &per_sm);
   if (e != 0) return e;
   if (per_sm < 1) return BID_ERR_UNSUPPORTED;
   const long long cap = (long long)bid::sm_count() * per_sm;
@@ -440,7 +450,346 @@ int bwd_info(int H, int W, int C, int k, int* v) {
   if (e != 0) return e;
   v[0] = p.tw; v[1] = p.th; v[2] = p.bdx; v[3] = p.bdy; v[4] = p.smem;
   v[5] = a.numRegs; v[6] = (int)a.localSizeBytes;
-  return bwd_resident<T>(k, p, &v[7]);
+  return resident(bwd_kernel<T>(k), p, &v[7]);
+}
+
+// ---- K4: the decimating split, band_split_kernel
+
+// 16 bytes global -> shared (a shared-memory address), asynchronously; 16
+// zero bytes when !valid (src must be a valid address all the same)
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  const size_t g = __cvta_generic_to_global(src);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(g), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest one has landed
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Tile plan of the split for one shape: a block owns th rows x tw pixels x
+// all C channels (th, tw even); its threads form bdx x bdy with bdx =
+// tw / 2 * C/V (one 16-byte channel vector of one quad column each) and
+// own kSplitQuadRows quads each, down a column strip. tw aims at
+// kSplitRowVectors vectors per tile row; th and then tw halve (by whole
+// quads) until kSplitStages staged tiles fit kMaxSmem. A staged tile is
+// (th + k - 1) rows x (tw + k - 1) pixels in two planes, the even and the
+// odd staged columns, so that a warp's 16-byte reads of one tap are
+// contiguous. ops/pallas_pyramid.py split_tile_plan mirrors it.
+constexpr int kSplitThreads = 128;
+constexpr int kSplitRowVectors = 128;
+constexpr int kSplitQuadRows = 1;
+constexpr int kSplitStages = 2;
+// resident blocks per SM the register budget must allow
+constexpr int kSplitMinBlocks = 6;
+
+struct SplitPlan {
+  int tw, th, bdx, bdy, smem;
+};
+
+inline int split_plan(int H, int W, int C, int k, int V, SplitPlan* p) {
+  const int cv = C / V;
+  if (cv > kSplitThreads) return BID_ERR_UNSUPPORTED;
+  int quads = max(1, min(W / 2, kSplitRowVectors / (2 * cv)));
+  int rows = -1;                      // quad rows per tile
+  for (;;) {
+    const int bdx = quads * cv;
+    const int bdy = max(1, min(kSplitThreads / bdx,
+                               (H / 2 + kSplitQuadRows - 1) / kSplitQuadRows));
+    if (rows < 0) rows = max(1, min(H / 2, bdy * kSplitQuadRows));
+    const long long smem = (long long)kSplitStages * 2 * (2 * rows + k - 1) *
+                           ((2 * quads + k) / 2) * C * (16 / V);
+    if (smem <= kMaxSmem) {
+      *p = SplitPlan{2 * quads, 2 * rows, bdx, bdy, (int)smem};
+      return 0;
+    }
+    if (rows > 1) {
+      rows = (rows + 1) / 2;
+    } else if (quads > 1) {
+      quads = (quads + 1) / 2;
+    } else {
+      return BID_ERR_UNSUPPORTED;
+    }
+  }
+}
+
+// band = x - A x, down = (A x)[::2, ::2] over tiles. A block is
+// persistent: it walks the tiles t, t + gridDim.x, ...; the cp.async
+// copies of tile t + gridDim.x into the other stage go out before it sums
+// tile t, so they overlap its barriers and its sum. Per tile a thread
+// copies its own quads' 4 vectors each and its share of the halo (the
+// k - 1 wide border: lo rows and columns above and left, k - 1 - lo below
+// and right), zero-filled outside the image, so every tap reads a staged
+// value and the out-of-image ones add 0.0 as the plain version's padding
+// does.
+//
+// KK: the window size when it is known at compile time (2, the flagship's
+// gaussian_kernel_size: a thread reads each staged row of its strip once,
+// three vectors, and keeps the partial sums of the row above in
+// registers), 0 for any k (each output sums its k^2 taps from shared
+// memory).
+template <typename T, int KK>
+__global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
+    band_split_kernel(const T* __restrict__ x, T* __restrict__ band,
+                      T* __restrict__ down, int B, int H, int W, int C,
+                      int k_arg, int tw, int th) {
+  constexpr int V = Vec16<T>::N;
+  constexpr int R = kSplitQuadRows;
+  extern __shared__ uint4 stage[];
+  const int k = KK > 0 ? KK : k_arg;
+  const int cv_n = C / V;
+  const int lo = (k - 1) / 2;
+  const int eh = th + k - 1, ew = tw + k - 1;   // staged rows, columns
+  const int hw = (ew + 1) / 2;                  // pixels per plane row
+  const int rs = hw * cv_n;                     // vectors per plane row
+  const int plane = eh * rs;                    // vectors per plane
+  const int tiles_x = W / tw + (W % tw != 0), tiles_y = H / th + (H % th != 0);
+  const int n_tiles = tiles_x * tiles_y * B;
+  const int n_rows = (k - 1) * ew * cv_n, side = (k - 1) * cv_n;
+  const int n_halo = n_rows + th * side;
+  const float inv_full = __fdiv_rn(1.f, (float)(k * k));
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nt = blockDim.x * blockDim.y, tl = ty * blockDim.x + tx;
+  // this thread's quad column q (tile pixels 2q, 2q + 1), channel vector c
+  const int q = tx / cv_n, c = tx - q * cv_n;
+  const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(stage));
+
+  // shared address of staged vector (sr, e) of channel vector cc in stage st
+  auto staged = [&](int st, int sr, int e, int cc) {
+    return s0 + 16u * (uint32_t)(st * 2 * plane + (e & 1) * plane + sr * rs +
+                                 (e >> 1) * cv_n + cc);
+  };
+  auto tile_origin = [&](int t, int& h0, int& w0, size_t& img) {
+    const int bx = t % tiles_x, rest = t / tiles_x;
+    h0 = (rest % tiles_y) * th;
+    w0 = bx * tw;
+    img = (size_t)(rest / tiles_y) * H * W * C;
+  };
+  // start the copies of tile t into stage st
+  auto issue = [&](int t, int st) {
+    int h0, w0;
+    size_t img;
+    tile_origin(t, h0, w0, img);
+    const T* xin = x + img;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = 2 * (ty * R + r);
+      if (row >= th) break;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int y = h0 + row + i;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int xx = w0 + 2 * q + j;
+          const bool in = y < H && xx < W;
+          cp_async_16(staged(st, lo + row + i, lo + 2 * q + j, c),
+                      in ? xin + (y * W + xx) * C + c * V : x, in);
+        }
+      }
+    }
+    for (int m = tl; m < n_halo; m += nt) {
+      int sr, e, cc;
+      if (m < n_rows) {
+        const int r = m / (ew * cv_n), rem = m - r * ew * cv_n;
+        sr = r < lo ? r : r + th;
+        e = rem / cv_n;
+        cc = rem - e * cv_n;
+      } else {
+        const int r = (m - n_rows) / side, rem = m - n_rows - r * side;
+        const int ce = rem / cv_n;
+        sr = lo + r;
+        e = ce < lo ? ce : ce + tw;
+        cc = rem - ce * cv_n;
+      }
+      const int y = h0 - lo + sr, xx = w0 - lo + e;
+      const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
+      cp_async_16(staged(st, sr, e, cc),
+                  in ? xin + (y * W + xx) * C + cc * V : x, in);
+    }
+  };
+  // 1 / (in-image taps) of the window at (y, xx)
+  auto inv_count = [&](int y, int xx) {
+    const int rows = min(y - lo + k, H) - max(y - lo, 0);
+    const int cols = min(xx - lo + k, W) - max(xx - lo, 0);
+    const int cnt = rows * cols;
+    return cnt == k * k ? inv_full : __fdiv_rn(1.f, (float)cnt);
+  };
+  // band (and, for the quad's top-left pixel, down) of output (y, xx) from
+  // its tap sum and its own value
+  auto emit = [&](const float (&acc)[V], Vec16<T> own, int y, int xx,
+                  T* __restrict__ bo, T* __restrict__ dn) {
+    const float inv = inv_count(y, xx);
+    Vec16<T> sb, ss;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float s = __fmul_rn(acc[j], inv);
+      ss[j] = bid::from_float<T>(s);
+      sb[j] = bid::from_float<T>(__fsub_rn(bid::to_float(own[j]), s));
+    }
+    *reinterpret_cast<uint4*>(bo + (y * W + xx) * C + c * V) = sb.raw;
+    if (dn != nullptr)
+      *reinterpret_cast<uint4*>(dn + ((y >> 1) * (W >> 1) + (xx >> 1)) * C +
+                                c * V) = ss.raw;
+  };
+  auto tap = [&](const uint4* base, int sr, int e) {
+    Vec16<T> v;
+    v.raw = base[(e & 1) * plane + sr * rs + (e >> 1) * cv_n];
+    return v;
+  };
+
+  int t = blockIdx.x, st = 0;
+  if (t < n_tiles) issue(t, 0);
+  cp_async_commit();
+  for (; t < n_tiles; t += gridDim.x, st ^= 1) {
+    if (t + (int)gridDim.x < n_tiles) issue(t + gridDim.x, st ^ 1);
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();
+    int h0, w0;
+    size_t img;
+    tile_origin(t, h0, w0, img);
+    T* __restrict__ bo = band + img;
+    T* __restrict__ dn = down + img / 4;
+    const int xq = w0 + 2 * q;              // the quad's left column
+    const uint4* base = stage + st * 2 * plane + q * cv_n + c;
+    if (xq < W) {
+      if constexpr (KK == 2) {
+        // staged row sr of the strip: A, B, Cc are staged columns 2q,
+        // 2q + 1, 2q + 2; the top output row's partial sums (0 + A) + B
+        // and (0 + B) + Cc wait in p0, p1 for the row below
+        float p0[V], p1[V];
+        Vec16<T> own0, own1;
+        auto start = [&](int sr) {
+          own0 = tap(base, sr, 0);
+          own1 = tap(base, sr, 1);
+          Vec16<T> cc = tap(base, sr, 2);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float a = bid::to_float(own0[j]), b = bid::to_float(own1[j]);
+            p0[j] = __fadd_rn(__fadd_rn(0.f, a), b);
+            p1[j] = __fadd_rn(__fadd_rn(0.f, b), bid::to_float(cc[j]));
+          }
+        };
+        // add staged row sr to p0, p1 and emit output row y; then start
+        // the next output row from sr
+        auto finish = [&](int sr, int y, bool top) {
+          Vec16<T> a = tap(base, sr, 0), b = tap(base, sr, 1),
+                   cc = tap(base, sr, 2);
+          float o0[V], o1[V];
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float fb = bid::to_float(b[j]);
+            o0[j] = __fadd_rn(__fadd_rn(p0[j], bid::to_float(a[j])), fb);
+            o1[j] = __fadd_rn(__fadd_rn(p1[j], fb), bid::to_float(cc[j]));
+          }
+          emit(o0, own0, y, xq, bo, top ? dn : nullptr);
+          emit(o1, own1, y, xq + 1, bo, nullptr);
+          own0 = a;
+          own1 = b;
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float fa = bid::to_float(a[j]), fb = bid::to_float(b[j]);
+            p0[j] = __fadd_rn(__fadd_rn(0.f, fa), fb);
+            p1[j] = __fadd_rn(__fadd_rn(0.f, fb), bid::to_float(cc[j]));
+          }
+        };
+        const int row0 = 2 * ty * R;
+        if (row0 < th && h0 + row0 < H) start(row0);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int row = row0 + 2 * r, y = h0 + row;
+          if (row >= th || y >= H) break;
+          finish(row + 1, y, true);
+          finish(row + 2, y + 1, false);
+        }
+      } else {
+#pragma unroll 1
+        for (int r = 0; r < R; ++r) {
+          const int row = 2 * (ty * R + r), y = h0 + row;
+          if (row >= th || y >= H) break;
+#pragma unroll 1
+          for (int i = 0; i < 2; ++i) {
+#pragma unroll 1
+            for (int jx = 0; jx < 2; ++jx) {
+              float acc[V];
+#pragma unroll
+              for (int j = 0; j < V; ++j) acc[j] = 0.f;
+#pragma unroll 1
+              for (int dy = 0; dy < k; ++dy) {
+#pragma unroll 1
+                for (int dx = 0; dx < k; ++dx) {
+                  Vec16<T> v = tap(base, row + i + dy, jx + dx);
+#pragma unroll
+                  for (int j = 0; j < V; ++j)
+                    acc[j] = __fadd_rn(acc[j], bid::to_float(v[j]));
+                }
+              }
+              emit(acc, tap(base, row + i + lo, jx + lo), y + i, xq + jx, bo,
+                   i == 0 && jx == 0 ? dn : nullptr);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                  // the sum is done with this stage
+  }
+}
+
+template <typename T>
+auto split_kernel(int k) {
+  return k == 2 ? band_split_kernel<T, 2> : band_split_kernel<T, 0>;
+}
+
+template <typename T>
+int launch_split(const void* x, void* band, void* down, int B, int H, int W,
+                 int C, int k, cudaStream_t stream) {
+  constexpr int V = Vec16<T>::N;
+  if (C % V != 0 || k < 1 || B < 0 || H < 0 || W < 0 || ((H | W) & 1))
+    return BID_ERR_BAD_ARGUMENT;
+  if ((long long)B * H * W * C == 0) return 0;
+  if ((long long)H * W * C > INT_MAX) return BID_ERR_UNSUPPORTED;
+  SplitPlan p;
+  int e = split_plan(H, W, C, k, V, &p);
+  if (e != 0) return e;
+  const long long tiles = (long long)((W + p.tw - 1) / p.tw) *
+                          ((H + p.th - 1) / p.th) * B;
+  if (tiles > INT_MAX) return BID_ERR_UNSUPPORTED;
+  int per_sm = 0;
+  e = resident(split_kernel<T>(k), p, &per_sm);
+  if (e != 0) return e;
+  if (per_sm < 1) return BID_ERR_UNSUPPORTED;
+  const long long cap = (long long)bid::sm_count() * per_sm;
+  split_kernel<T>(k)<<<(int)(tiles < cap ? tiles : cap), dim3(p.bdx, p.bdy),
+                       p.smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(band), static_cast<T*>(down),
+      B, H, W, C, k, p.tw, p.th);
+  return (int)cudaGetLastError();
+}
+
+// plan, registers, spill bytes and resident blocks per SM, as v[0..7]:
+// tile width, tile height, threads x, threads y, shared bytes, registers,
+// local (spill) bytes per thread, blocks per SM
+template <typename T>
+int split_info(int H, int W, int C, int k, int* v) {
+  constexpr int V = Vec16<T>::N;
+  if (C % V != 0 || k < 1 || H < 2 || W < 2 || ((H | W) & 1))
+    return BID_ERR_BAD_ARGUMENT;
+  SplitPlan p;
+  int e = split_plan(H, W, C, k, V, &p);
+  if (e != 0) return e;
+  cudaFuncAttributes a;
+  e = (int)cudaFuncGetAttributes(&a, split_kernel<T>(k));
+  if (e != 0) return e;
+  v[0] = p.tw; v[1] = p.th; v[2] = p.bdx; v[3] = p.bdy; v[4] = p.smem;
+  v[5] = a.numRegs; v[6] = (int)a.localSizeBytes;
+  return resident(split_kernel<T>(k), p, &v[7]);
 }
 
 }  // namespace
@@ -465,18 +814,24 @@ extern "C" int bid_band_smooth(const void* x, void* band, void* smooth,
                                int B, int H, int W, int C, int k, int dtype,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, false>(x, band, smooth, B, H, W, C, k, s);
-  if (dtype == 1) return launch<bid::bf16, false>(x, band, smooth, B, H, W, C, k, s);
+  if (dtype == 0) return launch<float>(x, band, smooth, B, H, W, C, k, s);
+  if (dtype == 1) return launch<bid::bf16>(x, band, smooth, B, H, W, C, k, s);
   return BID_ERR_UNSUPPORTED;
 }
 
 extern "C" int bid_band_split(const void* x, void* band, void* down, int B,
                               int H, int W, int C, int k, int dtype,
                               void* stream) {
-  if ((H | W) & 1) return BID_ERR_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, true>(x, band, down, B, H, W, C, k, s);
-  if (dtype == 1) return launch<bid::bf16, true>(x, band, down, B, H, W, C, k, s);
+  if (dtype == 0) return launch_split<float>(x, band, down, B, H, W, C, k, s);
+  if (dtype == 1) return launch_split<bid::bf16>(x, band, down, B, H, W, C, k, s);
+  return BID_ERR_UNSUPPORTED;
+}
+
+extern "C" int bid_band_split_info(int H, int W, int C, int k, int dtype,
+                                   int* info) {
+  if (dtype == 0) return split_info<float>(H, W, C, k, info);
+  if (dtype == 1) return split_info<bid::bf16>(H, W, C, k, info);
   return BID_ERR_UNSUPPORTED;
 }
 

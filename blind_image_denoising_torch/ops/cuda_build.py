@@ -131,6 +131,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bid_band_smooth.restype = i
     lib.bid_band_split.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.bid_band_split.restype = i
+    lib.bid_band_split_info.argtypes = [i, i, i, i, i, ip]
+    lib.bid_band_split_info.restype = i
     lib.bid_band_smooth_bwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.bid_band_smooth_bwd.restype = i
     lib.bid_band_smooth_bwd_info.argtypes = [i, i, i, i, i, ip]

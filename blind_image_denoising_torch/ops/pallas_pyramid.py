@@ -54,11 +54,19 @@ records nothing and only the forward kernel runs.
 ``down = (A·x)[::2, ::2]``: the counterpart of
 ``laplacian_band_split_pallas`` (Pallas body ``_band_split_kernel``) and
 of its oracle ``laplacian_band_split_reference``, with
-:func:`band_split_plain` beside it. Its kernel is the same pooling loop
-(``bid_band_split``) writing the smooth only at even rows and columns,
-so it moves x once, band once and a quarter of that for ``down``. Like
-the JAX kernel it is forward only, and a tensor that wants a gradient
-raises.
+:func:`band_split_plain` beside it. It must move x once, band once and a
+quarter of that for ``down``, 2.25·B·H·W·C elements against 3.35 TB/s.
+Its kernel (``bid_band_split``, a kernel of its own) is built for that:
+persistent blocks walk 2-D tiles whose pixels and (k−1)-wide halo arrive
+in shared memory by asynchronous 16-byte copies (``cp.async``,
+zero-filled outside the image), the next tile's copies in flight while
+the block sums the current one; a thread owns even 2×2 quads of one
+channel vector, reads each staged row of its column strip once (the
+vertical taps reused from registers at k = 2), sums in the plain
+version's order and stores four 16-byte band vectors and one ``down``
+vector per quad: bit-exact against :func:`band_split_plain`.
+:func:`split_tile_plan` mirrors its tile plan. Like the JAX kernel it is
+forward only, and a tensor that wants a gradient raises.
 """
 
 from typing import Tuple
@@ -82,6 +90,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # thread, and the shared memory one block may have on an H100
 BWD_THREADS, BWD_ROW_VECTORS, BWD_ROWS_PER_THREAD = 256, 128, 2
 SHARED_MEMORY_LIMIT = 232_448
+# the split kernel's tile plan (csrc/band_smooth.cu SplitPlan): threads per
+# block, 16-byte vectors per tile row it aims at, 2×2 quads per thread
+# down its strip, and staged tiles in shared memory at once
+SPLIT_THREADS, SPLIT_ROW_VECTORS, SPLIT_QUAD_ROWS, SPLIT_STAGES = \
+    128, 128, 1, 2
 
 
 def band_smooth_plain(x: torch.Tensor,
@@ -282,6 +295,52 @@ def band_split_plain(x: torch.Tensor,
     (the same tap order) and the smooth's even rows and columns."""
     band, smooth = band_smooth_plain(x, kernel_size)
     return band, smooth[:, ::2, ::2, :].contiguous()
+
+
+def split_tile_plan(b: int, h: int, w: int, c: int, k: int,
+                    dtype: torch.dtype) -> dict:
+    """The split kernel's tile for a [b, h, w, c] input in ``dtype`` with
+    window ``k``: a mirror of ``split_plan`` in ``csrc/band_smooth.cu``,
+    which ``chip_smoke.py`` holds against what the built library reports.
+    A block owns ``tile_h`` rows × ``tile_w`` pixels × all c channels (both
+    even) with ``threads_x`` = tile_w/2·c/V threads across (one 16-byte
+    vector of one 2×2 quad column each) and ``threads_y`` down, each
+    owning up to SPLIT_QUAD_ROWS quads of its column; it stages
+    SPLIT_STAGES tiles with their k − 1 halo, each in two planes (the even
+    and the odd staged columns), ``smem_bytes``; ``tiles`` counts them
+    along W, H and B. tile_w aims at SPLIT_ROW_VECTORS vectors per row;
+    tile_h and then tile_w halve, by whole quads, until the stages fit
+    ``SHARED_MEMORY_LIMIT``. Raises ValueError for odd or empty h or w,
+    where no tile fits, or where c/V exceeds one block's threads."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    vec = 16 // elt
+    cv = c // vec
+    if (c % vec or cv > SPLIT_THREADS or k < 1 or min(h, w) < 2
+            or h % 2 or w % 2):
+        raise ValueError(f"band_split kernel takes even h, w >= 2 and C "
+                         f"divisible by {vec} up to {SPLIT_THREADS * vec}, "
+                         f"got {(b, h, w, c)} with k={k}")
+    quads, rows = max(1, min(w // 2, SPLIT_ROW_VECTORS // (2 * cv))), None
+    while True:
+        bdx = quads * cv
+        bdy = max(1, min(SPLIT_THREADS // bdx,
+                         -(-(h // 2) // SPLIT_QUAD_ROWS)))
+        if rows is None:
+            rows = max(1, min(h // 2, bdy * SPLIT_QUAD_ROWS))
+        smem = (SPLIT_STAGES * 2 * (2 * rows + k - 1)
+                * ((2 * quads + k) // 2) * c * elt)
+        if smem <= SHARED_MEMORY_LIMIT:
+            tw, th = 2 * quads, 2 * rows
+            return dict(tile_w=tw, tile_h=th, threads_x=bdx, threads_y=bdy,
+                        smem_bytes=smem,
+                        tiles=(-(-w // tw), -(-h // th), b))
+        if rows > 1:
+            rows = (rows + 1) // 2
+        elif quads > 1:
+            quads = (quads + 1) // 2
+        else:
+            raise ValueError(f"band_split: no tile fits "
+                             f"{SHARED_MEMORY_LIMIT} B for C={c}, k={k}")
 
 
 def band_split(x: torch.Tensor,

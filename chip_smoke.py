@@ -29,7 +29,9 @@ drive the two paths of the port through the entry points a user calls:
   input, the fused outputs against the hydra's, the f32 fused forward
   against the same forward on the CPU, and the three timed;
 * band_split: the decimating band split (K4) through its op, the only
-  entry point it has, at the pyramid shapes 8×256²×32 and 8×128²×64;
+  entry point it has, at the flagship's level-0/1 band shapes 8×256²×32
+  and 8×128²×64 (the build line holds its tile plan, registers and
+  spills against ``pallas_pyramid.split_tile_plan``);
 * artifacts: the two other packaged artifacts through ``load_model`` —
   ``resnet_depthwise_scratch`` in bf16 and ``unet_laplacian_v56_highnoise``
   in float32 and in int8 (``quant=True``) — on b8 @ 256² and one 512²
@@ -37,9 +39,10 @@ drive the two paths of the port through the entry points a user calls:
   accumulator against an int64 computation on the host, timed and
   profiled (no K1–K4 launch: JAX runs both models in XLA);
 
-check what comes out, and time the kernels and the paths. Each kernel
-row is timed warm (20 calls on one set of inputs, which may stay in the
-50 MB L2) and cold (``cold_ms``: the calls rotate over copies of the
+check what comes out, and time the kernels and the paths (K1 also in
+its float32 I/O mode, which serves ``load_model(dtype="float32")``: one
+f32 request's launches, then its rows). Each kernel row is timed warm
+(20 calls on one set of inputs, which may stay in the 50 MB L2) and cold (``cold_ms``: the calls rotate over copies of the
 inputs that move twice the L2 between two uses of one copy), and held
 against its bound: the bytes it must move over the memory rate or the
 operations it must do over their peak rate, whichever is larger
@@ -307,30 +310,36 @@ BWD_PATH_SHAPES = [(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 32),
                    (1, 128, 128, 64)]
 
 
-def bwd_plans(lib, pallas_pyramid):
-    """K2 backward's tile, shared memory, registers, spill bytes and
-    resident blocks per SM at every path shape in bf16 and f32, from the
-    library (``bid_band_smooth_bwd_info``). A plan that spills or differs
-    from ``pallas_pyramid.bwd_tile_plan`` fails."""
+# K4's inputs: the band_split phase's two shapes, checked in bf16 and f32
+SPLIT_PATH_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64)]
+
+
+def band_tile_plans(what, info, plan_of, shapes, codes):
+    """A band kernel's tile, shared memory, registers, spill bytes and
+    resident blocks per SM at every shape in bf16 and f32 (``codes``), from
+    the library's ``info`` entry point (``bid_band_smooth_bwd_info``,
+    ``bid_band_split_info``), with window 2. A plan that spills or differs
+    from the Python mirror ``plan_of`` (``pallas_pyramid.bwd_tile_plan``,
+    ``split_tile_plan``) fails."""
     import ctypes
     out = []
-    for dtype, code in pallas_pyramid._DTYPE_CODES.items():
-        for b, h, w, c in BWD_PATH_SHAPES:
+    for dtype, code in codes.items():
+        for b, h, w, c in shapes:
             vals = (ctypes.c_int * 8)()
-            rc = lib.bid_band_smooth_bwd_info(h, w, c, 2, code, vals)
+            rc = info(h, w, c, 2, code, vals)
             if rc != 0:
-                raise AssertionError(f"K2 backward info {dtype} "
-                                     f"{(b, h, w, c)}: {rc}")
+                raise AssertionError(f"{what} info {dtype} {(b, h, w, c)}: "
+                                     f"{rc}")
             got = dict(zip(("tile_w", "tile_h", "threads_x", "threads_y",
                             "smem_bytes", "registers", "local_bytes",
                             "blocks_per_sm"), vals))
             out.append(dict(got, dtype=str(dtype).split(".")[-1],
                             shape=[b, h, w, c]))
-            plan = pallas_pyramid.bwd_tile_plan(b, h, w, c, 2, dtype)
+            plan = plan_of(b, h, w, c, 2, dtype)
             if got["local_bytes"] > 0 or any(
                     got[key] != plan[key] for key in got if key in plan):
-                raise AssertionError(f"K2 backward built as {got}, planned "
-                                     f"as {plan}")
+                raise AssertionError(f"{what} built as {got}, planned as "
+                                     f"{plan}")
     return out
 
 
@@ -1388,6 +1397,7 @@ def main() -> int:
     from blind_image_denoising_torch.models.hydra import model_builder
     from blind_image_denoising_torch.ops import (cuda_build, pallas_convnext,
                                                  pallas_noise, pallas_pyramid)
+    from blind_image_denoising_torch.ops.precision import exact_float32
     from blind_image_denoising_torch.training.train_state import init_params
     from blind_image_denoising_torch.weights import (load_msgpack,
                                                      params_from_flax)
@@ -1433,7 +1443,14 @@ def main() -> int:
         sources=[s.name for s in cuda_build.sources()],
         convnext_block=k1_instantiations(cuda_build.library(),
                                          pallas_convnext),
-        band_smooth_bwd=bwd_plans(cuda_build.library(), pallas_pyramid))
+        band_smooth_bwd=band_tile_plans(
+            "K2 backward", cuda_build.library().bid_band_smooth_bwd_info,
+            pallas_pyramid.bwd_tile_plan, BWD_PATH_SHAPES,
+            pallas_pyramid._DTYPE_CODES),
+        band_split=band_tile_plans(
+            "K4", cuda_build.library().bid_band_split_info,
+            pallas_pyramid.split_tile_plan, SPLIT_PATH_SHAPES,
+            pallas_pyramid._DTYPE_CODES))
 
     rng = np.random.default_rng(SEED)
     den = bidt.load_model(FLAGSHIP)                     # card, bf16, blend
@@ -1454,7 +1471,7 @@ def main() -> int:
     # unet_laplacian_v6's K1 shapes at the fused path's b32 @ 256²
     v6_unit_shapes = [("encoder_0_0", 0, FUSED_BATCH, 256, 256),
                       ("encoder_1_0", 1, FUSED_BATCH, 128, 128)]
-    band_shapes = [(8, 256, 256, 32), (8, 128, 128, 64)]
+    band_shapes = SPLIT_PATH_SHAPES
     errors = {"convnext_block": 0.0, "band_smooth": 0.0}
     checks = [(m, name, b, h, w) for m, shapes in ((model, unit_shapes),
                                                    (v6, v6_unit_shapes))
@@ -1541,7 +1558,8 @@ def main() -> int:
         errors["convnext_block_int8"] = max(errors["convnext_block_int8"],
                                             err)
         del x, xq, got, ref, dcode
-    # K4 (the decimating split): f32 bit-exact, bf16 within 1 ulp
+    # K4 (the decimating split): bit-exact in f32 and bf16 (the same
+    # float32 sum in the same order, the same reciprocal and rounding)
     errors["band_split"] = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for shape in band_shapes:
@@ -1550,19 +1568,13 @@ def main() -> int:
             outs = pallas_pyramid.band_split(x, 2)
             refs = pallas_pyramid.band_split_plain(x, 2)
             torch.cuda.synchronize()
-            diffs = [(o.float() - r.float()).abs() for o, r in zip(outs, refs)]
-            err = max(float(d.max()) for d in diffs)
-            if dtype == torch.float32:
-                ok, tol = err == 0.0, "0 (bit-exact)"
-            else:
-                ok = all(bool((d <= bf16_ulp(r)).all())
-                         for d, r in zip(diffs, refs))
-                tol = "1 bf16 ulp"
-                errors["band_split"] = max(errors["band_split"], err)
+            err = max(float((o.float() - r.float()).abs().max())
+                      for o, r in zip(outs, refs))
+            errors["band_split"] = max(errors["band_split"], err)
             log("check", kernel="band_split", shape=list(shape),
-                dtype=str(dtype), max_abs_err=err, tolerance=tol,
+                dtype=str(dtype), max_abs_err=err, tolerance="0 (bit-exact)",
                 down_shape=list(outs[1].shape))
-            if not ok or outs[1].shape != refs[1].shape:
+            if err != 0.0 or outs[1].shape != refs[1].shape:
                 raise AssertionError(f"band_split {shape} {dtype}: {err}")
 
     # the train step's kernels at its shapes (b16 @ 128²: level 0 is 128²,
@@ -1650,6 +1662,38 @@ def main() -> int:
             bound_by=by, **t)
         entries.setdefault("convnext_block", []).append(
             (per_fwd, t, bound, by))
+    # K1's float32 I/O mode, which serves load_model(dtype="float32"): its
+    # launches per f32 serving request, then its rows against the bound,
+    # the plain version and the library chain, all with TF32 off as the
+    # port's float32 forwards run
+    den32 = bidt.load_model(FLAGSHIP, dtype="float32")
+    reset_counts()
+    den32(noisy_b8)
+    torch.cuda.synchronize()
+    f32_counts = read_counts()
+    log("serve_f32", request=list(noisy_b8.shape), launches=f32_counts)
+    if f32_counts != counts(convnext_block=10, band_smooth=2):
+        raise AssertionError(f"expected 10 K1 + 2 K2 launches per f32 "
+                             f"forward, got {f32_counts}")
+    for name, level, b, h, w in unit_shapes:
+        x, wts, slope = unit_inputs(den32.model, name, b, h, w,
+                                    torch.float32, rng)
+        c, k = x.shape[-1], wts["dw"].shape[-1]
+        with exact_float32():
+            t = dict(
+                ms=cuda_ms(lambda: pallas_convnext.convnext_block(
+                    x, slope=slope, **wts)),
+                cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
+                    xc, slope=slope, **wts), inputs=cold_copies(x)),
+                plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
+                    x, slope=slope, **wts), iters=5),
+                library_ms=cuda_ms(lambda: convnext_library(x, slope=slope,
+                                                            **wts)))
+        bound, by = convnext_bound_ms(b, h, w, c, k, torch.float32)
+        log("time", kernel="convnext_block", C=c, K=k, shape=[b, h, w, c],
+            dtype="f32", calls_per_forward=2 * den32.model.backbone.widths[
+                level], bound_ms=bound, bound_by=by, smi=smi, **t)
+    del den32, x
     for shape in band_shapes:
         x = torch.from_numpy(rng.normal(0, 1, shape).astype(
             np.float32)).cuda().to(torch.bfloat16)

@@ -5,12 +5,12 @@ JAX-only ``conftest.py`` is bypassed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: K2's backward is bit-exact against its plain version in
-float32 and bfloat16 (the same float32 products, summed in the same
-order); float32 outputs agree to 1e-5 for the band split and its
-decimating variant (same arithmetic, same order) and 1e-3 for the
+Tolerances: K2's backward and the decimating split K4 are bit-exact
+against their plain versions in float32 and bfloat16 (the same float32
+products, summed in the same order); float32 outputs agree to 1e-5 for
+the band split K2 (same arithmetic, same order) and 1e-3 for the
 ConvNext unit (the kernel sums in another order than the plain
-matmuls); bfloat16 band-split outputs to one bf16 ulp of the output and
+matmuls); bfloat16 K2 outputs to one bf16 ulp of the output and
 ConvNext-unit outputs to 0.05, or one bf16 ulp where the output is large
 enough (|out| >= 8) for one ulp to exceed 0.05: the kernel sums the
 products in another order than the plain matmuls, which can flip the
@@ -167,9 +167,17 @@ def test_convnext_kernel_rejects_unbuilt_shape(dev):
         pallas_convnext.convnext_block(x, **w)
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 64, 32), (1, 38, 54, 64),
-                                   (8, 256, 256, 32)])
-@pytest.mark.parametrize("k", [2, 3, 5])
+# [B, H, W, C] against the split's tiles (32 x 8 pixels at C = 32 bf16,
+# 16 x 8 at C = 64): one quad, 100 x 300, last tiles ragged in both
+# directions, B = 1 and 16, C 8 to 128, and more tiles than resident
+# blocks (16 x 128^2 x 32 and 8 x 256^2 x 32), so blocks walk several
+SPLIT_SHAPES = [(1, 2, 2, 8), (16, 2, 2, 8), (1, 100, 300, 16),
+                (16, 34, 66, 32), (1, 38, 54, 64), (2, 18, 30, 128),
+                (16, 10, 100, 64), (16, 128, 128, 32), (8, 256, 256, 32)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_band_split_kernel_matches_plain(dev, shape, k, dtype):
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -182,13 +190,26 @@ def test_band_split_kernel_matches_plain(dev, shape, k, dtype):
     assert down.shape == (shape[0], shape[1] // 2, shape[2] // 2, shape[3])
     for got, ref in ((band, band_p), (down, down_p)):
         assert got.dtype == dtype and got.shape == ref.shape
-        err = (got.float() - ref.float()).abs()
-        if dtype == torch.float32:
-            assert float(err.max()) <= 1e-5
-        else:
-            assert bool((err <= _bf16_ulp(ref)).all())
+        assert float((got.float() - ref.float()).abs().max()) == 0.0
     with pytest.raises(ValueError, match="even"):
         pallas_pyramid.band_split(x[:, 1:], k)
+
+
+def test_band_split_tile_plan_matches_library(dev):
+    """The Python tile plan is the one the library builds, with no spill,
+    at the checked shapes and some edges."""
+    import ctypes
+    lib = cuda_build.library()
+    for dtype, code in pallas_pyramid._DTYPE_CODES.items():
+        for b, h, w, c, k in [(8, 256, 256, 32, 2), (8, 128, 128, 64, 2),
+                              (1, 2, 2, 8, 5), (2, 18, 30, 128, 3),
+                              (1, 2160, 3840, 32, 2)]:
+            v = (ctypes.c_int * 8)()
+            assert lib.bid_band_split_info(h, w, c, k, code, v) == 0
+            plan = pallas_pyramid.split_tile_plan(b, h, w, c, k, dtype)
+            assert list(v)[:5] == [plan[key] for key in (
+                "tile_w", "tile_h", "threads_x", "threads_y", "smem_bytes")]
+            assert v[6] == 0 and v[7] >= 1
 
 
 def test_v6_fused_forward_on_card(dev, monkeypatch):

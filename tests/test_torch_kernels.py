@@ -22,6 +22,8 @@ wrappers' CPU dispatch (the noise kernel K3 has its own file,
   in another order, which moves a code whose pre-rounding value sits
   near x.5), and within JAX's own ``3·max(s_in, s_out)`` of the float
   oracle.
+* K4's tile plan (``split_tile_plan``, the mirror of the kernel's) fits
+  shared memory and gives every thread whole vectors of whole quads.
 * K4 (band split with decimation): ``band_split_plain`` vs
   ``laplacian_band_split_pallas`` in Pallas interpret mode and vs
   ``laplacian_band_split_reference``, atol 1e-4 in float32. In
@@ -451,6 +453,48 @@ def test_bwd_tile_plan_edges_and_limits(hwck):
         pallas_pyramid.bwd_tile_plan(1, 64, 64, 64, 61, torch.float32)
     with pytest.raises(ValueError):
         pallas_pyramid.bwd_tile_plan(1, 8, 8, 2048, 2, torch.float32)
+
+
+# K4's checked shapes (chip_smoke.py's band_split phase) and edges of the
+# card test
+SPLIT_PLAN_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64), (1, 2, 2, 8),
+                     (1, 100, 300, 16), (2, 18, 30, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("shape", SPLIT_PLAN_SHAPES)
+def test_split_tile_plan_fits_shared_memory(shape, k, dtype):
+    """The split's tile: its stages fit one block's shared memory, every
+    thread owns whole 16-byte vectors of whole 2×2 quads, and the tiles
+    cover the image."""
+    b, h, w, c = shape
+    plan = pallas_pyramid.split_tile_plan(b, h, w, c, k, dtype)
+    elt = torch.tensor([], dtype=dtype).element_size()
+    vec = 16 // elt
+    tw, th = plan["tile_w"], plan["tile_h"]
+    assert tw % 2 == 0 and th % 2 == 0 and tw <= w and th <= h
+    assert plan["smem_bytes"] == pallas_pyramid.SPLIT_STAGES * 2 * (
+        th + k - 1) * ((tw + k) // 2) * c * elt
+    assert plan["smem_bytes"] <= pallas_pyramid.SHARED_MEMORY_LIMIT
+    assert c % vec == 0 and plan["threads_x"] == tw // 2 * (c // vec)
+    assert plan["threads_x"] * plan["threads_y"] <= \
+        pallas_pyramid.SPLIT_THREADS
+    assert th <= 2 * pallas_pyramid.SPLIT_QUAD_ROWS * plan["threads_y"]
+    gx, gy, gz = plan["tiles"]
+    assert gx * tw >= w and gy * th >= h and gz == b
+    assert (gx - 1) * tw < w and (gy - 1) * th < h
+    if (shape, k, dtype) == ((8, 256, 256, 32), 2, torch.bfloat16):
+        assert (tw, th, plan["smem_bytes"]) == (32, 4, 21_760)
+
+
+def test_split_tile_plan_limits():
+    """Odd or empty images, a C beyond one block's threads and a window no
+    tile can stage raise."""
+    for h, w, c, k in [(3, 4, 32, 2), (4, 5, 32, 2), (0, 4, 32, 2),
+                       (4, 4, 4096, 2), (4, 4, 10, 2), (64, 64, 128, 200)]:
+        with pytest.raises(ValueError):
+            pallas_pyramid.split_tile_plan(1, h, w, c, k, torch.float32)
 
 
 def _chip_smoke():
