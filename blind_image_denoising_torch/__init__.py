@@ -18,11 +18,12 @@ The ``Denoiser`` has the JAX package's signature and options (``pad_mode``,
 Every packaged artifact serves: the flagship, ``resnet_depthwise_scratch``
 and ``unet_laplacian_v56_highnoise`` (also int8, ``quant=True``).
 
-Training (``blind_image_denoising_torch.training``): the JAX package's
-builders — ``loss_function_builder``, ``optimizer_builder``,
-``create_train_state``, ``build_train_step`` — over the same configs
-(``configs``: the JAX package's packaged configs as ``(filename, config
-dict)`` pairs, read in place; ``CONFIGS_DICT``: name → config dict).
+Training: ``train_loop(config, checkpoint_directory)`` (or ``python -m
+blind_image_denoising_torch.train``) over the JAX package's configs
+(``configs``: its packaged configs as ``(filename, config dict)`` pairs,
+read in place; ``CONFIGS_DICT``: name → config dict), with images
+decoded by ``load_image``; the builders under it
+(``blind_image_denoising_torch.training``) are the JAX package's.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -135,6 +136,10 @@ _LAZY_EXPORTS = {
                          "schedule_builder"),
     "optimizer_builder": ("blind_image_denoising_torch.training.optimizer",
                           "optimizer_builder"),
+    "train_loop": ("blind_image_denoising_torch.training.train_loop",
+                   "train_loop"),
+    "load_image": ("blind_image_denoising_torch.data.file_operations",
+                   "load_image"),
     "Multiplier": ("blind_image_denoising_torch.layers.multipliers",
                    "Multiplier"),
     "ChannelwiseMultiplier": ("blind_image_denoising_torch.layers."

@@ -8,8 +8,8 @@ in, batch out).
 The noise comes from a CPU ``torch.Generator`` seeded from (seed, level),
 another stream than JAX's, so the two packages' sweeps agree in
 distribution, not in values. The restoration sweep over degradation
-chains (``--degradations``) needs ``ops/degradations.py`` and image
-files need a decoder; both raise until they are ported.
+chains (``--degradations``) needs ``ops/degradations.py`` and raises
+until it is ported.
 
 CLI: ``python -m blind_image_denoising_torch.evaluate --model
 <registry-name-or-artifact-dir> [--device cpu] [--stds 5,25,50]``
@@ -91,18 +91,18 @@ def degradation_sweep(denoiser: Callable, images: np.ndarray,
 
 def load_eval_images(directory: Optional[str], size: int = 256,
                      limit: int = 4) -> np.ndarray:
-    """The first ``limit`` packaged evaluation images at ``size``². A
-    ``directory`` that holds images raises (no image decoder in the port
-    yet); one that holds none falls back to the packaged set, as in
-    JAX."""
+    """The first ``limit`` PNG / JPEG files under ``directory``
+    (recursive, sorted), each resized with pad to ``size``²; a directory
+    without any falls back to the packaged set, as in JAX."""
+    from .data.file_operations import load_image
     if directory:
         files = [f for f in sorted(glob.glob(
             os.path.join(directory, "**", "*.*"), recursive=True))
-            if f.lower().endswith((".png", ".jpg", ".jpeg"))]
+            if f.lower().endswith((".png", ".jpg", ".jpeg"))][:limit]
         if files:
-            raise NotImplementedError(
-                "evaluation images from files need an image decoder, which "
-                "is not ported yet (ROADMAP Queue 1 item 8)")
+            imgs = [load_image(f, image_size=(size, size), num_channels=3)
+                    for f in files]
+            return np.stack(imgs, axis=0).astype(np.float32)
         logger.warning(f"no images in [{directory}]; using packaged set")
     from .images import load_evaluation_images
     return load_evaluation_images(size)[:limit]

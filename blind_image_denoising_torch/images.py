@@ -5,11 +5,10 @@ occlusions with power-law radii, pink-noise texture, a pink-noise cloud,
 a sky over leaves), generated by the same numpy code from the same
 seeds, so they equal the JAX package's bit for bit.
 
-The JAX package's override paths (``BID_TPU_EVAL_IMAGES_DIR``, or image
-files dropped into its ``images`` directory) need an image decoder,
-which the port does not have yet (ROADMAP Queue 1 item 8): when one of
-them holds images, :func:`load_evaluation_images` raises rather than
-serve a different set.
+The JAX package's override paths take precedence, in its order:
+image files in ``BID_TPU_EVAL_IMAGES_DIR``, else image files dropped
+into its ``images`` directory; the first four decode through
+``data.file_operations.load_image`` (resized with pad to the size).
 """
 
 import glob
@@ -115,12 +114,25 @@ def _synthetic(idx: int, size: int = 512) -> np.ndarray:
     return np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
 
 
+def discover_evaluation_paths() -> List[str]:
+    """Image files that override the synthetic set: those in
+    ``BID_TPU_EVAL_IMAGES_DIR`` when it names a directory with images,
+    else those in the JAX package's ``images`` directory."""
+    env_dir = os.environ.get(ENV_DIR)
+    if env_dir:
+        found = _glob_images(env_dir)
+        if found:
+            return found
+    return _glob_images(_JAX_IMAGES_DIR)
+
+
 def load_evaluation_images(size: int = 512) -> np.ndarray:
     """[4, size, size, 3] float32 eval batch in [0, 255]."""
-    env_dir = os.environ.get(ENV_DIR)
-    if (env_dir and _glob_images(env_dir)) or _glob_images(_JAX_IMAGES_DIR):
-        raise NotImplementedError(
-            "evaluation images from files need an image decoder, which is "
-            "not ported yet (ROADMAP Queue 1 item 8)")
+    paths = discover_evaluation_paths()
+    if paths:
+        from .data.file_operations import load_image
+        imgs = [load_image(p, image_size=(size, size), num_channels=3)
+                for p in paths[:4]]
+        return np.stack(imgs, axis=0).astype(np.float32)
     return np.stack([_synthetic(i, size) for i in range(4)],
                     axis=0).astype(np.float32)

@@ -24,7 +24,7 @@ from torch import nn
 from ..constants import DEFAULT_BN_EPSILON, DEFAULT_BN_MOMENTUM
 
 _TRAIN_MODE = ("BatchNorm train mode (batch statistics and the running "
-               "update) is not ported yet (ROADMAP Queue 1 item 8)")
+               "update) is not ported yet (ROADMAP Queue 1 item 9)")
 
 
 def _channel(v: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Training state (counterpart of
 ``blind_image_denoising_tpu/training/train_state.py``).
 
-The state holds the model (whose parameters are the params), the
-optimizer state, the number of applied steps, and two generators: one on
-the device for the train step's masks and flips, and one on the host
-that draws the noise kernel's int32 seed per micro-batch (the JAX step
-folds its noise key into an int32 the same way).
+The state holds the model (whose parameters are the params and whose
+buffers are the batch statistics), the optimizer state, the number of
+applied steps and of finished epochs, the exponential moving average of
+the params (``ema_params``, None when the EMA is off), and two
+generators: one on the device for the train step's masks and flips, and
+one on the host that draws the noise kernel's int32 seed per
+micro-batch (the JAX step folds its noise key into an int32 the same
+way).
 
 :func:`create_train_state` loads params — a flat state dict such as
 ``weights.params_from_flax`` of a packaged artifact — or, without them,
@@ -28,7 +31,7 @@ from ..inference.export import resolve_device
 from ..layers.multipliers import ChannelLearnableMultiplier
 from ..layers.norm import FastLayerNorm
 from ..ops.noise import truncated_normal
-from .optimizer import Adam, AdamState
+from .optimizer import OptState, Optimizer
 
 # std of the standard normal truncated to ±2
 _TRUNC_STD = 0.87962566103423978
@@ -37,14 +40,21 @@ _TRUNC_STD = 0.87962566103423978
 @dataclass
 class TrainState:
     model: nn.Module
-    opt_state: AdamState
+    opt_state: OptState
     generator: torch.Generator           # on the model's device
     host_generator: torch.Generator      # on the CPU: noise-kernel seeds
-    step: int = 0
+    step: int = 0                        # applied optimizer steps
+    epoch: int = 0
+    # name -> tensor like ``params``, on the model's device
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
+
+
+def param_count(state: TrainState) -> int:
+    return sum(p.numel() for p in state.model.parameters())
 
 
 def _fans(kernel: torch.Tensor):
@@ -61,7 +71,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     if str(initializer).strip().lower() != "glorot_normal":
         raise NotImplementedError(
             f"kernel_initializer [{initializer}] is not ported yet (ROADMAP "
-            f"Queue 1 item 8); only glorot_normal is")
+            f"Queue 1 item 9); only glorot_normal is")
     for module in model.modules():
         if isinstance(module, FastLayerNorm):
             module.scale.fill_(1.0)
@@ -75,12 +85,13 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
             k.copy_(std * truncated_normal(k.shape, generator))
 
 
-def create_train_state(model: nn.Module, tx: Adam, seed: int = 0,
+def create_train_state(model: nn.Module, tx: Optimizer, seed: int = 0,
                        params: Optional[Dict[str, torch.Tensor]] = None,
                        device=None) -> TrainState:
     """Move ``model`` to ``device`` (default: the card; ``"cpu"`` must be
     asked for), load ``params`` or initialize from ``seed``, and create
-    the optimizer state and the generators."""
+    the optimizer state and the generators (no EMA: the caller seeds
+    ``ema_params``)."""
     dev = resolve_device(device)
     if params is not None:
         model.load_state_dict(params, strict=True)

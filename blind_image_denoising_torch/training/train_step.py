@@ -1,5 +1,6 @@
-"""The train step (counterpart of
-``blind_image_denoising_tpu/training/train_step.py`` ``build_train_step``).
+"""The train and eval steps (counterpart of
+``blind_image_denoising_tpu/training/train_step.py`` ``build_train_step``
+and ``build_eval_step``).
 
 In the JAX order: the uint8 or float32 NHWC batch is widened to float32
 on the device → random flips → rounding → noise corruption (the K3
@@ -8,19 +9,24 @@ else the exact ``ops/noise.corrupt_batch``) → the multiscale targets →
 the training forward → per-scale losses on the float32 outputs × the
 deep-supervision weights → regularization × its multiplier → backward.
 Gradients are accumulated over ``grad_accum`` micro-batches and divided
-by their number, then clipped and applied by the optimizer. Metrics keep
-the JAX names (``total_loss``, ``regularization_loss``,
-``scale_{i}/{mae,mse,ssim,total}_loss``, ``grad_norm``) and stay on the
-device: nothing in a step waits for it. The noise kernel's seed is drawn
-on the host from the state's CPU generator, one int32 per micro-batch.
+by their number, then clipped and applied by the optimizer; the EMA of
+the params follows. Metrics keep the JAX names (``total_loss``,
+``regularization_loss``, ``scale_{i}/{mae,mse,ssim,total}_loss``,
+``grad_norm``, ``grad_stats``) and stay on the device: nothing in a step
+waits for it. The noise kernel's seed is drawn on the host from the
+state's CPU generator, one int32 per micro-batch, and the step counter
+lives on the host.
 
-Options of the JAX step that this port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP item.
+Options of the JAX step that this port does not carry yet (the
+degradation chain, a teacher) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..constants import (MAE_LOSS_STR, MSE_LOSS_STR, REGULARIZATION_LOSS_STR,
                          SSIM_LOSS_STR, TOTAL_LOSS_STR)
@@ -41,10 +47,26 @@ def _not_ported(what: str, item: int):
 
 def forward_loss(model, loss_fns: Dict[str, Callable], no_outputs: int,
                  noisy: torch.Tensor, gt_scales, depth_weights: torch.Tensor,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
     """The training forward and its losses (JAX ``forward_loss``):
-    ``noisy`` [B, H, W, C] float32 → (total loss, metrics dict)."""
-    outputs = model(nchw(noisy), train=True, generator=generator)
+    ``noisy`` [B, H, W, C] float32 → (total loss, metrics dict).
+
+    ``remat``: keep none of the forward's activations; the backward runs
+    the forward again (``torch.utils.checkpoint``). The recompute draws
+    its drop-path and dropout masks from ``generator`` restored to the
+    state it had before the forward, so it draws the same masks."""
+    if remat:
+        saved = generator.get_state() if generator is not None else None
+
+        def run(x):
+            if saved is not None:
+                generator.set_state(saved)
+            return tuple(model(x, train=True, generator=generator))
+
+        outputs = checkpoint(run, nchw(noisy), use_reentrant=False)
+    else:
+        outputs = model(nchw(noisy), train=True, generator=generator)
     total = torch.zeros((), device=noisy.device)
     metrics = {}
     for i in range(no_outputs):
@@ -92,7 +114,18 @@ def build_train_step(
     [0, 255], on any device (it is moved to the model's). ``generator``:
     the device generator for flips, drop-path and dropout masks and the
     non-kernel noise (default: the state's). ``depth_weights``:
-    [no_outputs] deep-supervision weights (default: equal)."""
+    [no_outputs] deep-supervision weights (default: equal); pass them on
+    the model's device, since a copy from host memory waits for the
+    device.
+
+    ``ema_decay`` > 0: ``state.ema_params`` (seeded by the caller) follows
+    ``e ← d·e + (1 − d)·p`` on the updated params with ``d = min(decay,
+    (1 + t) / (10 + t))``, t the step before this one (the
+    ``tf.train.ExponentialMovingAverage(num_updates=step)`` ramp).
+    ``grad_stats``: ``metrics["grad_stats"]`` maps the flax path of every
+    2-D and 4-D gradient to its [min, p25, p50, p75, max]
+    (``jnp.percentile``'s linear interpolation). ``remat``: see
+    :func:`forward_loss`."""
     extended = bool(use_random_blur or use_jpeg_noise
                     or (quantization and quantization > 1)
                     or (inpaint_drop_rate and inpaint_drop_rate > 0.0))
@@ -109,14 +142,6 @@ def build_train_step(
     if extended or (random_rotate and random_rotate > 0.0):
         raise _not_ported("random rotation and the degradation chain "
                           "(ops/degradations.py)", 11)
-    if noise_sampling != "uniform":
-        raise _not_ported(f"noise_sampling [{noise_sampling}]", 8)
-    if ema_decay > 0.0:
-        raise _not_ported("the EMA of the params", 8)
-    if grad_stats:
-        raise _not_ported("per-kernel gradient statistics (grad_stats)", 8)
-    if remat:
-        raise _not_ported("rematerialization (train.remat)", 8)
     if teacher_fn is not None:
         raise _not_ported("distillation from a teacher (training/distill.py)",
                           12)
@@ -137,7 +162,8 @@ def build_train_step(
             noisy = corrupt_batch(generator, clean,
                                   additive_noise=additive_noise,
                                   multiplicative_noise=multiplicative_noise,
-                                  round_values=round_values)
+                                  round_values=round_values,
+                                  noise_sampling=noise_sampling)
         gt_scales = multiscale_targets(clean, no_outputs - 1,
                                        clip_values=True, round_values=True)
         return noisy, gt_scales
@@ -168,7 +194,8 @@ def build_train_step(
             for clean in batch.chunk(n):
                 noisy, gt_scales = prepare(state, clean, generator)
                 total, m = forward_loss(model, loss_fns, no_outputs, noisy,
-                                        gt_scales, depth_weights, generator)
+                                        gt_scales, depth_weights, generator,
+                                        remat=remat)
                 total.backward()
                 for k, v in m.items():
                     metrics[k] = metrics.get(k, 0.0) + v.detach()
@@ -178,8 +205,58 @@ def build_train_step(
             torch._foreach_div_(grads, float(n))
             metrics = {k: v / n for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
+        if grad_stats:
+            metrics["grad_stats"] = {
+                name.replace(".", "/"): five_numbers(g)
+                for (name, _), g in zip(model.named_parameters(), grads)
+                if g.ndim in (2, 4)}
         tx.apply(params, grads, state.opt_state)
+        if ema_decay > 0.0:
+            if state.ema_params is None:
+                raise ValueError("ema_decay > 0 but state.ema_params is None: "
+                                 "seed it before the first step")
+            t = np.float32(state.step)
+            d = float(min(np.float32(ema_decay),
+                          (np.float32(1.0) + t) / (np.float32(10.0) + t)))
+            ema = list(state.ema_params.values())
+            torch._foreach_mul_(ema, d)
+            torch._foreach_add_(ema, [p.detach() for p in params],
+                                alpha=1.0 - d)
         state.step += 1
         return state, metrics
 
     return train_step
+
+
+_QUANTILES = np.asarray([0.0, 0.25, 0.5, 0.75, 1.0], np.float32)
+
+
+def five_numbers(g: torch.Tensor) -> torch.Tensor:
+    """[min, p25, p50, p75, max] of a tensor's values, float32, as
+    ``jnp.percentile(..., [0, 25, 50, 75, 100])`` (linear interpolation
+    between the two nearest ranks). Sorts, since ``torch.quantile``
+    refuses more than 2^24 elements; the ranks are fixed by the size, so
+    nothing is read back to the host."""
+    v = torch.sort(g.detach().float().flatten()).values
+    q = _QUANTILES * np.float32(v.numel() - 1)
+    lo, hi = np.floor(q), np.ceil(q)
+    w = q - lo
+    return torch.stack([v[int(a)] * float(np.float32(1.0) - b)
+                        + v[int(c)] * float(b)
+                        for a, c, b in zip(lo, hi, w)])
+
+
+def build_eval_step(model):
+    """Returns ``eval_step(state, noisy) -> outputs[0]``: the finest-scale
+    denoised NHWC float32 batch of ``noisy`` [B, H, W, C] float32, the
+    model in inference mode with the state's params."""
+
+    def eval_step(state: TrainState, noisy: torch.Tensor) -> torch.Tensor:
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step "
+                             "was built for")
+        with torch.no_grad():
+            outputs = model(nchw(noisy), train=False)
+        return nhwc(outputs[0]).float()
+
+    return eval_step

@@ -32,6 +32,21 @@ drive the two paths of the port through the entry points a user calls:
   entry point it has, at the flagship's level-0/1 band shapes 8×256²×32
   and 8×128²×64 (the build line holds its tile plan, registers and
   spills against ``pallas_pyramid.split_tile_plan``);
+* train_loop: ``train_loop`` on 24 seeded 480×640 scenes written as PNG
+  files (decoded natively, by PIL, or, with neither, the synthetic
+  stream), the ``unet_laplacian_v6_tpu`` config at its shipped widths
+  (b4 × 8 micro-batches of 256² crops, bf16) with the overrides of
+  ``LOOP_OVERRIDES``: 6 steps fine-tuned from the packaged flagship
+  artifact, then resumed on the same checkpoint directory to 8 — the
+  restored state against the step-6 checkpoint bit for bit, the EMA not
+  re-seeded, one injected batch's loss on the saved and the restored
+  state, ``metrics.jsonl`` (steps 1–8, the schedule's learning rate, the
+  noise sweeps at steps 3 and 6), exact launch counts per step and per
+  sweep, no synchronizing call inside a step
+  (``torch.cuda.set_sync_debug_mode("warn")``), steps/s, the profiled
+  step's idle share and the host pipeline's decode rate; then every K1 /
+  K2 / K2-backward / K3 input the legs launched against the plain
+  versions, and the loop's kernel shapes timed;
 * artifacts: the two other packaged artifacts through ``load_model`` —
   ``resnet_depthwise_scratch`` in bf16 and ``unet_laplacian_v56_highnoise``
   in float32 and in int8 (``quant=True``) — on b8 @ 256² and one 512²
@@ -67,10 +82,12 @@ import contextlib
 import faulthandler
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import threading
 import time
+import zlib
 from pathlib import Path
 
 import copy
@@ -303,11 +320,12 @@ def k1_instantiations(lib, pallas_convnext):
 
 
 # K2 backward's inputs on the paths: the train step's two levels (b16 @
-# 128²) and the f32 float_forward gradients at 128² and 256²
+# 128²), the f32 float_forward gradients at 128² and 256², and the
+# training loop's micro-batch levels (b4 @ 256²)
 BWD_PATH_SHAPES = [(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 32),
                    (TRAIN_BATCH, TRAIN_SIZE // 2, TRAIN_SIZE // 2, 64),
                    (1, 128, 128, 32), (1, 64, 64, 64), (1, 256, 256, 32),
-                   (1, 128, 128, 64)]
+                   (1, 128, 128, 64), (4, 256, 256, 32), (4, 128, 128, 64)]
 
 
 # K4's inputs: the band_split phase's two shapes, checked in bf16 and f32
@@ -838,39 +856,49 @@ def tile_patches(h, w, t):
 
 
 class KernelInputs:
-    """Within the block, records every distinct K1 / K2 / K2-backward
-    launch the port makes on the card: (shape, dtype, kernel size) with
-    the first such call's weights. The layers import the wrappers by
-    name, so the block wraps those names (and K2's backward, which its
-    autograd Function looks up in ``ops/pallas_pyramid``); the wrapped
-    call is the wrapper's own, counts included."""
+    """Within the block, records every distinct K1 / K2 / K2-backward / K3
+    launch the port makes on the card: (shape, dtype, kernel size; K3:
+    its noise ranges) with the first such call's weights. The layers and
+    the train step import the wrappers by name, so the block wraps those
+    names (and K2's backward, which its autograd Function looks up in
+    ``ops/pallas_pyramid``); the wrapped call is the wrapper's own,
+    counts included."""
 
     def __init__(self):
+        import importlib
         from blind_image_denoising_torch.layers import convnext as layer
         from blind_image_denoising_torch.models import unet_laplacian
         from blind_image_denoising_torch.ops import pallas_pyramid
-        self._sites = [(layer, "convnext_block"),
-                       (unet_laplacian, "band_smooth"),
-                       (pallas_pyramid, "band_smooth_bwd")]
-        self.seen = {name: {} for _, name in self._sites}
+        step = importlib.import_module(
+            "blind_image_denoising_torch.training.train_step")
+        # (module, name, position of the input tensor)
+        self._sites = [(layer, "convnext_block", 0),
+                       (unet_laplacian, "band_smooth", 0),
+                       (pallas_pyramid, "band_smooth_bwd", 0),
+                       (step, "corrupt_noise", 1)]
+        self.seen = {name: {} for _, name, _ in self._sites}
         self._lock = threading.Lock()
         self._saved = []
 
-    def _wrap(self, name, fn):
-        def recording(x, *args, **kw):
+    def _wrap(self, name, fn, pos):
+        def recording(*args, **kw):
+            x = args[pos]
             if x.is_cuda:
-                key = (tuple(x.shape), x.dtype,
-                       kw["dw"].shape[-1] if "dw" in kw else args[-1])
+                if name == "corrupt_noise":
+                    k = json.dumps(kw, sort_keys=True)
+                else:
+                    k = kw["dw"].shape[-1] if "dw" in kw else args[-1]
+                key = (tuple(x.shape), x.dtype, k)
                 with self._lock:
-                    self.seen[name].setdefault(key, (args, kw))
-            return fn(x, *args, **kw)
+                    self.seen[name].setdefault(key, (args[pos + 1:], kw))
+            return fn(*args, **kw)
         return recording
 
     def __enter__(self):
-        for module, name in self._sites:
+        for module, name, pos in self._sites:
             fn = getattr(module, name)
             self._saved.append((module, name, fn))
-            setattr(module, name, self._wrap(name, fn))
+            setattr(module, name, self._wrap(name, fn, pos))
         return self
 
     def __exit__(self, *exc):
@@ -879,10 +907,13 @@ class KernelInputs:
         self._saved = []
 
 
-def check_kernel_inputs(pallas_convnext, pallas_pyramid, seen, seed):
+def check_kernel_inputs(pallas_convnext, pallas_pyramid, pallas_noise, seen,
+                        seed, path="inference"):
     """Each recorded K1 / K2 / K2-backward shape against the plain
     version, in bf16 and float32, on N(0, 1) inputs with the recorded
-    call's weights. Tolerances: K1 f32 1e-3, K2 bf16 1 ulp and f32 1e-5,
+    call's weights, and each recorded K3 shape and noise ranges as
+    ``check_corrupt_noise`` holds it, on a rounded batch in [0, 255].
+    Tolerances: K1 f32 1e-3, K2 bf16 1 ulp and f32 1e-5,
     K2's backward bit-exact, as in phase 3. K1 bf16: 0.05 + 1 bf16 ulp of the
     plain output, phase 3's 0.05 taken before the output's own bf16
     rounding. Phase 3's max(0.05, 1 ulp) counts a gap of 0.04 before
@@ -891,7 +922,17 @@ def check_kernel_inputs(pallas_convnext, pallas_pyramid, seen, seed):
     over phase 3's formula are counted and logged beside this bar.
     Returns the largest bf16 error of each kernel."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    worst = dict(convnext_block=0.0, band_smooth=0.0, band_smooth_bwd=0.0)
+    worst = dict(convnext_block=0.0, band_smooth=0.0, band_smooth_bwd=0.0,
+                 corrupt_noise=0.0)
+    for (shape, _, _), (_, kw) in sorted(seen["corrupt_noise"].items(),
+                                         key=str):
+        x = torch.round(255 * torch.rand(shape, generator=gen,
+                                         device="cuda"))
+        worst["corrupt_noise"] = max(worst["corrupt_noise"],
+                                     check_corrupt_noise(pallas_noise, x, {
+                                         k: kw[k] for k in (
+                                             "additive_noise",
+                                             "multiplicative_noise")}))
     for dtype in (torch.bfloat16, torch.float32):
         for (shape, _, k), (_, kw) in sorted(seen["convnext_block"].items(),
                                              key=str):
@@ -915,7 +956,7 @@ def check_kernel_inputs(pallas_convnext, pallas_pyramid, seen, seed):
                 del ulp, over
             else:
                 ok = err <= 1e-3
-            log("check", path="inference", kernel="convnext_block",
+            log("check", path=path, kernel="convnext_block",
                 shape=list(shape), K=k, dtype=str(dtype), max_abs_err=err,
                 tolerance="0.05 + 1 bf16 ulp" if dtype == torch.bfloat16
                 else "1e-3", n_elements=diff.numel(), **extra)
@@ -945,7 +986,7 @@ def check_kernel_inputs(pallas_convnext, pallas_pyramid, seen, seed):
                     tol = "1 bf16 ulp"
                 if dtype == torch.bfloat16:
                     worst[kernel] = max(worst[kernel], err)
-                log("check", path="inference", kernel=kernel,
+                log("check", path=path, kernel=kernel,
                     shape=list(shape), dtype=str(dtype), max_abs_err=err,
                     tolerance=tol)
                 if not ok:
@@ -1381,6 +1422,517 @@ def inference_phase(bidt, den, rng, smi, read_counts, counts):
         raise AssertionError(f"inference phase failed: {failed}")
 
 
+# --------------------------------------------------------------- train loop
+
+# the train_loop phase: 24 seeded scenes of 480x640 written as PNG files
+# (3 steps an epoch), the flagship config at its shipped widths, batch,
+# accumulation, crop and dtype, fine-tuned from the packaged artifact for
+# 6 steps, then resumed to 8; the profiled step is a plain one (not the
+# first, a visualization or a checkpoint step)
+LOOP_IMAGES, LOOP_IMAGE_HW = 24, (480, 640)
+LOOP_STEPS, LOOP_RESUME_STEPS, LOOP_PROFILE_STEP = 6, 8, 2
+LOOP_OVERRIDES = {"train.total_steps": LOOP_STEPS, "train.checkpoint_every": 3,
+                  "train.visualization_every": 3, "train.log_every": 1,
+                  "train.ema": 0.999, "train.use_test_images": True,
+                  "train.profile_at_step": LOOP_PROFILE_STEP,
+                  "tpu.pallas_noise": True}
+
+
+def write_png(path, img):
+    """An 8-bit RGB PNG of ``img`` [H, W, 3] uint8 with the standard
+    library only (no filter, zlib level 6)."""
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def loop_config(base, image_dir, total_steps):
+    cfg = copy.deepcopy(base)
+    cfg["dataset"]["inputs"] = ([{"directory": str(image_dir)}]
+                                if image_dir is not None else [])
+    for key, value in LOOP_OVERRIDES.items():
+        section, name = key.split(".")
+        cfg.setdefault(section, {})[name] = value
+    cfg["train"]["total_steps"] = total_steps
+    return cfg
+
+
+def state_snapshot(state):
+    """A device copy of what a checkpoint holds."""
+    return dict(
+        model={k: v.detach().clone()
+               for k, v in state.model.state_dict().items()},
+        slots={k: [t.clone() for t in v]
+               for k, v in state.opt_state.slots.items()},
+        count=state.opt_state.count, step=state.step, epoch=state.epoch,
+        ema=(None if state.ema_params is None else
+             {k: v.clone() for k, v in state.ema_params.items()}))
+
+
+def snapshot_equals_checkpoint(snap, ckpt):
+    """Names of the parts of ``snap`` that differ from the checkpoint
+    payload ``ckpt`` in any bit."""
+    bad = [k for k in ckpt["model"]
+           if not torch.equal(snap["model"][k].cpu(), ckpt["model"][k])]
+    bad += [f"{k}[{i}]" for k, v in ckpt["opt_state"]["slots"].items()
+            for i, t in enumerate(v) if not torch.equal(
+                snap["slots"][k][i].cpu(), t)]
+    if snap["count"] != ckpt["opt_state"]["count"]:
+        bad.append("count")
+    bad += [k for k in ("step", "epoch") if snap[k] != ckpt[k]]
+    if (snap["ema"] is None) != (ckpt["ema_params"] is None):
+        bad.append("ema presence")
+    elif snap["ema"] is not None:
+        bad += [f"ema {k}" for k, v in ckpt["ema_params"].items()
+                if not torch.equal(snap["ema"][k].cpu(), v)]
+    return bad
+
+
+class LoopProbe:
+    """Instruments ``training/train_loop.py`` within the block: per train
+    step the launch counts, host seconds and the synchronizing CUDA calls
+    that ``torch.cuda.set_sync_debug_mode("warn")`` reports inside it; per
+    noise sweep the launch counts; the deferred metrics reads (one event
+    wait each) and the warnings inside them; a snapshot of the state as
+    restored; and a hook on the state before each leg's first step.
+    Launches made outside the steps and sweeps (the phase's own checks)
+    are not counted."""
+
+    def __init__(self, read_counts):
+        import importlib
+        self.loop = importlib.import_module(
+            "blind_image_denoising_torch.training.train_loop")
+        from blind_image_denoising_torch.training.checkpoint import (
+            CheckpointManager)
+        self._manager = CheckpointManager
+        self.read_counts = read_counts
+        self.steps, self.sweeps, self.reads = [], [], []
+        self.restored, self.before_first = None, None
+        self.warnings = []
+        self._last_end = 0
+        self._saved = []
+
+    def _delta(self, before):
+        after = self.read_counts()
+        return {k: after[k] - before[k] for k in after}
+
+    def __enter__(self):
+        probe, loop = self, self.loop
+        real_build, real_sweep = loop.build_train_step, loop._noise_sweep_eval
+        real_read = loop._PendingMetrics.read
+        real_restore = self._manager.restore
+
+        def build(*args, **kw):
+            step_fn = real_build(*args, **kw)
+            stats = bool(kw.get("grad_stats"))
+
+            def step(state, batch, **kws):
+                if probe.before_first is not None:
+                    hook, probe.before_first = probe.before_first, None
+                    hook(state)
+                c0, w0 = probe.read_counts(), len(probe.warnings)
+                t0 = time.perf_counter()
+                out = step_fn(state, batch, **kws)
+                probe.steps.append(dict(
+                    step=state.step, stats=stats, start=t0,
+                    host_s=time.perf_counter() - t0,
+                    syncs=len(probe.warnings) - w0,
+                    syncs_before=w0 - probe._last_end,
+                    launches=probe._delta(c0)))
+                probe._last_end = len(probe.warnings)
+                return out
+            return step
+
+        def sweep(eval_step, state, eval_batch, writer, step, **kw):
+            c0, t0 = probe.read_counts(), time.perf_counter()
+            real_sweep(eval_step, state, eval_batch, writer, step, **kw)
+            probe.sweeps.append(dict(step=step, launches=probe._delta(c0),
+                                     seconds=time.perf_counter() - t0))
+
+        def read(pending):
+            w0 = len(probe.warnings)
+            out = real_read(pending)
+            probe.reads.append(dict(step=pending.step,
+                                    syncs=len(probe.warnings) - w0))
+            return out
+
+        def restore(manager, state, step=None):
+            out = real_restore(manager, state, step)
+            probe.restored = state_snapshot(out)
+            return out
+
+        self._saved = [(loop, "build_train_step", real_build),
+                       (loop, "_noise_sweep_eval", real_sweep),
+                       (loop._PendingMetrics, "read", real_read),
+                       (self._manager, "restore", real_restore)]
+        loop.build_train_step, loop._noise_sweep_eval = build, sweep
+        loop._PendingMetrics.read = read
+        self._manager.restore = restore
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+def train_loop_phase(bidt, smi, read_counts, counts, profile_text):
+    """The training loop through ``train_loop`` on the card (see
+    ``LOOP_OVERRIDES``): a fine-tune leg from the packaged artifact to
+    step 6 and a resume leg to step 8 on the same checkpoint directory,
+    with the checks of the module docstring, then every K1 / K2 /
+    K2-backward / K3 input the legs launched against the plain versions
+    and the training shapes timed. Returns (launch counts of the steps and
+    sweeps, the worst error per kernel, the timed rows)."""
+    import logging
+    import tempfile
+    import warnings
+    from blind_image_denoising_torch.data import native_decode
+    from blind_image_denoising_torch.data.dataset import dataset_builder
+    from blind_image_denoising_torch.data.file_operations import load_image
+    from blind_image_denoising_torch.images import load_evaluation_images
+    from blind_image_denoising_torch.ops import (pallas_convnext,
+                                                 pallas_noise, pallas_pyramid)
+    from blind_image_denoising_torch.ops.losses import mae
+    from blind_image_denoising_torch.ops.multiscale import multiscale_targets
+    from blind_image_denoising_torch.ops.noise import corrupt_batch_fixed_std
+    from blind_image_denoising_torch.ops.precision import exact_float32
+    from blind_image_denoising_torch.training import (
+        build_eval_step, forward_loss, loss_function_builder)
+    from blind_image_denoising_torch.training.checkpoint import (
+        CheckpointManager)
+    from blind_image_denoising_torch.training.optimizer import (
+        schedule_builder)
+
+    base = bidt.CONFIGS_DICT[TRAIN_CONFIG]
+    artifact = bidt.models[FLAGSHIP]["directory"]
+    rng = np.random.default_rng(SEED + 4)
+    work = Path(tempfile.mkdtemp(prefix="bid-train-loop-"))
+    image_dir, ckpt_dir = work / "images", work / "checkpoints"
+    image_dir.mkdir()
+    scenes = np.round(synthetic_images(
+        LOOP_IMAGES, *LOOP_IMAGE_HW, rng)).astype(np.uint8)
+    for i, img in enumerate(scenes):
+        write_png(image_dir / f"scene_{i:02d}.png", img)
+    native = native_decode.available()
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    decoder = "native" if native else ("PIL" if pil else "none")
+    if decoder != "none":
+        back = load_image(image_dir / "scene_00.png", dtype=np.uint8)
+        if not np.array_equal(back, scenes[0]):
+            raise AssertionError(f"{decoder} decode of a written PNG differs")
+        data = "images"
+    else:
+        image_dir, data = None, "synthetic"
+    cfg6 = loop_config(base, image_dir, LOOP_STEPS)
+    cfg8 = loop_config(base, image_dir, LOOP_RESUME_STEPS)
+    log("train_loop_setup", config=TRAIN_CONFIG, overrides=dict(
+        LOOP_OVERRIDES, **{"dataset.inputs": cfg6["dataset"]["inputs"]}),
+        images=[LOOP_IMAGES, *LOOP_IMAGE_HW], decoder=decoder, data=data,
+        weights_directory=artifact,
+        batch=cfg6["dataset"]["batch_size"],
+        micro_batches=cfg6["train"]["gpu_batches_per_step"],
+        crop=cfg6["dataset"]["input_shape"],
+        dtype=cfg6["tpu"]["compute_dtype"])
+
+    # one injected batch, the same for the saved and the restored state
+    clean = torch.from_numpy(np.round(synthetic_images(4, 256, 256, rng)))
+    noisy = pallas_noise.corrupt_batch_plain(SEED + 5, clean,
+                                             additive_noise=[5, 40],
+                                             multiplicative_noise=None)
+    gt = [g.cuda() for g in multiscale_targets(clean, 2, clip_values=True,
+                                               round_values=True)]
+    fns = loss_function_builder(base["loss"])
+
+    def injected_loss(model):
+        with torch.no_grad(), exact_float32():
+            total, _ = forward_loss(
+                model, fns, 3, noisy.cuda(), gt,
+                torch.full((3,), 1.0 / 3, device="cuda"),
+                torch.Generator(device="cuda").manual_seed(SEED + 6))
+        return float(total)
+
+    # the sweep's images and its σ = 20 corruption (a generator seeded 0)
+    eval_clean = torch.from_numpy(load_evaluation_images(512)).cuda()
+    eval_noisy = corrupt_batch_fixed_std(
+        torch.Generator(device="cuda").manual_seed(0), eval_clean, 20.0)
+    noisy_mae_20 = float(mae(eval_clean, eval_noisy))
+
+    def sweep_mae(state):
+        """The sweep's MAE at σ 0 and 20 with the state's params."""
+        step = build_eval_step(state.model)
+        return {std: float(mae(eval_clean, step(state, x)))
+                for std, x in ((0, eval_clean), (20, eval_noisy))}
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    pkg_logger = logging.getLogger("blind_image_denoising_torch")
+    pkg_logger.addHandler(handler)
+    pkg_logger.setLevel(logging.INFO)
+    legs = {}
+    try:
+        with KernelInputs() as kernel_inputs, \
+                LoopProbe(read_counts) as probe, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            probe.warnings = caught
+            start = {}
+
+            def before_leg1(state):
+                # the fine-tune's start: the artifact's params, as loaded
+                start["mae"] = sweep_mae(state)
+            probe.before_first = before_leg1
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                state6 = bidt.train_loop(cfg6, ckpt_dir,
+                                         weights_directory=artifact)
+                legs["finetune_s"] = time.perf_counter() - t0
+                legs["finetune_setup_s"] = probe.steps[0]["start"] - t0
+                torch.cuda.set_sync_debug_mode(0)
+                saved_loss = injected_loss(state6.model)
+                ckpt6 = CheckpointManager(str(ckpt_dir)).read(LOOP_STEPS)
+                first = {}
+
+                def before_first(state):
+                    first["snap"] = state_snapshot(state)
+                    first["loss"] = injected_loss(state.model)
+                probe.before_first = before_first
+                n_leg1 = len(probe.steps)
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                state8 = bidt.train_loop(cfg8, ckpt_dir)
+                legs["resume_s"] = time.perf_counter() - t0
+                legs["resume_setup_s"] = probe.steps[n_leg1]["start"] - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        pkg_logger.removeHandler(handler)
+    del state6
+
+    # fine-tune start, restore and EMA
+    if not any(m.startswith("loaded fine-tune weights from artifact")
+               for m in records):
+        raise AssertionError("the first leg did not load the artifact")
+    restore_diff = snapshot_equals_checkpoint(probe.restored, ckpt6)
+    first_diff = snapshot_equals_checkpoint(first["snap"], ckpt6)
+    ema_moved = max(float((first["snap"]["ema"][k] - p).abs().max())
+                    for k, p in first["snap"]["model"].items()
+                    if k in first["snap"]["ema"])
+    # the JSONL records
+    rows = [json.loads(line) for line in
+            (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+    step_rows = {r["step"]: r for r in rows if "total_loss" in r}
+    schedule = schedule_builder(base["train"]["optimizer"]["schedule"])
+    lr_err = max(abs(r["learning_rate"] - schedule(k))
+                 for k, r in step_rows.items())
+    losses = [step_rows[k]["total_loss"] for k in sorted(step_rows)]
+    sweep_rows = {r["step"]: r for r in rows if "eval/mae_noise_20" in r}
+    sweep_keys = [f"eval/{m}_noise_{s}" for m in ("mae", "psnr")
+                  for s in (0, 20, 40, 60, 80)]
+    sweep_vals = {k: {key: next(r[key] for r in rows
+                                if r["step"] == k and key in r)
+                      for key in sweep_keys} for k in sweep_rows}
+    # launches and syncs
+    per_step = counts(band_smooth=16, band_smooth_bwd=16, corrupt_noise=8)
+    per_sweep = counts(convnext_block=50, band_smooth=10)
+    bad_steps = [s for s in probe.steps if s["launches"] != per_step]
+    bad_sweeps = [s["launches"] for s in probe.sweeps
+                  if s["launches"] != per_sweep]
+    step_syncs = [s["syncs"] for s in probe.steps]
+    read_syncs = sum(r["syncs"] for r in probe.reads)
+    loop_counts = {k: sum(s["launches"][k] for s in probe.steps)
+                   + sum(s["launches"][k] for s in probe.sweeps)
+                   for k in per_step}
+    # host-clock rate over the steady steps: the span from one step's
+    # start to the next's, where neither is the profiled step, the first
+    # is not the process's first step, not a stats step (a sweep, a
+    # checkpoint and an epoch's end follow it) and not the last of leg 1
+    steady, between = [], []
+    for i, (s, nxt) in enumerate(zip(probe.steps, probe.steps[1:])):
+        if (i not in (0, n_leg1 - 1) and not s["stats"]
+                and LOOP_PROFILE_STEP not in (s["step"], nxt["step"])):
+            steady.append(nxt["start"] - s["start"])
+            between.append(nxt["syncs_before"])
+    profile = json.loads((ckpt_dir / "profile" / "summary.json").read_text())
+    # the host pipeline alone: one epoch of decode, crops and batches
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in dataset_builder(cfg6["dataset"]).training)
+    decode_s = time.perf_counter() - t0
+    images_per_step = (cfg6["dataset"]["batch_size"]
+                       * cfg6["train"]["gpu_batches_per_step"])
+    steps_per_s = 1.0 / statistics.median(steady)
+    result = dict(
+        legs_s=legs, steps=[s["step"] for s in probe.steps],
+        final_step=state8.step, final_epoch=state8.epoch,
+        restore_bit_exact=not restore_diff, restore_differs=restore_diff[:5],
+        ema_kept_on_resume=not first_diff,
+        ema_max_abs_from_params=ema_moved,
+        injected_loss_saved=saved_loss, injected_loss_restored=first["loss"],
+        metrics_steps=sorted(step_rows), losses=losses,
+        learning_rate_max_abs_err=lr_err,
+        sweeps=sweep_vals, noisy_mae_20=noisy_mae_20,
+        artifact_mae=start["mae"],
+        launches_per_step=[s["launches"] for s in probe.steps][:1],
+        launches_per_sweep=[s["launches"] for s in probe.sweeps][:1],
+        steps_with_other_launches=len(bad_steps),
+        syncs_in_steps=step_syncs, syncs_between_steady_steps=between,
+        metric_reads=len(probe.reads),
+        syncs_in_metric_reads=read_syncs,
+        warnings_total=len(caught),
+        step_host_s=[round(s["host_s"], 4) for s in probe.steps],
+        steady_step_s=[round(t, 4) for t in steady],
+        steps_per_s=steps_per_s, images_per_s=images_per_step * steps_per_s,
+        profiled_step=dict(profile, step=LOOP_PROFILE_STEP),
+        decoder=decoder, data=data,
+        decode_images_per_s=(LOOP_IMAGES / decode_s if data == "images"
+                             else None),
+        pipeline_crops_per_s=n_batches * cfg6["dataset"]["batch_size"]
+        / decode_s,
+        loop_images_per_s=images_per_step * steps_per_s,
+        sweep_s=[round(s["seconds"], 3) for s in probe.sweeps], smi=smi,
+        tolerance="restore bit-exact; injected loss equal; steps 1-8 "
+                  "finite, learning_rate = schedule within 1e-9; sweeps "
+                  "finite, step 6's MAE at sigma 20 below the noisy "
+                  "input's; per "
+                  "step K2 16, K2 bwd 16, K3 8, K1 0; per sweep K1 50, "
+                  "K2 10; 0 syncs in a step, <= 1 read per logged step")
+    log("train_loop", **result)
+    if profile_text is not None:
+        profile_text.append(f"\ntrain_loop profiled step "
+                            f"{LOOP_PROFILE_STEP}: {json.dumps(profile)}\n")
+    problems = []
+    if restore_diff or first_diff:
+        problems.append("restored state differs from the step-6 "
+                        "checkpoint")
+    if not ema_moved > 0.0:
+        problems.append("the EMA equals the params")
+    if saved_loss != first["loss"]:
+        problems.append("injected loss differs after the restore")
+    if sorted(step_rows) != list(range(1, LOOP_RESUME_STEPS + 1)) or not all(
+            np.isfinite(losses)):
+        problems.append(f"metrics.jsonl steps {sorted(step_rows)}")
+    if lr_err > 1e-9:
+        problems.append(f"learning_rate off the schedule by {lr_err}")
+    # the weights the run ends with denoise; the step-3 sweep is held
+    # finite only: the first Adam steps at the schedule's peak rate move
+    # the converged artifact off its minimum (the loss rises, PERF.md)
+    if sorted(sweep_vals) != [3, 6] or not all(
+            np.isfinite(v) for vals in sweep_vals.values()
+            for v in vals.values()) or not (
+            sweep_vals[LOOP_STEPS]["eval/mae_noise_20"] < noisy_mae_20):
+        problems.append(f"sweeps {sweep_vals}")
+    if bad_steps or bad_sweeps or len(probe.sweeps) != 2:
+        problems.append(f"launches: steps {bad_steps[:2]}, sweeps "
+                        f"{bad_sweeps}")
+    if any(step_syncs) or read_syncs or len(probe.reads) > len(step_rows):
+        problems.append(f"syncs: steps {step_syncs}, reads "
+                        f"{len(probe.reads)} ({read_syncs} warned)")
+    if (state8.step != LOOP_RESUME_STEPS
+            or len(probe.steps) != LOOP_RESUME_STEPS):
+        problems.append(f"ran {len(probe.steps)} steps to {state8.step}")
+    if problems:
+        raise AssertionError(f"train_loop: {problems}")
+    del state8
+    torch.cuda.empty_cache()
+
+    errors = check_kernel_inputs(pallas_convnext, pallas_pyramid,
+                                 pallas_noise, kernel_inputs.seen, SEED + 7,
+                                 path="train_loop")
+    log("train_loop_checks", shapes={k: sorted(str(key[0]) for key in v)
+                                     for k, v in kernel_inputs.seen.items()})
+
+    # the loop's kernel shapes, timed warm and cold against their bounds:
+    # K2 and its backward at the train step's two levels (each launched
+    # per_step / 2 times per step), K3, and K1 at the sweep's two levels
+    # with the weights the sweep gave it
+    timed = []
+    for shape in ((4, 256, 256, 32), (4, 128, 128, 64)):
+        x, g_band, g_smooth = (torch.randn(shape, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        for kernel, fn, plain, lib, ins, backward in (
+                ("band_smooth", lambda a: pallas_pyramid.band_smooth(a, 2),
+                 lambda: pallas_pyramid.band_smooth_plain(x, 2),
+                 lambda: band_smooth_library(x, 2), (x,), False),
+                ("band_smooth_bwd",
+                 lambda a, b: pallas_pyramid.band_smooth_bwd(a, b, 2),
+                 lambda: pallas_pyramid.band_smooth_bwd_plain(
+                     g_band, g_smooth, 2),
+                 band_smooth_bwd_library(x, 2, g_band, g_smooth),
+                 (g_band, g_smooth), True)):
+            t = dict(ms=cuda_ms(lambda: fn(*ins)),
+                     cold_ms=cuda_ms(fn, inputs=cold_copies(*ins)),
+                     plain_ms=cuda_ms(plain, iters=5),
+                     library_ms=cuda_ms(lib))
+            bound, by = band_bound_ms(*shape, 2, torch.bfloat16,
+                                      backward=backward)
+            row = dict(kernel=kernel, shape=list(shape), dtype="bf16",
+                       launches_per_loop_step=per_step[kernel] // 2,
+                       bound_ms=bound, bound_by=by, **t)
+            log("time", path="train_loop", smi=smi, **row)
+            timed.append(row)
+    x3 = torch.round(255 * torch.rand((4, 256, 256, 3), device="cuda"))
+    noise_kw = dict(additive_noise=base["dataset"]["additional_noise"],
+                    multiplicative_noise=base["dataset"][
+                        "multiplicative_noise"])
+    seed = 20260803
+    t = dict(ms=cuda_ms(lambda: pallas_noise.corrupt_noise(seed, x3,
+                                                           **noise_kw)),
+             cold_ms=cuda_ms(lambda xc: pallas_noise.corrupt_noise(
+                 seed, xc, **noise_kw), inputs=cold_copies(x3)),
+             plain_ms=cuda_ms(lambda: pallas_noise.corrupt_batch_plain(
+                 seed, x3, **noise_kw), iters=5), library_ms=None)
+    mul, add = (sorted(noise_kw[k]) for k in ("multiplicative_noise",
+                                               "additive_noise"))
+    p = pallas_noise.sample_params_plain(seed, 4, *mul, *add)
+    bound, by, parts = noise_bound_ms(x3[0].numel(),
+                                      (p[:, 0] + p[:, 2]).int().tolist())
+    row = dict(kernel="corrupt_noise", shape=[4, 256, 256, 3], dtype="f32",
+               launches_per_loop_step=8, bound_ms=bound, bound_by=by,
+               bound_ms_by_part=parts, **t)
+    log("time", path="train_loop", smi=smi, **row)
+    timed.append(row)
+    for (shape, dtype, k), (_, kw) in sorted(
+            kernel_inputs.seen["convnext_block"].items(), key=str):
+        if shape[1] not in (512, 256) or shape[1] == 256 and shape[-1] == 32:
+            continue                  # the sweep's 4x512^2x32, 4x256^2x64
+        x = torch.randn(shape, device="cuda").to(dtype)
+        wts = {n: v for n, v in kw.items() if n != "slope"}
+        t = dict(ms=cuda_ms(lambda: pallas_convnext.convnext_block(
+                     x, slope=kw["slope"], **wts)),
+                 cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
+                     xc, slope=kw["slope"], **wts), inputs=cold_copies(x)),
+                 plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
+                     x, slope=kw["slope"], **wts), iters=3, warmup=1),
+                 library_ms=cuda_ms(lambda: convnext_library(
+                     x, slope=kw["slope"], **wts)))
+        bound, by = convnext_bound_ms(*shape, k, dtype)
+        # per sweep: five forwards, each with the encoder's and the
+        # decoder's units at this level
+        level = 0 if shape[-1] == base["model"]["backbone"]["filters"] else 1
+        row = dict(kernel="convnext_block", shape=list(shape), K=k,
+                   dtype=str(dtype), launches_per_sweep=5 * 2 * base[
+                       "model"]["backbone"]["width"][level],
+                   bound_ms=bound, bound_by=by, **t)
+        log("time", path="train_loop", smi=smi, **row)
+        timed.append(row)
+        del x
+    return loop_counts, errors, timed
+
+
+
 def main() -> int:
     faulthandler.enable()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1794,8 +2346,8 @@ def main() -> int:
     # 2160x3840 frame untiled, TTA members, batch buckets 1-32, the f32
     # gradient) against the plain versions
     for kernel, err in check_kernel_inputs(
-            pallas_convnext, pallas_pyramid, kernel_inputs.seen,
-            SEED + 3).items():
+            pallas_convnext, pallas_pyramid, pallas_noise,
+            kernel_inputs.seen, SEED + 3).items():
         errors[kernel] = max(errors[kernel], err)
     log("inference_checks", shapes={k: len(v) for k, v in
                                     kernel_inputs.seen.items()})
@@ -2227,6 +2779,14 @@ def main() -> int:
     artifact_counts = read_counts()
     if artifact_counts != counts():
         raise AssertionError(f"artifacts phase launched {artifact_counts}")
+
+    # ---- phase 10: the training loop through train_loop (fine-tune from
+    # the packaged artifact, then resume)
+    loop_counts, loop_errors, _ = train_loop_phase(
+        bidt, smi, read_counts, counts,
+        profile_text if args.profile_out is not None else None)
+    for kernel, err in loop_errors.items():
+        errors[kernel] = max(errors[kernel], err)
     if args.profile_out is not None:
         args.profile_out.parent.mkdir(parents=True, exist_ok=True)
         args.profile_out.write_text("".join(profile_text))
@@ -2275,7 +2835,8 @@ def main() -> int:
                        train=train_counts[name],
                        fused=fused_counts[name],
                        band_split=split_counts[name],
-                       artifacts=artifact_counts[name])
+                       artifacts=artifact_counts[name],
+                       train_loop=loop_counts[name])
         kernels.append(dict(
             name=name, route="cuda", source=replaces[name][0],
             replaces=replaces[name][1], launches=sum(by_path.values()),

@@ -62,8 +62,6 @@ V56 = "unet_laplacian_v56_highnoise"
 NOT_PORTED = {
     "build_pyramid_model": "ROADMAP Queue 1 item 11",
     "build_inverse_pyramid_model": "ROADMAP Queue 1 item 11",
-    "train_loop": "ROADMAP Queue 1 item 8",
-    "load_image": "ROADMAP Queue 1 item 8",
     "export_model": "ROADMAP Queue 1 item 12",
 }
 

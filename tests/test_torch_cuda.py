@@ -728,3 +728,139 @@ def test_float_forward_gradient_on_card(dev):
     cos = float(grads[0] @ grads[1] / grads[0].norm() / grads[1].norm())
     rel = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
     assert cos >= 0.9999 and rel <= 1e-3, (cos, rel)
+
+
+# ---------------------------------------------------------------- train loop
+
+@pytest.mark.parametrize("shape", [(4, 256, 256, 32), (4, 128, 128, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_kernels_at_the_loop_shapes(dev, shape, dtype):
+    """K2 and its backward at the training loop's micro-batch levels (b4 @
+    256²): the forward within 1e-5 (f32) or one bf16 ulp, the backward
+    bit-exact."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x, g_band, g_smooth = (torch.randn(shape, generator=g).to(dev, dtype)
+                           for _ in range(3))
+    for got, ref in zip(pallas_pyramid.band_smooth(x, 2),
+                        pallas_pyramid.band_smooth_plain(x, 2)):
+        err = (got.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 1e-5
+        else:
+            assert bool((err <= _bf16_ulp(ref)).all())
+    dx = pallas_pyramid.band_smooth_bwd(g_band, g_smooth, 2)
+    ref = pallas_pyramid.band_smooth_bwd_plain(g_band, g_smooth, 2)
+    assert float((dx.float() - ref.float()).abs().max()) == 0.0
+
+
+def test_noise_kernel_at_the_loop_shape(dev):
+    x = torch.round(255 * torch.rand((4, 256, 256, 3), device=dev))
+    _assert_noise_matches_plain(
+        x, 11, dict(additive_noise=[5, 40], multiplicative_noise=[0.05, 0.1]))
+
+
+@pytest.mark.parametrize("transfer", [None, np.uint8])
+def test_device_prefetch_side_stream_matches_cpu(dev, transfer):
+    """Batches copied from pinned buffers on the side stream equal the CPU
+    path's, in order, also when the consumer queues work between them and
+    the pinned buffers are reused."""
+    from blind_image_denoising_torch.data.prefetch import device_prefetch
+    rng = np.random.default_rng(6)
+    batches = [np.round(rng.uniform(0, 255, (8, 64, 64, 3))).astype(
+        np.float32) for _ in range(12)]
+    cpu = [b.clone() for b in device_prefetch(batches, device="cpu",
+                                              transfer_dtype=transfer)]
+    got = []
+    it = device_prefetch(batches, device=dev, prefetch=2,
+                         transfer_dtype=transfer)
+    for b in it:
+        assert b.is_cuda
+        torch.cuda._sleep(1_000_000)          # the consumer's stream lags
+        got.append((b.float() * 1.0).cpu())
+    assert not it.thread.is_alive()
+    assert len(got) == len(cpu) == 12
+    for g, c in zip(got, cpu):
+        assert torch.equal(g, c.float())
+
+
+def _tiny_loop_config(**train):
+    import copy
+    import blind_image_denoising_torch as bidt
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT["unet_laplacian_v6_tpu"])
+    cfg["model"]["backbone"].update(filters=32, width=[1, 1, 1])
+    cfg["train"].update(dict(dict(
+        total_steps=3, checkpoint_every=-1, visualization_every=2,
+        log_every=1, gpu_batches_per_step=2, ema=0.9, use_test_images=True),
+        **train))
+    cfg["dataset"].update(inputs=[], input_shape=[64, 64, 3], batch_size=2)
+    cfg["tpu"] = {"compute_dtype": "bfloat16", "pallas_noise": True}
+    return cfg
+
+
+def test_remat_on_card_gives_the_loss_without_remat(dev):
+    """bf16 forward_loss with drop-path and dropout on, with and without
+    remat, on one generator seed: the same loss bit for bit and the same
+    gradients within 1e-2 of each tensor's largest entry (cuDNN's backward
+    may sum in another order between two runs)."""
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.ops.multiscale import multiscale_targets
+    from blind_image_denoising_torch.training import (forward_loss,
+                                                      loss_function_builder)
+    from blind_image_denoising_torch.training.train_state import init_params
+    cfg = _tiny_loop_config()
+    cfg["model"]["backbone"].update(
+        depth_drop_rate=0.5, convolutional_self_attention_dropout_rate=0.5)
+    hydra = model_builder(cfg["model"], dtype=torch.bfloat16).hydra
+    init_params(hydra, torch.Generator().manual_seed(0))
+    hydra.to(dev)
+    clean = torch.round(255 * torch.rand((2, 64, 64, 3), device=dev))
+    noisy = torch.round(clean + 10 * torch.randn(clean.shape, device=dev))
+    gt = multiscale_targets(clean, 2, clip_values=True, round_values=True)
+    fns = loss_function_builder(cfg["loss"])
+    dw = torch.full((3,), 1.0 / 3, device=dev)
+    out = {}
+    for remat in (False, True):
+        hydra.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        total, _ = forward_loss(hydra, fns, 3, noisy, gt, dw, gen,
+                                remat=remat)
+        total.backward()
+        out[remat] = (float(total.detach()),
+                      {n: p.grad.float().clone()
+                       for n, p in hydra.named_parameters()})
+    assert out[True][0] == out[False][0]
+    for n, g in out[False][1].items():
+        scale = max(float(g.abs().max()), 1e-30)
+        assert float((out[True][1][n] - g).abs().max()) <= 1e-2 * scale, n
+
+
+def test_loop_steps_make_no_host_sync(dev, tmp_path, monkeypatch):
+    """Three steps of train_loop on the card (bf16, the noise kernel, the
+    EMA, a stats step and a sweep), each train step under
+    torch.cuda.set_sync_debug_mode("error"): nothing inside a step waits
+    for the device; the records are complete and finite."""
+    import json
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.training import train_loop as loop
+    real = loop.build_train_step
+
+    def build(*args, **kw):
+        step = real(*args, **kw)
+
+        def strict(state, batch, **kws):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(state, batch, **kws)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return strict
+
+    monkeypatch.setattr(loop, "build_train_step", build)
+    state = bidt.train_loop(_tiny_loop_config(), tmp_path / "ckpt")
+    assert state.step == 3 and state.ema_params is not None
+    rows = [json.loads(line) for line in
+            (tmp_path / "ckpt" / "metrics.jsonl").read_text().splitlines()]
+    losses = {r["step"]: r["total_loss"] for r in rows if "total_loss" in r}
+    assert sorted(losses) == [1, 2, 3]
+    assert all(np.isfinite(v) for v in losses.values())
+    assert any("eval/mae_noise_20" in r for r in rows)

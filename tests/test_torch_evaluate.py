@@ -9,7 +9,8 @@ and the ops it adds, on the CPU.
   truncated normal's (0.8796σ), the rounding lands on integers, and a
   seeded generator repeats its draw.
 * The CLI with ``--device cpu`` on an artifact the test writes; the
-  raises that name ROADMAP items 8 (image files) and 11 (degradations).
+  raises that name ROADMAP item 11 (degradations); a directory of image
+  files decodes (bit-equal to JAX's ``load_eval_images``).
 """
 
 import copy
@@ -130,7 +131,11 @@ def test_unported_parts_raise(tmp_path):
     imgs = evaluate.load_eval_images(str(tmp_path), size=32, limit=2)
     assert imgs.shape == (2, 32, 32, 3)
     np.testing.assert_array_equal(imgs, load_evaluation_images(32)[:2])
-    # ... one with images needs the decoder
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a.png")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        evaluate.load_eval_images(str(tmp_path), size=32)
+    # ... one with images decodes them, resized with pad, as JAX does
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 256, (20, 28, 3), dtype=np.uint8)).save(
+        tmp_path / "a.png")
+    imgs = evaluate.load_eval_images(str(tmp_path), size=32)
+    assert imgs.shape == (1, 32, 32, 3)
+    np.testing.assert_array_equal(imgs, jevaluate.load_eval_images(
+        str(tmp_path), size=32))
