@@ -24,6 +24,11 @@ blind_image_denoising_torch.train``) over the JAX package's configs
 read in place; ``CONFIGS_DICT``: name → config dict), with images
 decoded by ``load_image``; the builders under it
 (``blind_image_denoising_torch.training``) are the JAX package's.
+``export_model(config, checkpoint_directory, output_directory)`` (or
+``python -m blind_image_denoising_torch.export``) turns a run into an
+artifact directory that this package's and the JAX package's
+``load_model`` both serve; ``python -m blind_image_denoising_torch.build``
+writes a seeded model's params and its structure.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -138,6 +143,8 @@ _LAZY_EXPORTS = {
                           "optimizer_builder"),
     "train_loop": ("blind_image_denoising_torch.training.train_loop",
                    "train_loop"),
+    "export_model": ("blind_image_denoising_torch.inference.export",
+                     "export_model"),
     "load_image": ("blind_image_denoising_torch.data.file_operations",
                    "load_image"),
     "Multiplier": ("blind_image_denoising_torch.layers.multipliers",

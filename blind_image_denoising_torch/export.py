@@ -1,0 +1,71 @@
+"""Export CLI (counterpart of ``blind_image_denoising_tpu/export.py``):
+
+    python -m blind_image_denoising_torch.export \
+        --pipeline-config CONFIG.json --checkpoint-directory RUN \
+        --output-directory ARTIFACT [--quantize] [--test-model] [--no-ema] \
+        [--device cpu]
+
+Writes ``params.msgpack``, ``pipeline.json`` and, with ``--quantize``,
+``quant.msgpack`` from the run's latest checkpoint
+(``inference/export.export_model``), on the card unless ``--device``
+names another torch device. ``--no-stablehlo`` is accepted and is the
+default; ``--to-stablehlo`` and ``--to-tflite`` raise: those formats are
+ROADMAP Queue 1 item 13.
+"""
+
+import argparse
+import logging
+import os
+import sys
+
+from .inference.export import export_model
+
+logger = logging.getLogger("blind_image_denoising_torch")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="export a trained denoiser to a standalone artifact dir")
+    parser.add_argument("--pipeline-config", required=True, type=str)
+    parser.add_argument("--checkpoint-directory", required=True, type=str)
+    parser.add_argument("--output-directory", required=True, type=str)
+    parser.add_argument("--to-stablehlo", action="store_true", default=False,
+                        help="a StableHLO artifact: not ported (ROADMAP "
+                             "Queue 1 item 13)")
+    parser.add_argument("--no-stablehlo", dest="to_stablehlo",
+                        action="store_false", help="the default")
+    parser.add_argument("--to-tflite", action="store_true",
+                        help="a TFLite artifact: not ported (ROADMAP Queue "
+                             "1 item 13)")
+    parser.add_argument("--test-model", action="store_true",
+                        help="run an inference self-test after export")
+    parser.add_argument("--quantize", action="store_true",
+                        help="calibrate and ship int8 input scales "
+                             "(quant.msgpack)")
+    parser.add_argument("--no-ema", dest="use_ema", action="store_false",
+                        default=True,
+                        help="export the raw last iterate even when the "
+                             "checkpoint tracked a weight EMA (train.ema)")
+    parser.add_argument("--device", default=None, type=str,
+                        help="torch device; default the card ('cpu' to "
+                             "export on the CPU)")
+    args = parser.parse_args(argv)
+    if not os.path.isfile(args.pipeline_config):
+        logger.error(f"pipeline config [{args.pipeline_config}] not found")
+        return 1
+    export_model(
+        pipeline_config=args.pipeline_config,
+        checkpoint_directory=args.checkpoint_directory,
+        output_directory=args.output_directory,
+        to_stablehlo=args.to_stablehlo,
+        to_tflite=args.to_tflite,
+        test_model=args.test_model,
+        quantize=args.quantize,
+        use_ema=args.use_ema,
+        device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    sys.exit(main())

@@ -1,25 +1,40 @@
-"""Load an exported artifact directory (counterpart of
-``blind_image_denoising_tpu/inference/export.py`` ``load_exported_model``).
+"""Export and load artifact directories (counterpart of
+``blind_image_denoising_tpu/inference/export.py``).
 
 An artifact is ``pipeline.json`` (the as-run config) + ``params.msgpack``
 (flax-serialized variables: params, and ``batch_stats`` for BatchNorm
 models) + optionally ``blend.json`` and ``quant.msgpack`` (int8 input
-scales). The port reads the same files the JAX package writes; only
-loading is ported. A ``"model": {"type": "unet_laplacian_v56"}`` config
-builds ``models/unet_laplacian_v56.py``; every other config builds the
-hydra of ``models/hydra.py``.
+scales). The port reads the files the JAX package writes and writes
+files the JAX package reads:
+
+* :func:`export_model` restores the latest checkpoint of a port run
+  (``training/checkpoint.py``) and writes ``params.msgpack`` (the EMA
+  weights when the run kept them, and the last iterate's batch
+  statistics), ``pipeline.json`` and, with ``quantize=True``,
+  ``quant.msgpack`` calibrated by ``inference/quantize.calibrate``;
+* :func:`save_params_artifact` writes a directory from params and a
+  config;
+* :func:`load_exported_model` builds a ready :class:`Denoiser`. A
+  ``"model": {"type": "unet_laplacian_v56"}`` config builds
+  ``models/unet_laplacian_v56.py``; every other config builds the hydra
+  of ``models/hydra.py``.
+
+One default differs from JAX's: ``to_stablehlo`` is False. StableHLO,
+TFLite and Keras artifacts are tied to JAX and TensorFlow, and asking
+for one raises ``NotImplementedError`` (ROADMAP Queue 1 item 13).
 """
 
 import logging
 from pathlib import Path
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
-from ..config import load_config
+from ..config import load_config, save_config
 from ..models.hydra import model_builder
 from ..models.unet_laplacian_v56 import UnetLaplacianV56
-from ..weights import load_msgpack
+from ..weights import flax_from_params, load_msgpack, save_msgpack
 from .denoiser import Denoiser, resolve_device
 
 PARAMS_FILE = "params.msgpack"
@@ -55,6 +70,113 @@ def resolve_compute_dtype(dtype, config: Optional[dict] = None):
     if dtype == torch.float32:
         return None
     raise ValueError(f"unsupported compute dtype [{dtype}]")
+
+
+def _dim(v, default: int = 64) -> int:
+    """A config spatial dim: "?" / None / <= 0 (the any-size convention)
+    → ``default``."""
+    if v in (None, "?"):
+        return default
+    v = int(v)
+    return default if v <= 0 else v
+
+
+def _not_ported_format(what: str):
+    return NotImplementedError(
+        f"{what} export is not ported yet (ROADMAP Queue 1 item 13); the "
+        f"port writes params.msgpack, pipeline.json and quant.msgpack")
+
+
+def export_model(
+        pipeline_config: Union[str, dict, Path],
+        checkpoint_directory: Union[str, Path],
+        output_directory: Union[str, Path],
+        to_stablehlo: bool = False,
+        to_tflite: bool = False,
+        to_keras: bool = False,
+        test_model: bool = False,
+        reference_shape=(1, 256, 256, 3),
+        quantize: bool = False,
+        calibration_images=None,
+        use_ema: bool = True,
+        *, device=None) -> str:
+    """Restore the latest checkpoint of ``checkpoint_directory`` into the
+    float32 model of ``pipeline_config`` on ``device`` (default: the
+    card) and write an artifact directory; returns its path.
+
+    ``use_ema``: export the weight EMA when the run kept one (the weights
+    training evaluated), else the last iterate; batch statistics are
+    always the last iterate's. ``quantize``: also calibrate int8 input
+    scales on ``calibration_images`` ([N, H, W, C] float in [0, 255];
+    default: the packaged evaluation images at σ 0/10/25/50/80, at
+    ``min(256, input size)``) and write ``quant.msgpack``.
+    ``test_model``: load the artifact on ``device`` and denoise a 64×64
+    probe. ``to_stablehlo``, ``to_tflite`` and ``to_keras`` raise
+    (module docstring); ``reference_shape`` is kept for JAX's signature
+    and read by none of what is ported."""
+    for flag, what in ((to_stablehlo, "StableHLO"), (to_tflite, "TFLite"),
+                       (to_keras, "Keras")):
+        if flag:
+            raise _not_ported_format(what)
+    from ..training.checkpoint import CheckpointManager
+
+    dev = resolve_device(device)
+    config = load_config(pipeline_config)
+    manager = CheckpointManager(str(checkpoint_directory))
+    step = manager.latest_step()
+    if step is None:
+        raise ValueError(f"no checkpoint found in [{checkpoint_directory}]")
+    out_dir = Path(str(output_directory))
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    model = model_builder(config["model"]).hydra
+    ckpt = manager.read(step)
+    model.load_state_dict(ckpt["model"], strict=True)
+    if use_ema and ckpt["ema_params"] is not None:
+        names = {n for n, _ in model.named_parameters()}
+        if set(ckpt["ema_params"]) != names:
+            raise ValueError("the checkpoint's ema_params do not name the "
+                             "model's parameters")
+        model.load_state_dict(ckpt["ema_params"], strict=False)
+        logger.info("exporting the EMA weights (train.ema was on; pass "
+                    "use_ema=False for the raw iterate)")
+    model = model.to(dev).eval().requires_grad_(False)
+    variables = flax_from_params(model)
+
+    save_msgpack(out_dir / PARAMS_FILE, variables)
+    save_config(config, str(out_dir / CONFIG_FILE))
+    logger.info(f"wrote {out_dir / PARAMS_FILE} (checkpoint step {step})")
+
+    shape = config["dataset"]["input_shape"]
+    if quantize:
+        from .quantize import calibrate, default_calibration_images
+        if calibration_images is None:
+            calibration_images = default_calibration_images(
+                size=min(256, _dim(shape[0], 256)))
+        save_msgpack(out_dir / QUANT_FILE,
+                     calibrate(model, calibration_images))
+        logger.info(f"wrote {out_dir / QUANT_FILE}")
+
+    if test_model:
+        probe = np.full((64, 64, int(shape[2])), 128, np.uint8)
+        out = load_exported_model(out_dir, device=dev)(probe)
+        if out.shape != probe.shape:
+            raise RuntimeError(f"export self-test failed: {out.shape}")
+        logger.info("export self-test passed")
+    return str(out_dir)
+
+
+def save_params_artifact(params, config: dict,
+                         output_directory: Union[str, Path]) -> str:
+    """Write a loadable artifact directory from a model (or its state
+    dict) and a pipeline config (fine-tuned snapshots outside the train
+    loop); only the params are written, as in JAX."""
+    out = Path(str(output_directory))
+    out.mkdir(parents=True, exist_ok=True)
+    save_msgpack(out / PARAMS_FILE,
+                 {"params": flax_from_params(params)["params"]})
+    save_config(config, str(out / CONFIG_FILE))
+    return str(out)
 
 
 def _load_quant_scales(directory: Path, quant) -> Optional[dict]:

@@ -1,13 +1,16 @@
 """Post-training int8 calibration (counterpart of
-``blind_image_denoising_tpu/inference/quantize.py``; export of the
-scales is not ported yet, ROADMAP Queue 1 item 12).
+``blind_image_denoising_tpu/inference/quantize.py``).
 
 :func:`calibrate` runs representative images through the float model
 under ``quant_mode("calibrate")``, keeps every conv site's input amax
 (the maximum over batches) and returns the ``quant`` collection of
 per-tensor input scales ``max(amax, 1e-12) / 127``, nested by flax
 module path like ``quant.msgpack``, so ``weights.attach_quant_scales``
-takes it and JAX's ``load_model(quant=True)`` would accept it::
+takes it, ``weights.save_msgpack`` writes it as JAX's export does
+(``inference/export.export_model(quantize=True)``), and JAX's
+``load_model(quant=True)`` accepts the file. The sites are every
+``ConvBlock`` and the three convs of every ConvNext unit (``conv_1``,
+``conv_2``, ``conv_3``), as in JAX::
 
     from blind_image_denoising_torch.inference.quantize import calibrate
     quant = calibrate(model, images)            # model: Hydra / v56
@@ -34,7 +37,8 @@ def calibrate(model: torch.nn.Module,
     """``images``: [N, H, W, C] float array in the model's value range
     (e.g. [0, 255]), or an iterable of such batches; include noisy
     samples over the deployment's noise levels. Runs on the model's
-    device; returns the nested ``quant`` tree of float32 scales."""
+    device; returns the nested ``quant`` tree of float32 scales, each a
+    0-d numpy array (the leaves JAX's ``quant.msgpack`` holds)."""
     if isinstance(images, np.ndarray):
         arr = np.asarray(images, np.float32)
         batches = [arr[i:i + batch_size]
@@ -58,7 +62,8 @@ def calibrate(model: torch.nn.Module,
         for part in filter(None, path.split("/")):
             node = node.setdefault(part, {})
         amax = np.maximum(np.float32(a.item()), np.float32(1e-12))
-        node[f"{site}_scale"] = np.float32(amax / np.float32(INT8_MAX))
+        node[f"{site}_scale"] = np.asarray(amax / np.float32(INT8_MAX),
+                                           np.float32)
     logger.info(f"int8 calibration: {n} images -> input scales for "
                 f"{len(stats)} conv sites")
     return tree

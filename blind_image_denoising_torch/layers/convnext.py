@@ -16,6 +16,16 @@ expand ×4 + leaky ReLU 0.1 → 1×1 project → gain:
   wanted (serving); otherwise it returns ``x + branch(x)``, so a
   gradient is never silently dropped.
 
+The branch runs its three convs through ``ops/quant.conv2d`` as the JAX
+unit runs its three ``ConvBlock``s: the sites are ``conv_1`` (the
+depthwise conv, before the LayerNorm), ``conv_2`` and ``conv_3``, each
+named ``"in"`` under its module path. Under ``quant_mode("calibrate")``
+or ``quant_mode("int8")`` the forward takes the branch, not K1: each site
+records its input's amax or runs its int8 conv with JAX's rounding
+points, as JAX's int8 hydra runs the unit per site (its Pallas unit
+kernel serves only ``inference/fused.py``). With no mode the branch's
+convs are the plain float ones.
+
 Parameter names mirror the flax tree (``conv_1.kernel`` [C, 1, K, K],
 ``conv_1.ln.scale`` [C], ``conv_2.kernel`` [E, C], ``conv_3.kernel``
 [C, E], ``gamma.w_multiplier`` [C]), so ``weights.params_from_flax``
@@ -29,7 +39,7 @@ from torch import nn
 
 from ..constants import DEFAULT_LN_EPSILON
 from ..ops.pallas_convnext import convnext_block
-from ..ops.quant import conv_nchw, current_quant_mode
+from ..ops import quant as quant_ops
 from ..ops.regularizers import builder as regularizer_builder
 from ..ops.resize import nchw, nhwc
 from .multipliers import ChannelLearnableMultiplier
@@ -106,32 +116,30 @@ class ConvNextBlock(nn.Module):
             self._cache = (key, w)
         return self._cache[1]
 
-    def _refuse_quant_mode(self):
-        if current_quant_mode(getattr(self, "_quant_path", "")) is not None:
-            raise NotImplementedError(
-                "int8 calibration and serving through the unet_laplacian "
-                "ConvNext units are not ported yet (ROADMAP Queue 1 item "
-                "9); their int8 path is inference/fused.py")
+    def _quant_sites_active(self) -> bool:
+        return any(quant_ops.current_quant_mode(
+            getattr(m, "_quant_path", "")) is not None
+            for m in (self.conv_1, self.conv_2, self.conv_3))
 
     def branch(self, x: torch.Tensor) -> torch.Tensor:
         """The unit without its skip, in x's dtype, differentiable. x: NCHW
         (channels_last)."""
-        self._refuse_quant_mode()
         c = x.shape[1]
-        t = self.conv_1.ln(conv_nchw(x, self.conv_1.kernel.to(x.dtype),
-                                     (1, 1), "SAME", c))
         e = self.conv_2.kernel.shape[0]
-        h = F.leaky_relu(F.conv2d(t, self.conv_2.kernel.to(x.dtype).view(
-            e, c, 1, 1)), self.slope)
-        p = F.conv2d(h, self.conv_3.kernel.to(x.dtype).view(c, e, 1, 1))
+        t = self.conv_1.ln(quant_ops.conv2d(
+            self.conv_1, "in", x, self.conv_1.kernel, (1, 1), "SAME", c))
+        h = F.leaky_relu(quant_ops.conv2d(
+            self.conv_2, "in", t, self.conv_2.kernel.view(e, c, 1, 1)),
+            self.slope)
+        p = quant_ops.conv2d(self.conv_3, "in", h,
+                             self.conv_3.kernel.view(c, e, 1, 1))
         return self.gamma(p)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NCHW (channels_last) → x + block(x), same dtype."""
-        if torch.is_grad_enabled() and (
+        if self._quant_sites_active() or (torch.is_grad_enabled() and (
                 x.requires_grad or any(p.requires_grad
-                                       for p in self.parameters())):
+                                       for p in self.parameters()))):
             return x + self.branch(x)
-        self._refuse_quant_mode()
         w = self.kernel_weights(x.dtype)
         return nchw(convnext_block(nhwc(x), slope=self.slope, **w))

@@ -5,26 +5,58 @@
 * :class:`FastLayerNorm`: mean and reciprocal std in float32, the
   full-resolution normalize-and-scale (and bias) in the compute dtype, as
   the JAX module does so that bf16 serving moves bf16 bytes.
-* :class:`BatchNorm`: flax ``nn.BatchNorm`` in inference form with its
-  order of operations: ``mul = rsqrt(var + eps)·scale`` in float32, then
+* :class:`BatchNorm`: flax ``nn.BatchNorm`` with its order of
+  operations: ``mul = rsqrt(var + eps)·scale`` in float32, then
   ``(x − mean)·mul (+ bias)`` in float32, cast to the compute dtype.
   Running ``mean`` / ``var`` are buffers (the artifact's
   ``batch_stats``).
 * :class:`BiasFreeBatchNorm`: ``x · (scale·rsqrt(mean_sq + eps))`` with
   the multiplier cast to the compute dtype; running ``mean_sq`` buffer.
 
-Both batch norms serve from their running statistics only: train mode
-(batch statistics and the running update) raises, naming its ROADMAP
-item.
+In train mode (``forward(x, train=True)``) both normalize by the batch's
+statistics, float32 over N, H and W and differentiable, as flax 0.12's
+``use_fast_variance``: ``var = max(0, E[x²] − E[x]²)``, the biased
+estimate. Then the buffers take the running update ``ra ← m·ra +
+(1 − m)·batch`` with flax's momentum m (0.995): ``mean`` and ``var``, or
+``mean_sq`` alone. (``torch.nn.BatchNorm2d`` would update with the
+unbiased variance and the reverse momentum, so it is not used.) Inside
+:func:`frozen_statistics` the update is skipped: a rematerialized
+forward runs the layer a second time and must not update it twice.
 """
+
+import contextlib
+import contextvars
 
 import torch
 from torch import nn
 
 from ..constants import DEFAULT_BN_EPSILON, DEFAULT_BN_MOMENTUM
 
-_TRAIN_MODE = ("BatchNorm train mode (batch statistics and the running "
-               "update) is not ported yet (ROADMAP Queue 1 item 9)")
+_FROZEN = contextvars.ContextVar("bidt_frozen_batch_stats", default=False)
+
+
+@contextlib.contextmanager
+def frozen_statistics(frozen: bool = True):
+    """Within the block, train-mode batch norms normalize by the batch's
+    statistics but leave their running buffers as they are."""
+    token = _FROZEN.set(bool(frozen))
+    try:
+        yield
+    finally:
+        _FROZEN.reset(token)
+
+
+def _batch_moments(x: torch.Tensor):
+    """float32 (E[x], E[x²]) per channel of an NCHW tensor, over N, H, W."""
+    xf = x.float()
+    return xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))
+
+
+@torch.no_grad()
+def _running_update(buffer: torch.Tensor, batch: torch.Tensor,
+                    momentum: float) -> None:
+    if not _FROZEN.get():
+        buffer.copy_(momentum * buffer + (1.0 - momentum) * batch.detach())
 
 
 def _channel(v: torch.Tensor) -> torch.Tensor:
@@ -70,7 +102,7 @@ def parse_bn_flag(value):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_running_average=True)``. ``dtype`` None
+    """flax ``nn.BatchNorm``. ``dtype`` None
     keeps flax's promotion: the output is float32 when a float32 scale or
     bias takes part; ``forward(x, dtype=...)`` names it for one call."""
 
@@ -89,17 +121,22 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 dtype=None) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAIN_MODE)
         cdt = dtype or self.dtype
         if cdt is None:
             cdt = (torch.promote_types(x.dtype, torch.float32)
                    if self.scale is not None or self.bias is not None
                    else x.dtype)
-        mul = torch.rsqrt(self.var.float() + self.epsilon)
+        if train:
+            mean, mean_sq = _batch_moments(x)
+            var = torch.clamp(mean_sq - mean.square(), min=0.0)
+            _running_update(self.mean, mean, self.momentum)
+            _running_update(self.var, var, self.momentum)
+        else:
+            mean, var = self.mean.float(), self.var.float()
+        mul = torch.rsqrt(var + self.epsilon)
         if self.scale is not None:
             mul = mul * self.scale.float()
-        y = (x.float() - _channel(self.mean.float())) * _channel(mul)
+        y = (x.float() - _channel(mean)) * _channel(mul)
         if self.bias is not None:
             y = y + _channel(self.bias.float())
         return y.to(cdt)
@@ -107,7 +144,8 @@ class BatchNorm(nn.Module):
 
 class BiasFreeBatchNorm(nn.Module):
     """Strictly bias-free BatchNorm: ``y = x · rsqrt(E[x²] + ε) · γ`` from
-    the running second moment; no mean subtraction, no β."""
+    the running second moment (the batch's in train mode); no mean
+    subtraction, no β."""
 
     def __init__(self, features: int, epsilon: float = DEFAULT_BN_EPSILON,
                  momentum: float = DEFAULT_BN_MOMENTUM,
@@ -122,10 +160,13 @@ class BiasFreeBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 dtype=None) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAIN_MODE)
         cdt = dtype or self.dtype or x.dtype
-        mult = torch.rsqrt(self.mean_sq.float() + self.epsilon)
+        if train:
+            mean_sq = _batch_moments(x)[1]
+            _running_update(self.mean_sq, mean_sq, self.momentum)
+        else:
+            mean_sq = self.mean_sq.float()
+        mult = torch.rsqrt(mean_sq + self.epsilon)
         if self.scale is not None:
             mult = self.scale.float() * mult
         return x.to(cdt) * _channel(mult.to(cdt))

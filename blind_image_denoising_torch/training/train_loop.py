@@ -188,14 +188,22 @@ def _params_from(model: torch.nn.Module, tensors: Optional[Dict]):
 
 
 def _load_finetune_weights(state: TrainState, weights_directory) -> None:
-    """Fine-tune start: the params of an exported artifact directory
-    (``params.msgpack``), or of another run's latest checkpoint, its EMA
-    when it tracked one."""
+    """Fine-tune start: the params (and batch statistics, where it has
+    them) of an exported artifact directory (``params.msgpack``), or of
+    another run's latest checkpoint, its EMA when it tracked one, with
+    the checkpoint's batch statistics."""
     artifact = Path(str(weights_directory)) / "params.msgpack"
     if artifact.is_file():
         tree = load_msgpack(artifact)
-        state.model.load_state_dict(params_from_flax(
-            tree if "params" in tree else {"params": tree}), strict=True)
+        # an artifact without batch_stats leaves the batch norms' running
+        # statistics at their initial values, as in JAX
+        missing, unexpected = state.model.load_state_dict(params_from_flax(
+            tree if "params" in tree else {"params": tree}), strict=False)
+        buffers = {n for n, _ in state.model.named_buffers()}
+        if unexpected or set(missing) - buffers:
+            raise ValueError(f"artifact {artifact} does not fit the model: "
+                             f"missing {sorted(set(missing) - buffers)}, "
+                             f"unexpected {sorted(unexpected)}")
         logger.info(f"loaded fine-tune weights from artifact {artifact}")
         return
     donor = CheckpointManager(str(weights_directory), max_to_keep=1)

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..constants import (MAE_LOSS_STR, MSE_LOSS_STR, REGULARIZATION_LOSS_STR,
                          SSIM_LOSS_STR, TOTAL_LOSS_STR)
+from ..layers.norm import frozen_statistics
 from ..ops.multiscale import multiscale_targets
 from ..ops.noise import corrupt_batch, random_flips
 from ..ops.pallas_noise import corrupt_noise
@@ -55,14 +56,25 @@ def forward_loss(model, loss_fns: Dict[str, Callable], no_outputs: int,
     ``remat``: keep none of the forward's activations; the backward runs
     the forward again (``torch.utils.checkpoint``). The recompute draws
     its drop-path and dropout masks from ``generator`` restored to the
-    state it had before the forward, so it draws the same masks."""
+    state it had before the forward, so it draws the same masks, and
+    leaves the batch norms' running statistics as the forward left them.
+
+    A BatchNorm model normalizes by the batch's statistics and updates
+    its running buffers once per call, so the step's micro-batches update
+    them in order, as JAX carries ``batch_stats`` through its
+    accumulation scan."""
     if remat:
         saved = generator.get_state() if generator is not None else None
+        calls = []
 
         def run(x):
             if saved is not None:
                 generator.set_state(saved)
-            return tuple(model(x, train=True, generator=generator))
+            # the recompute leaves the batch norms' running statistics
+            # alone: the forward updated them once, as JAX's pure remat
+            calls.append(None)
+            with frozen_statistics(len(calls) > 1):
+                return tuple(model(x, train=True, generator=generator))
 
         outputs = checkpoint(run, nchw(noisy), use_reentrant=False)
     else:

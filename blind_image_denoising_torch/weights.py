@@ -1,13 +1,17 @@
-"""Artifact weights: a pure-Python reader for flax's ``params.msgpack`` and
-the layout conversion from flax parameter trees to a torch state dict.
+"""Artifact weights: a pure-Python reader and writer for flax's
+``params.msgpack`` and the layout conversion between flax parameter trees
+and a torch state dict.
 
-The reader covers the subset of msgpack that ``flax.serialization.to_bytes``
-writes: maps, arrays, str, bin, ints, floats, nil and bool, plus flax's
-two numpy extension types — ext 1 (ndarray: a packed
-``(shape, dtype_name, C-order bytes)`` tuple) and ext 3 (numpy scalar,
-the same payload with shape ``()``). It needs neither ``msgpack`` nor
-flax, so the port loads artifacts on machines that have only torch and
-numpy.
+The reader and the writer cover the subset of msgpack that
+``flax.serialization.to_bytes`` writes: maps, arrays, str, bin, ints,
+floats, nil and bool, plus flax's two numpy extension types — ext 1
+(ndarray: a packed ``(shape, dtype_name, C-order bytes)`` tuple) and
+ext 3 (numpy scalar, the same payload with shape ``()``). They need
+neither ``msgpack`` nor flax, so the port reads and writes artifacts on
+machines that have only torch and numpy. :func:`msgpack_serialize` writes
+the bytes ``flax.serialization.msgpack_serialize`` writes for a tree in
+the same key order (flax's own call sorts the keys first; ``to_bytes``
+keeps them as given).
 
 Layouts (flax → torch):
 * conv kernels HWIO ``[kh, kw, in, out]`` → OIHW ``[out, in, kh, kw]``;
@@ -34,6 +38,8 @@ import torch
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+# flax splits an array leaf above this many bytes into chunks
+_MAX_CHUNK_BYTES = 2 ** 30
 
 
 class _Reader:
@@ -137,6 +143,100 @@ def msgpack_restore(data: bytes) -> Dict:
 def load_msgpack(path) -> Dict:
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+def _pack_uint(n: int, fixed: int, codes) -> bytes:
+    """The shortest of msgpack's length or unsigned headers for ``n``:
+    the fix form below ``fixed`` (``codes[0]`` | n), then 8/16/32 bits
+    (``codes[1:]``, None where msgpack has no such form)."""
+    if n < fixed:
+        return bytes([codes[0] | n])
+    for code, fmt, limit in zip(codes[1:], (">B", ">H", ">I"),
+                                (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack object of {n} entries or bytes is too large")
+
+
+def _pack_int(v: int) -> bytes:
+    if 0 <= v < 0x80:
+        return bytes([v])
+    if -32 <= v < 0:
+        return struct.pack(">b", v)
+    if v >= 0:
+        for code, fmt, limit in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                 (0xCE, ">I", 1 << 32),
+                                 (0xCF, ">Q", 1 << 64)):
+            if v < limit:
+                return bytes([code]) + struct.pack(fmt, v)
+    else:
+        for code, fmt, limit in ((0xD0, ">b", 1 << 7), (0xD1, ">h", 1 << 15),
+                                 (0xD2, ">i", 1 << 31),
+                                 (0xD3, ">q", 1 << 63)):
+            if v >= -limit:
+                return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = (bytes([fixed[n]]) if n in fixed
+            else _pack_uint(n, 0, (0, 0xC7, 0xC8, 0xC9)))
+    return head + struct.pack(">b", code) + payload
+
+
+def _pack_ndarray(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.fields is not None:
+        raise ValueError("object and structured dtypes do not serialize")
+    if arr.nbytes > _MAX_CHUNK_BYTES:
+        raise ValueError("an array leaf above 1 GiB would be chunked by flax")
+    # flax packs (shape, dtype name, C-order bytes) as a msgpack array
+    return _pack((tuple(int(d) for d in arr.shape), arr.dtype.name,
+                  np.ascontiguousarray(arr).tobytes("C")))
+
+
+def _pack(obj) -> bytes:
+    if obj is None:
+        return b"\xc0"
+    if obj is True or obj is False:
+        return b"\xc3" if obj else b"\xc2"
+    if type(obj) is int:
+        return _pack_int(obj)
+    if type(obj) is float:
+        return b"\xcb" + struct.pack(">d", obj)
+    if type(obj) is str:
+        raw = obj.encode("utf-8")
+        return _pack_uint(len(raw), 32, (0xA0, 0xD9, 0xDA, 0xDB)) + raw
+    if type(obj) is bytes:
+        return _pack_uint(len(obj), 0, (0, 0xC4, 0xC5, 0xC6)) + obj
+    if type(obj) in (list, tuple):
+        return (_pack_uint(len(obj), 16, (0x90, None, 0xDC, 0xDD))
+                + b"".join(_pack(v) for v in obj))
+    if isinstance(obj, dict):
+        return (_pack_uint(len(obj), 16, (0x80, None, 0xDE, 0xDF))
+                + b"".join(_pack(k) + _pack(v) for k, v in obj.items()))
+    if isinstance(obj, np.ndarray):
+        return _pack_ext(_EXT_NDARRAY, _pack_ndarray(obj))
+    if isinstance(obj, np.generic):
+        return _pack_ext(_EXT_NPSCALAR, _pack_ndarray(np.asarray(obj)))
+    raise TypeError(f"cannot msgpack-serialize {type(obj).__name__}")
+
+
+def msgpack_serialize(tree: Dict) -> bytes:
+    """Encode a nested dict of numpy arrays (or numpy scalars, Python
+    scalars) as flax does: maps in the given key order,
+    an ndarray as ext 1 and a numpy scalar as ext 3. The inverse of
+    :func:`msgpack_restore`; ``flax.serialization.msgpack_restore`` and
+    ``from_bytes`` read it. Leaves above flax's 1 GiB chunk size are
+    refused (flax would split them)."""
+    return _pack(tree)
+
+
+def save_msgpack(path, tree: Dict) -> None:
+    """Write :func:`msgpack_serialize` of ``tree`` to ``path``."""
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(tree))
 
 
 def _is_convnext_unit(node: Dict) -> bool:

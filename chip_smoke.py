@@ -53,6 +53,25 @@ drive the two paths of the port through the entry points a user calls:
   image, against the port's f32 CPU output, every int8 conv site's
   accumulator against an int64 computation on the host, timed and
   profiled (no K1–K4 launch: JAX runs both models in XLA);
+* export: the train_loop phase's run (the flagship config at its shipped
+  width, EMA 0.999, 8 steps) through ``export_model(quantize=True,
+  test_model=True)``: ``params.msgpack`` against the checkpoint's EMA bit
+  for bit, ``load_model`` of the artifact on b8 @ 256² and one 512² in
+  bf16 (10 K1 and 2 K2 per forward) against the same artifact in f32 on
+  the CPU, the card's ``quant.msgpack`` against the CPU's calibration,
+  ``quant=True`` serving (per site, no K1) against f32, the host-clock
+  median of 10 requests, and the ``export`` and ``build`` CLIs as
+  subprocesses (the CLI's params byte-equal, ``model_structure.json``
+  equal to the hydra's param shapes); then every K1 / K2 input the phase
+  launched against the plain versions;
+* resnet_train_export: the BatchNorm resnet config at its full width
+  (filters 32, 6 layers, blocks 32/128/32, batches of 16 at 128² in 2
+  micro-batches, f32): one step on the card against the same step on the
+  CPU (loss, running statistics), 4 ``train_loop`` steps from a seeded
+  init on the train_loop phase's scenes, ``export_model``, the exported
+  ``batch_stats`` against the checkpoint's buffers bit for bit, and
+  ``load_model`` serving b8 @ 256² (no K1–K4 launch: the resnet runs in
+  PyTorch ops and its config takes the plain noise path);
 
 check what comes out, and time the kernels and the paths (K1 also in
 its float32 I/O mode, which serves ``load_model(dtype="float32")``: one
@@ -63,7 +82,7 @@ against its bound: the bytes it must move over the memory rate or the
 operations it must do over their peak rate, whichever is larger
 (``convnext_bound_ms``, ``band_bound_ms``, ``noise_bound_ms``).
 
-    python3 chip_smoke.py [--profile-out FILE]
+    python3 chip_smoke.py [--profile-out FILE] [--keep-export DIR]
 
 Imports only the port, torch and numpy; images are synthetic, made from
 a seed. Any failed check raises, so the exit code is nonzero and the
@@ -1929,15 +1948,376 @@ def train_loop_phase(bidt, smi, read_counts, counts, profile_text):
         log("time", path="train_loop", smi=smi, **row)
         timed.append(row)
         del x
-    return loop_counts, errors, timed
+    return loop_counts, errors, timed, dict(work=work, ckpt_dir=ckpt_dir,
+                                            image_dir=image_dir)
 
+
+
+# the export phase: the train_loop phase's run exported with quantize and
+# the self-test, then served from the artifact; the bars are PERF.md §2's
+# bf16 serving bar (against the same artifact in f32 on the CPU) and, for
+# int8, JAX's own int8-from-f32 gap on the same artifact and batch plus
+# 0.5 gray levels: JAX misses PERF.md §2's 2.5 there too (3.197 on the
+# CPU, tests/export_int8_gap.py; PERF.md §6); the card's calibration
+# against the CPU's
+EXPORT_BATCH, EXPORT_SIZE, EXPORT_REQUESTS = 8, 256, 10
+EXPORT_BF16_MEAN, EXPORT_BF16_P99 = 1.0, 3.0
+EXPORT_INT8_MEAN = 3.197 + 0.5
+EXPORT_CALIBRATION_RTOL = 1e-4
+# the resnet_train_export phase: the resnet config at its full width,
+# seeded glorot init, 4 steps on the train_loop phase's scenes (4 crops a
+# scene: 3 steps an epoch), a checkpoint at 4
+RESNET_CONFIG = ("resnet_color_1x6_bn_32x128x32_1x3x1_128x128_depthwise_"
+                 "l1_relu")
+RESNET_STEPS = 4
+RESNET_OVERRIDES = {"train.total_steps": RESNET_STEPS,
+                    "train.checkpoint_every": RESNET_STEPS,
+                    "dataset.no_crops_per_image": 4}
+RESNET_LOSS_RTOL, RESNET_STATS_RTOL = 1e-5, 1e-4
+
+
+def flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def timed_requests(den, img, n):
+    """Host-clock seconds of ``n`` requests of ``den`` on ``img`` (after
+    one warm-up), each to its uint8 answer on the host."""
+    den(img)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        den(img)
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def run_cli(args, timeout=600):
+    """``python -m`` one of the port's CLIs from the checkout, on the card;
+    returns its wall seconds and the tail of its log."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m"] + args, capture_output=True,
+                         text=True, timeout=timeout,
+                         cwd=str(Path(__file__).resolve().parent))
+    if out.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return time.perf_counter() - t0, out.stderr.strip().splitlines()[-1:]
+
+
+def export_phase(bidt, smi, read_counts, loop_run, keep=None):
+    """The flagship run of the train_loop phase (``unet_laplacian_v6_tpu``
+    at its shipped width, EMA 0.999, 8 steps) through ``export_model(...,
+    quantize=True, test_model=True)`` on the card; the written weights
+    against the checkpoint's EMA; ``load_model`` of the artifact serving
+    b8 @ 256² and one 512² in bf16 (10 K1 and 2 K2 per forward) against
+    the same artifact in f32 on the CPU; the card's calibration against
+    the CPU's; the ``quant=True`` route (no K1); the export and build
+    CLIs as subprocesses. ``keep``: a directory to copy the artifact and
+    the noisy batch into (``tests/export_int8_gap.py`` reads them).
+    Returns the kernel inputs seen."""
+    from blind_image_denoising_torch.inference.export import export_model
+    from blind_image_denoising_torch.inference.quantize import (
+        calibrate, default_calibration_images)
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.training.checkpoint import (
+        CheckpointManager)
+    from blind_image_denoising_torch.weights import (
+        flax_from_params, load_msgpack, params_from_flax)
+
+    ckpt_dir, work = loop_run["ckpt_dir"], loop_run["work"]
+    cfg_path = ckpt_dir / "config.json"
+    cfg = json.loads(cfg_path.read_text())
+    out_dir = work / "export"
+    rng = np.random.default_rng(SEED + 8)
+    phases = {}
+    problems = []
+    with KernelInputs() as kernel_inputs:
+        c0, t0 = read_counts(), time.perf_counter()
+        export_model(cfg_path, ckpt_dir, out_dir, quantize=True,
+                     test_model=True)
+        phases["export_s"] = time.perf_counter() - t0
+        c1 = read_counts()
+        export_launches = {k: c1[k] - c0[k] for k in c1}
+        # the weights written: the checkpoint's EMA, bit for bit
+        manager = CheckpointManager(str(ckpt_dir))
+        step = manager.latest_step()
+        ckpt = manager.read(step)
+        written = params_from_flax(load_msgpack(out_dir / "params.msgpack"))
+        weights_bad = sorted(k for k in written if not torch.equal(
+            written[k], ckpt["ema_params"][k]))
+        if set(written) != set(ckpt["ema_params"]) or weights_bad:
+            problems.append(f"params.msgpack differs from the EMA: "
+                            f"{weights_bad[:4]}")
+
+        # the float serve: bf16 from the artifact's pipeline.json
+        den = bidt.load_model(out_dir)
+        if den.model.dtype != torch.bfloat16:
+            problems.append("the artifact did not serve in bf16")
+        batch = add_noise(synthetic_images(EXPORT_BATCH, EXPORT_SIZE,
+                                           EXPORT_SIZE, rng), 25.0, rng)
+        big = add_noise(synthetic_images(1, 512, 512, rng), 25.0, rng)[0]
+        per_forward = {}
+        outs = {}
+        for name, img in (("b8_256", batch), ("1_512", big)):
+            c0 = read_counts()
+            outs[name] = den(img)
+            c1 = read_counts()
+            per_forward[name] = {k: c1[k] - c0[k] for k in c1
+                                 if c1[k] != c0[k]}
+            if per_forward[name] != dict(convnext_block=10, band_smooth=2):
+                problems.append(f"{name} launches {per_forward[name]}")
+        times = timed_requests(den, batch, EXPORT_REQUESTS)
+        cpu = bidt.load_model(out_dir, device="cpu", dtype="float32")
+        bf16_gap = {name: gray_gap(outs[name], cpu(img)) for name, img in
+                    (("b8_256", batch), ("1_512", big))}
+        cpu_b8 = cpu(batch)
+        for name, g in bf16_gap.items():
+            if g["mean"] > EXPORT_BF16_MEAN or g["p99"] > EXPORT_BF16_P99:
+                problems.append(f"bf16 {name} vs f32 CPU {g}")
+
+        # the calibration: the card's quant.msgpack against the CPU's on
+        # the same weights and images
+        size = min(256, int(cfg["dataset"]["input_shape"][0]))
+        images = default_calibration_images(size=size)
+        t0 = time.perf_counter()
+        cpu_scales = flat_tree(calibrate(cpu.model, images))
+        phases["cpu_calibration_s"] = time.perf_counter() - t0
+        card_scales = flat_tree(load_msgpack(out_dir / "quant.msgpack"))
+        rel = {k: abs(float(card_scales[k]) - float(v)) / float(v)
+               for k, v in cpu_scales.items() if k in card_scales}
+        worst_site = max(rel, key=rel.get) if rel else None
+        if set(card_scales) != set(cpu_scales) or (
+                rel[worst_site] > EXPORT_CALIBRATION_RTOL):
+            problems.append(f"calibration: {len(card_scales)} vs "
+                            f"{len(cpu_scales)} sites, worst {worst_site} "
+                            f"{rel.get(worst_site)}")
+
+        # the int8 serve: per site, no K1
+        den8 = bidt.load_model(out_dir, quant=True)
+        c0 = read_counts()
+        out8 = den8(batch)
+        c1 = read_counts()
+        int8_launches = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        if int8_launches.get("convnext_block", 0):
+            problems.append(f"the int8 route launched K1: {int8_launches}")
+        int8_gap = gray_gap(out8, cpu_b8)
+        if int8_gap["mean"] > EXPORT_INT8_MEAN:
+            problems.append(f"int8 vs f32 {int8_gap}")
+        times8 = timed_requests(den8, batch, 3)
+    del den, den8, cpu
+    torch.cuda.empty_cache()
+    if keep is not None:
+        keep.mkdir(parents=True, exist_ok=True)
+        for f in out_dir.iterdir():
+            (keep / f.name).write_bytes(f.read_bytes())
+        np.save(keep / "batch.npy", batch)
+
+    # the CLIs, each in a process of its own on the card
+    cli_dir = work / "export_cli"
+    cli_s, cli_tail = run_cli([
+        "blind_image_denoising_torch.export", "--pipeline-config",
+        str(cfg_path), "--checkpoint-directory", str(ckpt_dir),
+        "--output-directory", str(cli_dir), "--test-model"])
+    if (cli_dir / "params.msgpack").read_bytes() != (
+            out_dir / "params.msgpack").read_bytes():
+        problems.append("the export CLI wrote other params")
+    build_dir = work / "build"
+    config_file = (Path(__file__).resolve().parent / "blind_image_denoising_"
+                   "tpu" / "configs" / f"{TRAIN_CONFIG}.json")
+    build_s, build_tail = run_cli([
+        "blind_image_denoising_torch.build", "--pipeline-config",
+        str(config_file), "--output-directory", str(build_dir)])
+    structure = json.loads((build_dir / "model_structure.json").read_text())
+    hydra = model_builder(copy.deepcopy(bidt.CONFIGS_DICT[TRAIN_CONFIG][
+        "model"])).hydra
+    shapes = {k: list(v.shape) for k, v in flat_tree(
+        flax_from_params(hydra)["params"]).items()}
+    if {k: list(v) for k, v in flat_tree(structure).items()} != shapes:
+        problems.append("model_structure.json differs from the hydra")
+
+    median = statistics.median(times)
+    result = dict(
+        checkpoint_step=step, artifact=sorted(p.name for p in
+                                              out_dir.iterdir()),
+        export_s=phases["export_s"], export_launches=export_launches,
+        params_equal_ema=not weights_bad, launches_per_forward=per_forward,
+        serve_b8_256_median_s=median,
+        serve_b8_256_images_per_s=EXPORT_BATCH / median,
+        serve_b8_256_s=[round(t, 4) for t in times],
+        bf16_vs_f32_cpu=bf16_gap,
+        calibration_sites=len(card_scales),
+        calibration_worst_rel=rel.get(worst_site),
+        calibration_worst_site=worst_site,
+        cpu_calibration_s=phases["cpu_calibration_s"],
+        int8_launches_per_forward=int8_launches,
+        int8_vs_f32_cpu=int8_gap,
+        int8_b8_256_median_s=statistics.median(times8),
+        export_cli_s=cli_s, export_cli_log=cli_tail,
+        build_cli_s=build_s, build_cli_log=build_tail,
+        model_structure_leaves=len(shapes), smi=smi,
+        tolerance=f"params.msgpack = checkpoint EMA bit for bit; bf16 vs "
+                  f"f32 CPU mean <= {EXPORT_BF16_MEAN}, p99 <= "
+                  f"{EXPORT_BF16_P99}; int8 vs f32 mean <= "
+                  f"{EXPORT_INT8_MEAN}; calibration card vs CPU rtol "
+                  f"{EXPORT_CALIBRATION_RTOL}; 10 K1 + 2 K2 per float "
+                  f"forward, 0 K1 on the int8 route; the export CLI's "
+                  f"params.msgpack byte-equal; model_structure.json = the "
+                  f"hydra's param shapes")
+    log("export", **result)
+    if problems:
+        raise AssertionError(f"export: {problems}")
+    return kernel_inputs.seen
+
+
+def resnet_train_export_phase(bidt, smi, read_counts, loop_run):
+    """The resnet config at its full width (BatchNorm): one step on the
+    card against the same step on the CPU from the same seeded weights and
+    batch (noise and flips off); then ``train_loop`` for 4 steps on the
+    train_loop phase's scenes from a seeded glorot init, ``export_model``,
+    the exported ``batch_stats`` against the checkpoint's buffers bit for
+    bit, and ``load_model`` serving b8 @ 256². Returns the launches of
+    K1–K4 (none: the resnet runs in PyTorch ops, and its config takes
+    the plain noise path)."""
+    from blind_image_denoising_torch.data.dataset import dataset_builder
+    from blind_image_denoising_torch.inference.export import export_model
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.training import (
+        build_train_step, create_train_state, loss_function_builder,
+        optimizer_builder)
+    from blind_image_denoising_torch.training.checkpoint import (
+        CheckpointManager)
+    from blind_image_denoising_torch.weights import (load_msgpack,
+                                                     params_from_flax)
+
+    base = bidt.CONFIGS_DICT[RESNET_CONFIG]
+    work, image_dir = loop_run["work"], loop_run["image_dir"]
+    cfg = copy.deepcopy(base)
+    cfg["dataset"]["inputs"] = ([{"directory": str(image_dir)}]
+                                if image_dir is not None else [])
+    for key, value in RESNET_OVERRIDES.items():
+        section, name = key.split(".")
+        cfg[section][name] = value
+    ds, grad_accum = cfg["dataset"], cfg["train"]["gpu_batches_per_step"]
+    problems = []
+    c_start = read_counts()
+
+    # one step, card against CPU, from the same weights and batch
+    batches = iter(dataset_builder(ds).training)
+    clean = torch.from_numpy(np.concatenate(
+        [next(batches) for _ in range(grad_accum)]))
+    step_out = {}
+    for device in ("cpu", "cuda"):
+        hydra = model_builder(copy.deepcopy(cfg["model"])).hydra
+        tx, _ = optimizer_builder(cfg["train"]["optimizer"])
+        state = create_train_state(hydra, tx, seed=SEED, device=device)
+        step = build_train_step(
+            hydra, tx, loss_function_builder(cfg["loss"]), hydra.no_outputs,
+            grad_accum=grad_accum, random_left_right=False,
+            random_up_down=False, round_values=ds["round_values"])
+        t0 = time.perf_counter()
+        state, metrics = step(state, clean)
+        loss = float(metrics["total_loss"])
+        step_out[device] = (loss, time.perf_counter() - t0, {
+            k: v.cpu() for k, v in hydra.named_buffers()})
+        del hydra, state, step
+    loss_rel = abs(step_out["cuda"][0] - step_out["cpu"][0]) / abs(
+        step_out["cpu"][0])
+    stats_rel = {k: float((step_out["cuda"][2][k] - v).abs().max()
+                          / v.abs().max())
+                 for k, v in step_out["cpu"][2].items()}
+    worst_stat = max(stats_rel, key=stats_rel.get)
+    if loss_rel > RESNET_LOSS_RTOL or stats_rel[worst_stat] > \
+            RESNET_STATS_RTOL:
+        problems.append(f"card vs CPU step: loss {loss_rel}, "
+                        f"{worst_stat} {stats_rel[worst_stat]}")
+
+    # the loop, then export and serve
+    ckpt_dir, out_dir = work / "resnet_run", work / "resnet_artifact"
+    with LoopProbe(read_counts) as probe:
+        t0 = time.perf_counter()
+        state = bidt.train_loop(cfg, ckpt_dir)
+        loop_s = time.perf_counter() - t0
+    rows = [json.loads(line) for line in
+            (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["total_loss"] for r in rows if "total_loss" in r]
+    if state.step != RESNET_STEPS or len(losses) != RESNET_STEPS or not all(
+            np.isfinite(losses)):
+        problems.append(f"loop ran to {state.step}: losses {losses}")
+    starts = [s["start"] for s in probe.steps]
+    steady = [b - a for a, b in zip(starts[1:], starts[2:])]
+    steps_per_s = 1.0 / statistics.median(steady)
+    del state
+    t0 = time.perf_counter()
+    export_model(ckpt_dir / "config.json", ckpt_dir, out_dir)
+    export_s = time.perf_counter() - t0
+    manager = CheckpointManager(str(ckpt_dir))
+    ckpt = manager.read(manager.latest_step())
+    tree = load_msgpack(out_dir / "params.msgpack")
+    stats = params_from_flax({"params": {},
+                              "batch_stats": tree.get("batch_stats", {})})
+    buffers = {k for k, v in ckpt["model"].items()
+               if k.rsplit(".", 1)[-1] in ("mean", "var", "mean_sq")}
+    stats_bad = sorted(k for k in stats
+                       if not torch.equal(stats[k], ckpt["model"][k]))
+    if set(stats) != buffers or not buffers or stats_bad:
+        problems.append(f"batch_stats differ from the checkpoint: "
+                        f"{len(stats)} vs {len(buffers)}, {stats_bad[:4]}")
+    den = bidt.load_model(out_dir)
+    rng = np.random.default_rng(SEED + 9)
+    batch = add_noise(synthetic_images(EXPORT_BATCH, EXPORT_SIZE,
+                                       EXPORT_SIZE, rng), 25.0, rng)
+    out = den(batch)
+    if out.shape != batch.shape or out.dtype != np.uint8:
+        problems.append(f"served {out.shape} {out.dtype}")
+    times = timed_requests(den, batch, EXPORT_REQUESTS)
+    median = statistics.median(times)
+    c_end = read_counts()
+    launches = {k: c_end[k] - c_start[k] for k in c_end}
+    result = dict(
+        config=RESNET_CONFIG, overrides=RESNET_OVERRIDES,
+        batch=ds["batch_size"], micro_batches=grad_accum,
+        crop=ds["input_shape"], dtype=cfg["tpu"]["compute_dtype"],
+        step_loss_card=step_out["cuda"][0], step_loss_cpu=step_out["cpu"][0],
+        step_loss_rel=loss_rel, step_stats_worst_rel=stats_rel[worst_stat],
+        step_stats_worst=worst_stat, running_statistics=len(stats_rel),
+        cpu_step_s=step_out["cpu"][1], loop_s=loop_s, losses=losses,
+        steady_step_s=[round(t, 4) for t in steady],
+        steps_per_s=steps_per_s,
+        images_per_s=steps_per_s * ds["batch_size"] * grad_accum,
+        export_s=export_s, batch_stats_equal_checkpoint=not stats_bad,
+        batch_stats=len(stats), serve_b8_256_median_s=median,
+        serve_b8_256_images_per_s=EXPORT_BATCH / median,
+        serve_b8_256_s=[round(t, 4) for t in times],
+        launches=launches, smi=smi,
+        tolerance=f"card vs CPU step loss rtol {RESNET_LOSS_RTOL}, running "
+                  f"statistics {RESNET_STATS_RTOL} of each tensor's largest "
+                  f"magnitude (PyTorch's default TF32 flags; the float32 "
+                  f"model runs in exact float32); batch_stats = checkpoint "
+                  f"bit for bit; 4 finite losses")
+    log("resnet_train_export", **result)
+    if problems:
+        raise AssertionError(f"resnet_train_export: {problems}")
+    del den
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
+    script_start = time.perf_counter()
     faulthandler.enable()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-out", type=Path, default=None,
                         help="write the profiled per-kernel table here")
+    parser.add_argument("--keep-export", type=Path, default=None,
+                        help="copy the export phase's artifact and batch "
+                             "here (for tests/export_int8_gap.py)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2782,11 +3162,39 @@ def main() -> int:
 
     # ---- phase 10: the training loop through train_loop (fine-tune from
     # the packaged artifact, then resume)
-    loop_counts, loop_errors, _ = train_loop_phase(
+    loop_counts, loop_errors, _, loop_run = train_loop_phase(
         bidt, smi, read_counts, counts,
         profile_text if args.profile_out is not None else None)
     for kernel, err in loop_errors.items():
         errors[kernel] = max(errors[kernel], err)
+
+    # ---- phase 11: the train_loop phase's run exported (quantize, self-
+    # test), served from the artifact in bf16 and int8, and the export and
+    # build CLIs
+    t0 = time.perf_counter()
+    reset_counts()
+    export_seen = export_phase(bidt, smi, read_counts, loop_run,
+                               keep=args.keep_export)
+    export_counts = read_counts()
+    errors_export = check_kernel_inputs(pallas_convnext, pallas_pyramid,
+                                        pallas_noise, export_seen, SEED + 10,
+                                        path="export")
+    for kernel, err in errors_export.items():
+        errors[kernel] = max(errors[kernel], err)
+    phase_s = {"export": time.perf_counter() - t0}
+
+    # ---- phase 12: the resnet config trained, exported and served
+    t0 = time.perf_counter()
+    reset_counts()
+    resnet_counts = resnet_train_export_phase(bidt, smi, read_counts,
+                                              loop_run)
+    if resnet_counts != counts() or read_counts() != counts():
+        raise AssertionError(f"resnet_train_export launched {resnet_counts}")
+    phase_s["resnet_train_export"] = time.perf_counter() - t0
+    log("new_phases", seconds=phase_s,
+        script_s=time.perf_counter() - script_start,
+        export_launches=export_counts,
+        resnet_train_export_launches=resnet_counts)
     if args.profile_out is not None:
         args.profile_out.parent.mkdir(parents=True, exist_ok=True)
         args.profile_out.write_text("".join(profile_text))
@@ -2836,7 +3244,9 @@ def main() -> int:
                        fused=fused_counts[name],
                        band_split=split_counts[name],
                        artifacts=artifact_counts[name],
-                       train_loop=loop_counts[name])
+                       train_loop=loop_counts[name],
+                       export=export_counts[name],
+                       resnet_train_export=resnet_counts[name])
         kernels.append(dict(
             name=name, route="cuda", source=replaces[name][0],
             replaces=replaces[name][1], launches=sum(by_path.values()),

@@ -21,8 +21,9 @@ need, against the JAX package on the CPU.
   quantized convs, and JAX against itself so perturbed moves p99 5–7
   gray levels on these crops. Site by site the port is exact
   (``tests/test_torch_ops.py``: codes, accumulators and the rescale).
-* ``calibrate`` against JAX's on seeded images (the v56 and a resnet
-  hydra): the same sites, scales within rtol 1e-3;
+* ``calibrate`` against JAX's on seeded images (the v56, a resnet
+  hydra and the flagship, whose ConvNext units record their three sites
+  each as JAX's do): the same sites, scales within rtol 1e-3;
   ``default_calibration_images`` and ``load_evaluation_images`` equal.
 * ``quant=True`` on an artifact without ``quant.msgpack`` raises
   ``ValueError``; the v56's scales attach to every site they name.
@@ -57,12 +58,12 @@ from blind_image_denoising_torch.weights import (attach_quant_scales,
 
 RESNET = "resnet_depthwise_scratch"
 V56 = "unet_laplacian_v56_highnoise"
+FLAGSHIP = "unet_laplacian_v6_tpu_scratch"
 
 # names of the JAX package's __all__ that the port does not have yet
 NOT_PORTED = {
     "build_pyramid_model": "ROADMAP Queue 1 item 11",
     "build_inverse_pyramid_model": "ROADMAP Queue 1 item 11",
-    "export_model": "ROADMAP Queue 1 item 12",
 }
 
 
@@ -257,7 +258,7 @@ def test_evaluation_and_calibration_images_match_jax():
         jquantize.default_calibration_images(size=32, seed=3))
 
 
-@pytest.mark.parametrize("name", [V56, RESNET])
+@pytest.mark.parametrize("name", [V56, RESNET, FLAGSHIP])
 def test_calibrate_matches_jax(name):
     images = _noisy(64, 40.0, n=4, seed=5).astype(np.float32)
     jden = bid.load_model(name, dtype="float32")
@@ -274,10 +275,3 @@ def test_calibrate_matches_jax(name):
         fresh, images[:1])) == len(ref)
     out = Denoiser(fresh, quant=True, device="cpu")(images[0].astype(np.uint8))
     assert out.shape == images[0].shape
-
-
-def test_flagship_units_refuse_quant_modes():
-    model = bidt.load_model("unet_laplacian_v6_tpu_scratch", device="cpu",
-                            dtype="float32").model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tquantize.calibrate(model, np.zeros((1, 64, 64, 3), np.float32))

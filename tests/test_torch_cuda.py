@@ -35,6 +35,13 @@ untiled within one gray level on >= 99.9% of pixels; ``dispatch`` makes
 no host sync (``torch.cuda.set_sync_debug_mode("error")``); the
 gradient of ``float_forward`` matches the CPU's (cosine >= 0.9999)
 through K2's backward.
+
+Train → export → serve on the card: the flagship's int8 calibration
+matches the CPU's (scales within 1e-4 relative); one BatchNorm train
+step of the full-width resnet matches the CPU's (loss 1e-5 relative,
+running statistics 1e-4 of their largest magnitude); an exported run
+serves through K1 and K2 on its float route and without K1 on its
+``quant=True`` route.
 """
 
 import numpy as np
@@ -864,3 +871,101 @@ def test_loop_steps_make_no_host_sync(dev, tmp_path, monkeypatch):
     assert sorted(losses) == [1, 2, 3]
     assert all(np.isfinite(v) for v in losses.values())
     assert any("eval/mae_noise_20" in r for r in rows)
+
+
+# ------------------------------------------------- train → export → serve
+
+def _flat_quant(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_quant(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = float(np.asarray(v))
+    return out
+
+
+def test_flagship_calibration_on_card_matches_cpu(dev):
+    """The packaged flagship in float32 calibrated on the card (the f32
+    hydra runs in exact float32 there, every ConvNext unit per site, no
+    K1) against the same weights and images on the CPU: the same 53
+    sites, scales within 1e-4 relative (the amax of a float32 forward
+    summed in another order)."""
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.inference.quantize import calibrate
+    images = _smooth_noisy(4, 64, 64, 25.0)[1].astype(np.float32)
+    k1 = pallas_convnext.launches
+    card = _flat_quant(calibrate(bidt.load_model(
+        "unet_laplacian_v6_tpu_scratch", dtype="float32").model, images))
+    assert pallas_convnext.launches == k1
+    cpu = _flat_quant(calibrate(bidt.load_model(
+        "unet_laplacian_v6_tpu_scratch", dtype="float32",
+        device="cpu").model, images))
+    assert set(card) == set(cpu) and len(cpu) == 53
+    for k, v in cpu.items():
+        assert card[k] == pytest.approx(v, rel=1e-4), k
+
+
+@pytest.mark.parametrize("batchnorm", [True, "bias_free"])
+def test_batch_norm_train_step_on_card_matches_cpu(dev, batchnorm):
+    """One float32 train step of the resnet config at its full width
+    (filters 32, 6 layers) from the same seeded weights on the same batch
+    (noise and flips off), 2 micro-batches: the loss within 1e-5
+    relative and every running statistic within 1e-4 of its tensor's
+    largest magnitude on the card against the CPU."""
+    import copy
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.training import (
+        build_train_step, create_train_state, loss_function_builder,
+        optimizer_builder)
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT[
+        "resnet_color_1x6_bn_32x128x32_1x3x1_128x128_depthwise_l1_relu"])
+    cfg["model"]["backbone"]["batchnorm"] = batchnorm
+    batch = torch.from_numpy(_smooth_noisy(4, 64, 64, 30.0)[1])
+    out = {}
+    for device in ("cpu", "cuda"):
+        hydra = model_builder(copy.deepcopy(cfg["model"])).hydra
+        tx, _ = optimizer_builder(cfg["train"]["optimizer"])
+        state = create_train_state(hydra, tx, seed=5, device=device)
+        step = build_train_step(hydra, tx, loss_function_builder(cfg["loss"]),
+                                hydra.no_outputs, grad_accum=2,
+                                random_left_right=False, random_up_down=False)
+        state, metrics = step(state, batch)
+        out[device] = (float(metrics["total_loss"]),
+                       {k: v.cpu() for k, v in hydra.named_buffers()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for k, v in out["cpu"][1].items():
+        rel = float((out["cuda"][1][k] - v).abs().max() / v.abs().max())
+        assert rel <= 1e-4, (k, rel)
+
+
+def test_export_serves_through_k1_and_k2_on_card(dev, tmp_path):
+    """A narrow flagship config (depth 2, one unit a level) trained two
+    steps on the card, exported on the card with ``quantize=True`` and
+    ``test_model=True``: its float route (bf16, the config's dtype)
+    launches K1 once per ConvNext unit and K2 once per band split (2 and
+    1), and its ``quant=True`` route no K1 (the units run per site, as in
+    JAX) and the same one K2."""
+    import copy
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.inference.export import export_model
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT["unet_laplacian_v6_tpu"])
+    cfg["model"]["backbone"].update(depth=2, filters=32, width=[1, 1],
+                                    encoder_kernel_size=[3, 5],
+                                    decoder_kernel_size=[3, 5])
+    cfg["train"].update(total_steps=2, checkpoint_every=-1,
+                        visualization_every=-1, use_test_images=False,
+                        ema=0.5)
+    cfg["dataset"].update(inputs=[], input_shape=[64, 64, 3], batch_size=2)
+    bidt.train_loop(cfg, tmp_path / "run")
+    out = export_model(cfg, tmp_path / "run", tmp_path / "artifact",
+                       quantize=True, test_model=True)
+    img = _smooth_noisy(2, 64, 64, 20.0)[1]
+    for kw, want in (({}, (2, 1)), ({"quant": True}, (0, 1))):
+        den = bidt.load_model(out, **kw)
+        k1, k2 = pallas_convnext.launches, pallas_pyramid.launches
+        res = den(img)
+        assert res.shape == img.shape and res.dtype == np.uint8
+        assert (pallas_convnext.launches - k1,
+                pallas_pyramid.launches - k2) == want, kw

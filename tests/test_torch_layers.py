@@ -4,7 +4,10 @@ CPU, atol 1e-4; the batch norms (flax ``nn.BatchNorm`` and
 ``BiasFreeBatchNorm``, from perturbed running statistics), conv blocks
 with BatchNorm, bias, groups, depth multipliers and VALID padding, the
 LayerNorm bias, the normalized heads and the legacy multipliers within
-rtol 1e-5."""
+rtol 1e-5. The batch norms in train mode (batch statistics, and the
+running update of their buffers, twice in a row) within 1e-6 of the
+output's and of each statistic's largest magnitude (1e-5 behind a conv
+block's conv)."""
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +34,8 @@ from blind_image_denoising_torch.layers.conv import ConvBlock
 from blind_image_denoising_torch.layers.multipliers import (
     ChannelLearnableMultiplier)
 from blind_image_denoising_torch.layers.norm import (
-    BatchNorm, BiasFreeBatchNorm, FastLayerNorm, parse_bn_flag)
+    BatchNorm, BiasFreeBatchNorm, FastLayerNorm, frozen_statistics,
+    parse_bn_flag)
 from blind_image_denoising_torch.models.hydra import DenoiserHead
 from blind_image_denoising_torch.weights import params_from_flax
 
@@ -166,11 +170,65 @@ def test_bias_free_batch_norm_matches_flax():
     _check(JaxBiasFreeBatchNorm(), BiasFreeBatchNorm(12), x)
 
 
-def test_batch_norms_refuse_train_mode():
-    x = torch.zeros(1, 4, 2, 2)
-    for bn in (BatchNorm(4), BiasFreeBatchNorm(4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bn(x, train=True)
+def _rel(got, ref):
+    return float(np.max(np.abs(np.asarray(got) - np.asarray(ref)))
+                 / max(float(np.max(np.abs(np.asarray(ref)))), 1e-30))
+
+
+@pytest.mark.parametrize("which", ["bn", "bn_bias", "bias_free",
+                                   "conv_block", "conv_block_bias_free"])
+def test_batch_norm_train_mode_matches_flax(which):
+    """Train mode against flax with ``mutable=["batch_stats"]``: the
+    output normalized by the batch's statistics (biased fast variance)
+    and the running update with flax's momentum, twice in a row; inside
+    ``frozen_statistics`` the output is the same and the buffers stay."""
+    x = _x((3, 5, 6, 12), scale=2.0) + 0.7
+    kw = {}
+    if which.startswith("conv_block"):
+        x = _x((3, 7, 6, 8), scale=2.0)
+        opts = dict(kernel_size=3, use_bn=True,
+                    bn_bias_free=which.endswith("bias_free"))
+        jm = JaxConvBlock(features=12, activation="relu", **opts)
+        tm = ConvBlock(8, 12, activation="relu", **opts)
+        kw = dict(train=True)
+    elif which == "bias_free":
+        jm, tm = (JaxBiasFreeBatchNorm(use_running_average=False),
+                  BiasFreeBatchNorm(12))
+    else:
+        use_bias = which == "bn_bias"
+        jm = fnn.BatchNorm(use_running_average=False, momentum=0.995,
+                           epsilon=1e-3, use_bias=use_bias, use_scale=True)
+        tm = BatchNorm(12, use_bias=use_bias)
+    variables = _init_all(jm, x)
+    tm.load_state_dict(params_from_flax(variables), strict=True)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    bar = 1e-5 if which.startswith("conv_block") else 1e-6
+    for call in range(2):
+        ref, mutated = jm.apply(variables, jnp.asarray(x), **kw,
+                                mutable=["batch_stats"])
+        variables = dict(variables, batch_stats=mutated["batch_stats"])
+        with torch.no_grad():
+            got = tm(xt, train=True).permute(0, 2, 3, 1).numpy()
+        assert _rel(got, ref) <= bar, (call, _rel(got, ref))
+        stats = params_from_flax({"params": {}, "batch_stats": jax.tree_util
+                                  .tree_map(np.asarray,
+                                            mutated["batch_stats"])})
+        buffers = dict(tm.named_buffers())
+        assert set(stats) == set(buffers)
+        for name, v in stats.items():
+            assert _rel(buffers[name], v) <= bar, (call, name)
+        x = x * 1.5 - 0.3
+        xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    before = {n: b.clone() for n, b in tm.named_buffers()}
+    with torch.no_grad(), frozen_statistics():
+        frozen = tm(xt, train=True)
+    for n, b in tm.named_buffers():
+        assert torch.equal(b, before[n]), n
+    with torch.no_grad():
+        assert torch.equal(tm(xt, train=True), frozen)
+
+
+def test_parse_bn_flag():
     assert parse_bn_flag("bias_free") == (True, True)
     assert parse_bn_flag(True) == (True, False)
     with pytest.raises(ValueError):

@@ -28,6 +28,15 @@ the tests write.
   slots and count, step, epoch, EMA); keep-N and an idempotent save; an
   EMA presence mismatch restores the checkpoint's layout in both
   directions.
+* BatchNorm runs, on the resnet config narrowed (filters 8, 2 layers,
+  ``batchnorm`` true and ``"bias_free"``, 2 micro-batches, noise and
+  flips off so both packages see the same batches): three ``train_loop``
+  steps from the same JAX-init artifact equal JAX's ``train_loop`` —
+  losses within 1e-4 relative, params and running statistics within
+  1e-4 of each tensor's largest magnitude (the train step's gradient
+  bar); a ``remat`` step leaves the buffers (and loss and params) of a
+  plain step bit for bit; a resume restores the running statistics bit
+  for bit.
 """
 
 import copy
@@ -293,6 +302,114 @@ def test_unported_loop_options_raise(tmp_path, change, item):
     change(cfg)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         loop_module.train_loop(cfg, tmp_path, device="cpu")
+
+
+# ---------------------------------------------------------- BatchNorm runs
+
+RESNET = "resnet_color_1x6_bn_32x128x32_1x3x1_128x128_depthwise_l1_relu"
+
+
+def _resnet_pipeline(batchnorm, **train):
+    """The resnet config narrowed (filters 8, 2 layers, blocks 8/32/8) on
+    the synthetic stream: 32² crops, batches of 2 in 2 micro-batches,
+    float32; noise and flips off, so a step's batch is the same in JAX
+    and here."""
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT[RESNET])
+    cfg["model"]["backbone"].update(filters=8, no_layers=2,
+                                    block_filters=[8, 32, 8],
+                                    batchnorm=batchnorm)
+    cfg["train"].update(dict(
+        dict(total_steps=3, checkpoint_every=-1, visualization_every=-1,
+             log_every=1, gpu_batches_per_step=2, use_test_images=False),
+        **train))
+    cfg["dataset"].update(inputs=[], input_shape=[32, 32, 3], batch_size=2,
+                          no_crops_per_image=1, additional_noise=[],
+                          multiplicative_noise=[], random_left_right=False,
+                          random_up_down=False)
+    cfg["tpu"] = {"compute_dtype": "float32"}
+    return cfg
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / max(float(ref.abs().max()),
+                                               1e-30))
+
+
+def _losses(ckpt_dir):
+    return [json.loads(line)["total_loss"] for line in
+            (ckpt_dir / "metrics.jsonl").read_text().splitlines()
+            if "total_loss" in line]
+
+
+@pytest.mark.parametrize("batchnorm", [True, "bias_free"])
+def test_resnet_loop_matches_jax(tmp_path, batchnorm):
+    """Three steps of 2 micro-batches from the same JAX-init artifact
+    (params only, so the running statistics start at their initial
+    values in both): every step's loss within 1e-4 relative, and every
+    param and running statistic within 1e-4 of its tensor's largest
+    magnitude (the train step's gradient bar; Adam's first steps
+    normalize tiny gradients, so a param can move by a few ulps of the
+    rate more or less)."""
+    cfg = _resnet_pipeline(batchnorm)
+    jhydra = jax_model_builder(copy.deepcopy(cfg["model"])).hydra
+    params = jax.tree_util.tree_map(np.asarray, jhydra.init(
+        {"params": jax.random.PRNGKey(1)}, jnp.zeros((1, 32, 32, 3)),
+        train=False)["params"])
+    artifact = save_params_artifact(params, cfg, tmp_path / "artifact")
+    jstate = jax_loop_module.train_loop(cfg, tmp_path / "jax",
+                                        weights_directory=artifact)
+    state = loop_module.train_loop(cfg, tmp_path / "port",
+                                   weights_directory=artifact, device="cpu")
+    ref_losses, losses = _losses(tmp_path / "jax"), _losses(tmp_path / "port")
+    assert len(losses) == len(ref_losses) == 3
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
+    ref = params_from_flax(jax.tree_util.tree_map(np.asarray, {
+        "params": jstate.params, "batch_stats": jstate.batch_stats}))
+    got = state.model.state_dict()
+    assert set(got) == set(ref)
+    stats = [k for k in ref if k.rsplit(".", 1)[-1] in
+             ("mean", "var", "mean_sq")]
+    assert stats and all(not torch.equal(ref[k], torch.zeros_like(ref[k]))
+                         and not torch.equal(ref[k], torch.ones_like(ref[k]))
+                         for k in stats)
+    for k, v in ref.items():
+        assert _rel(got[k], v) <= 1e-4, (k, _rel(got[k], v))
+
+
+def test_remat_step_leaves_the_buffers_of_a_plain_step():
+    """One step with ``remat`` updates the running statistics once per
+    micro-batch, as the plain step does: the recompute in the backward
+    leaves them alone. Loss, params and buffers equal bit for bit."""
+    cfg = _resnet_pipeline(True)
+    out = {}
+    for remat in (False, True):
+        hydra = model_builder(cfg["model"]).hydra
+        tx, _ = optimizer_builder(cfg["train"]["optimizer"])
+        state = create_train_state(hydra, tx, seed=3, device="cpu")
+        initial = {k: v.clone() for k, v in hydra.named_buffers()}
+        step = build_train_step(hydra, tx, loss_function_builder(cfg["loss"]),
+                                hydra.no_outputs, grad_accum=2, remat=remat)
+        state, metrics = step(state, _batch(4, 32, seed=6))
+        out[remat] = (float(metrics["total_loss"]), hydra.state_dict())
+    assert out[True][0] == out[False][0]
+    for k, v in out[False][1].items():
+        assert torch.equal(out[True][1][k], v), k
+    moved = [k for k, v in out[False][1].items()
+             if k in initial and not torch.equal(v, initial[k])]
+    assert moved
+
+
+def test_resume_restores_the_running_statistics_bit_exact(tmp_path):
+    cfg = _resnet_pipeline("bias_free", total_steps=2)
+    state = loop_module.train_loop(cfg, tmp_path, device="cpu")
+    fresh = CheckpointManager(str(tmp_path)).restore(create_train_state(
+        model_builder(cfg["model"]).hydra,
+        optimizer_builder(cfg["train"]["optimizer"])[0], seed=1,
+        device="cpu"))
+    buffers = dict(state.model.named_buffers())
+    assert any(k.endswith("mean_sq") for k in buffers)
+    for k, v in fresh.model.named_buffers():
+        assert torch.equal(v, buffers[k]), k
 
 
 # ---------------------------------------------------------------- the step

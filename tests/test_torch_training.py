@@ -32,6 +32,9 @@
   finite, every parameter moves, and the fused inference unit K1 is never
   called. Drop-path is off there: at batch 1 a dropped unit's LayerNorm
   scale gets no gradient and could not move.
+* Fine-tuning the packaged flagship at the config's peak rate: one Adam
+  step at 1e-3 on one injected b2 @ 64² batch, JAX and the port, the
+  loss before (1e-4 relative) and after the step (1e-3) held together.
 """
 
 import copy
@@ -518,3 +521,62 @@ def test_flagship_full_width_train_step_on_cpu(monkeypatch):
         assert np.isfinite(float(metrics[k])), k
     for name, p in state.params.items():
         assert not torch.equal(p.detach(), before[name]), name
+
+
+def test_finetune_step_at_the_peak_rate_matches_jax():
+    """One Adam step of the config's optimizer at its peak rate (1e-3)
+    from the packaged flagship, in JAX and in the port, float32, drop-path
+    and dropout off, on one injected b2 @ 64² batch at σ 20: the loss on
+    that batch before the step within 1e-4 relative of JAX's, and after
+    it within 1e-3 (the step moves every weight by up to the rate, so the
+    loss after it sums the gradient bar's differences over every
+    param)."""
+    cfg = _config()
+    mc = copy.deepcopy(cfg["model"])
+    mc["backbone"].update(depth_drop_rate=0.0,
+                          convolutional_self_attention_dropout_rate=0.0)
+    tree = load_msgpack(f"{bidt.models[FLAGSHIP]['directory']}/params.msgpack")
+    rng = np.random.default_rng(7)
+    clean = np.round(_images(2, 64, 64, 7))
+    noisy = np.clip(np.round(clean + rng.normal(0, 20, clean.shape)),
+                    0, 255).astype(np.float32)
+    dw = np.full((3,), 1.0 / 3, np.float32)
+
+    grad_fn = _jax_grad_fn(jax_model_builder(mc).hydra, cfg)
+    jgt = jax_multiscale_targets(jnp.asarray(clean), 2, clip_values=True,
+                                 round_values=True)
+
+    def jax_loss(params):
+        grads, (_, metrics) = grad_fn(params, {}, jnp.asarray(noisy), jgt,
+                                      jnp.asarray(dw), jax.random.PRNGKey(1))
+        return grads, float(metrics["total_loss"])
+
+    jtx, _ = jax_optimizer_builder(cfg["train"]["optimizer"])
+    grads, ref_before = jax_loss(tree["params"])
+    updates, _ = jtx.update(grads, jtx.init(tree["params"]), tree["params"])
+    _, ref_after = jax_loss(optax.apply_updates(tree["params"], updates))
+
+    hydra = model_builder(mc).hydra
+    tx, _ = optimizer_builder(cfg["train"]["optimizer"])
+    state = create_train_state(hydra, tx, params=params_from_flax(tree),
+                               device="cpu")
+    gt = multiscale_targets(torch.from_numpy(clean), 2, clip_values=True,
+                            round_values=True)
+    fns = loss_function_builder(cfg["loss"])
+
+    def port_loss():
+        return forward_loss(hydra, fns, 3, torch.from_numpy(noisy), gt,
+                            torch.from_numpy(dw),
+                            torch.Generator().manual_seed(0))[0]
+
+    total = port_loss()
+    total.backward()
+    params = list(hydra.parameters())
+    tx.apply(params, [p.grad for p in params], state.opt_state)
+    with torch.no_grad():
+        after = float(port_loss())
+    before = float(total.detach())
+    print(f"fine-tune step at 1e-3 on b2 @ 64^2: JAX {ref_before:.4f} -> "
+          f"{ref_after:.4f}, port {before:.4f} -> {after:.4f}")
+    assert before == pytest.approx(ref_before, rel=1e-4)
+    assert after == pytest.approx(ref_after, rel=1e-3)
