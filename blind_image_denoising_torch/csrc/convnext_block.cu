@@ -716,9 +716,11 @@ int dispatch(const void* x, void* out, const void* dw, const void* ln,
   if (C == CC && K == KK)                                                    \
     return launch<T, CC, KK>(x, out, dw, ln, w2, w3, gain, B, H, W, slope,   \
                              s_in, inv_out, s);
+  BID_CASE(32, 1)  // the decoders of unet_laplacian_v3 / v4 / v5, level 0
   BID_CASE(32, 3)  // the packaged flagship's level 0
-  BID_CASE(32, 5)  // unet_laplacian_v6's level 0
-  BID_CASE(64, 5)  // level 1 of both
+  BID_CASE(32, 5)  // unet_laplacian_v6's level 0 (and v3 / v4 / v5's)
+  BID_CASE(64, 1)  // the decoders of unet_laplacian_v3 / v4 / v5, level 1
+  BID_CASE(64, 5)  // level 1 of all
 #undef BID_CASE
   return BID_ERR_UNSUPPORTED;
 }
@@ -742,8 +744,10 @@ template <typename T>
 int dispatch_info(int C, int K, int* v) {
 #define BID_INFO(CC, KK) \
   if (C == CC && K == KK) return info<T, CC, KK>(v);
+  BID_INFO(32, 1)
   BID_INFO(32, 3)
   BID_INFO(32, 5)
+  BID_INFO(64, 1)
   BID_INFO(64, 5)
 #undef BID_INFO
   return BID_ERR_UNSUPPORTED;

@@ -6,13 +6,22 @@ optional LayerNorm → activation.
 Plain, grouped and depthwise convs (``depth_multiplier`` m: a kernel
 [C·m, 1, kh, kw] with C groups, so output channel o reads input o // m,
 as in lax), SAME or VALID padding. Tensors are NCHW (``channels_last``),
-kernels OIHW. Every conv goes through ``ops/quant.py``'s ``conv2d`` with
-the site name ``"in"``, as in JAX: in the compute dtype (``dtype``, or
-the input's) with no quantization mode, or its calibrate / int8 paths.
-SAME padding follows XLA: an odd total pads one more on the high side.
+kernels OIHW. Every such conv goes through ``ops/quant.py``'s ``conv2d``
+with the site name ``"in"``, as in JAX: in the compute dtype (``dtype``,
+or the input's) with no quantization mode, or its calibrate / int8
+paths. SAME padding follows XLA: an odd total pads one more on the high
+side.
 
-Not ported yet, and raising: transposed and separable convs (ROADMAP
-Queue 1 item 11), and dropout inside the block.
+``transpose=True`` is ``lax.conv_transpose`` with the kernel as stored
+(no flip): the input dilated by the strides, padded by lax's transposed
+SAME / VALID rule, then a stride-1 conv; the flax kernel ``[kh, kw, in,
+out]`` is held as ``[out, in, kh, kw]``. ``separable=True`` is a
+depthwise conv (``depthwise_kernel`` [in, 1, kh, kw]) then a 1×1 conv
+(``pointwise_kernel`` [out, in, 1, 1]). Both keep the float path, as the
+JAX block does. ``dropout_rate`` drops elements and
+``spatial_dropout_rate`` whole channels per sample after the
+activation, in training only, with masks from the generator the caller
+passes (flax ``nn.Dropout``: kept values scaled by 1/(1 − rate)).
 
 ``kernel_regularizer`` (a config spec for ``ops/regularizers.builder``)
 gives the block a ``penalty()`` of its float32 kernel: the term the JAX
@@ -22,6 +31,7 @@ block sows into its ``losses`` collection during training.
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..constants import DEFAULT_LN_EPSILON
@@ -30,12 +40,53 @@ from ..ops.regularizers import builder as regularizer_builder
 from ..ops.resize import nchw, nhwc
 from .activations import activation_fn
 from .norm import BatchNorm, BiasFreeBatchNorm, FastLayerNorm
+from .stochastic import drop_mask
 
 
 def _pair(v):
     if isinstance(v, (tuple, list)):
         return int(v[0]), int(v[1])
     return int(v), int(v)
+
+
+def transpose_pads(k: int, s: int, padding: str):
+    """(low, high) padding of ``lax.conv_transpose`` along one axis."""
+    if padding == "SAME":
+        total = k + s - 2
+        low = k - 1 if s > k - 1 else -(-total // 2)
+    elif padding == "VALID":
+        total, low = k + s - 2 + max(k - s, 0), k - 1
+    else:
+        raise ValueError(f"unknown padding [{padding}]")
+    return low, total - low
+
+
+def conv_transpose(x: torch.Tensor, kernel: torch.Tensor, strides,
+                   padding: str) -> torch.Tensor:
+    """``lax.conv_transpose`` of NCHW x with an OIHW kernel taken as
+    stored: x dilated by the strides, padded, then a stride-1 conv."""
+    (sh, sw), (kh, kw) = strides, kernel.shape[2:]
+    b, c, h, w = x.shape
+    if (sh, sw) != (1, 1):
+        xd = x.new_zeros((b, c, (h - 1) * sh + 1, (w - 1) * sw + 1))
+        xd[:, :, ::sh, ::sw] = x
+        x = xd
+    ph, pw = transpose_pads(kh, sh, padding), transpose_pads(kw, sw, padding)
+    return F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), kernel)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            channels: bool = False) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training on NCHW x: elements, or whole
+    channels per sample (``channels``, its ``broadcast_dims=(1, 2)`` on
+    NHWC), kept with probability 1 − rate and scaled by 1/(1 − rate)."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    shape = tuple(x.shape[:2]) + (1, 1) if channels else x.shape
+    keep = drop_mask(shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class ConvBlock(nn.Module):
@@ -51,19 +102,29 @@ class ConvBlock(nn.Module):
                  groups: int = 1, transpose: bool = False,
                  separable: bool = False, kernel_regularizer=None,
                  dtype=None, padding: str = "SAME", bn_center: bool = False,
-                 bn_bias_free: bool = False):
+                 bn_bias_free: bool = False, dropout_rate: float = 0.0,
+                 spatial_dropout_rate: float = 0.0):
         super().__init__()
-        if transpose or separable:
-            raise NotImplementedError(
-                "transposed and separable convs are not ported yet "
-                "(ROADMAP Queue 1 item 11)")
         kh, kw = _pair(kernel_size)
         self.strides = _pair(strides)
         self.padding = str(padding).upper()
         self.dtype = dtype
+        self.transpose, self.separable = bool(transpose), bool(separable)
+        self.dropout_rate = float(dropout_rate or 0.0)
+        self.spatial_dropout_rate = float(spatial_dropout_rate or 0.0)
         self.depth_multiplier = (None if depth_multiplier is None
+                                 or self.transpose or self.separable
                                  else int(depth_multiplier))
-        if depth_multiplier is not None:
+        if self.transpose:
+            out = int(features)
+            self.kernel = nn.Parameter(torch.zeros(out, in_features, kh, kw))
+        elif self.separable:
+            out = int(features)
+            self.depthwise_kernel = nn.Parameter(
+                torch.zeros(in_features, 1, kh, kw))
+            self.pointwise_kernel = nn.Parameter(
+                torch.zeros(out, in_features, 1, 1))
+        elif depth_multiplier is not None:
             out = in_features * int(depth_multiplier)
             self.groups = in_features
             self.kernel = nn.Parameter(torch.zeros(out, 1, kh, kw))
@@ -86,13 +147,23 @@ class ConvBlock(nn.Module):
                             else regularizer_builder(kernel_regularizer))
 
     def penalty(self):
-        """The kernel's regularization term (float32), or None."""
+        """The kernels' regularization term (float32), or None."""
         if self.regularizer is None:
             return None
+        if self.separable:
+            return (self.regularizer(self.depthwise_kernel.float())
+                    + self.regularizer(self.pointwise_kernel.float()))
         return self.regularizer(self.kernel.float())
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        cdt = self.dtype or x.dtype
+    def _conv(self, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+        if self.transpose:
+            return conv_transpose(x.to(cdt), self.kernel.to(cdt),
+                                  self.strides, self.padding)
+        if self.separable:
+            y = quant_ops.conv_nchw(x.to(cdt), self.depthwise_kernel.to(cdt),
+                                    self.strides, self.padding, x.shape[1])
+            return quant_ops.conv_nchw(y, self.pointwise_kernel.to(cdt),
+                                       (1, 1), "SAME", 1)
         groups = self.groups
         m = self.depth_multiplier
         if m is not None and m > 1:
@@ -104,8 +175,13 @@ class ConvBlock(nn.Module):
             x = nchw(nhwc(x).unsqueeze(-1).expand(b, h, w, c, m).reshape(
                 b, h, w, c * m))
             groups = c * m
-        y = quant_ops.conv2d(self, "in", x, self.kernel, self.strides,
-                             self.padding, groups, compute_dtype=cdt)
+        return quant_ops.conv2d(self, "in", x, self.kernel, self.strides,
+                                self.padding, groups, compute_dtype=cdt)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator = None) -> torch.Tensor:
+        cdt = self.dtype or x.dtype
+        y = self._conv(x, cdt)
         if self.bias is not None:
             y = y + self.bias.to(cdt).view(1, -1, 1, 1)
         if self.bn is not None:
@@ -113,7 +189,12 @@ class ConvBlock(nn.Module):
             y = self.bn(y, train=train, dtype=cdt)
         if self.ln is not None:
             y = self.ln(y)
-        return self.act(y)
+        y = self.act(y)
+        if train:
+            y = dropout(y, self.dropout_rate, generator)
+            y = dropout(y, self.spatial_dropout_rate, generator,
+                        channels=True)
+        return y
 
 
 def conv_block_from_params(in_features: int, params: dict, dtype=None,
@@ -126,11 +207,6 @@ def conv_block_from_params(in_features: int, params: dict, dtype=None,
     activation / kernel_regularizer …)."""
     p = dict(params or {})
     p.update(overrides)
-    if (p.get("dropout_rate", 0.0) or 0.0) > 0.0 or \
-            (p.get("spatial_dropout_rate", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError(
-            "dropout inside a conv block is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
     return ConvBlock(
         in_features, features=p.get("filters", 0),
         kernel_size=p.get("kernel_size", 3),
@@ -143,4 +219,5 @@ def conv_block_from_params(in_features: int, params: dict, dtype=None,
         kernel_regularizer=p.get("kernel_regularizer",
                                  p.get("depthwise_regularizer", None)),
         dtype=dtype, padding=p.get("padding", "SAME"), bn_center=bn_center,
-        bn_bias_free=bn_bias_free)
+        bn_bias_free=bn_bias_free, dropout_rate=p.get("dropout_rate", 0.0),
+        spatial_dropout_rate=p.get("spatial_dropout_rate", 0.0))

@@ -16,6 +16,25 @@ expand ×4 + leaky ReLU 0.1 → 1×1 project → gain:
   wanted (serving); otherwise it returns ``x + branch(x)``, so a
   gradient is never silently dropped.
 
+Which units K1 serves is decided when the unit is built, from the
+kernel's own instantiations and options alone (``kernel_route``): (C,
+K) in ``pallas_convnext.KERNEL_SHAPES`` with E = 4C, as many output as
+input channels, LayerNorm without BatchNorm or biases, the gain, the
+``leaky_relu_01`` expansion and no dropout. Every other unit — the
+C = 128 levels of ``unet_laplacian_v3`` / ``_v4``, a concatenated
+decoder input, BatchNorm, biases, another activation, an even kernel —
+computes ``x + branch(x)`` (or the branch alone when the channels
+change) on every device, as JAX runs every unit in XLA; each such
+forward adds one to ``pallas_convnext.branch_units``. A unit routed to
+K1 launches it for a CUDA tensor or raises.
+
+The options follow the flax unit: ``use_bias`` (a bias on each conv,
+and on the LayerNorm and BatchNorm), ``use_bn`` (BatchNorm on
+``conv_1`` before its LayerNorm, batch statistics in training),
+``use_ln``, ``use_gamma``, and ``dropout_rate`` /
+``spatial_dropout_rate`` on ``conv_2``'s activated output in training,
+masks from the caller's generator.
+
 The branch runs its three convs through ``ops/quant.conv2d`` as the JAX
 unit runs its three ``ConvBlock``s: the sites are ``conv_1`` (the
 depthwise conv, before the LayerNorm), ``conv_2`` and ``conv_3``, each
@@ -34,24 +53,27 @@ output loads directly. ``depthwise_regularizer`` and
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..constants import DEFAULT_LN_EPSILON
+from ..ops import pallas_convnext
 from ..ops.pallas_convnext import convnext_block
 from ..ops import quant as quant_ops
 from ..ops.regularizers import builder as regularizer_builder
 from ..ops.resize import nchw, nhwc
+from .activations import activation_fn
+from .conv import dropout
 from .multipliers import ChannelLearnableMultiplier
-from .norm import FastLayerNorm
+from .norm import BatchNorm, FastLayerNorm
 
 _LEAKY_SLOPES = {"leaky_relu_01": 0.1, "leakyrelu_01": 0.1}
 
 
 class _Regularized(nn.Module):
-    def __init__(self, shape, regularizer):
+    def __init__(self, shape, regularizer, use_bias: bool):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(shape))
+        self.bias = nn.Parameter(torch.zeros(shape[0])) if use_bias else None
         self.regularizer = (None if regularizer is None
                             else regularizer_builder(regularizer))
 
@@ -60,41 +82,64 @@ class _Regularized(nn.Module):
             return None
         return self.regularizer(self.kernel.float())
 
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        if self.bias is None:
+            return y
+        return y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+
 
 class _Depthwise(_Regularized):
-    def __init__(self, features: int, kernel_size: int, regularizer=None):
-        super().__init__((features, 1, kernel_size, kernel_size), regularizer)
-        self.ln = FastLayerNorm(features, epsilon=DEFAULT_LN_EPSILON)
+    def __init__(self, features: int, kernel_size: int, regularizer=None,
+                 use_bias: bool = False, use_bn: bool = False,
+                 use_ln: bool = True):
+        super().__init__((features, 1, kernel_size, kernel_size),
+                         regularizer, use_bias)
+        self.bn = BatchNorm(features, use_bias=use_bias) if use_bn else None
+        self.ln = (FastLayerNorm(features, epsilon=DEFAULT_LN_EPSILON,
+                                 use_bias=use_bias) if use_ln else None)
 
 
 class _Pointwise(_Regularized):
     def __init__(self, out_features: int, in_features: int,
-                 regularizer=None):
-        super().__init__((out_features, in_features), regularizer)
+                 regularizer=None, use_bias: bool = False):
+        super().__init__((out_features, in_features), regularizer, use_bias)
 
 
 class ConvNextBlock(nn.Module):
-    """One residual unit with the flagship's options (LayerNorm, gamma,
-    no bias, linear depthwise, ``leaky_relu_01`` expansion)."""
+    """One residual unit: ``features`` in, ``out_features`` (default
+    ``features``) out, depthwise ``kernel_size``, ``expansion`` hidden
+    channels."""
 
     def __init__(self, features: int, kernel_size: int, expansion: int,
                  activation: str = "leaky_relu_01",
-                 depthwise_regularizer=None, pointwise_regularizer=None):
+                 depthwise_regularizer=None, pointwise_regularizer=None,
+                 out_features: int = None, use_bias: bool = False,
+                 use_bn: bool = False, use_ln: bool = True,
+                 use_gamma: bool = True, dropout_rate: float = 0.0,
+                 spatial_dropout_rate: float = 0.0):
         super().__init__()
+        out = features if out_features is None else int(out_features)
         key = activation.strip().lower()
-        if key not in _LEAKY_SLOPES:
-            raise NotImplementedError(
-                f"ConvNext expansion activation [{activation}] is not "
-                f"ported yet (ROADMAP Queue 1 item 9)")
-        if kernel_size % 2 != 1:
-            raise NotImplementedError(
-                "even depthwise kernels are not ported yet (ROADMAP Queue "
-                "1 item 9)")
-        self.slope = _LEAKY_SLOPES[key]
-        self.conv_1 = _Depthwise(features, kernel_size, depthwise_regularizer)
-        self.conv_2 = _Pointwise(expansion, features, pointwise_regularizer)
-        self.conv_3 = _Pointwise(features, expansion, pointwise_regularizer)
-        self.gamma = ChannelLearnableMultiplier(features)
+        self.slope = _LEAKY_SLOPES.get(key)
+        self.act = activation_fn(activation)
+        self.residual = out == features
+        self.dropout_rate = max(0.0, float(dropout_rate or 0.0))
+        self.spatial_dropout_rate = max(0.0,
+                                        float(spatial_dropout_rate or 0.0))
+        self.conv_1 = _Depthwise(features, kernel_size, depthwise_regularizer,
+                                 use_bias, use_bn, use_ln)
+        self.conv_2 = _Pointwise(expansion, features, pointwise_regularizer,
+                                 use_bias)
+        self.conv_3 = _Pointwise(out, expansion, pointwise_regularizer,
+                                 use_bias)
+        self.gamma = ChannelLearnableMultiplier(out) if use_gamma else None
+        # the kernel's own shapes and options decide, once
+        self.kernel_route = (
+            self.residual and expansion == 4 * features
+            and (features, kernel_size) in pallas_convnext.KERNEL_SHAPES
+            and use_ln and not use_bn and not use_bias and use_gamma
+            and self.slope is not None and self.dropout_rate == 0.0
+            and self.spatial_dropout_rate == 0.0)
         self._cache = None
 
     def kernel_weights(self, dtype: torch.dtype):
@@ -121,22 +166,37 @@ class ConvNextBlock(nn.Module):
             getattr(m, "_quant_path", "")) is not None
             for m in (self.conv_1, self.conv_2, self.conv_3))
 
-    def branch(self, x: torch.Tensor) -> torch.Tensor:
+    def branch(self, x: torch.Tensor, train: bool = False,
+               generator: torch.Generator = None) -> torch.Tensor:
         """The unit without its skip, in x's dtype, differentiable. x: NCHW
-        (channels_last)."""
+        (channels_last). ``train``: batch statistics and dropout, whose
+        masks come from ``generator``."""
         c = x.shape[1]
         e = self.conv_2.kernel.shape[0]
-        t = self.conv_1.ln(quant_ops.conv2d(
+        t = self.conv_1.add_bias(quant_ops.conv2d(
             self.conv_1, "in", x, self.conv_1.kernel, (1, 1), "SAME", c))
-        h = F.leaky_relu(quant_ops.conv2d(
-            self.conv_2, "in", t, self.conv_2.kernel.view(e, c, 1, 1)),
-            self.slope)
-        p = quant_ops.conv2d(self.conv_3, "in", h,
-                             self.conv_3.kernel.view(c, e, 1, 1))
-        return self.gamma(p)
+        if self.conv_1.bn is not None:
+            t = self.conv_1.bn(t, train=train, dtype=t.dtype)
+        if self.conv_1.ln is not None:
+            t = self.conv_1.ln(t)
+        h = self.act(self.conv_2.add_bias(quant_ops.conv2d(
+            self.conv_2, "in", t, self.conv_2.kernel.view(e, c, 1, 1))))
+        if train:
+            h = dropout(h, self.dropout_rate, generator)
+            h = dropout(h, self.spatial_dropout_rate, generator,
+                        channels=True)
+        out = self.conv_3.kernel.shape[0]
+        p = self.conv_3.add_bias(quant_ops.conv2d(
+            self.conv_3, "in", h, self.conv_3.kernel.view(out, e, 1, 1)))
+        return p if self.gamma is None else self.gamma(p)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: NCHW (channels_last) → x + block(x), same dtype."""
+        """x: NCHW (channels_last) → x + block(x) (the block alone when
+        the channels change), same dtype."""
+        if not self.kernel_route:
+            pallas_convnext.branch_units += 1
+            y = self.branch(x)
+            return x + y if self.residual else y
         if self._quant_sites_active() or (torch.is_grad_enabled() and (
                 x.requires_grad or any(p.requires_grad
                                        for p in self.parameters()))):

@@ -11,7 +11,11 @@ I/O modes, and of its oracle ``convnext_block_reference``. The packaged
 flagship runs it 10 times per forward: at (C, K) = (32, 3) four times at
 full resolution and (64, 5) six times at half resolution;
 ``unet_laplacian_v6`` runs it at (32, 5) and (64, 5), 12 times, and its
-fused int8 serving path (``inference/fused.py``) runs the int8 mode.
+fused int8 serving path (``inference/fused.py``) runs the int8 mode;
+``unet_laplacian_v3``, ``_v4`` and ``_v5`` run it 12 times, 3 each at
+(32, 5), (64, 5) and their decoders' (64, 1) and (32, 1). At K = 1 the
+halo is empty (PAD = 0) and the depthwise sum is one tap per channel;
+the tile, copy and depthwise code is written in PAD and K, unchanged.
 
 CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
 2K²C + 16C² operations against 2·C·bytes of I/O: ≈ 17 k operations per
@@ -70,13 +74,17 @@ from ..constants import DEFAULT_LN_EPSILON
 from . import cuda_build
 
 # kernel launches made by convnext_block in float mode and in int8 mode
-# (the plain path does not count)
+# (the plain path does not count), and the ConvNext units outside the
+# kernel's shapes and options that ran their PyTorch branch in a forward
+# instead (layers/convnext.py ConvNextBlock.forward)
 launches = 0
 int8_launches = 0
+branch_units = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# (C, K) instantiated in csrc/convnext_block.cu for every mode; E = 4C
-KERNEL_SHAPES = frozenset({(32, 3), (32, 5), (64, 5)})
+# (C, K) instantiated in csrc/convnext_block.cu for every mode; E = 4C.
+# K = 1 serves the decoders of unet_laplacian_v3, _v4 and _v5
+KERNEL_SHAPES = frozenset({(32, 1), (32, 3), (32, 5), (64, 1), (64, 5)})
 INT8_MAX = 127
 # dynamic shared memory one block may have on an H100
 SHARED_MEMORY_LIMIT = 232_448

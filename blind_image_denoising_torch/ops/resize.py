@@ -75,6 +75,56 @@ def avg_pool_valid(x: torch.Tensor, window, strides) -> torch.Tensor:
     return acc / float(kh * kw)
 
 
+def max_pool_same(x: torch.Tensor, window=(2, 2),
+                  strides=(2, 2)) -> torch.Tensor:
+    """TF MaxPooling2D(padding='same') on NHWC: the max over the in-image
+    taps (XLA pads with -inf, the odd extra on the high side)."""
+    (kh, kw), (sh, sw) = (tuple(int(v) for v in window),
+                          tuple(int(v) for v in strides))
+    _, h, w, _ = x.shape
+    ph, pw = same_pads(h, kh, sh), same_pads(w, kw, sw)
+    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    oh, ow = -(-h // sh), -(-w // sw)
+    acc = None
+    for dy in range(kh):
+        for dx in range(kw):
+            tap = xp[:, dy:dy + (oh - 1) * sh + 1:sh,
+                     dx:dx + (ow - 1) * sw + 1:sw, :]
+            acc = tap if acc is None else torch.maximum(acc, tap)
+    return acc
+
+
+def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    """The mean of NHWC x over H and W."""
+    return x.mean(dim=(1, 2), keepdim=keepdims)
+
+
+def downsample_2x_stride(x: torch.Tensor) -> torch.Tensor:
+    """Strided-slice 2× downsample of NHWC x: the even rows and columns."""
+    return x[:, ::2, ::2, :]
+
+
+def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
+    """[B, H, W, C] → [B, H/r, W/r, C·r²] (pixel-unshuffle); channel
+    blocks in (row offset, column offset, channel) order, as the JAX
+    function, so :func:`depth_to_space` is its exact inverse."""
+    b, h, w, c = x.shape
+    if h % r or w % r:
+        raise ValueError(f"space_to_depth: H×W {h}×{w} not divisible by {r}")
+    x = x.reshape(b, h // r, r, w // r, r, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // r, w // r, r * r * c)
+
+
+def depth_to_space(x: torch.Tensor, r: int) -> torch.Tensor:
+    """[B, H, W, C] → [B, H·r, W·r, C/r²] (pixel-shuffle), the inverse of
+    :func:`space_to_depth`."""
+    b, h, w, c = x.shape
+    if c % (r * r):
+        raise ValueError(f"depth_to_space: C={c} not divisible by {r * r}")
+    x = x.reshape(b, h, w, r, r, c // (r * r))
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * r, w * r, c // (r * r))
+
+
 def upsample_2x_nearest(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2× upsample (Keras UpSampling2D 'nearest')."""
     b, h, w, c = x.shape

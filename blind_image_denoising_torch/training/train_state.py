@@ -78,11 +78,15 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(module, ChannelLearnableMultiplier):
             w = module.w_multiplier
             w.copy_(0.01 * truncated_normal(w.shape, generator))
-        elif isinstance(getattr(module, "kernel", None), nn.Parameter):
-            k = module.kernel
-            fan_in, fan_out = _fans(k)
-            std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
-            k.copy_(std * truncated_normal(k.shape, generator))
+        else:
+            # a conv's kernel, or a separable conv's two
+            for name in ("kernel", "depthwise_kernel", "pointwise_kernel"):
+                k = getattr(module, name, None)
+                if not isinstance(k, nn.Parameter):
+                    continue
+                fan_in, fan_out = _fans(k)
+                std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
+                k.copy_(std * truncated_normal(k.shape, generator))
 
 
 def create_train_state(model: nn.Module, tx: Optimizer, seed: int = 0,

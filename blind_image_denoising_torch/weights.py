@@ -16,7 +16,9 @@ keeps them as given).
 Layouts (flax → torch):
 * conv kernels HWIO ``[kh, kw, in, out]`` → OIHW ``[out, in, kh, kw]``;
   a depthwise kernel ``[K, K, 1, C]`` becomes ``[C, 1, K, K]`` by the
-  same rule;
+  same rule, and so do a transposed conv's ``[kh, kw, in, out]`` (held
+  as ``[out, in, kh, kw]``) and a separable conv's ``depthwise_kernel``
+  and ``pointwise_kernel``;
 * the two 1×1 kernels inside a ConvNext unit (``conv_2``/``conv_3`` of a
   subtree that also holds ``conv_1``) become plain matrices ``[E, C]``
   and ``[C, E]``, the operands of the fused unit kernel

@@ -72,6 +72,21 @@ drive the two paths of the port through the entry points a user calls:
   ``batch_stats`` against the checkpoint's buffers bit for bit, and
   ``load_model`` serving b8 @ 256² (no K1–K4 launch: the resnet runs in
   PyTorch ops and its config takes the plain noise path);
+* unet_laplacian_family: ``unet_laplacian_v4`` at its full width and
+  shipped size (filters 32, depth 4, width 3, decoder K = 1, attention
+  gates, Laplacian upsample, strided downsample; b4 × 8 micro-batches of
+  256², f32): one f32 train step on the card against the CPU (loss, the
+  gradient's cosine), 4 ``train_loop`` steps from a seeded init on the
+  train_loop phase's scenes with a checkpoint and a noise sweep at step 4,
+  ``export_model``, and ``load_model`` of the run in f32 and bf16 on
+  b8 @ 256² and one 512² against the same artifact in f32 on the CPU;
+  ``unet_laplacian_v3`` and ``_v5`` from the ``build`` CLI's seeded
+  artifacts served b8 @ 256²; exact launches per forward (K1 at every
+  C = 32 / 64 unit, the decoders' at K = 1; K2 per band split; the
+  C = 128 units on their PyTorch branch, ``pallas_convnext.branch_units``)
+  and per micro-batch (K2, its backward, K3; no K1); then every K1 / K2 /
+  K2-backward / K3 input it launched against the plain versions, and K1
+  at (32, 1) and (64, 1) timed;
 
 check what comes out, and time the kernels and the paths (K1 also in
 its float32 I/O mode, which serves ``load_model(dtype="float32")``: one
@@ -83,6 +98,7 @@ operations it must do over their peak rate, whichever is larger
 (``convnext_bound_ms``, ``band_bound_ms``, ``noise_bound_ms``).
 
     python3 chip_smoke.py [--profile-out FILE] [--keep-export DIR]
+                          [--keep-family DIR] [--dump-train-check DIR]
 
 Imports only the port, torch and numpy; images are synthetic, made from
 a seed. Any failed check raises, so the exit code is nonzero and the
@@ -92,6 +108,10 @@ Output: one line per phase; then a ``{"kernels": [...]}`` JSON line, the
 ``{"ok": true, "device": ...}`` line. ``--profile-out FILE`` also writes
 the full per-kernel device-time tables of the profiled serving requests,
 train steps, v6 forwards and artifact requests (torch.profiler) to FILE.
+``--keep-export``, ``--keep-family`` and ``--dump-train-check`` keep an
+artifact and its batch, or ``train_check``'s batch, for the CPU
+cross-checks ``tests/export_int8_gap.py``, ``tests/family_bf16_gap.py``
+and ``tests/train_check_cosine.py``.
 The TF32 flags are PyTorch's defaults from the serving phase on, as a
 user runs the library; only the kernel checks hold TF32 off.
 """
@@ -669,9 +689,14 @@ def build_trainer(cfg, params, dtype, device, drop=True):
     return state, step
 
 
-def train_card_vs_cpu(cfg, params, clean, noise_kw):
-    """One injected noisy batch, drop rates 0: the bf16 card loss and
-    gradients against the port's float32 CPU ones."""
+def train_card_vs_cpu(cfg, params, clean, noise_kw, card_dtype=torch.bfloat16,
+                      loss_rtol=2e-2, min_cosine=0.99, phase="train_check",
+                      dump=None):
+    """One injected noisy batch, drop rates 0: the card's loss and
+    gradients (bf16 by default) against the port's float32 CPU ones.
+    ``dump``: a directory to write the batch into (``train_check.npz``:
+    the clean batch, the noisy one, the noise seed), which
+    ``tests/train_check_cosine.py`` reads. Returns the logged result."""
     from blind_image_denoising_torch.ops.multiscale import multiscale_targets
     from blind_image_denoising_torch.ops.pallas_noise import (
         corrupt_batch_plain)
@@ -680,17 +705,25 @@ def train_card_vs_cpu(cfg, params, clean, noise_kw):
                                                       loss_function_builder)
     clean = torch.from_numpy(clean).round()
     noisy = corrupt_batch_plain(SEED + 2, clean, **noise_kw)
-    gt = multiscale_targets(clean, 2, clip_values=True, round_values=True)
+    bb = cfg["model"]["backbone"]
+    n_out = int(bb["depth"]) if bb.get("multiple_scale_outputs", True) else 1
+    gt = multiscale_targets(clean, n_out - 1, clip_values=True,
+                            round_values=True)
     fns = loss_function_builder(cfg["loss"])
+    if dump is not None:
+        dump.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(dump / "train_check.npz", clean=clean.numpy(),
+                            noisy=noisy.numpy(), seed=SEED + 2)
     out = {}
-    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", None)):
+    for dev, dtype in (("cuda", card_dtype), ("cpu", None)):
         state, _ = build_trainer(cfg, params, dtype, dev, drop=False)
         hydra = state.model
         # float32 parts without TF32, as the library's train step runs them
         with exact_float32(dev == "cuda"):
             total, _ = forward_loss(hydra, fns, hydra.no_outputs,
                                     noisy.to(dev), [g.to(dev) for g in gt],
-                                    torch.full((3,), 1.0 / 3, device=dev),
+                                    torch.full((n_out,), 1.0 / n_out,
+                                               device=dev),
                                     torch.Generator(device=dev))
             total.backward()
         out[dev] = (float(total.detach()),
@@ -698,21 +731,26 @@ def train_card_vs_cpu(cfg, params, clean, noise_kw):
                      for n, p in hydra.named_parameters()})
     rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     card, cpu = out["cuda"][1], out["cpu"][1]
-    cos = float(F.cosine_similarity(torch.cat(list(card.values())),
-                                    torch.cat(list(cpu.values())), dim=0))
-    per_tensor = sorted((float(F.cosine_similarity(card[n], cpu[n], dim=0)),
-                         n) for n in cpu)
-    result = dict(batch=list(noisy.shape), loss_bf16_card=out["cuda"][0],
-                  loss_f32_cpu=out["cpu"][0], loss_rel_diff=rel,
-                  grad_cosine=cos,
-                  n_grad=int(sum(v.numel() for v in cpu.values())),
-                  lowest_tensor_cosines=[dict(name=n, cosine=c)
-                                         for c, n in per_tensor[:5]],
-                  tolerance="loss rel <= 2e-2, grad cosine >= 0.99")
-    log("train_check", **result)
-    if not (rel <= 2e-2 and cos >= 0.99):
-        raise AssertionError(f"bf16 card train step drifts from the f32 CPU "
-                             f"reference: {result}")
+    # in float64: a float32 sum over ~1e6 terms reads above 1
+    cos = float(F.cosine_similarity(torch.cat(list(card.values())).double(),
+                                    torch.cat(list(cpu.values())).double(),
+                                    dim=0))
+    per_tensor = sorted((float(F.cosine_similarity(
+        card[n].double(), cpu[n].double(), dim=0)), n) for n in cpu)
+    card = "bf16" if card_dtype == torch.bfloat16 else "f32"
+    result = {"batch": list(noisy.shape), f"loss_{card}_card": out["cuda"][0],
+              "loss_f32_cpu": out["cpu"][0], "loss_rel_diff": rel,
+              "grad_cosine": cos,
+              "n_grad": int(sum(v.numel() for v in cpu.values())),
+              "lowest_tensor_cosines": [dict(name=n, cosine=c)
+                                        for c, n in per_tensor[:5]],
+              "tolerance": f"loss rel <= {loss_rtol}, grad cosine >= "
+                           f"{min_cosine}"}
+    log(phase, **result)
+    if not (rel <= loss_rtol and cos >= min_cosine):
+        raise AssertionError(f"{card} card train step drifts from the f32 "
+                             f"CPU reference: {result}")
+    return result
 
 
 # --------------------------------------------------------------- artifacts
@@ -2309,6 +2347,276 @@ def resnet_train_export_phase(bidt, smi, read_counts, loop_run):
     return launches
 
 
+# the unet_laplacian_family phase: unet_laplacian_v4 at its full width and
+# shipped size (filters 32, depth 4, width 3, encoder K 5, decoder K 1,
+# attention gates, Laplacian upsample, strided downsample; b4 x 8
+# micro-batches of 256^2, float32) trained from a seeded init on the
+# train_loop phase's scenes; the cut is steps only: 4, with a checkpoint
+# and a noise sweep at step 4
+FAMILY_TRAIN = "unet_laplacian_v4"
+FAMILY_SERVED = ("unet_laplacian_v3", "unet_laplacian_v5")
+FAMILY_STEPS = 4
+FAMILY_OVERRIDES = dict(LOOP_OVERRIDES, **{
+    "train.total_steps": FAMILY_STEPS,
+    "train.checkpoint_every": FAMILY_STEPS,
+    "train.visualization_every": FAMILY_STEPS})
+# launches per forward: K1 at the C = 32 / 64 units (12 in all, 6 of them
+# the decoders' K = 1), K2 per band split, and the C = 128 units that run
+# their PyTorch branch (layers/convnext.py kernel_route)
+FAMILY_PER_FORWARD = {
+    "unet_laplacian_v3": dict(convnext_block=12, band_smooth=3, branch=6),
+    "unet_laplacian_v4": dict(convnext_block=12, band_smooth=3, branch=6),
+    "unet_laplacian_v5": dict(convnext_block=12, band_smooth=2, branch=0)}
+# per micro-batch of the v4 loop: K2 and its backward per band split, K3
+FAMILY_PER_MICRO_BATCH = dict(band_smooth=3, band_smooth_bwd=3,
+                              corrupt_noise=1)
+FAMILY_STEP_LOSS_RTOL, FAMILY_STEP_MIN_COSINE = 1e-4, 0.9999
+FAMILY_F32_MEAN, FAMILY_F32_EQUAL = 1.0, 0.99
+# the K = 1 instantiations' timing shapes: the v4 / v5 decoders' level 0
+# and level 1 at b8 @ 256^2
+FAMILY_K1_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64)]
+
+
+def family_forward_launches(den, img, read_counts, branch_units):
+    """One request of ``den`` on ``img`` → (the answer, K1 / K2 launches
+    and branch units it made)."""
+    c0, b0 = read_counts(), branch_units()
+    out = den(img)
+    c1 = read_counts()
+    launches = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    branch = branch_units() - b0
+    return out, dict(convnext_block=launches.pop("convnext_block", 0),
+                     band_smooth=launches.pop("band_smooth", 0),
+                     branch=branch, **launches)
+
+
+def unet_laplacian_family_phase(bidt, smi, read_counts, loop_run,
+                                keep=None):
+    """``unet_laplacian_v4`` trained at its full width and shipped size
+    through ``train_loop`` (4 steps from a seeded init, the cut), one f32
+    train step card against CPU, ``export_model`` and ``load_model`` of
+    the run in f32 and bf16 on b8 @ 256² and one 512² against the same
+    artifact in f32 on the CPU; v3 and v5 built by the ``build`` CLI from a
+    seeded init and served b8 @ 256². Exact launches per forward and per
+    micro-batch. ``keep``: a directory to copy the v4 artifact and the
+    noisy b8 @ 256² batch into (``tests/family_bf16_gap.py`` reads them).
+    Returns (kernel inputs seen, launch counts of the phase, branch units
+    per forward by config)."""
+    from blind_image_denoising_torch import build as build_cli
+    from blind_image_denoising_torch.inference.export import export_model
+    from blind_image_denoising_torch.ops import pallas_convnext
+
+    def branch_units():
+        return pallas_convnext.branch_units
+
+    work, image_dir = loop_run["work"], loop_run["image_dir"]
+    base = copy.deepcopy(bidt.CONFIGS_DICT[FAMILY_TRAIN])
+    cfg = copy.deepcopy(base)
+    cfg["dataset"]["inputs"] = ([{"directory": str(image_dir)}]
+                                if image_dir is not None else [])
+    for key, value in FAMILY_OVERRIDES.items():
+        section, name = key.split(".")
+        cfg.setdefault(section, {})[name] = value
+    ds, micro = cfg["dataset"], cfg["train"]["gpu_batches_per_step"]
+    problems = []
+    c_start = read_counts()
+    rng = np.random.default_rng(SEED + 11)
+    timings = {}
+    with KernelInputs() as kernel_inputs:
+        # one f32 step, card against CPU, same seeded weights and batch
+        noise_kw = dict(additive_noise=ds["additional_noise"],
+                        multiplicative_noise=ds["multiplicative_noise"])
+        step_check = train_card_vs_cpu(
+            cfg, None, synthetic_images(4, 128, 128, rng), noise_kw,
+            card_dtype=None, loss_rtol=FAMILY_STEP_LOSS_RTOL,
+            min_cosine=FAMILY_STEP_MIN_COSINE, phase="family_train_check")
+
+        # the loop
+        ckpt_dir = work / "family_run"
+        with LoopProbe(read_counts) as probe:
+            t0 = time.perf_counter()
+            state = bidt.train_loop(cfg, ckpt_dir)
+            timings["loop_s"] = time.perf_counter() - t0
+        rows = [json.loads(line) for line in
+                (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["total_loss"] for r in rows if "total_loss" in r]
+        sweep = {k: v for r in rows for k, v in r.items()
+                 if k.startswith("eval/")}
+        if state.step != FAMILY_STEPS or len(losses) != FAMILY_STEPS or \
+                not all(np.isfinite(losses)) or not sweep or not all(
+                    np.isfinite(v) for v in sweep.values()):
+            problems.append(f"loop ran to {state.step}: losses {losses}, "
+                            f"sweep {sweep}")
+        per_step = dict.fromkeys(read_counts(), 0)
+        per_step.update({k: micro * v
+                         for k, v in FAMILY_PER_MICRO_BATCH.items()})
+        bad_steps = [s["launches"] for s in probe.steps
+                     if s["launches"] != per_step]
+        sweep_launches = [s["launches"] for s in probe.sweeps]
+        per_fwd = FAMILY_PER_FORWARD[FAMILY_TRAIN]
+        for launches in sweep_launches:
+            n_fwd = launches["band_smooth"] // per_fwd["band_smooth"]
+            if n_fwd < 1 or launches != dict(
+                    dict.fromkeys(read_counts(), 0),
+                    convnext_block=n_fwd * per_fwd["convnext_block"],
+                    band_smooth=n_fwd * per_fwd["band_smooth"]):
+                problems.append(f"sweep launches {launches}")
+        if bad_steps or len(probe.steps) != FAMILY_STEPS or len(
+                sweep_launches) != 1:
+            problems.append(f"step launches {bad_steps[:2]}, "
+                            f"{len(probe.steps)} steps, "
+                            f"{len(sweep_launches)} sweeps")
+        starts = [s["start"] for s in probe.steps]
+        steady = [b - a for i, (a, b) in enumerate(zip(starts, starts[1:]))
+                  if i > 0 and LOOP_PROFILE_STEP not in (i + 1, i + 2)]
+        profile = json.loads((ckpt_dir / "profile" / "summary.json")
+                             .read_text())
+        del state
+        torch.cuda.empty_cache()
+
+        # export, then serve in f32 and bf16 against f32 on the CPU
+        out_dir = work / "family_artifact"
+        t0 = time.perf_counter()
+        export_model(ckpt_dir / "config.json", ckpt_dir, out_dir)
+        timings["export_s"] = time.perf_counter() - t0
+        batch = add_noise(synthetic_images(EXPORT_BATCH, EXPORT_SIZE,
+                                           EXPORT_SIZE, rng), 25.0, rng)
+        big = add_noise(synthetic_images(1, 512, 512, rng), 25.0, rng)[0]
+        cpu = bidt.load_model(out_dir, device="cpu", dtype="float32")
+        t0 = time.perf_counter()
+        cpu_outs = {"b8_256": cpu(batch), "1_512": cpu(big)}
+        timings["cpu_f32_s"] = time.perf_counter() - t0
+        del cpu
+        served = {}
+        for dtype in ("float32", "bfloat16"):
+            den = bidt.load_model(out_dir, dtype=dtype)
+            want = torch.bfloat16 if dtype == "bfloat16" else None
+            if den.model.dtype != want:
+                problems.append(f"{FAMILY_TRAIN} served as {den.model.dtype}")
+            for name, img in (("b8_256", batch), ("1_512", big)):
+                out, launches = family_forward_launches(
+                    den, img, read_counts, branch_units)
+                gap = gray_gap(out, cpu_outs[name])
+                if dtype == "float32":
+                    ok = gap["mean"] <= FAMILY_F32_MEAN and \
+                        gap["equal_share"] >= FAMILY_F32_EQUAL
+                else:
+                    ok = gap["mean"] <= EXPORT_BF16_MEAN and \
+                        gap["p99"] <= EXPORT_BF16_P99
+                if not ok or launches != per_fwd:
+                    problems.append(f"{FAMILY_TRAIN} {dtype} {name}: gap "
+                                    f"{gap}, launches {launches}")
+                served[f"{FAMILY_TRAIN}_{dtype}_{name}"] = dict(
+                    vs_f32_cpu=gap, launches=launches)
+            times = timed_requests(den, batch, EXPORT_REQUESTS)
+            served[f"{FAMILY_TRAIN}_{dtype}_b8_256"].update(
+                median_s=statistics.median(times),
+                images_per_s=EXPORT_BATCH / statistics.median(times))
+            del den
+
+        if keep is not None:
+            keep.mkdir(parents=True, exist_ok=True)
+            for f in out_dir.iterdir():
+                (keep / f.name).write_bytes(f.read_bytes())
+            np.save(keep / "batch.npy", batch)
+
+        # v3 and v5 from the build CLI's seeded artifacts
+        for name in FAMILY_SERVED:
+            build_dir = work / f"build_{name}"
+            config_file = (Path(__file__).resolve().parent
+                           / "blind_image_denoising_tpu" / "configs"
+                           / f"{name}.json")
+            t0 = time.perf_counter()
+            if build_cli.main(["--pipeline-config", str(config_file),
+                               "--output-directory", str(build_dir)]) != 0:
+                problems.append(f"the build CLI failed on {name}")
+            build_s = time.perf_counter() - t0
+            (build_dir / "pipeline.json").write_text(
+                config_file.read_text())
+            want = FAMILY_PER_FORWARD[name]
+            for dtype in ("float32", "bfloat16"):
+                den = bidt.load_model(build_dir, dtype=dtype)
+                out, launches = family_forward_launches(
+                    den, batch, read_counts, branch_units)
+                if launches != want or out.shape != batch.shape or \
+                        out.dtype != np.uint8:
+                    problems.append(f"{name} {dtype}: launches {launches}, "
+                                    f"{out.shape} {out.dtype}")
+                times = timed_requests(den, batch, EXPORT_REQUESTS)
+                served[f"{name}_{dtype}_b8_256"] = dict(
+                    launches=launches, build_cli_s=build_s,
+                    median_s=statistics.median(times),
+                    images_per_s=EXPORT_BATCH / statistics.median(times))
+                del den
+    c_end = read_counts()
+    launches = {k: c_end[k] - c_start[k] for k in c_end}
+    torch.cuda.empty_cache()
+    result = dict(
+        config=FAMILY_TRAIN, overrides=FAMILY_OVERRIDES,
+        batch=ds["batch_size"], micro_batches=micro,
+        crop=ds["input_shape"], dtype=cfg["tpu"]["compute_dtype"],
+        step_check=dict(loss_rel=step_check["loss_rel_diff"],
+                        grad_cosine=step_check["grad_cosine"]),
+        losses=losses, sweep=sweep,
+        launches_per_step=[s["launches"] for s in probe.steps][:1],
+        launches_per_sweep=sweep_launches,
+        step_host_s=[round(s["host_s"], 4) for s in probe.steps],
+        steady_step_s=[round(t, 4) for t in steady],
+        steps_per_s=(1.0 / statistics.median(steady) if steady else None),
+        images_per_s=(ds["batch_size"] * micro / statistics.median(steady)
+                      if steady else None),
+        profiled_step=dict(profile, step=LOOP_PROFILE_STEP),
+        served=served, timings=timings, launches=launches, smi=smi,
+        tolerance=f"card vs CPU f32 step loss rtol {FAMILY_STEP_LOSS_RTOL}, "
+                  f"grad cosine >= {FAMILY_STEP_MIN_COSINE}; f32 card vs CPU "
+                  f"mean <= {FAMILY_F32_MEAN}, >= {FAMILY_F32_EQUAL} equal; "
+                  f"bf16 card vs f32 CPU mean <= {EXPORT_BF16_MEAN}, p99 <= "
+                  f"{EXPORT_BF16_P99}; per forward {FAMILY_PER_FORWARD}; per "
+                  f"micro-batch {FAMILY_PER_MICRO_BATCH}, no K1")
+    log("unet_laplacian_family", **result)
+    if problems:
+        raise AssertionError(f"unet_laplacian_family: {problems}")
+    return kernel_inputs.seen, launches, {
+        name: served[f"{name}_float32_b8_256"]["launches"]["branch"]
+        for name in FAMILY_PER_FORWARD}
+
+
+def family_k1_times(pallas_convnext, smi, seen):
+    """K1 at (32, 1) and (64, 1), f32 and bf16, warm and cold, at
+    ``FAMILY_K1_SHAPES`` with the weights the family phase gave it, beside
+    its bound and its library chain."""
+    from blind_image_denoising_torch.ops.precision import exact_float32
+    weights = {(shape[-1], k): kw for (shape, _, k), (_, kw) in
+               seen["convnext_block"].items() if k == 1}
+    rows = []
+    for shape in FAMILY_K1_SHAPES:
+        kw = weights[(shape[-1], 1)]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, device="cuda").to(dtype)
+            wts = {n: v.to(dtype) for n, v in kw.items() if n != "slope"}
+            slope = kw["slope"]
+            with exact_float32():        # the f32 library chain: TF32 off
+                t = dict(
+                    ms=cuda_ms(lambda: pallas_convnext.convnext_block(
+                        x, slope=slope, **wts)),
+                    cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
+                        xc, slope=slope, **wts), inputs=cold_copies(x)),
+                    plain_ms=cuda_ms(
+                        lambda: pallas_convnext.convnext_block_plain(
+                            x, slope=slope, **wts), iters=3, warmup=1),
+                    library_ms=cuda_ms(lambda: convnext_library(
+                        x, slope=slope, **wts)))
+            bound, by = convnext_bound_ms(*shape, 1, dtype)
+            row = dict(kernel="convnext_block", C=shape[-1], K=1,
+                       shape=list(shape), dtype=str(dtype).split(".")[-1],
+                       calls_per_forward=3, bound_ms=bound, bound_by=by,
+                       share_cold=bound / t["cold_ms"], smi=smi, **t)
+            log("time", path="unet_laplacian_family", **row)
+            rows.append(row)
+            del x
+    return rows
+
+
 def main() -> int:
     script_start = time.perf_counter()
     faulthandler.enable()
@@ -2318,6 +2626,13 @@ def main() -> int:
     parser.add_argument("--keep-export", type=Path, default=None,
                         help="copy the export phase's artifact and batch "
                              "here (for tests/export_int8_gap.py)")
+    parser.add_argument("--keep-family", type=Path, default=None,
+                        help="copy the unet_laplacian_family phase's v4 "
+                             "artifact and batch here (for "
+                             "tests/family_bf16_gap.py)")
+    parser.add_argument("--dump-train-check", type=Path, default=None,
+                        help="write train_check's batch here (for "
+                             "tests/train_check_cosine.py)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2736,7 +3051,8 @@ def main() -> int:
     tree = load_msgpack(Path(bidt.models[FLAGSHIP]["directory"])
                         / "params.msgpack")
     params = params_from_flax(tree)
-    train_card_vs_cpu(cfg, params, clean_train, noise_kw)
+    train_card_vs_cpu(cfg, params, clean_train, noise_kw,
+                      dump=args.dump_train_check)
 
     state, step = build_trainer(cfg, params, torch.bfloat16, "cuda")
     batch = torch.from_numpy(clean_train.round().astype(np.uint8)).cuda()
@@ -3191,10 +3507,27 @@ def main() -> int:
     if resnet_counts != counts() or read_counts() != counts():
         raise AssertionError(f"resnet_train_export launched {resnet_counts}")
     phase_s["resnet_train_export"] = time.perf_counter() - t0
+
+    # ---- phase 13: the rest of the unet_laplacian family: v4 trained,
+    # exported and served, v3 and v5 built and served, K1 at K = 1
+    t0 = time.perf_counter()
+    reset_counts()
+    family_seen, family_counts, family_branch = unet_laplacian_family_phase(
+        bidt, smi, read_counts, loop_run, keep=args.keep_family)
+    for kernel, err in check_kernel_inputs(
+            pallas_convnext, pallas_pyramid, pallas_noise, family_seen,
+            SEED + 12, path="unet_laplacian_family").items():
+        errors[kernel] = max(errors[kernel], err)
+    log("family_checks", shapes={k: sorted(str(key[:2]) for key in v)
+                                 for k, v in family_seen.items()})
+    family_k1_times(pallas_convnext, smi, family_seen)
+    phase_s["unet_laplacian_family"] = time.perf_counter() - t0
     log("new_phases", seconds=phase_s,
         script_s=time.perf_counter() - script_start,
         export_launches=export_counts,
-        resnet_train_export_launches=resnet_counts)
+        resnet_train_export_launches=resnet_counts,
+        unet_laplacian_family_launches=family_counts,
+        unet_laplacian_family_branch_units_per_forward=family_branch)
     if args.profile_out is not None:
         args.profile_out.parent.mkdir(parents=True, exist_ok=True)
         args.profile_out.write_text("".join(profile_text))
@@ -3246,7 +3579,8 @@ def main() -> int:
                        artifacts=artifact_counts[name],
                        train_loop=loop_counts[name],
                        export=export_counts[name],
-                       resnet_train_export=resnet_counts[name])
+                       resnet_train_export=resnet_counts[name],
+                       unet_laplacian_family=family_counts[name])
         kernels.append(dict(
             name=name, route="cuda", source=replaces[name][0],
             replaces=replaces[name][1], launches=sum(by_path.values()),
@@ -3256,6 +3590,9 @@ def main() -> int:
             bound_by=bound_by, library_ms=total("library_ms"),
             **({"grad_copies_per_step": grad_copies_per_step}
                if name == "band_smooth_bwd" else {}),
+            # the C = 128 units that run their PyTorch branch, per forward
+            **({"branch_units_per_forward": family_branch}
+               if name == "convnext_block" else {}),
             per=per[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

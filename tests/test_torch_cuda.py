@@ -969,3 +969,43 @@ def test_export_serves_through_k1_and_k2_on_card(dev, tmp_path):
         assert res.shape == img.shape and res.dtype == np.uint8
         assert (pallas_convnext.launches - k1,
                 pallas_pyramid.launches - k2) == want, kw
+
+
+@pytest.mark.parametrize("name,per_forward", [
+    ("unet_laplacian_v3", dict(k1=12, k2=3, branch=6)),
+    ("unet_laplacian_v4", dict(k1=12, k2=3, branch=6)),
+    ("unet_laplacian_v5", dict(k1=12, k2=2, branch=0))])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_unet_laplacian_family_launches_per_forward(dev, name, per_forward,
+                                                    dtype):
+    """v3 / v4 / v5 at full width from a seeded init: K1 at every C = 32
+    and 64 unit (the decoders' at K = 1), K2 per band split, the C = 128
+    units on their PyTorch branch, counted; the f32 forward's outputs
+    within a mean of 1e-3 gray levels of the CPU's (the fused f32 path's
+    bar) and a max of 1e-2 (the card and the CPU sum in other orders:
+    0.0022 at most on v3 / v4)."""
+    import copy
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.training.train_state import init_params
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT[name]["model"])
+    model = model_builder(cfg, dtype=dtype).hydra
+    init_params(model, torch.Generator().manual_seed(0))
+    model.eval().requires_grad_(False)
+    x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(
+        1)) * 255
+    ref = model(x) if dtype is None else None
+    model.to(dev)
+    c0 = (pallas_convnext.launches, pallas_pyramid.launches,
+          pallas_convnext.branch_units)
+    with torch.no_grad():
+        outs = model(x.to(dev))
+    torch.cuda.synchronize()
+    assert (pallas_convnext.launches - c0[0], pallas_pyramid.launches - c0[1],
+            pallas_convnext.branch_units - c0[2]) == (
+        per_forward["k1"], per_forward["k2"], per_forward["branch"])
+    if ref is not None:
+        for r, o in zip(ref, outs):
+            diff = (o.cpu() - r).abs()
+            assert float(diff.mean()) <= FUSED_F32_CARD_VS_CPU_MEAN
+            assert float(diff.max()) <= 1e-2

@@ -259,6 +259,31 @@ def test_export_serves_alike_in_jax_and_port(flagship_export):
     assert (diff == 0).mean() >= 0.99, (diff == 0).mean()
 
 
+def test_narrow_v4_export_serves_alike_in_jax_and_port(tmp_path):
+    """``unet_laplacian_v4`` (attention gates, strided downsample,
+    Laplacian upsample, decoder K = 1) narrowed to filters 8 and width 1,
+    trained two steps by the port's ``train_loop`` and exported by its
+    ``export_model``: JAX's ``load_model`` serves the artifact as the
+    port's does, in float32, within one gray level on >= 99% equal."""
+    cfg = _pipeline("flagship")
+    cfg["model"] = copy.deepcopy(bidt.CONFIGS_DICT["unet_laplacian_v4"][
+        "model"])
+    cfg["model"]["backbone"].update(filters=8, width=1)
+    cfg["model"]["denoiser"]["filters"] = 8
+    # depth 4: the SSIM of the 1/8 scale needs crops of 64²
+    cfg["dataset"]["input_shape"] = [64, 64, 3]
+    loop_module.train_loop(cfg, tmp_path / "run", device="cpu")
+    out = export_model(cfg, tmp_path / "run", tmp_path / "artifact",
+                       device="cpu")
+    img = _noisy(64, 25.0, seed=7)
+    ref = np.asarray(bid.load_model(out)(img))
+    got = bidt.load_model(out, device="cpu")(img)
+    assert got.shape == img.shape and got.dtype == np.uint8
+    diff = _gray_diff(got, ref)
+    assert diff.max() <= 1, diff.max()
+    assert (diff == 0).mean() >= 0.99, (diff == 0).mean()
+
+
 @pytest.mark.parametrize("use_ema", [True, False])
 def test_export_writes_the_checkpoint_weights(flagship_export, tmp_path,
                                               use_ema):
@@ -377,7 +402,7 @@ def test_export_cli_on_cpu(flagship_export, tmp_path):
 
 # ---------------------------------------------------------------- build
 
-@pytest.mark.parametrize("name", [CONFIG, RESNET])
+@pytest.mark.parametrize("name", [CONFIG, RESNET, "unet_laplacian_v4"])
 def test_build_cli_matches_jax_build(tmp_path, name):
     path = tmp_path / "pipeline.json"
     path.write_text(json.dumps(bidt.CONFIGS_DICT[name]))

@@ -53,6 +53,7 @@ from blind_image_denoising_tpu.ops.pallas_pyramid import (
     _band_smooth_bwd, laplacian_band_smooth_pallas,
     laplacian_band_smooth_reference, laplacian_band_split_pallas,
     laplacian_band_split_reference)
+from blind_image_denoising_torch.layers import convnext as convnext_mod
 from blind_image_denoising_torch.layers.convnext import ConvNextBlock
 from blind_image_denoising_torch.ops import pallas_convnext, pallas_pyramid
 from blind_image_denoising_torch.weights import params_from_flax
@@ -229,7 +230,24 @@ def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     np.testing.assert_allclose(got.numpy(), np.asarray(fused), atol=0.05)
 
 
-@pytest.mark.parametrize("ck", [(32, 3), (64, 5)])
+@pytest.mark.parametrize("ck", [(32, 1), (64, 1)])
+def test_convnext_plain_at_k1_matches_jax_reference(ck):
+    """K1's plain version at K = 1 (the decoders of unet_laplacian_v3,
+    _v4 and _v5: one depthwise tap, no halo) against JAX's
+    ``convnext_block_reference``, float32, atol 1e-4."""
+    C, K = ck
+    w = _jax_weights(C, K, seed=5)
+    x = np.random.default_rng(6).normal(0, 1, (2, 9, 13, C)).astype(
+        np.float32)
+    got = pallas_convnext.convnext_block_plain(torch.from_numpy(x),
+                                               **_torch_args(w, C, K))
+    ref = convnext_block_reference(jnp.asarray(x), {
+        k: jnp.asarray(v) for k, v in w.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
+    assert (C, K) in pallas_convnext.KERNEL_SHAPES
+
+
+@pytest.mark.parametrize("ck", [(32, 3), (64, 5), (32, 1), (64, 1)])
 def test_convnext_module_matches_linen_block_plus_skip(ck):
     C, K = ck
     E = 4 * C
@@ -539,3 +557,111 @@ def test_cold_copies_move_twice_the_l2():
     assert (len(sets) - 1) * set_bytes >= 2 * cs.L2_BYTES
     assert all(s[0].shape == a.shape and s[1].dtype == b.dtype
                and s[0].data_ptr() != a.data_ptr() for s in sets)
+
+
+# ------------------------------------ unit options and the routing to K1
+
+_UNIT_OPTIONS = [
+    dict(), dict(use_bias=True), dict(use_bn=True),
+    dict(use_bn=True, use_bias=True), dict(use_ln=False),
+    dict(use_gamma=False), dict(activation="relu"), dict(kernel=2),
+    dict(in_features=16), dict(features=128, kernel=1)]
+
+
+def _unit_case(opts):
+    c = opts.get("features", 8)
+    c_in = opts.get("in_features", c)
+    k = opts.get("kernel", 3)
+    use_bias = opts.get("use_bias", False)
+    same = dict(strides=(1, 1), padding="same", use_bias=use_bias)
+    act = opts.get("activation", "leaky_relu_01")
+    block = JaxConvNextBlock(
+        conv_params_1=dict(kernel_size=k, depth_multiplier=1,
+                           activation="linear", **same),
+        conv_params_2=dict(kernel_size=1, filters=4 * c, activation=act,
+                           **same),
+        conv_params_3=dict(kernel_size=1, filters=c, activation="linear",
+                           **same),
+        use_bn=opts.get("use_bn", False), use_ln=opts.get("use_ln", True),
+        bn_center=use_bias, use_gamma=opts.get("use_gamma", True))
+    unit = ConvNextBlock(c_in, k, 4 * c, act, out_features=c,
+                         use_bias=use_bias, use_bn=opts.get("use_bn", False),
+                         use_ln=opts.get("use_ln", True),
+                         use_gamma=opts.get("use_gamma", True))
+    return block, unit, c_in, c
+
+
+@pytest.mark.parametrize("opts", _UNIT_OPTIONS, ids=lambda o: "+".join(
+    f"{k}={v}" for k, v in o.items()) or "flagship")
+@pytest.mark.parametrize("train", [False, True])
+def test_convnext_unit_options_match_linen_block(opts, train):
+    """The unit with each option of the flax ``ConvNextBlock`` (biases,
+    BatchNorm before the LayerNorm, no LayerNorm, no gain, another
+    expansion activation, an even kernel, more input than output
+    channels, C = 128), eval and train mode (batch statistics), against
+    the linen block (+ the skip where the channels keep), float32."""
+    block, unit, c_in, c = _unit_case(opts)
+    x = np.random.default_rng(7).normal(0.3, 1, (2, 9, 11, c_in)).astype(
+        np.float32)
+    variables = block.init({"params": jax.random.PRNGKey(0)},
+                           jnp.asarray(x), train=False)
+    rng = np.random.default_rng(8)
+    variables = {
+        col: jax.tree_util.tree_map(lambda a: (np.asarray(a) + rng.normal(
+            0, 0.2, a.shape)).astype(np.float32) if col == "params" else
+            np.asarray(a), v)
+        for col, v in variables.items() if col in ("params", "batch_stats")}
+    if train:
+        ref, _ = block.apply(variables, jnp.asarray(x), train=True,
+                             mutable=["batch_stats"])
+    else:
+        ref = block.apply(variables, jnp.asarray(x), train=False)
+    ref = np.asarray(ref) + (x if c_in == c else 0)
+    unit.load_state_dict(params_from_flax(variables), strict=True)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        if train:
+            got = unit.branch(xt, train=True) + (xt if c_in == c else 0)
+        else:
+            got = unit(xt)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
+    """K1 takes a unit only at its instantiations with its options; every
+    other unit runs its branch, counted once per forward in
+    ``pallas_convnext.branch_units``, and never calls the kernel."""
+    for (c, k) in sorted(pallas_convnext.KERNEL_SHAPES):
+        assert ConvNextBlock(c, k, 4 * c).kernel_route
+    for args, kw in (((128, 1, 512), {}), ((128, 5, 512), {}),
+                     ((32, 3, 64), {}), ((64, 3, 256), {}),
+                     ((32, 3, 128), dict(use_bias=True)),
+                     ((32, 3, 128), dict(use_bn=True)),
+                     ((32, 3, 128), dict(use_gamma=False)),
+                     ((32, 3, 128), dict(use_ln=False)),
+                     ((32, 3, 128), dict(dropout_rate=0.1)),
+                     ((32, 3, 128), dict(spatial_dropout_rate=0.1)),
+                     ((32, 3, 128), dict(out_features=16)),
+                     ((32, 3, 128, "relu"), {})):
+        assert not ConvNextBlock(*args, **kw).kernel_route, (args, kw)
+    routed, branch = ConvNextBlock(32, 1, 128), ConvNextBlock(32, 1, 64)
+    for u in (routed, branch):
+        for p in u.parameters():
+            torch.nn.init.normal_(p, 0, 0.1)
+    x = torch.randn(1, 32, 6, 7)
+    calls = []
+    real = convnext_mod.convnext_block
+    convnext_mod.convnext_block = lambda *a, **kw: calls.append(1) or real(
+        *a, **kw)
+    try:
+        b0 = pallas_convnext.branch_units
+        with torch.no_grad():
+            routed(x)
+            assert calls and pallas_convnext.branch_units == b0
+            calls.clear()
+            y = branch(x)
+        assert not calls and pallas_convnext.branch_units == b0 + 1
+        assert torch.allclose(y, x + branch.branch(x))
+    finally:
+        convnext_mod.convnext_block = real

@@ -292,3 +292,219 @@ def test_legacy_multipliers_match_flax(name):
     tm = (tmult.Multiplier(1.0, "relu", 0.1) if name == "Multiplier"
           else tmult.ChannelwiseMultiplier(6, 1.0, "relu", 0.1))
     _check(jm, tm, x)
+
+
+# ------------------------------------- sampling, gates and the new conv forms
+
+from blind_image_denoising_tpu.layers.attention import (  # noqa: E402
+    AdditiveAttentionGate as JaxGate)
+from blind_image_denoising_tpu.layers.misc import (  # noqa: E402
+    GaussianFilter as JaxGaussianFilter)
+from blind_image_denoising_tpu.layers.sampling import (  # noqa: E402
+    Downsample as JaxDownsample, Upsample as JaxUpsample)
+from blind_image_denoising_tpu.ops import resize as jresize  # noqa: E402
+from blind_image_denoising_torch.layers.attention import (  # noqa: E402
+    AdditiveAttentionGate)
+from blind_image_denoising_torch.layers.conv import dropout  # noqa: E402
+from blind_image_denoising_torch.layers.misc import (  # noqa: E402
+    GaussianFilter)
+from blind_image_denoising_torch.layers.sampling import (  # noqa: E402
+    Downsample, Upsample)
+from blind_image_denoising_torch.ops import resize as tresize  # noqa: E402
+
+_SAMPLING_PARAMS = dict(kernel_size=5, filters=6, activation="leaky_relu_01",
+                        strides=(1, 1), padding="same", use_bias=False)
+
+
+@pytest.mark.parametrize("kind,activation", [
+    ("conv2d_transpose", "leaky_relu_01"),
+    ("upsample_bilinear_conv2d", "leaky_relu_01"),
+    ("upsample_nearest_conv2d", "leaky_relu_01"),
+    ("upsample_laplacian_conv2d", "leaky_relu_01"),
+    ("upsample_laplacian_conv2d", "linear"),
+    ("nn", None), ("nearest", None), ("bilinear", None)])
+def test_upsample_types_match_flax(kind, activation):
+    """Every JAX ``Upsample`` type, both orders of the Laplacian one
+    (conv first with a linear activation)."""
+    x = _x((2, 7, 9, 8))
+    params = (None if activation is None
+              else dict(_SAMPLING_PARAMS, activation=activation))
+    jm = JaxUpsample(kind, params)
+    _check(jm, Upsample(kind, 8, params), x, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,with_conv", [
+    ("conv2d", True), ("maxpool", True), ("maxpool", False),
+    ("strides", True), ("strides", False)])
+@pytest.mark.parametrize("hw", [(8, 10), (7, 9)])
+def test_downsample_types_match_flax(kind, with_conv, hw):
+    x = _x((2,) + hw + (8,))
+    params = _SAMPLING_PARAMS if with_conv else None
+    jm = JaxDownsample(kind, params)
+    _check(jm, Downsample(kind, 8, params), x, rtol=0, atol=1e-5)
+
+
+def test_unknown_sampling_types_raise_value_error():
+    with pytest.raises(ValueError, match="upsample_type"):
+        Upsample("cubic", 8, _SAMPLING_PARAMS)
+    with pytest.raises(ValueError, match="downsample_type"):
+        Downsample("avgpool", 8, _SAMPLING_PARAMS)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(transpose=True, kernel_size=5, strides=2),
+    dict(transpose=True, kernel_size=2, strides=2, use_bias=True),
+    dict(transpose=True, kernel_size=3, strides=1),
+    dict(transpose=True, kernel_size=4, strides=2, padding="VALID"),
+    dict(separable=True, kernel_size=3, strides=1),
+    dict(separable=True, kernel_size=5, strides=2, use_bias=True),
+])
+def test_transposed_and_separable_conv_blocks_match_flax(opts):
+    x = _x((2, 7, 6, 8))
+    jopts = dict(opts, strides=(opts["strides"],) * 2)
+    jm = JaxConvBlock(features=10, activation="relu", **jopts)
+    tm = ConvBlock(8, 10, activation="relu", **jopts)
+    _check(jm, tm, x, rtol=0, atol=1e-5)
+    # the regularizer sums every kernel, as the sown losses do
+    jm_reg = JaxConvBlock(features=10, kernel_regularizer="l2", **jopts)
+    variables = _init_all(jm_reg, x)
+    _, sown = jm_reg.apply(variables, jnp.asarray(x), mutable=["losses"])
+    ref = sum(float(v) for v in jax.tree_util.tree_leaves(sown))
+    tm_reg = ConvBlock(8, 10, kernel_regularizer="l2", **jopts)
+    tm_reg.load_state_dict(params_from_flax(variables), strict=True)
+    assert abs(float(tm_reg.penalty().detach()) - ref) <= 1e-5 * ref
+
+
+@pytest.mark.parametrize("norm", ["ln", "bn"])
+@pytest.mark.parametrize("train", [False, True])
+def test_additive_attention_gate_matches_flax(norm, train):
+    """The gate with LayerNorm or BatchNorm before its 1×1 convs, in eval
+    and in train mode (batch statistics and the running update of each
+    BatchNorm within 1e-5 of its largest magnitude)."""
+    enc, up = _x((3, 6, 5, 8), scale=2.0), _x((3, 6, 5, 12), seed=2) + 0.4
+    opts = dict(use_bn=norm == "bn", use_ln=norm == "ln", use_bias=True,
+                use_soft_orthonormal_regularization=True)
+    jm = JaxGate(attention_channels=6, **opts)
+    variables = jm.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(enc),
+                        jnp.asarray(up))
+    rng = np.random.default_rng(4)
+
+    def draw(path, a):
+        a = np.asarray(a)
+        if str(path[-1].key) == "var":
+            return rng.uniform(0.3, 3.0, a.shape).astype(np.float32)
+        return (a + rng.normal(0, 0.3, a.shape)).astype(np.float32)
+
+    variables = {k: jax.tree_util.tree_map_with_path(draw, v)
+                 for k, v in variables.items()
+                 if k in ("params", "batch_stats")}
+    tm = AdditiveAttentionGate(8, 12, 6, **opts)
+    tm.load_state_dict(params_from_flax(variables), strict=True)
+    args = (jnp.asarray(enc), jnp.asarray(up))
+    if train:
+        ref, mutated = jm.apply(variables, *args, train=True,
+                                mutable=["batch_stats"])
+    else:
+        ref = jm.apply(variables, *args)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(enc).permute(0, 3, 1, 2),
+                 torch.from_numpy(up).permute(0, 3, 1, 2), train=train)
+    got = got.permute(0, 2, 3, 1).numpy()
+    assert _rel(got, ref) <= 1e-5
+    if train and norm == "bn":
+        stats = params_from_flax({"params": {}, "batch_stats": jax.tree_util
+                                  .tree_map(np.asarray,
+                                            mutated["batch_stats"])})
+        buffers = dict(tm.named_buffers())
+        assert set(stats) == set(buffers) and stats
+        for name, v in stats.items():
+            assert _rel(buffers[name], v) <= 1e-5, name
+
+
+def test_attention_gate_refuses_bn_with_ln():
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        AdditiveAttentionGate(8, 8, 4, use_bn=True, use_ln=True)
+
+
+def test_self_attention_with_batch_norm_matches_flax():
+    x = _x((2, 20, 24, 16))
+    jm = JaxAttention(attention_channels=8, use_bn=True, use_ln=True,
+                      bn_center=True, attention_activation="leaky_relu",
+                      use_soft_orthonormal_regularization=True)
+    tm = ConvolutionalSelfAttention(16, 8, use_ln=True, use_bn=True,
+                                    bn_center=True)
+    _check(jm, tm, x, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel,strides", [((3, 3), (1, 1)),
+                                            ((5, 5), (1, 1)),
+                                            ((2, 2), (2, 2))])
+def test_gaussian_filter_matches_flax(kernel, strides):
+    x = _x((2, 9, 11, 5), scale=3.0)
+    jm = JaxGaussianFilter(kernel_size=kernel, strides=strides)
+    ref = np.asarray(jm.apply({}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = GaussianFilter(kernel, strides)(
+            torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("op", ["max_pool_same", "global_avg_pool",
+                                "downsample_2x_stride", "space_to_depth",
+                                "depth_to_space"])
+def test_new_resize_ops_match_jax_exactly(op):
+    x = _x((2, 6, 10, 8), scale=5.0)
+    if op == "max_pool_same":
+        for window, strides, hw in (((2, 2), (2, 2), (6, 10)),
+                                    ((3, 3), (2, 2), (5, 7)),
+                                    ((2, 2), (1, 1), (5, 7))):
+            xi = np.ascontiguousarray(x[:, :hw[0], :hw[1]])
+            ref = np.asarray(jresize.max_pool_same(jnp.asarray(xi), window,
+                                                   strides))
+            got = tresize.max_pool_same(torch.from_numpy(xi), window, strides)
+            np.testing.assert_array_equal(got.numpy(), ref)
+        return
+    if op == "global_avg_pool":
+        ref = np.asarray(jresize.global_avg_pool(jnp.asarray(x)))
+        got = tresize.global_avg_pool(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+        return
+    args = (2,) if op in ("space_to_depth", "depth_to_space") else ()
+    ref = np.asarray(getattr(jresize, op)(jnp.asarray(x), *args))
+    got = getattr(tresize, op)(torch.from_numpy(x), *args)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    if op == "space_to_depth":
+        assert torch.equal(tresize.depth_to_space(got, 2),
+                           torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("channels", [False, True])
+def test_dropout_masks(channels):
+    """Rate 0 and eval are the identity; in training the kept share is
+    within 3σ of 1 − rate, kept values are scaled by 1/(1 − rate), and a
+    spatial mask drops whole channels per sample."""
+    x = torch.ones((64, 32, 8, 8))
+    g = torch.Generator().manual_seed(0)
+    assert torch.equal(dropout(x, 0.0, g, channels), x)
+    block = ConvBlock(4, 4, kernel_size=1, dropout_rate=0.0 if channels
+                      else 0.3, spatial_dropout_rate=0.3 if channels
+                      else 0.0)
+    with torch.no_grad():
+        block.kernel.copy_(torch.eye(4).view(4, 4, 1, 1))
+    xb = torch.rand((2, 4, 5, 5))
+    with torch.no_grad():
+        assert torch.equal(block(xb), xb)
+    rate = 0.3
+    y = dropout(x, rate, g, channels)
+    kept = y != 0
+    assert torch.allclose(y[kept], torch.full_like(y[kept], 1 / (1 - rate)))
+    if channels:
+        per = kept.float().mean(dim=(2, 3))
+        assert bool(((per == 0) | (per == 1)).all())
+        n = per.numel()
+        share = float(per.mean())
+    else:
+        n = kept.numel()
+        share = float(kept.float().mean())
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(share - (1 - rate)) <= 3 * sigma, share

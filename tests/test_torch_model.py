@@ -206,3 +206,135 @@ def test_registry_lists_packaged_artifacts():
     assert FLAGSHIP in bidt.models
     with pytest.raises(ValueError):
         bidt.load_model("no_such_model", device="cpu")
+
+
+# ------------------------------------ the rest of the unet_laplacian family
+
+def _seeded_variables(hydra, x):
+    """params and batch_stats for ``hydra`` from numpy, shapes by
+    ``jax.eval_shape`` (no compile)."""
+    shapes = jax.eval_shape(
+        lambda: hydra.init({"params": jax.random.PRNGKey(0)},
+                           jnp.asarray(x), train=False))
+    rng = np.random.default_rng(3)
+
+    def draw(path, leaf):
+        name = str(path[-1].key)
+        if len(leaf.shape) == 4:
+            fan_in = int(np.prod(leaf.shape[:3]))
+            return rng.normal(0, fan_in ** -0.5, leaf.shape)
+        if name == "scale":
+            return rng.uniform(0.7, 1.3, leaf.shape)
+        if name == "var":
+            return rng.uniform(0.5, 2.0, leaf.shape)
+        return rng.normal(0, 0.3, leaf.shape)
+
+    return {k: jax.tree_util.tree_map_with_path(
+        lambda p, l: draw(p, l).astype(np.float32), v)
+        for k, v in shapes.items() if k in ("params", "batch_stats")}
+
+
+def _narrow_family_matches_jax(cfg, n_scales):
+    hydra = jax_model_builder(cfg).hydra
+    x = np.random.default_rng(1).uniform(0, 255, (2, 64, 64, 3)).astype(
+        np.float32)
+    variables = _seeded_variables(hydra, x)
+    ref = hydra.apply(variables, jnp.asarray(x), train=False)
+    port = model_builder(cfg).hydra
+    port.load_state_dict(params_from_flax(variables), strict=True)
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert len(got) == len(ref) == n_scales
+    for r, g in zip(ref, got):
+        g = g.permute(0, 2, 3, 1).numpy()
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, np.asarray(r), atol=0.05)
+
+
+@pytest.mark.parametrize("name,depth", [("unet_laplacian_v3", 4),
+                                        ("unet_laplacian_v4", 4),
+                                        ("unet_laplacian_v5", 3)])
+def test_narrowed_family_configs_match_jax(name, depth):
+    """v3 (gates, strides, nearest upsample), v4 (gates, strides,
+    Laplacian upsample) and v5 (strides, Laplacian upsample), decoder
+    K = 1, narrowed to filters 8 and width 1, at 64²."""
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT[name]["model"])
+    cfg["backbone"].update(filters=8, width=1)
+    cfg["denoiser"]["filters"] = 8
+    _narrow_family_matches_jax(cfg, depth)
+
+
+@pytest.mark.parametrize("option", [
+    dict(use_attention_gates=True), dict(use_concat=True),
+    dict(use_mix_project=True), dict(use_concat=True, use_mix_project=True),
+    dict(use_bn=True), dict(use_bn=True, use_ln=False,
+                            use_attention_gates=True),
+    dict(use_ln=False), dict(use_bias=True), dict(use_gamma=False),
+    dict(use_complex_base=True), dict(use_global_pool_information=True),
+    dict(use_global_pool_information=True, use_bn=True),
+    dict(space_to_depth_stem=2), dict(use_laplacian_averaging=False),
+    dict(use_laplacian_averaging=False, use_laplacian=False),
+    dict(dropout_rate=0.3, spatial_dropout_rate=0.2),
+    dict(upsample_type="conv2d_transpose"),
+    dict(upsample_type="upsample_laplacian_conv2d", activation="linear"),
+    dict(downsample_type="maxpool"), dict(activation="relu"),
+    dict(decoder_kernel_size=2)], ids=lambda o: "+".join(
+        f"{k}={v}" for k, v in o.items()))
+def test_each_builder_option_matches_jax(option):
+    """Each option the port refused before, switched on alone (or with
+    what it needs) on a narrowed ``unet_laplacian_v5`` (filters 8, width
+    2), against ``hydra.apply`` at 64²; dropout is the identity outside
+    training."""
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT["unet_laplacian_v5"]["model"])
+    cfg["backbone"].update(filters=8, width=2, **option)
+    cfg["denoiser"]["filters"] = 8
+    _narrow_family_matches_jax(cfg, 3)
+
+
+@pytest.mark.parametrize("option,match", [
+    (dict(space_to_depth_stem=1), "space_to_depth_stem"),
+    (dict(space_to_depth_stem=4, filters=8), "divisible"),
+    (dict(use_bn="bias_free"), "string batchnorm"),
+    (dict(use_soft_orthogonal_regularization=True), "mutually exclusive")])
+def test_builder_refusals_are_value_errors(option, match):
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT["unet_laplacian_v5"]["model"])
+    cfg["backbone"].update(**option)
+    with pytest.raises(ValueError, match=match):
+        model_builder(cfg)
+
+
+@pytest.mark.parametrize("name", [n for n, _ in bidt.configs])
+def test_packaged_configs_build_with_the_flax_tree(name):
+    """Every packaged config builds in the port at full width, and its
+    state dict has the flax tree's keys and shapes (``jax.eval_shape``,
+    no compile), params and batch statistics, both ways through
+    ``weights.py``."""
+    from blind_image_denoising_torch.weights import flax_from_params
+    key = name[:-len(".json")]
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT[key]["model"])
+    hydra = jax_model_builder(copy.deepcopy(cfg)).hydra
+    shapes = jax.eval_shape(
+        lambda: hydra.init({"params": jax.random.PRNGKey(0)},
+                           jnp.zeros((1, 64, 64, 3), jnp.float32),
+                           train=False))
+    tree = {k: jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), v)
+        for k, v in shapes.items() if k in ("params", "batch_stats")}
+    port = model_builder(cfg).hydra
+    state = port.state_dict()
+    converted = params_from_flax(tree)
+    assert set(converted) == set(state)
+    for k, v in converted.items():
+        assert tuple(v.shape) == tuple(state[k].shape), k
+    back = flax_from_params(port)
+
+    def flat(t, prefix=""):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}/"))
+            else:
+                out[prefix + k] = tuple(np.shape(v))
+        return out
+
+    assert flat(back) == flat(tree)

@@ -368,11 +368,12 @@ def _narrow_model_config():
     return mc
 
 
-def _jax_grad_fn(jhydra, cfg):
+def _jax_grad_fn(jhydra, cfg, n_outputs=3):
     """``jax.grad(forward_loss)`` of the JAX train step, from its closure."""
     tx, _ = jax_optimizer_builder(cfg["train"]["optimizer"])
     step = jax_build_train_step(jhydra, tx,
-                                jax_loss_function_builder(cfg["loss"]), 3)
+                                jax_loss_function_builder(cfg["loss"]),
+                                n_outputs)
     cells = dict(zip(step.__code__.co_freevars,
                      (c.cell_contents for c in step.__closure__)))
     return jax.jit(cells["grad_fn"])
@@ -417,6 +418,79 @@ def test_train_loss_and_every_gradient_match_jax():
     for name, p in named.items():
         assert p.grad is not None and float(p.grad.abs().max()) > 0, name
         assert _rel(p.grad.numpy(), ref[name].numpy()) <= 1e-4, name
+
+
+def test_narrow_v4_train_step_matches_jax():
+    """One train step of ``unet_laplacian_v4`` (attention gates, strided
+    downsample, Laplacian upsample, decoder K = 1; four scales) narrowed
+    to filters 8 and width 1, drop-path and dropout off, on one injected
+    2 × 64² batch: the loss and every per-scale metric within 1e-4
+    relative of the JAX step's ``forward_loss``, every gradient within
+    1e-4 of its tensor's largest entry of ``jax.grad``, and the params
+    after one Adam step of the config's optimizer within 1e-4 of
+    optax's."""
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT["unet_laplacian_v4"])
+    mc = cfg["model"]
+    mc["backbone"].update(filters=8, width=1, depth_drop_rate=0.0,
+                          convolutional_self_attention_dropout_rate=0.0)
+    mc["denoiser"]["filters"] = 8
+    jhydra = jax_model_builder(mc).hydra
+    # the params' shapes without running the init; values from numpy
+    shapes = jax.eval_shape(lambda: jhydra.init(
+        {"params": jax.random.PRNGKey(0)},
+        jnp.zeros((1, 64, 64, 3), jnp.float32), train=False))["params"]
+    rng = np.random.default_rng(4)
+
+    def draw(path, leaf):
+        if len(leaf.shape) == 4:
+            fan_in = int(np.prod(leaf.shape[:3]))
+            return rng.normal(0, fan_in ** -0.5, leaf.shape)
+        if str(path[-1].key) == "scale":
+            return rng.uniform(0.8, 1.2, leaf.shape)
+        return rng.normal(0, 0.01, leaf.shape)
+
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, l: draw(p, l).astype(np.float32), shapes)
+    clean = np.round(_images(2, 64, 64, 4))
+    noisy = np.clip(np.round(clean + rng.normal(0, 20, clean.shape)),
+                    0, 255).astype(np.float32)
+    dw = np.full((4,), 0.25, np.float32)
+    jgt = jax_multiscale_targets(jnp.asarray(clean), 3, clip_values=True,
+                                 round_values=True)
+    jgrads, (_, jmetrics) = _jax_grad_fn(jhydra, cfg, 4)(
+        params, {}, jnp.asarray(noisy), jgt, jnp.asarray(dw),
+        jax.random.PRNGKey(1))
+
+    hydra = model_builder(mc).hydra
+    hydra.load_state_dict(params_from_flax(params))
+    gt = multiscale_targets(torch.from_numpy(clean), 3, clip_values=True,
+                            round_values=True)
+    total, metrics = forward_loss(hydra, loss_function_builder(cfg["loss"]),
+                                  4, torch.from_numpy(noisy), gt,
+                                  torch.from_numpy(dw),
+                                  torch.Generator().manual_seed(0))
+    total.backward()
+    assert set(jmetrics) == set(metrics)
+    for k, v in jmetrics.items():
+        assert _rel(metrics[k].detach().numpy(), v) <= 1e-4, k
+    ref = params_from_flax(jax.tree_util.tree_map(np.asarray, jgrads))
+    named = dict(hydra.named_parameters())
+    assert set(ref) == set(named)
+    for name, p in named.items():
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, name
+        assert _rel(p.grad.numpy(), ref[name].numpy()) <= 1e-4, name
+
+    # one optimizer step on these gradients, port against optax
+    tx, _ = optimizer_builder(cfg["train"]["optimizer"])
+    jtx, _ = jax_optimizer_builder(cfg["train"]["optimizer"])
+    plist = list(named.values())
+    tx.apply(plist, [p.grad for p in plist], tx.init(plist))
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    updates, _ = jtx.update(jgrads, jtx.init(jp), jp)
+    stepped = params_from_flax(jax.tree_util.tree_map(
+        np.asarray, optax.apply_updates(jp, updates)))
+    for name, p in named.items():
+        assert _rel(p.detach().numpy(), stepped[name].numpy()) <= 1e-4, name
 
 
 def test_jax_bf16_gradient_cosine_of_the_flagship():
