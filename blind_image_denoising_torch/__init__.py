@@ -29,6 +29,8 @@ decoded by ``load_image``; the builders under it
 artifact directory that this package's and the JAX package's
 ``load_model`` both serve; ``python -m blind_image_denoising_torch.build``
 writes a seeded model's params and its structure.
+``build_pyramid_model`` / ``build_inverse_pyramid_model`` build the
+Gaussian and Laplacian pyramids of a config (``ops/pyramid.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -39,6 +41,9 @@ import pathlib as _pathlib
 
 from . import ops
 from .config import input_shape_fixer, load_config, save_config
+from .ops.pyramid import (
+    build_inverse_pyramid_fn as build_inverse_pyramid_model,
+    build_pyramid_fn as build_pyramid_model)
 
 logger = _logging.getLogger("blind_image_denoising_torch")
 
@@ -164,5 +169,6 @@ def __getattr__(name):
 
 __all__ = ["logger", "load_config", "save_config", "input_shape_fixer",
            "ops", "configs", "CONFIGS_DICT", "models", "load_model",
-           "load_denoiser_model", "load_default_denoiser"] + sorted(
+           "load_denoiser_model", "load_default_denoiser",
+           "build_pyramid_model", "build_inverse_pyramid_model"] + sorted(
                _LAZY_EXPORTS)

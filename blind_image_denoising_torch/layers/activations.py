@@ -4,13 +4,15 @@
 The names and slopes follow the JAX table exactly: ``"leaky_relu"`` is
 slope **0.3** (Keras' default), ``"leaky_relu_01"`` is 0.1 and
 ``"leaky_relu_001"`` 0.01; ``"gelu"`` is the tanh approximation, which
-is ``jax.nn.gelu``'s default.
+is ``jax.nn.gelu``'s default. The parametric ``prelu`` lives in the
+:class:`Activation` module, which holds its slopes.
 """
 
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def _leaky(slope: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -41,8 +43,8 @@ _ACTIVATIONS = {
 
 
 def activation_fn(name) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Resolve an activation name to a function. Raises on unknown names;
-    the parametric ``prelu`` is not ported yet."""
+    """Resolve an activation name to a function. Raises on unknown names
+    and on ``prelu``, which has parameters (:class:`Activation`)."""
     if name is None:
         return _ACTIVATIONS["linear"]
     if callable(name):
@@ -51,6 +53,31 @@ def activation_fn(name) -> Callable[[torch.Tensor], torch.Tensor]:
     if key in _ACTIVATIONS:
         return _ACTIVATIONS[key]
     if key == "prelu":
-        raise NotImplementedError(
-            "prelu is not ported yet (ROADMAP Queue 1 item 11)")
+        raise ValueError("prelu has parameters: use the Activation module")
     raise ValueError(f"unknown activation [{name}]")
+
+
+class Activation(nn.Module):
+    """An activation as a module (flax ``Activation``). ``prelu``: a
+    per-channel slope ``prelu_alpha`` [C] (channels on dim 1 of NCHW, or
+    the last dim of a 2-D input), initialized at 0.1 and clipped to
+    [0, 1] where it is used, cast to the input's dtype; ``x ≥ 0 ? x :
+    α·x``. Every other name is the parameter-free function of
+    :func:`activation_fn`."""
+
+    def __init__(self, activation: str = "linear",
+                 features: int = 0):
+        super().__init__()
+        self.key = (activation or "linear").strip().lower()
+        if self.key == "prelu":
+            self.prelu_alpha = nn.Parameter(torch.full((int(features),), 0.1))
+            self.fn = None
+        else:
+            self.fn = activation_fn(self.key)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fn is not None:
+            return self.fn(x)
+        alpha = torch.clamp(self.prelu_alpha, 0.0, 1.0).to(x.dtype)
+        alpha = alpha.view(1, -1, 1, 1) if x.ndim == 4 else alpha
+        return torch.where(x >= 0.0, x, alpha * x)

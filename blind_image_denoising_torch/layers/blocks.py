@@ -12,8 +12,10 @@ activation. Module names follow the flax tree (``block_{i}_conv_1``,
 ``block_{i}_ln``, ``block_{i}_channelwise`` …), so
 ``weights.params_from_flax`` output loads directly.
 
-Not ported yet, and raising: the dense gate (``use_gate``) and the
-selector-mixed skip (``selector_params``), ROADMAP Queue 1 item 11.
+``use_gate`` puts a :class:`DenseGate` (``block_{i}_gate``) after conv
+2, fed by conv 2's output (conv 1's, or the LayerNorm's, without one).
+Not ported yet, and raising: the selector-mixed skip
+(``selector_params``), ROADMAP Queue 1 item 11.
 """
 
 from typing import Dict, Optional
@@ -25,11 +27,45 @@ from ..constants import (DEFAULT_CHANNELWISE_MULTIPLIER_L1,
                          DEFAULT_LN_EPSILON, DEFAULT_MULTIPLIER_L1)
 from ..ops.normalize import local_normalization
 from ..ops.resize import nchw, nhwc
-from .activations import activation_fn
-from .conv import conv_block_from_params
+from .activations import Activation
+from .conv import DenseBlock, conv_block_from_params
 from .multipliers import ChannelwiseMultiplier, Multiplier
 from .norm import FastLayerNorm
 from .stochastic import StochasticDepth
+
+
+class DenseGate(nn.Module):
+    """Channel gate (flax ``DenseGate``): the gate signal's spatial mean →
+    dense to max(f/8, 2), relu → dense to f, hard sigmoid → per-channel
+    multiply of ``x``. Both denses are bias-free with an L2 penalty."""
+
+    def __init__(self, in_features: int, gate_filters: int, dtype=None):
+        super().__init__()
+        hidden = max(int(gate_filters) // 8, 2)
+        self.gate_dense_0 = DenseBlock(in_features, hidden, activation="relu",
+                                       kernel_regularizer="l2", dtype=dtype)
+        self.gate_dense_1 = DenseBlock(hidden, int(gate_filters),
+                                       activation="hard_sigmoid",
+                                       kernel_regularizer="l2", dtype=dtype)
+
+    def forward(self, gate_signal: torch.Tensor, x: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        y = torch.mean(gate_signal, dim=(2, 3))
+        y = self.gate_dense_1(self.gate_dense_0(y, train=train), train=train)
+        return x * y[:, :, None, None]
+
+
+def gate_filters_of(first_conv_params: Optional[Dict],
+                    second_conv_params: Optional[Dict]) -> int:
+    """The gated channels: conv 2's filters, or conv 1's times conv 2's
+    depth multiplier."""
+    if second_conv_params and "filters" in second_conv_params:
+        return int(second_conv_params["filters"])
+    if (second_conv_params and "depth_multiplier" in second_conv_params
+            and first_conv_params):
+        return int(first_conv_params["filters"]
+                   * second_conv_params["depth_multiplier"])
+    raise ValueError("cannot infer gate filters")
 
 
 class ResnetBlocks(nn.Module):
@@ -48,14 +84,15 @@ class ResnetBlocks(nn.Module):
         super().__init__()
         if no_layers < 0:
             raise ValueError("no_layers must be >= 0")
-        if use_gate or selector_params is not None:
+        if selector_params is not None:
             raise NotImplementedError(
-                "the dense gate and the selector block are not ported yet "
-                "(ROADMAP Queue 1 item 11)")
+                "the selector block is not ported yet (ROADMAP Queue 1 item "
+                "11)")
+        gate_filters = (gate_filters_of(first_conv_params,
+                                        second_conv_params)
+                        if use_gate else 0)
         self.no_layers = int(no_layers)
         self.mean_sigma_pool = mean_sigma_pool
-        self.post_act = (activation_fn(post_addition_activation)
-                         if post_addition_activation else None)
         bn = dict(bn_center=bn_center, bn_bias_free=bn_bias_free,
                   dtype=dtype)
         c = in_features
@@ -70,6 +107,7 @@ class ResnetBlocks(nn.Module):
             if ln_after_first_conv:
                 self.add_module(f"block_{i}_ln", FastLayerNorm(
                     c, epsilon=DEFAULT_LN_EPSILON, dtype=dtype))
+            signal = c
             for j, params in ((2, second_conv_params),
                               (3, third_conv_params)):
                 if params is not None:
@@ -77,6 +115,11 @@ class ResnetBlocks(nn.Module):
                                                   **bn)
                     self.add_module(f"block_{i}_conv_{j}", conv)
                     c = conv.out_features
+                if j == 2:
+                    signal = c
+                if j == 2 and use_gate:
+                    self.add_module(f"block_{i}_gate", DenseGate(
+                        signal, gate_filters, dtype=dtype))
             if use_channelwise:
                 self.add_module(f"block_{i}_channelwise", ChannelwiseMultiplier(
                     c, multiplier=1.0, activation="relu",
@@ -92,6 +135,9 @@ class ResnetBlocks(nn.Module):
                 raise ValueError(
                     f"residual block {i} maps {c_in} channels to {c}: the "
                     f"skip add needs the last conv to return {c_in}")
+            if post_addition_activation:
+                self.add_module(f"block_{i}_post_act", Activation(
+                    post_addition_activation, c))
         self.out_features = c
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -101,12 +147,24 @@ class ResnetBlocks(nn.Module):
             if self.mean_sigma_pool is not None:
                 p = self.mean_sigma_pool
                 x = nchw(local_normalization(nhwc(x), (p, p)))
+            gate_signal = None
             for name in (f"block_{i}_conv_1", f"block_{i}_ln",
-                         f"block_{i}_conv_2", f"block_{i}_conv_3"):
+                         f"block_{i}_conv_2", f"block_{i}_gate",
+                         f"block_{i}_conv_3"):
                 layer = getattr(self, name, None)
-                if layer is not None:
-                    x = (layer(x) if name.endswith("_ln")
-                         else layer(x, train=train))
+                if layer is None:
+                    continue
+                if name.endswith("_ln"):
+                    x = layer(x)
+                elif name.endswith("_gate"):
+                    if gate_signal is None:
+                        raise ValueError("the gate needs a conv 1 or conv 2 "
+                                         "output")
+                    x = layer(gate_signal, x, train=train)
+                else:
+                    x = layer(x, train=train)
+                if not name.endswith(("_gate", "_conv_3")):
+                    gate_signal = x
             for name in (f"block_{i}_channelwise", f"block_{i}_multiplier"):
                 layer = getattr(self, name, None)
                 if layer is not None:
@@ -115,6 +173,7 @@ class ResnetBlocks(nn.Module):
             if onoff is not None:
                 x = onoff(x, train=train, generator=generator)
             x = x + previous
-            if self.post_act is not None:
-                x = self.post_act(x)
+            post_act = getattr(self, f"block_{i}_post_act", None)
+            if post_act is not None:
+                x = post_act(x)
         return x

@@ -28,6 +28,7 @@ gives the block a ``penalty()`` of its float32 kernel: the term the JAX
 block sows into its ``losses`` collection during training.
 """
 
+import math
 from typing import Optional
 
 import torch
@@ -36,11 +37,60 @@ from torch import nn
 
 from ..constants import DEFAULT_LN_EPSILON
 from ..ops import quant as quant_ops
+from ..ops.noise import truncated_normal
 from ..ops.regularizers import builder as regularizer_builder
 from ..ops.resize import nchw, nhwc
-from .activations import activation_fn
+from .activations import Activation, activation_fn
 from .norm import BatchNorm, BiasFreeBatchNorm, FastLayerNorm
 from .stochastic import drop_mask
+
+
+# std of the standard normal truncated to ±2
+_TRUNC_STD = 0.87962566103423978
+
+
+def _variance_scaling(scale: float, mode: str, distribution: str):
+    """flax ``variance_scaling``: variance ``scale / fan`` (``fan_in``, or
+    the mean of both fans), from a ±2 truncated normal rescaled to that
+    std or from the uniform of that variance."""
+
+    def init(shape, fan_in, fan_out, generator):
+        var = (scale / fan_in if mode == "fan_in"
+               else 2.0 * scale / (fan_in + fan_out))
+        if distribution == "truncated_normal":
+            return (math.sqrt(var) / _TRUNC_STD) * truncated_normal(
+                tuple(shape), generator)
+        limit = math.sqrt(3.0 * var)
+        return limit * (2.0 * torch.rand(shape, generator=generator) - 1.0)
+    return init
+
+
+_INITIALIZERS = {
+    "glorot_normal": _variance_scaling(1.0, "fan_avg", "truncated_normal"),
+    "glorot_uniform": _variance_scaling(1.0, "fan_avg", "uniform"),
+    "he_normal": _variance_scaling(2.0, "fan_in", "truncated_normal"),
+    "he_uniform": _variance_scaling(2.0, "fan_in", "uniform"),
+    # ConvNeXt-style: 0.02 times the ±2 truncated normal (not rescaled)
+    "trunc_normal": lambda shape, fi, fo, g: 0.02 * truncated_normal(
+        tuple(shape), g),
+    "truncated_normal": lambda shape, fi, fo, g: 0.02 * truncated_normal(
+        tuple(shape), g),
+    "zeros": lambda shape, fi, fo, g: torch.zeros(shape),
+    "ones": lambda shape, fi, fo, g: torch.ones(shape),
+}
+
+
+def resolve_initializer(name):
+    """A ``kernel_initializer`` name (JAX ``layers/conv.py``'s: glorot and
+    he, normal and uniform; ``trunc_normal`` 0.02; zeros; ones) →
+    ``init(shape, fan_in, fan_out, generator)`` returning a float32
+    tensor on the CPU. A callable passes through."""
+    if callable(name):
+        return name
+    key = (name or "glorot_normal").strip().lower()
+    if key not in _INITIALIZERS:
+        raise ValueError(f"unknown kernel initializer [{name}]")
+    return _INITIALIZERS[key]
 
 
 def _pair(v):
@@ -103,9 +153,12 @@ class ConvBlock(nn.Module):
                  separable: bool = False, kernel_regularizer=None,
                  dtype=None, padding: str = "SAME", bn_center: bool = False,
                  bn_bias_free: bool = False, dropout_rate: float = 0.0,
-                 spatial_dropout_rate: float = 0.0):
+                 spatial_dropout_rate: float = 0.0, kernel_initializer=None):
         super().__init__()
         kh, kw = _pair(kernel_size)
+        # None: the model's (``training/train_state.init_params``)
+        self.kernel_initializer = kernel_initializer
+        self.activation = str(activation or "linear").strip().lower()
         self.strides = _pair(strides)
         self.padding = str(padding).upper()
         self.dtype = dtype
@@ -142,7 +195,8 @@ class ConvBlock(nn.Module):
         self.ln = (FastLayerNorm(out, epsilon=DEFAULT_LN_EPSILON,
                                  use_bias=bn_center, dtype=dtype)
                    if use_ln else None)
-        self.act = activation_fn(activation)
+        self.act = (Activation("prelu", out) if self.activation == "prelu"
+                    else activation_fn(activation))
         self.regularizer = (None if kernel_regularizer is None
                             else regularizer_builder(kernel_regularizer))
 
@@ -220,4 +274,47 @@ def conv_block_from_params(in_features: int, params: dict, dtype=None,
                                  p.get("depthwise_regularizer", None)),
         dtype=dtype, padding=p.get("padding", "SAME"), bn_center=bn_center,
         bn_bias_free=bn_bias_free, dropout_rate=p.get("dropout_rate", 0.0),
-        spatial_dropout_rate=p.get("spatial_dropout_rate", 0.0))
+        spatial_dropout_rate=p.get("spatial_dropout_rate", 0.0),
+        kernel_initializer=p.get("kernel_initializer",
+                                 p.get("depthwise_initializer", None)))
+
+
+class DenseBlock(nn.Module):
+    """dense → optional bias → optional BatchNorm (no bias) → activation
+    (flax ``DenseBlock``), on [B, in] inputs. The kernel is ``[in, out]``
+    as flax stores it, so ``params_from_flax`` loads it as is; the
+    product runs in the compute dtype (``dtype``, or the input's)."""
+
+    def __init__(self, in_features: int, features: int,
+                 use_bias: bool = False, activation: str = "linear",
+                 kernel_initializer="glorot_normal", kernel_regularizer=None,
+                 use_bn: bool = False, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel_initializer = kernel_initializer
+        self.activation = str(activation or "linear").strip().lower()
+        self.kernel = nn.Parameter(torch.zeros(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.bn = BatchNorm(features, use_bias=False, dtype=dtype) \
+            if use_bn else None
+        if self.activation != "linear":
+            self.act = Activation(self.activation, features)
+        self.regularizer = (None if kernel_regularizer is None
+                            else regularizer_builder(kernel_regularizer))
+        self.out_features = int(features)
+
+    def penalty(self):
+        if self.regularizer is None:
+            return None
+        return self.regularizer(self.kernel.float())
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        cdt = self.dtype or x.dtype
+        y = x.to(cdt) @ self.kernel.to(cdt)
+        if self.bias is not None:
+            y = y + self.bias.to(cdt)
+        if self.bn is not None:
+            y = self.bn(y[:, :, None, None], train=train)[:, :, 0, 0]
+        if self.activation != "linear":
+            y = self.act(y)
+        return y

@@ -1,5 +1,5 @@
-"""Fixed layers (counterpart of ``blind_image_denoising_tpu/layers/misc.py``
-``GaussianFilter``), on NCHW tensors."""
+"""Layers of ``blind_image_denoising_tpu/layers/misc.py``, on NCHW
+tensors: the fixed ``GaussianFilter`` and ``SparseBlock``."""
 
 from typing import Tuple
 
@@ -8,6 +8,7 @@ from torch import nn
 
 from ..ops.gaussian import gaussian_blur
 from ..ops.resize import nchw, nhwc
+from .norm import BatchNorm
 
 
 class GaussianFilter(nn.Module):
@@ -24,3 +25,34 @@ class GaussianFilter(nn.Module):
         y = gaussian_blur(nhwc(x), kernel_size=self.kernel_size,
                           strides=self.strides)
         return nchw(y).contiguous(memory_format=torch.channels_last)
+
+
+class SparseBlock(nn.Module):
+    """BatchNorm (scale, no bias; batch statistics in train mode, float32
+    out as flax promotes it) then a mask of the values above
+    ``threshold_sigma`` (of their magnitude when ``symmetrical``; a
+    sigmoid ramp when ``soft_sparse``; inverted when ``reverse``) times
+    the input."""
+
+    def __init__(self, features: int, threshold_sigma: float = 1.0,
+                 symmetrical: bool = False, reverse: bool = False,
+                 soft_sparse: bool = False):
+        super().__init__()
+        if threshold_sigma < 0:
+            raise ValueError("threshold_sigma must be >= 0")
+        self.threshold_sigma = float(threshold_sigma)
+        self.symmetrical, self.reverse = bool(symmetrical), bool(reverse)
+        self.soft_sparse = bool(soft_sparse)
+        self.bn = BatchNorm(features, use_bias=False)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x_bn = self.bn(x, train=train)
+        if self.symmetrical:
+            x_bn = torch.abs(x_bn)
+        if self.soft_sparse:
+            mask = torch.sigmoid(x_bn - self.threshold_sigma)
+        else:
+            mask = (x_bn > self.threshold_sigma).to(x.dtype)
+        if self.reverse:
+            mask = 1.0 - mask
+        return x * mask

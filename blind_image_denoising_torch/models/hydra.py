@@ -16,7 +16,8 @@ pixel by pixel).
 sums every kernel's regularizer, the JAX model's sown ``losses``.
 
 Backbones: ``unet_laplacian`` (one output per level), ``resnet`` and
-``convnext`` (one output, ``models/resnet.py``) and the ``segnet`` stub;
+``convnext`` (one output, ``models/resnet.py``), the classic ``unet``
+(one output, ``models/unet.py``) and the ``segnet`` stub;
 each names the channels of its outputs in ``out_features``. A float32
 hydra (``dtype`` None) runs inside ``ops/precision.exact_float32`` on
 the card, so its convs and matmuls do not drop to TF32.
@@ -36,8 +37,10 @@ from ..ops.normalize import denormalize, normalize
 from ..ops.precision import exact_float32
 from ..ops.quant import set_module_paths
 from . import resnet as _resnet_mod
+from . import unet as _unet_mod
 from .resnet import ConvNextBackbone, ResnetBackbone
 from .segnet import SegnetBackbone
+from .unet import UnetBackbone
 from .unet_laplacian import UnetLaplacianBackbone
 
 logger = logging.getLogger("blind_image_denoising_torch")
@@ -50,12 +53,14 @@ _BACKBONES = {
     "resnet": ResnetBackbone,
     "unet_laplacian": UnetLaplacianBackbone,
     "convnext": ConvNextBackbone,
+    "unet": UnetBackbone,
     "segnet": SegnetBackbone,
 }
 
 _BACKBONE_KEYS = {
     "resnet": _resnet_mod.KNOWN_KEYS,
     "convnext": _resnet_mod.KNOWN_KEYS,
+    "unet": _unet_mod.KNOWN_KEYS,
 }
 
 # options the reference's own snapshot parses but never applies
@@ -89,9 +94,6 @@ def backbone_from_config(config: Dict, dtype=None) -> nn.Module:
     model_type = config["type"].strip().lower()
     if model_type == "efficientnet":
         raise NotImplementedError("efficientnet not implemented")
-    if model_type == "unet":
-        raise NotImplementedError(
-            "backbone [unet] is not ported yet (ROADMAP Queue 1 item 9)")
     if model_type not in _BACKBONES:
         raise ValueError(f"don't know how to build backbone [{model_type}]")
     _warn_unknown_keys(config, model_type)
@@ -111,16 +113,19 @@ class DenoiserHead(nn.Module):
         use_bn, bn_bias_free = parse_bn_flag(cfg.get("use_bn", False))
         filters = int(cfg.get("filters", 32))
         reg = cfg.get("kernel_regularizer", "l2")
+        init = cfg.get("kernel_initializer", "glorot_normal")
         self.conv_0 = ConvBlock(in_features, filters, kernel_size=1,
                                 activation=cfg.get("activation", "linear"),
                                 use_bias=use_bias, use_bn=use_bn,
                                 use_ln=cfg.get("use_ln", False),
                                 bn_center=use_bias,
                                 bn_bias_free=bn_bias_free,
-                                kernel_regularizer=reg, dtype=dtype)
+                                kernel_regularizer=reg, dtype=dtype,
+                                kernel_initializer=init)
         self.conv_1 = ConvBlock(filters, int(cfg.get("output_channels", 3)),
                                 kernel_size=1, use_bias=use_bias,
-                                kernel_regularizer=reg, dtype=dtype)
+                                kernel_regularizer=reg, dtype=dtype,
+                                kernel_initializer=init)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = self.conv_1(self.conv_0(x, train=train), train=train)

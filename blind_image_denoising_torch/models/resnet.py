@@ -164,6 +164,8 @@ class ResnetBackbone(nn.Module):
         self.skeleton = _ResidualSkeleton(config, in_channels,
                                           convnext_mode=False, dtype=dtype)
         self.out_features = self.skeleton.out_features
+        self.kernel_initializer = config.get("kernel_initializer",
+                                             "glorot_normal")
 
     def forward(self, x, train: bool = False, generator=None):
         return self.skeleton(x, train=train, generator=generator)
@@ -185,6 +187,8 @@ class ConvNextBackbone(nn.Module):
         self.skeleton = _ResidualSkeleton(cfg, in_channels,
                                           convnext_mode=True, dtype=dtype)
         self.out_features = self.skeleton.out_features
+        self.kernel_initializer = cfg.get("kernel_initializer",
+                                          "glorot_normal")
 
     def forward(self, x, train: bool = False, generator=None):
         return self.skeleton(x, train=train, generator=generator)

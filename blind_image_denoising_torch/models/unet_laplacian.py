@@ -39,9 +39,6 @@ is then differentiable through its backward kernel. The kernels carry
 their regularizers (``kernel_regularizer``, soft-orthogonal or
 -orthonormal 1×1s when the config asks, L1 on the gains); the sum is
 ``ops/regularizers.regularization_loss(model)``.
-
-Only ``kernel_initializer`` other than glorot-normal stays outside
-(``training/train_state.init_params`` raises for it).
 """
 
 from typing import Any, Dict, List

@@ -18,10 +18,12 @@
    and stop without advancing the epoch.
 
 Entry point: :func:`train_loop`, on the card unless ``device="cpu"``.
-What the JAX loop does and the port does not yet: a device mesh and
-several processes (ROADMAP Queue 1 item 13), pruning and distillation
-(item 12), and the on-device degradation chain (item 11); each raises
-``NotImplementedError`` naming its item.
+Under ``dataset.apply_degradations`` the config's degradation keys
+reach the train step (rotation and the chain of ``ops/degradations.py``,
+the restoration recipe). What the JAX loop does and the port does not
+yet: a device mesh and several processes (ROADMAP Queue 1 item 13),
+pruning and distillation (item 12); each raises ``NotImplementedError``
+naming its item.
 """
 
 import contextlib
@@ -120,10 +122,6 @@ def _refuse_unported(config: Dict) -> None:
         raise _not_ported("per-epoch pruning (train.prune)", 12)
     if train.get("distillation"):
         raise _not_ported("distillation (train.distillation)", 12)
-    degr = resolve_degradation_options(dataset)
-    if degr != _NEUTRAL_DEGRADATIONS:
-        raise _not_ported("the on-device degradation chain "
-                          "(dataset.apply_degradations)", 11)
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -286,6 +284,8 @@ def train_loop(
     grad_stats = bool(train_config.get("grad_stats",
                                        visualization_every > 0))
 
+    degradations = resolve_degradation_options(dataset_config)
+
     def make_step(with_stats: bool):
         return build_train_step(
             hydra, tx, loss_fns, no_outputs=no_outputs,
@@ -298,7 +298,7 @@ def train_loop(
             grad_accum=grad_accum,
             remat=train_config.get("remat", False),
             use_pallas_noise=tpu_config.get("pallas_noise", False),
-            grad_stats=with_stats, ema_decay=ema_decay)
+            grad_stats=with_stats, ema_decay=ema_decay, **degradations)
 
     # the hot step computes no percentiles; the stats variant runs only on
     # the steps whose gradients feed the figures

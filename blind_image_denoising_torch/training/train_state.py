@@ -12,12 +12,13 @@ way).
 
 :func:`create_train_state` loads params — a flat state dict such as
 ``weights.params_from_flax`` of a packaged artifact — or, without them,
-initializes the model from the seed with the port's own initializers:
-glorot-normal (flax's ``variance_scaling(1, "fan_avg",
-"truncated_normal")``) for every conv and 1×1 kernel, ones for the
-LayerNorm scales, ``0.01 · truncated normal`` for the gains. The draws
-are the port's own, so a seeded init matches the JAX one in its
-statistics, not its values.
+initializes the model from the seed as the JAX modules do: every conv,
+1×1 and dense kernel from its ``kernel_initializer``
+(``layers/conv.resolve_initializer``: the module's own, else the
+backbone config's, glorot-normal by default), the biases of relu convs
+at 0.1, ones for the LayerNorm scales, ``0.01 · truncated normal`` for
+the gains. The draws are the port's own, so a seeded init matches the
+JAX one in its statistics, not its values.
 """
 
 import math
@@ -28,13 +29,14 @@ import torch
 from torch import nn
 
 from ..inference.export import resolve_device
+from ..layers.conv import ConvBlock, DenseBlock, resolve_initializer
 from ..layers.multipliers import ChannelLearnableMultiplier
 from ..layers.norm import FastLayerNorm
 from ..ops.noise import truncated_normal
 from .optimizer import OptState, Optimizer
 
-# std of the standard normal truncated to ±2
-_TRUNC_STD = 0.87962566103423978
+# the bias of a relu-family conv starts slightly positive
+_RELU_BIAS = 0.1
 
 
 @dataclass
@@ -66,27 +68,29 @@ def _fans(kernel: torch.Tensor):
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialization of every parameter of the hydra, in place."""
-    initializer = getattr(getattr(model, "backbone", model),
-                          "kernel_initializer", "glorot_normal")
-    if str(initializer).strip().lower() != "glorot_normal":
-        raise NotImplementedError(
-            f"kernel_initializer [{initializer}] is not ported yet (ROADMAP "
-            f"Queue 1 item 9); only glorot_normal is")
+    default = getattr(getattr(model, "backbone", model),
+                      "kernel_initializer", "glorot_normal")
+    resolve_initializer(default)            # an unknown name raises here
     for module in model.modules():
+        init = resolve_initializer(
+            getattr(module, "kernel_initializer", None) or default)
         if isinstance(module, FastLayerNorm):
             module.scale.fill_(1.0)
         elif isinstance(module, ChannelLearnableMultiplier):
             w = module.w_multiplier
             w.copy_(0.01 * truncated_normal(w.shape, generator))
+        elif isinstance(module, DenseBlock):
+            k = module.kernel                      # [in, out]
+            k.copy_(init(k.shape, k.shape[0], k.shape[1], generator))
         else:
             # a conv's kernel, or a separable conv's two
             for name in ("kernel", "depthwise_kernel", "pointwise_kernel"):
                 k = getattr(module, name, None)
-                if not isinstance(k, nn.Parameter):
-                    continue
-                fan_in, fan_out = _fans(k)
-                std = math.sqrt(2.0 / (fan_in + fan_out)) / _TRUNC_STD
-                k.copy_(std * truncated_normal(k.shape, generator))
+                if isinstance(k, nn.Parameter):
+                    k.copy_(init(k.shape, *_fans(k), generator))
+            if (isinstance(module, ConvBlock) and module.bias is not None
+                    and module.activation in ("relu", "relu6")):
+                module.bias.fill_(_RELU_BIAS)
 
 
 def create_train_state(model: nn.Module, tx: Optimizer, seed: int = 0,

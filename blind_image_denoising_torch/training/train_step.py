@@ -3,9 +3,13 @@
 and ``build_eval_step``).
 
 In the JAX order: the uint8 or float32 NHWC batch is widened to float32
-on the device → random flips → rounding → noise corruption (the K3
-kernel, ``ops/pallas_noise.corrupt_noise``, when ``use_pallas_noise``;
-else the exact ``ops/noise.corrupt_batch``) → the multiscale targets →
+on the device → random flips → random rotation of the clean batch
+(``random_rotate`` > 0) → rounding → the corruption: the degradation
+chain (``ops/degradations.degrade_batch``) when any of blur, JPEG,
+posterize or holes is on, else the noise (the K3 kernel,
+``ops/pallas_noise.corrupt_noise``, when ``use_pallas_noise``; else the
+exact ``ops/noise.corrupt_batch``) → the multiscale targets of the
+rotated clean batch →
 the training forward → per-scale losses on the float32 outputs × the
 deep-supervision weights → regularization × its multiplier → backward.
 Gradients are accumulated over ``grad_accum`` micro-batches and divided
@@ -17,9 +21,10 @@ waits for it. The noise kernel's seed is drawn on the host from the
 state's CPU generator, one int32 per micro-batch, and the step counter
 lives on the host.
 
-Options of the JAX step that this port does not carry yet (the
-degradation chain, a teacher) raise ``NotImplementedError`` naming
-their ROADMAP item.
+A teacher (distillation), the one option of the JAX step that this
+port does not carry yet, raises ``NotImplementedError`` naming its
+ROADMAP item. The chain runs in eager PyTorch ops inside the profiler
+range ``degradations.chain``.
 """
 
 from typing import Callable, Dict, Optional, Sequence
@@ -31,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..constants import (MAE_LOSS_STR, MSE_LOSS_STR, REGULARIZATION_LOSS_STR,
                          SSIM_LOSS_STR, TOTAL_LOSS_STR)
 from ..layers.norm import frozen_statistics
+from ..ops.degradations import degrade_batch, random_rotate_batch
 from ..ops.multiscale import multiscale_targets
 from ..ops.noise import corrupt_batch, random_flips
 from ..ops.pallas_noise import corrupt_noise
@@ -124,8 +130,9 @@ def build_train_step(
 
     ``batch``: clean uint8 or float32 [grad_accum·B, H, W, C] in
     [0, 255], on any device (it is moved to the model's). ``generator``:
-    the device generator for flips, drop-path and dropout masks and the
-    non-kernel noise (default: the state's). ``depth_weights``:
+    the device generator for flips, rotations, the degradation chain,
+    drop-path and dropout masks and the non-kernel noise (default: the
+    state's). ``depth_weights``:
     [no_outputs] deep-supervision weights (default: equal); pass them on
     the model's device, since a copy from host memory waits for the
     device.
@@ -151,9 +158,6 @@ def build_train_step(
             "tpu.pallas_noise fuses only the noise corruption; unset it to "
             "use random_blur / use_jpeg_noise / quantization / "
             "inpaint_drop_rate")
-    if extended or (random_rotate and random_rotate > 0.0):
-        raise _not_ported("random rotation and the degradation chain "
-                          "(ops/degradations.py)", 11)
     if teacher_fn is not None:
         raise _not_ported("distillation from a teacher (training/distill.py)",
                           12)
@@ -162,9 +166,26 @@ def build_train_step(
     def prepare(state: TrainState, clean: torch.Tensor, generator):
         clean = random_flips(generator, clean, left_right=random_left_right,
                              up_down=random_up_down)
+        if random_rotate and random_rotate > 0.0:
+            # geometric augmentation of the clean batch: the targets below
+            # are built from it
+            clean = random_rotate_batch(generator, clean, random_rotate)
         if round_values:
             clean = torch.round(clean)
-        if use_pallas_noise:
+        if extended:
+            with torch.profiler.record_function("degradations.chain"):
+                noisy = degrade_batch(
+                    generator, clean, additive_noise=additive_noise,
+                    multiplicative_noise=multiplicative_noise,
+                    noise_sampling=noise_sampling,
+                    round_values=round_values,
+                    use_random_blur=use_random_blur,
+                    use_jpeg_noise=use_jpeg_noise,
+                    quantization=quantization,
+                    inpaint_drop_rate=inpaint_drop_rate,
+                    degradation_prob=degradation_prob,
+                    chain_prob=degradation_chain_prob)
+        elif use_pallas_noise:
             seed = int(torch.randint(0, 2 ** 31 - 1, (),
                                      generator=state.host_generator))
             noisy = corrupt_noise(seed, clean, additive_noise=additive_noise,

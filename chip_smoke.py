@@ -87,6 +87,34 @@ drive the two paths of the port through the entry points a user calls:
   and per micro-batch (K2, its backward, K3; no K1); then every K1 / K2 /
   K2-backward / K3 input it launched against the plain versions, and K1
   at (32, 1) and (64, 1) timed;
+* restoration: the blind-restoration recipe (``scripts/train_restoration.py``:
+  ``unet_laplacian_v6_tpu`` at its full width, 128² crops, b16 × 8
+  micro-batches, bf16, the degradation chain with the master gate 0.5,
+  log-uniform noise on [1, 80], EMA 0.9995, cosine decay from 2e-4;
+  ``RESTORE_OVERRIDES``): each deterministic op of the chain at fixed
+  values on the card against the CPU at b16 @ 128² × 3 and timed; the
+  chain's gate rates, hole rate and ranges over 64 draws on the card, its
+  redrawn gates bit-exact and its noise-only samples the chain's own noise
+  draw; the recipe's step from the packaged flagship without a sync
+  (``torch.cuda.set_sync_debug_mode("error")``), its launches per
+  micro-batch (K2 2, K2 bwd 2, no K3) and the device ms of its
+  ``degradations.chain`` range; ``train_loop`` fine-tuning the packaged
+  flagship for 6 steps on the train_loop phase's scenes (the cuts: steps
+  and inputs) with exact launches and no sync in a step; ``export_model``
+  and bf16 serving of the fine-tune (10 K1 + 2 K2 a forward) against the
+  same artifact in f32 on the CPU; ``evaluate.degradation_sweep`` over the
+  recipe's seven specs on the packaged evaluation images, the packaged
+  flagship against the fine-tune, the card's ``apply_degradations``
+  against the CPU's on each spec; then every K2 / K2-backward / K1 input
+  it launched against the plain versions;
+* unet_backbone: the classic ``unet`` at the JAX builder's defaults
+  (filters 32, 3 levels, 1 layer, kernel 3, BatchNorm) with gates, sparse
+  features and ``he_normal`` (``UNET_BACKBONE``; the resnet config's train
+  and dataset sections): one f32 forward and backward in train mode card
+  against CPU from the same seeded weights (loss, gradient cosine, running
+  statistics), the ``build`` CLI's seeded artifact served through
+  ``load_model`` at b8 @ 256² in f32 and bf16 against f32 on the CPU; no
+  K1–K4 launch;
 
 check what comes out, and time the kernels and the paths (K1 also in
 its float32 I/O mode, which serves ``load_model(dtype="float32")``: one
@@ -2617,6 +2645,660 @@ def family_k1_times(pallas_convnext, smi, seen):
     return rows
 
 
+# ------------------------------------------------------------ restoration
+
+# the restoration phase: scripts/train_restoration.py's recipe (the
+# degradation chain, fine-tuning the packaged flagship), at its full width
+# and crop; the cuts are the steps (6, the recipe runs 15k) and the inputs
+# (the train_loop phase's seeded scenes: KITTI and MegaDepth are not in
+# the checkout)
+RESTORE_STEPS = 6
+RESTORE_OVERRIDES = {
+    "dataset.input_shape": [128, 128, 3], "dataset.batch_size": 16,
+    "dataset.no_crops_per_image": 4, "dataset.repeat": True,
+    "dataset.min_crop_std": 2.0, "dataset.additional_noise": [1, 80],
+    "dataset.noise_sampling": "log_uniform",
+    "dataset.apply_degradations": True, "dataset.random_blur": True,
+    "dataset.use_jpeg_noise": True, "dataset.quantization": 8,
+    "dataset.inpaint_drop_rate": 0.05, "dataset.degradation_prob": 0.5,
+    "dataset.degradation_chain_prob": 0.5,
+    "train.epochs": -1, "train.total_steps": RESTORE_STEPS,
+    "train.ema": 0.9995, "train.checkpoint_every": RESTORE_STEPS,
+    "train.visualization_every": -1, "train.use_test_images": False,
+    "train.log_every": 1, "train.profile_at_step": 2,
+    "train.optimizer.schedule": {
+        "type": "cosine_decay",
+        "config": {"learning_rate": 2e-4, "decay_steps": RESTORE_STEPS,
+                   "alpha": 0.02}},
+    "tpu": {"mesh": {"data": -1}, "compute_dtype": "bfloat16"}}
+# the restoration report card (scripts/train_restoration.py SPECS)
+RESTORE_SPECS = ("jpeg:30", "jpeg:50", "blur:1.0", "blur:1.5+noise:25",
+                 "noise:30+jpeg:50", "posterize:8+noise:20",
+                 "holes:0.1+noise:10")
+# the sweep's images: the packaged evaluation set at 256^2 (the seeded
+# synthetic scenes are no natural images: the flagship restores none of
+# them, in JAX as here)
+RESTORE_SWEEP_IMAGES, RESTORE_SWEEP_SIZE = 4, 256
+# the chain's statistics: 64 draws of the recipe's b16 @ 128^2 micro-batch
+CHAIN_DRAWS = 64
+# card against CPU on the deterministic ops: the CPU tests' bars against
+# JAX (tests/test_torch_degradations.py)
+ROTATE_ATOL, BLUR_ATOL = 1e-3, 1e-4
+JPEG_MEAN, JPEG_NEAR, JPEG_NEAR_SHARE = 1e-3, 1e-2, 0.999
+SPEC_EQUAL_SHARE = 0.999
+# launches per micro-batch of the restoration step: K2 and its backward
+# per band split of the flagship (depth 3), no noise kernel
+RESTORE_PER_MICRO_BATCH = dict(band_smooth=2, band_smooth_bwd=2)
+
+
+def restoration_config(base, image_dir):
+    cfg = copy.deepcopy(base)
+    cfg["dataset"]["inputs"] = ([{"directory": str(image_dir)}]
+                                if image_dir is not None else [])
+    for key, value in RESTORE_OVERRIDES.items():
+        node = cfg
+        *path, name = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = value
+    return cfg
+
+
+def kernel_ms(fn, n=5):
+    """Device milliseconds per call of ``fn`` as the sum of its kernels'
+    durations in a ``torch.profiler`` trace of ``n`` calls (after one
+    warm-up): device work only, whatever the host does between kernels."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in profile_rows(prof)) / n / 1e3
+
+
+def within_sigmas(share, n, p, sigmas=4.0):
+    return abs(share - p) <= sigmas * (p * (1 - p) / n) ** 0.5
+
+
+def chain_statistics(deg, clean, n_draws, ds):
+    """The chain's gates on the card over ``n_draws`` draws of ``clean``
+    [B, H, W, 3]: each wrapper's flags redrawn from a copy of the
+    generator's state (the output must equal the op at those flags and
+    values, bit for bit), the master gate (a run with the ops gated on
+    against one gated off, the same generator state), and the noise-only
+    samples against the chain's noise draw (ops gated off: the output at
+    chain_prob 0.5 equals the one at 1.0)."""
+    dev = clean.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    b = clean.shape[0]
+    p = ds["degradation_prob"]
+    noise_kw = dict(additive_noise=ds["additional_noise"],
+                    multiplicative_noise=ds["multiplicative_noise"],
+                    noise_sampling=ds["noise_sampling"], round_values=True,
+                    use_random_blur=True, use_jpeg_noise=True,
+                    quantization=ds["quantization"],
+                    inpaint_drop_rate=ds["inpaint_drop_rate"])
+    counts = dict(blur=0, jpeg=0, quantize=0, holes=0, chain=0)
+    hole_pixels = gated_pixels = 0
+    sigma, quality = [], []
+    mismatches = []
+    for _ in range(n_draws):
+        s = g.get_state()
+        out = deg.random_blur(g, clean, prob=p)
+        g.set_state(s)
+        flags = torch.rand((b, 1, 1, 1), generator=g, device=dev) < p
+        sig = 0.1 + 1.9 * torch.rand((b,), generator=g, device=dev)
+        if not torch.equal(out, torch.where(
+                flags, deg.separable_blur_batch(clean, sig), clean)):
+            mismatches.append("blur")
+        counts["blur"] += int(flags.sum())
+        sigma.append(sig)
+        s = g.get_state()
+        out = deg.random_jpeg(g, clean, prob=p)
+        g.set_state(s)
+        flags = torch.rand((b, 1, 1, 1), generator=g, device=dev) < p
+        q = 25.0 + 50.0 * torch.rand((b,), generator=g, device=dev)
+        if not torch.equal(out, torch.where(
+                flags, deg.jpeg_artifacts(clean, q), clean)):
+            mismatches.append("jpeg")
+        counts["jpeg"] += int(flags.sum())
+        quality.append(q)
+        out = deg.random_quantize(g, clean, ds["quantization"], prob=p)
+        counts["quantize"] += int((out != clean).flatten(1).any(1).sum())
+        lifted = clean + 1.0                  # no zero pixel before
+        holes = deg.inpaint_dropout(g, lifted, ds["inpaint_drop_rate"],
+                                    prob=p) == 0
+        gated = holes.flatten(1).any(1)
+        counts["holes"] += int(gated.sum())
+        if not torch.equal(holes.all(-1), holes.any(-1)):
+            mismatches.append("holes across channels")
+        hole_pixels += int(holes[gated].all(-1).sum())
+        gated_pixels += int(gated.sum()) * clean.shape[1] * clean.shape[2]
+        s = g.get_state()
+        on = deg.degrade_batch(g, clean, degradation_prob=1.0,
+                               chain_prob=ds["degradation_chain_prob"],
+                               **noise_kw)
+        g.set_state(s)
+        off = deg.degrade_batch(g, clean, degradation_prob=0.0,
+                                chain_prob=ds["degradation_chain_prob"],
+                                **noise_kw)
+        g.set_state(s)
+        off_one = deg.degrade_batch(g, clean, degradation_prob=0.0,
+                                    chain_prob=1.0, **noise_kw)
+        if not torch.equal(off, off_one):
+            mismatches.append("noise-only draw")
+        counts["chain"] += int((on != off).flatten(1).any(1).sum())
+    n = n_draws * b
+    sigma, quality = torch.cat(sigma), torch.cat(quality)
+    rates = {k: v / n for k, v in counts.items()}
+    want = dict(blur=p, jpeg=p, quantize=p, holes=p,
+                chain=ds["degradation_chain_prob"])
+    bad = [k for k, r in rates.items() if not within_sigmas(r, n, want[k])]
+    hole_rate = hole_pixels / max(gated_pixels, 1)
+    if not within_sigmas(hole_rate, gated_pixels, ds["inpaint_drop_rate"]):
+        bad.append("hole rate")
+    ranges = dict(sigma=[float(sigma.min()), float(sigma.max())],
+                  quality=[float(quality.min()), float(quality.max())])
+    if not (0.1 <= ranges["sigma"][0] and ranges["sigma"][1] <= 2.0
+            and 25.0 <= ranges["quality"][0]
+            and ranges["quality"][1] <= 75.0):
+        bad.append("ranges")
+    return dict(samples=n, rates=rates, want=want, hole_rate=hole_rate,
+                ranges=ranges, mismatches=sorted(set(mismatches)),
+                failed=bad + sorted(set(mismatches)))
+
+
+def ops_card_vs_cpu(deg, clean, device="cuda"):
+    """Each deterministic op of the chain at fixed values on the card
+    against the CPU, on ``clean`` [B, H, W, 3]: rotation at angles across
+    ±1.57, blur at σ across [0.1, 2], JPEG at qualities across [25, 75],
+    posterize 8, holes from a fixed mask; each timed on the card by CUDA
+    events (``ms``) and by the sum of its kernels (``kernel_ms``)."""
+    b = clean.shape[0]
+    angles = torch.linspace(-1.57, 1.57, b)
+    sigmas = torch.linspace(0.1, 2.0, b)
+    qualities = torch.linspace(25.0, 75.0, b)
+    mask_gen = torch.Generator().manual_seed(SEED + 22)
+    keep = torch.rand((b,) + tuple(clean.shape[1:3]) + (1,),
+                      generator=mask_gen) >= 0.05
+    ops = {
+        "rotate": (deg.rotate_batch, angles),
+        "blur": (deg.separable_blur_batch, sigmas),
+        "jpeg": (deg.jpeg_artifacts, qualities),
+        "posterize": (lambda x, q: deg.quantize_batch(x, q), 8.0),
+        "holes": (lambda x, k: deg.inpaint_dropout(None, x, 0.05, keep=k),
+                  keep)}
+    card_x = clean.to(device)
+    out, bad = {}, []
+    for name, (fn, value) in ops.items():
+        # the op's values on the device before the timing: a host copy
+        # inside the timed calls would wait for the device each time
+        card_value = (value.to(device) if isinstance(value, torch.Tensor)
+                      else value)
+        got = fn(card_x, card_value).cpu()
+        ref = fn(clean, value)
+        d = (got - ref).abs()
+        row = dict(max_abs=float(d.max()), mean_abs=float(d.mean()),
+                   near_share=float((d <= JPEG_NEAR).float().mean()))
+        if card_x.is_cuda:
+            row.update(ms=cuda_ms(lambda: fn(card_x, card_value)),
+                       kernel_ms=kernel_ms(lambda: fn(card_x, card_value)))
+        ok = {"rotate": row["max_abs"] <= ROTATE_ATOL,
+              "blur": row["max_abs"] <= BLUR_ATOL,
+              "jpeg": row["mean_abs"] <= JPEG_MEAN
+              and row["near_share"] >= JPEG_NEAR_SHARE,
+              "posterize": row["max_abs"] == 0.0,
+              "holes": row["max_abs"] == 0.0}[name]
+        if not ok:
+            bad.append(name)
+        out[name] = row
+    return out, bad
+
+
+def restoration_step_checks(bidt, cfg, read_counts, clean, device="cuda"):
+    """The recipe's train step built directly on the card (the flagship's
+    packaged weights, bf16, 2 micro-batches): two steps under
+    ``torch.cuda.set_sync_debug_mode("error")``, their launches per
+    micro-batch, one profiled step's ``degradations.chain`` range (its
+    kernels' device ms per micro-batch) and busy share, and the rotation
+    and the chain alone on one micro-batch, timed by CUDA events and by
+    the sum of their kernels (``kernel_ms``)."""
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.ops import degradations as deg
+    from blind_image_denoising_torch.training import (
+        build_train_step, create_train_state, loss_function_builder,
+        optimizer_builder)
+    from blind_image_denoising_torch.training.train_loop import (
+        resolve_degradation_options)
+    from blind_image_denoising_torch.weights import (load_msgpack,
+                                                     params_from_flax)
+    ds = cfg["dataset"]
+    hydra = model_builder(copy.deepcopy(cfg["model"]),
+                          dtype=torch.bfloat16).hydra
+    params = params_from_flax(load_msgpack(
+        Path(bidt.models[FLAGSHIP]["directory"]) / "params.msgpack"))
+    tx, _ = optimizer_builder(cfg["train"]["optimizer"])
+    state = create_train_state(hydra, tx, seed=SEED, params=params,
+                               device=device)
+    micro = 2
+    step = build_train_step(
+        hydra, tx, loss_function_builder(cfg["loss"]), hydra.no_outputs,
+        additive_noise=ds["additional_noise"],
+        multiplicative_noise=ds.get("multiplicative_noise"),
+        noise_sampling=ds["noise_sampling"], grad_accum=micro,
+        use_pallas_noise=cfg["tpu"].get("pallas_noise", False),
+        **resolve_degradation_options(ds))
+    batch = clean.repeat(micro, 1, 1, 1).to(device)
+    dw = torch.full((hydra.no_outputs,), 1.0 / hydra.no_outputs,
+                    device=device)
+    state, _ = step(state, batch, depth_weights=dw)       # warm-up
+    torch.cuda.synchronize()
+    c0 = read_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, metrics = step(state, batch, depth_weights=dw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    per_micro = {k: (c1[k] - c0[k]) / (2 * micro) for k in c1}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, depth_weights=dw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    chain = [evt for evt in prof.key_averages()
+             if evt.key == "degradations.chain"
+             and evt.device_type == torch.autograd.DeviceType.CPU]
+    rows = [r for r in profile_rows(prof)
+            if not r[2].startswith("degradations.")]
+    busy = sum(r[0] for r in rows)
+    chain_ms = (device_us(chain[0], "") / chain[0].count / 1e3
+                if chain else None)
+    chain_host_ms = (chain[0].cpu_time_total / chain[0].count / 1e3
+                     if chain else None)
+    loss = float(metrics["total_loss"])
+    del state, step, hydra
+    torch.cuda.empty_cache()
+    # the same work alone, timed by CUDA events: rotation, rounding and
+    # the chain on one micro-batch at the recipe's settings
+    opts = resolve_degradation_options(ds)
+    g = torch.Generator(device=device).manual_seed(SEED + 24)
+    x = clean.to(device)
+
+    def chain():
+        y = torch.round(deg.random_rotate_batch(g, x, opts["random_rotate"]))
+        return deg.degrade_batch(
+            g, y, additive_noise=ds["additional_noise"],
+            multiplicative_noise=ds.get("multiplicative_noise"),
+            noise_sampling=ds["noise_sampling"],
+            use_random_blur=opts["use_random_blur"],
+            use_jpeg_noise=opts["use_jpeg_noise"],
+            quantization=opts["quantization"],
+            inpaint_drop_rate=opts["inpaint_drop_rate"],
+            degradation_prob=opts["degradation_prob"],
+            chain_prob=opts["degradation_chain_prob"])
+    event_ms = cuda_ms(chain) if x.is_cuda else None
+    alone_ms = kernel_ms(chain) if x.is_cuda else None
+    return dict(micro_batches=micro, batch=list(batch.shape),
+                launches_per_micro_batch=per_micro, loss=loss,
+                rotation_and_chain_event_ms_per_micro_batch=event_ms,
+                rotation_and_chain_kernel_ms_per_micro_batch=alone_ms,
+                chain_device_ms_per_micro_batch=chain_ms,
+                chain_host_ms_per_micro_batch=chain_host_ms,
+                profiled_step=dict(wall_ms=wall_us / 1e3,
+                                   busy_ms=busy / 1e3,
+                                   idle_share=1 - busy / wall_us,
+                                   chain_share_of_busy=(
+                                       chain_ms * micro * 1e3 / busy
+                                       if chain_ms else None)))
+
+
+def restoration_phase(bidt, smi, read_counts, loop_run):
+    """The blind-restoration recipe on the card (``RESTORE_OVERRIDES``):
+    the chain's deterministic ops card against CPU and its statistics on
+    the card, the recipe's step without a sync and its launches, the
+    recipe's loop fine-tuning the packaged flagship for 6 steps,
+    ``export_model`` and bf16 serving of the fine-tune (10 K1 + 2 K2 a
+    forward) against the same artifact in f32 on the CPU, and
+    ``evaluate.degradation_sweep`` over the recipe's seven specs for the
+    packaged flagship and the fine-tune, the card's corruptions against
+    the CPU's. Returns (the kernel inputs seen, the launch counts of the
+    phase)."""
+    import warnings
+    from blind_image_denoising_torch import evaluate
+    from blind_image_denoising_torch.images import load_evaluation_images
+    from blind_image_denoising_torch.inference.export import export_model
+    from blind_image_denoising_torch.ops import degradations as deg
+
+    work, image_dir = loop_run["work"], loop_run["image_dir"]
+    cfg = restoration_config(bidt.CONFIGS_DICT[TRAIN_CONFIG], image_dir)
+    ds = cfg["dataset"]
+    rng = np.random.default_rng(SEED + 20)
+    problems = []
+    timings = {}
+    c_start = read_counts()
+    clean = torch.from_numpy(np.round(synthetic_images(
+        ds["batch_size"], *ds["input_shape"][:2], rng)))
+
+    t0 = time.perf_counter()
+    ops, bad_ops = ops_card_vs_cpu(deg, clean)
+    if bad_ops:
+        problems.append(f"ops card vs CPU: {bad_ops}")
+    stats = chain_statistics(deg, clean.cuda(), CHAIN_DRAWS, ds)
+    if stats["failed"]:
+        problems.append(f"chain statistics: {stats['failed']}")
+    timings["ops_and_statistics_s"] = time.perf_counter() - t0
+
+    with KernelInputs() as kernel_inputs:
+        t0 = time.perf_counter()
+        step_check = restoration_step_checks(bidt, cfg, read_counts, clean)
+        timings["step_check_s"] = time.perf_counter() - t0
+        want_micro = dict(dict.fromkeys(read_counts(), 0),
+                          **RESTORE_PER_MICRO_BATCH)
+        if step_check["launches_per_micro_batch"] != want_micro or \
+                not np.isfinite(step_check["loss"]):
+            problems.append(f"step: {step_check}")
+
+        # the recipe's loop, fine-tuning the packaged flagship
+        ckpt_dir = work / "restoration_run"
+        micro = cfg["train"]["gpu_batches_per_step"]
+        with LoopProbe(read_counts) as probe, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            probe.warnings = caught
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                state = bidt.train_loop(
+                    cfg, ckpt_dir,
+                    weights_directory=bidt.models[FLAGSHIP]["directory"])
+                timings["loop_s"] = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        rows = [json.loads(line) for line in
+                (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["total_loss"] for r in rows if "total_loss" in r]
+        per_step = dict(dict.fromkeys(read_counts(), 0),
+                        **{k: micro * v for k, v in
+                           RESTORE_PER_MICRO_BATCH.items()})
+        bad_steps = [s["launches"] for s in probe.steps
+                     if s["launches"] != per_step]
+        step_syncs = [s["syncs"] for s in probe.steps]
+        if (state.step != RESTORE_STEPS or len(losses) != RESTORE_STEPS
+                or not all(np.isfinite(losses)) or bad_steps
+                or any(step_syncs)):
+            problems.append(f"loop: step {state.step}, losses {losses}, "
+                            f"launches {bad_steps[:2]}, syncs {step_syncs}")
+        starts = [s["start"] for s in probe.steps]
+        steady = [b - a for i, (a, b) in enumerate(zip(starts, starts[1:]))
+                  if i > 0 and cfg["train"]["profile_at_step"] not in
+                  (i + 1, i + 2)]
+        profile = json.loads((ckpt_dir / "profile" / "summary.json")
+                             .read_text())
+        del state
+        torch.cuda.empty_cache()
+
+        # export, then bf16 serving of the fine-tune against f32 on the CPU
+        out_dir = work / "restoration_artifact"
+        t0 = time.perf_counter()
+        export_model(ckpt_dir / "config.json", ckpt_dir, out_dir)
+        timings["export_s"] = time.perf_counter() - t0
+        batch = add_noise(synthetic_images(EXPORT_BATCH, EXPORT_SIZE,
+                                           EXPORT_SIZE, rng), 25.0, rng)
+        tuned = bidt.load_model(out_dir)
+        c0 = read_counts()
+        served = tuned(batch)
+        c1 = read_counts()
+        serve_launches = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        cpu = bidt.load_model(out_dir, device="cpu", dtype="float32")
+        serve_gap = gray_gap(served, cpu(batch))
+        del cpu
+        if serve_launches != dict(convnext_block=10, band_smooth=2) or \
+                serve_gap["mean"] > EXPORT_BF16_MEAN or \
+                serve_gap["p99"] > EXPORT_BF16_P99:
+            problems.append(f"serving the fine-tune: {serve_launches}, "
+                            f"{serve_gap}")
+        times = timed_requests(tuned, batch, EXPORT_REQUESTS)
+
+        # the restoration report card: the recipe's specs on seeded images,
+        # the packaged flagship and the fine-tune, the card's corruptions
+        # against the CPU's
+        images = load_evaluation_images(RESTORE_SWEEP_SIZE)[
+            :RESTORE_SWEEP_IMAGES]
+        spec_gap = {}
+        for spec in RESTORE_SPECS:
+            card = evaluate.apply_degradations(images, spec, seed=SEED)
+            host = evaluate.apply_degradations(images, spec, seed=SEED,
+                                               device="cpu")
+            d = np.abs(card - host)
+            spec_gap[spec] = dict(equal_share=float((d == 0).mean()),
+                                  max=float(d.max()))
+            if spec_gap[spec]["equal_share"] < SPEC_EQUAL_SHARE or \
+                    spec_gap[spec]["max"] > 1.0:
+                problems.append(f"apply_degradations card vs CPU {spec}: "
+                                f"{spec_gap[spec]}")
+        t0 = time.perf_counter()
+        flagship = bidt.load_model(FLAGSHIP)
+        sweeps = {name: evaluate.degradation_sweep(den, images,
+                                                   RESTORE_SPECS)
+                  for name, den in (("flagship", flagship),
+                                    ("fine_tune", tuned))}
+        timings["sweeps_s"] = time.perf_counter() - t0
+        report = {spec: dict(
+            mae_corrupt=sweeps["flagship"][i]["mae_corrupt"],
+            mae_flagship=sweeps["flagship"][i]["mae_restored"],
+            mae_fine_tune=sweeps["fine_tune"][i]["mae_restored"])
+            for i, spec in enumerate(RESTORE_SPECS)}
+        if not all(np.isfinite(v) for r in report.values()
+                   for v in r.values()):
+            problems.append(f"sweep {report}")
+        del flagship, tuned
+    torch.cuda.empty_cache()
+    c_end = read_counts()
+    launches = {k: c_end[k] - c_start[k] for k in c_end}
+    median = statistics.median(steady) if steady else None
+    result = dict(
+        config=TRAIN_CONFIG, recipe="scripts/train_restoration.py",
+        overrides=RESTORE_OVERRIDES,
+        reduced=dict(steps=f"{RESTORE_STEPS} (the recipe runs 15000)",
+                     inputs="24 seeded 480x640 PNG scenes (KITTI and "
+                            "MegaDepth are not in the checkout)"),
+        batch=ds["batch_size"], micro_batches=micro,
+        crop=ds["input_shape"], ops_card_vs_cpu=ops,
+        chain_statistics=stats, step_check=step_check, losses=losses,
+        launches_per_step=[s["launches"] for s in probe.steps][:1],
+        syncs_in_steps=step_syncs,
+        step_host_s=[round(s["host_s"], 4) for s in probe.steps],
+        steady_step_s=[round(t, 4) for t in steady],
+        steps_per_s=1.0 / median if median else None,
+        images_per_s=(ds["batch_size"] * micro / median if median
+                      else None),
+        profiled_step=dict(profile, step=cfg["train"]["profile_at_step"]),
+        serve_launches_per_forward=serve_launches,
+        serve_bf16_vs_f32_cpu=serve_gap,
+        serve_b8_256_median_s=statistics.median(times),
+        serve_b8_256_images_per_s=EXPORT_BATCH / statistics.median(times),
+        apply_degradations_card_vs_cpu=spec_gap, sweep=report,
+        timings=timings, launches=launches, smi=smi,
+        tolerance=f"ops card vs CPU: rotate {ROTATE_ATOL}, blur "
+                  f"{BLUR_ATOL}, JPEG mean {JPEG_MEAN} and >= "
+                  f"{JPEG_NEAR_SHARE} within {JPEG_NEAR}, posterize and "
+                  f"holes exact; chain gate rates, the hole rate within "
+                  f"4 sigma, sigma and quality in range, redrawn gates "
+                  f"bit-exact, noise-only = the chain's noise draw; no "
+                  f"sync in a step; per micro-batch "
+                  f"{RESTORE_PER_MICRO_BATCH}, no K3, no K1; serving 10 K1 "
+                  f"+ 2 K2 a forward, bf16 vs f32 CPU mean <= "
+                  f"{EXPORT_BF16_MEAN}, p99 <= {EXPORT_BF16_P99}; "
+                  f"apply_degradations card vs CPU >= {SPEC_EQUAL_SHARE} "
+                  f"equal, max 1")
+    log("restoration", **result)
+    if problems:
+        raise AssertionError(f"restoration: {problems}")
+    return kernel_inputs.seen, launches
+
+
+# ---------------------------------------------------------- unet backbone
+
+# the unet_backbone phase: the classic unet at the JAX builder's defaults
+# (filters 32, 3 levels, 1 layer, kernel 3, BatchNorm) with its gates,
+# sparse features and the he_normal initializer on, and the train and
+# dataset sections of the resnet config (f32); no config of it ships
+UNET_BACKBONE = {"type": "unet", "input_shape": ["?", "?", 3],
+                 "value_range": [0, 255], "add_gates": True,
+                 "add_sparse_features": True,
+                 "kernel_initializer": "he_normal"}
+UNET_STEP_LOSS_RTOL, UNET_STEP_MIN_COSINE = 1e-4, 0.9999
+# the seeded artifact's bf16 serving bar: PERF.md §2's bars do not hold a
+# model 0 steps from its init (its heads saturate, so one rounding moves
+# an output across the range): JAX's own bf16-from-f32 gap on the same
+# artifact and batch (unet_bf16_gap.py) with half of it to spare
+# (JAX: mean 2.4345, p99 54; the port on the CPU: 2.3219, 54)
+UNET_BF16_MEAN, UNET_BF16_P99 = 1.5 * 2.4345, 1.5 * 54.0
+
+
+def unet_config(bidt):
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT[RESNET_CONFIG])
+    cfg["model"] = {"backbone": dict(UNET_BACKBONE),
+                    "denoiser": cfg["model"]["denoiser"]}
+    return cfg
+
+
+def unet_inputs(ds):
+    """The unet_backbone phase's inputs from its seed: the step's clean
+    and noisy batches (the config's batch and crop) and the noisy b8 @
+    256² uint8 batch it serves (``unet_bf16_gap.py`` makes the same
+    ones)."""
+    rng = np.random.default_rng(SEED + 30)
+    clean = np.round(synthetic_images(ds["batch_size"],
+                                      *ds["input_shape"][:2], rng))
+    noisy = add_noise(clean, 20.0, rng).astype(np.float32)
+    serve = add_noise(synthetic_images(EXPORT_BATCH, EXPORT_SIZE,
+                                       EXPORT_SIZE, rng), 25.0, rng)
+    return clean, noisy, serve
+
+
+def unet_backbone_phase(bidt, smi, read_counts, loop_run):
+    """The unet config (``UNET_BACKBONE``): one f32 train step on the card
+    against the CPU from the same seeded weights and batch (loss, the
+    gradient's cosine, the running statistics), then the ``build`` CLI's
+    seeded artifact served through ``load_model`` at b8 @ 256² in f32 and
+    bf16 against f32 on the CPU, with no K1 or K2 launch. Returns the
+    launch counts of the phase."""
+    from blind_image_denoising_torch import build as build_cli
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.ops.multiscale import multiscale_targets
+    from blind_image_denoising_torch.ops.precision import exact_float32
+    from blind_image_denoising_torch.training import (forward_loss,
+                                                      loss_function_builder)
+    from blind_image_denoising_torch.training.train_state import init_params
+
+    work = loop_run["work"]
+    cfg = unet_config(bidt)
+    problems = []
+    c_start = read_counts()
+    clean, noisy, batch = unet_inputs(cfg["dataset"])
+    clean, noisy = torch.from_numpy(clean), torch.from_numpy(noisy)
+
+    # one f32 step's loss and gradients, card against CPU
+    gt = multiscale_targets(clean, 0, clip_values=True, round_values=True)
+    fns = loss_function_builder(cfg["loss"])
+    seeded = model_builder(copy.deepcopy(cfg["model"])).hydra
+    init_params(seeded, torch.Generator().manual_seed(SEED))
+    weights = {k: v.clone() for k, v in seeded.state_dict().items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        hydra = model_builder(copy.deepcopy(cfg["model"])).hydra
+        hydra.load_state_dict(weights)
+        hydra.to(dev)
+        t0 = time.perf_counter()
+        with exact_float32(dev == "cuda"):
+            total, _ = forward_loss(hydra, fns, 1, noisy.to(dev),
+                                    [g.to(dev) for g in gt],
+                                    torch.ones((1,), device=dev),
+                                    torch.Generator(device=dev))
+            total.backward()
+        grads = torch.cat([(torch.zeros_like(p) if p.grad is None
+                            else p.grad).double().flatten().cpu()
+                           for p in hydra.parameters()])
+        out[dev] = (float(total.detach()), grads,
+                    {k: v.cpu() for k, v in hydra.named_buffers()},
+                    time.perf_counter() - t0)
+        del hydra
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    cosine = float(F.cosine_similarity(out["cuda"][1], out["cpu"][1], dim=0))
+    stats_rel = max(float((out["cuda"][2][k] - v).abs().max()
+                          / v.abs().max().clamp_min(1e-30))
+                    for k, v in out["cpu"][2].items())
+    if loss_rel > UNET_STEP_LOSS_RTOL or cosine < UNET_STEP_MIN_COSINE or \
+            stats_rel > RESNET_STATS_RTOL:
+        problems.append(f"step card vs CPU: loss {loss_rel}, cosine "
+                        f"{cosine}, statistics {stats_rel}")
+
+    # the build CLI's seeded artifact, served
+    cfg_file = work / "unet_config.json"
+    cfg_file.write_text(json.dumps(cfg, indent=1))
+    build_dir = work / "unet_build"
+    t0 = time.perf_counter()
+    if build_cli.main(["--pipeline-config", str(cfg_file),
+                       "--output-directory", str(build_dir)]) != 0:
+        problems.append("the build CLI failed")
+    build_s = time.perf_counter() - t0
+    (build_dir / "pipeline.json").write_text(cfg_file.read_text())
+    reference = bidt.load_model(build_dir, device="cpu",
+                                dtype="float32")(batch)
+    served = {}
+    for dtype in ("float32", "bfloat16"):
+        den = bidt.load_model(build_dir, dtype=dtype)
+        c0 = read_counts()
+        got = den(batch)
+        c1 = read_counts()
+        launches = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        gap = gray_gap(got, reference)
+        ok = (gap["mean"] <= FAMILY_F32_MEAN
+              and gap["equal_share"] >= FAMILY_F32_EQUAL
+              if dtype == "float32" else
+              gap["mean"] <= UNET_BF16_MEAN and gap["p99"] <= UNET_BF16_P99)
+        if not ok or launches or got.shape != batch.shape:
+            problems.append(f"{dtype}: gap {gap}, launches {launches}")
+        times = timed_requests(den, batch, EXPORT_REQUESTS)
+        served[dtype] = dict(vs_f32_cpu=gap, launches=launches,
+                             median_s=statistics.median(times),
+                             images_per_s=EXPORT_BATCH
+                             / statistics.median(times))
+        del den
+    torch.cuda.empty_cache()
+    c_end = read_counts()
+    launches = {k: c_end[k] - c_start[k] for k in c_end}
+    result = dict(
+        backbone=UNET_BACKBONE, train_and_dataset=RESNET_CONFIG,
+        params=sum(v.numel() for k, v in weights.items()
+                   if not k.endswith(("mean", "var"))),
+        step_batch=list(noisy.shape), step_loss_card=out["cuda"][0],
+        step_loss_cpu=out["cpu"][0], step_loss_rel=loss_rel,
+        step_grad_cosine=cosine, step_statistics_worst_rel=stats_rel,
+        cpu_step_s=out["cpu"][3], build_cli_s=build_s, served=served,
+        launches=launches, smi=smi,
+        tolerance=f"f32 step card vs CPU loss rtol {UNET_STEP_LOSS_RTOL}, "
+                  f"grad cosine >= {UNET_STEP_MIN_COSINE}, running "
+                  f"statistics {RESNET_STATS_RTOL}; f32 serve vs CPU mean "
+                  f"<= {FAMILY_F32_MEAN}, >= {FAMILY_F32_EQUAL} equal; bf16 "
+                  f"mean <= {UNET_BF16_MEAN}, p99 <= {UNET_BF16_P99} (JAX's "
+                  f"own gap on this artifact and batch, x1.5); no K1-K4 "
+                  f"launch")
+    log("unet_backbone", **result)
+    if problems:
+        raise AssertionError(f"unet_backbone: {problems}")
+    return launches
+
+
 def main() -> int:
     script_start = time.perf_counter()
     faulthandler.enable()
@@ -3522,12 +4204,38 @@ def main() -> int:
                                  for k, v in family_seen.items()})
     family_k1_times(pallas_convnext, smi, family_seen)
     phase_s["unet_laplacian_family"] = time.perf_counter() - t0
+
+    # ---- phase 14: the blind-restoration recipe: the chain's ops and
+    # statistics, its step, the loop fine-tuning the flagship, export,
+    # serving and the degradation sweep
+    t0 = time.perf_counter()
+    reset_counts()
+    restore_seen, restore_counts = restoration_phase(bidt, smi, read_counts,
+                                                     loop_run)
+    if read_counts() != restore_counts:
+        raise AssertionError(f"restoration launched {read_counts()} in all, "
+                             f"{restore_counts} counted")
+    for kernel, err in check_kernel_inputs(
+            pallas_convnext, pallas_pyramid, pallas_noise, restore_seen,
+            SEED + 23, path="restoration").items():
+        errors[kernel] = max(errors[kernel], err)
+    phase_s["restoration"] = time.perf_counter() - t0
+
+    # ---- phase 15: the classic unet backbone (no kernel of K1-K4)
+    t0 = time.perf_counter()
+    reset_counts()
+    unet_counts = unet_backbone_phase(bidt, smi, read_counts, loop_run)
+    if unet_counts != counts() or read_counts() != counts():
+        raise AssertionError(f"unet_backbone launched {unet_counts}")
+    phase_s["unet_backbone"] = time.perf_counter() - t0
     log("new_phases", seconds=phase_s,
         script_s=time.perf_counter() - script_start,
         export_launches=export_counts,
         resnet_train_export_launches=resnet_counts,
         unet_laplacian_family_launches=family_counts,
-        unet_laplacian_family_branch_units_per_forward=family_branch)
+        unet_laplacian_family_branch_units_per_forward=family_branch,
+        restoration_launches=restore_counts,
+        unet_backbone_launches=unet_counts)
     if args.profile_out is not None:
         args.profile_out.parent.mkdir(parents=True, exist_ok=True)
         args.profile_out.write_text("".join(profile_text))
@@ -3580,7 +4288,9 @@ def main() -> int:
                        train_loop=loop_counts[name],
                        export=export_counts[name],
                        resnet_train_export=resnet_counts[name],
-                       unet_laplacian_family=family_counts[name])
+                       unet_laplacian_family=family_counts[name],
+                       restoration=restore_counts[name],
+                       unet_backbone=unet_counts[name])
         kernels.append(dict(
             name=name, route="cuda", source=replaces[name][0],
             replaces=replaces[name][1], launches=sum(by_path.values()),

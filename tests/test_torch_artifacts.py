@@ -61,10 +61,7 @@ V56 = "unet_laplacian_v56_highnoise"
 FLAGSHIP = "unet_laplacian_v6_tpu_scratch"
 
 # names of the JAX package's __all__ that the port does not have yet
-NOT_PORTED = {
-    "build_pyramid_model": "ROADMAP Queue 1 item 11",
-    "build_inverse_pyramid_model": "ROADMAP Queue 1 item 11",
-}
+NOT_PORTED = {}
 
 
 def _noisy(size, sigma, n=3, seed=0):

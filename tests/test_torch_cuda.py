@@ -1009,3 +1009,140 @@ def test_unet_laplacian_family_launches_per_forward(dev, name, per_forward,
             diff = (o.cpu() - r).abs()
             assert float(diff.mean()) <= FUSED_F32_CARD_VS_CPU_MEAN
             assert float(diff.max()) <= 1e-2
+
+
+# ------------------------------------------------- the restoration path
+
+def _restoration_batch(n=4, size=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.round(rng.uniform(0, 255, (n, size, size, 3))
+                                     ).astype(np.float32))
+
+
+def test_degradation_ops_on_card_match_cpu(dev):
+    """Each deterministic op of the chain on the card against the CPU, at
+    the CPU tests' bars against JAX: rotation 1e-3, blur 1e-4, JPEG mean
+    1e-3 with >= 99.9% within 1e-2 (exact float32 on the card), posterize
+    and holes from a given mask exact."""
+    from blind_image_denoising_torch.ops import degradations as deg
+    x = _restoration_batch()
+    keep = torch.rand((4, 64, 64, 1),
+                      generator=torch.Generator().manual_seed(1)) >= 0.1
+    cases = {
+        "rotate": (lambda t: deg.rotate_batch(
+            t, torch.tensor([-1.57, -0.3, 0.3, 1.57], device=t.device)), 1e-3),
+        "blur": (lambda t: deg.separable_blur_batch(
+            t, torch.tensor([0.1, 0.7, 1.3, 2.0], device=t.device)), 1e-4),
+        "posterize": (lambda t: deg.quantize_batch(t, 8.0), 0.0),
+        "holes": (lambda t: deg.inpaint_dropout(
+            None, t, 0.1, keep=keep.to(t.device)), 0.0)}
+    for name, (fn, bar) in cases.items():
+        got, ref = fn(x.to(dev)).cpu(), fn(x)
+        assert float((got - ref).abs().max()) <= bar, name
+    q = torch.tensor([25.0, 40.0, 60.0, 75.0])
+    d = (deg.jpeg_artifacts(x.to(dev), q.to(dev)).cpu()
+         - deg.jpeg_artifacts(x, q)).abs()
+    assert float(d.mean()) <= 1e-3
+    assert float((d <= 1e-2).float().mean()) >= 0.999
+
+
+def test_apply_degradations_on_card_equals_cpu(dev):
+    """``evaluate.apply_degradations`` on the card against the CPU on each
+    of the recipe's specs: the noise and the holes are the CPU's draws,
+    so after rounding >= 99.9% of pixels are equal and none is off by
+    more than one gray level."""
+    from blind_image_denoising_torch import evaluate
+    images = _restoration_batch(2, 96).numpy()
+    for spec in ("jpeg:30", "blur:1.5+noise:25", "noise:30+jpeg:50",
+                 "posterize:8+noise:20", "holes:0.1+noise:10"):
+        card = evaluate.apply_degradations(images, spec, seed=3)
+        host = evaluate.apply_degradations(images, spec, seed=3,
+                                           device="cpu")
+        d = np.abs(card - host)
+        assert (d == 0).mean() >= 0.999 and d.max() <= 1.0, spec
+
+
+def test_restoration_step_makes_no_host_sync(dev):
+    """The recipe's train step (rotation, blur, JPEG, posterize, holes,
+    master gate 0.5, log-uniform noise) on a narrowed flagship in bf16,
+    two steps under ``torch.cuda.set_sync_debug_mode("error")``: no sync,
+    finite losses, K2 and its backward once per band split and micro-batch
+    and no noise kernel."""
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.training import (
+        build_train_step, create_train_state, loss_function_builder,
+        optimizer_builder)
+    cfg = _tiny_loop_config()
+    hydra = model_builder(cfg["model"], dtype=torch.bfloat16).hydra
+    tx, _ = optimizer_builder(cfg["train"]["optimizer"])
+    state = create_train_state(hydra, tx, seed=0)
+    step = build_train_step(
+        hydra, tx, loss_function_builder(cfg["loss"]), hydra.no_outputs,
+        additive_noise=[1, 80], noise_sampling="log_uniform", grad_accum=2,
+        random_rotate=1.57, use_random_blur=True, use_jpeg_noise=True,
+        quantization=8, inpaint_drop_rate=0.05, degradation_chain_prob=0.5)
+    batch = _restoration_batch().to(dev)
+    dw = torch.full((hydra.no_outputs,), 1.0 / hydra.no_outputs, device=dev)
+    state, _ = step(state, batch, depth_weights=dw)
+    torch.cuda.synchronize()
+    before = (pallas_pyramid.launches, pallas_pyramid.bwd_launches,
+              pallas_noise.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state, metrics = step(state, batch, depth_weights=dw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert np.isfinite(float(metrics["total_loss"]))
+    splits = hydra.no_outputs - 1
+    assert (pallas_pyramid.launches - before[0],
+            pallas_pyramid.bwd_launches - before[1],
+            pallas_noise.launches - before[2]) == (
+        2 * 2 * splits, 2 * 2 * splits, 0)
+
+
+def test_unet_backbone_train_step_on_card_matches_cpu(dev):
+    """A float32 unet (builder defaults, gates, sparse features,
+    he_normal) forward and backward in train mode on the card against the
+    CPU from the same seeded weights: loss within 1e-4 relative, gradient
+    cosine >= 0.9999; no K1-K4 launch."""
+    import copy
+    import torch.nn.functional as F
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.ops.multiscale import multiscale_targets
+    from blind_image_denoising_torch.ops.precision import exact_float32
+    from blind_image_denoising_torch.training import (forward_loss,
+                                                      loss_function_builder)
+    from blind_image_denoising_torch.training.train_state import init_params
+    mc = {"backbone": {"type": "unet", "input_shape": ["?", "?", 3],
+                       "value_range": [0, 255], "add_gates": True,
+                       "add_sparse_features": True,
+                       "kernel_initializer": "he_normal"},
+          "denoiser": {"output_channels": 3}}
+    seeded = model_builder(copy.deepcopy(mc)).hydra
+    init_params(seeded, torch.Generator().manual_seed(0))
+    clean = _restoration_batch(4, 64, seed=2)
+    noisy = torch.round(clean + 20 * torch.randn(
+        clean.shape, generator=torch.Generator().manual_seed(3)))
+    gt = multiscale_targets(clean, 0, clip_values=True, round_values=True)
+    fns = loss_function_builder({"hinge": 0.5, "mae_multiplier": 1.0})
+    out = {}
+    before = (pallas_convnext.launches, pallas_pyramid.launches)
+    for device in ("cpu", dev):
+        hydra = model_builder(copy.deepcopy(mc)).hydra
+        hydra.load_state_dict(seeded.state_dict())
+        hydra.to(device)
+        with exact_float32(device != "cpu"):
+            total, _ = forward_loss(hydra, fns, 1, noisy.to(device),
+                                    [g.to(device) for g in gt],
+                                    torch.ones((1,), device=device),
+                                    torch.Generator(device=device))
+            total.backward()
+        out[str(device)] = (float(total.detach()), torch.cat([
+            (torch.zeros_like(p) if p.grad is None else p.grad)
+            .double().flatten().cpu() for p in hydra.parameters()]))
+    torch.cuda.synchronize()
+    assert (pallas_convnext.launches, pallas_pyramid.launches) == before
+    cpu, card = out["cpu"], out[str(dev)]
+    assert abs(card[0] - cpu[0]) <= 1e-4 * abs(cpu[0])
+    assert float(F.cosine_similarity(card[1], cpu[1], dim=0)) >= 0.9999

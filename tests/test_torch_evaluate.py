@@ -9,8 +9,10 @@ and the ops it adds, on the CPU.
   truncated normal's (0.8796σ), the rounding lands on integers, and a
   seeded generator repeats its draw.
 * The CLI with ``--device cpu`` on an artifact the test writes; the
-  raises that name ROADMAP item 11 (degradations); a directory of image
-  files decodes (bit-equal to JAX's ``load_eval_images``).
+  restoration parts, once raises naming ROADMAP item 11, now run (their
+  checks against JAX are ``tests/test_torch_degradations.py``), and a bad
+  ``--degradations`` spec fails before a model loads; a directory of
+  image files decodes (bit-equal to JAX's ``load_eval_images``).
 """
 
 import copy
@@ -117,16 +119,16 @@ def test_evaluate_cli_on_cpu(tmp_path, capsys):
 
 def test_unported_parts_raise(tmp_path):
     from PIL import Image
-    for fn, args in ((evaluate.parse_degradation_spec, ("blur:1.5",)),
-                     (evaluate.apply_degradations,
-                      (np.zeros((1, 8, 8, 3)), "jpeg:50")),
-                     (evaluate.degradation_sweep,
-                      (lambda x: x, np.zeros((1, 8, 8, 3)), ["jpeg:50"]))):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn(*args)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    assert evaluate.parse_degradation_spec("blur:1.5") == [("blur", 1.5)]
+    out = evaluate.apply_degradations(np.zeros((1, 8, 8, 3)), "jpeg:50",
+                                      device="cpu")
+    assert out.shape == (1, 8, 8, 3) and out.dtype == np.float32
+    records = evaluate.degradation_sweep(
+        lambda x: x, np.zeros((1, 32, 32, 3)), ["jpeg:50"], device="cpu")
+    assert [r["degradation"] for r in records] == ["jpeg:50"]
+    with pytest.raises(ValueError, match="unknown degradation"):
         evaluate.main(["--model", "unet_laplacian_v6_tpu_scratch",
-                       "--device", "cpu", "--degradations", "jpeg:50"])
+                       "--device", "cpu", "--degradations", "jpg:50"])
     # a directory without images falls back to the packaged set ...
     imgs = evaluate.load_eval_images(str(tmp_path), size=32, limit=2)
     assert imgs.shape == (2, 32, 32, 3)

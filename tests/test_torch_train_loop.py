@@ -296,7 +296,8 @@ def test_train_loop_needs_the_card_or_cpu(tmp_path):
     (lambda c: c["train"].update(prune={"strategy": "MINIMUM_THRESHOLD"}),
      12),
     (lambda c: c["train"].update(distillation={"teacher": "x"}), 12),
-    (lambda c: c["dataset"].update(apply_degradations=True), 11)])
+    # the degradation chain (once item 11) trains since slice 12
+    (lambda c: c["tpu"].update(mesh={"data": -1, "dcn": 2}), 13)])
 def test_unported_loop_options_raise(tmp_path, change, item):
     cfg = _pipeline(None)
     change(cfg)

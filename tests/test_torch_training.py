@@ -317,12 +317,12 @@ def test_not_ported_options_raise():
     hydra = model_builder(cfg["model"]).hydra
     tx, _ = optimizer_builder(cfg["train"]["optimizer"])
     fns = loss_function_builder(cfg["loss"])
-    for kw, item in ((dict(random_rotate=1.57), 11),
-                     (dict(use_random_blur=True), 11),
-                     (dict(inpaint_drop_rate=0.5), 11),
-                     (dict(teacher_fn=lambda v: v), 12)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            build_train_step(hydra, tx, fns, 3, **kw)
+    # rotation and the degradation chain build since slice 12
+    for kw in (dict(random_rotate=1.57), dict(use_random_blur=True),
+               dict(inpaint_drop_rate=0.5)):
+        assert callable(build_train_step(hydra, tx, fns, 3, **kw))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build_train_step(hydra, tx, fns, 3, teacher_fn=lambda v: v)
     with pytest.raises(ValueError):
         build_train_step(hydra, tx, fns, 3, use_pallas_noise=True,
                          use_random_blur=True)
