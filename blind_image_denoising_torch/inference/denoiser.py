@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..ops.padding import next_power_of_2
+from ..ops.precision import has_tangent
 from ..ops.quant import has_scales, quant_mode
 from ..ops.resize import nchw, nhwc
 from ..weights import attach_quant_scales, flax_from_params, params_from_flax
@@ -251,7 +252,10 @@ class Denoiser:
             raise ValueError(f"image must be [H, W, C] or [B, H, W, C], got "
                              f"shape {tuple(t.shape)}")
         if t.device != self.device:
-            if self.device.type == "cuda" and t.device.type == "cpu":
+            # pinning copies the primal alone: a dual tensor is moved as
+            # it is, with its tangent
+            if (self.device.type == "cuda" and t.device.type == "cpu"
+                    and not has_tangent(t)):
                 t = t.pin_memory()
             t = t.to(self.device, non_blocking=True)
         return t.float()
@@ -262,8 +266,10 @@ class Denoiser:
         (finest scale), through the whole pad/tile/TTA/blend pipeline but
         without the round/clip/uint8 epilogue. An input that requires
         grad is differentiated through it (``torch.autograd.grad``; the
-        ConvNext units then take their plain path, as in training);
-        otherwise the forward runs without autograd."""
+        ConvNext units then take their plain path, as in training); a
+        dual tensor (``torch.autograd.forward_ad``) carries its tangent
+        through it the same way, with autograd off; otherwise the forward
+        runs without autograd."""
         x = self._upload(image)
         squeeze = x.ndim == 3
         if squeeze:

@@ -15,6 +15,12 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Keras hard_sigmoid: 0 below -2.5, 1 above 2.5, linear in
+    between."""
+    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
 def _leaky(slope: float) -> Callable[[torch.Tensor], torch.Tensor]:
     return lambda x: F.leaky_relu(x, slope)
 
@@ -30,7 +36,7 @@ _ACTIVATIONS = {
     "swish": F.silu,
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
-    "hard_sigmoid": lambda x: torch.clamp(0.2 * x + 0.5, 0.0, 1.0),
+    "hard_sigmoid": hard_sigmoid,
     "softplus": F.softplus,
     "mish": lambda x: x * torch.tanh(F.softplus(x)),
     "leakyrelu": _leaky(0.3),

@@ -1,6 +1,7 @@
 """Attention layers (counterpart of
 ``blind_image_denoising_tpu/layers/attention.py``
-``AdditiveAttentionGate`` and ``ConvolutionalSelfAttention``).
+``AdditiveAttentionGate``, ``ConvolutionalSelfAttention``,
+``NonLocalAttention`` and ``logit_norm``).
 
 :class:`AdditiveAttentionGate` gates a U-Net skip: the encoder feature
 and the upsampled decoder signal are each normalized (BatchNorm and/or
@@ -22,6 +23,13 @@ XLA, so the products here are ``torch.matmul``; the softmax is taken in
 float32. In training, dropout of ``dropout_rate`` hits the softmax
 weights element by element, drawn from the caller's generator; the four
 convs carry ``kernel_regularizer`` (soft-orthonormal in the flagship).
+
+:class:`NonLocalAttention` is the full-resolution Non-Local-Nets block:
+1×1 projections ``theta`` / ``phi`` / ``g`` to the attention channels,
+the scores ``theta·phiᵀ`` over all H·W positions (optionally
+L2-normalized by :func:`logit_norm`), a softmax over the keys, the
+weighted sum of ``g`` and a 1×1 ``out`` conv. It is O((H·W)²): for small
+feature maps only.
 """
 
 from typing import Tuple
@@ -30,13 +38,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..constants import DEFAULT_LN_EPSILON
+from ..constants import DEFAULT_EPSILON, DEFAULT_LN_EPSILON
 from ..ops.regularizers import soft_ortho_spec
 from ..ops.resize import nchw, nhwc, resize_bilinear
 from .conv import ConvBlock
 from .multipliers import ChannelLearnableMultiplier
 from .norm import BatchNorm, FastLayerNorm
 from .stochastic import drop_mask
+
+
+def logit_norm(x: torch.Tensor, t: float = 1.0,
+               axis: int = -1) -> torch.Tensor:
+    """L2-normalized logits (logit normalization) along ``axis``, at
+    temperature ``t``."""
+    denom = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True)
+                       + DEFAULT_EPSILON) + DEFAULT_EPSILON
+    return x / (denom * t)
 
 
 def pick_regularizer(use_soft_orthogonal: bool, use_soft_orthonormal: bool):
@@ -165,3 +182,39 @@ class ConvolutionalSelfAttention(nn.Module):
         if self.gamma is not None:
             y = self.gamma(y)
         return y
+
+
+class NonLocalAttention(nn.Module):
+    """``out(softmax(theta·phiᵀ)·g)`` over every position of an NCHW
+    map; module names are flax's (``theta``, ``phi``, ``g``, ``out``)."""
+
+    def __init__(self, features: int, attention_channels: int,
+                 use_bias: bool = False, use_logit_norm: bool = False,
+                 activation: str = "linear", kernel_regularizer="l2",
+                 dtype=None):
+        super().__init__()
+        self.channels = int(attention_channels)
+        self.use_logit_norm = bool(use_logit_norm)
+        common = dict(kernel_size=1, use_bias=use_bias,
+                      kernel_regularizer=kernel_regularizer, dtype=dtype)
+        self.theta = ConvBlock(features, self.channels, **common)
+        self.phi = ConvBlock(features, self.channels, **common)
+        self.g = ConvBlock(features, self.channels, **common)
+        self.out = ConvBlock(self.channels, self.channels,
+                             activation=activation, **common)
+
+    def forward(self, inputs: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        b, _, h, w = inputs.shape
+
+        def tokens(conv):               # [B, H*W, channels]
+            return conv(inputs, train=train).flatten(2).transpose(1, 2)
+
+        theta, phi, g = tokens(self.theta), tokens(self.phi), tokens(self.g)
+        scores = theta @ phi.transpose(1, 2)
+        if self.use_logit_norm:
+            scores = logit_norm(scores, axis=-1)
+        weights = torch.softmax(scores, dim=-1)
+        y = (weights @ g).transpose(1, 2).reshape(b, self.channels, h, w)
+        return self.out(y.contiguous(memory_format=torch.channels_last),
+                        train=train)

@@ -14,8 +14,11 @@ activation. Module names follow the flax tree (``block_{i}_conv_1``,
 
 ``use_gate`` puts a :class:`DenseGate` (``block_{i}_gate``) after conv
 2, fed by conv 2's output (conv 1's, or the LayerNorm's, without one).
-Not ported yet, and raising: the selector-mixed skip
-(``selector_params``), ROADMAP Queue 1 item 11.
+``selector_params`` (a dict of :class:`SelectorBlock` options; ``{}``
+is the selector with its defaults) replaces the skip add by
+``block_{i}_selector``, which mixes the block's input and its branch by
+a mask computed from conv 1's output (the LayerNorm's, in convnext
+mode).
 """
 
 from typing import Dict, Optional
@@ -31,6 +34,7 @@ from .activations import Activation
 from .conv import DenseBlock, conv_block_from_params
 from .multipliers import ChannelwiseMultiplier, Multiplier
 from .norm import FastLayerNorm
+from .selector import SelectorBlock
 from .stochastic import StochasticDepth
 
 
@@ -84,10 +88,6 @@ class ResnetBlocks(nn.Module):
         super().__init__()
         if no_layers < 0:
             raise ValueError("no_layers must be >= 0")
-        if selector_params is not None:
-            raise NotImplementedError(
-                "the selector block is not ported yet (ROADMAP Queue 1 item "
-                "11)")
         gate_filters = (gate_filters_of(first_conv_params,
                                         second_conv_params)
                         if use_gate else 0)
@@ -97,14 +97,15 @@ class ResnetBlocks(nn.Module):
                   dtype=dtype)
         c = in_features
         for i in range(self.no_layers):
-            c_in = c
+            c_in, first = c, None
             if first_conv_params is not None:
                 conv = conv_block_from_params(
                     c, first_conv_params, use_bn=use_bn and bn_first_conv,
                     **bn)
                 self.add_module(f"block_{i}_conv_1", conv)
-                c = conv.out_features
+                c = first = conv.out_features
             if ln_after_first_conv:
+                first = c
                 self.add_module(f"block_{i}_ln", FastLayerNorm(
                     c, epsilon=DEFAULT_LN_EPSILON, dtype=dtype))
             signal = c
@@ -135,6 +136,11 @@ class ResnetBlocks(nn.Module):
                 raise ValueError(
                     f"residual block {i} maps {c_in} channels to {c}: the "
                     f"skip add needs the last conv to return {c_in}")
+            if selector_params is not None:
+                if first is None:
+                    raise ValueError("selector requires a first conv output")
+                self.add_module(f"block_{i}_selector", SelectorBlock(
+                    c_in, first, dtype=dtype, **selector_params))
             if post_addition_activation:
                 self.add_module(f"block_{i}_post_act", Activation(
                     post_addition_activation, c))
@@ -143,7 +149,7 @@ class ResnetBlocks(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator = None) -> torch.Tensor:
         for i in range(self.no_layers):
-            previous = x
+            previous, x_first = x, None
             if self.mean_sigma_pool is not None:
                 p = self.mean_sigma_pool
                 x = nchw(local_normalization(nhwc(x), (p, p)))
@@ -165,6 +171,8 @@ class ResnetBlocks(nn.Module):
                     x = layer(x, train=train)
                 if not name.endswith(("_gate", "_conv_3")):
                     gate_signal = x
+                if name.endswith(("_conv_1", "_ln")):
+                    x_first = x
             for name in (f"block_{i}_channelwise", f"block_{i}_multiplier"):
                 layer = getattr(self, name, None)
                 if layer is not None:
@@ -172,7 +180,9 @@ class ResnetBlocks(nn.Module):
             onoff = getattr(self, f"block_{i}_onoff", None)
             if onoff is not None:
                 x = onoff(x, train=train, generator=generator)
-            x = x + previous
+            selector = getattr(self, f"block_{i}_selector", None)
+            x = (x + previous if selector is None
+                 else selector(previous, x, x_first, train=train))
             post_act = getattr(self, f"block_{i}_post_act", None)
             if post_act is not None:
                 x = post_act(x)

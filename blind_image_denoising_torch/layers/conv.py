@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..constants import DEFAULT_LN_EPSILON
+from ..constants import (DEFAULT_BN_EPSILON, DEFAULT_BN_MOMENTUM,
+                         DEFAULT_LN_EPSILON)
 from ..ops import quant as quant_ops
 from ..ops.noise import truncated_normal
 from ..ops.regularizers import builder as regularizer_builder
@@ -91,6 +92,16 @@ def resolve_initializer(name):
     if key not in _INITIALIZERS:
         raise ValueError(f"unknown kernel initializer [{name}]")
     return _INITIALIZERS[key]
+
+
+def default_bn_args(use_bias: bool) -> dict:
+    """The BatchNorm arguments the backbones share (flax's names)."""
+    return dict(use_scale=True, use_bias=use_bias,
+                momentum=DEFAULT_BN_MOMENTUM, epsilon=DEFAULT_BN_EPSILON)
+
+
+def default_ln_args(use_bias: bool) -> dict:
+    return dict(use_scale=True, use_bias=use_bias, epsilon=DEFAULT_LN_EPSILON)
 
 
 def _pair(v):

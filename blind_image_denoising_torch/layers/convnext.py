@@ -12,9 +12,11 @@ expand ×4 + leaky ReLU 0.1 → 1×1 project → gain:
   sample before the skip add.
 * the fused inference kernel ``ops/pallas_convnext.convnext_block``
   (K1), which has no backward, fed from a detached weight cache.
-  :meth:`ConvNextBlock.forward` takes it only when no gradient is
-  wanted (serving); otherwise it returns ``x + branch(x)``, so a
-  gradient is never silently dropped.
+  :meth:`ConvNextBlock.forward` takes it only when no derivative is
+  wanted (serving); for a gradient, or an input that carries a
+  forward-mode tangent (``torch.autograd.forward_ad``, as the analysis's
+  net-bias map), it returns ``x + branch(x)``, so neither is silently
+  dropped.
 
 Which units K1 serves is decided when the unit is built, from the
 kernel's own instantiations and options alone (``kernel_route``): (C,
@@ -59,6 +61,7 @@ from ..constants import DEFAULT_LN_EPSILON
 from ..ops import pallas_convnext
 from ..ops.pallas_convnext import convnext_block
 from ..ops import quant as quant_ops
+from ..ops.precision import has_tangent
 from ..ops.regularizers import builder as regularizer_builder
 from ..ops.resize import nchw, nhwc
 from .activations import activation_fn
@@ -197,9 +200,12 @@ class ConvNextBlock(nn.Module):
             pallas_convnext.branch_units += 1
             y = self.branch(x)
             return x + y if self.residual else y
-        if self._quant_sites_active() or (torch.is_grad_enabled() and (
-                x.requires_grad or any(p.requires_grad
-                                       for p in self.parameters()))):
+        # a derivative, reverse or forward mode, goes through the branch:
+        # the kernel carries neither
+        if self._quant_sites_active() or has_tangent(x) or (
+                torch.is_grad_enabled() and (
+                    x.requires_grad or any(p.requires_grad
+                                           for p in self.parameters()))):
             return x + self.branch(x)
         w = self.kernel_weights(x.dtype)
         return nchw(convnext_block(nhwc(x), slope=self.slope, **w))

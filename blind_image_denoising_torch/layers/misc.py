@@ -1,5 +1,6 @@
 """Layers of ``blind_image_denoising_tpu/layers/misc.py``, on NCHW
-tensors: the fixed ``GaussianFilter`` and ``SparseBlock``."""
+tensors: the fixed ``GaussianFilter``, ``ValueCompressor``, ``GatedMLP``
+and ``SparseBlock``."""
 
 from typing import Tuple
 
@@ -8,6 +9,7 @@ from torch import nn
 
 from ..ops.gaussian import gaussian_blur
 from ..ops.resize import nchw, nhwc
+from .conv import ConvBlock
 from .norm import BatchNorm
 
 
@@ -25,6 +27,43 @@ class GaussianFilter(nn.Module):
         y = gaussian_blur(nhwc(x), kernel_size=self.kernel_size,
                           strides=self.strides)
         return nchw(y).contiguous(memory_format=torch.channels_last)
+
+
+class ValueCompressor(nn.Module):
+    """``tanh(α·x)·β`` squash."""
+
+    def __init__(self, alpha: float = 4.0, beta: float = 0.5):
+        super().__init__()
+        self.alpha, self.beta = float(alpha), float(beta)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x * self.alpha) * self.beta
+
+
+class GatedMLP(nn.Module):
+    """Gated 1×1-conv MLP: ``project(value(x) · gate(x))``, two parallel
+    1×1 expansions to ``filters`` (``value`` with ``activation``,
+    ``gate`` with ``gate_activation``) and a linear 1×1 back to the
+    input's channels."""
+
+    def __init__(self, in_features: int, filters: int,
+                 use_bias: bool = False, activation: str = "linear",
+                 gate_activation: str = "sigmoid", kernel_regularizer=None,
+                 kernel_initializer="glorot_normal", dtype=None):
+        super().__init__()
+        common = dict(kernel_size=1, use_bias=use_bias,
+                      kernel_regularizer=kernel_regularizer,
+                      kernel_initializer=kernel_initializer, dtype=dtype)
+        self.value = ConvBlock(in_features, filters, activation=activation,
+                               **common)
+        self.gate = ConvBlock(in_features, filters,
+                              activation=gate_activation, **common)
+        self.project = ConvBlock(filters, in_features, activation="linear",
+                                 **common)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.project(self.value(x, train=train)
+                            * self.gate(x, train=train), train=train)
 
 
 class SparseBlock(nn.Module):

@@ -1,7 +1,6 @@
 """Learnable gains (counterpart of
-``blind_image_denoising_tpu/layers/multipliers.py``
-``ChannelLearnableMultiplier``, ``Multiplier`` and
-``ChannelwiseMultiplier``), on NCHW tensors."""
+``blind_image_denoising_tpu/layers/multipliers.py``), on NCHW
+tensors."""
 
 import torch
 from torch import nn
@@ -28,6 +27,20 @@ class ChannelLearnableMultiplier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.gain().to(x.dtype).view(1, -1, 1, 1)
+
+
+class SmoothChannelLearnableMultiplier(ChannelLearnableMultiplier):
+    """Per-channel scale ``sigmoid(2.5 + w) · x`` in (0, 1)."""
+
+    def gain(self) -> torch.Tensor:
+        return torch.sigmoid(2.5 + self.w_multiplier)
+
+
+class GlobalLearnableMultiplier(ChannelLearnableMultiplier):
+    """The scalar ``tanh(relu(1 + w)) · x`` (``w`` [1])."""
+
+    def __init__(self, l1_coefficient: float = 1e-6):
+        super().__init__(1, l1_coefficient)
 
 
 class Multiplier(nn.Module):

@@ -1,5 +1,7 @@
 """Stochastic depth (counterpart of
-``blind_image_denoising_tpu/layers/stochastic.py`` ``StochasticDepth``):
+``blind_image_denoising_tpu/layers/stochastic.py`` ``StochasticDepth``
+and ``RandomOnOff``, the same per-sample drop with its rate named
+``rate``):
 a per-sample Bernoulli mask broadcast over C, H and W, the kept samples
 scaled by 1/(1 − rate) — Keras/flax Dropout with noise shape
 (B, 1, 1, 1). The mask comes from the generator the caller passes."""
@@ -35,3 +37,10 @@ class StochasticDepth(nn.Module):
         keep = drop_mask((x.shape[0],) + (1,) * (x.ndim - 1), self.rate,
                          generator, x.device)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+class RandomOnOff(StochasticDepth):
+    """Drops the whole tensor per sample with probability ``rate``."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__(rate)

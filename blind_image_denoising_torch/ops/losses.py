@@ -20,19 +20,47 @@ def _hinged_relu(x: torch.Tensor, hinge: float,
     return torch.clamp(y, max=cutoff)
 
 
+def mae_diff(error: torch.Tensor, hinge: float = 0.0,
+             cutoff: float = 255.0) -> torch.Tensor:
+    """Hinged, cut-off mean absolute value of an error batch."""
+    d = _hinged_relu(torch.abs(error), hinge, cutoff)
+    return torch.mean(torch.mean(d, dim=(1, 2, 3)))
+
+
 def mae(original: torch.Tensor, prediction: torch.Tensor,
         hinge: float = 0.0, cutoff: float = 255.0) -> torch.Tensor:
     """Hinged, cut-off mean absolute error."""
-    d = _hinged_relu(torch.abs(original - prediction), hinge, cutoff)
-    return torch.mean(torch.mean(d, dim=(1, 2, 3)))
+    return mae_diff(original - prediction, hinge, cutoff)
+
+
+def rmse_diff(error: torch.Tensor, hinge: float = 0.0,
+              cutoff: float = 255.0 * 255.0) -> torch.Tensor:
+    """Hinged root mean square of an error batch (hinge on the signed
+    error)."""
+    d = torch.square(_hinged_relu(error, hinge, cutoff))
+    return torch.mean(torch.sqrt(torch.mean(d, dim=(1, 2, 3))
+                                 + DEFAULT_EPSILON))
 
 
 def rmse(original: torch.Tensor, prediction: torch.Tensor,
          hinge: float = 0.0, cutoff: float = 255.0 * 255.0) -> torch.Tensor:
     """Hinged root mean square error (hinge on the signed error)."""
-    d = torch.square(_hinged_relu(original - prediction, hinge, cutoff))
-    return torch.mean(torch.sqrt(torch.mean(d, dim=(1, 2, 3))
-                                 + DEFAULT_EPSILON))
+    return rmse_diff(original - prediction, hinge, cutoff)
+
+
+def gar_loss(x: torch.Tensor, alpha: float = 1.0,
+             c: float = 1.0) -> torch.Tensor:
+    """Barron's general and adaptive robust loss."""
+    a_2 = abs(alpha - 2.0)
+    return (a_2 / alpha) * (torch.pow(torch.square(x / c) / a_2 + 1.0,
+                                      alpha / 2.0) - 1.0)
+
+
+def improvement(original: torch.Tensor, noisy: torch.Tensor,
+                denoised: torch.Tensor) -> torch.Tensor:
+    """MAE(original, noisy) − MAE(original, denoised): positive when the
+    denoiser helps."""
+    return mae(original, noisy) - mae(original, denoised)
 
 
 def psnr(original: torch.Tensor, prediction: torch.Tensor,

@@ -72,6 +72,7 @@ import torch.nn.functional as F
 
 from ..constants import DEFAULT_LN_EPSILON
 from . import cuda_build
+from .precision import has_tangent
 
 # kernel launches made by convnext_block in float mode and in int8 mode
 # (the plain path does not count), and the ConvNext units outside the
@@ -204,6 +205,10 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
     if (scale_in is not None, scale_out is not None) != (int8, int8):
         raise ValueError("convnext_block: int8 x takes scale_in and "
                          "scale_out, a float x takes neither")
+    if has_tangent(x):
+        raise RuntimeError("convnext_block has no forward-mode derivative "
+                           "(neither has the JAX kernel); run the unit's "
+                           "branch for a dual tensor")
     if x.device.type == "cpu":
         return convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope,
                                     scale_in, scale_out)

@@ -66,7 +66,13 @@ vertical taps reused from registers at k = 2), sums in the plain
 version's order and stores four 16-byte band vectors and one ``down``
 vector per quad: bit-exact against :func:`band_split_plain`.
 :func:`split_tile_plan` mirrors its tile plan. Like the JAX kernel it is
-forward only, and a tensor that wants a gradient raises.
+forward only, and a tensor that wants a gradient or carries a
+forward-mode tangent raises.
+
+Forward mode (``torch.autograd.forward_ad``) through ``band_smooth``
+takes the Function's ``jvp``: the split is linear, so the tangent's
+(band, smooth) is the forward kernel run on the tangent, a second K2
+launch beside the primal's.
 """
 
 from typing import Tuple
@@ -74,6 +80,7 @@ from typing import Tuple
 import torch
 
 from . import cuda_build
+from .precision import has_tangent
 
 # kernel launches made by band_smooth and band_smooth_bwd (the plain
 # paths do not count), and the grads band_smooth_bwd had to copy into
@@ -278,11 +285,18 @@ class _BandSmooth(torch.autograd.Function):
     def backward(ctx, g_band, g_smooth):
         return band_smooth_bwd(g_band, g_smooth, ctx.kernel_size), None
 
+    @staticmethod
+    def jvp(ctx, x_t, _):
+        # linear: the tangents are the split of the tangent, the forward
+        # kernel again
+        return _band_smooth_fwd(x_t, ctx.kernel_size)
+
 
 def band_smooth(x: torch.Tensor,
                 kernel_size: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, H, W, C] → (band, smooth), both [B, H, W, C] in x's dtype;
-    differentiable when a gradient is wanted."""
+    differentiable in reverse mode (the backward kernel) and in forward
+    mode (the forward kernel on the tangent)."""
     if x.ndim != 4:
         raise ValueError(f"band_smooth takes [B, H, W, C], got {x.shape}")
     return _BandSmooth.apply(x, int(kernel_size))
@@ -354,9 +368,10 @@ def band_split(x: torch.Tensor,
     b, h, w, c = x.shape
     if h % 2 or w % 2:
         raise ValueError("H and W must be even for the 2x downsample")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("band_split has no backward (neither has the JAX "
-                           "kernel); use band_smooth where a gradient is "
+    if (torch.is_grad_enabled() and x.requires_grad) or has_tangent(x):
+        raise RuntimeError("band_split has no backward and no forward-mode "
+                           "derivative (neither has the JAX kernel); use "
+                           "band_smooth where a gradient or a tangent is "
                            "wanted")
     if x.device.type == "cpu":
         return band_split_plain(x, kernel_size)

@@ -1,4 +1,5 @@
-"""Float32 that is float32 on the card.
+"""Float32 that is float32 on the card, and the forward-mode test the
+kernel wrappers share.
 
 PyTorch's defaults let cuDNN run float32 convolutions on TF32 tensor
 cores (``torch.backends.cudnn.allow_tf32 = True``), which round each
@@ -12,6 +13,7 @@ changed, and bf16 compute is not affected.
 import contextlib
 
 import torch
+from torch.autograd import forward_ad
 
 
 @contextlib.contextmanager
@@ -29,3 +31,11 @@ def exact_float32(enabled: bool = True):
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def has_tangent(x: torch.Tensor) -> bool:
+    """Whether x carries a forward-mode tangent (a dual tensor of
+    ``torch.autograd.forward_ad``). Such a tensor has ``requires_grad``
+    False, so a test of that alone would hand it to a kernel that drops
+    the tangent."""
+    return forward_ad.unpack_dual(x).tangent is not None

@@ -32,12 +32,23 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+# windows of up to this many taps are summed tap by tap, in the order the
+# band split's plain versions use
+_LOOP_TAPS = 25
+
+
 def _window_sum(x: torch.Tensor, window: Sequence[int],
                 strides: Sequence[int]) -> torch.Tensor:
     (kh, kw), (sh, sw) = window, strides
     _, h, w, _ = x.shape
     ph, pw = same_pads(h, kh, sh), same_pads(w, kw, sw)
     xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    if kh * kw > _LOOP_TAPS:
+        # a wide window (the selector's 32² and 64² pools, local
+        # normalization's 11² and 16²): one pooling kernel, summing in
+        # float32, where the tap loop would launch kh·kw eager adds
+        return nhwc(F.avg_pool2d(nchw(xp), (kh, kw), (sh, sw),
+                                 divisor_override=1))
     oh, ow = -(-h // sh), -(-w // sw)
     acc = None
     for dy in range(kh):

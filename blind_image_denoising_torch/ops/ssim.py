@@ -63,3 +63,10 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, max_val: float = 255.0,
     den1 = (mu11 + mu22) - (torch.square(mu1) + torch.square(mu2))
     cs = (num1 + c2) / (den1 + c2)
     return torch.mean(luminance * cs, dim=(1, 2, 3))
+
+
+def ssim_loss(img1: torch.Tensor, img2: torch.Tensor, max_val: float = 255.0,
+              filter_size: int = 7) -> torch.Tensor:
+    """1 − the batch's mean SSIM."""
+    return 1.0 - torch.mean(ssim(img1, img2, max_val=max_val,
+                                 filter_size=filter_size))

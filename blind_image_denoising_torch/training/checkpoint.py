@@ -8,7 +8,8 @@ batch statistics), the optimizer's count and slots, ``step``, ``epoch``
 and ``ema_params`` (None when the run had no EMA), all on the CPU. It is
 written to a temporary file in the directory and renamed into place, so
 a reader never sees half a checkpoint; a second save at the same step
-is a no-op.
+is a no-op unless it asks to replace the first (the loop's save after a
+prune).
 """
 
 import logging
@@ -53,12 +54,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, state: TrainState, force: bool = False) -> bool:
+    def save(self, state: TrainState, force: bool = False,
+             replace: bool = False) -> bool:
         """Write the state at ``state.step``; False when a checkpoint of
-        that step exists or (without ``force``) the step is off the save
-        interval. Keeps the newest ``max_to_keep``."""
+        that step exists (unless ``replace``) or (without ``force``) the
+        step is off the save interval. Keeps the newest
+        ``max_to_keep``."""
         step = int(state.step)
-        if step in self.all_steps():
+        if step in self.all_steps() and not replace:
             return False
         if not force and step % self._interval:
             return False

@@ -15,15 +15,19 @@
    evaluation images at σ ∈ {0, 20, 40, 60, 80} (with the EMA weights
    when tracked), weight statistics and figures; a checkpoint every
    ``checkpoint_every`` steps and per epoch; SIGTERM / SIGINT checkpoint
-   and stop without advancing the epoch.
+   and stop without advancing the epoch;
+5. after each finished epoch (a ``total_steps`` exit counts as one) and
+   every ``train.prune.every_epochs`` epochs, the params and the EMA
+   pruned on the host (``pruning.py``), so the export, which prefers the
+   EMA, keeps the zeros; the epoch's checkpoint holds the pruned state.
 
 Entry point: :func:`train_loop`, on the card unless ``device="cpu"``.
 Under ``dataset.apply_degradations`` the config's degradation keys
 reach the train step (rotation and the chain of ``ops/degradations.py``,
-the restoration recipe). What the JAX loop does and the port does not
-yet: a device mesh and several processes (ROADMAP Queue 1 item 13),
-pruning and distillation (item 12); each raises ``NotImplementedError``
-naming its item.
+the restoration recipe); ``train.distillation`` gives the step a frozen
+teacher (``training/distill.py``). What the JAX loop does and the port
+does not yet: a device mesh and several processes (ROADMAP Queue 1 item
+13), which raise ``NotImplementedError`` naming the item.
 """
 
 import contextlib
@@ -47,8 +51,10 @@ from ..inference.export import resolve_device
 from ..models.hydra import model_builder
 from ..ops.losses import mae, psnr
 from ..ops.noise import corrupt_batch_fixed_std
+from ..pruning import prune_function_builder, prune_params
 from ..weights import load_msgpack, params_from_flax
 from .checkpoint import CheckpointManager
+from .distill import build_teacher
 from .losses import loss_function_builder
 from .metrics import MetricsWriter
 from .optimizer import deep_supervision_schedule_builder, optimizer_builder
@@ -107,7 +113,7 @@ def resolve_degradation_options(dataset_config: Dict) -> Dict:
 
 
 def _refuse_unported(config: Dict) -> None:
-    train, dataset = config["train"], config["dataset"]
+    dataset = config["dataset"]
     mesh = config.get("tpu", {}).get("mesh", {"data": -1})
     if (mesh.get("data", -1) not in (-1, 1)
             or int(mesh.get("spatial", 1)) != 1
@@ -117,11 +123,6 @@ def _refuse_unported(config: Dict) -> None:
                           f"trains on one device", 13)
     if int(dataset.get("process_count") or 1) > 1:
         raise _not_ported("multi-process training", 13)
-    prune = train.get("prune")
-    if prune and prune.get("strategy", "NONE") != "NONE":
-        raise _not_ported("per-epoch pruning (train.prune)", 12)
-    if train.get("distillation"):
-        raise _not_ported("distillation (train.distillation)", 12)
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -284,6 +285,11 @@ def train_loop(
     grad_stats = bool(train_config.get("grad_stats",
                                        visualization_every > 0))
 
+    teacher_fn, distill_opts = None, {}
+    if train_config.get("distillation"):
+        teacher_fn, distill_opts = build_teacher(
+            train_config["distillation"], device=dev)
+
     degradations = resolve_degradation_options(dataset_config)
 
     def make_step(with_stats: bool):
@@ -298,7 +304,10 @@ def train_loop(
             grad_accum=grad_accum,
             remat=train_config.get("remat", False),
             use_pallas_noise=tpu_config.get("pallas_noise", False),
-            grad_stats=with_stats, ema_decay=ema_decay, **degradations)
+            grad_stats=with_stats, teacher_fn=teacher_fn,
+            distill_weight=distill_opts.get("weight", 1.0),
+            distill_gt_weight=distill_opts.get("gt_weight", 1.0),
+            ema_decay=ema_decay, **degradations)
 
     # the hot step computes no percentiles; the stats variant runs only on
     # the steps whose gradients feed the figures
@@ -458,12 +467,16 @@ def train_loop(
                     process_metrics(pending)
                     pending = None
 
+            pruned = False
             if not preempted["flag"]:
                 # a signal mid-epoch must not advance the epoch: the
-                # resume continues inside it; a total_steps exit counts
-                # the epoch complete
+                # resume continues inside it (nor prune); a total_steps
+                # exit counts the epoch complete
                 state.epoch += 1
-            manager.save(state, force=True)
+                pruned = _maybe_prune(state, train_config.get("prune"))
+            # a checkpoint of this step written before the prune is
+            # replaced, so a resume starts from the pruned weights
+            manager.save(state, force=True, replace=pruned)
     finally:
         manager.save(state, force=True)
         manager.wait()
@@ -471,6 +484,25 @@ def train_loop(
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
     return state
+
+
+def _maybe_prune(state: TrainState, prune_config: Optional[Dict]) -> bool:
+    """Prune the params and the EMA in place when ``train.prune`` asks
+    for it at this epoch; True when it did."""
+    if not prune_config or prune_config.get("strategy", "NONE") == "NONE" \
+            or state.epoch % int(prune_config.get("every_epochs", 1)):
+        return False
+    prune_fn = prune_function_builder(prune_config)
+    with torch.no_grad():
+        for tensors in (state.params, state.ema_params):
+            if tensors is None:
+                continue
+            pruned = prune_params(tensors, prune_fn)
+            for name, t in tensors.items():
+                t.copy_(pruned[name])
+    logger.info(f"epoch {state.epoch}: pruned weights "
+                f"({prune_config.get('strategy')})")
+    return True
 
 
 def _noise_sweep_eval(eval_step, state: TrainState, eval_batch: torch.Tensor,

@@ -21,10 +21,12 @@ waits for it. The noise kernel's seed is drawn on the host from the
 state's CPU generator, one int32 per micro-batch, and the step counter
 lives on the host.
 
-A teacher (distillation), the one option of the JAX step that this
-port does not carry yet, raises ``NotImplementedError`` naming its
-ROADMAP item. The chain runs in eager PyTorch ops inside the profiler
-range ``degradations.chain``.
+A teacher (``teacher_fn``, ``training/distill.py``) runs on the same
+corrupted micro-batch outside the graph; its output adds a
+``distill_weight``-scaled student-vs-teacher loss on the finest scale
+(metrics ``distill/mae_loss`` and ``distill/total_loss``) while the
+hard-GT losses are scaled by ``distill_gt_weight``. The chain runs in
+eager PyTorch ops inside the profiler range ``degradations.chain``.
 """
 
 from typing import Callable, Dict, Optional, Sequence
@@ -47,15 +49,12 @@ from .optimizer import global_norm
 from .train_state import TrainState
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def forward_loss(model, loss_fns: Dict[str, Callable], no_outputs: int,
                  noisy: torch.Tensor, gt_scales, depth_weights: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
-                 remat: bool = False):
+                 remat: bool = False,
+                 teacher_out: Optional[torch.Tensor] = None,
+                 distill_weight: float = 1.0, gt_weight: float = 1.0):
     """The training forward and its losses (JAX ``forward_loss``):
     ``noisy`` [B, H, W, C] float32 → (total loss, metrics dict).
 
@@ -68,7 +67,12 @@ def forward_loss(model, loss_fns: Dict[str, Callable], no_outputs: int,
     A BatchNorm model normalizes by the batch's statistics and updates
     its running buffers once per call, so the step's micro-batches update
     them in order, as JAX carries ``batch_stats`` through its
-    accumulation scan."""
+    accumulation scan.
+
+    ``teacher_out``: the teacher's finest-scale output on ``noisy``; the
+    per-scale losses are then scaled by ``gt_weight`` and the finest
+    output's loss against it, × ``depth_weights[0]`` × ``distill_weight``,
+    is added."""
     if remat:
         saved = generator.get_state() if generator is not None else None
         calls = []
@@ -87,11 +91,20 @@ def forward_loss(model, loss_fns: Dict[str, Callable], no_outputs: int,
         outputs = model(nchw(noisy), train=True, generator=generator)
     total = torch.zeros((), device=noisy.device)
     metrics = {}
+    if teacher_out is None:
+        gt_weight = 1.0
     for i in range(no_outputs):
         li = loss_fns["denoiser"](gt_scales[i], nhwc(outputs[i]).float())
-        total = total + li[TOTAL_LOSS_STR] * depth_weights[i]
+        total = total + li[TOTAL_LOSS_STR] * depth_weights[i] * gt_weight
         for k in (MAE_LOSS_STR, MSE_LOSS_STR, SSIM_LOSS_STR, TOTAL_LOSS_STR):
             metrics[f"scale_{i}/{k}"] = li[k]
+    if teacher_out is not None:
+        distill = loss_fns["denoiser"](teacher_out,
+                                       nhwc(outputs[0]).float())
+        total = total + (distill[TOTAL_LOSS_STR] * depth_weights[0]
+                         * distill_weight)
+        for k in (MAE_LOSS_STR, TOTAL_LOSS_STR):
+            metrics[f"distill/{k}"] = distill[k]
     mloss = loss_fns["model"](regularization_loss(model))
     total = total + mloss[TOTAL_LOSS_STR]
     metrics[TOTAL_LOSS_STR] = total
@@ -137,6 +150,10 @@ def build_train_step(
     the model's device, since a copy from host memory waits for the
     device.
 
+    ``teacher_fn``: a frozen teacher (``training/distill.build_teacher``)
+    applied to each corrupted micro-batch; see :func:`forward_loss` for
+    ``distill_weight`` and ``distill_gt_weight``.
+
     ``ema_decay`` > 0: ``state.ema_params`` (seeded by the caller) follows
     ``e ← d·e + (1 − d)·p`` on the updated params with ``d = min(decay,
     (1 + t) / (10 + t))``, t the step before this one (the
@@ -158,9 +175,6 @@ def build_train_step(
             "tpu.pallas_noise fuses only the noise corruption; unset it to "
             "use random_blur / use_jpeg_noise / quantization / "
             "inpaint_drop_rate")
-    if teacher_fn is not None:
-        raise _not_ported("distillation from a teacher (training/distill.py)",
-                          12)
     n = max(1, int(grad_accum))
 
     def prepare(state: TrainState, clean: torch.Tensor, generator):
@@ -226,9 +240,13 @@ def build_train_step(
         with exact_float32(dev.type == "cuda"):
             for clean in batch.chunk(n):
                 noisy, gt_scales = prepare(state, clean, generator)
-                total, m = forward_loss(model, loss_fns, no_outputs, noisy,
-                                        gt_scales, depth_weights, generator,
-                                        remat=remat)
+                teacher_out = (teacher_fn(noisy) if teacher_fn is not None
+                               else None)
+                total, m = forward_loss(
+                    model, loss_fns, no_outputs, noisy, gt_scales,
+                    depth_weights, generator, remat=remat,
+                    teacher_out=teacher_out, distill_weight=distill_weight,
+                    gt_weight=distill_gt_weight)
                 total.backward()
                 for k, v in m.items():
                     metrics[k] = metrics.get(k, 0.0) + v.detach()

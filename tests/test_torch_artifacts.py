@@ -4,6 +4,9 @@ need, against the JAX package on the CPU.
 * Package surface: ``configs`` / ``CONFIGS_DICT`` equal the JAX
   package's; ``__all__`` lacks only the names on ``NOT_PORTED``, each
   with its ROADMAP item.
+* The ``layers`` / ``ops`` / ``models`` / ``inference`` subpackages
+  export the JAX subpackages' public names, each bound to the port's
+  counterpart (JAX's kernel names to the port's wrappers).
 * Tiny seeded ``resnet`` and ``convnext`` hydras (the two packaged resnet
   configs, the artifact's, and one with every skeleton option the port
   has), converted by ``weights.params_from_flax`` from numpy draws of
@@ -30,7 +33,9 @@ need, against the JAX package on the CPU.
 """
 
 import copy
+import importlib
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +95,31 @@ def test_package_surface_matches_jax(tmp_path):
     bidt.save_config(bidt.CONFIGS_DICT["unet_laplacian_v6"], path)
     assert json.loads(path.read_text()) == bid.CONFIGS_DICT[
         "unet_laplacian_v6"]
+
+
+def _public(module):
+    return {n for n, v in vars(module).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+
+
+@pytest.mark.parametrize("sub", ["layers", "ops", "models", "inference"])
+def test_subpackage_surface_matches_jax(sub):
+    jax_sub = importlib.import_module(f"blind_image_denoising_tpu.{sub}")
+    port_sub = importlib.import_module(f"blind_image_denoising_torch.{sub}")
+    assert _public(port_sub) == _public(jax_sub)
+    for name in _public(port_sub):
+        assert getattr(port_sub, name) is not None, name
+    if sub == "ops":
+        assert port_sub.regularizers.builder("l1") is not None
+        from blind_image_denoising_torch.ops import (pallas_noise,
+                                                     pallas_pyramid)
+        assert port_sub.corrupt_batch_pallas is pallas_noise.corrupt_noise
+        assert (port_sub.laplacian_band_split_pallas
+                is pallas_pyramid.band_split)
+        assert (port_sub.laplacian_band_split_reference
+                is pallas_pyramid.band_split_plain)
+    # the registry dict still shadows the models subpackage at the top
+    assert isinstance(bidt.models, dict)
 
 
 # ---------------------------------------------------------------- tiny hydras

@@ -42,6 +42,13 @@ step of the full-width resnet matches the CPU's (loss 1e-5 relative,
 running statistics 1e-4 of their largest magnitude); an exported run
 serves through K1 and K2 on its float route and without K1 on its
 ``quant=True`` route.
+
+Forward mode and the tools on the card: a dual tensor through a
+K1-routed unit takes its branch and through K2 its ``jvp`` (tangents
+within 1e-4 and 1e-5 of the plain versions'; the kernel wrappers refuse a
+dual tensor); the flagship's distilled step matches the CPU's (loss 1e-4
+relative, gradient cosine >= 0.9999); the analysis matches the CPU's
+(means within 1e-3 gray levels, filter rows cosine >= 0.9999).
 """
 
 import numpy as np
@@ -1146,3 +1153,143 @@ def test_unet_backbone_train_step_on_card_matches_cpu(dev):
     cpu, card = out["cpu"], out[str(dev)]
     assert abs(card[0] - cpu[0]) <= 1e-4 * abs(cpu[0])
     assert float(F.cosine_similarity(card[1], cpu[1], dim=0)) >= 0.9999
+
+
+# ------------------------------------------------ forward mode and the tools
+
+def test_forward_mode_tangents_on_card_equal_the_plain_versions(dev):
+    """A dual tensor through a K1-routed ConvNext unit and through K2 on
+    the card: the unit takes its branch (no K1 launch) and its tangent
+    equals the CPU branch's (1e-4 of the largest); K2's tangents are the
+    plain split of the tangent (1e-5), one launch for the primal and one
+    for the tangent; ``convnext_block`` and ``band_split`` refuse a dual
+    tensor instead of dropping its tangent."""
+    from torch.autograd import forward_ad
+    from blind_image_denoising_torch.layers.convnext import ConvNextBlock
+    torch.manual_seed(0)
+    unit = ConvNextBlock(32, kernel_size=3, expansion=128)
+    assert unit.kernel_route
+    with torch.no_grad():
+        for p in unit.parameters():
+            p.normal_(0, 0.2)
+    unit.requires_grad_(False)
+    x, v = torch.randn(2, 32, 16, 16), torch.randn(2, 32, 16, 16)
+    tangents = {}
+    for device in ("cpu", dev):
+        unit.to(device)
+        k1 = pallas_convnext.launches
+        with torch.no_grad(), forward_ad.dual_level():
+            y = unit(forward_ad.make_dual(
+                x.to(device).contiguous(memory_format=torch.channels_last),
+                v.to(device).contiguous(memory_format=torch.channels_last)))
+            tangents[str(device)] = forward_ad.unpack_dual(
+                y).tangent.float().cpu()
+        assert pallas_convnext.launches == k1
+    ref = tangents["cpu"]
+    assert float((tangents[str(dev)] - ref).abs().max()
+                 / ref.abs().max()) <= 1e-4
+    xh = torch.randn(2, 32, 32, 32, device=dev)
+    vh = torch.randn(2, 32, 32, 32, device=dev)
+    k2 = pallas_pyramid.launches
+    with forward_ad.dual_level():
+        band, smooth = pallas_pyramid.band_smooth(
+            forward_ad.make_dual(xh, vh), 2)
+        got = [forward_ad.unpack_dual(t).tangent for t in (band, smooth)]
+        w = unit.kernel_weights(torch.float32)
+        dual = forward_ad.make_dual(xh, vh)
+        with pytest.raises(RuntimeError, match="forward-mode"):
+            pallas_convnext.convnext_block(dual, slope=unit.slope, **w)
+        with pytest.raises(RuntimeError, match="tangent"):
+            pallas_pyramid.band_split(dual)
+    assert pallas_pyramid.launches - k2 == 2
+    want = pallas_pyramid.band_smooth_plain(vh, 2)
+    for g, r in zip(got, want):
+        assert float((g - r).abs().max()) <= 1e-5
+
+
+def test_distilled_step_on_card_matches_cpu(dev):
+    """One float32 micro-batch of the flagship's distilled step (its
+    packaged weights, a teacher output from the f32 v5.6 teacher on the
+    same batch, gt_weight 0.5): the loss within 1e-4 relative and the
+    gradient's cosine >= 0.9999, card against CPU; drop-path and attention
+    dropout off."""
+    import copy
+    import torch.nn.functional as F
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.ops.multiscale import multiscale_targets
+    from blind_image_denoising_torch.ops.precision import exact_float32
+    from blind_image_denoising_torch.training import (forward_loss,
+                                                      loss_function_builder)
+    from blind_image_denoising_torch.training.distill import build_teacher
+    from blind_image_denoising_torch.weights import (load_msgpack,
+                                                     params_from_flax)
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT["unet_laplacian_v6_tpu"])
+    # drop-path and attention dropout off: their masks come from each
+    # device's own generator
+    cfg["model"]["backbone"].update(
+        depth_drop_rate=0.0, convolutional_self_attention_dropout_rate=0.0)
+    params = params_from_flax(load_msgpack(
+        bidt.models["unet_laplacian_v6_tpu_scratch"]["directory"]
+        + "/params.msgpack"))
+    clean = torch.from_numpy(np.ascontiguousarray(
+        _smooth_noisy(2, 64, 64, 20.0)[0])).float()
+    noisy = torch.round(clean + 20 * torch.randn(
+        clean.shape, generator=torch.Generator().manual_seed(3)))
+    n = model_builder(cfg["model"]).hydra.no_outputs
+    gt = multiscale_targets(clean, n - 1, clip_values=True,
+                            round_values=True)
+    fns = loss_function_builder(cfg["loss"])
+    out = {}
+    for device in ("cpu", dev):
+        teacher_fn, opts = build_teacher(
+            {"teacher": "unet_laplacian_v56_highnoise", "gt_weight": 0.5},
+            device=device)
+        hydra = model_builder(cfg["model"]).hydra
+        hydra.load_state_dict(params)
+        hydra.to(device)
+        x = noisy.to(device)
+        with exact_float32(device != "cpu"):
+            total, _ = forward_loss(
+                hydra, fns, n, x, [g.to(device) for g in gt],
+                torch.full((n,), 1.0 / n, device=device),
+                torch.Generator(device=device), teacher_out=teacher_fn(x),
+                distill_weight=opts["weight"], gt_weight=opts["gt_weight"])
+            total.backward()
+        out[str(device)] = (float(total.detach()), torch.cat([
+            (torch.zeros_like(p) if p.grad is None else p.grad)
+            .double().flatten().cpu() for p in hydra.parameters()]))
+    cpu, card = out["cpu"], out[str(dev)]
+    assert abs(card[0] - cpu[0]) <= 1e-4 * abs(cpu[0])
+    assert float(F.cosine_similarity(card[1], cpu[1], dim=0)) >= 0.9999
+
+
+def test_analysis_on_card_matches_cpu(dev):
+    """``analysis.analyze`` of the f32 flagship on a noisy 64² crop, card
+    against CPU: the denoised image and the bias map within 1e-3 gray
+    levels on average, each filter row's cosine >= 0.9999 and max |Δ| /
+    max |a| <= 1e-2; no K1 launch in either derivative mode; the bias
+    map from forward mode (two K2 launches on the tangent beside the
+    primal's)."""
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch import analysis
+    img = _smooth_noisy(1, 64, 64, 25.0)[1][0].astype(np.float32)
+    out = {}
+    for device in ("cpu", dev):
+        den = bidt.load_model("unet_laplacian_v6_tpu_scratch",
+                              dtype="float32", device=device)
+        fwd = analysis.forward_from_denoiser(den)
+        k1, k2 = pallas_convnext.launches, pallas_pyramid.launches
+        y, bias = analysis.net_bias_map(fwd, img)
+        res = analysis.adaptive_filters(fwd, img, [(16, 16), (40, 50)])
+        if device != "cpu":
+            assert pallas_convnext.launches == k1
+            assert pallas_pyramid.launches - k2 == 4 + 2
+        out[str(device)] = (y, bias, res.filters)
+    cpu, card = out["cpu"], out[str(dev)]
+    assert np.abs(card[0] - cpu[0]).mean() <= 1e-3
+    assert np.abs(card[1] - cpu[1]).mean() <= 1e-3
+    for a, b in zip(card[2], cpu[2]):
+        a, b = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
+        assert a @ b / np.linalg.norm(a) / np.linalg.norm(b) >= 0.9999
+        assert np.abs(a - b).max() / np.abs(b).max() <= 1e-2

@@ -7,6 +7,8 @@ and its int64 plain version ``int8_conv_reference`` equal to lax's int8 ×
 int8 → int32 convolution, and a conv
 site's int8 output bit-equal to JAX's rescale of the same accumulator."""
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,10 +28,13 @@ from blind_image_denoising_torch.inference.blend import interp
 from blind_image_denoising_torch.layers.activations import activation_fn
 from blind_image_denoising_torch.ops import noise_estimate as tnoise
 from blind_image_denoising_torch.ops import gaussian as tgauss
-from blind_image_denoising_torch.ops import normalize as tnorm
 from blind_image_denoising_torch.ops import quant as tquant
 from blind_image_denoising_torch.ops import regularizers as treg
 from blind_image_denoising_torch.ops import resize as tresize
+
+# the ops package exports the function normalize, as JAX's does, which
+# shadows its module's name as an attribute
+tnorm = importlib.import_module("blind_image_denoising_torch.ops.normalize")
 
 
 def _rand(shape, seed=0, lo=-1.0, hi=1.0):

@@ -293,9 +293,10 @@ def test_train_loop_needs_the_card_or_cpu(tmp_path):
     (lambda c: c["tpu"].update(mesh={"data": 2}), 13),
     (lambda c: c["tpu"].update(mesh={"data": -1, "spatial": 2}), 13),
     (lambda c: c["dataset"].update(process_count=2, process_index=0), 13),
-    (lambda c: c["train"].update(prune={"strategy": "MINIMUM_THRESHOLD"}),
-     12),
-    (lambda c: c["train"].update(distillation={"teacher": "x"}), 12),
+    # pruning and distillation (once item 12) train since slice 13
+    (lambda c: c["tpu"].update(mesh={"data": -1, "spatial_training": True}),
+     13),
+    (lambda c: c["tpu"].update(mesh={"data": 4}), 13),
     # the degradation chain (once item 11) trains since slice 12
     (lambda c: c["tpu"].update(mesh={"data": -1, "dcn": 2}), 13)])
 def test_unported_loop_options_raise(tmp_path, change, item):

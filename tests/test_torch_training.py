@@ -321,8 +321,13 @@ def test_not_ported_options_raise():
     for kw in (dict(random_rotate=1.57), dict(use_random_blur=True),
                dict(inpaint_drop_rate=0.5)):
         assert callable(build_train_step(hydra, tx, fns, 3, **kw))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_train_step(hydra, tx, fns, 3, teacher_fn=lambda v: v)
+    # a teacher (once item 12) builds and runs since slice 13
+    teacher_step = build_train_step(hydra, tx, fns, 3,
+                                    teacher_fn=lambda v: v + 1.0,
+                                    distill_gt_weight=0.5)
+    state = create_train_state(hydra, tx, seed=0, device="cpu")
+    _, metrics = teacher_step(state, torch.zeros((1, 64, 64, 3)))
+    assert np.isfinite(float(metrics["distill/total_loss"]))
     with pytest.raises(ValueError):
         build_train_step(hydra, tx, fns, 3, use_pallas_noise=True,
                          use_random_blur=True)
