@@ -32,6 +32,13 @@ writes a seeded model's params and its structure.
 ``build_pyramid_model`` / ``build_inverse_pyramid_model`` build the
 Gaussian and Laplacian pyramids of a config (``ops/pyramid.py``).
 
+Several processes (``parallel``): a mesh over the ranks of a
+``torch.distributed`` process group, the data-parallel train step and
+``train_loop`` (one ``python -m blind_image_denoising_torch.train ...
+--coordinator-address HOST:PORT --num-processes N --process-id R`` per
+rank) and spatially sharded serving (``Denoiser(mesh=...,
+spatial_margin=...)``).
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

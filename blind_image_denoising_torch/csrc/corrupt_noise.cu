@@ -13,7 +13,11 @@
 // (ops/pallas_noise.py corrupt_batch_plain) reproduces every draw:
 //   stream 0, counter (e, b, 0, 0): the four words of element e, two
 //     Box-Muller pairs (multiplicative, additive);
-//   stream 1, counter (0, b, 1, 0): sample b's flags and stds.
+//   stream 1, counter (0, b, 1, 0): sample b's flags and stds;
+// b is the sample's row in the global batch: the local row plus the
+// launch's sample offset, so a data-parallel rank holding rows
+// offset .. offset + B - 1 of the global batch draws exactly those rows
+// of the single-process draw (offset 0 is the local batch).
 // What bounds it on the H100: at the train step's 16 x 128^2 x 3 the
 // 6.3 MB cross memory in 1.9 us, above the 40 Philox multiplies per
 // element (integer rate) and the four special functions per Box-Muller
@@ -91,13 +95,15 @@ constexpr int kNoiseThreads = 128;
 template <bool kVec>
 __global__ void __launch_bounds__(kNoiseThreads) corrupt_noise_kernel(
     const float* __restrict__ x, float* __restrict__ out,
-    float* __restrict__ params, uint32_t n, uint32_t seed, float mlo,
-    float mhi, float alo, float ahi, int use_mul, int use_add, int do_round) {
-  const uint32_t b = blockIdx.y;
+    float* __restrict__ params, uint32_t n, uint32_t seed, uint32_t offset,
+    float mlo, float mhi, float alo, float ahi, int use_mul, int use_add,
+    int do_round) {
+  const uint32_t b = blockIdx.y;          // the local row
+  const uint32_t row = b + offset;        // the counter's sample word
   const uint2 key = make_uint2(seed, 0u);
   // every thread derives the header from the block index and the
   // arguments alone: warp-uniform values, so no barrier and no shared copy
-  const Header hdr = sample_header(key, b, mlo, mhi, alo, ahi);
+  const Header hdr = sample_header(key, row, mlo, mhi, alo, ahi);
   if (params != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
     float* p = params + 4 * (size_t)b;
     p[0] = hdr.mul_on; p[1] = hdr.mul_std; p[2] = hdr.add_on; p[3] = hdr.add_std;
@@ -123,7 +129,7 @@ __global__ void __launch_bounds__(kNoiseThreads) corrupt_noise_kernel(
     uint4 w[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      w[j] = philox4x32_10(make_uint4(e0 + j, b, 0u, 0u), key);
+      w[j] = philox4x32_10(make_uint4(e0 + j, row, 0u, 0u), key);
     if (mul) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -154,11 +160,14 @@ __global__ void __launch_bounds__(kNoiseThreads) corrupt_noise_kernel(
 
 }  // namespace
 
-extern "C" int bid_corrupt_noise(const void* x, void* out, void* params,
-                                 int B, long long n, uint32_t seed, float mlo,
-                                 float mhi, float alo, float ahi, int use_mul,
-                                 int use_add, int do_round, void* stream) {
-  if (B < 0 || n < 0 || n > 0xFFFFFFFFll || B > 65535) return BID_ERR_BAD_ARGUMENT;
+extern "C" int bid_corrupt_noise_at(const void* x, void* out, void* params,
+                                    int B, long long n, uint32_t seed,
+                                    uint32_t offset, float mlo, float mhi,
+                                    float alo, float ahi, int use_mul,
+                                    int use_add, int do_round, void* stream) {
+  if (B < 0 || n < 0 || n > 0xFFFFFFFFll || B > 65535 ||
+      (unsigned long long)offset + (unsigned long long)B > 0x100000000ull)
+    return BID_ERR_BAD_ARGUMENT;
   if (B == 0 || n == 0) return 0;
   const long long quads = (n + 3) / 4;
   const dim3 grid((unsigned)((quads + kNoiseThreads - 1) / kNoiseThreads),
@@ -169,13 +178,22 @@ extern "C" int bid_corrupt_noise(const void* x, void* out, void* params,
   if (vec) {
     corrupt_noise_kernel<true><<<grid, kNoiseThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<float*>(out),
-        static_cast<float*>(params), (uint32_t)n, seed, mlo, mhi, alo, ahi,
-        use_mul, use_add, do_round);
+        static_cast<float*>(params), (uint32_t)n, seed, offset, mlo, mhi,
+        alo, ahi, use_mul, use_add, do_round);
   } else {
     corrupt_noise_kernel<false><<<grid, kNoiseThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<float*>(out),
-        static_cast<float*>(params), (uint32_t)n, seed, mlo, mhi, alo, ahi,
-        use_mul, use_add, do_round);
+        static_cast<float*>(params), (uint32_t)n, seed, offset, mlo, mhi,
+        alo, ahi, use_mul, use_add, do_round);
   }
   return (int)cudaGetLastError();
+}
+
+// the entry point without an offset (the local batch is the global one)
+extern "C" int bid_corrupt_noise(const void* x, void* out, void* params,
+                                 int B, long long n, uint32_t seed, float mlo,
+                                 float mhi, float alo, float ahi, int use_mul,
+                                 int use_add, int do_round, void* stream) {
+  return bid_corrupt_noise_at(x, out, params, B, n, seed, 0u, mlo, mhi, alo,
+                              ahi, use_mul, use_add, do_round, stream);
 }

@@ -20,6 +20,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..parallel import multihost
 from .file_operations import (
     image_filenames, load_image, merge_iterators, shard_files_for_process)
 
@@ -277,8 +278,8 @@ def dataset_builder(config: Dict) -> DatasetResults:
     """Build the training data stream from a ``dataset`` config section.
     Image directories with no decodable image leave the synthetic
     stream, as in the JAX package. ``process_count`` / ``process_index``
-    in the config select a per-process file shard (default: one
-    process)."""
+    in the config select a per-process file shard (default: the process
+    group's)."""
     batch_size = config["batch_size"]
     input_shape = list(config["input_shape"])
     color_mode = (config.get("color_mode", "rgb") or "rgb").strip().lower()
@@ -294,8 +295,15 @@ def dataset_builder(config: Dict) -> DatasetResults:
         if found:
             file_groups.append(found)
 
-    proc_count = int(config.get("process_count") or 1)
-    proc_index = int(config.get("process_index") or 0)
+    # several processes: each rank decodes a disjoint per-dataset file
+    # shard; the config keys override the process group's (tests, manual
+    # launches)
+    proc_count = config.get("process_count")
+    proc_index = config.get("process_index")
+    proc_count = int(multihost.process_count() if proc_count is None
+                     else proc_count)
+    proc_index = int(multihost.process_index() if proc_index is None
+                     else proc_index)
     if proc_count > 1:
         file_groups = shard_files_for_process(file_groups, proc_index,
                                               proc_count)

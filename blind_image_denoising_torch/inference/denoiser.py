@@ -1,6 +1,6 @@
 """Any-size uint8 denoiser (counterpart of
 ``blind_image_denoising_tpu/inference/denoiser.py`` ``Denoiser``, with its
-signature and every option but ``mesh``).
+signature and every option).
 
 uint8 (or float) [H, W, C] or [B, H, W, C] → float32 on the device →
 zero-pad H and W on the high side (to a multiple of ``pad_multiple``, or
@@ -30,6 +30,16 @@ above 128, so rounding in bf16 would add quantization.
   sync (the upload goes through pinned memory), the seam that
   ``serving.BatchingDenoiser`` pipelines; :class:`HostCopy` brings such
   a result back without a host sync until it is read.
+* ``mesh`` with a 'spatial' axis of n > 1 ranks (``parallel/mesh.py``):
+  every rank of the spatial sub-group serves the same image together;
+  the padded frame's rows split into n slabs, each rank runs its slab
+  with ``spatial_margin`` halo rows from its neighbours
+  (``parallel/spatial.denoise_spatially_sharded``), and the slabs are
+  gathered back, so every rank returns the whole image. The padded
+  height must split into n slabs. ``tta`` is refused there, as in JAX
+  (its transposes swap the sharded axis), and so is a gradient through
+  ``float_forward`` (the halo exchange is not differentiable; spatial
+  training is the next slice). A data-only mesh serves as without one.
 """
 
 import contextlib
@@ -44,6 +54,8 @@ from ..ops.padding import next_power_of_2
 from ..ops.precision import has_tangent
 from ..ops.quant import has_scales, quant_mode
 from ..ops.resize import nchw, nhwc
+from ..parallel.spatial import (denoise_spatially_sharded, gather_spatial,
+                                spatial_shard_image)
 from ..weights import attach_quant_scales, flax_from_params, params_from_flax
 
 
@@ -119,10 +131,7 @@ class Denoiser:
         ``params`` [+ ``batch_stats``] [+ ``quant``]) loaded into
         ``model``; ``None`` keeps the model's own weights. ``device``:
         ``None`` is the card (raises without one); ``"cpu"`` runs on the
-        CPU."""
-        if mesh is not None or spatial_margin:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP Queue 1 item 13)")
+        CPU (under a mesh: this rank's card, the current device)."""
         if variables is not None and not isinstance(variables, dict):
             raise TypeError(
                 f"variables must be a flax variables dict or None, got "
@@ -136,6 +145,12 @@ class Denoiser:
             raise ValueError(f"tta must be False/True/2/4/8, got {tta!r}")
         self._tta_members = {0: (), 2: (0, 3), 4: (0, 1, 2, 3),
                              8: tuple(range(8))}[members]
+        spatial = mesh is not None and mesh.shape.get("spatial", 1) > 1
+        if tta and spatial:
+            raise ValueError(
+                "tta=True is single-mesh only: the transpose members of "
+                "the dihedral ensemble swap H and W, which breaks a fixed "
+                "'spatial' (H-axis) sharding")
         self.device = resolve_device(device)
         if variables is not None:
             model.load_state_dict(params_from_flax(variables), strict=True)
@@ -159,6 +174,18 @@ class Denoiser:
         self._pad_multiple = int(pad_multiple)
         self._tile_rows = int(tile_rows)
         self._tile_halo = int(tile_halo)
+        self._spatial = spatial
+        if spatial:
+            sharded = denoise_spatially_sharded(
+                lambda _, x: self._apply(x), None, mesh, int(spatial_margin))
+            self._forward = lambda x: gather_spatial(
+                mesh, sharded(spatial_shard_image(mesh, x)))
+        else:
+            self._forward = self._apply
+
+    def _apply(self, x: torch.Tensor) -> torch.Tensor:
+        """The hydra's finest scale, NHWC float32 in and out."""
+        return nhwc(self._model(nchw(x.contiguous()))[0]).float()
 
     @property
     def model(self) -> torch.nn.Module:
@@ -188,7 +215,7 @@ class Denoiser:
             x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
         mode = quant_mode("int8") if self._quant else contextlib.nullcontext()
         with record_function("denoiser.forward"), mode:
-            y = nhwc(self._model(nchw(x.contiguous()))[0]).float()
+            y = self._forward(x)
         return y[:, :h, :w, :]
 
     def _run_tiled(self, x: torch.Tensor, axis: int = 1,
@@ -271,6 +298,11 @@ class Denoiser:
         through it the same way, with autograd off; otherwise the forward
         runs without autograd."""
         x = self._upload(image)
+        if self._spatial and (x.requires_grad or has_tangent(x)):
+            raise NotImplementedError(
+                "a derivative through the spatially sharded forward is not "
+                "ported yet: its halo exchange is not differentiable "
+                "(spatial training, ROADMAP Queue 1 item 13)")
         squeeze = x.ndim == 3
         if squeeze:
             x = x[None]

@@ -22,6 +22,11 @@ estimate. Then the buffers take the running update ``ra ← m·ra +
 unbiased variance and the reverse momentum, so it is not used.) Inside
 :func:`frozen_statistics` the update is skipped: a rematerialized
 forward runs the layer a second time and must not update it twice.
+Under a data-parallel step (``parallel/mesh.batch_shard``) the batch's
+statistics are the global batch's: the per-channel sums of x and x² are
+``all_reduce``d over the batch axes (a differentiable reduction whose
+backward reduces too), so every rank normalizes by, and updates its
+buffers with, the same values.
 """
 
 import contextlib
@@ -31,6 +36,7 @@ import torch
 from torch import nn
 
 from ..constants import DEFAULT_BN_EPSILON, DEFAULT_BN_MOMENTUM
+from ..parallel.mesh import all_reduce_sum, current_batch_shard
 
 _FROZEN = contextvars.ContextVar("bidt_frozen_batch_stats", default=False)
 
@@ -47,9 +53,17 @@ def frozen_statistics(frozen: bool = True):
 
 
 def _batch_moments(x: torch.Tensor):
-    """float32 (E[x], E[x²]) per channel of an NCHW tensor, over N, H, W."""
+    """float32 (E[x], E[x²]) per channel of an NCHW tensor, over N, H, W
+    (of the global batch under a data-parallel step)."""
     xf = x.float()
-    return xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))
+    shard = current_batch_shard()
+    if shard is None or shard.group is None:
+        return xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))
+    sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                       xf.square().sum(dim=(0, 2, 3))]),
+                          shard.group)
+    n = float(shard.count * x.shape[0] * x.shape[2] * x.shape[3])
+    return sums[0] / n, sums[1] / n
 
 
 @torch.no_grad()

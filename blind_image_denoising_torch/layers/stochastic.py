@@ -4,10 +4,14 @@ and ``RandomOnOff``, the same per-sample drop with its rate named
 ``rate``):
 a per-sample Bernoulli mask broadcast over C, H and W, the kept samples
 scaled by 1/(1 − rate) — Keras/flax Dropout with noise shape
-(B, 1, 1, 1). The mask comes from the generator the caller passes."""
+(B, 1, 1, 1). The mask comes from the generator the caller passes,
+through ``ops/noise.batch_rand``: under a data-parallel step each rank
+keeps its rows of the global batch's mask."""
 
 import torch
 from torch import nn
+
+from ..ops.noise import batch_rand
 
 
 def drop_mask(shape, rate: float, generator: torch.Generator,
@@ -16,7 +20,7 @@ def drop_mask(shape, rate: float, generator: torch.Generator,
     if generator is None:
         raise ValueError("a training-mode random mask needs an explicit "
                          "torch.Generator")
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    return batch_rand(tuple(shape), generator, device) < 1.0 - rate
 
 
 class StochasticDepth(nn.Module):

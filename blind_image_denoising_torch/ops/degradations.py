@@ -41,7 +41,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .noise import corrupt_batch
+from .noise import batch_rand, corrupt_batch
 from .precision import exact_float32
 
 # ---------------------------------------------------------------------------
@@ -99,8 +99,7 @@ def random_rotate_batch(generator: torch.Generator, batch: torch.Tensor,
     """Rotation augmentation: per-sample angle ~ U[−max_angle,
     +max_angle] radians (``dataset.random_rotate``)."""
     a = float(max_angle)
-    u = torch.rand((batch.shape[0],), generator=generator,
-                   device=batch.device)
+    u = batch_rand((batch.shape[0],), generator, batch.device)
     return rotate_batch(batch, -a + 2.0 * a * u)
 
 
@@ -141,9 +140,9 @@ def random_blur(generator: torch.Generator, batch: torch.Tensor,
     """With probability ``prob`` per sample, Gaussian blur at σ ~
     U[sigma_range] (``dataset.random_blur``)."""
     b, dev = batch.shape[0], batch.device
-    flags = torch.rand((b, 1, 1, 1), generator=generator, device=dev) < prob
+    flags = batch_rand((b, 1, 1, 1), generator, dev) < prob
     lo, hi = float(sigma_range[0]), float(sigma_range[1])
-    sig = lo + (hi - lo) * torch.rand((b,), generator=generator, device=dev)
+    sig = lo + (hi - lo) * batch_rand((b,), generator, dev)
     return torch.where(flags, separable_blur_batch(batch, sig, taps), batch)
 
 
@@ -270,10 +269,9 @@ def random_jpeg(generator: torch.Generator, batch: torch.Tensor,
     """With probability ``prob`` per sample, JPEG at quality ~
     U[quality_range] (``dataset.use_jpeg_noise``)."""
     b, dev = batch.shape[0], batch.device
-    flags = torch.rand((b, 1, 1, 1), generator=generator, device=dev) < prob
+    flags = batch_rand((b, 1, 1, 1), generator, dev) < prob
     lo, hi = float(quality_range[0]), float(quality_range[1])
-    quality = lo + (hi - lo) * torch.rand((b,), generator=generator,
-                                          device=dev)
+    quality = lo + (hi - lo) * batch_rand((b,), generator, dev)
     return torch.where(flags, jpeg_artifacts(batch, quality), batch)
 
 
@@ -290,8 +288,8 @@ def quantize_batch(batch: torch.Tensor, q: float) -> torch.Tensor:
 def random_quantize(generator: torch.Generator, batch: torch.Tensor,
                     q: float, prob: float = 0.5) -> torch.Tensor:
     """Posterize with probability ``prob`` per sample."""
-    flags = torch.rand((batch.shape[0], 1, 1, 1), generator=generator,
-                       device=batch.device) < prob
+    flags = batch_rand((batch.shape[0], 1, 1, 1), generator,
+                       batch.device) < prob
     return torch.where(flags, quantize_batch(batch, float(q)), batch)
 
 
@@ -304,13 +302,12 @@ def inpaint_dropout(generator: Optional[torch.Generator], batch: torch.Tensor,
     gates the holes per sample; at 1.0 every sample gets them."""
     b, h, w, _ = batch.shape
     if keep is None:
-        keep = torch.rand((b, h, w, 1), generator=generator,
-                          device=batch.device) >= float(drop_rate)
+        keep = batch_rand((b, h, w, 1), generator,
+                          batch.device) >= float(drop_rate)
     holed = torch.where(keep, batch, torch.zeros_like(batch))
     if prob >= 1.0:
         return holed
-    flags = torch.rand((b, 1, 1, 1), generator=generator,
-                       device=batch.device) < prob
+    flags = batch_rand((b, 1, 1, 1), generator, batch.device) < prob
     return torch.where(flags, holed, batch)
 
 
@@ -368,8 +365,8 @@ def degrade_batch(
         generator.set_state(before_noise)
         noise_only = corrupt_batch(generator, clean, **noise_kw)
         generator.set_state(after_chain)
-        flags = torch.rand((clean.shape[0], 1, 1, 1), generator=generator,
-                           device=clean.device) < c
+        flags = batch_rand((clean.shape[0], 1, 1, 1), generator,
+                           clean.device) < c
         noisy = torch.where(flags, noisy, noise_only)
     if round_values:
         noisy = torch.round(noisy)

@@ -11,6 +11,11 @@ the normal CDF on a uniform restricted to [Φ(−2), Φ(2)], as
 ``jax.random.truncated_normal`` does. This is the corruption when ``tpu.pallas_noise`` is off, and the
 yardstick the noise kernel (``ops/pallas_noise.py``, which redraws once
 and clips) is held against by its statistics.
+
+Every per-sample draw goes through :func:`batch_rand`: under a
+data-parallel step (``parallel/mesh.batch_shard``) it draws for the
+global batch and keeps this rank's rows, so each rank's samples get the
+draws they get in the single-process step on the global batch.
 """
 
 import math
@@ -18,12 +23,29 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.mesh import current_batch_shard
+
+
+def batch_rand(shape: Tuple[int, ...], generator: torch.Generator,
+               device=None, dtype=torch.float32) -> torch.Tensor:
+    """``torch.rand(shape)`` whose dim 0 is the batch. Under a
+    data-parallel step with this rank at position ``i`` of ``n`` it is
+    rows ``i·b … i·b + b − 1`` of the draw of ``(n·b,) + shape[1:]``."""
+    shard = current_batch_shard()
+    if shard is None or shard.count == 1:
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=dtype)
+    b = shape[0]
+    full = torch.rand((shard.count * b,) + tuple(shape[1:]),
+                      generator=generator, device=device, dtype=dtype)
+    return full[shard.index * b:(shard.index + 1) * b]
+
 
 def truncated_normal(shape: Tuple[int, ...], generator: torch.Generator,
                      device=None, dtype=torch.float32) -> torch.Tensor:
     """Standard normal truncated to [−2, 2]."""
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
-    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    u = batch_rand(tuple(shape), generator, device, dtype)
     z = math.sqrt(2.0) * torch.erfinv(lo + u * (hi - lo))
     return torch.clamp(z, -2.0, 2.0)
 
@@ -34,12 +56,11 @@ def draw_stds(generator: torch.Generator, b: int, lo: float, hi: float,
     ``log_uniform``: σ = exp(U[log lo, log hi]) with lo floored at 1e-3,
     equal mass per octave."""
     if sampling == "uniform":
-        return lo + (hi - lo) * torch.rand((b, 1, 1, 1), generator=generator,
-                                           device=device)
+        return lo + (hi - lo) * batch_rand((b, 1, 1, 1), generator, device)
     if sampling == "log_uniform":
         lo = max(float(lo), 1e-3)
         hi = max(float(hi), lo)
-        u = torch.rand((b, 1, 1, 1), generator=generator, device=device)
+        u = batch_rand((b, 1, 1, 1), generator, device)
         return torch.exp(math.log(lo) + (math.log(hi) - math.log(lo)) * u)
     raise ValueError(f"unknown noise_sampling [{sampling}] "
                      f"(expected 'uniform' or 'log_uniform')")
@@ -61,8 +82,7 @@ def corrupt_batch(generator: torch.Generator, batch: torch.Tensor,
         if rng is None or len(rng) == 0:
             continue
         lo, hi = float(min(rng)), float(max(rng))
-        flags = torch.rand((b, 1, 1, 1), generator=generator,
-                           device=dev) > 0.5
+        flags = batch_rand((b, 1, 1, 1), generator, dev) > 0.5
         stds = draw_stds(generator, b, lo, hi, noise_sampling, dev)
         z = truncated_normal(batch.shape, generator, device=dev)
         noisy = torch.where(flags, noisy * (1.0 + stds * z) if multiplicative
@@ -93,7 +113,6 @@ def random_flips(generator: torch.Generator, batch: torch.Tensor,
     out = batch
     for on, axis in ((left_right, 2), (up_down, 1)):
         if on:
-            flags = torch.rand((b, 1, 1, 1), generator=generator,
-                               device=batch.device) > 0.5
+            flags = batch_rand((b, 1, 1, 1), generator, batch.device) > 0.5
             out = torch.where(flags, out.flip(axis), out)
     return out

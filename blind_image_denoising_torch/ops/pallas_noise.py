@@ -33,7 +33,12 @@ kernels already build that way (``ops/cuda_build.py``).
 
 ``corrupt_noise`` takes an NHWC float32 batch like the JAX function. A
 tensor on the CPU goes through :func:`corrupt_batch_plain`; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. ``sample_offset`` names the
+batch's first row in a larger global batch: the counter's sample word is
+the global row, so a data-parallel rank holding rows ``r·b … r·b + b −
+1`` draws exactly those rows of the single-process draw (the JAX kernel
+under GSPMD draws over the global batch); offset 0 is the kernel as it
+was, bit for bit.
 """
 
 import ctypes
@@ -109,11 +114,26 @@ def _ranges(additive_noise, multiplicative_noise):
     return use_mul, use_add, mlo, mhi, alo, ahi
 
 
+def _check_offset(batch_size: int, sample_offset: int) -> None:
+    if sample_offset < 0 or sample_offset + batch_size > _MASK32 + 1:
+        raise ValueError(f"sample_offset {sample_offset} + batch "
+                         f"{batch_size} must lie in [0, 2^32]")
+
+
+def _rows(batch_size: int, sample_offset: int, device) -> torch.Tensor:
+    """The global rows of the batch, int64 (the counter's sample word)."""
+    _check_offset(batch_size, sample_offset)
+    return torch.arange(sample_offset, sample_offset + batch_size,
+                        dtype=torch.int64, device=device)
+
+
 def sample_params_plain(seed: int, batch_size: int, mlo: float, mhi: float,
-                        alo: float, ahi: float, device=None) -> torch.Tensor:
+                        alo: float, ahi: float, device=None,
+                        sample_offset: int = 0) -> torch.Tensor:
     """Per-sample [mul_on, mul_std, add_on, add_std], [B, 4] float32, from
-    Philox stream 1 — the kernel's per-sample header."""
-    b = torch.arange(batch_size, dtype=torch.int64, device=device)
+    Philox stream 1 — the kernel's per-sample header — for the global
+    rows ``sample_offset … sample_offset + B − 1``."""
+    b = _rows(batch_size, sample_offset, device)
     zero = torch.zeros_like(b)
     w = philox4x32_10((zero, b, zero + 1, zero), (int(seed) & _MASK32, 0))
     u = [_bits_to_uniform(v) for v in w]
@@ -125,12 +145,14 @@ def sample_params_plain(seed: int, batch_size: int, mlo: float, mhi: float,
 
 
 def normal_draws_plain(seed: int, batch_size: int, n: int,
-                       device=None) -> Tuple[torch.Tensor, ...]:
-    """Philox stream 0 for ``n`` elements of each sample: the first
-    Box–Muller draw and the truncated normal, for the multiplicative and
-    the additive noise — (z0_mul, z_mul, z0_add, z_add), each [B, n]."""
+                       device=None,
+                       sample_offset: int = 0) -> Tuple[torch.Tensor, ...]:
+    """Philox stream 0 for ``n`` elements of each sample (global rows from
+    ``sample_offset``): the first Box–Muller draw and the truncated
+    normal, for the multiplicative and the additive noise — (z0_mul,
+    z_mul, z0_add, z_add), each [B, n]."""
     e = torch.arange(n, dtype=torch.int64, device=device)[None, :]
-    b = torch.arange(batch_size, dtype=torch.int64, device=device)[:, None]
+    b = _rows(batch_size, sample_offset, device)[:, None]
     zero = torch.zeros((batch_size, n), dtype=torch.int64, device=device)
     w = philox4x32_10((zero + e, zero + b, zero, zero),
                       (int(seed) & _MASK32, 0))
@@ -141,19 +163,21 @@ def corrupt_batch_plain(seed: int, batch: torch.Tensor,
                         additive_noise: Optional[Sequence[float]] = None,
                         multiplicative_noise: Optional[Sequence[float]] = None,
                         round_values: bool = True,
-                        return_params: bool = False):
+                        return_params: bool = False,
+                        sample_offset: int = 0):
     """Plain PyTorch version of the kernel: the same Philox draws and the
     same float32 steps in the same order. Returns the corrupted batch, or
     (batch, [B, 4] per-sample params) with ``return_params``."""
     b = batch.shape[0]
     use_mul, use_add, mlo, mhi, alo, ahi = _ranges(additive_noise,
                                                    multiplicative_noise)
-    params = sample_params_plain(seed, b, mlo, mhi, alo, ahi, batch.device)
+    params = sample_params_plain(seed, b, mlo, mhi, alo, ahi, batch.device,
+                                 sample_offset)
     y = batch.float()
     if use_mul or use_add:
         flat = y.reshape(b, -1)
         _, z_mul, _, z_add = normal_draws_plain(seed, b, flat.shape[1],
-                                                batch.device)
+                                                batch.device, sample_offset)
         if use_mul:
             on = params[:, 0:1] > 0
             flat = torch.where(on, flat * (1.0 + params[:, 1:2] * z_mul),
@@ -170,11 +194,13 @@ def corrupt_batch_plain(seed: int, batch: torch.Tensor,
 def corrupt_noise(seed: int, batch: torch.Tensor,
                   additive_noise: Optional[Sequence[float]] = None,
                   multiplicative_noise: Optional[Sequence[float]] = None,
-                  round_values: bool = True, return_params: bool = False):
+                  round_values: bool = True, return_params: bool = False,
+                  sample_offset: int = 0):
     """Fused corruption of a float32 [B, H, W, C] batch in [0, 255].
     ``seed``: an int in [0, 2^32) (the train step draws one per micro-batch
     on the host). With ``return_params`` also returns the per-sample
-    [mul_on, mul_std, add_on, add_std], [B, 4] float32."""
+    [mul_on, mul_std, add_on, add_std], [B, 4] float32.
+    ``sample_offset``: the batch's first row in the global batch."""
     global launches
     if batch.ndim != 4:
         raise ValueError(f"corrupt_noise takes [B, H, W, C], got "
@@ -182,7 +208,7 @@ def corrupt_noise(seed: int, batch: torch.Tensor,
     if batch.device.type == "cpu":
         return corrupt_batch_plain(seed, batch, additive_noise,
                                    multiplicative_noise, round_values,
-                                   return_params)
+                                   return_params, sample_offset)
     if batch.device.type != "cuda":
         raise ValueError(f"corrupt_noise: unsupported device {batch.device}")
     if batch.dtype != torch.float32:
@@ -195,6 +221,7 @@ def corrupt_noise(seed: int, batch: torch.Tensor,
     if n > _MASK32 or b > 65535:
         raise ValueError(f"corrupt_noise kernel takes B <= 65535 and "
                          f"H·W·C < 2^32, got {tuple(batch.shape)}")
+    _check_offset(b, sample_offset)
     x = batch.contiguous()
     out = torch.empty_like(x)
     params = (torch.empty((b, 4), dtype=torch.float32, device=x.device)
@@ -203,12 +230,12 @@ def corrupt_noise(seed: int, batch: torch.Tensor,
         lib = cuda_build.library()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = lib.bid_corrupt_noise(
+            rc = lib.bid_corrupt_noise_at(
                 x.data_ptr(), out.data_ptr(),
                 params.data_ptr() if params is not None else None,
-                b, n, ctypes.c_uint32(int(seed) & _MASK32), mlo, mhi, alo,
-                ahi, int(use_mul), int(use_add), int(bool(round_values)),
-                stream)
+                b, n, ctypes.c_uint32(int(seed) & _MASK32),
+                ctypes.c_uint32(int(sample_offset)), mlo, mhi, alo, ahi,
+                int(use_mul), int(use_add), int(bool(round_values)), stream)
         cuda_build.check(lib, rc, "corrupt_noise kernel")
         launches += 1
     return (out, params) if return_params else out

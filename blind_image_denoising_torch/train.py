@@ -5,9 +5,16 @@
         [--weights-directory ARTIFACT_OR_CHECKPOINT_DIR] [--total-steps N] \
         [--device cpu]
 
-Trains on the card unless ``--device`` names another torch device. The
-JAX CLI's multi-host flags raise: several processes are ROADMAP Queue 1
-item 13.
+Trains on the card unless ``--device`` names another torch device.
+Several processes, one command per rank (``parallel/multihost.py``):
+
+    python -m blind_image_denoising_torch.train ... \
+        --coordinator-address localhost:29500 --num-processes 2 \
+        --process-id $RANK [--device cpu] [--backend gloo]
+
+``dataset.batch_size`` is then the global batch. ``--backend`` defaults
+to NCCL on the card and gloo on the CPU; two ranks on one card need
+``--backend gloo``.
 """
 
 import argparse
@@ -18,9 +25,6 @@ import sys
 from .training.train_loop import train_loop
 
 logger = logging.getLogger("blind_image_denoising_torch")
-
-_MULTI_HOST = ("coordinator_address", "num_processes", "process_id",
-               "local_device_count")
 
 
 def main(argv=None) -> int:
@@ -39,23 +43,52 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None, type=str,
                         help="torch device; default the card ('cpu' to "
                              "train on the CPU)")
-    for flag in _MULTI_HOST:
-        parser.add_argument("--" + flag.replace("_", "-"), default=None,
-                            help="multi-host training: not ported (ROADMAP "
-                                 "Queue 1 item 13)")
+    # several processes (one per device; parallel/multihost.py):
+    #   python -m …train --coordinator-address host0:1234 \
+    #       --num-processes 4 --process-id $RANK …
+    parser.add_argument("--coordinator-address", default=None, type=str,
+                        help="host:port of process 0 — enables multi-host "
+                             "training")
+    parser.add_argument("--num-processes", default=None, type=int,
+                        help="total number of processes in the multi-host "
+                             "job")
+    parser.add_argument("--process-id", default=None, type=int,
+                        help="this process's rank in [0, num_processes)")
+    parser.add_argument("--local-device-count", default=None, type=int,
+                        help="devices per process: the port runs one")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="torch.distributed backend (default: nccl on "
+                             "the card, gloo on the CPU; gloo puts several "
+                             "ranks on one card)")
     args = parser.parse_args(argv)
-    given = [f for f in _MULTI_HOST if getattr(args, f) is not None]
-    if given:
-        raise NotImplementedError(
-            f"multi-host training ({', '.join(given)}) is not ported yet "
-            f"(ROADMAP Queue 1 item 13)")
+
+    multi = args.coordinator_address is not None
+    if multi:
+        if args.num_processes is None or args.process_id is None:
+            logger.error("--coordinator-address requires --num-processes "
+                         "and --process-id")
+            return 1
+        from .parallel.multihost import initialize
+        initialize(args.coordinator_address, args.num_processes,
+                   args.process_id,
+                   local_device_count=args.local_device_count,
+                   backend=args.backend, device=args.device)
+
     if not os.path.isfile(args.pipeline_config):
         logger.error(f"pipeline config [{args.pipeline_config}] not found")
         return 1
+
     train_loop(pipeline_config=args.pipeline_config,
                checkpoint_directory=args.checkpoint_directory,
                weights_directory=args.weights_directory,
                total_steps_override=args.total_steps, device=args.device)
+
+    if multi:
+        # align the ranks before leaving the process group: the primary's
+        # teardown (metrics, TensorBoard) is slower than the others'
+        from .parallel.multihost import shutdown, sync
+        sync("train_done")
+        shutdown()
     return 0
 
 

@@ -9,7 +9,9 @@ and ``ema_params`` (None when the run had no EMA), all on the CPU. It is
 written to a temporary file in the directory and renamed into place, so
 a reader never sees half a checkpoint; a second save at the same step
 is a no-op unless it asks to replace the first (the loop's save after a
-prune).
+prune). Under several processes the primary rank alone writes, and every
+rank then waits at a barrier, so a rank that restores next reads what
+was written; every rank restores from the same directory.
 """
 
 import logging
@@ -20,6 +22,7 @@ from typing import List, Optional
 
 import torch
 
+from ..parallel import multihost
 from .train_state import TrainState
 
 logger = logging.getLogger("blind_image_denoising_torch")
@@ -58,8 +61,16 @@ class CheckpointManager:
              replace: bool = False) -> bool:
         """Write the state at ``state.step``; False when a checkpoint of
         that step exists (unless ``replace``) or (without ``force``) the
-        step is off the save interval. Keeps the newest
-        ``max_to_keep``."""
+        step is off the save interval, and on every rank but the primary.
+        Keeps the newest ``max_to_keep``."""
+        if multihost.process_count() == 1:
+            return self._save(state, force, replace)
+        wrote = (self._save(state, force, replace) if multihost.is_primary()
+                 else False)
+        multihost.sync("checkpoint")
+        return wrote
+
+    def _save(self, state: TrainState, force: bool, replace: bool) -> bool:
         step = int(state.step)
         if step in self.all_steps() and not replace:
             return False

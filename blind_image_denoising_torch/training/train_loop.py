@@ -25,14 +25,24 @@ Entry point: :func:`train_loop`, on the card unless ``device="cpu"``.
 Under ``dataset.apply_degradations`` the config's degradation keys
 reach the train step (rotation and the chain of ``ops/degradations.py``,
 the restoration recipe); ``train.distillation`` gives the step a frozen
-teacher (``training/distill.py``). What the JAX loop does and the port
-does not yet: a device mesh and several processes (ROADMAP Queue 1 item
-13), which raise ``NotImplementedError`` naming the item.
+teacher (``training/distill.py``).
+
+Several processes (``parallel/multihost.initialize`` first, one rank a
+device): ``dataset.batch_size`` is the GLOBAL batch, each rank decodes
+its file shard at ``batch_size / ranks`` and trains under the mesh of
+``tpu.mesh`` (JAX's checks and messages; ``parallel/mesh.py``'s
+data-parallel step). The primary rank alone writes ``config.json``, the
+checkpoints (a barrier follows each save), ``metrics.jsonl``, the
+figures, the noise sweep's records and the profile; every rank restores;
+the pruned weights are broadcast from the primary. Spatially sharded
+training (``tpu.mesh.spatial_training`` with spatial > 1) raises
+``NotImplementedError``: it is the next slice.
 """
 
 import contextlib
 import json
 import logging
+import math
 import os
 import signal
 import time
@@ -51,6 +61,8 @@ from ..inference.export import resolve_device
 from ..models.hydra import model_builder
 from ..ops.losses import mae, psnr
 from ..ops.noise import corrupt_batch_fixed_std
+from ..parallel import multihost
+from ..parallel.mesh import create_mesh, replicate_sharding, shard_train_step
 from ..pruning import prune_function_builder, prune_params
 from ..weights import load_msgpack, params_from_flax
 from .checkpoint import CheckpointManager
@@ -69,11 +81,6 @@ _NEUTRAL_DEGRADATIONS = {
     "random_rotate": 0.0, "use_random_blur": False, "use_jpeg_noise": False,
     "quantization": -1, "inpaint_drop_rate": 0.0, "degradation_prob": 0.5,
     "degradation_chain_prob": 1.0}
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def resolve_degradation_options(dataset_config: Dict) -> Dict:
@@ -112,17 +119,55 @@ def resolve_degradation_options(dataset_config: Dict) -> Dict:
     return resolved
 
 
-def _refuse_unported(config: Dict) -> None:
-    dataset = config["dataset"]
-    mesh = config.get("tpu", {}).get("mesh", {"data": -1})
-    if (mesh.get("data", -1) not in (-1, 1)
-            or int(mesh.get("spatial", 1)) != 1
-            or int(mesh.get("dcn", 1)) != 1
-            or mesh.get("spatial_training")):
-        raise _not_ported(f"a device mesh (tpu.mesh {mesh}); the port "
-                          f"trains on one device", 13)
-    if int(dataset.get("process_count") or 1) > 1:
-        raise _not_ported("multi-process training", 13)
+def _build_mesh(tpu_config: Dict, batch_size: int, n_proc: int):
+    """The mesh of ``tpu.mesh`` over the process group's ranks (one device
+    a rank), with the JAX loop's clamp, checks and messages. Spatially
+    sharded training raises, naming the next slice."""
+    mesh_cfg = tpu_config.get("mesh", {"data": -1})
+    spatial = int(mesh_cfg.get("spatial", 1))
+    dcn = max(1, int(mesh_cfg.get("dcn", 1)))
+    data = mesh_cfg.get("data", -1)
+    n_dev = n_proc
+    if data == -1:
+        data = n_dev // (spatial * dcn)
+    if batch_size % dcn:
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"dcn={dcn} slices")
+    # clamp so the ('dcn','data')-sharded batch divides evenly
+    data = math.gcd(int(data), batch_size // dcn)
+    if n_proc > 1 and dcn * data * spatial != n_dev:
+        raise ValueError(
+            f"multi-host mesh dcn={dcn} x data={data} x spatial={spatial} "
+            f"covers {dcn * data * spatial} of {n_dev} global "
+            f"devices (data was clamped to divide batch_size={batch_size}); "
+            f"every process must own mesh devices — use a global "
+            f"batch_size divisible by "
+            f"{n_dev // (spatial * dcn) * dcn} (so 'data' can "
+            f"span all devices), or raise tpu.mesh.spatial/dcn so "
+            f"dcn*data*spatial covers all {n_dev} devices")
+    if bool(mesh_cfg.get("spatial_training", False)) and spatial > 1:
+        raise NotImplementedError(
+            f"spatially sharded training (tpu.mesh.spatial_training with "
+            f"spatial={spatial}) is not ported yet: it needs a halo "
+            f"exchange under every conv, pool and resize in autograd "
+            f"(ROADMAP Queue 1 item 13, spatial training, the next slice)")
+    if dcn * data * spatial < n_dev:
+        logger.warning(
+            f"mesh dcn={dcn} x data={data} x spatial={spatial} uses "
+            f"{dcn * data * spatial} of {n_dev} devices "
+            f"(data clamped to divide batch_size={batch_size}); use a "
+            f"batch_size divisible by "
+            f"{n_dev // (spatial * dcn) * dcn} to engage "
+            f"every device")
+    mesh = create_mesh(data=data, spatial=spatial, dcn=dcn)
+    if bool(mesh_cfg.get("spatial_training", False)):
+        logger.warning(
+            "tpu.mesh.spatial_training requested but NOT active "
+            f"(spatial={spatial}) — it needs spatial > 1; the step will "
+            "run without H sharding")
+    logger.info(f"mesh: {dict(mesh.shape)} over {n_dev} devices"
+                + (f" ({multihost.backend()})" if n_proc > 1 else ""))
+    return mesh
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -234,15 +279,37 @@ def train_loop(
     the CPU. Returns the final state."""
     dev = resolve_device(device)
     config = load_config(pipeline_config)
-    _refuse_unported(config)
 
     ckpt_dir = Path(str(checkpoint_directory))
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    save_config(config, os.path.join(str(ckpt_dir), "config.json"))
+    primary = multihost.is_primary()
+    if primary:
+        save_config(config, os.path.join(str(ckpt_dir), "config.json"))
 
     train_config = config["train"]
     dataset_config = config["dataset"]
     tpu_config = config.get("tpu", {})
+
+    # several processes: batch_size is the GLOBAL batch; each rank decodes
+    # its file shard (dataset_builder defaults to the process group's)
+    n_proc = multihost.process_count()
+    batch_size = int(dataset_config["batch_size"])
+    if n_proc > 1:
+        if batch_size % n_proc:
+            raise ValueError(
+                f"global batch_size {batch_size} not divisible by "
+                f"{n_proc} processes")
+        if dataset_config.get("inputs") and not dataset_config.get("repeat"):
+            # per-rank file shards give different batch counts an epoch,
+            # and a rank that runs one extra step leaves its peers'
+            # collectives without participants: a deadlock
+            raise ValueError(
+                "multi-host training requires dataset.repeat=true with "
+                "train.total_steps (epoch-bounded per-host file shards "
+                "desynchronize the cross-host step count)")
+        dataset_config = dict(dataset_config,
+                              batch_size=batch_size // n_proc)
+    mesh = _build_mesh(tpu_config, batch_size, n_proc)
 
     dataset = dataset_builder(dataset_config)
     loss_fns = loss_function_builder(config["loss"])
@@ -311,19 +378,25 @@ def train_loop(
 
     # the hot step computes no percentiles; the stats variant runs only on
     # the steps whose gradients feed the figures
-    train_step = make_step(False)
-    stats_step = make_step(True) if grad_stats else None
+    train_step = shard_train_step(make_step(False), mesh)
+    stats_step = (shard_train_step(make_step(True), mesh) if grad_stats
+                  else None)
     eval_step = build_eval_step(hydra)
     ds_schedule = deep_supervision_schedule_builder(
         train_config.get("deep_supervision", {"type": "linear_low_to_high"}),
         no_outputs=no_outputs)
 
-    eval_batch = (_to_device(np.asarray(load_evaluation_images(512),
-                                        np.float32), dev)
-                  if train_config.get("use_test_images", True) else None)
-    writer = MetricsWriter(str(ckpt_dir))
+    eval_batch = (multihost.replicate(
+        replicate_sharding(mesh),
+        np.asarray(load_evaluation_images(512), np.float32), dev)
+        if train_config.get("use_test_images", True) else None)
+    writer = MetricsWriter(str(ckpt_dir), enabled=primary)
     writer.text(0, "config", json.dumps(config, indent=2))
     writer.warm()
+    if multihost.is_initialized():
+        # every rank aligned, and the backend's communicator up, before the
+        # first training collective
+        multihost.sync("pre_train")
 
     epochs = train_config.get("epochs", 1)
     total_steps = train_config.get("total_steps", -1)
@@ -417,7 +490,8 @@ def train_loop(
                                    % visualization_every == 0)
                     step_fn = stats_step if (stats_step is not None
                                              and is_viz_step) else train_step
-                    if profile_at > 0 and host_step + 1 == profile_at:
+                    if (profile_at > 0 and host_step + 1 == profile_at
+                            and primary):
                         from .profiling import trace
                         with trace(os.path.join(str(ckpt_dir), "profile")):
                             state, metrics = step_fn(
@@ -438,8 +512,12 @@ def train_loop(
                     if step % log_every == 0 or is_viz_step:
                         pending = _PendingMetrics(step, epoch, metrics)
 
+                    # the sweep and the figures are the primary's: their
+                    # writes are no-ops elsewhere and they hold no
+                    # collective
                     if (eval_batch is not None and visualization_every > 0
-                            and step % visualization_every == 0):
+                            and step % visualization_every == 0
+                            and primary):
                         if pending is not None:
                             process_metrics(pending)
                             pending = None
@@ -497,7 +575,9 @@ def _maybe_prune(state: TrainState, prune_config: Optional[Dict]) -> bool:
         for tensors in (state.params, state.ema_params):
             if tensors is None:
                 continue
-            pruned = prune_params(tensors, prune_fn)
+            # the primary's pruned weights are every rank's
+            pruned = multihost.broadcast_from_primary(
+                prune_params(tensors, prune_fn))
             for name, t in tensors.items():
                 t.copy_(pruned[name])
     logger.info(f"epoch {state.epoch}: pruned weights "

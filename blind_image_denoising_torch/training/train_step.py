@@ -27,6 +27,14 @@ corrupted micro-batch outside the graph; its output adds a
 (metrics ``distill/mae_loss`` and ``distill/total_loss``) while the
 hard-GT losses are scaled by ``distill_gt_weight``. The chain runs in
 eager PyTorch ops inside the profiler range ``degradations.chain``.
+
+Under ``parallel/mesh.shard_train_step`` (a data-parallel step) the
+batch is this rank's rows of the global batch: the per-sample draws are
+the global batch's rows (``ops/noise.batch_rand``, the noise kernel's
+``sample_offset``), BatchNorm's statistics are global, and the
+gradients and metrics are ``all_reduce``d to their means over the batch
+axes before the clip, the optimizer and the EMA, so the update is the
+single-process step's on the global batch and alike on every rank.
 """
 
 from typing import Callable, Dict, Optional, Sequence
@@ -45,6 +53,7 @@ from ..ops.pallas_noise import corrupt_noise
 from ..ops.precision import exact_float32
 from ..ops.regularizers import regularization_loss
 from ..ops.resize import nchw, nhwc
+from ..parallel.mesh import current_batch_shard, reduce_mean_
 from .optimizer import global_norm
 from .train_state import TrainState
 
@@ -200,11 +209,16 @@ def build_train_step(
                     degradation_prob=degradation_prob,
                     chain_prob=degradation_chain_prob)
         elif use_pallas_noise:
+            # one seed for every rank: the host generators are seeded alike
             seed = int(torch.randint(0, 2 ** 31 - 1, (),
                                      generator=state.host_generator))
+            shard = current_batch_shard()
             noisy = corrupt_noise(seed, clean, additive_noise=additive_noise,
                                   multiplicative_noise=multiplicative_noise,
-                                  round_values=round_values)
+                                  round_values=round_values,
+                                  sample_offset=(0 if shard is None else
+                                                 shard.index
+                                                 * clean.shape[0]))
         else:
             noisy = corrupt_batch(generator, clean,
                                   additive_noise=additive_noise,
@@ -255,6 +269,11 @@ def build_train_step(
         if n > 1:
             torch._foreach_div_(grads, float(n))
             metrics = {k: v / n for k, v in metrics.items()}
+        shard = current_batch_shard()
+        if shard is not None and shard.group is not None:
+            # the means over the batch axes: one all_reduce of the
+            # gradients and the metrics together
+            reduce_mean_(grads + list(metrics.values()), shard)
         metrics["grad_norm"] = global_norm(grads)
         if grad_stats:
             metrics["grad_stats"] = {

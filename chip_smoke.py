@@ -139,6 +139,29 @@ drive the two paths of the port through the entry points a user calls:
   against CPU, then served f32 at b8 @ 256²; ``SqueezeExcite``,
   ``GatedMLP``, ``ValueCompressor`` and ``NonLocalAttention`` (16 × 16)
   forward card against CPU; no K1–K4 launch;
+* parallel: several processes of this script on the one card
+  (``--parallel-worker``; each rank's failure or timeout fails the
+  phase). Two gloo ranks (NCCL refuses two ranks on one device): the
+  flagship's data-parallel step (``parallel.shard_train_step``, 2 × b8
+  @ 128², full width, packaged weights, K3, drop-path on) against the
+  single-process step on b16 in f32 (loss 1e-6 relative, every param
+  1e-5 of its tensor's largest entry) and in bf16 (read), the ranks'
+  params and each rank's K3 rows bit-equal to the single step's, K2 2,
+  K2 bwd 2, K3 1 a rank; the 2160×3840 frame through
+  ``Denoiser(mesh=…, spatial_margin=88)`` on 2 spatial ranks, the
+  attention-free flagship config at full width from a seeded init, f32
+  within 1e-3 gray levels of the unsharded forward and bf16 within §2's
+  bar, each slab launching what one unsharded forward does, peak memory
+  a rank; the packaged flagship sharded (read: its attention sees a
+  slab). Then the train CLI as 2 gloo ranks (``--coordinator-address``)
+  on the train_loop phase's config and scenes (5 steps from the
+  artifact, a resume to 7): rank 0 alone writes checkpoints and
+  ``metrics.jsonl``, the ranks end bit-equal, the restore is bit for
+  bit, K2 16, K2 bwd 16, K3 8 a step at the local b2, the syncs in a
+  gloo step, steps/s and rank 0's profiled idle share (read); and one
+  NCCL rank alone, 4 steps with ``set_sync_debug_mode("error")`` inside
+  each. Every kernel input the ranks launched against the plain
+  versions (rank 0);
 
 check what comes out, and time the kernels and the paths (K1 also in
 its float32 I/O mode, which serves ``load_model(dtype="float32")``: one
@@ -151,7 +174,7 @@ operations it must do over their peak rate, whichever is larger
 
     python3 chip_smoke.py [--profile-out FILE] [--keep-export DIR]
                           [--keep-family DIR] [--keep-distill DIR]
-                          [--dump-train-check DIR]
+                          [--dump-train-check DIR] [--only-parallel]
 
 Imports only the port, torch and numpy; images are synthetic, made from
 a seed. Any failed check raises, so the exit code is nonzero and the
@@ -4038,6 +4061,580 @@ def layers_breadth_phase(bidt, smi, read_counts):
     return launches
 
 
+# the parallel phase: data-parallel training and spatially sharded serving
+# as separate processes on the one card. Two ranks share it through gloo
+# (NCCL refuses two ranks on one device); one NCCL rank alone shows the
+# NCCL path makes no host sync in a step. The DP step is train_check's
+# batch (b16 @ 128², full width, the packaged weights, the noise kernel,
+# drop-path on); the loop is the train_loop phase's config at its shipped
+# size on its scenes (dataset.repeat, as several processes need), 5 steps
+# from the artifact and a resume to 7; spatial serving is the 4K frame
+PARALLEL_TIMEOUT = 600
+PARALLEL_LOOP_STEPS, PARALLEL_RESUME_STEPS, PARALLEL_PROFILE_STEP = 5, 7, 2
+PARALLEL_OVERRIDES = dict(LOOP_OVERRIDES, **{
+    "train.checkpoint_every": PARALLEL_LOOP_STEPS,
+    "train.visualization_every": 3,
+    "train.profile_at_step": PARALLEL_PROFILE_STEP, "dataset.repeat": True})
+PARALLEL_NCCL_STEPS = 4
+# the DP step against the single-process step on the global batch: loss
+# relative, every param of its tensor's largest entry
+DP_LOSS_RTOL, DP_PARAM_TOL = 1e-6, 1e-5
+SPATIAL_HW = (2160, 3840)
+SPATIAL_F32_MAX = 1e-3          # gray levels before rounding, f32
+SPATIAL_REQUESTS = 3
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(role, n, work, timeout=PARALLEL_TIMEOUT, **spec):
+    """``n`` processes of this script as ranks of ``role``
+    (``--parallel-worker``), each writing ``<role>_<rank>.json`` into
+    ``work``; a rank that fails or outlives ``timeout`` fails the phase,
+    and every rank still running is killed."""
+    port = free_port()
+    here = Path(__file__).resolve()
+    procs = []
+    for rank in range(n):
+        arg = json.dumps(dict(spec, role=role, rank=rank, world=n, port=port,
+                              work=str(work)))
+        log_file = open(work / f"{role}_{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(here), "--parallel-worker", arg],
+            stdout=log_file, stderr=subprocess.STDOUT, cwd=str(here.parent)),
+            log_file))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            if time.monotonic() > deadline or any(
+                    p.poll() not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            f.close()
+    failed = [(rank, p.returncode) for rank, (p, _) in enumerate(procs)
+              if p.returncode != 0]
+    if failed:
+        tails = {rank: (work / f"{role}_{rank}.log").read_text()[-3000:]
+                 for rank, _ in failed}
+        raise AssertionError(f"parallel {role}: ranks {failed} failed: "
+                             f"{tails}")
+    return [json.loads((work / f"{role}_{rank}.json").read_text())
+            for rank in range(n)]
+
+
+def worker_counts(read_counts, before):
+    after = read_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def dp_step_rank(bidt, cfg, params, clean, mesh, dtype, read_counts, work,
+                 tag, rank):
+    """The flagship's step as this rank of the DP mesh, and on rank 0 the
+    single-process step on the whole batch after it: params, loss and the
+    noise kernel's output of each into ``work``. Returns this rank's
+    launches in its DP step."""
+    import importlib
+    from blind_image_denoising_torch.parallel import (shard_batch,
+                                                      shard_train_step)
+    step_mod = importlib.import_module(
+        "blind_image_denoising_torch.training.train_step")
+    out = {}
+    for sharded in ((True, False) if rank == 0 else (True,)):
+        state, step = build_trainer(cfg, params, dtype, "cuda", drop=True)
+        if sharded:
+            step = shard_train_step(step, mesh)
+            batch = shard_batch(mesh, clean, device="cuda")
+        else:
+            batch = torch.from_numpy(clean).cuda()
+        kept, real = [], step_mod.corrupt_noise
+
+        def keep(*a, **k):
+            y = real(*a, **k)
+            kept.append(y.detach().clone())
+            return y
+        step_mod.corrupt_noise = keep
+        try:
+            before = read_counts()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            launches = worker_counts(read_counts, before)
+        finally:
+            step_mod.corrupt_noise = real
+        name = "dp" if sharded else "single"
+        torch.save(dict(params={k: v.detach().cpu() for k, v in
+                                state.model.state_dict().items()},
+                        loss=float(metrics["total_loss"]),
+                        k3=[t.cpu() for t in kept]),
+                   work / f"{tag}_{name}_{rank}.pt")
+        out[name] = launches
+        del state, step
+    torch.cuda.empty_cache()
+    return out["dp"]
+
+
+def spatial_rank(bidt, mesh, read_counts, rank, smi):
+    """Spatial serving of the 4K frame on this rank: the attention-free
+    flagship config at full width from a seeded init, f32 and bf16,
+    through ``Denoiser(mesh=…, spatial_margin=…)``; rank 0 also runs the
+    unsharded forward and holds the two; then the packaged flagship
+    sharded and unsharded. Returns (result, launches per sharded
+    forward)."""
+    from blind_image_denoising_torch.inference.denoiser import Denoiser
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.parallel.spatial import (
+        receptive_field_margin)
+    from blind_image_denoising_torch.training.train_state import init_params
+    mc = copy.deepcopy(bidt.CONFIGS_DICT[TRAIN_CONFIG]["model"])
+    mc["backbone"]["use_self_attention"] = False
+    bb = mc["backbone"]
+    margin = receptive_field_margin(int(bb["depth"]),
+                                    max(bb["encoder_kernel_size"]),
+                                    max(bb["width"]))
+    rng = np.random.default_rng(SEED + 61)
+    frame = add_noise(synthetic_images(1, *SPATIAL_HW, rng), 20.0, rng)[0]
+    result = dict(margin=margin, frame=list(frame.shape))
+    launches = {}
+    # dtype None: float32, its forward with TF32 off (Hydra.forward)
+    for dtype, name in ((None, "f32"), (torch.bfloat16, "bf16")):
+        model = model_builder(copy.deepcopy(mc), dtype=dtype).hydra
+        init_params(model, torch.Generator().manual_seed(SEED + 62))
+        den = Denoiser(model, mesh=mesh, spatial_margin=margin,
+                       pad_multiple=64, device="cuda")
+        den.float_forward(frame[:256])          # warm the card's kernels
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        t0 = time.perf_counter()
+        y = den.float_forward(frame)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        launches[name] = worker_counts(read_counts, before)
+        padded = -(-SPATIAL_HW[0] // 64) * 64
+        row = dict(sharded_s=sharded_s, launches=launches[name],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   slab_rows=padded // mesh.shape["spatial"] + 2 * margin)
+        if rank == 0:
+            ref_den = Denoiser(model, pad_multiple=64, device="cuda")
+            before = read_counts()
+            t0 = time.perf_counter()
+            ref = ref_den.float_forward(frame)
+            torch.cuda.synchronize()
+            row["unsharded_s"] = time.perf_counter() - t0
+            row["unsharded_launches"] = worker_counts(read_counts, before)
+            row["max_abs"] = float((y - ref).abs().max())
+            row["gap"] = gray_gap(
+                torch.clamp(torch.round(y), 0, 255).cpu().numpy(),
+                torch.clamp(torch.round(ref), 0, 255).cpu().numpy())
+            del ref, ref_den
+        result[name] = row
+        del y, den, model
+        torch.cuda.empty_cache()
+    # the packaged flagship (level-2 attention over the whole map: not
+    # exact under sharding, as with tiling)
+    den = bidt.load_model(FLAGSHIP)
+    sharded = Denoiser(den.model, mesh=mesh, spatial_margin=margin,
+                       pad_mode=den._pad_mode, pad_multiple=den._pad_multiple,
+                       blend=den.blend, device="cuda")
+    before = read_counts()
+    times = timed_requests(sharded, frame, SPATIAL_REQUESTS)
+    launches["packaged"] = worker_counts(read_counts, before)
+    got = sharded(frame)
+    row = dict(sharded_median_s=statistics.median(times))
+    if rank == 0:
+        row["unsharded_median_s"] = statistics.median(
+            timed_requests(den, frame, SPATIAL_REQUESTS))
+        row["gap"] = gray_gap(got, den(frame))
+    result["packaged"] = row
+    del den, sharded
+    torch.cuda.empty_cache()
+    return result, launches
+
+
+def cohort_worker(spec, bidt, read_counts, smi):
+    """Rank ``spec["rank"]`` of the two gloo ranks on the card: the DP
+    step in f32 and bf16, then spatial serving."""
+    from blind_image_denoising_torch.ops import (pallas_convnext,
+                                                 pallas_noise, pallas_pyramid)
+    from blind_image_denoising_torch.parallel import create_mesh, multihost
+    from blind_image_denoising_torch.weights import (load_msgpack,
+                                                     params_from_flax)
+    rank, work = spec["rank"], Path(spec["work"])
+    multihost.initialize(f"localhost:{spec['port']}", spec["world"], rank,
+                         backend=spec["backend"])
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT[TRAIN_CONFIG])
+    cfg.setdefault("tpu", {})["pallas_noise"] = True    # as the train phase
+    params = params_from_flax(load_msgpack(
+        f"{bidt.models[FLAGSHIP]['directory']}/params.msgpack"))
+    clean = np.round(synthetic_images(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE,
+                                      np.random.default_rng(SEED + 60)))
+    result = dict(backend=multihost.backend(),
+                  device=str(multihost.device()))
+    with KernelInputs() as kernel_inputs:
+        dp_mesh = create_mesh(data=spec["world"])
+        result["dp_launches"] = {
+            tag: dp_step_rank(bidt, cfg, params, clean, dp_mesh, dtype,
+                              read_counts, work, tag, rank)
+            for tag, dtype in (("f32", None), ("bf16", torch.bfloat16))}
+        spatial_mesh = create_mesh(data=1, spatial=spec["world"])
+        result["spatial"], result["spatial_launches"] = spatial_rank(
+            bidt, spatial_mesh, read_counts, rank, smi)
+    multihost.sync("cohort")
+    if rank == 0:
+        result["errors"] = check_kernel_inputs(
+            pallas_convnext, pallas_pyramid, pallas_noise, kernel_inputs.seen,
+            SEED + 63, path="parallel")
+        result["checked"] = checked_shapes(kernel_inputs.seen)
+    multihost.shutdown()
+    return result
+
+
+def loop_worker(spec, bidt, read_counts, smi):
+    """Rank ``spec["rank"]`` of the train CLI (``spec["legs"]``: one argv a
+    leg and rank) under ``LoopProbe``: per step launches and syncs (sync
+    debug "warn", or "error" inside each step with ``spec["strict"]``),
+    the checkpoints this rank wrote, its metrics writer, each leg's final
+    state and the state it restored."""
+    import importlib
+    import warnings
+    from blind_image_denoising_torch import train as train_cli
+    from blind_image_denoising_torch.ops import (pallas_convnext,
+                                                 pallas_noise, pallas_pyramid)
+    from blind_image_denoising_torch.parallel import multihost
+    from blind_image_denoising_torch.training.checkpoint import (
+        CheckpointManager)
+    loop = importlib.import_module(
+        "blind_image_denoising_torch.training.train_loop")
+    rank, work = spec["rank"], Path(spec["work"])
+    wrote, writers, finals, backends = [], [], [], []
+    real = dict(save=CheckpointManager._save, writer=loop.MetricsWriter,
+                loop=train_cli.train_loop)
+
+    def save(manager, state, force, replace):
+        done = real["save"](manager, state, force, replace)
+        wrote.append([state.step, done])
+        return done
+
+    def writer(directory, enabled=True):
+        writers.append(enabled)
+        return real["writer"](directory, enabled=enabled)
+
+    def run_loop(*a, **k):
+        backends.append(multihost.backend())
+        state = real["loop"](*a, **k)
+        finals.append({n: v.detach().cpu()
+                       for n, v in state.model.state_dict().items()})
+        return state
+    CheckpointManager._save, loop.MetricsWriter = save, writer
+    train_cli.train_loop = run_loop
+    legs = []
+    try:
+        with KernelInputs() as kernel_inputs, \
+                LoopProbe(read_counts) as probe, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            probe.warnings = caught
+            if spec.get("strict"):
+                probed = loop.build_train_step
+
+                def strict_build(*a, **k):
+                    inner = probed(*a, **k)
+
+                    def step(*sa, **sk):
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            return inner(*sa, **sk)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+                    return step
+                loop.build_train_step = strict_build
+            else:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for argv in spec["legs"]:
+                    n0, t0 = len(probe.steps), time.perf_counter()
+                    if train_cli.main(argv[rank]) != 0:
+                        raise AssertionError(f"train CLI failed: {argv}")
+                    legs.append(dict(seconds=time.perf_counter() - t0,
+                                     steps=len(probe.steps) - n0))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                if spec.get("strict"):
+                    loop.build_train_step = probed
+    finally:
+        CheckpointManager._save, loop.MetricsWriter = (real["save"],
+                                                       real["writer"])
+        train_cli.train_loop = real["loop"]
+    ckpt_dir = Path(spec["ckpt_dir"])
+    restored = None
+    if len(spec["legs"]) > 1:
+        ckpt = CheckpointManager(str(ckpt_dir)).read(PARALLEL_LOOP_STEPS)
+        restored = snapshot_equals_checkpoint(probe.restored, ckpt)
+    torch.save(finals, work / f"{spec['role']}_final_{rank}.pt")
+    # start to start of two steps of one leg, neither the process's first
+    # nor the profiled one, the first not a stats step (a sweep follows)
+    bounds = set(np.cumsum([leg["steps"] for leg in legs]).tolist())
+    profiled = spec.get("profile_step")
+    steady = [b["start"] - a["start"] for i, (a, b) in enumerate(
+        zip(probe.steps, probe.steps[1:]))
+        if i and i + 1 not in bounds and not a["stats"]
+        and profiled not in (a["step"], b["step"])]
+    result = dict(
+        backends=backends, legs=legs, checkpoint_writes=wrote,
+        metrics_writer_enabled=writers, restore_differs=restored,
+        steps=[dict(step=s["step"], launches=s["launches"],
+                    syncs=s["syncs"], host_s=round(s["host_s"], 4))
+               for s in probe.steps],
+        sweeps=[dict(step=s["step"], launches=s["launches"])
+                for s in probe.sweeps],
+        steady_step_s=steady)
+    if rank == 0:
+        summary = ckpt_dir / "profile" / "summary.json"
+        result["profile"] = (json.loads(summary.read_text())
+                             if summary.is_file() else None)
+        result["errors"] = check_kernel_inputs(
+            pallas_convnext, pallas_pyramid, pallas_noise, kernel_inputs.seen,
+            SEED + 64, path=f"parallel_{spec['role']}")
+        result["checked"] = checked_shapes(kernel_inputs.seen)
+    return result
+
+
+def checked_shapes(seen):
+    """The recorded kernel inputs' shapes (and K, or the noise ranges)."""
+    return {k: sorted(f"{list(key[0])} {key[2]}" for key in v)
+            for k, v in seen.items()}
+
+
+def parallel_worker(arg) -> int:
+    """A rank of the parallel phase (``--parallel-worker SPEC``)."""
+    spec = json.loads(arg)
+    faulthandler.enable()
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.ops import (pallas_convnext,
+                                                 pallas_noise, pallas_pyramid)
+
+    def read_counts():
+        return dict(convnext_block=pallas_convnext.launches,
+                    convnext_block_int8=pallas_convnext.int8_launches,
+                    band_smooth=pallas_pyramid.launches,
+                    band_smooth_bwd=pallas_pyramid.bwd_launches,
+                    corrupt_noise=pallas_noise.launches,
+                    band_split=pallas_pyramid.split_launches)
+    smi = spec["smi"]
+    worker = cohort_worker if spec["role"] == "cohort" else loop_worker
+    result = worker(spec, bidt, read_counts, smi)
+    result["total_launches"] = read_counts()
+    Path(spec["work"], f"{spec['role']}_{spec['rank']}.json").write_text(
+        json.dumps(result))
+    return 0
+
+
+def parallel_phase(bidt, smi, loop_run):
+    """The ``parallel`` phase (module docstring). Returns (launches on the
+    paths the ranks drove, summed over ranks; the worst kernel errors of
+    the ranks' checks; the seconds)."""
+    import tempfile
+    work = Path(tempfile.mkdtemp(prefix="bid-parallel-"))
+    torch.cuda.empty_cache()            # the ranks need the card's memory
+    problems = []
+    t0 = time.perf_counter()
+    cohort = spawn_ranks("cohort", 2, work, backend="gloo", smi=smi)
+    cohort_s = time.perf_counter() - t0
+
+    # the DP step: each rank against the single-process step, bit-equal
+    # ranks, each rank's K3 rows those of the single step
+    dp = {}
+    for tag in ("f32", "bf16"):
+        single = torch.load(work / f"{tag}_single_0.pt")
+        ranks = [torch.load(work / f"{tag}_dp_{r}.pt") for r in range(2)]
+        rel = {name: float((ranks[0]["params"][name] - v).abs().max()
+                           / v.abs().max().clamp_min(1e-30))
+               for name, v in single["params"].items()}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(ranks[0]["loss"] - single["loss"]) / abs(
+            single["loss"])
+        equal_ranks = all(torch.equal(v, ranks[1]["params"][n])
+                          for n, v in ranks[0]["params"].items())
+        b = TRAIN_BATCH // 2
+        k3_rows = [torch.equal(r["k3"][0], single["k3"][0][i * b:(i + 1) * b])
+                   for i, r in enumerate(ranks)]
+        dp[tag] = dict(loss_dp=ranks[0]["loss"], loss_single=single["loss"],
+                       loss_rel=loss_rel, param_worst_rel=rel[worst],
+                       param_worst=worst, ranks_bit_equal=equal_ranks,
+                       k3_rows_bit_equal=k3_rows)
+        if tag == "f32" and (loss_rel > DP_LOSS_RTOL
+                             or rel[worst] > DP_PARAM_TOL):
+            problems.append(f"DP step f32: {dp[tag]}")
+        if not equal_ranks or not all(k3_rows):
+            problems.append(f"DP step {tag}: {dp[tag]}")
+    per_step = counts_of(band_smooth=2, band_smooth_bwd=2, corrupt_noise=1)
+    for r in cohort:
+        for tag, got in r["dp_launches"].items():
+            if got != per_step:
+                problems.append(f"DP step {tag} launches {got}")
+    sp = cohort[0]["spatial"]
+    for name in ("f32", "bf16"):
+        for r in cohort:
+            if r["spatial_launches"][name] != sp[name]["unsharded_launches"]:
+                problems.append(f"spatial {name} launches "
+                                f"{r['spatial_launches'][name]} per slab, "
+                                f"{sp[name]['unsharded_launches']} unsharded")
+    if sp["f32"]["max_abs"] > SPATIAL_F32_MAX:
+        problems.append(f"spatial f32 {sp['f32']['max_abs']}")
+    if sp["bf16"]["gap"]["mean"] > EXPORT_BF16_MEAN or \
+            sp["bf16"]["gap"]["p99"] > EXPORT_BF16_P99:
+        problems.append(f"spatial bf16 {sp['bf16']['gap']}")
+
+    # the data-parallel loop through the train CLI: 2 gloo ranks, then one
+    # NCCL rank alone
+    base = bidt.CONFIGS_DICT[TRAIN_CONFIG]
+    image_dir = loop_run["image_dir"]
+    artifact = bidt.models[FLAGSHIP]["directory"]
+    runs = {}
+    for role, n, backend, steps in (
+            ("loop", 2, "gloo", (PARALLEL_LOOP_STEPS, PARALLEL_RESUME_STEPS)),
+            ("nccl", 1, "nccl", (PARALLEL_NCCL_STEPS,))):
+        ckpt_dir = work / f"{role}_checkpoints"
+        legs = []
+        for i, total in enumerate(steps):
+            cfg = loop_config(base, image_dir, total)
+            for key, value in PARALLEL_OVERRIDES.items():
+                section, name = key.split(".")
+                cfg[section][name] = value
+            cfg["train"]["total_steps"] = total
+            if role == "nccl":          # no profile, no sweep: steps only
+                cfg["train"].update(profile_at_step=-1,
+                                    visualization_every=-1)
+            path = work / f"{role}_{total}.json"
+            path.write_text(json.dumps(cfg))
+            port = free_port()
+            legs.append([["--pipeline-config", str(path),
+                          "--checkpoint-directory", str(ckpt_dir),
+                          "--backend", backend, "--coordinator-address",
+                          f"localhost:{port}", "--num-processes", str(n),
+                          "--process-id", str(r)]
+                         + (["--weights-directory", artifact] if i == 0
+                            else []) for r in range(n)])
+        t0 = time.perf_counter()
+        runs[role] = spawn_ranks(role, n, work, legs=legs,
+                                 ckpt_dir=str(ckpt_dir), smi=smi,
+                                 strict=role == "nccl",
+                                 profile_step=(PARALLEL_PROFILE_STEP
+                                               if role == "loop" else None))
+        runs[role + "_s"] = time.perf_counter() - t0
+        runs[role + "_ckpt"] = ckpt_dir
+    loop_ranks, nccl = runs["loop"], runs["nccl"][0]
+    per_loop_step = counts_of(band_smooth=16, band_smooth_bwd=16,
+                              corrupt_noise=8)
+    finals = [torch.load(work / f"loop_final_{r}.pt") for r in range(2)]
+    ranks_equal = [all(torch.equal(v, finals[1][leg][n])
+                       for n, v in finals[0][leg].items())
+                   for leg in range(2)]
+    rows = [json.loads(line) for line in (runs["loop_ckpt"]
+                                          / "metrics.jsonl").read_text()
+            .splitlines()]
+    steps_logged = [r["step"] for r in rows if "total_loss" in r]
+    for r, res in enumerate(loop_ranks):
+        if any(s["launches"] != per_loop_step for s in res["steps"]):
+            problems.append(f"loop rank {r} step launches "
+                            f"{[s['launches'] for s in res['steps']]}")
+        if res["restore_differs"]:
+            problems.append(f"loop rank {r} restore {res['restore_differs']}")
+        if res["backends"] != ["gloo", "gloo"]:
+            problems.append(f"loop rank {r} backends {res['backends']}")
+    if not (loop_ranks[0]["checkpoint_writes"]
+            and not loop_ranks[1]["checkpoint_writes"]
+            and loop_ranks[0]["metrics_writer_enabled"] == [True, True]
+            and loop_ranks[1]["metrics_writer_enabled"] == [False, False]):
+        problems.append("loop: writes not rank 0's alone")
+    if steps_logged != list(range(1, PARALLEL_RESUME_STEPS + 1)):
+        problems.append(f"loop metrics steps {steps_logged}")
+    if not all(ranks_equal):
+        problems.append(f"loop final params equal across ranks "
+                        f"{ranks_equal}")
+    per_sweep = counts_of(convnext_block=50, band_smooth=10)
+    every = PARALLEL_OVERRIDES["train.visualization_every"]
+    if [s["launches"] for s in loop_ranks[0]["sweeps"]] != [per_sweep] * (
+            PARALLEL_RESUME_STEPS // every) or loop_ranks[1]["sweeps"]:
+        problems.append(f"loop sweeps {loop_ranks[0]['sweeps']}, rank 1 "
+                        f"{loop_ranks[1]['sweeps']}")
+    if any(s["launches"] != per_loop_step for s in nccl["steps"]) or \
+            len(nccl["steps"]) != PARALLEL_NCCL_STEPS or \
+            nccl["backends"] != ["nccl"]:
+        problems.append(f"nccl run {nccl['steps']} {nccl['backends']}")
+    profile = loop_ranks[0]["profile"] or {}
+    steady = loop_ranks[0]["steady_step_s"]
+    launches = {k: 0 for k in per_step}
+    for res in cohort:
+        for got in list(res["dp_launches"].values()) + list(
+                res["spatial_launches"].values()):
+            for k, v in got.items():
+                launches[k] += v
+    for res in loop_ranks + [nccl]:
+        for s in res["steps"] + res["sweeps"]:
+            for k, v in s["launches"].items():
+                launches[k] += v
+    errors = {}
+    for res in (cohort[0], loop_ranks[0], nccl):
+        for k, v in res["errors"].items():
+            errors[k] = max(errors.get(k, 0.0), v)
+    result = dict(
+        backends=dict(cohort=[r["backend"] for r in cohort],
+                      loop=loop_ranks[0]["backends"],
+                      nccl=nccl["backends"]),
+        devices=[r["device"] for r in cohort],
+        dp_step=dict(dp, batch=[TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3],
+                     ranks=2, launches_per_rank=cohort[0]["dp_launches"]),
+        spatial=sp, spatial_rank1=cohort[1]["spatial"],
+        spatial_launches_per_slab=[r["spatial_launches"] for r in cohort],
+        loop=dict(legs=[r["legs"] for r in loop_ranks],
+                  steps_logged=steps_logged, final_ranks_bit_equal=ranks_equal,
+                  checkpoint_writes=[r["checkpoint_writes"]
+                                     for r in loop_ranks],
+                  launches_per_step=loop_ranks[0]["steps"][0]["launches"],
+                  syncs_in_steps=[[s["syncs"] for s in r["steps"]]
+                                  for r in loop_ranks],
+                  steady_step_s=steady,
+                  steps_per_s=(1.0 / statistics.median(steady)
+                               if steady else None),
+                  profiled_step=profile),
+        nccl=dict(steps=len(nccl["steps"]), legs=nccl["legs"],
+                  host_s=[s["host_s"] for s in nccl["steps"]],
+                  steady_step_s=nccl["steady_step_s"],
+                  sync_mode="error inside each step"),
+        seconds=dict(cohort=cohort_s, loop=runs["loop_s"],
+                     nccl=runs["nccl_s"]),
+        smi=smi,
+        tolerance=f"DP f32 loss rel <= {DP_LOSS_RTOL}, params <= "
+                  f"{DP_PARAM_TOL} of each tensor's largest entry; ranks "
+                  f"and K3 rows bit-equal; launches K2 2, K2 bwd 2, K3 1 a "
+                  f"micro-batch, per slab = unsharded forward; spatial f32 "
+                  f"<= {SPATIAL_F32_MAX} gray levels, bf16 mean <= "
+                  f"{EXPORT_BF16_MEAN}, p99 <= {EXPORT_BF16_P99}; loop: "
+                  f"rank 0 alone writes, ranks bit-equal, restore bit-exact; "
+                  f"NCCL: no sync inside a step (error mode)")
+    log("parallel", **result)
+    log("parallel_checks", cohort=cohort[0]["checked"],
+        loop=loop_ranks[0]["checked"], nccl=nccl["checked"])
+    if problems:
+        raise AssertionError(f"parallel: {problems}")
+    return launches, errors
+
+
+def counts_of(**nonzero):
+    keys = ("convnext_block", "convnext_block_int8", "band_smooth",
+            "band_smooth_bwd", "corrupt_noise", "band_split")
+    return dict(dict.fromkeys(keys, 0), **nonzero)
+
+
 def main() -> int:
     script_start = time.perf_counter()
     faulthandler.enable()
@@ -4057,10 +4654,19 @@ def main() -> int:
     parser.add_argument("--dump-train-check", type=Path, default=None,
                         help="write train_check's batch here (for "
                              "tests/train_check_cosine.py)")
+    parser.add_argument("--only-parallel", action="store_true",
+                        help="run the device, build and parallel phases "
+                             "only, on freshly written scenes (a shorter "
+                             "run for work on that phase; prints no "
+                             "result line)")
+    parser.add_argument("--parallel-worker", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.parallel_worker is not None:
+        return parallel_worker(args.parallel_worker)
     import blind_image_denoising_torch as bidt
     from blind_image_denoising_torch.inference import fused as fused_module
     from blind_image_denoising_torch.inference.fused import (
@@ -4122,6 +4728,24 @@ def main() -> int:
             "K4", cuda_build.library().bid_band_split_info,
             pallas_pyramid.split_tile_plan, SPLIT_PATH_SHAPES,
             pallas_pyramid._DTYPE_CODES))
+
+    if args.only_parallel:
+        import tempfile
+        image_dir = Path(tempfile.mkdtemp(prefix="bid-scenes-"))
+        scenes = np.round(synthetic_images(
+            LOOP_IMAGES, *LOOP_IMAGE_HW,
+            np.random.default_rng(SEED + 4))).astype(np.uint8)
+        for i, img in enumerate(scenes):
+            write_png(image_dir / f"scene_{i:02d}.png", img)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32_defaults
+        reset_counts()
+        t0 = time.perf_counter()
+        launches, worst = parallel_phase(bidt, smi, {"image_dir": image_dir})
+        log("only_parallel", launches=launches, errors=worst,
+            seconds=time.perf_counter() - t0,
+            script_s=time.perf_counter() - script_start)
+        return 0
 
     rng = np.random.default_rng(SEED)
     den = bidt.load_model(FLAGSHIP)                     # card, bf16, blend
@@ -5009,6 +5633,18 @@ def main() -> int:
     if breadth_counts != counts() or read_counts() != counts():
         raise AssertionError(f"layers_breadth launched {breadth_counts}")
     phase_s["layers_breadth"] = time.perf_counter() - t0
+
+    # ---- phase 19: several processes on the card: the data-parallel step
+    # and loop (2 gloo ranks; 1 NCCL rank) and spatially sharded serving
+    t0 = time.perf_counter()
+    reset_counts()
+    parallel_counts, parallel_errors = parallel_phase(bidt, smi, loop_run)
+    if read_counts() != counts():
+        raise AssertionError(f"parallel launched {read_counts()} in the "
+                             f"driving process")
+    for kernel, err in parallel_errors.items():
+        errors[kernel] = max(errors[kernel], err)
+    phase_s["parallel"] = time.perf_counter() - t0
     log("new_phases", seconds=phase_s,
         script_s=time.perf_counter() - script_start,
         export_launches=export_counts,
@@ -5019,7 +5655,8 @@ def main() -> int:
         unet_backbone_launches=unet_counts,
         distillation_launches=distill_counts,
         analysis_launches=analysis_counts,
-        layers_breadth_launches=breadth_counts)
+        layers_breadth_launches=breadth_counts,
+        parallel_launches=parallel_counts)
     if args.profile_out is not None:
         args.profile_out.parent.mkdir(parents=True, exist_ok=True)
         args.profile_out.write_text("".join(profile_text))
@@ -5077,7 +5714,8 @@ def main() -> int:
                        unet_backbone=unet_counts[name],
                        distillation=distill_counts[name],
                        analysis=analysis_counts[name],
-                       layers_breadth=breadth_counts[name])
+                       layers_breadth=breadth_counts[name],
+                       parallel=parallel_counts[name])
         kernels.append(dict(
             name=name, route="cuda", source=replaces[name][0],
             replaces=replaces[name][1], launches=sum(by_path.values()),

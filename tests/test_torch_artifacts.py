@@ -102,7 +102,8 @@ def _public(module):
             if not n.startswith("_") and not isinstance(v, types.ModuleType)}
 
 
-@pytest.mark.parametrize("sub", ["layers", "ops", "models", "inference"])
+@pytest.mark.parametrize("sub", ["layers", "ops", "models", "inference",
+                                 "parallel"])
 def test_subpackage_surface_matches_jax(sub):
     jax_sub = importlib.import_module(f"blind_image_denoising_tpu.{sub}")
     port_sub = importlib.import_module(f"blind_image_denoising_torch.{sub}")

@@ -464,8 +464,9 @@ def test_corrupt_noise_kernel_statistics(dev):
     assert bool((res.abs().max(dim=1).values <= bound).all())
 
 
-def _assert_noise_matches_plain(x, seed, kw):
+def _assert_noise_matches_plain(x, seed, kw, offset=0):
     before = pallas_noise.launches
+    kw = dict(kw, sample_offset=offset)
     got, params = pallas_noise.corrupt_noise(seed, x, round_values=False,
                                              return_params=True, **kw)
     rounded = pallas_noise.corrupt_noise(seed, x, **kw)
@@ -475,7 +476,7 @@ def _assert_noise_matches_plain(x, seed, kw):
         seed, x, round_values=False, return_params=True, **kw)
     assert got.shape == x.shape and torch.equal(params, ref_params)
     z0_mul, _, z0_add, _ = pallas_noise.normal_draws_plain(
-        seed, x.shape[0], x[0].numel(), x.device)
+        seed, x.shape[0], x[0].numel(), x.device, offset)
     edge = (((z0_mul.abs() - 2).abs() < 1e-5) & (params[:, :1] > 0)) | \
         (((z0_add.abs() - 2).abs() < 1e-5) & (params[:, 2:3] > 0))
     err = (got - ref).abs().reshape(x.shape[0], -1)[~edge]
@@ -508,6 +509,119 @@ def test_corrupt_noise_kernel_shapes_and_modes(dev, shape, mul, add):
     if shape[0] == 1000:
         for col in (0, 2):
             assert abs(float(params[:, col].mean()) - 0.5) <= 0.05
+
+
+def test_corrupt_noise_kernel_sample_offset(dev):
+    """A rank's rows of a global batch at ``sample_offset``: the kernel's
+    output and per-sample params are rows of the kernel's global draw bit
+    for bit, the params equal the plain version's at the offset bit for
+    bit and the outputs agree with it at the kernel's tolerances."""
+    x, kw = _noise_case(dev)
+    full, params = pallas_noise.corrupt_noise(1234, x, return_params=True,
+                                              **kw)
+    for r in range(4):
+        rows = slice(4 * r, 4 * r + 4)
+        part, p = pallas_noise.corrupt_noise(1234, x[rows].contiguous(),
+                                             return_params=True,
+                                             sample_offset=4 * r, **kw)
+        assert torch.equal(part, full[rows]) and torch.equal(p, params[rows])
+        _assert_noise_matches_plain(x[rows].contiguous(), 1234, kw, 4 * r)
+    same = pallas_noise.corrupt_noise(1234, x, sample_offset=0, **kw)
+    assert torch.equal(same, pallas_noise.corrupt_noise(1234, x, **kw))
+
+
+def _dp_cases():
+    """The BatchNorm resnet of ``tests/test_parallel.py`` (seeded init)
+    with flips and the noise kernel, two micro-batches."""
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.training.train_state import init_params
+    cfg = {"backbone": {
+        "type": "resnet", "input_shape": ["?", "?", 3], "filters": 4,
+        "no_layers": 1, "kernel_size": 3, "block_kernels": [3, 3],
+        "block_filters": [4, 4], "activation": "relu", "batchnorm": True,
+        "value_range": [0, 255], "kernel_regularizer": "l1",
+        "kernel_initializer": "glorot_normal"},
+        "denoiser": {"use_bias": False, "output_channels": 3}}
+    model = model_builder(cfg).hydra
+    init_params(model, torch.Generator().manual_seed(0))
+    return [dict(model=cfg, params=dict(model.state_dict()),
+                 loss={"hinge": 0.0, "mae_multiplier": 1.0,
+                       "ssim_multiplier": -1.0, "regularization": 0.01},
+                 optimizer={"type": "ADAM", "schedule": {
+                     "type": "cosine_decay", "config": {
+                         "learning_rate": 0.01, "decay_steps": 1000}}},
+                 step=dict(additive_noise=[5, 10],
+                           multiplicative_noise=[0.1, 0.2],
+                           use_pallas_noise=True, grad_accum=2))]
+
+
+def test_dp_step_on_card_matches_single_process(dev, tmp_path):
+    """Two gloo ranks on the card (2 × b4, two micro-batches) against the
+    single-process step on b8 on the card: loss within 1e-6 relative,
+    params and running statistics within 1e-5 of each tensor's largest
+    entry, each rank's noisy rows and K3 rows bit for bit, the ranks'
+    params bit-equal."""
+    import torch_parallel_workers as workers
+    batch = np.random.default_rng(1).uniform(
+        0, 255, (8, 16, 16, 3)).astype(np.float32)
+    cases = _dp_cases()
+    workers.run_cohort(2, "dp_steps", tmp_path, 300.0, device="cuda",
+                       cases=cases, batch=batch, mesh_kw=dict(data=2))
+    ranks = [workers.load_result(tmp_path / f"rank{r}.pt")["results"][0]
+             for r in range(2)]
+    ref = workers.run_steps(cases, batch, device="cuda")[0]
+    assert len(ref["k3"]) == 2
+    for index, got in enumerate(ranks):
+        assert abs(got["metrics"]["total_loss"]
+                   - ref["metrics"]["total_loss"]) <= 1e-6 * abs(
+                       ref["metrics"]["total_loss"])
+        for name, v in ref["params"].items():
+            assert float((got["params"][name] - v).abs().max()) <= \
+                1e-5 * float(v.abs().max()), name
+            assert torch.equal(got["params"][name], ranks[0]["params"][name])
+        for key in ("noisy", "k3"):
+            for a, b in zip(ref[key], got[key]):
+                assert torch.equal(a[index * 2:(index + 1) * 2], b), key
+
+
+def test_spatial_forward_on_card_is_exact(dev, tmp_path):
+    """A depth-2 ``unet_laplacian`` (JAX's spatial test model) in float32
+    on 2 gloo ranks of the card, H sharded with its halo margin, against
+    the unsharded forward on the card: within 1e-3."""
+    import copy
+    import torch_parallel_workers as workers
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.parallel.spatial import (
+        receptive_field_margin)
+    from blind_image_denoising_torch.training.train_state import init_params
+    cfg = {"backbone": {
+        "type": "unet_laplacian", "input_shape": ["?", "?", 3], "depth": 2,
+        "width": 1, "filters": 4, "encoder_kernel_size": 3,
+        "decoder_kernel_size": 3, "use_self_attention": False,
+        "multiple_scale_outputs": False, "depth_drop_rate": 0.0},
+        "denoiser": {"filters": 4, "use_bias": False, "output_channels": 3}}
+    model = model_builder(copy.deepcopy(cfg)).hydra
+    init_params(model, torch.Generator().manual_seed(0))
+    params = dict(model.state_dict())
+    image = np.random.default_rng(0).uniform(
+        0, 255, (1, 128, 64, 3)).astype(np.float32)
+    margin = receptive_field_margin(2, 3, 1)
+    conv = dict(weights={"c1": torch.randn(8, 3, 3, 3),
+                         "c2": torch.randn(3, 8, 3, 3)},
+                image=image, margin=2)
+    workers.run_cohort(2, "spatial_cases", tmp_path, 300.0, device="cuda",
+                       conv=conv, unet=dict(model_config=cfg, params=params,
+                                            image=image, margin=margin,
+                                            small_image=image[:, :16]),
+                       spatial=2)
+    model.to(dev).eval()
+    with torch.no_grad():
+        ref = model(torch.from_numpy(image).to(dev).permute(0, 3, 1, 2))[0]
+    ref = ref.permute(0, 2, 3, 1).cpu()
+    for r in range(2):
+        got = workers.load_result(tmp_path / f"rank{r}.pt")
+        assert float((got["unet"] - ref).abs().max()) <= 1e-3
+        assert "exceeds the per-shard height" in got["error"]
 
 
 def test_corrupt_noise_kernel_unaligned_batch(dev):

@@ -40,6 +40,7 @@ from blind_image_denoising_torch.inference.denoiser import (Denoiser,
                                                             HostCopy)
 from blind_image_denoising_torch.models.hydra import model_builder
 from blind_image_denoising_torch.ops import padding as tpadding
+from blind_image_denoising_torch.parallel import create_mesh
 from blind_image_denoising_torch.weights import (flax_from_params,
                                                  load_msgpack)
 from conftest import TINY_RESNET_MODEL, tiny_resnet_hydra
@@ -309,10 +310,15 @@ def test_denoiser_signature_and_unported_options(tiny):
     model = model_builder(copy.deepcopy(TINY_RESNET_MODEL)).hydra
     with pytest.raises(TypeError, match="keyword-only"):
         Denoiser(model, "cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Denoiser(model, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Denoiser(model, spatial_margin=8, device="cpu")
+    # a spatial mesh refuses TTA (JAX's ValueError) and a derivative
+    # through its halo exchange; tests/test_torch_parallel.py serves it
+    spatial = create_mesh(data=1, spatial=2, devices=[0, 1])
+    with pytest.raises(ValueError, match="tta=True is single-mesh only"):
+        Denoiser(model, mesh=spatial, tta=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="spatial training"):
+        Denoiser(model, mesh=spatial, spatial_margin=8,
+                 device="cpu").float_forward(
+            torch.zeros((8, 8, 3), requires_grad=True))
     with pytest.raises(ValueError, match="quant=True"):
         Denoiser(model, tiny[1], quant=True, device="cpu")
 

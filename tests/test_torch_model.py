@@ -186,18 +186,18 @@ def test_load_model_without_cuda_needs_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    # mesh serving is the last serving option not ported (tta is,
-    # tests/test_torch_inference.py)
-    (dict(mesh=object()), NotImplementedError, "ROADMAP"),
+    # an artifact in a JAX/TF format alone (here a Keras file) is what is
+    # left unported of serving; mesh serving is ported
+    # (tests/test_torch_parallel.py)
+    (dict(reference_only=True), NotImplementedError, "ROADMAP"),
     # the flagship ships no int8 scales: ValueError, as in JAX
     (dict(quant=True), ValueError, "quant.msgpack")])
-def test_unported_serving_options_raise(option):
-    from blind_image_denoising_torch.inference.denoiser import Denoiser
+def test_unported_serving_options_raise(option, tmp_path):
     kwargs, error, match = option
     with pytest.raises(error, match=match):
-        if "mesh" in kwargs:
-            Denoiser(bidt.load_model(FLAGSHIP, device="cpu").model,
-                     device="cpu", **kwargs)
+        if kwargs.pop("reference_only", False):
+            (tmp_path / "model_hydra.keras").write_bytes(b"")
+            bidt.load_model(str(tmp_path), device="cpu")
         else:
             bidt.load_model(FLAGSHIP, device="cpu", **kwargs)
 

@@ -276,10 +276,12 @@ def test_train_cli_on_cpu(tmp_path):
     assert json.loads((tmp_path / "ckpt" / "config.json").read_text()) == cfg
     assert train_cli.main(["--pipeline-config", str(tmp_path / "none.json"),
                            "--checkpoint-directory", str(tmp_path)]) == 1
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_cli.main(["--pipeline-config", str(path),
-                        "--checkpoint-directory", str(tmp_path / "c2"),
-                        "--num-processes", "2", "--device", "cpu"])
+    # JAX's CLI: --coordinator-address needs --num-processes and
+    # --process-id (logged, exit code 1)
+    assert train_cli.main(["--pipeline-config", str(path),
+                           "--checkpoint-directory", str(tmp_path / "c2"),
+                           "--coordinator-address", "localhost:1",
+                           "--num-processes", "2", "--device", "cpu"]) == 1
 
 
 def test_train_loop_needs_the_card_or_cpu(tmp_path):
@@ -289,20 +291,27 @@ def test_train_loop_needs_the_card_or_cpu(tmp_path):
         bidt.train_loop(_pipeline(None), tmp_path)
 
 
-@pytest.mark.parametrize("change,item", [
-    (lambda c: c["tpu"].update(mesh={"data": 2}), 13),
-    (lambda c: c["tpu"].update(mesh={"data": -1, "spatial": 2}), 13),
-    (lambda c: c["dataset"].update(process_count=2, process_index=0), 13),
-    # pruning and distillation (once item 12) train since slice 13
-    (lambda c: c["tpu"].update(mesh={"data": -1, "spatial_training": True}),
-     13),
-    (lambda c: c["tpu"].update(mesh={"data": 4}), 13),
-    # the degradation chain (once item 11) trains since slice 12
-    (lambda c: c["tpu"].update(mesh={"data": -1, "dcn": 2}), 13)])
-def test_unported_loop_options_raise(tmp_path, change, item):
+# one process is a one-device mesh: a mesh over more devices raises JAX's
+# ValueError, and spatially sharded training (the next slice) raises naming
+# it; several processes run in tests/test_torch_parallel.py
+@pytest.mark.parametrize("change,error,match", [
+    (lambda c: c["tpu"].update(mesh={"data": 2}), ValueError,
+     "mesh 1x2x1 needs more than 1 devices"),
+    (lambda c: c["tpu"].update(mesh={"data": -1, "spatial": 2}), ValueError,
+     "mesh 1x2x2 needs more than 1 devices"),
+    (lambda c: c["tpu"].update(mesh={"data": -1, "spatial": 2,
+                                     "spatial_training": True}),
+     NotImplementedError, "spatial training"),
+    (lambda c: c["tpu"].update(mesh={"data": -1, "dcn": 3}), ValueError,
+     "batch_size 2 not divisible by dcn=3 slices"),
+    (lambda c: c["tpu"].update(mesh={"data": 4}), ValueError,
+     "mesh 1x2x1 needs more than 1 devices"),
+    (lambda c: c["tpu"].update(mesh={"data": -1, "dcn": 2}), ValueError,
+     "mesh 2x1x1 needs more than 1 devices")])
+def test_unported_loop_options_raise(tmp_path, change, error, match):
     cfg = _pipeline(None)
     change(cfg)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(error, match=match):
         loop_module.train_loop(cfg, tmp_path, device="cpu")
 
 
