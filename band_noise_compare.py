@@ -324,8 +324,12 @@ def build(name, text, work, out_dir):
             fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
             fn.restype = i
         return ("bwd", "split"), lib
-    lib.bid_corrupt_noise.argtypes = [p, p, p, i, ctypes.c_longlong,
-                                      ctypes.c_uint32, f, f, f, f, i, i, i, p]
+    # a source with the sample offset takes it after the seed (0 here: the
+    # local batch is the global one); an older source has no such argument
+    lib.noise_offset = (0,) if "uint32_t offset, float mlo" in text else ()
+    lib.bid_corrupt_noise.argtypes = [
+        p, p, p, i, ctypes.c_longlong, ctypes.c_uint32,
+        *[ctypes.c_uint32] * len(lib.noise_offset), f, f, f, f, i, i, i, p]
     lib.bid_corrupt_noise.restype = i
     return ("noise",), lib
 
@@ -428,8 +432,8 @@ def compare_noise(libs, rounds, rng, stream):
     def call(lib, xs, os, p=None):
         rc = lib.bid_corrupt_noise(
             xs.data_ptr(), os.data_ptr(), None if p is None else p.data_ptr(),
-            b, n, ctypes.c_uint32(NOISE_SEED), mlo, mhi, alo, ahi, 1, 1, 0,
-            stream)
+            b, n, ctypes.c_uint32(NOISE_SEED), *lib.noise_offset, mlo, mhi,
+            alo, ahi, 1, 1, 0, stream)
         if rc != 0:
             raise RuntimeError(f"launch refused: code {rc}")
 

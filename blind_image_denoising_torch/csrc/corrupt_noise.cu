@@ -160,11 +160,11 @@ __global__ void __launch_bounds__(kNoiseThreads) corrupt_noise_kernel(
 
 }  // namespace
 
-extern "C" int bid_corrupt_noise_at(const void* x, void* out, void* params,
-                                    int B, long long n, uint32_t seed,
-                                    uint32_t offset, float mlo, float mhi,
-                                    float alo, float ahi, int use_mul,
-                                    int use_add, int do_round, void* stream) {
+extern "C" int bid_corrupt_noise(const void* x, void* out, void* params,
+                                 int B, long long n, uint32_t seed,
+                                 uint32_t offset, float mlo, float mhi,
+                                 float alo, float ahi, int use_mul,
+                                 int use_add, int do_round, void* stream) {
   if (B < 0 || n < 0 || n > 0xFFFFFFFFll || B > 65535 ||
       (unsigned long long)offset + (unsigned long long)B > 0x100000000ull)
     return BID_ERR_BAD_ARGUMENT;
@@ -187,13 +187,4 @@ extern "C" int bid_corrupt_noise_at(const void* x, void* out, void* params,
         alo, ahi, use_mul, use_add, do_round);
   }
   return (int)cudaGetLastError();
-}
-
-// the entry point without an offset (the local batch is the global one)
-extern "C" int bid_corrupt_noise(const void* x, void* out, void* params,
-                                 int B, long long n, uint32_t seed, float mlo,
-                                 float mhi, float alo, float ahi, int use_mul,
-                                 int use_add, int do_round, void* stream) {
-  return bid_corrupt_noise_at(x, out, params, B, n, seed, 0u, mlo, mhi, alo,
-                              ahi, use_mul, use_add, do_round, stream);
 }

@@ -138,12 +138,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bid_band_smooth_bwd_info.argtypes = [i, i, i, i, i, ip]
     lib.bid_band_smooth_bwd_info.restype = i
     lib.bid_corrupt_noise.argtypes = [p, p, p, i, ctypes.c_longlong,
-                                      ctypes.c_uint32, f, f, f, f, i, i, i, p]
+                                      ctypes.c_uint32, ctypes.c_uint32,
+                                      f, f, f, f, i, i, i, p]
     lib.bid_corrupt_noise.restype = i
-    lib.bid_corrupt_noise_at.argtypes = [p, p, p, i, ctypes.c_longlong,
-                                         ctypes.c_uint32, ctypes.c_uint32,
-                                         f, f, f, f, i, i, i, p]
-    lib.bid_corrupt_noise_at.restype = i
     lib.bid_error_string.argtypes = [i]
     lib.bid_error_string.restype = ctypes.c_char_p
 

@@ -230,7 +230,7 @@ def corrupt_noise(seed: int, batch: torch.Tensor,
         lib = cuda_build.library()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = lib.bid_corrupt_noise_at(
+            rc = lib.bid_corrupt_noise(
                 x.data_ptr(), out.data_ptr(),
                 params.data_ptr() if params is not None else None,
                 b, n, ctypes.c_uint32(int(seed) & _MASK32),

@@ -36,7 +36,9 @@ checkpoints (a barrier follows each save), ``metrics.jsonl``, the
 figures, the noise sweep's records and the profile; every rank restores;
 the pruned weights are broadcast from the primary. Spatially sharded
 training (``tpu.mesh.spatial_training`` with spatial > 1) raises
-``NotImplementedError``: it is the next slice.
+``NotImplementedError``: it is the next slice. So does ``tpu.mesh.spatial``
+> 1 under several processes without it, where JAX's spatial devices
+would replicate the step: each rank here reads its own rows.
 """
 
 import contextlib
@@ -122,7 +124,8 @@ def resolve_degradation_options(dataset_config: Dict) -> Dict:
 def _build_mesh(tpu_config: Dict, batch_size: int, n_proc: int):
     """The mesh of ``tpu.mesh`` over the process group's ranks (one device
     a rank), with the JAX loop's clamp, checks and messages. Spatially
-    sharded training raises, naming the next slice."""
+    sharded training, and under several processes any spatial axis,
+    raises, naming the next slice."""
     mesh_cfg = tpu_config.get("mesh", {"data": -1})
     spatial = int(mesh_cfg.get("spatial", 1))
     dcn = max(1, int(mesh_cfg.get("dcn", 1)))
@@ -151,6 +154,15 @@ def _build_mesh(tpu_config: Dict, batch_size: int, n_proc: int):
             f"spatial={spatial}) is not ported yet: it needs a halo "
             f"exchange under every conv, pool and resize in autograd "
             f"(ROADMAP Queue 1 item 13, spatial training, the next slice)")
+    if n_proc > 1 and spatial > 1:
+        # JAX's spatial devices lie inside one process and see its rows;
+        # here each rank is a process that decodes its own file shard, so
+        # spatial peers would train on different rows, apart
+        raise NotImplementedError(
+            f"tpu.mesh.spatial={spatial} across {n_proc} processes is not "
+            f"ported yet: the spatial ranks would each read their own rows "
+            f"and their states would drift apart (ROADMAP Queue 1 item 13, "
+            f"spatial training, the next slice)")
     if dcn * data * spatial < n_dev:
         logger.warning(
             f"mesh dcn={dcn} x data={data} x spatial={spatial} uses "

@@ -34,7 +34,9 @@ joined with a timeout: a rank that hangs fails the test.
   flagship config and image files sharded by file: 3 steps, then a
   resume to 5; only rank 0 writes checkpoints and ``metrics.jsonl`` (one
   record a step), both ranks end bit-equal, and each rank's restored
-  state is the step-3 checkpoint bit for bit. The CLI's flag errors.
+  state is the step-3 checkpoint bit for bit. The CLI's flag errors. A
+  spatial axis across 2 ranks, with or without ``spatial_training``,
+  raises on both ranks before a step.
 """
 
 import copy
@@ -472,6 +474,27 @@ def test_two_rank_train_cli_writes_once_and_resumes(tmp_path):
     final = manager.read(5)["model"]
     for name, v in final.items():
         assert torch.equal(ranks[0]["finals"][1][name], v), name
+
+
+def test_two_rank_loop_refuses_a_spatial_mesh(tmp_path):
+    """Each rank reads its own rows, so a spatial axis across processes
+    (with or without spatial_training) raises on every rank before a step
+    rather than letting spatial peers train apart."""
+    configs = []
+    for extra in ({}, {"spatial_training": True}):
+        cfg = _loop_config(tmp_path / "images", 2)
+        cfg["tpu"]["mesh"] = dict({"data": -1, "spatial": 2}, **extra)
+        configs.append(cfg)
+    workers.run_cohort(2, "loop_refusals", tmp_path / "out", COHORT_TIMEOUT,
+                       configs=configs)
+    for r in range(2):
+        res = workers.load_result(tmp_path / "out" / f"rank{r}.pt")
+        (kind0, msg0), (kind1, msg1) = res["errors"]
+        assert kind0 == kind1 == "NotImplementedError"
+        assert "tpu.mesh.spatial=2 across 2 processes" in msg0
+        assert "spatially sharded training" in msg1
+        assert all("the next slice" in m for m in (msg0, msg1))
+        assert res["steps"] == [None, None]
 
 
 def test_train_cli_multihost_flag_errors(tmp_path):

@@ -281,3 +281,22 @@ def train_cli(rank, n, out, legs, device=None):
                                                           real_writer)
     torch.save(dict(finals=finals, restored=restored, saved=saved,
                     metrics_enabled=on), out / f"rank{rank}.pt")
+
+
+def loop_refusals(rank, n, out, configs, device="cpu"):
+    """``train_loop`` on each config as this rank: the error each call
+    raised (type name and message, None if it ran) and the latest step
+    each checkpoint directory holds afterwards."""
+    import blind_image_denoising_torch as bidt
+    from blind_image_denoising_torch.training.checkpoint import (
+        CheckpointManager)
+    errors, steps = [], []
+    for i, cfg in enumerate(configs):
+        ckpt = out / f"ckpt_{i}"
+        try:
+            bidt.train_loop(cfg, ckpt, device=device)
+            errors.append(None)
+        except Exception as e:          # the refusal under test
+            errors.append((type(e).__name__, str(e)))
+        steps.append(CheckpointManager(str(ckpt)).latest_step())
+    torch.save(dict(errors=errors, steps=steps), out / f"rank{rank}.pt")
