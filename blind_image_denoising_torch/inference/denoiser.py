@@ -37,9 +37,11 @@ above 128, so rounding in bf16 would add quantization.
   (``parallel/spatial.denoise_spatially_sharded``), and the slabs are
   gathered back, so every rank returns the whole image. The padded
   height must split into n slabs. ``tta`` is refused there, as in JAX
-  (its transposes swap the sharded axis), and so is a gradient through
-  ``float_forward`` (the halo exchange is not differentiable; spatial
-  training is the next slice). A data-only mesh serves as without one.
+  (its transposes swap the sharded axis). The exchange and the gather
+  are differentiable, so ``float_forward`` takes reverse- and
+  forward-mode derivatives through the sharded forward, as JAX's
+  ``jax.grad`` through ``shard_map`` does. A data-only mesh serves as
+  without one.
 """
 
 import contextlib
@@ -298,11 +300,6 @@ class Denoiser:
         through it the same way, with autograd off; otherwise the forward
         runs without autograd."""
         x = self._upload(image)
-        if self._spatial and (x.requires_grad or has_tangent(x)):
-            raise NotImplementedError(
-                "a derivative through the spatially sharded forward is not "
-                "ported yet: its halo exchange is not differentiable "
-                "(spatial training, ROADMAP Queue 1 item 13)")
         squeeze = x.ndim == 3
         if squeeze:
             x = x[None]

@@ -23,6 +23,9 @@ XLA, so the products here are ``torch.matmul``; the softmax is taken in
 float32. In training, dropout of ``dropout_rate`` hits the softmax
 weights element by element, drawn from the caller's generator; the four
 convs carry ``kernel_regularizer`` (soft-orthonormal in the flagship).
+Under a spatially sharded train step the unit runs on the whole map
+(``parallel/spatial.on_whole_map``), its BatchNorm and dropout as
+unsharded, and returns the slab's rows.
 
 :class:`NonLocalAttention` is the full-resolution Non-Local-Nets block:
 1×1 projections ``theta`` / ``phi`` / ``g`` to the attention channels,
@@ -41,6 +44,7 @@ from torch import nn
 from ..constants import DEFAULT_EPSILON, DEFAULT_LN_EPSILON
 from ..ops.regularizers import soft_ortho_spec
 from ..ops.resize import nchw, nhwc, resize_bilinear
+from ..parallel.spatial import on_whole_map, slab_rows
 from .conv import ConvBlock
 from .multipliers import ChannelLearnableMultiplier
 from .norm import BatchNorm, FastLayerNorm
@@ -155,6 +159,11 @@ class ConvolutionalSelfAttention(nn.Module):
     def forward(self, inputs: torch.Tensor, train: bool = False,
                 generator: torch.Generator = None) -> torch.Tensor:
         """inputs: NCHW → the attention branch, NCHW."""
+        y, shard = on_whole_map(self._branch, inputs, train, generator)
+        return slab_rows(y, shard)
+
+    def _branch(self, inputs: torch.Tensor, train: bool,
+                generator: torch.Generator) -> torch.Tensor:
         b, _, h, w = inputs.shape
         rh, rw = self.resolution
         x = nchw(resize_bilinear(nhwc(inputs), (rh, rw)))

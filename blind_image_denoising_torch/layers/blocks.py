@@ -30,6 +30,7 @@ from ..constants import (DEFAULT_CHANNELWISE_MULTIPLIER_L1,
                          DEFAULT_LN_EPSILON, DEFAULT_MULTIPLIER_L1)
 from ..ops.normalize import local_normalization
 from ..ops.resize import nchw, nhwc
+from ..parallel.spatial import on_whole_map
 from .activations import Activation
 from .conv import DenseBlock, conv_block_from_params
 from .multipliers import ChannelwiseMultiplier, Multiplier
@@ -41,7 +42,8 @@ from .stochastic import StochasticDepth
 class DenseGate(nn.Module):
     """Channel gate (flax ``DenseGate``): the gate signal's spatial mean →
     dense to max(f/8, 2), relu → dense to f, hard sigmoid → per-channel
-    multiply of ``x``. Both denses are bias-free with an L2 penalty."""
+    multiply of ``x``. Both denses are bias-free with an L2 penalty.
+    Under a spatially sharded train step the mean is the whole map's."""
 
     def __init__(self, in_features: int, gate_filters: int, dtype=None):
         super().__init__()
@@ -54,9 +56,13 @@ class DenseGate(nn.Module):
 
     def forward(self, gate_signal: torch.Tensor, x: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
-        y = torch.mean(gate_signal, dim=(2, 3))
-        y = self.gate_dense_1(self.gate_dense_0(y, train=train), train=train)
+        y, _ = on_whole_map(self._gate, gate_signal, train)
         return x * y[:, :, None, None]
+
+    def _gate(self, gate_signal: torch.Tensor, train: bool) -> torch.Tensor:
+        y = torch.mean(gate_signal, dim=(2, 3))
+        return self.gate_dense_1(self.gate_dense_0(y, train=train),
+                                 train=train)
 
 
 def gate_filters_of(first_conv_params: Optional[Dict],

@@ -41,6 +41,7 @@ from ..ops import quant as quant_ops
 from ..ops.noise import truncated_normal
 from ..ops.regularizers import builder as regularizer_builder
 from ..ops.resize import nchw, nhwc
+from ..parallel.spatial import map_rows
 from .activations import Activation, activation_fn
 from .norm import BatchNorm, BiasFreeBatchNorm, FastLayerNorm
 from .stochastic import drop_mask
@@ -140,13 +141,22 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
             channels: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout`` in training on NCHW x: elements, or whole
     channels per sample (``channels``, its ``broadcast_dims=(1, 2)`` on
-    NHWC), kept with probability 1 − rate and scaled by 1/(1 − rate)."""
+    NHWC), kept with probability 1 − rate and scaled by 1/(1 − rate).
+    Under a spatially sharded train step an element mask is drawn for
+    the whole map, so each slab keeps the unsharded step's rows."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     shape = tuple(x.shape[:2]) + (1, 1) if channels else x.shape
-    keep = drop_mask(shape, rate, generator, x.device)
+    shard, rows = (None, None) if channels else map_rows(x)
+    if shard is None:
+        keep = drop_mask(shape, rate, generator, x.device)
+    else:
+        # a spatially sharded step: the whole map's mask, the slab's rows
+        keep = drop_mask(shape[:2] + (rows.height,) + shape[3:], rate,
+                         generator, x.device).narrow(
+            2, rows.slab_start, rows.slab_rows)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -26,7 +26,9 @@ Under a data-parallel step (``parallel/mesh.batch_shard``) the batch's
 statistics are the global batch's: the per-channel sums of x and x² are
 ``all_reduce``d over the batch axes (a differentiable reduction whose
 backward reduces too), so every rank normalizes by, and updates its
-buffers with, the same values.
+buffers with, the same values. Under a spatially sharded step
+(``parallel/mesh.spatial_shard``) the sums run over the slab's owned
+rows and are reduced over the batch and spatial axes together.
 """
 
 import contextlib
@@ -36,7 +38,8 @@ import torch
 from torch import nn
 
 from ..constants import DEFAULT_BN_EPSILON, DEFAULT_BN_MOMENTUM
-from ..parallel.mesh import all_reduce_sum, current_batch_shard
+from ..parallel.mesh import (all_reduce_sum, current_batch_shard,
+                             current_spatial_shard)
 
 _FROZEN = contextvars.ContextVar("bidt_frozen_batch_stats", default=False)
 
@@ -54,8 +57,19 @@ def frozen_statistics(frozen: bool = True):
 
 def _batch_moments(x: torch.Tensor):
     """float32 (E[x], E[x²]) per channel of an NCHW tensor, over N, H, W
-    (of the global batch under a data-parallel step)."""
+    (of the global batch under a data-parallel step, and of the whole
+    crops under a spatially sharded one)."""
     xf = x.float()
+    spatial = current_spatial_shard()
+    if spatial is not None:
+        rows = spatial.at(x.shape[2])
+        own = xf.narrow(2, rows.own_start, rows.own_rows)
+        sums = all_reduce_sum(torch.stack([own.sum(dim=(0, 2, 3)),
+                                           own.square().sum(dim=(0, 2, 3))]),
+                              spatial.reduce_group)
+        n = float(spatial.batch_count * x.shape[0] * rows.height
+                  * x.shape[3])
+        return sums[0] / n, sums[1] / n
     shard = current_batch_shard()
     if shard is None or shard.group is None:
         return xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))

@@ -21,7 +21,9 @@ The expand is ≥ 0, so ``m = act(2.5 − y)`` starts biased towards
 (``SOFT``). Module names are flax's (``{local,multiscale,mixed}_c0`` /
 ``_c1``, ``global_d0`` / ``_d1``); every conv and dense carries
 ``kernel_regularizer`` (L1 by default), which ``regularization_loss``
-sums.
+sums. Under a spatially sharded train step the mask is computed on the
+whole selector map (``parallel/spatial.on_whole_map``) and the slab's
+rows of it mix the two signals.
 """
 
 from enum import Enum
@@ -33,6 +35,8 @@ from torch import nn
 from ..ops.normalize import (global_normalization, highpass_filter,
                              local_normalization, lowpass_filter)
 from ..ops.resize import avg_pool_same, nchw, nhwc, resize_bilinear
+from ..parallel.mesh import current_spatial_shard
+from ..parallel.spatial import on_whole_map, slab_rows
 from .activations import hard_sigmoid
 from .conv import ConvBlock, DenseBlock
 
@@ -134,6 +138,16 @@ class SelectorBlock(nn.Module):
 
     def forward(self, input_1: torch.Tensor, input_2: torch.Tensor,
                 selector: torch.Tensor, train: bool = False) -> torch.Tensor:
+        shard = current_spatial_shard()
+        size = tuple(input_1.shape[2:]) if shard is None else (
+            shard.at(input_1.shape[2]).height, input_1.shape[3])
+        mask, shard = on_whole_map(self._mask, selector, size, train)
+        if mask.shape[2] > 1:             # GLOBAL's mask is one per channel
+            mask = slab_rows(mask, shard)
+        return input_1 * mask + input_2 * (1.0 - mask)
+
+    def _mask(self, selector: torch.Tensor, size, train: bool):
+        """The mixing mask of a selector map, at ``size`` (H, W)."""
         x = selector
         if hasattr(self, "selector_1x1"):
             x = self.selector_1x1(x, train=train)
@@ -155,8 +169,7 @@ class SelectorBlock(nn.Module):
                 memory_format=torch.channels_last)
             y = getattr(self, f"{name}_c0")(y, train=train)
             y = getattr(self, f"{name}_c1")(y, train=train)
-            y = nchw(resize_bilinear(nhwc(y), tuple(input_1.shape[2:])))
+            y = nchw(resize_bilinear(nhwc(y), size))
         # y >= 0 after the relu: the mask starts biased towards input_1
         y = 2.5 - y
-        mask = hard_sigmoid(y) if self.hard else torch.sigmoid(y)
-        return input_1 * mask + input_2 * (1.0 - mask)
+        return hard_sigmoid(y) if self.hard else torch.sigmoid(y)

@@ -38,7 +38,9 @@ statistics; every random mask comes from the generator. The band split
 is then differentiable through its backward kernel. The kernels carry
 their regularizers (``kernel_regularizer``, soft-orthogonal or
 -orthonormal 1×1s when the config asks, L1 on the gains); the sum is
-``ops/regularizers.regularization_loss(model)``.
+``ops/regularizers.regularization_loss(model)``. Under a spatially
+sharded train step the global pool's mean is taken on the whole map
+(``parallel/spatial.on_whole_map``), as are the attention units.
 """
 
 from typing import Any, Dict, List
@@ -61,6 +63,7 @@ from ..layers.stochastic import StochasticDepth
 from ..ops.pallas_pyramid import band_smooth
 from ..ops.regularizers import soft_ortho_spec
 from ..ops.resize import depth_to_space, nchw, nhwc, space_to_depth
+from ..parallel.spatial import on_whole_map
 
 
 def _per_level(val, name: str, depth: int) -> List[int]:
@@ -344,9 +347,10 @@ class UnetLaplacianBackbone(nn.Module):
                     skips[d], x = x - smooth, smooth
                 x = getattr(self, f"down_{d}")(x, **kw)
         if self.use_global_pool:
-            bottom = self.gpool_conv(skips[self.depth - 1], **kw)
-            pooled = self._out_norm(bottom.mean(dim=(2, 3), keepdim=True),
-                                    "gpool", train)
+            pooled, _ = on_whole_map(
+                lambda bottom: self._out_norm(
+                    bottom.mean(dim=(2, 3), keepdim=True), "gpool", train),
+                self.gpool_conv(skips[self.depth - 1], **kw))
             for d in range(self.depth - 1):
                 gain = getattr(self, f"gpool_scale_{d}")(
                     getattr(self, f"gpool_proj_{d}")(pooled, **kw))

@@ -47,6 +47,15 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, max_val: float = 255.0,
          k2: float = 0.03) -> torch.Tensor:
     """Per-image SSIM of two [B, H, W, C] float32 batches, shape [B] (the
     mean over positions and channels)."""
+    return torch.mean(ssim_map(img1, img2, max_val, filter_size,
+                               filter_sigma, k1, k2), dim=(1, 2, 3))
+
+
+def ssim_map(img1: torch.Tensor, img2: torch.Tensor, max_val: float = 255.0,
+             filter_size: int = 11, filter_sigma: float = 1.5,
+             k1: float = 0.01, k2: float = 0.03) -> torch.Tensor:
+    """The SSIM of every VALID window position and channel,
+    [B, H − filter_size + 1, W − filter_size + 1, C]."""
     window = _gaussian_window(int(filter_size), float(filter_sigma))
     c1 = (k1 * max_val) ** 2
     c2 = (k2 * max_val) ** 2
@@ -62,7 +71,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, max_val: float = 255.0,
     num1 = (mu12 - mu1 * mu2) * 2.0
     den1 = (mu11 + mu22) - (torch.square(mu1) + torch.square(mu2))
     cs = (num1 + c2) / (den1 + c2)
-    return torch.mean(luminance * cs, dim=(1, 2, 3))
+    return luminance * cs
 
 
 def ssim_loss(img1: torch.Tensor, img2: torch.Tensor, max_val: float = 255.0,

@@ -25,6 +25,17 @@ runs under :func:`batch_shard` (``shard_train_step`` sets it):
 * gradients, losses and metrics are means over the batch axes, taken
   after the backward, so the update equals the single-process step on
   the global batch and the state stays identical on every rank.
+
+``shard_train_step(spatial=True)`` also splits each crop's rows over
+the 'spatial' ranks, under :func:`spatial_shard` (a
+:class:`SpatialShard` beside the :class:`BatchShard`): every spatial
+rank of a batch shard holds the same full-height rows and prepares them
+whole, runs the model on its slab (its owned rows and ``margin`` more
+on each side, clipped to the crop), gathers the whole map at each op
+that sees it (``parallel/spatial.py``), and takes the losses over its
+owned rows; BatchNorm's statistics are sums over the owned rows reduced
+over the batch and spatial axes together, and the gradients and
+metrics are sums over 'spatial' and means over the batch axes.
 """
 
 import contextlib
@@ -74,6 +85,8 @@ class Mesh:
         batch = batch_axes(self)
         if len(batch) > 1:
             keys.append(batch)
+        if self.shape.get("spatial", 1) > 1:
+            keys.append(batch + ("spatial",))
         # every rank creates every group, in one order
         for key in keys:
             dims = [self.axis_names.index(a) for a in key]
@@ -191,6 +204,41 @@ class Sharding:
             x = x[:, pos * h:(pos + 1) * h]
         return x
 
+    def owned_rows(self, height: int, factor: int = 1) -> Tuple[int, int]:
+        """The rows ``[r0, r1)`` of ``height`` this rank owns along
+        ``rows`` (:func:`row_bounds`; the whole height when rows are not
+        split)."""
+        if self.rows is None:
+            return 0, height
+        pos, count = self.mesh.index((self.rows,))
+        return row_bounds(height, pos, count, factor)
+
+
+def broadcast_over(mesh: Mesh, axis: str, tensor: torch.Tensor):
+    """In place: every rank along ``axis`` gets the tensor of the rank at
+    position 0 of it (all other coordinates alike)."""
+    group = mesh.group((axis,))
+    if group is None:
+        return tensor
+    coords = dict(mesh.coords, **{axis: 0})
+    src = int(mesh.devices[tuple(coords[a] for a in mesh.axis_names)])
+    dist.broadcast(tensor, src=src, group=group)
+    return tensor
+
+
+def row_bounds(height: int, index: int, count: int,
+               factor: int = 1) -> Tuple[int, int]:
+    """The rows ``[r0, r1)`` that position ``index`` of ``count`` owns of
+    ``height``: equal runs of a multiple of ``factor`` rows (the model's
+    total downsample factor, so every bound is one too), the last
+    position taking the remainder."""
+    run = height // count // factor * factor
+    if run == 0:
+        raise ValueError(
+            f"height {height} does not split into {count} shards of a "
+            f"multiple of {factor} rows")
+    return index * run, height if index == count - 1 else (index + 1) * run
+
 
 def data_sharding(mesh: Mesh, spatial: bool = False) -> Sharding:
     """Batch tensors: dim 0 over 'data' (and 'dcn' when present);
@@ -244,9 +292,85 @@ def batch_shard(shard: Optional[BatchShard]):
         _SHARD.reset(token)
 
 
+@dataclass(frozen=True)
+class SpatialShard:
+    """A spatially sharded step's share of each crop: of ``height`` rows
+    the rank owns ``rows`` = [r0, r1) and runs the model on ``slab`` =
+    [max(0, r0 − margin), min(height, r1 + margin)); position ``index``
+    of ``count`` along 'spatial'. ``group`` gathers over 'spatial';
+    ``reduce_group`` reduces over the batch axes and 'spatial' together,
+    whose batch axes have ``batch_count`` positions. A map of the model
+    at a coarser scale holds the same bounds divided by its factor."""
+    index: int
+    count: int
+    height: int
+    rows: Tuple[int, int]
+    slab: Tuple[int, int]
+    group: object
+    reduce_group: object
+    batch_count: int
+
+    def factor(self, rows: int, whole: bool = False) -> int:
+        """The scale of a map that has ``rows`` rows: of the slab, or of
+        the whole crop (``whole``)."""
+        span = self.height if whole else self.slab[1] - self.slab[0]
+        f = span // max(1, rows)
+        if f * rows != span or any(v % f for v in self.rows + self.slab):
+            raise ValueError(
+                f"a map of {rows} rows is no scale of the "
+                f"{'crop' if whole else 'slab'} of {span} rows (owned "
+                f"{self.rows}, slab {self.slab})")
+        return f
+
+    def at(self, rows: int, whole: bool = False) -> "MapRows":
+        """The bounds at the scale of a map of ``rows`` rows (of the slab,
+        or of the whole crop with ``whole``)."""
+        f = self.factor(rows, whole)
+        (r0, r1), (s0, s1) = self.rows, self.slab
+        return MapRows(s0 // f, (s1 - s0) // f, (r0 - s0) // f,
+                       (r1 - r0) // f, self.height // f)
+
+
+@dataclass(frozen=True)
+class MapRows:
+    """A map's rows under a :class:`SpatialShard`: the slab starts at
+    ``slab_start`` of ``height`` and has ``slab_rows``; the owned rows
+    start ``own_start`` into the slab and are ``own_rows`` long."""
+    slab_start: int
+    slab_rows: int
+    own_start: int
+    own_rows: int
+    height: int
+
+
+_SPATIAL = contextvars.ContextVar("bidt_spatial_shard", default=None)
+
+
+def current_spatial_shard() -> Optional[SpatialShard]:
+    """The :class:`SpatialShard` of the step running now, or None (also
+    inside :func:`whole_map`)."""
+    return _SPATIAL.get()
+
+
+@contextlib.contextmanager
+def spatial_shard(shard: Optional[SpatialShard]):
+    token = _SPATIAL.set(shard)
+    try:
+        yield shard
+    finally:
+        _SPATIAL.reset(token)
+
+
+def whole_map():
+    """Within the block the ops see whole maps: no spatial shard (the
+    batch shard stays). An op that runs on a gathered map runs here."""
+    return spatial_shard(None)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """``all_reduce`` (sum) whose backward is the same reduction of the
-    output's gradient: each rank's input feeds every rank's output."""
+    output's gradient: each rank's input feeds every rank's output. The
+    forward-mode tangent is reduced the same way."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -261,21 +385,29 @@ class _AllReduceSum(torch.autograd.Function):
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        tangent = tangent.clone()
+        dist.all_reduce(tangent, group=ctx.group)
+        return tangent
+
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable sum of ``x`` over the ranks of ``group``."""
     return _AllReduceSum.apply(x, group)
 
 
-def reduce_mean_(tensors: Sequence[torch.Tensor], shard: BatchShard) -> None:
-    """In place: each tensor becomes its mean over the batch axes' ranks,
-    through one ``all_reduce`` of the tensors flattened together (float32
-    on the tensors' device; no host sync under NCCL)."""
+def reduce_mean_(tensors: Sequence[torch.Tensor], group, count: int) -> None:
+    """In place: each tensor becomes its sum over the ranks of ``group``
+    divided by ``count`` (the batch axes' positions: a mean over them,
+    and a sum over 'spatial' when ``group`` holds it too), through one
+    ``all_reduce`` of the tensors flattened together (float32 on the
+    tensors' device; no host sync under NCCL)."""
     if not tensors:
         return
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=shard.group)
-    flat.div_(float(shard.count))
+    dist.all_reduce(flat, group=group)
+    flat.div_(float(count))
     offset = 0
     with torch.no_grad():
         for t in tensors:
@@ -305,32 +437,49 @@ def shard_train_step(train_step, mesh: Mesh, spatial: bool = False):
     local batches must be equal, as JAX needs ``batch % (dcn·data) ==
     0``; the first call with a new local batch size checks it.
 
-    ``spatial=True`` (spatially sharded training) raises: it needs a halo
-    under every conv, pool and resize in autograd, the next slice."""
-    if spatial:
-        raise NotImplementedError(
-            "spatially sharded training (tpu.mesh.spatial_training) is not "
-            "ported yet: it needs a halo exchange under every conv, pool "
-            "and resize in autograd (ROADMAP Queue 1 item 13, spatial "
-            "training, the next slice)")
+    ``spatial=True`` on a mesh with a 'spatial' axis of n > 1 ranks:
+    each crop's rows are also split over the n ranks (module
+    docstring). The spatial ranks of a batch shard pass the same
+    full-height rows (``shard_batch``, as without). A slab reaches
+    ``parallel/spatial.training_margin`` of the state's model past its
+    owned rows, whose bounds are multiples of the model's total
+    downsample factor."""
     axes = batch_axes(mesh)
     group = mesh.group(axes)
-    if group is None:
-        if mesh.size > 1 and not mesh.distributed:
-            raise ValueError(
-                f"mesh {mesh.shape} spans {mesh.size} ranks but no process "
-                f"group is initialized (parallel.multihost.initialize)")
+    spatial = spatial and mesh.shape.get("spatial", 1) > 1
+    if mesh.size > 1 and not mesh.distributed:
+        raise ValueError(
+            f"mesh {mesh.shape} spans {mesh.size} ranks but no process "
+            f"group is initialized (parallel.multihost.initialize)")
+    if group is None and not spatial:
         return train_step
     index, count = mesh.index(axes)
     shard = BatchShard(index, count, group)
+    rows = data_sharding(mesh, spatial=True)
     checked = set()
+    layout = {}
+
+    def spatial_of(model, height: int) -> SpatialShard:
+        if "margin" not in layout:
+            from .spatial import downsample_factor, training_margin
+            layout["margin"] = training_margin(model.config)
+            layout["factor"] = downsample_factor(model.config)
+        s_index, s_count = mesh.index(("spatial",))
+        r0, r1 = rows.owned_rows(height, layout["factor"])
+        m = layout["margin"]
+        return SpatialShard(
+            s_index, s_count, height, (r0, r1),
+            (max(0, r0 - m), min(height, r1 + m)),
+            mesh.group(("spatial",)), mesh.group(axes + ("spatial",)), count)
 
     def step(state, batch, *args, **kwargs):
         if shard.count > 1 and batch.shape[0] not in checked:
             _check_equal_rows(int(batch.shape[0]), shard,
                               next(state.model.parameters()).device)
             checked.add(int(batch.shape[0]))
-        with batch_shard(shard):
+        slab = (spatial_of(state.model, int(batch.shape[1])) if spatial
+                else None)
+        with batch_shard(shard), spatial_shard(slab):
             return train_step(state, batch, *args, **kwargs)
 
     return step

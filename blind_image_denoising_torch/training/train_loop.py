@@ -28,17 +28,20 @@ the restoration recipe); ``train.distillation`` gives the step a frozen
 teacher (``training/distill.py``).
 
 Several processes (``parallel/multihost.initialize`` first, one rank a
-device): ``dataset.batch_size`` is the GLOBAL batch, each rank decodes
-its file shard at ``batch_size / ranks`` and trains under the mesh of
-``tpu.mesh`` (JAX's checks and messages; ``parallel/mesh.py``'s
-data-parallel step). The primary rank alone writes ``config.json``, the
-checkpoints (a barrier follows each save), ``metrics.jsonl``, the
-figures, the noise sweep's records and the profile; every rank restores;
-the pruned weights are broadcast from the primary. Spatially sharded
-training (``tpu.mesh.spatial_training`` with spatial > 1) raises
-``NotImplementedError``: it is the next slice. So does ``tpu.mesh.spatial``
-> 1 under several processes without it, where JAX's spatial devices
-would replicate the step: each rank here reads its own rows.
+device): ``dataset.batch_size`` is the GLOBAL batch; the ranks at one
+position along the batch axes (``dcn`` × ``data``) decode the same file
+shard at ``batch_size / positions``, each step taking the batch of the
+first rank of its spatial group (a broadcast: the decode threads order
+crops as they finish), and train under the mesh of ``tpu.mesh`` (JAX's
+checks and messages; ``parallel/mesh.py``'s data-parallel step). With
+``tpu.mesh.spatial_training`` and spatial > 1 the step also splits each
+crop's rows over the 'spatial' ranks (``shard_train_step(spatial=True)``);
+without it the spatial ranks replicate the step on the same rows, as
+JAX's spatial devices do. The primary rank alone writes
+``config.json``, the checkpoints (a barrier follows each save),
+``metrics.jsonl``, the figures, the noise sweep's records and the
+profile; every rank restores; the pruned weights are broadcast from the
+primary.
 """
 
 import contextlib
@@ -64,7 +67,8 @@ from ..models.hydra import model_builder
 from ..ops.losses import mae, psnr
 from ..ops.noise import corrupt_batch_fixed_std
 from ..parallel import multihost
-from ..parallel.mesh import create_mesh, replicate_sharding, shard_train_step
+from ..parallel.mesh import (batch_axes, broadcast_over, create_mesh,
+                             replicate_sharding, shard_train_step)
 from ..pruning import prune_function_builder, prune_params
 from ..weights import load_msgpack, params_from_flax
 from .checkpoint import CheckpointManager
@@ -122,10 +126,9 @@ def resolve_degradation_options(dataset_config: Dict) -> Dict:
 
 
 def _build_mesh(tpu_config: Dict, batch_size: int, n_proc: int):
-    """The mesh of ``tpu.mesh`` over the process group's ranks (one device
-    a rank), with the JAX loop's clamp, checks and messages. Spatially
-    sharded training, and under several processes any spatial axis,
-    raises, naming the next slice."""
+    """(the mesh of ``tpu.mesh`` over the process group's ranks, one
+    device a rank, with the JAX loop's clamp, checks and messages;
+    whether the step is spatially sharded)."""
     mesh_cfg = tpu_config.get("mesh", {"data": -1})
     spatial = int(mesh_cfg.get("spatial", 1))
     dcn = max(1, int(mesh_cfg.get("dcn", 1)))
@@ -148,21 +151,6 @@ def _build_mesh(tpu_config: Dict, batch_size: int, n_proc: int):
             f"{n_dev // (spatial * dcn) * dcn} (so 'data' can "
             f"span all devices), or raise tpu.mesh.spatial/dcn so "
             f"dcn*data*spatial covers all {n_dev} devices")
-    if bool(mesh_cfg.get("spatial_training", False)) and spatial > 1:
-        raise NotImplementedError(
-            f"spatially sharded training (tpu.mesh.spatial_training with "
-            f"spatial={spatial}) is not ported yet: it needs a halo "
-            f"exchange under every conv, pool and resize in autograd "
-            f"(ROADMAP Queue 1 item 13, spatial training, the next slice)")
-    if n_proc > 1 and spatial > 1:
-        # JAX's spatial devices lie inside one process and see its rows;
-        # here each rank is a process that decodes its own file shard, so
-        # spatial peers would train on different rows, apart
-        raise NotImplementedError(
-            f"tpu.mesh.spatial={spatial} across {n_proc} processes is not "
-            f"ported yet: the spatial ranks would each read their own rows "
-            f"and their states would drift apart (ROADMAP Queue 1 item 13, "
-            f"spatial training, the next slice)")
     if dcn * data * spatial < n_dev:
         logger.warning(
             f"mesh dcn={dcn} x data={data} x spatial={spatial} uses "
@@ -172,14 +160,21 @@ def _build_mesh(tpu_config: Dict, batch_size: int, n_proc: int):
             f"{n_dev // (spatial * dcn) * dcn} to engage "
             f"every device")
     mesh = create_mesh(data=data, spatial=spatial, dcn=dcn)
-    if bool(mesh_cfg.get("spatial_training", False)):
+    # tpu.mesh.spatial_training: each crop's rows also split over the
+    # 'spatial' ranks inside the step; the spatial ranks of a batch shard
+    # read the same rows (the dataset is sharded by the batch axes)
+    spatial_training = bool(mesh_cfg.get("spatial_training", False)) \
+        and spatial > 1
+    if bool(mesh_cfg.get("spatial_training", False)) and not spatial_training:
         logger.warning(
             "tpu.mesh.spatial_training requested but NOT active "
             f"(spatial={spatial}) — it needs spatial > 1; the step will "
             "run without H sharding")
     logger.info(f"mesh: {dict(mesh.shape)} over {n_dev} devices"
-                + (f" ({multihost.backend()})" if n_proc > 1 else ""))
-    return mesh
+                + (f" ({multihost.backend()})" if n_proc > 1 else "")
+                + (" (spatially-sharded training)" if spatial_training
+                   else ""))
+    return mesh, spatial_training
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -302,15 +297,19 @@ def train_loop(
     dataset_config = config["dataset"]
     tpu_config = config.get("tpu", {})
 
-    # several processes: batch_size is the GLOBAL batch; each rank decodes
-    # its file shard (dataset_builder defaults to the process group's)
+    # several processes: batch_size is the GLOBAL batch; the ranks of one
+    # position along the batch axes (a spatial group) decode the same file
+    # shard, at batch_size over the positions
     n_proc = multihost.process_count()
     batch_size = int(dataset_config["batch_size"])
+    mesh, spatial_training = _build_mesh(tpu_config, batch_size, n_proc)
+    shared_rows = n_proc > 1 and mesh.shape.get("spatial", 1) > 1
     if n_proc > 1:
-        if batch_size % n_proc:
+        position, positions = mesh.index(batch_axes(mesh))
+        if batch_size % positions:
             raise ValueError(
                 f"global batch_size {batch_size} not divisible by "
-                f"{n_proc} processes")
+                f"{positions} batch shards")
         if dataset_config.get("inputs") and not dataset_config.get("repeat"):
             # per-rank file shards give different batch counts an epoch,
             # and a rank that runs one extra step leaves its peers'
@@ -320,8 +319,9 @@ def train_loop(
                 "train.total_steps (epoch-bounded per-host file shards "
                 "desynchronize the cross-host step count)")
         dataset_config = dict(dataset_config,
-                              batch_size=batch_size // n_proc)
-    mesh = _build_mesh(tpu_config, batch_size, n_proc)
+                              batch_size=batch_size // positions,
+                              process_count=positions,
+                              process_index=position)
 
     dataset = dataset_builder(dataset_config)
     loss_fns = loss_function_builder(config["loss"])
@@ -390,9 +390,11 @@ def train_loop(
 
     # the hot step computes no percentiles; the stats variant runs only on
     # the steps whose gradients feed the figures
-    train_step = shard_train_step(make_step(False), mesh)
-    stats_step = (shard_train_step(make_step(True), mesh) if grad_stats
-                  else None)
+    train_step = shard_train_step(make_step(False), mesh,
+                                  spatial=spatial_training)
+    stats_step = (shard_train_step(make_step(True), mesh,
+                                   spatial=spatial_training)
+                  if grad_stats else None)
     eval_step = build_eval_step(hydra)
     ds_schedule = deep_supervision_schedule_builder(
         train_config.get("deep_supervision", {"type": "linear_low_to_high"}),
@@ -487,6 +489,11 @@ def train_loop(
                     "round_values", True) else None))
             try:
                 for batch in batches:
+                    if shared_rows:
+                        # the spatial ranks decode the same files, but the
+                        # decode threads queue crops as they finish: the
+                        # first spatial rank's batch is every one's
+                        broadcast_over(mesh, "spatial", batch)
                     # endless streams never finish an epoch: refresh the
                     # ramp from the step every 100 steps
                     if (total_steps > 0

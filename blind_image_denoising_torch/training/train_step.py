@@ -35,6 +35,13 @@ the global batch's rows (``ops/noise.batch_rand``, the noise kernel's
 gradients and metrics are ``all_reduce``d to their means over the batch
 axes before the clip, the optimizer and the EMA, so the update is the
 single-process step's on the global batch and alike on every rank.
+Under ``shard_train_step(spatial=True)`` each spatial rank also prepares
+the whole crops, runs the model on its slab of rows
+(``parallel/mesh.SpatialShard``), takes each scale's losses over its
+owned rows (``parallel/spatial.loss_rows``) and the regularization on
+the first spatial rank alone; the gradients and metrics are then summed
+over the spatial ranks and averaged over the batch axes, in one
+``all_reduce``.
 """
 
 from typing import Callable, Dict, Optional, Sequence
@@ -53,7 +60,10 @@ from ..ops.pallas_noise import corrupt_noise
 from ..ops.precision import exact_float32
 from ..ops.regularizers import regularization_loss
 from ..ops.resize import nchw, nhwc
-from ..parallel.mesh import current_batch_shard, reduce_mean_
+from ..parallel.mesh import (batch_shard, current_batch_shard,
+                             current_spatial_shard, reduce_mean_,
+                             spatial_shard, whole_map)
+from ..parallel.spatial import loss_rows
 from .optimizer import global_norm
 from .train_state import TrainState
 
@@ -81,10 +91,20 @@ def forward_loss(model, loss_fns: Dict[str, Callable], no_outputs: int,
     ``teacher_out``: the teacher's finest-scale output on ``noisy``; the
     per-scale losses are then scaled by ``gt_weight`` and the finest
     output's loss against it, × ``depth_weights[0]`` × ``distill_weight``,
-    is added."""
+    is added.
+
+    Under a spatially sharded step ``noisy`` and the targets are the
+    whole crops: the model runs on the slab's rows and each loss is this
+    rank's share over its owned rows (module docstring)."""
+    spatial = current_spatial_shard()
+    x = nchw(noisy if spatial is None else noisy.narrow(
+        1, spatial.slab[0], spatial.slab[1] - spatial.slab[0]))
     if remat:
         saved = generator.get_state() if generator is not None else None
         calls = []
+        # the recompute may run on the backward's thread: it re-enters the
+        # step's shards, so it issues the forward's collectives
+        shards = (current_batch_shard(), spatial)
 
         def run(x):
             if saved is not None:
@@ -92,29 +112,40 @@ def forward_loss(model, loss_fns: Dict[str, Callable], no_outputs: int,
             # the recompute leaves the batch norms' running statistics
             # alone: the forward updated them once, as JAX's pure remat
             calls.append(None)
-            with frozen_statistics(len(calls) > 1):
+            with frozen_statistics(len(calls) > 1), \
+                    batch_shard(shards[0]), spatial_shard(shards[1]):
                 return tuple(model(x, train=True, generator=generator))
 
-        outputs = checkpoint(run, nchw(noisy), use_reentrant=False)
+        outputs = checkpoint(run, x, use_reentrant=False)
     else:
-        outputs = model(nchw(noisy), train=True, generator=generator)
+        outputs = model(x, train=True, generator=generator)
     total = torch.zeros((), device=noisy.device)
     metrics = {}
     if teacher_out is None:
         gt_weight = 1.0
+
+    def loss(target, output):
+        target, output, share = loss_rows(target, nhwc(output).float())
+        if share is None:
+            return loss_fns["denoiser"](target, output)
+        return loss_fns["denoiser"](target, output, share=share)
+
     for i in range(no_outputs):
-        li = loss_fns["denoiser"](gt_scales[i], nhwc(outputs[i]).float())
+        li = loss(gt_scales[i], outputs[i])
         total = total + li[TOTAL_LOSS_STR] * depth_weights[i] * gt_weight
         for k in (MAE_LOSS_STR, MSE_LOSS_STR, SSIM_LOSS_STR, TOTAL_LOSS_STR):
             metrics[f"scale_{i}/{k}"] = li[k]
     if teacher_out is not None:
-        distill = loss_fns["denoiser"](teacher_out,
-                                       nhwc(outputs[0]).float())
+        distill = loss(teacher_out, outputs[0])
         total = total + (distill[TOTAL_LOSS_STR] * depth_weights[0]
                          * distill_weight)
         for k in (MAE_LOSS_STR, TOTAL_LOSS_STR):
             metrics[f"distill/{k}"] = distill[k]
-    mloss = loss_fns["model"](regularization_loss(model))
+    # the spatial ranks' shares sum: the first carries the regularization
+    regularization = (regularization_loss(model)
+                      if spatial is None or spatial.index == 0
+                      else torch.zeros((), device=noisy.device))
+    mloss = loss_fns["model"](regularization)
     total = total + mloss[TOTAL_LOSS_STR]
     metrics[TOTAL_LOSS_STR] = total
     metrics[REGULARIZATION_LOSS_STR] = mloss[REGULARIZATION_LOSS_STR]
@@ -254,8 +285,10 @@ def build_train_step(
         with exact_float32(dev.type == "cuda"):
             for clean in batch.chunk(n):
                 noisy, gt_scales = prepare(state, clean, generator)
-                teacher_out = (teacher_fn(noisy) if teacher_fn is not None
-                               else None)
+                teacher_out = None
+                if teacher_fn is not None:
+                    with whole_map():       # the teacher sees whole crops
+                        teacher_out = teacher_fn(noisy)
                 total, m = forward_loss(
                     model, loss_fns, no_outputs, noisy, gt_scales,
                     depth_weights, generator, remat=remat,
@@ -269,11 +302,16 @@ def build_train_step(
         if n > 1:
             torch._foreach_div_(grads, float(n))
             metrics = {k: v / n for k, v in metrics.items()}
-        shard = current_batch_shard()
-        if shard is not None and shard.group is not None:
-            # the means over the batch axes: one all_reduce of the
-            # gradients and the metrics together
-            reduce_mean_(grads + list(metrics.values()), shard)
+        shard, spatial = current_batch_shard(), current_spatial_shard()
+        if spatial is not None:
+            # sums over 'spatial', means over the batch axes: one
+            # all_reduce of the gradients and the metrics together
+            reduce_mean_(grads + list(metrics.values()),
+                         spatial.reduce_group, spatial.batch_count)
+        elif shard is not None and shard.group is not None:
+            # the means over the batch axes
+            reduce_mean_(grads + list(metrics.values()), shard.group,
+                         shard.count)
         metrics["grad_norm"] = global_norm(grads)
         if grad_stats:
             metrics["grad_stats"] = {

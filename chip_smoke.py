@@ -153,15 +153,24 @@ drive the two paths of the port through the entry points a user calls:
   within 1e-3 gray levels of the unsharded forward and bf16 within §2's
   bar, each slab launching what one unsharded forward does, peak memory
   a rank; the packaged flagship sharded (read: its attention sees a
-  slab). Then the train CLI as 2 gloo ranks (``--coordinator-address``)
-  on the train_loop phase's config and scenes (8 steps from the
-  artifact, a resume to 12): rank 0 alone writes checkpoints and
-  ``metrics.jsonl``, the ranks end bit-equal, the restore is bit for
-  bit, K2 16, K2 bwd 16, K3 8 a step at the local b2, the syncs in a
-  gloo step, steps/s and rank 0's profiled idle share (read); and one
+  slab). The spatially sharded step (``shard_train_step(spatial=True)``
+  on a data 1 × spatial 2 mesh, the same config, b4 @ 512², each rank
+  its slab of every crop) against the single-process step at the DP
+  bars in f32 and read in bf16, the ranks' params and K3 outputs
+  bit-equal, K2 2, K2 bwd 2, K3 1 a rank, each rank's ms and peak GiB
+  beside the single step's. Then the train CLI as 2 gloo ranks
+  (``--coordinator-address``) on the train_loop phase's config and
+  scenes (8 steps from the artifact, a resume to 12): rank 0 alone
+  writes checkpoints and ``metrics.jsonl``, the ranks end bit-equal,
+  the restore is bit for bit, K2 16, K2 bwd 16, K3 8 a step at the
+  local b2, the syncs in a gloo step, steps/s and rank 0's profiled
+  idle share (read); and one
   NCCL rank alone, 6 steps with ``set_sync_debug_mode("error")`` inside
-  each. Every kernel input the ranks launched against the plain
-  versions (rank 0);
+  each; and the CLI as 2 gloo ranks with ``tpu.mesh: {spatial: 2,
+  spatial_training: true}`` (5 steps from the artifact, a resume to 7,
+  a sweep at 7) under the DP loop's checks, with its steps/s.
+  Every kernel input the ranks launched against the plain versions
+  (rank 0);
 
 check what comes out, and time the kernels and the paths (K1 also in
 its float32 I/O mode, which serves ``load_model(dtype="float32")``: one
@@ -4072,7 +4081,8 @@ def layers_breadth_phase(bidt, smi, read_counts):
 # size on its scenes (dataset.repeat, as several processes need), 8 steps
 # from the artifact and a resume to 12 (the profile at step 2, the step
 # after it and the sweeps at 6 and 12 leave 3 steady gaps a leg); spatial
-# serving is the 4K frame
+# serving is the 4K frame; the spatially sharded step and loop split each
+# crop's rows over the two ranks
 PARALLEL_TIMEOUT = 600
 PARALLEL_LOOP_STEPS, PARALLEL_RESUME_STEPS, PARALLEL_PROFILE_STEP = 8, 12, 2
 PARALLEL_OVERRIDES = dict(LOOP_OVERRIDES, **{
@@ -4086,6 +4096,26 @@ DP_LOSS_RTOL, DP_PARAM_TOL = 1e-6, 1e-5
 SPATIAL_HW = (2160, 3840)
 SPATIAL_F32_MAX = 1e-3          # gray levels before rounding, f32
 SPATIAL_REQUESTS = 3
+# the spatially sharded step: the flagship config (the train phase's noise
+# and K3, drop-path on) on a global b4 @ 512², each crop's rows over 2
+# ranks, against the single-process step at the DP bars; a timed second
+# step after the compared one
+SPATIAL_STEP_BATCH, SPATIAL_STEP_SIZE = 4, 512
+# the sharded step against the single-process step in f32: the loss at the
+# DP bar, and the gradients the optimizer gets within SPATIAL_GRAD_TOL of
+# each tensor's largest entry. Each spatial rank backpropagates its own
+# loss share, so the gradient is the sum of n backward passes: the
+# single step's in float64 (to 4e-13 on the CPU), apart from it by float32
+# rounding. Adam's first step divides each entry by its own magnitude, so
+# an entry at that rounding moves its param by up to the learning rate:
+# the params are read, beside the single step's own spread between
+# cuDNN's default and deterministic algorithms (its params 3.5e-5 apart,
+# its gradients 9.4e-6, on the card); the gradient bar is ten times that
+SPATIAL_GRAD_TOL = 1e-4
+# the spatially sharded loop: the DP loop's config with spatial_training,
+# 5 steps from the artifact and a resume to 7, one sweep at the end (the
+# first leg leaves 3 steady gaps)
+SPATIAL_LOOP_STEPS, SPATIAL_RESUME_STEPS, SPATIAL_LOOP_SWEEP = 5, 7, 7
 
 
 def free_port() -> int:
@@ -4185,6 +4215,71 @@ def dp_step_rank(bidt, cfg, params, clean, mesh, dtype, read_counts, work,
     return out["dp"]
 
 
+def spatial_step_rank(cfg, params, clean, mesh, dtype, read_counts, work,
+                      tag, rank):
+    """The flagship's step as this rank of the data 1 × spatial n mesh on
+    the whole batch (each rank runs its slab of every crop), and on rank
+    0 the single-process step after it, then the single step again with
+    cuDNN's deterministic algorithms (``single_det``: the single step's
+    own spread between convolution algorithms). Each kind runs twice, the
+    first compared (params, the gradients before the optimizer, loss and
+    K3's output into ``work``), the second timed, with the peak memory
+    of the pair. Returns this rank's rows: launches in its first sharded
+    step, ms and peak GiB of each kind it ran."""
+    import importlib
+    from blind_image_denoising_torch.parallel import shard_train_step
+    step_mod = importlib.import_module(
+        "blind_image_denoising_torch.training.train_step")
+    out = {}
+    kinds = ("sharded", "single", "single_det") if rank == 0 else (
+        "sharded",)
+    for name in kinds:
+        state, step = build_trainer(cfg, params, dtype, "cuda", drop=True)
+        if name == "sharded":
+            step = shard_train_step(step, mesh, spatial=True)
+        batch = torch.from_numpy(clean).cuda()
+        kept, grads = [], []
+        real, real_norm = step_mod.corrupt_noise, step_mod.global_norm
+
+        def keep(*a, **k):
+            y = real(*a, **k)
+            kept.append(y.detach().clone())
+            return y
+
+        def norm(gs):
+            # the reduced gradients, as the optimizer gets them
+            grads.append([g.detach().float().cpu() for g in gs])
+            return real_norm(gs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_mod.corrupt_noise, step_mod.global_norm = keep, norm
+        torch.backends.cudnn.deterministic = name == "single_det"
+        try:
+            before = read_counts()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            launches = worker_counts(read_counts, before)
+        finally:
+            step_mod.corrupt_noise, step_mod.global_norm = real, real_norm
+        names = [n for n, _ in state.model.named_parameters()]
+        torch.save(dict(params={k: v.detach().cpu() for k, v in
+                                state.model.state_dict().items()},
+                        grads=dict(zip(names, grads[0])),
+                        loss=float(metrics["total_loss"]),
+                        k3=[t.cpu() for t in kept]),
+                   work / f"spatial_{tag}_{name}_{rank}.pt")
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        out[name] = dict(launches=launches,
+                         ms=1e3 * (time.perf_counter() - t0),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del state, step, metrics, kept, grads
+        torch.cuda.empty_cache()
+    return out
+
+
 def spatial_rank(bidt, mesh, read_counts, rank, smi):
     """Spatial serving of the 4K frame on this rank: the attention-free
     flagship config at full width from a seeded init, f32 and bf16,
@@ -4265,7 +4360,8 @@ def spatial_rank(bidt, mesh, read_counts, rank, smi):
 
 def cohort_worker(spec, bidt, read_counts, smi):
     """Rank ``spec["rank"]`` of the two gloo ranks on the card: the DP
-    step in f32 and bf16, then spatial serving."""
+    step in f32 and bf16, the spatially sharded step in f32 and bf16,
+    then spatial serving."""
     from blind_image_denoising_torch.ops import (pallas_convnext,
                                                  pallas_noise, pallas_pyramid)
     from blind_image_denoising_torch.parallel import create_mesh, multihost
@@ -4280,6 +4376,9 @@ def cohort_worker(spec, bidt, read_counts, smi):
         f"{bidt.models[FLAGSHIP]['directory']}/params.msgpack"))
     clean = np.round(synthetic_images(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE,
                                       np.random.default_rng(SEED + 60)))
+    big = np.round(synthetic_images(
+        SPATIAL_STEP_BATCH, SPATIAL_STEP_SIZE, SPATIAL_STEP_SIZE,
+        np.random.default_rng(SEED + 65)))
     result = dict(backend=multihost.backend(),
                   device=str(multihost.device()))
     with KernelInputs() as kernel_inputs:
@@ -4289,6 +4388,10 @@ def cohort_worker(spec, bidt, read_counts, smi):
                               read_counts, work, tag, rank)
             for tag, dtype in (("f32", None), ("bf16", torch.bfloat16))}
         spatial_mesh = create_mesh(data=1, spatial=spec["world"])
+        result["spatial_step"] = {
+            tag: spatial_step_rank(cfg, params, big, spatial_mesh, dtype,
+                                   read_counts, work, tag, rank)
+            for tag, dtype in (("f32", None), ("bf16", torch.bfloat16))}
         result["spatial"], result["spatial_launches"] = spatial_rank(
             bidt, spatial_mesh, read_counts, rank, smi)
     multihost.sync("cohort")
@@ -4380,7 +4483,7 @@ def loop_worker(spec, bidt, read_counts, smi):
     ckpt_dir = Path(spec["ckpt_dir"])
     restored = None
     if len(spec["legs"]) > 1:
-        ckpt = CheckpointManager(str(ckpt_dir)).read(PARALLEL_LOOP_STEPS)
+        ckpt = CheckpointManager(str(ckpt_dir)).read(spec["restore_step"])
         restored = snapshot_equals_checkpoint(probe.restored, ckpt)
     torch.save(finals, work / f"{spec['role']}_final_{rank}.pt")
     # start to start of two steps of one leg (a probed step holds the
@@ -4502,15 +4605,67 @@ def parallel_phase(bidt, smi, loop_run):
             sp["bf16"]["gap"]["p99"] > EXPORT_BF16_P99:
         problems.append(f"spatial bf16 {sp['bf16']['gap']}")
 
+    # the spatially sharded step: each rank against the single-process
+    # step (f32 at the DP bars, bf16 read), bit-equal ranks, every rank's
+    # K3 output the single step's (each prepares the whole batch)
+    spatial_step = {}
+    for tag in ("f32", "bf16"):
+        single = torch.load(work / f"spatial_{tag}_single_0.pt")
+        ranks = [torch.load(work / f"spatial_{tag}_sharded_{r}.pt")
+                 for r in range(2)]
+        det = torch.load(work / f"spatial_{tag}_single_det_0.pt")
+
+        def rel(a, b):
+            """Per tensor, max |a − b| over b's largest entry."""
+            return {n: float((a[n] - v).abs().max()
+                             / v.abs().max().clamp_min(1e-30))
+                    for n, v in b.items()}
+
+        def top(d):
+            return sorted(((v, n) for n, v in d.items()), reverse=True)[:3]
+        grads = rel(ranks[0]["grads"], single["grads"])
+        params_rel = rel(ranks[0]["params"], single["params"])
+        loss_rel = abs(ranks[0]["loss"] - single["loss"]) / abs(
+            single["loss"])
+        equal_ranks = all(torch.equal(v, ranks[1]["params"][n])
+                          for n, v in ranks[0]["params"].items())
+        k3_equal = [torch.equal(r["k3"][0], single["k3"][0]) for r in ranks]
+        tallies = [r["spatial_step"][tag] for r in cohort]
+        spatial_step[tag] = dict(
+            loss_sharded=ranks[0]["loss"], loss_single=single["loss"],
+            loss_rel=loss_rel, grad_worst_rel=top(grads),
+            param_worst_rel=top(params_rel),
+            single_det_grad_worst_rel=top(rel(det["grads"],
+                                              single["grads"])),
+            single_det_param_worst_rel=top(rel(det["params"],
+                                               single["params"])),
+            ranks_bit_equal=equal_ranks, k3_bit_equal=k3_equal,
+            sharded_ms=[r["sharded"]["ms"] for r in tallies],
+            sharded_peak_gib=[r["sharded"]["peak_gib"] for r in tallies],
+            single_ms=tallies[0]["single"]["ms"],
+            single_peak_gib=tallies[0]["single"]["peak_gib"],
+            launches_per_rank=[r["sharded"]["launches"] for r in tallies])
+        if tag == "f32" and (loss_rel > DP_LOSS_RTOL or max(
+                grads.values()) > SPATIAL_GRAD_TOL):
+            problems.append(f"spatial step f32: {spatial_step[tag]}")
+        if not equal_ranks or not all(k3_equal):
+            problems.append(f"spatial step {tag}: {spatial_step[tag]}")
+        for r in tallies:
+            if r["sharded"]["launches"] != per_step:
+                problems.append(f"spatial step {tag} launches "
+                                f"{r['sharded']['launches']}")
+
     # the data-parallel loop through the train CLI: 2 gloo ranks, then one
-    # NCCL rank alone
+    # NCCL rank alone, then the spatially sharded loop on 2 gloo ranks
     base = bidt.CONFIGS_DICT[TRAIN_CONFIG]
     image_dir = loop_run["image_dir"]
     artifact = bidt.models[FLAGSHIP]["directory"]
     runs = {}
     for role, n, backend, steps in (
             ("loop", 2, "gloo", (PARALLEL_LOOP_STEPS, PARALLEL_RESUME_STEPS)),
-            ("nccl", 1, "nccl", (PARALLEL_NCCL_STEPS,))):
+            ("nccl", 1, "nccl", (PARALLEL_NCCL_STEPS,)),
+            ("sloop", 2, "gloo", (SPATIAL_LOOP_STEPS,
+                                  SPATIAL_RESUME_STEPS))):
         ckpt_dir = work / f"{role}_checkpoints"
         legs = []
         for i, total in enumerate(steps):
@@ -4522,6 +4677,11 @@ def parallel_phase(bidt, smi, loop_run):
             if role == "nccl":          # no profile, no sweep: steps only
                 cfg["train"].update(profile_at_step=-1,
                                     visualization_every=-1)
+            if role == "sloop":         # no profile, one sweep
+                cfg["train"].update(
+                    profile_at_step=-1, checkpoint_every=SPATIAL_LOOP_STEPS,
+                    visualization_every=SPATIAL_LOOP_SWEEP)
+                cfg["tpu"]["mesh"] = {"spatial": 2, "spatial_training": True}
             path = work / f"{role}_{total}.json"
             path.write_text(json.dumps(cfg))
             port = free_port()
@@ -4536,6 +4696,7 @@ def parallel_phase(bidt, smi, loop_run):
         runs[role] = spawn_ranks(role, n, work, legs=legs,
                                  ckpt_dir=str(ckpt_dir), smi=smi,
                                  strict=role == "nccl",
+                                 restore_step=steps[0],
                                  profile_step=(PARALLEL_PROFILE_STEP
                                                if role == "loop" else None))
         runs[role + "_s"] = time.perf_counter() - t0
@@ -4579,20 +4740,54 @@ def parallel_phase(bidt, smi, loop_run):
             len(nccl["steps"]) != PARALLEL_NCCL_STEPS or \
             nccl["backends"] != ["nccl"]:
         problems.append(f"nccl run {nccl['steps']} {nccl['backends']}")
+    # the spatially sharded loop: as the DP loop's checks, its own steps
+    sloop = runs["sloop"]
+    sfinals = [torch.load(work / f"sloop_final_{r}.pt") for r in range(2)]
+    sloop_equal = [all(torch.equal(v, sfinals[1][leg][n])
+                       for n, v in sfinals[0][leg].items())
+                   for leg in range(2)]
+    slogged = [json.loads(line)["step"] for line in (
+        runs["sloop_ckpt"] / "metrics.jsonl").read_text().splitlines()
+        if "total_loss" in line]
+    for r, res in enumerate(sloop):
+        if any(s["launches"] != per_loop_step for s in res["steps"]) or \
+                len(res["steps"]) != SPATIAL_RESUME_STEPS:
+            problems.append(f"sloop rank {r} step launches "
+                            f"{[s['launches'] for s in res['steps']]}")
+        if res["restore_differs"]:
+            problems.append(f"sloop rank {r} restore "
+                            f"{res['restore_differs']}")
+    if not (sloop[0]["checkpoint_writes"]
+            and not sloop[1]["checkpoint_writes"]
+            and sloop[1]["metrics_writer_enabled"] == [False, False]):
+        problems.append("sloop: writes not rank 0's alone")
+    if slogged != list(range(1, SPATIAL_RESUME_STEPS + 1)):
+        problems.append(f"sloop metrics steps {slogged}")
+    if not all(sloop_equal):
+        problems.append(f"sloop final params equal across ranks "
+                        f"{sloop_equal}")
+    if [s["launches"] for s in sloop[0]["sweeps"]] != [per_sweep] * (
+            SPATIAL_RESUME_STEPS // SPATIAL_LOOP_SWEEP) or \
+            sloop[1]["sweeps"]:
+        problems.append(f"sloop sweeps {sloop[0]['sweeps']}, rank 1 "
+                        f"{sloop[1]['sweeps']}")
     profile = loop_ranks[0]["profile"] or {}
     steady = loop_ranks[0]["steady_step_s"]
+    ssteady = sloop[0]["steady_step_s"]
     launches = {k: 0 for k in per_step}
     for res in cohort:
         for got in list(res["dp_launches"].values()) + list(
-                res["spatial_launches"].values()):
+                res["spatial_launches"].values()) + [
+                v["sharded"]["launches"]
+                for v in res["spatial_step"].values()]:
             for k, v in got.items():
                 launches[k] += v
-    for res in loop_ranks + [nccl]:
+    for res in loop_ranks + [nccl] + sloop:
         for s in res["steps"] + res["sweeps"]:
             for k, v in s["launches"].items():
                 launches[k] += v
     errors = {}
-    for res in (cohort[0], loop_ranks[0], nccl):
+    for res in (cohort[0], loop_ranks[0], nccl, sloop[0]):
         for k, v in res["errors"].items():
             errors[k] = max(errors.get(k, 0.0), v)
     result = dict(
@@ -4602,6 +4797,9 @@ def parallel_phase(bidt, smi, loop_run):
         devices=[r["device"] for r in cohort],
         dp_step=dict(dp, batch=[TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3],
                      ranks=2, launches_per_rank=cohort[0]["dp_launches"]),
+        spatial_step=dict(spatial_step,
+                          batch=[SPATIAL_STEP_BATCH, SPATIAL_STEP_SIZE,
+                                 SPATIAL_STEP_SIZE, 3], ranks=2),
         spatial=sp, spatial_rank1=cohort[1]["spatial"],
         spatial_launches_per_slab=[r["spatial_launches"] for r in cohort],
         loop=dict(legs=[r["legs"] for r in loop_ranks],
@@ -4622,8 +4820,18 @@ def parallel_phase(bidt, smi, loop_run):
                   steps_per_s=(1.0 / statistics.median(nccl["steady_step_s"])
                                if nccl["steady_step_s"] else None),
                   sync_mode="error inside each step"),
+        spatial_loop=dict(
+            legs=[r["legs"] for r in sloop], steps_logged=slogged,
+            final_ranks_bit_equal=sloop_equal,
+            checkpoint_writes=[r["checkpoint_writes"] for r in sloop],
+            launches_per_step=sloop[0]["steps"][0]["launches"],
+            sweeps=sloop[0]["sweeps"],
+            restore_differs=[r["restore_differs"] for r in sloop],
+            steady_step_s=ssteady, steady_gaps=len(ssteady),
+            steps_per_s=(1.0 / statistics.median(ssteady)
+                         if ssteady else None)),
         seconds=dict(cohort=cohort_s, loop=runs["loop_s"],
-                     nccl=runs["nccl_s"]),
+                     nccl=runs["nccl_s"], sloop=runs["sloop_s"]),
         smi=smi,
         tolerance=f"DP f32 loss rel <= {DP_LOSS_RTOL}, params <= "
                   f"{DP_PARAM_TOL} of each tensor's largest entry; ranks "
@@ -4632,10 +4840,16 @@ def parallel_phase(bidt, smi, loop_run):
                   f"<= {SPATIAL_F32_MAX} gray levels, bf16 mean <= "
                   f"{EXPORT_BF16_MEAN}, p99 <= {EXPORT_BF16_P99}; loop: "
                   f"rank 0 alone writes, ranks bit-equal, restore bit-exact; "
-                  f"NCCL: no sync inside a step (error mode)")
+                  f"NCCL: no sync inside a step (error mode); spatial "
+                  f"step f32 loss rel <= {DP_LOSS_RTOL}, gradients <= "
+                  f"{SPATIAL_GRAD_TOL} of each tensor's largest entry, "
+                  f"params read, bf16 read, ranks and K3 "
+                  f"bit-equal, launches those of one step a rank; spatial "
+                  f"loop as the DP loop")
     log("parallel", **result)
     log("parallel_checks", cohort=cohort[0]["checked"],
-        loop=loop_ranks[0]["checked"], nccl=nccl["checked"])
+        loop=loop_ranks[0]["checked"], nccl=nccl["checked"],
+        sloop=sloop[0]["checked"])
     if problems:
         raise AssertionError(f"parallel: {problems}")
     return launches, errors

@@ -310,12 +310,13 @@ def test_denoiser_signature_and_unported_options(tiny):
     model = model_builder(copy.deepcopy(TINY_RESNET_MODEL)).hydra
     with pytest.raises(TypeError, match="keyword-only"):
         Denoiser(model, "cpu")
-    # a spatial mesh refuses TTA (JAX's ValueError) and a derivative
-    # through its halo exchange; tests/test_torch_parallel.py serves it
+    # a spatial mesh refuses TTA (JAX's ValueError), and without a process
+    # group it serves nothing, a derivative included;
+    # tests/test_torch_parallel.py serves it and differentiates through it
     spatial = create_mesh(data=1, spatial=2, devices=[0, 1])
     with pytest.raises(ValueError, match="tta=True is single-mesh only"):
         Denoiser(model, mesh=spatial, tta=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="spatial training"):
+    with pytest.raises(ValueError, match="no spatial process group"):
         Denoiser(model, mesh=spatial, spatial_margin=8,
                  device="cpu").float_forward(
             torch.zeros((8, 8, 3), requires_grad=True))

@@ -292,8 +292,8 @@ def test_train_loop_needs_the_card_or_cpu(tmp_path):
 
 
 # one process is a one-device mesh: a mesh over more devices raises JAX's
-# ValueError, and spatially sharded training (the next slice) raises naming
-# it; several processes run in tests/test_torch_parallel.py
+# ValueError, spatially sharded training included; several processes run
+# in tests/test_torch_parallel.py
 @pytest.mark.parametrize("change,error,match", [
     (lambda c: c["tpu"].update(mesh={"data": 2}), ValueError,
      "mesh 1x2x1 needs more than 1 devices"),
@@ -301,7 +301,7 @@ def test_train_loop_needs_the_card_or_cpu(tmp_path):
      "mesh 1x2x2 needs more than 1 devices"),
     (lambda c: c["tpu"].update(mesh={"data": -1, "spatial": 2,
                                      "spatial_training": True}),
-     NotImplementedError, "spatial training"),
+     ValueError, "mesh 1x2x2 needs more than 1 devices"),
     (lambda c: c["tpu"].update(mesh={"data": -1, "dcn": 3}), ValueError,
      "batch_size 2 not divisible by dcn=3 slices"),
     (lambda c: c["tpu"].update(mesh={"data": 4}), ValueError,

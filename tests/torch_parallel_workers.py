@@ -11,6 +11,7 @@ starts without JAX.
 failure, and raises with each failed rank's traceback."""
 
 import copy
+import hashlib
 import multiprocessing
 import os
 import socket
@@ -30,9 +31,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(rank, n, port, target, out, device, join, kwargs):
+def _entry(rank, n, port, target, out, device, join):
     torch.set_num_threads(1)
     from blind_image_denoising_torch.parallel import multihost
+    kwargs = load_result(Path(out, "kwargs.pt"))
     try:
         if join:
             multihost.initialize(f"localhost:{port}", n, rank,
@@ -57,10 +59,12 @@ def run_cohort(n: int, target: str, out, timeout: float = 120.0,
     out.mkdir(parents=True, exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
     port = free_port()
+    # the arguments go through a file: a large pickle through the start
+    # pipe holds each start until that child has imported torch
+    torch.save(kwargs, out / "kwargs.pt")
     saved = {k: os.environ.pop(k) for k in RANK_ENV if k in os.environ}
     procs = [ctx.Process(target=_entry, daemon=True,
-                         args=(r, n, port, target, str(out), device, join,
-                               kwargs))
+                         args=(r, n, port, target, str(out), device, join))
              for r in range(n)]
     try:
         for p in procs:
@@ -142,11 +146,12 @@ def step_result(state, metrics, recorder):
         noisy=recorder.noisy, k3=recorder.k3)
 
 
-def run_steps(cases, batch, mesh=None, device="cpu"):
+def run_steps(cases, batch, mesh=None, device="cpu", spatial=False):
     """Each case (model, loss, optimizer, params, step kwargs, micro
-    batches) for one step on ``batch`` (numpy, the global batch): under
-    ``mesh`` on this rank's rows through ``shard_train_step``, else on
-    the whole batch. Returns one ``step_result`` a case."""
+    batches, and optionally its own global ``batch``) for one step on
+    ``batch`` (numpy, the global batch): under ``mesh`` on this rank's
+    rows through ``shard_train_step(spatial=spatial)``, else on the whole
+    batch. Returns one ``step_result`` a case."""
     from blind_image_denoising_torch.parallel import (shard_batch,
                                                       shard_train_step)
     results = []
@@ -155,24 +160,40 @@ def run_steps(cases, batch, mesh=None, device="cpu"):
                                  case["optimizer"], case["params"], device,
                                  **case.get("step", {}))
         accum = case.get("step", {}).get("grad_accum", 1)
+        data = case.get("batch", batch)
         if mesh is not None:
-            step = shard_train_step(step, mesh)
-            local = shard_batch(mesh, batch, micro_batches=accum,
+            step = shard_train_step(step, mesh, spatial=spatial)
+            local = shard_batch(mesh, data, micro_batches=accum,
                                 device=device)
         else:
-            local = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+            local = torch.from_numpy(np.ascontiguousarray(data)).to(device)
         with Recorder() as rec:
             state, metrics = step(state, local)
         results.append(step_result(state, metrics, rec))
     return results
 
 
-def dp_steps(rank, n, out, cases, batch, mesh_kw, device="cpu"):
+def dp_steps(rank, n, out, cases, batch, mesh_kw, device="cpu",
+             spatial=False):
     from blind_image_denoising_torch.parallel import create_mesh
     mesh = create_mesh(**mesh_kw)
-    torch.save(dict(results=run_steps(cases, batch, mesh, device),
+    torch.save(dict(results=run_steps(cases, batch, mesh, device, spatial),
                     coords=mesh.coords, shape=mesh.shape),
                out / f"rank{rank}.pt")
+
+
+def spatial_steps(rank, n, out, cases, mesh_kw, device="cpu"):
+    """Each case (its own global ``batch``) through
+    ``shard_train_step(spatial=True)`` on the mesh, and the
+    single-process step of the cases ``c`` with ``c % n == rank``, so
+    the ranks share the references."""
+    from blind_image_denoising_torch.parallel import create_mesh
+    mesh = create_mesh(**mesh_kw)
+    sharded = run_steps(cases, None, mesh, device, spatial=True)
+    single = {c: run_steps([case], None, None, device)[0]
+              for c, case in enumerate(cases) if c % n == rank}
+    torch.save(dict(results=sharded, single=single, coords=mesh.coords,
+                    shape=mesh.shape), out / f"rank{rank}.pt")
 
 
 # ---------------------------------------------------------------- spatial
@@ -185,12 +206,16 @@ def _tiny_cnn(w, x):
     return F.conv2d(y, w["c2"], padding=1).permute(0, 2, 3, 1)
 
 
-def spatial_cases(rank, n, out, conv, unet, spatial, device="cpu"):
+def spatial_cases(rank, n, out, conv, unet, spatial, flagship=None,
+                  device="cpu"):
     """Spatially sharded forwards over a (n / spatial) × spatial mesh,
     gathered: JAX's tiny CNN (``conv``) and a hydra (``unet``: model
-    config, state dict, image, margin) in eval mode; the ``margin >
-    local_h`` error on ``unet["small_image"]``; and ``Denoiser(mesh=…)``
-    on the hydra's image (float output, no padding)."""
+    config, state dict, image, margin; ``flagship`` the same) in eval
+    mode; the ``margin > local_h`` error on ``unet["small_image"]``;
+    ``Denoiser(mesh=…)`` on the hydra's image (float output, no
+    padding), and through it, when ``unet`` has them, the input gradient
+    of ``sum(y · weight)`` (``unet["weight"]``) and the tangent of
+    ``unet["tangent"]``."""
     from blind_image_denoising_torch.inference.denoiser import Denoiser
     from blind_image_denoising_torch.models.hydra import model_builder
     from blind_image_denoising_torch.ops.resize import nchw, nhwc
@@ -222,81 +247,145 @@ def spatial_cases(rank, n, out, conv, unet, spatial, device="cpu"):
     den = Denoiser(hydra, mesh=mesh, spatial_margin=unet["margin"],
                    cast_to_uint8=False, pad_multiple=1, device=device)
     result["served"] = den(unet["image"])
+    if "weight" in unet:
+        x = torch.from_numpy(unet["image"]).to(device).requires_grad_(True)
+        (den.float_forward(x) * torch.from_numpy(unet["weight"]).to(device)
+         ).sum().backward()
+        result["gradient"] = x.grad.cpu()
+        import torch.autograd.forward_ad as fwad
+        with fwad.dual_level():
+            dual = fwad.make_dual(
+                torch.from_numpy(unet["image"]).to(device),
+                torch.from_numpy(unet["tangent"]).to(device))
+            result["tangent"] = fwad.unpack_dual(
+                den.float_forward(dual)).tangent.cpu()
+    if flagship is not None:
+        big = model_builder(copy.deepcopy(flagship["model_config"])).hydra
+        big.load_state_dict(flagship["params"])
+        big.to(device).eval()
+        result["flagship"] = run(denoise_spatially_sharded(
+            lambda v, x: nhwc(big(nchw(x))[0]).float(), None, mesh,
+            flagship["margin"]), flagship["image"])
     torch.save(result, out / f"rank{rank}.pt")
 
 
 # ---------------------------------------------------------------- loop
 
+class LoopProbe:
+    """Within the block, keeps what this rank's training loops do: every
+    loop's final state dict, each restored state, the checkpoint writes
+    (step, wrote), whether each metrics writer was on, a digest of the
+    batch each step received, and the port's log lines."""
+
+    def __init__(self):
+        self.finals, self.restored, self.saved, self.on = [], [], [], []
+        self.batches, self.logs = [], []
+
+    def __enter__(self):
+        import logging
+        from blind_image_denoising_torch import train
+        from blind_image_denoising_torch.training import train_loop as loop
+        from blind_image_denoising_torch.training.checkpoint import (
+            CheckpointManager)
+        self._real = dict(loop=loop.train_loop, cli=train.train_loop,
+                          restore=CheckpointManager.restore,
+                          save=CheckpointManager._save,
+                          writer=loop.MetricsWriter,
+                          shard=loop.shard_train_step)
+        real = self._real
+
+        def save(manager, state, force, replace):
+            wrote = real["save"](manager, state, force, replace)
+            self.saved.append((state.step, wrote))
+            return wrote
+
+        def writer(directory, enabled=True):
+            self.on.append(enabled)
+            return real["writer"](directory, enabled=enabled)
+
+        def run(*a, **k):
+            state = real["loop"](*a, **k)
+            self.finals.append({k2: v.detach().cpu().clone()
+                                for k2, v in state.model.state_dict().items()})
+            return state
+
+        def restore(manager, state, step=None):
+            state = real["restore"](manager, state, step)
+            self.restored.append(dict(
+                step=state.step, epoch=state.epoch,
+                model={k2: v.detach().cpu().clone()
+                       for k2, v in state.model.state_dict().items()},
+                slots={k2: [t.detach().cpu().clone() for t in v]
+                       for k2, v in state.opt_state.slots.items()},
+                ema=None if state.ema_params is None else {
+                    k2: v.detach().cpu().clone()
+                    for k2, v in state.ema_params.items()}))
+            return state
+
+        def shard(step, mesh, spatial=False):
+            inner = real["shard"](step, mesh, spatial=spatial)
+
+            def probed(state, batch, *a, **k):
+                data = batch.detach().cpu().contiguous().numpy()
+                self.batches.append(hashlib.sha1(data.tobytes()).hexdigest())
+                return inner(state, batch, *a, **k)
+            return probed
+
+        class Keep(logging.Handler):
+            def emit(handler, record):
+                self.logs.append(record.getMessage())
+
+        self._handler = Keep()
+        logging.getLogger("blind_image_denoising_torch").addHandler(
+            self._handler)
+        loop.train_loop = train.train_loop = run
+        CheckpointManager.restore, CheckpointManager._save = restore, save
+        loop.MetricsWriter, loop.shard_train_step = writer, shard
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        from blind_image_denoising_torch import train
+        from blind_image_denoising_torch.training import train_loop as loop
+        from blind_image_denoising_torch.training.checkpoint import (
+            CheckpointManager)
+        real = self._real
+        loop.train_loop, train.train_loop = real["loop"], real["cli"]
+        CheckpointManager.restore = real["restore"]
+        CheckpointManager._save = real["save"]
+        loop.MetricsWriter, loop.shard_train_step = (real["writer"],
+                                                     real["shard"])
+        logging.getLogger("blind_image_denoising_torch").removeHandler(
+            self._handler)
+
+    def result(self):
+        return dict(finals=self.finals, restored=self.restored,
+                    saved=self.saved, metrics_enabled=self.on,
+                    batches=self.batches, logs=self.logs)
+
+
 def train_cli(rank, n, out, legs, device=None):
     """The train CLI as this rank, once per leg (each ``legs`` entry one
-    argv a rank, with the leg's coordinator port): every leg's final
-    state dict, the state each leg restored, the checkpoint writes this
-    rank made (step, wrote) and whether its metrics writer was on. The
-    argv names the device."""
+    argv a rank, with the leg's coordinator port): the ``LoopProbe``
+    record of its loops. The argv names the device."""
     del device
     from blind_image_denoising_torch import train
-    from blind_image_denoising_torch.training import train_loop as loop_mod
-    from blind_image_denoising_torch.training.checkpoint import (
-        CheckpointManager)
-    finals, restored, saved, on = [], [], [], []
-    real_loop, real_restore = train.train_loop, CheckpointManager.restore
-    real_save, real_writer = CheckpointManager._save, loop_mod.MetricsWriter
-
-    def save(manager, state, force, replace):
-        wrote = real_save(manager, state, force, replace)
-        saved.append((state.step, wrote))
-        return wrote
-
-    def writer(directory, enabled=True):
-        on.append(enabled)
-        return real_writer(directory, enabled=enabled)
-
-    def loop(*a, **k):
-        state = real_loop(*a, **k)
-        finals.append({k2: v.detach().cpu().clone()
-                       for k2, v in state.model.state_dict().items()})
-        return state
-
-    def restore(manager, state, step=None):
-        state = real_restore(manager, state, step)
-        restored.append(dict(
-            step=state.step, epoch=state.epoch,
-            model={k2: v.detach().cpu().clone()
-                   for k2, v in state.model.state_dict().items()},
-            slots={k2: [t.detach().cpu().clone() for t in v]
-                   for k2, v in state.opt_state.slots.items()},
-            ema=None if state.ema_params is None else {
-                k2: v.detach().cpu().clone()
-                for k2, v in state.ema_params.items()}))
-        return state
-    train.train_loop, CheckpointManager.restore = loop, restore
-    CheckpointManager._save, loop_mod.MetricsWriter = save, writer
-    try:
+    with LoopProbe() as probe:
         for argv in legs:
             if train.main(argv[rank]) != 0:
                 raise AssertionError(f"train CLI returned nonzero: {argv}")
-    finally:
-        train.train_loop, CheckpointManager.restore = real_loop, real_restore
-        CheckpointManager._save, loop_mod.MetricsWriter = (real_save,
-                                                          real_writer)
-    torch.save(dict(finals=finals, restored=restored, saved=saved,
-                    metrics_enabled=on), out / f"rank{rank}.pt")
+    torch.save(probe.result(), out / f"rank{rank}.pt")
 
 
-def loop_refusals(rank, n, out, configs, device="cpu"):
-    """``train_loop`` on each config as this rank: the error each call
-    raised (type name and message, None if it ran) and the latest step
-    each checkpoint directory holds afterwards."""
-    import blind_image_denoising_torch as bidt
-    from blind_image_denoising_torch.training.checkpoint import (
-        CheckpointManager)
-    errors, steps = [], []
-    for i, cfg in enumerate(configs):
-        ckpt = out / f"ckpt_{i}"
-        try:
-            bidt.train_loop(cfg, ckpt, device=device)
-            errors.append(None)
-        except Exception as e:          # the refusal under test
-            errors.append((type(e).__name__, str(e)))
-        steps.append(CheckpointManager(str(ckpt)).latest_step())
-    torch.save(dict(errors=errors, steps=steps), out / f"rank{rank}.pt")
+def spatial_loops(rank, n, out, runs, device="cpu"):
+    """``train_loop`` as this rank on each run (a list of configs, one a
+    leg, into one checkpoint directory a run): the ``LoopProbe`` record
+    of each run."""
+    from blind_image_denoising_torch.training import train_loop as loop
+    results = []
+    for i, legs in enumerate(runs):
+        with LoopProbe() as probe:
+            for cfg in legs:
+                loop.train_loop(cfg, out / f"ckpt_{i}", device=device)
+        results.append(probe.result())
+    torch.save(results, out / f"rank{rank}.pt")
