@@ -9,7 +9,8 @@ port's own draws) and writes ``params.msgpack`` (params, and
 ``batch_stats`` for BatchNorm models) and ``model_structure.json``, the
 tree of param shapes by flax path, as JAX's build writes it. The model
 is built on the card unless ``--device`` names another torch device.
-``--keras`` raises: the Keras archive is ROADMAP Queue 1 item 13.
+``--keras`` raises: JAX writes its Keras archive through jax2tf, and no
+converter from PyTorch is installed.
 """
 
 import argparse
@@ -45,13 +46,14 @@ def main(argv=None) -> int:
                         help="torch device; default the card ('cpu' to "
                              "build on the CPU)")
     parser.add_argument("--keras", action="store_true",
-                        help="model_hydra.keras: not ported (ROADMAP Queue "
-                             "1 item 13)")
+                        help="raises: no converter from PyTorch to Keras "
+                             "is installed")
     args = parser.parse_args(argv)
     if args.keras:
         raise NotImplementedError(
-            "the Keras build artifact is not ported yet (ROADMAP Queue 1 "
-            "item 13)")
+            "the Keras build artifact is not available: JAX writes it "
+            "through jax2tf, and no converter from PyTorch is installed "
+            "(ai_edge_torch, onnx)")
     if not os.path.isfile(args.pipeline_config):
         logger.error(f"pipeline config [{args.pipeline_config}] not found")
         return 1

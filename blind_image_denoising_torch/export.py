@@ -3,14 +3,16 @@
     python -m blind_image_denoising_torch.export \
         --pipeline-config CONFIG.json --checkpoint-directory RUN \
         --output-directory ARTIFACT [--quantize] [--test-model] [--no-ema] \
-        [--device cpu]
+        [--to-torch-export] [--device cpu]
 
-Writes ``params.msgpack``, ``pipeline.json`` and, with ``--quantize``,
-``quant.msgpack`` from the run's latest checkpoint
-(``inference/export.export_model``), on the card unless ``--device``
-names another torch device. ``--no-stablehlo`` is accepted and is the
-default; ``--to-stablehlo`` and ``--to-tflite`` raise: those formats are
-ROADMAP Queue 1 item 13.
+Writes ``params.msgpack``, ``pipeline.json``, with ``--quantize``
+``quant.msgpack`` and with ``--to-torch-export`` the ``torch.export``
+program ``denoiser.pt2`` from the run's latest checkpoint (the port's
+own or a JAX run's Orbax step; ``inference/export.export_model``), on
+the card unless ``--device`` names another torch device.
+``--no-stablehlo`` is accepted and is the default; ``--to-stablehlo``
+raises and names ``--to-torch-export``, and ``--to-tflite`` raises: no
+converter from PyTorch to TFLite is installed.
 """
 
 import argparse
@@ -30,13 +32,16 @@ def main(argv=None) -> int:
     parser.add_argument("--checkpoint-directory", required=True, type=str)
     parser.add_argument("--output-directory", required=True, type=str)
     parser.add_argument("--to-stablehlo", action="store_true", default=False,
-                        help="a StableHLO artifact: not ported (ROADMAP "
-                             "Queue 1 item 13)")
+                        help="raises: the port's serving artifact is "
+                             "--to-torch-export")
     parser.add_argument("--no-stablehlo", dest="to_stablehlo",
                         action="store_false", help="the default")
+    parser.add_argument("--to-torch-export", action="store_true",
+                        help="also write the torch.export program "
+                             "denoiser.pt2")
     parser.add_argument("--to-tflite", action="store_true",
-                        help="a TFLite artifact: not ported (ROADMAP Queue "
-                             "1 item 13)")
+                        help="raises: no converter from PyTorch to TFLite "
+                             "is installed")
     parser.add_argument("--test-model", action="store_true",
                         help="run an inference self-test after export")
     parser.add_argument("--quantize", action="store_true",
@@ -59,6 +64,7 @@ def main(argv=None) -> int:
         output_directory=args.output_directory,
         to_stablehlo=args.to_stablehlo,
         to_tflite=args.to_tflite,
+        to_torch_export=args.to_torch_export,
         test_model=args.test_model,
         quantize=args.quantize,
         use_ema=args.use_ema,

@@ -72,6 +72,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def as_uint8(x: np.ndarray) -> np.ndarray:
+    """Round half to even and clip to [0, 255], as uint8 (a bare
+    ``astype`` would wrap out-of-range floats modulo 256)."""
+    if x.dtype == np.uint8:
+        return x
+    return np.clip(np.round(x.astype(np.float64)), 0, 255).astype(np.uint8)
+
+
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 

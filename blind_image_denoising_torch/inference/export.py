@@ -19,14 +19,22 @@ files the JAX package reads:
   ``models/unet_laplacian_v56.py``; every other config builds the hydra
   of ``models/hydra.py``.
 
-One default differs from JAX's: ``to_stablehlo`` is False. StableHLO,
-TFLite and Keras artifacts are tied to JAX and TensorFlow, and asking
-for one raises ``NotImplementedError`` (ROADMAP Queue 1 item 13).
+The serving artifact that needs no model code is a ``torch.export``
+program, ``denoiser.pt2`` (:func:`serialize_torch_export`,
+:func:`load_torch_export`; ``to_torch_export=True``), in the place of
+JAX's ``denoiser.stablehlo``: ``to_stablehlo`` is False by default and
+raises, naming ``to_torch_export``. JAX writes its TFLite and Keras
+artifacts through ``jax2tf`` and TensorFlow; no converter from PyTorch
+is installed, so ``to_tflite`` and ``to_keras`` raise
+``NotImplementedError``. The port reads those formats
+(``inference/tflite.py``, ``inference/keras_export.py``,
+``inference/import_v56.py``, ``inference/savedmodel.py``).
 """
 
+import io
 import logging
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +48,7 @@ from .denoiser import Denoiser, resolve_device
 PARAMS_FILE = "params.msgpack"
 CONFIG_FILE = "pipeline.json"
 QUANT_FILE = "quant.msgpack"
+TORCH_EXPORT_FILE = "denoiser.pt2"
 
 logger = logging.getLogger("blind_image_denoising_torch")
 
@@ -81,10 +90,95 @@ def _dim(v, default: int = 64) -> int:
     return default if v <= 0 else v
 
 
-def _not_ported_format(what: str):
+def _no_converter(what: str):
     return NotImplementedError(
-        f"{what} export is not ported yet (ROADMAP Queue 1 item 13); the "
-        f"port writes params.msgpack, pipeline.json and quant.msgpack")
+        f"{what} export is not available: JAX writes it through jax2tf and "
+        f"TensorFlow's converters, and no converter from PyTorch is "
+        f"installed (ai_edge_torch, onnx); the port writes params.msgpack, "
+        f"pipeline.json, quant.msgpack and, with to_torch_export=True, "
+        f"{TORCH_EXPORT_FILE}")
+
+
+class _FinestScale(torch.nn.Module):
+    """The finest-scale forward that an exported program holds: float32
+    NHWC in the model's value range → the finest output, NHWC (JAX's
+    ``model.apply(variables, x, train=False)[0]``)."""
+
+    def __init__(self, hydra: torch.nn.Module):
+        super().__init__()
+        self.hydra = hydra
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.hydra(x.permute(0, 3, 1, 2))[0].permute(0, 2, 3, 1)
+
+
+def serialize_torch_export(model, reference_shape=(1, 256, 256, 3),
+                           channels: int = 3,
+                           pad_multiple: int = 64) -> Tuple[bytes, bool]:
+    """``torch.export`` bytes of the hydra's finest-scale forward
+    (:class:`_FinestScale`) on the device of its params, and whether the
+    program is shape-polymorphic.
+
+    The preferred program takes any batch and H, W that are multiples of
+    ``pad_multiple`` (the Denoiser's padding contract), as JAX's
+    ``serialize_stablehlo`` prefers; a model that does not trace so is
+    exported at the static ``reference_shape`` instead, logged. The
+    ConvNext units and the band split trace as the custom operators of
+    ``ops/export_ops.py``, so the program launches K1 and K2."""
+    from torch.export import Dim
+
+    module = _FinestScale(model).eval().requires_grad_(False)
+    device = next(model.parameters()).device
+    static = tuple(reference_shape[:3]) + (channels,)
+    # sizes of 1 would be specialized by the tracer: trace at 2 or more
+    example = torch.zeros((max(static[0], 2),
+                           max(static[1], 2 * pad_multiple),
+                           max(static[2], 2 * pad_multiple), channels),
+                          device=device)
+    dims = ({0: Dim("b", min=1, max=4096),
+             1: pad_multiple * Dim("h", min=1, max=1024),
+             2: pad_multiple * Dim("w", min=1, max=1024)},)
+    try:
+        program = torch.export.export(module, (example,), dynamic_shapes=dims)
+        dynamic = True
+        logger.info(f"torch.export: shape-polymorphic (b, {pad_multiple}*h, "
+                    f"{pad_multiple}*w, {channels})")
+    except Exception as e:  # noqa: BLE001 - any trace failure: go static
+        logger.info(f"torch.export: polymorphic trace unavailable "
+                    f"({type(e).__name__}: {e}); exporting static {static}")
+        program = torch.export.export(
+            module, (torch.zeros(static, device=device),))
+        dynamic = False
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue(), dynamic
+
+
+def load_torch_export(directory: Union[str, Path], device=None):
+    """The artifact's ``denoiser.pt2`` as a callable (float32 NHWC in the
+    model's value range → the finest-scale output) on ``device``
+    (default: the card): the consumption path that needs no model code.
+    It imports ``ops/export_ops`` first, whose custom operators the
+    program calls, and runs float32 without TF32
+    (``ops/precision.exact_float32``). Raises when the file is absent."""
+    from ..ops import export_ops  # noqa: F401 - registers the operators
+    from ..ops.precision import exact_float32
+    from torch.export.passes import move_to_device_pass
+
+    dev = resolve_device(device)
+    path = Path(str(directory)) / TORCH_EXPORT_FILE
+    if not path.exists():
+        raise ValueError(f"no torch.export artifact at [{path}]; export "
+                         f"with to_torch_export=True")
+    program = move_to_device_pass(torch.export.load(str(path)), dev)
+    module = program.module()
+
+    def forward(x) -> torch.Tensor:
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        with torch.no_grad(), exact_float32(dev.type == "cuda"):
+            return module(x)
+
+    return forward
 
 
 def export_model(
@@ -99,7 +193,7 @@ def export_model(
         quantize: bool = False,
         calibration_images=None,
         use_ema: bool = True,
-        *, device=None) -> str:
+        *, to_torch_export: bool = False, device=None) -> str:
     """Restore the latest checkpoint of ``checkpoint_directory`` into the
     float32 model of ``pipeline_config`` on ``device`` (default: the
     card) and write an artifact directory; returns its path.
@@ -111,13 +205,19 @@ def export_model(
     default: the packaged evaluation images at σ 0/10/25/50/80, at
     ``min(256, input size)``) and write ``quant.msgpack``.
     ``test_model``: load the artifact on ``device`` and denoise a 64×64
-    probe. ``to_stablehlo``, ``to_tflite`` and ``to_keras`` raise
-    (module docstring); ``reference_shape`` is kept for JAX's signature
-    and read by none of what is ported."""
-    for flag, what in ((to_stablehlo, "StableHLO"), (to_tflite, "TFLite"),
-                       (to_keras, "Keras")):
+    probe. ``to_torch_export``: also write ``denoiser.pt2``
+    (:func:`serialize_torch_export` of the float32 hydra, traced on
+    ``device``; ``reference_shape`` is its static fallback).
+    ``to_stablehlo`` raises and names ``to_torch_export``; ``to_tflite``
+    and ``to_keras`` raise (module docstring)."""
+    if to_stablehlo:
+        raise NotImplementedError(
+            "the port writes no StableHLO: its serving artifact is a "
+            "torch.export program, denoiser.pt2; pass to_torch_export=True "
+            "(--to-torch-export)")
+    for flag, what in ((to_tflite, "TFLite"), (to_keras, "Keras")):
         if flag:
-            raise _not_ported_format(what)
+            raise _no_converter(what)
     from ..training.checkpoint import CheckpointManager
 
     dev = resolve_device(device)
@@ -141,7 +241,10 @@ def export_model(
         logger.info("exporting the EMA weights (train.ema was on; pass "
                     "use_ema=False for the raw iterate)")
     model = model.to(dev).eval().requires_grad_(False)
-    variables = flax_from_params(model)
+    # each collection's keys sorted, as JAX's export writes them (its
+    # params have been through JAX's tree functions, which sort a dict)
+    variables = {name: _sorted_tree(tree)
+                 for name, tree in flax_from_params(model).items()}
 
     save_msgpack(out_dir / PARAMS_FILE, variables)
     save_config(config, str(out_dir / CONFIG_FILE))
@@ -157,6 +260,12 @@ def export_model(
                      calibrate(model, calibration_images))
         logger.info(f"wrote {out_dir / QUANT_FILE}")
 
+    if to_torch_export:
+        blob, _ = serialize_torch_export(model, reference_shape,
+                                         channels=int(shape[2]))
+        (out_dir / TORCH_EXPORT_FILE).write_bytes(blob)
+        logger.info(f"wrote {out_dir / TORCH_EXPORT_FILE}")
+
     if test_model:
         probe = np.full((64, 64, int(shape[2])), 128, np.uint8)
         out = load_exported_model(out_dir, device=dev)(probe)
@@ -164,6 +273,11 @@ def export_model(
             raise RuntimeError(f"export self-test failed: {out.shape}")
         logger.info("export self-test passed")
     return str(out_dir)
+
+
+def _sorted_tree(tree):
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
 
 
 def save_params_artifact(params, config: dict,

@@ -28,7 +28,9 @@ decoder input, BatchNorm, biases, another activation, an even kernel —
 computes ``x + branch(x)`` (or the branch alone when the channels
 change) on every device, as JAX runs every unit in XLA; each such
 forward adds one to ``pallas_convnext.branch_units``. A unit routed to
-K1 launches it for a CUDA tensor or raises.
+K1 launches it for a CUDA tensor or raises. While ``torch.export``
+traces the unit (``inference/export.serialize_torch_export``) it calls K1
+as the custom operator ``bidt::convnext_block`` (``ops/export_ops.py``).
 
 The options follow the flax unit: ``use_bias`` (a bias on each conv,
 and on the LayerNorm and BatchNorm), ``use_bn`` (BatchNorm on
@@ -200,6 +202,15 @@ class ConvNextBlock(nn.Module):
             pallas_convnext.branch_units += 1
             y = self.branch(x)
             return x + y if self.residual else y
+        if torch.compiler.is_exporting():
+            # the kernel as a custom operator the exported graph holds
+            # (ops/export_ops.py), fed from the params themselves
+            from ..ops import export_ops
+            return nchw(export_ops.convnext_block(
+                nhwc(x), self.conv_1.kernel.float(),
+                self.conv_1.ln.scale.float(), self.conv_2.kernel.to(x.dtype),
+                self.conv_3.kernel.to(x.dtype),
+                self.gamma.gain().float(), self.slope))
         # a derivative, reverse or forward mode, goes through the branch:
         # the kernel carries neither
         if self._quant_sites_active() or has_tangent(x) or (

@@ -9,7 +9,9 @@ the deepest level when ``use_self_attention``), the output norm
 Laplacian band split: the band ``x − A·x`` is the skip and the smooth
 ``A·x`` feeds the downsample (``layers/sampling.py``). With
 ``use_laplacian_averaging`` A is the count-aware SAME box mean and the
-split is one call of ``ops/pallas_pyramid.band_smooth`` (K2); without
+split is one call of ``ops/pallas_pyramid.band_smooth`` (K2; under
+``torch.export`` the custom operator ``bidt::band_smooth`` of
+``ops/export_ops.py``); without
 it and with ``use_laplacian`` A is a fixed Gaussian blur
 (``layers/misc.py``); with neither there is no split. The decoder walks
 back up: upsample the level below, gate the skip
@@ -340,7 +342,12 @@ class UnetLaplacianBackbone(nn.Module):
             skips[d] = x
             if d != self.depth - 1:
                 if self.split == "average":
-                    band, smooth = band_smooth(nhwc(x), self.gaussian_kernel)
+                    split = band_smooth
+                    if torch.compiler.is_exporting():
+                        # K2 as the exported graph's custom operator
+                        from ..ops import export_ops
+                        split = export_ops.band_smooth
+                    band, smooth = split(nhwc(x), self.gaussian_kernel)
                     skips[d], x = nchw(band), nchw(smooth)
                 elif self.split == "gauss":
                     smooth = getattr(self, f"encoder_{d}_gauss")(x)

@@ -151,8 +151,10 @@ def _check(t: torch.Tensor, what: str) -> None:
                          f"{t.dtype}, got C={t.shape[-1]}")
 
 
-def _band_smooth_fwd(x: torch.Tensor,
-                     kernel_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def band_smooth_forward(x: torch.Tensor, kernel_size: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel (its plain version for a CPU tensor), outside
+    autograd."""
     global launches
     if x.device.type == "cpu":
         return band_smooth_plain(x, kernel_size)
@@ -279,7 +281,7 @@ class _BandSmooth(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel_size):
         ctx.kernel_size = kernel_size
-        return _band_smooth_fwd(x, kernel_size)
+        return band_smooth_forward(x, kernel_size)
 
     @staticmethod
     def backward(ctx, g_band, g_smooth):
@@ -289,7 +291,7 @@ class _BandSmooth(torch.autograd.Function):
     def jvp(ctx, x_t, _):
         # linear: the tangents are the split of the tangent, the forward
         # kernel again
-        return _band_smooth_fwd(x_t, ctx.kernel_size)
+        return band_smooth_forward(x_t, ctx.kernel_size)
 
 
 def band_smooth(x: torch.Tensor,

@@ -149,8 +149,11 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     triangle kernel widened by the scale (antialiasing) with weights
     renormalised over in-image taps — ``F.interpolate``'s
     ``antialias=True`` computes the same. Computed in float32 and cast
-    back to the input dtype."""
-    y = F.interpolate(nchw(x).float(), size=(int(size[0]), int(size[1])),
+    back to the input dtype. A size that is symbolic (a shape under
+    ``torch.export``) stays so."""
+    size = tuple(s if isinstance(s, torch.SymInt) else int(s)
+                 for s in size[:2])
+    y = F.interpolate(nchw(x).float(), size=size,
                       mode="bilinear", align_corners=False, antialias=True)
     return nhwc(y).to(x.dtype)
 

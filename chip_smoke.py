@@ -64,6 +64,17 @@ drive the two paths of the port through the entry points a user calls:
   subprocesses (the CLI's params byte-equal, ``model_structure.json``
   equal to the hydra's param shapes); then every K1 / K2 input the phase
   launched against the plain versions;
+* formats: the committed TFLite fixture
+  (``tests/data/tflite_resnet_depthwise_scratch``, JAX's
+  ``serialize_tflite`` of the packaged resnet) through ``load_model`` on
+  the card with the port's own flatbuffer reader and executor, b8 @ 256²
+  and one 481×321 image, against the executor on the CPU and against the
+  native resnet's f32 forward, images/s beside the native resnet's; then
+  the train_loop phase's run through ``export_model(...,
+  to_torch_export=True)``, the ``torch.export`` program loaded on the
+  card against the eager f32 hydra (1e-4 of max |y|, 10 K1 + 2 K2 a
+  forward), its ms beside eager's, and every K1 / K2 input the program
+  launched against the plain versions;
 * resnet_train_export: the BatchNorm resnet config at its full width
   (filters 32, 6 layers, blocks 32/128/32, batches of 16 at 128² in 2
   micro-batches, f32): one step on the card against the same step on the
@@ -2298,6 +2309,187 @@ def export_phase(bidt, smi, read_counts, loop_run, keep=None):
     if problems:
         raise AssertionError(f"export: {problems}")
     return kernel_inputs.seen
+
+
+# the formats phase: the committed TFLite fixture (write_tflite_fixture.py)
+# and the train_loop phase's run as a torch.export program
+FORMATS_FIXTURE = (Path(__file__).resolve().parent / "tests" / "data"
+                   / "tflite_resnet_depthwise_scratch")
+FORMATS_BATCH, FORMATS_SIZE, FORMATS_REQUESTS = 8, 256, 10
+FORMATS_EXPORT_REL = 1e-4        # program vs eager, of the output's max |y|
+
+
+@contextlib.contextmanager
+def export_kernel_inputs(pallas_convnext, pallas_pyramid, seen):
+    """Within the block, the inputs of the K1 and K2 launches that an
+    exported program's custom operators make (``ops/export_ops.py`` calls
+    the wrappers through their modules), recorded into ``seen`` as
+    :class:`KernelInputs` records the eager path's."""
+    k1, k2 = pallas_convnext.convnext_block, pallas_pyramid.band_smooth_forward
+
+    def record_k1(x, dw, ln_scale, w2, w3, gain, slope=0.1, **kw):
+        if x.is_cuda:
+            seen["convnext_block"].setdefault(
+                (tuple(x.shape), x.dtype, dw.shape[-1]),
+                ((), dict(dw=dw, ln_scale=ln_scale, w2=w2, w3=w3, gain=gain,
+                          slope=slope)))
+        return k1(x, dw, ln_scale, w2, w3, gain, slope, **kw)
+
+    def record_k2(x, kernel_size):
+        if x.is_cuda:
+            seen["band_smooth"].setdefault(
+                (tuple(x.shape), x.dtype, kernel_size), ((kernel_size,), {}))
+        return k2(x, kernel_size)
+
+    pallas_convnext.convnext_block = record_k1
+    pallas_pyramid.band_smooth_forward = record_k2
+    try:
+        yield seen
+    finally:
+        pallas_convnext.convnext_block = k1
+        pallas_pyramid.band_smooth_forward = k2
+
+
+def formats_phase(bidt, smi, read_counts, loop_run):
+    """The formats JAX ties to TensorFlow, served on the card, and the
+    port's serving artifact.
+
+    TFLite: the committed fixture directory (JAX's ``serialize_tflite`` of
+    the packaged resnet, dynamic-range int8 weights) through
+    ``load_model(dir)`` on the card — the port's own flatbuffer reader and
+    executor, no TensorFlow — at b8 @ 256² and on one 481×321 image,
+    against the same executor on the CPU (uint8 ≤ 1 gray level, ≥ 99%
+    equal; float32 without TF32 on both), and against the native packaged
+    resnet's float32 forward: the card's gap within one gray level of the
+    CPU's gap at its largest and 0.01 at its mean (the CPU tests hold the
+    CPU's gap equal to JAX's executor's); images/s on the host clock
+    (median of 10) beside the native resnet's.
+
+    torch.export: ``export_model(..., to_torch_export=True)`` of the
+    train_loop phase's run on the card, ``load_torch_export`` and b8 @
+    256² float32 against the eager hydra of the same weights on the card
+    (max |Δ| ≤ 1e-4 of max |y|), 10 K1 and 2 K2 a forward, device ms
+    (CUDA events) beside eager's, and whether the program came out
+    shape-polymorphic. Returns the K1 / K2 inputs the program launched."""
+    from blind_image_denoising_torch.inference import tflite
+    from blind_image_denoising_torch.inference.denoiser import as_uint8
+    from blind_image_denoising_torch.inference.export import (
+        TORCH_EXPORT_FILE, export_model, load_torch_export)
+    from blind_image_denoising_torch.ops import pallas_convnext, pallas_pyramid
+
+    rng = np.random.default_rng(SEED + 50)
+    problems = []
+    batch = add_noise(synthetic_images(FORMATS_BATCH, FORMATS_SIZE,
+                                       FORMATS_SIZE, rng), 25.0, rng)
+    one = add_noise(synthetic_images(1, 321, 481, rng), 25.0, rng)[0]
+    images = (("b8_256", batch), ("1_481x321", one))
+
+    # ---- TFLite
+    graph_ops = len(tflite.parse_tflite(
+        (FORMATS_FIXTURE / tflite.TFLITE_FILE).read_bytes())[0])
+    c0 = read_counts()
+    den = bidt.load_model(FORMATS_FIXTURE)
+    card = {name: den(img) for name, img in images}
+    c1 = read_counts()
+    tflite_launches = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    if tflite_launches:
+        problems.append(f"the TFLite graph launched {tflite_launches}")
+    cpu_den = bidt.load_model(FORMATS_FIXTURE, device="cpu")
+    cpu = {name: cpu_den(img) for name, img in images}
+    card_vs_cpu = {name: gray_gap(card[name], cpu[name])
+                   for name, _ in images}
+    for name, g in card_vs_cpu.items():
+        if g["max"] > 1 or g["equal_share"] < 0.99:
+            problems.append(f"TFLite {name} card vs CPU {g}")
+    native = {dev: bidt.load_model(ARTIFACT_RESNET, dtype="float32",
+                                   device=dev).model
+              for dev in ("cuda", "cpu")}
+
+    def native_forward(dev, img):
+        model = native[dev]
+        x = torch.from_numpy(np.asarray(img, np.float32)).to(
+            next(model.parameters()).device)
+        x = x[None] if x.ndim == 3 else x
+        with torch.no_grad():
+            y = model(x.permute(0, 3, 1, 2))[0].permute(0, 2, 3, 1)
+        return as_uint8(y.cpu().numpy()).reshape(np.shape(img))
+
+    vs_native = {}
+    for name, img in images:
+        g_card = gray_gap(card[name], native_forward("cuda", img))
+        g_cpu = gray_gap(cpu[name], native_forward("cpu", img))
+        vs_native[name] = dict(card=g_card, cpu=g_cpu)
+        if (g_card["max"] > g_cpu["max"] + 1
+                or abs(g_card["mean"] - g_cpu["mean"]) > 0.01):
+            problems.append(f"TFLite {name} vs native {vs_native[name]}")
+    times = timed_requests(den, batch, FORMATS_REQUESTS)
+    native_den = bidt.load_model(ARTIFACT_RESNET, dtype="float32")
+    native_times = timed_requests(native_den, batch, FORMATS_REQUESTS)
+    del den, cpu_den, native, native_den
+
+    # ---- torch.export
+    ckpt_dir, work = loop_run["ckpt_dir"], loop_run["work"]
+    out_dir = work / "formats_export"
+    t0 = time.perf_counter()
+    export_model(ckpt_dir / "config.json", ckpt_dir, out_dir,
+                 to_torch_export=True)
+    export_s = time.perf_counter() - t0
+    dynamic = bool(torch.export.load(str(out_dir / TORCH_EXPORT_FILE))
+                   .range_constraints)
+    t0 = time.perf_counter()
+    program = load_torch_export(out_dir)
+    load_s = time.perf_counter() - t0
+    eager_model = bidt.load_model(out_dir, dtype="float32",
+                                  blend=False).model
+
+    def eager(x):
+        with torch.no_grad():
+            return eager_model(x.permute(0, 3, 1, 2))[0].permute(0, 2, 3, 1)
+
+    x = torch.from_numpy(batch.astype(np.float32)).cuda()
+    seen = {k: {} for k in ("convnext_block", "band_smooth",
+                            "band_smooth_bwd", "corrupt_noise")}
+    with export_kernel_inputs(pallas_convnext, pallas_pyramid, seen):
+        c0 = read_counts()
+        y = program(x)
+        torch.cuda.synchronize()
+        c1 = read_counts()
+    per_forward = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    if per_forward != dict(convnext_block=10, band_smooth=2):
+        problems.append(f"the exported program launches {per_forward}")
+    ref = eager(x)
+    err = float((y - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= FORMATS_EXPORT_REL * scale:
+        problems.append(f"exported vs eager {err} of {scale}")
+    program_ms = cuda_ms(lambda: program(x))
+    eager_ms = cuda_ms(lambda: eager(x))
+
+    median, native_median = (statistics.median(times),
+                             statistics.median(native_times))
+    log("formats",
+        tflite=dict(graph_ops=graph_ops, launches=tflite_launches,
+                    card_vs_cpu=card_vs_cpu, vs_native_f32=vs_native,
+                    b8_256_median_s=median,
+                    b8_256_images_per_s=FORMATS_BATCH / median,
+                    native_f32_b8_256_images_per_s=(FORMATS_BATCH
+                                                    / native_median),
+                    b8_256_s=[round(t, 4) for t in times]),
+        torch_export=dict(dynamic=dynamic, export_s=export_s, load_s=load_s,
+                          launches_per_forward=per_forward,
+                          max_abs_err=err, max_abs_y=scale,
+                          program_ms=program_ms, eager_ms=eager_ms,
+                          artifact=sorted(p.name for p in
+                                          out_dir.iterdir())),
+        smi=smi,
+        tolerance=f"TFLite card vs CPU <= 1 gray level, >= 99% equal, no "
+                  f"K1-K4 launch; vs the native resnet's f32 forward the "
+                  f"card's gap <= the CPU's max + 1 and mean +- 0.01; the "
+                  f"exported program vs eager <= {FORMATS_EXPORT_REL} of "
+                  f"max |y| in f32, 10 K1 + 2 K2 a forward")
+    if problems:
+        raise AssertionError(f"formats: {problems}")
+    return seen
 
 
 def resnet_train_export_phase(bidt, smi, read_counts, loop_run):
@@ -5750,6 +5942,18 @@ def main() -> int:
         errors[kernel] = max(errors[kernel], err)
     phase_s = {"export": time.perf_counter() - t0}
 
+    # ---- phase 11b: the formats: the TFLite fixture served on the card
+    # and the train_loop phase's run as a torch.export program
+    t0 = time.perf_counter()
+    reset_counts()
+    formats_seen = formats_phase(bidt, smi, read_counts, loop_run)
+    formats_counts = read_counts()
+    for kernel, err in check_kernel_inputs(
+            pallas_convnext, pallas_pyramid, pallas_noise, formats_seen,
+            SEED + 51, path="formats").items():
+        errors[kernel] = max(errors[kernel], err)
+    phase_s["formats"] = time.perf_counter() - t0
+
     # ---- phase 12: the resnet config trained, exported and served
     t0 = time.perf_counter()
     reset_counts()
@@ -5851,6 +6055,7 @@ def main() -> int:
     log("new_phases", seconds=phase_s,
         script_s=time.perf_counter() - script_start,
         export_launches=export_counts,
+        formats_launches=formats_counts,
         resnet_train_export_launches=resnet_counts,
         unet_laplacian_family_launches=family_counts,
         unet_laplacian_family_branch_units_per_forward=family_branch,
@@ -5911,6 +6116,7 @@ def main() -> int:
                        artifacts=artifact_counts[name],
                        train_loop=loop_counts[name],
                        export=export_counts[name],
+                       formats=formats_counts[name],
                        resnet_train_export=resnet_counts[name],
                        unet_laplacian_family=family_counts[name],
                        restoration=restore_counts[name],

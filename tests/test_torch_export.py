@@ -28,7 +28,11 @@ the CPU.
   port within the int8 bars above of JAX. A BatchNorm resnet run exports
   its checkpoint's buffers as ``batch_stats`` bit for bit, and JAX serves
   that artifact as the port does. A directory without a checkpoint
-  raises; StableHLO / TFLite / Keras raise naming their item; the
+  raises; ``to_torch_export`` (and the CLI's ``--to-torch-export``)
+  writes ``denoiser.pt2``, whose program equals the artifact's eager
+  float32 forward within 1e-5; StableHLO raises naming
+  ``to_torch_export``, TFLite / Keras raise naming the missing
+  converter; the
   ``export`` CLI runs with ``--device cpu``.
 * The ``build`` CLI writes the ``model_structure.json`` JAX's ``build``
   writes (same tree of param shapes) for the flagship and a resnet
@@ -60,7 +64,7 @@ from blind_image_denoising_torch import export as export_cli
 from blind_image_denoising_torch.inference import quantize as tquantize
 from blind_image_denoising_torch.inference.denoiser import Denoiser
 from blind_image_denoising_torch.inference.export import (
-    export_model, save_params_artifact)
+    TORCH_EXPORT_FILE, export_model, load_torch_export, save_params_artifact)
 from blind_image_denoising_torch.models.hydra import model_builder
 from blind_image_denoising_torch.training import train_loop as loop_module
 from blind_image_denoising_torch.training.checkpoint import CheckpointManager
@@ -372,12 +376,37 @@ def test_export_without_checkpoint_raises(tmp_path):
                      tmp_path / "out", device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["to_stablehlo", "to_tflite", "to_keras"])
-def test_export_of_jax_formats_raises(flagship_export, tmp_path, flag):
+@pytest.mark.parametrize("flag,match", [
+    pytest.param("to_stablehlo", "to_torch_export", id="to_stablehlo"),
+    pytest.param("to_tflite", "no converter", id="to_tflite"),
+    pytest.param("to_keras", "no converter", id="to_keras")])
+def test_export_of_jax_formats_raises(flagship_export, tmp_path, flag,
+                                      match):
     cfg, root, _ = flagship_export
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match=match):
         export_model(cfg, root / "run", tmp_path, device="cpu",
                      **{flag: True})
+
+
+def test_export_writes_a_torch_export_program(flagship_export, tmp_path):
+    """``--to-torch-export`` (``export_model(to_torch_export=True)``)."""
+    cfg, root, _ = flagship_export
+    path = tmp_path / "pipeline.json"
+    path.write_text(json.dumps(cfg))
+    out = tmp_path / "a"
+    assert export_cli.main([
+        "--pipeline-config", str(path), "--checkpoint-directory",
+        str(root / "run"), "--output-directory", str(out),
+        "--to-torch-export", "--device", "cpu"]) == 0
+    assert (out / TORCH_EXPORT_FILE).is_file()
+    program = load_torch_export(out, device="cpu")
+    model = bidt.load_model(out, device="cpu", dtype="float32",
+                            blend=False).model
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 255, (2, 64, 128, 3)).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x.permute(0, 3, 1, 2))[0].permute(0, 2, 3, 1)
+    assert float((program(x) - ref).abs().max()) <= 1e-5
 
 
 def test_export_cli_on_cpu(flagship_export, tmp_path):
@@ -391,8 +420,9 @@ def test_export_cli_on_cpu(flagship_export, tmp_path):
                                    "--test-model", "--no-ema"]) == 0
     assert sorted(p.name for p in (tmp_path / "a").iterdir()) == [
         "params.msgpack", "pipeline.json"]
-    for flag in ("--to-stablehlo", "--to-tflite"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    for flag, match in (("--to-stablehlo", "to_torch_export"),
+                        ("--to-tflite", "no converter")):
+        with pytest.raises(NotImplementedError, match=match):
             export_cli.main(args + ["--output-directory",
                                     str(tmp_path / "b"), flag])
     assert export_cli.main(["--pipeline-config", str(tmp_path / "none"),
@@ -423,7 +453,7 @@ def test_build_cli_matches_jax_build(tmp_path, name):
     restored = fser.from_bytes(template, data)
     assert jax.tree_util.tree_map(np.shape, restored) == \
         jax.tree_util.tree_map(np.shape, template)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="no converter"):
         build_cli.main(["--pipeline-config", str(path),
                         "--output-directory", str(tmp_path / "k"),
                         "--keras", "--device", "cpu"])

@@ -16,10 +16,13 @@
   the float mode, tiled equal to untiled.
 * ``flax_from_params`` inverts ``params_from_flax`` on the three packaged
   artifacts (with v5.6's int8 scales); ``dispatch`` and ``HostCopy``; the
-  registry's ``BID_TPU_PRETRAINED_PATH`` roots.
+  registry's ``BID_TPU_PRETRAINED_PATH`` roots, a reference-style root
+  (the TFLite fixture) serving uint8 and raising JAX's "neither" error
+  for ``tta``.
 """
 
 import copy
+import os
 
 import jax
 import jax.numpy as jnp
@@ -361,8 +364,10 @@ def test_registry_searches_pretrained_path_roots(tmp_path, monkeypatch):
     src = bid.models["resnet_depthwise_scratch"]["directory"]
     shutil.copytree(src, tmp_path / "extra" / "my_resnet")
     (tmp_path / "extra" / "ref_only").mkdir()
-    (tmp_path / "extra" / "ref_only" / "denoiser_model.tflite").write_bytes(
-        b"")
+    shutil.copy(os.path.join(os.path.dirname(__file__), "data",
+                             "tflite_resnet_depthwise_scratch",
+                             "denoiser_model.tflite"),
+                tmp_path / "extra" / "ref_only" / "denoiser_model.tflite")
     (tmp_path / "extra" / "not_an_artifact").mkdir()
     monkeypatch.setenv("BID_TPU_PRETRAINED_PATH",
                        f"{tmp_path / 'missing'}:{tmp_path / 'extra'}")
@@ -374,5 +379,9 @@ def test_registry_searches_pretrained_path_roots(tmp_path, monkeypatch):
     np.testing.assert_array_equal(
         bidt.load_model("my_resnet", device="cpu")(img),
         bidt.load_model(src, device="cpu")(img))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bidt.load_model("ref_only", device="cpu")
+    # a reference-style directory: its TFLite graph serves uint8, and the
+    # native-graph options raise JAX's error
+    served = bidt.load_model("ref_only", device="cpu")(img)
+    assert served.shape == img.shape and served.dtype == np.uint8
+    with pytest.raises(ValueError, match="neither"):
+        bidt.load_model("ref_only", device="cpu", tta=True)

@@ -186,10 +186,11 @@ def test_load_model_without_cuda_needs_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    # an artifact in a JAX/TF format alone (here a Keras file) is what is
-    # left unported of serving; mesh serving is ported
-    # (tests/test_torch_parallel.py)
-    (dict(reference_only=True), NotImplementedError, "ROADMAP"),
+    # a directory whose only artifact is a damaged Keras file: the import
+    # fails, the TFLite fallback finds nothing, and JAX's "no loadable
+    # artifact" ValueError follows (tests/test_torch_formats.py serves the
+    # reference formats)
+    (dict(reference_only=True), ValueError, "no loadable artifact"),
     # the flagship ships no int8 scales: ValueError, as in JAX
     (dict(quant=True), ValueError, "quant.msgpack")])
 def test_unported_serving_options_raise(option, tmp_path):
