@@ -6,11 +6,13 @@
 //
 // Replaces blind_image_denoising_tpu/ops/pallas_convnext.py
 // fused_convnext_block (body _block_kernel), float and int8 I/O modes.
-// NHWC in and out. Bound: bytes in bf16, the CUDA-core operations in int8
+// NHWC in and out. Bound: bytes in bf16, the CUDA-core operations in int8,
+// the three TF32 passes of the products in f32
 // (blind_image_denoising_torch/ops/pallas_convnext.py has the counts); in
-// practice the kernel is bound by its instruction count against the warp
-// schedulers' rate, about half of it the depthwise sum's, so the design
-// spends as few instructions as it can there and keeps the schedulers fed:
+// practice the bf16 and int8 kernel is bound by its instruction count
+// against the warp schedulers' rate, about half of it the depthwise sum's,
+// so the design spends as few instructions as it can there and keeps the
+// schedulers fed:
 // * persistent blocks walk over tiles of 8 x 32 output pixels of one image;
 //   the weights are staged into shared memory once per block;
 // * the input tile plus its K/2 halo arrives by 16-byte cp.async copies whose
@@ -52,9 +54,59 @@
 //   chunks) and the epilogue's (8 lanes, 8 neighbouring pixels, one chunk)
 //   both stay free of bank conflicts. At C = 32 the rows are padded to 80
 //   bytes instead (two runs 4 pixels apart fall into opposite halves of the
-//   128-byte bank line);
-// * f32 I/O: every operation is f32 on the CUDA cores, one thread per
-//   pixel over a tile of 8 x 16, t and p held in registers, one tile buffer.
+//   128-byte bank line).
+//
+// f32 I/O keeps float32 accuracy and runs the two products, 95% of its
+// operations, on the tensor cores as error-compensated 3xTF32: each operand
+// v is split into big = v rounded to TF32 and small = v - big (exact), and
+// D += small.big + big.small + big.big with mma.sync m16n8k8 (TF32, f32
+// accumulation), small.small dropped; the tensor core reads the top 19 bits
+// of each operand, so small is passed as it is. Rounding of big, at the
+// integer rate (cvt.rna.tf32.f32 runs at the conversion rate, a quarter of
+// it): t and h, once per pixel and step, to nearest with ties away from
+// zero ((bits + 0x1000) & ~0x1fff); the weights, split on every load,
+// truncated (bits & ~0x1fff, which the compiler folds into the tensor
+// core's own truncation, so a weight costs a LOP and an FADD for its small
+// part). Truncation raises the error 1.1-1.7x over rounding to nearest;
+// either way it is about 1e-6 of max |out|. The least time is the three
+// passes over the TF32 rate; mma.sync's TF32 rate (2/3 of the dense peak
+// on the H100: python3 k1_compare.py --mma-rate) and the splits'
+// instructions cap what is reached.
+// * tiles of 8 x 16 pixels, 256 threads: warp w owns tile row w, one m16
+//   tile of the products. Lane (g = lane / 4, q = lane % 4) owns pixels 2g
+//   and 2g + 1 (the m16 tile's rows g and g + 8) and, of each 16 channels,
+//   the 4 at 4q. Depthwise: per group and tap row it loads the K weight and
+//   K + 1 input vectors once and does the 2K x 4 FMAs from registers; the 4
+//   lanes of a pixel pair share the LayerNorm's two-pass statistics by
+//   shuffles. t and the pixels' own x stay in registers;
+// * the product's k order is free, so channel 16i + 4q + r is the k index
+//   of the lane's A fragments of k-steps 2i (r = 0, 1) and 2i + 1 (r = 2,
+//   3): t in registers is the expansion's A operand as it stands. m16n8k8's
+//   accumulator holds columns 2q, 2q + 1 where its A operand wants q, q + 4,
+//   so W3's E index is permuted within each group of 8 as [0,2,4,6,1,3,5,7]
+//   when staged: then the expansion's accumulators d0..d3, leaky-ReLU'd in
+//   f32 and split, are the projection's A fragment d0, d2, d1, d3, and h
+//   (32 E channels a step at C = 64, 16 at C = 32, where two blocks of 8
+//   warps share an SM's registers) never leaves the registers. W3's output
+//   rows are permuted the same way, so a lane's projection accumulators are
+//   its own pixels' channels 16i + 4q .. + 3: the epilogue adds them to x
+//   with __fadd_rn(x, __fmul_rn(gain, p)) and stores 16 bytes a pixel and
+//   group;
+// * W2 and W3 stay float32 in shared memory in fragment order (one warp's B
+//   operands of two n8 tiles are 512 contiguous bytes, read by LDS.128 free
+//   of bank conflicts) and are split as they are loaded: split weights would
+//   double both the bytes (2 x 131,072 B at C = 64) and the shared-memory
+//   reads a product needs;
+// * pixel rows of the tile are padded by 32 bytes, so the two lane quads of
+//   a quarter-warp (pixels two apart) fall into opposite halves of the bank
+//   line. (32, K): two 16-byte-aligned tile buffers, the copies of tile n+1
+//   in flight while tile n is computed, 2 blocks of 8 warps per SM ((32,5):
+//   3,456 B depthwise, LN and gain + 2 x 38,400 B tiles + 32,768 B W2 and W3
+//   = 113,024 B). (64,5): W2 and W3 are 131,072 B and two 69,120 B tiles do
+//   not fit, so there is one, and the copies of tile n+1 into it start once
+//   every warp has done its depthwise, overlapping the products: 6,912 +
+//   69,120 + 131,072 = 207,104 B, one block of 8 warps. (64,1) has two tiles
+//   of 36,864 B (205,568 B). No atomics: the same inputs give the same bits.
 #include <limits.h>
 
 #include <type_traits>
@@ -69,41 +121,46 @@ constexpr float kLnEps = 1e-3f;
 
 constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
+// dynamic shared memory one block may have on an H100
+constexpr size_t kMaxSmem = 232448;
+
 // I/O type T; S is the type of the shared input tile and of the 1x1 weights
 // (int8 codes are dequantized into a bf16 tile)
 template <typename T, int C_, int K_>
 struct Cfg {
   using S = std::conditional_t<std::is_same<T, float>::value, float, bf16>;
   static constexpr int C = C_, K = K_, E = 4 * C_, PAD = K_ / 2;
-  // the two products on the tensor cores (bf16 and int8 I/O)
+  // the two products on bf16 operands (bf16 and int8 I/O); f32 I/O runs
+  // them in 3xTF32
   static constexpr bool kMma = std::is_same<S, bf16>::value;
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   static constexpr int TH = 8, TW = kMma ? 32 : 16;
   static constexpr int P = TH * TW;          // pixels per tile
-  // threads per block, and the blocks per SM the registers are capped for
-  static constexpr int NT = !kMma ? P : C == 64 ? 512 : 256;
-  static constexpr int MIN_BLOCKS = kMma && C == 32 ? 2 : 1;
+  // threads per block (f32: a warp per tile row), and the blocks per SM
+  // the registers are capped for
+  static constexpr int NT = !kMma ? 32 * TH : C == 64 ? 512 : 256;
+  static constexpr int MIN_BLOCKS = C == 32 ? 2 : 1;
   // bf16 tile: a thread's depthwise work item is one 16-byte channel
   // group (8 channels) of R neighbouring output pixels of one row
   static constexpr int R = 4, CG = C / 8;
   // E channels per step of the products: their expansion accumulators are
   // EC/2 registers, and at C = 64 (512 threads) a thread has 128 in all
   static constexpr int EC = C == 64 ? 32 : 64;
+  // f32: E channels per step of the products: their expansion accumulators
+  // are EF/2 registers, and at C = 32 (two blocks per SM) a thread has 128
+  static constexpr int EF = C == 64 ? 32 : 16;
   static constexpr int RUNS_W = TW / R, ITEMS = TH * RUNS_W * CG;
   static constexpr int IH = TH + 2 * PAD, IW = TW + 2 * PAD;
   static constexpr int V = 16 / sizeof(S);   // tile elements per 16 bytes
   static constexpr int VIO = 16 / sizeof(T); // I/O elements per 16 bytes
-  // input tile: unpadded and swizzled at C = 64 on the tensor-core path,
-  // else pixel rows padded by 16 bytes; either way the warp's accesses
-  // below are free of shared-memory bank conflicts
+  // input tile: unpadded and swizzled at C = 64 on the bf16 path, else
+  // pixel rows padded by 8 elements (16 bytes in bf16, 32 in f32); either
+  // way the warp's accesses below are free of shared-memory bank conflicts
   static constexpr bool kSwizzle = kMma && C == 64;
-  static constexpr int LDX = kSwizzle ? C : C + V;
+  static constexpr int LDX = kSwizzle ? C : C + 8;
   static constexpr int LDT = C + 8;          // bf16 t / output tile rows
   static constexpr int LDW2 = C + 8;         // bf16 W2 [E][C] rows
   static constexpr int LDW3 = E + 8;         // bf16 W3 [C][E] rows
-  // tile buffers: bf16 I/O prefetches into a second tile, int8 I/O into a
-  // staging buffer of raw codes [IH*IW][C]
-  static constexpr int NXBUF = kMma && !kInt8 ? 2 : 1;
   static constexpr size_t XBUF = sizeof(S) * IH * IW * LDX;
   // shared-memory layout (bytes)
   // depthwise weights: f32 [K*K][C]; for the bf16 tile [K*K][2][CG][4],
@@ -113,18 +170,25 @@ struct Cfg {
   static constexpr size_t OFF_LN = align16(OFF_DW + 4 * K * K * C);
   static constexpr size_t OFF_GN = align16(OFF_LN + 4 * C);
   static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
+  // tile buffers: bf16 I/O prefetches into a second tile, int8 I/O into a
+  // staging buffer of raw codes [IH*IW][C], f32 I/O into a second tile
+  // where two fit beside the f32 weights (all but (64, 5))
+  static constexpr int NXBUF =
+      kInt8 ? 1 : kMma || OFF_X + 2 * XBUF + 8 * E * C <= kMaxSmem ? 2 : 1;
   static constexpr size_t OFF_STAGE = align16(OFF_X + NXBUF * XBUF);
   static constexpr size_t OFF_W2 =
       align16(OFF_STAGE + (kInt8 ? IH * IW * C : 0));
   // bf16/int8: W2 bf16 [E][LDW2], W3 bf16 [C][LDW3], t/out tile bf16
   //            [P][LDT] (int8 output rows are staged in the same rows)
-  // f32:       W2 f32 [E][C], W3 transposed f32 [E][C]
+  // f32:       W2 and W3 f32 in fragment order, E*C each (see the
+  //            staging in the kernel)
   static constexpr size_t OFF_W3 =
       align16(OFF_W2 + (kMma ? 2 * E * LDW2 : 4 * E * C));
   static constexpr size_t OFF_T =
       align16(OFF_W3 + (kMma ? 2 * C * LDW3 : 4 * E * C));
   static constexpr size_t SMEM = OFF_T + (kMma ? 2 * P * LDT : 0);
   static_assert(XBUF % 16 == 0, "tile buffers keep 16-byte alignment");
+  static_assert(SMEM <= kMaxSmem, "one block's shared memory fits");
 
   // element offset, within a tile row, of 16-byte chunk `chunk` of the
   // pixel in column `ix`
@@ -466,88 +530,216 @@ __device__ __forceinline__ void products_store(
   }
 }
 
-// f32 I/O: one thread per pixel does the depthwise sum, the LayerNorm and
-// both products on the CUDA cores, t and p in registers
+// D += A B for one m16n8k8 tile on TF32 operands: A row-major (4 regs), B
+// column-major (2 regs), D f32 (4 regs). The tensor core reads the top 19
+// bits of each f32 operand. Not volatile, so that the compiler may
+// interleave independent products
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v = big + small exactly: big is v truncated to TF32, small the rest (the
+// weights: the compiler passes v itself for big, as the tensor core
+// truncates it the same way)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(v) & 0xffffe000u;
+  small = __float_as_uint(__fsub_rn(v, __uint_as_float(big)));
+}
+
+// the same with big rounded to nearest, ties away from zero (t and h: a
+// value of its own, which also spares the copies that would line a
+// permuted A fragment up from the accumulators)
+__device__ __forceinline__ void split_tf32_rn(float v, uint32_t& big,
+                                              uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(__fsub_rn(v, __uint_as_float(big)));
+}
+
+// Two n8 tiles of a 3xTF32 product: d0, d1 += A B with A split into ab, as
+// and the B fragments of both tiles in one 16-byte vector from shared
+// memory (b0, b1 of tile 0, then of tile 1). Per tile small.big and
+// big.small go before big.big; the two tiles' chains interleave.
+__device__ __forceinline__ void mma_3xtf32_pair(float (&d0)[4], float (&d1)[4],
+                                                const uint32_t (&ab)[4],
+                                                const uint32_t (&as)[4],
+                                                float4 b) {
+  uint32_t bb[4], bs[4];
+  split_tf32(b.x, bb[0], bs[0]);
+  split_tf32(b.y, bb[1], bs[1]);
+  split_tf32(b.z, bb[2], bs[2]);
+  split_tf32(b.w, bb[3], bs[3]);
+  mma_tf32(d0, as, bb[0], bb[1]);
+  mma_tf32(d1, as, bb[2], bb[3]);
+  mma_tf32(d0, ab, bs[0], bs[1]);
+  mma_tf32(d1, ab, bs[2], bs[3]);
+  mma_tf32(d0, ab, bb[0], bb[1]);
+  mma_tf32(d1, ab, bb[2], bb[3]);
+}
+
+// f32 I/O, depthwise KxK + LayerNorm of the warp's tile row ry: lane (g, q)
+// owns pixels 2g and 2g + 1 and channels 16i + 4q .. + 3 of each group i.
+// Per group and tap row it loads the K weight vectors and the K + 1 input
+// vectors once and does the 2K x 4 FMAs from registers, taps in (dy, dx)
+// order per output. The 4 lanes of a pixel pair are neighbours: mean and
+// centred variance (two passes, f32) are butterfly sums over them. Pixels
+// outside the image are computed on the tile's zeros, so every lane takes
+// part. t and the pixels' own x (the centre tap) are left in registers,
+// [pixel][4i + r].
 template <typename G>
-__device__ __forceinline__ void unit_f32(
+__device__ __forceinline__ void depthwise_layernorm_f32(
     const float* __restrict__ xs, const float* __restrict__ dws,
-    const float* __restrict__ lns, const float* __restrict__ w2s,
-    const float* __restrict__ w3t, const float* __restrict__ gns,
-    float* __restrict__ out, Tile t, int H, int W, float slope, int tid) {
-  constexpr int C = G::C, K = G::K, E = G::E;
-  const int py = tid / G::TW, px = tid % G::TW;
-  float acc[C];
+    const float* __restrict__ lns, float (&tv)[2][G::C / 4],
+    float (&xc)[2][G::C / 4], int ry, int lane) {
+  constexpr int C = G::C, K = G::K, PAD = G::PAD;
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
-#pragma unroll 1
-  for (int dy = 0; dy < K; ++dy) {
+  for (int i = 0; i < C / 16; ++i) {
+    const int c = 16 * i + 4 * q;
+    float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
+                     make_float4(0.f, 0.f, 0.f, 0.f)};
 #pragma unroll
-    for (int dx = 0; dx < K; ++dx) {
-      const float* xp = xs + ((py + dy) * G::IW + px + dx) * G::LDX;
-      const float* wp = dws + (dy * K + dx) * C;
+    for (int dy = 0; dy < K; ++dy) {
+      const float* xrow = xs + ((ry + dy) * G::IW + 2 * g) * G::LDX + c;
+      float4 w[K];
 #pragma unroll
-      for (int c4 = 0; c4 < C; c4 += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(xp + c4);
-        const float4 w4 = *reinterpret_cast<const float4*>(wp + c4);
-        acc[c4 + 0] = fmaf(v.x, w4.x, acc[c4 + 0]);
-        acc[c4 + 1] = fmaf(v.y, w4.y, acc[c4 + 1]);
-        acc[c4 + 2] = fmaf(v.z, w4.z, acc[c4 + 2]);
-        acc[c4 + 3] = fmaf(v.w, w4.w, acc[c4 + 3]);
+      for (int dx = 0; dx < K; ++dx)
+        w[dx] = *reinterpret_cast<const float4*>(dws + (dy * K + dx) * C + c);
+#pragma unroll
+      for (int j = 0; j < K + 1; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(xrow + j * G::LDX);
+        if (dy == PAD && j >= PAD && j < PAD + 2) {
+          float* xp = xc[j - PAD] + 4 * i;
+          xp[0] = v.x, xp[1] = v.y, xp[2] = v.z, xp[3] = v.w;
+        }
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+          const int p = j - dx;  // the output pixel this tap feeds
+          if (p >= 0 && p < 2) {
+            acc[p].x = fmaf(v.x, w[dx].x, acc[p].x);
+            acc[p].y = fmaf(v.y, w[dx].y, acc[p].y);
+            acc[p].z = fmaf(v.z, w[dx].z, acc[p].z);
+            acc[p].w = fmaf(v.w, w[dx].w, acc[p].w);
+          }
+        }
       }
     }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float* tp = tv[p] + 4 * i;
+      tp[0] = acc[p].x, tp[1] = acc[p].y, tp[2] = acc[p].z, tp[3] = acc[p].w;
+    }
   }
-  float mean = 0.f;
 #pragma unroll
-  for (int c = 0; c < C; ++c) mean += acc[c];
-  mean *= (1.f / C);
-  float var = 0.f;
+  for (int p = 0; p < 2; ++p) {
+    float* a = tv[p];
+    float sum = 0.f;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float d = acc[c] - mean;
-    var = fmaf(d, d, var);
+    for (int i = 0; i < C / 16; ++i)
+      sum += (a[4 * i] + a[4 * i + 1]) + (a[4 * i + 2] + a[4 * i + 3]);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float mean = sum * (1.f / C);
+    float sq = 0.f;
+#pragma unroll
+    for (int r = 0; r < C / 4; ++r) {
+      a[r] -= mean;
+      sq = fmaf(a[r], a[r], sq);
+    }
+    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    const float rs = rsqrtf(sq * (1.f / C) + kLnEps);
+#pragma unroll
+    for (int i = 0; i < C / 16; ++i) {
+      const float4 l =
+          *reinterpret_cast<const float4*>(lns + 16 * i + 4 * q);
+      a[4 * i] = a[4 * i] * rs * l.x;
+      a[4 * i + 1] = a[4 * i + 1] * rs * l.y;
+      a[4 * i + 2] = a[4 * i + 2] * rs * l.z;
+      a[4 * i + 3] = a[4 * i + 3] * rs * l.w;
+    }
   }
-  var *= (1.f / C);
-  const float rs = rsqrtf(var + kLnEps);
+}
+
+// f32 I/O: both 1x1 products of the warp's 16 pixels in 3xTF32 from t in
+// registers, EF of the E channels a step, then out = x + gain * p stored
+// from the projection's accumulators. w2f and w3f are W2 and W3 in
+// fragment order (the kernel's staging): 32 lanes' 16-byte vectors per
+// (k-step, pair of n8 tiles).
+template <typename G>
+__device__ __forceinline__ void products_store_f32(
+    const float (&tv)[2][G::C / 4], const float (&xc)[2][G::C / 4],
+    const float4* __restrict__ w2f, const float4* __restrict__ w3f,
+    const float* __restrict__ gns, float* __restrict__ out, Tile t, int ry,
+    int H, int W, float slope, int lane) {
+  constexpr int C = G::C, E = G::E, EF = G::EF;
+  float pacc[C / 8][4];
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = (acc[c] - mean) * rs * lns[c];
-  float p[C];
+  for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
-  for (int c = 0; c < C; ++c) p[c] = 0.f;
+    for (int r = 0; r < 4; ++r) pacc[nt][r] = 0.f;
 #pragma unroll 1
-  for (int e = 0; e < E; ++e) {
-    const float4* wr = reinterpret_cast<const float4*>(w2s + e * C);
-    float h0 = 0.f, h1 = 0.f, h2 = 0.f, h3 = 0.f;
+  for (int ec = 0; ec < E; ec += EF) {
+    float hacc[EF / 8][4];
 #pragma unroll
-    for (int c4 = 0; c4 < C / 4; ++c4) {
-      const float4 w = wr[c4];
-      h0 = fmaf(w.x, acc[4 * c4 + 0], h0);
-      h1 = fmaf(w.y, acc[4 * c4 + 1], h1);
-      h2 = fmaf(w.z, acc[4 * c4 + 2], h2);
-      h3 = fmaf(w.w, acc[4 * c4 + 3], h3);
+    for (int nt = 0; nt < EF / 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) hacc[nt][r] = 0.f;
+    // expansion: k-step j covers channels 16(j/2) + 4q + 2(j%2) + {0, 1}
+    // of rows g (pixel 2g) and g + 8 (pixel 2g + 1)
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      const int r = 4 * (j >> 1) + 2 * (j & 1);
+      uint32_t ab[4], as[4];
+      split_tf32_rn(tv[0][r], ab[0], as[0]);
+      split_tf32_rn(tv[1][r], ab[1], as[1]);
+      split_tf32_rn(tv[0][r + 1], ab[2], as[2]);
+      split_tf32_rn(tv[1][r + 1], ab[3], as[3]);
+#pragma unroll
+      for (int np = 0; np < EF / 16; ++np)
+        mma_3xtf32_pair(hacc[2 * np], hacc[2 * np + 1], ab, as,
+                        w2f[(j * (E / 16) + ec / 16 + np) * 32 + lane]);
     }
-    const float hv = leaky((h0 + h1) + (h2 + h3), slope);
-    const float4* wr3 = reinterpret_cast<const float4*>(w3t + e * C);
+    // projection: the expansion's accumulators of n8 tile n, as d0, d2,
+    // d1, d3, are the A fragment of k-step ec / 8 + n
 #pragma unroll
-    for (int c4 = 0; c4 < C / 4; ++c4) {
-      const float4 w = wr3[c4];
-      p[4 * c4 + 0] = fmaf(w.x, hv, p[4 * c4 + 0]);
-      p[4 * c4 + 1] = fmaf(w.y, hv, p[4 * c4 + 1]);
-      p[4 * c4 + 2] = fmaf(w.z, hv, p[4 * c4 + 2]);
-      p[4 * c4 + 3] = fmaf(w.w, hv, p[4 * c4 + 3]);
+    for (int n = 0; n < EF / 8; ++n) {
+      uint32_t ab[4], as[4];
+      split_tf32_rn(leaky(hacc[n][0], slope), ab[0], as[0]);
+      split_tf32_rn(leaky(hacc[n][2], slope), ab[1], as[1]);
+      split_tf32_rn(leaky(hacc[n][1], slope), ab[2], as[2]);
+      split_tf32_rn(leaky(hacc[n][3], slope), ab[3], as[3]);
+#pragma unroll
+      for (int i = 0; i < C / 16; ++i)
+        mma_3xtf32_pair(pacc[2 * i], pacc[2 * i + 1], ab, as,
+                        w3f[((ec / 8 + n) * (C / 16) + i) * 32 + lane]);
     }
   }
-  const int gy = t.y0 + py, gx = t.x0 + px;
-  if (gy < H && gx < W) {
-    const float* xr = xs + ((py + G::PAD) * G::IW + px + G::PAD) * G::LDX;
-    float* orow = out + ((t.b * H + gy) * W + gx) * C;
+  // n8 tiles 2i and 2i + 1 hold channels 16i + 4q + {0, 1} and + {2, 3} of
+  // rows g (accumulators 0, 1) and g + 8 (2, 3)
+  const int g = lane >> 2, q = lane & 3;
+  const int gy = t.y0 + ry;
 #pragma unroll
-    for (int c4 = 0; c4 < C / 4; ++c4) {
-      float4 o;
-      o.x = __fadd_rn(xr[4 * c4 + 0], __fmul_rn(gns[4 * c4 + 0], p[4 * c4 + 0]));
-      o.y = __fadd_rn(xr[4 * c4 + 1], __fmul_rn(gns[4 * c4 + 1], p[4 * c4 + 1]));
-      o.z = __fadd_rn(xr[4 * c4 + 2], __fmul_rn(gns[4 * c4 + 2], p[4 * c4 + 2]));
-      o.w = __fadd_rn(xr[4 * c4 + 3], __fmul_rn(gns[4 * c4 + 3], p[4 * c4 + 3]));
-      *reinterpret_cast<float4*>(orow + 4 * c4) = o;
+  for (int p = 0; p < 2; ++p) {
+    const int gx = t.x0 + 2 * g + p;
+    if (gy < H && gx < W) {
+      float* orow = out + ((t.b * H + gy) * W + gx) * C;
+#pragma unroll
+      for (int i = 0; i < C / 16; ++i) {
+        const int c = 16 * i + 4 * q;
+        const float4 gn = *reinterpret_cast<const float4*>(gns + c);
+        const float* xv = xc[p] + 4 * i;
+        float4 o;
+        o.x = __fadd_rn(xv[0], __fmul_rn(gn.x, pacc[2 * i][2 * p]));
+        o.y = __fadd_rn(xv[1], __fmul_rn(gn.y, pacc[2 * i][2 * p + 1]));
+        o.z = __fadd_rn(xv[2], __fmul_rn(gn.z, pacc[2 * i + 1][2 * p]));
+        o.w = __fadd_rn(xv[3], __fmul_rn(gn.w, pacc[2 * i + 1][2 * p + 1]));
+        *reinterpret_cast<float4*>(orow + c) = o;
+      }
     }
   }
 }
@@ -580,7 +772,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
     return Tile{rest / tiles_h, rest % tiles_h * G::TH, i % tiles_w * G::TW};
   };
   // where the copies of the next tile land: the staging buffer (int8), the
-  // other tile buffer (bf16) or the only one (f32)
+  // other tile buffer (bf16, f32 but at (64, 5)) or the only one
   int buf = 0;
   auto landing = [&](int b) {
     return smem + (G::kInt8 ? G::OFF_STAGE : G::OFF_X + b * G::XBUF);
@@ -612,10 +804,28 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
           *reinterpret_cast<const uint4*>(w3 + c * E + e8 * 8);
     }
   } else {
-    for (int i = tid; i < E * C; i += NT) w2s[i] = w2[i];
-    for (int i = tid; i < E * C; i += NT) {
-      const int c = i / E, e = i % E;
-      w3s[e * C + c] = w3[i];  // transposed
+    // f32: W2 and W3 in fragment order, one 16-byte vector per lane of a
+    // (k-step, pair of n8 tiles): b0, b1 of tile 0, then of tile 1. B of the
+    // expansion (k: channels of t, n: E rows): k-step j of lane (g, q)
+    // holds channels 16(j/2) + 4q + 2(j%2) + {0, 1}, and n8 tile 2np + s is
+    // E rows 16np + 8s + g. B of the projection (k: E, n: output channels):
+    // k-step ks holds E channels 8ks + 2q + {0, 1} (the order
+    // [0,2,4,6,1,3,5,7] of the expansion's accumulators), and n8 tile
+    // 2np + s is output channel 16np + 4(g/2) + 2s + g%2. Scalar loads: the
+    // weights need no 16-byte alignment
+    float4* w2f = reinterpret_cast<float4*>(w2s);
+    float4* w3f = reinterpret_cast<float4*>(w3s);
+#pragma unroll 4
+    for (int i = tid; i < E * C / 4; i += NT) {
+      const int lane = i & 31, g = lane >> 2, q = lane & 3, rest = i >> 5;
+      const int j = rest / (E / 16), np2 = rest % (E / 16);
+      const float* r2 =
+          w2 + (16 * np2 + g) * C + 16 * (j >> 1) + 4 * q + 2 * (j & 1);
+      w2f[i] = make_float4(r2[0], r2[1], r2[8 * C], r2[8 * C + 1]);
+      const int ks = rest / (C / 16), np3 = rest % (C / 16);
+      const float* r3 =
+          w3 + (16 * np3 + 4 * (g >> 1) + (g & 1)) * E + 8 * ks + 2 * q;
+      w3f[i] = make_float4(r3[0], r3[1], r3[2 * E], r3[2 * E + 1]);
     }
   }
 
@@ -643,11 +853,26 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
       products_store<G>(xs, ts, w2s, w3s, gns, out, t, H, W, slope, inv_out,
                         tid);
     } else {
-      unit_f32<G>(xs, dws, lns, w2s, w3s, gns, out, t, H, W, slope, tid);
-      if (next < ntiles) {
-        __syncthreads();  // the only tile buffer is free again
-        load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
+      // f32: the next tile goes to the other buffer where there are two,
+      // else into this one once every warp has done its depthwise: the
+      // products need only registers and the weights
+      if constexpr (G::NXBUF == 2) {
+        buf ^= 1;
+        if (next < ntiles)
+          load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
       }
+      const int warp = tid >> 5, lane = tid & 31;
+      float tv[2][C / 4], xc[2][C / 4];
+      depthwise_layernorm_f32<G>(xs, dws, lns, tv, xc, warp, lane);
+      if constexpr (G::NXBUF == 1) {
+        if (next < ntiles) {
+          __syncthreads();  // the only tile buffer is free again
+          load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
+        }
+      }
+      products_store_f32<G>(tv, xc, reinterpret_cast<const float4*>(w2s),
+                            reinterpret_cast<const float4*>(w3s), gns, out, t,
+                            warp, H, W, slope, lane);
     }
   }
 }

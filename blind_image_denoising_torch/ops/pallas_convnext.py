@@ -22,10 +22,11 @@ CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
 128 B at (32, 3) in bf16 and ≈ 69 k per 256 B at (64, 5), so it sits
 below or near the H100's 295 operations-per-byte ridge only if the two
 1×1 products run on the tensor cores. By that count the bf16 mode is
-bound by its bytes and the int8 mode by its CUDA-core operations; on the
-card the kernel is bound by its instruction count against the warp
-schedulers' rate, about half of it the depthwise sum's (PERF.md has the
-split). Design:
+bound by its bytes, the int8 mode by its CUDA-core operations and the
+float32 mode by the three TF32 passes of its products (below); on the
+card the bf16 and int8 kernel is bound by its instruction count against
+the warp schedulers' rate, about half of it the depthwise sum's (PERF.md
+has the split). Design of the bf16 and int8 modes:
 * a block owns a tile of 8 × 32 output pixels of one image and walks
   over tiles (persistent blocks), so W2, W3 and the depthwise weights
   are staged into shared memory once per block (64 KB of bf16 at
@@ -51,8 +52,27 @@ split). Design:
   at C = 64, where the tile is stored unpadded and XOR-swizzled so that
   two buffers fit; :func:`kernel_plan` mirrors the threads and
   shared-memory bytes of every instantiation.
-In float32 mode (``dtype="float32"`` serving) every operation is float32
-on the CUDA cores, one thread per pixel. In int8 mode (``x`` int8 with
+In float32 mode (``dtype="float32"`` serving and export, the f32
+forwards of v3 / v4 / v5, the analysis tools) the result keeps float32
+accuracy while the two products, 95% of the operations, run on the
+tensor cores as error-compensated 3xTF32: each operand is split into a
+TF32 ``big`` and the remainder ``small``, and each product sums
+small·big + big·small + big·big with ``mma.sync`` m16n8k8 (float32
+accumulation). One TF32 pass would miss the 1e-3 bar (6e-3 on the
+flagship's units); three land near 1e-6 of max |out|. So its bound is
+three times the products over the TF32 rate, beside the other
+operations on the CUDA cores and the bytes. Tiles of 8 × 16 pixels, a
+warp per row: a lane holds two pixels' channels ``16i + 4q .. + 3``,
+which are its A fragment of the expansion as they stand (the products'
+k order is free); the depthwise reuses each tap row's loads over both
+pixels, the LayerNorm's statistics are shuffles over four lanes, and
+``h`` goes from the expansion's accumulators to the projection in
+registers (W3's E index is permuted as [0,2,4,6,1,3,5,7] within each 8
+when staged). The f32 W2 and W3 stay in shared memory in fragment order
+and are split as they are loaded. Two tile buffers at C = 32 (two
+blocks of 8 warps an SM) and at (64, 1); at (64, 5) the f32 weights
+leave room for one, refilled while the products run. In int8 mode
+(``x`` int8 with
 ``scale_in`` and ``scale_out``) only int8 codes touch device memory: the
 codes are dequantized into the bf16 shared tile as
 ``bf16(q · bf16(scale_in))``, the unit runs the bf16 path above, and the
@@ -100,21 +120,26 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     e, pad, elt = 4 * c, k // 2, 2 if mma else 4
     th, tw = 8, 32 if mma else 16
     ih, iw = th + 2 * pad, tw + 2 * pad
-    # tile rows unpadded (swizzled) at C = 64 on the tensor-core path
-    ldx = c if mma and c == 64 else c + 16 // elt
-    buffers = 2 if mma and not int8 else 1
+    # tile rows unpadded (swizzled) at C = 64 in bf16, else padded by 8
+    ldx = c if mma and c == 64 else c + 8
+    xbuf = elt * ih * iw * ldx
 
     def align16(n):
         return (n + 15) // 16 * 16
 
     end = align16(4 * k * k * c)                          # depthwise weights
     end = align16(align16(end + 4 * c) + 4 * c)           # LN scale, gain
-    end = align16(end + buffers * elt * ih * iw * ldx)    # input tiles
+    # bf16 two tile buffers, int8 one; f32 two where they fit beside its
+    # f32 W2 and W3 (all but (64, 5))
+    buffers = (1 if int8 else 2 if mma
+               or end + 2 * xbuf + 8 * e * c <= SHARED_MEMORY_LIMIT else 1)
+    end = align16(end + buffers * xbuf)                   # input tiles
     end = align16(end + (ih * iw * c if int8 else 0))     # staged codes
     end = align16(end + (2 * e * (c + 8) if mma else 4 * e * c))    # W2
     end = align16(end + (2 * c * (e + 8) if mma else 4 * e * c))    # W3
     end += 2 * th * tw * (c + 8) if mma else 0            # t / output tile
-    threads = th * tw if not mma else 512 if c == 64 else 256
+    # f32: a warp per tile row
+    threads = 32 * th if not mma else 512 if c == 64 else 256
     return dict(threads_per_block=threads, smem_bytes=end)
 
 

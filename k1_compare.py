@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time versions of the ConvNext-unit kernel (K1) against each other on
-one NVIDIA GPU, inside one process, at the six shapes ``chip_smoke.py``
+one NVIDIA GPU, inside one process, at the shapes ``chip_smoke.py``
 reports (bf16 (32,3) 8×256², (64,5) 8×128², (32,5) 32×256², (64,5)
 32×128² and int8 (32,5) 32×256², (64,5) 32×128²) and, for
-``dtype="float32"`` serving, f32 (32,3) 8×256² and (64,5) 8×128².
+``dtype="float32"`` serving, f32 (32,3) 8×256² and (64,5) 8×128², and
+the K = 1 decoders' f32 (32,1) 8×256² and (64,1) 8×128².
 
-    python3 k1_compare.py [--rounds N] [--out DIR] NAME=SOURCE [NAME=SOURCE ...]
+    python3 k1_compare.py [--rounds N] [--out DIR] [--mma-rate]
+                          [NAME=SOURCE ...]
 
 Each SOURCE is a ``convnext_block.cu`` (the checkout's, a parent
 commit's, or a copy with a phase cut out); ``common.cuh`` is taken from
@@ -15,11 +17,22 @@ order in even rounds, reversed in odd ones: parent, change, change,
 parent with two names and two rounds), since times of different
 processes or machines do not compare. Per source and shape it prints
 one JSON line with the device milliseconds of every round (CUDA events
-around calls queued behind a spin kernel), the largest difference from
-the plain PyTorch version, and the bound; then the card's name and power
-limit. With ``--out DIR`` the compiler's resource report
+around calls queued behind a spin kernel), warm (``ms``: one input) and
+cold (``cold_ms``: the calls rotate over copies of the input that move
+twice the L2), the largest difference from the plain PyTorch version
+(in float32 also over the plain output's largest entry), and the bound
+(in float32 also ``bound_cuda_cores_ms``, every operation on the CUDA
+cores); then the card's name and power limit. With ``--out DIR`` the
+compiler's resource report
 (``-Xptxas -v``) and the SASS (``cuobjdump -sass``) of every source are
 written to ``DIR/NAME.ptxas.txt`` and ``DIR/NAME.sass.txt``.
+
+``--mma-rate`` first measures the rate of ``mma.sync`` itself, the
+ceiling of the products of the float32 mode (m16n8k8 on TF32) and of
+the bf16 and int8 modes (m16n8k16 on bf16): a kernel of chains of
+independent products on one block of 8 or 16 warps per SM, timed by the
+SM's clock, prints one JSON line per case with the products a clock an
+SM (one m16n8k8 TF32 product a clock an SM is the dense TF32 peak).
 """
 
 import argparse
@@ -33,13 +46,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import convnext_bound_ms, cuda_ms
+from chip_smoke import cold_copies, convnext_bound_ms, cuda_ms
 
 # (dtype, C, K, batch, height and width)
 ROWS = [("bf16", 32, 3, 8, 256), ("bf16", 64, 5, 8, 128),
         ("bf16", 32, 5, 32, 256), ("bf16", 64, 5, 32, 128),
         ("int8", 32, 5, 32, 256), ("int8", 64, 5, 32, 128),
-        ("f32", 32, 3, 8, 256), ("f32", 64, 5, 8, 128)]
+        ("f32", 32, 3, 8, 256), ("f32", 64, 5, 8, 128),
+        ("f32", 32, 1, 8, 256), ("f32", 64, 1, 8, 128)]
 
 
 def build(name, source, work, out_dir):
@@ -66,15 +80,103 @@ def build(name, source, work, out_dir):
     return lib
 
 
+MMA_RATE_SOURCE = r"""
+#include <cstdint>
+#include <cstdio>
+template <bool BF16>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  if (BF16)
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                 "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                   "r"(b1));
+  else
+    asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+                 "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                   "r"(b1));
+}
+template <int CHAINS, bool BF16>
+__global__ void chains(float* out, long long* clocks, int iters) {
+  float d[CHAINS][4] = {};
+  const uint32_t a[4] = {threadIdx.x, threadIdx.x * 3u, threadIdx.x * 5u,
+                         threadIdx.x * 7u};
+  const uint32_t b0 = threadIdx.x * 11u, b1 = threadIdx.x * 13u;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < CHAINS; ++j) mma<BF16>(d[j], a, b0, b1);
+  __syncthreads();
+  const long long t1 = clock64();
+  float s = 0.f;
+  for (int j = 0; j < CHAINS; ++j) s += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0) clocks[blockIdx.x] = t1 - t0;
+}
+template <int CHAINS, bool BF16>
+void run(int warps) {
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  float* out;
+  long long* clocks;
+  cudaMalloc(&out, sms * 1024 * sizeof(float));
+  cudaMalloc(&clocks, sms * sizeof(long long));
+  const int iters = 2000;
+  for (int rep = 0; rep < 2; ++rep)  // the second launch is timed
+    chains<CHAINS, BF16><<<sms, 32 * warps>>>(out, clocks, iters);
+  long long host[1024];
+  cudaMemcpy(host, clocks, sms * sizeof(long long), cudaMemcpyDeviceToHost);
+  double mean = 0.0;
+  for (int i = 0; i < sms; ++i) mean += (double)host[i] / sms;
+  printf("{\"mma\": \"%s\", \"chains_per_warp\": %d, \"warps_per_sm\": %d, "
+         "\"per_clock_per_sm\": %.4f}\n",
+         BF16 ? "m16n8k16.bf16" : "m16n8k8.tf32", CHAINS, warps,
+         (double)warps * iters * CHAINS / mean);
+  cudaFree(out);
+  cudaFree(clocks);
+}
+int main() {
+  run<1, false>(8); run<2, false>(8); run<4, false>(8); run<8, false>(8);
+  run<1, false>(16); run<4, false>(16);
+  run<4, true>(8); run<8, true>(16);
+  return cudaDeviceSynchronize() != cudaSuccess;
+}
+"""
+
+
+def mma_rate(work: Path) -> None:
+    """Build and run ``MMA_RATE_SOURCE``; print its JSON lines."""
+    from blind_image_denoising_torch.ops import cuda_build
+    src, exe = work / "mma_rate.cu", work / "mma_rate"
+    src.write_text(MMA_RATE_SOURCE)
+    subprocess.run([cuda_build.find_nvcc(), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-O3", "-o", str(exe),
+                    str(src)], check=True)
+    print(subprocess.run([str(exe)], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("sources", nargs="+", metavar="NAME=SOURCE")
+    parser.add_argument("sources", nargs="*", metavar="NAME=SOURCE")
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--mma-rate", action="store_true")
     args = parser.parse_args()
+    if not args.sources and not args.mma_rate:
+        parser.error("give NAME=SOURCE pairs, --mma-rate, or both")
     if not torch.cuda.is_available():
         print("k1_compare: no CUDA device available", file=sys.stderr)
         return 1
+    if args.mma_rate:
+        with tempfile.TemporaryDirectory() as work:
+            mma_rate(Path(work))
+        if not args.sources:
+            return 0
     from blind_image_denoising_torch.ops import pallas_convnext as pc
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -111,7 +213,7 @@ def main() -> int:
         w2, w3 = (wts[n].to(w_dtype).contiguous() for n in ("w2", "w3"))
         out = torch.empty_like(x)
 
-        def call(lib):
+        def call(lib, x=x):
             rc = lib.bid_convnext_block(
                 x.data_ptr(), out.data_ptr(), dw.data_ptr(),
                 wts["ln_scale"].data_ptr(), w2.data_ptr(), w3.data_ptr(),
@@ -121,22 +223,35 @@ def main() -> int:
                 raise RuntimeError(f"launch refused: code {rc}")
 
         times = {name: [] for name in libs}
-        errs = {}
+        cold = {name: [] for name in libs}
+        copies = cold_copies(x)
+        errs, rels = {}, {}
         for name, lib in libs.items():
             out.zero_()
             call(lib)
             torch.cuda.synchronize()
             errs[name] = float((out.float() - ref.float()).abs().max())
+            rels[name] = errs[name] / float(ref.float().abs().max())
         for r in range(args.rounds):
             order = list(libs) if r % 2 == 0 else list(libs)[::-1]
             for name in order:
                 times[name].append(cuda_ms(lambda: call(libs[name])))
+                cold[name].append(cuda_ms(lambda xc: call(libs[name], xc),
+                                          inputs=copies))
         bound, by = convnext_bound_ms(b, hw, hw, c, k, x.dtype)
+        f32 = {} if dtype != "f32" else dict(
+            bound_cuda_cores_ms=convnext_bound_ms(
+                b, hw, hw, c, k, x.dtype, cuda_cores=True)[0])
         for name in libs:
+            if dtype == "f32":
+                f32["relative_diff_from_plain"] = rels[name]
             print(json.dumps(dict(
                 source=name, dtype=dtype, C=c, K=k, shape=[b, hw, hw, c],
-                ms=times[name], ms_min=min(times[name]), bound_ms=bound,
-                bound_by=by, max_abs_diff_from_plain=errs[name])), flush=True)
+                ms=times[name], ms_min=min(times[name]), cold_ms=cold[name],
+                cold_ms_min=min(cold[name]), bound_ms=bound,
+                bound_by=by, max_abs_diff_from_plain=errs[name], **f32)),
+                flush=True)
+        del copies
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

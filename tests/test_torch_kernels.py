@@ -22,6 +22,12 @@ wrappers' CPU dispatch (the noise kernel K3 has its own file,
   in another order, which moves a code whose pre-rounding value sits
   near x.5), and within JAX's own ``3·max(s_in, s_out)`` of the float
   oracle.
+* K1's float32 mode: a test-local emulation of its 3xTF32 products (big
+  rounded to nearest or truncated) within 1e-5 of the plain output's
+  largest entry, on the packaged flagship's units and seeded weights at
+  every kernel shape; one TF32 pass misses 1e-3 on the flagship's units.
+  Every K1 plan (``kernel_plan``) fits shared memory, with the bytes the
+  source's header note states.
 * K4's tile plan (``split_tile_plan``, the mirror of the kernel's) fits
   shared memory and gives every thread whole vectors of whole quads.
 * K4 (band split with decimation): ``band_split_plain`` vs
@@ -377,14 +383,123 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
     assert plan["threads_per_block"] % 32 == 0
     assert plan["threads_per_block"] <= 1024
     stated = {((32, 5), torch.bfloat16): (256, 112_000),
-              ((64, 5), torch.bfloat16): (512, 225_024)}
+              ((64, 5), torch.bfloat16): (512, 225_024),
+              # float32: a warp per row of an 8 x 16 tile; two tile buffers
+              # but at (64, 5), whose f32 W2 and W3 leave room for one
+              ((32, 1), torch.float32): (256, 74_112),
+              ((32, 3), torch.float32): (256, 91_776),
+              ((32, 5), torch.float32): (256, 113_024),
+              ((64, 1), torch.float32): (256, 205_568),
+              ((64, 5), torch.float32): (256, 207_104)}
     if (ck, dtype) in stated:
         assert (plan["threads_per_block"],
                 plan["smem_bytes"]) == stated[ck, dtype]
-    if dtype != torch.float32 and ck[0] == 32:
+    if ck[0] == 32:
         # two blocks per SM: twice the block and its 1 KB reserve fit the
         # SM's 228 KB
         assert 2 * (plan["smem_bytes"] + 1024) <= 233_472
+
+
+def _tf32(v: torch.Tensor, rounding: str) -> torch.Tensor:
+    """float32 v rounded to TF32 (10 mantissa bits): to nearest with ties
+    away from zero, or truncated."""
+    bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if rounding == "nearest":
+        bits = bits + 0x1000
+    bits = bits & 0xFFFFE000
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(
+        torch.int32).view(torch.float32)
+
+
+def _product_tf32(a, b, passes, rounding):
+    """a @ b.T as the tensor cores compute it on TF32 operands with float32
+    sums: one pass on big = tf32(v), or three (3xTF32): small.big and
+    big.small, then big.big, with small = v - big truncated as the tensor
+    core reads it."""
+    a_big, b_big = _tf32(a, rounding), _tf32(b, rounding)
+    if passes == 1:
+        return a_big @ b_big.T
+    a_small = _tf32(a - a_big, "truncate")
+    b_small = _tf32(b - b_big, "truncate")
+    return (a_small @ b_big.T + a_big @ b_small.T) + a_big @ b_big.T
+
+
+def _unit_tf32(x, dw, ln_scale, w2, w3, gain, slope, passes, rounding):
+    """The float32 unit of ``convnext_block_plain`` with its two products
+    emulated in TF32 (``_product_tf32``)."""
+    b, h, w, c = x.shape
+    k = dw.shape[-1]
+    xp = torch.nn.functional.pad(x, (0, 0, k // 2, k // 2, k // 2, k // 2))
+    dwf = dw.reshape(c, k, k)
+    acc = torch.zeros_like(x)
+    for dy in range(k):
+        for dx in range(k):
+            acc = acc + xp[:, dy:dy + h, dx:dx + w, :] * dwf[:, dy, dx]
+    cent = acc - acc.mean(dim=-1, keepdim=True)
+    var = (cent * cent).mean(dim=-1, keepdim=True)
+    t = (cent * torch.rsqrt(var + 1e-3) * ln_scale).reshape(-1, c)
+    hid = torch.nn.functional.leaky_relu(
+        _product_tf32(t, w2, passes, rounding), slope)
+    p = _product_tf32(hid, w3, passes, rounding).reshape(x.shape)
+    return x + gain * p
+
+
+@pytest.fixture(scope="module")
+def flagship_units():
+    """The packaged flagship's two float32 unit shapes, (32, 3) and
+    (64, 5), as the serving path gives them to K1."""
+    import blind_image_denoising_torch as bidt
+    den = bidt.load_model("unet_laplacian_v6_tpu_scratch", device="cpu",
+                          dtype="float32")
+    units = {}
+    for name in ("encoder_0_0", "encoder_1_0"):
+        unit = getattr(den.model.backbone, name)
+        units[name] = (dict(unit.kernel_weights(torch.float32)), unit.slope)
+    return units
+
+
+def _seeded_unit(c, k, seed=0):
+    """tests/test_torch_cuda.py's ``_unit_weights``, on the CPU."""
+    rng = np.random.default_rng(seed)
+    e = 4 * c
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa
+    return dict(dw=t(rng.normal(0, 0.3, (c, 1, k, k))),
+                ln_scale=t(rng.uniform(0.5, 1.5, (c,))),
+                w2=t(rng.normal(0, 1.0 / np.sqrt(c), (e, c))),
+                w3=t(rng.normal(0, 1.0 / np.sqrt(e), (c, e))),
+                gain=t(rng.uniform(0.3, 0.9, (c,))))
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+@pytest.mark.parametrize("unit", [
+    "encoder_0_0", "encoder_1_0",
+    *(pytest.param(ck, id=f"C{ck[0]}K{ck[1]}")
+      for ck in sorted(pallas_convnext.KERNEL_SHAPES))])
+def test_convnext_f32_3xtf32_keeps_float32_accuracy(flagship_units, unit,
+                                                    rounding):
+    """Why K1's float32 mode runs its products as three TF32 passes: an
+    emulation of 3xTF32 (either rounding of big) stays within 1e-5 of the
+    plain output's largest entry (about 1e-6 in fact), the bar the card
+    holds the kernel to, on the flagship's units (seeded 2 x 64 x 64
+    inputs) and the card tests' seeded weights at every kernel shape (a
+    3 x 100 x 300 input); one TF32 pass misses the card's 1e-3 bar on the
+    flagship's units."""
+    if isinstance(unit, str):
+        wts, slope = flagship_units[unit]
+        c = wts["w2"].shape[1]
+        shape = (2, 64, 64, c)
+    else:
+        wts, slope = _seeded_unit(*unit), 0.1
+        shape = (3, 100, 300, unit[0])
+    x = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, shape).astype(np.float32))
+    ref = pallas_convnext.convnext_block_plain(x, slope=slope, **wts)
+    bar = 1e-5 * float(ref.abs().max())
+    three = _unit_tf32(x, slope=slope, passes=3, rounding=rounding, **wts)
+    assert float((three - ref).abs().max()) <= bar
+    if isinstance(unit, str):
+        one = _unit_tf32(x, slope=slope, passes=1, rounding=rounding, **wts)
+        assert float((one - ref).abs().max()) > 1e-3
 
 
 def test_kernel_modules_import_without_nvcc_or_triton():
@@ -547,6 +662,29 @@ def test_noise_bound_counts_the_work():
     # no noise at all: bytes only
     ms, by, parts = cs.noise_bound_ms(1000, [0, 0])
     assert by == "bytes" and parts["integer"] == parts["mufu"] == 0
+
+
+@pytest.mark.parametrize("row", [
+    (8, 256, 32, 3, 0.13572), (8, 128, 64, 5, 0.13597),
+    (8, 256, 32, 1, 0.13171), (8, 128, 64, 1, 0.12996)])
+def test_convnext_f32_bound_counts_three_tf32_passes(row):
+    """K1's float32 bound: three TF32 passes of the products (4·C·E
+    operations a pixel) over 495 TFLOP/s, which sets it at the four f32
+    rows (0.0521 ms: the same products at 8×256²×32 and 8×128²×64); with
+    ``cuda_cores`` every operation over 67 TFLOP/s, the bound the rows
+    had before the products moved to the tensor cores."""
+    cs = _chip_smoke()
+    b, hw, c, k, cuda_cores_ms = row
+    ms, by = cs.convnext_bound_ms(b, hw, hw, c, k, torch.float32)
+    assert by == "operations"
+    assert ms == pytest.approx(3 * b * hw * hw * 16 * c * c / 495e12 * 1e3)
+    assert ms == pytest.approx(0.052060, rel=1e-4)
+    old, _ = cs.convnext_bound_ms(b, hw, hw, c, k, torch.float32,
+                                  cuda_cores=True)
+    assert old == pytest.approx(cuda_cores_ms, rel=1e-4)
+    # the bf16 and int8 bounds do not take the float32 branch
+    assert cs.convnext_bound_ms(b, hw, hw, c, k, torch.bfloat16) == \
+        cs.convnext_bound_ms(b, hw, hw, c, k, torch.bfloat16, cuda_cores=True)
 
 
 def test_cold_copies_move_twice_the_l2():
