@@ -107,6 +107,31 @@
 //   every warp has done its depthwise, overlapping the products: 6,912 +
 //   69,120 + 131,072 = 207,104 B, one block of 8 warps. (64,1) has two tiles
 //   of 36,864 B (205,568 B). No atomics: the same inputs give the same bits.
+//
+// C = 128 (the level-2 units of unet_laplacian_v3 / v4, the fused level 2
+// of a depth-4 unet_laplacian_v6): W2 and W3 (272,384 B in bf16, 524,288 B
+// in f32) do not fit beside a tile, so they are not staged once per block
+// but stream through two weight buffers of ECH = 32 of the E channels (W2's
+// rows, W3's matching columns; 18,944 B in bf16, 32,768 B in f32). At chunk
+// c of a tile one barrier covers both "chunk c has landed" and "every warp
+// is past chunk c - 1", and the copies of chunk c + 1 (after the last, the
+// next tile's chunk 0) go to the buffer c - 1 used. Every mode takes 8 x 16
+// tiles with 256 threads, one m16 tile a warp and one block an SM: bf16
+// (128,5) 13,824 B depthwise, LN and gain + 2 x 61,440 B swizzled tiles +
+// 2 x 18,944 B weight buffers + 34,816 B t = 209,408 B (int8 178,688 B,
+// one tile and the 30,720 B of codes); f32 (128,5) one 130,560 B tile +
+// 2 x 32,768 B = 209,920 B, refilled from the first chunk on; (128,1) two
+// tiles. bf16 and int8: a warp's A fragments of t (32 registers) and its
+// projection accumulators (64) stay in registers across the 16 chunks.
+// f32: the chunks are staged in a fragment order a 16-byte cp.async can
+// copy (pair_index: a lane's B operands of two k-steps of one n8 tile are
+// four neighbouring channels of a row), t (64 registers) and the
+// accumulators (64) stay in registers, the residual x is read back from
+// device memory, and a chunk's two 16-channel steps are not unrolled into
+// each other (two unrolled spilled 28-40 bytes at 255 registers). At
+// C = 128 the unit does 512 operations a byte of bf16 I/O, above the card's
+// ridge: it is bound by its products, which mma.sync runs at about 2/3 of
+// the tensor cores' dense rate.
 #include <limits.h>
 
 #include <type_traits>
@@ -134,7 +159,13 @@ struct Cfg {
   // them in 3xTF32
   static constexpr bool kMma = std::is_same<S, bf16>::value;
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  static constexpr int TH = 8, TW = kMma ? 32 : 16;
+  // C = 128: W2 and W3 (272,384 B in bf16, 524,288 B in f32) do not fit
+  // beside a tile, so they stream through two buffers of ECH of the E
+  // channels each (W2's rows, W3's columns), the copies of chunk n+1 in
+  // flight while chunk n is multiplied
+  static constexpr bool kStream = C == 128;
+  static constexpr int ECH = 32, NCH = E / ECH;
+  static constexpr int TH = 8, TW = kMma && !kStream ? 32 : 16;
   static constexpr int P = TH * TW;          // pixels per tile
   // threads per block (f32: a warp per tile row), and the blocks per SM
   // the registers are capped for
@@ -144,24 +175,38 @@ struct Cfg {
   // group (8 channels) of R neighbouring output pixels of one row
   static constexpr int R = 4, CG = C / 8;
   // E channels per step of the products: their expansion accumulators are
-  // EC/2 registers, and at C = 64 (512 threads) a thread has 128 in all
-  static constexpr int EC = C == 64 ? 32 : 64;
+  // EC/2 registers, and at C = 64 (512 threads) a thread has 128 in all;
+  // at C = 128 a step is one streamed chunk
+  static constexpr int EC = C >= 64 ? 32 : 64;
   // f32: E channels per step of the products: their expansion accumulators
   // are EF/2 registers, and at C = 32 (two blocks per SM) a thread has 128
-  static constexpr int EF = C == 64 ? 32 : 16;
+  static constexpr int EF = C == 32 ? 16 : 32;
+  static_assert(!kStream || (EC == ECH && EF == ECH && E % ECH == 0),
+                "a step of the products is one streamed chunk");
   static constexpr int RUNS_W = TW / R, ITEMS = TH * RUNS_W * CG;
   static constexpr int IH = TH + 2 * PAD, IW = TW + 2 * PAD;
   static constexpr int V = 16 / sizeof(S);   // tile elements per 16 bytes
   static constexpr int VIO = 16 / sizeof(T); // I/O elements per 16 bytes
-  // input tile: unpadded and swizzled at C = 64 on the bf16 path, else
+  // input tile: unpadded and swizzled at C >= 64 on the bf16 path, else
   // pixel rows padded by 8 elements (16 bytes in bf16, 32 in f32); either
   // way the warp's accesses below are free of shared-memory bank conflicts
-  static constexpr bool kSwizzle = kMma && C == 64;
+  static constexpr bool kSwizzle = kMma && C >= 64;
   static constexpr int LDX = kSwizzle ? C : C + 8;
   static constexpr int LDT = C + 8;          // bf16 t / output tile rows
-  static constexpr int LDW2 = C + 8;         // bf16 W2 [E][C] rows
-  static constexpr int LDW3 = E + 8;         // bf16 W3 [C][E] rows
+  // E channels of W2 and W3 held in one weight buffer: all, or one chunk
+  static constexpr int EW = kStream ? ECH : E;
+  static constexpr int LDW2 = C + 8;         // bf16 W2 [EW][C] rows
+  static constexpr int LDW3 = EW + 8;        // bf16 W3 [C][EW] rows
   static constexpr size_t XBUF = sizeof(S) * IH * IW * LDX;
+  // bf16/int8: W2 bf16 [EW][LDW2], then W3 bf16 [C][LDW3]
+  // f32:       W2 and W3 f32 in fragment order, EW*C each (see the
+  //            staging in the kernel and load_chunk_async)
+  static constexpr size_t W2_BYTES =
+      align16(kMma ? 2 * EW * LDW2 : 4 * EW * C);
+  static constexpr size_t W3_BYTES =
+      align16(kMma ? 2 * C * LDW3 : 4 * EW * C);
+  static constexpr size_t WBUF = W2_BYTES + W3_BYTES;
+  static constexpr int NWBUF = kStream ? 2 : 1;
   // shared-memory layout (bytes)
   // depthwise weights: f32 [K*K][C]; for the bf16 tile [K*K][2][CG][4],
   // channel c at [c % 8 / 4][c / 8][c % 4], so that a warp's 16-byte reads
@@ -172,20 +217,17 @@ struct Cfg {
   static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
   // tile buffers: bf16 I/O prefetches into a second tile, int8 I/O into a
   // staging buffer of raw codes [IH*IW][C], f32 I/O into a second tile
-  // where two fit beside the f32 weights (all but (64, 5))
+  // where two fit beside the f32 weights (all but (64, 5) and (128, 5))
   static constexpr int NXBUF =
-      kInt8 ? 1 : kMma || OFF_X + 2 * XBUF + 8 * E * C <= kMaxSmem ? 2 : 1;
+      kInt8 ? 1
+      : kMma || OFF_X + 2 * XBUF + NWBUF * WBUF <= kMaxSmem ? 2 : 1;
   static constexpr size_t OFF_STAGE = align16(OFF_X + NXBUF * XBUF);
+  // the weight buffers, then the bf16 t/out tile [P][LDT] (int8 output
+  // rows are staged in the same rows)
   static constexpr size_t OFF_W2 =
       align16(OFF_STAGE + (kInt8 ? IH * IW * C : 0));
-  // bf16/int8: W2 bf16 [E][LDW2], W3 bf16 [C][LDW3], t/out tile bf16
-  //            [P][LDT] (int8 output rows are staged in the same rows)
-  // f32:       W2 and W3 f32 in fragment order, E*C each (see the
-  //            staging in the kernel)
-  static constexpr size_t OFF_W3 =
-      align16(OFF_W2 + (kMma ? 2 * E * LDW2 : 4 * E * C));
-  static constexpr size_t OFF_T =
-      align16(OFF_W3 + (kMma ? 2 * C * LDW3 : 4 * E * C));
+  static constexpr size_t OFF_W3 = OFF_W2 + W2_BYTES;
+  static constexpr size_t OFF_T = OFF_W2 + NWBUF * WBUF;
   static constexpr size_t SMEM = OFF_T + (kMma ? 2 * P * LDT : 0);
   static_assert(XBUF % 16 == 0, "tile buffers keep 16-byte alignment");
   static_assert(SMEM <= kMaxSmem, "one block's shared memory fits");
@@ -421,113 +463,200 @@ __device__ __forceinline__ void depthwise_layernorm(
   }
 }
 
-// Both 1x1 products on the tensor cores, 16 pixels (one m16 tile of t rows)
-// per warp and step; then out = x + gain * p into the warp's own rows of
-// the t tile (int8: requantized, C bytes at the start of each row) and from
-// there to device memory with 16-byte stores.
+// One step of both 1x1 products on the tensor cores for one m16 tile of t
+// rows (A fragments af): the expansion of EC of the E channels, whose
+// accumulators, leaky-ReLU'd and rounded to bf16, are the projection's A
+// fragments in registers, then that step's share of the projection into
+// pacc. w2 / w3: this lane's ldmatrix row addresses at the step's first E
+// row of W2 and first E column of W3.
+template <typename G>
+__device__ __forceinline__ void expand_project(
+    const uint32_t (&af)[G::C / 16][4], float (&pacc)[G::C / 8][4],
+    uint32_t w2, uint32_t w3, float slope) {
+  constexpr int C = G::C;
+  float hacc[G::EC / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < G::EC / 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hacc[nt][i] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < C / 16; kt += 2) {
+      uint32_t b[4];  // B fragments of two k16 steps
+      ldmatrix_x4(b, w2 + 2 * (nt * 8 * G::LDW2 + kt * 16));
+      mma_bf16(hacc[nt], af[kt], b[0], b[1]);
+      mma_bf16(hacc[nt], af[kt + 1], b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < G::EC / 16; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(leaky(hacc[2 * kk][0], slope),
+                     leaky(hacc[2 * kk][1], slope));
+    a[1] = pack_bf16(leaky(hacc[2 * kk][2], slope),
+                     leaky(hacc[2 * kk][3], slope));
+    a[2] = pack_bf16(leaky(hacc[2 * kk + 1][0], slope),
+                     leaky(hacc[2 * kk + 1][1], slope));
+    a[3] = pack_bf16(leaky(hacc[2 * kk + 1][2], slope),
+                     leaky(hacc[2 * kk + 1][3], slope));
+#pragma unroll
+    for (int nt = 0; nt < C / 8; nt += 2) {
+      uint32_t b[4];  // B fragments of two n8 groups
+      ldmatrix_x4(b, w3 + 2 * (nt * 8 * G::LDW3 + kk * 16));
+      mma_bf16(pacc[nt], a, b[0], b[1]);
+      mma_bf16(pacc[nt + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// out = x + gain * p for the warp's m16 tile at pixel m0 of the tile, from
+// the projection's accumulators, into the warp's own rows of the t tile
+// (int8: requantized, C bytes at the start of each row) and from there to
+// device memory with 16-byte stores.
+template <typename G, typename T>
+__device__ __forceinline__ void store_tile_rows(
+    const bf16* __restrict__ xs, bf16* __restrict__ ts,
+    const float (&pacc)[G::C / 8][4], const float* __restrict__ gns,
+    T* __restrict__ out, Tile t, int H, int W, float inv_out, int m0,
+    int lane) {
+  constexpr int C = G::C;
+  const int g = lane >> 2, q = lane & 3;
+  __syncwarp();  // every lane has its A fragments: the rows may change
+#pragma unroll
+  for (int nt = 0; nt < C / 8; ++nt) {
+    const int c = nt * 8 + 2 * q;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int m = m0 + g + 8 * hf;
+      const int ly = m / G::TW, lx = m % G::TW;
+      const bf16* xr = xs + (ly + G::PAD) * G::IW * G::LDX +
+                       G::xoff(lx + G::PAD, nt) + 2 * q;
+      const float o0 = __fadd_rn(bid::to_float(xr[0]),
+                                 __fmul_rn(gns[c], pacc[nt][2 * hf]));
+      const float o1 = __fadd_rn(bid::to_float(xr[1]),
+                                 __fmul_rn(gns[c + 1], pacc[nt][2 * hf + 1]));
+      if constexpr (G::kInt8) {
+        char2 qv;
+        qv.x = quant_int8(o0, inv_out);
+        qv.y = quant_int8(o1, inv_out);
+        *reinterpret_cast<char2*>(
+            reinterpret_cast<signed char*>(ts + m * G::LDT) + c) = qv;
+      } else {
+        *reinterpret_cast<uint32_t*>(ts + m * G::LDT + c) = pack_bf16(o0, o1);
+      }
+    }
+  }
+  __syncwarp();
+  constexpr int OV = C / G::VIO;  // 16-byte stores per pixel
+  for (int i = lane; i < 16 * OV; i += 32) {
+    const int m = m0 + i / OV, cv = i % OV;
+    const int gy = t.y0 + m / G::TW, gx = t.x0 + m % G::TW;
+    if (gy < H && gx < W)
+      *reinterpret_cast<uint4*>(out + ((t.b * H + gy) * W + gx) * C +
+                                cv * G::VIO) =
+          *reinterpret_cast<const uint4*>(
+              reinterpret_cast<const unsigned char*>(ts + m * G::LDT) +
+              cv * 16);
+  }
+}
+
+// this lane's ldmatrix row addresses (matrix lane / 8, row lane % 8):
+// A of t rows: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) of a k16 step;
+// B of W2 [EW][C]: one n8 group of rows, k 0-7 | 8-15 | 16-23 | 24-31;
+// B of W3 [C][EW]: n8 groups (nt | nt + 1) x (k 0-7 | 8-15) of a k16 step
+template <typename G>
+struct LaneRows {
+  uint32_t a, w2, w3;
+  __device__ __forceinline__ LaneRows(const bf16* ts, const bf16* w2s,
+                                      const bf16* w3s, int lane) {
+    const int lr = lane & 7, lm = lane >> 3;
+    a = shared_address(ts + (lr + (lm & 1) * 8) * G::LDT + (lm >> 1) * 8);
+    w2 = shared_address(w2s + lr * G::LDW2 + lm * 8);
+    w3 = shared_address(w3s + ((lm >> 1) * 8 + lr) * G::LDW3 + (lm & 1) * 8);
+  }
+};
+
+// the A fragments of the m16 tile at pixel m0 of the t tile
+template <typename G>
+__device__ __forceinline__ void load_a(uint32_t (&af)[G::C / 16][4],
+                                       uint32_t a_lane, int m0) {
+#pragma unroll
+  for (int kt = 0; kt < G::C / 16; ++kt)
+    ldmatrix_x4(af[kt], a_lane + 2 * (m0 * G::LDT + kt * 16));
+}
+
+// Both 1x1 products on the tensor cores with W2 and W3 resident, 16 pixels
+// (one m16 tile of t rows) per warp and step, then the epilogue.
 template <typename G, typename T>
 __device__ __forceinline__ void products_store(
     const bf16* __restrict__ xs, bf16* __restrict__ ts,
     const bf16* __restrict__ w2s, const bf16* __restrict__ w3s,
     const float* __restrict__ gns, T* __restrict__ out, Tile t, int H, int W,
     float slope, float inv_out, int tid) {
-  constexpr int C = G::C, E = G::E;
   const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  // this lane's row addresses for ldmatrix (matrix lane / 8, row lane % 8):
-  // A of t rows: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) of a k16 step;
-  // B of W2 [E][C]: one n8 group of rows, k 0-7 | 8-15 | 16-23 | 24-31;
-  // B of W3 [C][E]: n8 groups (nt | nt + 1) x (k 0-7 | 8-15) of a k16 step
-  const int lr = lane & 7, lm = lane >> 3;
-  const uint32_t a_lane = shared_address(
-      ts + (lr + (lm & 1) * 8) * G::LDT + (lm >> 1) * 8);
-  const uint32_t w2_lane = shared_address(w2s + lr * G::LDW2 + lm * 8);
-  const uint32_t w3_lane = shared_address(
-      w3s + ((lm >> 1) * 8 + lr) * G::LDW3 + (lm & 1) * 8);
+  const LaneRows<G> rows(ts, w2s, w3s, lane);
   for (int mt = warp; mt < G::P / 16; mt += G::NT / 32) {
     const int m0 = mt * 16;
-    uint32_t af[C / 16][4];
+    uint32_t af[G::C / 16][4];
+    load_a<G>(af, rows.a, m0);
+    float pacc[G::C / 8][4];
 #pragma unroll
-    for (int kt = 0; kt < C / 16; ++kt)
-      ldmatrix_x4(af[kt], a_lane + 2 * (m0 * G::LDT + kt * 16));
-    float pacc[C / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < C / 8; ++nt)
+    for (int nt = 0; nt < G::C / 8; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
 #pragma unroll 1
-    for (int ec = 0; ec < E; ec += G::EC) {
-      float hacc[G::EC / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < G::EC / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) hacc[nt][i] = 0.f;
-#pragma unroll
-        for (int kt = 0; kt < C / 16; kt += 2) {
-          uint32_t b[4];  // B fragments of two k16 steps
-          ldmatrix_x4(b, w2_lane + 2 * ((ec + nt * 8) * G::LDW2 + kt * 16));
-          mma_bf16(hacc[nt], af[kt], b[0], b[1]);
-          mma_bf16(hacc[nt], af[kt + 1], b[2], b[3]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < G::EC / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = pack_bf16(leaky(hacc[2 * kk][0], slope),
-                         leaky(hacc[2 * kk][1], slope));
-        a[1] = pack_bf16(leaky(hacc[2 * kk][2], slope),
-                         leaky(hacc[2 * kk][3], slope));
-        a[2] = pack_bf16(leaky(hacc[2 * kk + 1][0], slope),
-                         leaky(hacc[2 * kk + 1][1], slope));
-        a[3] = pack_bf16(leaky(hacc[2 * kk + 1][2], slope),
-                         leaky(hacc[2 * kk + 1][3], slope));
-#pragma unroll
-        for (int nt = 0; nt < C / 8; nt += 2) {
-          uint32_t b[4];  // B fragments of two n8 groups
-          ldmatrix_x4(b, w3_lane + 2 * (nt * 8 * G::LDW3 + ec + kk * 16));
-          mma_bf16(pacc[nt], a, b[0], b[1]);
-          mma_bf16(pacc[nt + 1], a, b[2], b[3]);
-        }
-      }
+    for (int ec = 0; ec < G::E; ec += G::EC)
+      expand_project<G>(af, pacc, rows.w2 + 2 * ec * G::LDW2,
+                        rows.w3 + 2 * ec, slope);
+    store_tile_rows<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out, m0, lane);
+  }
+}
+
+// permutation of the 16 columns of an m16n8k8 n8 tile pair (2j + s, the
+// n index n) that makes a lane's B operands of two k-steps one 16-byte
+// vector of W2's or W3's rows (the f32 chunk layout below)
+__device__ __forceinline__ int pair_index(int tile, int n) {
+  return 16 * (tile >> 1) + 4 * (n >> 1) + 2 * (tile & 1) + (n & 1);
+}
+
+// Start the copies of E chunk `chunk` of W2 (its ECH rows) and W3 (its ECH
+// columns) into the weight buffer at `dst`. bf16: W2 [ECH][LDW2], W3
+// [C][LDW3], rows as in device memory. f32, in fragment order, one 16-byte
+// vector per lane (g = lane / 4, q = lane % 4): W2 vector (n, i) holds
+// channels 16i + 4q .. + 3 of E row pair_index(n, g), the B operands of
+// the expansion's k-steps 2i, 2i + 1 for its n8 tile n; W3 vector (m, o)
+// holds E 16m + 4q .. + 3 of output channel pair_index(o, g), the B
+// operands of the projection's k-steps 2m, 2m + 1 for its n8 tile o.
+template <typename G>
+__device__ __forceinline__ void load_chunk_async(
+    const typename G::S* __restrict__ w2, const typename G::S* __restrict__ w3,
+    unsigned char* dst, int chunk, int tid) {
+  constexpr int C = G::C, E = G::E, ECH = G::ECH;
+  const int e0 = chunk * ECH;
+  const uint32_t d2 = shared_address(dst);
+  const uint32_t d3 = d2 + (uint32_t)G::W2_BYTES;
+  if constexpr (G::kMma) {
+    for (int i = tid; i < ECH * C / 8; i += G::NT) {
+      const int r = i / (C / 8), p = i % (C / 8);
+      cp_async_16(d2 + 2 * (r * G::LDW2 + p * 8), w2 + (e0 + r) * C + p * 8,
+                  true);
     }
-    __syncwarp();  // every lane has its A fragments: the rows may change
-#pragma unroll
-    for (int nt = 0; nt < C / 8; ++nt) {
-      const int c = nt * 8 + 2 * q;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int m = m0 + g + 8 * hf;
-        const int ly = m / G::TW, lx = m % G::TW;
-        const bf16* xr = xs + (ly + G::PAD) * G::IW * G::LDX +
-                         G::xoff(lx + G::PAD, nt) + 2 * q;
-        const float o0 = __fadd_rn(bid::to_float(xr[0]),
-                                   __fmul_rn(gns[c], pacc[nt][2 * hf]));
-        const float o1 = __fadd_rn(bid::to_float(xr[1]),
-                                   __fmul_rn(gns[c + 1], pacc[nt][2 * hf + 1]));
-        if constexpr (G::kInt8) {
-          char2 qv;
-          qv.x = quant_int8(o0, inv_out);
-          qv.y = quant_int8(o1, inv_out);
-          *reinterpret_cast<char2*>(
-              reinterpret_cast<signed char*>(ts + m * G::LDT) + c) = qv;
-        } else {
-          *reinterpret_cast<uint32_t*>(ts + m * G::LDT + c) = pack_bf16(o0, o1);
-        }
-      }
+    for (int i = tid; i < C * ECH / 8; i += G::NT) {
+      const int r = i / (ECH / 8), p = i % (ECH / 8);
+      cp_async_16(d3 + 2 * (r * G::LDW3 + p * 8), w3 + r * E + e0 + p * 8,
+                  true);
     }
-    __syncwarp();
-    constexpr int OV = C / G::VIO;  // 16-byte stores per pixel
-    for (int i = lane; i < 16 * OV; i += 32) {
-      const int m = m0 + i / OV, cv = i % OV;
-      const int gy = t.y0 + m / G::TW, gx = t.x0 + m % G::TW;
-      if (gy < H && gx < W)
-        *reinterpret_cast<uint4*>(out + ((t.b * H + gy) * W + gx) * C +
-                                  cv * G::VIO) =
-            *reinterpret_cast<const uint4*>(
-                reinterpret_cast<const unsigned char*>(ts + m * G::LDT) +
-                cv * 16);
+  } else {
+    for (int i = tid; i < ECH * C / 4; i += G::NT) {
+      const int lane = i & 31, g = lane >> 2, q = lane & 3, rest = i >> 5;
+      const int n = rest / (C / 16), ii = rest % (C / 16);
+      cp_async_16(d2 + 16 * i,
+                  w2 + (e0 + pair_index(n, g)) * C + 16 * ii + 4 * q, true);
+      const int m = rest / (C / 8), o = rest % (C / 8);
+      cp_async_16(d3 + 16 * i,
+                  w3 + pair_index(o, g) * E + e0 + 16 * m + 4 * q, true);
     }
   }
+  cp_async_commit();
 }
 
 // D += A B for one m16n8k8 tile on TF32 operands: A row-major (4 regs), B
@@ -579,6 +708,87 @@ __device__ __forceinline__ void mma_3xtf32_pair(float (&d0)[4], float (&d1)[4],
   mma_tf32(d1, ab, bs[2], bs[3]);
   mma_tf32(d0, ab, bb[0], bb[1]);
   mma_tf32(d1, ab, bb[2], bb[3]);
+}
+
+// One n8 tile of a 3xTF32 product over two k-steps: d += A0 B0 + A1 B1
+// with A0 split into ab0, as0 and A1 into ab1, as1, and the B fragments of
+// both k-steps in one 16-byte vector from shared memory (b0, b1 of k-step
+// 0, then of k-step 1). small.big and big.small go before big.big.
+__device__ __forceinline__ void mma_3xtf32_ksteps(
+    float (&d)[4], const uint32_t (&ab0)[4], const uint32_t (&as0)[4],
+    const uint32_t (&ab1)[4], const uint32_t (&as1)[4], float4 b) {
+  uint32_t bb[4], bs[4];
+  split_tf32(b.x, bb[0], bs[0]);
+  split_tf32(b.y, bb[1], bs[1]);
+  split_tf32(b.z, bb[2], bs[2]);
+  split_tf32(b.w, bb[3], bs[3]);
+  mma_tf32(d, as0, bb[0], bb[1]);
+  mma_tf32(d, ab0, bs[0], bs[1]);
+  mma_tf32(d, as1, bb[2], bb[3]);
+  mma_tf32(d, ab1, bs[2], bs[3]);
+  mma_tf32(d, ab0, bb[0], bb[1]);
+  mma_tf32(d, ab1, bb[2], bb[3]);
+}
+
+// split four f32 values into the A fragment (big, small) of an m16n8k8 tile
+__device__ __forceinline__ void split_a(float a0, float a1, float a2,
+                                        float a3, uint32_t (&ab)[4],
+                                        uint32_t (&as)[4]) {
+  split_tf32_rn(a0, ab[0], as[0]);
+  split_tf32_rn(a1, ab[1], as[1]);
+  split_tf32_rn(a2, ab[2], as[2]);
+  split_tf32_rn(a3, ab[3], as[3]);
+}
+
+// f32 I/O with streamed weights (C = 128): one E chunk of both products
+// for the warp's 16 pixels in 3xTF32 from t in registers, the chunk's W2
+// and W3 in the fragment order of load_chunk_async, 16 E channels (two
+// n8 tiles of the expansion, one k-step pair of the projection) a step:
+// t and the projection's accumulators hold 128 registers, so the steps
+// are not unrolled into each other. The expansion's n8 tile n holds E
+// channels pair_index(n, 2q), + 1 of the chunk in its accumulators d0,
+// d1 (row g) and d2, d3 (row g + 8); as d0, d2, d1, d3 those of tiles 2m
+// and 2m + 1 are the A fragments of the projection's k-steps 2m and
+// 2m + 1, whose E channels 16m + 4q .. + 3 are the lane's W3 vector. The
+// projection's n8 tile o holds output channels pair_index(o, 2q), + 1:
+// tiles 2i and 2i + 1 are channels 16i + 4q .. + 3.
+template <typename G>
+__device__ __forceinline__ void expand_project_f32(
+    const float (&tv)[2][G::C / 4], float (&pacc)[G::C / 8][4],
+    const float4* __restrict__ w2c, const float4* __restrict__ w3c,
+    float slope, int lane) {
+  constexpr int C = G::C, ECH = G::ECH;
+#pragma unroll 1
+  for (int m = 0; m < ECH / 16; ++m) {
+    float hacc[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) hacc[n][r] = 0.f;
+    // expansion: k-steps 2i and 2i + 1 are channels 16i + 4q + {0, 1} and
+    // + {2, 3} of rows g (pixel 2g) and g + 8 (pixel 2g + 1)
+#pragma unroll
+    for (int i = 0; i < C / 16; ++i) {
+      uint32_t ab0[4], as0[4], ab1[4], as1[4];
+      split_a(tv[0][4 * i], tv[1][4 * i], tv[0][4 * i + 1],
+              tv[1][4 * i + 1], ab0, as0);
+      split_a(tv[0][4 * i + 2], tv[1][4 * i + 2], tv[0][4 * i + 3],
+              tv[1][4 * i + 3], ab1, as1);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        mma_3xtf32_ksteps(hacc[n], ab0, as0, ab1, as1,
+                          w2c[((2 * m + n) * (C / 16) + i) * 32 + lane]);
+    }
+    uint32_t ab0[4], as0[4], ab1[4], as1[4];
+    split_a(leaky(hacc[0][0], slope), leaky(hacc[0][2], slope),
+            leaky(hacc[0][1], slope), leaky(hacc[0][3], slope), ab0, as0);
+    split_a(leaky(hacc[1][0], slope), leaky(hacc[1][2], slope),
+            leaky(hacc[1][1], slope), leaky(hacc[1][3], slope), ab1, as1);
+#pragma unroll
+    for (int o = 0; o < C / 8; ++o)
+      mma_3xtf32_ksteps(pacc[o], ab0, as0, ab1, as1,
+                        w3c[(m * (C / 8) + o) * 32 + lane]);
+  }
 }
 
 // f32 I/O, depthwise KxK + LayerNorm of the warp's tile row ry: lane (g, q)
@@ -665,6 +875,63 @@ __device__ __forceinline__ void depthwise_layernorm_f32(
   }
 }
 
+// f32 I/O: out = x + gain * p of the warp's 16 pixels (tile row ry) from
+// the projection's accumulators: n8 tiles 2i and 2i + 1 hold channels
+// 16i + 4q + {0, 1} and + {2, 3} of rows g (accumulators 0, 1; pixel 2g)
+// and g + 8 (2, 3; pixel 2g + 1). x is the lane's registers xc, or at
+// C = 128 read back from device memory.
+template <typename G>
+__device__ __forceinline__ void store_row_f32(
+    const float (&pacc)[G::C / 8][4], const float (&xc)[2][G::C / 4],
+    const float* __restrict__ x, const float* __restrict__ gns,
+    float* __restrict__ out, Tile t, int ry, int H, int W, int lane) {
+  constexpr int C = G::C;
+  const int g = lane >> 2, q = lane & 3;
+  const int gy = t.y0 + ry;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int gx = t.x0 + 2 * g + p;
+    if (gy < H && gx < W) {
+      const long long base = ((t.b * H + gy) * W + gx) * C;
+#pragma unroll
+      for (int i = 0; i < C / 16; ++i) {
+        const int c = 16 * i + 4 * q;
+        const float4 gn = *reinterpret_cast<const float4*>(gns + c);
+        float4 xv;
+        if constexpr (G::kStream) {
+          xv = __ldg(reinterpret_cast<const float4*>(x + base + c));
+        } else {
+          const float* v = xc[p] + 4 * i;
+          xv = make_float4(v[0], v[1], v[2], v[3]);
+        }
+        float4 o;
+        o.x = __fadd_rn(xv.x, __fmul_rn(gn.x, pacc[2 * i][2 * p]));
+        o.y = __fadd_rn(xv.y, __fmul_rn(gn.y, pacc[2 * i][2 * p + 1]));
+        o.z = __fadd_rn(xv.z, __fmul_rn(gn.z, pacc[2 * i + 1][2 * p]));
+        o.w = __fadd_rn(xv.w, __fmul_rn(gn.w, pacc[2 * i + 1][2 * p + 1]));
+        *reinterpret_cast<float4*>(out + base + c) = o;
+      }
+    }
+  }
+}
+
+// C = 128: the products of a tile walk the E chunks. At chunk c: wait for
+// this thread's copies of it, a barrier (every thread's have landed and
+// every warp is past chunk c - 1), then start the copies of chunk c + 1
+// (after the last chunk, of the next tile's chunk 0 if `more`) into the
+// buffer chunk c - 1 used. Chunk c is in buffer c % 2.
+template <typename G>
+__device__ __forceinline__ void await_chunk(
+    const typename G::S* __restrict__ w2, const typename G::S* __restrict__ w3,
+    unsigned char* ring, int c, bool more, int tid) {
+  cp_async_wait_all();
+  __syncthreads();
+  if (c + 1 < G::NCH)
+    load_chunk_async<G>(w2, w3, ring + ((c + 1) & 1) * G::WBUF, c + 1, tid);
+  else if (more)
+    load_chunk_async<G>(w2, w3, ring, 0, tid);
+}
+
 // f32 I/O: both 1x1 products of the warp's 16 pixels in 3xTF32 from t in
 // registers, EF of the E channels a step, then out = x + gain * p stored
 // from the projection's accumulators. w2f and w3f are W2 and W3 in
@@ -719,29 +986,7 @@ __device__ __forceinline__ void products_store_f32(
                         w3f[((ec / 8 + n) * (C / 16) + i) * 32 + lane]);
     }
   }
-  // n8 tiles 2i and 2i + 1 hold channels 16i + 4q + {0, 1} and + {2, 3} of
-  // rows g (accumulators 0, 1) and g + 8 (2, 3)
-  const int g = lane >> 2, q = lane & 3;
-  const int gy = t.y0 + ry;
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const int gx = t.x0 + 2 * g + p;
-    if (gy < H && gx < W) {
-      float* orow = out + ((t.b * H + gy) * W + gx) * C;
-#pragma unroll
-      for (int i = 0; i < C / 16; ++i) {
-        const int c = 16 * i + 4 * q;
-        const float4 gn = *reinterpret_cast<const float4*>(gns + c);
-        const float* xv = xc[p] + 4 * i;
-        float4 o;
-        o.x = __fadd_rn(xv[0], __fmul_rn(gn.x, pacc[2 * i][2 * p]));
-        o.y = __fadd_rn(xv[1], __fmul_rn(gn.y, pacc[2 * i][2 * p + 1]));
-        o.z = __fadd_rn(xv[2], __fmul_rn(gn.z, pacc[2 * i + 1][2 * p]));
-        o.w = __fadd_rn(xv[3], __fmul_rn(gn.w, pacc[2 * i + 1][2 * p + 1]));
-        *reinterpret_cast<float4*>(orow + c) = o;
-      }
-    }
-  }
+  store_row_f32<G>(pacc, xc, nullptr, gns, out, t, ry, H, W, lane);
 }
 
 template <typename T, int C, int K>
@@ -779,6 +1024,10 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
   };
   int tile = blockIdx.x;  // the grid is no larger than ntiles
   load_tile_async<G>(x, landing(buf), tile_at(tile), H, W, tid);
+  // C = 128: chunk c of W2 and W3 lands in weight buffer c % 2; the first
+  // tile's chunk 0 follows its input
+  unsigned char* const ring = smem + G::OFF_W2;
+  if constexpr (G::kStream) load_chunk_async<G>(w2, w3, ring, 0, tid);
 
   // ---- weights, once per block, while the first tile is on its way
   for (int i = tid; i < C * K * K; i += NT) {
@@ -792,7 +1041,9 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
     lns[c] = ln[c];
     gns[c] = gain[c];
   }
-  if constexpr (G::kMma) {
+  if constexpr (G::kStream) {
+    // W2 and W3 stream through the ring with each tile's products
+  } else if constexpr (G::kMma) {
     for (int i = tid; i < E * C / 8; i += NT) {
       const int e = i / (C / 8), c8 = i % (C / 8);
       *reinterpret_cast<uint4*>(w2s + e * G::LDW2 + c8 * 8) =
@@ -829,6 +1080,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
     }
   }
 
+  const int warp = tid >> 5, lane = tid & 31;
   for (; tile < ntiles; tile += gridDim.x) {
     const Tile t = tile_at(tile);
     const int next = tile + gridDim.x;
@@ -850,8 +1102,30 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
       bf16* ts = reinterpret_cast<bf16*>(smem + G::OFF_T);
       depthwise_layernorm<G>(xs, dws, lns, ts, tid);
       __syncthreads();
-      products_store<G>(xs, ts, w2s, w3s, gns, out, t, H, W, slope, inv_out,
-                        tid);
+      if constexpr (G::kStream) {
+        // one m16 tile a warp, its A fragments and the projection's
+        // accumulators (64 a lane) in registers across the chunks
+        static_assert(G::P / 16 == NT / 32, "one m16 tile a warp");
+        const LaneRows<G> rows(ts, w2s, w3s, lane);
+        uint32_t af[C / 16][4];
+        load_a<G>(af, rows.a, 16 * warp);
+        float pacc[C / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < C / 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
+#pragma unroll 1
+        for (int c = 0; c < G::NCH; ++c) {
+          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid);
+          const uint32_t b = (c & 1) * (uint32_t)G::WBUF;
+          expand_project<G>(af, pacc, rows.w2 + b, rows.w3 + b, slope);
+        }
+        store_tile_rows<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out,
+                              16 * warp, lane);
+      } else {
+        products_store<G>(xs, ts, w2s, w3s, gns, out, t, H, W, slope,
+                          inv_out, tid);
+      }
     } else {
       // f32: the next tile goes to the other buffer where there are two,
       // else into this one once every warp has done its depthwise: the
@@ -861,18 +1135,41 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
         if (next < ntiles)
           load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
       }
-      const int warp = tid >> 5, lane = tid & 31;
       float tv[2][C / 4], xc[2][C / 4];
       depthwise_layernorm_f32<G>(xs, dws, lns, tv, xc, warp, lane);
-      if constexpr (G::NXBUF == 1) {
-        if (next < ntiles) {
-          __syncthreads();  // the only tile buffer is free again
-          load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
+      if constexpr (G::kStream) {
+        // x is read back from device memory for the residual (x stays out
+        // of the registers: t and the accumulators take 128 of them)
+        float pacc[C / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < C / 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
+#pragma unroll 1
+        for (int c = 0; c < G::NCH; ++c) {
+          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid);
+          if constexpr (G::NXBUF == 1) {
+            // past the first chunk's barrier every depthwise is done
+            if (c == 0 && next < ntiles)
+              load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
+          }
+          const float4* wc =
+              reinterpret_cast<const float4*>(ring + (c & 1) * G::WBUF);
+          expand_project_f32<G>(tv, pacc, wc, wc + G::W2_BYTES / 16, slope,
+                                lane);
         }
+        store_row_f32<G>(pacc, xc, x, gns, out, t, warp, H, W, lane);
+      } else {
+        if constexpr (G::NXBUF == 1) {
+          if (next < ntiles) {
+            __syncthreads();  // the only tile buffer is free again
+            load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
+          }
+        }
+        products_store_f32<G>(tv, xc, reinterpret_cast<const float4*>(w2s),
+                              reinterpret_cast<const float4*>(w3s), gns, out,
+                              t, warp, H, W, slope, lane);
       }
-      products_store_f32<G>(tv, xc, reinterpret_cast<const float4*>(w2s),
-                            reinterpret_cast<const float4*>(w3s), gns, out, t,
-                            warp, H, W, slope, lane);
     }
   }
 }
@@ -946,6 +1243,8 @@ int dispatch(const void* x, void* out, const void* dw, const void* ln,
   BID_CASE(32, 5)  // unet_laplacian_v6's level 0 (and v3 / v4 / v5's)
   BID_CASE(64, 1)  // the decoders of unet_laplacian_v3 / v4 / v5, level 1
   BID_CASE(64, 5)  // level 1 of all
+  BID_CASE(128, 1)  // the decoders of unet_laplacian_v3 / v4, level 2
+  BID_CASE(128, 5)  // v3 / v4's level 2; a depth-4 unet_laplacian_v6's
 #undef BID_CASE
   return BID_ERR_UNSUPPORTED;
 }
@@ -974,6 +1273,8 @@ int dispatch_info(int C, int K, int* v) {
   BID_INFO(32, 5)
   BID_INFO(64, 1)
   BID_INFO(64, 5)
+  BID_INFO(128, 1)
+  BID_INFO(128, 5)
 #undef BID_INFO
   return BID_ERR_UNSUPPORTED;
 }

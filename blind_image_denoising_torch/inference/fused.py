@@ -1,7 +1,9 @@
 """Fused int8 serving path for the ``unet_laplacian`` flagship family
 (counterpart of ``blind_image_denoising_tpu/inference/fused.py``).
 
-The ConvNext stages of the fused levels (by default the two finest) run
+The ConvNext stages of the fused levels (by default the two finest; any
+level whose units K1 is built for, e.g. ``fused_levels=(0, 1, 2)`` on a
+depth-4 config, whose level 2 is 128 channels wide) run
 as K1 (``ops/pallas_convnext.convnext_block``) in its int8 I/O mode: the
 stage input is quantized once, the units chain int8 → int8, each unit's
 ``scale_in`` the previous unit's ``scale_out``, and the last output is
@@ -220,22 +222,31 @@ def build_fused_forward(config: Dict, model, scales: Optional[Dict] = None,
     return fwd, _stage_sites(fused_levels, width)
 
 
-def calibrate_fused(config: Dict, model, images,
-                    margin: float = 1.0) -> Dict[str, float]:
+def calibrate_fused(config: Dict, model, images, margin: float = 1.0,
+                    fused_levels: Optional[tuple] = None
+                    ) -> Dict[str, float]:
     """Run representative images one at a time through the bf16 FLOAT
     fused forward, recording each stage site's activation amax; return
     site → int8 scale ``max(margin · amax, 1e-6) / 127``.
 
     ``images``: [N, C, H, W] (the layout ``fwd`` takes) in the model's
     value range; include noisy samples spanning deployment noise
-    levels."""
+    levels. ``fused_levels``: as :func:`build_fused_forward`'s, whose
+    int8 forward needs the sites of every fused level (the JAX function
+    calibrates the default levels only)."""
     rec = _AmaxRecorder()
     fwd, sites = build_fused_forward(config, model, scales=None,
-                                     dtype=torch.bfloat16, _recorder=rec)
+                                     dtype=torch.bfloat16,
+                                     fused_levels=fused_levels,
+                                     _recorder=rec)
     images = torch.as_tensor(images)
     for i in range(images.shape[0]):
         fwd(images[i:i + 1])
-    missing = [s for s in sites if s not in rec.amax]
+    # the deepest level has no decoder stage, whose sites _stage_sites
+    # names all the same when that level is fused
+    deepest = int(config["backbone"].get("depth", 5)) - 1
+    missing = [s for s in sites if s not in rec.amax
+               and not s.startswith(f"decoder_{deepest}_")]
     if missing:
         raise ValueError(f"calibration left sites unrecorded: {missing}")
     scales = {k: max(margin * a, 1e-6) / 127.0 for k, a in rec.amax.items()}

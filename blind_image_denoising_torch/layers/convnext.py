@@ -22,12 +22,18 @@ Which units K1 serves is decided when the unit is built, from the
 kernel's own instantiations and options alone (``kernel_route``): (C,
 K) in ``pallas_convnext.KERNEL_SHAPES`` with E = 4C, as many output as
 input channels, LayerNorm without BatchNorm or biases, the gain, the
-``leaky_relu_01`` expansion and no dropout. Every other unit — the
-C = 128 levels of ``unet_laplacian_v3`` / ``_v4``, a concatenated
-decoder input, BatchNorm, biases, another activation, an even kernel —
-computes ``x + branch(x)`` (or the branch alone when the channels
-change) on every device, as JAX runs every unit in XLA; each such
-forward adds one to ``pallas_convnext.branch_units``. A unit routed to
+``leaky_relu_01`` expansion and no dropout. So every ConvNext unit of
+the packaged unet_laplacian configs launches K1 — the flagship's and
+``unet_laplacian_v6``'s levels 0 and 1, and all three levels of
+``unet_laplacian_v3`` / ``_v4`` (level 2 at C = 128: the encoders'
+(128, 5), the decoders' (128, 1)) and ``_v5`` — and so would level 2 of
+a depth-4 ``unet_laplacian_v6``. Every other unit — a (C, K) the kernel
+is not built for (e.g. (64, 3), (128, 3), C = 256, or any C of a config
+with other filters), a concatenated decoder input, BatchNorm, biases,
+another activation, an even kernel — computes ``x + branch(x)`` (or the
+branch alone when the channels change) on every device, as JAX runs
+every unit in XLA; each such forward adds one to
+``pallas_convnext.branch_units``. A unit routed to
 K1 launches it for a CUDA tensor or raises. While ``torch.export``
 traces the unit (``inference/export.serialize_torch_export``) it calls K1
 as the custom operator ``bidt::convnext_block`` (``ops/export_ops.py``).

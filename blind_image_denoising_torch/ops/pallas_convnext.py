@@ -11,11 +11,14 @@ I/O modes, and of its oracle ``convnext_block_reference``. The packaged
 flagship runs it 10 times per forward: at (C, K) = (32, 3) four times at
 full resolution and (64, 5) six times at half resolution;
 ``unet_laplacian_v6`` runs it at (32, 5) and (64, 5), 12 times, and its
-fused int8 serving path (``inference/fused.py``) runs the int8 mode;
-``unet_laplacian_v3``, ``_v4`` and ``_v5`` run it 12 times, 3 each at
-(32, 5), (64, 5) and their decoders' (64, 1) and (32, 1). At K = 1 the
-halo is empty (PAD = 0) and the depthwise sum is one tap per channel;
-the tile, copy and depthwise code is written in PAD and K, unchanged.
+fused int8 serving path (``inference/fused.py``) runs the int8 mode (18
+times with a depth-4 config and ``fused_levels=(0, 1, 2)``, 6 of them
+at (128, 5)); ``unet_laplacian_v3`` and ``_v4`` run it 18 times, 3 each
+at (32, 5), (64, 5), (128, 5) and their decoders' (128, 1), (64, 1) and
+(32, 1), and ``_v5`` 12 times (its level 2 is its attention level). At
+K = 1 the halo is empty (PAD = 0) and the depthwise sum is one tap per
+channel; the tile, copy and depthwise code is written in PAD and K,
+unchanged.
 
 CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
 2K²C + 16C² operations against 2·C·bytes of I/O: ≈ 17 k operations per
@@ -52,6 +55,21 @@ has the split). Design of the bf16 and int8 modes:
   at C = 64, where the tile is stored unpadded and XOR-swizzled so that
   two buffers fit; :func:`kernel_plan` mirrors the threads and
   shared-memory bytes of every instantiation.
+At C = 128 the bf16 W2 and W3 alone (272,384 B; 524,288 B in float32)
+exceed the 232,448 B a block may have, so they are not staged once per
+block: they stream through two shared-memory buffers in chunks of
+``STREAM_CHUNK`` of the E channels (W2's rows and the matching columns
+of W3), ``cp.async`` filling one while the block multiplies the other,
+18,944 B a buffer in bf16 and int8, 32,768 B in float32. Each chunk's
+expansion feeds the projection's accumulators in registers, so ``h``
+still never leaves them; the projection's accumulators of 16 pixels ×
+128 channels (64 a lane) and the tile's A fragments stay in registers
+over the 16 chunks of a tile. The tile shrinks to 8 × 16 pixels with
+256 threads (one m16 tile a warp, one block an SM). The LayerNorm's
+statistics are shuffles over the 16 lanes of a pixel. At C = 128 the
+unit does 512 operations a byte of bf16 I/O, above the card's ridge:
+it is bound by its products, which ``mma.sync`` runs at about 2/3 of
+the tensor cores' dense rate.
 In float32 mode (``dtype="float32"`` serving and export, the f32
 forwards of v3 / v4 / v5, the analysis tools) the result keeps float32
 accuracy while the two products, 95% of the operations, run on the
@@ -71,7 +89,12 @@ registers (W3's E index is permuted as [0,2,4,6,1,3,5,7] within each 8
 when staged). The f32 W2 and W3 stay in shared memory in fragment order
 and are split as they are loaded. Two tile buffers at C = 32 (two
 blocks of 8 warps an SM) and at (64, 1); at (64, 5) the f32 weights
-leave room for one, refilled while the products run. In int8 mode
+leave room for one, refilled while the products run; at C = 128 the
+f32 chunks are staged in a fragment order a 16-byte ``cp.async`` can
+copy (a lane's B operands of two k-steps of one n8 tile are four
+neighbouring channels of one row), the residual ``x`` is read back from
+device memory rather than kept in registers, and (128, 5) has one tile
+buffer, refilled from the first chunk on. In int8 mode
 (``x`` int8 with
 ``scale_in`` and ``scale_out``) only int8 codes touch device memory: the
 codes are dequantized into the bf16 shared tile as
@@ -87,6 +110,8 @@ and rounding points in plain PyTorch; a CUDA tensor launches the kernel
 or raises.
 """
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
@@ -95,17 +120,23 @@ from . import cuda_build
 from .precision import has_tangent
 
 # kernel launches made by convnext_block in float mode and in int8 mode
-# (the plain path does not count), and the ConvNext units outside the
-# kernel's shapes and options that ran their PyTorch branch in a forward
-# instead (layers/convnext.py ConvNextBlock.forward)
+# (the plain path does not count), the same launches by (dtype name, C,
+# K), and the ConvNext units outside the kernel's shapes and options that
+# ran their PyTorch branch in a forward instead (layers/convnext.py
+# ConvNextBlock.forward)
 launches = 0
 int8_launches = 0
+shape_launches = collections.Counter()
 branch_units = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (C, K) instantiated in csrc/convnext_block.cu for every mode; E = 4C.
 # K = 1 serves the decoders of unet_laplacian_v3, _v4 and _v5
-KERNEL_SHAPES = frozenset({(32, 1), (32, 3), (32, 5), (64, 1), (64, 5)})
+KERNEL_SHAPES = frozenset({(32, 1), (32, 3), (32, 5), (64, 1), (64, 5),
+                           (128, 1), (128, 5)})
+# E channels of W2 and W3 a shared-memory buffer holds at C = 128, where
+# they stream through two such buffers
+STREAM_CHUNK = 32
 INT8_MAX = 127
 # dynamic shared memory one block may have on an H100
 SHARED_MEMORY_LIMIT = 232_448
@@ -118,10 +149,14 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     the built library reports."""
     mma, int8 = dtype != torch.float32, dtype == torch.int8
     e, pad, elt = 4 * c, k // 2, 2 if mma else 4
-    th, tw = 8, 32 if mma else 16
+    # C = 128 streams W2 and W3 through two buffers of STREAM_CHUNK of the
+    # E channels and takes 8 x 16 tiles in every mode
+    stream = c == 128
+    ew = STREAM_CHUNK if stream else e
+    th, tw = 8, 32 if mma and not stream else 16
     ih, iw = th + 2 * pad, tw + 2 * pad
-    # tile rows unpadded (swizzled) at C = 64 in bf16, else padded by 8
-    ldx = c if mma and c == 64 else c + 8
+    # tile rows unpadded (swizzled) at C >= 64 in bf16, else padded by 8
+    ldx = c if mma and c >= 64 else c + 8
     xbuf = elt * ih * iw * ldx
 
     def align16(n):
@@ -129,14 +164,17 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
 
     end = align16(4 * k * k * c)                          # depthwise weights
     end = align16(align16(end + 4 * c) + 4 * c)           # LN scale, gain
+    # a weight buffer: W2 [EW][C] and W3 [C][EW] (bf16 rows padded by 8)
+    wbuf = (align16(2 * ew * (c + 8)) + align16(2 * c * (ew + 8)) if mma
+            else 2 * align16(4 * ew * c))
+    weights = (2 if stream else 1) * wbuf
     # bf16 two tile buffers, int8 one; f32 two where they fit beside its
-    # f32 W2 and W3 (all but (64, 5))
+    # f32 weights (all but (64, 5) and (128, 5))
     buffers = (1 if int8 else 2 if mma
-               or end + 2 * xbuf + 8 * e * c <= SHARED_MEMORY_LIMIT else 1)
+               or end + 2 * xbuf + weights <= SHARED_MEMORY_LIMIT else 1)
     end = align16(end + buffers * xbuf)                   # input tiles
     end = align16(end + (ih * iw * c if int8 else 0))     # staged codes
-    end = align16(end + (2 * e * (c + 8) if mma else 4 * e * c))    # W2
-    end = align16(end + (2 * c * (e + 8) if mma else 4 * e * c))    # W3
+    end += weights
     end += 2 * th * tw * (c + 8) if mma else 0            # t / output tile
     # f32: a warp per tile row
     threads = 32 * th if not mma else 512 if c == 64 else 256
@@ -171,6 +209,12 @@ def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:
     int8: the counterpart of the JAX module's ``quantize_cf``, on a tensor
     of any layout (the port's are NHWC)."""
     return _quantize_f32(x.float(), _f32(1.0 / float(scale)))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it whose data starts on 16 bytes: the kernel
+    moves x, W2 and W3 in 16-byte vectors."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
@@ -258,13 +302,13 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
         raise ValueError("convnext_block: weights must be on x's device")
     s_in, inv_out = int8_constants(scale_in, scale_out) if int8 else (1.0,
                                                                        1.0)
-    x = x.contiguous()
+    x = _aligned(x.contiguous())
     dw_f = dw.reshape(c, k * k).float().contiguous()
     ln_f = ln_scale.float().contiguous()
     gain_f = gain.float().contiguous()
     w_dtype = torch.bfloat16 if int8 else x.dtype
-    w2_io = w2.to(w_dtype).contiguous()
-    w3_io = w3.to(w_dtype).contiguous()
+    w2_io = _aligned(w2.to(w_dtype).contiguous())
+    w3_io = _aligned(w3.to(w_dtype).contiguous())
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -281,4 +325,5 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
         int8_launches += 1
     else:
         launches += 1
+    shape_launches[str(x.dtype).split(".")[-1], c, k] += 1
     return out

@@ -28,6 +28,14 @@ drive the two paths of the port through the entry points a user calls:
   launch of the fused forwards against its plain version on the same
   input, the fused outputs against the hydra's, the f32 fused forward
   against the same forward on the CPU, and the three timed;
+* fused_depth4: the same fused path at a depth-4 ``unet_laplacian_v6``
+  (the config's filters 32, width 3 and K = 5, the depth set to 4, so
+  its attention level is level 3 at C = 256; seeded, bf16) with
+  ``fused_levels=(0, 1, 2)``: calibrated at those levels, float and
+  int8 fused forwards and the bf16 hydra on b32 @ 256², 18 K1 a fused
+  forward with 6 at (128, 5), every launch against its plain version,
+  the fused phase's bars (``FUSED4_INT8_OWN_MARGIN`` for int8), the
+  forwards timed, and K1 int8 at (128, 5) on 32×64²×128 timed;
 * band_split: the decimating band split (K4) through its op, the only
   entry point it has, at the flagship's level-0/1 band shapes 8×256²×32
   and 8×128²×64 (the build line holds its tile plan, registers and
@@ -93,11 +101,12 @@ drive the two paths of the port through the entry points a user calls:
   b8 @ 256² and one 512² against the same artifact in f32 on the CPU;
   ``unet_laplacian_v3`` and ``_v5`` from the ``build`` CLI's seeded
   artifacts served b8 @ 256²; exact launches per forward (K1 at every
-  C = 32 / 64 unit, the decoders' at K = 1; K2 per band split; the
-  C = 128 units on their PyTorch branch, ``pallas_convnext.branch_units``)
-  and per micro-batch (K2, its backward, K3; no K1); then every K1 / K2 /
-  K2-backward / K3 input it launched against the plain versions, and K1
-  at (32, 1) and (64, 1) timed;
+  unit, C = 32, 64 and 128, the decoders' at K = 1: 18 for v3 / v4, 12
+  for v5; K2 per band split; no unit on its PyTorch branch,
+  ``pallas_convnext.branch_units``) and per micro-batch (K2, its
+  backward, K3; no K1); then every K1 / K2 / K2-backward / K3 input it
+  launched against the plain versions, and K1 at (32, 1) and (64, 1) and
+  at C = 128, (128, 5) and (128, 1) on 8×64²×128, timed;
 * restoration: the blind-restoration recipe (``scripts/train_restoration.py``:
   ``unet_laplacian_v6_tpu`` at its full width, 128² crops, b16 × 8
   micro-batches, bf16, the degradation chain with the master gate 0.5,
@@ -316,6 +325,23 @@ def cold_copies(*tensors):
     set_bytes = sum(t.numel() * t.element_size() for t in tensors)
     n = 2 + -(-2 * L2_BYTES // set_bytes)
     return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+def forward_event_ms(fn, n=10, warmup=2):
+    """Median of n CUDA-event times of whole forwards, host included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), times
 
 
 def synthetic_images(n: int, h: int, w: int, rng) -> np.ndarray:
@@ -2654,21 +2680,24 @@ FAMILY_OVERRIDES = dict(LOOP_OVERRIDES, **{
     "train.total_steps": FAMILY_STEPS,
     "train.checkpoint_every": FAMILY_STEPS,
     "train.visualization_every": FAMILY_STEPS})
-# launches per forward: K1 at the C = 32 / 64 units (12 in all, 6 of them
-# the decoders' K = 1), K2 per band split, and the C = 128 units that run
-# their PyTorch branch (layers/convnext.py kernel_route)
+# launches per forward: K1 at every ConvNext unit (v3 / v4: 18, C = 32,
+# 64 and 128, 9 of them the decoders' K = 1; v5: 12, its level 2 is its
+# attention level), K2 per band split, and no unit on its PyTorch branch
+# (layers/convnext.py kernel_route)
 FAMILY_PER_FORWARD = {
-    "unet_laplacian_v3": dict(convnext_block=12, band_smooth=3, branch=6),
-    "unet_laplacian_v4": dict(convnext_block=12, band_smooth=3, branch=6),
+    "unet_laplacian_v3": dict(convnext_block=18, band_smooth=3, branch=0),
+    "unet_laplacian_v4": dict(convnext_block=18, band_smooth=3, branch=0),
     "unet_laplacian_v5": dict(convnext_block=12, band_smooth=2, branch=0)}
 # per micro-batch of the v4 loop: K2 and its backward per band split, K3
 FAMILY_PER_MICRO_BATCH = dict(band_smooth=3, band_smooth_bwd=3,
                               corrupt_noise=1)
 FAMILY_STEP_LOSS_RTOL, FAMILY_STEP_MIN_COSINE = 1e-4, 0.9999
 FAMILY_F32_MEAN, FAMILY_F32_EQUAL = 1.0, 0.99
-# the K = 1 instantiations' timing shapes: the v4 / v5 decoders' level 0
-# and level 1 at b8 @ 256^2
-FAMILY_K1_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 64)]
+# K1's timing rows on the family's path, (shape, K): the v4 / v5
+# decoders' K = 1 at levels 0 and 1, and v4's level 2 (C = 128, the
+# encoder's K = 5 and the decoder's K = 1), at b8 @ 256^2
+FAMILY_K1_ROWS = [((8, 256, 256, 32), 1), ((8, 128, 128, 64), 1),
+                  ((8, 64, 64, 128), 5), ((8, 64, 64, 128), 1)]
 
 
 def family_forward_launches(den, img, read_counts, branch_units):
@@ -2876,20 +2905,25 @@ def unet_laplacian_family_phase(bidt, smi, read_counts, loop_run,
 
 
 def family_k1_times(pallas_convnext, smi, seen):
-    """K1 at (32, 1) and (64, 1), f32 and bf16, warm and cold, at
-    ``FAMILY_K1_SHAPES`` with the weights the family phase gave it, beside
-    its bound and its library chain."""
+    """K1 at ``FAMILY_K1_ROWS``, f32 and bf16, warm and cold, with the
+    weights the family phase gave it, beside its bound and its library
+    chain; each row's output against the plain version's at phase 3's
+    bars (bf16 max(0.05, 1 ulp); f32 1e-3 and ``K1_F32_RELATIVE`` of max
+    |plain output|)."""
     from blind_image_denoising_torch.ops.precision import exact_float32
     weights = {(shape[-1], k): kw for (shape, _, k), (_, kw) in
-               seen["convnext_block"].items() if k == 1}
+               seen["convnext_block"].items()}
     rows = []
-    for shape in FAMILY_K1_SHAPES:
-        kw = weights[(shape[-1], 1)]
+    for shape, k in FAMILY_K1_ROWS:
+        kw = weights[(shape[-1], k)]
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, device="cuda").to(dtype)
             wts = {n: v.to(dtype) for n, v in kw.items() if n != "slope"}
             slope = kw["slope"]
             with exact_float32():        # the f32 library chain: TF32 off
+                got = pallas_convnext.convnext_block(x, slope=slope, **wts)
+                ref = pallas_convnext.convnext_block_plain(x, slope=slope,
+                                                           **wts)
                 t = dict(
                     ms=cuda_ms(lambda: pallas_convnext.convnext_block(
                         x, slope=slope, **wts)),
@@ -2900,19 +2934,336 @@ def family_k1_times(pallas_convnext, smi, seen):
                             x, slope=slope, **wts), iters=3, warmup=1),
                     library_ms=cuda_ms(lambda: convnext_library(
                         x, slope=slope, **wts)))
-            bound, by = convnext_bound_ms(*shape, 1, dtype)
+            diff = (got.float() - ref.float()).abs()
+            err = float(diff.max())
+            if dtype == torch.float32:
+                ok = err <= 1e-3 and err <= K1_F32_RELATIVE * float(
+                    ref.abs().max())
+            else:
+                ok = bool((diff <= torch.clamp(bf16_ulp(ref), min=0.05)
+                           ).all())
+            bound, by = convnext_bound_ms(*shape, k, dtype)
             extra = {} if dtype != torch.float32 else dict(
                 bound_cuda_cores_ms=convnext_bound_ms(
-                    *shape, 1, dtype, cuda_cores=True)[0])
-            row = dict(kernel="convnext_block", C=shape[-1], K=1,
+                    *shape, k, dtype, cuda_cores=True)[0])
+            row = dict(kernel="convnext_block", C=shape[-1], K=k,
                        shape=list(shape), dtype=str(dtype).split(".")[-1],
                        calls_per_forward=3, bound_ms=bound, bound_by=by,
-                       share_cold=bound / t["cold_ms"], **extra, smi=smi,
-                       **t)
+                       share_cold=bound / t["cold_ms"], max_abs_err=err,
+                       **extra, smi=smi, **t)
             log("time", path="unet_laplacian_family", **row)
+            if not ok:
+                raise AssertionError(f"K1 {shape} K={k} {dtype}: {err}")
             rows.append(row)
-            del x
+            del x, got, ref, diff
     return rows
+
+
+# ------------------------------------------------- the depth-4 fused path
+
+# unet_laplacian_v6 at its own filters (32), width (3) and K (5) with the
+# depth set to 4 (self-attention at level 3, C = 256), seeded, bf16,
+# levels 0-2 fused: 18 K1 a forward, 6 of them at (128, 5)
+FUSED4_DEPTH = 4
+FUSED4_LEVELS = (0, 1, 2)
+FUSED4_PER_FORWARD = 18
+FUSED4_C128_PER_FORWARD = 6
+# K1 int8 at C = 128 on this path: codes within one of the plain
+# version's on at least 99.9% of the outputs (C <= 64 keeps phase 3's
+# share)
+FUSED4_C128_SHARE_DIFFERING = 1e-3
+# the int8 fused forward against the bf16 hydra: the fused phase's 4 gray
+# levels (mean), or, where the seeded model's own int8 error (the same
+# int8 forward and the hydra in float32 on an f32 copy of the weights,
+# same scales) already reaches it, that error + 0.5 (the export's int8
+# margin). On the CPU the depth-4 model's own error is 3.85 on 8 images
+# and its bf16 int8 forward sits 4.04 from its bf16 hydra (the depth-3
+# phase's model: 3.67 and 3.89)
+FUSED4_INT8_OWN_MARGIN = 0.5
+
+
+def fused_k1_against_plain(fused_module, pallas_convnext, forwards, x):
+    """Run each fused forward of ``forwards`` (name -> forward) on ``x``
+    with every K1 launch held against K1's plain version on the same
+    input. Returns ({name: one record a launch}, {name: outputs}); a
+    record has the unit's C and, in int8, the largest code difference and
+    the share of codes that differ; in bf16 the largest difference and
+    whether all are within max(0.05, 1 bf16 ulp); in float32 the largest
+    difference and its ratio to max |plain output|."""
+    real_k1 = fused_module.convnext_block
+    on_path, outs = {}, {}
+    records = []
+
+    def against_plain(v, **kw):
+        out = real_k1(v, **kw)
+        ref = pallas_convnext.convnext_block_plain(v, **kw)
+        d = (out.float() - ref.float()).abs()
+        rec = dict(C=v.shape[-1])
+        if v.dtype == torch.int8:
+            rec.update(max_abs_code_diff=int(d.max()),
+                       share_differing=float((d > 0).float().mean()))
+        elif v.dtype == torch.float32:
+            rec.update(max_abs_err=float(d.max()), relative_err=float(
+                d.max() / ref.abs().max()))
+        else:
+            rec.update(max_abs_err=float(d.max()), within=bool(
+                (d <= torch.clamp(bf16_ulp(ref), min=0.05)).all()))
+        records.append(rec)
+        return out
+
+    fused_module.convnext_block = against_plain
+    try:
+        for name, fn in forwards.items():
+            records = on_path[name] = []
+            outs[name] = fn(x)
+    finally:
+        fused_module.convnext_block = real_k1
+    return on_path, outs
+
+
+def c128_launches(pallas_convnext):
+    """K1's launches at C = 128 since the counts were last set to 0, by
+    dtype name."""
+    out = {}
+    for (dtype, c, _), n in pallas_convnext.shape_launches.items():
+        if c == 128:
+            out[dtype] = out.get(dtype, 0) + n
+    return out
+
+
+def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
+                       share_differing):
+    """The fused path with level 2 fused: the depth-4 ``unet_laplacian_v6``
+    (``FUSED4_*``) calibrated on 8 images (``calibrate_fused(...,
+    fused_levels=FUSED4_LEVELS)``), then its float and int8 fused forwards
+    and its bf16 hydra on b32 @ 256²: exact launches (18 K1 a fused
+    forward, 6 at C = 128), every K1 launch of the two fused forwards
+    against its plain version on the same input, the fused outputs
+    against the hydra's (float <= ``FUSED_FLOAT_VS_HYDRA_MEAN``, int8 <= 4
+    mean gray levels, or the model's own int8 error + 0.5 where that
+    reaches 4: ``FUSED4_INT8_OWN_MARGIN``), the f32 fused forward on
+    ``FUSED_CPU_IMAGES`` images with every K1 launch against its plain
+    version (1e-3 and ``K1_F32_RELATIVE`` of max |plain output|) and the
+    rest of the path, on the card with K1's plain version, against the CPU
+    (<= ``FUSED_F32_CARD_VS_CPU_MEAN`` on every scale; the forward through
+    the kernel against the CPU is read), the three forwards timed, and K1
+    int8 at (128, 5) on 32×64²×128 timed. Returns (launch counts summed over the phase, C = 128
+    launches by path and dtype, the largest bf16 and int8 differences of
+    the C = 128 launches from their plain versions, the int8 (128, 5)
+    timing entry)."""
+    from blind_image_denoising_torch.inference import fused as fused_module
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.ops import pallas_convnext
+    from blind_image_denoising_torch.training.train_state import init_params
+    cfg = copy.deepcopy(v6cfg)
+    cfg["backbone"]["depth"] = FUSED4_DEPTH
+    model = model_builder(copy.deepcopy(cfg), dtype=torch.bfloat16).hydra
+    init_params(model, torch.Generator().manual_seed(SEED))
+    model = model.cuda().eval().requires_grad_(False)
+
+    def nchw(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).permute(0, 3, 1, 2)
+
+    cal_clean = synthetic_images(4, FUSED_SIZE, FUSED_SIZE, rng)
+    cal = np.concatenate([cal_clean, add_noise(cal_clean, 25.0, rng)])
+    x = nchw(add_noise(synthetic_images(FUSED_BATCH, FUSED_SIZE, FUSED_SIZE,
+                                        rng), 25.0, rng)).cuda()
+    reset_counts()
+    scales = fused_module.calibrate_fused(cfg, model, nchw(cal),
+                                          fused_levels=FUSED4_LEVELS)
+    runs = {"calibrate": read_counts()}
+    c128 = {"calibrate": c128_launches(pallas_convnext)}
+    fwd_float, sites = fused_module.build_fused_forward(
+        cfg, model, fused_levels=FUSED4_LEVELS)
+    fwd_int8, _ = fused_module.build_fused_forward(
+        cfg, model, scales, fused_levels=FUSED4_LEVELS)
+
+    def hydra(v):
+        with torch.inference_mode():
+            return model(v)
+
+    forwards = {"fused_float": fwd_float, "fused_int8": fwd_int8,
+                "hydra_bf16": hydra}
+    outs = {}
+    for name, fn in forwards.items():
+        reset_counts()
+        outs[name] = fn(x)
+        torch.cuda.synchronize()
+        runs[name] = read_counts()
+        c128[name] = c128_launches(pallas_convnext)
+    want = {"calibrate": counts(convnext_block=FUSED4_PER_FORWARD * len(cal)),
+            "fused_float": counts(convnext_block=FUSED4_PER_FORWARD),
+            "fused_int8": counts(convnext_block_int8=FUSED4_PER_FORWARD),
+            "hydra_bf16": counts(convnext_block=FUSED4_PER_FORWARD,
+                                 band_smooth=FUSED4_DEPTH - 1)}
+    want_c128 = {"calibrate": {"bfloat16": FUSED4_C128_PER_FORWARD * len(cal)},
+                 "fused_float": {"bfloat16": FUSED4_C128_PER_FORWARD},
+                 "fused_int8": {"int8": FUSED4_C128_PER_FORWARD},
+                 "hydra_bf16": {"bfloat16": FUSED4_C128_PER_FORWARD}}
+    gaps = {}
+    for name in ("fused_float", "fused_int8"):
+        d = (outs[name][0] - outs["hydra_bf16"][0]).abs()
+        gaps[name] = dict(mean=float(d.mean()), p99=float(torch.quantile(
+            d.flatten()[::97], 0.99)), max=float(d.max()))
+    # every K1 launch of the two bf16 fused forwards against its plain
+    # version on the same input
+    on_path, _ = fused_k1_against_plain(
+        fused_module, pallas_convnext,
+        {"fused_float": fwd_float, "fused_int8": fwd_int8}, x)
+    # the f32 float fused forward (an f32 copy of the weights): every K1
+    # launch on the card against its plain version, then the rest of the
+    # path, on the card with K1's plain version, against the CPU. At depth
+    # 4 this seeded model carries K1's float32-level differences (inside
+    # K1_F32_RELATIVE) to ~1e-3 gray levels at the 1/2 scale, with level 2
+    # fused or not, so the forward through the kernel is read beside it
+    m32 = model_builder(copy.deepcopy(cfg)).hydra
+    m32.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    m32.eval().requires_grad_(False)
+    x_cpu = x[:FUSED_CPU_IMAGES].cpu()
+    ref32 = fused_module.build_fused_forward(
+        cfg, m32, dtype=torch.float32, fused_levels=FUSED4_LEVELS)[0](x_cpu)
+    fwd32 = fused_module.build_fused_forward(
+        cfg, m32.cuda(), dtype=torch.float32, fused_levels=FUSED4_LEVELS)[0]
+    x32 = x[:FUSED_CPU_IMAGES]
+    f32_on_path, got32 = fused_k1_against_plain(
+        fused_module, pallas_convnext, {"kernel": fwd32}, x32)
+    f32_launches = f32_on_path["kernel"]
+    real_k1 = fused_module.convnext_block
+    fused_module.convnext_block = pallas_convnext.convnext_block_plain
+    try:
+        got32["plain_k1"] = fwd32(x32)
+    finally:
+        fused_module.convnext_block = real_k1
+    card32 = {name: [float((g.cpu() - r).abs().mean()) for g, r in
+                     zip(outs32, ref32)] for name, outs32 in got32.items()}
+    card_vs_cpu = card32["plain_k1"]
+    # the model's own int8 error: the int8 fused forward and the hydra in
+    # float32 (the f32 copy, on the card), the same scales
+    int8_f32 = fused_module.build_fused_forward(
+        cfg, m32, scales, dtype=torch.float32,
+        fused_levels=FUSED4_LEVELS)[0](x)[0]
+    with torch.inference_mode():
+        own_int8 = float((int8_f32 - m32(x)[0]).abs().mean())
+    int8_bar = max(4.0, own_int8 + FUSED4_INT8_OWN_MARGIN)
+    del m32, int8_f32
+    timing = {name: dict(zip(("forward_ms_median", "forward_ms"),
+                             forward_event_ms(lambda: fn(x))))
+              for name, fn in forwards.items()}
+    for t in timing.values():
+        t["images_per_s"] = FUSED_BATCH / t["forward_ms_median"] * 1e3
+
+    # K1 int8 at (128, 5) on the fused path's level-2 shape, timed
+    b, hw = FUSED_BATCH, FUSED_SIZE >> 2
+    xu, wts, slope = unit_inputs(model, "encoder_2_0", b, hw, hw,
+                                 torch.bfloat16, rng)
+    c, k = xu.shape[-1], wts["dw"].shape[-1]
+    s_in, s_out = float(xu.abs().max()) / 127, 4 * float(
+        xu.abs().max()) / 127
+    xq = pallas_convnext.quantize(xu, s_in)
+    q = dict(scale_in=s_in, scale_out=s_out, slope=slope)
+    dcode = (pallas_convnext.convnext_block(xq, **q, **wts).int()
+             - pallas_convnext.convnext_block_plain(xq, **q, **wts).int()
+             ).abs()
+    t = dict(
+        ms=cuda_ms(lambda: pallas_convnext.convnext_block(xq, **q, **wts)),
+        cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
+            xc, **q, **wts), inputs=cold_copies(xq)),
+        plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
+            xq, **q, **wts), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: convnext_int8_library(
+            xq, s_in, s_out, slope=slope, **wts)))
+    bound, by = convnext_bound_ms(b, hw, hw, c, k, torch.int8)
+    timed = dict(max_abs_code_diff=int(dcode.max()),
+                 share_differing=float((dcode > 0).float().mean()))
+    log("time", path="fused_depth4", kernel="convnext_block_int8", C=c, K=k,
+        shape=[b, hw, hw, c], calls_per_forward=FUSED4_C128_PER_FORWARD,
+        bound_ms=bound, bound_by=by, share_cold=bound / t["cold_ms"],
+        smi=smi, **timed, **t)
+    del xu, xq, dcode
+
+    c128_int8 = [r for r in on_path["fused_int8"] if r["C"] == 128]
+    c128_bf16 = [r for r in on_path["fused_float"] if r["C"] == 128]
+    result = dict(
+        config=FUSED_CONFIG, depth=FUSED4_DEPTH, fused_levels=FUSED4_LEVELS,
+        batch=list(x.shape), dtype="bf16", sites=len(sites),
+        launches=runs, c128_launches=c128,
+        k1_on_path=dict(
+            int8_max_abs_code_diff=max(r["max_abs_code_diff"]
+                                       for r in on_path["fused_int8"]),
+            int8_share_differing_c128=[r["share_differing"]
+                                       for r in c128_int8],
+            int8_share_differing_max_c_le_64=max(
+                r["share_differing"] for r in on_path["fused_int8"]
+                if r["C"] <= 64),
+            bf16_max_abs_err=max(r["max_abs_err"]
+                                 for r in on_path["fused_float"]),
+            bf16_max_abs_err_c128=max(r["max_abs_err"] for r in c128_bf16)),
+        finest_vs_hydra_bf16_gray_levels=gaps,
+        own_int8_error_f32_gray_levels=own_int8,
+        f32_card_vs_cpu_mean_gray_levels_per_scale=card32,
+        k1_f32_on_path=dict(
+            max_relative_err=max(r["relative_err"] for r in f32_launches),
+            max_relative_err_c128=max(r["relative_err"] for r in f32_launches
+                                      if r["C"] == 128),
+            max_abs_err=max(r["max_abs_err"] for r in f32_launches)),
+        cpu_images=FUSED_CPU_IMAGES, timing=timing, smi=smi,
+        tolerance=dict(
+            launches=f"{FUSED4_PER_FORWARD} K1 a fused forward, "
+                     f"{FUSED4_C128_PER_FORWARD} at C = 128",
+            k1_bf16="max(0.05, 1 bf16 ulp)",
+            k1_f32=f"1e-3 and {K1_F32_RELATIVE} x max |plain output|",
+            f32_card_vs_cpu="the path with K1's plain version on the card "
+                            "against the CPU (plain_k1); the path through "
+                            "the kernel (kernel) is read",
+            k1_int8=f"|code diff| <= 1, share differing <= "
+                    f"{share_differing} (C <= 64), "
+                    f"{FUSED4_C128_SHARE_DIFFERING} (C = 128)",
+            f32_card_vs_cpu_mean=FUSED_F32_CARD_VS_CPU_MEAN,
+            float_vs_hydra_mean=FUSED_FLOAT_VS_HYDRA_MEAN,
+            int8_vs_hydra_mean=int8_bar))
+    log("fused_depth4", **result)
+    problems = []
+    if runs != want or c128 != want_c128:
+        problems.append(f"launches {runs}, C = 128 {c128}")
+    for name, o in outs.items():
+        if [tuple(v.shape) for v in o] != [
+                (FUSED_BATCH, 3, FUSED_SIZE >> i, FUSED_SIZE >> i)
+                for i in range(FUSED4_DEPTH)] or not all(
+                    bool(torch.isfinite(v).all()) for v in o):
+            problems.append(f"{name}: bad outputs")
+    if [len(v) for v in on_path.values()] != [FUSED4_PER_FORWARD] * 2 or \
+            len(c128_int8) != FUSED4_C128_PER_FORWARD or not all(
+                r["within"] for r in on_path["fused_float"]) or not all(
+                r["max_abs_code_diff"] <= 1 and r["share_differing"] <= (
+                    FUSED4_C128_SHARE_DIFFERING if r["C"] == 128
+                    else share_differing) for r in on_path["fused_int8"]):
+        problems.append(f"K1 on the path disagrees with its plain version: "
+                        f"{on_path}")
+    if timed["max_abs_code_diff"] > 1 or \
+            timed["share_differing"] > FUSED4_C128_SHARE_DIFFERING:
+        problems.append(f"K1 int8 (128, 5) timing input: {timed}")
+    if max(card_vs_cpu) > FUSED_F32_CARD_VS_CPU_MEAN:
+        problems.append(f"f32 fused card vs CPU {card32}")
+    if len(f32_launches) != FUSED4_PER_FORWARD or not all(
+            r["max_abs_err"] <= 1e-3 and r["relative_err"] <= K1_F32_RELATIVE
+            for r in f32_launches):
+        problems.append(f"K1 f32 on the path: {f32_launches}")
+    if not gaps["fused_float"]["mean"] <= FUSED_FLOAT_VS_HYDRA_MEAN or \
+            not gaps["fused_int8"]["mean"] <= int8_bar:
+        problems.append(f"fused vs hydra {gaps}")
+    if problems:
+        raise AssertionError(f"fused_depth4: {problems}")
+    total = {key: sum(r[key] for r in runs.values()) for key in runs[
+        "calibrate"]}
+    c128_total = {}
+    for per in c128.values():
+        for dtype, n in per.items():
+            c128_total[dtype] = c128_total.get(dtype, 0) + n
+    errors = dict(
+        bf16=max(r["max_abs_err"] for r in c128_bf16),
+        int8=max(timed["max_abs_code_diff"],
+                 max(r["max_abs_code_diff"] for r in c128_int8)))
+    return total, c128_total, errors, (FUSED4_C128_PER_FORWARD, t, bound, by)
 
 
 # ------------------------------------------------------------ restoration
@@ -5115,6 +5466,7 @@ def main() -> int:
     def reset_counts():
         pallas_convnext.launches = pallas_noise.launches = 0
         pallas_convnext.int8_launches = pallas_pyramid.split_launches = 0
+        pallas_convnext.shape_launches.clear()
         pallas_pyramid.launches = pallas_pyramid.bwd_launches = 0
         pallas_pyramid.bwd_grad_copies = 0
 
@@ -5717,29 +6069,9 @@ def main() -> int:
             d.flatten()[::97], 0.99)), max=float(d.max()))
     # every K1 launch of the two bf16 fused forwards against its plain
     # version on the same input: the kernel on the path's own activations
-    on_path = {"fused_float": [], "fused_int8": []}
-    real_k1 = fused_module.convnext_block
-
-    def k1_against_plain(x, **kw):
-        out = real_k1(x, **kw)
-        ref = pallas_convnext.convnext_block_plain(x, **kw)
-        d = (out.float() - ref.float()).abs()
-        if x.dtype == torch.int8:
-            on_path["fused_int8"].append(dict(
-                max_abs_code_diff=int(d.max()),
-                share_differing=float((d > 0).float().mean())))
-        else:
-            on_path["fused_float"].append(dict(
-                max_abs_err=float(d.max()), within=bool(
-                    (d <= torch.clamp(bf16_ulp(ref), min=0.05)).all())))
-        return out
-
-    fused_module.convnext_block = k1_against_plain
-    try:
-        fwd_float(xf)
-        fwd_int8(xf)
-    finally:
-        fused_module.convnext_block = real_k1
+    on_path, _ = fused_k1_against_plain(
+        fused_module, pallas_convnext,
+        {"fused_float": fwd_float, "fused_int8": fwd_int8}, xf)
     # the float fused forward in float32 on the card and on the CPU (plain
     # K1, an f32 copy of the weights): the rest of the path, on the card,
     # against plain PyTorch on the host. In bf16 and int8 the two devices
@@ -5765,6 +6097,10 @@ def main() -> int:
         del m
     bars = dict(k1_int8_share_differing=max_share_differing,
                 k1_bf16="max(0.05, 1 bf16 ulp)",
+            k1_f32=f"1e-3 and {K1_F32_RELATIVE} x max |plain output|",
+            f32_card_vs_cpu="the path with K1's plain version on the card "
+                            "against the CPU (plain_k1); the path through "
+                            "the kernel (kernel) is read",
                 f32_card_vs_cpu_mean=FUSED_F32_CARD_VS_CPU_MEAN,
                 float_vs_hydra_mean=FUSED_FLOAT_VS_HYDRA_MEAN,
                 int8_vs_hydra_mean=4.0)       # JAX's, tests/test_fused.py
@@ -5821,22 +6157,6 @@ def main() -> int:
             f"float32 the same int8 forward sits "
             f"{float((int8_f32 - hydra_f32).abs().mean())} from the hydra")
 
-    def event_ms(fn, n=10, warmup=2):
-        """Median of n CUDA-event times of whole forwards, host included."""
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(n):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times), times
-
     v6_groups = {"convnext_block (K1)": ("convnext_block_kernel",),
                  "band_smooth (K2)": ("band_smooth_kernel",),
                  "convolutions (cuDNN)": ("fprop", "conv", "implicit_gemm",
@@ -5846,7 +6166,7 @@ def main() -> int:
                  "resize (attention)": ("upsample", "interp", "aa_")}
     fused_timing = {}
     for name, fn in forwards.items():
-        med, times = event_ms(lambda: fn(xf))
+        med, times = forward_event_ms(lambda: fn(xf))
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(3):
@@ -5913,6 +6233,15 @@ def main() -> int:
             shape=[b, h, w, c], dtype="bf16", calls_per_forward=per_fwd,
             bound_ms=bound, bound_by=by, smi=smi, **t)
         del x
+
+    # ---- phase 7b: the fused path with level 2 fused (C = 128): a depth-4
+    # unet_laplacian_v6
+    t0 = time.perf_counter()
+    fused4_counts, fused4_c128, fused4_errors, fused4_int8_row = \
+        fused_depth4_phase(v6cfg, rng, smi, read_counts, counts,
+                           reset_counts, max_share_differing)
+    fused4_s = time.perf_counter() - t0
+    entries["convnext_block_int8_c128"] = [fused4_int8_row]
 
     # ---- phase 8: the decimating band split (K4) through its op
     xs_split = [torch.from_numpy(rng.normal(0, 1, shape).astype(
@@ -5999,13 +6328,24 @@ def main() -> int:
     reset_counts()
     family_seen, family_counts, family_branch = unet_laplacian_family_phase(
         bidt, smi, read_counts, loop_run, keep=args.keep_family)
+    family_c128 = c128_launches(pallas_convnext)
     for kernel, err in check_kernel_inputs(
             pallas_convnext, pallas_pyramid, pallas_noise, family_seen,
             SEED + 12, path="unet_laplacian_family").items():
         errors[kernel] = max(errors[kernel], err)
     log("family_checks", shapes={k: sorted(str(key[:2]) for key in v)
                                  for k, v in family_seen.items()})
-    family_k1_times(pallas_convnext, smi, family_seen)
+    c128_rows = [r for r in family_k1_times(pallas_convnext, smi,
+                                            family_seen)
+                 if r["C"] == 128 and r["dtype"] == "bfloat16"]
+    # K1 at C = 128 per v4 bf16 forward: 3 units each at (128, 5), (128, 1)
+    entries["convnext_block_c128"] = [
+        (r["calls_per_forward"], {k: r[k] for k in (
+            "ms", "cold_ms", "plain_ms", "library_ms")}, r["bound_ms"],
+         r["bound_by"]) for r in c128_rows]
+    errors["convnext_block_c128"] = max(
+        [r["max_abs_err"] for r in c128_rows] + [fused4_errors["bf16"]])
+    errors["convnext_block_int8_c128"] = fused4_errors["int8"]
     phase_s["unet_laplacian_family"] = time.perf_counter() - t0
 
     # ---- phase 14: the blind-restoration recipe: the chain's ops and
@@ -6082,8 +6422,11 @@ def main() -> int:
     for kernel, err in parallel_errors.items():
         errors[kernel] = max(errors[kernel], err)
     phase_s["parallel"] = time.perf_counter() - t0
-    log("new_phases", seconds=phase_s,
+    log("new_phases", seconds=dict(phase_s, fused_depth4=fused4_s),
         script_s=time.perf_counter() - script_start,
+        fused_depth4_launches=fused4_counts,
+        c128_launches=dict(unet_laplacian_family=family_c128,
+                           fused_depth4=fused4_c128),
         export_launches=export_counts,
         formats_launches=formats_counts,
         resnet_train_export_launches=resnet_counts,
@@ -6121,13 +6464,22 @@ def main() -> int:
         "band_split": ("blind_image_denoising_torch/csrc/band_smooth.cu",
                        "blind_image_denoising_tpu/ops/pallas_pyramid.py:81"),
     }
+    # K1's C = 128 instantiations, rows of their own
+    replaces["convnext_block_c128"] = replaces["convnext_block"]
+    replaces["convnext_block_int8_c128"] = replaces["convnext_block_int8"]
     per = {"convnext_block": "serving forward, b8 @ 256^2",
            "band_smooth": "serving forward, b8 @ 256^2",
            "band_smooth_bwd": "train step, b16 @ 128^2",
            "corrupt_noise": "train step, b16 @ 128^2",
            "convnext_block_int8": f"fused int8 forward, b{FUSED_BATCH} @ "
                                   f"{FUSED_SIZE}^2",
-           "band_split": "band_split op path, 8x256^2x32 + 8x128^2x64 bf16"}
+           "band_split": "band_split op path, 8x256^2x32 + 8x128^2x64 bf16",
+           "convnext_block_c128": "unet_laplacian_v4 bf16 forward, b8 @ "
+                                  "256^2: 3 x (128,5) + 3 x (128,1) at "
+                                  "8x64^2",
+           "convnext_block_int8_c128": f"depth-4 fused int8 forward, "
+                                       f"b{FUSED_BATCH} @ {FUSED_SIZE}^2: "
+                                       f"6 x (128,5) at {FUSED_BATCH}x64^2"}
     # ms, bound and library are per serving forward (K1, K2), per train
     # step (K2 backward, K3), per fused int8 forward (K1 int8) or per
     # band_split path run (K4), summed over the shapes of that unit of
@@ -6138,23 +6490,32 @@ def main() -> int:
                              else sum(n * t[key] for n, t, _, _ in rows_k))
         bound = sum(n * bd for n, _, bd, _ in rows_k)
         bound_by = max(rows_k, key=lambda r: r[0] * r[2])[3]
-        by_path = dict(serve=serve_counts[name],
-                       inference=inference_counts[name],
-                       train=train_counts[name],
-                       fused=fused_counts[name],
-                       band_split=split_counts[name],
-                       artifacts=artifact_counts[name],
-                       train_loop=loop_counts[name],
-                       export=export_counts[name],
-                       formats=formats_counts[name],
-                       resnet_train_export=resnet_counts[name],
-                       unet_laplacian_family=family_counts[name],
-                       restoration=restore_counts[name],
-                       unet_backbone=unet_counts[name],
-                       distillation=distill_counts[name],
-                       analysis=analysis_counts[name],
-                       layers_breadth=breadth_counts[name],
-                       parallel=parallel_counts[name])
+        if name.endswith("_c128"):
+            # launches at C = 128 (the float modes or int8), by path
+            modes = ("int8",) if "int8" in name else ("bfloat16", "float32")
+            by_path = {path: sum(per.get(m, 0) for m in modes)
+                       for path, per in (("unet_laplacian_family",
+                                          family_c128),
+                                         ("fused_depth4", fused4_c128))}
+        else:
+            by_path = dict(serve=serve_counts[name],
+                           inference=inference_counts[name],
+                           train=train_counts[name],
+                           fused=fused_counts[name],
+                           fused_depth4=fused4_counts[name],
+                           band_split=split_counts[name],
+                           artifacts=artifact_counts[name],
+                           train_loop=loop_counts[name],
+                           export=export_counts[name],
+                           formats=formats_counts[name],
+                           resnet_train_export=resnet_counts[name],
+                           unet_laplacian_family=family_counts[name],
+                           restoration=restore_counts[name],
+                           unet_backbone=unet_counts[name],
+                           distillation=distill_counts[name],
+                           analysis=analysis_counts[name],
+                           layers_breadth=breadth_counts[name],
+                           parallel=parallel_counts[name])
         kernels.append(dict(
             name=name, route="cuda", source=replaces[name][0],
             replaces=replaces[name][1], launches=sum(by_path.values()),
@@ -6164,7 +6525,7 @@ def main() -> int:
             bound_by=bound_by, library_ms=total("library_ms"),
             **({"grad_copies_per_step": grad_copies_per_step}
                if name == "band_smooth_bwd" else {}),
-            # the C = 128 units that run their PyTorch branch, per forward
+            # the family's units that run their PyTorch branch, per forward
             **({"branch_units_per_forward": family_branch}
                if name == "convnext_block" else {}),
             per=per[name]))

@@ -4,7 +4,11 @@ one NVIDIA GPU, inside one process, at the shapes ``chip_smoke.py``
 reports (bf16 (32,3) 8×256², (64,5) 8×128², (32,5) 32×256², (64,5)
 32×128² and int8 (32,5) 32×256², (64,5) 32×128²) and, for
 ``dtype="float32"`` serving, f32 (32,3) 8×256² and (64,5) 8×128², and
-the K = 1 decoders' f32 (32,1) 8×256² and (64,1) 8×128².
+the K = 1 decoders' f32 (32,1) 8×256² and (64,1) 8×128²; and C = 128:
+bf16 and f32 (128,5) and (128,1) at 8×64² (``unet_laplacian_v4``'s
+level 2 at b8 @ 256²) and int8 (128,5) at 32×64² (a depth-4 fused
+``unet_laplacian_v6``'s level 2 at b32 @ 256²). A source built without
+a row's instantiation (a parent from before it) skips that row.
 
     python3 k1_compare.py [--rounds N] [--out DIR] [--mma-rate]
                           [NAME=SOURCE ...]
@@ -48,12 +52,17 @@ import torch
 
 from chip_smoke import cold_copies, convnext_bound_ms, cuda_ms
 
+# the library's status for a (C, K) it was not built for
+UNSUPPORTED = -1
 # (dtype, C, K, batch, height and width)
 ROWS = [("bf16", 32, 3, 8, 256), ("bf16", 64, 5, 8, 128),
         ("bf16", 32, 5, 32, 256), ("bf16", 64, 5, 32, 128),
         ("int8", 32, 5, 32, 256), ("int8", 64, 5, 32, 128),
         ("f32", 32, 3, 8, 256), ("f32", 64, 5, 8, 128),
-        ("f32", 32, 1, 8, 256), ("f32", 64, 1, 8, 128)]
+        ("f32", 32, 1, 8, 256), ("f32", 64, 1, 8, 128),
+        ("bf16", 128, 5, 8, 64), ("bf16", 128, 1, 8, 64),
+        ("f32", 128, 5, 8, 64), ("f32", 128, 1, 8, 64),
+        ("int8", 128, 5, 32, 64)]
 
 
 def build(name, source, work, out_dir):
@@ -77,6 +86,8 @@ def build(name, source, work, out_dir):
     lib.bid_convnext_block.argtypes = [p, p, p, p, p, p, p,
                                        i, i, i, i, i, i, f, f, f, p]
     lib.bid_convnext_block.restype = i
+    lib.bid_convnext_block_info.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.bid_convnext_block_info.restype = i
     return lib
 
 
@@ -221,28 +232,39 @@ def main() -> int:
                 pc._DTYPE_CODES[x.dtype], 0.1, s_in, inv_out, stream)
             if rc != 0:
                 raise RuntimeError(f"launch refused: code {rc}")
+            return rc
 
-        times = {name: [] for name in libs}
-        cold = {name: [] for name in libs}
-        copies = cold_copies(x)
-        errs, rels = {}, {}
+        errs, rels, row_libs = {}, {}, {}
         for name, lib in libs.items():
             out.zero_()
-            call(lib)
+            try:
+                call(lib)
+            except RuntimeError:
+                if lib.bid_convnext_block_info(
+                        c, k, pc._DTYPE_CODES[x.dtype],
+                        (ctypes.c_int * 5)()) != UNSUPPORTED:
+                    raise
+                print(json.dumps(dict(source=name, dtype=dtype, C=c, K=k,
+                                      unsupported=True)), flush=True)
+                continue
             torch.cuda.synchronize()
+            row_libs[name] = lib
             errs[name] = float((out.float() - ref.float()).abs().max())
             rels[name] = errs[name] / float(ref.float().abs().max())
+        times = {name: [] for name in row_libs}
+        cold = {name: [] for name in row_libs}
+        copies = cold_copies(x)
         for r in range(args.rounds):
-            order = list(libs) if r % 2 == 0 else list(libs)[::-1]
+            order = list(row_libs) if r % 2 == 0 else list(row_libs)[::-1]
             for name in order:
-                times[name].append(cuda_ms(lambda: call(libs[name])))
-                cold[name].append(cuda_ms(lambda xc: call(libs[name], xc),
+                times[name].append(cuda_ms(lambda: call(row_libs[name])))
+                cold[name].append(cuda_ms(lambda xc: call(row_libs[name], xc),
                                           inputs=copies))
         bound, by = convnext_bound_ms(b, hw, hw, c, k, x.dtype)
         f32 = {} if dtype != "f32" else dict(
             bound_cuda_cores_ms=convnext_bound_ms(
                 b, hw, hw, c, k, x.dtype, cuda_cores=True)[0])
-        for name in libs:
+        for name in row_libs:
             if dtype == "f32":
                 f32["relative_diff_from_plain"] = rels[name]
             print(json.dumps(dict(

@@ -194,6 +194,51 @@ def test_convnext_int8_kernel_matches_plain(dev, ck, bhw):
     assert float((dcode == 0).float().mean()) >= 0.999
 
 
+@pytest.mark.parametrize("ck", [(128, 5), (128, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
+    """At C = 128 W2 and W3 stream through two shared-memory buffers, 16
+    E chunks a tile, the last of which prefetches the next tile's first.
+    On 32 x 64 x 64 (a depth-4 fused unet_laplacian_v6's level 2 at b32 @
+    256²) there are 1024 tiles of 8 x 16 pixels, several times the
+    resident blocks, so every block walks the ring over many tiles; the
+    output is held to the kernel tests' bars above."""
+    import ctypes
+    c, k = ck
+    info = (ctypes.c_int * 5)()
+    assert cuda_build.library().bid_convnext_block_info(
+        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
+    resident = info[4] * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    shape = (32, 64, 64, c)
+    assert shape[0] * (shape[1] // 8) * (shape[2] // 16) >= 4 * resident
+    w = _unit_weights(c, k, dev, seed=3)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    x = torch.randn(shape, generator=g).to(dev)
+    scales = {}
+    if dtype == torch.int8:
+        scales = dict(scale_in=float(x.abs().max()) / 127,
+                      scale_out=float(pallas_convnext.convnext_block_plain(
+                          x, **w).abs().max()) / 127)
+        x = pallas_convnext.quantize(x, scales["scale_in"])
+    else:
+        x = x.to(dtype)
+    got = pallas_convnext.convnext_block(x, **w, **scales)
+    torch.cuda.synchronize()
+    ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.int8:
+        assert int(diff.max()) <= 1
+        assert float((diff == 0).float().mean()) >= 0.999
+    elif dtype == torch.float32:
+        assert float(diff.max()) <= 1e-3
+        assert float(diff.max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        tol = torch.clamp(_bf16_ulp(ref), min=0.05)
+        assert bool((diff <= tol).all()), float(diff.max())
+
+
 def test_convnext_kernel_rejects_unbuilt_shape(dev):
     w = _unit_weights(16, 3, dev)
     x = torch.zeros((1, 8, 8, 16), device=dev)
@@ -1113,15 +1158,15 @@ def test_export_serves_through_k1_and_k2_on_card(dev, tmp_path):
 
 
 @pytest.mark.parametrize("name,per_forward", [
-    ("unet_laplacian_v3", dict(k1=12, k2=3, branch=6)),
-    ("unet_laplacian_v4", dict(k1=12, k2=3, branch=6)),
+    ("unet_laplacian_v3", dict(k1=18, k2=3, branch=0)),
+    ("unet_laplacian_v4", dict(k1=18, k2=3, branch=0)),
     ("unet_laplacian_v5", dict(k1=12, k2=2, branch=0))])
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16])
 def test_unet_laplacian_family_launches_per_forward(dev, name, per_forward,
                                                     dtype):
-    """v3 / v4 / v5 at full width from a seeded init: K1 at every C = 32
-    and 64 unit (the decoders' at K = 1), K2 per band split, the C = 128
-    units on their PyTorch branch, counted; the f32 forward's outputs
+    """v3 / v4 / v5 at full width from a seeded init: K1 at every unit
+    (C = 32, 64 and 128; the decoders' at K = 1), K2 per band split, no
+    unit on its PyTorch branch; the f32 forward's outputs
     within a mean of 1e-3 gray levels of the CPU's (the fused f32 path's
     bar) and a max of 1e-2 (the card and the CPU sum in other orders:
     0.0022 at most on v3 / v4)."""

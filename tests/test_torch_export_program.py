@@ -10,6 +10,9 @@ StableHLO, on the CPU.
   shapes, and JAX's ``load_stablehlo`` of ``serialize_stablehlo`` at
   (1, 128, 128, 3) within 1e-3 on [0, 255]. A directory without the file
   raises.
+* A ConvNext unit at K1's C = 128 shapes, (128, 5) and (128, 1), exports
+  as one ``bidt::convnext_block`` node (the operator is generic in C and
+  K) and the program equals the unit's eager forward within 1e-5.
 """
 
 from collections import Counter
@@ -80,3 +83,26 @@ def test_torch_export_matches_jax_stablehlo(flagship_export):
 def test_torch_export_is_missing(tmp_path):
     with pytest.raises(ValueError, match="to_torch_export"):
         load_torch_export(tmp_path, device="cpu")
+
+
+@pytest.mark.parametrize("ck", [(128, 5), (128, 1)])
+def test_convnext_unit_exports_at_c128(ck):
+    from blind_image_denoising_torch.layers.convnext import ConvNextBlock
+    c, k = ck
+    unit = ConvNextBlock(c, k, 4 * c)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in unit.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    unit.eval().requires_grad_(False)
+    x = torch.randn((2, c, 12, 20), generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    program = torch.export.export(unit, (x,))
+    nodes = Counter(str(n.target) for n in program.graph.nodes
+                    if n.op == "call_function")
+    assert nodes["bidt.convnext_block.default"] == 1
+    with torch.no_grad():
+        ref = unit(x)
+    got = program.module()(x)
+    assert got.shape == x.shape
+    assert float((got - ref).abs().max()) <= 1e-5

@@ -254,6 +254,119 @@ def test_fused_bf16_tracks_f32_and_launches_no_band_kernel(tiny,
         assert float((g - r).abs().mean()) <= jax_gap + 0.25
 
 
+def _wide_level2_v6():
+    """``unet_laplacian_v6`` at its own filters 32 (level 2 is 128 wide)
+    with width 1 and no self-attention, so that level 2 holds a ConvNext
+    unit (K = 5) the fused forward can take."""
+    cfg = copy.deepcopy(bidt.load_config(
+        bidt.CONFIGS_DICT["unet_laplacian_v6"])["model"])
+    cfg["backbone"].update(width=1, use_self_attention=False)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """Initialised as the ``tiny`` fixture is (flax, key 0), under ``jit``:
+    an eager flax init of this width takes ~20 s on the CPU, ~7 jitted."""
+    cfg = _wide_level2_v6()
+    hydra = jax_model_builder(cfg).hydra
+    variables = jax.jit(lambda key: hydra.init(
+        {"params": key}, jnp.zeros((1, 64, 64, 3)), train=False))(
+            jax.random.PRNGKey(0))
+    variables = {"params": variables["params"]}
+    port = model_builder(cfg).hydra
+    port.load_state_dict(params_from_flax(jax.tree_util.tree_map(
+        np.asarray, variables["params"])), strict=True)
+    port.eval().requires_grad_(False)
+    rng = np.random.default_rng(3)
+    clean = _synthetic(1, 64, 64, rng)
+    noisy = np.clip(np.round(clean + rng.normal(0, 25, clean.shape)), 0,
+                    255).astype(np.float32)
+    return dict(cfg=cfg, hydra=hydra, variables=variables, port=port,
+                images=np.concatenate([noisy, clean]))
+
+
+LEVELS_TO_2 = (0, 1, 2)
+
+
+def test_fused_level2_at_c128_matches_jax(wide, monkeypatch):
+    """Level 2 fused (C = 128, K1's (128, 5)): the port's f32 float fused
+    forward on the CPU against JAX's hydra (mean <= 0.05, max <= 1) and
+    JAX's fused forward in interpret mode (mean < 1, max < 25), the
+    existing fused tests' bars; the same sites as JAX's; one K1 call at
+    C = 128 a forward; ``calibrate_fused(..., fused_levels=)`` records the
+    sites JAX's recorder does; and the int8 forward with JAX's scales (its
+    f32 recorder through its fused forward at the same levels) within a
+    mean of 1 gray level of JAX's int8 fused forward and 4 of JAX's
+    hydra."""
+    x = wide["images"][:1]
+    calls = []
+    real = fused.convnext_block
+    monkeypatch.setattr(fused, "convnext_block",
+                        lambda *a, **k: calls.append(a[0].shape[-1]) or real(
+                            *a, **k))
+    fwd, sites = fused.build_fused_forward(
+        wide["cfg"], wide["port"], dtype=torch.float32,
+        fused_levels=LEVELS_TO_2)
+    got = fwd(_nchw(x))
+    assert calls == [32, 64, 128, 64, 32]
+    ref = wide["hydra"].apply(wide["variables"], jnp.asarray(x), train=False)
+    for mean, mx in _gray_diffs(got, ref):
+        assert mean <= 0.05 and mx <= 1.0, (mean, mx)
+    jrec = jax_fused._AmaxRecorder()
+    jfwd, jsites = jax_fused.build_fused_forward(
+        wide["cfg"], wide["variables"], dtype=jnp.float32, interpret=True,
+        fused_levels=LEVELS_TO_2, _recorder=jrec)
+    assert sites == jsites == jax_fused._stage_sites(LEVELS_TO_2, 1)
+    for mean, mx in _gray_diffs(got, jfwd(jnp.asarray(x))):
+        assert mean < 1.0 and mx < 25.0, (mean, mx)
+    jfwd(jnp.asarray(wide["images"][1:]))
+    scales = {k: max(a, 1e-6) / 127.0 for k, a in jrec.amax.items()}
+    # the deepest level (2) has no decoder stage; the port's calibration
+    # at the same levels records the same sites
+    assert set(scales) == set(fused.calibrate_fused(
+        wide["cfg"], wide["port"], _nchw(x), fused_levels=LEVELS_TO_2)) == {
+            s for s in sites if not s.startswith("decoder_2")}
+    jq, _ = jax_fused.build_fused_forward(
+        wide["cfg"], wide["variables"], scales=scales, dtype=jnp.float32,
+        interpret=True, fused_levels=LEVELS_TO_2)
+    q, _ = fused.build_fused_forward(wide["cfg"], wide["port"], scales,
+                                     dtype=torch.float32,
+                                     fused_levels=LEVELS_TO_2)
+    got_q = q(_nchw(x))
+    for mean, _ in _gray_diffs(got_q, jq(jnp.asarray(x))):
+        assert mean <= 1.0, mean
+    mean, _ = _gray_diffs(got_q, ref)[0]
+    assert mean < 4.0, mean
+
+
+def test_depth4_level2_units_route_to_k1():
+    """A depth-4 filters-32 unit stack (``unet_laplacian_v4``, narrowed to
+    width 1 and 64²) sends its level-2 units (C = 128: the encoder's
+    (128, 5), the decoder's (128, 1)) to K1, whose plain version runs
+    them on the CPU: no unit adds to ``branch_units``."""
+    from blind_image_denoising_torch.layers import convnext as convnext_mod
+    from blind_image_denoising_torch.ops import pallas_convnext
+    cfg = copy.deepcopy(bidt.load_config(
+        bidt.CONFIGS_DICT["unet_laplacian_v4"])["model"])
+    cfg["backbone"].update(width=1)
+    assert cfg["backbone"]["filters"] == 32 and cfg["backbone"]["depth"] == 4
+    model = model_builder(cfg).hydra.eval().requires_grad_(False)
+    calls = []
+    real = convnext_mod.convnext_block
+    convnext_mod.convnext_block = lambda *a, **k: calls.append(
+        (a[0].shape[-1], k["dw"].shape[-1])) or real(*a, **k)
+    try:
+        b0 = pallas_convnext.branch_units
+        with torch.no_grad():
+            model(torch.rand((1, 3, 64, 64),
+                             generator=torch.Generator().manual_seed(0)) * 255)
+        assert pallas_convnext.branch_units == b0
+    finally:
+        convnext_mod.convnext_block = real
+    assert sorted(c for c in calls if c[0] == 128) == [(128, 1), (128, 5)]
+
+
 def test_fused_module_imports_no_jax():
     code = (
         "import sys\n"

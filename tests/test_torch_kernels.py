@@ -217,8 +217,15 @@ def _torch_args(w, C, K):
                 gain=t(w["gamma_gain"]).reshape(C))
 
 
-@pytest.mark.parametrize("ck", [(32, 3), (64, 5), (32, 5)])
+@pytest.mark.parametrize("ck", [(32, 3), (64, 5), (32, 5), (128, 5)])
 def test_convnext_plain_matches_jax_reference_and_pallas(ck):
+    """The plain version against JAX's reference (atol 1e-4) and JAX's
+    Pallas kernel in interpret mode, which rounds t and h to bf16: no
+    farther from it, element by element, than JAX's own reference is
+    (+1e-4), and within its bar of 0.05 at C <= 64. At C = 128 these
+    weights (std 0.2 at every C) give outputs up to 27 and JAX's kernel
+    misses that bar against its own reference (0.070 on 0.03% of the
+    elements, about 2.6e-3 of max |out|, as at C <= 64)."""
     C, K = ck
     H, W = 8, 128        # the Pallas kernel tiles rows of 128 lanes
     w = _jax_weights(C, K)
@@ -227,16 +234,19 @@ def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     got = pallas_convnext.convnext_block_plain(torch.from_numpy(x),
                                                **_torch_args(w, C, K))
     jw = {k: jnp.asarray(v) for k, v in w.items()}
-    ref = convnext_block_reference(jnp.asarray(x), jw)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
+    ref = np.asarray(convnext_block_reference(jnp.asarray(x), jw))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
     pad = K // 2
-    fused = from_cf_padded(fused_convnext_block(
+    fused = np.asarray(from_cf_padded(fused_convnext_block(
         to_cf_padded(jnp.asarray(x), pad=pad), **jw, H=H, W=W, pad=pad,
-        rows=H // 2, interpret=True), H=H, W=W, pad=pad)
-    np.testing.assert_allclose(got.numpy(), np.asarray(fused), atol=0.05)
+        rows=H // 2, interpret=True), H=H, W=W, pad=pad))
+    assert bool((np.abs(got.numpy() - fused)
+                 <= np.abs(ref - fused) + 1e-4).all())
+    if C <= 64:
+        np.testing.assert_allclose(got.numpy(), fused, atol=0.05)
 
 
-@pytest.mark.parametrize("ck", [(32, 1), (64, 1)])
+@pytest.mark.parametrize("ck", [(32, 1), (64, 1), (128, 1)])
 def test_convnext_plain_at_k1_matches_jax_reference(ck):
     """K1's plain version at K = 1 (the decoders of unet_laplacian_v3,
     _v4 and _v5: one depthwise tap, no halo) against JAX's
@@ -298,7 +308,7 @@ def test_quantize_matches_quantize_cf():
     assert got.min() == -127 and got.max() == 127
 
 
-@pytest.mark.parametrize("ck", [(32, 5), (64, 5), (32, 3)])
+@pytest.mark.parametrize("ck", [(32, 5), (64, 5), (32, 3), (128, 5)])
 def test_int8_unit_plain_matches_pallas_interpret(ck):
     C, K = ck
     H, W, pad = 8, 128, K // 2        # the Pallas kernel tiles 128 lanes
@@ -390,7 +400,13 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
               ((32, 3), torch.float32): (256, 91_776),
               ((32, 5), torch.float32): (256, 113_024),
               ((64, 1), torch.float32): (256, 205_568),
-              ((64, 5), torch.float32): (256, 207_104)}
+              ((64, 5), torch.float32): (256, 207_104),
+              # C = 128: 8 x 16 tiles in every mode, W2 and W3 streamed
+              # through two buffers of 32 E channels
+              ((128, 5), torch.bfloat16): (256, 209_408),
+              ((128, 5), torch.int8): (256, 178_688),
+              ((128, 5), torch.float32): (256, 209_920),
+              ((128, 1), torch.float32): (256, 206_336)}
     if (ck, dtype) in stated:
         assert (plan["threads_per_block"],
                 plan["smem_bytes"]) == stated[ck, dtype]
@@ -772,7 +788,8 @@ def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
     ``pallas_convnext.branch_units``, and never calls the kernel."""
     for (c, k) in sorted(pallas_convnext.KERNEL_SHAPES):
         assert ConvNextBlock(c, k, 4 * c).kernel_route
-    for args, kw in (((128, 1, 512), {}), ((128, 5, 512), {}),
+    for args, kw in (((128, 3, 512), {}), ((256, 5, 1024), {}),
+                     ((16, 5, 64), {}),
                      ((32, 3, 64), {}), ((64, 3, 256), {}),
                      ((32, 3, 128), dict(use_bias=True)),
                      ((32, 3, 128), dict(use_bn=True)),
