@@ -5,7 +5,8 @@
 // Replaces blind_image_denoising_tpu/ops/pallas_pyramid.py
 // laplacian_band_smooth_pallas (body _band_smooth_kernel). Memory-bound:
 // one read of x and one write each of band and smooth. One thread per
-// 16-byte vector of channels of one NHWC pixel; the tap sum is float32
+// 16-byte vector of channels of one NHWC pixel (a C that is no multiple of
+// it: band_smooth_narrow_kernel, 8, 4, 2 or 1 bytes); the tap sum is float32
 // in row-major tap order, then multiplied by 1/count computed from the
 // index (the plain PyTorch version, band_smooth_plain, does the same
 // arithmetic in the same order).
@@ -114,20 +115,97 @@ __global__ void __launch_bounds__(256) band_smooth_kernel(
   }
 }
 
+// N channels of one pixel moved as one N * sizeof(T)-byte load or store
+template <typename T, int N>
+struct alignas(N * sizeof(T)) Chans {
+  T v[N];
+};
+
+// band_smooth_kernel for a C that is no multiple of a 16-byte vector
+// (C = 108 in bf16: a band split of a unet_laplacian_v6 whose
+// filters_level_multiplier is 1.5): the same sums in the same order, N
+// channels a thread, N the largest power of two below a vector that
+// divides C
+template <typename T, int N>
+__global__ void __launch_bounds__(256) band_smooth_narrow_kernel(
+    const T* __restrict__ x, T* __restrict__ band, T* __restrict__ smooth,
+    int B, int H, int W, int C, int k) {
+  using Vec = Chans<T, N>;
+  const int cv_n = C / N;
+  const long long n = (long long)B * H * W * cv_n;
+  const int lo = (k - 1) / 2;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int cv = (int)(i % cv_n);
+    const long long pix = i / cv_n;
+    const int w = (int)(pix % W);
+    const long long bh = pix / W;
+    const int h = (int)(bh % H);
+    const long long b = bh / H;
+    const int y0 = h - lo, x0 = w - lo;
+    float acc[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[j] = 0.f;
+    for (int dy = 0; dy < k; ++dy) {
+      const int y = y0 + dy;
+      if (y < 0 || y >= H) continue;
+      for (int dx = 0; dx < k; ++dx) {
+        const int xx = x0 + dx;
+        if (xx < 0 || xx >= W) continue;
+        const Vec t = *reinterpret_cast<const Vec*>(
+            x + ((b * H + y) * W + xx) * C + cv * N);
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+          acc[j] = __fadd_rn(acc[j], bid::to_float(t.v[j]));
+      }
+    }
+    const int rows = min(y0 + k, H) - max(y0, 0);
+    const int cols = min(x0 + k, W) - max(x0, 0);
+    const float inv = __fdiv_rn(1.f, (float)(rows * cols));
+    const long long off = ((b * H + h) * W + w) * C + cv * N;
+    const Vec xc = *reinterpret_cast<const Vec*>(x + off);
+    Vec sb, ss;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float s = __fmul_rn(acc[j], inv);
+      ss.v[j] = bid::from_float<T>(s);
+      sb.v[j] = bid::from_float<T>(__fsub_rn(bid::to_float(xc.v[j]), s));
+    }
+    *reinterpret_cast<Vec*>(band + off) = sb;
+    *reinterpret_cast<Vec*>(smooth + off) = ss;
+  }
+}
+
 template <typename T>
 int launch(const void* x, void* band, void* smooth, int B, int H, int W,
            int C, int k, cudaStream_t stream) {
   constexpr int V = Vec16<T>::N;
-  if (C % V != 0 || k < 1 || B < 0 || H < 0 || W < 0) return BID_ERR_BAD_ARGUMENT;
-  const long long n = (long long)B * H * W * (C / V);
+  if (C < 1 || k < 1 || B < 0 || H < 0 || W < 0) return BID_ERR_BAD_ARGUMENT;
+  // channels a thread: a 16-byte vector, or the largest power of two below
+  // it that divides C
+  const int low = C & -C;
+  const int n_chans = C % V == 0 ? V : low < V / 2 ? low : V / 2;
+  const long long n = (long long)B * H * W * (C / n_chans);
   if (n == 0) return 0;
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
   const long long cap = (long long)bid::sm_count() * 16;
   if (blocks > cap) blocks = cap;
-  band_smooth_kernel<T><<<(int)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(band), static_cast<T*>(smooth),
-      B, H, W, C, k);
+  const T* xt = static_cast<const T*>(x);
+  T* bt = static_cast<T*>(band);
+  T* st = static_cast<T*>(smooth);
+  if (n_chans == V)
+    band_smooth_kernel<T><<<(int)blocks, threads, 0, stream>>>(
+        xt, bt, st, B, H, W, C, k);
+  else if (n_chans >= 4)
+    band_smooth_narrow_kernel<T, 4><<<(int)blocks, threads, 0, stream>>>(
+        xt, bt, st, B, H, W, C, k);
+  else if (n_chans == 2)
+    band_smooth_narrow_kernel<T, 2><<<(int)blocks, threads, 0, stream>>>(
+        xt, bt, st, B, H, W, C, k);
+  else
+    band_smooth_narrow_kernel<T, 1><<<(int)blocks, threads, 0, stream>>>(
+        xt, bt, st, B, H, W, C, k);
   return (int)cudaGetLastError();
 }
 

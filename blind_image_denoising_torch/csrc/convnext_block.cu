@@ -1,1233 +1,12 @@
-// One ConvNext residual unit at inference, fused:
-//   t = LN(depthwise_KxK(x)) (f32 stats, eps 1e-3, scale only)
-//   h = leaky_relu(W2 t, slope)   1x1, C -> E = 4C
-//   p = W3 h                      1x1, E -> C
-//   out = x + gain * p
-//
-// Replaces blind_image_denoising_tpu/ops/pallas_convnext.py
-// fused_convnext_block (body _block_kernel), float and int8 I/O modes.
-// NHWC in and out. Bound: bytes in bf16, the CUDA-core operations in int8,
-// the three TF32 passes of the products in f32
-// (blind_image_denoising_torch/ops/pallas_convnext.py has the counts); in
-// practice the bf16 and int8 kernel is bound by its instruction count
-// against the warp schedulers' rate, about half of it the depthwise sum's,
-// so the design spends as few instructions as it can there and keeps the
-// schedulers fed:
-// * persistent blocks walk over tiles of 8 x 32 output pixels of one image;
-//   the weights are staged into shared memory once per block;
-// * the input tile plus its K/2 halo arrives by 16-byte cp.async copies whose
-//   source size is 0 outside the image, so the hardware writes the SAME
-//   padding's zeros. bf16 I/O has two tile buffers: the copies of tile n+1
-//   are started before tile n's depthwise and waited for at the top of the
-//   next turn, so no warp waits on device memory. int8 I/O copies the raw
-//   codes of tile n+1 into a staging buffer while tile n is computed, and a
-//   pass after the wait dequantizes them into the one bf16 tile as
-//   bf16(q * bf16(scale_in)) (the product is exact in f32, so this is the JAX
-//   kernel's one bf16 rounding);
-// * depthwise + LayerNorm (bf16 tile): a thread owns one 16-byte channel
-//   group (8 channels) of R = 4 neighbouring output pixels of a row. Per tap
-//   row it loads its K x 8 f32 weights and the R + K - 1 input vectors once
-//   each, converts each once and does the R*K*8 FMAs from registers (1.6
-//   instructions per FMA; one thread per pixel over all channels took 2.9).
-//   The C/8 threads of a pixel are neighbouring lanes: mean and centred
-//   variance (two passes, f32) are butterfly sums over them, and each thread
-//   writes its 8 channels of t as one 16-byte bf16 store;
-// * each warp then runs both 1x1 products for 16 pixels at a time with
-//   mma.sync m16n8k16 (bf16 operands, f32 accumulation), its A and B
-//   fragments loaded by ldmatrix, two mma's operands per instruction. The
-//   expansion's accumulators, leaky-ReLU'd and rounded to bf16, are the
-//   projection's A fragments in registers (chunks of 64 of the E channels,
-//   32 at C = 64), so h never leaves the registers. The warp adds
-//   x + gain * p (int8: requantizes with
-//   __float2int_rn(out * f32(1/scale_out)), round half to even like
-//   jnp.round, clamped to +-127) into its own rows of the t tile and writes
-//   them to device memory with 16-byte stores, so a tile costs two block
-//   barriers (three in int8);
-// * threads and shared memory: C = 32 runs 256 threads and two blocks per SM
-//   (16 warps; (32,5) bf16: weights 22,400 B + 2 x 34,560 B tiles + 20,480 B
-//   t = 112,000 B). At C = 64 the bf16 W2 and W3 alone are 70,656 B, so one
-//   block of 512 threads (16 warps) owns the SM: weights 77,568 B + 2 x
-//   55,296 B tiles + 36,864 B t = 225,024 B of the 232,448 B a block may
-//   have. That fits only with unpadded 128-byte pixel rows in the tile, so
-//   there the 16-byte chunks of a pixel are XOR-swizzled by its column
-//   (chunk ^ (column & 7)): the depthwise reads (8 lanes, one pixel, all
-//   chunks) and the epilogue's (8 lanes, 8 neighbouring pixels, one chunk)
-//   both stay free of bank conflicts. At C = 32 the rows are padded to 80
-//   bytes instead (two runs 4 pixels apart fall into opposite halves of the
-//   128-byte bank line).
-//
-// f32 I/O keeps float32 accuracy and runs the two products, 95% of its
-// operations, on the tensor cores as error-compensated 3xTF32: each operand
-// v is split into big = v rounded to TF32 and small = v - big (exact), and
-// D += small.big + big.small + big.big with mma.sync m16n8k8 (TF32, f32
-// accumulation), small.small dropped; the tensor core reads the top 19 bits
-// of each operand, so small is passed as it is. Rounding of big, at the
-// integer rate (cvt.rna.tf32.f32 runs at the conversion rate, a quarter of
-// it): t and h, once per pixel and step, to nearest with ties away from
-// zero ((bits + 0x1000) & ~0x1fff); the weights, split on every load,
-// truncated (bits & ~0x1fff, which the compiler folds into the tensor
-// core's own truncation, so a weight costs a LOP and an FADD for its small
-// part). Truncation raises the error 1.1-1.7x over rounding to nearest;
-// either way it is about 1e-6 of max |out|. The least time is the three
-// passes over the TF32 rate; mma.sync's TF32 rate (2/3 of the dense peak
-// on the H100: python3 k1_compare.py --mma-rate) and the splits'
-// instructions cap what is reached.
-// * tiles of 8 x 16 pixels, 256 threads: warp w owns tile row w, one m16
-//   tile of the products. Lane (g = lane / 4, q = lane % 4) owns pixels 2g
-//   and 2g + 1 (the m16 tile's rows g and g + 8) and, of each 16 channels,
-//   the 4 at 4q. Depthwise: per group and tap row it loads the K weight and
-//   K + 1 input vectors once and does the 2K x 4 FMAs from registers; the 4
-//   lanes of a pixel pair share the LayerNorm's two-pass statistics by
-//   shuffles. t and the pixels' own x stay in registers;
-// * the product's k order is free, so channel 16i + 4q + r is the k index
-//   of the lane's A fragments of k-steps 2i (r = 0, 1) and 2i + 1 (r = 2,
-//   3): t in registers is the expansion's A operand as it stands. m16n8k8's
-//   accumulator holds columns 2q, 2q + 1 where its A operand wants q, q + 4,
-//   so W3's E index is permuted within each group of 8 as [0,2,4,6,1,3,5,7]
-//   when staged: then the expansion's accumulators d0..d3, leaky-ReLU'd in
-//   f32 and split, are the projection's A fragment d0, d2, d1, d3, and h
-//   (32 E channels a step at C = 64, 16 at C = 32, where two blocks of 8
-//   warps share an SM's registers) never leaves the registers. W3's output
-//   rows are permuted the same way, so a lane's projection accumulators are
-//   its own pixels' channels 16i + 4q .. + 3: the epilogue adds them to x
-//   with __fadd_rn(x, __fmul_rn(gain, p)) and stores 16 bytes a pixel and
-//   group;
-// * W2 and W3 stay float32 in shared memory in fragment order (one warp's B
-//   operands of two n8 tiles are 512 contiguous bytes, read by LDS.128 free
-//   of bank conflicts) and are split as they are loaded: split weights would
-//   double both the bytes (2 x 131,072 B at C = 64) and the shared-memory
-//   reads a product needs;
-// * pixel rows of the tile are padded by 32 bytes, so the two lane quads of
-//   a quarter-warp (pixels two apart) fall into opposite halves of the bank
-//   line. (32, K): two 16-byte-aligned tile buffers, the copies of tile n+1
-//   in flight while tile n is computed, 2 blocks of 8 warps per SM ((32,5):
-//   3,456 B depthwise, LN and gain + 2 x 38,400 B tiles + 32,768 B W2 and W3
-//   = 113,024 B). (64,5): W2 and W3 are 131,072 B and two 69,120 B tiles do
-//   not fit, so there is one, and the copies of tile n+1 into it start once
-//   every warp has done its depthwise, overlapping the products: 6,912 +
-//   69,120 + 131,072 = 207,104 B, one block of 8 warps. (64,1) has two tiles
-//   of 36,864 B (205,568 B). No atomics: the same inputs give the same bits.
-//
-// C = 128 (the level-2 units of unet_laplacian_v3 / v4, the fused level 2
-// of a depth-4 unet_laplacian_v6): W2 and W3 (272,384 B in bf16, 524,288 B
-// in f32) do not fit beside a tile, so they are not staged once per block
-// but stream through two weight buffers of ECH = 32 of the E channels (W2's
-// rows, W3's matching columns; 18,944 B in bf16, 32,768 B in f32). At chunk
-// c of a tile one barrier covers both "chunk c has landed" and "every warp
-// is past chunk c - 1", and the copies of chunk c + 1 (after the last, the
-// next tile's chunk 0) go to the buffer c - 1 used. Every mode takes 8 x 16
-// tiles with 256 threads, one m16 tile a warp and one block an SM: bf16
-// (128,5) 13,824 B depthwise, LN and gain + 2 x 61,440 B swizzled tiles +
-// 2 x 18,944 B weight buffers + 34,816 B t = 209,408 B (int8 178,688 B,
-// one tile and the 30,720 B of codes); f32 (128,5) one 130,560 B tile +
-// 2 x 32,768 B = 209,920 B, refilled from the first chunk on; (128,1) two
-// tiles. bf16 and int8: a warp's A fragments of t (32 registers) and its
-// projection accumulators (64) stay in registers across the 16 chunks.
-// f32: the chunks are staged in a fragment order a 16-byte cp.async can
-// copy (pair_index: a lane's B operands of two k-steps of one n8 tile are
-// four neighbouring channels of a row), t (64 registers) and the
-// accumulators (64) stay in registers, the residual x is read back from
-// device memory, and a chunk's two 16-channel steps are not unrolled into
-// each other (two unrolled spilled 28-40 bytes at 255 registers). At
-// C = 128 the unit does 512 operations a byte of bf16 I/O, above the card's
-// ridge: it is bound by its products, which mma.sync runs at about 2/3 of
-// the tensor cores' dense rate.
-#include <limits.h>
-
-#include <type_traits>
-
-#include "common.cuh"
+// One ConvNext residual unit at inference, fused (K1): the C entry points
+// and the nine (C, K) with instantiations of their own. Replaces
+// blind_image_denoising_tpu/ops/pallas_convnext.py fused_convnext_block
+// (body _block_kernel), float and int8 I/O modes; the design, and how
+// every other C up to 256 at K = 1, 3, 5 runs (convnext_class.cu,
+// convnext_wide.cu), is noted in convnext_block.cuh.
+#include "convnext_block.cuh"
 
 namespace {
-
-using bid::bf16;
-
-constexpr float kLnEps = 1e-3f;
-
-constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-
-// dynamic shared memory one block may have on an H100
-constexpr size_t kMaxSmem = 232448;
-
-// I/O type T; S is the type of the shared input tile and of the 1x1 weights
-// (int8 codes are dequantized into a bf16 tile)
-template <typename T, int C_, int K_>
-struct Cfg {
-  using S = std::conditional_t<std::is_same<T, float>::value, float, bf16>;
-  static constexpr int C = C_, K = K_, E = 4 * C_, PAD = K_ / 2;
-  // the two products on bf16 operands (bf16 and int8 I/O); f32 I/O runs
-  // them in 3xTF32
-  static constexpr bool kMma = std::is_same<S, bf16>::value;
-  static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  // C = 128: W2 and W3 (272,384 B in bf16, 524,288 B in f32) do not fit
-  // beside a tile, so they stream through two buffers of ECH of the E
-  // channels each (W2's rows, W3's columns), the copies of chunk n+1 in
-  // flight while chunk n is multiplied
-  static constexpr bool kStream = C == 128;
-  static constexpr int ECH = 32, NCH = E / ECH;
-  static constexpr int TH = 8, TW = kMma && !kStream ? 32 : 16;
-  static constexpr int P = TH * TW;          // pixels per tile
-  // threads per block (f32: a warp per tile row), and the blocks per SM
-  // the registers are capped for
-  static constexpr int NT = !kMma ? 32 * TH : C == 64 ? 512 : 256;
-  static constexpr int MIN_BLOCKS = C == 32 ? 2 : 1;
-  // bf16 tile: a thread's depthwise work item is one 16-byte channel
-  // group (8 channels) of R neighbouring output pixels of one row
-  static constexpr int R = 4, CG = C / 8;
-  // E channels per step of the products: their expansion accumulators are
-  // EC/2 registers, and at C = 64 (512 threads) a thread has 128 in all;
-  // at C = 128 a step is one streamed chunk
-  static constexpr int EC = C >= 64 ? 32 : 64;
-  // f32: E channels per step of the products: their expansion accumulators
-  // are EF/2 registers, and at C = 32 (two blocks per SM) a thread has 128
-  static constexpr int EF = C == 32 ? 16 : 32;
-  static_assert(!kStream || (EC == ECH && EF == ECH && E % ECH == 0),
-                "a step of the products is one streamed chunk");
-  static constexpr int RUNS_W = TW / R, ITEMS = TH * RUNS_W * CG;
-  static constexpr int IH = TH + 2 * PAD, IW = TW + 2 * PAD;
-  static constexpr int V = 16 / sizeof(S);   // tile elements per 16 bytes
-  static constexpr int VIO = 16 / sizeof(T); // I/O elements per 16 bytes
-  // input tile: unpadded and swizzled at C >= 64 on the bf16 path, else
-  // pixel rows padded by 8 elements (16 bytes in bf16, 32 in f32); either
-  // way the warp's accesses below are free of shared-memory bank conflicts
-  static constexpr bool kSwizzle = kMma && C >= 64;
-  static constexpr int LDX = kSwizzle ? C : C + 8;
-  static constexpr int LDT = C + 8;          // bf16 t / output tile rows
-  // E channels of W2 and W3 held in one weight buffer: all, or one chunk
-  static constexpr int EW = kStream ? ECH : E;
-  static constexpr int LDW2 = C + 8;         // bf16 W2 [EW][C] rows
-  static constexpr int LDW3 = EW + 8;        // bf16 W3 [C][EW] rows
-  static constexpr size_t XBUF = sizeof(S) * IH * IW * LDX;
-  // bf16/int8: W2 bf16 [EW][LDW2], then W3 bf16 [C][LDW3]
-  // f32:       W2 and W3 f32 in fragment order, EW*C each (see the
-  //            staging in the kernel and load_chunk_async)
-  static constexpr size_t W2_BYTES =
-      align16(kMma ? 2 * EW * LDW2 : 4 * EW * C);
-  static constexpr size_t W3_BYTES =
-      align16(kMma ? 2 * C * LDW3 : 4 * EW * C);
-  static constexpr size_t WBUF = W2_BYTES + W3_BYTES;
-  static constexpr int NWBUF = kStream ? 2 : 1;
-  // shared-memory layout (bytes)
-  // depthwise weights: f32 [K*K][C]; for the bf16 tile [K*K][2][CG][4],
-  // channel c at [c % 8 / 4][c / 8][c % 4], so that a warp's 16-byte reads
-  // of one half of every group's 8 weights are contiguous
-  static constexpr size_t OFF_DW = 0;
-  static constexpr size_t OFF_LN = align16(OFF_DW + 4 * K * K * C);
-  static constexpr size_t OFF_GN = align16(OFF_LN + 4 * C);
-  static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
-  // tile buffers: bf16 I/O prefetches into a second tile, int8 I/O into a
-  // staging buffer of raw codes [IH*IW][C], f32 I/O into a second tile
-  // where two fit beside the f32 weights (all but (64, 5) and (128, 5))
-  static constexpr int NXBUF =
-      kInt8 ? 1
-      : kMma || OFF_X + 2 * XBUF + NWBUF * WBUF <= kMaxSmem ? 2 : 1;
-  static constexpr size_t OFF_STAGE = align16(OFF_X + NXBUF * XBUF);
-  // the weight buffers, then the bf16 t/out tile [P][LDT] (int8 output
-  // rows are staged in the same rows)
-  static constexpr size_t OFF_W2 =
-      align16(OFF_STAGE + (kInt8 ? IH * IW * C : 0));
-  static constexpr size_t OFF_W3 = OFF_W2 + W2_BYTES;
-  static constexpr size_t OFF_T = OFF_W2 + NWBUF * WBUF;
-  static constexpr size_t SMEM = OFF_T + (kMma ? 2 * P * LDT : 0);
-  static_assert(XBUF % 16 == 0, "tile buffers keep 16-byte alignment");
-  static_assert(SMEM <= kMaxSmem, "one block's shared memory fits");
-
-  // element offset, within a tile row, of 16-byte chunk `chunk` of the
-  // pixel in column `ix`
-  static __device__ __forceinline__ int xoff(int ix, int chunk) {
-    if constexpr (kSwizzle) chunk ^= ix & 7;
-    return ix * LDX + chunk * V;
-  }
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float leaky(float v, float slope) {
-  return v >= 0.f ? v : v * slope;
-}
-
-// round(v * inv) half to even, clamped to the symmetric int8 range
-__device__ __forceinline__ signed char quant_int8(float v, float inv) {
-  const int q = __float2int_rn(__fmul_rn(v, inv));
-  return (signed char)max(-127, min(127, q));
-}
-
-// D += A B for one m16n8k16 tile: A row-major bf16 (4 regs), B col-major
-// bf16 (2 regs), D f32 (4 regs)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t shared_address(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the
-// shared-memory addresses of the 16-byte rows of matrix i, and lane l
-// receives elements 2(l%4), 2(l%4)+1 of row l/4 of matrix i in r[i], which is
-// how mma.sync lays out its A (row-major) and B (column-major) fragments.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(row)
-      : "memory");
-}
-
-// 16 bytes global -> shared (a shared-memory address), asynchronously; 16
-// zero bytes when !valid (src must be a valid address all the same)
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            bool valid) {
-  const size_t s = __cvta_generic_to_global(src);
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(s), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// a tile's image and the image coordinates of its first output pixel
-struct Tile {
-  long long b;
-  int y0, x0;
-};
-
-// Start the copies of one input tile plus halo into `dst`: the tile buffer
-// (float and bf16 I/O) or the staging buffer of raw codes (int8 I/O).
-template <typename G, typename T>
-__device__ __forceinline__ void load_tile_async(const T* __restrict__ x,
-                                                unsigned char* dst, Tile t,
-                                                int H, int W, int tid) {
-  // a row of the tile, halo included, is contiguous in x: ROW 16-byte chunks
-  constexpr int CV = G::C / G::VIO, ROW = G::IW * CV;
-  const uint32_t d0 = shared_address(dst);
-  // element offset of the tile's first halo pixel (it may lie off the image)
-  const long long origin =
-      ((t.b * H + (t.y0 - G::PAD)) * W + (t.x0 - G::PAD)) * G::C;
-  for (int i = tid; i < G::IH * ROW; i += G::NT) {
-    const int iy = i / ROW, j = i - iy * ROW;
-    const int ix = j / CV, cv = j % CV;
-    const bool inside = (unsigned)(t.y0 - G::PAD + iy) < (unsigned)H &&
-                        (unsigned)(t.x0 - G::PAD + ix) < (unsigned)W;
-    // a copy of no bytes still takes a valid address: the tensor's start
-    const T* src =
-        inside ? x + (origin + ((iy * W + ix) * G::C + cv * G::VIO)) : x;
-    const int d = G::kInt8 ? (iy * G::IW + ix) * G::C + cv * 16
-                           : (int)sizeof(typename G::S) *
-                                 (iy * G::IW * G::LDX + G::xoff(ix, cv));
-    cp_async_16(d0 + d, src, inside);
-  }
-  cp_async_commit();
-}
-
-// int8 I/O: staged codes -> bf16 tile, bf16(q * bf16(scale_in))
-template <typename G>
-__device__ __forceinline__ void dequantize_tile(
-    const unsigned char* __restrict__ stage, bf16* __restrict__ xs,
-    float s_in, int tid) {
-  constexpr int CV = G::C / 16;
-  for (int i = tid; i < G::IH * G::IW * CV; i += G::NT) {
-    const int cv = i % CV, pix = i / CV;
-    const int iy = pix / G::IW, ix = pix % G::IW;
-    const uint4 v =
-        *reinterpret_cast<const uint4*>(stage + pix * G::C + cv * 16);
-    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-    bf16* row = xs + iy * G::IW * G::LDX;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint4 d;
-      uint32_t* dp = reinterpret_cast<uint32_t*>(&d);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // (float)q without the slow I2F: code + 128 as the low byte of
-        // 2^23's mantissa is exactly 2^23 + 128 + q
-        const uint32_t u = words[2 * h + j] ^ 0x80808080u;
-        float f[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + e)) -
-                 8388736.f;
-        dp[2 * j] = pack_bf16(__fmul_rn(f[0], s_in), __fmul_rn(f[1], s_in));
-        dp[2 * j + 1] =
-            pack_bf16(__fmul_rn(f[2], s_in), __fmul_rn(f[3], s_in));
-      }
-      *reinterpret_cast<uint4*>(row + G::xoff(ix, 2 * cv + h)) = d;
-    }
-  }
-}
-
-// Depthwise KxK + LayerNorm on the bf16 tile, t -> ts as bf16 rows. Per tap
-// row the thread loads its K x 8 weights and the R + K - 1 input vectors
-// once each and does the R*K*8 FMAs from registers, taps in (dy, dx) order
-// per output. The C/8 threads that share a pixel are neighbouring lanes of
-// one warp: the LayerNorm's mean and its centred variance (two passes, f32)
-// are butterfly sums over them. Every lane of a warp has an item or none
-// (ITEMS is a multiple of 32), and pixels outside the image are computed on
-// the tile's zeros, so the shuffles always see a full warp.
-template <typename G>
-__device__ __forceinline__ void depthwise_layernorm(
-    const bf16* __restrict__ xs, const float* __restrict__ dws,
-    const float* __restrict__ lns, bf16* __restrict__ ts, int tid) {
-  constexpr int C = G::C, K = G::K, R = G::R, CG = G::CG;
-  static_assert(G::TW % R == 0 && 32 % CG == 0 && G::ITEMS % 32 == 0,
-                "runs tile the rows and the lanes of a pixel share a warp");
-  for (int item = tid; item < G::ITEMS; item += G::NT) {
-    const int cg = item % CG, run = item / CG;
-    const int ry = run / G::RUNS_W, rx = (run % G::RUNS_W) * R;
-    int xo[R + K - 1];  // this thread's chunk of each input pixel of a row
-#pragma unroll
-    for (int i = 0; i < R + K - 1; ++i) xo[i] = G::xoff(rx + i, cg);
-    const float4* wp = reinterpret_cast<const float4*>(dws) + cg;
-    float acc[R][8];
-#pragma unroll
-    for (int j = 0; j < R; ++j)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
-#pragma unroll
-    for (int dy = 0; dy < K; ++dy) {
-      const bf16* xrow = xs + (ry + dy) * G::IW * G::LDX;
-      float w[K][8];
-#pragma unroll
-      for (int dx = 0; dx < K; ++dx) {
-        const float4 lo = wp[((dy * K + dx) * 2 + 0) * CG];
-        const float4 hi = wp[((dy * K + dx) * 2 + 1) * CG];
-        w[dx][0] = lo.x, w[dx][1] = lo.y, w[dx][2] = lo.z, w[dx][3] = lo.w;
-        w[dx][4] = hi.x, w[dx][5] = hi.y, w[dx][6] = hi.z, w[dx][7] = hi.w;
-      }
-#pragma unroll
-      for (int i = 0; i < R + K - 1; ++i) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(xrow + xo[i]);
-        const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
-        float xv[8];
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {  // bf16 -> f32 is exact
-          xv[2 * h] = __uint_as_float(u[h] << 16);
-          xv[2 * h + 1] = __uint_as_float(u[h] & 0xffff0000u);
-        }
-#pragma unroll
-        for (int dx = 0; dx < K; ++dx) {
-          const int j = i - dx;  // the output pixel this tap feeds
-          if (j >= 0 && j < R) {
-#pragma unroll
-            for (int c = 0; c < 8; ++c)
-              acc[j][c] = fmaf(xv[c], w[dx][c], acc[j][c]);
-          }
-        }
-      }
-    }
-    const float4 l0 = reinterpret_cast<const float4*>(lns)[2 * cg];
-    const float4 l1 = reinterpret_cast<const float4*>(lns)[2 * cg + 1];
-    const float lw[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      float* a = acc[j];
-      float sum = ((a[0] + a[1]) + (a[2] + a[3])) +
-                  ((a[4] + a[5]) + (a[6] + a[7]));
-#pragma unroll
-      for (int o = 1; o < CG; o <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float mean = sum * (1.f / C);
-      float sq = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        a[c] -= mean;
-        sq = fmaf(a[c], a[c], sq);
-      }
-#pragma unroll
-      for (int o = 1; o < CG; o <<= 1)
-        sq += __shfl_xor_sync(0xffffffffu, sq, o);
-      const float rs = rsqrtf(sq * (1.f / C) + kLnEps);
-      uint4 v;
-      v.x = pack_bf16(a[0] * rs * lw[0], a[1] * rs * lw[1]);
-      v.y = pack_bf16(a[2] * rs * lw[2], a[3] * rs * lw[3]);
-      v.z = pack_bf16(a[4] * rs * lw[4], a[5] * rs * lw[5]);
-      v.w = pack_bf16(a[6] * rs * lw[6], a[7] * rs * lw[7]);
-      *reinterpret_cast<uint4*>(ts + (ry * G::TW + rx + j) * G::LDT + cg * 8) =
-          v;
-    }
-  }
-}
-
-// One step of both 1x1 products on the tensor cores for one m16 tile of t
-// rows (A fragments af): the expansion of EC of the E channels, whose
-// accumulators, leaky-ReLU'd and rounded to bf16, are the projection's A
-// fragments in registers, then that step's share of the projection into
-// pacc. w2 / w3: this lane's ldmatrix row addresses at the step's first E
-// row of W2 and first E column of W3.
-template <typename G>
-__device__ __forceinline__ void expand_project(
-    const uint32_t (&af)[G::C / 16][4], float (&pacc)[G::C / 8][4],
-    uint32_t w2, uint32_t w3, float slope) {
-  constexpr int C = G::C;
-  float hacc[G::EC / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < G::EC / 8; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) hacc[nt][i] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < C / 16; kt += 2) {
-      uint32_t b[4];  // B fragments of two k16 steps
-      ldmatrix_x4(b, w2 + 2 * (nt * 8 * G::LDW2 + kt * 16));
-      mma_bf16(hacc[nt], af[kt], b[0], b[1]);
-      mma_bf16(hacc[nt], af[kt + 1], b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < G::EC / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(leaky(hacc[2 * kk][0], slope),
-                     leaky(hacc[2 * kk][1], slope));
-    a[1] = pack_bf16(leaky(hacc[2 * kk][2], slope),
-                     leaky(hacc[2 * kk][3], slope));
-    a[2] = pack_bf16(leaky(hacc[2 * kk + 1][0], slope),
-                     leaky(hacc[2 * kk + 1][1], slope));
-    a[3] = pack_bf16(leaky(hacc[2 * kk + 1][2], slope),
-                     leaky(hacc[2 * kk + 1][3], slope));
-#pragma unroll
-    for (int nt = 0; nt < C / 8; nt += 2) {
-      uint32_t b[4];  // B fragments of two n8 groups
-      ldmatrix_x4(b, w3 + 2 * (nt * 8 * G::LDW3 + kk * 16));
-      mma_bf16(pacc[nt], a, b[0], b[1]);
-      mma_bf16(pacc[nt + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// out = x + gain * p for the warp's m16 tile at pixel m0 of the tile, from
-// the projection's accumulators, into the warp's own rows of the t tile
-// (int8: requantized, C bytes at the start of each row) and from there to
-// device memory with 16-byte stores.
-template <typename G, typename T>
-__device__ __forceinline__ void store_tile_rows(
-    const bf16* __restrict__ xs, bf16* __restrict__ ts,
-    const float (&pacc)[G::C / 8][4], const float* __restrict__ gns,
-    T* __restrict__ out, Tile t, int H, int W, float inv_out, int m0,
-    int lane) {
-  constexpr int C = G::C;
-  const int g = lane >> 2, q = lane & 3;
-  __syncwarp();  // every lane has its A fragments: the rows may change
-#pragma unroll
-  for (int nt = 0; nt < C / 8; ++nt) {
-    const int c = nt * 8 + 2 * q;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int m = m0 + g + 8 * hf;
-      const int ly = m / G::TW, lx = m % G::TW;
-      const bf16* xr = xs + (ly + G::PAD) * G::IW * G::LDX +
-                       G::xoff(lx + G::PAD, nt) + 2 * q;
-      const float o0 = __fadd_rn(bid::to_float(xr[0]),
-                                 __fmul_rn(gns[c], pacc[nt][2 * hf]));
-      const float o1 = __fadd_rn(bid::to_float(xr[1]),
-                                 __fmul_rn(gns[c + 1], pacc[nt][2 * hf + 1]));
-      if constexpr (G::kInt8) {
-        char2 qv;
-        qv.x = quant_int8(o0, inv_out);
-        qv.y = quant_int8(o1, inv_out);
-        *reinterpret_cast<char2*>(
-            reinterpret_cast<signed char*>(ts + m * G::LDT) + c) = qv;
-      } else {
-        *reinterpret_cast<uint32_t*>(ts + m * G::LDT + c) = pack_bf16(o0, o1);
-      }
-    }
-  }
-  __syncwarp();
-  constexpr int OV = C / G::VIO;  // 16-byte stores per pixel
-  for (int i = lane; i < 16 * OV; i += 32) {
-    const int m = m0 + i / OV, cv = i % OV;
-    const int gy = t.y0 + m / G::TW, gx = t.x0 + m % G::TW;
-    if (gy < H && gx < W)
-      *reinterpret_cast<uint4*>(out + ((t.b * H + gy) * W + gx) * C +
-                                cv * G::VIO) =
-          *reinterpret_cast<const uint4*>(
-              reinterpret_cast<const unsigned char*>(ts + m * G::LDT) +
-              cv * 16);
-  }
-}
-
-// this lane's ldmatrix row addresses (matrix lane / 8, row lane % 8):
-// A of t rows: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15) of a k16 step;
-// B of W2 [EW][C]: one n8 group of rows, k 0-7 | 8-15 | 16-23 | 24-31;
-// B of W3 [C][EW]: n8 groups (nt | nt + 1) x (k 0-7 | 8-15) of a k16 step
-template <typename G>
-struct LaneRows {
-  uint32_t a, w2, w3;
-  __device__ __forceinline__ LaneRows(const bf16* ts, const bf16* w2s,
-                                      const bf16* w3s, int lane) {
-    const int lr = lane & 7, lm = lane >> 3;
-    a = shared_address(ts + (lr + (lm & 1) * 8) * G::LDT + (lm >> 1) * 8);
-    w2 = shared_address(w2s + lr * G::LDW2 + lm * 8);
-    w3 = shared_address(w3s + ((lm >> 1) * 8 + lr) * G::LDW3 + (lm & 1) * 8);
-  }
-};
-
-// the A fragments of the m16 tile at pixel m0 of the t tile
-template <typename G>
-__device__ __forceinline__ void load_a(uint32_t (&af)[G::C / 16][4],
-                                       uint32_t a_lane, int m0) {
-#pragma unroll
-  for (int kt = 0; kt < G::C / 16; ++kt)
-    ldmatrix_x4(af[kt], a_lane + 2 * (m0 * G::LDT + kt * 16));
-}
-
-// Both 1x1 products on the tensor cores with W2 and W3 resident, 16 pixels
-// (one m16 tile of t rows) per warp and step, then the epilogue.
-template <typename G, typename T>
-__device__ __forceinline__ void products_store(
-    const bf16* __restrict__ xs, bf16* __restrict__ ts,
-    const bf16* __restrict__ w2s, const bf16* __restrict__ w3s,
-    const float* __restrict__ gns, T* __restrict__ out, Tile t, int H, int W,
-    float slope, float inv_out, int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  const LaneRows<G> rows(ts, w2s, w3s, lane);
-  for (int mt = warp; mt < G::P / 16; mt += G::NT / 32) {
-    const int m0 = mt * 16;
-    uint32_t af[G::C / 16][4];
-    load_a<G>(af, rows.a, m0);
-    float pacc[G::C / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < G::C / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
-#pragma unroll 1
-    for (int ec = 0; ec < G::E; ec += G::EC)
-      expand_project<G>(af, pacc, rows.w2 + 2 * ec * G::LDW2,
-                        rows.w3 + 2 * ec, slope);
-    store_tile_rows<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out, m0, lane);
-  }
-}
-
-// permutation of the 16 columns of an m16n8k8 n8 tile pair (2j + s, the
-// n index n) that makes a lane's B operands of two k-steps one 16-byte
-// vector of W2's or W3's rows (the f32 chunk layout below)
-__device__ __forceinline__ int pair_index(int tile, int n) {
-  return 16 * (tile >> 1) + 4 * (n >> 1) + 2 * (tile & 1) + (n & 1);
-}
-
-// Start the copies of E chunk `chunk` of W2 (its ECH rows) and W3 (its ECH
-// columns) into the weight buffer at `dst`. bf16: W2 [ECH][LDW2], W3
-// [C][LDW3], rows as in device memory. f32, in fragment order, one 16-byte
-// vector per lane (g = lane / 4, q = lane % 4): W2 vector (n, i) holds
-// channels 16i + 4q .. + 3 of E row pair_index(n, g), the B operands of
-// the expansion's k-steps 2i, 2i + 1 for its n8 tile n; W3 vector (m, o)
-// holds E 16m + 4q .. + 3 of output channel pair_index(o, g), the B
-// operands of the projection's k-steps 2m, 2m + 1 for its n8 tile o.
-template <typename G>
-__device__ __forceinline__ void load_chunk_async(
-    const typename G::S* __restrict__ w2, const typename G::S* __restrict__ w3,
-    unsigned char* dst, int chunk, int tid) {
-  constexpr int C = G::C, E = G::E, ECH = G::ECH;
-  const int e0 = chunk * ECH;
-  const uint32_t d2 = shared_address(dst);
-  const uint32_t d3 = d2 + (uint32_t)G::W2_BYTES;
-  if constexpr (G::kMma) {
-    for (int i = tid; i < ECH * C / 8; i += G::NT) {
-      const int r = i / (C / 8), p = i % (C / 8);
-      cp_async_16(d2 + 2 * (r * G::LDW2 + p * 8), w2 + (e0 + r) * C + p * 8,
-                  true);
-    }
-    for (int i = tid; i < C * ECH / 8; i += G::NT) {
-      const int r = i / (ECH / 8), p = i % (ECH / 8);
-      cp_async_16(d3 + 2 * (r * G::LDW3 + p * 8), w3 + r * E + e0 + p * 8,
-                  true);
-    }
-  } else {
-    for (int i = tid; i < ECH * C / 4; i += G::NT) {
-      const int lane = i & 31, g = lane >> 2, q = lane & 3, rest = i >> 5;
-      const int n = rest / (C / 16), ii = rest % (C / 16);
-      cp_async_16(d2 + 16 * i,
-                  w2 + (e0 + pair_index(n, g)) * C + 16 * ii + 4 * q, true);
-      const int m = rest / (C / 8), o = rest % (C / 8);
-      cp_async_16(d3 + 16 * i,
-                  w3 + pair_index(o, g) * E + e0 + 16 * m + 4 * q, true);
-    }
-  }
-  cp_async_commit();
-}
-
-// D += A B for one m16n8k8 tile on TF32 operands: A row-major (4 regs), B
-// column-major (2 regs), D f32 (4 regs). The tensor core reads the top 19
-// bits of each f32 operand. Not volatile, so that the compiler may
-// interleave independent products
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// v = big + small exactly: big is v truncated to TF32, small the rest (the
-// weights: the compiler passes v itself for big, as the tensor core
-// truncates it the same way)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
-                                           uint32_t& small) {
-  big = __float_as_uint(v) & 0xffffe000u;
-  small = __float_as_uint(__fsub_rn(v, __uint_as_float(big)));
-}
-
-// the same with big rounded to nearest, ties away from zero (t and h: a
-// value of its own, which also spares the copies that would line a
-// permuted A fragment up from the accumulators)
-__device__ __forceinline__ void split_tf32_rn(float v, uint32_t& big,
-                                              uint32_t& small) {
-  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(__fsub_rn(v, __uint_as_float(big)));
-}
-
-// Two n8 tiles of a 3xTF32 product: d0, d1 += A B with A split into ab, as
-// and the B fragments of both tiles in one 16-byte vector from shared
-// memory (b0, b1 of tile 0, then of tile 1). Per tile small.big and
-// big.small go before big.big; the two tiles' chains interleave.
-__device__ __forceinline__ void mma_3xtf32_pair(float (&d0)[4], float (&d1)[4],
-                                                const uint32_t (&ab)[4],
-                                                const uint32_t (&as)[4],
-                                                float4 b) {
-  uint32_t bb[4], bs[4];
-  split_tf32(b.x, bb[0], bs[0]);
-  split_tf32(b.y, bb[1], bs[1]);
-  split_tf32(b.z, bb[2], bs[2]);
-  split_tf32(b.w, bb[3], bs[3]);
-  mma_tf32(d0, as, bb[0], bb[1]);
-  mma_tf32(d1, as, bb[2], bb[3]);
-  mma_tf32(d0, ab, bs[0], bs[1]);
-  mma_tf32(d1, ab, bs[2], bs[3]);
-  mma_tf32(d0, ab, bb[0], bb[1]);
-  mma_tf32(d1, ab, bb[2], bb[3]);
-}
-
-// One n8 tile of a 3xTF32 product over two k-steps: d += A0 B0 + A1 B1
-// with A0 split into ab0, as0 and A1 into ab1, as1, and the B fragments of
-// both k-steps in one 16-byte vector from shared memory (b0, b1 of k-step
-// 0, then of k-step 1). small.big and big.small go before big.big.
-__device__ __forceinline__ void mma_3xtf32_ksteps(
-    float (&d)[4], const uint32_t (&ab0)[4], const uint32_t (&as0)[4],
-    const uint32_t (&ab1)[4], const uint32_t (&as1)[4], float4 b) {
-  uint32_t bb[4], bs[4];
-  split_tf32(b.x, bb[0], bs[0]);
-  split_tf32(b.y, bb[1], bs[1]);
-  split_tf32(b.z, bb[2], bs[2]);
-  split_tf32(b.w, bb[3], bs[3]);
-  mma_tf32(d, as0, bb[0], bb[1]);
-  mma_tf32(d, ab0, bs[0], bs[1]);
-  mma_tf32(d, as1, bb[2], bb[3]);
-  mma_tf32(d, ab1, bs[2], bs[3]);
-  mma_tf32(d, ab0, bb[0], bb[1]);
-  mma_tf32(d, ab1, bb[2], bb[3]);
-}
-
-// split four f32 values into the A fragment (big, small) of an m16n8k8 tile
-__device__ __forceinline__ void split_a(float a0, float a1, float a2,
-                                        float a3, uint32_t (&ab)[4],
-                                        uint32_t (&as)[4]) {
-  split_tf32_rn(a0, ab[0], as[0]);
-  split_tf32_rn(a1, ab[1], as[1]);
-  split_tf32_rn(a2, ab[2], as[2]);
-  split_tf32_rn(a3, ab[3], as[3]);
-}
-
-// f32 I/O with streamed weights (C = 128): one E chunk of both products
-// for the warp's 16 pixels in 3xTF32 from t in registers, the chunk's W2
-// and W3 in the fragment order of load_chunk_async, 16 E channels (two
-// n8 tiles of the expansion, one k-step pair of the projection) a step:
-// t and the projection's accumulators hold 128 registers, so the steps
-// are not unrolled into each other. The expansion's n8 tile n holds E
-// channels pair_index(n, 2q), + 1 of the chunk in its accumulators d0,
-// d1 (row g) and d2, d3 (row g + 8); as d0, d2, d1, d3 those of tiles 2m
-// and 2m + 1 are the A fragments of the projection's k-steps 2m and
-// 2m + 1, whose E channels 16m + 4q .. + 3 are the lane's W3 vector. The
-// projection's n8 tile o holds output channels pair_index(o, 2q), + 1:
-// tiles 2i and 2i + 1 are channels 16i + 4q .. + 3.
-template <typename G>
-__device__ __forceinline__ void expand_project_f32(
-    const float (&tv)[2][G::C / 4], float (&pacc)[G::C / 8][4],
-    const float4* __restrict__ w2c, const float4* __restrict__ w3c,
-    float slope, int lane) {
-  constexpr int C = G::C, ECH = G::ECH;
-#pragma unroll 1
-  for (int m = 0; m < ECH / 16; ++m) {
-    float hacc[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) hacc[n][r] = 0.f;
-    // expansion: k-steps 2i and 2i + 1 are channels 16i + 4q + {0, 1} and
-    // + {2, 3} of rows g (pixel 2g) and g + 8 (pixel 2g + 1)
-#pragma unroll
-    for (int i = 0; i < C / 16; ++i) {
-      uint32_t ab0[4], as0[4], ab1[4], as1[4];
-      split_a(tv[0][4 * i], tv[1][4 * i], tv[0][4 * i + 1],
-              tv[1][4 * i + 1], ab0, as0);
-      split_a(tv[0][4 * i + 2], tv[1][4 * i + 2], tv[0][4 * i + 3],
-              tv[1][4 * i + 3], ab1, as1);
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-        mma_3xtf32_ksteps(hacc[n], ab0, as0, ab1, as1,
-                          w2c[((2 * m + n) * (C / 16) + i) * 32 + lane]);
-    }
-    uint32_t ab0[4], as0[4], ab1[4], as1[4];
-    split_a(leaky(hacc[0][0], slope), leaky(hacc[0][2], slope),
-            leaky(hacc[0][1], slope), leaky(hacc[0][3], slope), ab0, as0);
-    split_a(leaky(hacc[1][0], slope), leaky(hacc[1][2], slope),
-            leaky(hacc[1][1], slope), leaky(hacc[1][3], slope), ab1, as1);
-#pragma unroll
-    for (int o = 0; o < C / 8; ++o)
-      mma_3xtf32_ksteps(pacc[o], ab0, as0, ab1, as1,
-                        w3c[(m * (C / 8) + o) * 32 + lane]);
-  }
-}
-
-// f32 I/O, depthwise KxK + LayerNorm of the warp's tile row ry: lane (g, q)
-// owns pixels 2g and 2g + 1 and channels 16i + 4q .. + 3 of each group i.
-// Per group and tap row it loads the K weight vectors and the K + 1 input
-// vectors once and does the 2K x 4 FMAs from registers, taps in (dy, dx)
-// order per output. The 4 lanes of a pixel pair are neighbours: mean and
-// centred variance (two passes, f32) are butterfly sums over them. Pixels
-// outside the image are computed on the tile's zeros, so every lane takes
-// part. t and the pixels' own x (the centre tap) are left in registers,
-// [pixel][4i + r].
-template <typename G>
-__device__ __forceinline__ void depthwise_layernorm_f32(
-    const float* __restrict__ xs, const float* __restrict__ dws,
-    const float* __restrict__ lns, float (&tv)[2][G::C / 4],
-    float (&xc)[2][G::C / 4], int ry, int lane) {
-  constexpr int C = G::C, K = G::K, PAD = G::PAD;
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int i = 0; i < C / 16; ++i) {
-    const int c = 16 * i + 4 * q;
-    float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
-                     make_float4(0.f, 0.f, 0.f, 0.f)};
-#pragma unroll
-    for (int dy = 0; dy < K; ++dy) {
-      const float* xrow = xs + ((ry + dy) * G::IW + 2 * g) * G::LDX + c;
-      float4 w[K];
-#pragma unroll
-      for (int dx = 0; dx < K; ++dx)
-        w[dx] = *reinterpret_cast<const float4*>(dws + (dy * K + dx) * C + c);
-#pragma unroll
-      for (int j = 0; j < K + 1; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(xrow + j * G::LDX);
-        if (dy == PAD && j >= PAD && j < PAD + 2) {
-          float* xp = xc[j - PAD] + 4 * i;
-          xp[0] = v.x, xp[1] = v.y, xp[2] = v.z, xp[3] = v.w;
-        }
-#pragma unroll
-        for (int dx = 0; dx < K; ++dx) {
-          const int p = j - dx;  // the output pixel this tap feeds
-          if (p >= 0 && p < 2) {
-            acc[p].x = fmaf(v.x, w[dx].x, acc[p].x);
-            acc[p].y = fmaf(v.y, w[dx].y, acc[p].y);
-            acc[p].z = fmaf(v.z, w[dx].z, acc[p].z);
-            acc[p].w = fmaf(v.w, w[dx].w, acc[p].w);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      float* tp = tv[p] + 4 * i;
-      tp[0] = acc[p].x, tp[1] = acc[p].y, tp[2] = acc[p].z, tp[3] = acc[p].w;
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    float* a = tv[p];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < C / 16; ++i)
-      sum += (a[4 * i] + a[4 * i + 1]) + (a[4 * i + 2] + a[4 * i + 3]);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float mean = sum * (1.f / C);
-    float sq = 0.f;
-#pragma unroll
-    for (int r = 0; r < C / 4; ++r) {
-      a[r] -= mean;
-      sq = fmaf(a[r], a[r], sq);
-    }
-    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
-    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
-    const float rs = rsqrtf(sq * (1.f / C) + kLnEps);
-#pragma unroll
-    for (int i = 0; i < C / 16; ++i) {
-      const float4 l =
-          *reinterpret_cast<const float4*>(lns + 16 * i + 4 * q);
-      a[4 * i] = a[4 * i] * rs * l.x;
-      a[4 * i + 1] = a[4 * i + 1] * rs * l.y;
-      a[4 * i + 2] = a[4 * i + 2] * rs * l.z;
-      a[4 * i + 3] = a[4 * i + 3] * rs * l.w;
-    }
-  }
-}
-
-// f32 I/O: out = x + gain * p of the warp's 16 pixels (tile row ry) from
-// the projection's accumulators: n8 tiles 2i and 2i + 1 hold channels
-// 16i + 4q + {0, 1} and + {2, 3} of rows g (accumulators 0, 1; pixel 2g)
-// and g + 8 (2, 3; pixel 2g + 1). x is the lane's registers xc, or at
-// C = 128 read back from device memory.
-template <typename G>
-__device__ __forceinline__ void store_row_f32(
-    const float (&pacc)[G::C / 8][4], const float (&xc)[2][G::C / 4],
-    const float* __restrict__ x, const float* __restrict__ gns,
-    float* __restrict__ out, Tile t, int ry, int H, int W, int lane) {
-  constexpr int C = G::C;
-  const int g = lane >> 2, q = lane & 3;
-  const int gy = t.y0 + ry;
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const int gx = t.x0 + 2 * g + p;
-    if (gy < H && gx < W) {
-      const long long base = ((t.b * H + gy) * W + gx) * C;
-#pragma unroll
-      for (int i = 0; i < C / 16; ++i) {
-        const int c = 16 * i + 4 * q;
-        const float4 gn = *reinterpret_cast<const float4*>(gns + c);
-        float4 xv;
-        if constexpr (G::kStream) {
-          xv = __ldg(reinterpret_cast<const float4*>(x + base + c));
-        } else {
-          const float* v = xc[p] + 4 * i;
-          xv = make_float4(v[0], v[1], v[2], v[3]);
-        }
-        float4 o;
-        o.x = __fadd_rn(xv.x, __fmul_rn(gn.x, pacc[2 * i][2 * p]));
-        o.y = __fadd_rn(xv.y, __fmul_rn(gn.y, pacc[2 * i][2 * p + 1]));
-        o.z = __fadd_rn(xv.z, __fmul_rn(gn.z, pacc[2 * i + 1][2 * p]));
-        o.w = __fadd_rn(xv.w, __fmul_rn(gn.w, pacc[2 * i + 1][2 * p + 1]));
-        *reinterpret_cast<float4*>(out + base + c) = o;
-      }
-    }
-  }
-}
-
-// C = 128: the products of a tile walk the E chunks. At chunk c: wait for
-// this thread's copies of it, a barrier (every thread's have landed and
-// every warp is past chunk c - 1), then start the copies of chunk c + 1
-// (after the last chunk, of the next tile's chunk 0 if `more`) into the
-// buffer chunk c - 1 used. Chunk c is in buffer c % 2.
-template <typename G>
-__device__ __forceinline__ void await_chunk(
-    const typename G::S* __restrict__ w2, const typename G::S* __restrict__ w3,
-    unsigned char* ring, int c, bool more, int tid) {
-  cp_async_wait_all();
-  __syncthreads();
-  if (c + 1 < G::NCH)
-    load_chunk_async<G>(w2, w3, ring + ((c + 1) & 1) * G::WBUF, c + 1, tid);
-  else if (more)
-    load_chunk_async<G>(w2, w3, ring, 0, tid);
-}
-
-// f32 I/O: both 1x1 products of the warp's 16 pixels in 3xTF32 from t in
-// registers, EF of the E channels a step, then out = x + gain * p stored
-// from the projection's accumulators. w2f and w3f are W2 and W3 in
-// fragment order (the kernel's staging): 32 lanes' 16-byte vectors per
-// (k-step, pair of n8 tiles).
-template <typename G>
-__device__ __forceinline__ void products_store_f32(
-    const float (&tv)[2][G::C / 4], const float (&xc)[2][G::C / 4],
-    const float4* __restrict__ w2f, const float4* __restrict__ w3f,
-    const float* __restrict__ gns, float* __restrict__ out, Tile t, int ry,
-    int H, int W, float slope, int lane) {
-  constexpr int C = G::C, E = G::E, EF = G::EF;
-  float pacc[C / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < C / 8; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pacc[nt][r] = 0.f;
-#pragma unroll 1
-  for (int ec = 0; ec < E; ec += EF) {
-    float hacc[EF / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < EF / 8; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) hacc[nt][r] = 0.f;
-    // expansion: k-step j covers channels 16(j/2) + 4q + 2(j%2) + {0, 1}
-    // of rows g (pixel 2g) and g + 8 (pixel 2g + 1)
-#pragma unroll
-    for (int j = 0; j < C / 8; ++j) {
-      const int r = 4 * (j >> 1) + 2 * (j & 1);
-      uint32_t ab[4], as[4];
-      split_tf32_rn(tv[0][r], ab[0], as[0]);
-      split_tf32_rn(tv[1][r], ab[1], as[1]);
-      split_tf32_rn(tv[0][r + 1], ab[2], as[2]);
-      split_tf32_rn(tv[1][r + 1], ab[3], as[3]);
-#pragma unroll
-      for (int np = 0; np < EF / 16; ++np)
-        mma_3xtf32_pair(hacc[2 * np], hacc[2 * np + 1], ab, as,
-                        w2f[(j * (E / 16) + ec / 16 + np) * 32 + lane]);
-    }
-    // projection: the expansion's accumulators of n8 tile n, as d0, d2,
-    // d1, d3, are the A fragment of k-step ec / 8 + n
-#pragma unroll
-    for (int n = 0; n < EF / 8; ++n) {
-      uint32_t ab[4], as[4];
-      split_tf32_rn(leaky(hacc[n][0], slope), ab[0], as[0]);
-      split_tf32_rn(leaky(hacc[n][2], slope), ab[1], as[1]);
-      split_tf32_rn(leaky(hacc[n][1], slope), ab[2], as[2]);
-      split_tf32_rn(leaky(hacc[n][3], slope), ab[3], as[3]);
-#pragma unroll
-      for (int i = 0; i < C / 16; ++i)
-        mma_3xtf32_pair(pacc[2 * i], pacc[2 * i + 1], ab, as,
-                        w3f[((ec / 8 + n) * (C / 16) + i) * 32 + lane]);
-    }
-  }
-  store_row_f32<G>(pacc, xc, nullptr, gns, out, t, ry, H, W, lane);
-}
-
-template <typename T, int C, int K>
-__global__ void __launch_bounds__(Cfg<T, C, K>::NT, Cfg<T, C, K>::MIN_BLOCKS)
-convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
-                      const float* __restrict__ dw,
-                      const float* __restrict__ ln,
-                      const typename Cfg<T, C, K>::S* __restrict__ w2,
-                      const typename Cfg<T, C, K>::S* __restrict__ w3,
-                      const float* __restrict__ gain, int B, int H, int W,
-                      float slope, float s_in, float inv_out) {
-  using G = Cfg<T, C, K>;
-  using S = typename G::S;
-  constexpr int E = G::E, NT = G::NT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dws = reinterpret_cast<float*>(smem + G::OFF_DW);
-  float* lns = reinterpret_cast<float*>(smem + G::OFF_LN);
-  float* gns = reinterpret_cast<float*>(smem + G::OFF_GN);
-  S* w2s = reinterpret_cast<S*>(smem + G::OFF_W2);
-  S* w3s = reinterpret_cast<S*>(smem + G::OFF_W3);
-  const int tid = threadIdx.x;
-
-  const int tiles_w = (W + G::TW - 1) / G::TW;
-  const int tiles_h = (H + G::TH - 1) / G::TH;
-  const int ntiles = B * tiles_h * tiles_w;  // the launcher checks the range
-  auto tile_at = [&](int i) {
-    const int rest = i / tiles_w;
-    return Tile{rest / tiles_h, rest % tiles_h * G::TH, i % tiles_w * G::TW};
-  };
-  // where the copies of the next tile land: the staging buffer (int8), the
-  // other tile buffer (bf16, f32 but at (64, 5)) or the only one
-  int buf = 0;
-  auto landing = [&](int b) {
-    return smem + (G::kInt8 ? G::OFF_STAGE : G::OFF_X + b * G::XBUF);
-  };
-  int tile = blockIdx.x;  // the grid is no larger than ntiles
-  load_tile_async<G>(x, landing(buf), tile_at(tile), H, W, tid);
-  // C = 128: chunk c of W2 and W3 lands in weight buffer c % 2; the first
-  // tile's chunk 0 follows its input
-  unsigned char* const ring = smem + G::OFF_W2;
-  if constexpr (G::kStream) load_chunk_async<G>(w2, w3, ring, 0, tid);
-
-  // ---- weights, once per block, while the first tile is on its way
-  for (int i = tid; i < C * K * K; i += NT) {
-    const int c = i / (K * K), tap = i % (K * K);
-    if constexpr (G::kMma)
-      dws[((tap * 2 + c % 8 / 4) * G::CG + c / 8) * 4 + c % 4] = dw[i];
-    else
-      dws[tap * C + c] = dw[i];
-  }
-  for (int c = tid; c < C; c += NT) {
-    lns[c] = ln[c];
-    gns[c] = gain[c];
-  }
-  if constexpr (G::kStream) {
-    // W2 and W3 stream through the ring with each tile's products
-  } else if constexpr (G::kMma) {
-    for (int i = tid; i < E * C / 8; i += NT) {
-      const int e = i / (C / 8), c8 = i % (C / 8);
-      *reinterpret_cast<uint4*>(w2s + e * G::LDW2 + c8 * 8) =
-          *reinterpret_cast<const uint4*>(w2 + e * C + c8 * 8);
-    }
-    for (int i = tid; i < C * E / 8; i += NT) {
-      const int c = i / (E / 8), e8 = i % (E / 8);
-      *reinterpret_cast<uint4*>(w3s + c * G::LDW3 + e8 * 8) =
-          *reinterpret_cast<const uint4*>(w3 + c * E + e8 * 8);
-    }
-  } else {
-    // f32: W2 and W3 in fragment order, one 16-byte vector per lane of a
-    // (k-step, pair of n8 tiles): b0, b1 of tile 0, then of tile 1. B of the
-    // expansion (k: channels of t, n: E rows): k-step j of lane (g, q)
-    // holds channels 16(j/2) + 4q + 2(j%2) + {0, 1}, and n8 tile 2np + s is
-    // E rows 16np + 8s + g. B of the projection (k: E, n: output channels):
-    // k-step ks holds E channels 8ks + 2q + {0, 1} (the order
-    // [0,2,4,6,1,3,5,7] of the expansion's accumulators), and n8 tile
-    // 2np + s is output channel 16np + 4(g/2) + 2s + g%2. Scalar loads: the
-    // weights need no 16-byte alignment
-    float4* w2f = reinterpret_cast<float4*>(w2s);
-    float4* w3f = reinterpret_cast<float4*>(w3s);
-#pragma unroll 4
-    for (int i = tid; i < E * C / 4; i += NT) {
-      const int lane = i & 31, g = lane >> 2, q = lane & 3, rest = i >> 5;
-      const int j = rest / (E / 16), np2 = rest % (E / 16);
-      const float* r2 =
-          w2 + (16 * np2 + g) * C + 16 * (j >> 1) + 4 * q + 2 * (j & 1);
-      w2f[i] = make_float4(r2[0], r2[1], r2[8 * C], r2[8 * C + 1]);
-      const int ks = rest / (C / 16), np3 = rest % (C / 16);
-      const float* r3 =
-          w3 + (16 * np3 + 4 * (g >> 1) + (g & 1)) * E + 8 * ks + 2 * q;
-      w3f[i] = make_float4(r3[0], r3[1], r3[2 * E], r3[2 * E + 1]);
-    }
-  }
-
-  const int warp = tid >> 5, lane = tid & 31;
-  for (; tile < ntiles; tile += gridDim.x) {
-    const Tile t = tile_at(tile);
-    const int next = tile + gridDim.x;
-    S* xs = reinterpret_cast<S*>(smem + G::OFF_X + buf * G::XBUF);
-    cp_async_wait_all();
-    // this tile (or its codes) has landed and the weights are staged; every
-    // warp is done with the previous tile's buffers
-    __syncthreads();
-    if constexpr (G::kInt8) {
-      dequantize_tile<G>(smem + G::OFF_STAGE, xs, s_in, tid);
-      __syncthreads();
-    }
-    if constexpr (G::kMma) {
-      // the next tile goes to the other buffer (bf16 I/O) or, as codes, to
-      // the staging buffer that the pass above has just emptied (int8 I/O)
-      buf ^= G::NXBUF - 1;
-      if (next < ntiles)
-        load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
-      bf16* ts = reinterpret_cast<bf16*>(smem + G::OFF_T);
-      depthwise_layernorm<G>(xs, dws, lns, ts, tid);
-      __syncthreads();
-      if constexpr (G::kStream) {
-        // one m16 tile a warp, its A fragments and the projection's
-        // accumulators (64 a lane) in registers across the chunks
-        static_assert(G::P / 16 == NT / 32, "one m16 tile a warp");
-        const LaneRows<G> rows(ts, w2s, w3s, lane);
-        uint32_t af[C / 16][4];
-        load_a<G>(af, rows.a, 16 * warp);
-        float pacc[C / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < C / 8; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
-#pragma unroll 1
-        for (int c = 0; c < G::NCH; ++c) {
-          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid);
-          const uint32_t b = (c & 1) * (uint32_t)G::WBUF;
-          expand_project<G>(af, pacc, rows.w2 + b, rows.w3 + b, slope);
-        }
-        store_tile_rows<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out,
-                              16 * warp, lane);
-      } else {
-        products_store<G>(xs, ts, w2s, w3s, gns, out, t, H, W, slope,
-                          inv_out, tid);
-      }
-    } else {
-      // f32: the next tile goes to the other buffer where there are two,
-      // else into this one once every warp has done its depthwise: the
-      // products need only registers and the weights
-      if constexpr (G::NXBUF == 2) {
-        buf ^= 1;
-        if (next < ntiles)
-          load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
-      }
-      float tv[2][C / 4], xc[2][C / 4];
-      depthwise_layernorm_f32<G>(xs, dws, lns, tv, xc, warp, lane);
-      if constexpr (G::kStream) {
-        // x is read back from device memory for the residual (x stays out
-        // of the registers: t and the accumulators take 128 of them)
-        float pacc[C / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < C / 8; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
-#pragma unroll 1
-        for (int c = 0; c < G::NCH; ++c) {
-          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid);
-          if constexpr (G::NXBUF == 1) {
-            // past the first chunk's barrier every depthwise is done
-            if (c == 0 && next < ntiles)
-              load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
-          }
-          const float4* wc =
-              reinterpret_cast<const float4*>(ring + (c & 1) * G::WBUF);
-          expand_project_f32<G>(tv, pacc, wc, wc + G::W2_BYTES / 16, slope,
-                                lane);
-        }
-        store_row_f32<G>(pacc, xc, x, gns, out, t, warp, H, W, lane);
-      } else {
-        if constexpr (G::NXBUF == 1) {
-          if (next < ntiles) {
-            __syncthreads();  // the only tile buffer is free again
-            load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid);
-          }
-        }
-        products_store_f32<G>(tv, xc, reinterpret_cast<const float4*>(w2s),
-                              reinterpret_cast<const float4*>(w3s), gns, out,
-                              t, warp, H, W, slope, lane);
-      }
-    }
-  }
-}
-
-// Launch with a persistent grid: as many blocks as fit on the card at
-// once (occupancy for this instantiation's shared memory), capped at the
-// number of tiles. The shared-memory attribute and the occupancy are set
-// and queried once per instantiation and device.
-constexpr int kMaxDevices = 64;
-
-// Raise the kernel's dynamic shared-memory limit on the current device and
-// return the blocks of it that one SM holds at once.
-template <typename T, int C, int K>
-int resident_blocks(int* blocks_per_sm) {
-  using G = Cfg<T, C, K>;
-  auto kern = convnext_block_kernel<T, C, K>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern,
-                                                    G::NT, G::SMEM);
-  return (int)e;
-}
-
-template <typename T, int C, int K>
-int launch(const void* x, void* out, const void* dw, const void* ln,
-           const void* w2, const void* w3, const void* gain, int B, int H,
-           int W, float slope, float s_in, float inv_out,
-           cudaStream_t stream) {
-  using G = Cfg<T, C, K>;
-  using S = typename G::S;
-  auto kern = convnext_block_kernel<T, C, K>;
-  static int blocks_per_device[kMaxDevices] = {0};
-  int dev = 0;
-  cudaError_t de = cudaGetDevice(&dev);
-  if (de != cudaSuccess) return (int)de;
-  if (dev < 0 || dev >= kMaxDevices) return BID_ERR_UNSUPPORTED;
-  int& max_blocks = blocks_per_device[dev];
-  if (max_blocks == 0) {
-    int occ = 0;
-    const int e = resident_blocks<T, C, K>(&occ);
-    if (e != 0) return e;
-    if (occ < 1) return BID_ERR_UNSUPPORTED;
-    max_blocks = occ * bid::sm_count();
-  }
-  const long long tiles = (long long)B * ((H + G::TH - 1) / G::TH) *
-                          ((W + G::TW - 1) / G::TW);
-  if (tiles == 0) return 0;
-  // the kernel counts tiles in 32 bits (its grid stride is added once more)
-  if (tiles > INT_MAX - max_blocks) return BID_ERR_UNSUPPORTED;
-  const int grid = (int)(tiles < max_blocks ? tiles : max_blocks);
-  kern<<<grid, G::NT, G::SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<const float*>(dw), static_cast<const float*>(ln),
-      static_cast<const S*>(w2), static_cast<const S*>(w3),
-      static_cast<const float*>(gain), B, H, W, slope, s_in, inv_out);
-  return (int)cudaGetLastError();
-}
 
 template <typename T>
 int dispatch(const void* x, void* out, const void* dw, const void* ln,
@@ -1236,32 +15,24 @@ int dispatch(const void* x, void* out, const void* dw, const void* ln,
              cudaStream_t s) {
 #define BID_CASE(CC, KK)                                                     \
   if (C == CC && K == KK)                                                    \
-    return launch<T, CC, KK>(x, out, dw, ln, w2, w3, gain, B, H, W, slope,   \
-                             s_in, inv_out, s);
+    return launch<T, CC, KK>(x, out, dw, ln, w2, w3, gain, B, H, W, CC,      \
+                             slope, s_in, inv_out, s);
   BID_CASE(32, 1)  // the decoders of unet_laplacian_v3 / v4 / v5, level 0
   BID_CASE(32, 3)  // the packaged flagship's level 0
   BID_CASE(32, 5)  // unet_laplacian_v6's level 0 (and v3 / v4 / v5's)
   BID_CASE(64, 1)  // the decoders of unet_laplacian_v3 / v4 / v5, level 1
+  BID_CASE(64, 3)  // level 1 of a K = 3 level list
   BID_CASE(64, 5)  // level 1 of all
   BID_CASE(128, 1)  // the decoders of unet_laplacian_v3 / v4, level 2
+  BID_CASE(128, 3)  // level 2 of a K = 3 level list
   BID_CASE(128, 5)  // v3 / v4's level 2; a depth-4 unet_laplacian_v6's
 #undef BID_CASE
-  return BID_ERR_UNSUPPORTED;
-}
-
-// shared memory, registers, local (spill) bytes, threads per block and
-// resident blocks per SM of one instantiation, as v[0..4]
-template <typename T, int C, int K>
-int info(int* v) {
-  cudaFuncAttributes a;
-  const cudaError_t e =
-      cudaFuncGetAttributes(&a, convnext_block_kernel<T, C, K>);
-  if (e != cudaSuccess) return (int)e;
-  v[0] = (int)Cfg<T, C, K>::SMEM;
-  v[1] = a.numRegs;
-  v[2] = (int)a.localSizeBytes;
-  v[3] = Cfg<T, C, K>::NT;
-  return resident_blocks<T, C, K>(&v[4]);
+  return C <= 128 ? bid_k1::launch_class(dtype_code<T>(), x, out, dw, ln, w2,
+                                         w3, gain, B, H, W, C, K, slope,
+                                         s_in, inv_out, s)
+                  : bid_k1::launch_wide(dtype_code<T>(), x, out, dw, ln, w2,
+                                        w3, gain, B, H, W, C, K, slope, s_in,
+                                        inv_out, s);
 }
 
 template <typename T>
@@ -1272,18 +43,28 @@ int dispatch_info(int C, int K, int* v) {
   BID_INFO(32, 3)
   BID_INFO(32, 5)
   BID_INFO(64, 1)
+  BID_INFO(64, 3)
   BID_INFO(64, 5)
   BID_INFO(128, 1)
+  BID_INFO(128, 3)
   BID_INFO(128, 5)
 #undef BID_INFO
-  return BID_ERR_UNSUPPORTED;
+  return C <= 128 ? bid_k1::info_class(dtype_code<T>(), C, K, v)
+                  : bid_k1::info_wide(dtype_code<T>(), C, K, v);
+}
+
+// K1 takes C = 1..256 at K = 1, 3, 5
+bool supported(int C, int K) {
+  return C >= 1 && C <= 256 && (K == 1 || K == 3 || K == 5);
 }
 
 }  // namespace
 
 // info[0..4]: dynamic shared-memory bytes, registers per thread, local
-// (spill) bytes per thread, threads per block, resident blocks per SM
+// (spill) bytes per thread, threads per block, resident blocks per SM of
+// the instantiation that runs (C, K)
 extern "C" int bid_convnext_block_info(int C, int K, int dtype, int* info) {
+  if (!supported(C, K)) return BID_ERR_UNSUPPORTED;
   if (dtype == 0) return dispatch_info<float>(C, K, info);
   if (dtype == 1) return dispatch_info<bf16>(C, K, info);
   if (dtype == 2) return dispatch_info<int8_t>(C, K, info);
@@ -1297,6 +78,7 @@ extern "C" int bid_convnext_block(const void* x, void* out, const void* dw,
                                   float slope, float s_in, float inv_out,
                                   void* stream) {
   if (B < 0 || H < 0 || W < 0) return BID_ERR_BAD_ARGUMENT;
+  if (!supported(C, K)) return BID_ERR_UNSUPPORTED;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch<float>(x, out, dw, ln, w2, w3, gain, B, H, W, C, K, slope,

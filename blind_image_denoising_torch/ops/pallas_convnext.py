@@ -20,6 +20,21 @@ K = 1 the halo is empty (PAD = 0) and the depthwise sum is one tap per
 channel; the tile, copy and depthwise code is written in PAD and K,
 unchanged.
 
+What is built: every C from 1 to 256 at K = 1, 3 and 5 with E = 4C, in
+every I/O mode (:func:`kernel_supports`), as JAX's kernel takes any C
+and odd K. Nine (C, K) have instantiations of their own (``OWN_SHAPES``:
+the seven above and (64, 3), (128, 3)); any other C runs a class of
+width 32, 64 or 128 (the layouts below at that width, with the true C a
+launch argument) or, above 128, the wide class of width 256
+(``csrc/convnext_class.cu``, ``csrc/convnext_wide.cu``). A class's
+padded channels have zero weights (:func:`kernel_operands` pads them on
+every call), its LayerNorm statistics are taken over the true C, and
+its tile and output move in units of the largest power of two up to 16
+bytes that divides a pixel's row. A depth-5 ``unet_laplacian_v6`` fused
+to level 3 runs (256, 5); one with ``filters_level_multiplier`` 1.5 runs
+(48, 5), (72, 5) and (108, 5). K = 7 and C above 256 raise
+``NotImplementedError`` on the card.
+
 CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
 2K²C + 16C² operations against 2·C·bytes of I/O: ≈ 17 k operations per
 128 B at (32, 3) in bf16 and ≈ 69 k per 256 B at (64, 5), so it sits
@@ -69,7 +84,13 @@ over the 16 chunks of a tile. The tile shrinks to 8 × 16 pixels with
 statistics are shuffles over the 16 lanes of a pixel. At C = 128 the
 unit does 512 operations a byte of bf16 I/O, above the card's ridge:
 it is bound by its products, which ``mma.sync`` runs at about 2/3 of
-the tensor cores' dense rate.
+the tensor cores' dense rate. The wide class (128 < C <= 256) takes
+tiles of 8 × 8 pixels: the projection's accumulators of 16 pixels × 256
+channels would be 128 registers a lane, so two warps share an m16 tile,
+128 output channels each; each computes half of a chunk's expansion and
+hands its ``h`` to the other through shared memory. Its float32 mode
+keeps ``t`` in shared memory and runs the depthwise by groups of 64
+channels, each group's halo tile copied in turn.
 In float32 mode (``dtype="float32"`` serving and export, the f32
 forwards of v3 / v4 / v5, the analysis tools) the result keeps float32
 accuracy while the two products, 95% of the operations, run on the
@@ -130,23 +151,59 @@ shape_launches = collections.Counter()
 branch_units = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# (C, K) instantiated in csrc/convnext_block.cu for every mode; E = 4C.
-# K = 1 serves the decoders of unet_laplacian_v3, _v4 and _v5
-KERNEL_SHAPES = frozenset({(32, 1), (32, 3), (32, 5), (64, 1), (64, 5),
-                           (128, 1), (128, 5)})
+# (C, K) with instantiations of their own in csrc/convnext_block.cu, every
+# mode, E = 4C: the units of the packaged and family models (K = 1: the
+# decoders of unet_laplacian_v3, _v4 and _v5) and K = 3 at C = 64, 128
+OWN_SHAPES = frozenset({(32, 1), (32, 3), (32, 5), (64, 1), (64, 3),
+                        (64, 5), (128, 1), (128, 3), (128, 5)})
+# the kernel takes every C from 1 to MAX_CHANNELS at these K, with E = 4C:
+# a C outside OWN_SHAPES runs the class of width class_width(C)
+KERNEL_KS = (1, 3, 5)
+MAX_CHANNELS = 256
+CLASS_WIDTHS = (32, 64, 128, 256)
+# a named sample of what the kernel takes: the nine of their own and each
+# class at widths that are and are not multiples of 16 (odd ones included);
+# the tests and chip_smoke.py's build check sweep it
+SAMPLE_SHAPES = tuple(sorted(OWN_SHAPES | {
+    (c, k) for c in (1, 7, 8, 24, 48, 72, 108, 128, 144, 162, 200, 256)
+    for k in KERNEL_KS}))
 # E channels of W2 and W3 a shared-memory buffer holds at C = 128, where
-# they stream through two such buffers
+# they stream through two such buffers (the wide class: 32 in bf16 and
+# int8, WIDE_F32_CHUNK in float32)
 STREAM_CHUNK = 32
+WIDE_F32_CHUNK = 16
 INT8_MAX = 127
 # dynamic shared memory one block may have on an H100
 SHARED_MEMORY_LIMIT = 232_448
 
 
+def kernel_supports(c: int, k: int, e: int = None) -> bool:
+    """Whether the kernel takes a unit of C channels, K x K depthwise and
+    (if given) E expansion channels: C from 1 to ``MAX_CHANNELS``, K in
+    ``KERNEL_KS``, E = 4C."""
+    return (1 <= c <= MAX_CHANNELS and k in KERNEL_KS
+            and (e is None or e == 4 * c))
+
+
+def class_width(c: int) -> int:
+    """The width of the layout that runs C channels: the smallest of
+    ``CLASS_WIDTHS`` that holds C (``OWN_SHAPES`` are their own width)."""
+    return next(w for w in CLASS_WIDTHS if c <= w)
+
+
+def _align16(n):
+    return (n + 15) // 16 * 16
+
+
 def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
-    """Threads per block and dynamic shared-memory bytes of the kernel's
-    (C, K, dtype) instantiation: a mirror of ``Cfg`` in
-    ``csrc/convnext_block.cu``, which ``chip_smoke.py`` holds against what
-    the built library reports."""
+    """Threads per block and dynamic shared-memory bytes of the kernel that
+    runs (C, K, dtype): a mirror of ``Cfg`` in ``csrc/convnext_block.cuh``
+    (C up to 128, laid out at its class's width) and of ``WCfg`` in
+    ``csrc/convnext_wide.cu`` (128 < C <= 256), which ``chip_smoke.py``
+    holds against what the built library reports."""
+    c = class_width(c)
+    if c > 128:
+        return _wide_plan(k, dtype)
     mma, int8 = dtype != torch.float32, dtype == torch.int8
     e, pad, elt = 4 * c, k // 2, 2 if mma else 4
     # C = 128 streams W2 and W3 through two buffers of STREAM_CHUNK of the
@@ -158,27 +215,47 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     # tile rows unpadded (swizzled) at C >= 64 in bf16, else padded by 8
     ldx = c if mma and c >= 64 else c + 8
     xbuf = elt * ih * iw * ldx
-
-    def align16(n):
-        return (n + 15) // 16 * 16
-
-    end = align16(4 * k * k * c)                          # depthwise weights
-    end = align16(align16(end + 4 * c) + 4 * c)           # LN scale, gain
+    end = _align16(4 * k * k * c)                         # depthwise weights
+    end = _align16(_align16(end + 4 * c) + 4 * c)         # LN scale, gain
     # a weight buffer: W2 [EW][C] and W3 [C][EW] (bf16 rows padded by 8)
-    wbuf = (align16(2 * ew * (c + 8)) + align16(2 * c * (ew + 8)) if mma
-            else 2 * align16(4 * ew * c))
+    wbuf = (_align16(2 * ew * (c + 8)) + _align16(2 * c * (ew + 8)) if mma
+            else 2 * _align16(4 * ew * c))
     weights = (2 if stream else 1) * wbuf
     # bf16 two tile buffers, int8 one; f32 two where they fit beside its
-    # f32 weights (all but (64, 5) and (128, 5))
+    # f32 weights (all but (64, 3), (64, 5) and (128, 5))
     buffers = (1 if int8 else 2 if mma
                or end + 2 * xbuf + weights <= SHARED_MEMORY_LIMIT else 1)
-    end = align16(end + buffers * xbuf)                   # input tiles
-    end = align16(end + (ih * iw * c if int8 else 0))     # staged codes
+    end = _align16(end + buffers * xbuf)                  # input tiles
+    end = _align16(end + (ih * iw * c if int8 else 0))    # staged codes
     end += weights
     end += 2 * th * tw * (c + 8) if mma else 0            # t / output tile
     # f32: a warp per tile row
     threads = 32 * th if not mma else 512 if c == 64 else 256
     return dict(threads_per_block=threads, smem_bytes=end)
+
+
+def _wide_plan(k: int, dtype: torch.dtype) -> dict:
+    """``kernel_plan`` of the wide class (C = 256 wide, 8 x 8 tiles, 256
+    threads): the small weights, the input tiles (float32: the buffers of
+    one 64-channel group), two weight buffers of an E chunk (W2 [ECH][C],
+    W3 [C][ECH]), the t tile (int8 stages its codes there) and the warp
+    pairs' h blocks [16][ECH], rows padded by 16 bytes (bf16) or 4 floats."""
+    mma, int8 = dtype != torch.float32, dtype == torch.int8
+    c, pad, elt = 256, k // 2, 2 if mma else 4
+    ih = iw = 8 + 2 * pad
+    ech, rowpad = (STREAM_CHUNK, 8) if mma else (WIDE_F32_CHUNK, 4)
+    xbuf = elt * ih * iw * (c if mma else 64)
+    wbuf = (_align16(elt * ech * (c + rowpad))
+            + _align16(elt * c * (ech + rowpad)))
+    t_rows = elt * 64 * (c + rowpad)
+    t_bytes = _align16(max(t_rows, ih * iw * c) if int8 else t_rows)
+    h_bytes = elt * 16 * (ech + rowpad) * 4
+    start = _align16(_align16(_align16(4 * k * k * c) + 4 * c) + 4 * c)
+    rest = 2 * wbuf + t_bytes + h_bytes
+    buffers = (1 if int8 else 2 if start + 2 * xbuf + rest
+               <= SHARED_MEMORY_LIMIT else 1)
+    return dict(threads_per_block=256,
+                smem_bytes=_align16(start + buffers * xbuf) + rest)
 
 
 def _round_bf16(v: torch.Tensor) -> torch.Tensor:
@@ -259,6 +336,29 @@ def convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
     return out.to(x.dtype)
 
 
+def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
+    """The weights as the kernel takes them for x of ``dtype``: dw [C', K²],
+    the LayerNorm scale and the gain [C'] in float32, W2 [4C', C'] and W3
+    [C', 4C'] in x's dtype (bf16 for int8), contiguous on 16 bytes, with
+    C' = ``class_width(C)``: a class kernel's padded channels have zero
+    depthwise weights, LayerNorm scale and gain, W2 columns and W3 rows,
+    and its padded E rows of W2 and columns of W3 are zeros."""
+    c, k = ln_scale.numel(), dw.shape[-1]
+    w_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
+    dw_f = dw.reshape(c, k * k).float().contiguous()
+    ln_f = ln_scale.float().contiguous()
+    gain_f = gain.float().contiguous()
+    w2_io = _aligned(w2.to(w_dtype).contiguous())
+    w3_io = _aligned(w3.to(w_dtype).contiguous())
+    pad = class_width(c) - c
+    if pad:
+        dw_f = F.pad(dw_f, (0, 0, 0, pad))
+        ln_f, gain_f = F.pad(ln_f, (0, pad)), F.pad(gain_f, (0, pad))
+        w2_io = F.pad(w2_io, (0, pad, 0, 4 * pad))
+        w3_io = F.pad(w3_io, (0, 4 * pad, 0, pad))
+    return dw_f, ln_f, w2_io, w3_io, gain_f
+
+
 def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
                    scale_in=None, scale_out=None):
     """One fused ConvNext residual unit. x: [B, H, W, C] float32/bfloat16,
@@ -289,10 +389,10 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
     b, h, w, c = x.shape
     k = dw.shape[-1]
     e = w2.shape[0]
-    if (c, k) not in KERNEL_SHAPES or e != 4 * c:
+    if not kernel_supports(c, k, e):
         raise NotImplementedError(
-            f"convnext_block kernel is built for (C, K) in "
-            f"{sorted(KERNEL_SHAPES)} with E = 4C, got C={c} K={k} E={e}")
+            f"convnext_block kernel takes C = 1..{MAX_CHANNELS} at K in "
+            f"{KERNEL_KS} with E = 4C, got C={c} K={k} E={e}")
     if (tuple(w2.shape) != (e, c) or tuple(w3.shape) != (c, e)
             or dw.numel() != c * k * k or ln_scale.numel() != c
             or gain.numel() != c):
@@ -303,12 +403,8 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
     s_in, inv_out = int8_constants(scale_in, scale_out) if int8 else (1.0,
                                                                        1.0)
     x = _aligned(x.contiguous())
-    dw_f = dw.reshape(c, k * k).float().contiguous()
-    ln_f = ln_scale.float().contiguous()
-    gain_f = gain.float().contiguous()
-    w_dtype = torch.bfloat16 if int8 else x.dtype
-    w2_io = _aligned(w2.to(w_dtype).contiguous())
-    w3_io = _aligned(w3.to(w_dtype).contiguous())
+    dw_f, ln_f, w2_io, w3_io, gain_f = kernel_operands(
+        x.dtype, dw, ln_scale, w2, w3, gain)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out

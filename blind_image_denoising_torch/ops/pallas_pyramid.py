@@ -9,7 +9,10 @@ extra row and column of an even window on the HIGH side, and the divide
 counts only the in-image taps.
 
 CUDA kernel (``csrc/band_smooth.cu``): one pass, one thread per 16-byte
-vector of channels of one pixel (NHWC). Each thread sums its k² taps in
+vector of channels of one pixel (NHWC; a C that is no multiple of it, as
+the C = 108 level of a ``filters_level_multiplier`` 1.5 config, moves
+the largest power of two of channels below a vector that divides C, so
+the forward takes any C). Each thread sums its k² taps in
 float32 (the neighbours' loads hit L1/L2), multiplies by the reciprocal
 of the in-image tap count — computed from the pixel index, not read
 from a table — and writes both outputs. It is bound by memory: it must
@@ -141,12 +144,14 @@ def _valid_taps(n: int, k: int, lo: int, device) -> torch.Tensor:
     return (last - first).float()
 
 
-def _check(t: torch.Tensor, what: str) -> None:
+def _check(t: torch.Tensor, what: str, any_c: bool = False) -> None:
+    """The kernels take float32 or bfloat16 and, but for the forward
+    band split (``any_c``), C in whole 16-byte vectors."""
     if t.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
                         f"{t.dtype}")
     vec = 16 // t.element_size()
-    if t.shape[-1] % vec:
+    if t.shape[-1] % vec and not any_c:
         raise ValueError(f"{what} kernel needs C divisible by {vec} for "
                          f"{t.dtype}, got C={t.shape[-1]}")
 
@@ -160,7 +165,7 @@ def band_smooth_forward(x: torch.Tensor, kernel_size: int
         return band_smooth_plain(x, kernel_size)
     if x.device.type != "cuda":
         raise ValueError(f"band_smooth: unsupported device {x.device}")
-    _check(x, "band_smooth")
+    _check(x, "band_smooth", any_c=True)
     b, h, w, c = x.shape
     x = x.contiguous()
     band, smooth = torch.empty_like(x), torch.empty_like(x)

@@ -36,6 +36,13 @@ drive the two paths of the port through the entry points a user calls:
   forward with 6 at (128, 5), every launch against its plain version,
   the fused phase's bars (``FUSED4_INT8_OWN_MARGIN`` for int8), the
   forwards timed, and K1 int8 at (128, 5) on 32×64²×128 timed;
+* fused_widths: the same fused path at two depth-5 ``unet_laplacian_v6``
+  (seeded, bf16, ``fused_levels=(0, 1, 2, 3)``): the config's widths
+  (level 3 at C = 256, K1's wide class) and ``filters_level_multiplier``
+  1.5 (C = 32, 48, 72, 108: K1's padded classes), 24 K1 a fused or hydra
+  forward, 6 at each level's (C, 5), no unit on its PyTorch branch, the
+  fused_depth4 phase's bars; then K1 off the (C, K) of its own timed
+  (``FUSEDW_K1_ROWS``);
 * band_split: the decimating band split (K4) through its op, the only
   entry point it has, at the flagship's level-0/1 band shapes 8×256²×32
   and 8×128²×64 (the build line holds its tile plan, registers and
@@ -470,12 +477,15 @@ def band_bound_ms(b, h, w, c, k, dtype, backward=False, split=False):
 
 def k1_instantiations(lib, pallas_convnext):
     """Shared memory, registers, spill bytes, threads per block and
-    resident blocks per SM of every K1 instantiation, from the library
-    (``bid_convnext_block_info``). An instantiation that spills fails."""
+    resident blocks per SM of the K1 instantiation that runs each (C, K) of
+    ``pallas_convnext.SAMPLE_SHAPES`` (the nine of their own and every
+    class at widths that are and are not multiples of 16), from the
+    library (``bid_convnext_block_info``). An instantiation that spills, or
+    differs from ``kernel_plan``, fails."""
     import ctypes
     out = []
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
-        for c, k in sorted(pallas_convnext.KERNEL_SHAPES):
+        for c, k in pallas_convnext.SAMPLE_SHAPES:
             vals = (ctypes.c_int * 5)()
             rc = lib.bid_convnext_block_info(c, k, code, vals)
             if rc != 0:
@@ -2906,56 +2916,22 @@ def unet_laplacian_family_phase(bidt, smi, read_counts, loop_run,
 
 def family_k1_times(pallas_convnext, smi, seen):
     """K1 at ``FAMILY_K1_ROWS``, f32 and bf16, warm and cold, with the
-    weights the family phase gave it, beside its bound and its library
-    chain; each row's output against the plain version's at phase 3's
-    bars (bf16 max(0.05, 1 ulp); f32 1e-3 and ``K1_F32_RELATIVE`` of max
-    |plain output|)."""
-    from blind_image_denoising_torch.ops.precision import exact_float32
+    weights the family phase gave it (in the row's dtype), beside its
+    bound and its library chain, at phase 3's bars
+    (:func:`k1_row_time`)."""
     weights = {(shape[-1], k): kw for (shape, _, k), (_, kw) in
                seen["convnext_block"].items()}
     rows = []
     for shape, k in FAMILY_K1_ROWS:
         kw = weights[(shape[-1], k)]
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, device="cuda").to(dtype)
+            x = torch.randn(shape, device="cuda")
             wts = {n: v.to(dtype) for n, v in kw.items() if n != "slope"}
-            slope = kw["slope"]
-            with exact_float32():        # the f32 library chain: TF32 off
-                got = pallas_convnext.convnext_block(x, slope=slope, **wts)
-                ref = pallas_convnext.convnext_block_plain(x, slope=slope,
-                                                           **wts)
-                t = dict(
-                    ms=cuda_ms(lambda: pallas_convnext.convnext_block(
-                        x, slope=slope, **wts)),
-                    cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
-                        xc, slope=slope, **wts), inputs=cold_copies(x)),
-                    plain_ms=cuda_ms(
-                        lambda: pallas_convnext.convnext_block_plain(
-                            x, slope=slope, **wts), iters=3, warmup=1),
-                    library_ms=cuda_ms(lambda: convnext_library(
-                        x, slope=slope, **wts)))
-            diff = (got.float() - ref.float()).abs()
-            err = float(diff.max())
-            if dtype == torch.float32:
-                ok = err <= 1e-3 and err <= K1_F32_RELATIVE * float(
-                    ref.abs().max())
-            else:
-                ok = bool((diff <= torch.clamp(bf16_ulp(ref), min=0.05)
-                           ).all())
-            bound, by = convnext_bound_ms(*shape, k, dtype)
-            extra = {} if dtype != torch.float32 else dict(
-                bound_cuda_cores_ms=convnext_bound_ms(
-                    *shape, k, dtype, cuda_cores=True)[0])
-            row = dict(kernel="convnext_block", C=shape[-1], K=k,
-                       shape=list(shape), dtype=str(dtype).split(".")[-1],
-                       calls_per_forward=3, bound_ms=bound, bound_by=by,
-                       share_cold=bound / t["cold_ms"], max_abs_err=err,
-                       **extra, smi=smi, **t)
-            log("time", path="unet_laplacian_family", **row)
-            if not ok:
-                raise AssertionError(f"K1 {shape} K={k} {dtype}: {err}")
-            rows.append(row)
-            del x, got, ref, diff
+            rows.append(k1_row_time(
+                pallas_convnext, "f32" if dtype == torch.float32 else "bf16",
+                x, wts, kw["slope"], smi, None, path="unet_laplacian_family",
+                calls_per_forward=3))
+            del x
     return rows
 
 
@@ -3021,42 +2997,43 @@ def fused_k1_against_plain(fused_module, pallas_convnext, forwards, x):
     return on_path, outs
 
 
-def c128_launches(pallas_convnext):
-    """K1's launches at C = 128 since the counts were last set to 0, by
-    dtype name."""
+def c128_of(shape_counts):
+    """K1's launches at C = 128 in ``shape_counts`` (launches by (dtype
+    name, C, K)), by dtype name."""
     out = {}
-    for (dtype, c, _), n in pallas_convnext.shape_launches.items():
+    for (dtype, c, _), n in shape_counts.items():
         if c == 128:
             out[dtype] = out.get(dtype, 0) + n
     return out
 
 
-def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
-                       share_differing):
-    """The fused path with level 2 fused: the depth-4 ``unet_laplacian_v6``
-    (``FUSED4_*``) calibrated on 8 images (``calibrate_fused(...,
-    fused_levels=FUSED4_LEVELS)``), then its float and int8 fused forwards
-    and its bf16 hydra on b32 @ 256²: exact launches (18 K1 a fused
-    forward, 6 at C = 128), every K1 launch of the two fused forwards
-    against its plain version on the same input, the fused outputs
-    against the hydra's (float <= ``FUSED_FLOAT_VS_HYDRA_MEAN``, int8 <= 4
-    mean gray levels, or the model's own int8 error + 0.5 where that
-    reaches 4: ``FUSED4_INT8_OWN_MARGIN``), the f32 fused forward on
-    ``FUSED_CPU_IMAGES`` images with every K1 launch against its plain
-    version (1e-3 and ``K1_F32_RELATIVE`` of max |plain output|) and the
-    rest of the path, on the card with K1's plain version, against the CPU
-    (<= ``FUSED_F32_CARD_VS_CPU_MEAN`` on every scale; the forward through
-    the kernel against the CPU is read), the three forwards timed, and K1
-    int8 at (128, 5) on 32×64²×128 timed. Returns (launch counts summed over the phase, C = 128
-    launches by path and dtype, the largest bf16 and int8 differences of
-    the C = 128 launches from their plain versions, the int8 (128, 5)
-    timing entry)."""
+def c128_launches(pallas_convnext):
+    """K1's launches at C = 128 since the counts were last set to 0, by
+    dtype name."""
+    return c128_of(pallas_convnext.shape_launches)
+
+
+def fused_model_run(cfg, levels, rng, reset_counts, read_counts):
+    """The fused path of the seeded bf16 model of ``cfg`` with ``levels``
+    fused: calibrated on 8 images (4 clean, 4 at σ = 25;
+    ``calibrate_fused(..., fused_levels=levels)``), then its float and int8
+    fused forwards and its bf16 hydra on b32 @ 256², each from counts set
+    to 0 (``runs``: the kernels' counts, ``shapes``: K1's launches by
+    (dtype name, C, K)); every K1 launch of the two fused forwards against
+    its plain version on the same input (``on_path``); the finest scale of
+    each fused output against the hydra's (``gaps``); the f32 fused
+    forward (an f32 copy of the weights) on ``FUSED_CPU_IMAGES`` images on
+    the card, through the kernel with every launch against its plain
+    version (``f32_launches``) and with K1's plain version, against the
+    CPU (``card32``, mean gray levels per scale); the model's own int8
+    error (the int8 fused forward and the hydra in float32, the same
+    scales: ``own_int8``), the finest scale of the bf16 hydra and of both
+    fused forwards against that f32 hydra (``vs_f32_hydra``); and the three
+    forwards timed (``timing``)."""
     from blind_image_denoising_torch.inference import fused as fused_module
     from blind_image_denoising_torch.models.hydra import model_builder
     from blind_image_denoising_torch.ops import pallas_convnext
     from blind_image_denoising_torch.training.train_state import init_params
-    cfg = copy.deepcopy(v6cfg)
-    cfg["backbone"]["depth"] = FUSED4_DEPTH
     model = model_builder(copy.deepcopy(cfg), dtype=torch.bfloat16).hydra
     init_params(model, torch.Generator().manual_seed(SEED))
     model = model.cuda().eval().requires_grad_(False)
@@ -3070,13 +3047,13 @@ def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                                         rng), 25.0, rng)).cuda()
     reset_counts()
     scales = fused_module.calibrate_fused(cfg, model, nchw(cal),
-                                          fused_levels=FUSED4_LEVELS)
+                                          fused_levels=levels)
     runs = {"calibrate": read_counts()}
-    c128 = {"calibrate": c128_launches(pallas_convnext)}
+    shapes = {"calibrate": dict(pallas_convnext.shape_launches)}
     fwd_float, sites = fused_module.build_fused_forward(
-        cfg, model, fused_levels=FUSED4_LEVELS)
+        cfg, model, fused_levels=levels)
     fwd_int8, _ = fused_module.build_fused_forward(
-        cfg, model, scales, fused_levels=FUSED4_LEVELS)
+        cfg, model, scales, fused_levels=levels)
 
     def hydra(v):
         with torch.inference_mode():
@@ -3090,16 +3067,7 @@ def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
         outs[name] = fn(x)
         torch.cuda.synchronize()
         runs[name] = read_counts()
-        c128[name] = c128_launches(pallas_convnext)
-    want = {"calibrate": counts(convnext_block=FUSED4_PER_FORWARD * len(cal)),
-            "fused_float": counts(convnext_block=FUSED4_PER_FORWARD),
-            "fused_int8": counts(convnext_block_int8=FUSED4_PER_FORWARD),
-            "hydra_bf16": counts(convnext_block=FUSED4_PER_FORWARD,
-                                 band_smooth=FUSED4_DEPTH - 1)}
-    want_c128 = {"calibrate": {"bfloat16": FUSED4_C128_PER_FORWARD * len(cal)},
-                 "fused_float": {"bfloat16": FUSED4_C128_PER_FORWARD},
-                 "fused_int8": {"int8": FUSED4_C128_PER_FORWARD},
-                 "hydra_bf16": {"bfloat16": FUSED4_C128_PER_FORWARD}}
+        shapes[name] = dict(pallas_convnext.shape_launches)
     gaps = {}
     for name in ("fused_float", "fused_int8"):
         d = (outs[name][0] - outs["hydra_bf16"][0]).abs()
@@ -3112,22 +3080,22 @@ def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
         {"fused_float": fwd_float, "fused_int8": fwd_int8}, x)
     # the f32 float fused forward (an f32 copy of the weights): every K1
     # launch on the card against its plain version, then the rest of the
-    # path, on the card with K1's plain version, against the CPU. At depth
-    # 4 this seeded model carries K1's float32-level differences (inside
-    # K1_F32_RELATIVE) to ~1e-3 gray levels at the 1/2 scale, with level 2
-    # fused or not, so the forward through the kernel is read beside it
+    # path, on the card with K1's plain version, against the CPU. A deep
+    # seeded model carries K1's float32-level differences (inside
+    # K1_F32_RELATIVE) to ~1e-3 gray levels at the 1/2 scale (depth 4,
+    # with level 2 fused or not), so the forward through the kernel is
+    # read beside it
     m32 = model_builder(copy.deepcopy(cfg)).hydra
     m32.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     m32.eval().requires_grad_(False)
     x_cpu = x[:FUSED_CPU_IMAGES].cpu()
     ref32 = fused_module.build_fused_forward(
-        cfg, m32, dtype=torch.float32, fused_levels=FUSED4_LEVELS)[0](x_cpu)
+        cfg, m32, dtype=torch.float32, fused_levels=levels)[0](x_cpu)
     fwd32 = fused_module.build_fused_forward(
-        cfg, m32.cuda(), dtype=torch.float32, fused_levels=FUSED4_LEVELS)[0]
+        cfg, m32.cuda(), dtype=torch.float32, fused_levels=levels)[0]
     x32 = x[:FUSED_CPU_IMAGES]
     f32_on_path, got32 = fused_k1_against_plain(
         fused_module, pallas_convnext, {"kernel": fwd32}, x32)
-    f32_launches = f32_on_path["kernel"]
     real_k1 = fused_module.convnext_block
     fused_module.convnext_block = pallas_convnext.convnext_block_plain
     try:
@@ -3136,21 +3104,71 @@ def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
         fused_module.convnext_block = real_k1
     card32 = {name: [float((g.cpu() - r).abs().mean()) for g, r in
                      zip(outs32, ref32)] for name, outs32 in got32.items()}
-    card_vs_cpu = card32["plain_k1"]
     # the model's own int8 error: the int8 fused forward and the hydra in
-    # float32 (the f32 copy, on the card), the same scales
+    # float32 (the f32 copy, on the card), the same scales; and the finest
+    # scale of the bf16 hydra and of the float fused forward against that
+    # f32 hydra
     int8_f32 = fused_module.build_fused_forward(
-        cfg, m32, scales, dtype=torch.float32,
-        fused_levels=FUSED4_LEVELS)[0](x)[0]
+        cfg, m32, scales, dtype=torch.float32, fused_levels=levels)[0](x)[0]
     with torch.inference_mode():
-        own_int8 = float((int8_f32 - m32(x)[0]).abs().mean())
-    int8_bar = max(4.0, own_int8 + FUSED4_INT8_OWN_MARGIN)
-    del m32, int8_f32
+        hydra32 = m32(x)[0]
+    own_int8 = float((int8_f32 - hydra32).abs().mean())
+    vs_f32 = {name: float((outs[name][0].float() - hydra32).abs().mean())
+              for name in ("hydra_bf16", "fused_float", "fused_int8")}
+    del m32, int8_f32, hydra32
     timing = {name: dict(zip(("forward_ms_median", "forward_ms"),
                              forward_event_ms(lambda: fn(x))))
               for name, fn in forwards.items()}
     for t in timing.values():
         t["images_per_s"] = FUSED_BATCH / t["forward_ms_median"] * 1e3
+    return dict(model=model, x=x, sites=len(sites), calibration_images=len(
+        cal), runs=runs, shapes=shapes, outs=outs, gaps=gaps,
+        on_path=on_path, f32_launches=f32_on_path["kernel"], card32=card32,
+        own_int8=own_int8, vs_f32_hydra=vs_f32, timing=timing)
+
+
+def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
+                       share_differing):
+    """The fused path with level 2 fused: the depth-4 ``unet_laplacian_v6``
+    (``FUSED4_*``) through :func:`fused_model_run` with
+    ``fused_levels=FUSED4_LEVELS``: exact launches (18 K1 a fused forward,
+    6 at C = 128), every K1 launch of the two fused forwards against its
+    plain version on the same input, the fused outputs against the
+    hydra's (float <= ``FUSED_FLOAT_VS_HYDRA_MEAN``, int8 <= 4 mean gray
+    levels, or the model's own int8 error + 0.5 where that reaches 4:
+    ``FUSED4_INT8_OWN_MARGIN``), the f32 fused forward with every K1
+    launch against its plain version (1e-3 and ``K1_F32_RELATIVE`` of max
+    |plain output|) and the rest of the path, on the card with K1's plain
+    version, against the CPU (<= ``FUSED_F32_CARD_VS_CPU_MEAN`` on every
+    scale; the forward through the kernel against the CPU is read), the
+    three forwards timed, and K1 int8 at (128, 5) on 32×64²×128 timed.
+    Returns (launch counts summed over the phase, C = 128 launches by path
+    and dtype, the largest bf16 and int8 differences of the C = 128
+    launches from their plain versions, the int8 (128, 5) timing
+    entry)."""
+    from blind_image_denoising_torch.ops import pallas_convnext
+    cfg = copy.deepcopy(v6cfg)
+    cfg["backbone"]["depth"] = FUSED4_DEPTH
+    run = fused_model_run(cfg, FUSED4_LEVELS, rng, reset_counts,
+                          read_counts)
+    model, x, runs, on_path = (run["model"], run["x"], run["runs"],
+                               run["on_path"])
+    outs, gaps, card32, own_int8 = (run["outs"], run["gaps"], run["card32"],
+                                    run["own_int8"])
+    f32_launches, timing = run["f32_launches"], run["timing"]
+    c128 = {name: c128_of(sh) for name, sh in run["shapes"].items()}
+    ncal = run["calibration_images"]
+    want = {"calibrate": counts(convnext_block=FUSED4_PER_FORWARD * ncal),
+            "fused_float": counts(convnext_block=FUSED4_PER_FORWARD),
+            "fused_int8": counts(convnext_block_int8=FUSED4_PER_FORWARD),
+            "hydra_bf16": counts(convnext_block=FUSED4_PER_FORWARD,
+                                 band_smooth=FUSED4_DEPTH - 1)}
+    want_c128 = {"calibrate": {"bfloat16": FUSED4_C128_PER_FORWARD * ncal},
+                 "fused_float": {"bfloat16": FUSED4_C128_PER_FORWARD},
+                 "fused_int8": {"int8": FUSED4_C128_PER_FORWARD},
+                 "hydra_bf16": {"bfloat16": FUSED4_C128_PER_FORWARD}}
+    card_vs_cpu = card32["plain_k1"]
+    int8_bar = max(4.0, own_int8 + FUSED4_INT8_OWN_MARGIN)
 
     # K1 int8 at (128, 5) on the fused path's level-2 shape, timed
     b, hw = FUSED_BATCH, FUSED_SIZE >> 2
@@ -3185,7 +3203,7 @@ def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
     c128_bf16 = [r for r in on_path["fused_float"] if r["C"] == 128]
     result = dict(
         config=FUSED_CONFIG, depth=FUSED4_DEPTH, fused_levels=FUSED4_LEVELS,
-        batch=list(x.shape), dtype="bf16", sites=len(sites),
+        batch=list(x.shape), dtype="bf16", sites=run["sites"],
         launches=runs, c128_launches=c128,
         k1_on_path=dict(
             int8_max_abs_code_diff=max(r["max_abs_code_diff"]
@@ -3264,6 +3282,315 @@ def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
         int8=max(timed["max_abs_code_diff"],
                  max(r["max_abs_code_diff"] for r in c128_int8)))
     return total, c128_total, errors, (FUSED4_C128_PER_FORWARD, t, bound, by)
+
+
+# --------------------------------------------- the fused path's widths
+
+# unet_laplacian_v6 at its own filters (32), width (3) and K (5) with the
+# depth set to 5 (self-attention at level 4), seeded, bf16, levels 0-3
+# fused, 24 K1 a fused forward: (a) the config's level widths, C =
+# 32/64/128/256, 6 K1 at (256, 5); (b) filters_level_multiplier 1.5, C =
+# 32/48/72/108 (level 4, C = 162, is the attention level), 6 K1 each at
+# (32, 5), (48, 5), (72, 5) and (108, 5)
+FUSEDW_DEPTH = 5
+FUSEDW_LEVELS = (0, 1, 2, 3)
+FUSEDW_PER_FORWARD = 24
+FUSEDW_MODELS = {"c256": {}, "x1.5": {"filters_level_multiplier": 1.5}}
+# the fused forwards against the bf16 hydra: the fused phase's bars (float
+# 2.0 gray levels, int8 max(4, the model's own int8 error in f32 + 0.5)), or,
+# where the seeded model's roundings already spread past them, no farther
+# from its float32 hydra than its bf16 hydra (float) or its f32 int8 forward
+# (int8) is, + 0.5. JAX's own bf16 fused forward sits 3.30 (multiplier 1.5)
+# and 2.81 (C = 256) gray levels from its bf16 hydra on these depth-5 models
+# (CPU, b1 @ 128²; the port's 2.65 and 2.20)
+FUSEDW_OWN_MARGIN = 0.5
+# K1 at the classes' shapes and (64, 3), (128, 3), timed (dtype, C, K, B,
+# H = W, the unit whose weights it takes: a model of FUSEDW_MODELS and a
+# unit, or None for the card tests' seeded weights): (256, 5) at a depth-5
+# fused forward's level 3 in bf16 and int8 (b32 @ 256²) and in f32 (b8), the
+# multiplier-1.5 model's levels 1-3 in bf16, and (64, 3) / (128, 3) at
+# b8 @ 256²'s levels 1 and 2
+FUSEDW_K1_ROWS = [("bf16", 256, 5, 32, 32, ("c256", "encoder_3_0")),
+                  ("int8", 256, 5, 32, 32, ("c256", "encoder_3_0")),
+                  ("f32", 256, 5, 8, 32, ("c256", "encoder_3_0")),
+                  ("bf16", 48, 5, 32, 128, ("x1.5", "encoder_1_0")),
+                  ("bf16", 72, 5, 32, 64, ("x1.5", "encoder_2_0")),
+                  ("bf16", 108, 5, 32, 32, ("x1.5", "encoder_3_0")),
+                  ("bf16", 64, 3, 8, 128, None),
+                  ("bf16", 128, 3, 8, 64, None)]
+
+
+def seeded_unit_weights(c, k, seed=0):
+    """tests/test_torch_cuda.py's seeded unit weights, on the card."""
+    rng = np.random.default_rng(seed)
+    e = 4 * c
+    t = lambda a: torch.tensor(a, dtype=torch.float32).cuda()  # noqa
+    return dict(dw=t(rng.normal(0, 0.3, (c, 1, k, k))),
+                ln_scale=t(rng.uniform(0.5, 1.5, (c,))),
+                w2=t(rng.normal(0, 1.0 / np.sqrt(c), (e, c))),
+                w3=t(rng.normal(0, 1.0 / np.sqrt(e), (c, e))),
+                gain=t(rng.uniform(0.3, 0.9, (c,))))
+
+
+def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
+                **fields):
+    """K1 on ``x`` (float32; ``mode`` "f32", "bf16" or "int8", whose scales
+    are 1/127 and 4/127 of max |x|) warm and cold beside its bound, its
+    plain version and its library chain, its output held to phase 3's
+    bars (bf16 max(0.05, 1 ulp); f32 1e-3 and ``K1_F32_RELATIVE`` of max
+    |plain output|; int8 one code on at most ``share_differing`` of the
+    outputs). Logs and returns the row; raises past a bar."""
+    from blind_image_denoising_torch.ops.precision import exact_float32
+    b, h, w, c = x.shape
+    k = wts["dw"].shape[-1]
+    kw = dict(slope=slope)
+    if mode == "int8":
+        s_in, s_out = float(x.abs().max()) / 127, 4 * float(
+            x.abs().max()) / 127
+        x = pallas_convnext.quantize(x, s_in)
+        kw.update(scale_in=s_in, scale_out=s_out)
+        library = lambda: convnext_int8_library(  # noqa: E731
+            x, s_in, s_out, slope=slope, **wts)
+    else:
+        x = x.to(torch.float32 if mode == "f32" else torch.bfloat16)
+        library = lambda: convnext_library(  # noqa: E731
+            x, slope=slope, **{n: v.to(x.dtype) for n, v in wts.items()})
+    with exact_float32():                # the f32 library chain: TF32 off
+        got = pallas_convnext.convnext_block(x, **kw, **wts)
+        ref = pallas_convnext.convnext_block_plain(x, **kw, **wts)
+        t = dict(
+            ms=cuda_ms(lambda: pallas_convnext.convnext_block(x, **kw,
+                                                              **wts)),
+            cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
+                xc, **kw, **wts), inputs=cold_copies(x)),
+            plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
+                x, **kw, **wts), iters=3, warmup=1),
+            library_ms=cuda_ms(library))
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max())
+    if mode == "int8":
+        share = float((diff > 0).float().mean())
+        ok = err <= 1 and share <= share_differing
+        extra = dict(share_differing=share)
+    elif mode == "f32":
+        ok = err <= 1e-3 and err <= K1_F32_RELATIVE * float(ref.abs().max())
+        extra = dict(bound_cuda_cores_ms=convnext_bound_ms(
+            b, h, w, c, k, x.dtype, cuda_cores=True)[0])
+    else:
+        ok = bool((diff <= torch.clamp(bf16_ulp(ref), min=0.05)).all())
+        extra = {}
+    bound, by = convnext_bound_ms(b, h, w, c, k, x.dtype)
+    row = dict(kernel="convnext_block" + ("_int8" if mode == "int8" else ""),
+               C=c, K=k, shape=[b, h, w, c], dtype=str(x.dtype).split(".")[-1],
+               bound_ms=bound, bound_by=by, share_cold=bound / t["cold_ms"],
+               max_abs_err=err, **extra, **fields, smi=smi, **t)
+    log("time", **row)
+    if not ok:
+        raise AssertionError(f"K1 {mode} {[b, h, w, c]} K={k}: {row}")
+    return row
+
+
+def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
+                       share_differing):
+    """The fused path at the widths K1's classes serve: the two depth-5
+    ``unet_laplacian_v6`` models of ``FUSEDW_MODELS`` through
+    :func:`fused_model_run` with ``fused_levels=FUSEDW_LEVELS``: exact
+    launches (24 K1 a fused forward and a hydra forward, 6 at each level's
+    (C, 5); 0 units on their PyTorch branch), every K1 launch of the two
+    fused forwards against its plain version on the same input (bf16
+    max(0.05, 1 ulp); int8 one code on at most ``share_differing`` of the
+    outputs at C <= 64, ``FUSED4_C128_SHARE_DIFFERING`` from C = 128; f32
+    1e-3 and ``K1_F32_RELATIVE`` of max |plain output|), the fused outputs
+    against the hydra's (float <= ``FUSED_FLOAT_VS_HYDRA_MEAN``, int8 <= 4
+    mean gray levels or the model's own int8 error +
+    ``FUSED4_INT8_OWN_MARGIN``; or, where the seeded model's roundings
+    spread past those, each no farther from its f32 hydra than the bf16
+    hydra (float) or the f32 int8 forward (int8) + ``FUSEDW_OWN_MARGIN``),
+    the f32 fused
+    forward with K1's plain version on the card against the CPU (<=
+    ``FUSED_F32_CARD_VS_CPU_MEAN``; through the kernel read), the forwards
+    timed; then K1 at ``FUSEDW_K1_ROWS`` timed. Returns (launch counts
+    summed over the phase, K1's launches off the (C, K) of their own
+    by dtype, the largest bf16 and int8 differences of those launches from
+    their plain versions, the timed rows)."""
+    from blind_image_denoising_torch.ops import pallas_convnext
+
+    def int8_share(c):
+        # the depth-4 phase's rule: C <= 64 keeps phase 3's share; from
+        # C = 128 an output sums 4C = 512 or more products in another order
+        # than the plain version, and more codes sit near x.5
+        return share_differing if c <= 64 else FUSED4_C128_SHARE_DIFFERING
+
+    models, problems = {}, []
+    total, classes = None, {}
+    errors = dict(bf16=0.0, int8=0)
+    for name, overrides in FUSEDW_MODELS.items():
+        cfg = copy.deepcopy(v6cfg)
+        cfg["backbone"].update(depth=FUSEDW_DEPTH, **overrides)
+        branch0 = pallas_convnext.branch_units
+        run = fused_model_run(cfg, FUSEDW_LEVELS, rng, reset_counts,
+                              read_counts)
+        branch = pallas_convnext.branch_units - branch0
+        model, runs, on_path = run["model"], run["runs"], run["on_path"]
+        models[name] = model
+        levels = [getattr(model.backbone, f"encoder_{d}_0").conv_1.kernel
+                  .shape[0] for d in FUSEDW_LEVELS]
+        per_shape = {(c, 5): 6 for c in levels}
+        ncal = run["calibration_images"]
+        mode = {"calibrate": "bfloat16", "fused_float": "bfloat16",
+                "fused_int8": "int8", "hydra_bf16": "bfloat16"}
+        want = {"calibrate": counts(
+                    convnext_block=FUSEDW_PER_FORWARD * ncal),
+                "fused_float": counts(convnext_block=FUSEDW_PER_FORWARD),
+                "fused_int8": counts(convnext_block_int8=FUSEDW_PER_FORWARD),
+                "hydra_bf16": counts(convnext_block=FUSEDW_PER_FORWARD,
+                                     band_smooth=FUSEDW_DEPTH - 1)}
+        want_shapes = {key: {(mode[key], c, k): n * (
+            ncal if key == "calibrate" else 1)
+            for (c, k), n in per_shape.items()} for key in want}
+        got_shapes = {key: {tuple(sk): n for sk, n in sh.items()}
+                      for key, sh in run["shapes"].items()}
+        int8_bar = max(4.0, run["own_int8"] + FUSED4_INT8_OWN_MARGIN)
+        vs_f32 = run["vs_f32_hydra"]
+        float_ok = (run["gaps"]["fused_float"]["mean"]
+                    <= FUSED_FLOAT_VS_HYDRA_MEAN
+                    or vs_f32["fused_float"]
+                    <= vs_f32["hydra_bf16"] + FUSEDW_OWN_MARGIN)
+        int8_ok = (run["gaps"]["fused_int8"]["mean"] <= int8_bar
+                   or vs_f32["fused_int8"]
+                   <= run["own_int8"] + FUSEDW_OWN_MARGIN)
+        f32_launches = run["f32_launches"]
+        off = [r for r in on_path["fused_float"]
+               if (r["C"], 5) not in pallas_convnext.OWN_SHAPES]
+        off_int8 = [r for r in on_path["fused_int8"]
+                    if (r["C"], 5) not in pallas_convnext.OWN_SHAPES]
+        result = dict(
+            config=FUSED_CONFIG, depth=FUSEDW_DEPTH, overrides=overrides,
+            level_widths=levels, fused_levels=FUSEDW_LEVELS,
+            batch=list(run["x"].shape), dtype="bf16", sites=run["sites"],
+            launches=runs, k1_launches_by_shape={
+                key: {str(sk): n for sk, n in sh.items()}
+                for key, sh in got_shapes.items()},
+            hydra_branch_units=branch,
+            k1_on_path=dict(
+                bf16_max_abs_err=max(r["max_abs_err"]
+                                     for r in on_path["fused_float"]),
+                int8_max_abs_code_diff=max(r["max_abs_code_diff"]
+                                           for r in on_path["fused_int8"]),
+                int8_max_share_differing_by_c={
+                    c: max(r["share_differing"] for r in on_path["fused_int8"]
+                           if r["C"] == c) for c in levels},
+                f32_max_relative_err=max(r["relative_err"]
+                                         for r in f32_launches),
+                f32_max_abs_err=max(r["max_abs_err"] for r in f32_launches)),
+            finest_vs_hydra_bf16_gray_levels=run["gaps"],
+            finest_vs_hydra_f32_gray_levels=vs_f32,
+            own_int8_error_f32_gray_levels=run["own_int8"],
+            f32_card_vs_cpu_mean_gray_levels_per_scale=run["card32"],
+            cpu_images=FUSED_CPU_IMAGES, timing=run["timing"], smi=smi,
+            tolerance=dict(
+                launches=f"{FUSEDW_PER_FORWARD} K1 a fused or hydra "
+                         f"forward, 6 at each of {sorted(per_shape)}; 0 "
+                         f"branch units",
+                k1_bf16="max(0.05, 1 bf16 ulp)",
+                k1_f32=f"1e-3 and {K1_F32_RELATIVE} x max |plain output|",
+                k1_int8=f"|code diff| <= 1, share differing <= "
+                        f"{share_differing} (C <= 64), "
+                        f"{FUSED4_C128_SHARE_DIFFERING} (C >= 128)",
+                f32_card_vs_cpu="the path with K1's plain version on the "
+                                "card against the CPU (plain_k1); the path "
+                                "through the kernel (kernel) is read",
+                f32_card_vs_cpu_mean=FUSED_F32_CARD_VS_CPU_MEAN,
+                float_vs_hydra=f"mean <= {FUSED_FLOAT_VS_HYDRA_MEAN}, or "
+                               f"against the f32 hydra <= the bf16 hydra's "
+                               f"+ {FUSEDW_OWN_MARGIN}",
+                int8_vs_hydra=f"mean <= {int8_bar}, or against the f32 "
+                              f"hydra <= the f32 int8 forward's + "
+                              f"{FUSEDW_OWN_MARGIN}"))
+        log("fused_widths", model=name, **result)
+        if runs != want or got_shapes != want_shapes or branch:
+            problems.append(f"{name}: launches {runs}, by shape "
+                            f"{got_shapes}, branch units {branch}")
+        for key, o in run["outs"].items():
+            if [tuple(v.shape) for v in o] != [
+                    (FUSED_BATCH, 3, FUSED_SIZE >> i, FUSED_SIZE >> i)
+                    for i in range(FUSEDW_DEPTH)] or not all(
+                        bool(torch.isfinite(v).all()) for v in o):
+                problems.append(f"{name} {key}: bad outputs")
+        if [len(v) for v in on_path.values()] != [FUSEDW_PER_FORWARD] * 2 \
+                or not all(r["within"] for r in on_path["fused_float"]) \
+                or not all(r["max_abs_code_diff"] <= 1
+                           and r["share_differing"] <= int8_share(r["C"])
+                           for r in on_path["fused_int8"]):
+            problems.append(f"{name}: K1 on the path disagrees with its "
+                            f"plain version: {on_path}")
+        if max(run["card32"]["plain_k1"]) > FUSED_F32_CARD_VS_CPU_MEAN:
+            problems.append(f"{name}: f32 fused card vs CPU {run['card32']}")
+        if len(f32_launches) != FUSEDW_PER_FORWARD or not all(
+                r["max_abs_err"] <= 1e-3
+                and r["relative_err"] <= K1_F32_RELATIVE
+                for r in f32_launches):
+            problems.append(f"{name}: K1 f32 on the path: {f32_launches}")
+        gaps = run["gaps"]
+        if not float_ok or not int8_ok:
+            problems.append(f"{name}: fused vs hydra {gaps}, against the "
+                            f"f32 hydra {vs_f32}")
+        counted = {key: sum(r[key] for r in runs.values())
+                   for key in runs["calibrate"]}
+        total = counted if total is None else {
+            key: total[key] + n for key, n in counted.items()}
+        for sh in got_shapes.values():
+            for (dtype, c, k), n in sh.items():
+                if (c, k) not in pallas_convnext.OWN_SHAPES:
+                    classes[dtype] = classes.get(dtype, 0) + n
+        errors["bf16"] = max([errors["bf16"]] + [r["max_abs_err"]
+                                                 for r in off])
+        errors["int8"] = max([errors["int8"]] + [r["max_abs_code_diff"]
+                                                 for r in off_int8])
+        del run
+    if problems:
+        raise AssertionError(f"fused_widths: {problems}")
+    rows = []
+    for mode, c, k, b, hw, unit in FUSEDW_K1_ROWS:
+        if unit is None:
+            wts, slope, on = seeded_unit_weights(c, k), 0.1, "seeded"
+        else:
+            kw = getattr(models[unit[0]].backbone, unit[1]).kernel_weights(
+                torch.float32)
+            wts, slope, on = dict(kw), getattr(
+                models[unit[0]].backbone, unit[1]).slope, "/".join(unit)
+        x = torch.from_numpy(rng.normal(0, 1, (b, hw, hw, c)).astype(
+            np.float32)).cuda()
+        rows.append(k1_row_time(
+            pallas_convnext, mode, x, wts, slope, smi, int8_share(c),
+            path="fused_widths", weights=on,
+            calls_per_forward=6 if unit is not None else 0))
+        del x
+    # K2 at the multiplier-1.5 hydra's level-3 band split: C = 108 is no
+    # whole number of 16-byte vectors (4 bf16 channels a thread)
+    from blind_image_denoising_torch.ops import pallas_pyramid
+    shape = (FUSED_BATCH, FUSED_SIZE >> 3, FUSED_SIZE >> 3, 108)
+    x = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).cuda(
+        ).to(torch.bfloat16)
+    got = pallas_pyramid.band_smooth_forward(x, 2)
+    ref = pallas_pyramid.band_smooth_plain(x, 2)
+    diffs = [(g.float() - r.float()).abs() for g, r in zip(got, ref)]
+    err = max(float(d.max()) for d in diffs)
+    # phase 3's K2 bar: one bf16 ulp of the plain output, element by element
+    within = all(bool((d <= bf16_ulp(r)).all()) for d, r in zip(diffs, ref))
+    t = dict(ms=cuda_ms(lambda: pallas_pyramid.band_smooth_forward(x, 2)),
+             cold_ms=cuda_ms(lambda xc: pallas_pyramid.band_smooth_forward(
+                 xc, 2), inputs=cold_copies(x)),
+             plain_ms=cuda_ms(lambda: pallas_pyramid.band_smooth_plain(x, 2),
+                              iters=5),
+             library_ms=cuda_ms(lambda: band_smooth_library(x, 2)))
+    bound, by = band_bound_ms(*shape, 2, torch.bfloat16)
+    log("time", path="fused_widths", kernel="band_smooth", shape=list(shape),
+        dtype="bf16", calls_per_forward=1, bound_ms=bound, bound_by=by,
+        share_cold=bound / t["cold_ms"], max_abs_err=err, smi=smi, **t)
+    if not within:
+        raise AssertionError(f"K2 at C = 108 against its plain version: {err}")
+    return total, classes, errors, rows
 
 
 # ------------------------------------------------------------ restoration
@@ -6243,6 +6570,27 @@ def main() -> int:
     fused4_s = time.perf_counter() - t0
     entries["convnext_block_int8_c128"] = [fused4_int8_row]
 
+    # ---- phase 7c: the fused path at the widths of K1's classes: two
+    # depth-5 unet_laplacian_v6 (C = 256 at level 3; levels 1.5x apart)
+    t0 = time.perf_counter()
+    fusedw_counts, fusedw_classes, fusedw_errors, fusedw_rows = \
+        fused_widths_phase(v6cfg, rng, smi, read_counts, counts,
+                           reset_counts, max_share_differing)
+    fusedw_s = time.perf_counter() - t0
+    # per the two depth-5 float fused forwards (bf16: 6 K1 at each class
+    # shape) and per the C = 256 model's int8 fused forward (6 at (256, 5))
+    entries["convnext_block_classes"] = [
+        (r["calls_per_forward"], {k: r[k] for k in (
+            "ms", "cold_ms", "plain_ms", "library_ms")}, r["bound_ms"],
+         r["bound_by"]) for r in fusedw_rows
+        if r["dtype"] == "bfloat16" and r["calls_per_forward"]]
+    entries["convnext_block_int8_classes"] = [
+        (r["calls_per_forward"], {k: r[k] for k in (
+            "ms", "cold_ms", "plain_ms", "library_ms")}, r["bound_ms"],
+         r["bound_by"]) for r in fusedw_rows if r["dtype"] == "int8"]
+    errors["convnext_block_classes"] = fusedw_errors["bf16"]
+    errors["convnext_block_int8_classes"] = fusedw_errors["int8"]
+
     # ---- phase 8: the decimating band split (K4) through its op
     xs_split = [torch.from_numpy(rng.normal(0, 1, shape).astype(
         np.float32)).cuda().to(torch.bfloat16) for shape in band_shapes]
@@ -6422,9 +6770,12 @@ def main() -> int:
     for kernel, err in parallel_errors.items():
         errors[kernel] = max(errors[kernel], err)
     phase_s["parallel"] = time.perf_counter() - t0
-    log("new_phases", seconds=dict(phase_s, fused_depth4=fused4_s),
+    log("new_phases", seconds=dict(phase_s, fused_depth4=fused4_s,
+                                   fused_widths=fusedw_s),
         script_s=time.perf_counter() - script_start,
         fused_depth4_launches=fused4_counts,
+        fused_widths_launches=fusedw_counts,
+        fused_widths_class_launches=fusedw_classes,
         c128_launches=dict(unet_laplacian_family=family_c128,
                            fused_depth4=fused4_c128),
         export_launches=export_counts,
@@ -6467,6 +6818,11 @@ def main() -> int:
     # K1's C = 128 instantiations, rows of their own
     replaces["convnext_block_c128"] = replaces["convnext_block"]
     replaces["convnext_block_int8_c128"] = replaces["convnext_block_int8"]
+    # K1 off the (C, K) of their own: its classes, rows of their own
+    # (sources csrc/convnext_class.cu and convnext_wide.cu beside the
+    # entry points in convnext_block.cu)
+    replaces["convnext_block_classes"] = replaces["convnext_block"]
+    replaces["convnext_block_int8_classes"] = replaces["convnext_block_int8"]
     per = {"convnext_block": "serving forward, b8 @ 256^2",
            "band_smooth": "serving forward, b8 @ 256^2",
            "band_smooth_bwd": "train step, b16 @ 128^2",
@@ -6479,7 +6835,18 @@ def main() -> int:
                                   "8x64^2",
            "convnext_block_int8_c128": f"depth-4 fused int8 forward, "
                                        f"b{FUSED_BATCH} @ {FUSED_SIZE}^2: "
-                                       f"6 x (128,5) at {FUSED_BATCH}x64^2"}
+                                       f"6 x (128,5) at {FUSED_BATCH}x64^2",
+           "convnext_block_classes": f"the two depth-5 float fused "
+                                     f"forwards, b{FUSED_BATCH} @ "
+                                     f"{FUSED_SIZE}^2: 6 x (256,5) at "
+                                     f"{FUSED_BATCH}x32^2, 6 x (48,5) at "
+                                     f"{FUSED_BATCH}x128^2, 6 x (72,5) at "
+                                     f"{FUSED_BATCH}x64^2, 6 x (108,5) at "
+                                     f"{FUSED_BATCH}x32^2",
+           "convnext_block_int8_classes": f"depth-5 fused int8 forward, "
+                                          f"b{FUSED_BATCH} @ "
+                                          f"{FUSED_SIZE}^2: 6 x (256,5) at "
+                                          f"{FUSED_BATCH}x32^2"}
     # ms, bound and library are per serving forward (K1, K2), per train
     # step (K2 backward, K3), per fused int8 forward (K1 int8) or per
     # band_split path run (K4), summed over the shapes of that unit of
@@ -6497,12 +6864,19 @@ def main() -> int:
                        for path, per in (("unet_laplacian_family",
                                           family_c128),
                                          ("fused_depth4", fused4_c128))}
+        elif name.endswith("_classes"):
+            # launches off the (C, K) of their own (the float modes or
+            # int8), by path
+            modes = ("int8",) if "int8" in name else ("bfloat16", "float32")
+            by_path = {"fused_widths": sum(fusedw_classes.get(m, 0)
+                                           for m in modes)}
         else:
             by_path = dict(serve=serve_counts[name],
                            inference=inference_counts[name],
                            train=train_counts[name],
                            fused=fused_counts[name],
                            fused_depth4=fused4_counts[name],
+                           fused_widths=fusedw_counts[name],
                            band_split=split_counts[name],
                            artifacts=artifact_counts[name],
                            train_loop=loop_counts[name],

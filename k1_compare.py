@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
 """Time versions of the ConvNext-unit kernel (K1) against each other on
-one NVIDIA GPU, inside one process, at the shapes ``chip_smoke.py``
+one NVIDIA GPU, inside one process. The rows: the seven (C, K) with
+instantiations of their own in every mode at the shapes ``chip_smoke.py``
 reports (bf16 (32,3) 8×256², (64,5) 8×128², (32,5) 32×256², (64,5)
-32×128² and int8 (32,5) 32×256², (64,5) 32×128²) and, for
-``dtype="float32"`` serving, f32 (32,3) 8×256² and (64,5) 8×128², and
-the K = 1 decoders' f32 (32,1) 8×256² and (64,1) 8×128²; and C = 128:
-bf16 and f32 (128,5) and (128,1) at 8×64² (``unet_laplacian_v4``'s
-level 2 at b8 @ 256²) and int8 (128,5) at 32×64² (a depth-4 fused
-``unet_laplacian_v6``'s level 2 at b32 @ 256²). A source built without
-a row's instantiation (a parent from before it) skips that row.
+32×128²; int8 (32,5) 32×256², (64,5) 32×128²; f32 (32,3) 8×256² and
+(64,5) 8×128² for ``dtype="float32"`` serving; the K = 1 decoders'
+(32,1) 8×256² and (64,1) 8×128²; C = 128 at 8×64²,
+``unet_laplacian_v4``'s level 2 at b8 @ 256², and int8 (128,5) at 32×64², a depth-4 fused
+``unet_laplacian_v6``'s level 2 at b32 @ 256²), then the classes: (256,5)
+at 32×32² in bf16 and int8 and at 8×32² in f32 (a depth-5 fused v6's
+level 3), bf16 (48,5), (72,5) and (108,5) at 32×128², 32×64² and 32×32²
+(the levels of one with ``filters_level_multiplier`` 1.5), and bf16 (64,3)
+at 8×128² and (128,3) at 8×64². A source built without a row's kernel (a
+parent from before it) skips that row.
 
     python3 k1_compare.py [--rounds N] [--out DIR] [--mma-rate]
                           [NAME=SOURCE ...]
 
-Each SOURCE is a ``convnext_block.cu`` (the checkout's, a parent
-commit's, or a copy with a phase cut out); ``common.cuh`` is taken from
-the checkout. Every source is compiled by ``nvcc`` for ``sm_90a`` into a
-library of its own, and the libraries are timed in turns (in the given
+Each SOURCE is a ``convnext_block.cu`` (a parent commit's before the
+kernel had sources of its own beside it) or a directory of K1 sources
+(``csrc/`` of the checkout or of a parent, or a copy with a phase cut
+out), whose ``convnext*.cu`` are built; ``common.cuh`` is taken from the
+source's directory, else from the checkout. Every source is compiled by
+``nvcc`` for ``sm_90a`` (one process per file, all started together) into
+a library of its own, and the libraries are timed in turns (in the given
 order in even rounds, reversed in odd ones: parent, change, change,
 parent with two names and two rounds), since times of different
 processes or machines do not compare. Per source and shape it prints
@@ -54,7 +61,8 @@ from chip_smoke import cold_copies, convnext_bound_ms, cuda_ms
 
 # the library's status for a (C, K) it was not built for
 UNSUPPORTED = -1
-# (dtype, C, K, batch, height and width)
+# (dtype, C, K, batch, height and width): the seven (C, K) that had
+# instantiations of their own before the classes, every mode
 ROWS = [("bf16", 32, 3, 8, 256), ("bf16", 64, 5, 8, 128),
         ("bf16", 32, 5, 32, 256), ("bf16", 64, 5, 32, 128),
         ("int8", 32, 5, 32, 256), ("int8", 64, 5, 32, 128),
@@ -62,21 +70,42 @@ ROWS = [("bf16", 32, 3, 8, 256), ("bf16", 64, 5, 8, 128),
         ("f32", 32, 1, 8, 256), ("f32", 64, 1, 8, 128),
         ("bf16", 128, 5, 8, 64), ("bf16", 128, 1, 8, 64),
         ("f32", 128, 5, 8, 64), ("f32", 128, 1, 8, 64),
-        ("int8", 128, 5, 32, 64)]
+        ("int8", 128, 5, 32, 64),
+        ("bf16", 32, 1, 8, 256), ("int8", 32, 1, 8, 256),
+        ("int8", 32, 3, 8, 256), ("f32", 32, 5, 32, 256),
+        ("bf16", 64, 1, 8, 128), ("int8", 64, 1, 8, 128),
+        ("int8", 128, 1, 8, 64)]
+# the classes, and (64, 3) and (128, 3) of their own
+CLASS_ROWS = [("bf16", 256, 5, 32, 32), ("int8", 256, 5, 32, 32),
+              ("f32", 256, 5, 8, 32), ("bf16", 48, 5, 32, 128),
+              ("bf16", 72, 5, 32, 64), ("bf16", 108, 5, 32, 32),
+              ("bf16", 64, 3, 8, 128), ("bf16", 128, 3, 8, 64)]
 
 
 def build(name, source, work, out_dir):
     from blind_image_denoising_torch.ops import cuda_build
+    source = Path(source)
+    files = (sorted(source.glob("convnext*.cu")) if source.is_dir()
+             else [source])
+    inc = ["-I", str(source if source.is_dir() else source.parent), "-I",
+           str(cuda_build.CSRC_DIR)]
+    objs = [work / f"{name}-{f.stem}.o" for f in files]
+    procs = [subprocess.Popen(
+        [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+         *inc, "-c", str(f), "-o", str(o)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for f, o in zip(files, objs)]
+    report = [p.communicate()[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"nvcc failed for {name}:\n" + "\n".join(report))
     lib_path = work / f"{name}.so"
-    cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-           "-I", str(cuda_build.CSRC_DIR), "-shared", str(source), "-o",
-           str(lib_path)]
-    done = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{done.stdout}")
+    link = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                           "-shared", *map(str, objs), "-o", str(lib_path)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed for {name}:\n{link.stdout}")
     if out_dir is not None:
-        (out_dir / f"{name}.ptxas.txt").write_text(done.stdout)
+        (out_dir / f"{name}.ptxas.txt").write_text("\n".join(report))
         tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
         sass = subprocess.run([str(tool), "-sass", str(lib_path)],
                               capture_output=True, text=True, check=True)
@@ -201,7 +230,7 @@ def main() -> int:
     def t(a):
         return torch.tensor(a, dtype=torch.float32, device="cuda")
 
-    for dtype, c, k, b, hw in ROWS:
+    for dtype, c, k, b, hw in ROWS + CLASS_ROWS:
         e = 4 * c
         wts = dict(dw=t(rng.normal(0, 0.3, (c, 1, k, k))),
                    ln_scale=t(rng.uniform(0.5, 1.5, (c,))),
@@ -219,16 +248,15 @@ def main() -> int:
             x = pc.quantize(x, scales["scale_in"])
             s_in, inv_out = pc.int8_constants(**scales)
         ref = pc.convnext_block_plain(x, **wts, **scales)
-        dw = wts["dw"].reshape(c, k * k).contiguous()
-        w_dtype = torch.float32 if dtype == "f32" else torch.bfloat16
-        w2, w3 = (wts[n].to(w_dtype).contiguous() for n in ("w2", "w3"))
+        # the weights as the wrapper hands them over (padded for a class)
+        dw, ln, w2, w3, gain = pc.kernel_operands(x.dtype, **wts)
         out = torch.empty_like(x)
 
         def call(lib, x=x):
             rc = lib.bid_convnext_block(
-                x.data_ptr(), out.data_ptr(), dw.data_ptr(),
-                wts["ln_scale"].data_ptr(), w2.data_ptr(), w3.data_ptr(),
-                wts["gain"].data_ptr(), b, hw, hw, c, k,
+                x.data_ptr(), out.data_ptr(), dw.data_ptr(), ln.data_ptr(),
+                w2.data_ptr(), w3.data_ptr(), gain.data_ptr(), b, hw, hw,
+                c, k,
                 pc._DTYPE_CODES[x.dtype], 0.1, s_in, inv_out, stream)
             if rc != 0:
                 raise RuntimeError(f"launch refused: code {rc}")

@@ -91,8 +91,12 @@ def test_kernels_build(dev):
     cuda_build.library()
 
 
+# C of no whole 16-byte vectors too: 108 (the band split of a
+# filters_level_multiplier 1.5 unet_laplacian_v6's level 3; 4 bf16 channels
+# a thread), 6 and 3
 @pytest.mark.parametrize("shape", [(2, 64, 64, 32), (1, 37, 53, 64),
-                                   (8, 256, 256, 32)])
+                                   (8, 256, 256, 32), (2, 32, 32, 108),
+                                   (1, 19, 23, 6), (1, 9, 11, 3)])
 @pytest.mark.parametrize("k", [2, 3, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_band_smooth_kernel_matches_plain(dev, shape, k, dtype):
@@ -124,14 +128,17 @@ def _unit_weights(c, k, dev, seed=0):
         gain=t(rng.uniform(0.3, 0.9, (c,))))
 
 
-# [B, H, W] against K1's tiles of 8 x 32 pixels (8 x 16 in float32): whole
-# tiles; ragged in both directions; one pixel over a tile in both; smaller
-# than a tile; and 3 x 13 x 10 = 390 tiles (8 x 32), more than the
-# persistent grid holds at once and no multiple of it
+# [B, H, W] against K1's tiles of 8 x 32 pixels (8 x 16 in float32 and at
+# C = 128, 8 x 8 above): whole tiles; ragged in both directions; one pixel
+# over a tile in both; smaller than a tile; and 3 x 13 x 10 = 390 tiles
+# (8 x 32), more than the persistent grid holds at once and no multiple of
+# it. The kernel tests run them at every (C, K) of SAMPLE_SHAPES: the nine
+# of their own and the classes at C that are no multiple of 8 or 16 (1, 7,
+# 24, 72, 108, 162, 200) and at C = 256
 K1_BHW = [(2, 16, 64), (2, 13, 45), (3, 9, 33), (1, 5, 20), (3, 100, 300)]
 
 
-@pytest.mark.parametrize("ck", sorted(pallas_convnext.KERNEL_SHAPES))
+@pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
 @pytest.mark.parametrize("bhw", K1_BHW)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_convnext_kernel_matches_plain(dev, ck, bhw, dtype):
@@ -156,7 +163,7 @@ def test_convnext_kernel_matches_plain(dev, ck, bhw, dtype):
         assert bool((diff <= tol).all()), float(diff.max())
 
 
-@pytest.mark.parametrize("ck", sorted(pallas_convnext.KERNEL_SHAPES))
+@pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
 def test_convnext_f32_kernel_is_deterministic(dev, ck):
     """Two launches on the same float32 input give the same bits (no
     atomics, no split-K): the exported program is held to eager's bits."""
@@ -170,7 +177,7 @@ def test_convnext_f32_kernel_is_deterministic(dev, ck):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("ck", sorted(pallas_convnext.KERNEL_SHAPES))
+@pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
 @pytest.mark.parametrize("bhw", K1_BHW)
 def test_convnext_int8_kernel_matches_plain(dev, ck, bhw):
     c, k = ck
@@ -239,11 +246,64 @@ def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
         assert bool((diff <= tol).all()), float(diff.max())
 
 
-def test_convnext_kernel_rejects_unbuilt_shape(dev):
-    w = _unit_weights(16, 3, dev)
-    x = torch.zeros((1, 8, 8, 16), device=dev)
+@pytest.mark.parametrize("ck", [(264, 5), (32, 7)])
+def test_convnext_kernel_rejects_unbuilt_shape(dev, ck):
+    """Outside C <= 256 at K = 1, 3, 5 the wrapper raises on a CUDA tensor,
+    and so does the library's entry point."""
+    import ctypes
+    c, k = ck
+    w = _unit_weights(c, k, dev)
+    x = torch.zeros((1, 8, 8, c), device=dev)
     with pytest.raises(NotImplementedError):
         pallas_convnext.convnext_block(x, **w)
+    assert cuda_build.library().bid_convnext_block_info(
+        c, k, 1, (ctypes.c_int * 5)()) == -1
+
+
+@pytest.mark.parametrize("ck", [(256, 5), (162, 3), (256, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_convnext_wide_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
+    """Above C = 128 the wide class streams W2 and W3 through two buffers,
+    32 E chunks a tile (64 in float32), the last prefetching the next
+    tile's first, while the single input tile of (256, 5) is refilled
+    under the products. On 32 x 32 x 32 (a depth-5 fused
+    unet_laplacian_v6's level 3 at b32 @ 256²) there are 512 tiles of 8 x 8
+    pixels, several times the resident blocks, so every block walks the
+    ring over many tiles; the output is held to the kernel tests' bars."""
+    import ctypes
+    c, k = ck
+    info = (ctypes.c_int * 5)()
+    assert cuda_build.library().bid_convnext_block_info(
+        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
+    resident = info[4] * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    shape = (32, 32, 32, c)
+    assert shape[0] * (shape[1] // 8) * (shape[2] // 8) >= 3 * resident
+    w = _unit_weights(c, k, dev, seed=3)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    x = torch.randn(shape, generator=g).to(dev)
+    scales = {}
+    if dtype == torch.int8:
+        scales = dict(scale_in=float(x.abs().max()) / 127,
+                      scale_out=float(pallas_convnext.convnext_block_plain(
+                          x, **w).abs().max()) / 127)
+        x = pallas_convnext.quantize(x, scales["scale_in"])
+    else:
+        x = x.to(dtype)
+    got = pallas_convnext.convnext_block(x, **w, **scales)
+    torch.cuda.synchronize()
+    ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.int8:
+        assert int(diff.max()) <= 1
+        assert float((diff == 0).float().mean()) >= 0.999
+    elif dtype == torch.float32:
+        assert float(diff.max()) <= 1e-3
+        assert float(diff.max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        tol = torch.clamp(_bf16_ulp(ref), min=0.05)
+        assert bool((diff <= tol).all()), float(diff.max())
 
 
 # [B, H, W, C] against the split's tiles (32 x 8 pixels at C = 32 bf16,

@@ -85,8 +85,11 @@ def test_torch_export_is_missing(tmp_path):
         load_torch_export(tmp_path, device="cpu")
 
 
-@pytest.mark.parametrize("ck", [(128, 5), (128, 1)])
+@pytest.mark.parametrize("ck", [(128, 5), (128, 1), (256, 5), (108, 5)])
 def test_convnext_unit_exports_at_c128(ck):
+    """A unit at C = 128, at the wide class's C = 256 and at a C that is no
+    multiple of 16 exports as one ``bidt::convnext_block`` node (its fake
+    carries no shape of its own) and matches eager."""
     from blind_image_denoising_torch.layers.convnext import ConvNextBlock
     c, k = ck
     unit = ConvNextBlock(c, k, 4 * c)

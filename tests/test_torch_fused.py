@@ -7,7 +7,10 @@ sharp-edged shapes, clean and at σ = 25, made from a seed: on uniform
 noise, a code that one package's summation order moves by one at an
 early unit moves its neighbours through every later 5×5 depthwise, and
 the two int8 forwards drift apart, though each stays as close to the
-float model as the other.
+float model as the other. Two width-1 copies without self-attention take
+the deeper levels K1's wider shapes serve: filters 32 (level 2 at
+C = 128) and filters 36 tripling to ``max_filters`` 256 (levels of
+C = 108, no multiple of 16, and 256).
 
 Tolerances, each with its reason:
 * the float fused forward in f32 vs JAX's ``hydra.apply``: mean ≤ 0.05
@@ -264,11 +267,11 @@ def _wide_level2_v6():
     return cfg
 
 
-@pytest.fixture(scope="module")
-def wide():
-    """Initialised as the ``tiny`` fixture is (flax, key 0), under ``jit``:
-    an eager flax init of this width takes ~20 s on the CPU, ~7 jitted."""
-    cfg = _wide_level2_v6()
+def _seeded_pair(cfg):
+    """JAX's hydra of ``cfg`` initialised as the ``tiny`` fixture is (flax,
+    key 0), under ``jit`` (an eager flax init of these widths takes ~20 s
+    on the CPU, ~7 jitted), the port's with the same params, and one
+    noisy and one clean 64² image."""
     hydra = jax_model_builder(cfg).hydra
     variables = jax.jit(lambda key: hydra.init(
         {"params": key}, jnp.zeros((1, 64, 64, 3)), train=False))(
@@ -286,58 +289,98 @@ def wide():
                 images=np.concatenate([noisy, clean]))
 
 
+@pytest.fixture(scope="module")
+def wide():
+    return _seeded_pair(_wide_level2_v6())
+
+
+def _ragged_c256_v6():
+    """``unet_laplacian_v6`` with width 1, no self-attention and filters
+    36 tripling per level up to ``max_filters`` 256: levels of C = 36, 108
+    (no multiple of 16) and 256, each holding a ConvNext unit (K = 5) the
+    fused forward can take."""
+    cfg = _wide_level2_v6()
+    cfg["backbone"].update(filters=36, filters_level_multiplier=3.0,
+                           max_filters=256)
+    cfg["denoiser"]["filters"] = 36
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    return _seeded_pair(_ragged_c256_v6())
+
+
 LEVELS_TO_2 = (0, 1, 2)
 
 
-def test_fused_level2_at_c128_matches_jax(wide, monkeypatch):
-    """Level 2 fused (C = 128, K1's (128, 5)): the port's f32 float fused
-    forward on the CPU against JAX's hydra (mean <= 0.05, max <= 1) and
-    JAX's fused forward in interpret mode (mean < 1, max < 25), the
-    existing fused tests' bars; the same sites as JAX's; one K1 call at
-    C = 128 a forward; ``calibrate_fused(..., fused_levels=)`` records the
-    sites JAX's recorder does; and the int8 forward with JAX's scales (its
-    f32 recorder through its fused forward at the same levels) within a
-    mean of 1 gray level of JAX's int8 fused forward and 4 of JAX's
-    hydra."""
-    x = wide["images"][:1]
+def _fused_matches_jax(pair, monkeypatch, levels, widths):
+    """The checks of the fused tests with ``levels`` fused (of these
+    ``widths``):
+    the port's f32 float fused forward on the CPU against JAX's hydra
+    (mean <= 0.05, max <= 1) and JAX's fused forward in interpret mode
+    (mean < 1, max < 25), the existing fused tests' bars; the same sites
+    as JAX's; one K1 call a unit, at the levels' widths;
+    ``calibrate_fused(..., fused_levels=)`` records the sites JAX's
+    recorder does; and the int8 forward with JAX's scales (its f32
+    recorder through its fused forward at the same levels) within a mean
+    of 1 gray level of JAX's int8 fused forward and 4 of JAX's hydra."""
+    x = pair["images"][:1]
     calls = []
     real = fused.convnext_block
     monkeypatch.setattr(fused, "convnext_block",
                         lambda *a, **k: calls.append(a[0].shape[-1]) or real(
                             *a, **k))
     fwd, sites = fused.build_fused_forward(
-        wide["cfg"], wide["port"], dtype=torch.float32,
-        fused_levels=LEVELS_TO_2)
+        pair["cfg"], pair["port"], dtype=torch.float32, fused_levels=levels)
     got = fwd(_nchw(x))
-    assert calls == [32, 64, 128, 64, 32]
-    ref = wide["hydra"].apply(wide["variables"], jnp.asarray(x), train=False)
+    assert calls == [*widths, *widths[-2::-1]]
+    ref = pair["hydra"].apply(pair["variables"], jnp.asarray(x), train=False)
     for mean, mx in _gray_diffs(got, ref):
         assert mean <= 0.05 and mx <= 1.0, (mean, mx)
     jrec = jax_fused._AmaxRecorder()
     jfwd, jsites = jax_fused.build_fused_forward(
-        wide["cfg"], wide["variables"], dtype=jnp.float32, interpret=True,
-        fused_levels=LEVELS_TO_2, _recorder=jrec)
-    assert sites == jsites == jax_fused._stage_sites(LEVELS_TO_2, 1)
+        pair["cfg"], pair["variables"], dtype=jnp.float32, interpret=True,
+        fused_levels=levels, _recorder=jrec)
+    assert sites == jsites == jax_fused._stage_sites(levels, 1)
     for mean, mx in _gray_diffs(got, jfwd(jnp.asarray(x))):
         assert mean < 1.0 and mx < 25.0, (mean, mx)
-    jfwd(jnp.asarray(wide["images"][1:]))
+    jfwd(jnp.asarray(pair["images"][1:]))
     scales = {k: max(a, 1e-6) / 127.0 for k, a in jrec.amax.items()}
     # the deepest level (2) has no decoder stage; the port's calibration
     # at the same levels records the same sites
     assert set(scales) == set(fused.calibrate_fused(
-        wide["cfg"], wide["port"], _nchw(x), fused_levels=LEVELS_TO_2)) == {
+        pair["cfg"], pair["port"], _nchw(x), fused_levels=levels)) == {
             s for s in sites if not s.startswith("decoder_2")}
     jq, _ = jax_fused.build_fused_forward(
-        wide["cfg"], wide["variables"], scales=scales, dtype=jnp.float32,
-        interpret=True, fused_levels=LEVELS_TO_2)
-    q, _ = fused.build_fused_forward(wide["cfg"], wide["port"], scales,
-                                     dtype=torch.float32,
-                                     fused_levels=LEVELS_TO_2)
+        pair["cfg"], pair["variables"], scales=scales, dtype=jnp.float32,
+        interpret=True, fused_levels=levels)
+    q, _ = fused.build_fused_forward(pair["cfg"], pair["port"], scales,
+                                     dtype=torch.float32, fused_levels=levels)
     got_q = q(_nchw(x))
     for mean, _ in _gray_diffs(got_q, jq(jnp.asarray(x))):
         assert mean <= 1.0, mean
     mean, _ = _gray_diffs(got_q, ref)[0]
     assert mean < 4.0, mean
+
+
+def test_fused_level2_at_c128_matches_jax(wide, monkeypatch):
+    """Levels 0-2 fused, level 2 at C = 128 (K1's (128, 5)), against JAX
+    at the bars of ``_fused_matches_jax``."""
+    _fused_matches_jax(wide, monkeypatch, LEVELS_TO_2, [32, 64, 128])
+
+
+def test_fused_ragged_and_c256_levels_match_jax(ragged, monkeypatch):
+    """Levels 1 and 2 fused, at C = 108 (no multiple of 16: K1's C = 128
+    class, its channels padded) and 256 (its wide class), against JAX at
+    the bars of ``_fused_matches_jax``. Only the levels that need the new
+    shapes are fused: with level 0 fused too, each package's int8 forward
+    stays as close to the float model as the other's (4.34 and 4.31 mean
+    gray levels on the finest scale), but the codes their summation orders
+    move by one at full resolution spread through every later 5 x 5
+    depthwise and the two drift 2.4 apart; fused from level 1 they are
+    0.6 apart."""
+    _fused_matches_jax(ragged, monkeypatch, (1, 2), [108, 256])
 
 
 def test_depth4_level2_units_route_to_k1():

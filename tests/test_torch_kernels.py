@@ -217,15 +217,18 @@ def _torch_args(w, C, K):
                 gain=t(w["gamma_gain"]).reshape(C))
 
 
-@pytest.mark.parametrize("ck", [(32, 3), (64, 5), (32, 5), (128, 5)])
+@pytest.mark.parametrize("ck", [(32, 3), (64, 5), (32, 5), (128, 5),
+                                (256, 5), (108, 5), (48, 5), (64, 3),
+                                (128, 3)])
 def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     """The plain version against JAX's reference (atol 1e-4) and JAX's
     Pallas kernel in interpret mode, which rounds t and h to bf16: no
     farther from it, element by element, than JAX's own reference is
-    (+1e-4), and within its bar of 0.05 at C <= 64. At C = 128 these
-    weights (std 0.2 at every C) give outputs up to 27 and JAX's kernel
-    misses that bar against its own reference (0.070 on 0.03% of the
-    elements, about 2.6e-3 of max |out|, as at C <= 64)."""
+    (+1e-4), and within its bar of 0.05 at C <= 64. From C = 108 these
+    weights (std 0.2 at every C) give outputs up to 27 (C = 128) and more,
+    and JAX's kernel misses that bar against its own reference (0.070 on
+    0.03% of the elements at C = 128, about 2.6e-3 of max |out|, as at
+    C <= 64)."""
     C, K = ck
     H, W = 8, 128        # the Pallas kernel tiles rows of 128 lanes
     w = _jax_weights(C, K)
@@ -246,21 +249,22 @@ def test_convnext_plain_matches_jax_reference_and_pallas(ck):
         np.testing.assert_allclose(got.numpy(), fused, atol=0.05)
 
 
-@pytest.mark.parametrize("ck", [(32, 1), (64, 1), (128, 1)])
+@pytest.mark.parametrize("ck", [(32, 1), (64, 1), (128, 1), (256, 1),
+                                (72, 1)])
 def test_convnext_plain_at_k1_matches_jax_reference(ck):
     """K1's plain version at K = 1 (the decoders of unet_laplacian_v3,
-    _v4 and _v5: one depthwise tap, no halo) against JAX's
-    ``convnext_block_reference``, float32, atol 1e-4."""
+    _v4 and _v5: one depthwise tap, no halo; and the classes' widths)
+    against JAX's ``convnext_block_reference``, float32, atol 1e-4."""
     C, K = ck
     w = _jax_weights(C, K, seed=5)
     x = np.random.default_rng(6).normal(0, 1, (2, 9, 13, C)).astype(
         np.float32)
     got = pallas_convnext.convnext_block_plain(torch.from_numpy(x),
                                                **_torch_args(w, C, K))
-    ref = convnext_block_reference(jnp.asarray(x), {
-        k: jnp.asarray(v) for k, v in w.items()})
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
-    assert (C, K) in pallas_convnext.KERNEL_SHAPES
+    ref = np.asarray(convnext_block_reference(jnp.asarray(x), {
+        k: jnp.asarray(v) for k, v in w.items()}))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+    assert pallas_convnext.kernel_supports(C, K, 4 * C)
 
 
 @pytest.mark.parametrize("ck", [(32, 3), (64, 5), (32, 1), (64, 1)])
@@ -308,7 +312,8 @@ def test_quantize_matches_quantize_cf():
     assert got.min() == -127 and got.max() == 127
 
 
-@pytest.mark.parametrize("ck", [(32, 5), (64, 5), (32, 3), (128, 5)])
+@pytest.mark.parametrize("ck", [(32, 5), (64, 5), (32, 3), (128, 5),
+                                (256, 5), (108, 5)])
 def test_int8_unit_plain_matches_pallas_interpret(ck):
     C, K = ck
     H, W, pad = 8, 128, K // 2        # the Pallas kernel tiles 128 lanes
@@ -383,10 +388,12 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8])
-@pytest.mark.parametrize("ck", sorted(pallas_convnext.KERNEL_SHAPES))
+@pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
 def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
-    """Every K1 instantiation's planned shared memory fits one block, and
-    the numbers the source's header note states are the plan's."""
+    """The planned shared memory of the kernel that runs each (C, K) of
+    ``SAMPLE_SHAPES`` (the nine of their own, and classes at widths that
+    are and are not multiples of 16) fits one block, and the numbers the
+    sources' notes state are the plan's."""
     plan = pallas_convnext.kernel_plan(*ck, dtype)
     assert 0 < plan["smem_bytes"] <= pallas_convnext.SHARED_MEMORY_LIMIT
     assert plan["smem_bytes"] % 16 == 0
@@ -406,11 +413,17 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
               ((128, 5), torch.bfloat16): (256, 209_408),
               ((128, 5), torch.int8): (256, 178_688),
               ((128, 5), torch.float32): (256, 209_920),
-              ((128, 1), torch.float32): (256, 206_336)}
+              ((128, 1), torch.float32): (256, 206_336),
+              # 128 < C <= 256: 8 x 8 tiles, 256 threads; f32 one group
+              # buffer of 64 channels at K = 5 (two at K = 3)
+              ((256, 5), torch.bfloat16): (256, 215_040),
+              ((256, 5), torch.int8): (256, 218_112),
+              ((256, 5), torch.float32): (256, 210_432),
+              ((144, 3), torch.float32): (256, 208_384)}
     if (ck, dtype) in stated:
         assert (plan["threads_per_block"],
                 plan["smem_bytes"]) == stated[ck, dtype]
-    if ck[0] == 32:
+    if ck[0] <= 32:
         # two blocks per SM: twice the block and its 1 KB reserve fit the
         # SM's 228 KB
         assert 2 * (plan["smem_bytes"] + 1024) <= 233_472
@@ -490,7 +503,7 @@ def _seeded_unit(c, k, seed=0):
 @pytest.mark.parametrize("unit", [
     "encoder_0_0", "encoder_1_0",
     *(pytest.param(ck, id=f"C{ck[0]}K{ck[1]}")
-      for ck in sorted(pallas_convnext.KERNEL_SHAPES))])
+      for ck in sorted(pallas_convnext.OWN_SHAPES))])
 def test_convnext_f32_3xtf32_keeps_float32_accuracy(flagship_units, unit,
                                                     rounding):
     """Why K1's float32 mode runs its products as three TF32 passes: an
@@ -783,14 +796,15 @@ def test_convnext_unit_options_match_linen_block(opts, train):
 
 
 def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
-    """K1 takes a unit only at its instantiations with its options; every
-    other unit runs its branch, counted once per forward in
-    ``pallas_convnext.branch_units``, and never calls the kernel."""
-    for (c, k) in sorted(pallas_convnext.KERNEL_SHAPES):
+    """K1 takes a unit only at the shapes it takes (C up to 256 at K = 1,
+    3, 5, E = 4C) with its options; every other unit runs its branch,
+    counted once per forward in ``pallas_convnext.branch_units``, and
+    never calls the kernel."""
+    for (c, k) in pallas_convnext.SAMPLE_SHAPES:
         assert ConvNextBlock(c, k, 4 * c).kernel_route
-    for args, kw in (((128, 3, 512), {}), ((256, 5, 1024), {}),
-                     ((16, 5, 64), {}),
-                     ((32, 3, 64), {}), ((64, 3, 256), {}),
+    for args, kw in (((264, 5, 1056), {}), ((32, 7, 128), {}),
+                     ((512, 1, 2048), {}), ((16, 5, 48), {}),
+                     ((32, 3, 64), {}), ((64, 3, 128), {}),
                      ((32, 3, 128), dict(use_bias=True)),
                      ((32, 3, 128), dict(use_bn=True)),
                      ((32, 3, 128), dict(use_gamma=False)),
