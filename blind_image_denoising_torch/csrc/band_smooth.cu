@@ -33,7 +33,12 @@
 // from 0.0), multiplies by the IEEE reciprocal of the in-image tap count,
 // stores four 16-byte band vectors and one down vector a quad:
 // bit-exact. split_plan below gives the tile; ops/pallas_pyramid.py
-// split_tile_plan mirrors it.
+// split_tile_plan mirrors it. A C that is no whole number of 16-byte
+// vectors (C = 108 in bf16) runs the same kernel with N channels a thread,
+// N the largest power of two that divides C (8-, 4- or 2-byte copies and
+// stores; cp.async of 8 and 4 bytes, a plain load of 2); a C of more
+// vectors than a block has threads runs as slices of the channels, a
+// launch each.
 //
 // The backward, dx = g_band + A^T (g_smooth - g_band), replaces the JAX
 // custom VJP _band_smooth_bwd / _pool_transpose (XLA there; a kernel here
@@ -56,7 +61,9 @@
 // While it sums one tile, the loads of its next tile are in flight, so
 // the block does not leave the memory system idle across its barriers.
 // bwd_plan below gives the tile; ops/pallas_pyramid.py bwd_tile_plan
-// mirrors it.
+// mirrors it. Any C: as the split's, a C of no whole 16-byte vectors moves
+// N channels a thread (z staged as float4, float2 or float), and a C of
+// more vectors than a block has threads runs as slices.
 #include <climits>
 
 #include "common.cuh"
@@ -116,9 +123,19 @@ __global__ void __launch_bounds__(256) band_smooth_kernel(
 }
 
 // N channels of one pixel moved as one N * sizeof(T)-byte load or store
+template <int BYTES> struct RawBytes;
+template <> struct RawBytes<16> { using type = uint4; };
+template <> struct RawBytes<8> { using type = uint2; };
+template <> struct RawBytes<4> { using type = uint32_t; };
+template <> struct RawBytes<2> { using type = uint16_t; };
+
 template <typename T, int N>
-struct alignas(N * sizeof(T)) Chans {
-  T v[N];
+struct VecN {
+  using Raw = typename RawBytes<N * sizeof(T)>::type;
+  Raw raw;
+  __device__ __forceinline__ T& operator[](int j) {
+    return reinterpret_cast<T*>(&raw)[j];
+  }
 };
 
 // band_smooth_kernel for a C that is no multiple of a 16-byte vector
@@ -130,7 +147,8 @@ template <typename T, int N>
 __global__ void __launch_bounds__(256) band_smooth_narrow_kernel(
     const T* __restrict__ x, T* __restrict__ band, T* __restrict__ smooth,
     int B, int H, int W, int C, int k) {
-  using Vec = Chans<T, N>;
+  using Vec = VecN<T, N>;
+  using Raw = typename Vec::Raw;
   const int cv_n = C / N;
   const long long n = (long long)B * H * W * cv_n;
   const int lo = (k - 1) / 2;
@@ -152,28 +170,37 @@ __global__ void __launch_bounds__(256) band_smooth_narrow_kernel(
       for (int dx = 0; dx < k; ++dx) {
         const int xx = x0 + dx;
         if (xx < 0 || xx >= W) continue;
-        const Vec t = *reinterpret_cast<const Vec*>(
+        Vec t;
+        t.raw = *reinterpret_cast<const Raw*>(
             x + ((b * H + y) * W + xx) * C + cv * N);
 #pragma unroll
         for (int j = 0; j < N; ++j)
-          acc[j] = __fadd_rn(acc[j], bid::to_float(t.v[j]));
+          acc[j] = __fadd_rn(acc[j], bid::to_float(t[j]));
       }
     }
     const int rows = min(y0 + k, H) - max(y0, 0);
     const int cols = min(x0 + k, W) - max(x0, 0);
     const float inv = __fdiv_rn(1.f, (float)(rows * cols));
     const long long off = ((b * H + h) * W + w) * C + cv * N;
-    const Vec xc = *reinterpret_cast<const Vec*>(x + off);
-    Vec sb, ss;
+    Vec xc, sb, ss;
+    xc.raw = *reinterpret_cast<const Raw*>(x + off);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const float s = __fmul_rn(acc[j], inv);
-      ss.v[j] = bid::from_float<T>(s);
-      sb.v[j] = bid::from_float<T>(__fsub_rn(bid::to_float(xc.v[j]), s));
+      ss[j] = bid::from_float<T>(s);
+      sb[j] = bid::from_float<T>(__fsub_rn(bid::to_float(xc[j]), s));
     }
-    *reinterpret_cast<Vec*>(band + off) = sb;
-    *reinterpret_cast<Vec*>(smooth + off) = ss;
+    *reinterpret_cast<Raw*>(band + off) = sb.raw;
+    *reinterpret_cast<Raw*>(smooth + off) = ss.raw;
   }
+}
+
+// channels of a pixel a thread moves: a 16-byte vector of V where C is a
+// whole number of them, else the largest power of two that divides C (8, 4
+// or 2 bytes: C = 108 in bf16 moves 4 channels, C = 3 one)
+inline int chans_per_thread(int C, int V) {
+  const int low = C & -C;
+  return low < V ? low : V;
 }
 
 template <typename T>
@@ -181,10 +208,7 @@ int launch(const void* x, void* band, void* smooth, int B, int H, int W,
            int C, int k, cudaStream_t stream) {
   constexpr int V = Vec16<T>::N;
   if (C < 1 || k < 1 || B < 0 || H < 0 || W < 0) return BID_ERR_BAD_ARGUMENT;
-  // channels a thread: a 16-byte vector, or the largest power of two below
-  // it that divides C
-  const int low = C & -C;
-  const int n_chans = C % V == 0 ? V : low < V / 2 ? low : V / 2;
+  const int n_chans = chans_per_thread(C, V);
   const long long n = (long long)B * H * W * (C / n_chans);
   if (n == 0) return 0;
   const int threads = 256;
@@ -209,12 +233,25 @@ int launch(const void* x, void* band, void* smooth, int B, int H, int W,
   return (int)cudaGetLastError();
 }
 
+// The backward and the decimating split move N channels of a pixel a
+// thread, as the forward does (chans_per_thread above). VecN is those N
+// channels as one load or store, FloatN (ZN) of their float32 values one
+// shared-memory access: a float4 plane each 4 channels (two at N = 8 in
+// bf16), else a float2 or a float.
+
+template <int N> struct FloatN;
+template <> struct FloatN<4> { using type = float4; };
+template <> struct FloatN<2> { using type = float2; };
+template <> struct FloatN<1> { using type = float; };
+
 // Tile plan of the backward for one shape: a block owns th rows x tw
-// pixels x all C channels; its threads form bdx x bdy with bdx = tw * C/V
-// (one 16-byte channel vector each across a tile row) and own
+// pixels x all C channels; its threads form bdx x bdy with bdx = tw * C/N
+// (one vector of N channels each across a tile row) and own
 // kRowsPerThread rows each. tw aims at kRowVectors vectors per tile row;
 // th and then tw halve until the staged tile, (th + k - 1) x (tw + k - 1)
-// pixels of float32 z, and the tile's own g_band fit kMaxSmem.
+// pixels of float32 z, and the tile's own g_band fit kMaxSmem. A C of more
+// than kBwdThreads vectors runs as slices of kBwdThreads vectors (the last
+// one narrower), a launch each, planned at the slice's width.
 // ops/pallas_pyramid.py bwd_tile_plan mirrors it.
 constexpr int kBwdThreads = 256;
 constexpr int kRowVectors = 128;
@@ -229,8 +266,9 @@ struct BwdPlan {
   int tw, th, bdx, bdy, smem;
 };
 
-inline int bwd_plan(int H, int W, int C, int k, int V, BwdPlan* p) {
-  const int cv = C / V;
+// C: the channels of one slice, N of them a thread, elt bytes each
+inline int bwd_plan(int H, int W, int C, int k, int N, int elt, BwdPlan* p) {
+  const int cv = C / N;
   if (cv > kBwdThreads) return BID_ERR_UNSUPPORTED;
   int tw = max(1, min(W, kRowVectors / cv));
   int th = -1;
@@ -239,7 +277,7 @@ inline int bwd_plan(int H, int W, int C, int k, int V, BwdPlan* p) {
     const int bdy = max(1, min(kBwdThreads / bdx, H));
     if (th < 0) th = max(1, min(H, bdy * kRowsPerThread));
     const long long smem = 4ll * (th + k - 1) * (tw + k - 1) * C +
-                           16ll / V * th * tw * C;
+                           (long long)elt * th * tw * C;
     if (smem <= kMaxSmem) {
       *p = BwdPlan{tw, th, bdx, bdy, (int)smem};
       return 0;
@@ -267,39 +305,45 @@ inline int bwd_plan(int H, int W, int C, int k, int V, BwdPlan* p) {
 //   sum: each thread adds the k^2 staged z of its outputs in the plain
 //     version's tap order (rows outer, columns inner, from 0.0), adds its
 //     g_band (kept in shared memory by the commit, which frees its
-//     registers for the next tile's loads) and stores 16 bytes.
-// Shared memory holds z in V/4 planes of float4, so a thread's vector is
-// one 16-byte access per plane and a warp's accesses are conflict-free.
+//     registers for the next tile's loads) and stores its vector.
+// Shared memory holds z in V/ZN planes of FloatN<ZN>, so a thread's vector
+// is one access per plane and a warp's accesses are conflict-free.
 //
+// V: channels a thread (N above; 16 bytes for every C of whole vectors).
+// ld: elements from one pixel to the next (C, or the whole C of a slice).
 // KK: the window size when it is known at compile time (2, the flagship's
 // gaussian_kernel_size, whose taps unroll), 0 for any k.
-template <typename T>
+template <typename T, int V>
 struct BwdStage {
   static constexpr int R = kRowsPerThread, S = kHaloSlots;
-  Vec16<T> b[R], s[R];          // own output vectors: g_band, g_smooth
-  Vec16<T> hb[S], hs[S];        // halo vectors
+  VecN<T, V> b[R], s[R];        // own output vectors: g_band, g_smooth
+  VecN<T, V> hb[S], hs[S];      // halo vectors
   int hz[S], hy[S], hx[S];      // their staged index (-1: none), pixel
   int h0, w0;                   // the tile's first row and column
   size_t img;                   // its image's first element
 };
 
-template <typename T, int KK>
+template <typename T, int V, int KK>
 __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     band_smooth_bwd_kernel(const T* __restrict__ g_band,
                            const T* __restrict__ g_smooth,
                            T* __restrict__ dx, int B, int H, int W, int C,
-                           int k_arg, int tw, int th) {
-  constexpr int V = Vec16<T>::N;
-  constexpr int NP = V / 4;                       // float4 planes
+                           int ld, int k_arg, int tw, int th) {
+  using Vec = VecN<T, V>;
+  using Raw = typename Vec::Raw;
+  constexpr int ZN = V < 4 ? V : 4;               // floats a plane access
+  constexpr int NP = V / ZN;                      // planes
+  using Z = typename FloatN<ZN>::type;
   constexpr int R = kRowsPerThread, S = kHaloSlots;
-  extern __shared__ float4 zs[];
+  extern __shared__ float4 zs4[];
+  Z* const zs = reinterpret_cast<Z*>(zs4);
   const int k = KK > 0 ? KK : k_arg;
   const int cv_n = C / V;
   const int lo = (k - 1) / 2, hl = k - 1 - lo;    // reach above / below
   const int rv = tw * cv_n;                       // vectors per tile row
   const int erv = (tw + k - 1) * cv_n;            // per staged row
-  const int plane = (th + k - 1) * erv;           // float4 per plane
-  uint4* const gc = reinterpret_cast<uint4*>(zs + NP * plane);  // centres
+  const int plane = (th + k - 1) * erv;           // Z per plane
+  Raw* const gc = reinterpret_cast<Raw*>(zs + NP * plane);  // centres
   const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + th - 1) / th;
   const int n_tiles = tiles_x * tiles_y * B;
   const int n_rows = (k - 1) * erv, side = (k - 1) * cv_n;
@@ -323,23 +367,23 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     }
   };
   auto load = [&](const T* base, int y, int x, int cc) {
-    Vec16<T> v;
-    v.raw = *reinterpret_cast<const uint4*>(base + (y * W + x) * C + cc * V);
+    Vec v;
+    v.raw = *reinterpret_cast<const Raw*>(base + (y * W + x) * ld + cc * V);
     return v;
   };
   // issue every load of tile t into st (no use yet)
-  auto issue = [&](int t, BwdStage<T>& st) {
+  auto issue = [&](int t, BwdStage<T, V>& st) {
     const int bx = t % tiles_x, rest = t / tiles_x;
     st.h0 = (rest % tiles_y) * th;
     st.w0 = bx * tw;
-    st.img = (size_t)(rest / tiles_y) * H * W * C;
+    st.img = (size_t)(rest / tiles_y) * H * W * ld;
     const T* gb = g_band + st.img;
     const T* gs = g_smooth + st.img;
     const int x = st.w0 + p;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int r = ty + i * blockDim.y, y = st.h0 + r;
-      st.b[i].raw = st.s[i].raw = make_uint4(0u, 0u, 0u, 0u);
+      st.b[i].raw = st.s[i].raw = Raw{};
       if (r < th && y < H && x < W) {
         st.b[i] = load(gb, y, x, c);
         st.s[i] = load(gs, y, x, c);
@@ -366,27 +410,35 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     }
   };
   // z of one staged vector (pixel (y, xx) in the image) into shared memory
-  auto put_z = [&](int zi, int y, int xx, Vec16<T> tb, Vec16<T> ts) {
+  auto put_z = [&](int zi, int y, int xx, Vec tb, Vec ts) {
     const int rows = min(y - lo + k, H) - max(y - lo, 0);
     const int cols = min(xx - lo + k, W) - max(xx - lo, 0);
     const int cnt = rows * cols;
     const float inv = cnt == k * k ? inv_full : __fdiv_rn(1.f, (float)cnt);
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
-      float4 z;
-      z.x = __fmul_rn(__fsub_rn(bid::to_float(ts[4 * q]), bid::to_float(tb[4 * q])), inv);
-      z.y = __fmul_rn(__fsub_rn(bid::to_float(ts[4 * q + 1]), bid::to_float(tb[4 * q + 1])), inv);
-      z.z = __fmul_rn(__fsub_rn(bid::to_float(ts[4 * q + 2]), bid::to_float(tb[4 * q + 2])), inv);
-      z.w = __fmul_rn(__fsub_rn(bid::to_float(ts[4 * q + 3]), bid::to_float(tb[4 * q + 3])), inv);
+      Z z;
+      float* zf = reinterpret_cast<float*>(&z);
+#pragma unroll
+      for (int r = 0; r < ZN; ++r)
+        zf[r] = __fmul_rn(__fsub_rn(bid::to_float(ts[ZN * q + r]),
+                                    bid::to_float(tb[ZN * q + r])),
+                          inv);
       zs[q * plane + zi] = z;
     }
   };
   auto put_zero = [&](int zi) {
 #pragma unroll
-    for (int q = 0; q < NP; ++q) zs[q * plane + zi] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < NP; ++q) {
+      Z z;
+      float* zf = reinterpret_cast<float*>(&z);
+#pragma unroll
+      for (int r = 0; r < ZN; ++r) zf[r] = 0.f;
+      zs[q * plane + zi] = z;
+    }
   };
 
-  BwdStage<T> st;
+  BwdStage<T, V> st;
   int t = blockIdx.x;
   if (t < n_tiles) issue(t, st);
   for (; t < n_tiles; t += gridDim.x) {
@@ -440,11 +492,11 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
       auto tap = [&](int dy, int dxx) {
 #pragma unroll
         for (int q = 0; q < NP; ++q) {
-          const float4 z = zs[q * plane + (r + dy) * erv + tx + dxx * cv_n];
-          acc[4 * q] = __fadd_rn(acc[4 * q], z.x);
-          acc[4 * q + 1] = __fadd_rn(acc[4 * q + 1], z.y);
-          acc[4 * q + 2] = __fadd_rn(acc[4 * q + 2], z.z);
-          acc[4 * q + 3] = __fadd_rn(acc[4 * q + 3], z.w);
+          const Z z = zs[q * plane + (r + dy) * erv + tx + dxx * cv_n];
+          const float* zf = reinterpret_cast<const float*>(&z);
+#pragma unroll
+          for (int j = 0; j < ZN; ++j)
+            acc[ZN * q + j] = __fadd_rn(acc[ZN * q + j], zf[j]);
         }
       };
       if constexpr (KK > 0) {
@@ -458,20 +510,21 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 #pragma unroll 1
           for (int dxx = 0; dxx < k; ++dxx) tap(dy, dxx);
       }
-      Vec16<T> cen, o;
+      Vec cen, o;
       cen.raw = gc[r * rv + tx];
 #pragma unroll
       for (int j = 0; j < V; ++j)
         o[j] = bid::from_float<T>(__fadd_rn(bid::to_float(cen[j]), acc[j]));
-      *reinterpret_cast<uint4*>(out + (y * W + x) * C + c * V) = o.raw;
+      *reinterpret_cast<Raw*>(out + (y * W + x) * ld + c * V) = o.raw;
     }
     __syncthreads();                  // the sum is done with shared memory
   }
 }
 
-template <typename T>
+template <typename T, int V>
 auto bwd_kernel(int k) {
-  return k == 2 ? band_smooth_bwd_kernel<T, 2> : band_smooth_bwd_kernel<T, 0>;
+  return k == 2 ? band_smooth_bwd_kernel<T, V, 2>
+                : band_smooth_bwd_kernel<T, V, 0>;
 }
 
 // resident blocks per SM of kernel kern launched with plan p (a BwdPlan
@@ -487,48 +540,84 @@ int resident(K kern, const P& p, int* blocks) {
       blocks, kern, p.bdx * p.bdy, p.smem);
 }
 
-template <typename T>
-int launch_bwd(const void* g_band, const void* g_smooth, void* dx, int B,
-               int H, int W, int C, int k, cudaStream_t stream) {
-  constexpr int V = Vec16<T>::N;
-  if (C % V != 0 || k < 1 || B < 0 || H < 0 || W < 0) return BID_ERR_BAD_ARGUMENT;
-  if ((long long)B * H * W * C == 0) return 0;
-  if ((long long)H * W * C > INT_MAX) return BID_ERR_UNSUPPORTED;
+// one slice of C channels (ld apart from pixel to pixel), N a thread
+template <typename T, int N>
+int launch_bwd_slice(const T* g_band, const T* g_smooth, T* dx, int B, int H,
+                     int W, int C, int ld, int k, cudaStream_t stream) {
   BwdPlan p;
-  int e = bwd_plan(H, W, C, k, V, &p);
+  int e = bwd_plan(H, W, C, k, N, (int)sizeof(T), &p);
   if (e != 0) return e;
   const long long tiles = (long long)((W + p.tw - 1) / p.tw) *
                           ((H + p.th - 1) / p.th) * B;
   if (tiles > INT_MAX) return BID_ERR_UNSUPPORTED;
+  const auto kern = bwd_kernel<T, N>(k);
   int per_sm = 0;
-  e = resident(bwd_kernel<T>(k), p, &per_sm);
+  e = resident(kern, p, &per_sm);
   if (e != 0) return e;
   if (per_sm < 1) return BID_ERR_UNSUPPORTED;
   const long long cap = (long long)bid::sm_count() * per_sm;
-  const auto kern = bwd_kernel<T>(k);
   kern<<<(int)(tiles < cap ? tiles : cap), dim3(p.bdx, p.bdy), p.smem,
-         stream>>>(
-      static_cast<const T*>(g_band), static_cast<const T*>(g_smooth),
-      static_cast<T*>(dx), B, H, W, C, k, p.tw, p.th);
+         stream>>>(g_band, g_smooth, dx, B, H, W, C, ld, k, p.tw, p.th);
   return (int)cudaGetLastError();
 }
 
-// plan, registers, spill bytes and resident blocks per SM, as v[0..7]:
-// tile width, tile height, threads x, threads y, shared bytes, registers,
-// local (spill) bytes per thread, blocks per SM
+template <typename T, int N>
+int launch_bwd_n(const void* g_band, const void* g_smooth, void* dx, int B,
+                 int H, int W, int C, int k, cudaStream_t stream) {
+  const T* gb = static_cast<const T*>(g_band);
+  const T* gs = static_cast<const T*>(g_smooth);
+  T* d = static_cast<T*>(dx);
+  for (int c0 = 0; c0 < C; c0 += kBwdThreads * N) {
+    const int e = launch_bwd_slice<T, N>(gb + c0, gs + c0, d + c0, B, H, W,
+                                         min(C - c0, kBwdThreads * N), C, k,
+                                         stream);
+    if (e != 0) return e;
+  }
+  return 0;
+}
+
 template <typename T>
-int bwd_info(int H, int W, int C, int k, int* v) {
+int launch_bwd(const void* g_band, const void* g_smooth, void* dx, int B,
+               int H, int W, int C, int k, cudaStream_t stream) {
   constexpr int V = Vec16<T>::N;
-  if (C % V != 0 || k < 1 || H < 1 || W < 1) return BID_ERR_BAD_ARGUMENT;
+  if (C < 1 || k < 1 || B < 0 || H < 0 || W < 0) return BID_ERR_BAD_ARGUMENT;
+  if ((long long)B * H * W * C == 0) return 0;
+  if ((long long)H * W * C > INT_MAX) return BID_ERR_UNSUPPORTED;
+  const int n = chans_per_thread(C, V);
+  if (n == V)
+    return launch_bwd_n<T, V>(g_band, g_smooth, dx, B, H, W, C, k, stream);
+  if (n == 4)
+    return launch_bwd_n<T, 4>(g_band, g_smooth, dx, B, H, W, C, k, stream);
+  if (n == 2)
+    return launch_bwd_n<T, 2>(g_band, g_smooth, dx, B, H, W, C, k, stream);
+  return launch_bwd_n<T, 1>(g_band, g_smooth, dx, B, H, W, C, k, stream);
+}
+
+// plan, registers, spill bytes and resident blocks per SM of the first
+// slice's launch, as v[0..7]: tile width, tile height, threads x, threads
+// y, shared bytes, registers, local (spill) bytes per thread, blocks per SM
+template <typename T, int N>
+int bwd_info_n(int H, int W, int C, int k, int* v) {
   BwdPlan p;
-  int e = bwd_plan(H, W, C, k, V, &p);
+  int e = bwd_plan(H, W, min(C, kBwdThreads * N), k, N, (int)sizeof(T), &p);
   if (e != 0) return e;
   cudaFuncAttributes a;
-  e = (int)cudaFuncGetAttributes(&a, bwd_kernel<T>(k));
+  e = (int)cudaFuncGetAttributes(&a, bwd_kernel<T, N>(k));
   if (e != 0) return e;
   v[0] = p.tw; v[1] = p.th; v[2] = p.bdx; v[3] = p.bdy; v[4] = p.smem;
   v[5] = a.numRegs; v[6] = (int)a.localSizeBytes;
-  return resident(bwd_kernel<T>(k), p, &v[7]);
+  return resident(bwd_kernel<T, N>(k), p, &v[7]);
+}
+
+template <typename T>
+int bwd_info(int H, int W, int C, int k, int* v) {
+  constexpr int V = Vec16<T>::N;
+  if (C < 1 || k < 1 || H < 1 || W < 1) return BID_ERR_BAD_ARGUMENT;
+  const int n = chans_per_thread(C, V);
+  if (n == V) return bwd_info_n<T, V>(H, W, C, k, v);
+  if (n == 4) return bwd_info_n<T, 4>(H, W, C, k, v);
+  if (n == 2) return bwd_info_n<T, 2>(H, W, C, k, v);
+  return bwd_info_n<T, 1>(H, W, C, k, v);
 }
 
 // ---- K4: the decimating split, band_split_kernel
@@ -543,6 +632,27 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// BYTES (16, 8, 4 or 2) global -> shared, zeros when !valid: cp.async
+// where it takes the size, else a plain load and store (2 bytes: one bf16
+// channel)
+template <int BYTES>
+__device__ __forceinline__ void copy_vec(uint32_t dst, const void* src,
+                                         bool valid) {
+  if constexpr (BYTES == 16) {
+    cp_async_16(dst, src, valid);
+  } else if constexpr (BYTES == 8 || BYTES == 4) {
+    const size_t g = __cvta_generic_to_global(src);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(g), "n"(BYTES), "r"(valid ? BYTES : 0)
+                 : "memory");
+  } else {
+    static_assert(BYTES == 2, "a vector is 16, 8, 4 or 2 bytes");
+    const uint16_t v =
+        valid ? *static_cast<const uint16_t*>(src) : (uint16_t)0;
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -554,13 +664,15 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 
 // Tile plan of the split for one shape: a block owns th rows x tw pixels x
 // all C channels (th, tw even); its threads form bdx x bdy with bdx =
-// tw / 2 * C/V (one 16-byte channel vector of one quad column each) and
+// tw / 2 * C/N (one vector of N channels of one quad column each) and
 // own kSplitQuadRows quads each, down a column strip. tw aims at
 // kSplitRowVectors vectors per tile row; th and then tw halve (by whole
 // quads) until kSplitStages staged tiles fit kMaxSmem. A staged tile is
 // (th + k - 1) rows x (tw + k - 1) pixels in two planes, the even and the
-// odd staged columns, so that a warp's 16-byte reads of one tap are
-// contiguous. ops/pallas_pyramid.py split_tile_plan mirrors it.
+// odd staged columns, so that a warp's reads of one tap are contiguous.
+// A C of more than kSplitThreads vectors runs as slices of kSplitThreads
+// vectors, as the backward's. ops/pallas_pyramid.py split_tile_plan
+// mirrors it.
 constexpr int kSplitThreads = 128;
 constexpr int kSplitRowVectors = 128;
 constexpr int kSplitQuadRows = 1;
@@ -572,8 +684,10 @@ struct SplitPlan {
   int tw, th, bdx, bdy, smem;
 };
 
-inline int split_plan(int H, int W, int C, int k, int V, SplitPlan* p) {
-  const int cv = C / V;
+// C: the channels of one slice, N of them a thread, elt bytes each
+inline int split_plan(int H, int W, int C, int k, int N, int elt,
+                      SplitPlan* p) {
+  const int cv = C / N;
   if (cv > kSplitThreads) return BID_ERR_UNSUPPORTED;
   int quads = max(1, min(W / 2, kSplitRowVectors / (2 * cv)));
   int rows = -1;                      // quad rows per tile
@@ -583,7 +697,7 @@ inline int split_plan(int H, int W, int C, int k, int V, SplitPlan* p) {
                                (H / 2 + kSplitQuadRows - 1) / kSplitQuadRows));
     if (rows < 0) rows = max(1, min(H / 2, bdy * kSplitQuadRows));
     const long long smem = (long long)kSplitStages * 2 * (2 * rows + k - 1) *
-                           ((2 * quads + k) / 2) * C * (16 / V);
+                           ((2 * quads + k) / 2) * C * elt;
     if (smem <= kMaxSmem) {
       *p = SplitPlan{2 * quads, 2 * rows, bdx, bdy, (int)smem};
       return 0;
@@ -599,28 +713,31 @@ inline int split_plan(int H, int W, int C, int k, int V, SplitPlan* p) {
 }
 
 // band = x - A x, down = (A x)[::2, ::2] over tiles. A block is
-// persistent: it walks the tiles t, t + gridDim.x, ...; the cp.async
-// copies of tile t + gridDim.x into the other stage go out before it sums
-// tile t, so they overlap its barriers and its sum. Per tile a thread
-// copies its own quads' 4 vectors each and its share of the halo (the
-// k - 1 wide border: lo rows and columns above and left, k - 1 - lo below
-// and right), zero-filled outside the image, so every tap reads a staged
-// value and the out-of-image ones add 0.0 as the plain version's padding
-// does.
+// persistent: it walks the tiles t, t + gridDim.x, ...; the copies of
+// tile t + gridDim.x into the other stage go out before it sums tile t, so
+// they overlap its barriers and its sum. Per tile a thread copies its own
+// quads' 4 vectors each and its share of the halo (the k - 1 wide border:
+// lo rows and columns above and left, k - 1 - lo below and right),
+// zero-filled outside the image, so every tap reads a staged value and the
+// out-of-image ones add 0.0 as the plain version's padding does.
 //
-// KK: the window size when it is known at compile time (2, the flagship's
+// V: channels a thread (16 bytes for every C of whole vectors). ld:
+// elements from one pixel to the next (C, or the whole C of a slice). KK:
+// the window size when it is known at compile time (2, the flagship's
 // gaussian_kernel_size: a thread reads each staged row of its strip once,
 // three vectors, and keeps the partial sums of the row above in
 // registers), 0 for any k (each output sums its k^2 taps from shared
 // memory).
-template <typename T, int KK>
+template <typename T, int V, int KK>
 __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
     band_split_kernel(const T* __restrict__ x, T* __restrict__ band,
                       T* __restrict__ down, int B, int H, int W, int C,
-                      int k_arg, int tw, int th) {
-  constexpr int V = Vec16<T>::N;
+                      int ld, int k_arg, int tw, int th) {
+  using Vec = VecN<T, V>;
+  using Raw = typename Vec::Raw;
   constexpr int R = kSplitQuadRows;
-  extern __shared__ uint4 stage[];
+  extern __shared__ uint4 stage4[];
+  const Raw* const stage = reinterpret_cast<const Raw*>(stage4);
   const int k = KK > 0 ? KK : k_arg;
   const int cv_n = C / V;
   const int lo = (k - 1) / 2;
@@ -637,18 +754,19 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
   const int nt = blockDim.x * blockDim.y, tl = ty * blockDim.x + tx;
   // this thread's quad column q (tile pixels 2q, 2q + 1), channel vector c
   const int q = tx / cv_n, c = tx - q * cv_n;
-  const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(stage));
+  const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(stage4));
 
   // shared address of staged vector (sr, e) of channel vector cc in stage st
   auto staged = [&](int st, int sr, int e, int cc) {
-    return s0 + 16u * (uint32_t)(st * 2 * plane + (e & 1) * plane + sr * rs +
-                                 (e >> 1) * cv_n + cc);
+    return s0 + (uint32_t)sizeof(Raw) *
+                    (uint32_t)(st * 2 * plane + (e & 1) * plane + sr * rs +
+                               (e >> 1) * cv_n + cc);
   };
   auto tile_origin = [&](int t, int& h0, int& w0, size_t& img) {
     const int bx = t % tiles_x, rest = t / tiles_x;
     h0 = (rest % tiles_y) * th;
     w0 = bx * tw;
-    img = (size_t)(rest / tiles_y) * H * W * C;
+    img = (size_t)(rest / tiles_y) * H * W * ld;
   };
   // start the copies of tile t into stage st
   auto issue = [&](int t, int st) {
@@ -667,8 +785,8 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
         for (int j = 0; j < 2; ++j) {
           const int xx = w0 + 2 * q + j;
           const bool in = y < H && xx < W;
-          cp_async_16(staged(st, lo + row + i, lo + 2 * q + j, c),
-                      in ? xin + (y * W + xx) * C + c * V : x, in);
+          copy_vec<sizeof(Raw)>(staged(st, lo + row + i, lo + 2 * q + j, c),
+                                in ? xin + (y * W + xx) * ld + c * V : x, in);
         }
       }
     }
@@ -688,8 +806,8 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
       }
       const int y = h0 - lo + sr, xx = w0 - lo + e;
       const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
-      cp_async_16(staged(st, sr, e, cc),
-                  in ? xin + (y * W + xx) * C + cc * V : x, in);
+      copy_vec<sizeof(Raw)>(staged(st, sr, e, cc),
+                            in ? xin + (y * W + xx) * ld + cc * V : x, in);
     }
   };
   // 1 / (in-image taps) of the window at (y, xx)
@@ -701,23 +819,23 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
   };
   // band (and, for the quad's top-left pixel, down) of output (y, xx) from
   // its tap sum and its own value
-  auto emit = [&](const float (&acc)[V], Vec16<T> own, int y, int xx,
+  auto emit = [&](const float (&acc)[V], Vec own, int y, int xx,
                   T* __restrict__ bo, T* __restrict__ dn) {
     const float inv = inv_count(y, xx);
-    Vec16<T> sb, ss;
+    Vec sb, ss;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const float s = __fmul_rn(acc[j], inv);
       ss[j] = bid::from_float<T>(s);
       sb[j] = bid::from_float<T>(__fsub_rn(bid::to_float(own[j]), s));
     }
-    *reinterpret_cast<uint4*>(bo + (y * W + xx) * C + c * V) = sb.raw;
+    *reinterpret_cast<Raw*>(bo + (y * W + xx) * ld + c * V) = sb.raw;
     if (dn != nullptr)
-      *reinterpret_cast<uint4*>(dn + ((y >> 1) * (W >> 1) + (xx >> 1)) * C +
-                                c * V) = ss.raw;
+      *reinterpret_cast<Raw*>(dn + ((y >> 1) * (W >> 1) + (xx >> 1)) * ld +
+                              c * V) = ss.raw;
   };
-  auto tap = [&](const uint4* base, int sr, int e) {
-    Vec16<T> v;
+  auto tap = [&](const Raw* base, int sr, int e) {
+    Vec v;
     v.raw = base[(e & 1) * plane + sr * rs + (e >> 1) * cv_n];
     return v;
   };
@@ -736,18 +854,18 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
     T* __restrict__ bo = band + img;
     T* __restrict__ dn = down + img / 4;
     const int xq = w0 + 2 * q;              // the quad's left column
-    const uint4* base = stage + st * 2 * plane + q * cv_n + c;
+    const Raw* base = stage + st * 2 * plane + q * cv_n + c;
     if (xq < W) {
       if constexpr (KK == 2) {
         // staged row sr of the strip: A, B, Cc are staged columns 2q,
         // 2q + 1, 2q + 2; the top output row's partial sums (0 + A) + B
         // and (0 + B) + Cc wait in p0, p1 for the row below
         float p0[V], p1[V];
-        Vec16<T> own0, own1;
+        Vec own0, own1;
         auto start = [&](int sr) {
           own0 = tap(base, sr, 0);
           own1 = tap(base, sr, 1);
-          Vec16<T> cc = tap(base, sr, 2);
+          Vec cc = tap(base, sr, 2);
 #pragma unroll
           for (int j = 0; j < V; ++j) {
             const float a = bid::to_float(own0[j]), b = bid::to_float(own1[j]);
@@ -758,8 +876,8 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
         // add staged row sr to p0, p1 and emit output row y; then start
         // the next output row from sr
         auto finish = [&](int sr, int y, bool top) {
-          Vec16<T> a = tap(base, sr, 0), b = tap(base, sr, 1),
-                   cc = tap(base, sr, 2);
+          Vec a = tap(base, sr, 0), b = tap(base, sr, 1),
+              cc = tap(base, sr, 2);
           float o0[V], o1[V];
 #pragma unroll
           for (int j = 0; j < V; ++j) {
@@ -803,7 +921,7 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
               for (int dy = 0; dy < k; ++dy) {
 #pragma unroll 1
                 for (int dx = 0; dx < k; ++dx) {
-                  Vec16<T> v = tap(base, row + i + dy, jx + dx);
+                  Vec v = tap(base, row + i + dy, jx + dx);
 #pragma unroll
                   for (int j = 0; j < V; ++j)
                     acc[j] = __fadd_rn(acc[j], bid::to_float(v[j]));
@@ -820,54 +938,89 @@ __global__ void __launch_bounds__(kSplitThreads, kSplitMinBlocks)
   }
 }
 
-template <typename T>
+template <typename T, int V>
 auto split_kernel(int k) {
-  return k == 2 ? band_split_kernel<T, 2> : band_split_kernel<T, 0>;
+  return k == 2 ? band_split_kernel<T, V, 2> : band_split_kernel<T, V, 0>;
+}
+
+// one slice of C channels (ld apart from pixel to pixel), N a thread
+template <typename T, int N>
+int launch_split_slice(const T* x, T* band, T* down, int B, int H, int W,
+                       int C, int ld, int k, cudaStream_t stream) {
+  SplitPlan p;
+  int e = split_plan(H, W, C, k, N, (int)sizeof(T), &p);
+  if (e != 0) return e;
+  const long long tiles = (long long)((W + p.tw - 1) / p.tw) *
+                          ((H + p.th - 1) / p.th) * B;
+  if (tiles > INT_MAX) return BID_ERR_UNSUPPORTED;
+  const auto kern = split_kernel<T, N>(k);
+  int per_sm = 0;
+  e = resident(kern, p, &per_sm);
+  if (e != 0) return e;
+  if (per_sm < 1) return BID_ERR_UNSUPPORTED;
+  const long long cap = (long long)bid::sm_count() * per_sm;
+  kern<<<(int)(tiles < cap ? tiles : cap), dim3(p.bdx, p.bdy), p.smem,
+         stream>>>(x, band, down, B, H, W, C, ld, k, p.tw, p.th);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int N>
+int launch_split_n(const void* x, void* band, void* down, int B, int H, int W,
+                   int C, int k, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* bt = static_cast<T*>(band);
+  T* dt = static_cast<T*>(down);
+  for (int c0 = 0; c0 < C; c0 += kSplitThreads * N) {
+    const int e = launch_split_slice<T, N>(
+        xt + c0, bt + c0, dt + c0, B, H, W, min(C - c0, kSplitThreads * N),
+        C, k, stream);
+    if (e != 0) return e;
+  }
+  return 0;
 }
 
 template <typename T>
 int launch_split(const void* x, void* band, void* down, int B, int H, int W,
                  int C, int k, cudaStream_t stream) {
   constexpr int V = Vec16<T>::N;
-  if (C % V != 0 || k < 1 || B < 0 || H < 0 || W < 0 || ((H | W) & 1))
+  if (C < 1 || k < 1 || B < 0 || H < 0 || W < 0 || ((H | W) & 1))
     return BID_ERR_BAD_ARGUMENT;
   if ((long long)B * H * W * C == 0) return 0;
   if ((long long)H * W * C > INT_MAX) return BID_ERR_UNSUPPORTED;
-  SplitPlan p;
-  int e = split_plan(H, W, C, k, V, &p);
-  if (e != 0) return e;
-  const long long tiles = (long long)((W + p.tw - 1) / p.tw) *
-                          ((H + p.th - 1) / p.th) * B;
-  if (tiles > INT_MAX) return BID_ERR_UNSUPPORTED;
-  int per_sm = 0;
-  e = resident(split_kernel<T>(k), p, &per_sm);
-  if (e != 0) return e;
-  if (per_sm < 1) return BID_ERR_UNSUPPORTED;
-  const long long cap = (long long)bid::sm_count() * per_sm;
-  split_kernel<T>(k)<<<(int)(tiles < cap ? tiles : cap), dim3(p.bdx, p.bdy),
-                       p.smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(band), static_cast<T*>(down),
-      B, H, W, C, k, p.tw, p.th);
-  return (int)cudaGetLastError();
+  const int n = chans_per_thread(C, V);
+  if (n == V) return launch_split_n<T, V>(x, band, down, B, H, W, C, k, stream);
+  if (n == 4) return launch_split_n<T, 4>(x, band, down, B, H, W, C, k, stream);
+  if (n == 2) return launch_split_n<T, 2>(x, band, down, B, H, W, C, k, stream);
+  return launch_split_n<T, 1>(x, band, down, B, H, W, C, k, stream);
 }
 
-// plan, registers, spill bytes and resident blocks per SM, as v[0..7]:
-// tile width, tile height, threads x, threads y, shared bytes, registers,
-// local (spill) bytes per thread, blocks per SM
-template <typename T>
-int split_info(int H, int W, int C, int k, int* v) {
-  constexpr int V = Vec16<T>::N;
-  if (C % V != 0 || k < 1 || H < 2 || W < 2 || ((H | W) & 1))
-    return BID_ERR_BAD_ARGUMENT;
+// plan, registers, spill bytes and resident blocks per SM of the first
+// slice's launch, as v[0..7]: tile width, tile height, threads x, threads
+// y, shared bytes, registers, local (spill) bytes per thread, blocks per SM
+template <typename T, int N>
+int split_info_n(int H, int W, int C, int k, int* v) {
   SplitPlan p;
-  int e = split_plan(H, W, C, k, V, &p);
+  int e = split_plan(H, W, min(C, kSplitThreads * N), k, N, (int)sizeof(T),
+                     &p);
   if (e != 0) return e;
   cudaFuncAttributes a;
-  e = (int)cudaFuncGetAttributes(&a, split_kernel<T>(k));
+  e = (int)cudaFuncGetAttributes(&a, split_kernel<T, N>(k));
   if (e != 0) return e;
   v[0] = p.tw; v[1] = p.th; v[2] = p.bdx; v[3] = p.bdy; v[4] = p.smem;
   v[5] = a.numRegs; v[6] = (int)a.localSizeBytes;
-  return resident(split_kernel<T>(k), p, &v[7]);
+  return resident(split_kernel<T, N>(k), p, &v[7]);
+}
+
+template <typename T>
+int split_info(int H, int W, int C, int k, int* v) {
+  constexpr int V = Vec16<T>::N;
+  if (C < 1 || k < 1 || H < 2 || W < 2 || ((H | W) & 1))
+    return BID_ERR_BAD_ARGUMENT;
+  const int n = chans_per_thread(C, V);
+  if (n == V) return split_info_n<T, V>(H, W, C, k, v);
+  if (n == 4) return split_info_n<T, 4>(H, W, C, k, v);
+  if (n == 2) return split_info_n<T, 2>(H, W, C, k, v);
+  return split_info_n<T, 1>(H, W, C, k, v);
 }
 
 }  // namespace

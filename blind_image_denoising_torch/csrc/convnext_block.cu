@@ -1,9 +1,10 @@
 // One ConvNext residual unit at inference, fused (K1): the C entry points
-// and the nine (C, K) with instantiations of their own. Replaces
+// and the nine (C, K) at K <= 5 with instantiations of their own. Replaces
 // blind_image_denoising_tpu/ops/pallas_convnext.py fused_convnext_block
 // (body _block_kernel), float and int8 I/O modes; the design, and how
-// every other C up to 256 at K = 1, 3, 5 runs (convnext_class.cu,
-// convnext_wide.cu), is noted in convnext_block.cuh.
+// every other C up to 512 at K = 1, 3, 5, 7 runs (convnext_class.cu,
+// convnext_k7.cu, convnext_wide.cu, convnext_wide512.cu), is noted in
+// convnext_block.cuh.
 #include "convnext_block.cuh"
 
 namespace {
@@ -27,12 +28,17 @@ int dispatch(const void* x, void* out, const void* dw, const void* ln,
   BID_CASE(128, 3)  // level 2 of a K = 3 level list
   BID_CASE(128, 5)  // v3 / v4's level 2; a depth-4 unet_laplacian_v6's
 #undef BID_CASE
-  return C <= 128 ? bid_k1::launch_class(dtype_code<T>(), x, out, dw, ln, w2,
-                                         w3, gain, B, H, W, C, K, slope,
-                                         s_in, inv_out, s)
-                  : bid_k1::launch_wide(dtype_code<T>(), x, out, dw, ln, w2,
-                                        w3, gain, B, H, W, C, K, slope, s_in,
-                                        inv_out, s);
+  if (C <= 128 && K == 7)
+    return bid_k1::launch_k7(dtype_code<T>(), x, out, dw, ln, w2, w3, gain,
+                             B, H, W, C, slope, s_in, inv_out, s);
+  if (C <= 128)
+    return bid_k1::launch_class(dtype_code<T>(), x, out, dw, ln, w2, w3,
+                                gain, B, H, W, C, K, slope, s_in, inv_out, s);
+  if (C <= 256)
+    return bid_k1::launch_wide(dtype_code<T>(), x, out, dw, ln, w2, w3, gain,
+                               B, H, W, C, K, slope, s_in, inv_out, s);
+  return bid_k1::launch_wide512(dtype_code<T>(), x, out, dw, ln, w2, w3,
+                                gain, B, H, W, C, K, slope, s_in, inv_out, s);
 }
 
 template <typename T>
@@ -49,13 +55,15 @@ int dispatch_info(int C, int K, int* v) {
   BID_INFO(128, 3)
   BID_INFO(128, 5)
 #undef BID_INFO
-  return C <= 128 ? bid_k1::info_class(dtype_code<T>(), C, K, v)
-                  : bid_k1::info_wide(dtype_code<T>(), C, K, v);
+  if (C <= 128 && K == 7) return bid_k1::info_k7(dtype_code<T>(), C, v);
+  if (C <= 128) return bid_k1::info_class(dtype_code<T>(), C, K, v);
+  if (C <= 256) return bid_k1::info_wide(dtype_code<T>(), C, K, v);
+  return bid_k1::info_wide512(dtype_code<T>(), C, K, v);
 }
 
-// K1 takes C = 1..256 at K = 1, 3, 5
+// K1 takes C = 1..512 at K = 1, 3, 5, 7
 bool supported(int C, int K) {
-  return C >= 1 && C <= 256 && (K == 1 || K == 3 || K == 5);
+  return C >= 1 && C <= 512 && (K == 1 || K == 3 || K == 5 || K == 7);
 }
 
 }  // namespace

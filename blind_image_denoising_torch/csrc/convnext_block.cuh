@@ -134,10 +134,20 @@
 // the tensor cores' dense rate.
 //
 // Those seven (C, K), and (64, 3) and (128, 3) in the same layouts (the K = 3
-// halo is smaller than the K = 5 one), have instantiations of their own
-// (convnext_block.cu). Every other C from 1 to 256 at K = 1, 3 or 5
-// (E = 4C) runs a class of width CW with the true C a launch argument
-// (kRagged):
+// halo is smaller than the K = 5 one), and (32, 7), (64, 7), (128, 7) have
+// instantiations of their own (convnext_block.cu; K = 7 in convnext_k7.cu
+// and its classes in convnext_k7_class.cu, sources of their own so that
+// they build beside the others). K = 7 (the flax ConvNext
+// layer's default kernel size) grows the halo to 3 a side: the layouts
+// stay, and the rules above pick what fits: bf16 (64, 7) and (128, 7) keep
+// one tile buffer (188,672 B and 177,664 B), refilled once every warp's
+// epilogue has read its residual there; f32 (64, 7) streams W2 and W3 as
+// C = 128 does (its 131,072 B no longer fit beside a 88,704 B tile) and
+// keeps two tiles; f32 (128, 7) takes chunks of 16 E channels beside its
+// one 167,552 B tile; the bf16 depthwise takes each tap's 8 weights in turn
+// (a row's K x 8 would hold 56 registers beside the 32 accumulators).
+// Every other C from 1 to 512 at K = 1, 3, 5 or 7 (E = 4C) runs a class of
+// width CW with the true C a launch argument (kRagged):
 // * CW = 32, 64 or 128 for C <= CW (convnext_class.cu): the layouts above
 //   at C = CW. The wrapper pads dw, the LayerNorm scale, the gain, W2's
 //   columns and W3's rows with zeros to CW and E to 4 CW, so a padded
@@ -150,25 +160,44 @@
 //   bytes, or plain 2- and 1-byte loads (odd bf16 C, int8 C not a multiple
 //   of 4), each unit zero-filled outside the image and past C; the stores
 //   use the same units;
-// * CW = 256 for 128 < C <= 256 (convnext_wide.cu; WCfg below): tiles of
-//   8 x 8 pixels, 256 threads, one block an SM. The projection's
-//   accumulators of 16 pixels x 256 channels would be 128 registers a lane,
-//   so warps 2m and 2m + 1 share m16 tile m, 128 output channels each. W2
-//   and W3 stream in E chunks as at C = 128 (bf16 and int8: 32 E a chunk,
-//   f32: 16); of a chunk each warp of the pair computes half the expansion
-//   (bf16: from its A fragments of t in registers) and hands its h to the
-//   other through a shared-memory block of 16 x ECH (a named barrier of the
-//   pair's 64 threads), and each projects the whole chunk's h onto its 128
-//   channels. The residual x is read back from device memory, so the one
-//   input tile that (256, 5) leaves room for is refilled once every warp is
-//   past its depthwise (bf16; two tiles at K <= 3); int8 stages the next
-//   tile's codes in the t tile's room once its epilogue is done. f32 keeps
-//   t in shared memory and runs the depthwise over groups of 64 channels,
-//   each group's halo tile copied in turn (12 x 12 x 256 f32 alone would be
-//   147,456 B), writing the raw sums of the whole tile, then a LayerNorm
-//   pass over t (a warp a pixel); its products read their A fragments from
-//   t and h in shared memory (rows padded by 4 floats: free of bank
-//   conflicts) and run as 3xTF32 as above.
+// * CW = 256 for 128 < C <= 256 (convnext_wide.cu; WCfg in
+//   convnext_wide.cuh): tiles of 8 x 8 pixels, 256 threads, one block an SM.
+//   The projection's accumulators of 16 pixels x 256 channels would be 128
+//   registers a lane, so warps 2m and 2m + 1 share m16 tile m, 128 output
+//   channels each. W2 and W3 stream in E chunks as at C = 128 (bf16 and
+//   int8: 32 E a chunk, f32: 16); of a chunk each warp of the pair computes
+//   half the expansion (bf16: from its A fragments of t in registers) and
+//   hands its h to the other through a shared-memory block of 16 x ECH (a
+//   named barrier of the pair's 64 threads), and each projects the whole
+//   chunk's h onto its 128 channels. The residual x is read back from
+//   device memory, so the one input tile that (256, 5) leaves room for is
+//   refilled once every warp is past its depthwise (bf16; two tiles at
+//   K <= 3); int8 stages the next tile's codes in the t tile's room once
+//   its epilogue is done. f32 keeps t in shared memory and runs the
+//   depthwise over groups of 64 channels, each group's halo tile copied in
+//   turn (12 x 12 x 256 f32 alone would be 147,456 B), writing the raw sums
+//   of the whole tile, then a LayerNorm pass over t (a warp a pixel); its
+//   products read their A fragments from t and h in shared memory (rows
+//   padded by 4 floats: free of bank conflicts) and run as 3xTF32 as above;
+// * grouped (K = 7 at CW = 256, and every K at CW = 512): a whole-C tile
+//   with its 3-wide halo no longer fits (14 x 14 x 256 bf16 is 100,352 B),
+//   so every mode takes the f32 class's depthwise by groups of 64 channels:
+//   each group's input (in the I/O type; int8 codes dequantized as they are
+//   read) and its depthwise weights (not resident: 100,352 B at (512, 7))
+//   are copied into a slot, double-buffered, and the raw f32 sums of the
+//   whole tile go to shared memory (t itself in f32), a LayerNorm pass
+//   writes t, and only then do W2 and W3 stream: the slots and the raw
+//   sums share their room with the weight ring, so a tile's first chunk is
+//   copied after its LayerNorm and its first group after its epilogue
+//   (bf16 (256, 7) 182,784 B, (512, 7) 188,416 B, f32 (512, 7) 220,672 B);
+// * CW = 512 for 256 < C <= 512 (convnext_wide512.cu): tiles of 4 x 8
+//   pixels, 256 threads; the projection's accumulators of 16 pixels x 512
+//   channels are 256 a lane, so four warps share an m16 tile, 128 output
+//   channels each; the A fragments of t (128 registers a lane) stay in
+//   shared memory and are read by ldmatrix chunk by chunk; of a bf16
+//   chunk's four n8 tiles each warp expands one (in f32, two warps expand
+//   the chunk's two n8 tiles of 16 E channels), and a named barrier of the
+//   tile's 128 threads hands h over.
 #pragma once
 
 #include <limits.h>
@@ -210,30 +239,15 @@ struct Cfg {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   // streamed chunks are staged as rows (bf16) or in fragment order (f32)
   static constexpr bool kRowChunks = kMma;
-  // C = 128: W2 and W3 (272,384 B in bf16, 524,288 B in f32) do not fit
-  // beside a tile, so they stream through two buffers of ECH of the E
-  // channels each (W2's rows, W3's columns), the copies of chunk n+1 in
-  // flight while chunk n is multiplied
-  static constexpr bool kStream = C == 128;
-  static constexpr int ECH = 32, NCH = E / ECH;
-  static constexpr int TH = 8, TW = kMma && !kStream ? 32 : 16;
+  static constexpr int TH = 8, TW = kMma && C != 128 ? 32 : 16;
   static constexpr int P = TH * TW;          // pixels per tile
   // threads per block (f32: a warp per tile row), and the blocks per SM
-  // the registers are capped for
+  // the registers are capped for (K = 7 tiles leave room for one)
   static constexpr int NT = !kMma ? 32 * TH : C == 64 ? 512 : 256;
-  static constexpr int MIN_BLOCKS = C == 32 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = C == 32 && K < 7 ? 2 : 1;
   // bf16 tile: a thread's depthwise work item is one 16-byte channel
   // group (8 channels) of R neighbouring output pixels of one row
   static constexpr int R = 4, CG = C / 8;
-  // E channels per step of the products: their expansion accumulators are
-  // EC/2 registers, and at C = 64 (512 threads) a thread has 128 in all;
-  // at C = 128 a step is one streamed chunk
-  static constexpr int EC = C >= 64 ? 32 : 64;
-  // f32: E channels per step of the products: their expansion accumulators
-  // are EF/2 registers, and at C = 32 (two blocks per SM) a thread has 128
-  static constexpr int EF = C == 32 ? 16 : 32;
-  static_assert(!kStream || (EC == ECH && EF == ECH && E % ECH == 0),
-                "a step of the products is one streamed chunk");
   static constexpr int RUNS_W = TW / R, ITEMS = TH * RUNS_W * CG;
   static constexpr int IH = TH + 2 * PAD, IW = TW + 2 * PAD;
   static constexpr int V = 16 / sizeof(S);   // tile elements per 16 bytes
@@ -244,11 +258,43 @@ struct Cfg {
   static constexpr bool kSwizzle = kMma && C >= 64;
   static constexpr int LDX = kSwizzle ? C : C + 8;
   static constexpr int LDT = C + 8;          // bf16 t / output tile rows
+  static constexpr size_t XBUF = sizeof(S) * IH * IW * LDX;
+  // shared-memory layout (bytes)
+  // depthwise weights: f32 [K*K][C]; for the bf16 tile [K*K][2][CG][4],
+  // channel c at [c % 8 / 4][c / 8][c % 4], so that a warp's 16-byte reads
+  // of one half of every group's 8 weights are contiguous
+  static constexpr size_t OFF_DW = 0;
+  static constexpr size_t OFF_LN = align16(OFF_DW + 4 * K * K * C);
+  static constexpr size_t OFF_GN = align16(OFF_LN + 4 * C);
+  static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
+  // W2 and W3 stream through two buffers of ECH of the E channels each
+  // (W2's rows, W3's columns), the copies of chunk n+1 in flight while
+  // chunk n is multiplied, where they do not fit beside a tile: at C = 128
+  // (272,384 B in bf16, 524,288 B in f32) and in f32 at (64, 7) (131,072 B
+  // beside a 88,704 B tile); f32 (128, 7), whose 167,552 B tile leaves no
+  // room for two chunks of 32, takes chunks of 16
+  static constexpr size_t F32_RESIDENT_W = 2 * align16(4 * E * C);
+  static constexpr bool kStream =
+      C == 128 || (!kMma && OFF_X + XBUF + F32_RESIDENT_W > kMaxSmem);
+  static constexpr int ECH =
+      !kMma && kStream && OFF_X + XBUF + 4 * align16(4 * 32 * C) > kMaxSmem
+          ? 16
+          : 32;
+  static constexpr int NCH = E / ECH;
+  // E channels per step of the products: their expansion accumulators are
+  // EC/2 registers, and at C = 64 (512 threads) a thread has 128 in all;
+  // at C = 128 a step is one streamed chunk
+  static constexpr int EC = C >= 64 ? 32 : 64;
+  // f32: E channels per step of the products: their expansion accumulators
+  // are EF/2 registers, and at C = 32 (two blocks per SM) a thread has 128;
+  // streamed, a step is one chunk
+  static constexpr int EF = kStream ? ECH : C == 32 ? 16 : 32;
+  static_assert(!kStream || ((kMma ? EC : EF) == ECH && E % ECH == 0),
+                "a step of the products is one streamed chunk");
   // E channels of W2 and W3 held in one weight buffer: all, or one chunk
   static constexpr int EW = kStream ? ECH : E;
   static constexpr int LDW2 = C + 8;         // bf16 W2 [EW][C] rows
   static constexpr int LDW3 = EW + 8;        // bf16 W3 [C][EW] rows
-  static constexpr size_t XBUF = sizeof(S) * IH * IW * LDX;
   // bf16/int8: W2 bf16 [EW][LDW2], then W3 bf16 [C][LDW3]
   // f32:       W2 and W3 f32 in fragment order, EW*C each (see the
   //            staging in the kernel and load_chunk_async)
@@ -258,20 +304,15 @@ struct Cfg {
       align16(kMma ? 2 * C * LDW3 : 4 * EW * C);
   static constexpr size_t WBUF = W2_BYTES + W3_BYTES;
   static constexpr int NWBUF = kStream ? 2 : 1;
-  // shared-memory layout (bytes)
-  // depthwise weights: f32 [K*K][C]; for the bf16 tile [K*K][2][CG][4],
-  // channel c at [c % 8 / 4][c / 8][c % 4], so that a warp's 16-byte reads
-  // of one half of every group's 8 weights are contiguous
-  static constexpr size_t OFF_DW = 0;
-  static constexpr size_t OFF_LN = align16(OFF_DW + 4 * K * K * C);
-  static constexpr size_t OFF_GN = align16(OFF_LN + 4 * C);
-  static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
-  // tile buffers: bf16 I/O prefetches into a second tile, int8 I/O into a
-  // staging buffer of raw codes [IH*IW][C], f32 I/O into a second tile
-  // where two fit beside the f32 weights (all but (64, 5) and (128, 5))
+  static constexpr size_t T_BYTES = kMma ? 2 * P * LDT : 0;
+  // tile buffers: int8 I/O prefetches into a staging buffer of raw codes
+  // [IH*IW][C], bf16 and f32 I/O into a second tile where two fit beside
+  // the weights (bf16: all but (64, 7) and (128, 7); f32: all but (64, 5),
+  // (128, 5) and (128, 7)); with one, bf16 refills it once every warp's
+  // epilogue is done, f32 once every depthwise is
   static constexpr int NXBUF =
       kInt8 ? 1
-      : kMma || OFF_X + 2 * XBUF + NWBUF * WBUF <= kMaxSmem ? 2 : 1;
+      : OFF_X + 2 * XBUF + NWBUF * WBUF + T_BYTES <= kMaxSmem ? 2 : 1;
   static constexpr size_t OFF_STAGE = align16(OFF_X + NXBUF * XBUF);
   // the weight buffers, then the bf16 t/out tile [P][LDT] (int8 output
   // rows are staged in the same rows)
@@ -279,7 +320,7 @@ struct Cfg {
       align16(OFF_STAGE + (kInt8 ? IH * IW * C : 0));
   static constexpr size_t OFF_W3 = OFF_W2 + W2_BYTES;
   static constexpr size_t OFF_T = OFF_W2 + NWBUF * WBUF;
-  static constexpr size_t SMEM = OFF_T + (kMma ? 2 * P * LDT : 0);
+  static constexpr size_t SMEM = OFF_T + T_BYTES;
   static_assert(XBUF % 16 == 0, "tile buffers keep 16-byte alignment");
   static_assert(SMEM <= kMaxSmem, "one block's shared memory fits");
 
@@ -539,34 +580,63 @@ __device__ __forceinline__ void depthwise_layernorm(
     for (int j = 0; j < R; ++j)
 #pragma unroll
       for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
-#pragma unroll
-    for (int dy = 0; dy < K; ++dy) {
-      const bf16* xrow = xs + (ry + dy) * G::IW * G::LDX;
-      float w[K][8];
-#pragma unroll
-      for (int dx = 0; dx < K; ++dx) {
-        const float4 lo = wp[((dy * K + dx) * 2 + 0) * CG];
-        const float4 hi = wp[((dy * K + dx) * 2 + 1) * CG];
-        w[dx][0] = lo.x, w[dx][1] = lo.y, w[dx][2] = lo.z, w[dx][3] = lo.w;
-        w[dx][4] = hi.x, w[dx][5] = hi.y, w[dx][6] = hi.z, w[dx][7] = hi.w;
-      }
-#pragma unroll
-      for (int i = 0; i < R + K - 1; ++i) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(xrow + xo[i]);
-        const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
-        float xv[8];
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {  // bf16 -> f32 is exact
-          xv[2 * h] = __uint_as_float(u[h] << 16);
-          xv[2 * h + 1] = __uint_as_float(u[h] & 0xffff0000u);
-        }
+    if constexpr (K >= 7) {
+      // a row's K x 8 weights would hold 56 registers beside the 32
+      // accumulators: each tap's 8 weights in turn, its R inputs loaded
+      // for it (the same FMAs in the same order per output), and the
+      // rows not unrolled into each other
+#pragma unroll 1
+      for (int dy = 0; dy < K; ++dy) {
+        const bf16* xrow = xs + (ry + dy) * G::IW * G::LDX;
 #pragma unroll
         for (int dx = 0; dx < K; ++dx) {
-          const int j = i - dx;  // the output pixel this tap feeds
-          if (j >= 0 && j < R) {
+          const float4 lo = wp[((dy * K + dx) * 2 + 0) * CG];
+          const float4 hi = wp[((dy * K + dx) * 2 + 1) * CG];
+          const float w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-            for (int c = 0; c < 8; ++c)
-              acc[j][c] = fmaf(xv[c], w[dx][c], acc[j][c]);
+          for (int j = 0; j < R; ++j) {
+            const uint4 raw = *reinterpret_cast<const uint4*>(xrow + xo[j + dx]);
+            const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {  // bf16 -> f32 is exact
+              acc[j][2 * h] = fmaf(__uint_as_float(u[h] << 16), w[2 * h],
+                                   acc[j][2 * h]);
+              acc[j][2 * h + 1] = fmaf(__uint_as_float(u[h] & 0xffff0000u),
+                                       w[2 * h + 1], acc[j][2 * h + 1]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) {
+        const bf16* xrow = xs + (ry + dy) * G::IW * G::LDX;
+        float w[K][8];
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+          const float4 lo = wp[((dy * K + dx) * 2 + 0) * CG];
+          const float4 hi = wp[((dy * K + dx) * 2 + 1) * CG];
+          w[dx][0] = lo.x, w[dx][1] = lo.y, w[dx][2] = lo.z, w[dx][3] = lo.w;
+          w[dx][4] = hi.x, w[dx][5] = hi.y, w[dx][6] = hi.z, w[dx][7] = hi.w;
+        }
+#pragma unroll
+        for (int i = 0; i < R + K - 1; ++i) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(xrow + xo[i]);
+          const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
+          float xv[8];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {  // bf16 -> f32 is exact
+            xv[2 * h] = __uint_as_float(u[h] << 16);
+            xv[2 * h + 1] = __uint_as_float(u[h] & 0xffff0000u);
+          }
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) {
+            const int j = i - dx;  // the output pixel this tap feeds
+            if (j >= 0 && j < R) {
+#pragma unroll
+              for (int c = 0; c < 8; ++c)
+                acc[j][c] = fmaf(xv[c], w[dx][c], acc[j][c]);
+            }
           }
         }
       }
@@ -1287,10 +1357,16 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
     }
     if constexpr (G::kMma) {
       // the next tile goes to the other buffer (bf16 I/O) or, as codes, to
-      // the staging buffer that the pass above has just emptied (int8 I/O)
-      buf ^= G::NXBUF - 1;
-      if (next < ntiles)
-        load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid, cr, unit);
+      // the staging buffer that the pass above has just emptied (int8 I/O);
+      // bf16 with one tile buffer (K = 7 at C = 64, 128) refills it once
+      // every warp's epilogue has read its residual x there
+      constexpr bool kRefillLate = !G::kInt8 && G::NXBUF == 1;
+      if constexpr (!kRefillLate) {
+        buf ^= G::NXBUF - 1;
+        if (next < ntiles)
+          load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid, cr,
+                             unit);
+      }
       bf16* ts = reinterpret_cast<bf16*>(smem + G::OFF_T);
       depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, inv_cr);
       __syncthreads();
@@ -1317,6 +1393,13 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
       } else {
         products_store<G>(xs, ts, w2s, w3s, gns, out, t, H, W, slope,
                           inv_out, tid, cr, unit);
+      }
+      if constexpr (kRefillLate) {
+        if (next < ntiles) {
+          __syncthreads();  // every warp is done with this tile's x
+          load_tile_async<G>(x, landing(0), tile_at(next), H, W, tid, cr,
+                             unit);
+        }
       }
     } else {
       // f32: the next tile goes to the other buffer where there are two,
@@ -1458,18 +1541,37 @@ int info(int* v) {
 namespace bid_k1 {
 
 // The class kernels of every C up to 128 (convnext_class.cu) and the wide
-// class, 128 < C <= 256 (convnext_wide.cu), at K = 1, 3, 5: a launch, and
-// an instantiation's info as bid_convnext_block_info gives it, by dtype
-// code (0 float32, 1 bfloat16, 2 int8)
+// classes, 128 < C <= 256 (convnext_wide.cu) and 256 < C <= 512
+// (convnext_wide512.cu), at K = 1, 3, 5, 7: a launch, and an
+// instantiation's info as bid_convnext_block_info gives it, by dtype code
+// (0 float32, 1 bfloat16, 2 int8)
 int launch_class(int dtype, const void* x, void* out, const void* dw,
                  const void* ln, const void* w2, const void* w3,
                  const void* gain, int B, int H, int W, int C, int K,
                  float slope, float s_in, float inv_out, cudaStream_t s);
 int info_class(int dtype, int C, int K, int* v);
+// K = 7 at C <= 128: (32, 7), (64, 7), (128, 7) of their own
+// (convnext_k7.cu) and the classes of width 32, 64, 128
+// (convnext_k7_class.cu)
+int launch_k7(int dtype, const void* x, void* out, const void* dw,
+              const void* ln, const void* w2, const void* w3,
+              const void* gain, int B, int H, int W, int C, float slope,
+              float s_in, float inv_out, cudaStream_t s);
+int info_k7(int dtype, int C, int* v);
+int launch_k7_class(int dtype, const void* x, void* out, const void* dw,
+                    const void* ln, const void* w2, const void* w3,
+                    const void* gain, int B, int H, int W, int C, float slope,
+                    float s_in, float inv_out, cudaStream_t s);
+int info_k7_class(int dtype, int C, int* v);
 int launch_wide(int dtype, const void* x, void* out, const void* dw,
                 const void* ln, const void* w2, const void* w3,
                 const void* gain, int B, int H, int W, int C, int K,
                 float slope, float s_in, float inv_out, cudaStream_t s);
 int info_wide(int dtype, int C, int K, int* v);
+int launch_wide512(int dtype, const void* x, void* out, const void* dw,
+                   const void* ln, const void* w2, const void* w3,
+                   const void* gain, int B, int H, int W, int C, int K,
+                   float slope, float s_in, float inv_out, cudaStream_t s);
+int info_wide512(int dtype, int C, int K, int* v);
 
 }  // namespace bid_k1

@@ -1,5 +1,6 @@
 // K1's class kernels: one ConvNext residual unit for every C up to 128 at
-// K = 1, 3 or 5 (E = 4C) but the (C, K) of their own (convnext_block.cu),
+// K = 1, 3 or 5 (E = 4C; K = 7: convnext_k7.cu) but the (C, K) of their own
+// (convnext_block.cu),
 // in every I/O mode: the layouts of C = 32, 64 and 128 with the true C a
 // launch argument and the weights padded to the class's width by the
 // wrapper (convnext_block.cuh notes how padded channels behave).

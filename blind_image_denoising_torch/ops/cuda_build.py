@@ -34,8 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-# seconds the last build took in this process (0.0 when it was cached)
+# seconds the last build took in this process (0.0 when it was cached),
+# and the seconds each source's nvcc took in it (they run at once)
 build_seconds = 0.0
+source_seconds = {}
 
 
 def sources() -> List[Path]:
@@ -69,20 +71,29 @@ def _digest(srcs: List[Path]) -> str:
 def _compile(nvcc: str, srcs: List[Path], out_dir: Path,
              verbose: bool) -> None:
     extra = ["-Xptxas", "-v"] if verbose else []
-    procs = []
-    for s in srcs:
+    t0 = time.perf_counter()
+    outs = {}
+
+    def run(s):
         obj = out_dir / (s.stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(obj)]
-        procs.append((s, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        p = subprocess.run(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        source_seconds[s.name] = round(time.perf_counter() - t0, 3)
+        outs[s] = p
+
+    threads = [threading.Thread(target=run, args=(s,)) for s in srcs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     failed = []
-    for s, p in procs:
-        out, _ = p.communicate()
-        if verbose and out:
-            print(out, flush=True)
+    for s in srcs:
+        p = outs[s]
+        if verbose and p.stdout:
+            print(p.stdout, flush=True)
         if p.returncode != 0:
-            failed.append(f"{s.name}:\n{out}")
+            failed.append(f"{s.name}:\n{p.stdout}")
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     objs = [str(out_dir / (s.stem + ".o")) for s in srcs]
@@ -102,6 +113,7 @@ def build(verbose: bool = False) -> Path:
     lib_path = target / LIB_NAME
     if lib_path.is_file():
         build_seconds = 0.0
+        source_seconds.clear()
         return lib_path
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -20,19 +20,22 @@ K = 1 the halo is empty (PAD = 0) and the depthwise sum is one tap per
 channel; the tile, copy and depthwise code is written in PAD and K,
 unchanged.
 
-What is built: every C from 1 to 256 at K = 1, 3 and 5 with E = 4C, in
-every I/O mode (:func:`kernel_supports`), as JAX's kernel takes any C
-and odd K. Nine (C, K) have instantiations of their own (``OWN_SHAPES``:
-the seven above and (64, 3), (128, 3)); any other C runs a class of
-width 32, 64 or 128 (the layouts below at that width, with the true C a
-launch argument) or, above 128, the wide class of width 256
-(``csrc/convnext_class.cu``, ``csrc/convnext_wide.cu``). A class's
-padded channels have zero weights (:func:`kernel_operands` pads them on
-every call), its LayerNorm statistics are taken over the true C, and
-its tile and output move in units of the largest power of two up to 16
-bytes that divides a pixel's row. A depth-5 ``unet_laplacian_v6`` fused
-to level 3 runs (256, 5); one with ``filters_level_multiplier`` 1.5 runs
-(48, 5), (72, 5) and (108, 5). K = 7 and C above 256 raise
+What is built: every C from 1 to 512 at K = 1, 3, 5 and 7 with E = 4C,
+in every I/O mode (:func:`kernel_supports`), as JAX's kernel takes any C
+and odd K. Twelve (C, K) have instantiations of their own
+(``OWN_SHAPES``: the seven above, (64, 3), (128, 3), and K = 7 at C =
+32, 64, 128); any other C runs a class of width 32, 64 or 128 (the
+layouts below at that width, with the true C a launch argument) or,
+above 128, the wide classes of width 256 and 512
+(``csrc/convnext_class.cu``, ``csrc/convnext_wide.cu``,
+``csrc/convnext_wide512.cu``). A class's padded channels have zero
+weights (:func:`kernel_operands` pads them on every call), its LayerNorm
+statistics are taken over the true C, and its tile and output move in
+units of the largest power of two up to 16 bytes that divides a pixel's
+row. A depth-5 ``unet_laplacian_v6`` fused to level 3 runs (256, 5); one
+with ``filters_level_multiplier`` 1.5 runs (48, 5), (72, 5) and (108, 5);
+one without self-attention runs (512, 5) at level 4; a ``v6`` whose
+kernel sizes are 7 runs (32, 7) and (64, 7). C above 512 raises
 ``NotImplementedError`` on the card.
 
 CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
@@ -90,7 +93,16 @@ channels would be 128 registers a lane, so two warps share an m16 tile,
 128 output channels each; each computes half of a chunk's expansion and
 hands its ``h`` to the other through shared memory. Its float32 mode
 keeps ``t`` in shared memory and runs the depthwise by groups of 64
-channels, each group's halo tile copied in turn.
+channels, each group's halo tile copied in turn. At K = 7 (halo 3 a
+side) the layouts stay where they fit: bf16 (64, 7) and (128, 7) keep
+one tile buffer, f32 (64, 7) streams W2 and W3 as C = 128 does and f32
+(128, 7) in chunks of 16; the wide class at K = 7 and the class of width
+512 take the depthwise by 64-channel groups in every mode (the group's
+input and its depthwise weights in a slot that shares its room with the
+weight ring, the raw f32 sums then a LayerNorm pass), and at width 512
+four warps share an m16 tile over tiles of 4 × 8 pixels, 128 output
+channels each, their A fragments read from shared memory chunk by
+chunk.
 In float32 mode (``dtype="float32"`` serving and export, the f32
 forwards of v3 / v4 / v5, the analysis tools) the result keeps float32
 accuracy while the two products, 95% of the operations, run on the
@@ -153,25 +165,30 @@ branch_units = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (C, K) with instantiations of their own in csrc/convnext_block.cu, every
 # mode, E = 4C: the units of the packaged and family models (K = 1: the
-# decoders of unet_laplacian_v3, _v4 and _v5) and K = 3 at C = 64, 128
-OWN_SHAPES = frozenset({(32, 1), (32, 3), (32, 5), (64, 1), (64, 3),
-                        (64, 5), (128, 1), (128, 3), (128, 5)})
+# decoders of unet_laplacian_v3, _v4 and _v5), K = 3 at C = 64, 128, and
+# K = 7 (the flax ConvNext layer's default) at C = 32, 64, 128
+OWN_SHAPES = frozenset({(32, 1), (32, 3), (32, 5), (32, 7), (64, 1),
+                        (64, 3), (64, 5), (64, 7), (128, 1), (128, 3),
+                        (128, 5), (128, 7)})
 # the kernel takes every C from 1 to MAX_CHANNELS at these K, with E = 4C:
 # a C outside OWN_SHAPES runs the class of width class_width(C)
-KERNEL_KS = (1, 3, 5)
-MAX_CHANNELS = 256
-CLASS_WIDTHS = (32, 64, 128, 256)
-# a named sample of what the kernel takes: the nine of their own and each
+KERNEL_KS = (1, 3, 5, 7)
+MAX_CHANNELS = 512
+CLASS_WIDTHS = (32, 64, 128, 256, 512)
+# a named sample of what the kernel takes: the twelve of their own and each
 # class at widths that are and are not multiples of 16 (odd ones included);
 # the tests and chip_smoke.py's build check sweep it
 SAMPLE_SHAPES = tuple(sorted(OWN_SHAPES | {
-    (c, k) for c in (1, 7, 8, 24, 48, 72, 108, 128, 144, 162, 200, 256)
+    (c, k) for c in (1, 7, 8, 24, 48, 72, 108, 128, 144, 162, 200, 256, 300,
+                     384, 512)
     for k in KERNEL_KS}))
-# E channels of W2 and W3 a shared-memory buffer holds at C = 128, where
-# they stream through two such buffers (the wide class: 32 in bf16 and
-# int8, WIDE_F32_CHUNK in float32)
+# E channels of W2 and W3 a shared-memory buffer holds at C = 128 (and in
+# float32 at (64, 7)), where they stream through two such buffers (float32
+# (128, 7) and the wide classes' float32: WIDE_F32_CHUNK)
 STREAM_CHUNK = 32
 WIDE_F32_CHUNK = 16
+# the wide classes' depthwise channel groups (csrc/convnext_wide.cuh GC)
+WIDE_GROUP = 64
 INT8_MAX = 127
 # dynamic shared memory one block may have on an H100
 SHARED_MEMORY_LIMIT = 232_448
@@ -199,57 +216,80 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     """Threads per block and dynamic shared-memory bytes of the kernel that
     runs (C, K, dtype): a mirror of ``Cfg`` in ``csrc/convnext_block.cuh``
     (C up to 128, laid out at its class's width) and of ``WCfg`` in
-    ``csrc/convnext_wide.cu`` (128 < C <= 256), which ``chip_smoke.py``
+    ``csrc/convnext_wide.cuh`` (128 < C <= 512), which ``chip_smoke.py``
     holds against what the built library reports."""
     c = class_width(c)
     if c > 128:
-        return _wide_plan(k, dtype)
+        return _wide_plan(c, k, dtype)
     mma, int8 = dtype != torch.float32, dtype == torch.int8
     e, pad, elt = 4 * c, k // 2, 2 if mma else 4
-    # C = 128 streams W2 and W3 through two buffers of STREAM_CHUNK of the
-    # E channels and takes 8 x 16 tiles in every mode
-    stream = c == 128
-    ew = STREAM_CHUNK if stream else e
-    th, tw = 8, 32 if mma and not stream else 16
+    th, tw = 8, 32 if mma and c != 128 else 16
     ih, iw = th + 2 * pad, tw + 2 * pad
     # tile rows unpadded (swizzled) at C >= 64 in bf16, else padded by 8
     ldx = c if mma and c >= 64 else c + 8
     xbuf = elt * ih * iw * ldx
     end = _align16(4 * k * k * c)                         # depthwise weights
     end = _align16(_align16(end + 4 * c) + 4 * c)         # LN scale, gain
+    # W2 and W3 stream through two buffers of an E chunk at C = 128 and in
+    # f32 where the resident ones do not fit beside one tile ((64, 7)); f32
+    # chunks of 16 where two of 32 do not fit either ((128, 7))
+    stream = c == 128 or (not mma and end + xbuf + 2 * _align16(4 * e * c)
+                          > SHARED_MEMORY_LIMIT)
+    ech = (WIDE_F32_CHUNK if not mma and stream and end + xbuf + 4 * _align16(
+        4 * STREAM_CHUNK * c) > SHARED_MEMORY_LIMIT else STREAM_CHUNK)
+    ew = ech if stream else e
     # a weight buffer: W2 [EW][C] and W3 [C][EW] (bf16 rows padded by 8)
     wbuf = (_align16(2 * ew * (c + 8)) + _align16(2 * c * (ew + 8)) if mma
             else 2 * _align16(4 * ew * c))
     weights = (2 if stream else 1) * wbuf
-    # bf16 two tile buffers, int8 one; f32 two where they fit beside its
-    # f32 weights (all but (64, 3), (64, 5) and (128, 5))
-    buffers = (1 if int8 else 2 if mma
-               or end + 2 * xbuf + weights <= SHARED_MEMORY_LIMIT else 1)
+    t_tile = 2 * th * tw * (c + 8) if mma else 0          # t / output tile
+    # int8 one tile buffer (and its staged codes); bf16 and f32 two where
+    # they fit beside the weights
+    buffers = (1 if int8 else 2 if end + 2 * xbuf + weights + t_tile
+               <= SHARED_MEMORY_LIMIT else 1)
     end = _align16(end + buffers * xbuf)                  # input tiles
     end = _align16(end + (ih * iw * c if int8 else 0))    # staged codes
-    end += weights
-    end += 2 * th * tw * (c + 8) if mma else 0            # t / output tile
+    end += weights + t_tile
     # f32: a warp per tile row
     threads = 32 * th if not mma else 512 if c == 64 else 256
     return dict(threads_per_block=threads, smem_bytes=end)
 
 
-def _wide_plan(k: int, dtype: torch.dtype) -> dict:
-    """``kernel_plan`` of the wide class (C = 256 wide, 8 x 8 tiles, 256
-    threads): the small weights, the input tiles (float32: the buffers of
-    one 64-channel group), two weight buffers of an E chunk (W2 [ECH][C],
-    W3 [C][ECH]), the t tile (int8 stages its codes there) and the warp
-    pairs' h blocks [16][ECH], rows padded by 16 bytes (bf16) or 4 floats."""
+def _wide_plan(cw: int, k: int, dtype: torch.dtype) -> dict:
+    """``kernel_plan`` of the wide classes (width ``cw`` 256: 8 x 8 tiles,
+    512: 4 x 8; 256 threads). With whole-C tiles (256, K <= 5): the small
+    weights, the input tiles (float32: the buffers of one 64-channel
+    group), two weight buffers of an E chunk (W2 [ECH][C], W3 [C][ECH]),
+    the t tile (int8 stages its codes there) and the warps' h blocks
+    [16][ECH], rows padded by 16 bytes (bf16) or 4 floats. Grouped (K = 7,
+    and width 512): the LayerNorm scale and gain, t, the h blocks, then
+    a region that holds the two weight buffers or, before the products,
+    the raw f32 sums [P][C + 4] (bf16, int8) and one or two group slots
+    (a group's input in the I/O type and its depthwise weights)."""
     mma, int8 = dtype != torch.float32, dtype == torch.int8
-    c, pad, elt = 256, k // 2, 2 if mma else 4
-    ih = iw = 8 + 2 * pad
+    c, pad, elt = cw, k // 2, 2 if mma else 4
+    io = torch.tensor([], dtype=dtype).element_size()
+    th, tw = (8, 8) if cw == 256 else (4, 8)
+    px = th * tw
+    ih, iw = th + 2 * pad, tw + 2 * pad
     ech, rowpad = (STREAM_CHUNK, 8) if mma else (WIDE_F32_CHUNK, 4)
-    xbuf = elt * ih * iw * (c if mma else 64)
+    grouped = k == 7 or cw == 512
     wbuf = (_align16(elt * ech * (c + rowpad))
             + _align16(elt * c * (ech + rowpad)))
-    t_rows = elt * 64 * (c + rowpad)
-    t_bytes = _align16(max(t_rows, ih * iw * c) if int8 else t_rows)
-    h_bytes = elt * 16 * (ech + rowpad) * 4
+    t_rows = elt * px * (c + rowpad)
+    t_bytes = _align16(max(t_rows, ih * iw * c) if int8 and not grouped
+                       else t_rows)
+    h_bytes = elt * 16 * (ech + rowpad) * (px // 16)
+    if grouped:
+        start = _align16(_align16(4 * c) + 4 * c)
+        u0 = _align16(start + t_bytes + h_bytes)
+        raw = 4 * px * (c + 4) if mma else 0
+        slot = _align16(io * ih * iw * WIDE_GROUP) + 4 * k * k * WIDE_GROUP
+        slots = 2 if u0 + max(2 * wbuf, raw + 2 * slot) \
+            <= SHARED_MEMORY_LIMIT else 1
+        return dict(threads_per_block=256,
+                    smem_bytes=u0 + max(2 * wbuf, raw + slots * slot))
+    xbuf = elt * ih * iw * (c if mma else WIDE_GROUP)
     start = _align16(_align16(_align16(4 * k * k * c) + 4 * c) + 4 * c)
     rest = 2 * wbuf + t_bytes + h_bytes
     buffers = (1 if int8 else 2 if start + 2 * xbuf + rest

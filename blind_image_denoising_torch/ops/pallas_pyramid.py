@@ -48,8 +48,15 @@ there and stores 16 bytes: bit-exact against
 :func:`band_smooth_bwd_plain`. The next tile's loads are issued before
 the current tile's sum, so memory stays busy across the block's
 barriers. :func:`bwd_tile_plan` mirrors the kernel's tile plan and its
-shared memory. Grads that do not arrive NHWC-contiguous are copied first and
-counted in ``bwd_grad_copies`` (the train step hands over none). When
+shared memory. Like the split below, it takes any C: a C that is no whole
+number of 16-byte vectors (C = 108 in bf16, the level-3 split of a
+``filters_level_multiplier`` 1.5 depth-5 v6, which the train step
+differentiates) moves the largest power of two of channels that divides C
+a thread (:func:`channels_per_thread`; 8-, 4- or 2-byte accesses, the same
+sums in the same order), and a C of more vectors than a block has threads
+runs as channel slices, a launch each inside one call. Grads that do not
+arrive NHWC-contiguous are copied first and counted in
+``bwd_grad_copies`` (the train step hands over none). When
 no gradient is wanted (serving under ``inference_mode``) autograd
 records nothing and only the forward kernel runs.
 
@@ -67,7 +74,9 @@ the block sums the current one; a thread owns even 2×2 quads of one
 channel vector, reads each staged row of its column strip once (the
 vertical taps reused from registers at k = 2), sums in the plain
 version's order and stores four 16-byte band vectors and one ``down``
-vector per quad: bit-exact against :func:`band_split_plain`.
+vector per quad: bit-exact against :func:`band_split_plain`. At a C of no
+whole 16-byte vectors a thread moves N channels as the backward's does
+(8- and 4-byte ``cp.async``, plain 2-byte loads).
 :func:`split_tile_plan` mirrors its tile plan. Like the JAX kernel it is
 forward only, and a tensor that wants a gradient or carries a
 forward-mode tangent raises.
@@ -144,16 +153,22 @@ def _valid_taps(n: int, k: int, lo: int, device) -> torch.Tensor:
     return (last - first).float()
 
 
-def _check(t: torch.Tensor, what: str, any_c: bool = False) -> None:
-    """The kernels take float32 or bfloat16 and, but for the forward
-    band split (``any_c``), C in whole 16-byte vectors."""
+def _check(t: torch.Tensor, what: str) -> None:
+    """The kernels take float32 or bfloat16, at any C: a C that is no
+    whole number of 16-byte vectors moves the largest power of two of
+    channels that divides it a thread (:func:`channels_per_thread`)."""
     if t.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
                         f"{t.dtype}")
-    vec = 16 // t.element_size()
-    if t.shape[-1] % vec and not any_c:
-        raise ValueError(f"{what} kernel needs C divisible by {vec} for "
-                         f"{t.dtype}, got C={t.shape[-1]}")
+
+
+def channels_per_thread(c: int, dtype: torch.dtype) -> int:
+    """Channels of a pixel one thread of the backward or split kernel
+    moves (``chans_per_thread`` in ``csrc/band_smooth.cu``): a 16-byte
+    vector where C is a whole number of them, else the largest power of
+    two that divides C."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    return min(vec, c & -c)
 
 
 def band_smooth_forward(x: torch.Tensor, kernel_size: int
@@ -165,7 +180,7 @@ def band_smooth_forward(x: torch.Tensor, kernel_size: int
         return band_smooth_plain(x, kernel_size)
     if x.device.type != "cuda":
         raise ValueError(f"band_smooth: unsupported device {x.device}")
-    _check(x, "band_smooth", any_c=True)
+    _check(x, "band_smooth")
     b, h, w, c = x.shape
     x = x.contiguous()
     band, smooth = torch.empty_like(x), torch.empty_like(x)
@@ -212,27 +227,31 @@ def bwd_tile_plan(b: int, h: int, w: int, c: int, k: int,
     with window ``k``: a mirror of ``bwd_plan`` in ``csrc/band_smooth.cu``,
     which ``chip_smoke.py`` holds against what the built library reports.
     A block owns ``tile_h`` rows × ``tile_w`` pixels × all c channels with
-    ``threads_x`` = tile_w·c/V threads across a row (V channels of 16
-    bytes each) and ``threads_y`` down; it stages float32 z of the tile
-    and its k − 1 halo and the tile's own g_band, ``smem_bytes``;
+    ``threads_x`` = tile_w·c/V threads across a row (V channels each: 16
+    bytes, or fewer for a ragged C) and ``threads_y`` down; it stages
+    float32 z of the tile and its k − 1 halo and the tile's own g_band,
+    ``smem_bytes``;
     ``tiles`` counts them along W, H and B (the kernel's persistent
     blocks walk them in that order). tile_w aims at 128 vectors per row;
     tile_h and then tile_w halve until the stage fits
-    ``SHARED_MEMORY_LIMIT``. Raises ValueError where no tile fits or c/V
-    exceeds one block's threads."""
-    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    ``SHARED_MEMORY_LIMIT``. V is :func:`channels_per_thread`; a C of
+    more than ``BWD_THREADS`` V-channel vectors runs as slices of that
+    many, a launch each, and the plan is the first slice's. Raises
+    ValueError where no tile fits."""
+    if min(c, h, w, k) < 1:
+        raise ValueError(f"band_smooth_bwd kernel takes a non-empty image, "
+                         f"got {(b, h, w, c)} with k={k}")
+    elt = torch.tensor([], dtype=dtype).element_size()
+    vec = channels_per_thread(c, dtype)
+    c = min(c, BWD_THREADS * vec)
     cv = c // vec
-    if c % vec or cv > BWD_THREADS or min(h, w, k) < 1:
-        raise ValueError(f"band_smooth_bwd kernel takes C divisible by "
-                         f"{vec} up to {BWD_THREADS * vec} and a non-empty "
-                         f"image, got {(b, h, w, c)} with k={k}")
     tw, th = max(1, min(w, BWD_ROW_VECTORS // cv)), None
     while True:
         bdx = tw * cv
         bdy = max(1, min(BWD_THREADS // bdx, h))
         if th is None:
             th = max(1, min(h, bdy * BWD_ROWS_PER_THREAD))
-        smem = 4 * (th + k - 1) * (tw + k - 1) * c + 16 // vec * th * tw * c
+        smem = 4 * (th + k - 1) * (tw + k - 1) * c + elt * th * tw * c
         if smem <= SHARED_MEMORY_LIMIT:
             return dict(tile_w=tw, tile_h=th, threads_x=bdx, threads_y=bdy,
                         smem_bytes=smem,
@@ -324,23 +343,24 @@ def split_tile_plan(b: int, h: int, w: int, c: int, k: int,
     window ``k``: a mirror of ``split_plan`` in ``csrc/band_smooth.cu``,
     which ``chip_smoke.py`` holds against what the built library reports.
     A block owns ``tile_h`` rows × ``tile_w`` pixels × all c channels (both
-    even) with ``threads_x`` = tile_w/2·c/V threads across (one 16-byte
-    vector of one 2×2 quad column each) and ``threads_y`` down, each
+    even) with ``threads_x`` = tile_w/2·c/V threads across (one vector of
+    V channels of one 2×2 quad column each) and ``threads_y`` down, each
     owning up to SPLIT_QUAD_ROWS quads of its column; it stages
     SPLIT_STAGES tiles with their k − 1 halo, each in two planes (the even
     and the odd staged columns), ``smem_bytes``; ``tiles`` counts them
     along W, H and B. tile_w aims at SPLIT_ROW_VECTORS vectors per row;
     tile_h and then tile_w halve, by whole quads, until the stages fit
-    ``SHARED_MEMORY_LIMIT``. Raises ValueError for odd or empty h or w,
-    where no tile fits, or where c/V exceeds one block's threads."""
+    ``SHARED_MEMORY_LIMIT``. V is :func:`channels_per_thread`; a C of
+    more than ``SPLIT_THREADS`` V-channel vectors runs as slices of that
+    many, a launch each, and the plan is the first slice's. Raises
+    ValueError for odd or empty h or w, or where no tile fits."""
+    if c < 1 or k < 1 or min(h, w) < 2 or h % 2 or w % 2:
+        raise ValueError(f"band_split kernel takes even h, w >= 2, got "
+                         f"{(b, h, w, c)} with k={k}")
     elt = torch.tensor([], dtype=dtype).element_size()
-    vec = 16 // elt
+    vec = channels_per_thread(c, dtype)
+    c = min(c, SPLIT_THREADS * vec)
     cv = c // vec
-    if (c % vec or cv > SPLIT_THREADS or k < 1 or min(h, w) < 2
-            or h % 2 or w % 2):
-        raise ValueError(f"band_split kernel takes even h, w >= 2 and C "
-                         f"divisible by {vec} up to {SPLIT_THREADS * vec}, "
-                         f"got {(b, h, w, c)} with k={k}")
     quads, rows = max(1, min(w // 2, SPLIT_ROW_VECTORS // (2 * cv))), None
     while True:
         bdx = quads * cv

@@ -36,17 +36,28 @@ drive the two paths of the port through the entry points a user calls:
   forward with 6 at (128, 5), every launch against its plain version,
   the fused phase's bars (``FUSED4_INT8_OWN_MARGIN`` for int8), the
   forwards timed, and K1 int8 at (128, 5) on 32×64²×128 timed;
-* fused_widths: the same fused path at two depth-5 ``unet_laplacian_v6``
-  (seeded, bf16, ``fused_levels=(0, 1, 2, 3)``): the config's widths
-  (level 3 at C = 256, K1's wide class) and ``filters_level_multiplier``
-  1.5 (C = 32, 48, 72, 108: K1's padded classes), 24 K1 a fused or hydra
-  forward, 6 at each level's (C, 5), no unit on its PyTorch branch, the
-  fused_depth4 phase's bars; then K1 off the (C, K) of its own timed
-  (``FUSEDW_K1_ROWS``);
+* fused_widths: the same fused path at three depth-5
+  ``unet_laplacian_v6`` (seeded, bf16): the config's widths (level 3 at
+  C = 256, K1's wide class) and ``filters_level_multiplier`` 1.5 (C = 32,
+  48, 72, 108: K1's padded classes) with ``fused_levels=(0, 1, 2, 3)`` on
+  b32 @ 256², 24 K1 a fused or hydra forward, 6 at each level's (C, 5);
+  and without self-attention (level 4 at C = 512, K1's class of width
+  512) with every level fused on b8 @ 256², 27 K1 a forward, 3 at
+  (512, 5); no unit on its PyTorch branch, the fused_depth4 phase's bars;
+  then K1 off the (C, K) of its own timed (``FUSEDW_K1_ROWS``);
+* wider_shapes: the multiplier-1.5 depth-5 v6 trained in bf16 at
+  b16 @ 128² with K3 and Adam (one batch against the port's f32 CPU step
+  at the train phase's bars, then 6 steps with exact launches, K2's
+  backward at C = 108, no whole 16-byte vectors, once a step), and the
+  bf16 hydra of a v6 whose kernel sizes are 7 at b8 @ 256² (12 K1 a
+  forward, 6 each at (32, 7) and (64, 7), no unit on its branch; its f32
+  forward card vs CPU); every kernel input of both against the plain
+  versions, K2's backward at C = 108 and K1 at K = 7 timed;
 * band_split: the decimating band split (K4) through its op, the only
   entry point it has, at the flagship's level-0/1 band shapes 8×256²×32
-  and 8×128²×64 (the build line holds its tile plan, registers and
-  spills against ``pallas_pyramid.split_tile_plan``);
+  and 8×128²×64 and at 8×32²×108 (C of no whole 16-byte vectors; the
+  build line holds its tile plan, registers and spills against
+  ``pallas_pyramid.split_tile_plan``);
 * train_loop: ``train_loop`` on 24 seeded 480×640 scenes written as PNG
   files (decoded natively, by PIL, or, with neither, the synthetic
   stream), the ``unet_laplacian_v6_tpu`` config at its shipped widths
@@ -478,7 +489,7 @@ def band_bound_ms(b, h, w, c, k, dtype, backward=False, split=False):
 def k1_instantiations(lib, pallas_convnext):
     """Shared memory, registers, spill bytes, threads per block and
     resident blocks per SM of the K1 instantiation that runs each (C, K) of
-    ``pallas_convnext.SAMPLE_SHAPES`` (the nine of their own and every
+    ``pallas_convnext.SAMPLE_SHAPES`` (the twelve of their own and every
     class at widths that are and are not multiples of 16), from the
     library (``bid_convnext_block_info``). An instantiation that spills, or
     differs from ``kernel_plan``, fails."""
@@ -3013,11 +3024,13 @@ def c128_launches(pallas_convnext):
     return c128_of(pallas_convnext.shape_launches)
 
 
-def fused_model_run(cfg, levels, rng, reset_counts, read_counts):
+def fused_model_run(cfg, levels, rng, reset_counts, read_counts,
+                    batch=FUSED_BATCH):
     """The fused path of the seeded bf16 model of ``cfg`` with ``levels``
     fused: calibrated on 8 images (4 clean, 4 at σ = 25;
     ``calibrate_fused(..., fused_levels=levels)``), then its float and int8
-    fused forwards and its bf16 hydra on b32 @ 256², each from counts set
+    fused forwards and its bf16 hydra on ``batch`` images of 256², each
+    from counts set
     to 0 (``runs``: the kernels' counts, ``shapes``: K1's launches by
     (dtype name, C, K)); every K1 launch of the two fused forwards against
     its plain version on the same input (``on_path``); the finest scale of
@@ -3043,7 +3056,7 @@ def fused_model_run(cfg, levels, rng, reset_counts, read_counts):
 
     cal_clean = synthetic_images(4, FUSED_SIZE, FUSED_SIZE, rng)
     cal = np.concatenate([cal_clean, add_noise(cal_clean, 25.0, rng)])
-    x = nchw(add_noise(synthetic_images(FUSED_BATCH, FUSED_SIZE, FUSED_SIZE,
+    x = nchw(add_noise(synthetic_images(batch, FUSED_SIZE, FUSED_SIZE,
                                         rng), 25.0, rng)).cuda()
     reset_counts()
     scales = fused_module.calibrate_fused(cfg, model, nchw(cal),
@@ -3120,7 +3133,7 @@ def fused_model_run(cfg, levels, rng, reset_counts, read_counts):
                              forward_event_ms(lambda: fn(x))))
               for name, fn in forwards.items()}
     for t in timing.values():
-        t["images_per_s"] = FUSED_BATCH / t["forward_ms_median"] * 1e3
+        t["images_per_s"] = batch / t["forward_ms_median"] * 1e3
     return dict(model=model, x=x, sites=len(sites), calibration_images=len(
         cal), runs=runs, shapes=shapes, outs=outs, gaps=gaps,
         on_path=on_path, f32_launches=f32_on_path["kernel"], card32=card32,
@@ -3287,15 +3300,20 @@ def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
 # --------------------------------------------- the fused path's widths
 
 # unet_laplacian_v6 at its own filters (32), width (3) and K (5) with the
-# depth set to 5 (self-attention at level 4), seeded, bf16, levels 0-3
-# fused, 24 K1 a fused forward: (a) the config's level widths, C =
-# 32/64/128/256, 6 K1 at (256, 5); (b) filters_level_multiplier 1.5, C =
-# 32/48/72/108 (level 4, C = 162, is the attention level), 6 K1 each at
-# (32, 5), (48, 5), (72, 5) and (108, 5)
+# depth set to 5, seeded, bf16: (a) the config's level widths, C =
+# 32/64/128/256 (self-attention at level 4), levels 0-3 fused, 24 K1 a
+# fused forward, 6 at (256, 5); (b) filters_level_multiplier 1.5, C =
+# 32/48/72/108 (level 4, C = 162, is the attention level), levels 0-3
+# fused, 6 K1 each at (32, 5), (48, 5), (72, 5) and (108, 5), at b32 @ 256²;
+# (c) without self-attention, C = 32/64/128/256/512, every level fused, 27
+# K1 a forward, 3 at (512, 5) (level 4 has no decoder stage), at b8 @ 256².
+# name -> (overrides, fused levels, batch)
 FUSEDW_DEPTH = 5
 FUSEDW_LEVELS = (0, 1, 2, 3)
-FUSEDW_PER_FORWARD = 24
-FUSEDW_MODELS = {"c256": {}, "x1.5": {"filters_level_multiplier": 1.5}}
+FUSEDW_MODELS = {"c256": ({}, FUSEDW_LEVELS, FUSED_BATCH),
+                 "x1.5": ({"filters_level_multiplier": 1.5}, FUSEDW_LEVELS,
+                          FUSED_BATCH),
+                 "c512": ({"use_self_attention": False}, (0, 1, 2, 3, 4), 8)}
 # the fused forwards against the bf16 hydra: the fused phase's bars (float
 # 2.0 gray levels, int8 max(4, the model's own int8 error in f32 + 0.5)), or,
 # where the seeded model's roundings already spread past them, no farther
@@ -3317,7 +3335,10 @@ FUSEDW_K1_ROWS = [("bf16", 256, 5, 32, 32, ("c256", "encoder_3_0")),
                   ("bf16", 72, 5, 32, 64, ("x1.5", "encoder_2_0")),
                   ("bf16", 108, 5, 32, 32, ("x1.5", "encoder_3_0")),
                   ("bf16", 64, 3, 8, 128, None),
-                  ("bf16", 128, 3, 8, 64, None)]
+                  ("bf16", 128, 3, 8, 64, None),
+                  ("bf16", 512, 5, 8, 16, ("c512", "encoder_4_0")),
+                  ("int8", 512, 5, 8, 16, ("c512", "encoder_4_0")),
+                  ("f32", 512, 5, 8, 16, ("c512", "encoder_4_0"))]
 
 
 def seeded_unit_weights(c, k, seed=0):
@@ -3392,11 +3413,12 @@ def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
 
 def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                        share_differing):
-    """The fused path at the widths K1's classes serve: the two depth-5
+    """The fused path at the widths K1's classes serve: the three depth-5
     ``unet_laplacian_v6`` models of ``FUSEDW_MODELS`` through
-    :func:`fused_model_run` with ``fused_levels=FUSEDW_LEVELS``: exact
-    launches (24 K1 a fused forward and a hydra forward, 6 at each level's
-    (C, 5); 0 units on their PyTorch branch), every K1 launch of the two
+    :func:`fused_model_run` with their fused levels: exact launches (24 K1
+    a fused forward and a hydra forward, 6 at each level's (C, 5); 27
+    without self-attention, 3 at (512, 5); 0 units on their PyTorch
+    branch), every K1 launch of the two
     fused forwards against its plain version on the same input (bf16
     max(0.05, 1 ulp); int8 one code on at most ``share_differing`` of the
     outputs at C <= 64, ``FUSED4_C128_SHARE_DIFFERING`` from C = 128; f32
@@ -3410,9 +3432,10 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
     forward with K1's plain version on the card against the CPU (<=
     ``FUSED_F32_CARD_VS_CPU_MEAN``; through the kernel read), the forwards
     timed; then K1 at ``FUSEDW_K1_ROWS`` timed. Returns (launch counts
-    summed over the phase, K1's launches off the (C, K) of their own
-    by dtype, the largest bf16 and int8 differences of those launches from
-    their plain versions, the timed rows)."""
+    summed over the phase, K1's launches by (dtype name, C, K), the
+    largest bf16 and int8 differences from their plain versions of the
+    launches off the (C, K) of their own up to C = 256 and of those at
+    C = 512, the timed rows)."""
     from blind_image_denoising_torch.ops import pallas_convnext
 
     def int8_share(c):
@@ -3422,28 +3445,31 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
         return share_differing if c <= 64 else FUSED4_C128_SHARE_DIFFERING
 
     models, problems = {}, []
-    total, classes = None, {}
-    errors = dict(bf16=0.0, int8=0)
-    for name, overrides in FUSEDW_MODELS.items():
+    total, by_shape = None, {}
+    errors = dict(bf16=0.0, int8=0, bf16_c512=0.0, int8_c512=0)
+    for name, (overrides, fused_levels, batch) in FUSEDW_MODELS.items():
         cfg = copy.deepcopy(v6cfg)
         cfg["backbone"].update(depth=FUSEDW_DEPTH, **overrides)
         branch0 = pallas_convnext.branch_units
-        run = fused_model_run(cfg, FUSEDW_LEVELS, rng, reset_counts,
-                              read_counts)
+        run = fused_model_run(cfg, fused_levels, rng, reset_counts,
+                              read_counts, batch=batch)
         branch = pallas_convnext.branch_units - branch0
         model, runs, on_path = run["model"], run["runs"], run["on_path"]
         models[name] = model
         levels = [getattr(model.backbone, f"encoder_{d}_0").conv_1.kernel
-                  .shape[0] for d in FUSEDW_LEVELS]
-        per_shape = {(c, 5): 6 for c in levels}
+                  .shape[0] for d in fused_levels]
+        # an encoder and a decoder stage of 3 units a level; the deepest
+        # level has no decoder stage
+        per_shape = {(c, 5): 3 if d == FUSEDW_DEPTH - 1 else 6
+                     for d, c in zip(fused_levels, levels)}
+        per_forward = sum(per_shape.values())
         ncal = run["calibration_images"]
         mode = {"calibrate": "bfloat16", "fused_float": "bfloat16",
                 "fused_int8": "int8", "hydra_bf16": "bfloat16"}
-        want = {"calibrate": counts(
-                    convnext_block=FUSEDW_PER_FORWARD * ncal),
-                "fused_float": counts(convnext_block=FUSEDW_PER_FORWARD),
-                "fused_int8": counts(convnext_block_int8=FUSEDW_PER_FORWARD),
-                "hydra_bf16": counts(convnext_block=FUSEDW_PER_FORWARD,
+        want = {"calibrate": counts(convnext_block=per_forward * ncal),
+                "fused_float": counts(convnext_block=per_forward),
+                "fused_int8": counts(convnext_block_int8=per_forward),
+                "hydra_bf16": counts(convnext_block=per_forward,
                                      band_smooth=FUSEDW_DEPTH - 1)}
         want_shapes = {key: {(mode[key], c, k): n * (
             ncal if key == "calibrate" else 1)
@@ -3466,7 +3492,7 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                     if (r["C"], 5) not in pallas_convnext.OWN_SHAPES]
         result = dict(
             config=FUSED_CONFIG, depth=FUSEDW_DEPTH, overrides=overrides,
-            level_widths=levels, fused_levels=FUSEDW_LEVELS,
+            level_widths=levels, fused_levels=fused_levels,
             batch=list(run["x"].shape), dtype="bf16", sites=run["sites"],
             launches=runs, k1_launches_by_shape={
                 key: {str(sk): n for sk, n in sh.items()}
@@ -3489,9 +3515,8 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
             f32_card_vs_cpu_mean_gray_levels_per_scale=run["card32"],
             cpu_images=FUSED_CPU_IMAGES, timing=run["timing"], smi=smi,
             tolerance=dict(
-                launches=f"{FUSEDW_PER_FORWARD} K1 a fused or hydra "
-                         f"forward, 6 at each of {sorted(per_shape)}; 0 "
-                         f"branch units",
+                launches=f"{per_forward} K1 a fused or hydra forward: "
+                         f"{sorted(per_shape.items())}; 0 branch units",
                 k1_bf16="max(0.05, 1 bf16 ulp)",
                 k1_f32=f"1e-3 and {K1_F32_RELATIVE} x max |plain output|",
                 k1_int8=f"|code diff| <= 1, share differing <= "
@@ -3513,11 +3538,11 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                             f"{got_shapes}, branch units {branch}")
         for key, o in run["outs"].items():
             if [tuple(v.shape) for v in o] != [
-                    (FUSED_BATCH, 3, FUSED_SIZE >> i, FUSED_SIZE >> i)
+                    (batch, 3, FUSED_SIZE >> i, FUSED_SIZE >> i)
                     for i in range(FUSEDW_DEPTH)] or not all(
                         bool(torch.isfinite(v).all()) for v in o):
                 problems.append(f"{name} {key}: bad outputs")
-        if [len(v) for v in on_path.values()] != [FUSEDW_PER_FORWARD] * 2 \
+        if [len(v) for v in on_path.values()] != [per_forward] * 2 \
                 or not all(r["within"] for r in on_path["fused_float"]) \
                 or not all(r["max_abs_code_diff"] <= 1
                            and r["share_differing"] <= int8_share(r["C"])
@@ -3526,7 +3551,7 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                             f"plain version: {on_path}")
         if max(run["card32"]["plain_k1"]) > FUSED_F32_CARD_VS_CPU_MEAN:
             problems.append(f"{name}: f32 fused card vs CPU {run['card32']}")
-        if len(f32_launches) != FUSEDW_PER_FORWARD or not all(
+        if len(f32_launches) != per_forward or not all(
                 r["max_abs_err"] <= 1e-3
                 and r["relative_err"] <= K1_F32_RELATIVE
                 for r in f32_launches):
@@ -3540,13 +3565,14 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
         total = counted if total is None else {
             key: total[key] + n for key, n in counted.items()}
         for sh in got_shapes.values():
-            for (dtype, c, k), n in sh.items():
-                if (c, k) not in pallas_convnext.OWN_SHAPES:
-                    classes[dtype] = classes.get(dtype, 0) + n
-        errors["bf16"] = max([errors["bf16"]] + [r["max_abs_err"]
-                                                 for r in off])
-        errors["int8"] = max([errors["int8"]] + [r["max_abs_code_diff"]
-                                                 for r in off_int8])
+            for shape_key, n in sh.items():
+                by_shape[shape_key] = by_shape.get(shape_key, 0) + n
+        for key, recs, err in (("bf16", off, "max_abs_err"),
+                               ("int8", off_int8, "max_abs_code_diff")):
+            errors[key] = max([errors[key]] + [r[err] for r in recs
+                                               if r["C"] <= 256])
+            errors[key + "_c512"] = max([errors[key + "_c512"]] + [
+                r[err] for r in recs if r["C"] > 256])
         del run
     if problems:
         raise AssertionError(f"fused_widths: {problems}")
@@ -3564,7 +3590,8 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
         rows.append(k1_row_time(
             pallas_convnext, mode, x, wts, slope, smi, int8_share(c),
             path="fused_widths", weights=on,
-            calls_per_forward=6 if unit is not None else 0))
+            calls_per_forward=0 if unit is None else 3 if unit[1].startswith(
+                f"encoder_{FUSEDW_DEPTH - 1}") else 6))
         del x
     # K2 at the multiplier-1.5 hydra's level-3 band split: C = 108 is no
     # whole number of 16-byte vectors (4 bf16 channels a thread)
@@ -3590,7 +3617,249 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
         share_cold=bound / t["cold_ms"], max_abs_err=err, smi=smi, **t)
     if not within:
         raise AssertionError(f"K2 at C = 108 against its plain version: {err}")
-    return total, classes, errors, rows
+    return total, by_shape, errors, rows
+
+
+# ------------------------------------------------------------ wider shapes
+
+# shapes JAX's kernels take that the port's took only from PR 21 on: K2's
+# backward and K4 at a C of no whole 16-byte vectors (C = 108: 4 bf16
+# channels a thread), K1 at K = 7 (and at C = 512, the fused_widths phase's
+# third model). The K2-backward row: the level-3 band split of the
+# multiplier-1.5 v6's train step (b16 @ 128²); the K4 row: that model's
+# level 3 in a b8 @ 256² request
+BWD_RAGGED_SHAPES = [(TRAIN_BATCH, TRAIN_SIZE >> 3, TRAIN_SIZE >> 3, 108)]
+SPLIT_RAGGED_SHAPES = [(8, FUSED_SIZE >> 3, FUSED_SIZE >> 3, 108)]
+# bf16 train steps of the multiplier-1.5 depth-5 v6 (warm-up, timed), and
+# per step: K3 once, K2 and its backward at each of the 4 band splits
+WIDER_TRAIN_STEPS = (2, 4)
+WIDER_TRAIN_PER_STEP = dict(band_smooth=FUSEDW_DEPTH - 1,
+                            band_smooth_bwd=FUSEDW_DEPTH - 1, corrupt_noise=1)
+# the K = 7 v6 (configs/unet_laplacian_v6.json, depth 3, width 3, encoder
+# and decoder kernel sizes 7): its bf16 hydra at b8 @ 256², 6 K1 each at
+# (32, 7) and (64, 7) a forward (level 2 is its attention level), 2 K2
+WIDER_K7 = dict(encoder_kernel_size=7, decoder_kernel_size=7)
+WIDER_K7_BATCH = 8
+WIDER_K7_PER_SHAPE = {("bfloat16", 32, 7): 6, ("bfloat16", 64, 7): 6}
+
+
+def wider_shapes_phase(bidt, v6cfg, rng, smi, read_counts, counts,
+                       reset_counts):
+    """Two paths through the shapes PR 21 opened on the card. (a) The
+    multiplier-1.5 depth-5 ``unet_laplacian_v6`` (``FUSEDW_MODELS["x1.5"]``,
+    seeded) trained in bf16 at b16 @ 128² with K3 and Adam: one batch
+    against the port's f32 CPU step (:func:`train_card_vs_cpu`, the train
+    phase's bars), then ``WIDER_TRAIN_STEPS`` steps with exact launches
+    (``WIDER_TRAIN_PER_STEP``, K2's backward at C = 108 once a step), every
+    K2 / K2-backward / K3 input they launched against the plain versions,
+    and K2's backward at C = 108 timed. (b) The K = 7 v6's bf16 hydra at
+    b8 @ 256²: exact launches (``WIDER_K7_PER_SHAPE``, 2 K2, 0 branch
+    units), every K1 / K2 input against the plain versions, its f32 hydra
+    on 2 images card vs CPU (with K1's plain version on the card <=
+    ``FUSED_F32_CARD_VS_CPU_MEAN``; through the kernel read), the bf16
+    hydra timed and K1 at (32, 7) and (64, 7) timed in every mode. Returns
+    (the launches of each path, the largest bf16 errors, the timed rows:
+    (kernel, rows))."""
+    from blind_image_denoising_torch.layers import convnext as convnext_layer
+    from blind_image_denoising_torch.models.hydra import model_builder
+    from blind_image_denoising_torch.ops import (pallas_convnext,
+                                                 pallas_noise, pallas_pyramid)
+    from blind_image_denoising_torch.ops.precision import exact_float32
+    from blind_image_denoising_torch.training.train_state import init_params
+    launches, errors, rows = {}, {}, {}
+
+    # (a) the multiplier-1.5 v6's train step
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT[TRAIN_CONFIG])
+    cfg["model"] = copy.deepcopy(v6cfg)
+    cfg["model"]["backbone"].update(depth=FUSEDW_DEPTH,
+                                    **FUSEDW_MODELS["x1.5"][0])
+    cfg.setdefault("tpu", {})["pallas_noise"] = True
+    ds = cfg["dataset"]
+    noise_kw = dict(additive_noise=ds["additional_noise"],
+                    multiplicative_noise=ds["multiplicative_noise"])
+    seeded = model_builder(copy.deepcopy(cfg["model"])).hydra
+    init_params(seeded, torch.Generator().manual_seed(SEED))
+    params = {k: v.detach().clone() for k, v in seeded.state_dict().items()}
+    del seeded
+    clean = synthetic_images(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, rng)
+    check = train_card_vs_cpu(cfg, params, clean, noise_kw,
+                              phase="wider_train_check")
+    state, step = build_trainer(cfg, params, torch.bfloat16, "cuda")
+    batch = torch.from_numpy(clean.round().astype(np.uint8)).cuda()
+    n_out = state.model.no_outputs
+    dw = torch.full((n_out,), 1.0 / n_out, device="cuda")
+    bwd_by_c = {}
+    warm, timed = WIDER_TRAIN_STEPS
+    losses, host_ms = [], []
+    reset_counts()
+    with KernelInputs() as seen:
+        recording = pallas_pyramid.band_smooth_bwd
+
+        def counting(g_band, g_smooth, kernel_size=2):
+            c = g_band.shape[-1]
+            bwd_by_c[c] = bwd_by_c.get(c, 0) + 1
+            return recording(g_band, g_smooth, kernel_size)
+
+        pallas_pyramid.band_smooth_bwd = counting
+        try:
+            for i in range(warm + timed):
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch, depth_weights=dw)
+                torch.cuda.synchronize()
+                if i >= warm:
+                    host_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(metrics["total_loss"]))
+        finally:
+            pallas_pyramid.band_smooth_bwd = recording
+    n_steps = warm + timed
+    per_step = {k: v / n_steps for k, v in read_counts().items()}
+    launches["train"] = dict(per_step=per_step, band_smooth_bwd_by_c={
+        str(c): n for c, n in sorted(bwd_by_c.items())})
+    log("wider_train", config=TRAIN_CONFIG, model="unet_laplacian_v6 x1.5",
+        depth=FUSEDW_DEPTH, batch=list(batch.shape), dtype="bf16",
+        steps=n_steps, launches_per_step=per_step,
+        band_smooth_bwd_launches_by_c=launches["train"][
+            "band_smooth_bwd_by_c"],
+        loss_first=losses[0], loss_last=losses[-1],
+        step_ms_host_median=statistics.median(host_ms),
+        step_ms_host=[round(t, 3) for t in host_ms],
+        card_vs_cpu=dict(loss_rel_diff=check["loss_rel_diff"],
+                         grad_cosine=check["grad_cosine"]), smi=smi)
+    if per_step != counts(**WIDER_TRAIN_PER_STEP) \
+            or bwd_by_c.get(108) != n_steps:
+        raise AssertionError(f"wider train step launches {per_step}, K2 "
+                             f"backward by C {bwd_by_c}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"wider train step losses {losses}")
+    errors.update(check_kernel_inputs(pallas_convnext, pallas_pyramid,
+                                      pallas_noise, seen.seen, SEED + 60,
+                                      path="wider_train"))
+    del state, step, batch
+    torch.cuda.empty_cache()
+    for shape in BWD_RAGGED_SHAPES:
+        x, g_band, g_smooth = (torch.from_numpy(rng.normal(
+            0, 1, shape).astype(np.float32)).cuda().to(torch.bfloat16)
+            for _ in range(3))
+        t = dict(ms=cuda_ms(lambda: pallas_pyramid.band_smooth_bwd(
+                     g_band, g_smooth, 2)),
+                 cold_ms=cuda_ms(lambda a, b: pallas_pyramid.band_smooth_bwd(
+                     a, b, 2), inputs=cold_copies(g_band, g_smooth)),
+                 plain_ms=cuda_ms(lambda: pallas_pyramid.band_smooth_bwd_plain(
+                     g_band, g_smooth, 2), iters=5),
+                 library_ms=cuda_ms(band_smooth_bwd_library(
+                     x, 2, g_band, g_smooth)))
+        bound, by = band_bound_ms(*shape, 2, torch.bfloat16, backward=True)
+        log("time", path="wider_train", kernel="band_smooth_bwd",
+            shape=list(shape), dtype="bf16", calls_per_step=1,
+            bound_ms=bound, bound_by=by, share_cold=bound / t["cold_ms"],
+            smi=smi, **t)
+        rows.setdefault("band_smooth_bwd_ragged", []).append(
+            (1, t, bound, by))
+
+    # (b) the K = 7 v6's hydra
+    k7cfg = copy.deepcopy(v6cfg)
+    k7cfg["backbone"].update(WIDER_K7)
+    model = model_builder(copy.deepcopy(k7cfg), dtype=torch.bfloat16).hydra
+    init_params(model, torch.Generator().manual_seed(SEED))
+    model = model.cuda().eval().requires_grad_(False)
+    x = torch.from_numpy(np.asarray(add_noise(synthetic_images(
+        WIDER_K7_BATCH, FUSED_SIZE, FUSED_SIZE, rng), 25.0, rng),
+        np.float32)).permute(0, 3, 1, 2).cuda()
+
+    def hydra(v):
+        with torch.inference_mode():
+            return model(v)
+
+    branch0 = pallas_convnext.branch_units
+    reset_counts()
+    with KernelInputs() as seen:
+        outs = hydra(x)
+        torch.cuda.synchronize()
+    got = read_counts()
+    shapes = dict(pallas_convnext.shape_launches)
+    branch = pallas_convnext.branch_units - branch0
+    launches["k7_hydra"] = dict(per_forward=got, by_shape={
+        str(k): n for k, n in shapes.items()}, branch_units=branch)
+    n_k1 = sum(WIDER_K7_PER_SHAPE.values())
+    ok = (got == counts(convnext_block=n_k1, band_smooth=2)
+          and shapes == WIDER_K7_PER_SHAPE and branch == 0
+          and [tuple(o.shape) for o in outs] == [
+              (WIDER_K7_BATCH, 3, FUSED_SIZE >> i, FUSED_SIZE >> i)
+              for i in range(3)]
+          and all(bool(torch.isfinite(o).all()) for o in outs))
+    for kernel, err in check_kernel_inputs(
+            pallas_convnext, pallas_pyramid, pallas_noise, seen.seen,
+            SEED + 61, path="k7_hydra").items():
+        errors[kernel] = max(errors.get(kernel, 0.0), err)
+    # the f32 hydra on an f32 copy of the weights, card vs CPU: with K1's
+    # plain version on the card (the bar) and through the kernel (read)
+    m32 = model_builder(copy.deepcopy(k7cfg)).hydra
+    m32.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    m32.eval().requires_grad_(False)
+    x_cpu = x[:FUSED_CPU_IMAGES].cpu()
+    with torch.inference_mode():
+        ref32 = m32(x_cpu)
+    m32 = m32.cuda()
+    card32 = {}
+    real_k1 = convnext_layer.convnext_block
+    for name in ("kernel", "plain_k1"):
+        if name == "plain_k1":
+            convnext_layer.convnext_block = \
+                pallas_convnext.convnext_block_plain
+        try:
+            with exact_float32(), torch.inference_mode():
+                got32 = m32(x[:FUSED_CPU_IMAGES])
+        finally:
+            convnext_layer.convnext_block = real_k1
+        card32[name] = [float((g.cpu() - r).abs().mean())
+                        for g, r in zip(got32, ref32)]
+    with torch.inference_mode():
+        hydra32 = m32(x)[0]
+    bf16_vs_f32 = float((outs[0].float() - hydra32).abs().mean())
+    del m32, hydra32, got32
+    med, times = forward_event_ms(lambda: hydra(x))
+    log("k7_hydra", config=FUSED_CONFIG, overrides=WIDER_K7,
+        batch=list(x.shape), dtype="bf16", launches=got,
+        k1_launches_by_shape=launches["k7_hydra"]["by_shape"],
+        branch_units=branch, f32_card_vs_cpu_mean_gray_levels_per_scale=card32,
+        finest_bf16_vs_f32_hydra_gray_levels=bf16_vs_f32,
+        forward_ms_median=med, forward_ms=[round(t, 3) for t in times],
+        images_per_s=WIDER_K7_BATCH / med * 1e3, cpu_images=FUSED_CPU_IMAGES,
+        tolerance=dict(
+            launches=f"{n_k1} K1 a forward: {WIDER_K7_PER_SHAPE}; 2 K2; 0 "
+                     f"branch units",
+            f32_card_vs_cpu=f"with K1's plain version on the card <= "
+                            f"{FUSED_F32_CARD_VS_CPU_MEAN}; through the "
+                            f"kernel read"), smi=smi)
+    if not ok:
+        raise AssertionError(f"K = 7 hydra: launches {got}, by shape {shapes}"
+                             f", branch units {branch}, outputs "
+                             f"{[tuple(o.shape) for o in outs]}")
+    if max(card32["plain_k1"]) > FUSED_F32_CARD_VS_CPU_MEAN:
+        raise AssertionError(f"K = 7 f32 hydra card vs CPU {card32}")
+    k7_rows = []
+    for level, unit, hw in ((0, "encoder_0_0", FUSED_SIZE),
+                            (1, "encoder_1_0", FUSED_SIZE >> 1)):
+        block = getattr(model.backbone, unit)
+        wts = dict(block.kernel_weights(torch.float32))
+        c = wts["dw"].shape[0]
+        for mode in ("bf16", "int8", "f32"):
+            xin = torch.from_numpy(rng.normal(
+                0, 1, (WIDER_K7_BATCH, hw, hw, c)).astype(np.float32)).cuda()
+            k7_rows.append(k1_row_time(
+                pallas_convnext, mode, xin, wts, block.slope, smi, 1e-4,
+                path="k7_hydra", weights=unit,
+                calls_per_forward=6 if mode == "bf16" else 0))
+            del xin
+    rows["convnext_block_k7"] = [
+        (r["calls_per_forward"], {k: r[k] for k in (
+            "ms", "cold_ms", "plain_ms", "library_ms")}, r["bound_ms"],
+         r["bound_by"]) for r in k7_rows if r["dtype"] == "bfloat16"]
+    errors["convnext_block_k7"] = max(r["max_abs_err"] for r in k7_rows
+                                      if r["dtype"] == "bfloat16")
+    del model, x, outs
+    torch.cuda.empty_cache()
+    return launches, errors, rows
 
 
 # ------------------------------------------------------------ restoration
@@ -5829,16 +6098,18 @@ def main() -> int:
     cuda_build.library()
     log("build", seconds=round(time.perf_counter() - t0, 3),
         nvcc_seconds=round(cuda_build.build_seconds, 3),
+        nvcc_seconds_by_source=cuda_build.source_seconds,
         sources=[s.name for s in cuda_build.sources()],
         convnext_block=k1_instantiations(cuda_build.library(),
                                          pallas_convnext),
         band_smooth_bwd=band_tile_plans(
             "K2 backward", cuda_build.library().bid_band_smooth_bwd_info,
-            pallas_pyramid.bwd_tile_plan, BWD_PATH_SHAPES,
+            pallas_pyramid.bwd_tile_plan, BWD_PATH_SHAPES + BWD_RAGGED_SHAPES,
             pallas_pyramid._DTYPE_CODES),
         band_split=band_tile_plans(
             "K4", cuda_build.library().bid_band_split_info,
-            pallas_pyramid.split_tile_plan, SPLIT_PATH_SHAPES,
+            pallas_pyramid.split_tile_plan,
+            SPLIT_PATH_SHAPES + SPLIT_RAGGED_SHAPES,
             pallas_pyramid._DTYPE_CODES))
 
     rng = np.random.default_rng(SEED)
@@ -5954,10 +6225,11 @@ def main() -> int:
                                             err)
         del x, xq, got, ref, dcode
     # K4 (the decimating split): bit-exact in f32 and bf16 (the same
-    # float32 sum in the same order, the same reciprocal and rounding)
-    errors["band_split"] = 0.0
+    # float32 sum in the same order, the same reciprocal and rounding),
+    # also at a C of no whole 16-byte vectors
+    errors["band_split"] = errors["band_split_ragged"] = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in band_shapes:
+        for shape in band_shapes + SPLIT_RAGGED_SHAPES:
             x = torch.from_numpy(rng.normal(0, 1, shape).astype(
                 np.float32)).cuda().to(dtype)
             outs = pallas_pyramid.band_split(x, 2)
@@ -5965,7 +6237,9 @@ def main() -> int:
             torch.cuda.synchronize()
             err = max(float((o.float() - r.float()).abs().max())
                       for o, r in zip(outs, refs))
-            errors["band_split"] = max(errors["band_split"], err)
+            key = ("band_split" if shape in band_shapes
+                   else "band_split_ragged")
+            errors[key] = max(errors[key], err)
             log("check", kernel="band_split", shape=list(shape),
                 dtype=str(dtype), max_abs_err=err, tolerance="0 (bit-exact)",
                 down_shape=list(outs[1].shape))
@@ -5982,7 +6256,7 @@ def main() -> int:
     train_band_shapes = [(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 32),
                          (TRAIN_BATCH, TRAIN_SIZE // 2, TRAIN_SIZE // 2, 64)]
     errors["band_smooth_bwd"] = check_band_smooth_bwd(
-        pallas_pyramid, rng, train_band_shapes)
+        pallas_pyramid, rng, train_band_shapes + BWD_RAGGED_SHAPES)
     clean_train = synthetic_images(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, rng)
     x_train = torch.from_numpy(clean_train).round().cuda()
     errors["corrupt_noise"] = check_corrupt_noise(pallas_noise, x_train,
@@ -6573,27 +6847,56 @@ def main() -> int:
     # ---- phase 7c: the fused path at the widths of K1's classes: two
     # depth-5 unet_laplacian_v6 (C = 256 at level 3; levels 1.5x apart)
     t0 = time.perf_counter()
-    fusedw_counts, fusedw_classes, fusedw_errors, fusedw_rows = \
+    fusedw_counts, fusedw_shapes, fusedw_errors, fusedw_rows = \
         fused_widths_phase(v6cfg, rng, smi, read_counts, counts,
                            reset_counts, max_share_differing)
     fusedw_s = time.perf_counter() - t0
+    # K1's launches in the phase off the (C, K) of their own up to C = 256
+    # (the classes) and at C > 256, by dtype name
+    fusedw_classes, fusedw_c512 = {}, {}
+    for (dtype, c, k), n in fusedw_shapes.items():
+        if (c, k) not in pallas_convnext.OWN_SHAPES:
+            into = fusedw_classes if c <= 256 else fusedw_c512
+            into[dtype] = into.get(dtype, 0) + n
+
+    def row_entries(rows, dtype, wide):
+        return [(r["calls_per_forward"], {k: r[k] for k in (
+            "ms", "cold_ms", "plain_ms", "library_ms")}, r["bound_ms"],
+                 r["bound_by"]) for r in rows
+                if r["dtype"] == dtype and r["calls_per_forward"]
+                and (r["C"] > 256) == wide]
+
     # per the two depth-5 float fused forwards (bf16: 6 K1 at each class
-    # shape) and per the C = 256 model's int8 fused forward (6 at (256, 5))
-    entries["convnext_block_classes"] = [
-        (r["calls_per_forward"], {k: r[k] for k in (
-            "ms", "cold_ms", "plain_ms", "library_ms")}, r["bound_ms"],
-         r["bound_by"]) for r in fusedw_rows
-        if r["dtype"] == "bfloat16" and r["calls_per_forward"]]
-    entries["convnext_block_int8_classes"] = [
-        (r["calls_per_forward"], {k: r[k] for k in (
-            "ms", "cold_ms", "plain_ms", "library_ms")}, r["bound_ms"],
-         r["bound_by"]) for r in fusedw_rows if r["dtype"] == "int8"]
+    # shape) and per the C = 256 model's int8 fused forward (6 at (256, 5));
+    # per the no-attention model's fused forwards (3 at (512, 5))
+    entries["convnext_block_classes"] = row_entries(fusedw_rows, "bfloat16",
+                                                    False)
+    entries["convnext_block_int8_classes"] = row_entries(fusedw_rows, "int8",
+                                                         False)
+    entries["convnext_block_c512"] = row_entries(fusedw_rows, "bfloat16",
+                                                 True)
+    entries["convnext_block_int8_c512"] = row_entries(fusedw_rows, "int8",
+                                                      True)
     errors["convnext_block_classes"] = fusedw_errors["bf16"]
     errors["convnext_block_int8_classes"] = fusedw_errors["int8"]
+    errors["convnext_block_c512"] = fusedw_errors["bf16_c512"]
+    errors["convnext_block_int8_c512"] = fusedw_errors["int8_c512"]
 
-    # ---- phase 8: the decimating band split (K4) through its op
+    # ---- phase 7d: the wider shapes' other paths: the multiplier-1.5 v6
+    # trained (K2's backward at C = 108) and the K = 7 v6's hydra
+    t0 = time.perf_counter()
+    wider_launches, wider_errors, wider_rows = wider_shapes_phase(
+        bidt, v6cfg, rng, smi, read_counts, counts, reset_counts)
+    wider_s = time.perf_counter() - t0
+    entries.update(wider_rows)
+    errors["band_smooth_bwd_ragged"] = wider_errors["band_smooth_bwd"]
+    errors["convnext_block_k7"] = wider_errors["convnext_block_k7"]
+
+    # ---- phase 8: the decimating band split (K4) through its op, at the
+    # flagship's levels and at a C of no whole 16-byte vectors
+    split_shapes = band_shapes + SPLIT_RAGGED_SHAPES
     xs_split = [torch.from_numpy(rng.normal(0, 1, shape).astype(
-        np.float32)).cuda().to(torch.bfloat16) for shape in band_shapes]
+        np.float32)).cuda().to(torch.bfloat16) for shape in split_shapes]
     reset_counts()
     for x in xs_split:
         band, down = pallas_pyramid.band_split(x, 2)
@@ -6607,7 +6910,7 @@ def main() -> int:
         launches=split_counts)
     if split_counts != counts(band_split=len(xs_split)):
         raise AssertionError(f"band_split path launches {split_counts}")
-    for x, shape in zip(xs_split, band_shapes):
+    for x, shape in zip(xs_split, split_shapes):
         t = dict(ms=cuda_ms(lambda: pallas_pyramid.band_split(x, 2)),
                  cold_ms=cuda_ms(lambda xc: pallas_pyramid.band_split(
                      xc, 2), inputs=cold_copies(x)),
@@ -6617,7 +6920,9 @@ def main() -> int:
         bound, by = band_bound_ms(*shape, 2, torch.bfloat16, split=True)
         log("time", kernel="band_split", shape=list(shape), dtype="bf16",
             calls_per_path=1, bound_ms=bound, bound_by=by, smi=smi, **t)
-        entries.setdefault("band_split", []).append((1, t, bound, by))
+        entries.setdefault("band_split" if shape in band_shapes
+                           else "band_split_ragged", []).append(
+                               (1, t, bound, by))
 
     # ---- phase 9: the two other packaged artifacts (no kernel of K1-K4)
     reset_counts()
@@ -6771,11 +7076,14 @@ def main() -> int:
         errors[kernel] = max(errors[kernel], err)
     phase_s["parallel"] = time.perf_counter() - t0
     log("new_phases", seconds=dict(phase_s, fused_depth4=fused4_s,
-                                   fused_widths=fusedw_s),
+                                   fused_widths=fusedw_s,
+                                   wider_shapes=wider_s),
         script_s=time.perf_counter() - script_start,
         fused_depth4_launches=fused4_counts,
         fused_widths_launches=fusedw_counts,
         fused_widths_class_launches=fusedw_classes,
+        fused_widths_c512_launches=fusedw_c512,
+        wider_shapes_launches=wider_launches,
         c128_launches=dict(unet_laplacian_family=family_c128,
                            fused_depth4=fused4_c128),
         export_launches=export_counts,
@@ -6823,6 +7131,19 @@ def main() -> int:
     # entry points in convnext_block.cu)
     replaces["convnext_block_classes"] = replaces["convnext_block"]
     replaces["convnext_block_int8_classes"] = replaces["convnext_block_int8"]
+    # the shapes opened since: K1 at K = 7 (of their own, in
+    # csrc/convnext_k7.cu) and at C = 512 (csrc/convnext_wide512.cu), K2's
+    # backward and K4 at a C of no whole 16-byte vectors
+    replaces["convnext_block_k7"] = (
+        "blind_image_denoising_torch/csrc/convnext_k7.cu",
+        replaces["convnext_block"][1])
+    replaces["convnext_block_c512"] = (
+        "blind_image_denoising_torch/csrc/convnext_wide512.cu",
+        replaces["convnext_block"][1])
+    replaces["convnext_block_int8_c512"] = (
+        replaces["convnext_block_c512"][0], replaces["convnext_block_int8"][1])
+    replaces["band_smooth_bwd_ragged"] = replaces["band_smooth_bwd"]
+    replaces["band_split_ragged"] = replaces["band_split"]
     per = {"convnext_block": "serving forward, b8 @ 256^2",
            "band_smooth": "serving forward, b8 @ 256^2",
            "band_smooth_bwd": "train step, b16 @ 128^2",
@@ -6846,7 +7167,19 @@ def main() -> int:
            "convnext_block_int8_classes": f"depth-5 fused int8 forward, "
                                           f"b{FUSED_BATCH} @ "
                                           f"{FUSED_SIZE}^2: 6 x (256,5) at "
-                                          f"{FUSED_BATCH}x32^2"}
+                                          f"{FUSED_BATCH}x32^2",
+           "convnext_block_c512": "no-attention depth-5 v6 float fused "
+                                  "forward, b8 @ 256^2: 3 x (512,5) at "
+                                  "8x16^2",
+           "convnext_block_int8_c512": "no-attention depth-5 v6 int8 fused "
+                                       "forward, b8 @ 256^2: 3 x (512,5) at "
+                                       "8x16^2",
+           "convnext_block_k7": "K = 7 v6 bf16 hydra forward, b8 @ 256^2: "
+                                "6 x (32,7) at 8x256^2, 6 x (64,7) at "
+                                "8x128^2",
+           "band_smooth_bwd_ragged": "multiplier-1.5 depth-5 v6 train "
+                                     "step, b16 @ 128^2: 1 x 16x16^2x108",
+           "band_split_ragged": "band_split op path at 8x32^2x108 bf16"}
     # ms, bound and library are per serving forward (K1, K2), per train
     # step (K2 backward, K3), per fused int8 forward (K1 int8) or per
     # band_split path run (K4), summed over the shapes of that unit of
@@ -6864,12 +7197,23 @@ def main() -> int:
                        for path, per in (("unet_laplacian_family",
                                           family_c128),
                                          ("fused_depth4", fused4_c128))}
-        elif name.endswith("_classes"):
-            # launches off the (C, K) of their own (the float modes or
-            # int8), by path
+        elif name.endswith("_classes") or name.endswith("_c512"):
+            # launches off the (C, K) of their own up to C = 256, or at
+            # C = 512 (the float modes or int8), by path
             modes = ("int8",) if "int8" in name else ("bfloat16", "float32")
-            by_path = {"fused_widths": sum(fusedw_classes.get(m, 0)
+            launched = (fusedw_c512 if name.endswith("_c512")
+                        else fusedw_classes)
+            by_path = {"fused_widths": sum(launched.get(m, 0)
                                            for m in modes)}
+        elif name == "convnext_block_k7":
+            by_path = {"wider_shapes": wider_launches["k7_hydra"][
+                "per_forward"]["convnext_block"]}
+        elif name == "band_smooth_bwd_ragged":
+            by_path = {"wider_shapes": sum(
+                n for c, n in wider_launches["train"][
+                    "band_smooth_bwd_by_c"].items() if int(c) % 8)}
+        elif name == "band_split_ragged":
+            by_path = {"band_split": len(SPLIT_RAGGED_SHAPES)}
         else:
             by_path = dict(serve=serve_counts[name],
                            inference=inference_counts[name],

@@ -11,8 +11,10 @@ reports (bf16 (32,3) 8×256², (64,5) 8×128², (32,5) 32×256², (64,5)
 at 32×32² in bf16 and int8 and at 8×32² in f32 (a depth-5 fused v6's
 level 3), bf16 (48,5), (72,5) and (108,5) at 32×128², 32×64² and 32×32²
 (the levels of one with ``filters_level_multiplier`` 1.5), and bf16 (64,3)
-at 8×128² and (128,3) at 8×64². A source built without a row's kernel (a
-parent from before it) skips that row.
+at 8×128² and (128,3) at 8×64²; then K = 7 and C = 512 (``NEW_ROWS``:
+(32,7) 8×256² and (64,7) 8×128² in every mode, bf16 (128,7) 8×64² and
+(256,7) 8×32², (512,5) 8×16² in every mode and bf16 (512,7)). A source
+built without a row's kernel (a parent from before it) skips that row.
 
     python3 k1_compare.py [--rounds N] [--out DIR] [--mma-rate]
                           [NAME=SOURCE ...]
@@ -80,6 +82,16 @@ CLASS_ROWS = [("bf16", 256, 5, 32, 32), ("int8", 256, 5, 32, 32),
               ("f32", 256, 5, 8, 32), ("bf16", 48, 5, 32, 128),
               ("bf16", 72, 5, 32, 64), ("bf16", 108, 5, 32, 32),
               ("bf16", 64, 3, 8, 128), ("bf16", 128, 3, 8, 64)]
+# K = 7 and 256 < C <= 512: a K = 7 unet_laplacian_v6's levels 0 and 1 at
+# b8 @ 256² in every mode, (128, 7) and (256, 7) at its deeper levels'
+# widths, and (512, 5) at a no-attention depth-5 v6's level 4 (b8 @ 256²:
+# 16²) in every mode, and (512, 7)
+NEW_ROWS = [("bf16", 32, 7, 8, 256), ("bf16", 64, 7, 8, 128),
+            ("int8", 32, 7, 8, 256), ("int8", 64, 7, 8, 128),
+            ("f32", 32, 7, 8, 256), ("f32", 64, 7, 8, 128),
+            ("bf16", 128, 7, 8, 64), ("bf16", 256, 7, 8, 32),
+            ("bf16", 512, 5, 8, 16), ("int8", 512, 5, 8, 16),
+            ("f32", 512, 5, 8, 16), ("bf16", 512, 7, 8, 16)]
 
 
 def build(name, source, work, out_dir):
@@ -230,7 +242,7 @@ def main() -> int:
     def t(a):
         return torch.tensor(a, dtype=torch.float32, device="cuda")
 
-    for dtype, c, k, b, hw in ROWS + CLASS_ROWS:
+    for dtype, c, k, b, hw in ROWS + CLASS_ROWS + NEW_ROWS:
         e = 4 * c
         wts = dict(dw=t(rng.normal(0, 0.3, (c, 1, k, k))),
                    ln_scale=t(rng.uniform(0.5, 1.5, (c,))),

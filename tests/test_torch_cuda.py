@@ -129,12 +129,13 @@ def _unit_weights(c, k, dev, seed=0):
 
 
 # [B, H, W] against K1's tiles of 8 x 32 pixels (8 x 16 in float32 and at
-# C = 128, 8 x 8 above): whole tiles; ragged in both directions; one pixel
-# over a tile in both; smaller than a tile; and 3 x 13 x 10 = 390 tiles
-# (8 x 32), more than the persistent grid holds at once and no multiple of
-# it. The kernel tests run them at every (C, K) of SAMPLE_SHAPES: the nine
-# of their own and the classes at C that are no multiple of 8 or 16 (1, 7,
-# 24, 72, 108, 162, 200) and at C = 256
+# C = 128, 8 x 8 above 128, 4 x 8 above 256): whole tiles; ragged in both
+# directions; one pixel over a tile in both; smaller than a tile; and 3 x
+# 13 x 10 = 390 tiles (8 x 32), more than the persistent grid holds at once
+# and no multiple of it. The kernel tests run them at every (C, K) of
+# SAMPLE_SHAPES: the twelve of their own and the classes at C that are no
+# multiple of 8 or 16 (1, 7, 24, 72, 108, 162, 200, 300) and at C = 256,
+# 384, 512, at K = 1, 3, 5, 7
 K1_BHW = [(2, 16, 64), (2, 13, 45), (3, 9, 33), (1, 5, 20), (3, 100, 300)]
 
 
@@ -246,10 +247,10 @@ def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
         assert bool((diff <= tol).all()), float(diff.max())
 
 
-@pytest.mark.parametrize("ck", [(264, 5), (32, 7)])
+@pytest.mark.parametrize("ck", [(513, 5), (32, 9)])
 def test_convnext_kernel_rejects_unbuilt_shape(dev, ck):
-    """Outside C <= 256 at K = 1, 3, 5 the wrapper raises on a CUDA tensor,
-    and so does the library's entry point."""
+    """Outside C <= 512 at K = 1, 3, 5, 7 the wrapper raises on a CUDA
+    tensor, and so does the library's entry point."""
     import ctypes
     c, k = ck
     w = _unit_weights(c, k, dev)
@@ -283,6 +284,63 @@ def test_convnext_wide_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
     w = _unit_weights(c, k, dev, seed=3)
     g = torch.Generator(device="cpu").manual_seed(8)
     x = torch.randn(shape, generator=g).to(dev)
+    scales = {}
+    if dtype == torch.int8:
+        scales = dict(scale_in=float(x.abs().max()) / 127,
+                      scale_out=float(pallas_convnext.convnext_block_plain(
+                          x, **w).abs().max()) / 127)
+        x = pallas_convnext.quantize(x, scales["scale_in"])
+    else:
+        x = x.to(dtype)
+    got = pallas_convnext.convnext_block(x, **w, **scales)
+    torch.cuda.synchronize()
+    ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.int8:
+        assert int(diff.max()) <= 1
+        assert float((diff == 0).float().mean()) >= 0.999
+    elif dtype == torch.float32:
+        assert float(diff.max()) <= 1e-3
+        assert float(diff.max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        tol = torch.clamp(_bf16_ulp(ref), min=0.05)
+        assert bool((diff <= tol).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
+def test_convnext_built_plan_matches_kernel_plan(dev, ck):
+    """Every instantiation of SAMPLE_SHAPES (K = 7 and C up to 512
+    included) is built with the threads and shared memory
+    ``kernel_plan`` mirrors, fits one block, holds at least one block an
+    SM and spills nothing."""
+    import ctypes
+    c, k = ck
+    for dtype, code in pallas_convnext._DTYPE_CODES.items():
+        v = (ctypes.c_int * 5)()
+        assert cuda_build.library().bid_convnext_block_info(
+            c, k, code, v) == 0
+        plan = pallas_convnext.kernel_plan(c, k, dtype)
+        assert (v[0], v[3]) == (plan["smem_bytes"],
+                                plan["threads_per_block"]), (dtype, list(v))
+        assert v[0] <= pallas_convnext.SHARED_MEMORY_LIMIT
+        assert v[2] == 0 and v[4] >= 1, (dtype, list(v))
+
+
+@pytest.mark.parametrize("ck", [(256, 7), (200, 7), (512, 5), (384, 7),
+                                (300, 1), (512, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_convnext_grouped_wide_over_many_tiles(dev, ck, dtype):
+    """The grouped wide classes (K = 7 at width 256, every K at width 512)
+    copy each 64-channel group with its depthwise weights into a slot that
+    shares its room with the weight ring, so a tile's groups, LayerNorm,
+    chunks and epilogue follow each other over the same memory. On
+    16 x 32 x 32 (512 tiles of 4 x 8 pixels at width 512, 256 of 8 x 8 at
+    256) every block walks several tiles; held to the kernel tests' bars."""
+    c, k = ck
+    w = _unit_weights(c, k, dev, seed=9)
+    g = torch.Generator(device="cpu").manual_seed(10)
+    x = torch.randn((16, 32, 32, c), generator=g).to(dev)
     scales = {}
     if dtype == torch.int8:
         scales = dict(scale_in=float(x.abs().max()) / 127,
@@ -540,6 +598,66 @@ def test_band_smooth_bwd_tile_plan_matches_library(dev):
             assert list(v)[:5] == [plan[key] for key in (
                 "tile_w", "tile_h", "threads_x", "threads_y", "smem_bytes")]
             assert v[6] == 0 and v[7] >= 1
+
+
+# C of no whole 16-byte vectors: 108 (the level-3 split of a
+# filters_level_multiplier 1.5 depth-5 unet_laplacian_v6: 4 bf16 channels
+# a thread), 36 (2 f32 channels), 6 and 3; and C of more vectors than a
+# block has threads, which run as channel slices (2056: 257 bf16 vectors;
+# 514: 257 2-channel vectors)
+RAGGED_C = [108, 36, 6, 3, 2056, 514]
+
+
+@pytest.mark.parametrize("c", RAGGED_C)
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_smooth_bwd_kernel_ragged_channels(dev, c, k, dtype):
+    """K2's backward at any C: bit-exact against its plain version, one
+    launch a call (the ragged tiles over 2 x 19 x 23, and the train step's
+    16 x 16 x 16 at C = 108)."""
+    for shape in ((2, 19, 23, c), (16, 16, 16, c)):
+        g_band, g_smooth = _bwd_grads(dev, shape, dtype, seed=11)
+        _assert_bwd_bit_exact(g_band, g_smooth, k)
+
+
+@pytest.mark.parametrize("c", RAGGED_C)
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_split_kernel_ragged_channels(dev, c, k, dtype):
+    """K4 at any C: bit-exact against its plain version, one launch a
+    call."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    for shape in ((2, 18, 30, c), (8, 32, 32, c)):
+        x = torch.randn(shape, generator=g).to(dev, dtype)
+        before = pallas_pyramid.split_launches
+        band, down = pallas_pyramid.band_split(x, k)
+        torch.cuda.synchronize()
+        assert pallas_pyramid.split_launches == before + 1
+        band_p, down_p = pallas_pyramid.band_split_plain(x, k)
+        for got, ref in ((band, band_p), (down, down_p)):
+            assert got.dtype == dtype and got.shape == ref.shape
+            assert float((got.float() - ref.float()).abs().max()) == 0.0
+
+
+def test_band_tile_plans_match_library_at_ragged_c(dev):
+    """K2 backward's and K4's Python tile plans are the ones the library
+    builds at every ragged C, with no spill."""
+    import ctypes
+    lib = cuda_build.library()
+    for dtype, code in pallas_pyramid._DTYPE_CODES.items():
+        for c in RAGGED_C:
+            for info, plan_of in (
+                    (lib.bid_band_smooth_bwd_info,
+                     pallas_pyramid.bwd_tile_plan),
+                    (lib.bid_band_split_info,
+                     pallas_pyramid.split_tile_plan)):
+                v = (ctypes.c_int * 8)()
+                assert info(16, 16, c, 2, code, v) == 0
+                plan = plan_of(16, 16, 16, c, 2, dtype)
+                assert list(v)[:5] == [plan[key] for key in (
+                    "tile_w", "tile_h", "threads_x", "threads_y",
+                    "smem_bytes")], (dtype, c, list(v))
+                assert v[6] == 0 and v[7] >= 1
 
 
 def _noise_case(dev, b=16, h=128, w=128):

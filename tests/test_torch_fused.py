@@ -91,8 +91,10 @@ def _synthetic(n, h, w, rng):
 def tiny():
     cfg = _tiny_v6()
     hydra = jax_model_builder(cfg).hydra
-    variables = hydra.init({"params": jax.random.PRNGKey(0)},
-                           jnp.zeros((1, 64, 64, 3)), train=False)
+    # under jit: the same params as an eager init, in a third of its time
+    variables = jax.jit(lambda key: hydra.init(
+        {"params": key}, jnp.zeros((1, 64, 64, 3)), train=False))(
+            jax.random.PRNGKey(0))
     variables = {"params": variables["params"]}
     port = model_builder(cfg).hydra
     port.load_state_dict(params_from_flax(jax.tree_util.tree_map(
@@ -381,6 +383,64 @@ def test_fused_ragged_and_c256_levels_match_jax(ragged, monkeypatch):
     depthwise and the two drift 2.4 apart; fused from level 1 they are
     0.6 apart."""
     _fused_matches_jax(ragged, monkeypatch, (1, 2), [108, 256])
+
+
+def _c512_v6():
+    """``unet_laplacian_v6`` with width 1, no self-attention and filters
+    32 growing 4x a level: levels of C = 32, 128 and 512, the last a
+    ConvNext unit (K = 5) the fused forward can take at K1's widest class."""
+    cfg = _wide_level2_v6()
+    cfg["backbone"].update(filters_level_multiplier=4.0)
+    return cfg
+
+
+def test_fused_c512_level_matches_jax(monkeypatch):
+    """Level 2 fused at C = 512 (K1's class of width 512), at 16² (a band
+    JAX's ``_pick_rows`` tiles), against JAX at the bars of
+    ``_fused_matches_jax``."""
+    _fused_matches_jax(_seeded_pair(_c512_v6()), monkeypatch, (2,), [512])
+
+
+def _k1_calls(model, x):
+    """The (C, K) of every K1 call of one forward of ``model`` on the CPU
+    (K1's plain version), and the units that ran their branch instead."""
+    from blind_image_denoising_torch.layers import convnext as convnext_mod
+    from blind_image_denoising_torch.ops import pallas_convnext
+    calls = []
+    real = convnext_mod.convnext_block
+    convnext_mod.convnext_block = lambda *a, **k: calls.append(
+        (a[0].shape[-1], k["dw"].shape[-1])) or real(*a, **k)
+    try:
+        b0 = pallas_convnext.branch_units
+        with torch.no_grad():
+            model(x)
+        return calls, pallas_convnext.branch_units - b0
+    finally:
+        convnext_mod.convnext_block = real
+
+
+@pytest.mark.parametrize("case", ["k7", "depth5_no_attention"])
+def test_k7_and_c512_v6_units_route_to_k1(case):
+    """The two slice-20 paths' hydras, at width 1: a ``unet_laplacian_v6``
+    whose encoder and decoder kernel sizes are 7 sends its (32, 7) and
+    (64, 7) units to K1 (level 2 is its attention level), and a depth-5
+    one without self-attention its (512, 5) level 4 too: no unit adds to
+    ``branch_units``."""
+    cfg = copy.deepcopy(bidt.load_config(
+        bidt.CONFIGS_DICT["unet_laplacian_v6"])["model"])
+    if case == "k7":
+        cfg["backbone"].update(width=1, encoder_kernel_size=7,
+                               decoder_kernel_size=7)
+        want, hw = {(32, 7): 2, (64, 7): 2}, 32
+    else:
+        cfg["backbone"].update(width=1, depth=5, use_self_attention=False)
+        want, hw = {(32, 5): 2, (64, 5): 2, (128, 5): 2, (256, 5): 2,
+                    (512, 5): 1}, 64
+    model = model_builder(cfg).hydra.eval().requires_grad_(False)
+    calls, branch = _k1_calls(model, torch.rand(
+        (1, 3, hw, hw), generator=torch.Generator().manual_seed(0)) * 255)
+    assert branch == 0
+    assert {ck: calls.count(ck) for ck in set(calls)} == want
 
 
 def test_depth4_level2_units_route_to_k1():

@@ -135,9 +135,9 @@ def test_band_split_wrapper_contract():
         pallas_pyramid.band_split(x.clone().requires_grad_(True), 2)
 
 
-def _vjp_case(k, seed=2):
+def _vjp_case(k, seed=2, c=3):
     rng = np.random.default_rng(seed)
-    x = rng.uniform(0, 1, (2, 16, 8, 3)).astype(np.float32)
+    x = rng.uniform(0, 1, (2, 16, 8, c)).astype(np.float32)
     g_band = rng.normal(size=x.shape).astype(np.float32)
     g_smooth = rng.normal(size=x.shape).astype(np.float32)
     _, vjp_fn = jax.vjp(lambda v: laplacian_band_smooth_reference(v, k),
@@ -155,6 +155,37 @@ def test_band_smooth_bwd_plain_matches_jax(k):
         torch.from_numpy(g_band), torch.from_numpy(g_smooth), k).numpy()
     for ref in refs:
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+# C of no whole 16-byte vectors, which K2's backward and K4 take on the
+# card since slice 20: 108 (a filters_level_multiplier 1.5 v6's level 3),
+# 36, 6 and 3
+RAGGED_C = [108, 36, 6, 3]
+
+
+@pytest.mark.parametrize("c", RAGGED_C)
+def test_band_smooth_bwd_plain_matches_jax_at_ragged_c(c):
+    """K2's backward's plain version at a ragged C against JAX's
+    ``_band_smooth_bwd`` and ``jax.vjp`` of its reference, rtol = atol =
+    1e-5 (the JAX VJP test's bar)."""
+    _, g_band, g_smooth, refs = _vjp_case(2, seed=8, c=c)
+    got = pallas_pyramid.band_smooth_bwd_plain(
+        torch.from_numpy(g_band), torch.from_numpy(g_smooth), 2).numpy()
+    for ref in refs:
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c", RAGGED_C)
+def test_band_split_plain_matches_jax_at_ragged_c(c):
+    """K4's plain version at a ragged C against JAX's
+    ``laplacian_band_split_pallas`` in interpret mode, atol 1e-4."""
+    x = np.random.default_rng(9).uniform(0, 255, (2, 16, 16, c)).astype(
+        np.float32)
+    band, down = pallas_pyramid.band_split_plain(torch.from_numpy(x), 2)
+    band_j, down_j = laplacian_band_split_pallas(jnp.asarray(x), 2,
+                                                 interpret=True)
+    np.testing.assert_allclose(band.numpy(), np.asarray(band_j), atol=1e-4)
+    np.testing.assert_allclose(down.numpy(), np.asarray(down_j), atol=1e-4)
 
 
 @pytest.mark.parametrize("k", [2, 3, 5])
@@ -219,7 +250,8 @@ def _torch_args(w, C, K):
 
 @pytest.mark.parametrize("ck", [(32, 3), (64, 5), (32, 5), (128, 5),
                                 (256, 5), (108, 5), (48, 5), (64, 3),
-                                (128, 3)])
+                                (128, 3), (32, 7), (64, 7), (108, 7),
+                                (256, 7), (384, 5), (512, 5)])
 def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     """The plain version against JAX's reference (atol 1e-4) and JAX's
     Pallas kernel in interpret mode, which rounds t and h to bf16: no
@@ -391,7 +423,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
 @pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
 def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
     """The planned shared memory of the kernel that runs each (C, K) of
-    ``SAMPLE_SHAPES`` (the nine of their own, and classes at widths that
+    ``SAMPLE_SHAPES`` (the twelve of their own, and classes at widths that
     are and are not multiples of 16) fits one block, and the numbers the
     sources' notes state are the plan's."""
     plan = pallas_convnext.kernel_plan(*ck, dtype)
@@ -423,9 +455,9 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
     if (ck, dtype) in stated:
         assert (plan["threads_per_block"],
                 plan["smem_bytes"]) == stated[ck, dtype]
-    if ck[0] <= 32:
+    if ck[0] <= 32 and ck[1] < 7:
         # two blocks per SM: twice the block and its 1 KB reserve fit the
-        # SM's 228 KB
+        # SM's 228 KB (a K = 7 tile and its 3-wide halo leave room for one)
         assert 2 * (plan["smem_bytes"] + 1024) <= 233_472
 
 
@@ -503,16 +535,17 @@ def _seeded_unit(c, k, seed=0):
 @pytest.mark.parametrize("unit", [
     "encoder_0_0", "encoder_1_0",
     *(pytest.param(ck, id=f"C{ck[0]}K{ck[1]}")
-      for ck in sorted(pallas_convnext.OWN_SHAPES))])
+      for ck in sorted(pallas_convnext.OWN_SHAPES) if ck[1] < 7)])
 def test_convnext_f32_3xtf32_keeps_float32_accuracy(flagship_units, unit,
                                                     rounding):
     """Why K1's float32 mode runs its products as three TF32 passes: an
     emulation of 3xTF32 (either rounding of big) stays within 1e-5 of the
     plain output's largest entry (about 1e-6 in fact), the bar the card
     holds the kernel to, on the flagship's units (seeded 2 x 64 x 64
-    inputs) and the card tests' seeded weights at every kernel shape (a
-    3 x 100 x 300 input); one TF32 pass misses the card's 1e-3 bar on the
-    flagship's units."""
+    inputs) and the card tests' seeded weights at every kernel shape of
+    its own up to K = 5 (a 3 x 100 x 300 input; K = 7's own shapes run the
+    same products on the same C); one TF32 pass misses the card's 1e-3
+    bar on the flagship's units."""
     if isinstance(unit, str):
         wts, slope = flagship_units[unit]
         c = wts["w2"].shape[1]
@@ -605,7 +638,8 @@ def test_bwd_tile_plan_fits_shared_memory(shape, dtype):
                                   (29, 1, 128, 4), (300, 2, 16, 9)])
 def test_bwd_tile_plan_edges_and_limits(hwck):
     """Edge shapes stay within the limit; a window too large for any tile
-    and a C beyond one block's threads raise."""
+    raises; a C beyond one block's threads runs as channel slices, planned
+    at the first slice's width."""
     h, w, c, k = hwck
     for dtype in (torch.float32, torch.bfloat16):
         plan = pallas_pyramid.bwd_tile_plan(1, h, w, c, k, dtype)
@@ -613,8 +647,8 @@ def test_bwd_tile_plan_edges_and_limits(hwck):
         assert plan["tile_w"] <= w and plan["tile_h"] <= h
     with pytest.raises(ValueError):
         pallas_pyramid.bwd_tile_plan(1, 64, 64, 64, 61, torch.float32)
-    with pytest.raises(ValueError):
-        pallas_pyramid.bwd_tile_plan(1, 8, 8, 2048, 2, torch.float32)
+    assert pallas_pyramid.bwd_tile_plan(1, 8, 8, 2048, 2, torch.float32) \
+        == pallas_pyramid.bwd_tile_plan(1, 8, 8, 1024, 2, torch.float32)
 
 
 # K4's checked shapes (chip_smoke.py's band_split phase) and edges of the
@@ -651,12 +685,18 @@ def test_split_tile_plan_fits_shared_memory(shape, k, dtype):
 
 
 def test_split_tile_plan_limits():
-    """Odd or empty images, a C beyond one block's threads and a window no
-    tile can stage raise."""
+    """Odd or empty images and a window no tile can stage raise; a C of no
+    whole 16-byte vectors moves fewer channels a thread, and a C beyond one
+    block's threads runs as channel slices, planned at the first slice's
+    width."""
     for h, w, c, k in [(3, 4, 32, 2), (4, 5, 32, 2), (0, 4, 32, 2),
-                       (4, 4, 4096, 2), (4, 4, 10, 2), (64, 64, 128, 200)]:
+                       (64, 64, 128, 200)]:
         with pytest.raises(ValueError):
             pallas_pyramid.split_tile_plan(1, h, w, c, k, torch.float32)
+    assert pallas_pyramid.split_tile_plan(1, 4, 4, 4096, 2, torch.float32) \
+        == pallas_pyramid.split_tile_plan(1, 4, 4, 512, 2, torch.float32)
+    assert pallas_pyramid.split_tile_plan(
+        1, 4, 4, 10, 2, torch.float32)["threads_x"] == 2 * 5
 
 
 def _chip_smoke():
@@ -796,14 +836,14 @@ def test_convnext_unit_options_match_linen_block(opts, train):
 
 
 def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
-    """K1 takes a unit only at the shapes it takes (C up to 256 at K = 1,
-    3, 5, E = 4C) with its options; every other unit runs its branch,
+    """K1 takes a unit only at the shapes it takes (C up to 512 at K = 1,
+    3, 5, 7, E = 4C) with its options; every other unit runs its branch,
     counted once per forward in ``pallas_convnext.branch_units``, and
     never calls the kernel."""
     for (c, k) in pallas_convnext.SAMPLE_SHAPES:
         assert ConvNextBlock(c, k, 4 * c).kernel_route
-    for args, kw in (((264, 5, 1056), {}), ((32, 7, 128), {}),
-                     ((512, 1, 2048), {}), ((16, 5, 48), {}),
+    for args, kw in (((513, 5, 2052), {}), ((32, 9, 128), {}),
+                     ((520, 1, 2080), {}), ((16, 5, 48), {}),
                      ((32, 3, 64), {}), ((64, 3, 128), {}),
                      ((32, 3, 128), dict(use_bias=True)),
                      ((32, 3, 128), dict(use_bn=True)),

@@ -498,6 +498,72 @@ def test_narrow_v4_train_step_matches_jax():
         assert _rel(p.detach().numpy(), stepped[name].numpy()) <= 1e-4, name
 
 
+def test_multiplier_v6_train_step_matches_jax():
+    """One train step of a depth-5 ``unet_laplacian_v6`` whose
+    ``filters_level_multiplier`` is 1.5, narrowed to filters 8 and width 1
+    (levels of C = 8, 12, 18, 27 and 40, the last its attention level;
+    levels 1-3 split their bands at C of no whole 16-byte bf16 vectors),
+    drop-path and dropout off, on one injected 128² image (its 1/16
+    scale's SSIM needs 8²): the loss and every per-scale metric within
+    1e-4 relative of the JAX step's ``forward_loss``, and the gradients,
+    all tensors together, at cosine >= 0.9999 to ``jax.grad``'s. Its band
+    splits differentiate through K2's backward (the plain version here;
+    on the card the kernel, which the full-width model, C = 32 / 48 / 72 /
+    108, trains through at C = 108 with 4 bf16 channels a thread:
+    ``chip_smoke.py``'s ``wider_shapes`` phase)."""
+    cfg = copy.deepcopy(bidt.CONFIGS_DICT["unet_laplacian_v6"])
+    mc = cfg["model"]
+    mc["backbone"].update(depth=5, filters_level_multiplier=1.5, width=1,
+                          filters=8, depth_drop_rate=0.0,
+                          convolutional_self_attention_dropout_rate=0.0)
+    jhydra = jax_model_builder(mc).hydra
+    shapes = jax.eval_shape(lambda: jhydra.init(
+        {"params": jax.random.PRNGKey(0)},
+        jnp.zeros((1, 64, 64, 3), jnp.float32), train=False))["params"]
+    rng = np.random.default_rng(12)
+
+    def draw(path, leaf):
+        if len(leaf.shape) == 4:
+            fan_in = int(np.prod(leaf.shape[:3]))
+            return rng.normal(0, fan_in ** -0.5, leaf.shape)
+        if str(path[-1].key) == "scale":
+            return rng.uniform(0.8, 1.2, leaf.shape)
+        return rng.normal(0, 0.01, leaf.shape)
+
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, l: draw(p, l).astype(np.float32), shapes)
+    clean = np.round(_images(1, 128, 128, 12))
+    noisy = np.clip(np.round(clean + rng.normal(0, 20, clean.shape)),
+                    0, 255).astype(np.float32)
+    dw = np.full((5,), 0.2, np.float32)
+    jgt = jax_multiscale_targets(jnp.asarray(clean), 4, clip_values=True,
+                                 round_values=True)
+    jgrads, (_, jmetrics) = _jax_grad_fn(jhydra, cfg, 5)(
+        params, {}, jnp.asarray(noisy), jgt, jnp.asarray(dw),
+        jax.random.PRNGKey(1))
+
+    hydra = model_builder(mc).hydra
+    assert [getattr(hydra.backbone, f"encoder_{d}_0").conv_1.kernel.shape[0]
+            for d in range(4)] == [8, 12, 18, 27]
+    hydra.load_state_dict(params_from_flax(params))
+    gt = multiscale_targets(torch.from_numpy(clean), 4, clip_values=True,
+                            round_values=True)
+    total, metrics = forward_loss(
+        hydra, loss_function_builder(cfg["loss"]), 5,
+        torch.from_numpy(noisy), gt, torch.from_numpy(dw),
+        torch.Generator().manual_seed(0))
+    total.backward()
+    for k, v in jmetrics.items():
+        assert _rel(metrics[k].detach().numpy(), v) <= 1e-4, k
+    ref = params_from_flax(jax.tree_util.tree_map(np.asarray, jgrads))
+    named = dict(hydra.named_parameters())
+    assert set(ref) == set(named)
+    got = torch.cat([named[n].grad.flatten().double() for n in sorted(ref)])
+    want = torch.cat([ref[n].flatten().double() for n in sorted(ref)])
+    assert float(torch.nn.functional.cosine_similarity(got, want, dim=0)) \
+        >= 0.9999
+
+
 def test_jax_bf16_gradient_cosine_of_the_flagship():
     """JAX's own bf16-vs-f32 gradient cosine, to set beside the port's
     (0.9936 on the card against the f32 CPU step, ``chip_smoke.py``
