@@ -2,12 +2,17 @@
 // and the nine (C, K) at K <= 5 with instantiations of their own. Replaces
 // blind_image_denoising_tpu/ops/pallas_convnext.py fused_convnext_block
 // (body _block_kernel), float and int8 I/O modes; the design, and how
-// every other C up to 512 at K = 1, 3, 5, 7 runs (convnext_class.cu,
-// convnext_k7.cu, convnext_wide.cu, convnext_wide512.cu), is noted in
-// convnext_block.cuh.
+// every other C up to 1024 at K = 1, 3, 5, 7 runs (convnext_class.cu,
+// convnext_k7.cu, convnext_wide.cu and, on a thread-block cluster,
+// convnext_cluster.cuh), is noted in convnext_block.cuh.
 #include "convnext_block.cuh"
 
 namespace {
+
+// the least C a thread-block cluster runs (convnext_cluster.cuh, which
+// takes every C above 128): at C = 256 the one-block class of width 256
+// measured faster (PERF.md §6)
+constexpr int kClusterFrom = 257;
 
 template <typename T>
 int dispatch(const void* x, void* out, const void* dw, const void* ln,
@@ -34,11 +39,11 @@ int dispatch(const void* x, void* out, const void* dw, const void* ln,
   if (C <= 128)
     return bid_k1::launch_class(dtype_code<T>(), x, out, dw, ln, w2, w3,
                                 gain, B, H, W, C, K, slope, s_in, inv_out, s);
-  if (C <= 256)
+  if (C < kClusterFrom)
     return bid_k1::launch_wide(dtype_code<T>(), x, out, dw, ln, w2, w3, gain,
                                B, H, W, C, K, slope, s_in, inv_out, s);
-  return bid_k1::launch_wide512(dtype_code<T>(), x, out, dw, ln, w2, w3,
-                                gain, B, H, W, C, K, slope, s_in, inv_out, s);
+  return bid_k1::launch_cluster_unit<T>(x, out, dw, ln, w2, w3, gain, B, H, W,
+                                        C, K, slope, s_in, inv_out, s);
 }
 
 template <typename T>
@@ -57,20 +62,21 @@ int dispatch_info(int C, int K, int* v) {
 #undef BID_INFO
   if (C <= 128 && K == 7) return bid_k1::info_k7(dtype_code<T>(), C, v);
   if (C <= 128) return bid_k1::info_class(dtype_code<T>(), C, K, v);
-  if (C <= 256) return bid_k1::info_wide(dtype_code<T>(), C, K, v);
-  return bid_k1::info_wide512(dtype_code<T>(), C, K, v);
+  if (C < kClusterFrom) return bid_k1::info_wide(dtype_code<T>(), C, K, v);
+  return bid_k1::info_cluster_unit<T>(C, K, v);
 }
 
-// K1 takes C = 1..512 at K = 1, 3, 5, 7
+// K1 takes C = 1..1024 at K = 1, 3, 5, 7 in every I/O mode
 bool supported(int C, int K) {
-  return C >= 1 && C <= 512 && (K == 1 || K == 3 || K == 5 || K == 7);
+  return C >= 1 && C <= 1024 && (K == 1 || K == 3 || K == 5 || K == 7);
 }
 
 }  // namespace
 
-// info[0..4]: dynamic shared-memory bytes, registers per thread, local
-// (spill) bytes per thread, threads per block, resident blocks per SM of
-// the instantiation that runs (C, K)
+// info[0..6]: dynamic shared-memory bytes, registers per thread, local
+// (spill) bytes per thread, threads per block, resident blocks per SM,
+// cluster size (1 for the one-block layouts) and the clusters (blocks) the
+// card holds at once, of the instantiation that runs (C, K)
 extern "C" int bid_convnext_block_info(int C, int K, int dtype, int* info) {
   if (!supported(C, K)) return BID_ERR_UNSUPPORTED;
   if (dtype == 0) return dispatch_info<float>(C, K, info);

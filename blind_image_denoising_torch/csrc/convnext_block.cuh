@@ -146,7 +146,7 @@
 // keeps two tiles; f32 (128, 7) takes chunks of 16 E channels beside its
 // one 167,552 B tile; the bf16 depthwise takes each tap's 8 weights in turn
 // (a row's K x 8 would hold 56 registers beside the 32 accumulators).
-// Every other C from 1 to 512 at K = 1, 3, 5 or 7 (E = 4C) runs a class of
+// Every other C from 1 to 256 at K = 1, 3, 5 or 7 (E = 4C) runs a class of
 // width CW with the true C a launch argument (kRagged):
 // * CW = 32, 64 or 128 for C <= CW (convnext_class.cu): the layouts above
 //   at C = CW. The wrapper pads dw, the LayerNorm scale, the gain, W2's
@@ -179,25 +179,21 @@
 //   of the whole tile, then a LayerNorm pass over t (a warp a pixel); its
 //   products read their A fragments from t and h in shared memory (rows
 //   padded by 4 floats: free of bank conflicts) and run as 3xTF32 as above;
-// * grouped (K = 7 at CW = 256, and every K at CW = 512): a whole-C tile
-//   with its 3-wide halo no longer fits (14 x 14 x 256 bf16 is 100,352 B),
-//   so every mode takes the f32 class's depthwise by groups of 64 channels:
-//   each group's input (in the I/O type; int8 codes dequantized as they are
-//   read) and its depthwise weights (not resident: 100,352 B at (512, 7))
-//   are copied into a slot, double-buffered, and the raw f32 sums of the
-//   whole tile go to shared memory (t itself in f32), a LayerNorm pass
-//   writes t, and only then do W2 and W3 stream: the slots and the raw
-//   sums share their room with the weight ring, so a tile's first chunk is
-//   copied after its LayerNorm and its first group after its epilogue
-//   (bf16 (256, 7) 182,784 B, (512, 7) 188,416 B, f32 (512, 7) 220,672 B);
-// * CW = 512 for 256 < C <= 512 (convnext_wide512.cu): tiles of 4 x 8
-//   pixels, 256 threads; the projection's accumulators of 16 pixels x 512
-//   channels are 256 a lane, so four warps share an m16 tile, 128 output
-//   channels each; the A fragments of t (128 registers a lane) stay in
-//   shared memory and are read by ldmatrix chunk by chunk; of a bf16
-//   chunk's four n8 tiles each warp expands one (in f32, two warps expand
-//   the chunk's two n8 tiles of 16 E channels), and a named barrier of the
-//   tile's 128 threads hands h over.
+// * grouped (K = 7 at CW = 256): a whole-C tile with its 3-wide halo no
+//   longer fits (14 x 14 x 256 bf16 is 100,352 B), so every mode takes the
+//   f32 class's depthwise by groups of 64 channels: each group's input (in
+//   the I/O type; int8 codes dequantized as they are read) and its
+//   depthwise weights are copied into a slot, double-buffered, and the raw
+//   f32 sums of the whole tile go to shared memory (t itself in f32), a
+//   LayerNorm pass writes t, and only then do W2 and W3 stream: the slots
+//   and the raw sums share their room with the weight ring, so a tile's
+//   first chunk is copied after its LayerNorm and its first group after
+//   its epilogue (bf16 (256, 7) 182,784 B).
+// Above C = 256 (up to 1024) a thread-block cluster of ceil(C / 128)
+// blocks runs the unit instead, each block owning 128 of the output
+// channels and 512 of the E channels, the channels padded to 128 a block
+// (convnext_cluster.cuh has the design; convnext_cluster.cu,
+// convnext_cluster_int8.cu and convnext_cluster_f32.cu build it).
 #pragma once
 
 #include <limits.h>
@@ -1506,8 +1502,9 @@ int launch_kernel(Kern kern, const void* x, void* out, const void* dw,
   return (int)cudaGetLastError();
 }
 
-// shared memory, registers, local (spill) bytes, threads per block and
-// resident blocks per SM of one kernel, as v[0..4]
+// shared memory, registers, local (spill) bytes, threads per block,
+// resident blocks per SM, cluster size (1) and the blocks the card holds
+// at once of one kernel, as v[0..6]
 template <typename G, typename Kern>
 int kernel_info(Kern kern, int* v) {
   cudaFuncAttributes a;
@@ -1517,7 +1514,10 @@ int kernel_info(Kern kern, int* v) {
   v[1] = a.numRegs;
   v[2] = (int)a.localSizeBytes;
   v[3] = G::NT;
-  return resident_blocks<G>(kern, &v[4]);
+  v[5] = 1;
+  const int rc = resident_blocks<G>(kern, &v[4]);
+  v[6] = v[4] * bid::sm_count();
+  return rc;
 }
 
 // the kernel of one (C, K) of its own (RG false) or of a class (RG true)
@@ -1541,8 +1541,8 @@ int info(int* v) {
 namespace bid_k1 {
 
 // The class kernels of every C up to 128 (convnext_class.cu) and the wide
-// classes, 128 < C <= 256 (convnext_wide.cu) and 256 < C <= 512
-// (convnext_wide512.cu), at K = 1, 3, 5, 7: a launch, and an
+// class, 128 < C <= 256 (convnext_wide.cu), at K = 1, 3, 5, 7: a launch,
+// and an
 // instantiation's info as bid_convnext_block_info gives it, by dtype code
 // (0 float32, 1 bfloat16, 2 int8)
 int launch_class(int dtype, const void* x, void* out, const void* dw,
@@ -1568,10 +1568,16 @@ int launch_wide(int dtype, const void* x, void* out, const void* dw,
                 const void* gain, int B, int H, int W, int C, int K,
                 float slope, float s_in, float inv_out, cudaStream_t s);
 int info_wide(int dtype, int C, int K, int* v);
-int launch_wide512(int dtype, const void* x, void* out, const void* dw,
-                   const void* ln, const void* w2, const void* w3,
-                   const void* gain, int B, int H, int W, int C, int K,
-                   float slope, float s_in, float inv_out, cudaStream_t s);
-int info_wide512(int dtype, int C, int K, int* v);
+// a thread-block cluster, by I/O type T: every C from 129 to 1024
+// (convnext_cluster.cuh; built per type by convnext_cluster.cu,
+// convnext_cluster_int8.cu and convnext_cluster_f32.cu)
+template <typename T>
+int launch_cluster_unit(const void* x, void* out, const void* dw,
+                        const void* ln, const void* w2, const void* w3,
+                        const void* gain, int B, int H, int W, int C, int K,
+                        float slope, float s_in, float inv_out,
+                        cudaStream_t s);
+template <typename T>
+int info_cluster_unit(int C, int K, int* v);
 
 }  // namespace bid_k1

@@ -1,11 +1,12 @@
-// K1's wide classes: one ConvNext residual unit for 128 < C <= 256 (width
-// CW = 256, convnext_wide.cu) and 256 < C <= 512 (CW = 512,
-// convnext_wide512.cu) at K = 1, 3, 5 or 7 (E = 4C), in every I/O mode, the
-// true C a launch argument and the weights padded to CW by the wrapper.
+// K1's wide class: one ConvNext residual unit for 128 < C <= 256 (width
+// CW = 256, convnext_wide.cu) at K = 1, 3, 5 or 7 (E = 4C), in every I/O
+// mode, the true C a launch argument and the weights padded to CW by the
+// wrapper (wider units run on a thread-block cluster,
+// convnext_cluster.cuh).
 // The design is noted in convnext_block.cuh (its last bullets); the helpers
-// the classes share with the narrower layouts are there too. At C = 256 the
-// unit does 1,024 operations a byte of bf16 I/O, at C = 512 2,048, far
-// above the card's ridge: it is bound by its products.
+// the class shares with the narrower layouts are there too. At C = 256 the
+// unit does 1,024 operations a byte of bf16 I/O, far above the card's
+// ridge: it is bound by its products.
 #pragma once
 
 #include "convnext_block.cuh"
@@ -20,11 +21,12 @@ struct WCfg {
   static constexpr bool kMma = std::is_same<S, bf16>::value;
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   static constexpr bool kRowChunks = true;
+  static_assert(CW == 256, "the one wide class; wider units: the cluster");
   // NQ warps share an m16 tile, CO = 128 output channels each: the
   // projection's accumulators of 16 pixels x CO channels are 64 registers
-  // a lane. CW = 256: 8 x 8 pixels; CW = 512: 4 x 8
+  // a lane; tiles of 8 x 8 pixels
   static constexpr int NQ = C / 128, CO = C / NQ;
-  static constexpr int TH = C == 256 ? 8 : 4, TW = 8, P = TH * TW, NT = 256;
+  static constexpr int TH = 8, TW = 8, P = TH * TW, NT = 256;
   static_assert(P / 16 * NQ == NT / 32, "NQ warps an m16 tile");
   // E channels a streamed chunk: bf16 32, f32 16 (its rows are twice as
   // wide and its t tile lives in shared memory)
@@ -36,10 +38,10 @@ struct WCfg {
   static constexpr int V = 16 / sizeof(S), VIO = 16 / sizeof(T);
   // the depthwise by groups of GC channels, one halo tile each: f32 at
   // CW = 256 (12 x 12 x 256 f32 alone would be 147,456 B), and every mode
-  // where a whole-C tile does not fit (kGrouped: K = 7, and CW = 512); a
-  // thread owns 4 channels of RG neighbouring pixels of a row
+  // where a whole-C tile does not fit (kGrouped: K = 7); a thread owns 4
+  // channels of RG neighbouring pixels of a row
   static constexpr int GC = 64, NG = C / GC, RG = P * (GC / 4) / NT;
-  static constexpr bool kGrouped = K == 7 || C == 512;
+  static constexpr bool kGrouped = K == 7;
   // tile rows: all C, unpadded and swizzled (bf16), or one group (f32)
   static constexpr bool kSwizzle = kMma;
   static constexpr int LDX = kMma ? C : GC;
@@ -175,32 +177,6 @@ __device__ __forceinline__ void expand_half(const uint32_t (&af)[G::C / 16][4],
     *reinterpret_cast<uint32_t*>(hb + (g + 8) * G::LDH + e) =
         pack_bf16(leaky(hacc[nt][2], slope), leaky(hacc[nt][3], slope));
   }
-}
-
-// bf16 and int8 at CW = 512, whose A fragments of t (128 registers) stay in
-// shared memory: this warp's n8 tile `part` of a chunk's expansion, A read
-// by ldmatrix from the t rows at a_lane, into the warps' h block hb
-template <typename G>
-__device__ __forceinline__ void expand_part(uint32_t a_lane,
-                                            bf16* __restrict__ hb,
-                                            uint32_t w2, float slope,
-                                            int part, int lane) {
-  static_assert(G::ECH / 8 == G::NQ, "an n8 tile of the chunk a warp");
-  float hacc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int kt = 0; kt < G::C / 16; kt += 2) {
-    uint32_t a0[4], a1[4], b[4];
-    ldmatrix_x4(a0, a_lane + 2 * (kt * 16));
-    ldmatrix_x4(a1, a_lane + 2 * ((kt + 1) * 16));
-    ldmatrix_x4(b, w2 + 2 * (part * 8 * G::LDW2 + kt * 16));
-    mma_bf16(hacc, a0, b[0], b[1]);
-    mma_bf16(hacc, a1, b[2], b[3]);
-  }
-  const int g = lane >> 2, q = lane & 3, e = 8 * part + 2 * q;
-  *reinterpret_cast<uint32_t*>(hb + g * G::LDH + e) =
-      pack_bf16(leaky(hacc[0], slope), leaky(hacc[1], slope));
-  *reinterpret_cast<uint32_t*>(hb + (g + 8) * G::LDH + e) =
-      pack_bf16(leaky(hacc[2], slope), leaky(hacc[3], slope));
 }
 
 // bf16 and int8: the chunk's h (A fragments from the warps' block, h_lane:
@@ -520,8 +496,7 @@ __device__ __forceinline__ void store_wide_f32(
 // flight (or landed) into ring buffer 0; `more`: the last chunk prefetches
 // the next tile's chunk 0; after_first() runs once chunk 0 has landed (the
 // next tile's first copies go out there, behind chunk 0's wait). bf16 and
-// int8 take their A fragments of t into registers (CW = 256) or from shared
-// memory chunk by chunk (CW = 512).
+// int8 (CW = 256) take their A fragments of t into registers.
 template <typename G, typename T, typename F>
 __device__ __forceinline__ void wide_products_store(
     const T* __restrict__ x, const typename G::S* __restrict__ w2,
@@ -543,31 +518,16 @@ __device__ __forceinline__ void wide_products_store(
                            lane);
     const uint32_t h_lane = shared_address(
         hb + ((lane & 7) + ((lane >> 3) & 1) * 8) * G::LDH + (lane >> 4) * 8);
-    if constexpr (C == 256) {
-      uint32_t af[C / 16][4];
-      load_a<G>(af, rows.a, 16 * mt);
+    uint32_t af[C / 16][4];
+    load_a<G>(af, rows.a, 16 * mt);
 #pragma unroll 1
-      for (int c = 0; c < G::NCH; ++c) {
-        await_chunk<G>(w2, w3, ring, c, more, tid);
-        if (c == 0) after_first();
-        const uint32_t b = (c & 1) * (uint32_t)G::WBUF;
-        expand_half<G>(af, hb, rows.w2 + b, slope, part, lane);
-        pair_sync<G>(mt);
-        project_half<G>(pacc, h_lane, rows.w3 + b, part);
-      }
-    } else {
-      const uint32_t a_lane = rows.a + 2 * (16 * mt * G::LDT);
-#pragma unroll 1
-      for (int c = 0; c < G::NCH; ++c) {
-        await_chunk<G>(w2, w3, ring, c, more, tid);
-        if (c == 0) after_first();
-        const uint32_t b = (c & 1) * (uint32_t)G::WBUF;
-        expand_part<G>(a_lane, hb, rows.w2 + b, slope, part, lane);
-        pair_sync<G>(mt);
-        project_half<G>(pacc, h_lane, rows.w3 + b, part);
-      }
-      // every warp of the tile is past its last expansion (the barrier
-      // above): the epilogue may stage its rows in t
+    for (int c = 0; c < G::NCH; ++c) {
+      await_chunk<G>(w2, w3, ring, c, more, tid);
+      if (c == 0) after_first();
+      const uint32_t b = (c & 1) * (uint32_t)G::WBUF;
+      expand_half<G>(af, hb, rows.w2 + b, slope, part, lane);
+      pair_sync<G>(mt);
+      project_half<G>(pacc, h_lane, rows.w3 + b, part);
     }
     store_wide_rows<G, T>(x, ts, pacc, gns, out, t, H, W, s_in, inv_out,
                           16 * mt, part, lane, cr, unit);
@@ -578,7 +538,7 @@ __device__ __forceinline__ void wide_products_store(
       if (c == 0) after_first();
       const float* w2c =
           reinterpret_cast<const float*>(ring + (c & 1) * G::WBUF);
-      // a chunk has ECH / 8 n8 tiles: at CW = 512 half the warps expand
+      // a chunk has ECH / 8 n8 tiles, one a warp of the pair
       if (part < G::ECH / 8)
         expand_half_f32<G>(ts, w2c, hb, slope, mt, part, lane);
       pair_sync<G>(mt);

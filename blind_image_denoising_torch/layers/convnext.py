@@ -20,7 +20,7 @@ expand ×4 + leaky ReLU 0.1 → 1×1 project → gain:
 
 Which units K1 serves is decided when the unit is built, from the
 kernel's own shapes and options alone (``kernel_route``): C from 1 to
-512 at K = 1, 3, 5 or 7 with E = 4C
+1024 at K = 1, 3, 5 or 7 with E = 4C
 (``pallas_convnext.kernel_supports``),
 as many output as input channels, LayerNorm without BatchNorm or biases,
 the gain, the ``leaky_relu_01`` expansion and no dropout. So every
@@ -28,11 +28,12 @@ ConvNext unit of the packaged unet_laplacian configs launches K1 — the
 flagship's and ``unet_laplacian_v6``'s levels 0 and 1, and all three
 levels of ``unet_laplacian_v3`` / ``_v4`` (level 2 at C = 128: the
 encoders' (128, 5), the decoders' (128, 1)) and ``_v5`` — and so do
-levels 2 to 4 of a depth-4 or depth-5 ``unet_laplacian_v6`` (C = 128,
-256, and 512 where level 4 is no attention level), the levels of one
-whose ``filters_level_multiplier`` gives widths that are no power of two
-(48, 72, 108), and those of one whose kernel sizes are 7. Every other
-unit — a (C, K) the kernel does not take (C above 512, K = 9), a
+levels 2 to 5 of a depth-4 to depth-6 ``unet_laplacian_v6`` (C = 128,
+256, and 512 and 1024 where levels 4 and 5 are no attention levels), the
+levels of one whose ``filters_level_multiplier`` gives widths that are
+no power of two (48, 72, 108), and those of one whose kernel sizes are
+7. Every other
+unit — a (C, K) the kernel does not take (C above 1024, K = 9), a
 concatenated
 decoder input, BatchNorm, biases, another activation, an even kernel —
 computes ``x + branch(x)`` (or the

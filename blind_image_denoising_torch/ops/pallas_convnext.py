@@ -20,23 +20,26 @@ K = 1 the halo is empty (PAD = 0) and the depthwise sum is one tap per
 channel; the tile, copy and depthwise code is written in PAD and K,
 unchanged.
 
-What is built: every C from 1 to 512 at K = 1, 3, 5 and 7 with E = 4C,
+What is built: every C from 1 to 1024 at K = 1, 3, 5 and 7 with E = 4C,
 in every I/O mode (:func:`kernel_supports`), as JAX's kernel takes any C
 and odd K. Twelve (C, K) have instantiations of their own
 (``OWN_SHAPES``: the seven above, (64, 3), (128, 3), and K = 7 at C =
-32, 64, 128); any other C runs a class of width 32, 64 or 128 (the
-layouts below at that width, with the true C a launch argument) or,
-above 128, the wide classes of width 256 and 512
-(``csrc/convnext_class.cu``, ``csrc/convnext_wide.cu``,
-``csrc/convnext_wide512.cu``). A class's padded channels have zero
-weights (:func:`kernel_operands` pads them on every call), its LayerNorm
-statistics are taken over the true C, and its tile and output move in
-units of the largest power of two up to 16 bytes that divides a pixel's
-row. A depth-5 ``unet_laplacian_v6`` fused to level 3 runs (256, 5); one
-with ``filters_level_multiplier`` 1.5 runs (48, 5), (72, 5) and (108, 5);
-one without self-attention runs (512, 5) at level 4; a ``v6`` whose
-kernel sizes are 7 runs (32, 7) and (64, 7). C above 512 raises
-``NotImplementedError`` on the card.
+32, 64, 128); any other C up to 256 runs a class of width 32, 64 or 128
+(the layouts below at that width, with the true C a launch argument) or
+the wide class of width 256 (``csrc/convnext_class.cu``,
+``csrc/convnext_wide.cu``); from ``CLUSTER_FROM`` (257) on a
+thread-block cluster of ceil(C / 128) blocks runs the unit
+(``csrc/convnext_cluster.cuh``, below). A class's padded channels have
+zero weights (:func:`kernel_operands` pads them on every call: to the
+class's width, and on the cluster route to the next multiple of 128),
+its LayerNorm statistics are taken over the true C, and its tile and
+output move in units of the largest power of two up to 16 bytes that
+divides a pixel's row. A depth-5 ``unet_laplacian_v6`` fused to level 3
+runs (256, 5); one with ``filters_level_multiplier`` 1.5 runs (48, 5),
+(72, 5) and (108, 5); one without self-attention runs (512, 5) at level
+4, and at depth 6 (1024, 5) at level 5; a ``v6`` whose kernel sizes are
+7 runs (32, 7) and (64, 7). C above 1024 raises ``NotImplementedError``
+on the card.
 
 CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
 2K²C + 16C² operations against 2·C·bytes of I/O: ≈ 17 k operations per
@@ -96,13 +99,34 @@ keeps ``t`` in shared memory and runs the depthwise by groups of 64
 channels, each group's halo tile copied in turn. At K = 7 (halo 3 a
 side) the layouts stay where they fit: bf16 (64, 7) and (128, 7) keep
 one tile buffer, f32 (64, 7) streams W2 and W3 as C = 128 does and f32
-(128, 7) in chunks of 16; the wide class at K = 7 and the class of width
-512 take the depthwise by 64-channel groups in every mode (the group's
-input and its depthwise weights in a slot that shares its room with the
-weight ring, the raw f32 sums then a LayerNorm pass), and at width 512
-four warps share an m16 tile over tiles of 4 × 8 pixels, 128 output
-channels each, their A fragments read from shared memory chunk by
-chunk.
+(128, 7) in chunks of 16; the wide class at K = 7 takes the depthwise by
+64-channel groups (the group's input and its depthwise weights in a slot
+that shares its room with the weight ring, the raw f32 sums then a
+LayerNorm pass).
+From ``CLUSTER_FROM`` (257) on a thread-block cluster of
+n = ceil(C / 128) blocks (3 to 8) owns a tile of 64 pixels (float32:
+32):
+block r owns output channels 128r .. 128r + 127 and E channels 512r ..
+512r + 511 and streams only 1/n of W2 and W3 a tile. Block r stages the
+halo of its 128 channels and sums their depthwise; the LayerNorm's
+partial sums and centred squares of the n blocks meet through
+distributed shared memory (DSMEM) in rank order, and each block writes
+its slice of ``t`` into every block's ``t`` tile. The expansion of the
+block's 512 E channels runs once a tile, each warp 64 of them over all
+the tile's m16 tiles, W2 streamed by columns of ``t``; ``h`` takes
+``t``'s room, and after one cluster barrier each warp reads every
+block's ``h`` through DSMEM against W3's rows of its 64 output channels
+(float32: 32), W3 streamed by columns of ``h``. W2's and W3's items share one ring of three
+``mbarrier`` slots (float32: two) fed by ``cp.async``. The kernel takes
+every C above 128; at C = 256 it measured slower than the one-block
+class of width 256, which keeps those widths (PERF.md §6). Its float32
+mode keeps ``t``, ``h`` and the weights in float32 and runs the products
+as 3xTF32 (below) over tiles of 32 pixels, the largest whose ``t`` tile
+and two ring slots fit at C = 1024 (230,688 B), each W2 or W3 item's
+products summed on their own and added to the running sums rounded to
+nearest (one chain of 1,536 products an output left 2e-5 of max |out|
+at C = 1024).
+:func:`kernel_plan` mirrors each layout.
 In float32 mode (``dtype="float32"`` serving and export, the f32
 forwards of v3 / v4 / v5, the analysis tools) the result keeps float32
 accuracy while the two products, 95% of the operations, run on the
@@ -171,23 +195,30 @@ OWN_SHAPES = frozenset({(32, 1), (32, 3), (32, 5), (32, 7), (64, 1),
                         (64, 3), (64, 5), (64, 7), (128, 1), (128, 3),
                         (128, 5), (128, 7)})
 # the kernel takes every C from 1 to MAX_CHANNELS at these K, with E = 4C:
-# a C outside OWN_SHAPES runs the class of width class_width(C)
+# a C outside OWN_SHAPES runs the layout of width class_width(C)
 KERNEL_KS = (1, 3, 5, 7)
-MAX_CHANNELS = 512
-CLASS_WIDTHS = (32, 64, 128, 256, 512)
+MAX_CHANNELS = 1024
+# from CLUSTER_FROM on a thread-block cluster runs the unit
+# (csrc/convnext_cluster.cuh; convnext_block.cu's kClusterFrom), each
+# block owning CLUSTER_SLICE output channels: its width is the next
+# multiple of CLUSTER_SLICE; below it the one-block classes of
+# CLASS_WIDTHS
+CLUSTER_FROM = 257
+CLUSTER_SLICE = 128
+CLASS_WIDTHS = (32, 64, 128, 256)
 # a named sample of what the kernel takes: the twelve of their own and each
 # class at widths that are and are not multiples of 16 (odd ones included);
 # the tests and chip_smoke.py's build check sweep it
 SAMPLE_SHAPES = tuple(sorted(OWN_SHAPES | {
     (c, k) for c in (1, 7, 8, 24, 48, 72, 108, 128, 144, 162, 200, 256, 300,
-                     384, 512)
+                     384, 512, 520, 640, 768, 1000, 1024)
     for k in KERNEL_KS}))
 # E channels of W2 and W3 a shared-memory buffer holds at C = 128 (and in
 # float32 at (64, 7)), where they stream through two such buffers (float32
-# (128, 7) and the wide classes' float32: WIDE_F32_CHUNK)
+# (128, 7) and the wide class's float32: WIDE_F32_CHUNK)
 STREAM_CHUNK = 32
 WIDE_F32_CHUNK = 16
-# the wide classes' depthwise channel groups (csrc/convnext_wide.cuh GC)
+# the wide class's depthwise channel groups (csrc/convnext_wide.cuh GC)
 WIDE_GROUP = 64
 INT8_MAX = 127
 # dynamic shared memory one block may have on an H100
@@ -203,8 +234,12 @@ def kernel_supports(c: int, k: int, e: int = None) -> bool:
 
 
 def class_width(c: int) -> int:
-    """The width of the layout that runs C channels: the smallest of
-    ``CLASS_WIDTHS`` that holds C (``OWN_SHAPES`` are their own width)."""
+    """The width of the layout that runs C channels: on the cluster route
+    (``runs_cluster``) the next multiple of ``CLUSTER_SLICE``, else the
+    smallest of ``CLASS_WIDTHS`` that holds C (``OWN_SHAPES`` are their
+    own width)."""
+    if runs_cluster(c):
+        return -(-c // CLUSTER_SLICE) * CLUSTER_SLICE
     return next(w for w in CLASS_WIDTHS if c <= w)
 
 
@@ -213,14 +248,22 @@ def _align16(n):
 
 
 def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
-    """Threads per block and dynamic shared-memory bytes of the kernel that
-    runs (C, K, dtype): a mirror of ``Cfg`` in ``csrc/convnext_block.cuh``
-    (C up to 128, laid out at its class's width) and of ``WCfg`` in
-    ``csrc/convnext_wide.cuh`` (128 < C <= 512), which ``chip_smoke.py``
-    holds against what the built library reports."""
+    """Threads per block, dynamic shared-memory bytes and cluster size of
+    the kernel that runs (C, K, dtype): a mirror of ``Cfg`` in
+    ``csrc/convnext_block.cuh`` (C up to 128, laid out at its class's width),
+    of ``WCfg`` in ``csrc/convnext_wide.cuh`` (128 < C <= 256; one block,
+    cluster size 1) and of ``clayout`` in ``csrc/convnext_cluster.cuh``
+    (from ``CLUSTER_FROM`` on), which
+    ``chip_smoke.py`` holds against what the built library reports. Raises
+    ``NotImplementedError`` where the kernel does not take the unit."""
+    if not kernel_supports(c, k):
+        raise NotImplementedError(
+            f"convnext_block kernel does not take C={c} K={k} in {dtype}")
+    if runs_cluster(c):
+        return cluster_plan(c, k, dtype)
     c = class_width(c)
     if c > 128:
-        return _wide_plan(c, k, dtype)
+        return dict(_wide_plan(k, dtype), cluster_size=1)
     mma, int8 = dtype != torch.float32, dtype == torch.int8
     e, pad, elt = 4 * c, k // 2, 2 if mma else 4
     th, tw = 8, 32 if mma and c != 128 else 16
@@ -252,28 +295,28 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     end += weights + t_tile
     # f32: a warp per tile row
     threads = 32 * th if not mma else 512 if c == 64 else 256
-    return dict(threads_per_block=threads, smem_bytes=end)
+    return dict(threads_per_block=threads, smem_bytes=end, cluster_size=1)
 
 
-def _wide_plan(cw: int, k: int, dtype: torch.dtype) -> dict:
-    """``kernel_plan`` of the wide classes (width ``cw`` 256: 8 x 8 tiles,
-    512: 4 x 8; 256 threads). With whole-C tiles (256, K <= 5): the small
-    weights, the input tiles (float32: the buffers of one 64-channel
-    group), two weight buffers of an E chunk (W2 [ECH][C], W3 [C][ECH]),
-    the t tile (int8 stages its codes there) and the warps' h blocks
-    [16][ECH], rows padded by 16 bytes (bf16) or 4 floats. Grouped (K = 7,
-    and width 512): the LayerNorm scale and gain, t, the h blocks, then
-    a region that holds the two weight buffers or, before the products,
-    the raw f32 sums [P][C + 4] (bf16, int8) and one or two group slots
-    (a group's input in the I/O type and its depthwise weights)."""
+def _wide_plan(k: int, dtype: torch.dtype) -> dict:
+    """``kernel_plan`` of the wide class (width 256: 8 x 8 tiles, 256
+    threads). With whole-C tiles (K <= 5): the small weights, the input
+    tiles (float32: the buffers of one 64-channel group), two weight
+    buffers of an E chunk (W2 [ECH][C], W3 [C][ECH]), the t tile (int8
+    stages its codes there) and the warps' h blocks [16][ECH], rows padded
+    by 16 bytes (bf16) or 4 floats. Grouped (K = 7): the LayerNorm scale
+    and gain, t, the h blocks, then a region that holds the two weight
+    buffers or, before the products, the raw f32 sums [P][C + 4] (bf16,
+    int8) and one or two group slots (a group's input in the I/O type and
+    its depthwise weights)."""
     mma, int8 = dtype != torch.float32, dtype == torch.int8
-    c, pad, elt = cw, k // 2, 2 if mma else 4
+    c, pad, elt = 256, k // 2, 2 if mma else 4
     io = torch.tensor([], dtype=dtype).element_size()
-    th, tw = (8, 8) if cw == 256 else (4, 8)
+    th, tw = 8, 8
     px = th * tw
     ih, iw = th + 2 * pad, tw + 2 * pad
     ech, rowpad = (STREAM_CHUNK, 8) if mma else (WIDE_F32_CHUNK, 4)
-    grouped = k == 7 or cw == 512
+    grouped = k == 7
     wbuf = (_align16(elt * ech * (c + rowpad))
             + _align16(elt * c * (ech + rowpad)))
     t_rows = elt * px * (c + rowpad)
@@ -296,6 +339,44 @@ def _wide_plan(cw: int, k: int, dtype: torch.dtype) -> dict:
                <= SHARED_MEMORY_LIMIT else 1)
     return dict(threads_per_block=256,
                 smem_bytes=_align16(start + buffers * xbuf) + rest)
+
+
+def runs_cluster(c: int) -> bool:
+    """Whether a thread-block cluster runs C channels: from
+    ``CLUSTER_FROM`` on, as ``convnext_block.cu``'s ``kClusterFrom``."""
+    return c >= CLUSTER_FROM
+
+
+def cluster_layout(n: int, dtype: torch.dtype) -> tuple:
+    """(pixels a tile, E columns a W2 item, E columns a W3 item, ring
+    slots) of the cluster of n blocks in I/O ``dtype``
+    (``csrc/convnext_cluster.cuh`` ``with_layout``; 8 warps): float32
+    (32, 16, 64, 2); else (64, 32, 128, 3) for n <= 4, (64, 16, 64, 3)
+    above."""
+    if dtype == torch.float32:
+        return 32, 16, 64, 2
+    return (64, 32, 128, 3) if n <= 4 else (64, 16, 64, 3)
+
+
+def cluster_plan(c: int, k: int, dtype: torch.dtype) -> dict:
+    """``kernel_plan`` of the cluster that runs C channels at K (n =
+    ceil(C / 128) blocks, C' = 128 n; ``CLayout``): 32 B of mbarriers, the
+    LayerNorm's partial sums [2][M] f32, the ring's slots of the larger of
+    a W2 item [512][KC + 8] and a W3 item [128][KC3 + 8], and one region
+    for the staged halo of a block's 128 channels [M / 8 + K - 1][8 + K -
+    1] in the I/O type, t [M][C' + 8] and h [M][512]; t, h and the weights
+    in bf16 (float32 in float32)."""
+    n = -(-c // CLUSTER_SLICE)
+    m, kc, kc3, slots = cluster_layout(n, dtype)
+    elt = 4 if dtype == torch.float32 else 2
+    io = torch.tensor([], dtype=dtype).element_size()
+    halo = (m // 8 + k - 1) * (8 + k - 1) * CLUSTER_SLICE * io
+    slot = max(4 * CLUSTER_SLICE * (kc + 8), CLUSTER_SLICE * (kc3 + 8)) * elt
+    region = max(m * (CLUSTER_SLICE * n + 8) * elt,
+                 m * 4 * CLUSTER_SLICE * elt, halo)
+    return dict(threads_per_block=256,
+                smem_bytes=_align16(32 + 8 * m) + slots * slot + region,
+                cluster_size=n)
 
 
 def _round_bf16(v: torch.Tensor) -> torch.Tensor:
@@ -377,12 +458,14 @@ def convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
 
 
 def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
-    """The weights as the kernel takes them for x of ``dtype``: dw [C', K²],
-    the LayerNorm scale and the gain [C'] in float32, W2 [4C', C'] and W3
-    [C', 4C'] in x's dtype (bf16 for int8), contiguous on 16 bytes, with
-    C' = ``class_width(C)``: a class kernel's padded channels have zero
-    depthwise weights, LayerNorm scale and gain, W2 columns and W3 rows,
-    and its padded E rows of W2 and columns of W3 are zeros."""
+    """The weights as the kernel takes them for x of ``dtype``: dw [C', K²]
+    (on the cluster route transposed, [K², C']), the LayerNorm scale and
+    the gain [C'] in float32, W2 [4C', C'] and W3 [C', 4C'] in x's dtype
+    (bf16 for int8), contiguous on 16 bytes, with C' = ``class_width(C)``
+    (on the cluster route the next multiple of ``CLUSTER_SLICE``): a class
+    kernel's padded channels have zero depthwise weights, LayerNorm scale
+    and gain, W2 columns and W3 rows, and its padded E rows of W2 and
+    columns of W3 are zeros."""
     c, k = ln_scale.numel(), dw.shape[-1]
     w_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
     dw_f = dw.reshape(c, k * k).float().contiguous()
@@ -390,12 +473,15 @@ def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
     gain_f = gain.float().contiguous()
     w2_io = _aligned(w2.to(w_dtype).contiguous())
     w3_io = _aligned(w3.to(w_dtype).contiguous())
+    cluster = runs_cluster(c)
     pad = class_width(c) - c
     if pad:
         dw_f = F.pad(dw_f, (0, 0, 0, pad))
         ln_f, gain_f = F.pad(ln_f, (0, pad)), F.pad(gain_f, (0, pad))
         w2_io = F.pad(w2_io, (0, pad, 0, 4 * pad))
         w3_io = F.pad(w3_io, (0, 4 * pad, 0, pad))
+    if cluster:
+        dw_f = dw_f.t().contiguous()
     return dw_f, ln_f, w2_io, w3_io, gain_f
 
 

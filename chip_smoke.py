@@ -38,13 +38,17 @@ drive the two paths of the port through the entry points a user calls:
   forwards timed, and K1 int8 at (128, 5) on 32×64²×128 timed;
 * fused_widths: the same fused path at three depth-5
   ``unet_laplacian_v6`` (seeded, bf16): the config's widths (level 3 at
-  C = 256, K1's wide class) and ``filters_level_multiplier`` 1.5 (C = 32,
-  48, 72, 108: K1's padded classes) with ``fused_levels=(0, 1, 2, 3)`` on
-  b32 @ 256², 24 K1 a fused or hydra forward, 6 at each level's (C, 5);
-  and without self-attention (level 4 at C = 512, K1's class of width
-  512) with every level fused on b8 @ 256², 27 K1 a forward, 3 at
-  (512, 5); no unit on its PyTorch branch, the fused_depth4 phase's bars;
-  then K1 off the (C, K) of its own timed (``FUSEDW_K1_ROWS``);
+  C = 256, K1's wide class) and ``filters_level_multiplier`` 1.5
+  (C = 32, 48, 72, 108: K1's padded classes) with
+  ``fused_levels=(0, 1, 2, 3)`` on b32 @ 256², 24 K1 a fused or hydra
+  forward, 6 at each level's (C, 5); without self-attention (level 4 at
+  C = 512, a cluster of 4 blocks) with every level fused on b8 @ 256²,
+  27 K1 a forward, 3 at (512, 5); and that model at depth 6 (level 5 at
+  C = 1024, a cluster of 8) with every level fused on b8 @ 256², 33 K1 a
+  forward, 3 at (1024, 5); no unit on its PyTorch branch, the
+  fused_depth4 phase's bars, and each model's float32 fused forward
+  counted by (C, K); then K1 off the (C, K) of its own timed
+  (``FUSEDW_K1_ROWS``);
 * wider_shapes: the multiplier-1.5 depth-5 v6 trained in bf16 at
   b16 @ 128² with K3 and Adam (one batch against the port's f32 CPU step
   at the train phase's bars, then 6 steps with exact launches, K2's
@@ -487,26 +491,31 @@ def band_bound_ms(b, h, w, c, k, dtype, backward=False, split=False):
 
 
 def k1_instantiations(lib, pallas_convnext):
-    """Shared memory, registers, spill bytes, threads per block and
-    resident blocks per SM of the K1 instantiation that runs each (C, K) of
-    ``pallas_convnext.SAMPLE_SHAPES`` (the twelve of their own and every
+    """Shared memory, registers, spill bytes, threads per block, resident
+    blocks per SM, cluster size and the clusters (blocks, up to C = 128)
+    the card holds at once of the K1 instantiation that runs each (C, K)
+    of ``pallas_convnext.SAMPLE_SHAPES`` (the twelve of their own and every
     class at widths that are and are not multiples of 16), from the
-    library (``bid_convnext_block_info``). An instantiation that spills, or
-    differs from ``kernel_plan``, fails."""
+    library (``bid_convnext_block_info``). An instantiation that spills,
+    differs from ``kernel_plan`` or fits no cluster on the card fails."""
     import ctypes
     out = []
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
         for c, k in pallas_convnext.SAMPLE_SHAPES:
-            vals = (ctypes.c_int * 5)()
+            vals = (ctypes.c_int * 7)()
             rc = lib.bid_convnext_block_info(c, k, code, vals)
             if rc != 0:
                 raise AssertionError(f"K1 info {dtype} ({c}, {k}): {rc}")
             out.append(dict(zip(
                 ("smem_bytes", "registers", "local_bytes",
-                 "threads_per_block", "blocks_per_sm"), vals),
+                 "threads_per_block", "blocks_per_sm", "cluster_size",
+                 "active_clusters"), vals),
                 dtype=str(dtype).split(".")[-1], C=c, K=k))
             if out[-1]["local_bytes"] > 0:
                 raise AssertionError(f"K1 instantiation spills: {out[-1]}")
+            if out[-1]["active_clusters"] < 1 or out[-1]["blocks_per_sm"] < 1:
+                raise AssertionError(f"K1 instantiation fits no cluster: "
+                                     f"{out[-1]}")
             plan = pallas_convnext.kernel_plan(c, k, dtype)
             if any(out[-1][key] != want for key, want in plan.items()):
                 raise AssertionError(f"K1 built as {out[-1]}, planned as "
@@ -3038,11 +3047,14 @@ def fused_model_run(cfg, levels, rng, reset_counts, read_counts,
     forward (an f32 copy of the weights) on ``FUSED_CPU_IMAGES`` images on
     the card, through the kernel with every launch against its plain
     version (``f32_launches``) and with K1's plain version, against the
-    CPU (``card32``, mean gray levels per scale); the model's own int8
+    CPU (``card32``, mean gray levels per scale), then once more with the
+    counts set to 0 (K1's launches by shape: ``f32_shapes``); the model's
+    own int8
     error (the int8 fused forward and the hydra in float32, the same
     scales: ``own_int8``), the finest scale of the bf16 hydra and of both
     fused forwards against that f32 hydra (``vs_f32_hydra``); and the three
-    forwards timed (``timing``)."""
+    forwards timed (``timing``); the units that ran their PyTorch branch in
+    each bf16 forward (``branch_units``)."""
     from blind_image_denoising_torch.inference import fused as fused_module
     from blind_image_denoising_torch.models.hydra import model_builder
     from blind_image_denoising_torch.ops import pallas_convnext
@@ -3074,13 +3086,15 @@ def fused_model_run(cfg, levels, rng, reset_counts, read_counts,
 
     forwards = {"fused_float": fwd_float, "fused_int8": fwd_int8,
                 "hydra_bf16": hydra}
-    outs = {}
+    outs, branch = {}, {}
     for name, fn in forwards.items():
         reset_counts()
+        b0 = pallas_convnext.branch_units
         outs[name] = fn(x)
         torch.cuda.synchronize()
         runs[name] = read_counts()
         shapes[name] = dict(pallas_convnext.shape_launches)
+        branch[name] = pallas_convnext.branch_units - b0
     gaps = {}
     for name in ("fused_float", "fused_int8"):
         d = (outs[name][0] - outs["hydra_bf16"][0]).abs()
@@ -3115,6 +3129,11 @@ def fused_model_run(cfg, levels, rng, reset_counts, read_counts,
         got32["plain_k1"] = fwd32(x32)
     finally:
         fused_module.convnext_block = real_k1
+    reset_counts()
+    fwd32(x32)
+    torch.cuda.synchronize()
+    f32_shapes = dict(pallas_convnext.shape_launches)
+    read_counts()
     card32 = {name: [float((g.cpu() - r).abs().mean()) for g, r in
                      zip(outs32, ref32)] for name, outs32 in got32.items()}
     # the model's own int8 error: the int8 fused forward and the hydra in
@@ -3136,7 +3155,9 @@ def fused_model_run(cfg, levels, rng, reset_counts, read_counts,
         t["images_per_s"] = batch / t["forward_ms_median"] * 1e3
     return dict(model=model, x=x, sites=len(sites), calibration_images=len(
         cal), runs=runs, shapes=shapes, outs=outs, gaps=gaps,
-        on_path=on_path, f32_launches=f32_on_path["kernel"], card32=card32,
+        branch_units=branch, on_path=on_path,
+        f32_launches=f32_on_path["kernel"], f32_shapes=f32_shapes,
+        card32=card32,
         own_int8=own_int8, vs_f32_hydra=vs_f32, timing=timing)
 
 
@@ -3306,14 +3327,18 @@ def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
 # 32/48/72/108 (level 4, C = 162, is the attention level), levels 0-3
 # fused, 6 K1 each at (32, 5), (48, 5), (72, 5) and (108, 5), at b32 @ 256²;
 # (c) without self-attention, C = 32/64/128/256/512, every level fused, 27
-# K1 a forward, 3 at (512, 5) (level 4 has no decoder stage), at b8 @ 256².
+# K1 a forward, 3 at (512, 5) (level 4 has no decoder stage), at b8 @ 256²;
+# (d) as (c) at depth 6, C = 32 ... 1024, every level fused, 33 K1 a
+# forward, 6 at (512, 5) and 3 at (1024, 5), at b8 @ 256² (level 5 at 8²).
 # name -> (overrides, fused levels, batch)
 FUSEDW_DEPTH = 5
 FUSEDW_LEVELS = (0, 1, 2, 3)
 FUSEDW_MODELS = {"c256": ({}, FUSEDW_LEVELS, FUSED_BATCH),
                  "x1.5": ({"filters_level_multiplier": 1.5}, FUSEDW_LEVELS,
                           FUSED_BATCH),
-                 "c512": ({"use_self_attention": False}, (0, 1, 2, 3, 4), 8)}
+                 "c512": ({"use_self_attention": False}, (0, 1, 2, 3, 4), 8),
+                 "c1024": ({"use_self_attention": False, "depth": 6},
+                           (0, 1, 2, 3, 4, 5), 8)}
 # the fused forwards against the bf16 hydra: the fused phase's bars (float
 # 2.0 gray levels, int8 max(4, the model's own int8 error in f32 + 0.5)), or,
 # where the seeded model's roundings already spread past them, no farther
@@ -3338,7 +3363,15 @@ FUSEDW_K1_ROWS = [("bf16", 256, 5, 32, 32, ("c256", "encoder_3_0")),
                   ("bf16", 128, 3, 8, 64, None),
                   ("bf16", 512, 5, 8, 16, ("c512", "encoder_4_0")),
                   ("int8", 512, 5, 8, 16, ("c512", "encoder_4_0")),
-                  ("f32", 512, 5, 8, 16, ("c512", "encoder_4_0"))]
+                  ("f32", 512, 5, 8, 16, ("c512", "encoder_4_0")),
+                  ("bf16", 1024, 5, 8, 8, ("c1024", "encoder_5_0")),
+                  ("int8", 1024, 5, 8, 8, ("c1024", "encoder_5_0")),
+                  ("f32", 1024, 5, 8, 8, ("c1024", "encoder_5_0"))]
+
+
+def fusedw_depth(name):
+    """The depth of the fused_widths model ``name``."""
+    return FUSEDW_MODELS[name][0].get("depth", FUSEDW_DEPTH)
 
 
 def seeded_unit_weights(c, k, seed=0):
@@ -3414,11 +3447,12 @@ def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
 def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                        share_differing):
     """The fused path at the widths K1's classes serve: the three depth-5
-    ``unet_laplacian_v6`` models of ``FUSEDW_MODELS`` through
-    :func:`fused_model_run` with their fused levels: exact launches (24 K1
-    a fused forward and a hydra forward, 6 at each level's (C, 5); 27
-    without self-attention, 3 at (512, 5); 0 units on their PyTorch
-    branch), every K1 launch of the two
+    ``unet_laplacian_v6`` models of ``FUSEDW_MODELS`` and the depth-6 one
+    through :func:`fused_model_run` with their fused levels: exact
+    launches (24 K1 a fused forward and a hydra forward, 6 at each level's
+    (C, 5); 27 without self-attention, 3 at (512, 5); 33 at depth 6, 3 at
+    (1024, 5); the same in the f32 fused forward; 0 units on their
+    PyTorch branch), every K1 launch of the two
     fused forwards against its plain version on the same input (bf16
     max(0.05, 1 ulp); int8 one code on at most ``share_differing`` of the
     outputs at C <= 64, ``FUSED4_C128_SHARE_DIFFERING`` from C = 128; f32
@@ -3434,8 +3468,8 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
     timed; then K1 at ``FUSEDW_K1_ROWS`` timed. Returns (launch counts
     summed over the phase, K1's launches by (dtype name, C, K), the
     largest bf16 and int8 differences from their plain versions of the
-    launches off the (C, K) of their own up to C = 256 and of those at
-    C = 512, the timed rows)."""
+    launches off the (C, K) of their own up to C = 256, the bf16, int8 and
+    f32 ones at 256 < C <= 512 and of those above, the timed rows)."""
     from blind_image_denoising_torch.ops import pallas_convnext
 
     def int8_share(c):
@@ -3446,21 +3480,23 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
 
     models, problems = {}, []
     total, by_shape = None, {}
-    errors = dict(bf16=0.0, int8=0, bf16_c512=0.0, int8_c512=0)
+    errors = dict(bf16=0.0, int8=0, bf16_c512=0.0, int8_c512=0,
+                  bf16_c1024=0.0, int8_c1024=0, f32_c512=0.0, f32_c1024=0.0)
     for name, (overrides, fused_levels, batch) in FUSEDW_MODELS.items():
+        depth = fusedw_depth(name)
         cfg = copy.deepcopy(v6cfg)
-        cfg["backbone"].update(depth=FUSEDW_DEPTH, **overrides)
-        branch0 = pallas_convnext.branch_units
+        cfg["backbone"].update(depth=FUSEDW_DEPTH)
+        cfg["backbone"].update(overrides)
         run = fused_model_run(cfg, fused_levels, rng, reset_counts,
                               read_counts, batch=batch)
-        branch = pallas_convnext.branch_units - branch0
+        branch = sum(run["branch_units"].values())
         model, runs, on_path = run["model"], run["runs"], run["on_path"]
         models[name] = model
         levels = [getattr(model.backbone, f"encoder_{d}_0").conv_1.kernel
                   .shape[0] for d in fused_levels]
         # an encoder and a decoder stage of 3 units a level; the deepest
         # level has no decoder stage
-        per_shape = {(c, 5): 3 if d == FUSEDW_DEPTH - 1 else 6
+        per_shape = {(c, 5): 3 if d == depth - 1 else 6
                      for d, c in zip(fused_levels, levels)}
         per_forward = sum(per_shape.values())
         ncal = run["calibration_images"]
@@ -3470,7 +3506,7 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                 "fused_float": counts(convnext_block=per_forward),
                 "fused_int8": counts(convnext_block_int8=per_forward),
                 "hydra_bf16": counts(convnext_block=per_forward,
-                                     band_smooth=FUSEDW_DEPTH - 1)}
+                                     band_smooth=depth - 1)}
         want_shapes = {key: {(mode[key], c, k): n * (
             ncal if key == "calibrate" else 1)
             for (c, k), n in per_shape.items()} for key in want}
@@ -3486,18 +3522,21 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                    or vs_f32["fused_int8"]
                    <= run["own_int8"] + FUSEDW_OWN_MARGIN)
         f32_launches = run["f32_launches"]
+        f32_shapes = {tuple(sk): n for sk, n in run["f32_shapes"].items()}
         off = [r for r in on_path["fused_float"]
                if (r["C"], 5) not in pallas_convnext.OWN_SHAPES]
         off_int8 = [r for r in on_path["fused_int8"]
                     if (r["C"], 5) not in pallas_convnext.OWN_SHAPES]
         result = dict(
-            config=FUSED_CONFIG, depth=FUSEDW_DEPTH, overrides=overrides,
+            config=FUSED_CONFIG, depth=depth, overrides=overrides,
             level_widths=levels, fused_levels=fused_levels,
             batch=list(run["x"].shape), dtype="bf16", sites=run["sites"],
             launches=runs, k1_launches_by_shape={
                 key: {str(sk): n for sk, n in sh.items()}
                 for key, sh in got_shapes.items()},
-            hydra_branch_units=branch,
+            branch_units=run["branch_units"],
+            f32_k1_launches_by_shape={str(sk): n
+                                      for sk, n in f32_shapes.items()},
             k1_on_path=dict(
                 bf16_max_abs_err=max(r["max_abs_err"]
                                      for r in on_path["fused_float"]),
@@ -3516,7 +3555,8 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
             cpu_images=FUSED_CPU_IMAGES, timing=run["timing"], smi=smi,
             tolerance=dict(
                 launches=f"{per_forward} K1 a fused or hydra forward: "
-                         f"{sorted(per_shape.items())}; 0 branch units",
+                         f"{sorted(per_shape.items())}, and a f32 fused "
+                         f"forward; 0 branch units",
                 k1_bf16="max(0.05, 1 bf16 ulp)",
                 k1_f32=f"1e-3 and {K1_F32_RELATIVE} x max |plain output|",
                 k1_int8=f"|code diff| <= 1, share differing <= "
@@ -3533,13 +3573,16 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                               f"hydra <= the f32 int8 forward's + "
                               f"{FUSEDW_OWN_MARGIN}"))
         log("fused_widths", model=name, **result)
-        if runs != want or got_shapes != want_shapes or branch:
+        want_f32 = {("float32", c, k): n for (c, k), n in per_shape.items()}
+        if runs != want or got_shapes != want_shapes or branch \
+                or f32_shapes != want_f32:
             problems.append(f"{name}: launches {runs}, by shape "
-                            f"{got_shapes}, branch units {branch}")
+                            f"{got_shapes}, f32 {f32_shapes}, branch units "
+                            f"{branch}")
         for key, o in run["outs"].items():
             if [tuple(v.shape) for v in o] != [
                     (batch, 3, FUSED_SIZE >> i, FUSED_SIZE >> i)
-                    for i in range(FUSEDW_DEPTH)] or not all(
+                    for i in range(depth)] or not all(
                         bool(torch.isfinite(v).all()) for v in o):
                 problems.append(f"{name} {key}: bad outputs")
         if [len(v) for v in on_path.values()] != [per_forward] * 2 \
@@ -3564,7 +3607,7 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
                    for key in runs["calibrate"]}
         total = counted if total is None else {
             key: total[key] + n for key, n in counted.items()}
-        for sh in got_shapes.values():
+        for sh in (*got_shapes.values(), f32_shapes):
             for shape_key, n in sh.items():
                 by_shape[shape_key] = by_shape.get(shape_key, 0) + n
         for key, recs, err in (("bf16", off, "max_abs_err"),
@@ -3572,7 +3615,13 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
             errors[key] = max([errors[key]] + [r[err] for r in recs
                                                if r["C"] <= 256])
             errors[key + "_c512"] = max([errors[key + "_c512"]] + [
-                r[err] for r in recs if r["C"] > 256])
+                r[err] for r in recs if 256 < r["C"] <= 512])
+            errors[key + "_c1024"] = max([errors[key + "_c1024"]] + [
+                r[err] for r in recs if r["C"] > 512])
+        errors["f32_c512"] = max([errors["f32_c512"]] + [
+            r["max_abs_err"] for r in f32_launches if 256 < r["C"] <= 512])
+        errors["f32_c1024"] = max([errors["f32_c1024"]] + [
+            r["max_abs_err"] for r in f32_launches if r["C"] > 512])
         del run
     if problems:
         raise AssertionError(f"fused_widths: {problems}")
@@ -3591,7 +3640,7 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
             pallas_convnext, mode, x, wts, slope, smi, int8_share(c),
             path="fused_widths", weights=on,
             calls_per_forward=0 if unit is None else 3 if unit[1].startswith(
-                f"encoder_{FUSEDW_DEPTH - 1}") else 6))
+                f"encoder_{fusedw_depth(unit[0]) - 1}") else 6))
         del x
     # K2 at the multiplier-1.5 hydra's level-3 band split: C = 108 is no
     # whole number of 16-byte vectors (4 bf16 channels a thread)
@@ -6852,35 +6901,44 @@ def main() -> int:
                            reset_counts, max_share_differing)
     fusedw_s = time.perf_counter() - t0
     # K1's launches in the phase off the (C, K) of their own up to C = 256
-    # (the classes) and at C > 256, by dtype name
-    fusedw_classes, fusedw_c512 = {}, {}
+    # (the classes), at 256 < C <= 512 and above, by dtype name
+    fusedw_classes, fusedw_c512, fusedw_c1024 = {}, {}, {}
     for (dtype, c, k), n in fusedw_shapes.items():
         if (c, k) not in pallas_convnext.OWN_SHAPES:
-            into = fusedw_classes if c <= 256 else fusedw_c512
+            into = (fusedw_classes if c <= 256 else fusedw_c512 if c <= 512
+                    else fusedw_c1024)
             into[dtype] = into.get(dtype, 0) + n
 
-    def row_entries(rows, dtype, wide):
+    def width_band(c):
+        return "classes" if c <= 256 else "c512" if c <= 512 else "c1024"
+
+    def row_entries(rows, dtype, band):
         return [(r["calls_per_forward"], {k: r[k] for k in (
             "ms", "cold_ms", "plain_ms", "library_ms")}, r["bound_ms"],
                  r["bound_by"]) for r in rows
                 if r["dtype"] == dtype and r["calls_per_forward"]
-                and (r["C"] > 256) == wide]
+                and width_band(r["C"]) == band]
 
     # per the two depth-5 float fused forwards (bf16: 6 K1 at each class
     # shape) and per the C = 256 model's int8 fused forward (6 at (256, 5));
-    # per the no-attention model's fused forwards (3 at (512, 5))
-    entries["convnext_block_classes"] = row_entries(fusedw_rows, "bfloat16",
-                                                    False)
-    entries["convnext_block_int8_classes"] = row_entries(fusedw_rows, "int8",
-                                                         False)
-    entries["convnext_block_c512"] = row_entries(fusedw_rows, "bfloat16",
-                                                 True)
-    entries["convnext_block_int8_c512"] = row_entries(fusedw_rows, "int8",
-                                                      True)
+    # per the no-attention depth-5 model's fused forwards (3 at (512, 5));
+    # per the depth-6 model's (3 at (1024, 5))
+    for band in ("classes", "c512", "c1024"):
+        entries[f"convnext_block_{band}"] = row_entries(
+            fusedw_rows, "bfloat16", band)
+        entries[f"convnext_block_int8_{band}"] = row_entries(
+            fusedw_rows, "int8", band)
+    # per each no-attention model's f32 fused forward (3 at (512, 5), 3 at
+    # (1024, 5))
+    for band in ("c512", "c1024"):
+        entries[f"convnext_block_f32_{band}"] = row_entries(
+            fusedw_rows, "float32", band)
+        errors[f"convnext_block_f32_{band}"] = fusedw_errors[f"f32_{band}"]
     errors["convnext_block_classes"] = fusedw_errors["bf16"]
     errors["convnext_block_int8_classes"] = fusedw_errors["int8"]
-    errors["convnext_block_c512"] = fusedw_errors["bf16_c512"]
-    errors["convnext_block_int8_c512"] = fusedw_errors["int8_c512"]
+    for band in ("c512", "c1024"):
+        errors[f"convnext_block_{band}"] = fusedw_errors[f"bf16_{band}"]
+        errors[f"convnext_block_int8_{band}"] = fusedw_errors[f"int8_{band}"]
 
     # ---- phase 7d: the wider shapes' other paths: the multiplier-1.5 v6
     # trained (K2's backward at C = 108) and the K = 7 v6's hydra
@@ -7083,6 +7141,7 @@ def main() -> int:
         fused_widths_launches=fusedw_counts,
         fused_widths_class_launches=fusedw_classes,
         fused_widths_c512_launches=fusedw_c512,
+        fused_widths_c1024_launches=fusedw_c1024,
         wider_shapes_launches=wider_launches,
         c128_launches=dict(unet_laplacian_family=family_c128,
                            fused_depth4=fused4_c128),
@@ -7132,16 +7191,24 @@ def main() -> int:
     replaces["convnext_block_classes"] = replaces["convnext_block"]
     replaces["convnext_block_int8_classes"] = replaces["convnext_block_int8"]
     # the shapes opened since: K1 at K = 7 (of their own, in
-    # csrc/convnext_k7.cu) and at C = 512 (csrc/convnext_wide512.cu), K2's
-    # backward and K4 at a C of no whole 16-byte vectors
+    # csrc/convnext_k7.cu), above C = 256 (the thread-block cluster,
+    # csrc/convnext_cluster.cuh, built per I/O mode by convnext_cluster.cu,
+    # convnext_cluster_int8.cu and convnext_cluster_f32.cu), K2's backward
+    # and K4 at a C of no whole 16-byte vectors
     replaces["convnext_block_k7"] = (
         "blind_image_denoising_torch/csrc/convnext_k7.cu",
         replaces["convnext_block"][1])
-    replaces["convnext_block_c512"] = (
-        "blind_image_denoising_torch/csrc/convnext_wide512.cu",
-        replaces["convnext_block"][1])
-    replaces["convnext_block_int8_c512"] = (
-        replaces["convnext_block_c512"][0], replaces["convnext_block_int8"][1])
+    for band in ("c512", "c1024"):
+        replaces[f"convnext_block_{band}"] = (
+            "blind_image_denoising_torch/csrc/convnext_cluster.cu",
+            replaces["convnext_block"][1])
+        replaces[f"convnext_block_int8_{band}"] = (
+            "blind_image_denoising_torch/csrc/convnext_cluster_int8.cu",
+            replaces["convnext_block_int8"][1])
+    for band in ("c512", "c1024"):
+        replaces[f"convnext_block_f32_{band}"] = (
+            "blind_image_denoising_torch/csrc/convnext_cluster_f32.cu",
+            replaces["convnext_block"][1])
     replaces["band_smooth_bwd_ragged"] = replaces["band_smooth_bwd"]
     replaces["band_split_ragged"] = replaces["band_split"]
     per = {"convnext_block": "serving forward, b8 @ 256^2",
@@ -7174,6 +7241,18 @@ def main() -> int:
            "convnext_block_int8_c512": "no-attention depth-5 v6 int8 fused "
                                        "forward, b8 @ 256^2: 3 x (512,5) at "
                                        "8x16^2",
+           "convnext_block_c1024": "no-attention depth-6 v6 float fused "
+                                   "forward, b8 @ 256^2: 3 x (1024,5) at "
+                                   "8x8^2",
+           "convnext_block_int8_c1024": "no-attention depth-6 v6 int8 fused "
+                                        "forward, b8 @ 256^2: 3 x (1024,5) "
+                                        "at 8x8^2",
+           "convnext_block_f32_c512": "no-attention depth-5 v6 f32 fused "
+                                      "forward: 3 x (512,5), timed at "
+                                      "8x16^2",
+           "convnext_block_f32_c1024": "no-attention depth-6 v6 f32 fused "
+                                       "forward: 3 x (1024,5), timed at "
+                                       "8x8^2",
            "convnext_block_k7": "K = 7 v6 bf16 hydra forward, b8 @ 256^2: "
                                 "6 x (32,7) at 8x256^2, 6 x (64,7) at "
                                 "8x128^2",
@@ -7197,11 +7276,15 @@ def main() -> int:
                        for path, per in (("unet_laplacian_family",
                                           family_c128),
                                          ("fused_depth4", fused4_c128))}
-        elif name.endswith("_classes") or name.endswith("_c512"):
-            # launches off the (C, K) of their own up to C = 256, or at
-            # C = 512 (the float modes or int8), by path
-            modes = ("int8",) if "int8" in name else ("bfloat16", "float32")
+        elif name.endswith(("_classes", "_c512", "_c1024")):
+            # launches off the (C, K) of their own up to C = 256 (the
+            # float modes or int8), at 256 < C <= 512 or above (bf16, int8
+            # or f32), by path
+            modes = (("int8",) if "int8" in name else ("float32",)
+                     if "_f32_" in name else ("bfloat16", "float32")
+                     if name.endswith("_classes") else ("bfloat16",))
             launched = (fusedw_c512 if name.endswith("_c512")
+                        else fusedw_c1024 if name.endswith("_c1024")
                         else fusedw_classes)
             by_path = {"fused_widths": sum(launched.get(m, 0)
                                            for m in modes)}

@@ -13,11 +13,14 @@ level 3), bf16 (48,5), (72,5) and (108,5) at 32×128², 32×64² and 32×32²
 (the levels of one with ``filters_level_multiplier`` 1.5), and bf16 (64,3)
 at 8×128² and (128,3) at 8×64²; then K = 7 and C = 512 (``NEW_ROWS``:
 (32,7) 8×256² and (64,7) 8×128² in every mode, bf16 (128,7) 8×64² and
-(256,7) 8×32², (512,5) 8×16² in every mode and bf16 (512,7)). A source
-built without a row's kernel (a parent from before it) skips that row.
+(256,7) 8×32², (512,5) 8×16² in every mode and bf16 (512,7)); then
+the clusters' widths (``CLUSTER_ROWS``: (1024,5) 8×8² in every mode, a
+no-attention depth-6 v6's level 5 at b8 @ 256², and bf16 (384,5) 8×16²).
+A source built without a row's kernel (a parent from before it) skips
+that row.
 
     python3 k1_compare.py [--rounds N] [--out DIR] [--mma-rate]
-                          [NAME=SOURCE ...]
+                          [--channels C,...] [NAME=SOURCE ...]
 
 Each SOURCE is a ``convnext_block.cu`` (a parent commit's before the
 kernel had sources of its own beside it) or a directory of K1 sources
@@ -38,7 +41,13 @@ twice the L2), the largest difference from the plain PyTorch version
 cores); then the card's name and power limit. With ``--out DIR`` the
 compiler's resource report
 (``-Xptxas -v``) and the SASS (``cuobjdump -sass``) of every source are
-written to ``DIR/NAME.ptxas.txt`` and ``DIR/NAME.sass.txt``.
+written to ``DIR/NAME.ptxas.txt`` and ``DIR/NAME.sass.txt``. With
+``--channels 256,512`` only the rows at those C are timed. Each library
+gets the weights as its own route takes them: padded to its class's
+width, or, where it reports a thread-block cluster of n blocks
+(``bid_convnext_block_info``), to 128 n with the depthwise weights
+transposed; so a parent from before the cluster, or a copy of the
+sources whose ``cluster_from`` differs, is timed on its own layout.
 
 ``--mma-rate`` first measures the rate of ``mma.sync`` itself, the
 ceiling of the products of the float32 mode (m16n8k8 on TF32) and of
@@ -92,6 +101,36 @@ NEW_ROWS = [("bf16", 32, 7, 8, 256), ("bf16", 64, 7, 8, 128),
             ("bf16", 128, 7, 8, 64), ("bf16", 256, 7, 8, 32),
             ("bf16", 512, 5, 8, 16), ("int8", 512, 5, 8, 16),
             ("f32", 512, 5, 8, 16), ("bf16", 512, 7, 8, 16)]
+# C = 1024: a no-attention depth-6 v6's level 5 (b8 @ 256²: 8²)
+CLUSTER_ROWS = [("bf16", 1024, 5, 8, 8), ("int8", 1024, 5, 8, 8),
+                ("f32", 1024, 5, 8, 8), ("bf16", 384, 5, 8, 16)]
+# the widths of the one-block classes any version of the library had (512
+# until the cluster took 256 < C <= 512 over)
+ONE_BLOCK_WIDTHS = (32, 64, 128, 256, 512)
+
+
+def route_operands(pc, dtype, wts, cluster_size):
+    """The weights as a library whose layout for them is a cluster of
+    ``cluster_size`` blocks (1: a one-block class) takes them, as
+    ``pallas_convnext.kernel_operands`` gives them on this checkout's
+    route: dw [C', K²] ([K², C'] on a cluster), the LayerNorm scale and the
+    gain [C'] in float32, W2 [4C', C'] and W3 [C', 4C'] in the I/O dtype
+    (bf16 for int8), zero-padded to C' = 128 n on a cluster, else to the
+    class's width (``ONE_BLOCK_WIDTHS``)."""
+    c, k = wts["ln_scale"].numel(), wts["dw"].shape[-1]
+    width = (pc.CLUSTER_SLICE * cluster_size if cluster_size > 1
+             else next(w for w in ONE_BLOCK_WIDTHS if c <= w))
+    pad = width - c
+    w_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
+    dw = torch.nn.functional.pad(wts["dw"].reshape(c, k * k).float(),
+                                 (0, 0, 0, pad))
+    ln = torch.nn.functional.pad(wts["ln_scale"].float(), (0, pad))
+    gain = torch.nn.functional.pad(wts["gain"].float(), (0, pad))
+    w2 = torch.nn.functional.pad(wts["w2"].to(w_dtype), (0, pad, 0, 4 * pad))
+    w3 = torch.nn.functional.pad(wts["w3"].to(w_dtype), (0, 4 * pad, 0, pad))
+    if cluster_size > 1:
+        dw = dw.t()
+    return tuple(v.contiguous() for v in (dw, ln, w2, w3, gain))
 
 
 def build(name, source, work, out_dir):
@@ -218,6 +257,8 @@ def main() -> int:
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--mma-rate", action="store_true")
+    parser.add_argument("--channels", default=None,
+                        help="time only the rows at these C (comma list)")
     args = parser.parse_args()
     if not args.sources and not args.mma_rate:
         parser.error("give NAME=SOURCE pairs, --mma-rate, or both")
@@ -232,7 +273,7 @@ def main() -> int:
     from blind_image_denoising_torch.ops import pallas_convnext as pc
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-    named = [s.split("=", 1) for s in args.sources]
+    named = [spec.split("=", 1) for spec in args.sources]
     with tempfile.TemporaryDirectory() as work:
         libs = {name: build(name, Path(src), Path(work), args.out)
                 for name, src in named}
@@ -242,7 +283,11 @@ def main() -> int:
     def t(a):
         return torch.tensor(a, dtype=torch.float32, device="cuda")
 
-    for dtype, c, k, b, hw in ROWS + CLASS_ROWS + NEW_ROWS:
+    only = (None if args.channels is None
+            else {int(c) for c in args.channels.split(",")})
+    for dtype, c, k, b, hw in ROWS + CLASS_ROWS + NEW_ROWS + CLUSTER_ROWS:
+        if only is not None and c not in only:
+            continue
         e = 4 * c
         wts = dict(dw=t(rng.normal(0, 0.3, (c, 1, k, k))),
                    ln_scale=t(rng.uniform(0.5, 1.5, (c,))),
@@ -260,11 +305,24 @@ def main() -> int:
             x = pc.quantize(x, scales["scale_in"])
             s_in, inv_out = pc.int8_constants(**scales)
         ref = pc.convnext_block_plain(x, **wts, **scales)
-        # the weights as the wrapper hands them over (padded for a class)
-        dw, ln, w2, w3, gain = pc.kernel_operands(x.dtype, **wts)
+        # the weights as each library's layout for (C, K) takes them (a
+        # library from before the cluster fills 5 ints, so its cluster size
+        # stays 1); None where it has no layout
+        operands = {}
+        for name, lib in libs.items():
+            info = (ctypes.c_int * 7)(*[0] * 5, 1, 0)
+            rc = lib.bid_convnext_block_info(c, k, pc._DTYPE_CODES[x.dtype],
+                                             info)
+            if rc not in (0, UNSUPPORTED):
+                raise RuntimeError(f"{name}: info {rc}")
+            operands[name] = (None if rc else route_operands(
+                pc, x.dtype, wts, info[5]))
         out = torch.empty_like(x)
 
-        def call(lib, x=x):
+        def call(name, x=x):
+            if operands[name] is None:
+                raise RuntimeError("no layout for this C")
+            lib, (dw, ln, w2, w3, gain) = libs[name], operands[name]
             rc = lib.bid_convnext_block(
                 x.data_ptr(), out.data_ptr(), dw.data_ptr(), ln.data_ptr(),
                 w2.data_ptr(), w3.data_ptr(), gain.data_ptr(), b, hw, hw,
@@ -274,31 +332,26 @@ def main() -> int:
                 raise RuntimeError(f"launch refused: code {rc}")
             return rc
 
-        errs, rels, row_libs = {}, {}, {}
-        for name, lib in libs.items():
-            out.zero_()
-            try:
-                call(lib)
-            except RuntimeError:
-                if lib.bid_convnext_block_info(
-                        c, k, pc._DTYPE_CODES[x.dtype],
-                        (ctypes.c_int * 5)()) != UNSUPPORTED:
-                    raise
+        errs, rels, row_libs = {}, {}, []
+        for name in libs:
+            if operands[name] is None:
                 print(json.dumps(dict(source=name, dtype=dtype, C=c, K=k,
                                       unsupported=True)), flush=True)
                 continue
+            out.zero_()
+            call(name)
             torch.cuda.synchronize()
-            row_libs[name] = lib
+            row_libs.append(name)
             errs[name] = float((out.float() - ref.float()).abs().max())
             rels[name] = errs[name] / float(ref.float().abs().max())
         times = {name: [] for name in row_libs}
         cold = {name: [] for name in row_libs}
         copies = cold_copies(x)
         for r in range(args.rounds):
-            order = list(row_libs) if r % 2 == 0 else list(row_libs)[::-1]
+            order = row_libs if r % 2 == 0 else row_libs[::-1]
             for name in order:
-                times[name].append(cuda_ms(lambda: call(row_libs[name])))
-                cold[name].append(cuda_ms(lambda xc: call(row_libs[name], xc),
+                times[name].append(cuda_ms(lambda: call(name)))
+                cold[name].append(cuda_ms(lambda xc: call(name, xc),
                                           inputs=copies))
         bound, by = convnext_bound_ms(b, hw, hw, c, k, x.dtype)
         f32 = {} if dtype != "f32" else dict(

@@ -129,13 +129,14 @@ def _unit_weights(c, k, dev, seed=0):
 
 
 # [B, H, W] against K1's tiles of 8 x 32 pixels (8 x 16 in float32 and at
-# C = 128, 8 x 8 above 128, 4 x 8 above 256): whole tiles; ragged in both
-# directions; one pixel over a tile in both; smaller than a tile; and 3 x
-# 13 x 10 = 390 tiles (8 x 32), more than the persistent grid holds at once
-# and no multiple of it. The kernel tests run them at every (C, K) of
-# SAMPLE_SHAPES: the twelve of their own and the classes at C that are no
-# multiple of 8 or 16 (1, 7, 24, 72, 108, 162, 200, 300) and at C = 256,
-# 384, 512, at K = 1, 3, 5, 7
+# C = 128, 8 x 8 above 128 and on the clusters above 256, 4 x 8 in float32
+# above 256): whole tiles; ragged in both directions; one pixel over a
+# tile in both; smaller than a tile; and 3 x 13 x 10 = 390 tiles (8 x 32),
+# more than the persistent grid holds at once and no multiple of it. The
+# kernel tests run them at every (C, K) of SAMPLE_SHAPES: the twelve of
+# their own and the classes and clusters at C that are no multiple of 8
+# or 16 (1, 7, 24, 72, 108, 162, 200, 300, 520, 1000) and at C = 256, 384,
+# 512, 640, 768, 1024, at K = 1, 3, 5, 7
 K1_BHW = [(2, 16, 64), (2, 13, 45), (3, 9, 33), (1, 5, 20), (3, 100, 300)]
 
 
@@ -167,7 +168,8 @@ def test_convnext_kernel_matches_plain(dev, ck, bhw, dtype):
 @pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
 def test_convnext_f32_kernel_is_deterministic(dev, ck):
     """Two launches on the same float32 input give the same bits (no
-    atomics, no split-K): the exported program is held to eager's bits."""
+    atomics, no split-K; a cluster sums the LayerNorm's parts in rank
+    order): the exported program is held to eager's bits."""
     c, k = ck
     w = _unit_weights(c, k, dev)
     g = torch.Generator(device="cpu").manual_seed(6)
@@ -214,7 +216,7 @@ def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
     output is held to the kernel tests' bars above."""
     import ctypes
     c, k = ck
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * 7)()
     assert cuda_build.library().bid_convnext_block_info(
         c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     resident = info[4] * torch.cuda.get_device_properties(
@@ -247,9 +249,9 @@ def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
         assert bool((diff <= tol).all()), float(diff.max())
 
 
-@pytest.mark.parametrize("ck", [(513, 5), (32, 9)])
+@pytest.mark.parametrize("ck", [(1025, 5), (32, 9)])
 def test_convnext_kernel_rejects_unbuilt_shape(dev, ck):
-    """Outside C <= 512 at K = 1, 3, 5, 7 the wrapper raises on a CUDA
+    """Outside C <= 1024 at K = 1, 3, 5, 7 the wrapper raises on a CUDA
     tensor, and so does the library's entry point."""
     import ctypes
     c, k = ck
@@ -258,7 +260,7 @@ def test_convnext_kernel_rejects_unbuilt_shape(dev, ck):
     with pytest.raises(NotImplementedError):
         pallas_convnext.convnext_block(x, **w)
     assert cuda_build.library().bid_convnext_block_info(
-        c, k, 1, (ctypes.c_int * 5)()) == -1
+        c, k, 1, (ctypes.c_int * 7)()) == -1
 
 
 @pytest.mark.parametrize("ck", [(256, 5), (162, 3), (256, 1)])
@@ -274,7 +276,7 @@ def test_convnext_wide_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
     ring over many tiles; the output is held to the kernel tests' bars."""
     import ctypes
     c, k = ck
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * 7)()
     assert cuda_build.library().bid_convnext_block_info(
         c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     resident = info[4] * torch.cuda.get_device_properties(
@@ -309,21 +311,22 @@ def test_convnext_wide_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
 
 @pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
 def test_convnext_built_plan_matches_kernel_plan(dev, ck):
-    """Every instantiation of SAMPLE_SHAPES (K = 7 and C up to 512
-    included) is built with the threads and shared memory
+    """Every instantiation of SAMPLE_SHAPES (K = 7 and C up to 1024
+    included) is built with the threads, shared memory and cluster size
     ``kernel_plan`` mirrors, fits one block, holds at least one block an
-    SM and spills nothing."""
+    SM and one cluster on the card and spills nothing."""
     import ctypes
     c, k = ck
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
-        v = (ctypes.c_int * 5)()
+        v = (ctypes.c_int * 7)()
         assert cuda_build.library().bid_convnext_block_info(
             c, k, code, v) == 0
         plan = pallas_convnext.kernel_plan(c, k, dtype)
-        assert (v[0], v[3]) == (plan["smem_bytes"],
-                                plan["threads_per_block"]), (dtype, list(v))
+        assert (v[0], v[3], v[5]) == (
+            plan["smem_bytes"], plan["threads_per_block"],
+            plan["cluster_size"]), (dtype, list(v))
         assert v[0] <= pallas_convnext.SHARED_MEMORY_LIMIT
-        assert v[2] == 0 and v[4] >= 1, (dtype, list(v))
+        assert v[2] == 0 and v[4] >= 1 and v[6] >= 1, (dtype, list(v))
 
 
 @pytest.mark.parametrize("ck", [(256, 7), (200, 7), (512, 5), (384, 7),
@@ -331,12 +334,13 @@ def test_convnext_built_plan_matches_kernel_plan(dev, ck):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8])
 def test_convnext_grouped_wide_over_many_tiles(dev, ck, dtype):
-    """The grouped wide classes (K = 7 at width 256, every K at width 512)
-    copy each 64-channel group with its depthwise weights into a slot that
-    shares its room with the weight ring, so a tile's groups, LayerNorm,
-    chunks and epilogue follow each other over the same memory. On
-    16 x 32 x 32 (512 tiles of 4 x 8 pixels at width 512, 256 of 8 x 8 at
-    256) every block walks several tiles; held to the kernel tests' bars."""
+    """The grouped wide class (K = 7 at width 256) copies each 64-channel
+    group with its depthwise weights into a slot that shares its room with
+    the weight ring, so a tile's groups, LayerNorm, chunks and epilogue
+    follow each other over the same memory. On 16 x 32 x 32 (256 tiles of
+    8 x 8) every block walks several tiles; held to the kernel tests'
+    bars. Above C = 256 the cases run the cluster kernel over as many
+    tiles."""
     c, k = ck
     w = _unit_weights(c, k, dev, seed=9)
     g = torch.Generator(device="cpu").manual_seed(10)
@@ -351,6 +355,54 @@ def test_convnext_grouped_wide_over_many_tiles(dev, ck, dtype):
         x = x.to(dtype)
     got = pallas_convnext.convnext_block(x, **w, **scales)
     torch.cuda.synchronize()
+    ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.int8:
+        assert int(diff.max()) <= 1
+        assert float((diff == 0).float().mean()) >= 0.999
+    elif dtype == torch.float32:
+        assert float(diff.max()) <= 1e-3
+        assert float(diff.max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        tol = torch.clamp(_bf16_ulp(ref), min=0.05)
+        assert bool((diff <= tol).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("ck", [(520, 5), (1000, 5), (1000, 7),
+                                (1024, 1), (768, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_convnext_cluster_over_many_tiles(dev, ck, dtype):
+    """The thread-block cluster (C above 256) over many tiles, ragged
+    slices included: at C = 520 (5 blocks, the last owning 8 true channels
+    of its 128) and C = 1000 (8 blocks, the last 104), a tile's halo and
+    depthwise, the LayerNorm's statistics across the cluster, the t slices
+    pushed into every block, the chunks and the epilogue follow each
+    other over the same memory. On 16 x 32 x 32 there are 256 tiles of
+    8 x 8 pixels (float32: 512 of 4 x 8), several times the clusters the
+    card holds, so every cluster walks many; held to the kernel tests'
+    bars, and two launches give the same bits."""
+    import ctypes
+    c, k = ck
+    w = _unit_weights(c, k, dev, seed=9)
+    g = torch.Generator(device="cpu").manual_seed(10)
+    x = torch.randn((16, 32, 32, c), generator=g).to(dev)
+    info = (ctypes.c_int * 7)()
+    assert cuda_build.library().bid_convnext_block_info(
+        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
+    assert info[5] == -(-c // 128) and 16 * 4 * 4 >= 3 * info[6]
+    scales = {}
+    if dtype == torch.int8:
+        scales = dict(scale_in=float(x.abs().max()) / 127,
+                      scale_out=float(pallas_convnext.convnext_block_plain(
+                          x, **w).abs().max()) / 127)
+        x = pallas_convnext.quantize(x, scales["scale_in"])
+    else:
+        x = x.to(dtype)
+    got = pallas_convnext.convnext_block(x, **w, **scales)
+    again = pallas_convnext.convnext_block(x, **w, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
     diff = (got.float() - ref.float()).abs()
     if dtype == torch.int8:

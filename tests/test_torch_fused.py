@@ -401,6 +401,22 @@ def test_fused_c512_level_matches_jax(monkeypatch):
     _fused_matches_jax(_seeded_pair(_c512_v6()), monkeypatch, (2,), [512])
 
 
+def _c1024_v6():
+    """``unet_laplacian_v6`` with width 1, no self-attention and filters
+    64 growing 4x a level: levels of C = 64, 256 and 1024, the last a
+    ConvNext unit (K = 5) that K1's widest cluster (8 blocks) runs."""
+    cfg = _c512_v6()
+    cfg["backbone"].update(filters=64)
+    cfg["denoiser"]["filters"] = 64
+    return cfg
+
+
+def test_fused_c1024_level_matches_jax(monkeypatch):
+    """Level 2 fused at C = 1024, at 16², against JAX at the bars of
+    ``_fused_matches_jax``."""
+    _fused_matches_jax(_seeded_pair(_c1024_v6()), monkeypatch, (2,), [1024])
+
+
 def _k1_calls(model, x):
     """The (C, K) of every K1 call of one forward of ``model`` on the CPU
     (K1's plain version), and the units that ran their branch instead."""
@@ -419,12 +435,14 @@ def _k1_calls(model, x):
         convnext_mod.convnext_block = real
 
 
-@pytest.mark.parametrize("case", ["k7", "depth5_no_attention"])
+@pytest.mark.parametrize("case", ["k7", "depth5_no_attention",
+                                  "depth6_no_attention"])
 def test_k7_and_c512_v6_units_route_to_k1(case):
-    """The two slice-20 paths' hydras, at width 1: a ``unet_laplacian_v6``
-    whose encoder and decoder kernel sizes are 7 sends its (32, 7) and
-    (64, 7) units to K1 (level 2 is its attention level), and a depth-5
-    one without self-attention its (512, 5) level 4 too: no unit adds to
+    """The K = 7, depth-5 and depth-6 paths' hydras, at width 1: a
+    ``unet_laplacian_v6`` whose encoder and decoder kernel sizes are 7
+    sends its (32, 7) and (64, 7) units to K1 (level 2 is its attention
+    level), a depth-5 one without self-attention its (512, 5) level 4 too,
+    and a depth-6 one its (1024, 5) level 5: no unit adds to
     ``branch_units``."""
     cfg = copy.deepcopy(bidt.load_config(
         bidt.CONFIGS_DICT["unet_laplacian_v6"])["model"])
@@ -432,10 +450,14 @@ def test_k7_and_c512_v6_units_route_to_k1(case):
         cfg["backbone"].update(width=1, encoder_kernel_size=7,
                                decoder_kernel_size=7)
         want, hw = {(32, 7): 2, (64, 7): 2}, 32
-    else:
+    elif case == "depth5_no_attention":
         cfg["backbone"].update(width=1, depth=5, use_self_attention=False)
         want, hw = {(32, 5): 2, (64, 5): 2, (128, 5): 2, (256, 5): 2,
                     (512, 5): 1}, 64
+    else:
+        cfg["backbone"].update(width=1, depth=6, use_self_attention=False)
+        want, hw = {(32, 5): 2, (64, 5): 2, (128, 5): 2, (256, 5): 2,
+                    (512, 5): 2, (1024, 5): 1}, 64
     model = model_builder(cfg).hydra.eval().requires_grad_(False)
     calls, branch = _k1_calls(model, torch.rand(
         (1, 3, hw, hw), generator=torch.Generator().manual_seed(0)) * 255)

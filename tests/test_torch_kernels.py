@@ -251,7 +251,8 @@ def _torch_args(w, C, K):
 @pytest.mark.parametrize("ck", [(32, 3), (64, 5), (32, 5), (128, 5),
                                 (256, 5), (108, 5), (48, 5), (64, 3),
                                 (128, 3), (32, 7), (64, 7), (108, 7),
-                                (256, 7), (384, 5), (512, 5)])
+                                (256, 7), (384, 5), (512, 5), (640, 5),
+                                (640, 7), (1024, 5), (1024, 7)])
 def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     """The plain version against JAX's reference (atol 1e-4) and JAX's
     Pallas kernel in interpret mode, which rounds t and h to bf16: no
@@ -260,9 +261,13 @@ def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     weights (std 0.2 at every C) give outputs up to 27 (C = 128) and more,
     and JAX's kernel misses that bar against its own reference (0.070 on
     0.03% of the elements at C = 128, about 2.6e-3 of max |out|, as at
-    C <= 64)."""
+    C <= 64). Above C = 512 (the cluster classes' widths) the outputs reach
+    160 (C = 640) and 233 (C = 1024), where float32's summation order
+    alone moves an output by up to 1.6e-4 (ten float32 ulps of 233): there
+    the atol is 1e-6 of max |out| (2.3e-4 at C = 1024), and the images
+    are 2 rows high, which keeps the two references cheap."""
     C, K = ck
-    H, W = 8, 128        # the Pallas kernel tiles rows of 128 lanes
+    H, W = (8, 128) if C <= 512 else (2, 128)  # Pallas tiles 128 lanes
     w = _jax_weights(C, K)
     x = np.random.default_rng(2).normal(0, 1, (2, H, W, C)).astype(
         np.float32)
@@ -270,13 +275,14 @@ def test_convnext_plain_matches_jax_reference_and_pallas(ck):
                                                **_torch_args(w, C, K))
     jw = {k: jnp.asarray(v) for k, v in w.items()}
     ref = np.asarray(convnext_block_reference(jnp.asarray(x), jw))
-    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+    atol = 1e-4 if C <= 512 else 1e-6 * float(np.abs(ref).max())
+    np.testing.assert_allclose(got.numpy(), ref, atol=atol)
     pad = K // 2
     fused = np.asarray(from_cf_padded(fused_convnext_block(
         to_cf_padded(jnp.asarray(x), pad=pad), **jw, H=H, W=W, pad=pad,
         rows=H // 2, interpret=True), H=H, W=W, pad=pad))
     assert bool((np.abs(got.numpy() - fused)
-                 <= np.abs(ref - fused) + 1e-4).all())
+                 <= np.abs(ref - fused) + atol).all())
     if C <= 64:
         np.testing.assert_allclose(got.numpy(), fused, atol=0.05)
 
@@ -431,6 +437,9 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
     assert plan["smem_bytes"] % 16 == 0
     assert plan["threads_per_block"] % 32 == 0
     assert plan["threads_per_block"] <= 1024
+    assert plan["cluster_size"] == (
+        -(-ck[0] // 128) if pallas_convnext.runs_cluster(ck[0])
+        else 1)
     stated = {((32, 5), torch.bfloat16): (256, 112_000),
               ((64, 5), torch.bfloat16): (512, 225_024),
               # float32: a warp per row of an 8 x 16 tile; two tile buffers
@@ -451,7 +460,20 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
               ((256, 5), torch.bfloat16): (256, 215_040),
               ((256, 5), torch.int8): (256, 218_112),
               ((256, 5), torch.float32): (256, 210_432),
-              ((144, 3), torch.float32): (256, 208_384)}
+              ((144, 3), torch.float32): (256, 208_384),
+              # above 256 (bf16, int8) a cluster of ceil(C / 128) blocks
+              # of 8 warps, tiles of 64 pixels (csrc/convnext_cluster.cuh)
+              ((384, 5), torch.bfloat16): (256, 188_960),
+              ((512, 5), torch.int8): (256, 189_984),
+              ((1024, 5), torch.bfloat16): (256, 206_368),
+              ((640, 7), torch.bfloat16): (256, 157_216),
+              # float32: tiles of 32 pixels and two ring slots; at
+              # n <= 4 and K = 7 its halo [10 x 14][128] f32 sets the
+              # region
+              ((512, 5), torch.float32): (256, 165_152),
+              ((384, 7), torch.float32): (256, 170_272),
+              ((640, 7), torch.float32): (256, 181_536),
+              ((1024, 5), torch.float32): (256, 230_688)}
     if (ck, dtype) in stated:
         assert (plan["threads_per_block"],
                 plan["smem_bytes"]) == stated[ck, dtype]
@@ -459,6 +481,59 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
         # two blocks per SM: twice the block and its 1 KB reserve fit the
         # SM's 228 KB (a K = 7 tile and its 3-wide halo leave room for one)
         assert 2 * (plan["smem_bytes"] + 1024) <= 233_472
+
+
+# The cluster kernel's shared memory counted by hand
+# (csrc/convnext_cluster.cuh CLayout), for the n it runs (3 to 8: C = 257
+# to 1024): 32 B of mbarriers and 8 x M B of the LayerNorm's partial sums
+# (M pixels a tile), the ring's slots of the larger of a W2 item
+# 512 x (KC + 8) and a W3 item 128 x (KC3 + 8), and one region for the
+# halo of a block's 128 channels (M / 8 + K - 1) x (8 + K - 1), t
+# M x (C' + 8) and h M x 512. bf16 and int8 (which stages bf16): M = 64,
+# three slots, KC, KC3 = 32, 128 for n <= 4 and 16, 64 above, 2 bytes an
+# element; n = 8 (C' = 1024): 544 + 3 x 512 x 24 x 2 + 64 x 1032 x 2 =
+# 206,368; the halo never sets the region. float32: M = 32, two slots,
+# KC, KC3 = 16, 64, 4 bytes an element; n = 8: 288 + 2 x 512 x 24 x 4 +
+# 32 x 1032 x 4 = 230,688; at n <= 4 and K = 7 the halo, 10 x 14 x 128 x
+# 4 = 71,680, sets the region.
+CLUSTER_HAND_COUNTS = [
+    # (dtypes, n, threads, bytes at K <= 5, bytes at K = 7)
+    ("bf16 int8", 3, 256, 544 + 3 * 40_960 + 65_536, None),
+    ("bf16 int8", 4, 256, 544 + 3 * 40_960 + 66_560, None),
+    ("bf16 int8", 5, 256, 544 + 3 * 24_576 + 82_944, None),
+    ("bf16 int8", 6, 256, 544 + 3 * 24_576 + 99_328, None),
+    ("bf16 int8", 7, 256, 544 + 3 * 24_576 + 115_712, None),
+    ("bf16 int8", 8, 256, 544 + 3 * 24_576 + 132_096, None),
+    ("f32", 3, 256, 288 + 2 * 49_152 + 65_536, 288 + 2 * 49_152 + 71_680),
+    ("f32", 4, 256, 288 + 2 * 49_152 + 66_560, 288 + 2 * 49_152 + 71_680),
+    ("f32", 5, 256, 288 + 2 * 49_152 + 82_944, None),
+    ("f32", 6, 256, 288 + 2 * 49_152 + 99_328, None),
+    ("f32", 7, 256, 288 + 2 * 49_152 + 115_712, None),
+    ("f32", 8, 256, 288 + 2 * 49_152 + 132_096, None)]
+_DTYPE_NAMES = {"bf16": torch.bfloat16, "int8": torch.int8,
+                "f32": torch.float32}
+
+
+@pytest.mark.parametrize("dtypes,n,threads,smem,smem_k7", CLUSTER_HAND_COUNTS)
+def test_convnext_cluster_plan_matches_hand_count(dtypes, n, threads, smem,
+                                                  smem_k7):
+    """Each cluster layout's plan is the hand count above (the same at
+    every K where the halo fits the region), fits one block's 232,448 B and
+    names its cluster of n blocks; from ``CLUSTER_FROM`` (257) on
+    ``kernel_plan`` is that plan in every mode, and the widths there are
+    the multiples of 128."""
+    for dtype in map(_DTYPE_NAMES.get, dtypes.split()):
+        for c in (128 * n - 127, 128 * n - 1, 128 * n):
+            assert pallas_convnext.runs_cluster(c)
+            assert pallas_convnext.class_width(c) == 128 * n
+            for k in pallas_convnext.KERNEL_KS:
+                want = dict(threads_per_block=threads,
+                            smem_bytes=smem_k7 if k == 7 and smem_k7
+                            else smem, cluster_size=n)
+                assert pallas_convnext.cluster_plan(c, k, dtype) == want
+                assert pallas_convnext.kernel_plan(c, k, dtype) == want
+    assert not pallas_convnext.runs_cluster(256)
+    assert max(smem, smem_k7 or 0) <= pallas_convnext.SHARED_MEMORY_LIMIT
 
 
 def _tf32(v: torch.Tensor, rounding: str) -> torch.Tensor:
@@ -836,14 +911,14 @@ def test_convnext_unit_options_match_linen_block(opts, train):
 
 
 def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
-    """K1 takes a unit only at the shapes it takes (C up to 512 at K = 1,
+    """K1 takes a unit only at the shapes it takes (C up to 1024 at K = 1,
     3, 5, 7, E = 4C) with its options; every other unit runs its branch,
     counted once per forward in ``pallas_convnext.branch_units``, and
     never calls the kernel."""
     for (c, k) in pallas_convnext.SAMPLE_SHAPES:
         assert ConvNextBlock(c, k, 4 * c).kernel_route
-    for args, kw in (((513, 5, 2052), {}), ((32, 9, 128), {}),
-                     ((520, 1, 2080), {}), ((16, 5, 48), {}),
+    for args, kw in (((1025, 5, 4100), {}), ((32, 9, 128), {}),
+                     ((1040, 1, 4160), {}), ((16, 5, 48), {}),
                      ((32, 3, 64), {}), ((64, 3, 128), {}),
                      ((32, 3, 128), dict(use_bias=True)),
                      ((32, 3, 128), dict(use_bn=True)),
