@@ -2,7 +2,7 @@
 // and the nine (C, K) at K <= 5 with instantiations of their own. Replaces
 // blind_image_denoising_tpu/ops/pallas_convnext.py fused_convnext_block
 // (body _block_kernel), float and int8 I/O modes; the design, and how
-// every other C up to 1024 at K = 1, 3, 5, 7 runs (convnext_class.cu,
+// every other C up to 1024 at K = 1, 3, 5, 7 runs (convnext_class.cuh,
 // convnext_k7.cu, convnext_wide.cu and, on a thread-block cluster,
 // convnext_cluster.cuh), is noted in convnext_block.cuh.
 #include "convnext_block.cuh"
@@ -73,10 +73,11 @@ bool supported(int C, int K) {
 
 }  // namespace
 
-// info[0..6]: dynamic shared-memory bytes, registers per thread, local
+// info[0..7]: dynamic shared-memory bytes, registers per thread, local
 // (spill) bytes per thread, threads per block, resident blocks per SM,
-// cluster size (1 for the one-block layouts) and the clusters (blocks) the
-// card holds at once, of the instantiation that runs (C, K)
+// cluster size (1 for the one-block layouts), the clusters (blocks) the
+// card holds at once, and the width of the layout (the channels the
+// weights are padded to), of the instantiation that runs (C, K)
 extern "C" int bid_convnext_block_info(int C, int K, int dtype, int* info) {
   if (!supported(C, K)) return BID_ERR_UNSUPPORTED;
   if (dtype == 0) return dispatch_info<float>(C, K, info);

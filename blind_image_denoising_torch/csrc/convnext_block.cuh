@@ -135,9 +135,8 @@
 //
 // Those seven (C, K), and (64, 3) and (128, 3) in the same layouts (the K = 3
 // halo is smaller than the K = 5 one), and (32, 7), (64, 7), (128, 7) have
-// instantiations of their own (convnext_block.cu; K = 7 in convnext_k7.cu
-// and its classes in convnext_k7_class.cu, sources of their own so that
-// they build beside the others). K = 7 (the flax ConvNext
+// instantiations of their own (convnext_block.cu; K = 7 in convnext_k7.cu,
+// a source of its own so that it builds beside the others). K = 7 (the flax ConvNext
 // layer's default kernel size) grows the halo to 3 a side: the layouts
 // stay, and the rules above pick what fits: bf16 (64, 7) and (128, 7) keep
 // one tile buffer (188,672 B and 177,664 B), refilled once every warp's
@@ -148,18 +147,39 @@
 // (a row's K x 8 would hold 56 registers beside the 32 accumulators).
 // Every other C from 1 to 256 at K = 1, 3, 5 or 7 (E = 4C) runs a class of
 // width CW with the true C a launch argument (kRagged):
-// * CW = 32, 64 or 128 for C <= CW (convnext_class.cu): the layouts above
-//   at C = CW. The wrapper pads dw, the LayerNorm scale, the gain, W2's
-//   columns and W3's rows with zeros to CW and E to 4 CW, so a padded
+// * CW = C rounded up to 16 for C <= 128 (convnext_class.cuh; its widths
+//   built over seven sources): the layouts above written for any width that
+//   is a multiple of 16, so a unit pays for about C channels of depthwise
+//   and C' x 4C' of each product (C' = CW), not for the next of 32, 64,
+//   128 (float32 from C = 97 to 112 keeps 128: its width-112 layout
+//   spilled). Cfg's rules pick each width's layout from the budget: tiles of
+//   8 x 32 in bf16 at CW <= 32, and at 64 and (48, 7) with one block of
+//   512 threads an SM, else 8 x 16 (one m16 tile a warp);
+//   W2 and W3 resident where their padded bf16 rows take at most half of a
+//   block's shared memory (up to CW = 80: 108,800 B) and streamed in
+//   chunks of 32 E channels from CW = 96; two blocks an SM wherever two fit
+//   with resident weights at K < 7 (CW <= 32; bf16 and int8 at 48); tile
+//   rows swizzled at CW = 64, 128 and padded by 16 bytes elsewhere. The
+//   depthwise's CW / 8 lanes a run share a warp, 32 / (CW / 8) runs a warp
+//   round (CW = 48, 80, 96, 112 leave 2, 2, 8, 4 lanes a warp idle), and
+//   the LayerNorm's sums over them are segmented shuffles (segment_sum);
+//   an odd number of k16 steps (CW = 16, 48, 80, 112) ends the expansion
+//   on an ldmatrix.x2. The wrapper pads dw, the LayerNorm scale, the gain,
+//   W2's columns and W3's rows with zeros to CW and E to 4 CW, so a padded
 //   channel's depthwise sum, t and expansion rows are 0 (leaky(0) = 0) and
 //   add nothing to either product; the LayerNorm's mean and variance are
 //   taken over the true C (a padded channel's centred value is masked to
-//   0), and the epilogue stores the true C channels. A pixel's row is
-//   C * sizeof(I/O) bytes, so the tile is copied in units of the largest
-//   power of two up to 16 bytes that divides it: cp.async of 16, 8 or 4
-//   bytes, or plain 2- and 1-byte loads (odd bf16 C, int8 C not a multiple
-//   of 4), each unit zero-filled outside the image and past C; the stores
-//   use the same units;
+//   0). Copies (RaggedIO, from cr): int8 copies the tile's rows
+//   as they lie in device memory (a tile row's pixels inside the image are
+//   one contiguous run) by 16-byte cp.async into its stage, and a pass
+//   dequantizes each pixel's 8-channel groups into the tile, zeros past C;
+//   bf16 and f32 copy each pixel's row in units of the largest power of two
+//   up to 16 bytes that divides it (16 bytes where the row allows) into
+//   tile buffers cleared once a launch, walking its (pixel, unit) pairs
+//   with no division. The epilogue writes a warp's 16 pixels (one
+//   contiguous run) packed as in device memory into its t rows and stores
+//   the run in 16-byte units, its ends in pieces (store_rows_ragged); f32
+//   stores 16 bytes a lane and group where C % 4 == 0;
 // * CW = 256 for 128 < C <= 256 (convnext_wide.cu; WCfg in
 //   convnext_wide.cuh): tiles of 8 x 8 pixels, 256 threads, one block an SM.
 //   The projection's accumulators of 16 pixels x 256 channels would be 128
@@ -218,14 +238,19 @@ constexpr int dtype_code() {
                                         : 2;
 }
 
-// dynamic shared memory one block may have on an H100
+// dynamic shared memory one block may have on an H100, and one SM's (a
+// block also takes 1 KB of it for itself)
 constexpr size_t kMaxSmem = 232448;
+constexpr size_t kSmemPerSm = 233472;
+constexpr size_t kSmemPerBlock = 1024;
 
 // I/O type T; S is the type of the shared input tile and of the 1x1 weights
-// (int8 codes are dequantized into a bf16 tile). RAGGED_: the class of
-// width C, for any true C up to it (a launch argument)
+// (int8 codes are dequantized into a bf16 tile). RAGGED_: the layout of
+// width C (a multiple of 16), for any true C from C - 15 to C (a launch
+// argument)
 template <typename T, int C_, int K_, bool RAGGED_ = false>
 struct Cfg {
+  static_assert(C_ % 16 == 0 && C_ <= 128, "layouts of widths 16 .. 128");
   using S = std::conditional_t<std::is_same<T, float>::value, float, bf16>;
   static constexpr int C = C_, K = K_, E = 4 * C_, PAD = K_ / 2;
   static constexpr bool kRagged = RAGGED_;
@@ -235,23 +260,27 @@ struct Cfg {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   // streamed chunks are staged as rows (bf16) or in fragment order (f32)
   static constexpr bool kRowChunks = kMma;
-  static constexpr int TH = 8, TW = kMma && C != 128 ? 32 : 16;
+  // bf16: one block of 512 threads an SM on 8 x 32 tiles where the width
+  // holds one block (C = 64; 48 at K = 7, where two blocks of 8 x 16
+  // tiles do not fit: 16 warps an SM, not 8); tiles of 8 x 32 pixels and
+  // 256 threads at C <= 32 (two blocks an SM), else 8 x 16 (one m16 tile a
+  // warp of 256 threads)
+  static constexpr bool kBlock512 = kMma && (C == 64 || (C == 48 && K == 7));
+  static constexpr int TH = 8, TW = kMma && (C <= 32 || kBlock512) ? 32 : 16;
   static constexpr int P = TH * TW;          // pixels per tile
-  // threads per block (f32: a warp per tile row), and the blocks per SM
-  // the registers are capped for (K = 7 tiles leave room for one)
-  static constexpr int NT = !kMma ? 32 * TH : C == 64 ? 512 : 256;
-  static constexpr int MIN_BLOCKS = C == 32 && K < 7 ? 2 : 1;
+  // threads per block (f32: a warp per tile row)
+  static constexpr int NT = !kMma ? 32 * TH : kBlock512 ? 512 : 256;
   // bf16 tile: a thread's depthwise work item is one 16-byte channel
-  // group (8 channels) of R neighbouring output pixels of one row
+  // group (8 channels) of R neighbouring output pixels of one row (a run)
   static constexpr int R = 4, CG = C / 8;
-  static constexpr int RUNS_W = TW / R, ITEMS = TH * RUNS_W * CG;
+  static constexpr int RUNS_W = TW / R;
   static constexpr int IH = TH + 2 * PAD, IW = TW + 2 * PAD;
   static constexpr int V = 16 / sizeof(S);   // tile elements per 16 bytes
   static constexpr int VIO = 16 / sizeof(T); // I/O elements per 16 bytes
   // input tile: unpadded and swizzled at C >= 64 on the bf16 path, else
   // pixel rows padded by 8 elements (16 bytes in bf16, 32 in f32); either
   // way the warp's accesses below are free of shared-memory bank conflicts
-  static constexpr bool kSwizzle = kMma && C >= 64;
+  static constexpr bool kSwizzle = kMma && C % 64 == 0;
   static constexpr int LDX = kSwizzle ? C : C + 8;
   static constexpr int LDT = C + 8;          // bf16 t / output tile rows
   static constexpr size_t XBUF = sizeof(S) * IH * IW * LDX;
@@ -265,26 +294,32 @@ struct Cfg {
   static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
   // W2 and W3 stream through two buffers of ECH of the E channels each
   // (W2's rows, W3's columns), the copies of chunk n+1 in flight while
-  // chunk n is multiplied, where they do not fit beside a tile: at C = 128
-  // (272,384 B in bf16, 524,288 B in f32) and in f32 at (64, 7) (131,072 B
+  // chunk n is multiplied, where they do not fit beside a tile: in bf16
+  // where the padded rows would take more than half of a block's shared
+  // memory (from C = 96: 155,136 B; C = 128: 272,384 B), in f32 where
+  // they do not fit beside one tile (from C = 80, and (64, 7): 131,072 B
   // beside a 88,704 B tile); f32 (128, 7), whose 167,552 B tile leaves no
   // room for two chunks of 32, takes chunks of 16
   static constexpr size_t F32_RESIDENT_W = 2 * align16(4 * E * C);
+  static constexpr size_t BF16_RESIDENT_W =
+      align16(2 * E * (C + 8)) + align16(2 * C * (E + 8));
   static constexpr bool kStream =
-      C == 128 || (!kMma && OFF_X + XBUF + F32_RESIDENT_W > kMaxSmem);
+      kMma ? BF16_RESIDENT_W > kMaxSmem / 2
+           : OFF_X + XBUF + F32_RESIDENT_W > kMaxSmem;
   static constexpr int ECH =
       !kMma && kStream && OFF_X + XBUF + 4 * align16(4 * 32 * C) > kMaxSmem
           ? 16
           : 32;
   static constexpr int NCH = E / ECH;
   // E channels per step of the products: their expansion accumulators are
-  // EC/2 registers, and at C = 64 (512 threads) a thread has 128 in all;
-  // at C = 128 a step is one streamed chunk
-  static constexpr int EC = C >= 64 ? 32 : 64;
+  // EC/2 registers, and at C = 48 (two blocks an SM at K < 7) and C = 64
+  // (512 threads) a thread has 128 in all (EC = 64 spilled at (48, 1));
+  // from C = 96 a step is one streamed chunk
+  static constexpr int EC = C >= 48 ? 32 : 64;
   // f32: E channels per step of the products: their expansion accumulators
-  // are EF/2 registers, and at C = 32 (two blocks per SM) a thread has 128;
-  // streamed, a step is one chunk
-  static constexpr int EF = kStream ? ECH : C == 32 ? 16 : 32;
+  // are EF/2 registers, and at C <= 32 (two blocks per SM) a thread has
+  // 128; streamed, a step is one chunk
+  static constexpr int EF = kStream ? ECH : C <= 32 ? 16 : 32;
   static_assert(!kStream || ((kMma ? EC : EF) == ECH && E % ECH == 0),
                 "a step of the products is one streamed chunk");
   // E channels of W2 and W3 held in one weight buffer: all, or one chunk
@@ -302,23 +337,34 @@ struct Cfg {
   static constexpr int NWBUF = kStream ? 2 : 1;
   static constexpr size_t T_BYTES = kMma ? 2 * P * LDT : 0;
   // tile buffers: int8 I/O prefetches into a staging buffer of raw codes
-  // [IH*IW][C], bf16 and f32 I/O into a second tile where two fit beside
-  // the weights (bf16: all but (64, 7) and (128, 7); f32: all but (64, 5),
-  // (128, 5) and (128, 7)); with one, bf16 refills it once every warp's
-  // epilogue is done, f32 once every depthwise is
+  // ([IH*IW][C]; in a ragged layout the tile's rows as they lie in device
+  // memory, ROW_STAGE bytes a row: see load_rows_async), bf16 and f32 I/O
+  // into a second tile where two fit beside the weights (bf16: all but
+  // (64, 7), (80, 7), (112, 7) and (128, 7); f32: all but (64, 5), (96, K),
+  // (112, K), (128, 5) and (128, 7)); with one, bf16 refills it once every
+  // warp's epilogue is done, f32 once every depthwise is
   static constexpr int NXBUF =
       kInt8 ? 1
       : OFF_X + 2 * XBUF + NWBUF * WBUF + T_BYTES <= kMaxSmem ? 2 : 1;
   static constexpr size_t OFF_STAGE = align16(OFF_X + NXBUF * XBUF);
+  static constexpr size_t ROW_STAGE = align16(IW * C * sizeof(T) + 15);
+  static constexpr size_t STAGE_BYTES =
+      !kInt8 ? 0 : kRagged ? IH * ROW_STAGE : IH * IW * C;
   // the weight buffers, then the bf16 t/out tile [P][LDT] (int8 output
   // rows are staged in the same rows)
-  static constexpr size_t OFF_W2 =
-      align16(OFF_STAGE + (kInt8 ? IH * IW * C : 0));
+  static constexpr size_t OFF_W2 = align16(OFF_STAGE + STAGE_BYTES);
   static constexpr size_t OFF_W3 = OFF_W2 + W2_BYTES;
   static constexpr size_t OFF_T = OFF_W2 + NWBUF * WBUF;
   static constexpr size_t SMEM = OFF_T + T_BYTES;
   static_assert(XBUF % 16 == 0, "tile buffers keep 16-byte alignment");
   static_assert(SMEM <= kMaxSmem, "one block's shared memory fits");
+  // the blocks per SM the registers are capped for: two wherever two fit
+  // in the SM's shared memory at K < 7 with W2 and W3 resident (C <= 32,
+  // and bf16 and int8 at C = 48); K = 7 tiles leave room for one, and a
+  // streamed layout's products keep C / 16 * 4 + C / 2 registers of A
+  // fragments and accumulators a lane
+  static constexpr int MIN_BLOCKS =
+      K < 7 && !kStream && 2 * (SMEM + kSmemPerBlock) <= kSmemPerSm ? 2 : 1;
 
   // element offset, within a tile row, of 16-byte chunk `chunk` of the
   // pixel in column `ix`
@@ -370,15 +416,30 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t row) {
       : "memory");
 }
 
-// 16 bytes global -> shared (a shared-memory address), asynchronously; 16
-// zero bytes when !valid (src must be a valid address all the same)
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            bool valid) {
+// Two 8x8 bf16 matrices: lanes 8i..8i+7 (i = 0, 1) give the rows of matrix
+// i (the other lanes' addresses are not read)
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(row)
+               : "memory");
+}
+
+// 16 bytes global -> shared (a shared-memory address), asynchronously: the
+// first `bytes` (0 to 16) read from src, zeros after them (src must be a
+// valid address all the same)
+__device__ __forceinline__ void cp_async_16n(uint32_t dst, const void* src,
+                                             int bytes) {
   const size_t s = __cvta_generic_to_global(src);
-  const int bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(s), "r"(bytes)
                : "memory");
+}
+
+// 16 bytes global -> shared; 16 zero bytes when !valid
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  cp_async_16n(dst, src, valid ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -546,26 +607,251 @@ __device__ __forceinline__ void dequantize_tile(
   }
 }
 
+// ---- the ragged layouts' copies (kRagged: a true C, cr, from C - 15 to C)
+
+// How a launch moves a ragged tile, from cr. Each function that moves a
+// tile sets it up from an opaque cr (a value the compiler may not hoist out
+// of the tile loop): the few integer operations a tile are cheaper than
+// the registers the fields would hold across the kernel, at the register
+// caps of two blocks an SM and of the float32 layouts
+struct RaggedIO {
+  int row_bytes;  // a pixel's row in device memory: cr * sizeof(T)
+  int unit;       // the largest power of two up to 16 that divides it
+  int per_px;     // units a pixel's row
+  int p0, j0;     // this thread's first (pixel, unit) of a tile's copies
+  int dp, dj;     // NT copies further on, in (pixel, unit)
+  int row_stage;  // int8: bytes a tile row takes staged,
+                  // align16(IW * row + 15) (load_rows_async)
+};
+
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+template <typename G, typename T>
+__device__ __forceinline__ RaggedIO ragged_io(int cr, int tid) {
+  RaggedIO io;
+  cr = opaque(cr);
+  io.row_bytes = cr * (int)sizeof(T);
+  io.unit = min(16, io.row_bytes & -io.row_bytes);
+  io.per_px = io.row_bytes >> (__ffs(io.unit) - 1);
+  io.p0 = tid / io.per_px;
+  io.j0 = tid - io.p0 * io.per_px;
+  io.dp = G::NT / io.per_px;
+  io.dj = G::NT - io.dp * io.per_px;
+  io.row_stage = (G::IW * io.row_bytes + 30) & ~15;  // align16(n + 15)
+  return io;
+}
+
+// Start the copies of a ragged tile plus halo into the tile buffer `dst`
+// (bf16 and f32), pixel by pixel: the cr channels of each pixel in units
+// of io.unit bytes (cp.async of 16, 8 or 4 bytes, else plain loads), zeros
+// outside the image. The tile's channels past cr are never written: they
+// stay the zeros the kernel clears the buffers to. A thread walks its
+// (pixel, unit) pairs by io's steps, so the loop divides by no variable.
+template <typename G, typename T>
+__device__ __forceinline__ void load_tile_units(const T* __restrict__ x,
+                                                unsigned char* dst, Tile t,
+                                                int H, int W, int tid,
+                                                int cr) {
+  static_assert(!G::kInt8, "int8 stages its rows");
+  const RaggedIO io = ragged_io<G, T>(cr, tid);
+  const uint32_t d0 = shared_address(dst);
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  int pix = io.p0, j = io.j0;
+  for (int i = tid; i < G::IH * G::IW * io.per_px; i += G::NT) {
+    const int iy = pix / G::IW, ix = pix - iy * G::IW;
+    const int gy = t.y0 - G::PAD + iy, gx = t.x0 - G::PAD + ix;
+    const bool inside = (unsigned)gy < (unsigned)H && (unsigned)gx < (unsigned)W;
+    const int byte = j * io.unit;  // within the pixel's row
+    const long long src =
+        inside ? ((t.b * H + gy) * W + gx) * io.row_bytes + byte : 0;
+    const int d = (int)sizeof(T) * (iy * G::IW * G::LDX + G::xoff(ix, byte >> 4)) +
+                  (byte & 15);
+    copy_unit(dst + d, d0 + d, xb + src, inside, io.unit);
+    pix += io.dp;
+    j += io.dj;
+    if (j >= io.per_px) j -= io.per_px, ++pix;
+  }
+  cp_async_commit();
+}
+
+// Start the copies of a ragged int8 tile's rows into the stage `dst` as they
+// lie in device memory: a tile row's pixels inside the image are one
+// contiguous run there, copied by 16-byte cp.async from the 16-byte
+// boundary at or before its first byte (row iy of the stage at
+// iy * io.row_stage, the run's first byte at its offset from that
+// boundary). The last copy of a run reads only up to the run's end and
+// zero-fills the rest, so no copy reads past the tensor. Rows outside the
+// image are not copied.
+template <typename G, typename T>
+__device__ __forceinline__ void load_rows_async(const T* __restrict__ x,
+                                                unsigned char* dst, Tile t,
+                                                int H, int W, int tid,
+                                                int cr) {
+  static_assert(G::kInt8, "int8 stages its rows");
+  constexpr int MAXCH = (int)(G::ROW_STAGE / 16);  // at cr = C
+  const RaggedIO io = ragged_io<G, T>(cr, tid);
+  const int gx_lo = max(0, t.x0 - G::PAD);
+  const int gx_hi = min(W, t.x0 - G::PAD + G::IW);
+  const long long run = (long long)(gx_hi - gx_lo) * io.row_bytes;
+  const uint32_t d0 = shared_address(dst);
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  for (int i = tid; i < G::IH * MAXCH; i += G::NT) {
+    const int iy = i / MAXCH, k = i - iy * MAXCH;
+    const int gy = t.y0 - G::PAD + iy;
+    if ((unsigned)gy >= (unsigned)H) continue;
+    const long long s = ((t.b * H + gy) * W + gx_lo) * io.row_bytes;
+    const long long chunk = (s & ~15LL) + 16 * k, left = s + run - chunk;
+    if (left > 0)
+      cp_async_16n(d0 + iy * io.row_stage + 16 * k, xb + chunk,
+                   (int)min(16LL, left));
+  }
+  cp_async_commit();
+}
+
+// N bytes from shared memory at p, whose address is a multiple of al (1,
+// 2, 4, 8 or 16), into words
+template <int N>
+__device__ __forceinline__ void load_bytes(const unsigned char* p, int al,
+                                           uint32_t (&w)[N / 4]) {
+  if constexpr (N == 16) {
+    if (al >= 16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+      return;
+    }
+  }
+  if (al >= 8) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p + 8 * i);
+      w[2 * i] = u.x, w[2 * i + 1] = u.y;
+    }
+  } else if (al == 4) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      w[i] = *reinterpret_cast<const uint32_t*>(p + 4 * i);
+  } else if (al == 2) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      w[i] = (uint32_t)*reinterpret_cast<const uint16_t*>(p + 4 * i) |
+             (uint32_t)*reinterpret_cast<const uint16_t*>(p + 4 * i + 2) << 16;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      w[i] = (uint32_t)p[4 * i] | (uint32_t)p[4 * i + 1] << 8 |
+             (uint32_t)p[4 * i + 2] << 16 | (uint32_t)p[4 * i + 3] << 24;
+  }
+}
+
+// int8 codes (two words) -> 8 bf16, bf16(q * bf16(scale_in)) (as
+// dequantize_tile)
+__device__ __forceinline__ uint4 dequantize8(const uint32_t (&w)[2],
+                                             float s_in) {
+  uint4 d;
+  uint32_t* dp = reinterpret_cast<uint32_t*>(&d);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint32_t u = w[j] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + e)) -
+             8388736.f;
+    dp[2 * j] = pack_bf16(__fmul_rn(f[0], s_in), __fmul_rn(f[1], s_in));
+    dp[2 * j + 1] = pack_bf16(__fmul_rn(f[2], s_in), __fmul_rn(f[3], s_in));
+  }
+  return d;
+}
+
+// The staged int8 rows (load_rows_async) -> the bf16 tile: each (pixel, 8
+// channels) of the tile read from its place in the stage and dequantized,
+// channels past cr and pixels outside the image zero. A pixel's row starts
+// at a multiple of io.unit in the stage, which sets the loads' width.
+template <typename G, typename T>
+__device__ __forceinline__ void relayout_tile(
+    const unsigned char* __restrict__ stage, bf16* __restrict__ xs, Tile t,
+    int H, int W, int tid, int cr, float s_in) {
+  static_assert(G::kInt8, "int8 stages its rows");
+  constexpr int CG = G::C / 8;
+  const RaggedIO io = ragged_io<G, T>(cr, tid);
+  const int gx_lo = max(0, t.x0 - G::PAD);
+  for (int i = tid; i < G::IH * G::IW * CG; i += G::NT) {
+    const int pix = i / CG, cg = i - pix * CG;
+    const int iy = pix / G::IW, ix = pix - iy * G::IW;
+    const int gy = t.y0 - G::PAD + iy, gx = t.x0 - G::PAD + ix;
+    const int nvalid = cr - 8 * cg;  // channels of the group inside cr
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if ((unsigned)gy < (unsigned)H && (unsigned)gx < (unsigned)W &&
+        nvalid > 0) {
+      // the row's run starts (s & 15) bytes into its stage row
+      const unsigned head =
+          (unsigned)((t.b * H + gy) * W + gx_lo) * (unsigned)io.row_bytes & 15u;
+      const unsigned char* p = stage + iy * io.row_stage + head +
+                               (gx - gx_lo) * io.row_bytes + cg * 8;
+      uint32_t w[2];
+      load_bytes<8>(p, io.unit, w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e >= nvalid) w[e >> 2] &= ~(0xffu << (8 * (e & 3)));
+      v = dequantize8(w, s_in);
+    }
+    *reinterpret_cast<uint4*>(xs + iy * G::IW * G::LDX + G::xoff(ix, cg)) = v;
+  }
+}
+
+// The sum of v over the N lanes of a segment (a run's lanes: pos = lane -
+// base, base its first lane), in every lane of it: a butterfly where N
+// divides 32, else a tree towards the segment's first lane (each add only
+// from inside the segment) and its broadcast. Every lane of the warp calls
+// it; lanes past the last whole segment form a short one of their own.
+template <int N>
+__device__ __forceinline__ float segment_sum(float v, int pos, int base) {
+  if constexpr ((N & (N - 1)) == 0) {
+#pragma unroll
+    for (int o = 1; o < N; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  } else {
+#pragma unroll
+    for (int o = 1; o < N; o <<= 1) {
+      const float u = __shfl_down_sync(0xffffffffu, v, o);
+      if (pos + o < N) v += u;
+    }
+    return __shfl_sync(0xffffffffu, v, base);
+  }
+}
+
 // Depthwise KxK + LayerNorm on the bf16 tile, t -> ts as bf16 rows. Per tap
 // row the thread loads its K x 8 weights and the R + K - 1 input vectors
 // once each and does the R*K*8 FMAs from registers, taps in (dy, dx) order
-// per output. The C/8 threads that share a pixel are neighbouring lanes of
-// one warp: the LayerNorm's mean and its centred variance (two passes, f32)
-// are butterfly sums over them. Every lane of a warp has an item or none
-// (ITEMS is a multiple of 32), and pixels outside the image are computed on
-// the tile's zeros, so the shuffles always see a full warp.
+// per output. The CG = C/8 threads that share a run of R pixels are
+// neighbouring lanes of one warp, 32 / CG runs a warp round (where CG does
+// not divide 32 the last 32 % CG lanes idle: they compute on a valid run
+// and store nothing): the LayerNorm's mean and its centred variance (two
+// passes, f32) are sums over the run's lanes (segment_sum). Every lane of
+// a warp takes part in each round, and pixels outside the image are
+// computed on the tile's zeros, so the shuffles always see a full warp.
 template <typename G>
 __device__ __forceinline__ void depthwise_layernorm(
     const bf16* __restrict__ xs, const float* __restrict__ dws,
     const float* __restrict__ lns, bf16* __restrict__ ts, int tid, int cr,
     float inv_cr) {
   constexpr int C = G::C, K = G::K, R = G::R, CG = G::CG;
-  static_assert(G::TW % R == 0 && 32 % CG == 0 && G::ITEMS % 32 == 0,
-                "runs tile the rows and the lanes of a pixel share a warp");
+  constexpr int RUNS = G::TH * G::RUNS_W, RPW = 32 / CG;
+  constexpr int WROUNDS = (RUNS + RPW - 1) / RPW;
+  static_assert(G::TW % R == 0 && CG <= 32, "runs tile the rows");
   // a ragged class takes the statistics over the true C (inv_cr = 1 / cr)
   const float inv_c = G::kRagged ? inv_cr : 1.f / C;
-  for (int item = tid; item < G::ITEMS; item += G::NT) {
-    const int cg = item % CG, run = item / CG;
+  const int lane = tid & 31, lane_run = lane / CG;
+  const int cg = lane - lane_run * CG, base = lane_run * CG;
+  for (int wr = tid >> 5; wr < WROUNDS; wr += G::NT / 32) {
+    const int raw = wr * RPW + lane_run;
+    // where CG divides 32 and RUNS is whole rounds, every lane is active
+    constexpr bool kFull = 32 % CG == 0 && RUNS % RPW == 0;
+    const bool active = kFull || (lane_run < RPW && raw < RUNS);
+    const int run = kFull || raw < RUNS ? raw : RUNS - 1;
     const int ry = run / G::RUNS_W, rx = (run % G::RUNS_W) * R;
     int xo[R + K - 1];  // this thread's chunk of each input pixel of a row
 #pragma unroll
@@ -643,11 +929,9 @@ __device__ __forceinline__ void depthwise_layernorm(
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       float* a = acc[j];
-      float sum = ((a[0] + a[1]) + (a[2] + a[3])) +
-                  ((a[4] + a[5]) + (a[6] + a[7]));
-#pragma unroll
-      for (int o = 1; o < CG; o <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float sum = segment_sum<CG>(((a[0] + a[1]) + (a[2] + a[3])) +
+                                            ((a[4] + a[5]) + (a[6] + a[7])),
+                                        cg, base);
       // (a ragged class: the padded channels' sums are 0, and their
       // centred values are masked)
       const float mean = sum * inv_c;
@@ -657,17 +941,16 @@ __device__ __forceinline__ void depthwise_layernorm(
         a[c] = !G::kRagged || cg * 8 + c < cr ? a[c] - mean : 0.f;
         sq = fmaf(a[c], a[c], sq);
       }
-#pragma unroll
-      for (int o = 1; o < CG; o <<= 1)
-        sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      sq = segment_sum<CG>(sq, cg, base);
       const float rs = rsqrtf(sq * inv_c + kLnEps);
       uint4 v;
       v.x = pack_bf16(a[0] * rs * lw[0], a[1] * rs * lw[1]);
       v.y = pack_bf16(a[2] * rs * lw[2], a[3] * rs * lw[3]);
       v.z = pack_bf16(a[4] * rs * lw[4], a[5] * rs * lw[5]);
       v.w = pack_bf16(a[6] * rs * lw[6], a[7] * rs * lw[7]);
-      *reinterpret_cast<uint4*>(ts + (ry * G::TW + rx + j) * G::LDT + cg * 8) =
-          v;
+      if (active)
+        *reinterpret_cast<uint4*>(ts + (ry * G::TW + rx + j) * G::LDT +
+                                  cg * 8) = v;
     }
   }
 }
@@ -689,11 +972,17 @@ __device__ __forceinline__ void expand_project(
 #pragma unroll
     for (int i = 0; i < 4; ++i) hacc[nt][i] = 0.f;
 #pragma unroll
-    for (int kt = 0; kt < C / 16; kt += 2) {
+    for (int kt = 0; kt + 1 < C / 16; kt += 2) {
       uint32_t b[4];  // B fragments of two k16 steps
       ldmatrix_x4(b, w2 + 2 * (nt * 8 * G::LDW2 + kt * 16));
       mma_bf16(hacc[nt], af[kt], b[0], b[1]);
       mma_bf16(hacc[nt], af[kt + 1], b[2], b[3]);
+    }
+    if constexpr (C / 16 % 2 == 1) {
+      // the last k16 step of an odd number of them (C = 16, 48, 80, 112)
+      uint32_t b[2];
+      ldmatrix_x2(b, w2 + 2 * (nt * 8 * G::LDW2 + (C / 16 - 1) * 16));
+      mma_bf16(hacc[nt], af[C / 16 - 1], b[0], b[1]);
     }
   }
 #pragma unroll
@@ -717,6 +1006,89 @@ __device__ __forceinline__ void expand_project(
   }
 }
 
+// A ragged layout's out = x + gain * p for the warp's m16 tile at pixel m0
+// (16 neighbouring pixels of one tile row, one contiguous run of
+// 16 * cr channels in device memory): the warp writes its pixels' cr
+// channels (int8: requantized) into its own rows of the t tile packed as
+// in device memory, the run's first byte at its offset from a 16-byte
+// boundary, and stores the run in 16-byte units from that boundary on;
+// the run's first and last unit, where it starts or ends inside one, in
+// pieces of io.unit bytes that lie inside it.
+template <typename G, typename T>
+__device__ __forceinline__ void store_rows_ragged(
+    const bf16* __restrict__ xs, bf16* __restrict__ ts,
+    const float (&pacc)[G::C / 8][4], const float* __restrict__ gns,
+    T* __restrict__ out, Tile t, int H, int W, float inv_out, int m0,
+    int lane, int cr) {
+  constexpr int C = G::C, ESZ = (int)sizeof(T);
+  const RaggedIO io = ragged_io<G, T>(cr, lane);
+  static_assert(16 * C * ESZ + 15 <= 16 * G::LDT * 2,
+                "a run fits the warp's rows of the t tile");
+  const int g = lane >> 2, q = lane & 3;
+  const int ly = m0 / G::TW, lx0 = m0 % G::TW;
+  const int gy = t.y0 + ly, gx0 = t.x0 + lx0;
+  const long long s = ((t.b * H + gy) * W + gx0) * io.row_bytes;
+  const int head = (int)(s & 15);
+  unsigned char* pk = reinterpret_cast<unsigned char*>(ts + m0 * G::LDT);
+  const bool even = (cr & 1) == 0;
+  __syncwarp();  // every lane has its A fragments: the rows may change
+#pragma unroll
+  for (int nt = 0; nt < C / 8; ++nt) {
+    const int c = nt * 8 + 2 * q;
+    if (c < cr) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = g + 8 * hf;
+        const bf16* xr = xs + (ly + G::PAD) * G::IW * G::LDX +
+                         G::xoff(lx0 + r + G::PAD, nt) + 2 * q;
+        const float o0 = __fadd_rn(bid::to_float(xr[0]),
+                                   __fmul_rn(gns[c], pacc[nt][2 * hf]));
+        const float o1 = __fadd_rn(bid::to_float(xr[1]),
+                                   __fmul_rn(gns[c + 1],
+                                             pacc[nt][2 * hf + 1]));
+        unsigned char* d = pk + head + r * io.row_bytes + c * ESZ;
+        if constexpr (G::kInt8) {
+          const signed char q0 = quant_int8(o0, inv_out);
+          const signed char q1 = quant_int8(o1, inv_out);
+          if (even) {
+            char2 qv;
+            qv.x = q0, qv.y = q1;
+            *reinterpret_cast<char2*>(d) = qv;
+          } else {
+            d[0] = (unsigned char)q0;
+            if (c + 1 < cr) d[1] = (unsigned char)q1;
+          }
+        } else {
+          const uint32_t v = pack_bf16(o0, o1);
+          if (even) {
+            *reinterpret_cast<uint32_t*>(d) = v;
+          } else {
+            *reinterpret_cast<uint16_t*>(d) = (uint16_t)v;
+            if (c + 1 < cr) *reinterpret_cast<uint16_t*>(d + 2) = v >> 16;
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();
+  const int n = min(16, W - gx0);  // the run's pixels inside the image
+  if (gy >= H || n <= 0) return;
+  const long long e = s + (long long)n * io.row_bytes, first = s & ~15LL;
+  const int nch = (int)((e - first + 15) >> 4);
+  unsigned char* ob = reinterpret_cast<unsigned char*>(out);
+  for (int k = lane; k < nch; k += 32) {
+    const long long a = first + 16 * k;
+    if (a >= s && a + 16 <= e) {
+      *reinterpret_cast<uint4*>(ob + a) =
+          *reinterpret_cast<const uint4*>(pk + 16 * k);
+    } else {
+      for (int b = 0; b < 16; b += io.unit)
+        if (a + b >= s && a + b < e)
+          store_unit(ob + a + b, pk + 16 * k + b, io.unit);
+    }
+  }
+}
+
 // out = x + gain * p for the warp's m16 tile at pixel m0 of the tile, from
 // the projection's accumulators, into the warp's own rows of the t tile
 // (int8: requantized, C bytes at the start of each row) and from there to
@@ -726,7 +1098,12 @@ __device__ __forceinline__ void store_tile_rows(
     const bf16* __restrict__ xs, bf16* __restrict__ ts,
     const float (&pacc)[G::C / 8][4], const float* __restrict__ gns,
     T* __restrict__ out, Tile t, int H, int W, float inv_out, int m0,
-    int lane, int cr, int unit) {
+    int lane, int cr) {
+  if constexpr (G::kRagged) {
+    store_rows_ragged<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out, m0,
+                            lane, cr);
+    return;
+  }
   constexpr int C = G::C;
   const int g = lane >> 2, q = lane & 3;
   __syncwarp();  // every lane has its A fragments: the rows may change
@@ -755,22 +1132,6 @@ __device__ __forceinline__ void store_tile_rows(
     }
   }
   __syncwarp();
-  if constexpr (G::kRagged) {
-    // the true cr channels of each pixel, in units of `unit` bytes
-    const int nu = cr * (int)sizeof(T) / unit;
-    unsigned char* ob = reinterpret_cast<unsigned char*>(out);
-    for (int i = lane; i < 16 * nu; i += 32) {
-      const int m = m0 + i / nu, j = i % nu;
-      const int gy = t.y0 + m / G::TW, gx = t.x0 + m % G::TW;
-      if (gy < H && gx < W)
-        store_unit(ob + ((t.b * H + gy) * W + gx) * cr * (long long)sizeof(T) +
-                       j * unit,
-                   reinterpret_cast<const unsigned char*>(ts + m * G::LDT) +
-                       j * unit,
-                   unit);
-    }
-    return;
-  }
   constexpr int OV = C / G::VIO;  // 16-byte stores per pixel
   for (int i = lane; i < 16 * OV; i += 32) {
     const int m = m0 + i / OV, cv = i % OV;
@@ -816,7 +1177,7 @@ __device__ __forceinline__ void products_store(
     const bf16* __restrict__ xs, bf16* __restrict__ ts,
     const bf16* __restrict__ w2s, const bf16* __restrict__ w3s,
     const float* __restrict__ gns, T* __restrict__ out, Tile t, int H, int W,
-    float slope, float inv_out, int tid, int cr, int unit) {
+    float slope, float inv_out, int tid, int cr) {
   const int warp = tid >> 5, lane = tid & 31;
   const LaneRows<G> rows(ts, w2s, w3s, lane);
   for (int mt = warp; mt < G::P / 16; mt += G::NT / 32) {
@@ -833,7 +1194,7 @@ __device__ __forceinline__ void products_store(
       expand_project<G>(af, pacc, rows.w2 + 2 * ec * G::LDW2,
                         rows.w3 + 2 * ec, slope);
     store_tile_rows<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out, m0, lane,
-                          cr, unit);
+                          cr);
   }
 }
 
@@ -1123,9 +1484,33 @@ __device__ __forceinline__ void store_row_f32(
   for (int p = 0; p < 2; ++p) {
     const int gx = t.x0 + 2 * g + p;
     if constexpr (G::kRagged) {
-      // the true cr channels, one float at a time (a pixel's row of cr
-      // floats need not be 16-byte aligned)
-      if (gy < H && gx < W) {
+      // the true cr channels: 16 bytes at a time where a pixel's row is
+      // whole 16-byte vectors (cr % 4 == 0) and the weights are resident,
+      // else one float at a time (streamed, the registers are at their cap)
+      if (!G::kStream && gy < H && gx < W && (cr & 3) == 0) {
+        const long long base = ((t.b * H + gy) * W + gx) * cr;
+#pragma unroll
+        for (int i = 0; i < C / 16; ++i) {
+          const int c = 16 * i + 4 * q;
+          if (c < cr) {
+            const float4 gn = *reinterpret_cast<const float4*>(gns + c);
+            float4 xv;
+            if constexpr (G::kStream) {
+              xv = __ldg(reinterpret_cast<const float4*>(x + base + c));
+            } else {
+              const float* v = xc[p] + 4 * i;
+              xv = make_float4(v[0], v[1], v[2], v[3]);
+            }
+            float4 o;
+            o.x = __fadd_rn(xv.x, __fmul_rn(gn.x, pacc[2 * i][2 * p]));
+            o.y = __fadd_rn(xv.y, __fmul_rn(gn.y, pacc[2 * i][2 * p + 1]));
+            o.z = __fadd_rn(xv.z, __fmul_rn(gn.z, pacc[2 * i + 1][2 * p]));
+            o.w = __fadd_rn(xv.w,
+                            __fmul_rn(gn.w, pacc[2 * i + 1][2 * p + 1]));
+            *reinterpret_cast<float4*>(out + base + c) = o;
+          }
+        }
+      } else if (gy < H && gx < W) {
         const long long base = ((t.b * H + gy) * W + gx) * cr;
 #pragma unroll
         for (int i = 0; i < C / 16; ++i) {
@@ -1257,8 +1642,6 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
   using G = Cfg<T, C, K, RG>;
   using S = typename G::S;
   constexpr int E = G::E, NT = G::NT;
-  // bytes a copy of a ragged pixel row moves
-  const int unit = G::kRagged ? io_unit<T>(cr) : 16;
   extern __shared__ __align__(16) unsigned char smem[];
   float* dws = reinterpret_cast<float*>(smem + G::OFF_DW);
   float* lns = reinterpret_cast<float*>(smem + G::OFF_LN);
@@ -1280,8 +1663,31 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
   auto landing = [&](int b) {
     return smem + (G::kInt8 ? G::OFF_STAGE : G::OFF_X + b * G::XBUF);
   };
+  auto start_copies = [&](unsigned char* dst, Tile tt) {
+    if constexpr (!G::kRagged) {
+      load_tile_async<G>(x, dst, tt, H, W, tid, G::C, 16);
+    } else if constexpr (G::kInt8) {
+      load_rows_async<G>(x, dst, tt, H, W, tid, cr);
+    } else if constexpr (!G::kMma && G::kStream) {
+      // float32 with streamed weights copies at its register cap (t and the
+      // accumulators hold 112 - 128 registers across the chunks, the copies
+      // of the next tile start at chunk 0): the per-pixel units of
+      // load_tile_async, which divides, as every f32 class did, where the
+      // walk's operands spill
+      load_tile_async<G>(x, dst, tt, H, W, tid, cr, io_unit<T>(cr));
+    } else {
+      load_tile_units<G>(x, dst, tt, H, W, tid, cr);
+    }
+  };
+  if constexpr (G::kRagged) {
+    // the per-pixel copies write a tile's cr channels only: the rest stays
+    // zero from here on
+    for (int i = tid; i < G::NXBUF * (int)(G::XBUF / 16); i += NT)
+      reinterpret_cast<uint4*>(smem + G::OFF_X)[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
   int tile = blockIdx.x;  // the grid is no larger than ntiles
-  load_tile_async<G>(x, landing(buf), tile_at(tile), H, W, tid, cr, unit);
+  start_copies(landing(buf), tile_at(tile));
   // C = 128: chunk c of W2 and W3 lands in weight buffer c % 2; the first
   // tile's chunk 0 follows its input
   unsigned char* const ring = smem + G::OFF_W2;
@@ -1348,7 +1754,10 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
     // warp is done with the previous tile's buffers
     __syncthreads();
     if constexpr (G::kInt8) {
-      dequantize_tile<G>(smem + G::OFF_STAGE, xs, s_in, tid);
+      if constexpr (G::kRagged)
+        relayout_tile<G, T>(smem + G::OFF_STAGE, xs, t, H, W, tid, cr, s_in);
+      else
+        dequantize_tile<G>(smem + G::OFF_STAGE, xs, s_in, tid);
       __syncthreads();
     }
     if constexpr (G::kMma) {
@@ -1359,9 +1768,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
       constexpr bool kRefillLate = !G::kInt8 && G::NXBUF == 1;
       if constexpr (!kRefillLate) {
         buf ^= G::NXBUF - 1;
-        if (next < ntiles)
-          load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid, cr,
-                             unit);
+        if (next < ntiles) start_copies(landing(buf), tile_at(next));
       }
       bf16* ts = reinterpret_cast<bf16*>(smem + G::OFF_T);
       depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, inv_cr);
@@ -1385,16 +1792,15 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
           expand_project<G>(af, pacc, rows.w2 + b, rows.w3 + b, slope);
         }
         store_tile_rows<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out,
-                              16 * warp, lane, cr, unit);
+                              16 * warp, lane, cr);
       } else {
         products_store<G>(xs, ts, w2s, w3s, gns, out, t, H, W, slope,
-                          inv_out, tid, cr, unit);
+                          inv_out, tid, cr);
       }
       if constexpr (kRefillLate) {
         if (next < ntiles) {
           __syncthreads();  // every warp is done with this tile's x
-          load_tile_async<G>(x, landing(0), tile_at(next), H, W, tid, cr,
-                             unit);
+          start_copies(landing(0), tile_at(next));
         }
       }
     } else {
@@ -1404,8 +1810,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
       if constexpr (G::NXBUF == 2) {
         buf ^= 1;
         if (next < ntiles)
-          load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid,
-                             cr, unit);
+          start_copies(landing(buf), tile_at(next));
       }
       float tv[2][C / 4], xc[2][C / 4];
       depthwise_layernorm_f32<G>(xs, dws, lns, tv, xc, warp, lane, cr,
@@ -1424,8 +1829,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
           if constexpr (G::NXBUF == 1) {
             // past the first chunk's barrier every depthwise is done
             if (c == 0 && next < ntiles)
-              load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid,
-                                 cr, unit);
+              start_copies(landing(buf), tile_at(next));
           }
           const float4* wc =
               reinterpret_cast<const float4*>(ring + (c & 1) * G::WBUF);
@@ -1437,8 +1841,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
         if constexpr (G::NXBUF == 1) {
           if (next < ntiles) {
             __syncthreads();  // the only tile buffer is free again
-            load_tile_async<G>(x, landing(buf), tile_at(next), H, W, tid,
-                               cr, unit);
+            start_copies(landing(buf), tile_at(next));
           }
         }
         products_store_f32<G>(tv, xc, reinterpret_cast<const float4*>(w2s),
@@ -1503,8 +1906,8 @@ int launch_kernel(Kern kern, const void* x, void* out, const void* dw,
 }
 
 // shared memory, registers, local (spill) bytes, threads per block,
-// resident blocks per SM, cluster size (1) and the blocks the card holds
-// at once of one kernel, as v[0..6]
+// resident blocks per SM, cluster size (1), the blocks the card holds at
+// once and the layout's width of one kernel, as v[0..7]
 template <typename G, typename Kern>
 int kernel_info(Kern kern, int* v) {
   cudaFuncAttributes a;
@@ -1515,6 +1918,7 @@ int kernel_info(Kern kern, int* v) {
   v[2] = (int)a.localSizeBytes;
   v[3] = G::NT;
   v[5] = 1;
+  v[7] = G::C;
   const int rc = resident_blocks<G>(kern, &v[4]);
   v[6] = v[4] * bid::sm_count();
   return rc;
@@ -1540,19 +1944,21 @@ int info(int* v) {
 
 namespace bid_k1 {
 
-// The class kernels of every C up to 128 (convnext_class.cu) and the wide
-// class, 128 < C <= 256 (convnext_wide.cu), at K = 1, 3, 5, 7: a launch,
-// and an
-// instantiation's info as bid_convnext_block_info gives it, by dtype code
-// (0 float32, 1 bfloat16, 2 int8)
+// The class kernels of every C up to 128 at K = 1, 3, 5 (convnext_class.cu,
+// the layouts of width C rounded up to 16 over the sources of
+// convnext_class.cuh) and the wide class, 128 < C <= 256
+// (convnext_wide.cu), at K = 1, 3, 5, 7: a launch, and an instantiation's
+// info as bid_convnext_block_info gives it, by dtype code (0 float32, 1
+// bfloat16, 2 int8)
 int launch_class(int dtype, const void* x, void* out, const void* dw,
                  const void* ln, const void* w2, const void* w3,
                  const void* gain, int B, int H, int W, int C, int K,
                  float slope, float s_in, float inv_out, cudaStream_t s);
 int info_class(int dtype, int C, int K, int* v);
 // K = 7 at C <= 128: (32, 7), (64, 7), (128, 7) of their own
-// (convnext_k7.cu) and the classes of width 32, 64, 128
-// (convnext_k7_class.cu)
+// (convnext_k7.cu) and the class layouts (convnext_k7_class.cu,
+// convnext_k7_class_80.cu, convnext_k7_class_112.cu; dispatched in
+// convnext_class.cu)
 int launch_k7(int dtype, const void* x, void* out, const void* dw,
               const void* ln, const void* w2, const void* w3,
               const void* gain, int B, int H, int W, int C, float slope,

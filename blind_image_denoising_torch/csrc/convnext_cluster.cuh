@@ -852,9 +852,10 @@ int launch_cluster(const void* x, void* out, const void* dw, const void* ln,
   return (int)cudaGetLastError();
 }
 
-// v[0..6]: shared memory, registers, local (spill) bytes, threads per
-// block, resident blocks per SM, cluster size and the clusters the card
-// holds at once, of the kernel that runs C channels
+// v[0..7]: shared memory, registers, local (spill) bytes, threads per
+// block, resident blocks per SM, cluster size, the clusters the card holds
+// at once and the layout's width (128 n), of the kernel that runs C
+// channels
 template <typename G, typename T>
 int info_cluster(int cr, int* v) {
   auto kern = convnext_cluster_kernel<G, T>;
@@ -869,6 +870,7 @@ int info_cluster(int cr, int* v) {
   v[2] = (int)a.localSizeBytes;
   v[3] = G::NT;
   v[5] = n;
+  v[7] = n * kSlice;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&v[4], kern,
                                                             G::NT, v[0]);
 }

@@ -1,7 +1,8 @@
 // K1 at K = 7 for every C up to 128 (E = 4C), in every I/O mode: (32, 7),
 // (64, 7) and (128, 7) with instantiations of their own, and, through
-// convnext_k7_class.cu, the classes of width 32, 64 and 128 for every other
-// C (the true C a launch argument, the weights padded by the wrapper). The
+// convnext_class.cuh, the class layouts of width C rounded up to 16 for
+// every other C (the true C a launch argument, the weights padded by the
+// wrapper). The
 // layouts and what K = 7 changes in them are noted in convnext_block.cuh.
 // Sources of their own (K = 7 unrolls 49 taps) so that they build beside
 // the K <= 5 instantiations.

@@ -33,7 +33,6 @@ struct WCfg {
   static constexpr int ECH = kMma ? 32 : 16, NCH = E / ECH;
   // bf16 depthwise work items, as in Cfg
   static constexpr int R = 4, CG = C / 8, RUNS_W = TW / R;
-  static constexpr int ITEMS = TH * RUNS_W * CG;
   static constexpr int IH = TH + 2 * PAD, IW = TW + 2 * PAD;
   static constexpr int V = 16 / sizeof(S), VIO = 16 / sizeof(T);
   // the depthwise by groups of GC channels, one halo tile each: f32 at

@@ -162,14 +162,17 @@ def build_fused_forward(config: Dict, model, scales: Optional[Dict] = None,
             v = quantize(v, s_prev)
         for w in range(width):
             unit = getattr(bb, f"{kind}_{d}_{w}")
-            wts = unit.kernel_weights(torch.bfloat16 if quant else dtype)
+            w_dtype = torch.bfloat16 if quant else dtype
+            wts = unit.kernel_weights(w_dtype)
+            ops = unit.kernel_operands(w_dtype) if v.is_cuda else None
             site_out = f"{kind}_{d}_{w}_out"
             if quant:
                 v = convnext_block(v, slope=unit.slope, scale_in=s_prev,
-                                   scale_out=scales[site_out], **wts)
+                                   scale_out=scales[site_out], operands=ops,
+                                   **wts)
                 s_prev = scales[site_out]
             else:
-                v = convnext_block(v, slope=unit.slope, **wts)
+                v = convnext_block(v, slope=unit.slope, operands=ops, **wts)
             if _recorder is not None:
                 _recorder.record(site_out, v)
         if quant:    # bf16(q) · bf16(s) in bf16, as cf.astype(dtype) * s

@@ -160,7 +160,7 @@ class ConvNextBlock(nn.Module):
         self._cache = None
 
     def kernel_weights(self, dtype: torch.dtype):
-        """The fused kernel's operands; the 1×1 matrices in the activation
+        """The fused kernel's weights; the 1×1 matrices in the activation
         dtype. Cached per dtype/device until a parameter changes."""
         params = (self.conv_1.kernel, self.conv_1.ln.scale,
                   self.conv_2.kernel, self.conv_3.kernel,
@@ -175,8 +175,22 @@ class ConvNextBlock(nn.Module):
                          w2=self.conv_2.kernel.detach().to(dtype),
                          w3=self.conv_3.kernel.detach().to(dtype),
                          gain=self.gamma.gain().detach().float())
-            self._cache = (key, w)
+            # the kernel's operands of these weights, made at first use
+            self._cache = [key, w, None]
         return self._cache[1]
+
+    def kernel_operands(self, dtype: torch.dtype):
+        """:meth:`kernel_weights` as the kernel takes them
+        (``pallas_convnext.kernel_operands``: cast, padded to the width of
+        the layout that runs the unit, on 16 bytes), for an x of ``dtype``
+        (int8 codes: ``torch.bfloat16``). Cached with the weights, so a
+        launch with them runs no cast, pad or copy until a parameter
+        changes."""
+        w = self.kernel_weights(dtype)
+        if self._cache[2] is None:
+            with torch.no_grad():
+                self._cache[2] = pallas_convnext.kernel_operands(dtype, **w)
+        return self._cache[2]
 
     def _quant_sites_active(self) -> bool:
         return any(quant_ops.current_quant_mode(
@@ -231,4 +245,6 @@ class ConvNextBlock(nn.Module):
                                            for p in self.parameters()))):
             return x + self.branch(x)
         w = self.kernel_weights(x.dtype)
-        return nchw(convnext_block(nhwc(x), slope=self.slope, **w))
+        ops = self.kernel_operands(x.dtype) if x.is_cuda else None
+        return nchw(convnext_block(nhwc(x), slope=self.slope, operands=ops,
+                                   **w))

@@ -24,22 +24,25 @@ What is built: every C from 1 to 1024 at K = 1, 3, 5 and 7 with E = 4C,
 in every I/O mode (:func:`kernel_supports`), as JAX's kernel takes any C
 and odd K. Twelve (C, K) have instantiations of their own
 (``OWN_SHAPES``: the seven above, (64, 3), (128, 3), and K = 7 at C =
-32, 64, 128); any other C up to 256 runs a class of width 32, 64 or 128
-(the layouts below at that width, with the true C a launch argument) or
-the wide class of width 256 (``csrc/convnext_class.cu``,
-``csrc/convnext_wide.cu``); from ``CLUSTER_FROM`` (257) on a
-thread-block cluster of ceil(C / 128) blocks runs the unit
-(``csrc/convnext_cluster.cuh``, below). A class's padded channels have
-zero weights (:func:`kernel_operands` pads them on every call: to the
-class's width, and on the cluster route to the next multiple of 128),
-its LayerNorm statistics are taken over the true C, and its tile and
-output move in units of the largest power of two up to 16 bytes that
-divides a pixel's row. A depth-5 ``unet_laplacian_v6`` fused to level 3
-runs (256, 5); one with ``filters_level_multiplier`` 1.5 runs (48, 5),
-(72, 5) and (108, 5); one without self-attention runs (512, 5) at level
-4, and at depth 6 (1024, 5) at level 5; a ``v6`` whose kernel sizes are
-7 runs (32, 7) and (64, 7). C above 1024 raises ``NotImplementedError``
-on the card.
+32, 64, 128); any other C up to 128 runs the layout of width C rounded
+up to 16 (16, 32, ..., 128: the layouts below written for any multiple
+of 16, ``csrc/convnext_class.cuh``), so a unit does about C channels of
+depthwise and C' x 4C' of each product, C' = :func:`class_width`; up to
+256 the wide class of width 256 (``csrc/convnext_wide.cu``); from
+``CLUSTER_FROM`` (257) on a thread-block cluster of ceil(C / 128) blocks
+runs the unit (``csrc/convnext_cluster.cuh``, below). A class's padded
+channels have zero weights (:func:`kernel_operands` pads them: to the
+layout's width, and on the cluster route to the next multiple of 128;
+a model's unit prepares them once, ``ConvNextBlock.kernel_operands``,
+and hands them to :func:`convnext_block` as ``operands``), its
+LayerNorm statistics are taken over the true C, and its tile and output
+move in 16-byte units wherever a pixel's row, or the contiguous run of a
+tile row's pixels, allows. A depth-5 ``unet_laplacian_v6`` fused to
+level 3 runs (256, 5); one with ``filters_level_multiplier`` 1.5 runs
+(48, 5), (72, 5) and (108, 5) (the layouts of width 48, 80, 112); one
+without self-attention runs (512, 5) at level 4, and at depth 6
+(1024, 5) at level 5; a ``v6`` whose kernel sizes are 7 runs (32, 7) and
+(64, 7). C above 1024 raises ``NotImplementedError`` on the card.
 
 CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
 2K²C + 16C² operations against 2·C·bytes of I/O: ≈ 17 k operations per
@@ -201,17 +204,25 @@ MAX_CHANNELS = 1024
 # from CLUSTER_FROM on a thread-block cluster runs the unit
 # (csrc/convnext_cluster.cuh; convnext_block.cu's kClusterFrom), each
 # block owning CLUSTER_SLICE output channels: its width is the next
-# multiple of CLUSTER_SLICE; below it the one-block classes of
-# CLASS_WIDTHS
+# multiple of CLUSTER_SLICE; up to 128 the layouts of C rounded up to
+# CLASS_STEP (csrc/convnext_class.cuh's class_width); above, the wide class
+# of width WIDE_WIDTH
 CLUSTER_FROM = 257
 CLUSTER_SLICE = 128
-CLASS_WIDTHS = (32, 64, 128, 256)
+CLASS_STEP = 16
+WIDE_WIDTH = 256
+# layout widths float32 does not build (csrc/convnext_class.cuh
+# built_width: its width-112 layout spilled at 255 registers), which run
+# the next width
+F32_UNBUILT_WIDTHS = (112,)
 # a named sample of what the kernel takes: the twelve of their own and each
-# class at widths that are and are not multiples of 16 (odd ones included);
-# the tests and chip_smoke.py's build check sweep it
+# class at widths that are and are not multiples of 16 (odd ones included):
+# every layout width up to 128 (16, 32, 48, 64, 80, 96, 112, 128) and the
+# ragged edge of each; the tests and chip_smoke.py's build check sweep it
 SAMPLE_SHAPES = tuple(sorted(OWN_SHAPES | {
     (c, k) for c in (1, 7, 8, 24, 48, 72, 108, 128, 144, 162, 200, 256, 300,
-                     384, 512, 520, 640, 768, 1000, 1024)
+                     384, 512, 520, 640, 768, 1000, 1024, 16, 40, 80, 88, 96,
+                     100, 112, 120)
     for k in KERNEL_KS}))
 # E channels of W2 and W3 a shared-memory buffer holds at C = 128 (and in
 # float32 at (64, 7)), where they stream through two such buffers (float32
@@ -221,8 +232,11 @@ WIDE_F32_CHUNK = 16
 # the wide class's depthwise channel groups (csrc/convnext_wide.cuh GC)
 WIDE_GROUP = 64
 INT8_MAX = 127
-# dynamic shared memory one block may have on an H100
+# dynamic shared memory one block may have on an H100, one SM's, and what a
+# resident block takes of it for itself
 SHARED_MEMORY_LIMIT = 232_448
+SM_SHARED_MEMORY = 233_472
+BLOCK_RESERVED_SHARED_MEMORY = 1024
 
 
 def kernel_supports(c: int, k: int, e: int = None) -> bool:
@@ -233,14 +247,22 @@ def kernel_supports(c: int, k: int, e: int = None) -> bool:
             and (e is None or e == 4 * c))
 
 
-def class_width(c: int) -> int:
-    """The width of the layout that runs C channels: on the cluster route
-    (``runs_cluster``) the next multiple of ``CLUSTER_SLICE``, else the
-    smallest of ``CLASS_WIDTHS`` that holds C (``OWN_SHAPES`` are their
-    own width)."""
+def class_width(c: int, dtype: torch.dtype = None) -> int:
+    """The width of the layout that runs C channels in I/O ``dtype``: on
+    the cluster route (``runs_cluster``) the next multiple of
+    ``CLUSTER_SLICE``, above 128 ``WIDE_WIDTH``, else C rounded up to
+    ``CLASS_STEP`` (``OWN_SHAPES`` are their own width), but float32 keeps
+    128 where that is 112 (``F32_UNBUILT_WIDTHS``): the channels the
+    weights are padded to, which the library reports as an
+    instantiation's width."""
     if runs_cluster(c):
         return -(-c // CLUSTER_SLICE) * CLUSTER_SLICE
-    return next(w for w in CLASS_WIDTHS if c <= w)
+    if c > 128:
+        return WIDE_WIDTH
+    width = -(-c // CLASS_STEP) * CLASS_STEP
+    if dtype == torch.float32 and width in F32_UNBUILT_WIDTHS:
+        return width + CLASS_STEP
+    return width
 
 
 def _align16(n):
@@ -249,11 +271,13 @@ def _align16(n):
 
 def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     """Threads per block, dynamic shared-memory bytes and cluster size of
-    the kernel that runs (C, K, dtype): a mirror of ``Cfg`` in
-    ``csrc/convnext_block.cuh`` (C up to 128, laid out at its class's width),
-    of ``WCfg`` in ``csrc/convnext_wide.cuh`` (128 < C <= 256; one block,
-    cluster size 1) and of ``clayout`` in ``csrc/convnext_cluster.cuh``
-    (from ``CLUSTER_FROM`` on), which
+    the kernel that runs (C, K, dtype), and, up to C = 128, the blocks an
+    SM its registers are capped for (``min_blocks_per_sm``, its
+    ``__launch_bounds__``): a mirror of ``Cfg`` in
+    ``csrc/convnext_block.cuh`` (C up to 128, laid out at its class's
+    width), of ``WCfg`` in ``csrc/convnext_wide.cuh`` (128 < C <= 256; one
+    block, cluster size 1) and of ``clayout`` in
+    ``csrc/convnext_cluster.cuh`` (from ``CLUSTER_FROM`` on), which
     ``chip_smoke.py`` holds against what the built library reports. Raises
     ``NotImplementedError`` where the kernel does not take the unit."""
     if not kernel_supports(c, k):
@@ -261,23 +285,31 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
             f"convnext_block kernel does not take C={c} K={k} in {dtype}")
     if runs_cluster(c):
         return cluster_plan(c, k, dtype)
-    c = class_width(c)
+    ragged = (c, k) not in OWN_SHAPES
+    c = class_width(c, dtype)
     if c > 128:
         return dict(_wide_plan(k, dtype), cluster_size=1)
     mma, int8 = dtype != torch.float32, dtype == torch.int8
     e, pad, elt = 4 * c, k // 2, 2 if mma else 4
-    th, tw = 8, 32 if mma and c != 128 else 16
+    # one block of 512 threads on 8 x 32 tiles in bf16 at C = 64 and (48,
+    # 7); tiles of 8 x 32 at C <= 32, else 8 x 16
+    block512 = mma and (c == 64 or (c == 48 and k == 7))
+    th, tw = 8, 32 if mma and (c <= 32 or block512) else 16
     ih, iw = th + 2 * pad, tw + 2 * pad
-    # tile rows unpadded (swizzled) at C >= 64 in bf16, else padded by 8
-    ldx = c if mma and c >= 64 else c + 8
+    # tile rows unpadded (swizzled) at C = 64, 128 in bf16, else padded by 8
+    ldx = c if mma and c % 64 == 0 else c + 8
     xbuf = elt * ih * iw * ldx
     end = _align16(4 * k * k * c)                         # depthwise weights
     end = _align16(_align16(end + 4 * c) + 4 * c)         # LN scale, gain
-    # W2 and W3 stream through two buffers of an E chunk at C = 128 and in
-    # f32 where the resident ones do not fit beside one tile ((64, 7)); f32
+    # W2 and W3 stream through two buffers of an E chunk where their bf16
+    # padded rows take more than half of a block's shared memory (C >= 96)
+    # and in f32 where the resident ones do not fit beside one tile; f32
     # chunks of 16 where two of 32 do not fit either ((128, 7))
-    stream = c == 128 or (not mma and end + xbuf + 2 * _align16(4 * e * c)
-                          > SHARED_MEMORY_LIMIT)
+    if mma:
+        stream = (_align16(2 * e * (c + 8)) + _align16(2 * c * (e + 8))
+                  > SHARED_MEMORY_LIMIT // 2)
+    else:
+        stream = end + xbuf + 2 * _align16(4 * e * c) > SHARED_MEMORY_LIMIT
     ech = (WIDE_F32_CHUNK if not mma and stream and end + xbuf + 4 * _align16(
         4 * STREAM_CHUNK * c) > SHARED_MEMORY_LIMIT else STREAM_CHUNK)
     ew = ech if stream else e
@@ -291,11 +323,19 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     buffers = (1 if int8 else 2 if end + 2 * xbuf + weights + t_tile
                <= SHARED_MEMORY_LIMIT else 1)
     end = _align16(end + buffers * xbuf)                  # input tiles
-    end = _align16(end + (ih * iw * c if int8 else 0))    # staged codes
+    # int8 stages its codes: a ragged layout the tile's rows as they lie in
+    # device memory (a row's run from the 16-byte boundary before it)
+    stage = (0 if not int8 else ih * _align16(iw * c + 15) if ragged
+             else ih * iw * c)
+    end = _align16(end + stage)
     end += weights + t_tile
     # f32: a warp per tile row
-    threads = 32 * th if not mma else 512 if c == 64 else 256
-    return dict(threads_per_block=threads, smem_bytes=end, cluster_size=1)
+    threads = 32 * th if not mma else 512 if block512 else 256
+    # two blocks an SM wherever two fit at K < 7 with W2 and W3 resident
+    blocks = 2 if k < 7 and not stream and 2 * (
+        end + BLOCK_RESERVED_SHARED_MEMORY) <= SM_SHARED_MEMORY else 1
+    return dict(threads_per_block=threads, smem_bytes=end, cluster_size=1,
+                min_blocks_per_sm=blocks)
 
 
 def _wide_plan(k: int, dtype: torch.dtype) -> dict:
@@ -416,8 +456,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
-                         scale_in=None, scale_out=None):
-    """Plain PyTorch version of the kernel. x: [B, H, W, C] float32,
+                         scale_in=None, scale_out=None, operands=None):
+    """Plain PyTorch version of the kernel (``operands``, the kernel's
+    prepared weights, is taken and not read, so that a caller of the
+    wrapper can call this in its place). x: [B, H, W, C] float32,
     bfloat16, or int8 codes with ``scale_in``/``scale_out``. In bfloat16
     and int8 the products see bf16 operands (``t``, ``h`` and the weights
     rounded to bf16) with float32 sums, as the tensor cores do; int8 codes
@@ -461,7 +503,8 @@ def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
     """The weights as the kernel takes them for x of ``dtype``: dw [C', K²]
     (on the cluster route transposed, [K², C']), the LayerNorm scale and
     the gain [C'] in float32, W2 [4C', C'] and W3 [C', 4C'] in x's dtype
-    (bf16 for int8), contiguous on 16 bytes, with C' = ``class_width(C)``
+    (bf16 for int8), contiguous on 16 bytes, with C' = ``class_width(C,
+    dtype)``
     (on the cluster route the next multiple of ``CLUSTER_SLICE``): a class
     kernel's padded channels have zero depthwise weights, LayerNorm scale
     and gain, W2 columns and W3 rows, and its padded E rows of W2 and
@@ -474,7 +517,7 @@ def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
     w2_io = _aligned(w2.to(w_dtype).contiguous())
     w3_io = _aligned(w3.to(w_dtype).contiguous())
     cluster = runs_cluster(c)
-    pad = class_width(c) - c
+    pad = class_width(c, dtype) - c
     if pad:
         dw_f = F.pad(dw_f, (0, 0, 0, pad))
         ln_f, gain_f = F.pad(ln_f, (0, pad)), F.pad(gain_f, (0, pad))
@@ -485,14 +528,35 @@ def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
     return dw_f, ln_f, w2_io, w3_io, gain_f
 
 
+def _check_operands(operands, x, c, k):
+    """Raise unless ``operands`` are :func:`kernel_operands`' layout for a
+    unit of C channels and K x K taps run on x (shapes, dtypes, device,
+    16-byte starts): the kernel reads them without bounds."""
+    width = class_width(c, x.dtype)
+    w_dtype = torch.bfloat16 if x.dtype == torch.int8 else x.dtype
+    dw_shape = ((k * k, width) if runs_cluster(c) else (width, k * k))
+    want = (dw_shape, (width,), (4 * width, width), (4 * width, width)[::-1],
+            (width,))
+    dtypes = (torch.float32, torch.float32, w_dtype, w_dtype, torch.float32)
+    if len(operands) != 5 or any(
+            tuple(t.shape) != s or t.dtype != d or t.device != x.device
+            or not t.is_contiguous() or t.data_ptr() % 16
+            for t, s, d in zip(operands, want, dtypes)):
+        raise ValueError("convnext_block: operands are not kernel_operands' "
+                         f"layout for C={c} K={k} in {x.dtype}")
+
+
 def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
-                   scale_in=None, scale_out=None):
+                   scale_in=None, scale_out=None, operands=None):
     """One fused ConvNext residual unit. x: [B, H, W, C] float32/bfloat16,
     or int8 codes with their ``scale_in`` and the ``scale_out`` to
     requantize with (int8 mode: int8 in, int8 out); dw: [C, 1, K, K] or
     [C, K, K] depthwise kernel; ln_scale: [C]; w2: [E, C]; w3: [C, E];
-    gain: [C], the activated tanh(relu(1 + w)). Returns [B, H, W, C] in
-    x's dtype."""
+    gain: [C], the activated tanh(relu(1 + w)). ``operands``: the same
+    weights as :func:`kernel_operands` gives them for x's dtype, prepared
+    once by the caller (``ConvNextBlock.kernel_operands`` caches them), so
+    that the launch runs no cast, pad or copy of them; without, they are
+    prepared on every call. Returns [B, H, W, C] in x's dtype."""
     global launches, int8_launches
     if x.ndim != 4:
         raise ValueError(f"convnext_block takes [B, H, W, C], got {x.shape}")
@@ -529,8 +593,11 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
     s_in, inv_out = int8_constants(scale_in, scale_out) if int8 else (1.0,
                                                                        1.0)
     x = _aligned(x.contiguous())
-    dw_f, ln_f, w2_io, w3_io, gain_f = kernel_operands(
-        x.dtype, dw, ln_scale, w2, w3, gain)
+    if operands is None:
+        operands = kernel_operands(x.dtype, dw, ln_scale, w2, w3, gain)
+    else:
+        _check_operands(operands, x, c, k)
+    dw_f, ln_f, w2_io, w3_io, gain_f = operands
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out

@@ -492,32 +492,38 @@ def band_bound_ms(b, h, w, c, k, dtype, backward=False, split=False):
 
 def k1_instantiations(lib, pallas_convnext):
     """Shared memory, registers, spill bytes, threads per block, resident
-    blocks per SM, cluster size and the clusters (blocks, up to C = 128)
-    the card holds at once of the K1 instantiation that runs each (C, K)
-    of ``pallas_convnext.SAMPLE_SHAPES`` (the twelve of their own and every
-    class at widths that are and are not multiples of 16), from the
-    library (``bid_convnext_block_info``). An instantiation that spills,
-    differs from ``kernel_plan`` or fits no cluster on the card fails."""
+    blocks per SM, cluster size, the clusters (blocks, up to C = 256) the
+    card holds at once and the layout's width of the K1 instantiation that
+    runs each (C, K) of ``pallas_convnext.SAMPLE_SHAPES`` (the twelve of
+    their own and every class at widths that are and are not multiples of
+    16), from the library (``bid_convnext_block_info``). An instantiation
+    that spills, differs from ``kernel_plan`` (its resident blocks fewer
+    than the plan's ``min_blocks_per_sm``), fits no cluster on the card or
+    is laid out at another width than ``class_width`` (the width the
+    wrapper pads the weights to) fails."""
     import ctypes
     out = []
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
         for c, k in pallas_convnext.SAMPLE_SHAPES:
-            vals = (ctypes.c_int * 7)()
+            vals = (ctypes.c_int * 8)()
             rc = lib.bid_convnext_block_info(c, k, code, vals)
             if rc != 0:
                 raise AssertionError(f"K1 info {dtype} ({c}, {k}): {rc}")
             out.append(dict(zip(
                 ("smem_bytes", "registers", "local_bytes",
                  "threads_per_block", "blocks_per_sm", "cluster_size",
-                 "active_clusters"), vals),
+                 "active_clusters", "width"), vals),
                 dtype=str(dtype).split(".")[-1], C=c, K=k))
             if out[-1]["local_bytes"] > 0:
                 raise AssertionError(f"K1 instantiation spills: {out[-1]}")
             if out[-1]["active_clusters"] < 1 or out[-1]["blocks_per_sm"] < 1:
                 raise AssertionError(f"K1 instantiation fits no cluster: "
                                      f"{out[-1]}")
-            plan = pallas_convnext.kernel_plan(c, k, dtype)
-            if any(out[-1][key] != want for key, want in plan.items()):
+            plan = dict(pallas_convnext.kernel_plan(c, k, dtype))
+            if out[-1]["blocks_per_sm"] < plan.pop("min_blocks_per_sm", 1) \
+                    or any(out[-1][key] != want for key, want in plan.items()) \
+                    or out[-1]["width"] != pallas_convnext.class_width(
+                        c, dtype):
                 raise AssertionError(f"K1 built as {out[-1]}, planned as "
                                      f"{plan}")
     return out
@@ -1080,7 +1086,8 @@ def tile_patches(h, w, t):
 class KernelInputs:
     """Within the block, records every distinct K1 / K2 / K2-backward / K3
     launch the port makes on the card: (shape, dtype, kernel size; K3:
-    its noise ranges) with the first such call's weights. The layers and
+    its noise ranges) with the first such call's weights (K1's without
+    the operands its unit prepared from them). The layers and
     the train step import the wrappers by name, so the block wraps those
     names (and K2's backward, which its autograd Function looks up in
     ``ops/pallas_pyramid``); the wrapped call is the wrapper's own,
@@ -1111,8 +1118,12 @@ class KernelInputs:
                 else:
                     k = kw["dw"].shape[-1] if "dw" in kw else args[-1]
                 key = (tuple(x.shape), x.dtype, k)
+                # the weights, not the operands a unit prepared from them:
+                # the checks launch the wrapper as a caller of
+                # convnext_block(x, dw, ...) has it
                 with self._lock:
-                    self.seen[name].setdefault(key, (args[pos + 1:], kw))
+                    self.seen[name].setdefault(key, (args[pos + 1:], {
+                        n: v for n, v in kw.items() if n != "operands"}))
             return fn(*args, **kw)
         return recording
 
@@ -3351,14 +3362,22 @@ FUSEDW_OWN_MARGIN = 0.5
 # H = W, the unit whose weights it takes: a model of FUSEDW_MODELS and a
 # unit, or None for the card tests' seeded weights): (256, 5) at a depth-5
 # fused forward's level 3 in bf16 and int8 (b32 @ 256²) and in f32 (b8), the
-# multiplier-1.5 model's levels 1-3 in bf16, and (64, 3) / (128, 3) at
-# b8 @ 256²'s levels 1 and 2
+# multiplier-1.5 model's levels 1-3 in bf16, its level 1 in int8 and f32,
+# (48, 7) at its level 1's pixels, (128, 5) at the C = 256 model's level 2,
+# and (64, 3) / (128, 3) at b8 @ 256²'s levels 1 and 2. The rows of
+# FUSEDW_TIMED_ONLY are timed beside the others and not summed into the
+# kernels line's per-forward rows
+FUSEDW_TIMED_ONLY = {("int8", 48, 5), ("f32", 48, 5), ("bf16", 128, 5)}
 FUSEDW_K1_ROWS = [("bf16", 256, 5, 32, 32, ("c256", "encoder_3_0")),
                   ("int8", 256, 5, 32, 32, ("c256", "encoder_3_0")),
                   ("f32", 256, 5, 8, 32, ("c256", "encoder_3_0")),
                   ("bf16", 48, 5, 32, 128, ("x1.5", "encoder_1_0")),
                   ("bf16", 72, 5, 32, 64, ("x1.5", "encoder_2_0")),
                   ("bf16", 108, 5, 32, 32, ("x1.5", "encoder_3_0")),
+                  ("int8", 48, 5, 32, 128, ("x1.5", "encoder_1_0")),
+                  ("f32", 48, 5, 8, 128, ("x1.5", "encoder_1_0")),
+                  ("bf16", 48, 7, 32, 128, None),
+                  ("bf16", 128, 5, 32, 64, ("c256", "encoder_2_0")),
                   ("bf16", 64, 3, 8, 128, None),
                   ("bf16", 128, 3, 8, 64, None),
                   ("bf16", 512, 5, 8, 16, ("c512", "encoder_4_0")),
@@ -3390,10 +3409,13 @@ def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
                 **fields):
     """K1 on ``x`` (float32; ``mode`` "f32", "bf16" or "int8", whose scales
     are 1/127 and 4/127 of max |x|) warm and cold beside its bound, its
-    plain version and its library chain, its output held to phase 3's
-    bars (bf16 max(0.05, 1 ulp); f32 1e-3 and ``K1_F32_RELATIVE`` of max
-    |plain output|; int8 one code on at most ``share_differing`` of the
-    outputs). Logs and returns the row; raises past a bar."""
+    plain version and its library chain, through the wrapper as a caller
+    of ``convnext_block(x, dw, ...)`` has it (the operands prepared on
+    every call), its output held to phase 3's bars (bf16 max(0.05, 1 ulp);
+    f32 1e-3 and ``K1_F32_RELATIVE`` of max |plain output|; int8 one code
+    on at most ``share_differing`` of the outputs) and to the bits of a
+    launch on the operands prepared once, as the model's units launch it.
+    Logs and returns the row; raises past a bar."""
     from blind_image_denoising_torch.ops.precision import exact_float32
     b, h, w, c = x.shape
     k = wts["dw"].shape[-1]
@@ -3409,8 +3431,10 @@ def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
         x = x.to(torch.float32 if mode == "f32" else torch.bfloat16)
         library = lambda: convnext_library(  # noqa: E731
             x, slope=slope, **{n: v.to(x.dtype) for n, v in wts.items()})
+    ops = pallas_convnext.kernel_operands(x.dtype, **wts)
     with exact_float32():                # the f32 library chain: TF32 off
         got = pallas_convnext.convnext_block(x, **kw, **wts)
+        cached = pallas_convnext.convnext_block(x, **kw, **wts, operands=ops)
         ref = pallas_convnext.convnext_block_plain(x, **kw, **wts)
         t = dict(
             ms=cuda_ms(lambda: pallas_convnext.convnext_block(x, **kw,
@@ -3422,6 +3446,9 @@ def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
             library_ms=cuda_ms(library))
     diff = (got.float() - ref.float()).abs()
     err = float(diff.max())
+    if not torch.equal(got, cached):
+        raise AssertionError(f"K1 {mode} {[b, h, w, c]} K={k}: the prepared "
+                             f"operands gave other bits")
     if mode == "int8":
         share = float((diff > 0).float().mean())
         ok = err <= 1 and share <= share_differing
@@ -3639,6 +3666,7 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
         rows.append(k1_row_time(
             pallas_convnext, mode, x, wts, slope, smi, int8_share(c),
             path="fused_widths", weights=on,
+            timed_only=(mode, c, k) in FUSEDW_TIMED_ONLY,
             calls_per_forward=0 if unit is None else 3 if unit[1].startswith(
                 f"encoder_{fusedw_depth(unit[0]) - 1}") else 6))
         del x
@@ -6917,7 +6945,7 @@ def main() -> int:
             "ms", "cold_ms", "plain_ms", "library_ms")}, r["bound_ms"],
                  r["bound_by"]) for r in rows
                 if r["dtype"] == dtype and r["calls_per_forward"]
-                and width_band(r["C"]) == band]
+                and not r["timed_only"] and width_band(r["C"]) == band]
 
     # per the two depth-5 float fused forwards (bf16: 6 K1 at each class
     # shape) and per the C = 256 model's int8 fused forward (6 at (256, 5));
@@ -7186,8 +7214,9 @@ def main() -> int:
     replaces["convnext_block_c128"] = replaces["convnext_block"]
     replaces["convnext_block_int8_c128"] = replaces["convnext_block_int8"]
     # K1 off the (C, K) of their own: its classes, rows of their own
-    # (sources csrc/convnext_class.cu and convnext_wide.cu beside the
-    # entry points in convnext_block.cu)
+    # (the layouts of csrc/convnext_class.cuh, built by convnext_class*.cu
+    # and convnext_k7_class*.cu, and convnext_wide.cu, beside the entry
+    # points in convnext_block.cu)
     replaces["convnext_block_classes"] = replaces["convnext_block"]
     replaces["convnext_block_int8_classes"] = replaces["convnext_block_int8"]
     # the shapes opened since: K1 at K = 7 (of their own, in

@@ -17,10 +17,15 @@ at 8×128² and (128,3) at 8×64²; then K = 7 and C = 512 (``NEW_ROWS``:
 the clusters' widths (``CLUSTER_ROWS``: (1024,5) 8×8² in every mode, a
 no-attention depth-6 v6's level 5 at b8 @ 256², and bf16 (384,5) 8×16²).
 A source built without a row's kernel (a parent from before it) skips
-that row.
+that row. The padded classes' rows (``CLASS_ROWS``: bf16 (48,5), (72,5),
+(108,5) and (48,7), int8 (48,5), f32 (48,5)) have beside them the width
+the padded classes of widths 32 / 64 / 128 ran them at and the widths of
+the layouts that run them now (``PADDED_ROWS``: bf16 (128,5) at 32×64²
+and 32×32², (80,5) 32×64², (112,5) 32×32²).
 
     python3 k1_compare.py [--rounds N] [--out DIR] [--mma-rate]
-                          [--channels C,...] [NAME=SOURCE ...]
+                          [--channels C,...] [--dtype D] [--wrapper]
+                          [NAME=SOURCE[@CUT+CUT...] ...]
 
 Each SOURCE is a ``convnext_block.cu`` (a parent commit's before the
 kernel had sources of its own beside it) or a directory of K1 sources
@@ -42,12 +47,19 @@ cores); then the card's name and power limit. With ``--out DIR`` the
 compiler's resource report
 (``-Xptxas -v``) and the SASS (``cuobjdump -sass``) of every source are
 written to ``DIR/NAME.ptxas.txt`` and ``DIR/NAME.sass.txt``. With
-``--channels 256,512`` only the rows at those C are timed. Each library
-gets the weights as its own route takes them: padded to its class's
-width, or, where it reports a thread-block cluster of n blocks
-(``bid_convnext_block_info``), to 128 n with the depthwise weights
-transposed; so a parent from before the cluster, or a copy of the
-sources whose ``cluster_from`` differs, is timed on its own layout.
+``--channels 256,512`` only the rows at those C are timed, with
+``--dtype bf16`` only those in that mode. Each library gets the weights
+as its own route takes them: padded to the width of the layout that its
+``bid_convnext_block_info`` reports (the eighth int; a library that
+fills seven, from before the layouts of widths that are multiples of 16,
+pads to its class of ``ONE_BLOCK_WIDTHS``), with the depthwise weights
+transposed where it reports a thread-block cluster; so a parent, or a
+copy of the sources whose ``cluster_from`` differs, is timed on its own
+layout. ``--wrapper`` adds two rows a shape through this checkout's
+package (``pallas_convnext.convnext_block``, its library built from
+``csrc/``): ``wrapper`` prepares the operands on every call, as the
+functional wrapper does, and ``wrapper_cached`` takes them prepared once
+(``pallas_convnext.kernel_operands``), as the model's units do.
 
 ``--mma-rate`` first measures the rate of ``mma.sync`` itself, the
 ceiling of the products of the float32 mode (m16n8k8 on TF32) and of
@@ -86,11 +98,20 @@ ROWS = [("bf16", 32, 3, 8, 256), ("bf16", 64, 5, 8, 128),
         ("int8", 32, 3, 8, 256), ("f32", 32, 5, 32, 256),
         ("bf16", 64, 1, 8, 128), ("int8", 64, 1, 8, 128),
         ("int8", 128, 1, 8, 64)]
-# the classes, and (64, 3) and (128, 3) of their own
+# the classes, and (64, 3) and (128, 3) of their own: the padded classes
+# at the multiplier-1.5 depth-5 v6's levels 1-3 (b32 @ 256²) in bf16, its
+# level 1 in int8 (its int8 fused forward) and f32 (b8), and at K = 7
 CLASS_ROWS = [("bf16", 256, 5, 32, 32), ("int8", 256, 5, 32, 32),
               ("f32", 256, 5, 8, 32), ("bf16", 48, 5, 32, 128),
               ("bf16", 72, 5, 32, 64), ("bf16", 108, 5, 32, 32),
-              ("bf16", 64, 3, 8, 128), ("bf16", 128, 3, 8, 64)]
+              ("bf16", 64, 3, 8, 128), ("bf16", 128, 3, 8, 64),
+              ("int8", 48, 5, 32, 128), ("f32", 48, 5, 8, 128),
+              ("bf16", 48, 7, 32, 128)]
+# beside the padded classes: (128, 5) at (72, 5)'s and (108, 5)'s pixels
+# (the width the padded classes ran them at), and (80, 5) and (112, 5),
+# the widths of their layouts since
+PADDED_ROWS = [("bf16", 128, 5, 32, 64), ("bf16", 128, 5, 32, 32),
+               ("bf16", 80, 5, 32, 64), ("bf16", 112, 5, 32, 32)]
 # K = 7 and 256 < C <= 512: a K = 7 unet_laplacian_v6's levels 0 and 1 at
 # b8 @ 256² in every mode, (128, 7) and (256, 7) at its deeper levels'
 # widths, and (512, 5) at a no-attention depth-5 v6's level 4 (b8 @ 256²:
@@ -109,17 +130,18 @@ CLUSTER_ROWS = [("bf16", 1024, 5, 8, 8), ("int8", 1024, 5, 8, 8),
 ONE_BLOCK_WIDTHS = (32, 64, 128, 256, 512)
 
 
-def route_operands(pc, dtype, wts, cluster_size):
-    """The weights as a library whose layout for them is a cluster of
-    ``cluster_size`` blocks (1: a one-block class) takes them, as
-    ``pallas_convnext.kernel_operands`` gives them on this checkout's
-    route: dw [C', K²] ([K², C'] on a cluster), the LayerNorm scale and the
-    gain [C'] in float32, W2 [4C', C'] and W3 [C', 4C'] in the I/O dtype
-    (bf16 for int8), zero-padded to C' = 128 n on a cluster, else to the
-    class's width (``ONE_BLOCK_WIDTHS``)."""
+def route_operands(pc, dtype, wts, cluster_size, width=0):
+    """The weights as a library whose layout for them is ``width`` channels
+    wide on a cluster of ``cluster_size`` blocks (1: one block) takes
+    them, as ``pallas_convnext.kernel_operands`` gives them on this
+    checkout's route: dw [C', K²] ([K², C'] on a cluster), the LayerNorm
+    scale and the gain [C'] in float32, W2 [4C', C'] and W3 [C', 4C'] in
+    the I/O dtype (bf16 for int8), zero-padded to C' = ``width``; a
+    ``width`` of 0 (a library that does not report it) is 128 n on a
+    cluster, else the class's width (``ONE_BLOCK_WIDTHS``)."""
     c, k = wts["ln_scale"].numel(), wts["dw"].shape[-1]
-    width = (pc.CLUSTER_SLICE * cluster_size if cluster_size > 1
-             else next(w for w in ONE_BLOCK_WIDTHS if c <= w))
+    width = width or (pc.CLUSTER_SLICE * cluster_size if cluster_size > 1
+                      else next(w for w in ONE_BLOCK_WIDTHS if c <= w))
     pad = width - c
     w_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
     dw = torch.nn.functional.pad(wts["dw"].reshape(c, k * k).float(),
@@ -133,8 +155,110 @@ def route_operands(pc, dtype, wts, cluster_size):
     return tuple(v.contiguous() for v in (dw, ln, w2, w3, gain))
 
 
+# Text edits of the K1 sources that cut one part of a kernel's work or
+# replace one mechanism, to split its time (``NAME=SOURCE@CUT``): each
+# is (file, old, new), and ``old`` must occur once in the file. They are
+# written against the padded classes of widths 32 / 64 / 128 (``acfa7e3``'s
+# csrc):
+# "shifts": the ragged copy loop finds a copy's pixel by a shift, and the
+#   ragged store walks its (pixel, unit) pairs without a division;
+# "copy16": the ragged copies and stores move 16-byte units, their
+#   addresses rounded down to 16 bytes (wrong values, the same bytes);
+# "products": the products of a class stop at E' = 4 C' (C' = C rounded
+#   up to 16), the E side of the padding cut (the C side stays the
+#   class's width).
+# Written against the layouts of widths that are multiples of 16:
+# "tw32": the width-48 layout at K < 7 on 8 x 32 tiles and one block of
+#   512 threads an SM (the width-64 layout's shape, which it takes at
+#   K = 7) in place of 8 x 16 and two blocks of 256;
+# "dwbcast": every depthwise run of a warp reads the same pixels (wrong
+#   values; the loads of distinct pixels' rows then never share a bank);
+# "noproducts": the layouts with resident weights skip both products (the
+#   epilogue adds x + gain * 0), their share of the time.
+_CUH = "convnext_block.cuh"
+CUTS = {
+    "shifts": [
+        (_CUH, "const int pix = G::kMma && G::C >= 128 ? i >> ush : i / upp;",
+         "const int pix = i >> ush;"),
+        (_CUH, """    for (int i = lane; i < 16 * nu; i += 32) {
+      const int m = m0 + i / nu, j = i % nu;""",
+         """    const int dm = 32 / nu, dj = 32 - dm * nu;
+    int m = m0 + lane / nu, j = lane - (lane / nu) * nu;
+    for (int i = lane; i < 16 * nu; i += 32, m += dm, j += dj) {
+      if (j >= nu) j -= nu, ++m;"""),
+    ],
+    "copy16": [
+        (_CUH, "const int unit = G::kRagged ? io_unit<T>(cr) : 16;",
+         "const int unit = 16;"),
+        (_CUH, "copy_unit(dst + d, d0 + d, xb + src, inside, unit);",
+         "copy_unit(dst + d, d0 + d, xb + (src & ~15LL), inside, unit);"),
+        (_CUH, """store_unit(ob + ((t.b * H + gy) * W + gx) * cr * (long long)sizeof(T) +
+                       j * unit,""",
+         """store_unit(ob + ((((t.b * H + gy) * W + gx) * cr *
+                        (long long)sizeof(T) + j * unit) & ~15LL),"""),
+    ],
+    "products": [
+        (_CUH, "for (int ec = 0; ec < G::E; ec += G::EC)",
+         "for (int ec = 0; ec < (G::kRagged ? 4 * ((cr + 15) & ~15) : G::E);"
+         " ec += G::EC)"),
+        (_CUH, "for (int ec = 0; ec < E; ec += EF) {",
+         "for (int ec = 0; ec < (G::kRagged ? 4 * ((cr + 15) & ~15) : E);"
+         " ec += EF) {"),
+        (_CUH, "unsigned char* ring, int c, bool more, int tid) {",
+         "unsigned char* ring, int c, bool more, int tid, int nch = G::NCH) {"),
+        (_CUH, "if (c + 1 < G::NCH)", "if (c + 1 < nch)"),
+        (_CUH, "const int unit = G::kRagged ? io_unit<T>(cr) : 16;",
+         "const int unit = G::kRagged ? io_unit<T>(cr) : 16;\n"
+         "  const int nch = G::kRagged ? 4 * ((cr + 15) & ~15) / G::ECH"
+         " : G::NCH;"),
+        (_CUH, """        for (int c = 0; c < G::NCH; ++c) {
+          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid);
+          const uint32_t b""", """        for (int c = 0; c < nch; ++c) {
+          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid, nch);
+          const uint32_t b"""),
+        (_CUH, """        for (int c = 0; c < G::NCH; ++c) {
+          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid);
+          if constexpr""", """        for (int c = 0; c < nch; ++c) {
+          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid, nch);
+          if constexpr"""),
+    ],
+    "tw32": [
+        (_CUH, "kBlock512 = kMma && (C == 64 || (C == 48 && K == 7));",
+         "kBlock512 = kMma && (C == 64 || C == 48);"),
+    ],
+    "dwbcast": [
+        (_CUH, "const int ry = run / G::RUNS_W, rx = (run % G::RUNS_W) * R;",
+         "const int ry = 0 * run, rx = 0;"),
+    ],
+    "noproducts": [
+        (_CUH, "for (int ec = 0; ec < G::E; ec += G::EC)",
+         "for (int ec = 0; ec < 0; ec += G::EC)"),
+    ],
+}
+
+
+def cut_copy(source: Path, cuts, work: Path, name: str) -> Path:
+    """A copy of the source directory with the edits of ``cuts`` applied."""
+    import shutil
+    dst = work / f"{name}-src"
+    shutil.copytree(source, dst)
+    for cut in cuts:
+        for fname, old, new in CUTS[cut]:
+            f = dst / fname
+            text = f.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"cut {cut}: {old!r} occurs "
+                                   f"{text.count(old)} times in {fname}")
+            f.write_text(text.replace(old, new))
+    return dst
+
+
 def build(name, source, work, out_dir):
     from blind_image_denoising_torch.ops import cuda_build
+    source = str(source)
+    if "@" in source:
+        source, cuts = source.split("@", 1)
+        source = cut_copy(Path(source), cuts.split("+"), work, name)
     source = Path(source)
     files = (sorted(source.glob("convnext*.cu")) if source.is_dir()
              else [source])
@@ -259,6 +383,13 @@ def main() -> int:
     parser.add_argument("--mma-rate", action="store_true")
     parser.add_argument("--channels", default=None,
                         help="time only the rows at these C (comma list)")
+    parser.add_argument("--dtype", default=None, choices=("bf16", "int8",
+                                                           "f32"),
+                        help="time only the rows in this mode")
+    parser.add_argument("--wrapper", action="store_true",
+                        help="time the checkout's wrapper beside the "
+                             "libraries, operands prepared on every call "
+                             "and once")
     args = parser.parse_args()
     if not args.sources and not args.mma_rate:
         parser.error("give NAME=SOURCE pairs, --mma-rate, or both")
@@ -285,8 +416,10 @@ def main() -> int:
 
     only = (None if args.channels is None
             else {int(c) for c in args.channels.split(",")})
-    for dtype, c, k, b, hw in ROWS + CLASS_ROWS + NEW_ROWS + CLUSTER_ROWS:
-        if only is not None and c not in only:
+    for dtype, c, k, b, hw in (ROWS + CLASS_ROWS + PADDED_ROWS + NEW_ROWS
+                               + CLUSTER_ROWS):
+        if (only is not None and c not in only) or (
+                args.dtype is not None and dtype != args.dtype):
             continue
         e = 4 * c
         wts = dict(dw=t(rng.normal(0, 0.3, (c, 1, k, k))),
@@ -307,19 +440,29 @@ def main() -> int:
         ref = pc.convnext_block_plain(x, **wts, **scales)
         # the weights as each library's layout for (C, K) takes them (a
         # library from before the cluster fills 5 ints, so its cluster size
-        # stays 1); None where it has no layout
+        # stays 1, and one from before the layouts of widths that are
+        # multiples of 16 fills 7, so its width stays 0: its class's);
+        # None where it has no layout
         operands = {}
         for name, lib in libs.items():
-            info = (ctypes.c_int * 7)(*[0] * 5, 1, 0)
+            info = (ctypes.c_int * 8)(*[0] * 5, 1, 0, 0)
             rc = lib.bid_convnext_block_info(c, k, pc._DTYPE_CODES[x.dtype],
                                              info)
             if rc not in (0, UNSUPPORTED):
                 raise RuntimeError(f"{name}: info {rc}")
             operands[name] = (None if rc else route_operands(
-                pc, x.dtype, wts, info[5]))
+                pc, x.dtype, wts, info[5], info[7]))
         out = torch.empty_like(x)
+        kw = dict(slope=0.1, **scales)
+        wrappers = {} if not args.wrapper else {
+            "wrapper": lambda x=x: pc.convnext_block(x, **wts, **kw),
+            "wrapper_cached": lambda x=x, ops=pc.kernel_operands(
+                x.dtype, **wts): pc.convnext_block(x, **wts, **kw,
+                                                   operands=ops)}
 
         def call(name, x=x):
+            if name in wrappers:
+                return wrappers[name](x)
             if operands[name] is None:
                 raise RuntimeError("no layout for this C")
             lib, (dw, ln, w2, w3, gain) = libs[name], operands[name]
@@ -333,16 +476,17 @@ def main() -> int:
             return rc
 
         errs, rels, row_libs = {}, {}, []
-        for name in libs:
-            if operands[name] is None:
+        for name in [*libs, *wrappers]:
+            if name in libs and operands[name] is None:
                 print(json.dumps(dict(source=name, dtype=dtype, C=c, K=k,
                                       unsupported=True)), flush=True)
                 continue
             out.zero_()
-            call(name)
+            got = call(name)
             torch.cuda.synchronize()
             row_libs.append(name)
-            errs[name] = float((out.float() - ref.float()).abs().max())
+            got = got if name in wrappers else out
+            errs[name] = float((got.float() - ref.float()).abs().max())
             rels[name] = errs[name] / float(ref.float().abs().max())
         times = {name: [] for name in row_libs}
         cold = {name: [] for name in row_libs}

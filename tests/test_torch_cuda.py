@@ -216,7 +216,7 @@ def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
     output is held to the kernel tests' bars above."""
     import ctypes
     c, k = ck
-    info = (ctypes.c_int * 7)()
+    info = (ctypes.c_int * 8)()
     assert cuda_build.library().bid_convnext_block_info(
         c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     resident = info[4] * torch.cuda.get_device_properties(
@@ -249,6 +249,132 @@ def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
         assert bool((diff <= tol).all()), float(diff.max())
 
 
+@pytest.mark.parametrize("ck", [(16, 5), (48, 5), (40, 3), (72, 5), (80, 1),
+                                (96, 5), (88, 3), (108, 5), (112, 1),
+                                (100, 7), (48, 7), (120, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_convnext_class_widths_over_many_tiles(dev, ck, dtype):
+    """Every layout of a width that is a multiple of 16 (C rounded up to
+    16: 16, 48, 80, 96, 112 but in float32, and 128's ragged edge) over
+    many tiles: on
+    48 x 64 x 64 there are 768 tiles of 8 x 32 pixels or 1536 of 8 x 16,
+    several times the resident blocks, so every block walks the streamed
+    weight ring (from width 96 in bf16 and int8, from 80 in float32) and
+    its tile buffers or stage over many tiles; held to the kernel tests'
+    bars, and two launches give the same bits."""
+    import ctypes
+    c, k = ck
+    info = (ctypes.c_int * 8)()
+    assert cuda_build.library().bid_convnext_block_info(
+        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
+    assert info[7] == pallas_convnext.class_width(c, dtype) == (
+        128 if dtype == torch.float32 and 96 < c <= 112 else -(-c // 16) * 16)
+    resident = info[4] * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    shape = (48, 64, 64, c)
+    assert shape[0] * (shape[1] // 8) * (shape[2] // 32) >= 2 * resident
+    w = _unit_weights(c, k, dev, seed=3)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    x = torch.randn(shape, generator=g).to(dev)
+    scales = {}
+    if dtype == torch.int8:
+        scales = dict(scale_in=float(x.abs().max()) / 127,
+                      scale_out=float(pallas_convnext.convnext_block_plain(
+                          x, **w).abs().max()) / 127)
+        x = pallas_convnext.quantize(x, scales["scale_in"])
+    else:
+        x = x.to(dtype)
+    got = pallas_convnext.convnext_block(x, **w, **scales)
+    again = pallas_convnext.convnext_block(x, **w, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.int8:
+        assert int(diff.max()) <= 1
+        assert float((diff == 0).float().mean()) >= 0.999
+    elif dtype == torch.float32:
+        assert float(diff.max()) <= 1e-3
+        assert float(diff.max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        tol = torch.clamp(_bf16_ulp(ref), min=0.05)
+        assert bool((diff <= tol).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("ck, dtype", [((108, 5), torch.int8),
+                                       ((99, 3), torch.int8),
+                                       ((108, 5), torch.bfloat16),
+                                       ((100, 5), torch.bfloat16)])
+def test_convnext_ragged_x_ending_inside_a_16_byte_unit(dev, ck, dtype):
+    """A ragged x of odd B·H·W whose last byte falls inside a 16-byte unit,
+    as a view at the start of a buffer that goes on with another tensor's
+    bytes (int8 codes of -128, bf16 NaN): the same bits as on a copy of x
+    alone, the neighbour's bytes untouched, and the kernel tests' bars."""
+    c, k = ck
+    shape = (1, 15, 15, c)
+    n = int(np.prod(shape))
+    w = _unit_weights(c, k, dev, seed=5)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn(shape, generator=g).to(dev)
+    scales = {}
+    if dtype == torch.int8:
+        scales = dict(scale_in=float(x.abs().max()) / 127,
+                      scale_out=float(pallas_convnext.convnext_block_plain(
+                          x, **w).abs().max()) / 127)
+        x = pallas_convnext.quantize(x, scales["scale_in"])
+    else:
+        x = x.to(dtype)
+    assert n * x.element_size() % 16
+    buf = torch.empty(n + 64, dtype=dtype, device=dev)
+    buf[n:] = -128 if dtype == torch.int8 else float("nan")
+    view = buf[:n].view(shape)
+    view.copy_(x)
+    tail = buf[n:].view(torch.uint8).clone()
+    got = pallas_convnext.convnext_block(view, **w, **scales)
+    alone = pallas_convnext.convnext_block(x.clone(), **w, **scales)
+    torch.cuda.synchronize()
+    assert view.data_ptr() == buf.data_ptr()
+    assert torch.equal(got, alone)
+    assert torch.equal(buf[n:].view(torch.uint8), tail)
+    ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.int8:
+        assert int(diff.max()) <= 1
+        assert float((diff == 0).float().mean()) >= 0.999
+    else:
+        tol = torch.clamp(_bf16_ulp(ref), min=0.05)
+        assert bool((diff <= tol).all()), float(diff.max())
+
+
+def test_convnext_cached_operands_launch_the_same_bits(dev):
+    """A launch on the operands ``kernel_operands`` prepared once gives the
+    bits of one that prepares them, in every mode and at a padded width;
+    operands of another layout are refused."""
+    for c, k in ((48, 5), (108, 5), (64, 5)):
+        w = _unit_weights(c, k, dev, seed=2)
+        g = torch.Generator(device="cpu").manual_seed(3)
+        x = torch.randn((2, 16, 40, c), generator=g).to(dev)
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            scales = {}
+            v = x.to(dtype) if dtype != torch.int8 else None
+            if dtype == torch.int8:
+                scales = dict(scale_in=float(x.abs().max()) / 127,
+                              scale_out=4 * float(x.abs().max()) / 127)
+                v = pallas_convnext.quantize(x, scales["scale_in"])
+            ops = pallas_convnext.kernel_operands(v.dtype, **w)
+            assert torch.equal(
+                pallas_convnext.convnext_block(v, **w, **scales),
+                pallas_convnext.convnext_block(v, **w, **scales,
+                                               operands=ops))
+    other = pallas_convnext.kernel_operands(torch.float32,
+                                            **_unit_weights(32, 5, dev))
+    x = torch.zeros((1, 8, 8, 48), device=dev)
+    with pytest.raises(ValueError):
+        pallas_convnext.convnext_block(x, **_unit_weights(48, 5, dev),
+                                       operands=other)
+
+
 @pytest.mark.parametrize("ck", [(1025, 5), (32, 9)])
 def test_convnext_kernel_rejects_unbuilt_shape(dev, ck):
     """Outside C <= 1024 at K = 1, 3, 5, 7 the wrapper raises on a CUDA
@@ -260,7 +386,7 @@ def test_convnext_kernel_rejects_unbuilt_shape(dev, ck):
     with pytest.raises(NotImplementedError):
         pallas_convnext.convnext_block(x, **w)
     assert cuda_build.library().bid_convnext_block_info(
-        c, k, 1, (ctypes.c_int * 7)()) == -1
+        c, k, 1, (ctypes.c_int * 8)()) == -1
 
 
 @pytest.mark.parametrize("ck", [(256, 5), (162, 3), (256, 1)])
@@ -276,7 +402,7 @@ def test_convnext_wide_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
     ring over many tiles; the output is held to the kernel tests' bars."""
     import ctypes
     c, k = ck
-    info = (ctypes.c_int * 7)()
+    info = (ctypes.c_int * 8)()
     assert cuda_build.library().bid_convnext_block_info(
         c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     resident = info[4] * torch.cuda.get_device_properties(
@@ -318,7 +444,7 @@ def test_convnext_built_plan_matches_kernel_plan(dev, ck):
     import ctypes
     c, k = ck
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
-        v = (ctypes.c_int * 7)()
+        v = (ctypes.c_int * 8)()
         assert cuda_build.library().bid_convnext_block_info(
             c, k, code, v) == 0
         plan = pallas_convnext.kernel_plan(c, k, dtype)
@@ -327,6 +453,10 @@ def test_convnext_built_plan_matches_kernel_plan(dev, ck):
             plan["cluster_size"]), (dtype, list(v))
         assert v[0] <= pallas_convnext.SHARED_MEMORY_LIMIT
         assert v[2] == 0 and v[4] >= 1 and v[6] >= 1, (dtype, list(v))
+        # the layout's width is the one the wrapper pads the weights to,
+        # and it holds the blocks an SM its registers are capped for
+        assert v[7] == pallas_convnext.class_width(c, dtype), (dtype, list(v))
+        assert v[4] >= plan.get("min_blocks_per_sm", 1), (dtype, list(v))
 
 
 @pytest.mark.parametrize("ck", [(256, 7), (200, 7), (512, 5), (384, 7),
@@ -387,7 +517,7 @@ def test_convnext_cluster_over_many_tiles(dev, ck, dtype):
     w = _unit_weights(c, k, dev, seed=9)
     g = torch.Generator(device="cpu").manual_seed(10)
     x = torch.randn((16, 32, 32, c), generator=g).to(dev)
-    info = (ctypes.c_int * 7)()
+    info = (ctypes.c_int * 8)()
     assert cuda_build.library().bid_convnext_block_info(
         c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     assert info[5] == -(-c // 128) and 16 * 4 * 4 >= 3 * info[6]

@@ -252,7 +252,8 @@ def _torch_args(w, C, K):
                                 (256, 5), (108, 5), (48, 5), (64, 3),
                                 (128, 3), (32, 7), (64, 7), (108, 7),
                                 (256, 7), (384, 5), (512, 5), (640, 5),
-                                (640, 7), (1024, 5), (1024, 7)])
+                                (640, 7), (1024, 5), (1024, 7), (72, 5),
+                                (88, 3)])
 def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     """The plain version against JAX's reference (atol 1e-4) and JAX's
     Pallas kernel in interpret mode, which rounds t and h to bf16: no
@@ -474,13 +475,54 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
               ((384, 7), torch.float32): (256, 170_272),
               ((640, 7), torch.float32): (256, 181_536),
               ((1024, 5), torch.float32): (256, 230_688)}
+    # the layouts of widths that are multiples of 16 (C rounded up to 16),
+    # counted by hand: (threads, bytes, blocks an SM its registers are
+    # capped for). bf16 (48, 5): 8 x 16 tiles (12 x 20 with the halo), rows
+    # padded to 56 channels: depthwise weights 4,800 + LN scale and gain
+    # 384 + two tiles 2 x 26,880 + W2 192 x 56 x 2 = 21,504 + W3 48 x 200 x
+    # 2 = 19,200 + t 128 x 56 x 2 = 14,336 = 113,984, two blocks in the
+    # SM's 233,472 B with their 1 KB each; int8 one tile and its rows
+    # staged as in device memory, 12 x align16(20 x 48 + 15) = 11,712;
+    # f32 two tiles of 53,760 and W2 + W3 73,728 (one block). (80, 5): W2
+    # 320 x 88 x 2 = 56,320 and W3 80 x 328 x 2 = 52,480 resident (at most
+    # half of 232,448), two tiles of 42,240, t 22,528. From 96 W2 and W3
+    # stream in chunks of 32 E channels: (96, 5) two buffers of 32 x 104 x
+    # 2 + 96 x 40 x 2 = 14,336, two tiles of 49,920, t 26,624; (112, 5)
+    # 16,640 a buffer, tiles of 57,600, t 30,720; int8 (108, 5) runs the
+    # width-112 layout with one tile and 12 x 2,256 B of staged rows
+    hand = {((16, 5), torch.bfloat16): (256, 60_864, 2),
+            ((48, 5), torch.bfloat16): (256, 113_984, 2),
+            ((40, 5), torch.bfloat16): (256, 113_984, 2),
+            ((48, 5), torch.int8): (256, 98_816, 2),
+            ((48, 5), torch.float32): (256, 186_432, 1),
+            # (48, 7): two blocks of 8 x 16 tiles do not fit, so one of
+            # 512 threads on 8 x 32 (14 x 38 with the halo): weights 9,792,
+            # two tiles of 59,584, W2 + W3 40,704, t 256 x 56 x 2 = 28,672
+            ((48, 7), torch.bfloat16): (512, 198_336, 1),
+            ((72, 5), torch.bfloat16): (256, 224_448, 1),
+            ((80, 5), torch.bfloat16): (256, 224_448, 1),
+            ((96, 5), torch.bfloat16): (256, 165_504, 1),
+            ((88, 1), torch.int8): (256, 95_488, 1),
+            ((108, 5), torch.bfloat16): (256, 191_296, 1),
+            ((112, 5), torch.bfloat16): (256, 191_296, 1),
+            ((108, 5), torch.int8): (256, 160_768, 1),
+            # float32 from C = 97 to 112 keeps the width-128 layout
+            ((108, 5), torch.float32): (256, 209_920, 1),
+            ((120, 5), torch.bfloat16): (256, 209_408, 1)}
     if (ck, dtype) in stated:
         assert (plan["threads_per_block"],
                 plan["smem_bytes"]) == stated[ck, dtype]
+    if (ck, dtype) in hand:
+        assert (plan["threads_per_block"], plan["smem_bytes"],
+                plan["min_blocks_per_sm"]) == hand[ck, dtype]
     if ck[0] <= 32 and ck[1] < 7:
         # two blocks per SM: twice the block and its 1 KB reserve fit the
         # SM's 228 KB (a K = 7 tile and its 3-wide halo leave room for one)
         assert 2 * (plan["smem_bytes"] + 1024) <= 233_472
+        assert plan["min_blocks_per_sm"] == 2
+    if ck[0] <= 128:
+        # the layout is C rounded up to 16 wide: what the wrapper pads to
+        assert pallas_convnext.class_width(ck[0]) == -(-ck[0] // 16) * 16
 
 
 # The cluster kernel's shared memory counted by hand
@@ -908,6 +950,41 @@ def test_convnext_unit_options_match_linen_block(opts, train):
             got = unit(xt)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
                                rtol=1e-5, atol=1e-4)
+
+
+def test_unit_caches_the_kernels_operands():
+    """``ConvNextBlock.kernel_operands`` holds ``kernel_operands``' output
+    for its weights bit for bit (cast, padded to the layout's width: C =
+    40 runs the width-48 layout), hands the same tensors back while the
+    parameters stay, and rebuilds them when a parameter changes."""
+    def same_bits(a, b):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.contiguous().view(torch.uint8),
+                                b.contiguous().view(torch.uint8)))
+
+    torch.manual_seed(0)
+    unit = ConvNextBlock(40, 5, 160)
+    with torch.no_grad():
+        for prm in unit.parameters():
+            prm.copy_(torch.randn_like(prm))
+    for dtype in (torch.float32, torch.bfloat16):
+        ops = unit.kernel_operands(dtype)
+        want = pallas_convnext.kernel_operands(
+            dtype, **unit.kernel_weights(dtype))
+        assert all(same_bits(a, b) for a, b in zip(ops, want))
+        assert tuple(ops[2].shape) == (192, 48)
+        assert unit.kernel_operands(dtype) is ops
+    ops = unit.kernel_operands(torch.bfloat16)
+    with torch.no_grad():
+        unit.conv_2.kernel.add_(0.5)
+    fresh = unit.kernel_operands(torch.bfloat16)
+    assert fresh is not ops
+    assert same_bits(fresh[2][:160, :40],
+                     unit.conv_2.kernel.detach().to(torch.bfloat16))
+    assert not bool(fresh[2][160:].any()) and not bool(fresh[2][:, 40:].any())
+    assert all(same_bits(a, b) for a, b in zip(
+        fresh, pallas_convnext.kernel_operands(
+            torch.bfloat16, **unit.kernel_weights(torch.bfloat16))))
 
 
 def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
