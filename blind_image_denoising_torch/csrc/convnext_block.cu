@@ -73,11 +73,13 @@ bool supported(int C, int K) {
 
 }  // namespace
 
-// info[0..7]: dynamic shared-memory bytes, registers per thread, local
+// info[0..8]: dynamic shared-memory bytes, registers per thread, local
 // (spill) bytes per thread, threads per block, resident blocks per SM,
 // cluster size (1 for the one-block layouts), the clusters (blocks) the
-// card holds at once, and the width of the layout (the channels the
-// weights are padded to), of the instantiation that runs (C, K)
+// card holds at once, the width of the layout (the channels the weights
+// are padded to), and the stages of its weight ring (0 where W2 and W3
+// are resident or on a cluster's own ring), of the instantiation that
+// runs (C, K)
 extern "C" int bid_convnext_block_info(int C, int K, int dtype, int* info) {
   if (!supported(C, K)) return BID_ERR_UNSUPPORTED;
   if (dtype == 0) return dispatch_info<float>(C, K, info);

@@ -110,28 +110,43 @@
 //
 // C = 128 (the level-2 units of unet_laplacian_v3 / v4, the fused level 2
 // of a depth-4 unet_laplacian_v6): W2 and W3 (272,384 B in bf16, 524,288 B
-// in f32) do not fit beside a tile, so they are not staged once per block
-// but stream through two weight buffers of ECH = 32 of the E channels (W2's
-// rows, W3's matching columns; 18,944 B in bf16, 32,768 B in f32). At chunk
-// c of a tile one barrier covers both "chunk c has landed" and "every warp
-// is past chunk c - 1", and the copies of chunk c + 1 (after the last, the
-// next tile's chunk 0) go to the buffer c - 1 used. Every mode takes 8 x 16
-// tiles with 256 threads, one m16 tile a warp and one block an SM: bf16
-// (128,5) 13,824 B depthwise, LN and gain + 2 x 61,440 B swizzled tiles +
-// 2 x 18,944 B weight buffers + 34,816 B t = 209,408 B (int8 178,688 B,
-// one tile and the 30,720 B of codes); f32 (128,5) one 130,560 B tile +
-// 2 x 32,768 B = 209,920 B, refilled from the first chunk on; (128,1) two
-// tiles. bf16 and int8: a warp's A fragments of t (32 registers) and its
-// projection accumulators (64) stay in registers across the 16 chunks.
-// f32: the chunks are staged in a fragment order a 16-byte cp.async can
-// copy (pair_index: a lane's B operands of two k-steps of one n8 tile are
-// four neighbouring channels of a row), t (64 registers) and the
-// accumulators (64) stay in registers, the residual x is read back from
-// device memory, and a chunk's two 16-channel steps are not unrolled into
-// each other (two unrolled spilled 28-40 bytes at 255 registers). At
-// C = 128 the unit does 512 operations a byte of bf16 I/O, above the card's
-// ridge: it is bound by its products, which mma.sync runs at about 2/3 of
-// the tensor cores' dense rate.
+// in f32) do not fit beside a tile, so they stream through a ring of NS
+// stages of E chunks (chunk_ring.cuh): ECH = 32 of the E channels a chunk
+// (W2's rows, W3's matching columns; 18,944 B in bf16, 32,768 B in f32),
+// 16 where three of 32 do not fit (f32 (128, 5); int8 (128, 7) beside its
+// staged codes), as many stages as fit up to four (three at least). The
+// wrapper lays each chunk out in device memory as its stage holds it
+// (kernel_operands: padded bf16 rows, f32 fragment order), so a chunk is
+// one contiguous range and one thread issues it as a bulk copy
+// (cp.async.bulk) that completes on the stage's full mbarrier. Two blocks
+// on neighbouring tiles form a thread-block cluster: each copies half of
+// every chunk multicast into both blocks' stage, and each warp, done with
+// a stage, arrives on its empty barrier in both blocks; thread 0 refills a
+// stage NS - 1 chunks ahead once every warp of the cluster has released
+// it. No block barrier a chunk: a warp waits only for its chunk to land.
+// The chunks run on from tile to tile (the next tile's first ones land
+// under the last products); a block of the cluster left without a tile in
+// the last round takes a ghost tile (rows past the image, stored nowhere)
+// so that both take every chunk. Every mode takes 8 x 16 tiles with 256
+// threads, one m16 tile a warp and one block an SM: bf16 (128,5) 13,824 B
+// depthwise, LN and gain + 2 x 61,440 B swizzled tiles + 3 x 18,944 B
+// stages + 34,816 B t + 64 B of mbarriers = 228,416 B (int8 216,640 B, one
+// tile, the 30,720 B of codes and 4 stages); f32 (128,5) one 130,560 B tile
+// + 4 x 16,384 B stages = 209,984 B; f32 (128,7), whose 167,552 B tile
+// leaves no room for three stages, lends the tile's room to the ring from
+// its depthwise to its epilogue (the cluster meets before the first chunk:
+// kRingInX). bf16 and int8: a warp's A fragments of t (32 registers) and
+// its projection accumulators (64) stay in registers across the chunks.
+// f32: the chunks are in fragment order (expand_project_f32: a lane's B
+// operands of two k-steps of one n8 tile are one 16-byte vector), the
+// accumulators (64 registers) stay in registers and t waits in the tile
+// buffer's room (each lane its own 64 values; t in registers too spilled
+// 12-40 bytes at 255), the residual x is read back from device memory,
+// the one tile buffer is refilled once the epilogue is done, and a chunk's
+// two 16-channel steps are not unrolled into each other. At C = 128 the
+// unit does 512 operations a byte of bf16 I/O, above the card's ridge: it
+// is bound by its products, which mma.sync runs at about 2/3 of the tensor
+// cores' dense rate.
 //
 // Those seven (C, K), and (64, 3) and (128, 3) in the same layouts (the K = 3
 // halo is smaller than the K = 5 one), and (32, 7), (64, 7), (128, 7) have
@@ -184,31 +199,33 @@
 //   convnext_wide.cuh): tiles of 8 x 8 pixels, 256 threads, one block an SM.
 //   The projection's accumulators of 16 pixels x 256 channels would be 128
 //   registers a lane, so warps 2m and 2m + 1 share m16 tile m, 128 output
-//   channels each. W2 and W3 stream in E chunks as at C = 128 (bf16 and
-//   int8: 32 E a chunk, f32: 16); of a chunk each warp of the pair computes
-//   half the expansion (bf16: from its A fragments of t in registers) and
-//   hands its h to the other through a shared-memory block of 16 x ECH (a
-//   named barrier of the pair's 64 threads), and each projects the whole
-//   chunk's h onto its 128 channels. The residual x is read back from
-//   device memory, so the one input tile that (256, 5) leaves room for is
-//   refilled once every warp is past its depthwise (bf16; two tiles at
-//   K <= 3); int8 stages the next tile's codes in the t tile's room once
-//   its epilogue is done. f32 keeps t in shared memory and runs the
-//   depthwise over groups of 64 channels, each group's halo tile copied in
-//   turn (12 x 12 x 256 f32 alone would be 147,456 B), writing the raw sums
-//   of the whole tile, then a LayerNorm pass over t (a warp a pixel); its
-//   products read their A fragments from t and h in shared memory (rows
-//   padded by 4 floats: free of bank conflicts) and run as 3xTF32 as above;
-// * grouped (K = 7 at CW = 256): a whole-C tile with its 3-wide halo no
-//   longer fits (14 x 14 x 256 bf16 is 100,352 B), so every mode takes the
-//   f32 class's depthwise by groups of 64 channels: each group's input (in
-//   the I/O type; int8 codes dequantized as they are read) and its
-//   depthwise weights are copied into a slot, double-buffered, and the raw
-//   f32 sums of the whole tile go to shared memory (t itself in f32), a
-//   LayerNorm pass writes t, and only then do W2 and W3 stream: the slots
-//   and the raw sums share their room with the weight ring, so a tile's
-//   first chunk is copied after its LayerNorm and its first group after
-//   its epilogue (bf16 (256, 7) 182,784 B).
+//   channels each. W2 and W3 stream through the ring as at C = 128, in
+//   chunks of 16 E channels (three stages of 32 do not fit beside a whole
+//   (256, 5) tile), on a cluster of two blocks; of a chunk each warp of the
+//   pair computes one n8 tile of the expansion (bf16: from its A fragments
+//   of t in registers) and hands its h to the other through a
+//   shared-memory block of 16 x ECH (a named barrier of the pair's 64
+//   threads; two sets of blocks, by the chunk's parity, so that one
+//   chunk's writes wait for no reader of the last), and each projects the
+//   whole chunk's h onto its 128 channels. The residual x is read back
+//   from device memory, so the one input tile that (256, 5) leaves room
+//   for is refilled once every warp is past its depthwise (bf16; two
+//   tiles at K <= 3); int8 stages the next tile's codes in the t tile's
+//   room once its epilogue is done;
+// * grouped (K = 7 at CW = 256, and f32 at every K): a whole-C tile does
+//   not fit (14 x 14 x 256 bf16 with K = 7's halo is 100,352 B, 12 x 12 x
+//   256 f32 147,456 B), so the depthwise runs by groups of 64 channels:
+//   each group's input (in the I/O type; int8 codes dequantized as they
+//   are read) and its depthwise weights are copied into a slot,
+//   double-buffered, and the raw f32 sums of the whole tile go to shared
+//   memory (f32: into t itself), a LayerNorm pass (a warp a pixel) writes
+//   t, and only then do W2 and W3 stream: the slots and the raw sums
+//   share their room with the ring, so the cluster's blocks meet after
+//   their LayerNorms, the tile's first chunks are issued then, and the
+//   next tile's first group is copied after the epilogue (bf16 (256, 7)
+//   183,872 B; f32 227,392 B at every K). f32 keeps t in shared memory; its
+//   products read their A fragments from t and h there (rows padded by 4
+//   floats: free of bank conflicts) and run as 3xTF32 as above.
 // Above C = 256 (up to 1024) a thread-block cluster of ceil(C / 128)
 // blocks runs the unit instead, each block owning 128 of the output
 // channels and 512 of the E channels, the channels padded to 128 a block
@@ -220,6 +237,7 @@
 
 #include <type_traits>
 
+#include "chunk_ring.cuh"
 #include "common.cuh"
 
 namespace {
@@ -244,6 +262,14 @@ constexpr size_t kMaxSmem = 232448;
 constexpr size_t kSmemPerSm = 233472;
 constexpr size_t kSmemPerBlock = 1024;
 
+// the streamed layouts' weight ring (chunk_ring.cuh): clusters of
+// kRingCluster blocks on neighbouring tiles, each chunk multicast to both;
+// as many stages as fit, up to kRingStages (at least three); its
+// mbarriers' bytes
+constexpr int kRingCluster = 2;
+constexpr int kRingStages = 4;
+constexpr size_t kRingBars = 16 * kRingStages;
+
 // I/O type T; S is the type of the shared input tile and of the 1x1 weights
 // (int8 codes are dequantized into a bf16 tile). RAGGED_: the layout of
 // width C (a multiple of 16), for any true C from C - 15 to C (a launch
@@ -258,8 +284,6 @@ struct Cfg {
   // them in 3xTF32
   static constexpr bool kMma = std::is_same<S, bf16>::value;
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  // streamed chunks are staged as rows (bf16) or in fragment order (f32)
-  static constexpr bool kRowChunks = kMma;
   // bf16: one block of 512 threads an SM on 8 x 32 tiles where the width
   // holds one block (C = 64; 48 at K = 7, where two blocks of 8 x 16
   // tiles do not fit: 16 warps an SM, not 8); tiles of 8 x 32 pixels and
@@ -292,30 +316,52 @@ struct Cfg {
   static constexpr size_t OFF_LN = align16(OFF_DW + 4 * K * K * C);
   static constexpr size_t OFF_GN = align16(OFF_LN + 4 * C);
   static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
-  // W2 and W3 stream through two buffers of ECH of the E channels each
-  // (W2's rows, W3's columns), the copies of chunk n+1 in flight while
-  // chunk n is multiplied, where they do not fit beside a tile: in bf16
-  // where the padded rows would take more than half of a block's shared
-  // memory (from C = 96: 155,136 B; C = 128: 272,384 B), in f32 where
-  // they do not fit beside one tile (from C = 80, and (64, 7): 131,072 B
-  // beside a 88,704 B tile); f32 (128, 7), whose 167,552 B tile leaves no
-  // room for two chunks of 32, takes chunks of 16
+  // W2 and W3 stream through a ring of chunks of ECH of the E channels
+  // (W2's rows, W3's columns; chunk_ring.cuh) where they do not fit beside
+  // a tile: in bf16 where the padded rows would take more than half of a
+  // block's shared memory (from C = 96: 155,136 B; C = 128: 272,384 B), in
+  // f32 where they do not fit beside one tile (from C = 80, and (64, 7):
+  // 131,072 B beside a 88,704 B tile)
   static constexpr size_t F32_RESIDENT_W = 2 * align16(4 * E * C);
   static constexpr size_t BF16_RESIDENT_W =
       align16(2 * E * (C + 8)) + align16(2 * C * (E + 8));
   static constexpr bool kStream =
       kMma ? BF16_RESIDENT_W > kMaxSmem / 2
            : OFF_X + XBUF + F32_RESIDENT_W > kMaxSmem;
+  // a streamed chunk of ech E channels: bf16 W2 [ech][C + 8] and W3
+  // [C][ech + 8] rows, f32 both in fragment order
+  static constexpr size_t chunk_bytes(int ech) {
+    return kMma ? align16(2 * ech * (C + 8)) + align16(2 * C * (ech + 8))
+                : 2 * align16(4 * ech * C);
+  }
+  static constexpr size_t T_BYTES = kMma ? 2 * P * LDT : 0;
+  // int8 I/O prefetches a tile's raw codes into a staging buffer
+  // ([IH*IW][C]; in a ragged layout the tile's rows as they lie in device
+  // memory, ROW_STAGE bytes a row: see load_rows_async)
+  static constexpr size_t ROW_STAGE = align16(IW * C * sizeof(T) + 15);
+  static constexpr size_t STAGE_BYTES =
+      !kInt8 ? 0 : kRagged ? IH * ROW_STAGE : IH * IW * C;
+  // whether three stages of chunks of ech E channels fit beside one tile
+  // (and int8's staged codes) and t
+  static constexpr bool three_fit(int ech) {
+    return OFF_X + XBUF + STAGE_BYTES + T_BYTES + 3 * chunk_bytes(ech) +
+               kRingBars <=
+           kMaxSmem;
+  }
+  // chunks of 32 E channels where three fit, else of 16 (int8 (128, 7),
+  // f32 (128, 5)); f32 where three of 16 do not fit either ((128, 7): a
+  // 167,552 B tile) the ring takes the tile buffer's room, chunks of 32
+  // from the first after the depthwise to the last, and the next tile is
+  // copied once the products are done (kRingInX)
+  static constexpr bool kRingInX = kStream && !kMma && !three_fit(16);
   static constexpr int ECH =
-      !kMma && kStream && OFF_X + XBUF + 4 * align16(4 * 32 * C) > kMaxSmem
-          ? 16
-          : 32;
+      kStream && !kRingInX && !three_fit(32) ? 16 : 32;
   static constexpr int NCH = E / ECH;
   // E channels per step of the products: their expansion accumulators are
   // EC/2 registers, and at C = 48 (two blocks an SM at K < 7) and C = 64
   // (512 threads) a thread has 128 in all (EC = 64 spilled at (48, 1));
   // from C = 96 a step is one streamed chunk
-  static constexpr int EC = C >= 48 ? 32 : 64;
+  static constexpr int EC = kStream ? ECH : C >= 48 ? 32 : 64;
   // f32: E channels per step of the products: their expansion accumulators
   // are EF/2 registers, and at C <= 32 (two blocks per SM) a thread has
   // 128; streamed, a step is one chunk
@@ -327,35 +373,56 @@ struct Cfg {
   static constexpr int LDW2 = C + 8;         // bf16 W2 [EW][C] rows
   static constexpr int LDW3 = EW + 8;        // bf16 W3 [C][EW] rows
   // bf16/int8: W2 bf16 [EW][LDW2], then W3 bf16 [C][LDW3]
-  // f32:       W2 and W3 f32 in fragment order, EW*C each (see the
-  //            staging in the kernel and load_chunk_async)
+  // f32:       W2 and W3 f32 in fragment order, EW*C each (resident: the
+  //            staging in the kernel; streamed: kernel_operands' chunks)
   static constexpr size_t W2_BYTES =
       align16(kMma ? 2 * EW * LDW2 : 4 * EW * C);
   static constexpr size_t W3_BYTES =
       align16(kMma ? 2 * C * LDW3 : 4 * EW * C);
   static constexpr size_t WBUF = W2_BYTES + W3_BYTES;
-  static constexpr int NWBUF = kStream ? 2 : 1;
-  static constexpr size_t T_BYTES = kMma ? 2 * P * LDT : 0;
-  // tile buffers: int8 I/O prefetches into a staging buffer of raw codes
-  // ([IH*IW][C]; in a ragged layout the tile's rows as they lie in device
-  // memory, ROW_STAGE bytes a row: see load_rows_async), bf16 and f32 I/O
-  // into a second tile where two fit beside the weights (bf16: all but
-  // (64, 7), (80, 7), (112, 7) and (128, 7); f32: all but (64, 5), (96, K),
-  // (112, K), (128, 5) and (128, 7)); with one, bf16 refills it once every
-  // warp's epilogue is done, f32 once every depthwise is
+  static_assert(!kStream || WBUF == chunk_bytes(ECH), "one chunk a stage");
+  // tile buffers: int8 I/O prefetches into its staging buffer, bf16 and
+  // f32 I/O into a second tile where two fit beside the weights (streamed:
+  // beside three stages); with one, bf16 refills it once every warp's
+  // epilogue is done, f32 once every depthwise is (kRingInX: once the
+  // products are)
   static constexpr int NXBUF =
-      kInt8 ? 1
-      : OFF_X + 2 * XBUF + NWBUF * WBUF + T_BYTES <= kMaxSmem ? 2 : 1;
+      kInt8 || kRingInX ? 1
+      : OFF_X + 2 * XBUF + (kStream ? 3 : 1) * WBUF + T_BYTES +
+                  (kStream ? kRingBars : 0) <=
+              kMaxSmem
+          ? 2
+          : 1;
   static constexpr size_t OFF_STAGE = align16(OFF_X + NXBUF * XBUF);
-  static constexpr size_t ROW_STAGE = align16(IW * C * sizeof(T) + 15);
-  static constexpr size_t STAGE_BYTES =
-      !kInt8 ? 0 : kRagged ? IH * ROW_STAGE : IH * IW * C;
-  // the weight buffers, then the bf16 t/out tile [P][LDT] (int8 output
-  // rows are staged in the same rows)
-  static constexpr size_t OFF_W2 = align16(OFF_STAGE + STAGE_BYTES);
+  // the weight buffer or the ring's stages, then the bf16 t/out tile
+  // [P][LDT] (int8 output rows are staged in the same rows), then the
+  // ring's mbarriers
+  static constexpr size_t OFF_W2 =
+      kRingInX ? OFF_X : align16(OFF_STAGE + STAGE_BYTES);
   static constexpr size_t OFF_W3 = OFF_W2 + W2_BYTES;
-  static constexpr size_t OFF_T = OFF_W2 + NWBUF * WBUF;
-  static constexpr size_t SMEM = OFF_T + T_BYTES;
+  static constexpr size_t ring_fit(size_t room) {
+    return room / WBUF < (size_t)kRingStages ? room / WBUF
+                                             : (size_t)kRingStages;
+  }
+  // f32 streamed at C = 128: t (each lane's 64 values) waits in the tile
+  // buffer's room while the products run (kRingInX: after the ring's
+  // stages), so that the products hold only their accumulators in
+  // registers (t there too spilled 12-40 bytes at 255); the one tile buffer
+  // is then refilled once the epilogue is done
+  static constexpr bool kParkT = !kMma && kStream && C == 128;
+  static constexpr size_t TV_BYTES = kParkT ? 4 * NT * (C / 2) : 0;
+  static constexpr int NS =
+      !kStream  ? 1
+      : kRingInX ? (int)ring_fit(XBUF - TV_BYTES)
+                 : (int)ring_fit(kMaxSmem - OFF_W2 - T_BYTES - kRingBars);
+  static constexpr size_t OFF_TV = kRingInX ? OFF_X + NS * WBUF : OFF_X;
+  static_assert(OFF_TV + TV_BYTES <= OFF_X + XBUF, "t fits a tile's room");
+  static_assert(!kStream || NS >= 3, "a ring of three stages or more");
+  static constexpr int NCL = kStream ? kRingCluster : 1;
+  static constexpr size_t OFF_T =
+      kRingInX ? align16(OFF_X + XBUF) : OFF_W2 + NS * WBUF;
+  static constexpr size_t OFF_BAR = OFF_T + T_BYTES;
+  static constexpr size_t SMEM = OFF_BAR + (kStream ? kRingBars : 0);
   static_assert(XBUF % 16 == 0, "tile buffers keep 16-byte alignment");
   static_assert(SMEM <= kMaxSmem, "one block's shared memory fits");
   // the blocks per SM the registers are capped for: two wherever two fit
@@ -966,23 +1033,37 @@ __device__ __forceinline__ void expand_project(
     const uint32_t (&af)[G::C / 16][4], float (&pacc)[G::C / 8][4],
     uint32_t w2, uint32_t w3, float slope) {
   constexpr int C = G::C;
+  // a step of fewer than 32 E channels (streamed chunks of 16) sums each
+  // n8 tile's k16 steps in KS chains of their own (step kt in chain
+  // kt % KS), added in order at the end, so that four chains of dependent
+  // products are in flight as with 32
+  constexpr int KS = G::EC >= 32 ? 1 : 32 / G::EC;
   float hacc[G::EC / 8][4];
+  float hpart[G::EC / 8][KS][4];
 #pragma unroll
   for (int nt = 0; nt < G::EC / 8; ++nt) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) hacc[nt][i] = 0.f;
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hpart[nt][j][i] = 0.f;
 #pragma unroll
     for (int kt = 0; kt + 1 < C / 16; kt += 2) {
       uint32_t b[4];  // B fragments of two k16 steps
       ldmatrix_x4(b, w2 + 2 * (nt * 8 * G::LDW2 + kt * 16));
-      mma_bf16(hacc[nt], af[kt], b[0], b[1]);
-      mma_bf16(hacc[nt], af[kt + 1], b[2], b[3]);
+      mma_bf16(hpart[nt][kt % KS], af[kt], b[0], b[1]);
+      mma_bf16(hpart[nt][(kt + 1) % KS], af[kt + 1], b[2], b[3]);
     }
     if constexpr (C / 16 % 2 == 1) {
       // the last k16 step of an odd number of them (C = 16, 48, 80, 112)
       uint32_t b[2];
       ldmatrix_x2(b, w2 + 2 * (nt * 8 * G::LDW2 + (C / 16 - 1) * 16));
-      mma_bf16(hacc[nt], af[C / 16 - 1], b[0], b[1]);
+      mma_bf16(hpart[nt][(C / 16 - 1) % KS], af[C / 16 - 1], b[0], b[1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hacc[nt][i] = hpart[nt][0][i];
+#pragma unroll
+      for (int j = 1; j < KS; ++j) hacc[nt][i] += hpart[nt][j][i];
     }
   }
 #pragma unroll
@@ -1198,56 +1279,6 @@ __device__ __forceinline__ void products_store(
   }
 }
 
-// permutation of the 16 columns of an m16n8k8 n8 tile pair (2j + s, the
-// n index n) that makes a lane's B operands of two k-steps one 16-byte
-// vector of W2's or W3's rows (the f32 chunk layout below)
-__device__ __forceinline__ int pair_index(int tile, int n) {
-  return 16 * (tile >> 1) + 4 * (n >> 1) + 2 * (tile & 1) + (n & 1);
-}
-
-// Start the copies of E chunk `chunk` of W2 (its ECH rows) and W3 (its ECH
-// columns) into the weight buffer at `dst`. bf16 (and the wide class's f32,
-// kRowChunks): W2 [ECH][LDW2], W3 [C][LDW3], rows as in device memory.
-// f32 at C = 128, in fragment order, one 16-byte
-// vector per lane (g = lane / 4, q = lane % 4): W2 vector (n, i) holds
-// channels 16i + 4q .. + 3 of E row pair_index(n, g), the B operands of
-// the expansion's k-steps 2i, 2i + 1 for its n8 tile n; W3 vector (m, o)
-// holds E 16m + 4q .. + 3 of output channel pair_index(o, g), the B
-// operands of the projection's k-steps 2m, 2m + 1 for its n8 tile o.
-template <typename G>
-__device__ __forceinline__ void load_chunk_async(
-    const typename G::S* __restrict__ w2, const typename G::S* __restrict__ w3,
-    unsigned char* dst, int chunk, int tid) {
-  constexpr int C = G::C, E = G::E, ECH = G::ECH;
-  const int e0 = chunk * ECH;
-  const uint32_t d2 = shared_address(dst);
-  const uint32_t d3 = d2 + (uint32_t)G::W2_BYTES;
-  if constexpr (G::kRowChunks) {
-    constexpr int V = G::V, SZ = (int)sizeof(typename G::S);
-    for (int i = tid; i < ECH * C / V; i += G::NT) {
-      const int r = i / (C / V), p = i % (C / V);
-      cp_async_16(d2 + SZ * (r * G::LDW2 + p * V), w2 + (e0 + r) * C + p * V,
-                  true);
-    }
-    for (int i = tid; i < C * ECH / V; i += G::NT) {
-      const int r = i / (ECH / V), p = i % (ECH / V);
-      cp_async_16(d3 + SZ * (r * G::LDW3 + p * V), w3 + r * E + e0 + p * V,
-                  true);
-    }
-  } else {
-    for (int i = tid; i < ECH * C / 4; i += G::NT) {
-      const int lane = i & 31, g = lane >> 2, q = lane & 3, rest = i >> 5;
-      const int n = rest / (C / 16), ii = rest % (C / 16);
-      cp_async_16(d2 + 16 * i,
-                  w2 + (e0 + pair_index(n, g)) * C + 16 * ii + 4 * q, true);
-      const int m = rest / (C / 8), o = rest % (C / 8);
-      cp_async_16(d3 + 16 * i,
-                  w3 + pair_index(o, g) * E + e0 + 16 * m + 4 * q, true);
-    }
-  }
-  cp_async_commit();
-}
-
 // D += A B for one m16n8k8 tile on TF32 operands: A row-major (4 regs), B
 // column-major (2 regs), D f32 (4 regs). The tensor core reads the top 19
 // bits of each f32 operand. Not volatile, so that the compiler may
@@ -1329,23 +1360,28 @@ __device__ __forceinline__ void split_a(float a0, float a1, float a2,
   split_tf32_rn(a3, ab[3], as[3]);
 }
 
-// f32 I/O with streamed weights (C = 128): one E chunk of both products
-// for the warp's 16 pixels in 3xTF32 from t in registers, the chunk's W2
-// and W3 in the fragment order of load_chunk_async, 16 E channels (two
-// n8 tiles of the expansion, one k-step pair of the projection) a step:
-// t and the projection's accumulators hold 128 registers, so the steps
-// are not unrolled into each other. The expansion's n8 tile n holds E
-// channels pair_index(n, 2q), + 1 of the chunk in its accumulators d0,
-// d1 (row g) and d2, d3 (row g + 8); as d0, d2, d1, d3 those of tiles 2m
-// and 2m + 1 are the A fragments of the projection's k-steps 2m and
-// 2m + 1, whose E channels 16m + 4q .. + 3 are the lane's W3 vector. The
-// projection's n8 tile o holds output channels pair_index(o, 2q), + 1:
-// tiles 2i and 2i + 1 are channels 16i + 4q .. + 3.
-template <typename G>
+// f32 I/O with streamed weights (C = 128, 96, 80, (64, 7)): one E chunk of both
+// products for the warp's 16 pixels in 3xTF32, 16 E channels (two n8 tiles of
+// the expansion, one k-step pair of the projection) a step, the steps not
+// unrolled into each other. tv(p, i) gives the lane's t[p][4i .. 4i + 3] (pixel
+// 2g + p, channels 16i + 4q .. + 3), from registers or, at C = 128, from shared
+// memory (kParkT). The chunk's W2 and W3 arrive in fragment order
+// (kernel_operands arranges them; one 16-byte vector per lane g = lane / 4, q =
+// lane % 4, with pair(n, j) = 16 (n / 2) + 4 (j / 2) + 2 (n % 2) + j % 2): W2
+// vector (n, i) holds channels 16i + 4q .. + 3 of the chunk's E row pair(n, g),
+// the B operands of the expansion's k-steps 2i, 2i + 1 for its n8 tile n; W3
+// vector (m, o) holds the chunk's E 16m + 4q .. + 3 of output channel pair(o,
+// g), the B operands of the projection's k-steps 2m, 2m + 1 for its n8 tile o.
+// The expansion's n8 tile n holds E channels pair(n, 2q), + 1 of the chunk in
+// its accumulators d0, d1 (row g) and d2, d3 (row g + 8); as d0, d2, d1, d3
+// those of tiles 2m and 2m + 1 are the A fragments of the projection's k-steps
+// 2m and 2m + 1, whose E channels 16m + 4q .. + 3 are the lane's W3 vector. The
+// projection's n8 tile o holds output channels pair(o, 2q), + 1: tiles 2i and
+// 2i + 1 are channels 16i + 4q .. + 3.
+template <typename G, typename TV>
 __device__ __forceinline__ void expand_project_f32(
-    const float (&tv)[2][G::C / 4], float (&pacc)[G::C / 8][4],
-    const float4* __restrict__ w2c, const float4* __restrict__ w3c,
-    float slope, int lane) {
+    TV tv, float (&pacc)[G::C / 8][4], const float4* __restrict__ w2c,
+    const float4* __restrict__ w3c, float slope, int lane) {
   constexpr int C = G::C, ECH = G::ECH;
 #pragma unroll 1
   for (int m = 0; m < ECH / 16; ++m) {
@@ -1358,11 +1394,10 @@ __device__ __forceinline__ void expand_project_f32(
     // + {2, 3} of rows g (pixel 2g) and g + 8 (pixel 2g + 1)
 #pragma unroll
     for (int i = 0; i < C / 16; ++i) {
+      const float4 t0 = tv(0, i), t1 = tv(1, i);
       uint32_t ab0[4], as0[4], ab1[4], as1[4];
-      split_a(tv[0][4 * i], tv[1][4 * i], tv[0][4 * i + 1],
-              tv[1][4 * i + 1], ab0, as0);
-      split_a(tv[0][4 * i + 2], tv[1][4 * i + 2], tv[0][4 * i + 3],
-              tv[1][4 * i + 3], ab1, as1);
+      split_a(t0.x, t1.x, t0.y, t1.y, ab0, as0);
+      split_a(t0.z, t1.z, t0.w, t1.w, ab1, as1);
 #pragma unroll
       for (int n = 0; n < 2; ++n)
         mma_3xtf32_ksteps(hacc[n], ab0, as0, ab1, as1,
@@ -1552,23 +1587,6 @@ __device__ __forceinline__ void store_row_f32(
   }
 }
 
-// C = 128: the products of a tile walk the E chunks. At chunk c: wait for
-// this thread's copies of it, a barrier (every thread's have landed and
-// every warp is past chunk c - 1), then start the copies of chunk c + 1
-// (after the last chunk, of the next tile's chunk 0 if `more`) into the
-// buffer chunk c - 1 used. Chunk c is in buffer c % 2.
-template <typename G>
-__device__ __forceinline__ void await_chunk(
-    const typename G::S* __restrict__ w2, const typename G::S* __restrict__ w3,
-    unsigned char* ring, int c, bool more, int tid) {
-  cp_async_wait_all();
-  __syncthreads();
-  if (c + 1 < G::NCH)
-    load_chunk_async<G>(w2, w3, ring + ((c + 1) & 1) * G::WBUF, c + 1, tid);
-  else if (more)
-    load_chunk_async<G>(w2, w3, ring, 0, tid);
-}
-
 // f32 I/O: both 1x1 products of the warp's 16 pixels in 3xTF32 from t in
 // registers, EF of the E channels a step, then out = x + gain * p stored
 // from the projection's accumulators. w2f and w3f are W2 and W3 in
@@ -1626,6 +1644,102 @@ __device__ __forceinline__ void products_store_f32(
   store_row_f32<G>(pacc, xc, nullptr, gns, out, t, ry, H, W, lane, cr);
 }
 
+// A persistent block's tiles: a cluster of NCL blocks (NCL = 1: a block)
+// takes NCL neighbouring tiles a round, cluster cid of n the rounds cid,
+// cid + n, ... of the ceil(ntiles / NCL); block r of it tile NCL round + r.
+// In the last round a block of a cluster may find no tile (a tile count
+// that NCL does not divide, or one image smaller than the cluster): it
+// runs a ghost tile whose rows lie past the image, computed on zeros and
+// stored nowhere, so that it takes every chunk of the ring with the
+// cluster's other blocks. The tile grid and the cluster's place are worked
+// out from the launch's shape, blockIdx and gridDim where they are needed,
+// not held in registers.
+template <typename G>
+struct TileWalk {
+  int rounds;
+  __device__ __forceinline__ TileWalk(int B, int H, int W) {
+    // the grid is no larger than the rounds' clusters
+    rounds = ((ntiles(B, H, W) + G::NCL - 1) / G::NCL - 1 -
+              (int)blockIdx.x / G::NCL) /
+                 ((int)gridDim.x / G::NCL) +
+             1;
+  }
+  static __device__ __forceinline__ int tiles_w(int W) {
+    return (W + G::TW - 1) / G::TW;
+  }
+  static __device__ __forceinline__ int tiles_h(int H) {
+    return (H + G::TH - 1) / G::TH;
+  }
+  // the launcher checks the range
+  static __device__ __forceinline__ int ntiles(int B, int H, int W) {
+    return B * tiles_h(H) * tiles_w(W);
+  }
+  __device__ __forceinline__ Tile at(int round, int B, int H, int W) const {
+    const int i = ((int)blockIdx.x / G::NCL +
+                   round * ((int)gridDim.x / G::NCL)) * G::NCL +
+                  (int)blockIdx.x % G::NCL;
+    if constexpr (G::NCL > 1) {
+      if (i >= ntiles(B, H, W)) return Tile{0, H, 0};
+    }
+    const int rest = i / tiles_w(W);
+    return Tile{rest / tiles_h(H), rest % tiles_h(H) * G::TH,
+                i % tiles_w(W) * G::TW};
+  }
+};
+
+// The ring of a streamed layout G (chunk_ring.cuh) over the chunks the
+// kernel's w2 points to (kernel_operands' images: chunk c at c WBUF bytes,
+// its W2 rows then its W3 columns, as its stage holds them; w3 is the same
+// tensor). A block's chunks are counted over its tiles: chunk c of round
+// r is g = r NCH + c, so the ring holds no state of its own in registers
+// (the float32 layouts run at their register cap); its addresses are
+// rebuilt from smem where they are used.
+template <typename G>
+struct StreamedWeights {
+  using Ring = bid_ring::ChunkRing<G::NS, G::NCL, (uint32_t)G::WBUF>;
+  static __device__ __forceinline__ Ring ring(unsigned char* smem) {
+    return Ring(smem + G::OFF_BAR, smem + G::OFF_W2);
+  }
+  // thread 0, before any use; then the cluster meets (sync_cluster)
+  static __device__ __forceinline__ void init(unsigned char* smem, int tid) {
+    if (tid == 0) ring(smem).init(G::NT / 32);
+  }
+  // one thread: chunk j of the running count (waiting for its stage)
+  static __device__ __forceinline__ void issue(unsigned char* smem, int j,
+                                               const void* chunks) {
+    ring(smem).issue(j, static_cast<const unsigned char*>(chunks) +
+                            (size_t)(j % G::NCH) * G::WBUF);
+  }
+  // thread 0: round r's chunks up to NS - 1 ahead of its first, below
+  // limit
+  static __device__ __forceinline__ void prime(unsigned char* smem, int r,
+                                               int limit, int tid,
+                                               const void* chunks) {
+    if (tid == 0)
+      for (int j = r * G::NCH; j < r * G::NCH + G::NS - 1 && j < limit; ++j)
+        issue(smem, j, chunks);
+  }
+  // round r's NCH chunks: wait for each, use(shared-memory byte offset of
+  // its stage from stage 0, the chunk's parity), release it, and (thread
+  // 0) issue the chunk NS - 1 ahead of it, below limit
+  template <typename F>
+  static __device__ __forceinline__ void walk(unsigned char* smem, int r,
+                                              int limit, int tid,
+                                              const void* chunks, F use) {
+    const int lane = tid & 31;
+    const Ring ring_ = ring(smem);
+#pragma unroll 1
+    for (int c = 0; c < G::NCH; ++c) {
+      const int g = r * G::NCH + c;
+      ring_.wait(g);
+      use((uint32_t)(g % G::NS) * (uint32_t)G::WBUF, g & 1);
+      ring_.release(g, lane);
+      if (tid == 0 && g + G::NS - 1 < limit)
+        issue(smem, g + G::NS - 1, chunks);
+    }
+  }
+};
+
 // cr: the true channels (a ragged class; C at the (C, K) of their own),
 // inv_cr its reciprocal
 template <typename T, int C, int K, bool RG>
@@ -1650,13 +1764,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
   S* w3s = reinterpret_cast<S*>(smem + G::OFF_W3);
   const int tid = threadIdx.x;
 
-  const int tiles_w = (W + G::TW - 1) / G::TW;
-  const int tiles_h = (H + G::TH - 1) / G::TH;
-  const int ntiles = B * tiles_h * tiles_w;  // the launcher checks the range
-  auto tile_at = [&](int i) {
-    const int rest = i / tiles_w;
-    return Tile{rest / tiles_h, rest % tiles_h * G::TH, i % tiles_w * G::TW};
-  };
+  const TileWalk<G> walk(B, H, W);
   // where the copies of the next tile land: the staging buffer (int8), the
   // other tile buffer (bf16, f32 but at (64, 5)) or the only one
   int buf = 0;
@@ -1686,12 +1794,18 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
       reinterpret_cast<uint4*>(smem + G::OFF_X)[i] = make_uint4(0, 0, 0, 0);
     __syncthreads();
   }
-  int tile = blockIdx.x;  // the grid is no larger than ntiles
-  start_copies(landing(buf), tile_at(tile));
-  // C = 128: chunk c of W2 and W3 lands in weight buffer c % 2; the first
-  // tile's chunk 0 follows its input
-  unsigned char* const ring = smem + G::OFF_W2;
-  if constexpr (G::kStream) load_chunk_async<G>(w2, w3, ring, 0, tid);
+  // the streamed layouts' ring: its barriers ready in every block of the
+  // cluster before any block's copies or releases reach them
+  using SW = StreamedWeights<G>;
+  if constexpr (G::kStream) {
+    SW::init(smem, tid);
+    bid_ring::sync_cluster<G::NCL>();
+  }
+  start_copies(landing(buf), walk.at(0, B, H, W));
+  // the chunks run on from tile to tile (kRingInX: each tile's from its
+  // depthwise on); the first NS - 1 follow the first tile's input
+  if constexpr (G::kStream && !G::kRingInX)
+    SW::prime(smem, 0, walk.rounds * G::NCH, tid, w2);
 
   // ---- weights, once per block, while the first tile is on its way
   for (int i = tid; i < C * K * K; i += NT) {
@@ -1745,9 +1859,9 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 
   const int warp = tid >> 5, lane = tid & 31;
-  for (; tile < ntiles; tile += gridDim.x) {
-    const Tile t = tile_at(tile);
-    const int next = tile + gridDim.x;
+  for (int round = 0; round < walk.rounds; ++round) {
+    const Tile t = walk.at(round, B, H, W);
+    const bool more = round + 1 < walk.rounds;
     S* xs = reinterpret_cast<S*>(smem + G::OFF_X + buf * G::XBUF);
     cp_async_wait_all();
     // this tile (or its codes) has landed and the weights are staged; every
@@ -1768,7 +1882,7 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
       constexpr bool kRefillLate = !G::kInt8 && G::NXBUF == 1;
       if constexpr (!kRefillLate) {
         buf ^= G::NXBUF - 1;
-        if (next < ntiles) start_copies(landing(buf), tile_at(next));
+        if (more) start_copies(landing(buf), walk.at(round + 1, B, H, W));
       }
       bf16* ts = reinterpret_cast<bf16*>(smem + G::OFF_T);
       depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, inv_cr);
@@ -1785,12 +1899,10 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
         for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
-#pragma unroll 1
-        for (int c = 0; c < G::NCH; ++c) {
-          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid);
-          const uint32_t b = (c & 1) * (uint32_t)G::WBUF;
+        SW::walk(smem, round, walk.rounds * G::NCH, tid, w2,
+                 [&](uint32_t b, int) {
           expand_project<G>(af, pacc, rows.w2 + b, rows.w3 + b, slope);
-        }
+        });
         store_tile_rows<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out,
                               16 * warp, lane, cr);
       } else {
@@ -1798,50 +1910,98 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
                           inv_out, tid, cr);
       }
       if constexpr (kRefillLate) {
-        if (next < ntiles) {
+        if (more) {
           __syncthreads();  // every warp is done with this tile's x
-          start_copies(landing(0), tile_at(next));
+          start_copies(landing(0), walk.at(round + 1, B, H, W));
         }
       }
     } else {
       // f32: the next tile goes to the other buffer where there are two,
-      // else into this one once every warp has done its depthwise: the
-      // products need only registers and the weights
+      // else into this one once every warp has done its depthwise (the
+      // products need only registers and the weights; kParkT: once the
+      // epilogue is done)
       if constexpr (G::NXBUF == 2) {
         buf ^= 1;
-        if (next < ntiles)
-          start_copies(landing(buf), tile_at(next));
+        if (more) start_copies(landing(buf), walk.at(round + 1, B, H, W));
       }
       float tv[2][C / 4], xc[2][C / 4];
       depthwise_layernorm_f32<G>(xs, dws, lns, tv, xc, warp, lane, cr,
                                  inv_cr);
       if constexpr (G::kStream) {
+        // t waits in this tile's room (kParkT) once every depthwise is done
+        // with the tile: vector p C/16 + i of a thread, NT threads apart,
+        // holds its t[p][4i .. 4i + 3]; else the one tile buffer takes
+        // the next tile now
+        float4* tq = reinterpret_cast<float4*>(
+                         G::kRingInX ? smem + G::OFF_TV
+                                     : reinterpret_cast<unsigned char*>(xs)) +
+                     tid;
+        if constexpr (G::kParkT) {
+          __syncthreads();
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+#pragma unroll
+            for (int i = 0; i < C / 16; ++i)
+              tq[(p * (C / 16) + i) * NT] =
+                  make_float4(tv[p][4 * i], tv[p][4 * i + 1],
+                              tv[p][4 * i + 2], tv[p][4 * i + 3]);
+        } else if constexpr (G::NXBUF == 1) {
+          __syncthreads();
+          if (more) start_copies(landing(buf), walk.at(round + 1, B, H, W));
+        }
+        if constexpr (G::kRingInX) {
+          // every block of the cluster is past its tile buffer: the ring
+          // takes its room for this tile's chunks
+          bid_ring::sync_cluster<G::NCL>();
+          SW::prime(smem, round, (round + 1) * G::NCH, tid, w2);
+        }
         // x is read back from device memory for the residual (x stays out
-        // of the registers: t and the accumulators take 128 of them)
+        // of the registers)
         float pacc[C / 8][4];
 #pragma unroll
         for (int nt = 0; nt < C / 8; ++nt)
 #pragma unroll
           for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
-#pragma unroll 1
-        for (int c = 0; c < G::NCH; ++c) {
-          await_chunk<G>(w2, w3, ring, c, next < ntiles, tid);
-          if constexpr (G::NXBUF == 1) {
-            // past the first chunk's barrier every depthwise is done
-            if (c == 0 && next < ntiles)
-              start_copies(landing(buf), tile_at(next));
-          }
-          const float4* wc =
-              reinterpret_cast<const float4*>(ring + (c & 1) * G::WBUF);
-          expand_project_f32<G>(tv, pacc, wc, wc + G::W2_BYTES / 16, slope,
+        const unsigned char* ring = smem + G::OFF_W2;
+        auto t_at = [&](int p, int i) {
+          if constexpr (G::kParkT)
+            return tq[(p * (C / 16) + i) * NT];
+          else
+            return make_float4(tv[p][4 * i], tv[p][4 * i + 1],
+                               tv[p][4 * i + 2], tv[p][4 * i + 3]);
+        };
+        SW::walk(smem, round,
+                 (G::kRingInX ? round + 1 : walk.rounds) * G::NCH, tid, w2,
+                 [&](uint32_t b, int) {
+          const float4* wc = reinterpret_cast<const float4*>(ring + b);
+          expand_project_f32<G>(t_at, pacc, wc, wc + G::W2_BYTES / 16, slope,
                                 lane);
+        });
+        // the tile worked out again (it is not held across the chunks)
+        store_row_f32<G>(pacc, xc, x, gns, out, walk.at(round, B, H, W),
+                         warp, H, W, lane, cr);
+        if constexpr (G::kParkT) {
+          // every warp is done with t (kRingInX: and with the ring's
+          // stages); a ragged tile's channels past cr are zero again where
+          // t lay, and with one tile buffer the next tile lands there
+          __syncthreads();
+          if constexpr (G::kRagged) {
+#pragma unroll
+            for (int v = 0; v < C / 8; ++v)
+              tq[v * NT] = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+          if constexpr (G::NXBUF == 1) {
+            if (more) {
+              if constexpr (G::kRagged) __syncthreads();
+              start_copies(landing(0), walk.at(round + 1, B, H, W));
+            }
+          }
         }
-        store_row_f32<G>(pacc, xc, x, gns, out, t, warp, H, W, lane, cr);
       } else {
         if constexpr (G::NXBUF == 1) {
-          if (next < ntiles) {
+          if (more) {
             __syncthreads();  // the only tile buffer is free again
-            start_copies(landing(buf), tile_at(next));
+            start_copies(landing(buf), walk.at(round + 1, B, H, W));
           }
         }
         products_store_f32<G>(tv, xc, reinterpret_cast<const float4*>(w2s),
@@ -1850,64 +2010,115 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
       }
     }
   }
+  // no block leaves while the cluster's others may still arrive on its
+  // barriers
+  if constexpr (G::NCL > 1) bid_ring::sync_cluster<G::NCL>();
 }
 
-// Launch with a persistent grid: as many blocks as fit on the card at
-// once (occupancy for this instantiation's shared memory), capped at the
-// number of tiles. The shared-memory attribute and the occupancy are set
-// and queried once per instantiation and device.
+// Launch with a persistent grid: as many blocks (clusters) as fit on the
+// card at once (occupancy for this instantiation's shared memory), capped
+// at the number of tiles (rounds of NCL tiles). The shared-memory attribute
+// and the occupancy are set and queried once per instantiation and device.
 constexpr int kMaxDevices = 64;
 
 // Raise the kernel's dynamic shared-memory limit on the current device and
-// return the blocks of it that one SM holds at once.
+// return the blocks of it that one SM holds at once and, for a cluster of
+// G::NCL blocks, the clusters the card holds (else the blocks it holds)
 template <typename G, typename Kern>
-int resident_blocks(Kern kern, int* blocks_per_sm) {
+int resident_units(Kern kern, int* blocks_per_sm, int* units) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern,
                                                     G::NT, G::SMEM);
-  return (int)e;
+  if (e != cudaSuccess) return (int)e;
+  if constexpr (G::NCL == 1) {
+    *units = *blocks_per_sm * bid::sm_count();
+    return 0;
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = G::NCL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(G::NCL, 1, 1);
+    cfg.blockDim = dim3(G::NT, 1, 1);
+    cfg.dynamicSmemBytes = G::SMEM;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return (int)cudaOccupancyMaxActiveClusters(units, kern, &cfg);
+  }
 }
 
-// Launch `kern`, whose layout is G, over the tiles of [B, H, W]
+// Launch `kern`, whose layout is G, over the tiles of [B, H, W]: a plain
+// launch, or one of clusters of G::NCL blocks (cudaLaunchKernelEx; a
+// refused launch returns its error)
 template <typename G, typename T, typename Kern>
 int launch_kernel(Kern kern, const void* x, void* out, const void* dw,
                   const void* ln, const void* w2, const void* w3,
                   const void* gain, int B, int H, int W, int cr, float slope,
                   float s_in, float inv_out, cudaStream_t stream) {
   using S = typename G::S;
-  static int blocks_per_device[kMaxDevices] = {0};
+  static int units_per_device[kMaxDevices] = {0};
   int dev = 0;
   cudaError_t de = cudaGetDevice(&dev);
   if (de != cudaSuccess) return (int)de;
   if (dev < 0 || dev >= kMaxDevices) return BID_ERR_UNSUPPORTED;
-  int& max_blocks = blocks_per_device[dev];
-  if (max_blocks == 0) {
-    int occ = 0;
-    const int e = resident_blocks<G>(kern, &occ);
+  int& max_units = units_per_device[dev];
+  if (max_units == 0) {
+    int occ = 0, units = 0;
+    const int e = resident_units<G>(kern, &occ, &units);
     if (e != 0) return e;
-    if (occ < 1) return BID_ERR_UNSUPPORTED;
-    max_blocks = occ * bid::sm_count();
+    if (occ < 1 || units < 1) return BID_ERR_UNSUPPORTED;
+    max_units = units;
   }
   const long long tiles = (long long)B * ((H + G::TH - 1) / G::TH) *
                           ((W + G::TW - 1) / G::TW);
   if (tiles == 0) return 0;
-  // the kernel counts tiles in 32 bits (its grid stride is added once more)
-  if (tiles > INT_MAX - max_blocks) return BID_ERR_UNSUPPORTED;
-  const int grid = (int)(tiles < max_blocks ? tiles : max_blocks);
-  kern<<<grid, G::NT, G::SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<const float*>(dw), static_cast<const float*>(ln),
-      static_cast<const S*>(w2), static_cast<const S*>(w3),
-      static_cast<const float*>(gain), B, H, W, cr, 1.f / (float)cr, slope,
-      s_in, inv_out);
+  const long long pairs = (tiles + G::NCL - 1) / G::NCL;
+  // the kernel counts tiles (its grid stride is added once more) and a
+  // block's chunks in 32 bits
+  if (tiles > INT_MAX - (long long)(max_units + 1) * G::NCL ||
+      (pairs / max_units + 1) * G::NCH > INT_MAX)
+    return BID_ERR_UNSUPPORTED;
+  const int grid = (int)(pairs < max_units ? pairs : max_units) * G::NCL;
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  const float* dwt = static_cast<const float*>(dw);
+  const float* lnt = static_cast<const float*>(ln);
+  const S* w2t = static_cast<const S*>(w2);
+  const S* w3t = static_cast<const S*>(w3);
+  const float* gt = static_cast<const float*>(gain);
+  if constexpr (G::NCL == 1) {
+    kern<<<grid, G::NT, G::SMEM, stream>>>(xt, ot, dwt, lnt, w2t, w3t, gt, B,
+                                           H, W, cr, 1.f / (float)cr, slope,
+                                           s_in, inv_out);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = G::NCL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(grid, 1, 1);
+    cfg.blockDim = dim3(G::NT, 1, 1);
+    cfg.dynamicSmemBytes = G::SMEM;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e =
+        cudaLaunchKernelEx(&cfg, kern, xt, ot, dwt, lnt, w2t, w3t, gt, B, H,
+                           W, cr, 1.f / (float)cr, slope, s_in, inv_out);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 
 // shared memory, registers, local (spill) bytes, threads per block,
-// resident blocks per SM, cluster size (1), the blocks the card holds at
-// once and the layout's width of one kernel, as v[0..7]
+// resident blocks per SM, cluster size, the blocks (clusters) the card
+// holds at once, the layout's width and the weight ring's stages (0: no
+// ring) of one kernel, as v[0..8]
 template <typename G, typename Kern>
 int kernel_info(Kern kern, int* v) {
   cudaFuncAttributes a;
@@ -1917,11 +2128,10 @@ int kernel_info(Kern kern, int* v) {
   v[1] = a.numRegs;
   v[2] = (int)a.localSizeBytes;
   v[3] = G::NT;
-  v[5] = 1;
+  v[5] = G::NCL;
   v[7] = G::C;
-  const int rc = resident_blocks<G>(kern, &v[4]);
-  v[6] = v[4] * bid::sm_count();
-  return rc;
+  v[8] = G::kStream ? G::NS : 0;
+  return resident_units<G>(kern, &v[4], &v[6]);
 }
 
 // the kernel of one (C, K) of its own (RG false) or of a class (RG true)

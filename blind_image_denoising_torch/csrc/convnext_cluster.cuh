@@ -852,10 +852,10 @@ int launch_cluster(const void* x, void* out, const void* dw, const void* ln,
   return (int)cudaGetLastError();
 }
 
-// v[0..7]: shared memory, registers, local (spill) bytes, threads per
+// v[0..8]: shared memory, registers, local (spill) bytes, threads per
 // block, resident blocks per SM, cluster size, the clusters the card holds
-// at once and the layout's width (128 n), of the kernel that runs C
-// channels
+// at once, the layout's width (128 n) and 0 (no bulk-copy weight ring:
+// chunk_ring.cuh), of the kernel that runs C channels
 template <typename G, typename T>
 int info_cluster(int cr, int* v) {
   auto kern = convnext_cluster_kernel<G, T>;
@@ -871,6 +871,7 @@ int info_cluster(int cr, int* v) {
   v[3] = G::NT;
   v[5] = n;
   v[7] = n * kSlice;
+  v[8] = 0;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&v[4], kern,
                                                             G::NT, v[0]);
 }

@@ -4,9 +4,12 @@
 // wrapper (wider units run on a thread-block cluster,
 // convnext_cluster.cuh).
 // The design is noted in convnext_block.cuh (its last bullets); the helpers
-// the class shares with the narrower layouts are there too. At C = 256 the
-// unit does 1,024 operations a byte of bf16 I/O, far above the card's
-// ridge: it is bound by its products.
+// the class shares with the narrower layouts are there too, the weight
+// ring of bulk copies multicast over a cluster of two blocks in
+// chunk_ring.cuh. At C = 256 the unit does 1,024 operations a byte of bf16
+// I/O, far above the card's ridge: it is bound by its products and by the
+// weight stream (1.3 MB of chunks a tile of 64 pixels, each read once for
+// the cluster's two blocks).
 #pragma once
 
 #include "convnext_block.cuh"
@@ -20,7 +23,7 @@ struct WCfg {
   static constexpr bool kRagged = true;
   static constexpr bool kMma = std::is_same<S, bf16>::value;
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  static constexpr bool kRowChunks = true;
+  static constexpr bool kStream = true;
   static_assert(CW == 256, "the one wide class; wider units: the cluster");
   // NQ warps share an m16 tile, CO = 128 output channels each: the
   // projection's accumulators of 16 pixels x CO channels are 64 registers
@@ -28,22 +31,22 @@ struct WCfg {
   static constexpr int NQ = C / 128, CO = C / NQ;
   static constexpr int TH = 8, TW = 8, P = TH * TW, NT = 256;
   static_assert(P / 16 * NQ == NT / 32, "NQ warps an m16 tile");
-  // E channels a streamed chunk: bf16 32, f32 16 (its rows are twice as
-  // wide and its t tile lives in shared memory)
-  static constexpr int ECH = kMma ? 32 : 16, NCH = E / ECH;
+  // E channels a streamed chunk: the NQ warps of an m16 tile expand 8 of
+  // them each
+  static constexpr int ECH = 16, NCH = E / ECH;
   // bf16 depthwise work items, as in Cfg
   static constexpr int R = 4, CG = C / 8, RUNS_W = TW / R;
   static constexpr int IH = TH + 2 * PAD, IW = TW + 2 * PAD;
   static constexpr int V = 16 / sizeof(S), VIO = 16 / sizeof(T);
-  // the depthwise by groups of GC channels, one halo tile each: f32 at
-  // CW = 256 (12 x 12 x 256 f32 alone would be 147,456 B), and every mode
-  // where a whole-C tile does not fit (kGrouped: K = 7); a thread owns 4
-  // channels of RG neighbouring pixels of a row
+  // the depthwise by groups of GC channels, one halo tile each: f32 (12 x
+  // 12 x 256 f32 alone would be 147,456 B) and every mode where a whole-C
+  // tile does not fit (K = 7); a thread owns 4 channels of RG neighbouring
+  // pixels of a row
   static constexpr int GC = 64, NG = C / GC, RG = P * (GC / 4) / NT;
-  static constexpr bool kGrouped = K == 7;
-  // tile rows: all C, unpadded and swizzled (bf16), or one group (f32)
+  static constexpr bool kGrouped = K == 7 || !kMma;
+  // whole-C tile rows (bf16, int8 at K <= 5), unpadded and swizzled
   static constexpr bool kSwizzle = kMma;
-  static constexpr int LDX = kMma ? C : GC;
+  static constexpr int LDX = C;
   // rows of t, of a W2 chunk [ECH][C], a W3 chunk [C][ECH] and of the
   // warps' h blocks [16][ECH], padded by 16 bytes (bf16) or 4 floats; the
   // raw depthwise sums (grouped; f32 in t itself) [P][LDR]
@@ -61,48 +64,55 @@ struct WCfg {
   static constexpr size_t T_BYTES =
       align16(kInt8 && !kGrouped && IH * IW * C > T_ROWS ? IH * IW * C
                                                           : T_ROWS);
-  static constexpr size_t H_BYTES = sizeof(S) * 16 * LDH * (P / 16);
-  // ---- whole-C tiles (CW = 256, K <= 5): the small weights, the tile
-  // buffers, the weight ring, t, h
+  // the warps' h blocks of every m16 tile, twice: chunk c hands its h over
+  // in set c % 2, so that one chunk's writes wait for no reader of the last
+  static constexpr size_t HB1 = sizeof(S) * 16 * LDH * (P / 16);
+  static constexpr size_t H_BYTES = 2 * HB1;
+  // ---- whole-C tiles: the small weights, the tile buffers, the ring, t,
+  // h, the ring's barriers
   static constexpr size_t OFF_DW = 0;
   static constexpr size_t OFF_LN =
       kGrouped ? 0 : align16(OFF_DW + 4 * K * K * C);
   static constexpr size_t OFF_GN = align16(OFF_LN + 4 * C);
   static constexpr size_t OFF_X = align16(OFF_GN + 4 * C);
-  // two tile buffers (f32: group buffers) where they fit; int8 one
+  // two tile buffers where they fit beside three stages; int8 one
   static constexpr int NXBUF =
       kInt8 ? 1
-            : OFF_X + 2 * XBUF + 2 * WBUF + T_BYTES + H_BYTES <= kMaxSmem ? 2
-                                                                          : 1;
+      : OFF_X + 2 * XBUF + 3 * WBUF + T_BYTES + H_BYTES + kRingBars <=
+              kMaxSmem
+          ? 2
+          : 1;
   // ---- grouped: LN scale, gain, t, h, then a region U that holds the
-  // weight ring while the products run and, before them, the raw f32
-  // depthwise sums (bf16, int8) and NGB group slots: the group's input
-  // [IH * IW][GC] in the I/O type and its depthwise weights [K * K][GC]
+  // ring while the products run and, before them, the raw f32 depthwise
+  // sums (bf16, int8) and NGB group slots: the group's input [IH * IW][GC]
+  // in the I/O type and its depthwise weights [K * K][GC]
   static constexpr size_t RAW_BYTES = kMma ? 4 * P * LDR : 0;
   static constexpr size_t GBUF = align16(sizeof(T) * IH * IW * GC);
   static constexpr size_t GSLOT = GBUF + 4 * K * K * GC;
   static constexpr size_t OFF_GT = OFF_X;             // grouped t
   static constexpr size_t OFF_GH = OFF_GT + T_BYTES;  // grouped h
   static constexpr size_t OFF_U = align16(OFF_GH + H_BYTES);
-  static constexpr size_t U2 = 2 * WBUF > RAW_BYTES + 2 * GSLOT
-                                   ? 2 * WBUF
-                                   : RAW_BYTES + 2 * GSLOT;
-  static constexpr size_t U1 = 2 * WBUF > RAW_BYTES + GSLOT
-                                   ? 2 * WBUF
-                                   : RAW_BYTES + GSLOT;
-  static constexpr int NGB = OFF_U + U2 <= kMaxSmem ? 2 : 1;
-  // ---- the layout in use
-  static constexpr size_t OFF_W =
+  // ---- the layout in use: as many stages as fit, up to kRingStages
+  static constexpr size_t OFF_W2 =
       kGrouped ? OFF_U : align16(OFF_X + NXBUF * XBUF);
-  static constexpr size_t OFF_T = kGrouped ? OFF_GT : OFF_W + 2 * WBUF;
+  static constexpr size_t ROOM =
+      kMaxSmem - kRingBars - (kGrouped ? OFF_U : OFF_W2 + T_BYTES + H_BYTES);
+  static constexpr int NS =
+      ROOM / WBUF < (size_t)kRingStages ? (int)(ROOM / WBUF) : kRingStages;
+  static constexpr int NGB = RAW_BYTES + 2 * GSLOT <= ROOM ? 2 : 1;
+  static constexpr size_t U =
+      NS * WBUF > RAW_BYTES + NGB * GSLOT ? NS * WBUF
+                                          : RAW_BYTES + NGB * GSLOT;
+  static constexpr size_t OFF_T = kGrouped ? OFF_GT : OFF_W2 + NS * WBUF;
   static constexpr size_t OFF_H = kGrouped ? OFF_GH : OFF_T + T_BYTES;
-  static constexpr size_t SMEM =
-      kGrouped ? OFF_U + (NGB == 2 ? U2 : U1) : OFF_H + H_BYTES;
-  static_assert(XBUF % 16 == 0 && WBUF % 16 == 0 && GSLOT % 16 == 0,
+  static constexpr size_t OFF_BAR = kGrouped ? OFF_U + U : OFF_H + H_BYTES;
+  static constexpr size_t SMEM = OFF_BAR + kRingBars;
+  static constexpr int NCL = kRingCluster;
+  static_assert(XBUF % 16 == 0 && WBUF % 16 == 0 && GSLOT % 16 == 0 &&
+                    HB1 % 16 == 0,
                 "16-byte alignment");
+  static_assert(NS >= 3, "a ring of three stages or more");
   static_assert(SMEM <= kMaxSmem, "one block's shared memory fits");
-  static_assert(kMma || kGrouped || NG % 2 == 0,
-                "group 0 lands in group buffer 0");
   static_assert(kMma || ECH / 8 <= NQ, "a warp a chunk's n8 tile at most");
 
   static __device__ __forceinline__ int xoff(int ix, int chunk) {
@@ -146,31 +156,45 @@ __device__ __forceinline__ float4 load4(const int8_t* p, float s_in) {
 }
 
 // bf16 and int8, whole-C t in registers (CW = 256): this warp's half of a
-// chunk's expansion (E rows 16 half .. + 15 of the chunk, from its A
-// fragments af of t), leaky-ReLU'd and rounded to bf16 into the pair's h
-// block hb [16][LDH]
+// chunk's expansion (its NTW n8 tiles: E rows 8 NTW half .. of the chunk,
+// from its A fragments af of t), leaky-ReLU'd and rounded to bf16 into the
+// pair's h block hb [16][LDH]
 template <typename G>
 __device__ __forceinline__ void expand_half(const uint32_t (&af)[G::C / 16][4],
                                             bf16* __restrict__ hb,
                                             uint32_t w2, float slope,
                                             int half, int lane) {
-  float hacc[2][4];
+  constexpr int NTW = G::ECH / 8 / G::NQ;
+  // each n8 tile's 16 k16 steps in KS chains of their own (step kt in
+  // chain kt % KS), added in order at the end: four chains of dependent
+  // products in flight
+  constexpr int KS = 4 / NTW;
+  float hacc[NTW][4];
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
+  for (int nt = 0; nt < NTW; ++nt) {
+    float part[KS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) hacc[nt][i] = 0.f;
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
 #pragma unroll
     for (int kt = 0; kt < G::C / 16; kt += 2) {
       uint32_t b[4];  // B fragments of two k16 steps
-      ldmatrix_x4(b, w2 + 2 * ((2 * half + nt) * 8 * G::LDW2 + kt * 16));
-      mma_bf16(hacc[nt], af[kt], b[0], b[1]);
-      mma_bf16(hacc[nt], af[kt + 1], b[2], b[3]);
+      ldmatrix_x4(b, w2 + 2 * ((NTW * half + nt) * 8 * G::LDW2 + kt * 16));
+      mma_bf16(part[kt % KS], af[kt], b[0], b[1]);
+      mma_bf16(part[(kt + 1) % KS], af[kt + 1], b[2], b[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hacc[nt][i] = part[0][i];
+#pragma unroll
+      for (int j = 1; j < KS; ++j) hacc[nt][i] += part[j][i];
     }
   }
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const int e = 16 * half + 8 * nt + 2 * q;
+  for (int nt = 0; nt < NTW; ++nt) {
+    const int e = 8 * (NTW * half + nt) + 2 * q;
     *reinterpret_cast<uint32_t*>(hb + g * G::LDH + e) =
         pack_bf16(leaky(hacc[nt][0], slope), leaky(hacc[nt][1], slope));
     *reinterpret_cast<uint32_t*>(hb + (g + 8) * G::LDH + e) =
@@ -184,14 +208,14 @@ template <typename G>
 __device__ __forceinline__ void project_half(float (&pacc)[G::CO / 8][4],
                                              uint32_t h_lane, uint32_t w3,
                                              int part) {
-  static_assert(G::ECH == 32, "two k16 steps a chunk");
-  uint32_t a[2][4];
-  ldmatrix_x4(a[0], h_lane);
-  ldmatrix_x4(a[1], h_lane + 2 * 16);
+  constexpr int KS = G::ECH / 16;  // k16 steps a chunk
+  uint32_t a[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(a[kk], h_lane + 2 * 16 * kk);
 #pragma unroll
   for (int nt = 0; nt < G::CO / 8; nt += 2) {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
       uint32_t b[4];  // B fragments of two n8 groups
       ldmatrix_x4(b, w3 + 2 * ((G::CO * part + nt * 8) * G::LDW3 + kk * 16));
       mma_bf16(pacc[nt], a[kk], b[0], b[1]);
@@ -491,21 +515,29 @@ __device__ __forceinline__ void store_wide_f32(
 }
 
 // Both 1x1 products of the warp's m16 tile mt (its CO channels `part`)
-// over the E chunks, then the epilogue. t is whole in ts; chunk 0 is in
-// flight (or landed) into ring buffer 0; `more`: the last chunk prefetches
-// the next tile's chunk 0; after_first() runs once chunk 0 has landed (the
-// next tile's first copies go out there, behind chunk 0's wait). bf16 and
-// int8 (CW = 256) take their A fragments of t into registers.
-template <typename G, typename T, typename F>
+// over round `round`'s E chunks of the ring (thread 0 issues them from
+// `chunks`, below limit), then the epilogue. t is whole in ts. Of each
+// chunk the warps of the m16 tile expand their n8 tiles into the h set of
+// the chunk's parity and, past their named barrier, project the whole
+// chunk's h. bf16 and int8 take their A fragments of t into registers.
+template <typename G, typename T>
 __device__ __forceinline__ void wide_products_store(
-    const T* __restrict__ x, const typename G::S* __restrict__ w2,
-    const typename G::S* __restrict__ w3, unsigned char* ring,
-    typename G::S* ts, typename G::S* hb, const float* __restrict__ gns,
+    const T* __restrict__ x, int round, int limit, const void* chunks,
+    unsigned char* smem, typename G::S* ts,
+    const float* __restrict__ gns,
     T* __restrict__ out, Tile t, int H, int W, float slope, float s_in,
-    float inv_out, bool more, int tid, int cr, int unit, F after_first) {
+    float inv_out, int tid, int cr, int unit) {
+  using S = typename G::S;
   constexpr int C = G::C;
   const int warp = tid >> 5, lane = tid & 31;
   const int mt = warp / G::NQ, part = warp % G::NQ;
+  const unsigned char* ring = smem + G::OFF_W2;
+  // the warps' h block of m16 tile mt in set 0; set 1 HB1 bytes on
+  S* hb0 = reinterpret_cast<S*>(smem + G::OFF_H) + mt * 16 * G::LDH;
+  auto hb = [&](int par) {
+    return reinterpret_cast<S*>(reinterpret_cast<unsigned char*>(hb0) +
+                                par * G::HB1);
+  };
   float pacc[G::CO / 8][4];
 #pragma unroll
   for (int nt = 0; nt < G::CO / 8; ++nt)
@@ -516,33 +548,28 @@ __device__ __forceinline__ void wide_products_store(
                            reinterpret_cast<const bf16*>(ring + G::W2_BYTES),
                            lane);
     const uint32_t h_lane = shared_address(
-        hb + ((lane & 7) + ((lane >> 3) & 1) * 8) * G::LDH + (lane >> 4) * 8);
+        hb0 + ((lane & 7) + ((lane >> 3) & 1) * 8) * G::LDH + (lane >> 4) * 8);
     uint32_t af[C / 16][4];
     load_a<G>(af, rows.a, 16 * mt);
-#pragma unroll 1
-    for (int c = 0; c < G::NCH; ++c) {
-      await_chunk<G>(w2, w3, ring, c, more, tid);
-      if (c == 0) after_first();
-      const uint32_t b = (c & 1) * (uint32_t)G::WBUF;
-      expand_half<G>(af, hb, rows.w2 + b, slope, part, lane);
+    StreamedWeights<G>::walk(smem, round, limit, tid, chunks,
+                             [&](uint32_t b, int par) {
+      expand_half<G>(af, hb(par), rows.w2 + b, slope, part, lane);
       pair_sync<G>(mt);
-      project_half<G>(pacc, h_lane, rows.w3 + b, part);
-    }
+      project_half<G>(pacc, h_lane + (uint32_t)(par * G::HB1), rows.w3 + b,
+                      part);
+    });
     store_wide_rows<G, T>(x, ts, pacc, gns, out, t, H, W, s_in, inv_out,
                           16 * mt, part, lane, cr, unit);
   } else {
-#pragma unroll 1
-    for (int c = 0; c < G::NCH; ++c) {
-      await_chunk<G>(w2, w3, ring, c, more, tid);
-      if (c == 0) after_first();
-      const float* w2c =
-          reinterpret_cast<const float*>(ring + (c & 1) * G::WBUF);
+    StreamedWeights<G>::walk(smem, round, limit, tid, chunks,
+                             [&](uint32_t b, int par) {
+      const float* w2c = reinterpret_cast<const float*>(ring + b);
       // a chunk has ECH / 8 n8 tiles, one a warp of the pair
       if (part < G::ECH / 8)
-        expand_half_f32<G>(ts, w2c, hb, slope, mt, part, lane);
+        expand_half_f32<G>(ts, w2c, hb(par), slope, mt, part, lane);
       pair_sync<G>(mt);
-      project_half_f32<G>(pacc, hb, w2c + G::W2_BYTES / 4, part, lane);
-    }
+      project_half_f32<G>(pacc, hb(par), w2c + G::W2_BYTES / 4, part, lane);
+    });
     store_wide_f32<G>(x, pacc, gns, out, t, H, W, 16 * mt, part, lane, cr);
   }
 }
@@ -564,39 +591,35 @@ convnext_wide_kernel(const T* __restrict__ x, T* __restrict__ out,
   float* dws = reinterpret_cast<float*>(smem + G::OFF_DW);
   float* lns = reinterpret_cast<float*>(smem + G::OFF_LN);
   float* gns = reinterpret_cast<float*>(smem + G::OFF_GN);
-  unsigned char* const ring = smem + G::OFF_W;
   S* ts = reinterpret_cast<S*>(smem + G::OFF_T);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // the warps' h block of the warp's m16 tile
-  S* hb = reinterpret_cast<S*>(smem + G::OFF_H) + warp / G::NQ * 16 * G::LDH;
   const int unit = io_unit<T>(cr);
 
-  const int tiles_w = (W + G::TW - 1) / G::TW;
-  const int tiles_h = (H + G::TH - 1) / G::TH;
-  const int ntiles = B * tiles_h * tiles_w;  // the launcher checks the range
-  auto tile_at = [&](int i) {
-    const int rest = i / tiles_w;
-    return Tile{rest / tiles_h, rest % tiles_h * G::TH, i % tiles_w * G::TW};
-  };
+  const TileWalk<G> walk(B, H, W);
   auto xbuf = [&](int b) { return smem + G::OFF_X + b * G::XBUF; };
-  int tile = blockIdx.x;  // the grid is no larger than ntiles
+  // the ring, its barriers ready in every block of the cluster before any
+  // block's copies or releases reach them
+  using SW = StreamedWeights<G>;
+  SW::init(smem, tid);
+  bid_ring::sync_cluster<G::NCL>();
 
   if constexpr (G::kGrouped) {
     // ---- the depthwise by channel groups, each group's input and
     // weights in a slot of U; the raw sums to t (f32) or to U's head
-    // (bf16, int8), then the LayerNorm into t; then the weight ring in U
+    // (bf16, int8), then the LayerNorm into t; then the ring takes U for
+    // the tile's chunks
     unsigned char* const u = smem + G::OFF_U;
     float* raw = G::kMma ? reinterpret_cast<float*>(u)
                          : reinterpret_cast<float*>(ts);
     auto slot = [&](int b) { return u + G::RAW_BYTES + b * G::GSLOT; };
-    load_group_async<G>(x, dw, slot(0), tile_at(tile), 0, H, W, tid, cr, unit);
+    load_group_async<G>(x, dw, slot(0), walk.at(0, B, H, W), 0, H, W, tid, cr,
+                        unit);
     for (int c = tid; c < C; c += NT) {
       lns[c] = ln[c];
       gns[c] = gain[c];
     }
-    for (; tile < ntiles; tile += gridDim.x) {
-      const Tile t = tile_at(tile);
-      const int next = tile + gridDim.x;
+    for (int round = 0; round < walk.rounds; ++round) {
+      const Tile t = walk.at(round, B, H, W);
 #pragma unroll 1
       for (int grp = 0; grp < G::NG; ++grp) {
         cp_async_wait_all();
@@ -620,38 +643,32 @@ convnext_wide_kernel(const T* __restrict__ x, T* __restrict__ out,
       }
       __syncthreads();
       layernorm_rows<G>(raw, ts, lns, cr, inv_cr, warp, lane);
-      // t is whole and U free for the ring
-      __syncthreads();
-      load_chunk_async<G>(w2, w3, ring, 0, tid);
-      wide_products_store<G, T>(x, w2, w3, ring, ts, hb, gns, out, t, H, W,
-                                slope, s_in, inv_out, false, tid, cr, unit,
-                                [] {});
-      if (next < ntiles) {
+      // t is whole, and every block of the cluster is past its U: the
+      // ring takes it for this tile's chunks
+      bid_ring::sync_cluster<G::NCL>();
+      SW::prime(smem, round, (round + 1) * G::NCH, tid, w2);
+      wide_products_store<G, T>(x, round, (round + 1) * G::NCH, w2, smem, ts,
+                                gns, out, t, H, W, slope, s_in, inv_out, tid,
+                                cr, unit);
+      if (round + 1 < walk.rounds) {
         __syncthreads();  // every warp is done with the ring and t
-        load_group_async<G>(x, dw, slot(0), tile_at(next), 0, H, W, tid, cr,
-                            unit);
+        load_group_async<G>(x, dw, slot(0), walk.at(round + 1, B, H, W), 0,
+                            H, W, tid, cr, unit);
       }
     }
   } else {
-    // ---- whole-C tiles (bf16, int8) or f32 group buffers at CW = 256
-    // the first tile (int8: its codes, in the t tile's room; f32: its first
-    // channel group), then chunk 0 of W2 and W3
-    if constexpr (!G::kMma)
-      load_group_async<G>(x, static_cast<const float*>(nullptr), xbuf(0),
-                          tile_at(tile), 0, H, W, tid, cr, unit);
-    else
-      load_tile_async<G>(x, G::kInt8 ? reinterpret_cast<unsigned char*>(ts)
-                                     : xbuf(0),
-                         tile_at(tile), H, W, tid, cr, unit);
-    load_chunk_async<G>(w2, w3, ring, 0, tid);
+    // ---- whole-C tiles (bf16, int8 at K <= 5): the first tile (int8: its
+    // codes, in the t tile's room), then the first chunks; the chunks run
+    // on from tile to tile
+    load_tile_async<G>(x, G::kInt8 ? reinterpret_cast<unsigned char*>(ts)
+                                   : xbuf(0),
+                       walk.at(0, B, H, W), H, W, tid, cr, unit);
+    SW::prime(smem, 0, walk.rounds * G::NCH, tid, w2);
 
     // ---- the small weights, once per block, while those are on their way
     for (int i = tid; i < C * K * K; i += NT) {
       const int c = i / (K * K), tap = i % (K * K);
-      if constexpr (G::kMma)
-        dws[((tap * 2 + c % 8 / 4) * G::CG + c / 8) * 4 + c % 4] = dw[i];
-      else
-        dws[tap * C + c] = dw[i];
+      dws[((tap * 2 + c % 8 / 4) * G::CG + c / 8) * 4 + c % 4] = dw[i];
     }
     for (int c = tid; c < C; c += NT) {
       lns[c] = ln[c];
@@ -659,85 +676,49 @@ convnext_wide_kernel(const T* __restrict__ x, T* __restrict__ out,
     }
 
     int buf = 0;
-    for (; tile < ntiles; tile += gridDim.x) {
-      const Tile t = tile_at(tile);
-      const int next = tile + gridDim.x;
-      const bool more = next < ntiles;
-      if constexpr (G::kMma) {
-        bf16* xs = reinterpret_cast<bf16*>(xbuf(buf));
-        cp_async_wait_all();
-        // this tile (or its codes) has landed and the weights are staged;
-        // every warp is done with the previous tile
+    for (int round = 0; round < walk.rounds; ++round) {
+      const Tile t = walk.at(round, B, H, W);
+      const bool more = round + 1 < walk.rounds;
+      bf16* xs = reinterpret_cast<bf16*>(xbuf(buf));
+      cp_async_wait_all();
+      // this tile (or its codes) has landed and the weights are staged;
+      // every warp is done with the previous tile
+      __syncthreads();
+      if constexpr (G::kInt8) {
+        dequantize_tile<G>(reinterpret_cast<unsigned char*>(ts), xs, s_in,
+                           tid);
         __syncthreads();
-        if constexpr (G::kInt8) {
-          dequantize_tile<G>(reinterpret_cast<unsigned char*>(ts), xs, s_in,
-                             tid);
-          __syncthreads();
+      }
+      if constexpr (G::NXBUF == 2) {
+        buf ^= 1;
+        if (more)
+          load_tile_async<G>(x, xbuf(buf), walk.at(round + 1, B, H, W), H, W,
+                             tid, cr, unit);
+      }
+      depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, inv_cr);
+      __syncthreads();
+      if constexpr (!G::kInt8 && G::NXBUF == 1) {
+        // every depthwise is done: the only tile buffer takes the next
+        // tile (the residual is read from device memory)
+        if (more)
+          load_tile_async<G>(x, xbuf(0), walk.at(round + 1, B, H, W), H, W, tid,
+                             cr, unit);
+      }
+      wide_products_store<G, T>(x, round, walk.rounds * G::NCH, w2, smem,
+                                ts, gns, out, t, H, W, slope, s_in, inv_out,
+                                tid, cr, unit);
+      if constexpr (G::kInt8) {
+        if (more) {
+          __syncthreads();  // every epilogue is done with the t tile
+          load_tile_async<G>(x, reinterpret_cast<unsigned char*>(ts),
+                             walk.at(round + 1, B, H, W), H, W, tid, cr, unit);
         }
-        if constexpr (G::NXBUF == 2) {
-          buf ^= 1;
-          if (more)
-            load_tile_async<G>(x, xbuf(buf), tile_at(next), H, W, tid, cr, unit);
-        }
-        depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, inv_cr);
-        __syncthreads();
-        wide_products_store<G, T>(
-            x, w2, w3, ring, ts, hb, gns, out, t, H, W, slope, s_in, inv_out,
-            more, tid, cr, unit, [&] {
-              if constexpr (!G::kInt8 && G::NXBUF == 1) {
-                // every depthwise is done: the only tile buffer takes the
-                // next tile (the residual is read from device memory)
-                if (more)
-                  load_tile_async<G>(x, xbuf(0), tile_at(next), H, W, tid, cr,
-                                     unit);
-              }
-            });
-        if constexpr (G::kInt8) {
-          if (more) {
-            __syncthreads();  // every epilogue is done with the t tile
-            load_tile_async<G>(x, reinterpret_cast<unsigned char*>(ts),
-                               tile_at(next), H, W, tid, cr, unit);
-          }
-        }
-      } else {
-        // f32: the depthwise group by group; group g lands in group buffer
-        // g % NXBUF, so every tile's group 0 in buffer 0
-#pragma unroll 1
-        for (int grp = 0; grp < G::NG; ++grp) {
-          cp_async_wait_all();
-          __syncthreads();
-          if constexpr (G::NXBUF == 2) {
-            if (grp + 1 < G::NG)
-              load_group_async<G>(x, static_cast<const float*>(nullptr),
-                                  xbuf((grp + 1) & 1), t, grp + 1, H, W, tid,
-                                  cr, unit);
-          }
-          depthwise_group<G>(
-              reinterpret_cast<const float*>(xbuf(G::NXBUF == 2 ? grp & 1 : 0)),
-              dws + grp * G::GC, C, ts, grp * G::GC, tid, s_in);
-          if constexpr (G::NXBUF == 1) {
-            if (grp + 1 < G::NG) {
-              __syncthreads();  // the only group buffer is free again
-              load_group_async<G>(x, static_cast<const float*>(nullptr),
-                                  xbuf(0), t, grp + 1, H, W, tid, cr, unit);
-            }
-          }
-        }
-        __syncthreads();
-        layernorm_rows<G>(ts, ts, lns, cr, inv_cr, warp, lane);
-        // chunk 0's barrier makes t whole before any warp reads it, and the
-        // group buffers free for the next tile's first group
-        wide_products_store<G, T>(
-            x, w2, w3, ring, ts, hb, gns, out, t, H, W, slope, s_in, inv_out,
-            more, tid, cr, unit, [&] {
-              if (more)
-                load_group_async<G>(x, static_cast<const float*>(nullptr),
-                                    xbuf(0), tile_at(next), 0, H, W, tid, cr,
-                                    unit);
-            });
       }
     }
   }
+  // no block leaves while the cluster's others may still arrive on its
+  // barriers
+  bid_ring::sync_cluster<G::NCL>();
 }
 
 template <typename T, int CW, int K>

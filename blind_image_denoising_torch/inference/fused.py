@@ -164,7 +164,8 @@ def build_fused_forward(config: Dict, model, scales: Optional[Dict] = None,
             unit = getattr(bb, f"{kind}_{d}_{w}")
             w_dtype = torch.bfloat16 if quant else dtype
             wts = unit.kernel_weights(w_dtype)
-            ops = unit.kernel_operands(w_dtype) if v.is_cuda else None
+            ops = (unit.kernel_operands(w_dtype, io_dtype=v.dtype)
+                   if v.is_cuda else None)
             site_out = f"{kind}_{d}_{w}_out"
             if quant:
                 v = convnext_block(v, slope=unit.slope, scale_in=s_prev,

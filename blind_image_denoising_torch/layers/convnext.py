@@ -175,22 +175,28 @@ class ConvNextBlock(nn.Module):
                          w2=self.conv_2.kernel.detach().to(dtype),
                          w3=self.conv_3.kernel.detach().to(dtype),
                          gain=self.gamma.gain().detach().float())
-            # the kernel's operands of these weights, made at first use
-            self._cache = [key, w, None]
+            # the kernel's operands of these weights by the I/O dtype of
+            # the x they run on, made at first use
+            self._cache = [key, w, {}]
         return self._cache[1]
 
-    def kernel_operands(self, dtype: torch.dtype):
-        """:meth:`kernel_weights` as the kernel takes them
+    def kernel_operands(self, dtype: torch.dtype, io_dtype=None):
+        """:meth:`kernel_weights` in ``dtype`` as the kernel takes them
         (``pallas_convnext.kernel_operands``: cast, padded to the width of
-        the layout that runs the unit, on 16 bytes), for an x of ``dtype``
-        (int8 codes: ``torch.bfloat16``). Cached with the weights, so a
-        launch with them runs no cast, pad or copy until a parameter
-        changes."""
+        the layout that runs the unit, on 16 bytes; a streamed layout's
+        chunks), for an x of ``io_dtype`` (default ``dtype``; int8 codes
+        take ``dtype`` ``torch.bfloat16``, ``io_dtype`` ``torch.int8``,
+        whose layout may take other chunks than bf16's). Cached with the
+        weights, so a launch with them runs no cast, pad or copy until a
+        parameter changes."""
         w = self.kernel_weights(dtype)
-        if self._cache[2] is None:
+        io_dtype = dtype if io_dtype is None else io_dtype
+        ops = self._cache[2]
+        if io_dtype not in ops:
             with torch.no_grad():
-                self._cache[2] = pallas_convnext.kernel_operands(dtype, **w)
-        return self._cache[2]
+                ops[io_dtype] = pallas_convnext.kernel_operands(io_dtype,
+                                                                **w)
+        return ops[io_dtype]
 
     def _quant_sites_active(self) -> bool:
         return any(quant_ops.current_quant_mode(

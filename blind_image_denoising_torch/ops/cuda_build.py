@@ -61,8 +61,10 @@ def find_nvcc() -> str:
 
 
 def _digest(srcs: List[Path]) -> str:
+    """The build's key: the flags, the sources and every header beside them
+    (the sources include them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in list(srcs) + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

@@ -81,31 +81,36 @@ has the split). Design of the bf16 and int8 modes:
   shared-memory bytes of every instantiation.
 At C = 128 the bf16 W2 and W3 alone (272,384 B; 524,288 B in float32)
 exceed the 232,448 B a block may have, so they are not staged once per
-block: they stream through two shared-memory buffers in chunks of
-``STREAM_CHUNK`` of the E channels (W2's rows and the matching columns
-of W3), ``cp.async`` filling one while the block multiplies the other,
-18,944 B a buffer in bf16 and int8, 32,768 B in float32. Each chunk's
-expansion feeds the projection's accumulators in registers, so ``h``
-still never leaves them; the projection's accumulators of 16 pixels ×
-128 channels (64 a lane) and the tile's A fragments stay in registers
-over the 16 chunks of a tile. The tile shrinks to 8 × 16 pixels with
-256 threads (one m16 tile a warp, one block an SM). The LayerNorm's
-statistics are shuffles over the 16 lanes of a pixel. At C = 128 the
-unit does 512 operations a byte of bf16 I/O, above the card's ridge:
-it is bound by its products, which ``mma.sync`` runs at about 2/3 of
-the tensor cores' dense rate. The wide class (128 < C <= 256) takes
-tiles of 8 × 8 pixels: the projection's accumulators of 16 pixels × 256
-channels would be 128 registers a lane, so two warps share an m16 tile,
-128 output channels each; each computes half of a chunk's expansion and
-hands its ``h`` to the other through shared memory. Its float32 mode
-keeps ``t`` in shared memory and runs the depthwise by groups of 64
-channels, each group's halo tile copied in turn. At K = 7 (halo 3 a
-side) the layouts stay where they fit: bf16 (64, 7) and (128, 7) keep
-one tile buffer, f32 (64, 7) streams W2 and W3 as C = 128 does and f32
-(128, 7) in chunks of 16; the wide class at K = 7 takes the depthwise by
-64-channel groups (the group's input and its depthwise weights in a slot
-that shares its room with the weight ring, the raw f32 sums then a
-LayerNorm pass).
+block: they stream through a ring of three or four shared-memory stages
+in chunks of ``STREAM_CHUNK`` E channels (W2's rows and the matching
+columns of W3; ``STREAM_CHUNK_SMALL`` where three of those do not fit).
+:func:`kernel_operands` lays each chunk out as its stage holds it
+(:func:`chunk_images`), so one thread copies a chunk as bulk copies
+(``cp.async.bulk``) that complete on the stage's ``mbarrier``; two blocks
+on neighbouring tiles form a thread-block cluster, each copying half of
+every chunk multicast into both, and a stage is refilled once every warp
+of both has released it (``csrc/chunk_ring.cuh``). Each chunk's expansion
+feeds the projection's accumulators in registers, so ``h`` still never
+leaves them; the projection's accumulators of 16 pixels × 128 channels
+(64 a lane) and the tile's A fragments stay in registers over a tile's
+chunks, which run on into the next tile's. The tile shrinks to 8 × 16
+pixels with 256 threads (one m16 tile a warp, one block an SM). The
+LayerNorm's statistics are shuffles over the 16 lanes of a pixel. At
+C = 128 the unit does 512 operations a byte of bf16 I/O, above the card's
+ridge: it is bound by its products, which ``mma.sync`` runs at about 2/3
+of the tensor cores' dense rate. The wide class (128 < C <= 256) takes
+tiles of 8 × 8 pixels and chunks of ``WIDE_CHUNK``: the projection's
+accumulators of 16 pixels × 256 channels would be 128 registers a lane,
+so two warps share an m16 tile, 128 output channels each; each computes
+half of a chunk's expansion and hands its ``h`` to the other through
+shared memory. Its float32 mode, and every mode at K = 7, keeps ``t`` in
+shared memory and runs the depthwise by groups of 64 channels, each
+group's input and depthwise weights in a slot that shares its room with
+the ring (the cluster's blocks meet before a tile's chunks). At K = 7
+(halo 3 a side) the layouts stay where they fit: bf16 (64, 7) and
+(128, 7) keep one tile buffer, f32 (64, 7) streams W2 and W3 as C = 128
+does and f32 (128, 7) lends its tile buffer's room to the ring from the
+depthwise to the epilogue.
 From ``CLUSTER_FROM`` (257) on a thread-block cluster of
 n = ceil(C / 128) blocks (3 to 8) owns a tile of 64 pixels (float32:
 32):
@@ -150,11 +155,11 @@ when staged). The f32 W2 and W3 stay in shared memory in fragment order
 and are split as they are loaded. Two tile buffers at C = 32 (two
 blocks of 8 warps an SM) and at (64, 1); at (64, 5) the f32 weights
 leave room for one, refilled while the products run; at C = 128 the
-f32 chunks are staged in a fragment order a 16-byte ``cp.async`` can
-copy (a lane's B operands of two k-steps of one n8 tile are four
-neighbouring channels of one row), the residual ``x`` is read back from
-device memory rather than kept in registers, and (128, 5) has one tile
-buffer, refilled from the first chunk on. In int8 mode
+f32 chunks arrive in fragment order (a lane's B operands of two k-steps
+of one n8 tile are one 16-byte vector; :func:`chunk_images`), the
+residual ``x`` is read back from device memory rather than kept in
+registers, and (128, 5) has one tile buffer, refilled once every
+depthwise is done. In int8 mode
 (``x`` int8 with
 ``scale_in`` and ``scale_out``) only int8 codes touch device memory: the
 codes are dequantized into the bf16 shared tile as
@@ -224,11 +229,17 @@ SAMPLE_SHAPES = tuple(sorted(OWN_SHAPES | {
                      384, 512, 520, 640, 768, 1000, 1024, 16, 40, 80, 88, 96,
                      100, 112, 120)
     for k in KERNEL_KS}))
-# E channels of W2 and W3 a shared-memory buffer holds at C = 128 (and in
-# float32 at (64, 7)), where they stream through two such buffers (float32
-# (128, 7) and the wide class's float32: WIDE_F32_CHUNK)
+# the streamed layouts' weight ring (csrc/chunk_ring.cuh): clusters of
+# RING_CLUSTER blocks, up to RING_STAGES stages (at least three), whose
+# mbarriers take RING_BARS bytes; Cfg's chunks of STREAM_CHUNK E channels
+# (STREAM_CHUNK_SMALL where three of those do not fit), the wide class's
+# of WIDE_CHUNK
+RING_CLUSTER = 2
+RING_STAGES = 4
+RING_BARS = 16 * RING_STAGES
 STREAM_CHUNK = 32
-WIDE_F32_CHUNK = 16
+STREAM_CHUNK_SMALL = 16
+WIDE_CHUNK = 16
 # the wide class's depthwise channel groups (csrc/convnext_wide.cuh GC)
 WIDE_GROUP = 64
 INT8_MAX = 127
@@ -273,22 +284,40 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     """Threads per block, dynamic shared-memory bytes and cluster size of
     the kernel that runs (C, K, dtype), and, up to C = 128, the blocks an
     SM its registers are capped for (``min_blocks_per_sm``, its
-    ``__launch_bounds__``): a mirror of ``Cfg`` in
+    ``__launch_bounds__``); a layout that streams W2 and W3 through a ring
+    of bulk copies also names its stages and the E channels of a chunk
+    (``ring_stages``, ``chunk_channels``; its cluster is
+    ``RING_CLUSTER``): a mirror of ``Cfg`` in
     ``csrc/convnext_block.cuh`` (C up to 128, laid out at its class's
-    width), of ``WCfg`` in ``csrc/convnext_wide.cuh`` (128 < C <= 256; one
-    block, cluster size 1) and of ``clayout`` in
-    ``csrc/convnext_cluster.cuh`` (from ``CLUSTER_FROM`` on), which
-    ``chip_smoke.py`` holds against what the built library reports. Raises
-    ``NotImplementedError`` where the kernel does not take the unit."""
+    width), of ``WCfg`` in ``csrc/convnext_wide.cuh`` (128 < C <= 256) and
+    of ``clayout`` in ``csrc/convnext_cluster.cuh`` (from ``CLUSTER_FROM``
+    on), which ``chip_smoke.py`` holds against what the built library
+    reports. Raises ``NotImplementedError`` where the kernel does not take
+    the unit."""
     if not kernel_supports(c, k):
         raise NotImplementedError(
             f"convnext_block kernel does not take C={c} K={k} in {dtype}")
     if runs_cluster(c):
         return cluster_plan(c, k, dtype)
+    plan = _layout(c, k, dtype)
+    keys = ("threads_per_block", "smem_bytes", "cluster_size")
+    keys += ("min_blocks_per_sm",) if class_width(c, dtype) <= 128 else ()
+    if plan["ring_stages"]:
+        keys += ("ring_stages", "chunk_channels")
+    return {key: plan[key] for key in keys}
+
+
+def _layout(c: int, k: int, dtype: torch.dtype) -> dict:
+    """The layout of the one-block kernel (C up to 256) that runs (C, K,
+    dtype), as ``kernel_plan`` names it, and how a streamed layout's
+    chunks lie (``ring_stages`` 0 where W2 and W3 are resident):
+    ``chunk_channels`` (ECH), ``order`` ("rows": W2 [ECH][C' + pad] and W3
+    [C'][ECH + pad], "fragments": both in the f32 fragment order of
+    ``_fragment_chunks``), the rows' pads and each part's elements."""
     ragged = (c, k) not in OWN_SHAPES
     c = class_width(c, dtype)
     if c > 128:
-        return dict(_wide_plan(k, dtype), cluster_size=1)
+        return _wide_layout(k, dtype)
     mma, int8 = dtype != torch.float32, dtype == torch.int8
     e, pad, elt = 4 * c, k // 2, 2 if mma else 4
     # one block of 512 threads on 8 x 32 tiles in bf16 at C = 64 and (48,
@@ -299,86 +328,115 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     # tile rows unpadded (swizzled) at C = 64, 128 in bf16, else padded by 8
     ldx = c if mma and c % 64 == 0 else c + 8
     xbuf = elt * ih * iw * ldx
-    end = _align16(4 * k * k * c)                         # depthwise weights
-    end = _align16(_align16(end + 4 * c) + 4 * c)         # LN scale, gain
-    # W2 and W3 stream through two buffers of an E chunk where their bf16
-    # padded rows take more than half of a block's shared memory (C >= 96)
-    # and in f32 where the resident ones do not fit beside one tile; f32
-    # chunks of 16 where two of 32 do not fit either ((128, 7))
-    if mma:
-        stream = (_align16(2 * e * (c + 8)) + _align16(2 * c * (e + 8))
-                  > SHARED_MEMORY_LIMIT // 2)
-    else:
-        stream = end + xbuf + 2 * _align16(4 * e * c) > SHARED_MEMORY_LIMIT
-    ech = (WIDE_F32_CHUNK if not mma and stream and end + xbuf + 4 * _align16(
-        4 * STREAM_CHUNK * c) > SHARED_MEMORY_LIMIT else STREAM_CHUNK)
-    ew = ech if stream else e
-    # a weight buffer: W2 [EW][C] and W3 [C][EW] (bf16 rows padded by 8)
-    wbuf = (_align16(2 * ew * (c + 8)) + _align16(2 * c * (ew + 8)) if mma
-            else 2 * _align16(4 * ew * c))
-    weights = (2 if stream else 1) * wbuf
+    off_x = _align16(4 * k * k * c)                       # depthwise weights
+    off_x = _align16(_align16(off_x + 4 * c) + 4 * c)     # LN scale, gain
     t_tile = 2 * th * tw * (c + 8) if mma else 0          # t / output tile
-    # int8 one tile buffer (and its staged codes); bf16 and f32 two where
-    # they fit beside the weights
-    buffers = (1 if int8 else 2 if end + 2 * xbuf + weights + t_tile
-               <= SHARED_MEMORY_LIMIT else 1)
-    end = _align16(end + buffers * xbuf)                  # input tiles
     # int8 stages its codes: a ragged layout the tile's rows as they lie in
     # device memory (a row's run from the 16-byte boundary before it)
     stage = (0 if not int8 else ih * _align16(iw * c + 15) if ragged
              else ih * iw * c)
-    end = _align16(end + stage)
-    end += weights + t_tile
+
+    def chunk_bytes(ech):
+        # W2 [ECH][C] and W3 [C][ECH] (bf16 rows padded by 8; f32 packed)
+        return (_align16(2 * ech * (c + 8)) + _align16(2 * c * (ech + 8))
+                if mma else 2 * _align16(4 * ech * c))
+
+    # W2 and W3 stream through a ring of E chunks where their bf16 padded
+    # rows take more than half of a block's shared memory (C >= 96) and in
+    # f32 where the resident ones do not fit beside one tile
+    stream = (chunk_bytes(e) > SHARED_MEMORY_LIMIT // 2 if mma
+              else off_x + xbuf + chunk_bytes(e) > SHARED_MEMORY_LIMIT)
+
+    def three_fit(ech):
+        return (off_x + xbuf + stage + t_tile + 3 * chunk_bytes(ech)
+                + RING_BARS <= SHARED_MEMORY_LIMIT)
+
+    # chunks of 32 where three fit, else 16; f32 where three of 16 do not
+    # fit either ((128, 7)) the ring takes the tile buffer's room
+    ring_in_x = stream and not mma and not three_fit(STREAM_CHUNK_SMALL)
+    ech = (STREAM_CHUNK_SMALL if stream and not ring_in_x
+           and not three_fit(STREAM_CHUNK) else STREAM_CHUNK)
+    wbuf = chunk_bytes(ech if stream else e)
+    bars = RING_BARS if stream else 0
+    # int8 one tile buffer (and its staged codes); bf16 and f32 two where
+    # they fit beside the weights (streamed: beside three stages)
+    buffers = (1 if int8 or ring_in_x else 2 if off_x + 2 * xbuf + (
+        3 if stream else 1) * wbuf + t_tile + bars <= SHARED_MEMORY_LIMIT
+        else 1)
+    off_w2 = (off_x if ring_in_x
+              else _align16(_align16(off_x + buffers * xbuf) + stage))
+    stages = 0
+    if stream:
+        # f32 parks t (C / 2 floats a thread) in the tile's room during the
+        # products: with kRingInX after the ring's stages
+        room = (xbuf - 4 * (32 * 8) * (c // 2) if ring_in_x
+                else SHARED_MEMORY_LIMIT - off_w2 - t_tile - bars)
+        stages = min(RING_STAGES, room // wbuf)
+    off_t = (_align16(off_x + xbuf) if ring_in_x
+             else off_w2 + max(stages, 1) * wbuf)
+    smem = off_t + t_tile + bars
     # f32: a warp per tile row
     threads = 32 * th if not mma else 512 if block512 else 256
     # two blocks an SM wherever two fit at K < 7 with W2 and W3 resident
     blocks = 2 if k < 7 and not stream and 2 * (
-        end + BLOCK_RESERVED_SHARED_MEMORY) <= SM_SHARED_MEMORY else 1
-    return dict(threads_per_block=threads, smem_bytes=end, cluster_size=1,
-                min_blocks_per_sm=blocks)
+        smem + BLOCK_RESERVED_SHARED_MEMORY) <= SM_SHARED_MEMORY else 1
+    plan = dict(threads_per_block=threads, smem_bytes=smem,
+                cluster_size=RING_CLUSTER if stream else 1,
+                min_blocks_per_sm=blocks, ring_stages=stages,
+                chunk_channels=ech if stream else 0, width=c)
+    if stream:
+        plan.update(order="rows" if mma else "fragments", w2_pad=8,
+                    w3_pad=8)
+    return plan
 
 
-def _wide_plan(k: int, dtype: torch.dtype) -> dict:
-    """``kernel_plan`` of the wide class (width 256: 8 x 8 tiles, 256
-    threads). With whole-C tiles (K <= 5): the small weights, the input
-    tiles (float32: the buffers of one 64-channel group), two weight
-    buffers of an E chunk (W2 [ECH][C], W3 [C][ECH]), the t tile (int8
-    stages its codes there) and the warps' h blocks [16][ECH], rows padded
-    by 16 bytes (bf16) or 4 floats. Grouped (K = 7): the LayerNorm scale
-    and gain, t, the h blocks, then a region that holds the two weight
-    buffers or, before the products, the raw f32 sums [P][C + 4] (bf16,
-    int8) and one or two group slots (a group's input in the I/O type and
-    its depthwise weights)."""
+def _wide_layout(k: int, dtype: torch.dtype) -> dict:
+    """``_layout`` of the wide class (width 256: 8 x 8 tiles, 256 threads,
+    chunks of ``WIDE_CHUNK`` E channels, rows padded by 16 bytes in bf16,
+    4 floats in f32). Whole-C tiles (bf16, int8 at K <= 5): the small
+    weights, the input tiles, the ring's stages (W2 [ECH][C], W3 [C][ECH]),
+    the t tile (int8 stages its codes there), two sets of the warps' h
+    blocks [16][ECH], the ring's mbarriers. Grouped (K = 7, and f32 at
+    every K): the LayerNorm scale and gain, t, the h blocks, then a region
+    that holds the ring's stages or, before the products, the raw f32 sums
+    [P][C + 4] (bf16, int8) and one or two group slots (a group's input in
+    the I/O type and its depthwise weights), then the mbarriers."""
     mma, int8 = dtype != torch.float32, dtype == torch.int8
-    c, pad, elt = 256, k // 2, 2 if mma else 4
+    c, pad, elt = WIDE_WIDTH, k // 2, 2 if mma else 4
     io = torch.tensor([], dtype=dtype).element_size()
-    th, tw = 8, 8
-    px = th * tw
-    ih, iw = th + 2 * pad, tw + 2 * pad
-    ech, rowpad = (STREAM_CHUNK, 8) if mma else (WIDE_F32_CHUNK, 4)
-    grouped = k == 7
+    px = 8 * 8
+    ih, iw = 8 + 2 * pad, 8 + 2 * pad
+    ech, rowpad = WIDE_CHUNK, 8 if mma else 4
+    grouped = k == 7 or not mma
     wbuf = (_align16(elt * ech * (c + rowpad))
             + _align16(elt * c * (ech + rowpad)))
     t_rows = elt * px * (c + rowpad)
     t_bytes = _align16(max(t_rows, ih * iw * c) if int8 and not grouped
                        else t_rows)
-    h_bytes = elt * 16 * (ech + rowpad) * (px // 16)
+    h_bytes = 2 * elt * 16 * (ech + rowpad) * (px // 16)
     if grouped:
-        start = _align16(_align16(4 * c) + 4 * c)
-        u0 = _align16(start + t_bytes + h_bytes)
+        off_u = _align16(_align16(_align16(4 * c) + 4 * c) + t_bytes
+                         + h_bytes)
+        room = SHARED_MEMORY_LIMIT - RING_BARS - off_u
+        stages = min(RING_STAGES, room // wbuf)
         raw = 4 * px * (c + 4) if mma else 0
         slot = _align16(io * ih * iw * WIDE_GROUP) + 4 * k * k * WIDE_GROUP
-        slots = 2 if u0 + max(2 * wbuf, raw + 2 * slot) \
-            <= SHARED_MEMORY_LIMIT else 1
-        return dict(threads_per_block=256,
-                    smem_bytes=u0 + max(2 * wbuf, raw + slots * slot))
-    xbuf = elt * ih * iw * (c if mma else WIDE_GROUP)
-    start = _align16(_align16(_align16(4 * k * k * c) + 4 * c) + 4 * c)
-    rest = 2 * wbuf + t_bytes + h_bytes
-    buffers = (1 if int8 else 2 if start + 2 * xbuf + rest
-               <= SHARED_MEMORY_LIMIT else 1)
-    return dict(threads_per_block=256,
-                smem_bytes=_align16(start + buffers * xbuf) + rest)
+        slots = 2 if raw + 2 * slot <= room else 1
+        smem = off_u + max(stages * wbuf, raw + slots * slot) + RING_BARS
+    else:
+        xbuf = elt * ih * iw * c
+        off_x = _align16(_align16(_align16(4 * k * k * c) + 4 * c) + 4 * c)
+        rest = t_bytes + h_bytes + RING_BARS
+        buffers = (1 if int8 else 2 if off_x + 2 * xbuf + 3 * wbuf + rest
+                   <= SHARED_MEMORY_LIMIT else 1)
+        off_w2 = _align16(off_x + buffers * xbuf)
+        stages = min(RING_STAGES,
+                     (SHARED_MEMORY_LIMIT - off_w2 - rest) // wbuf)
+        smem = off_w2 + stages * wbuf + rest
+    return dict(threads_per_block=256, smem_bytes=smem,
+                cluster_size=RING_CLUSTER, ring_stages=stages,
+                chunk_channels=ech, width=c, order="rows", w2_pad=rowpad,
+                w3_pad=rowpad)
 
 
 def runs_cluster(c: int) -> bool:
@@ -499,6 +557,87 @@ def convnext_block_plain(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
     return out.to(x.dtype)
 
 
+def _pair(tile: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Column 2j + s of an m16n8k8 n8 tile pair (tile, n index n): the
+    order in which a lane's B operands of two k-steps are one 16-byte
+    vector of W2's or W3's rows (``csrc/convnext_block.cuh``
+    ``expand_project_f32``)."""
+    return 16 * (tile >> 1) + 4 * (n >> 1) + 2 * (tile & 1) + (n & 1)
+
+
+def _chunk_positions(e: int, c: int, layout: dict) -> torch.Tensor:
+    """Where each element of a streamed layout's chunk images comes from
+    (:func:`chunk_images`): [NCH, chunk] positions in W2 [E', C'] and W3
+    [C', E'] flattened one after the other, 2 E' C' for a pad (a zero)."""
+    ech = layout["chunk_channels"]
+    nch = e // ech
+    n = e * c
+    w2c = torch.arange(n).reshape(nch, ech, c)
+    w3c = torch.arange(n, 2 * n).reshape(c, nch, ech).permute(1, 0, 2)
+    if layout["order"] == "rows":
+        w2c = F.pad(w2c, (0, layout["w2_pad"]), value=2 * n)
+        w3c = F.pad(w3c, (0, layout["w3_pad"]), value=2 * n)
+    else:
+        i = torch.arange(ech * c // 4)
+        lane, rest = i & 31, i >> 5
+        g, q = lane >> 2, lane & 3
+        four = torch.arange(4)
+        row2 = _pair(rest // (c // 16), g)
+        col2 = 16 * (rest % (c // 16)) + 4 * q
+        row3 = _pair(rest % (c // 8), g)
+        col3 = 16 * (rest // (c // 8)) + 4 * q
+        w2c = w2c[:, row2[:, None], col2[:, None] + four]
+        w3c = w3c[:, row3[:, None], col3[:, None] + four]
+    return torch.cat([w2c.reshape(nch, -1), w3c.reshape(nch, -1)], dim=1)
+
+
+# chunk positions by (E', C', layout, device), made once
+_CHUNK_POSITIONS = {}
+
+
+def chunk_images(w2: torch.Tensor, w3: torch.Tensor, layout: dict):
+    """W2 [E', C'] and W3 [C', E'] (padded to the layout's width C') as a
+    streamed layout's ring copies them (``_layout``): row c of the image
+    is chunk c of ECH E channels, the bytes its stage holds (its W2 part,
+    then its W3 part), so that a chunk is one contiguous range of device
+    memory. ``order`` "rows": W2's rows c ECH .. + ECH - 1 [ECH][C' +
+    w2_pad], then W3's columns of them [C'][ECH + w3_pad], the pads zero;
+    "fragments" (f32 at C' <= 128): one 16-byte vector per lane (g = lane
+    / 4, q = lane % 4) of 32, W2 vector (n, i) channels 16i + 4q .. + 3 of
+    the chunk's E row ``_pair(n, g)``, then W3 vector (m, o) the chunk's E
+    16m + 4q .. + 3 of output channel ``_pair(o, g)``. One gather over
+    positions worked out once a layout and device. Returns [NCH, chunk] in
+    the weights' dtype."""
+    e, c = w2.shape
+    key = (e, c, layout["chunk_channels"], layout["order"],
+           layout["w2_pad"], layout["w3_pad"], w2.device)
+    pos = _CHUNK_POSITIONS.get(key)
+    if pos is None:
+        pos = _chunk_positions(e, c, layout).to(w2.device)
+        _CHUNK_POSITIONS[key] = pos
+    src = torch.cat([w2.reshape(-1), w3.reshape(-1), w2.new_zeros(1)])
+    return src[pos]
+
+
+def _operand_shapes(c: int, k: int, dtype: torch.dtype) -> tuple:
+    """The shapes of :func:`kernel_operands`' five tensors for a unit of C
+    channels at K run on x of ``dtype``."""
+    width = class_width(c, dtype)
+    dw = (k * k, width) if runs_cluster(c) else (width, k * k)
+    w2, w3 = (4 * width, width), (width, 4 * width)
+    if not runs_cluster(c):
+        lay = _layout(c, k, dtype)
+        if lay["ring_stages"]:
+            ech = lay["chunk_channels"]
+            nch = 4 * width // ech
+            if lay["order"] == "rows":
+                w2 = w3 = (nch, ech * (width + lay["w2_pad"])
+                           + width * (ech + lay["w3_pad"]))
+            else:
+                w2 = w3 = (nch, 2 * ech * width)
+    return dw, (width,), w2, w3, (width,)
+
+
 def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
     """The weights as the kernel takes them for x of ``dtype``: dw [C', K²]
     (on the cluster route transposed, [K², C']), the LayerNorm scale and
@@ -508,7 +647,9 @@ def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
     (on the cluster route the next multiple of ``CLUSTER_SLICE``): a class
     kernel's padded channels have zero depthwise weights, LayerNorm scale
     and gain, W2 columns and W3 rows, and its padded E rows of W2 and
-    columns of W3 are zeros."""
+    columns of W3 are zeros. A layout that streams W2 and W3 through its
+    ring takes them as its chunks' images (:func:`chunk_images`), one
+    tensor given as both W2 and W3."""
     c, k = ln_scale.numel(), dw.shape[-1]
     w_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
     dw_f = dw.reshape(c, k * k).float().contiguous()
@@ -525,6 +666,10 @@ def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
         w3_io = F.pad(w3_io, (0, 4 * pad, 0, pad))
     if cluster:
         dw_f = dw_f.t().contiguous()
+    elif kernel_supports(c, k):
+        lay = _layout(c, k, dtype)
+        if lay["ring_stages"]:
+            w2_io = w3_io = chunk_images(w2_io, w3_io, lay)
     return dw_f, ln_f, w2_io, w3_io, gain_f
 
 
@@ -532,11 +677,8 @@ def _check_operands(operands, x, c, k):
     """Raise unless ``operands`` are :func:`kernel_operands`' layout for a
     unit of C channels and K x K taps run on x (shapes, dtypes, device,
     16-byte starts): the kernel reads them without bounds."""
-    width = class_width(c, x.dtype)
     w_dtype = torch.bfloat16 if x.dtype == torch.int8 else x.dtype
-    dw_shape = ((k * k, width) if runs_cluster(c) else (width, k * k))
-    want = (dw_shape, (width,), (4 * width, width), (4 * width, width)[::-1],
-            (width,))
+    want = _operand_shapes(c, k, x.dtype)
     dtypes = (torch.float32, torch.float32, w_dtype, w_dtype, torch.float32)
     if len(operands) != 5 or any(
             tuple(t.shape) != s or t.dtype != d or t.device != x.device

@@ -492,8 +492,9 @@ def band_bound_ms(b, h, w, c, k, dtype, backward=False, split=False):
 
 def k1_instantiations(lib, pallas_convnext):
     """Shared memory, registers, spill bytes, threads per block, resident
-    blocks per SM, cluster size, the clusters (blocks, up to C = 256) the
-    card holds at once and the layout's width of the K1 instantiation that
+    blocks per SM, cluster size, the clusters (blocks of the one-block
+    layouts) the card holds at once, the layout's width and the stages of
+    its weight ring (0: none) of the K1 instantiation that
     runs each (C, K) of ``pallas_convnext.SAMPLE_SHAPES`` (the twelve of
     their own and every class at widths that are and are not multiples of
     16), from the library (``bid_convnext_block_info``). An instantiation
@@ -505,14 +506,14 @@ def k1_instantiations(lib, pallas_convnext):
     out = []
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
         for c, k in pallas_convnext.SAMPLE_SHAPES:
-            vals = (ctypes.c_int * 8)()
+            vals = (ctypes.c_int * 9)()
             rc = lib.bid_convnext_block_info(c, k, code, vals)
             if rc != 0:
                 raise AssertionError(f"K1 info {dtype} ({c}, {k}): {rc}")
             out.append(dict(zip(
                 ("smem_bytes", "registers", "local_bytes",
                  "threads_per_block", "blocks_per_sm", "cluster_size",
-                 "active_clusters", "width"), vals),
+                 "active_clusters", "width", "ring_stages"), vals),
                 dtype=str(dtype).split(".")[-1], C=c, K=k))
             if out[-1]["local_bytes"] > 0:
                 raise AssertionError(f"K1 instantiation spills: {out[-1]}")
@@ -520,6 +521,8 @@ def k1_instantiations(lib, pallas_convnext):
                 raise AssertionError(f"K1 instantiation fits no cluster: "
                                      f"{out[-1]}")
             plan = dict(pallas_convnext.kernel_plan(c, k, dtype))
+            plan.pop("chunk_channels", None)
+            plan.setdefault("ring_stages", 0)
             if out[-1]["blocks_per_sm"] < plan.pop("min_blocks_per_sm", 1) \
                     or any(out[-1][key] != want for key, want in plan.items()) \
                     or out[-1]["width"] != pallas_convnext.class_width(
@@ -553,7 +556,7 @@ def band_tile_plans(what, info, plan_of, shapes, codes):
     out = []
     for dtype, code in codes.items():
         for b, h, w, c in shapes:
-            vals = (ctypes.c_int * 8)()
+            vals = (ctypes.c_int * 9)()
             rc = info(h, w, c, 2, code, vals)
             if rc != 0:
                 raise AssertionError(f"{what} info {dtype} {(b, h, w, c)}: "
@@ -3405,6 +3408,22 @@ def seeded_unit_weights(c, k, seed=0):
                 gain=t(rng.uniform(0.3, 0.9, (c,))))
 
 
+# the streamed layouts' rows before their chunks became a bulk-copy ring
+# (PERF.md §6's table: this script's cold ms, operands prepared on every
+# call, on ``cedafbd``), by (mode, C, K, shape)
+PARENT_K1_COLD_MS = {
+    ("f32", 128, 5, (8, 64, 64, 128)): 0.2018,
+    ("f32", 128, 1, (8, 64, 64, 128)): 0.1853,
+    ("bf16", 128, 5, (8, 64, 64, 128)): 0.0594,
+    ("bf16", 128, 1, (8, 64, 64, 128)): 0.0496,
+    ("int8", 128, 5, (32, 64, 64, 128)): 0.1872,
+    ("bf16", 128, 3, (8, 64, 64, 128)): 0.0493,
+    ("bf16", 256, 5, (32, 32, 32, 256)): 0.2417,
+    ("int8", 256, 5, (32, 32, 32, 256)): 0.2381,
+    ("f32", 256, 5, (8, 32, 32, 256)): 0.2234,
+    ("bf16", 108, 5, (32, 32, 32, 108)): 0.0777}
+
+
 def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
                 **fields):
     """K1 on ``x`` (float32; ``mode`` "f32", "bf16" or "int8", whose scales
@@ -3415,9 +3434,15 @@ def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
     f32 1e-3 and ``K1_F32_RELATIVE`` of max |plain output|; int8 one code
     on at most ``share_differing`` of the outputs) and to the bits of a
     launch on the operands prepared once, as the model's units launch it.
-    Logs and returns the row; raises past a bar."""
+    Logs and returns the row, with the parent's cold ms
+    (``PARENT_K1_COLD_MS``) where the row's layout was redesigned; raises
+    past a bar."""
     from blind_image_denoising_torch.ops.precision import exact_float32
     b, h, w, c = x.shape
+    parent = PARENT_K1_COLD_MS.get((mode, c, wts["dw"].shape[-1],
+                                    (b, h, w, c)))
+    if parent is not None:
+        fields = dict(fields, parent_cold_ms=parent)
     k = wts["dw"].shape[-1]
     kw = dict(slope=slope)
     if mode == "int8":

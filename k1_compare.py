@@ -45,8 +45,9 @@ twice the L2), the largest difference from the plain PyTorch version
 (in float32 also ``bound_cuda_cores_ms``, every operation on the CUDA
 cores); then the card's name and power limit. With ``--out DIR`` the
 compiler's resource report
-(``-Xptxas -v``) and the SASS (``cuobjdump -sass``) of every source are
-written to ``DIR/NAME.ptxas.txt`` and ``DIR/NAME.sass.txt``. With
+(``-Xptxas -v``) of every source is written to ``DIR/NAME.ptxas.txt``,
+and with ``--sass`` its SASS (``cuobjdump -sass``) to
+``DIR/NAME.sass.txt``. With
 ``--channels 256,512`` only the rows at those C are timed, with
 ``--dtype bf16`` only those in that mode. Each library gets the weights
 as its own route takes them: padded to the width of the layout that its
@@ -125,6 +126,12 @@ NEW_ROWS = [("bf16", 32, 7, 8, 256), ("bf16", 64, 7, 8, 128),
 # C = 1024: a no-attention depth-6 v6's level 5 (b8 @ 256²: 8²)
 CLUSTER_ROWS = [("bf16", 1024, 5, 8, 8), ("int8", 1024, 5, 8, 8),
                 ("f32", 1024, 5, 8, 8), ("bf16", 384, 5, 8, 16)]
+# the streamed layouts' other shapes: (128, 3) and (128, 7) in int8 and
+# f32 (f32 (128, 7) takes the tile buffer's room for its ring), and a
+# ragged width of the wide class, bf16 (192, 5) at 32×32²
+RING_ROWS = [("int8", 128, 3, 8, 64), ("f32", 128, 3, 8, 64),
+             ("int8", 128, 7, 8, 64), ("f32", 128, 7, 8, 64),
+             ("bf16", 192, 5, 32, 32)]
 # the widths of the one-block classes any version of the library had (512
 # until the cluster took 256 < C <= 512 over)
 ONE_BLOCK_WIDTHS = (32, 64, 128, 256, 512)
@@ -176,6 +183,7 @@ def route_operands(pc, dtype, wts, cluster_size, width=0):
 # "noproducts": the layouts with resident weights skip both products (the
 #   epilogue adds x + gain * 0), their share of the time.
 _CUH = "convnext_block.cuh"
+_WIDE = "convnext_wide.cuh"
 CUTS = {
     "shifts": [
         (_CUH, "const int pix = G::kMma && G::C >= 128 ? i >> ush : i / upp;",
@@ -234,6 +242,93 @@ CUTS = {
         (_CUH, "for (int ec = 0; ec < G::E; ec += G::EC)",
          "for (int ec = 0; ec < 0; ec += G::EC)"),
     ],
+    # Written against the streamed layouts' bulk-copy ring
+    # (csrc/chunk_ring.cuh): "cluster1": one block, no multicast (each
+    # block copies every chunk itself), so that the ring and the
+    # multicast are timed apart.
+    "cluster1": [
+        (_CUH, "constexpr int kRingCluster = 2;",
+         "constexpr int kRingCluster = 1;"),
+    ],
+    # "ringonly": the streamed layouts skip both products (the chunks
+    #   still stream, are waited for and released; f32 at C <= 128 reads
+    #   one value of t and of each chunk);
+    # "noring": no chunk is issued, waited for or released (the products
+    #   run on what the stages hold): the ring's share.
+    "ringonly": [
+        (_CUH, "expand_project<G>(af, pacc, rows.w2 + b, rows.w3 + b, slope);",
+         "(void)b;"),
+        (_CUH, """          expand_project_f32<G>(t_at, pacc, wc, wc + G::W2_BYTES / 16, slope,
+                                lane);""",
+         "          pacc[0][0] += wc[0].x + t_at(0, 0).x;"),
+        (_WIDE, "      expand_half<G>(af, hb(par), rows.w2 + b, slope, part, "
+         "lane);", "      (void)b;"),
+        (_WIDE, """      project_half<G>(pacc, h_lane + (uint32_t)(par * G::HB1), rows.w3 + b,
+                      part);""", ""),
+        (_WIDE, """      if (part < G::ECH / 8)
+        expand_half_f32<G>(ts, w2c, hb(par), slope, mt, part, lane);""",
+         "      (void)w2c;"),
+        (_WIDE, "      project_half_f32<G>(pacc, hb(par), w2c + G::W2_BYTES / 4, "
+         "part, lane);", ""),
+    ],
+    "noring": [
+        (_CUH, "      ring_.wait(g);\n", ""),
+        (_CUH, """      ring_.release(g, lane);
+      if (tid == 0 && g + G::NS - 1 < limit)
+        issue(smem, g + G::NS - 1, chunks);
+""", ""),
+        (_CUH, """      for (int j = r * G::NCH; j < r * G::NCH + G::NS - 1 && j < limit; ++j)
+        issue(smem, j, chunks);""", """      for (int j = r * G::NCH; j < r * G::NCH + G::NS - 1 && j < limit; ++j)
+        (void)j;"""),
+    ],
+    # Written against the streamed layouts with per-thread chunk copies
+    # (``cedafbd``'s csrc: C = 128's and the wide class's), to split their
+    # time before the chunk ring:
+    # "nochunks": no weight chunk is copied (the products run on what the
+    #   two buffers hold; the barrier a chunk stays);
+    # "nochunkproducts": the streamed layouts skip both products (float32
+    #   at C = 128 folds t into its accumulators once a tile, so that its
+    #   depthwise stays);
+    # "nodwln": the depthwise and the LayerNorm are skipped (float32 at
+    #   C = 128 takes t and x from the tile as they lie).
+    "nochunks": [
+        (_CUH, "  const int e0 = chunk * ECH;\n",
+         "  const int e0 = chunk * ECH;\n"
+         "  if (e0 >= 0) {\n    cp_async_commit();\n    return;\n  }\n"),
+    ],
+    "nochunkproducts": [
+        (_CUH, "expand_project<G>(af, pacc, rows.w2 + b, rows.w3 + b, slope);",
+         "(void)b;"),
+        (_CUH, """expand_project_f32<G>(tv, pacc, wc, wc + G::W2_BYTES / 16, slope,
+                                lane);""",
+         """(void)wc;
+          if (c == 0)
+#pragma unroll
+            for (int r = 0; r < C / 4; ++r)
+              pacc[r % (C / 8)][0] += tv[0][r] + tv[1][r];"""),
+        (_WIDE, "expand_half<G>(af, hb, rows.w2 + b, slope, part, lane);",
+         "(void)b;"),
+        (_WIDE, "project_half<G>(pacc, h_lane, rows.w3 + b, part);", ""),
+        (_WIDE, "expand_half_f32<G>(ts, w2c, hb, slope, mt, part, lane);",
+         "(void)w2c;"),
+        (_WIDE, "project_half_f32<G>(pacc, hb, w2c + G::W2_BYTES / 4, part, "
+         "lane);", ""),
+    ],
+    "nodwln": [
+        (_CUH, "      depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, "
+         "inv_cr);\n", ""),
+        (_CUH, """depthwise_layernorm_f32<G>(xs, dws, lns, tv, xc, warp, lane, cr,
+                                 inv_cr);""",
+         """#pragma unroll
+      for (int r = 0; r < C / 4; ++r)
+        tv[0][r] = tv[1][r] = xc[0][r] = xc[1][r] = xs[lane + r];"""),
+        (_WIDE, "        depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, "
+         "inv_cr);\n", ""),
+        (_WIDE, """          depthwise_group<G>(
+              reinterpret_cast<const float*>(xbuf(G::NXBUF == 2 ? grp & 1 : 0)),
+              dws + grp * G::GC, C, ts, grp * G::GC, tid, s_in);""", ""),
+        (_WIDE, "layernorm_rows<G>(ts, ts, lns, cr, inv_cr, warp, lane);", ""),
+    ],
 }
 
 
@@ -253,7 +348,7 @@ def cut_copy(source: Path, cuts, work: Path, name: str) -> Path:
     return dst
 
 
-def build(name, source, work, out_dir):
+def build(name, source, work, out_dir, sass=False):
     from blind_image_denoising_torch.ops import cuda_build
     source = str(source)
     if "@" in source:
@@ -281,6 +376,7 @@ def build(name, source, work, out_dir):
         raise RuntimeError(f"nvcc link failed for {name}:\n{link.stdout}")
     if out_dir is not None:
         (out_dir / f"{name}.ptxas.txt").write_text("\n".join(report))
+    if out_dir is not None and sass:
         tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
         sass = subprocess.run([str(tool), "-sass", str(lib_path)],
                               capture_output=True, text=True, check=True)
@@ -363,16 +459,254 @@ int main() {
 """
 
 
+# The L2 -> SM read rate: many blocks read one resident buffer of 1 MB
+# (what every block of K1's streamed layouts does with W2 and W3), by
+# 16-byte loads that skip L1 (ld.global.cg) from every thread of one block
+# an SM, and by the streamed layouts' own bulk copies (csrc/chunk_ring.cuh:
+# one thread a block issues 16 KB chunks into a ring of four stages, the
+# 8 warps wait on each stage's full barrier and release it) on one block
+# an SM and, multicast, on clusters of 2 (the L2 reads half the bytes that
+# land); then how many clusters of 1, 2 and 4 blocks of 220 KB of shared
+# memory the card holds at once.
+L2_RATE_SOURCE = r"""
+#include <cstdio>
+#include "chunk_ring.cuh"
+constexpr int kBuf = 1 << 20, kChunk = 16384, kStages = 4;
+__global__ void ldcg_read(const uint4* __restrict__ buf, int reps,
+                          uint4* sink) {
+  uint4 acc = make_uint4(0, 0, 0, 0);
+  for (int r = 0; r < reps; ++r)
+    for (int i = threadIdx.x; i < kBuf / 16; i += blockDim.x) {
+      const uint4 v = __ldcg(buf + i);
+      acc.x ^= v.x; acc.y ^= v.y; acc.z ^= v.z; acc.w ^= v.w;
+    }
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+// the ring's loop over `chunks` chunks; NCL blocks a cluster. MC: block r
+// copies 1/NCL of each chunk multicast to the cluster (else each block its
+// whole chunk to itself); CR: a stage is refilled once every block's warps
+// released it (else once this block's did); SEM: the releases and the
+// producer's wait at cluster scope (else at the default, CTA scope)
+template <int NCL, bool MC, bool CR, bool SEM, int NS, bool STAG = false>
+__global__ void bulk_read(const unsigned char* buf, int chunks,
+                          unsigned* sink) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using namespace bid_ring;
+  const uint32_t bars = smem_addr(smem), ring = smem_addr(smem + 256);
+  const int tid = threadIdx.x, lane = tid & 31, warps = blockDim.x / 32;
+  const int rank = cluster_rank<NCL>();
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (NS + st); };
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CR ? NCL * warps : warps);
+    }
+    fence_mbar_init();
+  }
+  sync_cluster<NCL>();
+  // STAG: each cluster starts at another chunk of the buffer, so that the
+  // L2 serves distinct lines at once (else every block reads the same)
+  const int shift = STAG ? (int)(blockIdx.x / NCL) * 5 : 0;
+  auto src = [&](int g) {
+    return buf + (size_t)((g + shift) % (kBuf / kChunk)) * kChunk;
+  };
+  auto issue = [&](int g) {
+    const int st = g % NS;
+    if (g >= NS) {
+      const uint32_t parity = (uint32_t)((g / NS - 1) & 1);
+      if (SEM)
+        asm volatile(
+            "{\n.reg .pred p;\nWAIT_CL:\n"
+            "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+            "[%0], %1;\n@!p bra WAIT_CL;\n}\n" ::"r"(empty(st)),
+            "r"(parity)
+            : "memory");
+      else
+        wait_parity(empty(st), parity);
+    }
+    arrive_expect_tx(full(st), kChunk);
+    const uint32_t dst = ring + st * kChunk;
+    if (MC && NCL > 1) {
+      const uint32_t part = kChunk / NCL;
+      bulk_copy_multicast(dst + rank * part, src(g) + rank * part, part,
+                          full(st), (uint16_t)((1u << NCL) - 1));
+    } else {
+      bulk_copy(dst, src(g), kChunk, full(st));
+    }
+  };
+  if (tid == 0)
+    for (int g = 0; g < NS - 1 && g < chunks; ++g) issue(g);
+  unsigned acc = 0;
+  for (int g = 0; g < chunks; ++g) {
+    wait_parity(full(g % NS), (uint32_t)((g / NS) & 1));
+    acc += reinterpret_cast<const unsigned*>(smem + 256 + (g % NS) *
+                                             kChunk)[tid];
+    __syncwarp();
+    if (CR && NCL > 1) {
+      if (lane < NCL) {
+        if (SEM) {
+          asm volatile(
+              "{\n.reg .b32 remote;\n"
+              "mapa.shared::cluster.u32 remote, %0, %1;\n"
+              "mbarrier.arrive.release.cluster.shared::cluster.b64 _, "
+              "[remote];\n}\n" ::"r"(empty(g % NS)),
+              "r"(lane)
+              : "memory");
+        } else {
+          arrive_cluster(empty(g % NS), (uint32_t)lane);
+        }
+      }
+    } else if (lane == 0) {
+      arrive_local(empty(g % NS));
+    }
+    if (tid == 0 && g + NS - 1 < chunks) issue(g + NS - 1);
+  }
+  sync_cluster<NCL>();
+  sink[blockIdx.x * blockDim.x + tid] = acc;
+}
+int sms() {
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, 0);
+  return n;
+}
+float time_ms(cudaEvent_t a, cudaEvent_t b) {
+  float ms = 0.f;
+  cudaEventElapsedTime(&ms, a, b);
+  return ms;
+}
+template <typename Kern>
+int clusters(Kern kern, int ncl, int smem) {
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(ncl, 1, 1);
+  cfg.blockDim = dim3(256, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess) n = -1;
+  return n;
+}
+template <int NCL, bool MC, bool CR, bool SEM, int NS, bool STAG = false>
+void bulk(const unsigned char* buf, unsigned* sink, cudaEvent_t a,
+          cudaEvent_t b) {
+  const int smem = 256 + NS * kChunk, chunks = 64 * (kBuf / kChunk);
+  auto kern = bulk_read<NCL, MC, CR, SEM, NS, STAG>;
+  const int ncl = clusters(kern, NCL, smem);
+  const int grid = (sms() / NCL < ncl ? sms() / NCL : ncl) * NCL;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NCL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(256, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  float ms = 0.f;
+  for (int rep = 0; rep < 2; ++rep) {  // the second launch is timed
+    cudaEventRecord(a);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, buf, chunks, sink);
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    if (e != cudaSuccess || cudaGetLastError() != cudaSuccess) {
+      printf("{\"probe\": \"bulk\", \"cluster\": %d, \"error\": %d}\n", NCL,
+             (int)e);
+      return;
+    }
+    ms = time_ms(a, b);
+  }
+  const double landed = (double)grid * chunks * kChunk;
+  printf("{\"probe\": \"bulk\", \"cluster\": %d, \"multicast\": %d, "
+         "\"cluster_release\": %d, \"cluster_scope\": %d, \"staggered\": %d, "
+         "\"blocks\": %d, \"stages\": %d, \"chunk_bytes\": %d, "
+         "\"ms\": %.4f, \"landed_tb_per_s\": %.3f, "
+         "\"l2_read_tb_per_s\": %.3f}\n",
+         NCL, (int)MC, (int)CR, (int)SEM, (int)STAG, grid, NS, kChunk, ms,
+         landed / ms / 1e9, landed / (MC ? NCL : 1) / ms / 1e9);
+}
+int main() {
+  unsigned char* buf;
+  uint4* sink;
+  cudaMalloc(&buf, kBuf);
+  cudaMemset(buf, 1, kBuf);
+  cudaMalloc(&sink, 132 * 1024 * 16);
+  cudaEvent_t a, b;
+  cudaEventCreate(&a);
+  cudaEventCreate(&b);
+  for (int threads : {256, 1024}) {
+    const int reps = 16;
+    float ms = 0.f;
+    for (int rep = 0; rep < 2; ++rep) {
+      cudaEventRecord(a);
+      ldcg_read<<<sms(), threads>>>(reinterpret_cast<const uint4*>(buf),
+                                     reps, sink);
+      cudaEventRecord(b);
+      cudaEventSynchronize(b);
+      ms = time_ms(a, b);
+    }
+    printf("{\"probe\": \"ld.global.cg\", \"blocks\": %d, \"threads\": %d, "
+           "\"ms\": %.4f, \"l2_read_tb_per_s\": %.3f}\n", sms(), threads, ms,
+           (double)sms() * reps * kBuf / ms / 1e9);
+  }
+  unsigned* sk = reinterpret_cast<unsigned*>(sink);
+  bulk<1, false, false, false, 4>(buf, sk, a, b);
+  bulk<2, false, false, false, 4>(buf, sk, a, b);
+  bulk<2, false, true, true, 4>(buf, sk, a, b);
+  bulk<2, false, true, false, 4>(buf, sk, a, b);
+  bulk<2, true, false, false, 4>(buf, sk, a, b);
+  bulk<2, true, true, true, 4>(buf, sk, a, b);
+  bulk<2, true, true, false, 4>(buf, sk, a, b);
+  bulk<2, true, true, true, 8>(buf, sk, a, b);
+  bulk<1, false, false, false, 8>(buf, sk, a, b);
+  bulk<1, false, false, false, 4, true>(buf, sk, a, b);
+  bulk<2, true, true, false, 4, true>(buf, sk, a, b);
+  bulk<1, false, false, false, 8, true>(buf, sk, a, b);
+  bulk<2, true, true, false, 8, true>(buf, sk, a, b);
+  printf("{\"probe\": \"clusters_at_220KB\", \"1\": %d, \"2\": %d, "
+         "\"4\": %d}\n",
+         clusters(bulk_read<1, false, false, false, 4>, 1, 225280),
+         clusters(bulk_read<2, true, true, true, 4>, 2, 225280),
+         clusters(bulk_read<4, true, true, true, 4>, 4, 225280));
+  return cudaDeviceSynchronize() != cudaSuccess;
+}
+"""
+
+
+def run_probe(work: Path, name: str, source: str) -> None:
+    """Build ``source`` (with the checkout's ``csrc/`` on the include path)
+    and run it; print its JSON lines."""
+    from blind_image_denoising_torch.ops import cuda_build
+    src, exe = work / f"{name}.cu", work / name
+    src.write_text(source)
+    built = subprocess.run([cuda_build.find_nvcc(), "-gencode",
+                            "arch=compute_90a,code=sm_90a", "-std=c++17",
+                            "-O3", "-I", str(cuda_build.CSRC_DIR), "-o",
+                            str(exe), str(src)], capture_output=True,
+                           text=True)
+    if built.returncode != 0:
+        print(json.dumps(dict(probe=name, build_error=built.stderr[-4000:])),
+              flush=True)
+        return
+    ran = subprocess.run([str(exe)], capture_output=True, text=True)
+    print(ran.stdout.strip(), flush=True)
+    if ran.returncode != 0:
+        print(json.dumps(dict(probe=name, exit=ran.returncode,
+                              stderr=ran.stderr[-2000:])), flush=True)
+
+
 def mma_rate(work: Path) -> None:
     """Build and run ``MMA_RATE_SOURCE``; print its JSON lines."""
-    from blind_image_denoising_torch.ops import cuda_build
-    src, exe = work / "mma_rate.cu", work / "mma_rate"
-    src.write_text(MMA_RATE_SOURCE)
-    subprocess.run([cuda_build.find_nvcc(), "-gencode",
-                    "arch=compute_90a,code=sm_90a", "-O3", "-o", str(exe),
-                    str(src)], check=True)
-    print(subprocess.run([str(exe)], capture_output=True, text=True,
-                         check=True).stdout.strip(), flush=True)
+    run_probe(work, "mma_rate", MMA_RATE_SOURCE)
 
 
 def main() -> int:
@@ -380,7 +714,11 @@ def main() -> int:
     parser.add_argument("sources", nargs="*", metavar="NAME=SOURCE")
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--sass", action="store_true",
+                        help="with --out, also write each library's SASS")
     parser.add_argument("--mma-rate", action="store_true")
+    parser.add_argument("--l2-rate", action="store_true",
+                        help="measure the L2 -> SM read rate first")
     parser.add_argument("--channels", default=None,
                         help="time only the rows at these C (comma list)")
     parser.add_argument("--dtype", default=None, choices=("bf16", "int8",
@@ -391,14 +729,18 @@ def main() -> int:
                              "libraries, operands prepared on every call "
                              "and once")
     args = parser.parse_args()
-    if not args.sources and not args.mma_rate:
-        parser.error("give NAME=SOURCE pairs, --mma-rate, or both")
+    if not args.sources and not args.mma_rate and not args.l2_rate:
+        parser.error("give NAME=SOURCE pairs, --mma-rate, --l2-rate, or "
+                     "several")
     if not torch.cuda.is_available():
         print("k1_compare: no CUDA device available", file=sys.stderr)
         return 1
-    if args.mma_rate:
+    if args.mma_rate or args.l2_rate:
         with tempfile.TemporaryDirectory() as work:
-            mma_rate(Path(work))
+            if args.mma_rate:
+                mma_rate(Path(work))
+            if args.l2_rate:
+                run_probe(Path(work), "l2_rate", L2_RATE_SOURCE)
         if not args.sources:
             return 0
     from blind_image_denoising_torch.ops import pallas_convnext as pc
@@ -406,7 +748,8 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
     named = [spec.split("=", 1) for spec in args.sources]
     with tempfile.TemporaryDirectory() as work:
-        libs = {name: build(name, Path(src), Path(work), args.out)
+        libs = {name: build(name, Path(src), Path(work), args.out,
+                            args.sass)
                 for name, src in named}
     rng = np.random.default_rng(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -417,7 +760,7 @@ def main() -> int:
     only = (None if args.channels is None
             else {int(c) for c in args.channels.split(",")})
     for dtype, c, k, b, hw in (ROWS + CLASS_ROWS + PADDED_ROWS + NEW_ROWS
-                               + CLUSTER_ROWS):
+                               + CLUSTER_ROWS + RING_ROWS):
         if (only is not None and c not in only) or (
                 args.dtype is not None and dtype != args.dtype):
             continue
@@ -443,15 +786,20 @@ def main() -> int:
         # stays 1, and one from before the layouts of widths that are
         # multiples of 16 fills 7, so its width stays 0: its class's);
         # None where it has no layout
+        # (and one that streams W2 and W3 through a bulk-copy ring, its
+        # ninth int, the ring's chunks as this checkout's wrapper makes
+        # them)
         operands = {}
         for name, lib in libs.items():
-            info = (ctypes.c_int * 8)(*[0] * 5, 1, 0, 0)
+            info = (ctypes.c_int * 9)(*[0] * 5, 1, 0, 0, 0)
             rc = lib.bid_convnext_block_info(c, k, pc._DTYPE_CODES[x.dtype],
                                              info)
             if rc not in (0, UNSUPPORTED):
                 raise RuntimeError(f"{name}: info {rc}")
-            operands[name] = (None if rc else route_operands(
-                pc, x.dtype, wts, info[5], info[7]))
+            operands[name] = (
+                None if rc else pc.kernel_operands(x.dtype, **wts)
+                if info[8] else route_operands(pc, x.dtype, wts, info[5],
+                                               info[7]))
         out = torch.empty_like(x)
         kw = dict(slope=0.1, **scales)
         wrappers = {} if not args.wrapper else {

@@ -204,27 +204,14 @@ def test_convnext_int8_kernel_matches_plain(dev, ck, bhw):
     assert float((dcode == 0).float().mean()) >= 0.999
 
 
-@pytest.mark.parametrize("ck", [(128, 5), (128, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.int8])
-def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
-    """At C = 128 W2 and W3 stream through two shared-memory buffers, 16
-    E chunks a tile, the last of which prefetches the next tile's first.
-    On 32 x 64 x 64 (a depth-4 fused unet_laplacian_v6's level 2 at b32 @
-    256²) there are 1024 tiles of 8 x 16 pixels, several times the
-    resident blocks, so every block walks the ring over many tiles; the
-    output is held to the kernel tests' bars above."""
-    import ctypes
-    c, k = ck
-    info = (ctypes.c_int * 8)()
-    assert cuda_build.library().bid_convnext_block_info(
-        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
-    resident = info[4] * torch.cuda.get_device_properties(
-        0).multi_processor_count
-    shape = (32, 64, 64, c)
-    assert shape[0] * (shape[1] // 8) * (shape[2] // 16) >= 4 * resident
-    w = _unit_weights(c, k, dev, seed=3)
-    g = torch.Generator(device="cpu").manual_seed(8)
+def _ring_unit_matches_plain(dev, c, k, dtype, shape, seed=3, x_seed=None):
+    """A unit of a streamed layout (W2 and W3 through the bulk-copy ring
+    of csrc/chunk_ring.cuh, on a cluster of two blocks) on x of ``shape``
+    against its plain version at the kernel tests' bars above; a second
+    launch gives the same bits."""
+    w = _unit_weights(c, k, dev, seed=seed)
+    g = torch.Generator(device="cpu").manual_seed(
+        seed + 5 if x_seed is None else x_seed)
     x = torch.randn(shape, generator=g).to(dev)
     scales = {}
     if dtype == torch.int8:
@@ -234,8 +221,11 @@ def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
         x = pallas_convnext.quantize(x, scales["scale_in"])
     else:
         x = x.to(dtype)
-    got = pallas_convnext.convnext_block(x, **w, **scales)
+    ops = pallas_convnext.kernel_operands(x.dtype, **w)
+    got = pallas_convnext.convnext_block(x, **w, **scales, operands=ops)
+    again = pallas_convnext.convnext_block(x, **w, **scales, operands=ops)
     torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
     ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
     diff = (got.float() - ref.float()).abs()
     if dtype == torch.int8:
@@ -247,6 +237,37 @@ def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
     else:
         tol = torch.clamp(_bf16_ulp(ref), min=0.05)
         assert bool((diff <= tol).all()), float(diff.max())
+
+
+def _resident_clusters(c, k, dtype):
+    """The blocks of the layout that runs (C, K) the card holds at once."""
+    import ctypes
+    info = (ctypes.c_int * 9)()
+    assert cuda_build.library().bid_convnext_block_info(
+        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
+    return info
+
+
+@pytest.mark.parametrize("ck", [(c, k) for c in (96, 112, 128)
+                                for k in (1, 3, 5, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_convnext_c128_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
+    """From C = 96 (f32 from 80, and (64, 7)) W2 and W3 stream through a
+    ring of three or more stages of bulk copies, multicast over a cluster
+    of two blocks on neighbouring tiles, 16 or 32 E channels a chunk, the
+    chunks running on from tile to tile (f32 (128, 7): the ring takes the
+    tile buffer's room from the depthwise to the epilogue). On 32 x 64 x
+    64 (a depth-4 fused unet_laplacian_v6's level 2 at b32 @ 256²) there
+    are 1024 tiles of 8 x 16 pixels, several times the resident clusters,
+    so every block walks the ring around many times; held to the kernel
+    tests' bars, two launches equal."""
+    c, k = ck
+    info = _resident_clusters(c, k, dtype)
+    assert info[8] >= 3 and info[5] == pallas_convnext.RING_CLUSTER
+    shape = (32, 64, 64, c)
+    assert shape[0] * (shape[1] // 8) * (shape[2] // 16) >= 4 * info[6] * 2
+    _ring_unit_matches_plain(dev, c, k, dtype, shape)
 
 
 @pytest.mark.parametrize("ck", [(16, 5), (48, 5), (40, 3), (72, 5), (80, 1),
@@ -265,7 +286,7 @@ def test_convnext_class_widths_over_many_tiles(dev, ck, dtype):
     bars, and two launches give the same bits."""
     import ctypes
     c, k = ck
-    info = (ctypes.c_int * 8)()
+    info = (ctypes.c_int * 9)()
     assert cuda_build.library().bid_convnext_block_info(
         c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     assert info[7] == pallas_convnext.class_width(c, dtype) == (
@@ -386,65 +407,57 @@ def test_convnext_kernel_rejects_unbuilt_shape(dev, ck):
     with pytest.raises(NotImplementedError):
         pallas_convnext.convnext_block(x, **w)
     assert cuda_build.library().bid_convnext_block_info(
-        c, k, 1, (ctypes.c_int * 8)()) == -1
+        c, k, 1, (ctypes.c_int * 9)()) == -1
 
 
-@pytest.mark.parametrize("ck", [(256, 5), (162, 3), (256, 1)])
+@pytest.mark.parametrize("ck", [(c, k) for c in (129, 160, 192, 250, 256)
+                                for k in (1, 3, 5, 7)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8])
 def test_convnext_wide_walks_the_chunk_ring_over_many_tiles(dev, ck, dtype):
-    """Above C = 128 the wide class streams W2 and W3 through two buffers,
-    32 E chunks a tile (64 in float32), the last prefetching the next
-    tile's first, while the single input tile of (256, 5) is refilled
-    under the products. On 32 x 32 x 32 (a depth-5 fused
+    """Above C = 128 the wide class streams W2 and W3 in chunks of 16 E
+    channels through its ring of bulk copies, multicast over a cluster of
+    two blocks; whole-C tiles (bf16, int8 at K <= 5) run the chunks on
+    from tile to tile, the grouped layouts (K = 7, f32) give the ring its
+    region once the LayerNorm is done. On 32 x 32 x 32 (a depth-5 fused
     unet_laplacian_v6's level 3 at b32 @ 256²) there are 512 tiles of 8 x 8
-    pixels, several times the resident blocks, so every block walks the
-    ring over many tiles; the output is held to the kernel tests' bars."""
-    import ctypes
+    pixels, several times the resident clusters, so every block walks the
+    ring around many times; held to the kernel tests' bars, two launches
+    equal."""
     c, k = ck
-    info = (ctypes.c_int * 8)()
-    assert cuda_build.library().bid_convnext_block_info(
-        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
-    resident = info[4] * torch.cuda.get_device_properties(
-        0).multi_processor_count
+    info = _resident_clusters(c, k, dtype)
+    assert info[8] >= 3 and info[5] == pallas_convnext.RING_CLUSTER
     shape = (32, 32, 32, c)
-    assert shape[0] * (shape[1] // 8) * (shape[2] // 8) >= 3 * resident
-    w = _unit_weights(c, k, dev, seed=3)
-    g = torch.Generator(device="cpu").manual_seed(8)
-    x = torch.randn(shape, generator=g).to(dev)
-    scales = {}
-    if dtype == torch.int8:
-        scales = dict(scale_in=float(x.abs().max()) / 127,
-                      scale_out=float(pallas_convnext.convnext_block_plain(
-                          x, **w).abs().max()) / 127)
-        x = pallas_convnext.quantize(x, scales["scale_in"])
-    else:
-        x = x.to(dtype)
-    got = pallas_convnext.convnext_block(x, **w, **scales)
-    torch.cuda.synchronize()
-    ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
-    diff = (got.float() - ref.float()).abs()
-    if dtype == torch.int8:
-        assert int(diff.max()) <= 1
-        assert float((diff == 0).float().mean()) >= 0.999
-    elif dtype == torch.float32:
-        assert float(diff.max()) <= 1e-3
-        assert float(diff.max()) <= 1e-5 * float(ref.abs().max())
-    else:
-        tol = torch.clamp(_bf16_ulp(ref), min=0.05)
-        assert bool((diff <= tol).all()), float(diff.max())
+    assert shape[0] * (shape[1] // 8) * (shape[2] // 8) >= 3 * info[6] * 2
+    _ring_unit_matches_plain(dev, c, k, dtype, shape)
+
+
+@pytest.mark.parametrize("c", [96, 112, 128, 129, 160, 192, 250, 256])
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("shape", [(1, 5, 7), (1, 24, 40), (3, 8, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_convnext_ring_takes_odd_and_tiny_tile_counts(dev, c, k, shape,
+                                                      dtype):
+    """A cluster of two blocks takes two neighbouring tiles a round: one
+    image smaller than a tile (one tile, the cluster's other block a ghost
+    throughout), an odd count (3 x 3 tiles of 8 x 16 or 3 x 5 of 8 x 8:
+    the last round's second block a ghost) and three of each layout's
+    tiles; the ghost computes on zeros, stores nothing and takes every
+    chunk with its partner."""
+    _ring_unit_matches_plain(dev, c, k, dtype, (*shape, c), seed=11)
 
 
 @pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
 def test_convnext_built_plan_matches_kernel_plan(dev, ck):
     """Every instantiation of SAMPLE_SHAPES (K = 7 and C up to 1024
-    included) is built with the threads, shared memory and cluster size
-    ``kernel_plan`` mirrors, fits one block, holds at least one block an
-    SM and one cluster on the card and spills nothing."""
+    included) is built with the threads, shared memory, cluster size and
+    ring stages ``kernel_plan`` mirrors, fits one block, holds at least
+    one block an SM and one cluster on the card and spills nothing."""
     import ctypes
     c, k = ck
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
-        v = (ctypes.c_int * 8)()
+        v = (ctypes.c_int * 9)()
         assert cuda_build.library().bid_convnext_block_info(
             c, k, code, v) == 0
         plan = pallas_convnext.kernel_plan(c, k, dtype)
@@ -457,6 +470,10 @@ def test_convnext_built_plan_matches_kernel_plan(dev, ck):
         # and it holds the blocks an SM its registers are capped for
         assert v[7] == pallas_convnext.class_width(c, dtype), (dtype, list(v))
         assert v[4] >= plan.get("min_blocks_per_sm", 1), (dtype, list(v))
+        # a streamed layout's ring: its stages (three or more), on a
+        # cluster of RING_CLUSTER blocks
+        assert v[8] == plan.get("ring_stages", 0), (dtype, list(v))
+        assert v[8] == 0 or v[8] >= 3
 
 
 @pytest.mark.parametrize("ck", [(256, 7), (200, 7), (512, 5), (384, 7),
@@ -464,38 +481,17 @@ def test_convnext_built_plan_matches_kernel_plan(dev, ck):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int8])
 def test_convnext_grouped_wide_over_many_tiles(dev, ck, dtype):
-    """The grouped wide class (K = 7 at width 256) copies each 64-channel
-    group with its depthwise weights into a slot that shares its room with
-    the weight ring, so a tile's groups, LayerNorm, chunks and epilogue
-    follow each other over the same memory. On 16 x 32 x 32 (256 tiles of
-    8 x 8) every block walks several tiles; held to the kernel tests'
-    bars. Above C = 256 the cases run the cluster kernel over as many
-    tiles."""
+    """The grouped wide class (K = 7 at width 256, and f32 at every K)
+    copies each 64-channel group with its depthwise weights into a slot
+    that shares its room with the weight ring, so a tile's groups,
+    LayerNorm, chunks and epilogue follow each other over the same memory
+    (the cluster's blocks meet before the ring takes it). On 16 x 32 x 32
+    (256 tiles of 8 x 8) every block walks several tiles; held to the
+    kernel tests' bars, two launches equal. Above C = 256 the cases run
+    the cluster kernel over as many tiles."""
     c, k = ck
-    w = _unit_weights(c, k, dev, seed=9)
-    g = torch.Generator(device="cpu").manual_seed(10)
-    x = torch.randn((16, 32, 32, c), generator=g).to(dev)
-    scales = {}
-    if dtype == torch.int8:
-        scales = dict(scale_in=float(x.abs().max()) / 127,
-                      scale_out=float(pallas_convnext.convnext_block_plain(
-                          x, **w).abs().max()) / 127)
-        x = pallas_convnext.quantize(x, scales["scale_in"])
-    else:
-        x = x.to(dtype)
-    got = pallas_convnext.convnext_block(x, **w, **scales)
-    torch.cuda.synchronize()
-    ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
-    diff = (got.float() - ref.float()).abs()
-    if dtype == torch.int8:
-        assert int(diff.max()) <= 1
-        assert float((diff == 0).float().mean()) >= 0.999
-    elif dtype == torch.float32:
-        assert float(diff.max()) <= 1e-3
-        assert float(diff.max()) <= 1e-5 * float(ref.abs().max())
-    else:
-        tol = torch.clamp(_bf16_ulp(ref), min=0.05)
-        assert bool((diff <= tol).all()), float(diff.max())
+    _ring_unit_matches_plain(dev, c, k, dtype, (16, 32, 32, c), seed=9,
+                             x_seed=10)
 
 
 @pytest.mark.parametrize("ck", [(520, 5), (1000, 5), (1000, 7),
@@ -517,7 +513,7 @@ def test_convnext_cluster_over_many_tiles(dev, ck, dtype):
     w = _unit_weights(c, k, dev, seed=9)
     g = torch.Generator(device="cpu").manual_seed(10)
     x = torch.randn((16, 32, 32, c), generator=g).to(dev)
-    info = (ctypes.c_int * 8)()
+    info = (ctypes.c_int * 9)()
     assert cuda_build.library().bid_convnext_block_info(
         c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     assert info[5] == -(-c // 128) and 16 * 4 * 4 >= 3 * info[6]
@@ -583,7 +579,7 @@ def test_band_split_tile_plan_matches_library(dev):
         for b, h, w, c, k in [(8, 256, 256, 32, 2), (8, 128, 128, 64, 2),
                               (1, 2, 2, 8, 5), (2, 18, 30, 128, 3),
                               (1, 2160, 3840, 32, 2)]:
-            v = (ctypes.c_int * 8)()
+            v = (ctypes.c_int * 9)()
             assert lib.bid_band_split_info(h, w, c, k, code, v) == 0
             plan = pallas_pyramid.split_tile_plan(b, h, w, c, k, dtype)
             assert list(v)[:5] == [plan[key] for key in (
@@ -774,7 +770,7 @@ def test_band_smooth_bwd_tile_plan_matches_library(dev):
         for b, h, w, c, k in [(16, 128, 128, 32, 2), (16, 64, 64, 64, 2),
                               (1, 1, 1, 8, 5), (1, 29, 1, 128, 3),
                               (1, 2160, 3840, 32, 2)]:
-            v = (ctypes.c_int * 8)()
+            v = (ctypes.c_int * 9)()
             assert lib.bid_band_smooth_bwd_info(h, w, c, k, code, v) == 0
             plan = pallas_pyramid.bwd_tile_plan(b, h, w, c, k, dtype)
             assert list(v)[:5] == [plan[key] for key in (
@@ -833,7 +829,7 @@ def test_band_tile_plans_match_library_at_ragged_c(dev):
                      pallas_pyramid.bwd_tile_plan),
                     (lib.bid_band_split_info,
                      pallas_pyramid.split_tile_plan)):
-                v = (ctypes.c_int * 8)()
+                v = (ctypes.c_int * 9)()
                 assert info(16, 16, c, 2, code, v) == 0
                 plan = plan_of(16, 16, 16, c, 2, dtype)
                 assert list(v)[:5] == [plan[key] for key in (

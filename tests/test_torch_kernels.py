@@ -49,6 +49,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from blind_image_denoising_tpu.layers.convnext import (
     ConvNextBlock as JaxConvNextBlock)
@@ -438,9 +439,14 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
     assert plan["smem_bytes"] % 16 == 0
     assert plan["threads_per_block"] % 32 == 0
     assert plan["threads_per_block"] <= 1024
+    # a cluster of ceil(C / 128) blocks above 256; a layout that streams
+    # W2 and W3 through its ring of three or more stages on a cluster of
+    # RING_CLUSTER blocks; else one block
+    stages = plan.get("ring_stages", 0)
     assert plan["cluster_size"] == (
         -(-ck[0] // 128) if pallas_convnext.runs_cluster(ck[0])
-        else 1)
+        else pallas_convnext.RING_CLUSTER if stages else 1)
+    assert stages == 0 or stages >= 3
     stated = {((32, 5), torch.bfloat16): (256, 112_000),
               ((64, 5), torch.bfloat16): (512, 225_024),
               # float32: a warp per row of an 8 x 16 tile; two tile buffers
@@ -451,17 +457,28 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
               ((64, 1), torch.float32): (256, 205_568),
               ((64, 5), torch.float32): (256, 207_104),
               # C = 128: 8 x 16 tiles in every mode, W2 and W3 streamed
-              # through two buffers of 32 E channels
-              ((128, 5), torch.bfloat16): (256, 209_408),
-              ((128, 5), torch.int8): (256, 178_688),
-              ((128, 5), torch.float32): (256, 209_920),
-              ((128, 1), torch.float32): (256, 206_336),
-              # 128 < C <= 256: 8 x 8 tiles, 256 threads; f32 one group
-              # buffer of 64 channels at K = 5 (two at K = 3)
-              ((256, 5), torch.bfloat16): (256, 215_040),
-              ((256, 5), torch.int8): (256, 218_112),
-              ((256, 5), torch.float32): (256, 210_432),
-              ((144, 3), torch.float32): (256, 208_384),
+              # through a ring of bulk copies (chunks of 32 E channels:
+              # 18,944 B in bf16, 32,768 in f32; 16 where three of 32 do
+              # not fit) and its 64 B of mbarriers. bf16 (128, 5): 13,824
+              # B small weights + 2 x 61,440 tiles + 3 x 18,944 + t 34,816;
+              # int8 one tile, 30,720 of codes, 4 stages; f32 (128, 5) one
+              # 130,560 B tile and 4 stages of 16,384; (128, 1) one 69,632
+              # B tile and 4 of 32,768
+              ((128, 5), torch.bfloat16): (256, 228_416),
+              ((128, 5), torch.int8): (256, 216_640),
+              ((128, 5), torch.float32): (256, 209_984),
+              ((128, 1), torch.float32): (256, 202_304),
+              # 128 < C <= 256: 8 x 8 tiles, 256 threads, chunks of 16 E
+              # channels (bf16 8,448 + 12,288 B), two sets of h blocks
+              # (6,144 B); bf16 (256, 5): 27,648 small weights + one
+              # 73,728 tile + 4 stages + t 33,792 (int8 36,864, its codes'
+              # room); f32 grouped: LN scale and gain 2,048, t 66,560, h
+              # 10,240, then the ring's 4 stages of 37,120 in a region
+              # the group slots share
+              ((256, 5), torch.bfloat16): (256, 224_320),
+              ((256, 5), torch.int8): (256, 227_392),
+              ((256, 5), torch.float32): (256, 227_392),
+              ((144, 3), torch.float32): (256, 227_392),
               # above 256 (bf16, int8) a cluster of ceil(C / 128) blocks
               # of 8 warps, tiles of 64 pixels (csrc/convnext_cluster.cuh)
               ((384, 5), torch.bfloat16): (256, 188_960),
@@ -486,9 +503,10 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
     # f32 two tiles of 53,760 and W2 + W3 73,728 (one block). (80, 5): W2
     # 320 x 88 x 2 = 56,320 and W3 80 x 328 x 2 = 52,480 resident (at most
     # half of 232,448), two tiles of 42,240, t 22,528. From 96 W2 and W3
-    # stream in chunks of 32 E channels: (96, 5) two buffers of 32 x 104 x
+    # stream in chunks of 32 E channels through a ring of up to four
+    # stages and its 64 B of mbarriers: (96, 5) four stages of 32 x 104 x
     # 2 + 96 x 40 x 2 = 14,336, two tiles of 49,920, t 26,624; (112, 5)
-    # 16,640 a buffer, tiles of 57,600, t 30,720; int8 (108, 5) runs the
+    # 16,640 a stage, tiles of 57,600, t 30,720; int8 (108, 5) runs the
     # width-112 layout with one tile and 12 x 2,256 B of staged rows
     hand = {((16, 5), torch.bfloat16): (256, 60_864, 2),
             ((48, 5), torch.bfloat16): (256, 113_984, 2),
@@ -501,14 +519,14 @@ def test_convnext_kernel_plan_fits_shared_memory(ck, dtype):
             ((48, 7), torch.bfloat16): (512, 198_336, 1),
             ((72, 5), torch.bfloat16): (256, 224_448, 1),
             ((80, 5), torch.bfloat16): (256, 224_448, 1),
-            ((96, 5), torch.bfloat16): (256, 165_504, 1),
-            ((88, 1), torch.int8): (256, 95_488, 1),
-            ((108, 5), torch.bfloat16): (256, 191_296, 1),
-            ((112, 5), torch.bfloat16): (256, 191_296, 1),
-            ((108, 5), torch.int8): (256, 160_768, 1),
+            ((96, 5), torch.bfloat16): (256, 194_240, 1),
+            ((88, 1), torch.int8): (256, 124_224, 1),
+            ((108, 5), torch.bfloat16): (256, 224_640, 1),
+            ((112, 5), torch.bfloat16): (256, 224_640, 1),
+            ((108, 5), torch.int8): (256, 194_112, 1),
             # float32 from C = 97 to 112 keeps the width-128 layout
-            ((108, 5), torch.float32): (256, 209_920, 1),
-            ((120, 5), torch.bfloat16): (256, 209_408, 1)}
+            ((108, 5), torch.float32): (256, 209_984, 1),
+            ((120, 5), torch.bfloat16): (256, 228_416, 1)}
     if (ck, dtype) in stated:
         assert (plan["threads_per_block"],
                 plan["smem_bytes"]) == stated[ck, dtype]
@@ -554,6 +572,79 @@ CLUSTER_HAND_COUNTS = [
     ("f32", 8, 256, 288 + 2 * 49_152 + 132_096, None)]
 _DTYPE_NAMES = {"bf16": torch.bfloat16, "int8": torch.int8,
                 "f32": torch.float32}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("ck", [(112, 5), (128, 5), (128, 7), (192, 5),
+                                (256, 7)])
+def test_chunk_images_put_back_are_the_padded_weights(ck, dtype):
+    """The streamed layouts' W2 and W3 from ``kernel_operands`` are one
+    tensor, a row a chunk of ECH E channels (``chunk_channels``: its W2
+    part, then its W3 part); put back in their original order they are the
+    weights padded to the layout's width exactly, and every padding
+    element is zero: bf16 and int8 (and f32 above 128) as rows, W2's ECH
+    rows padded to C' + pad and W3's ECH columns of each row padded to
+    ECH + pad; f32 up to 128 in fragment order, 16-byte vector (n, i) of
+    W2 lane (g, q) holding channels
+    16i + 4q .. + 3 of the chunk's E row pair(n, g) and vector (m, o) of W3
+    the chunk's E 16m + 4q .. + 3 of output channel pair(o, g), pair(t, j)
+    = 16 (t / 2) + 4 (j / 2) + 2 (t % 2) + j % 2."""
+    c, k = ck
+    rng = np.random.default_rng(c + k)
+    w = dict(dw=torch.from_numpy(rng.normal(size=(c, 1, k, k))).float(),
+             ln_scale=torch.ones(c), gain=torch.ones(c),
+             w2=torch.from_numpy(rng.normal(size=(4 * c, c))).float(),
+             w3=torch.from_numpy(rng.normal(size=(c, 4 * c))).float())
+    plan = pallas_convnext.kernel_plan(c, k, dtype)
+    ech, width = plan["chunk_channels"], pallas_convnext.class_width(c,
+                                                                     dtype)
+    assert plan["ring_stages"] >= 3 and ech in (16, 32)
+    w_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
+    pad = width - c
+    w2p = F.pad(w["w2"].to(w_dtype), (0, pad, 0, 4 * pad))
+    w3p = F.pad(w["w3"].to(w_dtype), (0, 4 * pad, 0, pad))
+    _, _, img, img_w3, _ = pallas_convnext.kernel_operands(dtype, **w)
+    nch = 4 * width // ech
+    assert img_w3 is img and img.dtype == w_dtype and img.shape[0] == nch
+    # the W2 part: ECH rows of C' + pad (rows) or ECH C' values
+    fragments = dtype == torch.float32 and width <= 128
+    n2 = ech * width if fragments else ech * (width + (
+        8 if w_dtype == torch.bfloat16 else 4))
+    img2, img3 = img[:, :n2], img[:, n2:]
+    if fragments:
+        def pair(t, j):
+            return 16 * (t // 2) + 4 * (j // 2) + 2 * (t % 2) + j % 2
+
+        assert img2.shape[1] == img3.shape[1] == ech * width
+        got2, got3 = torch.zeros_like(w2p), torch.zeros_like(w3p)
+        seen2, seen3 = torch.zeros_like(w2p), torch.zeros_like(w3p)
+        for i in range(ech * width // 4):
+            lane, rest = i % 32, i // 32
+            g, q = lane // 4, lane % 4
+            n, ii = rest // (width // 16), rest % (width // 16)
+            m, o = rest // (width // 8), rest % (width // 8)
+            for ch in range(nch):
+                e2 = ch * ech + pair(n, g)
+                got2[e2, 16 * ii + 4 * q:16 * ii + 4 * q + 4] = \
+                    img2[ch, 4 * i:4 * i + 4]
+                seen2[e2, 16 * ii + 4 * q:16 * ii + 4 * q + 4] += 1
+                e3 = ch * ech + 16 * m + 4 * q
+                got3[pair(o, g), e3:e3 + 4] = img3[ch, 4 * i:4 * i + 4]
+                seen3[pair(o, g), e3:e3 + 4] += 1
+        assert bool((seen2 == 1).all()) and bool((seen3 == 1).all())
+    else:
+        row2 = img2.shape[1] // ech
+        row3 = img3.shape[1] // width
+        assert img2.shape[1] == ech * row2 and row2 > width
+        assert img3.shape[1] == width * row3 and row3 > ech
+        i2 = img2.reshape(nch, ech, row2)
+        i3 = img3.reshape(nch, width, row3)
+        assert not bool(i2[..., width:].float().any())
+        assert not bool(i3[..., ech:].float().any())
+        got2 = i2[..., :width].reshape(4 * width, width)
+        got3 = i3[..., :ech].permute(1, 0, 2).reshape(width, 4 * width)
+    assert torch.equal(got2, w2p) and torch.equal(got3, w3p)
 
 
 @pytest.mark.parametrize("dtypes,n,threads,smem,smem_k7", CLUSTER_HAND_COUNTS)
@@ -956,7 +1047,8 @@ def test_unit_caches_the_kernels_operands():
     """``ConvNextBlock.kernel_operands`` holds ``kernel_operands``' output
     for its weights bit for bit (cast, padded to the layout's width: C =
     40 runs the width-48 layout), hands the same tensors back while the
-    parameters stay, and rebuilds them when a parameter changes."""
+    parameters stay, rebuilds them when a parameter changes, and keeps
+    them by the I/O dtype of the x they run on."""
     def same_bits(a, b):
         return (a.dtype == b.dtype and a.shape == b.shape
                 and torch.equal(a.contiguous().view(torch.uint8),
@@ -985,6 +1077,18 @@ def test_unit_caches_the_kernels_operands():
     assert all(same_bits(a, b) for a, b in zip(
         fresh, pallas_convnext.kernel_operands(
             torch.bfloat16, **unit.kernel_weights(torch.bfloat16))))
+    # by the I/O dtype: at (120, 7) int8 codes (bf16 weights) run the
+    # width-128 layout on chunks of 16 E channels, bf16 on chunks of 32
+    unit = ConvNextBlock(120, 7, 480)
+    bf16 = unit.kernel_operands(torch.bfloat16)
+    codes = unit.kernel_operands(torch.bfloat16, io_dtype=torch.int8)
+    assert codes[2].shape != bf16[2].shape
+    assert unit.kernel_operands(torch.bfloat16, io_dtype=torch.int8) is codes
+    assert unit.kernel_operands(torch.bfloat16) is bf16
+    w = unit.kernel_weights(torch.bfloat16)
+    for ops, io in ((bf16, torch.bfloat16), (codes, torch.int8)):
+        assert all(same_bits(a, b) for a, b in zip(
+            ops, pallas_convnext.kernel_operands(io, **w)))
 
 
 def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
