@@ -28,7 +28,8 @@
 //   group (8 channels) of R = 4 neighbouring output pixels of a row. Per tap
 //   row it loads its K x 8 f32 weights and the R + K - 1 input vectors once
 //   each, converts each once and does the R*K*8 FMAs from registers (1.6
-//   instructions per FMA; one thread per pixel over all channels took 2.9).
+//   instructions per FMA; one thread per pixel over all channels took 2.9);
+//   K = 7's own layouts take runs of two rows instead (below);
 //   The C/8 threads of a pixel are neighbouring lanes: mean and centred
 //   variance (two passes, f32) are butterfly sums over them, and each thread
 //   writes its 8 channels of t as one 16-byte bf16 store;
@@ -153,13 +154,24 @@
 // instantiations of their own (convnext_block.cu; K = 7 in convnext_k7.cu,
 // a source of its own so that it builds beside the others). K = 7 (the flax ConvNext
 // layer's default kernel size) grows the halo to 3 a side: the layouts
-// stay, and the rules above pick what fits: bf16 (64, 7) and (128, 7) keep
-// one tile buffer (188,672 B and 177,664 B), refilled once every warp's
-// epilogue has read its residual there; f32 (64, 7) streams W2 and W3 as
-// C = 128 does (its 131,072 B no longer fit beside a 88,704 B tile) and
-// keeps two tiles; f32 (128, 7) takes chunks of 16 E channels beside its
-// one 167,552 B tile; the bf16 depthwise takes each tap's 8 weights in turn
-// (a row's K x 8 would hold 56 registers beside the 32 accumulators).
+// stay, and the rules above pick what fits: bf16 (64, 7) (188,672 B) and
+// (128, 7) keep one tile buffer, and so does bf16 (32, 7), so that two
+// blocks share an SM (88,512 B; int8 105,536 B, two blocks too; two tile
+// buffers, 131,072 B, held one block of 8 warps). Each warp of the three
+// moves its pixels' residual x into its own t rows once it has its A
+// fragments from them, and once every warp has, the next tile is copied
+// into the buffer under the products and the epilogue (kResT,
+// residual_to_t; refilled once every epilogue was done, (64, 7) read 4-5%
+// slower); f32 (64, 7) streams W2 and W3 as C = 128 does (its 131,072 B no
+// longer fit beside a 88,704 B tile) and keeps two tiles; f32 (128, 7)
+// lends its tile's room to the ring. The bf16 depthwise of K = 7's own
+// layouts (int8's dequantized tile too) gives a thread 4 channels of two
+// rows of R pixels (depthwise_layernorm_rows2): each input row it needs is
+// loaded and converted once and feeds both output rows, and each tap
+// row's weights are loaded once for both, so a FMA costs 1.44-1.51
+// instructions with the LayerNorm (PERF.md), against 1.51-1.61 for the
+// depthwise alone when each thread walked the K tap rows of one row of
+// pixels, as the class widths still do.
 // Every other C from 1 to 256 at K = 1, 3, 5 or 7 (E = 4C) runs a class of
 // width CW with the true C a launch argument (kRagged):
 // * CW = C rounded up to 16 for C <= 128 (convnext_class.cuh; its widths
@@ -381,13 +393,19 @@ struct Cfg {
       align16(kMma ? 2 * C * LDW3 : 4 * EW * C);
   static constexpr size_t WBUF = W2_BYTES + W3_BYTES;
   static_assert(!kStream || WBUF == chunk_bytes(ECH), "one chunk a stage");
+  // (32, 7) of its own runs two blocks an SM, as the layouts at K < 7 with
+  // resident weights do: bf16 with one tile buffer (88,512 B; int8
+  // 105,536 B); two tile buffers (131,072 B) held one block of 8 warps,
+  // and two unpadded ones swizzled so that two blocks fit (114,048 B)
+  // measured 2% slower (their offsets are added at run time)
+  static constexpr bool kTwoBlocks7 = kMma && !kRagged && C == 32 && K == 7;
   // tile buffers: int8 I/O prefetches into its staging buffer, bf16 and
   // f32 I/O into a second tile where two fit beside the weights (streamed:
   // beside three stages); with one, bf16 refills it once every warp's
   // epilogue is done, f32 once every depthwise is (kRingInX: once the
   // products are)
   static constexpr int NXBUF =
-      kInt8 || kRingInX ? 1
+      kInt8 || kRingInX || kTwoBlocks7 ? 1
       : OFF_X + 2 * XBUF + (kStream ? 3 : 1) * WBUF + T_BYTES +
                   (kStream ? kRingBars : 0) <=
               kMaxSmem
@@ -427,11 +445,23 @@ struct Cfg {
   static_assert(SMEM <= kMaxSmem, "one block's shared memory fits");
   // the blocks per SM the registers are capped for: two wherever two fit
   // in the SM's shared memory at K < 7 with W2 and W3 resident (C <= 32,
-  // and bf16 and int8 at C = 48); K = 7 tiles leave room for one, and a
-  // streamed layout's products keep C / 16 * 4 + C / 2 registers of A
-  // fragments and accumulators a lane
+  // and bf16 and int8 at C = 48) and at (32, 7) of its own; the other
+  // K = 7 tiles leave room for one, and a streamed layout's products keep
+  // C / 16 * 4 + C / 2 registers of A fragments and accumulators a lane
   static constexpr int MIN_BLOCKS =
-      K < 7 && !kStream && 2 * (SMEM + kSmemPerBlock) <= kSmemPerSm ? 2 : 1;
+      (K < 7 || kTwoBlocks7) && !kStream &&
+              2 * (SMEM + kSmemPerBlock) <= kSmemPerSm
+          ? 2
+          : 1;
+  static_assert(!kTwoBlocks7 || MIN_BLOCKS == 2, "(32, 7): two blocks");
+  // bf16 of its own with one tile buffer ((32, 7), (64, 7), (128, 7)): a
+  // warp's residual x moves into its own t rows once its A fragments are
+  // loaded, so that the next tile is copied into the buffer under the
+  // products and the epilogue (residual_to_t)
+  static constexpr bool kResT = kMma && !kInt8 && !kRagged && NXBUF == 1;
+  // the bf16 tile's depthwise at K = 7 of its own ((32, 7), (64, 7),
+  // (128, 7)): by runs of two rows (depthwise_layernorm_rows2)
+  static constexpr bool kRows2 = kMma && !kRagged && K == 7;
 
   // element offset, within a tile row, of 16-byte chunk `chunk` of the
   // pixel in column `ix`
@@ -930,10 +960,13 @@ __device__ __forceinline__ void depthwise_layernorm(
 #pragma unroll
       for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
     if constexpr (K >= 7) {
-      // a row's K x 8 weights would hold 56 registers beside the 32
-      // accumulators: each tap's 8 weights in turn, its R inputs loaded
-      // for it (the same FMAs in the same order per output), and the
-      // rows not unrolled into each other
+      // (the class widths; the layouts of their own take
+      // depthwise_layernorm_rows2) a row's K x 8 weights would hold 56
+      // registers beside the 32 accumulators: each tap's 8 weights in
+      // turn, its R inputs loaded for it (the same FMAs in the same order
+      // per output; the compiler loads and converts each input once a row
+      // across the unrolled taps), and the rows not unrolled into each
+      // other
 #pragma unroll 1
       for (int dy = 0; dy < K; ++dy) {
         const bf16* xrow = xs + (ry + dy) * G::IW * G::LDX;
@@ -1018,6 +1051,109 @@ __device__ __forceinline__ void depthwise_layernorm(
       if (active)
         *reinterpret_cast<uint4*>(ts + (ry * G::TW + rx + j) * G::LDT +
                                   cg * 8) = v;
+    }
+  }
+}
+
+// Depthwise KxK + LayerNorm on the bf16 tile at K = 7 of the layouts of
+// their own (kRows2: (32, 7), (64, 7), (128, 7)), t -> ts as bf16 rows. A
+// thread owns 4 channels (a half of a 16-byte group: lane q of the C / 4
+// lanes of a run, channels 4q .. 4q + 3) of R = 4 neighbouring pixels in
+// each of two neighbouring rows (2 ry, 2 ry + 1). It walks the K + 1 input
+// rows those need once: per input row it loads the 8-byte halves of its
+// R + K - 1 input vectors and converts each once, and each feeds both
+// output rows (the first at tap row dy = iy, the second at dy = iy - 1),
+// whose K x 4 weights (28 registers each) are loaded once per input row
+// and passed on from the first output row to the second. So an input
+// element is loaded and converted once per two output rows, a weight once
+// per two; taps in (dy, dx) order per output, as depthwise_layernorm. The
+// C / 4 lanes of a run are neighbours (a whole warp at C = 128): the
+// LayerNorm's mean and centred variance are butterfly sums over them.
+// The 8-byte loads of a half-warp cover one or two whole pixel rows (at
+// C = 32 two pixels 4 apart, whose 80-byte rows fall in opposite halves of
+// the bank line): free of bank conflicts.
+template <typename G>
+__device__ __forceinline__ void depthwise_layernorm_rows2(
+    const bf16* __restrict__ xs, const float* __restrict__ dws,
+    const float* __restrict__ lns, bf16* __restrict__ ts, int tid) {
+  constexpr int C = G::C, K = G::K, R = G::R, CG = G::CG, Q = C / 4;
+  constexpr int RUNS_W = G::TW / R, RUNS = G::TH / 2 * RUNS_W, RPW = 32 / Q;
+  static_assert(32 % Q == 0 && RUNS % RPW == 0 && G::TH % 2 == 0,
+                "runs of two rows tile the tile, whole runs a warp");
+  const int lane = tid & 31, q = lane % Q;
+  // this lane's 4 weights of a tap (float4 (tap 2 + q % 2) CG + q / 2)
+  const float4* wq = reinterpret_cast<const float4*>(dws) + (q & 1) * CG +
+                     (q >> 1);
+  const float4 lw = reinterpret_cast<const float4*>(lns)[q];
+  for (int wr = tid >> 5; wr < RUNS / RPW; wr += G::NT / 32) {
+    const int run = wr * RPW + lane / Q;
+    const int ry = run / RUNS_W * 2, rx = run % RUNS_W * R;
+    int xo[R + K - 1];  // this lane's half of each input pixel of a row
+#pragma unroll
+    for (int i = 0; i < R + K - 1; ++i) xo[i] = G::xoff(rx + i, q >> 1) + 4 * (q & 1);
+    float a0[R][4], a1[R][4];
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a0[j][c] = a1[j][c] = 0.f;
+    float4 wc[K], wp[K];  // tap rows iy (first output row), iy - 1 (second)
+#pragma unroll
+    for (int iy = 0; iy <= K; ++iy) {
+      const bf16* xrow = xs + (ry + iy) * G::IW * G::LDX;
+#pragma unroll
+      for (int dx = 0; dx < K; ++dx) {
+        wp[dx] = wc[dx];
+        if (iy < K) wc[dx] = wq[(iy * K + dx) * 2 * CG];
+      }
+#pragma unroll
+      for (int i = 0; i < R + K - 1; ++i) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(xrow + xo[i]);
+        // bf16 -> f32 is exact
+        const float xv[4] = {__uint_as_float(raw.x << 16),
+                             __uint_as_float(raw.x & 0xffff0000u),
+                             __uint_as_float(raw.y << 16),
+                             __uint_as_float(raw.y & 0xffff0000u)};
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+          const int j = i - dx;  // the output pixel this tap feeds
+          if (j >= 0 && j < R) {
+            if (iy < K) {
+              a0[j][0] = fmaf(xv[0], wc[dx].x, a0[j][0]);
+              a0[j][1] = fmaf(xv[1], wc[dx].y, a0[j][1]);
+              a0[j][2] = fmaf(xv[2], wc[dx].z, a0[j][2]);
+              a0[j][3] = fmaf(xv[3], wc[dx].w, a0[j][3]);
+            }
+            if (iy > 0) {
+              a1[j][0] = fmaf(xv[0], wp[dx].x, a1[j][0]);
+              a1[j][1] = fmaf(xv[1], wp[dx].y, a1[j][1]);
+              a1[j][2] = fmaf(xv[2], wp[dx].z, a1[j][2]);
+              a1[j][3] = fmaf(xv[3], wp[dx].w, a1[j][3]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float* a = r == 0 ? a0[j] : a1[j];
+        const float sum = segment_sum<Q>((a[0] + a[1]) + (a[2] + a[3]), 0, 0);
+        const float mean = sum * (1.f / C);
+        float sq = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          a[c] -= mean;
+          sq = fmaf(a[c], a[c], sq);
+        }
+        sq = segment_sum<Q>(sq, 0, 0);
+        const float rs = rsqrtf(sq * (1.f / C) + kLnEps);
+        uint2 v;
+        v.x = pack_bf16(a[0] * rs * lw.x, a[1] * rs * lw.y);
+        v.y = pack_bf16(a[2] * rs * lw.z, a[3] * rs * lw.w);
+        *reinterpret_cast<uint2*>(ts + ((ry + r) * G::TW + rx + j) * G::LDT +
+                                  4 * q) = v;
+      }
     }
   }
 }
@@ -1195,8 +1331,10 @@ __device__ __forceinline__ void store_tile_rows(
     for (int hf = 0; hf < 2; ++hf) {
       const int m = m0 + g + 8 * hf;
       const int ly = m / G::TW, lx = m % G::TW;
-      const bf16* xr = xs + (ly + G::PAD) * G::IW * G::LDX +
-                       G::xoff(lx + G::PAD, nt) + 2 * q;
+      // (kResT: x waits in the warp's t rows, under the output)
+      const bf16* xr = G::kResT ? ts + m * G::LDT + c
+                                : xs + (ly + G::PAD) * G::IW * G::LDX +
+                                      G::xoff(lx + G::PAD, nt) + 2 * q;
       const float o0 = __fadd_rn(bid::to_float(xr[0]),
                                  __fmul_rn(gns[c], pacc[nt][2 * hf]));
       const float o1 = __fadd_rn(bid::to_float(xr[1]),
@@ -1224,6 +1362,25 @@ __device__ __forceinline__ void store_tile_rows(
               reinterpret_cast<const unsigned char*>(ts + m * G::LDT) +
               cv * 16);
   }
+}
+
+// kResT: the residual x of the warp's m16 tile at pixel m0 into its own
+// rows of the t tile, once every lane has its A fragments from them; the
+// epilogue reads x there and writes the output over it
+template <typename G>
+__device__ __forceinline__ void residual_to_t(const bf16* __restrict__ xs,
+                                              bf16* __restrict__ ts, int m0,
+                                              int lane) {
+  constexpr int CV = G::C / 8;  // 16-byte chunks a pixel
+  __syncwarp();
+  for (int i = lane; i < 16 * CV; i += 32) {
+    const int m = m0 + i / CV, cv = i % CV;
+    const int ly = m / G::TW, lx = m % G::TW;
+    *reinterpret_cast<uint4*>(ts + m * G::LDT + cv * 8) =
+        *reinterpret_cast<const uint4*>(xs + (ly + G::PAD) * G::IW * G::LDX +
+                                        G::xoff(lx + G::PAD, cv));
+  }
+  __syncwarp();
 }
 
 // this lane's ldmatrix row addresses (matrix lane / 8, row lane % 8):
@@ -1877,15 +2034,19 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
     if constexpr (G::kMma) {
       // the next tile goes to the other buffer (bf16 I/O) or, as codes, to
       // the staging buffer that the pass above has just emptied (int8 I/O);
-      // bf16 with one tile buffer (K = 7 at C = 64, 128) refills it once
-      // every warp's epilogue has read its residual x there
-      constexpr bool kRefillLate = !G::kInt8 && G::NXBUF == 1;
-      if constexpr (!kRefillLate) {
+      // bf16 with one tile buffer refills it once every warp's residual x
+      // has left it: into t (kResT: the layouts of their own) or read by
+      // the epilogue (the class widths from 80 at K = 7)
+      constexpr bool kRefillLate = !G::kInt8 && G::NXBUF == 1 && !G::kResT;
+      if constexpr (!kRefillLate && !G::kResT) {
         buf ^= G::NXBUF - 1;
         if (more) start_copies(landing(buf), walk.at(round + 1, B, H, W));
       }
       bf16* ts = reinterpret_cast<bf16*>(smem + G::OFF_T);
-      depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, inv_cr);
+      if constexpr (G::kRows2)
+        depthwise_layernorm_rows2<G>(xs, dws, lns, ts, tid);
+      else
+        depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, inv_cr);
       __syncthreads();
       if constexpr (G::kStream) {
         // one m16 tile a warp, its A fragments and the projection's
@@ -1894,6 +2055,11 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
         const LaneRows<G> rows(ts, w2s, w3s, lane);
         uint32_t af[C / 16][4];
         load_a<G>(af, rows.a, 16 * warp);
+        if constexpr (G::kResT) {
+          residual_to_t<G>(xs, ts, 16 * warp, lane);
+          __syncthreads();  // every warp's x is out of the tile buffer
+          if (more) start_copies(landing(0), walk.at(round + 1, B, H, W));
+        }
         float pacc[C / 8][4];
 #pragma unroll
         for (int nt = 0; nt < C / 8; ++nt)
@@ -1905,6 +2071,34 @@ convnext_block_kernel(const T* __restrict__ x, T* __restrict__ out,
         });
         store_tile_rows<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out,
                               16 * warp, lane, cr);
+      } else if constexpr (G::kResT) {
+        // the warp's MT m16 tiles: all their A fragments first, then their
+        // x into their t rows
+        constexpr int MT = G::P / 16 / (NT / 32);
+        const LaneRows<G> rows(ts, w2s, w3s, lane);
+        uint32_t af[MT][C / 16][4];
+#pragma unroll
+        for (int u = 0; u < MT; ++u)
+          load_a<G>(af[u], rows.a, 16 * (warp + u * (NT / 32)));
+#pragma unroll
+        for (int u = 0; u < MT; ++u)
+          residual_to_t<G>(xs, ts, 16 * (warp + u * (NT / 32)), lane);
+        __syncthreads();  // every warp's x is out of the tile buffer
+        if (more) start_copies(landing(0), walk.at(round + 1, B, H, W));
+#pragma unroll
+        for (int u = 0; u < MT; ++u) {
+          float pacc[C / 8][4];
+#pragma unroll
+          for (int nt = 0; nt < C / 8; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pacc[nt][i] = 0.f;
+#pragma unroll 1
+          for (int ec = 0; ec < E; ec += G::EC)
+            expand_project<G>(af[u], pacc, rows.w2 + 2 * ec * G::LDW2,
+                              rows.w3 + 2 * ec, slope);
+          store_tile_rows<G, T>(xs, ts, pacc, gns, out, t, H, W, inv_out,
+                                16 * (warp + u * (NT / 32)), lane, cr);
+        }
       } else {
         products_store<G>(xs, ts, w2s, w3s, gns, out, t, H, W, slope,
                           inv_out, tid, cr);

@@ -110,7 +110,13 @@ the ring (the cluster's blocks meet before a tile's chunks). At K = 7
 (halo 3 a side) the layouts stay where they fit: bf16 (64, 7) and
 (128, 7) keep one tile buffer, f32 (64, 7) streams W2 and W3 as C = 128
 does and f32 (128, 7) lends its tile buffer's room to the ring from the
-depthwise to the epilogue.
+depthwise to the epilogue. (32, 7) of its own runs two blocks an SM in
+bf16 (one tile buffer, as (64, 7)) and int8; in bf16 the three of their
+own move each warp's residual into its ``t`` rows, so that the next tile
+is copied under the products. The bf16 depthwise of (32, 7), (64, 7)
+and (128, 7) gives a thread 4 channels of two rows of 4 pixels, so that
+each input row is loaded and converted once for both output rows and
+each tap row's weights once for both.
 From ``CLUSTER_FROM`` (257) on a thread-block cluster of
 n = ceil(C / 128) blocks (3 to 8) owns a tile of 64 pixels (float32:
 32):
@@ -358,11 +364,13 @@ def _layout(c: int, k: int, dtype: torch.dtype) -> dict:
            and not three_fit(STREAM_CHUNK) else STREAM_CHUNK)
     wbuf = chunk_bytes(ech if stream else e)
     bars = RING_BARS if stream else 0
+    # (32, 7) of its own runs two blocks an SM: bf16 with one tile buffer
+    two_blocks7 = mma and not ragged and (c, k) == (32, 7)
     # int8 one tile buffer (and its staged codes); bf16 and f32 two where
     # they fit beside the weights (streamed: beside three stages)
-    buffers = (1 if int8 or ring_in_x else 2 if off_x + 2 * xbuf + (
-        3 if stream else 1) * wbuf + t_tile + bars <= SHARED_MEMORY_LIMIT
-        else 1)
+    buffers = (1 if int8 or ring_in_x or two_blocks7 else 2 if off_x + 2 * xbuf
+               + (3 if stream else 1) * wbuf + t_tile + bars
+               <= SHARED_MEMORY_LIMIT else 1)
     off_w2 = (off_x if ring_in_x
               else _align16(_align16(off_x + buffers * xbuf) + stage))
     stages = 0
@@ -377,8 +385,9 @@ def _layout(c: int, k: int, dtype: torch.dtype) -> dict:
     smem = off_t + t_tile + bars
     # f32: a warp per tile row
     threads = 32 * th if not mma else 512 if block512 else 256
-    # two blocks an SM wherever two fit at K < 7 with W2 and W3 resident
-    blocks = 2 if k < 7 and not stream and 2 * (
+    # two blocks an SM wherever two fit with W2 and W3 resident at K < 7
+    # and at (32, 7) of its own
+    blocks = 2 if (k < 7 or two_blocks7) and not stream and 2 * (
         smem + BLOCK_RESERVED_SHARED_MEMORY) <= SM_SHARED_MEMORY else 1
     plan = dict(threads_per_block=threads, smem_bytes=smem,
                 cluster_size=RING_CLUSTER if stream else 1,

@@ -3408,10 +3408,16 @@ def seeded_unit_weights(c, k, seed=0):
                 gain=t(rng.uniform(0.3, 0.9, (c,))))
 
 
-# the streamed layouts' rows before their chunks became a bulk-copy ring
-# (PERF.md §6's table: this script's cold ms, operands prepared on every
-# call, on ``cedafbd``), by (mode, C, K, shape)
+# rows before their layout's last redesign (PERF.md §6's table: this
+# script's cold ms, operands prepared on every call): the streamed layouts
+# before their chunks became a bulk-copy ring (on ``cedafbd``) and K = 7's
+# own layouts before their depthwise reused its taps (on ``a28c11e``), by
+# (mode, C, K, shape)
 PARENT_K1_COLD_MS = {
+    ("bf16", 32, 7, (8, 256, 256, 32)): 0.1277,
+    ("bf16", 64, 7, (8, 128, 128, 64)): 0.0777,
+    ("int8", 32, 7, (8, 256, 256, 32)): 0.1202,
+    ("int8", 64, 7, (8, 128, 128, 64)): 0.0748,
     ("f32", 128, 5, (8, 64, 64, 128)): 0.2018,
     ("f32", 128, 1, (8, 64, 64, 128)): 0.1853,
     ("bf16", 128, 5, (8, 64, 64, 128)): 0.0594,

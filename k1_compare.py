@@ -25,7 +25,15 @@ and 32×32², (80,5) 32×64², (112,5) 32×32²).
 
     python3 k1_compare.py [--rounds N] [--out DIR] [--mma-rate]
                           [--channels C,...] [--dtype D] [--wrapper]
+                          [--rows k7] [--k7-build] [--sass]
                           [NAME=SOURCE[@CUT+CUT...] ...]
+
+``--rows k7`` times only ``K7_ROWS`` (K = 7's own layouts in bf16, int8
+and f32, (128, 7), and the class widths at K = 7); ``--k7-build`` builds
+only the sources those rows run (``K7_SOURCES``, the others' entry points
+stubbed by ``K7_STUB``), a few minutes less a library; ``--sass`` prints,
+per K = 7 instantiation in bf16 and int8, its depthwise loop's
+instructions, FFMAs and shared-memory loads from the library's SASS.
 
 Each SOURCE is a ``convnext_block.cu`` (a parent commit's before the
 kernel had sources of its own beside it) or a directory of K1 sources
@@ -73,6 +81,7 @@ SM (one m16n8k8 TF32 product a clock an SM is the dense TF32 peak).
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -132,9 +141,95 @@ CLUSTER_ROWS = [("bf16", 1024, 5, 8, 8), ("int8", 1024, 5, 8, 8),
 RING_ROWS = [("int8", 128, 3, 8, 64), ("f32", 128, 3, 8, 64),
              ("int8", 128, 7, 8, 64), ("f32", 128, 7, 8, 64),
              ("bf16", 192, 5, 32, 32)]
+# K = 7 (``--rows k7``): a K = 7 unet_laplacian_v6's levels 0 and 1 at b8
+# @ 256² in bf16 and int8 (and f32, whose layout keeps its own depthwise),
+# (128, 7) at its level 2, and the class widths that share the bf16
+# depthwise: 16 (C = 16 at 8×256²) and the levels of a K = 7 v6 with
+# ``filters_level_multiplier`` 1.5 at b32 @ 256² (C = 48, 72, 108: widths
+# 48, 80, 112)
+K7_ROWS = [("bf16", 32, 7, 8, 256), ("bf16", 64, 7, 8, 128),
+           ("int8", 32, 7, 8, 256), ("int8", 64, 7, 8, 128),
+           ("f32", 32, 7, 8, 256), ("f32", 64, 7, 8, 128),
+           ("bf16", 128, 7, 8, 64), ("int8", 128, 7, 8, 64),
+           ("bf16", 16, 7, 8, 256), ("bf16", 48, 7, 32, 128),
+           ("int8", 48, 7, 32, 128), ("bf16", 72, 7, 32, 64),
+           ("bf16", 108, 7, 32, 32)]
 # the widths of the one-block classes any version of the library had (512
 # until the cluster took 256 < C <= 512 over)
 ONE_BLOCK_WIDTHS = (32, 64, 128, 256, 512)
+# ``--k7-build``: the K1 sources a K = 7 row at C <= 128 runs, and a stub
+# for the entry points of the others (each returns the library's
+# "unsupported", so a row that needs them is skipped)
+K7_SOURCES = ("convnext_block.cu", "convnext_k7.cu", "convnext_k7_class.cu",
+              "convnext_k7_class_80.cu", "convnext_k7_class_112.cu")
+K7_STUB = r"""
+#include "convnext_block.cuh"
+namespace bid_k1 {
+#define BID_STUB(NAME)                                                     \
+  int launch_##NAME(int, const void*, void*, const void*, const void*,     \
+                    const void*, const void*, const void*, int, int, int,  \
+                    int, int, float, float, float, cudaStream_t) {         \
+    return BID_ERR_UNSUPPORTED;                                            \
+  }                                                                        \
+  int info_##NAME(int, int, int, int*) { return BID_ERR_UNSUPPORTED; }
+BID_STUB(class)
+BID_STUB(wide)
+#undef BID_STUB
+int launch_k7_class_16_64(int, const void*, void*, const void*, const void*,
+                          const void*, const void*, const void*, int, int,
+                          int, int, int, float, float, float, cudaStream_t);
+int info_k7_class_16_64(int, int, int, int*);
+int launch_k7_class_80_96(int, const void*, void*, const void*, const void*,
+                          const void*, const void*, const void*, int, int,
+                          int, int, int, float, float, float, cudaStream_t);
+int info_k7_class_80_96(int, int, int, int*);
+int launch_k7_class_112_128(int, const void*, void*, const void*,
+                            const void*, const void*, const void*,
+                            const void*, int, int, int, int, int, float,
+                            float, float, cudaStream_t);
+int info_k7_class_112_128(int, int, int, int*);
+static int k7_width(int dtype, int C) {
+  const int cw = (C + 15) / 16 * 16;
+  return dtype == 0 && cw == 112 ? 128 : cw;
+}
+int launch_k7_class(int dtype, const void* x, void* out, const void* dw,
+                    const void* ln, const void* w2, const void* w3,
+                    const void* gain, int B, int H, int W, int C, float slope,
+                    float s_in, float inv_out, cudaStream_t s) {
+  const int cw = k7_width(dtype, C);
+  auto* f = cw <= 64 ? launch_k7_class_16_64 : cw <= 96 ? launch_k7_class_80_96
+                                                        : launch_k7_class_112_128;
+  return f(dtype, x, out, dw, ln, w2, w3, gain, B, H, W, C, 7, slope, s_in,
+           inv_out, s);
+}
+int info_k7_class(int dtype, int C, int* v) {
+  const int cw = k7_width(dtype, C);
+  auto* f = cw <= 64 ? info_k7_class_16_64 : cw <= 96 ? info_k7_class_80_96
+                                                      : info_k7_class_112_128;
+  return f(dtype, C, 7, v);
+}
+template <typename T>
+int launch_cluster_unit(const void*, void*, const void*, const void*,
+                        const void*, const void*, const void*, int, int, int,
+                        int, int, float, float, float, cudaStream_t) {
+  return BID_ERR_UNSUPPORTED;
+}
+template <typename T>
+int info_cluster_unit(int, int, int*) {
+  return BID_ERR_UNSUPPORTED;
+}
+#define BID_STUB_T(T)                                                       \
+  template int launch_cluster_unit<T>(const void*, void*, const void*,      \
+                                      const void*, const void*, const void*, \
+                                      const void*, int, int, int, int, int,  \
+                                      float, float, float, cudaStream_t);    \
+  template int info_cluster_unit<T>(int, int, int*);
+BID_STUB_T(float)
+BID_STUB_T(bf16)
+BID_STUB_T(int8_t)
+#undef BID_STUB_T
+}  // namespace bid_k1
+"""
 
 
 def route_operands(pc, dtype, wts, cluster_size, width=0):
@@ -242,6 +337,171 @@ CUTS = {
         (_CUH, "for (int ec = 0; ec < G::E; ec += G::EC)",
          "for (int ec = 0; ec < 0; ec += G::EC)"),
     ],
+    # Written against the K = 7 layouts of ``a28c11e`` (their step 0), each
+    # cutting only the K = 7 layouts with resident W2 and W3:
+    # "k7nodw": the depthwise and the LayerNorm skipped (t is what the t
+    #   tile holds);
+    # "k7noproducts": both products skipped (the epilogue adds x + gain * 0);
+    # "k7nowait": bf16 with one tile buffer ((64, 7)) does not wait for the
+    #   copies of its next tile, which start once the epilogue is done
+    #   (wrong values; the block waits for them once, before it ends): what
+    #   the copies that no compute overlaps cost;
+    # "k7cap2": (32, 7) built for two blocks an SM (a 128-register cap); in
+    #   bf16 its 131,072 B still hold one block an SM, int8's 105,536 B two;
+    # "k7two": the same, and bf16 (32, 7) with one tile buffer refilled once
+    #   the epilogue is done (88,512 B), so that two blocks fit: what
+    #   occupancy alone gives.
+    "k7nodw": [
+        (_CUH, "      depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, "
+         "inv_cr);\n",
+         "      if constexpr (G::K < 7)\n"
+         "        depthwise_layernorm<G>(xs, dws, lns, ts, tid, cr, inv_cr);\n"),
+    ],
+    "k7noproducts": [
+        (_CUH, "for (int ec = 0; ec < G::E; ec += G::EC)",
+         "for (int ec = 0; ec < (G::K < 7 ? G::E : 0); ec += G::EC)"),
+    ],
+    "k7nowait": [
+        (_CUH, "    cp_async_wait_all();\n    // this tile (or its codes) has "
+         "landed",
+         "    if (round == 0 || !(G::K == 7 && G::kMma && !G::kInt8 &&\n"
+         "                        !G::kStream && G::NXBUF == 1))\n"
+         "      cp_async_wait_all();\n"
+         "    // this tile (or its codes) has landed"),
+        (_CUH, "  // no block leaves while the cluster's others may still "
+         "arrive on its",
+         "  cp_async_wait_all();\n"
+         "  // no block leaves while the cluster's others may still arrive "
+         "on its"),
+    ],
+    # Written against the K = 7 redesign (the own layouts' depthwise by runs
+    # of two rows, the class widths' as the parent's), to time its parts
+    # and the depthwise designs it was chosen from on the same layouts:
+    # "k7nodw2": the own layouts' depthwise and LayerNorm skipped;
+    # "k7resx": bf16 (32, 7), (64, 7), (128, 7) refill their one tile buffer
+    #   once the epilogue has read its residual there, not once every
+    #   warp's residual has moved into its t rows;
+    # "k7line32": (32, 7) with two tile buffers whose rows are unpadded so
+    #   that two blocks still fit (114,048 B), the two pixels of each
+    #   128-byte line in 16-byte slots (4 (ix & 1) + c) ^ F(L), F(L) =
+    #   (L & 3) | 4 ((L >> 1) & 1) (free of bank conflicts for the
+    #   depthwise's half-warps and the epilogue's reads), in place of one
+    #   padded buffer;
+    # "k7norows2": the own layouts take the class widths' depthwise (the
+    #   parent's);
+    # "k7halves": the class widths' depthwise (with "k7norows2" every
+    #   width's) by halves of a run's 8 channels: per tap row a half's
+    #   K x 4 weights and its inputs' 8-byte halves, the tap rows unrolled,
+    #   lane cg of the run at column rx taking half ((cg ^ rx) >> 3) & 1
+    #   first;
+    # "k7fullrow": the class widths' depthwise as at K <= 5 (a row's K x 8
+    #   weights in registers, the rows unrolled).
+    "k7resx": [
+        (_CUH, "  static constexpr bool kResT = kMma &&",
+         "  static constexpr bool kResT = false && kMma &&"),
+    ],
+    "k7nodw2": [
+        (_CUH, "      if constexpr (G::kRows2)\n"
+         "        depthwise_layernorm_rows2<G>(xs, dws, lns, ts, tid);\n",
+         "      if constexpr (G::kRows2)\n        (void)0;\n"),
+    ],
+    "k7line32": [
+        (_CUH, "  static constexpr int LDX = kSwizzle ? C : C + 8;",
+         "  static constexpr int LDX =\n"
+         "      kSwizzle || (kMma && !kRagged && C == 32 && K == 7) ? C : C + 8;"),
+        (_CUH, "      kInt8 || kRingInX || kTwoBlocks7 ? 1\n",
+         "      kInt8 || kRingInX ? 1\n"),
+        (_CUH, """  static __device__ __forceinline__ int xoff(int ix, int chunk) {
+    if constexpr (kSwizzle) chunk ^= ix & 7;""", """  static __device__ __forceinline__ int xoff(int ix, int chunk) {
+    if constexpr (kMma && !kRagged && C == 32 && K == 7) {
+      const int line = ix >> 1;
+      return line * 2 * C +
+             ((((ix & 1) << 2) + chunk) ^ ((line & 3) | ((line << 1) & 4))) *
+                 V;
+    }
+    if constexpr (kSwizzle) chunk ^= ix & 7;"""),
+    ],
+    "k7norows2": [
+        (_CUH, "  static constexpr bool kRows2 = kMma && !kRagged && K == 7;",
+         "  static constexpr bool kRows2 = false;"),
+    ],
+    "k7halves": [
+        (_CUH, "    if constexpr (K >= 7) {\n      // (the class widths;",
+         """    if constexpr (K >= 7 && C > 0) {
+      const int sw = ((cg ^ rx) >> 3) & 1;
+      float first[R][4], part[R][4];
+#pragma unroll 1
+      for (int hh = 0; hh < 2; ++hh) {
+        const int h = hh ^ sw;
+        const float4* wh = wp + h * CG;
+        const bf16* xh = xs + 4 * h + ry * G::IW * G::LDX;
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[j][c] = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) {
+          const bf16* xrow = xh + dy * G::IW * G::LDX;
+          float4 w[K];
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) w[dx] = wh[(dy * K + dx) * 2 * CG];
+#pragma unroll
+          for (int i = 0; i < R + K - 1; ++i) {
+            const uint2 raw = *reinterpret_cast<const uint2*>(xrow + xo[i]);
+            const float xv[4] = {__uint_as_float(raw.x << 16),
+                                 __uint_as_float(raw.x & 0xffff0000u),
+                                 __uint_as_float(raw.y << 16),
+                                 __uint_as_float(raw.y & 0xffff0000u)};
+#pragma unroll
+            for (int dx = 0; dx < K; ++dx) {
+              const int j = i - dx;
+              if (j >= 0 && j < R) {
+                part[j][0] = fmaf(xv[0], w[dx].x, part[j][0]);
+                part[j][1] = fmaf(xv[1], w[dx].y, part[j][1]);
+                part[j][2] = fmaf(xv[2], w[dx].z, part[j][2]);
+                part[j][3] = fmaf(xv[3], w[dx].w, part[j][3]);
+              }
+            }
+          }
+        }
+        if (hh == 0) {
+#pragma unroll
+          for (int j = 0; j < R; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) first[j][c] = part[j][c];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[j][c] = sw ? part[j][c] : first[j][c];
+          acc[j][4 + c] = sw ? first[j][c] : part[j][c];
+        }
+    } else if constexpr (K >= 7) {
+      // (the class widths;"""),
+    ],
+    "k7fullrow": [
+        (_CUH, "    if constexpr (K >= 7) {\n      // (the class widths;",
+         "    if constexpr (K >= 7 && C < 0) {\n      // (the class widths;"),
+    ],
+    "k7cap2": [
+        (_CUH, "      K < 7 && !kStream && 2 * (SMEM + kSmemPerBlock) <= "
+         "kSmemPerSm ? 2 : 1;",
+         "      (K < 7 && !kStream && 2 * (SMEM + kSmemPerBlock) <= "
+         "kSmemPerSm) ||\n"
+         "              (K == 7 && C == 32 && NT == 256)\n"
+         "          ? 2\n          : 1;"),
+    ],
+    "k7two": [
+        (_CUH, "      kInt8 || kRingInX ? 1\n",
+         "      kInt8 || kRingInX || (K == 7 && C == 32) ? 1\n"),
+        (_CUH, "      K < 7 && !kStream && 2 * (SMEM + kSmemPerBlock) <= "
+         "kSmemPerSm ? 2 : 1;",
+         "      (K < 7 || (K == 7 && C == 32 && NT == 256)) && !kStream &&\n"
+         "              2 * (SMEM + kSmemPerBlock) <= kSmemPerSm\n"
+         "          ? 2\n          : 1;"),
+    ],
     # Written against the streamed layouts' bulk-copy ring
     # (csrc/chunk_ring.cuh): "cluster1": one block, no multicast (each
     # block copies every chunk itself), so that the ring and the
@@ -348,7 +608,10 @@ def cut_copy(source: Path, cuts, work: Path, name: str) -> Path:
     return dst
 
 
-def build(name, source, work, out_dir, sass=False):
+def build(name, source, work, out_dir, sass=False, k7=False):
+    """Build one K1 library from ``source`` (a directory of sources, a
+    copy of it with ``@CUTS``, or one ``convnext_block.cu``); with ``k7``
+    only its ``K7_SOURCES`` and ``K7_STUB``."""
     from blind_image_denoising_torch.ops import cuda_build
     source = str(source)
     if "@" in source:
@@ -357,6 +620,10 @@ def build(name, source, work, out_dir, sass=False):
     source = Path(source)
     files = (sorted(source.glob("convnext*.cu")) if source.is_dir()
              else [source])
+    if k7:
+        stub = work / f"{name}-k7stub.cu"
+        stub.write_text(K7_STUB)
+        files = [f for f in files if f.name in K7_SOURCES] + [stub]
     inc = ["-I", str(source if source.is_dir() else source.parent), "-I",
            str(cuda_build.CSRC_DIR)]
     objs = [work / f"{name}-{f.stem}.o" for f in files]
@@ -376,11 +643,15 @@ def build(name, source, work, out_dir, sass=False):
         raise RuntimeError(f"nvcc link failed for {name}:\n{link.stdout}")
     if out_dir is not None:
         (out_dir / f"{name}.ptxas.txt").write_text("\n".join(report))
-    if out_dir is not None and sass:
+    if sass:
         tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
-        sass = subprocess.run([str(tool), "-sass", str(lib_path)],
-                              capture_output=True, text=True, check=True)
-        (out_dir / f"{name}.sass.txt").write_text(sass.stdout)
+        text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        if out_dir is not None:
+            (out_dir / f"{name}.sass.txt").write_text(text)
+        for line in depthwise_sass(text):
+            print(json.dumps(dict(source=name, **line)), flush=True)
     lib = ctypes.CDLL(str(lib_path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bid_convnext_block.argtypes = [p, p, p, p, p, p, p,
@@ -389,6 +660,50 @@ def build(name, source, work, out_dir, sass=False):
     lib.bid_convnext_block_info.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.bid_convnext_block_info.restype = i
     return lib
+
+
+# a K1 kernel's mangled name: I/O type, C, K, ragged
+_KERNEL_NAME = re.compile(
+    r"convnext_block_kernelI(13__nv_bfloat16|a|f)Li(\d+)ELi(\d+)ELb([01])E")
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+_SASS_MODES = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "f32"}
+
+
+def depthwise_sass(text):
+    """Per K = 7 instantiation in bf16 and int8 of a library's SASS
+    (``cuobjdump -sass``): its instructions and FFMAs, and those of its
+    depthwise loop, the smallest loop (a backward branch and the
+    instructions from its target to it) that holds at least 128 FFMAs,
+    with its instructions per FFMA and its shared-memory loads. NOPs are
+    not counted."""
+    out = []
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        m = _KERNEL_NAME.search(name)
+        if m is None or m.group(3) != "7" or _SASS_MODES[m.group(1)] == "f32":
+            continue
+        insts = [(int(a, 16), op, rest) for a, op, rest in
+                 _SASS_LINE.findall(part) if op != "NOP"]
+        addrs = [a for a, _, _ in insts]
+        loops = []
+        for a, op, rest in insts:
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and t and int(t.group(1), 16) <= a:
+                body = [o for b, o, _ in insts if int(t.group(1), 16) <= b <= a]
+                ffma = sum(o.startswith("FFMA") for o in body)
+                if ffma >= 128:
+                    loops.append((len(body), ffma, sum(
+                        o.startswith("LDS") for o in body)))
+        entry = dict(mode=_SASS_MODES[m.group(1)], C=int(m.group(2)), K=7,
+                     ragged=m.group(4) == "1", instructions=len(addrs),
+                     ffma=sum(op.startswith("FFMA") for _, op, _ in insts))
+        if loops:
+            n, ffma, lds = min(loops)
+            entry.update(loop_instructions=n, loop_ffma=ffma, loop_lds=lds,
+                         loop_instructions_per_ffma=round(n / ffma, 3))
+        out.append(entry)
+    return out
 
 
 MMA_RATE_SOURCE = r"""
@@ -715,7 +1030,13 @@ def main() -> int:
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--sass", action="store_true",
-                        help="with --out, also write each library's SASS")
+                        help="print the K = 7 depthwise loops' SASS counts "
+                             "(with --out, also write each library's SASS)")
+    parser.add_argument("--rows", choices=("all", "k7"), default="all",
+                        help="k7: only K7_ROWS")
+    parser.add_argument("--k7-build", action="store_true",
+                        help="build only the sources the K = 7 rows at "
+                             "C <= 128 run (K7_SOURCES; the rest stubbed)")
     parser.add_argument("--mma-rate", action="store_true")
     parser.add_argument("--l2-rate", action="store_true",
                         help="measure the L2 -> SM read rate first")
@@ -749,7 +1070,7 @@ def main() -> int:
     named = [spec.split("=", 1) for spec in args.sources]
     with tempfile.TemporaryDirectory() as work:
         libs = {name: build(name, Path(src), Path(work), args.out,
-                            args.sass)
+                            args.sass, args.k7_build)
                 for name, src in named}
     rng = np.random.default_rng(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -759,8 +1080,10 @@ def main() -> int:
 
     only = (None if args.channels is None
             else {int(c) for c in args.channels.split(",")})
-    for dtype, c, k, b, hw in (ROWS + CLASS_ROWS + PADDED_ROWS + NEW_ROWS
-                               + CLUSTER_ROWS + RING_ROWS):
+    rows = (K7_ROWS if args.rows == "k7" else list(dict.fromkeys(
+        ROWS + CLASS_ROWS + PADDED_ROWS + NEW_ROWS + CLUSTER_ROWS + RING_ROWS
+        + K7_ROWS)))
+    for dtype, c, k, b, hw in rows:
         if (only is not None and c not in only) or (
                 args.dtype is not None and dtype != args.dtype):
             continue
@@ -789,13 +1112,15 @@ def main() -> int:
         # (and one that streams W2 and W3 through a bulk-copy ring, its
         # ninth int, the ring's chunks as this checkout's wrapper makes
         # them)
-        operands = {}
+        operands, infos = {}, {}
         for name, lib in libs.items():
             info = (ctypes.c_int * 9)(*[0] * 5, 1, 0, 0, 0)
             rc = lib.bid_convnext_block_info(c, k, pc._DTYPE_CODES[x.dtype],
                                              info)
             if rc not in (0, UNSUPPORTED):
                 raise RuntimeError(f"{name}: info {rc}")
+            infos[name] = dict(zip(("smem_bytes", "registers", "local_bytes",
+                                    "threads", "blocks_per_sm"), info[:5]))
             operands[name] = (
                 None if rc else pc.kernel_operands(x.dtype, **wts)
                 if info[8] else route_operands(pc, x.dtype, wts, info[5],
@@ -856,7 +1181,8 @@ def main() -> int:
                 source=name, dtype=dtype, C=c, K=k, shape=[b, hw, hw, c],
                 ms=times[name], ms_min=min(times[name]), cold_ms=cold[name],
                 cold_ms_min=min(cold[name]), bound_ms=bound,
-                bound_by=by, max_abs_diff_from_plain=errs[name], **f32)),
+                bound_by=by, max_abs_diff_from_plain=errs[name], **f32,
+                **({"info": infos[name]} if name in infos else {}))),
                 flush=True)
         del copies
     print(subprocess.run(

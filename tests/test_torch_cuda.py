@@ -205,10 +205,10 @@ def test_convnext_int8_kernel_matches_plain(dev, ck, bhw):
 
 
 def _ring_unit_matches_plain(dev, c, k, dtype, shape, seed=3, x_seed=None):
-    """A unit of a streamed layout (W2 and W3 through the bulk-copy ring
-    of csrc/chunk_ring.cuh, on a cluster of two blocks) on x of ``shape``
-    against its plain version at the kernel tests' bars above; a second
-    launch gives the same bits."""
+    """A unit (of a streamed layout: W2 and W3 through the bulk-copy ring
+    of csrc/chunk_ring.cuh, on a cluster of two blocks; or of any other) on
+    x of ``shape`` against its plain version at the kernel tests' bars
+    above; a second launch gives the same bits."""
     w = _unit_weights(c, k, dev, seed=seed)
     g = torch.Generator(device="cpu").manual_seed(
         seed + 5 if x_seed is None else x_seed)
@@ -446,6 +446,40 @@ def test_convnext_ring_takes_odd_and_tiny_tile_counts(dev, c, k, shape,
     tiles; the ghost computes on zeros, stores nothing and takes every
     chunk with its partner."""
     _ring_unit_matches_plain(dev, c, k, dtype, (*shape, c), seed=11)
+
+
+# K = 7's layouts that share the bf16 depthwise (a run's two halves of 4
+# channels in turn): (32, 7), (64, 7) and (128, 7) of their own and the
+# class widths 16, 48, 80 (C = 72) and 112 (C = 108)
+K7_CHANNELS = [32, 64, 128, 16, 48, 72, 108]
+
+
+@pytest.mark.parametrize("c", K7_CHANNELS)
+@pytest.mark.parametrize("shape", [(48, 64, 64), (1, 5, 7), (3, 37, 70)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_convnext_k7_layouts_over_many_tiles_and_odd_images(dev, c, shape,
+                                                           dtype):
+    """Each K = 7 layout over many tiles (48 x 64 x 64: 768 tiles of 8 x
+    32 pixels or 1536 of 8 x 16, more than twice the blocks the card
+    holds, so every block walks its tile buffers, the copies of its next
+    tile and, at (32, 7), its SM's second block over several tiles) and
+    over odd and tiny images (1 x 5 x 7, one tile; 3 x 37 x 70, ragged
+    edges both ways), at the kernel tests' bars, two launches giving the
+    same bits; built as ``kernel_plan`` has it, with at least its
+    ``min_blocks_per_sm`` resident (two at (32, 7))."""
+    info = _resident_clusters(c, 7, dtype)
+    plan = pallas_convnext.kernel_plan(c, 7, dtype)
+    assert (info[0], info[3], info[5], info[8]) == (
+        plan["smem_bytes"], plan["threads_per_block"], plan["cluster_size"],
+        plan.get("ring_stages", 0)), list(info)
+    assert info[2] == 0 and info[4] >= plan["min_blocks_per_sm"], list(info)
+    if c == 32:
+        assert plan["min_blocks_per_sm"] == 2
+    if shape[0] > 3:
+        tiles = shape[0] * (shape[1] // 8) * (shape[2] // 32)
+        assert tiles >= 2 * info[4] * torch.cuda.get_device_properties(
+            0).multi_processor_count
+    _ring_unit_matches_plain(dev, c, 7, dtype, (*shape, c), seed=17)
 
 
 @pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
