@@ -2389,5 +2389,16 @@ int launch_cluster_unit(const void* x, void* out, const void* dw,
                         cudaStream_t s);
 template <typename T>
 int info_cluster_unit(int C, int K, int* v);
+// the general route (convnext_general.cuh, built by convnext_general.cu):
+// any C >= 1, odd K >= 1 and E >= 1 in every I/O mode, as three kernels
+// through ``scratch`` (general_scratch_bytes of it at least, on 256 bytes);
+// dw is [K * K][C] f32, W2 [E][C] and W3 [C][E] as they lie
+int launch_general(int dtype, const void* x, void* out, const void* dw,
+                   const void* ln, const void* w2, const void* w3,
+                   const void* gain, void* scratch, long long scratch_bytes,
+                   int B, int H, int W, int C, int K, int E, float slope,
+                   float s_in, float inv_out, cudaStream_t s);
+int info_general(int dtype, int C, int* v);
+long long general_scratch_bytes(long long P, int C, int E, int dtype);
 
 }  // namespace bid_k1

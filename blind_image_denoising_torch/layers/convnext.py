@@ -19,9 +19,10 @@ expand ×4 + leaky ReLU 0.1 → 1×1 project → gain:
   dropped.
 
 Which units K1 serves is decided when the unit is built, from the
-kernel's own shapes and options alone (``kernel_route``): C from 1 to
-1024 at K = 1, 3, 5 or 7 with E = 4C
-(``pallas_convnext.kernel_supports``),
+kernel's own shapes and options alone (``kernel_route``): every shape
+JAX's kernel takes, any C, odd K and E
+(``pallas_convnext.kernel_supports``; off C <= 1024 at K = 1, 3, 5, 7 with
+E = 4C on the kernel's general route),
 as many output as input channels, LayerNorm without BatchNorm or biases,
 the gain, the ``leaky_relu_01`` expansion and no dropout. So every
 ConvNext unit of the packaged unet_laplacian configs launches K1 — the
@@ -31,10 +32,10 @@ encoders' (128, 5), the decoders' (128, 1)) and ``_v5`` — and so do
 levels 2 to 5 of a depth-4 to depth-6 ``unet_laplacian_v6`` (C = 128,
 256, and 512 and 1024 where levels 4 and 5 are no attention levels), the
 levels of one whose ``filters_level_multiplier`` gives widths that are
-no power of two (48, 72, 108), and those of one whose kernel sizes are
-7. Every other
-unit — a (C, K) the kernel does not take (C above 1024, K = 9), a
-concatenated
+no power of two (48, 72, 108), those of one whose kernel sizes are 7,
+and, on the general route, level 6 (C = 2048) of a no-attention depth-7
+one and units at K = 9 or with E other than 4C. Every other
+unit — a concatenated
 decoder input, BatchNorm, biases, another activation, an even kernel —
 computes ``x + branch(x)`` (or the
 branch alone when the channels change) on every device, as JAX runs
@@ -152,8 +153,9 @@ class ConvNextBlock(nn.Module):
         self.gamma = ChannelLearnableMultiplier(out) if use_gamma else None
         # the kernel's own shapes and options decide, once
         self.kernel_route = (
-            self.residual and expansion == 4 * features
-            and pallas_convnext.kernel_supports(features, kernel_size)
+            self.residual
+            and pallas_convnext.kernel_supports(features, kernel_size,
+                                                expansion)
             and use_ln and not use_bn and not use_bias and use_gamma
             and self.slope is not None and self.dropout_rate == 0.0
             and self.spatial_dropout_rate == 0.0)

@@ -135,12 +135,19 @@ def build(verbose: bool = False) -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bid_convnext_block.argtypes = [p, p, p, p, p, p, p,
-                                       i, i, i, i, i, i, f, f, f, p]
-    lib.bid_convnext_block.restype = i
+    ll = ctypes.c_longlong
+    # K1: x, out, dw, ln, w2, w3, gain, scratch, scratch bytes, B, H, W, C,
+    # K, E, dtype, slope, scale_in, 1 / scale_out, stream (the general
+    # route's entry point takes the same)
+    for fn in (lib.bid_convnext_block, lib.bid_convnext_block_general):
+        fn.argtypes = [p, p, p, p, p, p, p, p, ll,
+                       i, i, i, i, i, i, i, f, f, f, p]
+        fn.restype = i
     ip = ctypes.POINTER(i)
-    lib.bid_convnext_block_info.argtypes = [i, i, i, ip]
+    lib.bid_convnext_block_info.argtypes = [i, i, i, i, ip]
     lib.bid_convnext_block_info.restype = i
+    lib.bid_convnext_general_scratch_bytes.argtypes = [ll, i, i, i]
+    lib.bid_convnext_general_scratch_bytes.restype = ll
     lib.bid_band_smooth.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.bid_band_smooth.restype = i
     lib.bid_band_split.argtypes = [p, p, p, i, i, i, i, i, i, p]

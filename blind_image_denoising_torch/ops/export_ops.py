@@ -15,7 +15,7 @@ hand kernels on a CUDA tensor (and counts them in the wrappers'
 ``launches``) and runs their plain versions on a CPU tensor; its fake
 implementation gives the output's shape and dtype to the tracer. Both
 carry no shape of their own: ``bidt::convnext_block`` takes every (C, K)
-the wrapper does (C up to 1024 at K = 1, 3, 5, 7). The
+the wrapper does (any C, odd K and E, as JAX's kernel). The
 eager serving path, the training path, K2's ``autograd.Function`` and
 its ``jvp`` do not use them.
 

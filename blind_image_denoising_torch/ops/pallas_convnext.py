@@ -20,9 +20,11 @@ K = 1 the halo is empty (PAD = 0) and the depthwise sum is one tap per
 channel; the tile, copy and depthwise code is written in PAD and K,
 unchanged.
 
-What is built: every C from 1 to 1024 at K = 1, 3, 5 and 7 with E = 4C,
-in every I/O mode (:func:`kernel_supports`), as JAX's kernel takes any C
-and odd K. Twelve (C, K) have instantiations of their own
+What is built: every shape JAX's kernel takes (any C, any odd K = 2·pad
++ 1, any E), in every I/O mode (:func:`kernel_supports`). Every C from 1
+to 1024 at K = 1, 3, 5 and 7 with E = 4C runs in one pass (the layouts
+below); every other shape runs the general route (:func:`runs_general`,
+below). Twelve (C, K) have instantiations of their own
 (``OWN_SHAPES``: the seven above, (64, 3), (128, 3), and K = 7 at C =
 32, 64, 128); any other C up to 128 runs the layout of width C rounded
 up to 16 (16, 32, ..., 128: the layouts below written for any multiple
@@ -41,8 +43,10 @@ tile row's pixels, allows. A depth-5 ``unet_laplacian_v6`` fused to
 level 3 runs (256, 5); one with ``filters_level_multiplier`` 1.5 runs
 (48, 5), (72, 5) and (108, 5) (the layouts of width 48, 80, 112); one
 without self-attention runs (512, 5) at level 4, and at depth 6
-(1024, 5) at level 5; a ``v6`` whose kernel sizes are 7 runs (32, 7) and
-(64, 7). C above 1024 raises ``NotImplementedError`` on the card.
+(1024, 5) at level 5, and at depth 7 (2048, 5) at level 6, on the
+general route; a ``v6`` whose kernel sizes are 7 runs (32, 7) and (64, 7).
+An even K raises ``ValueError`` on every device (JAX's kernel has K =
+2·pad + 1).
 
 CUDA kernel (``csrc/convnext_block.cu``). Per pixel the unit does about
 2K²C + 16C² operations against 2·C·bytes of I/O: ≈ 17 k operations per
@@ -175,6 +179,24 @@ epilogue writes
 JAX kernel's padded-row channels-first layout and column masks served
 the TPU's lane tiling and are not carried over.
 
+The general route (``csrc/convnext_general.cuh``: C above 1024, K = 9,
+11, ..., E other than 4C): the unit's weights and its t and h rows no
+longer fit one block or one cluster, so it runs as three kernels, t
+[P', C'] and h [P', E'] through scratch in device memory that the wrapper
+allocates (as much as the library's
+``bid_convnext_general_scratch_bytes`` says: P rounded up to the
+products' tile of 64 pixels, C and E to 32, the pads zeros): the
+depthwise + LayerNorm (a warp a pixel up to C = 1024, else a
+block, striding over C; f32 two-pass statistics), then the expansion
+and the projection as tiled products on ``mma.sync`` (bf16 operands, or
+3xTF32 in float32) fed by ``cp.async`` in two stages, each stage's
+products added to the running sums with one rounded f32 add; the
+projection's epilogue adds x (and requantizes in int8) at the plain
+version's rounding points. Its operands are the weights as they lie
+(:func:`kernel_operands`: dw [K², C] and the LayerNorm scale and gain in
+float32, W2 [E, C] and W3 [C, E] in the I/O dtype, bf16 in int8), its
+plan :func:`general_plan`.
+
 ``convnext_block`` takes NHWC tensors like the JAX oracle. A tensor on
 the CPU goes through :func:`convnext_block_plain`, the same arithmetic
 and rounding points in plain PyTorch; a CUDA tensor launches the kernel
@@ -186,6 +208,7 @@ import collections
 import torch
 import torch.nn.functional as F
 
+from .. import benchmarking
 from ..constants import DEFAULT_LN_EPSILON
 from . import cuda_build
 from .precision import has_tangent
@@ -208,10 +231,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 OWN_SHAPES = frozenset({(32, 1), (32, 3), (32, 5), (32, 7), (64, 1),
                         (64, 3), (64, 5), (64, 7), (128, 1), (128, 3),
                         (128, 5), (128, 7)})
-# the kernel takes every C from 1 to MAX_CHANNELS at these K, with E = 4C:
-# a C outside OWN_SHAPES runs the layout of width class_width(C)
+# the one-pass layouts take every C from 1 to ONE_PASS_MAX_CHANNELS at
+# these K, with E = 4C (a C outside OWN_SHAPES runs the layout of width
+# class_width(C)); every other shape the kernel takes runs the general route
 KERNEL_KS = (1, 3, 5, 7)
-MAX_CHANNELS = 1024
+ONE_PASS_MAX_CHANNELS = 1024
 # from CLUSTER_FROM on a thread-block cluster runs the unit
 # (csrc/convnext_cluster.cuh; convnext_block.cu's kClusterFrom), each
 # block owning CLUSTER_SLICE output channels: its width is the next
@@ -249,6 +273,21 @@ WIDE_CHUNK = 16
 # the wide class's depthwise channel groups (csrc/convnext_wide.cuh GC)
 WIDE_GROUP = 64
 INT8_MAX = 127
+# the general route (csrc/convnext_general.cuh): 256 threads a block; its
+# products' tiles of 64 x 128 outputs in two stages of 192 rows of 80
+# bytes; its depthwise + LayerNorm pass's block reduction, within the
+# default dynamic shared memory of a block
+GENERAL_THREADS = 256
+GENERAL_GEMM_SMEM = 2 * (64 + 128) * 80
+GENERAL_REDUCE = 32
+DEFAULT_SHARED_MEMORY = 48 * 1024
+# a named sample of the general route's shapes (C, K, E): above C = 1024
+# (ragged and whole), K = 9 and 11 (C = 1, 32), E = 2C and 3C; the card
+# tests and chip_smoke.py's build check sweep it
+GENERAL_SAMPLE_SHAPES = ((1025, 5, 4100), (1040, 5, 4160), (1536, 5, 6144),
+                         (2048, 5, 8192), (4096, 1, 16384), (1, 9, 4),
+                         (1, 11, 4), (32, 9, 128), (32, 11, 128),
+                         (48, 5, 96), (48, 5, 144))
 # dynamic shared memory one block may have on an H100, one SM's, and what a
 # resident block takes of it for itself
 SHARED_MEMORY_LIMIT = 232_448
@@ -258,20 +297,33 @@ BLOCK_RESERVED_SHARED_MEMORY = 1024
 
 def kernel_supports(c: int, k: int, e: int = None) -> bool:
     """Whether the kernel takes a unit of C channels, K x K depthwise and
-    (if given) E expansion channels: C from 1 to ``MAX_CHANNELS``, K in
-    ``KERNEL_KS``, E = 4C."""
-    return (1 <= c <= MAX_CHANNELS and k in KERNEL_KS
-            and (e is None or e == 4 * c))
+    (if given) E expansion channels: as JAX's kernel, every C >= 1, odd K
+    >= 1 (K = 2·pad + 1) and E >= 1."""
+    return c >= 1 and k >= 1 and k % 2 == 1 and (e is None or e >= 1)
 
 
-def class_width(c: int, dtype: torch.dtype = None) -> int:
-    """The width of the layout that runs C channels in I/O ``dtype``: on
-    the cluster route (``runs_cluster``) the next multiple of
-    ``CLUSTER_SLICE``, above 128 ``WIDE_WIDTH``, else C rounded up to
-    ``CLASS_STEP`` (``OWN_SHAPES`` are their own width), but float32 keeps
-    128 where that is 112 (``F32_UNBUILT_WIDTHS``): the channels the
+def runs_general(c: int, k: int = None, e: int = None) -> bool:
+    """Whether the general route runs a unit of C channels (at K and with
+    E expansion channels, where given): every shape off the one-pass
+    layouts' (C up to ``ONE_PASS_MAX_CHANNELS`` at K in ``KERNEL_KS`` with
+    E = 4C), as ``convnext_block.cu``'s dispatcher decides."""
+    return (c > ONE_PASS_MAX_CHANNELS
+            or (k is not None and k not in KERNEL_KS)
+            or (e is not None and e != 4 * c))
+
+
+def class_width(c: int, dtype: torch.dtype = None, k: int = None,
+                e: int = None) -> int:
+    """The width of the layout that runs C channels (at K and with E
+    expansion channels, where given) in I/O ``dtype``: on the general
+    route C itself; on the cluster route (``runs_cluster``) the next
+    multiple of ``CLUSTER_SLICE``, above 128 ``WIDE_WIDTH``, else C rounded
+    up to ``CLASS_STEP`` (``OWN_SHAPES`` are their own width), but float32
+    keeps 128 where that is 112 (``F32_UNBUILT_WIDTHS``): the channels the
     weights are padded to, which the library reports as an
     instantiation's width."""
+    if runs_general(c, k, e):
+        return c
     if runs_cluster(c):
         return -(-c // CLUSTER_SLICE) * CLUSTER_SLICE
     if c > 128:
@@ -286,7 +338,7 @@ def _align16(n):
     return (n + 15) // 16 * 16
 
 
-def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
+def kernel_plan(c: int, k: int, dtype: torch.dtype, e: int = None) -> dict:
     """Threads per block, dynamic shared-memory bytes and cluster size of
     the kernel that runs (C, K, dtype), and, up to C = 128, the blocks an
     SM its registers are capped for (``min_blocks_per_sm``, its
@@ -297,12 +349,14 @@ def kernel_plan(c: int, k: int, dtype: torch.dtype) -> dict:
     ``csrc/convnext_block.cuh`` (C up to 128, laid out at its class's
     width), of ``WCfg`` in ``csrc/convnext_wide.cuh`` (128 < C <= 256) and
     of ``clayout`` in ``csrc/convnext_cluster.cuh`` (from ``CLUSTER_FROM``
-    on), which ``chip_smoke.py`` holds against what the built library
-    reports. Raises ``NotImplementedError`` where the kernel does not take
-    the unit."""
-    if not kernel_supports(c, k):
-        raise NotImplementedError(
-            f"convnext_block kernel does not take C={c} K={k} in {dtype}")
+    on), and of the general route (``general_plan``), which
+    ``chip_smoke.py`` holds against what the built library reports. Raises
+    ``ValueError`` where the kernel does not take the unit (an even K)."""
+    if not kernel_supports(c, k, e):
+        raise ValueError(
+            f"convnext_block kernel does not take C={c} K={k} E={e}")
+    if runs_general(c, k, e):
+        return general_plan(c)
     if runs_cluster(c):
         return cluster_plan(c, k, dtype)
     plan = _layout(c, k, dtype)
@@ -446,6 +500,27 @@ def _wide_layout(k: int, dtype: torch.dtype) -> dict:
                 cluster_size=RING_CLUSTER, ring_stages=stages,
                 chunk_channels=ech, width=c, order="rows", w2_pad=rowpad,
                 w3_pad=rowpad)
+
+
+def _dwln_smem(c: int) -> int:
+    """The general route's depthwise + LayerNorm pass's dynamic shared
+    memory: a warp a pixel (8 a block) up to C = 1024, else the block (and
+    its reduction's ``GENERAL_REDUCE`` bytes), each pixel's raw f32 sums
+    where they fit within ``DEFAULT_SHARED_MEMORY`` (else recomputed)."""
+    group = 32 if c <= ONE_PASS_MAX_CHANNELS else GENERAL_THREADS
+    red = GENERAL_REDUCE if group == GENERAL_THREADS else 0
+    rows = GENERAL_THREADS // group * c * 4
+    return red + rows if red + rows <= DEFAULT_SHARED_MEMORY else red
+
+
+def general_plan(c: int) -> dict:
+    """``kernel_plan`` of the general route at C channels (any K, E and
+    mode): its threads, the largest shared memory of its three kernels (the
+    products' two stages, or the depthwise pass's raw sums), one block (no
+    cluster); ``csrc/convnext_general.cuh``."""
+    return dict(threads_per_block=GENERAL_THREADS,
+                smem_bytes=max(GENERAL_GEMM_SMEM, _dwln_smem(c)),
+                cluster_size=1)
 
 
 def runs_cluster(c: int) -> bool:
@@ -628,9 +703,13 @@ def chunk_images(w2: torch.Tensor, w3: torch.Tensor, layout: dict):
     return src[pos]
 
 
-def _operand_shapes(c: int, k: int, dtype: torch.dtype) -> tuple:
+def _operand_shapes(c: int, k: int, dtype: torch.dtype, e: int,
+                    general: bool = False) -> tuple:
     """The shapes of :func:`kernel_operands`' five tensors for a unit of C
-    channels at K run on x of ``dtype``."""
+    channels at K with E expansion channels run on x of ``dtype`` (on the
+    general route where ``general``, whatever the shape)."""
+    if general or runs_general(c, k, e):
+        return (k * k, c), (c,), (e, c), (c, e), (c,)
     width = class_width(c, dtype)
     dw = (k * k, width) if runs_cluster(c) else (width, k * k)
     w2, w3 = (4 * width, width), (width, 4 * width)
@@ -647,8 +726,13 @@ def _operand_shapes(c: int, k: int, dtype: torch.dtype) -> tuple:
     return dw, (width,), w2, w3, (width,)
 
 
-def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
-    """The weights as the kernel takes them for x of ``dtype``: dw [C', K²]
+def kernel_operands(dtype, dw, ln_scale, w2, w3, gain,
+                    general: bool = False):
+    """The weights as the kernel takes them for x of ``dtype``. On the
+    general route (:func:`runs_general`, or whatever the shape where
+    ``general``) as they lie: dw [K², C], the LayerNorm scale and the gain
+    [C] in float32, W2 [E, C] and W3 [C, E] in x's dtype (bf16 for int8),
+    contiguous on 16 bytes. Else dw [C', K²]
     (on the cluster route transposed, [K², C']), the LayerNorm scale and
     the gain [C'] in float32, W2 [4C', C'] and W3 [C', 4C'] in x's dtype
     (bf16 for int8), contiguous on 16 bytes, with C' = ``class_width(C,
@@ -659,13 +743,15 @@ def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
     columns of W3 are zeros. A layout that streams W2 and W3 through its
     ring takes them as its chunks' images (:func:`chunk_images`), one
     tensor given as both W2 and W3."""
-    c, k = ln_scale.numel(), dw.shape[-1]
+    c, k, e = ln_scale.numel(), dw.shape[-1], w2.shape[0]
     w_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
     dw_f = dw.reshape(c, k * k).float().contiguous()
     ln_f = ln_scale.float().contiguous()
     gain_f = gain.float().contiguous()
     w2_io = _aligned(w2.to(w_dtype).contiguous())
     w3_io = _aligned(w3.to(w_dtype).contiguous())
+    if general or runs_general(c, k, e):
+        return _aligned(dw_f.t().contiguous()), ln_f, w2_io, w3_io, gain_f
     cluster = runs_cluster(c)
     pad = class_width(c, dtype) - c
     if pad:
@@ -675,19 +761,20 @@ def kernel_operands(dtype, dw, ln_scale, w2, w3, gain):
         w3_io = F.pad(w3_io, (0, 4 * pad, 0, pad))
     if cluster:
         dw_f = dw_f.t().contiguous()
-    elif kernel_supports(c, k):
+    else:
         lay = _layout(c, k, dtype)
         if lay["ring_stages"]:
             w2_io = w3_io = chunk_images(w2_io, w3_io, lay)
     return dw_f, ln_f, w2_io, w3_io, gain_f
 
 
-def _check_operands(operands, x, c, k):
+def _check_operands(operands, x, c, k, e, general=False):
     """Raise unless ``operands`` are :func:`kernel_operands`' layout for a
-    unit of C channels and K x K taps run on x (shapes, dtypes, device,
-    16-byte starts): the kernel reads them without bounds."""
+    unit of C channels, K x K taps and E expansion channels run on x (on
+    the general route where ``general``): shapes, dtypes, device, 16-byte
+    starts; the kernel reads them without bounds."""
     w_dtype = torch.bfloat16 if x.dtype == torch.int8 else x.dtype
-    want = _operand_shapes(c, k, x.dtype)
+    want = _operand_shapes(c, k, x.dtype, e, general)
     dtypes = (torch.float32, torch.float32, w_dtype, w_dtype, torch.float32)
     if len(operands) != 5 or any(
             tuple(t.shape) != s or t.dtype != d or t.device != x.device
@@ -698,7 +785,8 @@ def _check_operands(operands, x, c, k):
 
 
 def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
-                   scale_in=None, scale_out=None, operands=None):
+                   scale_in=None, scale_out=None, operands=None, *,
+                   general: bool = False):
     """One fused ConvNext residual unit. x: [B, H, W, C] float32/bfloat16,
     or int8 codes with their ``scale_in`` and the ``scale_out`` to
     requantize with (int8 mode: int8 in, int8 out); dw: [C, 1, K, K] or
@@ -707,10 +795,19 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
     weights as :func:`kernel_operands` gives them for x's dtype, prepared
     once by the caller (``ConvNextBlock.kernel_operands`` caches them), so
     that the launch runs no cast, pad or copy of them; without, they are
-    prepared on every call. Returns [B, H, W, C] in x's dtype."""
+    prepared on every call (for ``general``, as :func:`kernel_operands`
+    gives them with ``general=True``). ``general``: run the general route
+    whatever the shape (a reading beside the one-pass layouts; the shapes
+    those take run them otherwise). Any C, odd K and E, as JAX's kernel; an
+    even K raises ``ValueError`` on every device. Returns [B, H, W, C] in
+    x's dtype."""
     global launches, int8_launches
     if x.ndim != 4:
         raise ValueError(f"convnext_block takes [B, H, W, C], got {x.shape}")
+    k = dw.shape[-1]
+    if k % 2 == 0:
+        raise ValueError(f"convnext_block takes an odd K (K = 2·pad + 1, as "
+                         f"JAX's kernel), got K={k}")
     int8 = x.dtype == torch.int8
     if (scale_in is not None, scale_out is not None) != (int8, int8):
         raise ValueError("convnext_block: int8 x takes scale_in and "
@@ -728,12 +825,10 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
         raise TypeError(f"convnext_block kernel takes float32, bfloat16 or "
                         f"int8, got {x.dtype}")
     b, h, w, c = x.shape
-    k = dw.shape[-1]
     e = w2.shape[0]
     if not kernel_supports(c, k, e):
-        raise NotImplementedError(
-            f"convnext_block kernel takes C = 1..{MAX_CHANNELS} at K in "
-            f"{KERNEL_KS} with E = 4C, got C={c} K={k} E={e}")
+        raise ValueError(f"convnext_block kernel does not take C={c} K={k} "
+                         f"E={e}")
     if (tuple(w2.shape) != (e, c) or tuple(w3.shape) != (c, e)
             or dw.numel() != c * k * k or ln_scale.numel() != c
             or gain.numel() != c):
@@ -743,27 +838,42 @@ def convnext_block(x, dw, ln_scale, w2, w3, gain, slope: float = 0.1,
         raise ValueError("convnext_block: weights must be on x's device")
     s_in, inv_out = int8_constants(scale_in, scale_out) if int8 else (1.0,
                                                                        1.0)
+    forced, general = general, general or runs_general(c, k, e)
     x = _aligned(x.contiguous())
     if operands is None:
-        operands = kernel_operands(x.dtype, dw, ln_scale, w2, w3, gain)
+        operands = kernel_operands(x.dtype, dw, ln_scale, w2, w3, gain,
+                                   general=general)
     else:
-        _check_operands(operands, x, c, k)
+        _check_operands(operands, x, c, k, e, general)
     dw_f, ln_f, w2_io, w3_io, gain_f = operands
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     lib = cuda_build.library()
+    code = _DTYPE_CODES[x.dtype]
+    # the general route's t and h (none on the one-pass layouts); the
+    # library's dispatcher picks the route by shape, its general entry
+    # point runs the general route at any shape (``general``)
+    nscratch = (lib.bid_convnext_general_scratch_bytes(b * h * w, c, e, code)
+                if general else 0)
+    scratch = (torch.empty(nscratch, dtype=torch.uint8, device=x.device)
+               if general else None)
+    entry = (lib.bid_convnext_block_general if forced
+             else lib.bid_convnext_block)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.bid_convnext_block(
+        rc = entry(
             x.data_ptr(), out.data_ptr(), dw_f.data_ptr(), ln_f.data_ptr(),
             w2_io.data_ptr(), w3_io.data_ptr(), gain_f.data_ptr(),
-            b, h, w, c, k, _DTYPE_CODES[x.dtype], float(slope), s_in,
-            inv_out, stream)
+            None if scratch is None else scratch.data_ptr(), nscratch,
+            b, h, w, c, k, e, code, float(slope), s_in, inv_out, stream)
     cuda_build.check(lib, rc, "convnext_block kernel")
     if int8:
         int8_launches += 1
     else:
         launches += 1
     shape_launches[str(x.dtype).split(".")[-1], c, k] += 1
+    if benchmarking.byte_counters:
+        benchmarking.add_kernel_bytes(benchmarking.convnext_bytes(
+            b, h, w, c, k, x.dtype, e=e, general=general))
     return out

@@ -47,6 +47,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import benchmarking
 from . import cuda_build
 
 # kernel launches made by corrupt_noise (the plain path does not count)
@@ -238,4 +239,6 @@ def corrupt_noise(seed: int, batch: torch.Tensor,
                 int(use_mul), int(use_add), int(bool(round_values)), stream)
         cuda_build.check(lib, rc, "corrupt_noise kernel")
         launches += 1
+        if benchmarking.byte_counters:
+            benchmarking.add_kernel_bytes(benchmarking.noise_bytes(n, b))
     return (out, params) if return_params else out

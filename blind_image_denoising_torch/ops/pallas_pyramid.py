@@ -91,6 +91,7 @@ from typing import Tuple
 
 import torch
 
+from .. import benchmarking
 from . import cuda_build
 from .precision import has_tangent
 
@@ -194,6 +195,9 @@ def band_smooth_forward(x: torch.Tensor, kernel_size: int
             b, h, w, c, int(kernel_size), _DTYPE_CODES[x.dtype], stream)
     cuda_build.check(lib, rc, "band_smooth kernel")
     launches += 1
+    if benchmarking.byte_counters:
+        benchmarking.add_kernel_bytes(benchmarking.band_bytes(
+            b, h, w, c, x.dtype))
     return band, smooth
 
 
@@ -298,6 +302,9 @@ def band_smooth_bwd(g_band: torch.Tensor, g_smooth: torch.Tensor,
             int(kernel_size), _DTYPE_CODES[gb.dtype], stream)
     cuda_build.check(lib, rc, "band_smooth_bwd kernel")
     bwd_launches += 1
+    if benchmarking.byte_counters:
+        benchmarking.add_kernel_bytes(benchmarking.band_bytes(
+            b, h, w, c, gb.dtype))
     return dx
 
 
@@ -418,4 +425,7 @@ def band_split(x: torch.Tensor,
             b, h, w, c, int(kernel_size), _DTYPE_CODES[x.dtype], stream)
     cuda_build.check(lib, rc, "band_split kernel")
     split_launches += 1
+    if benchmarking.byte_counters:
+        benchmarking.add_kernel_bytes(benchmarking.band_bytes(
+            b, h, w, c, x.dtype, split=True))
     return band, down

@@ -21,6 +21,12 @@ drive the two paths of the port through the entry points a user calls:
   b16 @ 128² with the noise kernel on — first one injected batch
   against the port's float32 CPU loss and gradients, then 3 warm-up and
   20 timed steps and 3 profiled ones;
+* benchmarking: the port's ``benchmarking`` module (``bench.py``'s
+  protocol): ``time_chain_slope`` over K = 5, 15, 30 chained
+  applications with 5 repeats and ``roofline_check`` against
+  ``cost_bytes`` of one application, for K1 (32, 3) alone on 8×256²
+  bf16, the flagship served b8 @ 256² and the train step b16 @ 128²;
+  fails where K1's row reads ``ok: false``;
 * fused: ``unet_laplacian_v6`` at full width from a seeded init, bf16,
   through ``inference/fused.py``: ``calibrate_fused`` on 8 images (4
   clean, 4 at σ = 25), then the float and the int8 fused forwards and
@@ -45,10 +51,15 @@ drive the two paths of the port through the entry points a user calls:
   C = 512, a cluster of 4 blocks) with every level fused on b8 @ 256²,
   27 K1 a forward, 3 at (512, 5); and that model at depth 6 (level 5 at
   C = 1024, a cluster of 8) with every level fused on b8 @ 256², 33 K1 a
-  forward, 3 at (1024, 5); no unit on its PyTorch branch, the
-  fused_depth4 phase's bars, and each model's float32 fused forward
+  forward, 3 at (1024, 5); and that model at depth 7 (level 6 at
+  C = 2048, K1's general route: three kernels through scratch) on b8 @
+  256², 39 K1 a forward, 3 at (2048, 5); no unit on its PyTorch branch,
+  the fused_depth4 phase's bars, and each model's float32 fused forward
   counted by (C, K); then K1 off the (C, K) of its own timed
-  (``FUSEDW_K1_ROWS``);
+  (``FUSEDW_K1_ROWS``, the general route's (2048, 5) in every mode and
+  (32, 9) 8×256² bf16 among them) and the general route at (512, 5) and
+  (1024, 5) as a reading beside the clusters
+  (``FUSEDW_GENERAL_READINGS``);
 * wider_shapes: the multiplier-1.5 depth-5 v6 trained in bf16 at
   b16 @ 128² with K3 and Adam (one batch against the port's f32 CPU step
   at the train phase's bars, then 6 steps with exact launches, K2's
@@ -56,7 +67,10 @@ drive the two paths of the port through the entry points a user calls:
   bf16 hydra of a v6 whose kernel sizes are 7 at b8 @ 256² (12 K1 a
   forward, 6 each at (32, 7) and (64, 7), no unit on its branch; its f32
   forward card vs CPU); every kernel input of both against the plain
-  versions, K2's backward at C = 108 and K1 at K = 7 timed;
+  versions, K2's backward at C = 108 and K1 at K = 7 timed; then K1's
+  general route through the wrapper at the card tests' shapes
+  (``GENERAL_CHECKS``: C above 1024, K = 9 and 11, E = 2C and 3C) in
+  every mode against its plain version, each launch counted;
 * band_split: the decimating band split (K4) through its op, the only
   entry point it has, at the flagship's level-0/1 band shapes 8×256²×32
   and 8×128²×64 and at 8×32²×108 (C of no whole 16-byte vectors; the
@@ -263,6 +277,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the card's peak rates and the counts of each kernel's work, one formula
+# for the port and this script (the port imports no JAX)
+from blind_image_denoising_torch.benchmarking import (  # noqa: F401
+    FP32_OPS_PER_S, H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S, SASS_RATES,
+    SM_CLOCKS_PER_S, TENSOR_BF16_OPS_PER_S, TENSOR_TF32_OPS_PER_S,
+    band_bound_ms, convnext_bound_ms, cost_bytes, noise_bound_ms,
+    roofline_check, time_chain_slope)
+
 FLAGSHIP = "unet_laplacian_v6_tpu_scratch"
 TRAIN_CONFIG = "unet_laplacian_v6_tpu"
 TRAIN_BATCH, TRAIN_SIZE = 16, 128          # the JAX bench's train protocol
@@ -291,19 +313,7 @@ SEED = 0
 # |diff| <= this times max |plain output| (3xTF32 keeps float32 accuracy:
 # about 1e-6 of it in a CPU emulation of the split)
 K1_F32_RELATIVE = 1e-5
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 L2_BYTES = 50 * 2**20            # H100 SXM L2 cache
-TENSOR_BF16_OPS_PER_S = 989e12   # dense bf16 tensor cores
-TENSOR_TF32_OPS_PER_S = 495e12   # dense TF32 tensor cores
-FP32_OPS_PER_S = 67e12           # float32 on the CUDA cores
-# thread-instructions per second of one H100 SXM (132 SMs at the 1.98 GHz
-# boost clock) per SM and clock (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0): four schedulers issue
-# one warp-instruction each (128), float32 add/multiply/FMA 128, 32-bit
-# integer add/multiply/logic/shift/compare 64, special functions (MUFU)
-# and type conversions 16
-SM_CLOCKS_PER_S = 132 * 1.98e9
-SASS_RATES = dict(issue=128, float=128, integer=64, mufu_or_convert=16)
 
 
 def log(phase: str, **fields) -> None:
@@ -444,52 +454,6 @@ def band_smooth_library(x, k):
     return x - smooth, smooth
 
 
-def convnext_bound_ms(b, h, w, c, k, dtype, cuda_cores=False):
-    """The larger of bytes over the memory rate and operations over the
-    peak rate for their type. In bf16 and int8 the two products run on
-    the tensor cores and the depthwise, LayerNorm and epilogue on the
-    CUDA cores; the two units run at once, so each is a bound of its own
-    and the least time is the largest of the three, not a sum. int8
-    moves 1-byte codes, keeps bf16 weights, and adds a dequantize and a
-    requantize multiply per element. float32 keeps float32 accuracy with
-    the products as three TF32 passes on the tensor cores (3xTF32), so
-    their part is three times the products over the TF32 rate; with
-    ``cuda_cores`` it is every operation on the CUDA cores instead (the
-    float32 bound before the products moved to the tensor cores)."""
-    px = b * h * w
-    elt = torch.tensor([], dtype=dtype).element_size()
-    w_elt = 2 if dtype == torch.int8 else elt
-    e = 4 * c
-    nbytes = 2 * px * c * elt + (k * k * c + 2 * c) * 4 + 2 * e * c * w_elt
-    products = px * 4 * c * e
-    other = px * (2 * k * k * c + 8 * c + e
-                  + (2 * c if dtype == torch.int8 else 0))
-    if dtype != torch.float32:
-        ops_s = max(products / TENSOR_BF16_OPS_PER_S, other / FP32_OPS_PER_S)
-    elif cuda_cores:
-        ops_s = (products + other) / FP32_OPS_PER_S
-    else:
-        ops_s = max(3 * products / TENSOR_TF32_OPS_PER_S,
-                    other / FP32_OPS_PER_S)
-    return max(nbytes / HBM_BYTES_PER_S, ops_s) * 1e3, \
-        ("bytes" if nbytes / HBM_BYTES_PER_S >= ops_s else "operations")
-
-
-def band_bound_ms(b, h, w, c, k, dtype, backward=False, split=False):
-    """Forward (read x, write band and smooth; k² adds, a multiply and a
-    subtract per element) and backward (read g_band and g_smooth, write
-    dx; a subtract, a multiply and an add per tap, and the final add)
-    move the same 3n elements; the decimating split (``split``) writes
-    a quarter of the smooth, 2.25n."""
-    n = b * h * w * c
-    elt = torch.tensor([], dtype=dtype).element_size()
-    byte_s = (2.25 if split else 3) * n * elt / HBM_BYTES_PER_S
-    ops_s = n * ((3 * k * k + 1) if backward else (k * k + 2)) \
-        / FP32_OPS_PER_S
-    return max(byte_s, ops_s) * 1e3, ("bytes" if byte_s >= ops_s
-                                      else "operations")
-
-
 def k1_instantiations(lib, pallas_convnext):
     """Shared memory, registers, spill bytes, threads per block, resident
     blocks per SM, cluster size, the clusters (blocks of the one-block
@@ -501,34 +465,51 @@ def k1_instantiations(lib, pallas_convnext):
     that spills, differs from ``kernel_plan`` (its resident blocks fewer
     than the plan's ``min_blocks_per_sm``), fits no cluster on the card or
     is laid out at another width than ``class_width`` (the width the
-    wrapper pads the weights to) fails."""
+    wrapper pads the weights to) fails. The same for the general route's
+    instantiations at each (C, K, E) of
+    ``pallas_convnext.GENERAL_SAMPLE_SHAPES`` (the largest shared memory,
+    registers and spills of its three kernels; its plan
+    ``general_plan``: cluster 1, width C, no ring); a (C, K) of
+    SAMPLE_SHAPES reported with that signature fails too (its one-pass
+    route kept)."""
     import ctypes
     out = []
+    shapes = [(c, k, 4 * c) for c, k in pallas_convnext.SAMPLE_SHAPES] + \
+        list(pallas_convnext.GENERAL_SAMPLE_SHAPES)
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
-        for c, k in pallas_convnext.SAMPLE_SHAPES:
+        for c, k, e in shapes:
             vals = (ctypes.c_int * 9)()
-            rc = lib.bid_convnext_block_info(c, k, code, vals)
+            rc = lib.bid_convnext_block_info(c, k, e, code, vals)
             if rc != 0:
-                raise AssertionError(f"K1 info {dtype} ({c}, {k}): {rc}")
+                raise AssertionError(f"K1 info {dtype} ({c}, {k}, {e}): "
+                                     f"{rc}")
+            general = pallas_convnext.runs_general(c, k, e)
             out.append(dict(zip(
                 ("smem_bytes", "registers", "local_bytes",
                  "threads_per_block", "blocks_per_sm", "cluster_size",
                  "active_clusters", "width", "ring_stages"), vals),
-                dtype=str(dtype).split(".")[-1], C=c, K=k))
+                dtype=str(dtype).split(".")[-1], C=c, K=k,
+                **({"E": e, "route": "general"} if general else {})))
             if out[-1]["local_bytes"] > 0:
                 raise AssertionError(f"K1 instantiation spills: {out[-1]}")
             if out[-1]["active_clusters"] < 1 or out[-1]["blocks_per_sm"] < 1:
                 raise AssertionError(f"K1 instantiation fits no cluster: "
                                      f"{out[-1]}")
-            plan = dict(pallas_convnext.kernel_plan(c, k, dtype))
+            plan = dict(pallas_convnext.kernel_plan(c, k, dtype, e))
             plan.pop("chunk_channels", None)
             plan.setdefault("ring_stages", 0)
             if out[-1]["blocks_per_sm"] < plan.pop("min_blocks_per_sm", 1) \
                     or any(out[-1][key] != want for key, want in plan.items()) \
                     or out[-1]["width"] != pallas_convnext.class_width(
-                        c, dtype):
+                        c, dtype, k, e):
                 raise AssertionError(f"K1 built as {out[-1]}, planned as "
                                      f"{plan}")
+            signature = [out[-1][key] for key in (
+                "smem_bytes", "cluster_size", "width", "ring_stages")]
+            if not general and signature == [pallas_convnext.general_plan(
+                    c)["smem_bytes"], 1, c, 0]:
+                raise AssertionError(f"K1 ({c}, {k}) reported as the "
+                                     f"general route: {out[-1]}")
     return out
 
 
@@ -672,29 +653,6 @@ def kernel_sass(obj, function):
     if len(found) != 1:
         raise AssertionError(f"{function}: {len(found)} functions in {obj}")
     return found[0]
-
-
-def noise_bound_ms(n_per_sample, flags):
-    """K3's least time over B samples of n float32 elements, from the work
-    and not from any kernel's code: the larger of one read and one write
-    of every element over the memory rate, Philox4x32-10's 40 32-bit
-    multiplies (10 rounds of two 32x32 -> 64-bit products) per element of
-    a sample with a noise on at the integer rate, and the four special
-    functions (log, square root, sine, cosine) of each Box-Muller pair
-    (one per element and noise on) at the MUFU rate. ``flags``: the
-    noises on in each sample (0, 1 or 2). The units run at once, so the
-    bound is the largest of the three, not their sum. Returns (ms, "bytes"
-    or "operations", the three times in ms)."""
-    n_on = sum(1 for f in flags if f)
-    times = dict(
-        bytes=2 * len(flags) * n_per_sample * 4 / HBM_BYTES_PER_S,
-        integer=40 * n_on * n_per_sample
-        / (SASS_RATES["integer"] * SM_CLOCKS_PER_S),
-        mufu=4 * sum(flags) * n_per_sample
-        / (SASS_RATES["mufu_or_convert"] * SM_CLOCKS_PER_S))
-    by = max(times, key=times.get)
-    return times[by] * 1e3, ("bytes" if by == "bytes" else "operations"), \
-        {k: t * 1e3 for k, t in times.items()}
 
 
 def sass_issue_ms(n_per_sample, flags, paths):
@@ -3343,7 +3301,10 @@ def fused_depth4_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
 # (c) without self-attention, C = 32/64/128/256/512, every level fused, 27
 # K1 a forward, 3 at (512, 5) (level 4 has no decoder stage), at b8 @ 256²;
 # (d) as (c) at depth 6, C = 32 ... 1024, every level fused, 33 K1 a
-# forward, 6 at (512, 5) and 3 at (1024, 5), at b8 @ 256² (level 5 at 8²).
+# forward, 6 at (512, 5) and 3 at (1024, 5), at b8 @ 256² (level 5 at 8²);
+# (e) as (c) at depth 7, C = 32 ... 2048, every level fused, 39 K1 a
+# forward, 3 at (2048, 5) on K1's general route, at b8 @ 256² (level 6 at
+# 4²).
 # name -> (overrides, fused levels, batch)
 FUSEDW_DEPTH = 5
 FUSEDW_LEVELS = (0, 1, 2, 3)
@@ -3352,7 +3313,9 @@ FUSEDW_MODELS = {"c256": ({}, FUSEDW_LEVELS, FUSED_BATCH),
                           FUSED_BATCH),
                  "c512": ({"use_self_attention": False}, (0, 1, 2, 3, 4), 8),
                  "c1024": ({"use_self_attention": False, "depth": 6},
-                           (0, 1, 2, 3, 4, 5), 8)}
+                           (0, 1, 2, 3, 4, 5), 8),
+                 "c2048": ({"use_self_attention": False, "depth": 7},
+                           (0, 1, 2, 3, 4, 5, 6), 8)}
 # the fused forwards against the bf16 hydra: the fused phase's bars (float
 # 2.0 gray levels, int8 max(4, the model's own int8 error in f32 + 0.5)), or,
 # where the seeded model's roundings already spread past them, no farther
@@ -3388,7 +3351,17 @@ FUSEDW_K1_ROWS = [("bf16", 256, 5, 32, 32, ("c256", "encoder_3_0")),
                   ("f32", 512, 5, 8, 16, ("c512", "encoder_4_0")),
                   ("bf16", 1024, 5, 8, 8, ("c1024", "encoder_5_0")),
                   ("int8", 1024, 5, 8, 8, ("c1024", "encoder_5_0")),
-                  ("f32", 1024, 5, 8, 8, ("c1024", "encoder_5_0"))]
+                  ("f32", 1024, 5, 8, 8, ("c1024", "encoder_5_0")),
+                  ("bf16", 2048, 5, 8, 4, ("c2048", "encoder_6_0")),
+                  ("int8", 2048, 5, 8, 4, ("c2048", "encoder_6_0")),
+                  ("f32", 2048, 5, 8, 4, ("c2048", "encoder_6_0")),
+                  ("bf16", 32, 9, 8, 256, None)]
+# the general route at shapes the one-pass clusters take, a reading beside
+# their rows (``convnext_block(..., general=True)``; not rerouted): (512, 5)
+# 8×16² and (1024, 5) 8×8² bf16 on the models' weights
+FUSEDW_GENERAL_READINGS = [("bf16", 512, 5, 8, 16, ("c512", "encoder_4_0")),
+                           ("bf16", 1024, 5, 8, 8,
+                            ("c1024", "encoder_5_0"))]
 
 
 def fusedw_depth(name):
@@ -3430,8 +3403,110 @@ PARENT_K1_COLD_MS = {
     ("bf16", 108, 5, (32, 32, 32, 108)): 0.0777}
 
 
+# the benchmarking phase: bench.py's protocol (K values and repeats)
+BENCH_K_VALUES = (5, 15, 30)
+BENCH_REPS = 5
+
+
+def benchmarking_phase(pallas_convnext, model, state, step, batch, dw,
+                       smi):
+    """The port's ``benchmarking`` module on the card, ``bench.py``'s
+    protocol: ``time_chain_slope`` (K 5 / 15 / 30 chained applications, 5
+    repeats, each chain ended by one ``float`` of a scalar) and
+    ``roofline_check`` of its time a unit against ``cost_bytes`` of one
+    application, for K1 (32, 3) alone on 8×256² bf16 (the flagship's
+    ``encoder_0_0`` weights, operands prepared once, chained on its own
+    output), the flagship served b8 @ 256² (its bf16 hydra's forward,
+    chained on its finest output as ``bench.py`` chains it) and the train
+    step b16 @ 128² (bf16, the noise kernel, chained on its state; the
+    last step's loss read). Logs one line each; raises where K1's row
+    reads ``ok: false`` (a time below its own bytes over the HBM rate)."""
+    rng = np.random.default_rng(SEED + 26)
+    x, wts, slope = unit_inputs(model, "encoder_0_0", 8, 256, 256,
+                                torch.bfloat16, rng)
+    ops = pallas_convnext.kernel_operands(x.dtype, **wts)
+
+    def k1(v):
+        return pallas_convnext.convnext_block(v, slope=slope, operands=ops,
+                                              **wts)
+
+    images = torch.from_numpy(add_noise(synthetic_images(
+        8, 256, 256, rng), 25.0, rng).astype(np.float32)).permute(
+            0, 3, 1, 2).contiguous().cuda()
+
+    def serve(v):
+        with torch.inference_mode():
+            return model(v)[0].float()
+
+    def train(st):
+        return step(st, batch, depth_weights=dw)
+
+    def chained(apply, read):
+        def make_chain(k):
+            def chain(v):
+                for _ in range(k):
+                    v = apply(v)
+                return read(v)
+            return chain
+        return make_chain
+
+    items = {
+        "convnext_block (32,3) 8x256^2 bf16": (
+            chained(k1, lambda v: v.float().sum()), x, k1),
+        "flagship served b8 @ 256^2 bf16": (
+            chained(serve, lambda v: v.sum()), images, serve),
+        f"train step b{TRAIN_BATCH} @ {TRAIN_SIZE}^2 bf16": (
+            chained(lambda st: train(st[0]), lambda st: st[1][
+                "total_loss"]), (state, None), lambda st: train(st[0])),
+    }
+    rows = {}
+    for name, (make_chain, arg, once) in items.items():
+        result = time_chain_slope(make_chain, (arg,), k_values=BENCH_K_VALUES,
+                                  reps=BENCH_REPS)
+        nbytes = cost_bytes(once, arg)
+        roof = roofline_check(result["unit_s"], nbytes)
+        rows[name] = dict(result, bytes_per_unit=nbytes, **roof)
+        log("benchmarking", item=name, unit_ms=result["unit_s"] * 1e3,
+            slope_spread_ms=[t * 1e3 for t in result["slope_spread_s"]],
+            r2=result["r2"], times_s=result["times"],
+            bytes_per_unit=nbytes, roofline_unit_ms=roof[
+                "roofline_unit_s"] * 1e3,
+            fraction_of_roofline=roof["fraction_of_roofline"],
+            ok=roof["ok"], k_values=BENCH_K_VALUES, reps=BENCH_REPS,
+            smi=smi)
+    k1_row = rows["convnext_block (32,3) 8x256^2 bf16"]
+    if not k1_row["ok"]:
+        raise AssertionError(f"benchmarking: K1's time beats its bytes "
+                             f"over the HBM rate: {k1_row}")
+    return rows
+
+
+def general_split_ms(fn, n=5):
+    """Device ms a call of each of K1's general route's three kernels
+    (torch.profiler over ``n`` calls of ``fn``): the depthwise +
+    LayerNorm pass, the expansion and the projection. A diagnostic: on
+    the H100 the profiler kept only part of these launches, so the parts
+    under-count and only their shares may be read."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = dict(depthwise_layernorm=0.0, expansion=0.0, projection=0.0)
+    for evt in prof.key_averages():
+        if "general_dwln_kernel" in evt.key:
+            part = "depthwise_layernorm"
+        elif "general_gemm_kernel" in evt.key:
+            part = ("projection" if "true>" in evt.key or "Lb1E" in evt.key
+                    else "expansion")
+        else:
+            continue
+        split[part] += device_us(evt, "self_") / n / 1e3
+    return split
+
+
 def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
-                **fields):
+                general=False, **fields):
     """K1 on ``x`` (float32; ``mode`` "f32", "bf16" or "int8", whose scales
     are 1/127 and 4/127 of max |x|) warm and cold beside its bound, its
     plain version and its library chain, through the wrapper as a caller
@@ -3442,7 +3517,9 @@ def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
     launch on the operands prepared once, as the model's units launch it.
     Logs and returns the row, with the parent's cold ms
     (``PARENT_K1_COLD_MS``) where the row's layout was redesigned; raises
-    past a bar."""
+    past a bar. ``general``: the general route whatever the shape (a
+    reading; its operands prepared once are ``kernel_operands(...,
+    general=True)``)."""
     from blind_image_denoising_torch.ops.precision import exact_float32
     b, h, w, c = x.shape
     parent = PARENT_K1_COLD_MS.get((mode, c, wts["dw"].shape[-1],
@@ -3462,19 +3539,27 @@ def k1_row_time(pallas_convnext, mode, x, wts, slope, smi, share_differing,
         x = x.to(torch.float32 if mode == "f32" else torch.bfloat16)
         library = lambda: convnext_library(  # noqa: E731
             x, slope=slope, **{n: v.to(x.dtype) for n, v in wts.items()})
-    ops = pallas_convnext.kernel_operands(x.dtype, **wts)
+    if general or pallas_convnext.runs_general(c, k, wts["w2"].shape[0]):
+        fields = dict(fields, route="general")
+    kwk = dict(kw, general=general)      # the kernel's call
+    ops = pallas_convnext.kernel_operands(x.dtype, **wts, general=general)
     with exact_float32():                # the f32 library chain: TF32 off
-        got = pallas_convnext.convnext_block(x, **kw, **wts)
-        cached = pallas_convnext.convnext_block(x, **kw, **wts, operands=ops)
+        got = pallas_convnext.convnext_block(x, **kwk, **wts)
+        cached = pallas_convnext.convnext_block(x, **kwk, **wts,
+                                                operands=ops)
         ref = pallas_convnext.convnext_block_plain(x, **kw, **wts)
         t = dict(
-            ms=cuda_ms(lambda: pallas_convnext.convnext_block(x, **kw,
+            ms=cuda_ms(lambda: pallas_convnext.convnext_block(x, **kwk,
                                                               **wts)),
             cold_ms=cuda_ms(lambda xc: pallas_convnext.convnext_block(
-                xc, **kw, **wts), inputs=cold_copies(x)),
+                xc, **kwk, **wts), inputs=cold_copies(x)),
             plain_ms=cuda_ms(lambda: pallas_convnext.convnext_block_plain(
                 x, **kw, **wts), iters=3, warmup=1),
             library_ms=cuda_ms(library))
+        if fields.get("route") == "general":
+            fields = dict(fields, general_split_ms=general_split_ms(
+                lambda: pallas_convnext.convnext_block(x, **kwk, **wts,
+                                                       operands=ops)))
     diff = (got.float() - ref.float()).abs()
     err = float(diff.max())
     if not torch.equal(got, cached):
@@ -3523,11 +3608,13 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
     the f32 fused
     forward with K1's plain version on the card against the CPU (<=
     ``FUSED_F32_CARD_VS_CPU_MEAN``; through the kernel read), the forwards
-    timed; then K1 at ``FUSEDW_K1_ROWS`` timed. Returns (launch counts
-    summed over the phase, K1's launches by (dtype name, C, K), the
-    largest bf16 and int8 differences from their plain versions of the
-    launches off the (C, K) of their own up to C = 256, the bf16, int8 and
-    f32 ones at 256 < C <= 512 and of those above, the timed rows)."""
+    timed; then K1 at ``FUSEDW_K1_ROWS`` timed, and the general route at
+    ``FUSEDW_GENERAL_READINGS`` (a reading). Returns (launch counts summed
+    over the phase, K1's launches by (dtype name, C, K), the largest bf16
+    and int8 differences from their plain versions of the launches off the
+    (C, K) of their own up to C = 256, the bf16, int8 and f32 ones at
+    256 < C <= 512, at 512 < C <= 1024 and above (the general route), the
+    timed rows)."""
     from blind_image_denoising_torch.ops import pallas_convnext
 
     def int8_share(c):
@@ -3539,7 +3626,8 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
     models, problems = {}, []
     total, by_shape = None, {}
     errors = dict(bf16=0.0, int8=0, bf16_c512=0.0, int8_c512=0,
-                  bf16_c1024=0.0, int8_c1024=0, f32_c512=0.0, f32_c1024=0.0)
+                  bf16_c1024=0.0, int8_c1024=0, f32_c512=0.0, f32_c1024=0.0,
+                  bf16_general=0.0, int8_general=0, f32_general=0.0)
     for name, (overrides, fused_levels, batch) in FUSEDW_MODELS.items():
         depth = fusedw_depth(name)
         cfg = copy.deepcopy(v6cfg)
@@ -3675,16 +3763,22 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
             errors[key + "_c512"] = max([errors[key + "_c512"]] + [
                 r[err] for r in recs if 256 < r["C"] <= 512])
             errors[key + "_c1024"] = max([errors[key + "_c1024"]] + [
-                r[err] for r in recs if r["C"] > 512])
+                r[err] for r in recs if 512 < r["C"] <= 1024])
+            errors[key + "_general"] = max([errors[key + "_general"]] + [
+                r[err] for r in recs if r["C"] > 1024])
         errors["f32_c512"] = max([errors["f32_c512"]] + [
             r["max_abs_err"] for r in f32_launches if 256 < r["C"] <= 512])
         errors["f32_c1024"] = max([errors["f32_c1024"]] + [
-            r["max_abs_err"] for r in f32_launches if r["C"] > 512])
+            r["max_abs_err"] for r in f32_launches if 512 < r["C"] <= 1024])
+        errors["f32_general"] = max([errors["f32_general"]] + [
+            r["max_abs_err"] for r in f32_launches if r["C"] > 1024])
         del run
     if problems:
         raise AssertionError(f"fused_widths: {problems}")
     rows = []
-    for mode, c, k, b, hw, unit in FUSEDW_K1_ROWS:
+    for mode, c, k, b, hw, unit, general in (
+            [(*r, False) for r in FUSEDW_K1_ROWS]
+            + [(*r, True) for r in FUSEDW_GENERAL_READINGS]):
         if unit is None:
             wts, slope, on = seeded_unit_weights(c, k), 0.1, "seeded"
         else:
@@ -3696,9 +3790,10 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
             np.float32)).cuda()
         rows.append(k1_row_time(
             pallas_convnext, mode, x, wts, slope, smi, int8_share(c),
-            path="fused_widths", weights=on,
-            timed_only=(mode, c, k) in FUSEDW_TIMED_ONLY,
-            calls_per_forward=0 if unit is None else 3 if unit[1].startswith(
+            general=general, path="fused_widths", weights=on,
+            timed_only=general or (mode, c, k) in FUSEDW_TIMED_ONLY,
+            calls_per_forward=0 if unit is None or general
+            else 3 if unit[1].startswith(
                 f"encoder_{fusedw_depth(unit[0]) - 1}") else 6))
         del x
     # K2 at the multiplier-1.5 hydra's level-3 band split: C = 108 is no
@@ -3726,6 +3821,96 @@ def fused_widths_phase(v6cfg, rng, smi, read_counts, counts, reset_counts,
     if not within:
         raise AssertionError(f"K2 at C = 108 against its plain version: {err}")
     return total, by_shape, errors, rows
+
+
+# the general route's checks (tests/test_torch_cuda.py's card cases): (C,
+# K, E) on [B, H, W], every mode: above C = 1024 (1025's rows of no whole
+# 16-byte vectors, 1040, 1536, 2048 at the depth-7 model's level-6 shape
+# and a ragged one) at K = 5 and 4096 at K = 1; C = 1 and 32 at K = 9 and
+# 11; (48, 5) at E = 2C and 3C; pixels no multiple of the products' tiles
+GENERAL_CHECKS = [((1025, 5, 4100), (2, 9, 13)),
+                  ((1040, 5, 4160), (3, 7, 11)),
+                  ((1536, 5, 6144), (2, 8, 9)),
+                  ((2048, 5, 8192), (8, 4, 4)),
+                  ((2048, 5, 8192), (2, 9, 7)),
+                  ((4096, 1, 16384), (1, 5, 7)),
+                  ((1, 9, 4), (3, 37, 45)),
+                  ((1, 11, 4), (2, 19, 23)),
+                  ((32, 9, 128), (3, 37, 45)),
+                  ((32, 11, 128), (2, 19, 23)),
+                  ((48, 5, 96), (4, 33, 35)),
+                  ((48, 5, 144), (4, 33, 35))]
+
+
+def general_route_checks(pallas_convnext, read_counts, counts, reset_counts,
+                         smi):
+    """K1's general route through the wrapper on CUDA tensors at
+    ``GENERAL_CHECKS`` in every mode: each launches the kernel (counted;
+    nothing raises), two launches give the same bits, and the output holds
+    to its plain version at the kernel tests' bars (bf16 max(0.05, 1 ulp),
+    int8 codes within 1 on at most 1e-3 of them, f32 1e-3 and
+    ``K1_F32_RELATIVE`` of max |plain output|). Seeded weights made on the
+    card (std 0.3 depthwise, 1/sqrt(fan-in) products). Returns the largest
+    differences by mode."""
+    worst = dict(bf16=0.0, int8=0, f32=0.0)
+    reset_counts()
+    n_launches = dict(convnext_block=0, convnext_block_int8=0)
+    for (c, k, e), bhw in GENERAL_CHECKS:
+        if not pallas_convnext.runs_general(c, k, e):
+            raise AssertionError(f"({c}, {k}, {e}) is no general shape")
+        g = torch.Generator(device="cuda").manual_seed(c * 100 + k + e)
+        rand = lambda *shape: torch.randn(  # noqa: E731
+            shape, generator=g, device="cuda")
+        wts = dict(dw=0.3 * rand(c, 1, k, k),
+                   ln_scale=0.5 + torch.rand(c, generator=g, device="cuda"),
+                   w2=rand(e, c) / c ** 0.5, w3=rand(c, e) / e ** 0.5,
+                   gain=0.3 + 0.6 * torch.rand(c, generator=g,
+                                               device="cuda"))
+        x = rand(*bhw, c)
+        for mode in ("f32", "bf16", "int8"):
+            kw = {}
+            if mode == "int8":
+                kw = dict(scale_in=float(x.abs().max()) / 127,
+                          scale_out=float(pallas_convnext.convnext_block_plain(
+                              x, **wts).abs().max()) / 127)
+                v = pallas_convnext.quantize(x, kw["scale_in"])
+                n_launches["convnext_block_int8"] += 2
+            else:
+                v = x.to(torch.float32 if mode == "f32" else torch.bfloat16)
+                n_launches["convnext_block"] += 2
+            got = pallas_convnext.convnext_block(v, **wts, **kw)
+            again = pallas_convnext.convnext_block(v, **wts, **kw)
+            ref = pallas_convnext.convnext_block_plain(v, **wts, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            err = float(diff.max())
+            if mode == "int8":
+                share = float((diff > 0).float().mean())
+                ok = err <= 1 and share <= 1e-3
+            elif mode == "f32":
+                share = err / float(ref.abs().max())
+                ok = err <= 1e-3 and share <= K1_F32_RELATIVE
+            else:
+                share = None
+                ok = bool((diff <= torch.clamp(bf16_ulp(ref), min=0.05)
+                           ).all())
+            same = torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+            worst[mode] = max(worst[mode], err)
+            log("general_route", C=c, K=k, E=e, shape=[*bhw, c], mode=mode,
+                max_abs_err=err, **({"share_differing": share}
+                                    if mode == "int8" else
+                                    {"relative_err": share}
+                                    if mode == "f32" else {}),
+                same_bits=same, smi=smi)
+            if not ok or not same or got.shape != v.shape \
+                    or got.dtype != v.dtype:
+                raise AssertionError(f"general route ({c}, {k}, {e}) "
+                                     f"{mode}: err {err}, share {share}, "
+                                     f"same bits {same}")
+    if read_counts() != counts(**n_launches):
+        raise AssertionError(f"general route launches {read_counts()}, "
+                             f"want {n_launches}")
+    return worst
 
 
 # ------------------------------------------------------------ wider shapes
@@ -6739,6 +6924,13 @@ def main() -> int:
             t = dict(t, ms=ms_copies, kernel_only_ms=t["ms"])
         entries.setdefault("band_smooth_bwd", []).append((1, t, bound, by))
 
+    # ---- phase 6b: the port's benchmarking module: chained slopes and the
+    # byte roofline of K1 alone, the served flagship and the train step
+    t0 = time.perf_counter()
+    benchmarking_phase(pallas_convnext, model, state, step, batch, dw, smi)
+    bench_s = time.perf_counter() - t0
+    reset_counts()
+
     # ---- phase 7: the fused int8 serving path of unet_laplacian_v6,
     # against the standard bf16 hydra on the same weights
     cal_clean = synthetic_images(4, FUSED_SIZE, FUSED_SIZE, rng)
@@ -6960,16 +7152,19 @@ def main() -> int:
                            reset_counts, max_share_differing)
     fusedw_s = time.perf_counter() - t0
     # K1's launches in the phase off the (C, K) of their own up to C = 256
-    # (the classes), at 256 < C <= 512 and above, by dtype name
+    # (the classes), at 256 < C <= 512, up to 1024 and above (the general
+    # route), by dtype name
     fusedw_classes, fusedw_c512, fusedw_c1024 = {}, {}, {}
+    fusedw_general = {}
     for (dtype, c, k), n in fusedw_shapes.items():
         if (c, k) not in pallas_convnext.OWN_SHAPES:
             into = (fusedw_classes if c <= 256 else fusedw_c512 if c <= 512
-                    else fusedw_c1024)
+                    else fusedw_c1024 if c <= 1024 else fusedw_general)
             into[dtype] = into.get(dtype, 0) + n
 
     def width_band(c):
-        return "classes" if c <= 256 else "c512" if c <= 512 else "c1024"
+        return ("classes" if c <= 256 else "c512" if c <= 512 else "c1024"
+                if c <= 1024 else "general")
 
     def row_entries(rows, dtype, band):
         return [(r["calls_per_forward"], {k: r[k] for k in (
@@ -6981,21 +7176,22 @@ def main() -> int:
     # per the two depth-5 float fused forwards (bf16: 6 K1 at each class
     # shape) and per the C = 256 model's int8 fused forward (6 at (256, 5));
     # per the no-attention depth-5 model's fused forwards (3 at (512, 5));
-    # per the depth-6 model's (3 at (1024, 5))
-    for band in ("classes", "c512", "c1024"):
+    # per the depth-6 model's (3 at (1024, 5)); per the depth-7 model's (3
+    # at (2048, 5), the general route)
+    for band in ("classes", "c512", "c1024", "general"):
         entries[f"convnext_block_{band}"] = row_entries(
             fusedw_rows, "bfloat16", band)
         entries[f"convnext_block_int8_{band}"] = row_entries(
             fusedw_rows, "int8", band)
     # per each no-attention model's f32 fused forward (3 at (512, 5), 3 at
-    # (1024, 5))
-    for band in ("c512", "c1024"):
+    # (1024, 5), 3 at (2048, 5))
+    for band in ("c512", "c1024", "general"):
         entries[f"convnext_block_f32_{band}"] = row_entries(
             fusedw_rows, "float32", band)
         errors[f"convnext_block_f32_{band}"] = fusedw_errors[f"f32_{band}"]
     errors["convnext_block_classes"] = fusedw_errors["bf16"]
     errors["convnext_block_int8_classes"] = fusedw_errors["int8"]
-    for band in ("c512", "c1024"):
+    for band in ("c512", "c1024", "general"):
         errors[f"convnext_block_{band}"] = fusedw_errors[f"bf16_{band}"]
         errors[f"convnext_block_int8_{band}"] = fusedw_errors[f"int8_{band}"]
 
@@ -7008,6 +7204,17 @@ def main() -> int:
     entries.update(wider_rows)
     errors["band_smooth_bwd_ragged"] = wider_errors["band_smooth_bwd"]
     errors["convnext_block_k7"] = wider_errors["convnext_block_k7"]
+    # the general route at its card-test shapes, every mode
+    t0 = time.perf_counter()
+    general_worst = general_route_checks(pallas_convnext, read_counts,
+                                         counts, reset_counts, smi)
+    wider_s += time.perf_counter() - t0
+    errors["convnext_block_general"] = max(
+        errors["convnext_block_general"], general_worst["bf16"])
+    errors["convnext_block_int8_general"] = max(
+        errors["convnext_block_int8_general"], general_worst["int8"])
+    errors["convnext_block_f32_general"] = max(
+        errors["convnext_block_f32_general"], general_worst["f32"])
 
     # ---- phase 8: the decimating band split (K4) through its op, at the
     # flagship's levels and at a C of no whole 16-byte vectors
@@ -7194,13 +7401,15 @@ def main() -> int:
     phase_s["parallel"] = time.perf_counter() - t0
     log("new_phases", seconds=dict(phase_s, fused_depth4=fused4_s,
                                    fused_widths=fusedw_s,
-                                   wider_shapes=wider_s),
+                                   wider_shapes=wider_s,
+                                   benchmarking=bench_s),
         script_s=time.perf_counter() - script_start,
         fused_depth4_launches=fused4_counts,
         fused_widths_launches=fusedw_counts,
         fused_widths_class_launches=fusedw_classes,
         fused_widths_c512_launches=fusedw_c512,
         fused_widths_c1024_launches=fusedw_c1024,
+        fused_widths_general_launches=fusedw_general,
         wider_shapes_launches=wider_launches,
         c128_launches=dict(unet_laplacian_family=family_c128,
                            fused_depth4=fused4_c128),
@@ -7269,6 +7478,12 @@ def main() -> int:
         replaces[f"convnext_block_f32_{band}"] = (
             "blind_image_denoising_torch/csrc/convnext_cluster_f32.cu",
             replaces["convnext_block"][1])
+    # the general route (C above 1024, any odd K, any E): three kernels in
+    # csrc/convnext_general.cu, every mode
+    for name in ("convnext_block_general", "convnext_block_int8_general",
+                 "convnext_block_f32_general"):
+        replaces[name] = ("blind_image_denoising_torch/csrc/"
+                          "convnext_general.cu", replaces["convnext_block"][1])
     replaces["band_smooth_bwd_ragged"] = replaces["band_smooth_bwd"]
     replaces["band_split_ragged"] = replaces["band_split"]
     per = {"convnext_block": "serving forward, b8 @ 256^2",
@@ -7310,6 +7525,16 @@ def main() -> int:
            "convnext_block_f32_c512": "no-attention depth-5 v6 f32 fused "
                                       "forward: 3 x (512,5), timed at "
                                       "8x16^2",
+           "convnext_block_general": "no-attention depth-7 v6 float fused "
+                                     "forward, b8 @ 256^2: 3 x (2048,5) at "
+                                     "8x4^2 (the general route)",
+           "convnext_block_int8_general": "no-attention depth-7 v6 int8 "
+                                          "fused forward, b8 @ 256^2: 3 x "
+                                          "(2048,5) at 8x4^2 (the general "
+                                          "route)",
+           "convnext_block_f32_general": "no-attention depth-7 v6 f32 fused "
+                                         "forward: 3 x (2048,5), timed at "
+                                         "8x4^2 (the general route)",
            "convnext_block_f32_c1024": "no-attention depth-6 v6 f32 fused "
                                        "forward: 3 x (1024,5), timed at "
                                        "8x8^2",
@@ -7336,15 +7561,16 @@ def main() -> int:
                        for path, per in (("unet_laplacian_family",
                                           family_c128),
                                          ("fused_depth4", fused4_c128))}
-        elif name.endswith(("_classes", "_c512", "_c1024")):
+        elif name.endswith(("_classes", "_c512", "_c1024", "_general")):
             # launches off the (C, K) of their own up to C = 256 (the
-            # float modes or int8), at 256 < C <= 512 or above (bf16, int8
-            # or f32), by path
+            # float modes or int8), at 256 < C <= 512, up to 1024 or above
+            # (bf16, int8 or f32), by path
             modes = (("int8",) if "int8" in name else ("float32",)
                      if "_f32_" in name else ("bfloat16", "float32")
                      if name.endswith("_classes") else ("bfloat16",))
             launched = (fusedw_c512 if name.endswith("_c512")
                         else fusedw_c1024 if name.endswith("_c1024")
+                        else fusedw_general if name.endswith("_general")
                         else fusedw_classes)
             by_path = {"fused_widths": sum(launched.get(m, 0)
                                            for m in modes)}
@@ -7390,6 +7616,10 @@ def main() -> int:
             **({"branch_units_per_forward": family_branch}
                if name == "convnext_block" else {}),
             per=per[name]))
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels launched no time on their paths: "
+                             f"{idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -228,6 +228,14 @@ BID_STUB_T(float)
 BID_STUB_T(bf16)
 BID_STUB_T(int8_t)
 #undef BID_STUB_T
+int launch_general(int, const void*, void*, const void*, const void*,
+                   const void*, const void*, const void*, void*, long long,
+                   int, int, int, int, int, int, float, float, float,
+                   cudaStream_t) {
+  return BID_ERR_UNSUPPORTED;
+}
+int info_general(int, int, int*) { return BID_ERR_UNSUPPORTED; }
+long long general_scratch_bytes(long long, int, int, int) { return 0; }
 }  // namespace bid_k1
 """
 
@@ -654,12 +662,41 @@ def build(name, source, work, out_dir, sass=False, k7=False):
             print(json.dumps(dict(source=name, **line)), flush=True)
     lib = ctypes.CDLL(str(lib_path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bid_convnext_block.argtypes = [p, p, p, p, p, p, p,
-                                       i, i, i, i, i, i, f, f, f, p]
+    # a library with the general route takes E (and the route's scratch);
+    # one from before it takes neither
+    lib.takes_e = hasattr(lib, "bid_convnext_general_scratch_bytes")
+    if lib.takes_e:
+        lib.bid_convnext_block.argtypes = [p, p, p, p, p, p, p, p,
+                                           ctypes.c_longlong, i, i, i, i,
+                                           i, i, i, f, f, f, p]
+        lib.bid_convnext_block_info.argtypes = [i, i, i, i,
+                                                ctypes.POINTER(i)]
+    else:
+        lib.bid_convnext_block.argtypes = [p, p, p, p, p, p, p,
+                                           i, i, i, i, i, i, f, f, f, p]
+        lib.bid_convnext_block_info.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.bid_convnext_block.restype = i
-    lib.bid_convnext_block_info.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.bid_convnext_block_info.restype = i
     return lib
+
+
+def k1_info(lib, c, k, code, info):
+    """``bid_convnext_block_info`` of (C, K) at E = 4C, in either ABI."""
+    if lib.takes_e:
+        return lib.bid_convnext_block_info(c, k, 4 * c, code, info)
+    return lib.bid_convnext_block_info(c, k, code, info)
+
+
+def k1_launch(lib, x, out, dw, ln, w2, w3, gain, b, h, w, c, k, code,
+              slope, s_in, inv_out, stream):
+    """``bid_convnext_block`` at E = 4C (a one-pass layout: no scratch),
+    in either ABI."""
+    head = (x, out, dw, ln, w2, w3, gain)
+    if lib.takes_e:
+        return lib.bid_convnext_block(*head, None, 0, b, h, w, c, k, 4 * c,
+                                      code, slope, s_in, inv_out, stream)
+    return lib.bid_convnext_block(*head, b, h, w, c, k, code, slope, s_in,
+                                  inv_out, stream)
 
 
 # a K1 kernel's mangled name: I/O type, C, K, ragged
@@ -1115,7 +1152,7 @@ def main() -> int:
         operands, infos = {}, {}
         for name, lib in libs.items():
             info = (ctypes.c_int * 9)(*[0] * 5, 1, 0, 0, 0)
-            rc = lib.bid_convnext_block_info(c, k, pc._DTYPE_CODES[x.dtype],
+            rc = k1_info(lib, c, k, pc._DTYPE_CODES[x.dtype],
                                              info)
             if rc not in (0, UNSUPPORTED):
                 raise RuntimeError(f"{name}: info {rc}")
@@ -1139,11 +1176,11 @@ def main() -> int:
             if operands[name] is None:
                 raise RuntimeError("no layout for this C")
             lib, (dw, ln, w2, w3, gain) = libs[name], operands[name]
-            rc = lib.bid_convnext_block(
-                x.data_ptr(), out.data_ptr(), dw.data_ptr(), ln.data_ptr(),
-                w2.data_ptr(), w3.data_ptr(), gain.data_ptr(), b, hw, hw,
-                c, k,
-                pc._DTYPE_CODES[x.dtype], 0.1, s_in, inv_out, stream)
+            rc = k1_launch(
+                lib, x.data_ptr(), out.data_ptr(), dw.data_ptr(),
+                ln.data_ptr(), w2.data_ptr(), w3.data_ptr(), gain.data_ptr(),
+                b, hw, hw, c, k, pc._DTYPE_CODES[x.dtype], 0.1, s_in,
+                inv_out, stream)
             if rc != 0:
                 raise RuntimeError(f"launch refused: code {rc}")
             return rc

@@ -116,9 +116,9 @@ def test_band_smooth_kernel_matches_plain(dev, shape, k, dtype):
             assert bool((err <= _bf16_ulp(ref)).all())
 
 
-def _unit_weights(c, k, dev, seed=0):
+def _unit_weights(c, k, dev, seed=0, e=None):
     rng = np.random.default_rng(seed)
-    e = 4 * c
+    e = 4 * c if e is None else e
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
     return dict(
         dw=t(rng.normal(0, 0.3, (c, 1, k, k))),
@@ -204,12 +204,14 @@ def test_convnext_int8_kernel_matches_plain(dev, ck, bhw):
     assert float((dcode == 0).float().mean()) >= 0.999
 
 
-def _ring_unit_matches_plain(dev, c, k, dtype, shape, seed=3, x_seed=None):
+def _ring_unit_matches_plain(dev, c, k, dtype, shape, seed=3, x_seed=None,
+                             e=None):
     """A unit (of a streamed layout: W2 and W3 through the bulk-copy ring
-    of csrc/chunk_ring.cuh, on a cluster of two blocks; or of any other) on
-    x of ``shape`` against its plain version at the kernel tests' bars
-    above; a second launch gives the same bits."""
-    w = _unit_weights(c, k, dev, seed=seed)
+    of csrc/chunk_ring.cuh, on a cluster of two blocks; or of any other,
+    with E expansion channels, 4C by default) on x of ``shape`` against its
+    plain version at the kernel tests' bars above; a second launch gives
+    the same bits, and both launch the kernel."""
+    w = _unit_weights(c, k, dev, seed=seed, e=e)
     g = torch.Generator(device="cpu").manual_seed(
         seed + 5 if x_seed is None else x_seed)
     x = torch.randn(shape, generator=g).to(dev)
@@ -222,9 +224,13 @@ def _ring_unit_matches_plain(dev, c, k, dtype, shape, seed=3, x_seed=None):
     else:
         x = x.to(dtype)
     ops = pallas_convnext.kernel_operands(x.dtype, **w)
+    before = pallas_convnext.launches + pallas_convnext.int8_launches
     got = pallas_convnext.convnext_block(x, **w, **scales, operands=ops)
     again = pallas_convnext.convnext_block(x, **w, **scales, operands=ops)
     torch.cuda.synchronize()
+    assert (pallas_convnext.launches + pallas_convnext.int8_launches
+            == before + 2)
+    assert got.dtype == x.dtype and got.shape == x.shape
     assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
     ref = pallas_convnext.convnext_block_plain(x, **w, **scales)
     diff = (got.float() - ref.float()).abs()
@@ -244,7 +250,7 @@ def _resident_clusters(c, k, dtype):
     import ctypes
     info = (ctypes.c_int * 9)()
     assert cuda_build.library().bid_convnext_block_info(
-        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
+        c, k, 4 * c, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     return info
 
 
@@ -288,7 +294,7 @@ def test_convnext_class_widths_over_many_tiles(dev, ck, dtype):
     c, k = ck
     info = (ctypes.c_int * 9)()
     assert cuda_build.library().bid_convnext_block_info(
-        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
+        c, k, 4 * c, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     assert info[7] == pallas_convnext.class_width(c, dtype) == (
         128 if dtype == torch.float32 and 96 < c <= 112 else -(-c // 16) * 16)
     resident = info[4] * torch.cuda.get_device_properties(
@@ -396,18 +402,163 @@ def test_convnext_cached_operands_launch_the_same_bits(dev):
                                        operands=other)
 
 
-@pytest.mark.parametrize("ck", [(1025, 5), (32, 9)])
+@pytest.mark.parametrize("ck", [(32, 4), (1025, 6)])
 def test_convnext_kernel_rejects_unbuilt_shape(dev, ck):
-    """Outside C <= 1024 at K = 1, 3, 5, 7 the wrapper raises on a CUDA
-    tensor, and so does the library's entry point."""
+    """K1 takes every shape JAX's kernel takes, so what it refuses is what
+    JAX's cannot take: an even K raises ``ValueError`` on a CUDA tensor as
+    on the CPU (K = 2·pad + 1), and the library's entry points refuse it;
+    weights whose shapes do not match x raise ``ValueError`` too."""
     import ctypes
     c, k = ck
     w = _unit_weights(c, k, dev)
     x = torch.zeros((1, 8, 8, c), device=dev)
-    with pytest.raises(NotImplementedError):
-        pallas_convnext.convnext_block(x, **w)
+    for v, wts in ((x, w), (x.cpu(), {n: t.cpu() for n, t in w.items()})):
+        with pytest.raises(ValueError):
+            pallas_convnext.convnext_block(v, **wts)
     assert cuda_build.library().bid_convnext_block_info(
-        c, k, 1, (ctypes.c_int * 9)()) == -1
+        c, k, 4 * c, 1, (ctypes.c_int * 9)()) == -1
+    w = _unit_weights(c, k + 1, dev)
+    for bad in (dict(w, w3=w["w3"][:, :c]), dict(w, gain=w["gain"][:1]),
+                dict(w, dw=w["dw"][:1])):
+        with pytest.raises(ValueError):
+            pallas_convnext.convnext_block(x, **bad)
+
+
+# the general route's card cases: (C, K, E) on [B, H, W]: above C = 1024
+# (ragged rows of no whole 16-byte vectors at 1025; 1040, 1536, and 2048 at
+# a depth-7 no-attention v6's level-6 shape 8 x 4 x 4 and a ragged one) at
+# K = 5, C = 4096 at K = 1; C = 1 and 32 at K = 9 and 11; (48, 5) at E = 2C
+# and 3C; the pixels no multiple of the products' tiles of 64, and from
+# dozens to hundreds of tiles (the expansion's 128 E columns a tile)
+GENERAL_CASES = [((1025, 5, 4100), (2, 9, 13)),
+                 ((1040, 5, 4160), (3, 7, 11)),
+                 ((1536, 5, 6144), (2, 8, 9)),
+                 ((2048, 5, 8192), (8, 4, 4)),
+                 ((2048, 5, 8192), (2, 9, 7)),
+                 ((4096, 1, 16384), (1, 5, 7)),
+                 ((1, 9, 4), (3, 37, 45)),
+                 ((1, 11, 4), (2, 19, 23)),
+                 ((32, 9, 128), (3, 37, 45)),
+                 ((32, 11, 128), (2, 19, 23)),
+                 ((48, 5, 96), (4, 33, 35)),
+                 ((48, 5, 144), (4, 33, 35))]
+
+
+@pytest.mark.parametrize("cke, bhw", GENERAL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_convnext_general_route_matches_plain(dev, cke, bhw, dtype):
+    """Every shape off the one-pass layouts runs the general route (three
+    kernels through scratch in device memory): against its plain version
+    at the kernel tests' bars (bf16 max(0.05, 1 ulp), int8 codes within 1
+    on at most 1e-3 of them, f32 1e-3 and 1e-5 of max |out|), two launches
+    giving the same bits."""
+    c, k, e = cke
+    assert pallas_convnext.runs_general(c, k, e)
+    _ring_unit_matches_plain(dev, c, k, dtype, (*bhw, c), seed=11, e=e)
+
+
+@pytest.mark.parametrize("ck", [(512, 5), (32, 3), (1024, 7)])
+def test_convnext_general_route_at_one_pass_shapes(dev, ck):
+    """``general=True`` runs the general route at a shape the one-pass
+    layouts take (a reading beside them): the same bars against the plain
+    version in every mode, and the same bits on operands prepared once
+    (``kernel_operands(..., general=True)``)."""
+    c, k = ck
+    w = _unit_weights(c, k, dev, seed=12)
+    g = torch.Generator(device="cpu").manual_seed(13)
+    x = torch.randn((2, 9, 11, c), generator=g).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        v = x.to(dtype)
+        got = pallas_convnext.convnext_block(v, **w, general=True)
+        ref = pallas_convnext.convnext_block_plain(v, **w)
+        diff = (got.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            assert float(diff.max()) <= 1e-3
+            assert float(diff.max()) <= 1e-5 * float(ref.abs().max())
+        else:
+            tol = torch.clamp(_bf16_ulp(ref), min=0.05)
+            assert bool((diff <= tol).all()), float(diff.max())
+        ops = pallas_convnext.kernel_operands(dtype, **w, general=True)
+        assert torch.equal(got, pallas_convnext.convnext_block(
+            v, **w, general=True, operands=ops))
+    s_in = float(x.abs().max()) / 127
+    s_out = float(pallas_convnext.convnext_block_plain(
+        x, **w).abs().max()) / 127
+    xq = pallas_convnext.quantize(x, s_in)
+    got = pallas_convnext.convnext_block(xq, scale_in=s_in, scale_out=s_out,
+                                         **w, general=True)
+    ref = pallas_convnext.convnext_block_plain(xq, scale_in=s_in,
+                                               scale_out=s_out, **w)
+    dcode = (got.int() - ref.int()).abs()
+    assert int(dcode.max()) <= 1
+    assert float((dcode == 0).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("cke", pallas_convnext.GENERAL_SAMPLE_SHAPES)
+def test_convnext_general_route_built_as_planned(dev, cke):
+    """The library reports the general route's instantiations as
+    ``general_plan`` has them (the largest shared memory of its three
+    kernels, 256 threads, cluster size 1, width C, no ring), spilling
+    nothing and holding a block an SM; its scratch is t then h, P rounded
+    up to 64 pixels and C, E to 32 elements (bf16, float32 in float32
+    I/O), h 256-byte aligned."""
+    import ctypes
+    c, k, e = cke
+    lib = cuda_build.library()
+    for dtype, code in pallas_convnext._DTYPE_CODES.items():
+        v = (ctypes.c_int * 9)()
+        assert lib.bid_convnext_block_info(c, k, e, code, v) == 0
+        plan = pallas_convnext.kernel_plan(c, k, dtype, e)
+        assert plan == pallas_convnext.general_plan(c)
+        assert (v[0], v[3], v[5], v[7], v[8]) == (
+            plan["smem_bytes"], plan["threads_per_block"], 1, c, 0), list(v)
+        assert v[2] == 0 and v[4] >= 1 and v[6] >= 1, list(v)
+        elt = 4 if dtype == torch.float32 else 2
+        for p in (1, 63, 64, 1000, 8 * 256 * 256):
+            rows = -(-p // 64) * 64
+            t_bytes = rows * (-(-c // 32) * 32) * elt
+            assert lib.bid_convnext_general_scratch_bytes(p, c, e, code) == \
+                -(-t_bytes // 256) * 256 + rows * (-(-e // 32) * 32) * elt
+
+
+@pytest.mark.parametrize("ck", pallas_convnext.SAMPLE_SHAPES)
+def test_convnext_sample_shapes_keep_their_one_pass_route(dev, ck):
+    """Every (C, K) of SAMPLE_SHAPES at E = 4C keeps the route it had
+    before the general route: the library reports its layout (the
+    plan's shared memory and cluster, its width), not the general route's
+    signature (cluster 1 at width C with no ring and the general plan's
+    shared memory)."""
+    import ctypes
+    c, k = ck
+    general = pallas_convnext.general_plan(c)
+    for dtype, code in pallas_convnext._DTYPE_CODES.items():
+        v = (ctypes.c_int * 9)()
+        assert cuda_build.library().bid_convnext_block_info(
+            c, k, 4 * c, code, v) == 0
+        assert not pallas_convnext.runs_general(c, k, 4 * c)
+        plan = pallas_convnext.kernel_plan(c, k, dtype)
+        assert (v[0], v[5]) == (plan["smem_bytes"], plan["cluster_size"])
+        assert (v[0], v[5], v[7], v[8]) != (
+            general["smem_bytes"], 1, c, 0), (dtype, list(v))
+
+
+def test_cost_bytes_of_a_k1_launch_is_its_kernel_byte_count(dev):
+    """``benchmarking.cost_bytes`` of one K1 launch on prepared operands
+    is the bytes the kernel reports (``benchmarking.convnext_bytes``): the
+    wrapper runs no aten operator that moves bytes, on a one-pass layout
+    and on the general route (its scratch counted)."""
+    from blind_image_denoising_torch import benchmarking
+    g = torch.Generator(device="cpu").manual_seed(14)
+    for c, k, e in ((32, 3, 128), (48, 5, 96), (1025, 5, 4100)):
+        w = _unit_weights(c, k, dev, e=e)
+        x = torch.randn((2, 16, 16, c), generator=g).to(dev, torch.bfloat16)
+        ops = pallas_convnext.kernel_operands(x.dtype, **w)
+        got = benchmarking.cost_bytes(
+            lambda: pallas_convnext.convnext_block(x, **w, operands=ops))
+        assert got == benchmarking.convnext_bytes(
+            2, 16, 16, c, k, x.dtype, e=e,
+            general=pallas_convnext.runs_general(c, k, e))
 
 
 @pytest.mark.parametrize("ck", [(c, k) for c in (129, 160, 192, 250, 256)
@@ -493,7 +644,7 @@ def test_convnext_built_plan_matches_kernel_plan(dev, ck):
     for dtype, code in pallas_convnext._DTYPE_CODES.items():
         v = (ctypes.c_int * 9)()
         assert cuda_build.library().bid_convnext_block_info(
-            c, k, code, v) == 0
+            c, k, 4 * c, code, v) == 0
         plan = pallas_convnext.kernel_plan(c, k, dtype)
         assert (v[0], v[3], v[5]) == (
             plan["smem_bytes"], plan["threads_per_block"],
@@ -549,7 +700,7 @@ def test_convnext_cluster_over_many_tiles(dev, ck, dtype):
     x = torch.randn((16, 32, 32, c), generator=g).to(dev)
     info = (ctypes.c_int * 9)()
     assert cuda_build.library().bid_convnext_block_info(
-        c, k, pallas_convnext._DTYPE_CODES[dtype], info) == 0
+        c, k, 4 * c, pallas_convnext._DTYPE_CODES[dtype], info) == 0
     assert info[5] == -(-c // 128) and 16 * 4 * 4 >= 3 * info[6]
     scales = {}
     if dtype == torch.int8:

@@ -436,14 +436,15 @@ def _k1_calls(model, x):
 
 
 @pytest.mark.parametrize("case", ["k7", "depth5_no_attention",
-                                  "depth6_no_attention"])
+                                  "depth6_no_attention",
+                                  "depth7_no_attention"])
 def test_k7_and_c512_v6_units_route_to_k1(case):
-    """The K = 7, depth-5 and depth-6 paths' hydras, at width 1: a
+    """The K = 7, depth-5, depth-6 and depth-7 paths' hydras, at width 1: a
     ``unet_laplacian_v6`` whose encoder and decoder kernel sizes are 7
     sends its (32, 7) and (64, 7) units to K1 (level 2 is its attention
     level), a depth-5 one without self-attention its (512, 5) level 4 too,
-    and a depth-6 one its (1024, 5) level 5: no unit adds to
-    ``branch_units``."""
+    a depth-6 one its (1024, 5) level 5, and a depth-7 one its (2048, 5)
+    level 6 (K1's general route): no unit adds to ``branch_units``."""
     cfg = copy.deepcopy(bidt.load_config(
         bidt.CONFIGS_DICT["unet_laplacian_v6"])["model"])
     if case == "k7":
@@ -454,10 +455,14 @@ def test_k7_and_c512_v6_units_route_to_k1(case):
         cfg["backbone"].update(width=1, depth=5, use_self_attention=False)
         want, hw = {(32, 5): 2, (64, 5): 2, (128, 5): 2, (256, 5): 2,
                     (512, 5): 1}, 64
-    else:
+    elif case == "depth6_no_attention":
         cfg["backbone"].update(width=1, depth=6, use_self_attention=False)
         want, hw = {(32, 5): 2, (64, 5): 2, (128, 5): 2, (256, 5): 2,
                     (512, 5): 2, (1024, 5): 1}, 64
+    else:
+        cfg["backbone"].update(width=1, depth=7, use_self_attention=False)
+        want, hw = {(32, 5): 2, (64, 5): 2, (128, 5): 2, (256, 5): 2,
+                    (512, 5): 2, (1024, 5): 2, (2048, 5): 1}, 128
     model = model_builder(cfg).hydra.eval().requires_grad_(False)
     calls, branch = _k1_calls(model, torch.rand(
         (1, 3, hw, hw), generator=torch.Generator().manual_seed(0)) * 255)

@@ -230,9 +230,9 @@ def test_band_smooth_without_grad_is_the_forward_only():
     assert band.grad_fn is not None
 
 
-def _jax_weights(C, K, seed=0):
+def _jax_weights(C, K, seed=0, e=None):
     rng = np.random.default_rng(seed)
-    E = 4 * C
+    E = 4 * C if e is None else e
     return dict(
         dw_w=rng.normal(0, 0.3, (C, K * K)).astype(np.float32),
         ln_scale=rng.uniform(0.5, 1.5, (C, 1)).astype(np.float32),
@@ -254,7 +254,8 @@ def _torch_args(w, C, K):
                                 (128, 3), (32, 7), (64, 7), (108, 7),
                                 (256, 7), (384, 5), (512, 5), (640, 5),
                                 (640, 7), (1024, 5), (1024, 7), (72, 5),
-                                (88, 3)])
+                                (88, 3), (1040, 5), (2048, 3), (32, 9),
+                                (48, 5, 96)])
 def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     """The plain version against JAX's reference (atol 1e-4) and JAX's
     Pallas kernel in interpret mode, which rounds t and h to bf16: no
@@ -267,10 +268,14 @@ def test_convnext_plain_matches_jax_reference_and_pallas(ck):
     160 (C = 640) and 233 (C = 1024), where float32's summation order
     alone moves an output by up to 1.6e-4 (ten float32 ulps of 233): there
     the atol is 1e-6 of max |out| (2.3e-4 at C = 1024), and the images
-    are 2 rows high, which keeps the two references cheap."""
-    C, K = ck
+    are 2 rows high, which keeps the two references cheap. The general
+    route's shapes are held the same way: C above 1024 ((1040, 5), (2048,
+    3); (2048, 1) is held to the reference alone below, as JAX's kernel
+    cannot run K = 1 in interpret mode: its zero-row pad copy), K = 9, and
+    E = 2C at (48, 5) (a third entry: E)."""
+    C, K, E = ck if len(ck) == 3 else (*ck, 4 * ck[0])
     H, W = (8, 128) if C <= 512 else (2, 128)  # Pallas tiles 128 lanes
-    w = _jax_weights(C, K)
+    w = _jax_weights(C, K, e=E)
     x = np.random.default_rng(2).normal(0, 1, (2, H, W, C)).astype(
         np.float32)
     got = pallas_convnext.convnext_block_plain(torch.from_numpy(x),
@@ -290,11 +295,13 @@ def test_convnext_plain_matches_jax_reference_and_pallas(ck):
 
 
 @pytest.mark.parametrize("ck", [(32, 1), (64, 1), (128, 1), (256, 1),
-                                (72, 1)])
+                                (72, 1), (2048, 1)])
 def test_convnext_plain_at_k1_matches_jax_reference(ck):
     """K1's plain version at K = 1 (the decoders of unet_laplacian_v3,
-    _v4 and _v5: one depthwise tap, no halo; and the classes' widths)
-    against JAX's ``convnext_block_reference``, float32, atol 1e-4."""
+    _v4 and _v5: one depthwise tap, no halo; the classes' widths; and the
+    general route at C = 2048) against JAX's ``convnext_block_reference``,
+    float32, atol 1e-4 (above C = 512, where these weights give outputs in
+    the hundreds, 1e-6 of max |out|, as the Pallas test above)."""
     C, K = ck
     w = _jax_weights(C, K, seed=5)
     x = np.random.default_rng(6).normal(0, 1, (2, 9, 13, C)).astype(
@@ -303,7 +310,8 @@ def test_convnext_plain_at_k1_matches_jax_reference(ck):
                                                **_torch_args(w, C, K))
     ref = np.asarray(convnext_block_reference(jnp.asarray(x), {
         k: jnp.asarray(v) for k, v in w.items()}))
-    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+    atol = 1e-4 if C <= 512 else 1e-6 * float(np.abs(ref).max())
+    np.testing.assert_allclose(got.numpy(), ref, atol=atol)
     assert pallas_convnext.kernel_supports(C, K, 4 * C)
 
 
@@ -1110,15 +1118,18 @@ def test_unit_caches_the_kernels_operands():
 
 
 def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
-    """K1 takes a unit only at the shapes it takes (C up to 1024 at K = 1,
-    3, 5, 7, E = 4C) with its options; every other unit runs its branch,
-    counted once per forward in ``pallas_convnext.branch_units``, and
-    never calls the kernel."""
+    """K1 takes a unit at every shape JAX's kernel takes (any C, odd K and
+    E: off C <= 1024 at K = 1, 3, 5, 7 with E = 4C on its general route)
+    with its options; every other unit (an option, an even K) runs its
+    branch, counted once per forward in ``pallas_convnext.branch_units``,
+    and never calls the kernel."""
     for (c, k) in pallas_convnext.SAMPLE_SHAPES:
         assert ConvNextBlock(c, k, 4 * c).kernel_route
-    for args, kw in (((1025, 5, 4100), {}), ((32, 9, 128), {}),
-                     ((1040, 1, 4160), {}), ((16, 5, 48), {}),
-                     ((32, 3, 64), {}), ((64, 3, 128), {}),
+    for args in ((1025, 5, 4100), (32, 9, 128), (1040, 1, 4160),
+                 (16, 5, 48), (32, 3, 64), (64, 3, 128)):
+        assert ConvNextBlock(*args).kernel_route, args
+        assert pallas_convnext.runs_general(*args), args
+    for args, kw in (((32, 4, 128), {}),
                      ((32, 3, 128), dict(use_bias=True)),
                      ((32, 3, 128), dict(use_bn=True)),
                      ((32, 3, 128), dict(use_gamma=False)),
@@ -1128,8 +1139,10 @@ def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
                      ((32, 3, 128), dict(out_features=16)),
                      ((32, 3, 128, "relu"), {})):
         assert not ConvNextBlock(*args, **kw).kernel_route, (args, kw)
-    routed, branch = ConvNextBlock(32, 1, 128), ConvNextBlock(32, 1, 64)
-    for u in (routed, branch):
+    routed, branch = ConvNextBlock(32, 1, 128), ConvNextBlock(
+        32, 1, 128, use_bias=True)
+    general = ConvNextBlock(32, 1, 64)
+    for u in (routed, branch, general):
         for p in u.parameters():
             torch.nn.init.normal_(p, 0, 0.1)
     x = torch.randn(1, 32, 6, 7)
@@ -1143,8 +1156,63 @@ def test_convnext_routing_is_decided_by_the_kernels_shapes_and_options():
             routed(x)
             assert calls and pallas_convnext.branch_units == b0
             calls.clear()
+            yg = general(x)
+            assert calls and pallas_convnext.branch_units == b0
+            calls.clear()
             y = branch(x)
+            assert torch.allclose(yg, x + general.branch(x), atol=1e-5)
         assert not calls and pallas_convnext.branch_units == b0 + 1
         assert torch.allclose(y, x + branch.branch(x))
     finally:
         convnext_mod.convnext_block = real
+
+
+def test_convnext_general_route_plan_operands_and_refusals():
+    """The general route's side in Python: every (C, K) of SAMPLE_SHAPES at
+    E = 4C keeps its one-pass layout (its plan is not ``general_plan``'s),
+    every shape of GENERAL_SAMPLE_SHAPES runs the general route (its plan
+    is ``general_plan``: 256 threads, no cluster, within a block's default
+    48 KB of dynamic shared memory; its width C), whose operands are the
+    weights as they lie (dw [K², C] transposed, W2 [E, C], W3 [C, E]); an
+    even K raises ``ValueError`` in ``kernel_plan`` and in the wrapper on
+    the CPU."""
+    dtypes = (torch.float32, torch.bfloat16, torch.int8)
+    for c, k in pallas_convnext.SAMPLE_SHAPES:
+        assert not pallas_convnext.runs_general(c, k, 4 * c)
+        for dtype in dtypes:
+            assert pallas_convnext.kernel_plan(c, k, dtype) != \
+                pallas_convnext.general_plan(c)
+    for c, k, e in pallas_convnext.GENERAL_SAMPLE_SHAPES:
+        assert pallas_convnext.kernel_supports(c, k, e)
+        assert pallas_convnext.runs_general(c, k, e)
+        assert pallas_convnext.class_width(c, torch.bfloat16, k, e) == c
+        for dtype in dtypes:
+            plan = pallas_convnext.kernel_plan(c, k, dtype, e)
+            assert plan == pallas_convnext.general_plan(c)
+            assert plan["threads_per_block"] == 256
+            assert plan["cluster_size"] == 1
+            assert plan["smem_bytes"] <= 48 * 1024
+    # the depthwise pass's raw sums: 8 pixels of a warp each up to C = 1024
+    # (at 1024 more than the products' 30,720 B), then a block a pixel
+    # with 32 B of reduction, none past 48 KB (recomputed)
+    assert pallas_convnext.general_plan(1024)["smem_bytes"] == 8 * 1024 * 4
+    assert pallas_convnext.general_plan(2048)["smem_bytes"] == 30720
+    assert pallas_convnext._dwln_smem(1025) == 32 + 4 * 1025
+    assert pallas_convnext._dwln_smem(12280) == 32 + 4 * 12280
+    assert pallas_convnext._dwln_smem(12281) == 32
+    c, k, e = 48, 5, 96
+    w = dict(dw=torch.randn(c, 1, k, k), ln_scale=torch.rand(c) + 0.5,
+             w2=torch.randn(e, c), w3=torch.randn(c, e), gain=torch.rand(c))
+    dw, ln, w2, w3, gain = pallas_convnext.kernel_operands(torch.int8, **w)
+    assert torch.equal(dw, w["dw"].reshape(c, k * k).t())
+    assert w2.dtype == w3.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert (w2.shape, w3.shape, ln.shape, gain.shape) == (
+        (e, c), (c, e), (c,), (c,))
+    assert not pallas_convnext.kernel_supports(32, 4)
+    with pytest.raises(ValueError):
+        pallas_convnext.kernel_plan(32, 4, torch.bfloat16)
+    x = torch.randn(1, 6, 6, 8)
+    with pytest.raises(ValueError):
+        pallas_convnext.convnext_block(
+            x, torch.randn(8, 1, 4, 4), torch.ones(8), torch.randn(32, 8),
+            torch.randn(8, 32), torch.ones(8))
